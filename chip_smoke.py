@@ -1,0 +1,314 @@
+#!/usr/bin/env python3
+"""On-card smoke test of the PyTorch/CUDA port (``src/repro_torch``).
+
+Run from the root of a checkout on a machine with one NVIDIA H100:
+
+    python3 chip_smoke.py
+
+Phases, each fatal on failure:
+
+  1. print the card (nvidia-smi name and power limit, torch device name);
+  2. build every CUDA kernel from ``src/repro_torch/kernels/csrc`` with nvcc
+     (build time and ``-Xptxas -v``: registers, shared memory, spills);
+  3. hold each kernel wrapper against its plain PyTorch version on the card
+     at the shapes of the main path, with the tolerance stated, and time
+     kernel, plain version and the card's bound (CUDA events, warmed up);
+  4. hold the batched NMFk score on the card against the same computation
+     on the CPU (plain versions, same draws) at a small size;
+  5. run the paper-scale search (V 1000x1100, k_true 8, k 2..16, 4
+     perturbations, 120 sweeps) through the port's ``ksearch`` on the
+     ``batched`` and the ``threads`` executors, with every launch count set
+     to 0 just before each run and read just after; assert k_optimal == 8
+     and that the run went through its kernels.
+
+The second-to-last line is ``{"kernels": [...]}`` and the last line is
+``{"ok": true, "device": {...}}``. Without a card, or outside a checkout of
+the repository, the script exits non-zero and prints no result.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+# published H100 SXM peaks (NVIDIA data sheet): HBM3 and fp32 on CUDA cores
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS_PER_S = 67e12
+
+MU_TOL = dict(rtol=3e-5, atol=3e-5)  # the reference's own MU kernel tolerance (fp32)
+SUMS_TOL = dict(rtol=1e-4, atol=1e-3)  # the reference's distance tolerance (fp32)
+NMFK_SIL_ATOL = 2e-3  # 120 sweeps of kernel vs plain arithmetic, then the greedy scorer
+NMFK_ERR_RTOL = 1e-3  # the reference's kernel-vs-jnp tolerance for a whole fit
+
+PAPER_ARGS = ["--n", "1000", "--m", "1100", "--k-true", "8", "--k-max", "16",
+              "--n-perturbs", "4", "--nmf-iters", "120", "--device", "cuda", "--quiet"]
+
+
+def smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def bound_ms(n_bytes: float, flops: float) -> tuple[float, str]:
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def time_ms(torch, fn, reps: int = 20) -> float:
+    """Device milliseconds per call. A spin kernel is queued first, so the
+    host enqueues every timed launch before the first one runs and the
+    events see device time, not the host's launch overhead."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)  # ~50 ms of spinning at ~2 GHz
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def compare(torch, got, want, rtol: float, atol: float, what: str) -> float:
+    got, want = got.double(), want.double()
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{what}: non-finite kernel output")
+    err = (got - want).abs()
+    excess = float((err - (atol + rtol * want.abs())).max())
+    max_abs = float(err.max())
+    if excess > 0:
+        raise AssertionError(f"{what}: max abs err {max_abs:.3e} exceeds rtol {rtol} / atol {atol}")
+    return max_abs
+
+
+def mu_problem(torch, dev, lanes: int, k_pad: int, k_effs):
+    """Perturbed V per fit and a masked init, as a wave of NMFk fits has them."""
+    from repro_torch.factorization.nmf import _masked_init
+    from repro_torch.factorization.synthetic import nmf_data
+    from repro_torch.random import make_draws, seeded_generator
+
+    v, _, _ = nmf_data(1000, 1100, 8, seed=1, device=dev)
+    d = make_draws(seeded_generator(7, dev), 1000, 1100, k_pad, lanes, 0.015)
+    vp = (v * d.noise).contiguous()
+    k_eff = torch.tensor(k_effs, device=dev)
+    w, h = _masked_init(vp, k_eff, d.w, d.h, k_pad)
+    return vp, w.contiguous(), h.contiguous(), k_eff
+
+
+def check_mu(torch, dev, ops, ref, records: dict, log) -> None:
+    lanes, n, m = 32, 1000, 1100
+    cases = [
+        ("k_pad=16, ks 9..16", 16, [9 + i // 4 for i in range(lanes)]),
+        ("k_pad=13, ragged, ks 10..13", 13, [10 + (i // 4) % 4 for i in range(lanes)]),
+    ]
+    for label, k, k_effs in cases:
+        v, w, h, k_eff = mu_problem(torch, dev, lanes, k, k_effs)
+        dead = torch.arange(k, device=dev)[None, :] >= k_eff[:, None]  # (L, k) masked comps
+        for name, fn, plain, out_of in (
+            ("mu_update_h", ops.mu_update_h, ref.mu_update_h, "h"),
+            ("mu_update_w", ops.mu_update_w, ref.mu_update_w, "w"),
+        ):
+            got, want = fn(v, w, h), plain(v, w, h)
+            torch.cuda.synchronize()
+            err = compare(torch, got, want, MU_TOL["rtol"], MU_TOL["atol"], f"{name} [{label}]")
+            masked = got[dead] if out_of == "h" else got.transpose(1, 2)[dead]
+            if masked.numel() and float(masked.abs().max()) != 0.0:
+                raise AssertionError(f"{name} [{label}]: masked components are not exactly zero")
+            entry = {"case": label, "shape": {"L": lanes, "n": n, "m": m, "k": k}, "max_abs_err": err}
+            if k == 16:  # the main-path shape: time it
+                n_bytes = 4 * lanes * (n * m + n * k + k * m + k * k + (k * m if out_of == "h" else n * k))
+                flops = lanes * (2 * n * m * k + (2 * k * k * m + 3 * k * m if out_of == "h" else 2 * n * k * k + 3 * n * k))
+                b_ms, b_by = bound_ms(n_bytes, flops)
+                entry.update(
+                    ms=time_ms(torch, lambda: fn(v, w, h)),
+                    plain_ms=time_ms(torch, lambda: plain(v, w, h)),
+                    bound_ms=b_ms, bound_by=b_by,
+                )
+            log(json.dumps({"check": name, **entry}))
+            records.setdefault(name, []).append(entry)
+
+
+def pooled_columns(torch, dev, b: int, p: int, k: int, k_effs, d: int = 1000):
+    """Pooled L2-normalized W columns of b lanes: p near-duplicate copies of
+    k components (NMFk's normal case), labels and one-hot with masked rows."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    base = torch.rand((b, 1, d, k), device=dev, generator=gen)
+    cols = base + 0.01 * torch.rand((b, p, d, k), device=dev, generator=gen)
+    cols = cols / cols.norm(dim=2, keepdim=True)
+    x = cols.transpose(2, 3).reshape(b, p * k, d).contiguous()
+    labels = torch.arange(k, device=dev).repeat(p).expand(b, p * k)
+    active = torch.arange(k, device=dev)[None, :] < torch.tensor(k_effs, device=dev)[:, None]
+    onehot = (F.one_hot(labels, k).float() * active.repeat(1, p)[..., None]).contiguous()
+    return x, onehot
+
+
+def check_sums(torch, dev, ops, ref, records: dict, log) -> None:
+    d = 1000
+    x, onehot = pooled_columns(torch, dev, 8, 4, 16, [9, 10, 11, 12, 13, 14, 15, 16], d)
+    x2, onehot2 = pooled_columns(torch, dev, 1, 4, 13, [13], d)
+    x2, onehot2 = x2[0], onehot2[0]
+    for name, fn, args in (
+        ("silhouette_dist_sums_batched", ops.silhouette_dist_sums_batched, (x, onehot)),
+        ("silhouette_dist_sums", ops.silhouette_dist_sums, (x2, onehot2)),
+    ):
+        # Near-duplicate pooled columns make |x|^2 + |y|^2 - 2 x.y a
+        # cancellation: in fp32 at d=1000 its rounding noise (~1e-6) reaches
+        # ~1e-3 after sqrt in ANY fp32 evaluation order, the plain version's
+        # included. So the kernel is held against the plain version run in
+        # float64 on the same inputs, and the fp32 plain version's own gap
+        # to it is reported beside.
+        got = fn(*args)
+        want = ref.silhouette_dist_sums(*(a.double() for a in args))
+        plain32 = ref.silhouette_dist_sums(*args)
+        torch.cuda.synchronize()
+        err = compare(torch, got, want, SUMS_TOL["rtol"], SUMS_TOL["atol"], name)
+        plain32_err = float((plain32.double() - want).abs().max())
+        xx, oh = args
+        b = xx.shape[0] if xx.dim() == 3 else 1
+        n, k = xx.shape[-2], oh.shape[-1]
+        n_bytes = 4 * b * (n * d + n * k + n * k)  # x (= y) read once, one-hot, out
+        flops = b * (2 * n * n * d + 2 * n * d + 5 * n * n + 2 * n * n * k)
+        b_ms, b_by = bound_ms(n_bytes, flops)
+        entry = {
+            "case": f"b={b}, points={n}, d={d}, k={k}", "max_abs_err": err,
+            "plain_fp32_max_abs_err": plain32_err,
+            "ms": time_ms(torch, lambda: fn(*args)),
+            "plain_ms": time_ms(torch, lambda: ref.silhouette_dist_sums(*args)),
+            "bound_ms": b_ms, "bound_by": b_by,
+        }
+        log(json.dumps({"check": name, **entry}))
+        records.setdefault(name, []).append(entry)
+
+
+def check_nmfk_small(torch, dev, log) -> None:
+    """Batched NMFk on the card (kernels) vs on the CPU (plain), same draws."""
+    from repro_torch.factorization.nmfk import nmfk_score_batched
+    from repro_torch.factorization.synthetic import nmf_data
+    from repro_torch.random import Draws, seeded_draws
+
+    v, _, _ = nmf_data(96, 104, 5, seed=0, device=dev)
+    ks = [2, 3, 4, 5, 6, 7, 8]
+    card_draws = seeded_draws(0, 96, 104, 4, 0.015, dev)
+
+    def cpu_draws(k, k_draw):
+        return Draws(*(t.cpu() for t in card_draws(k, k_draw)))
+
+    on_card = nmfk_score_batched(v, ks, k_pad=8, n_perturbs=4, nmf_iters=120, draws=card_draws)
+    on_cpu = nmfk_score_batched(v.cpu(), ks, k_pad=8, n_perturbs=4, nmf_iters=120, draws=cpu_draws)
+    for field in ("min_silhouette", "mean_silhouette"):
+        gap = float((getattr(on_card, field).cpu() - getattr(on_cpu, field)).abs().max())
+        if not gap <= NMFK_SIL_ATOL:
+            raise AssertionError(f"NMFk {field}: card vs plain gap {gap:.3e} > {NMFK_SIL_ATOL}")
+    rel = float(((on_card.rel_error.cpu() - on_cpu.rel_error) / on_cpu.rel_error).abs().max())
+    if not rel <= NMFK_ERR_RTOL:
+        raise AssertionError(f"NMFk rel_error: card vs plain relative gap {rel:.3e} > {NMFK_ERR_RTOL}")
+    log(json.dumps({"check": "nmfk_score_batched card vs plain", "ks": ks,
+                    "min_silhouette_card": on_card.min_silhouette.tolist(),
+                    "min_silhouette_plain": on_cpu.min_silhouette.tolist(),
+                    "rel_error_max_rel_gap": rel}))
+
+
+def run_search(torch, ops, ksearch, executor: str, log) -> dict[str, int]:
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    out = ksearch.main(PAPER_ARGS + ["--executor", executor])
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    log(json.dumps({"search": executor, "k_optimal": out["k_optimal"], "visited": out["visited"],
+                    "waves": out.get("waves"), "wall_s": out["seconds"],
+                    "max_memory_allocated": peak, "launches": counts}))
+    if out["k_optimal"] != 8:
+        raise AssertionError(f"{executor}: k_optimal {out['k_optimal']} != 8")
+    sums = "silhouette_dist_sums_batched" if executor == "batched" else "silhouette_dist_sums"
+    for name in ("mu_update_h", "mu_update_w", sums):
+        if counts[name] < 1:
+            raise AssertionError(f"{executor}: kernel {name} was never launched on the main path")
+    return counts
+
+
+SOURCES = {
+    "mu_update_h": ("src/repro_torch/kernels/csrc/nmf_update.cu", "src/repro/kernels/nmf_update.py:98"),
+    "mu_update_w": ("src/repro_torch/kernels/csrc/nmf_update.cu", "src/repro/kernels/nmf_update.py:129"),
+    "silhouette_dist_sums": (
+        "src/repro_torch/kernels/csrc/silhouette_sums.cu", "src/repro/kernels/silhouette_sums.py:80"),
+    "silhouette_dist_sums_batched": (
+        "src/repro_torch/kernels/csrc/silhouette_sums.cu", "src/repro/kernels/silhouette_sums.py:156"),
+}
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA card",
+              file=sys.stderr)
+        return 1
+    if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
+        print(f"chip_smoke: no src/repro_torch beside {Path(__file__).name}; run it from a checkout",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.device import resolve
+    from repro_torch.kernels import build, ops, ref
+    from repro_torch.launch import ksearch
+
+    def log(line: str) -> None:
+        print(line, flush=True)
+
+    t_start = time.perf_counter()
+    dev = resolve("cuda")
+    log(smi_line())
+    log(f"torch: {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
+
+    t0 = time.perf_counter()
+    built = build.build()
+    log(f"build: {time.perf_counter() - t0:.2f} s for {len(built)} libraries (parallel nvcc)")
+    for b in built.values():
+        log(f"build {b.name}: {b.path.name} nvcc {b.seconds if b.seconds is None else round(b.seconds, 2)} s")
+        for line in b.log.splitlines():
+            if "ptxas" in line:
+                log(f"  {line.strip()}")
+
+    records: dict[str, list] = {}
+    check_mu(torch, dev, ops, ref, records, log)
+    check_sums(torch, dev, ops, ref, records, log)
+    check_nmfk_small(torch, dev, log)
+
+    by_path = {ex: run_search(torch, ops, ksearch, ex, log) for ex in ("batched", "threads")}
+
+    kernels = []
+    for name, (source, replaces) in SOURCES.items():
+        timed = next(r for r in records[name] if "ms" in r)
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": sum(c[name] for c in by_path.values()),
+            "launches_by_path": {ex: c[name] for ex, c in by_path.items()},
+            "max_abs_err": max(r["max_abs_err"] for r in records[name]),
+            "ms": timed["ms"], "plain_ms": timed["plain_ms"],
+            "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"],
+            "library_ms": None, "case": timed["case"],
+        })
+    log(f"total: {time.perf_counter() - t_start:.1f} s")
+    log(smi_line())
+    log(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
+    }}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,219 @@
+"""NMFk — automatic model determination for NMF (refs [1]-[3] of the paper).
+
+The scorer Binary Bleed wraps for NMF. For a candidate k:
+
+  1. Make ``p`` resampled copies of V (multiplicative uniform noise).
+  2. Factorize each: W^(p), H^(p) — one fit per perturbation, all of them
+     on a leading fit axis (lanes x perturbations on the batched path).
+  3. Pool all W columns (p × k vectors in R^n, L2-normalized) and cluster
+     them into k groups by greedy alignment to perturbation 0 (each group
+     holds exactly one column per perturbation).
+  4. Score: silhouette of the pooled columns under those clusters. Stable
+     k ⇒ tight clusters ⇒ silhouette ≈ 1; overfit k ⇒ silhouette collapses.
+
+Returned score is the ``min`` cluster silhouette, with the mean silhouette
+and the mean relative error. Randomness comes only from the ``Draws`` the
+caller passes; the evaluator and the batched entry point make them from a
+draw source (default: ``repro_torch.random.seeded_draws``).
+"""
+from __future__ import annotations
+
+import math
+from typing import Callable, NamedTuple, Sequence
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.scoring import silhouette_samples_masked
+from repro_torch.random import Draws, DrawSource, seeded_draws, stack_draws
+
+from .batching import batched_lanes
+from .nmf import _nmf_masked, nmf
+
+
+class NMFkScore(NamedTuple):
+    min_silhouette: torch.Tensor
+    mean_silhouette: torch.Tensor
+    rel_error: torch.Tensor
+
+
+def _perturb(v: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+    """Multiplicative resampling: V ∘ noise, noise ~ U[1-eps, 1+eps)."""
+    return v * noise
+
+
+def _greedy_assign(sim: torch.Tensor, k_eff: torch.Tensor, assign: torch.Tensor) -> torch.Tensor:
+    """Greedy argmax matching on a batch of (K, K) similarity matrices.
+
+    sim (B, K, K) with -inf where a pairing is invalid; k_eff (B,) matching
+    steps per matrix; assign (B, K) initial labels. Step t takes the
+    largest remaining entry (i, j) of every matrix with t < k_eff, labels
+    column j with i, and retires row i and column j. Ties go to the first
+    flat index, as ``jnp.argmax`` does. K batched steps replace a loop over
+    every matrix.
+    """
+    b, k, _ = sim.shape
+    sim = sim.clone()
+    assign = assign.clone()
+    rows = torch.arange(b, device=sim.device)
+    idx = torch.arange(k, device=sim.device)
+    for t in range(k):
+        flat = sim.reshape(b, k * k).argmax(dim=1)
+        i, j = flat // k, flat % k
+        ok = t < k_eff
+        assign[rows, j] = torch.where(ok, i, assign[rows, j])
+        kill_row = (idx[None, :] == i[:, None]) & ok[:, None]
+        kill_col = (idx[None, :] == j[:, None]) & ok[:, None]
+        sim = sim.masked_fill(kill_row[:, :, None] | kill_col[:, None, :], -math.inf)
+    return assign
+
+
+def _align_columns(w_all: torch.Tensor) -> torch.Tensor:
+    """Greedy-match each perturbation's columns to perturbation 0's.
+
+    w_all: (p, n, k) L2-normalized columns. Returns labels (p*k,): column j
+    of perturbation q belongs to cluster labels[q*k + j].
+    """
+    p, _, k = w_all.shape
+    sim = w_all[0].T[None] @ w_all  # (p, k_ref, k_cols)
+    k_eff = torch.full((p,), k, device=w_all.device)
+    assign0 = torch.zeros((p, k), dtype=torch.long, device=w_all.device)
+    return _greedy_assign(sim, k_eff, assign0).reshape(p * k)
+
+
+def nmfk_score(v: torch.Tensor, k: int, draws: Draws, nmf_iters: int = 150) -> NMFkScore:
+    """Silhouette-stability score of rank k (higher = stable = good).
+
+    ``draws`` holds the perturbation noise (p, n, m) and the init draws at
+    k_draw >= k (sliced to k).
+    """
+    n = v.shape[0]
+    res = nmf(_perturb(v, draws.noise), k, draws.w, draws.h, iters=nmf_iters)  # (p, n, k)
+    w_all = res.w / torch.clamp(torch.linalg.vector_norm(res.w, dim=1, keepdim=True), min=1e-12)
+    labels = _align_columns(w_all)  # (p*k,)
+    cols = w_all.transpose(1, 2).reshape(-1, n)  # (p*k, n)
+    s = silhouette_samples_masked(cols, labels, num_clusters=k)
+    onehot = F.one_hot(labels, k).to(cols.dtype)
+    sizes = onehot.sum(dim=0)
+    per_cluster = (onehot.T @ s) / torch.clamp(sizes, min=1.0)
+    if k > 1:
+        min_sil, sil_mean = per_cluster.min(), s.mean()
+    else:  # a single cluster: silhouette undefined -> 1.0 (stable)
+        min_sil = sil_mean = torch.ones((), device=v.device)
+    return NMFkScore(min_sil, sil_mean, res.rel_error.mean())
+
+
+def _align_columns_masked(w_all: torch.Tensor, k_eff: torch.Tensor) -> torch.Tensor:
+    """``_align_columns`` per lane at padded width.
+
+    w_all (B, p, n, k_pad), k_eff (B,). Only the first k_eff columns of each
+    perturbation take part; padded columns keep their own index as a
+    throwaway label (their points are masked out of the scorer). Returns
+    labels (B, p*k_pad).
+    """
+    b, p, _, k_pad = w_all.shape
+    sim = w_all[:, :1].transpose(-1, -2) @ w_all  # (B, p, k_ref, k_cols)
+    valid = torch.arange(k_pad, device=w_all.device)[None, :] < k_eff[:, None]  # (B, k_pad)
+    pair_ok = valid[:, None, :, None] & valid[:, None, None, :]
+    sim = sim.masked_fill(~pair_ok, -math.inf).reshape(b * p, k_pad, k_pad)
+    assign0 = torch.arange(k_pad, device=w_all.device).expand(b * p, k_pad)
+    assign = _greedy_assign(sim, k_eff.repeat_interleave(p), assign0)
+    return assign.reshape(b, p * k_pad)
+
+
+def _pooled_w_score(
+    w_all: torch.Tensor, errs: torch.Tensor, k_eff: torch.Tensor, k_pad: int
+) -> NMFkScore:
+    """Score fitted perturbation ensembles, one per lane.
+
+    w_all (B, p, n, k_pad) raw W factors, errs (B, p) rel errors, k_eff (B,).
+    One streamed distance-sum pass over all lanes yields both the mean over
+    active points and NMFk's per-cluster min over active clusters.
+    """
+    b, p, n, _ = w_all.shape
+    active = torch.arange(k_pad, device=w_all.device)[None, :] < k_eff[:, None]  # (B, k_pad)
+    w_all = w_all / torch.clamp(torch.linalg.vector_norm(w_all, dim=2, keepdim=True), min=1e-12)
+    labels = _align_columns_masked(w_all, k_eff)  # (B, p*k_pad)
+    cols = w_all.transpose(2, 3).reshape(b, p * k_pad, n)
+    point_mask = active.repeat(1, p)  # (B, p*k_pad)
+    s = silhouette_samples_masked(cols, labels, num_clusters=k_pad, point_mask=point_mask)
+    n_active = point_mask.sum(dim=-1).to(s.dtype)
+    sil_mean = s.sum(dim=-1) / torch.clamp(n_active, min=1.0)
+    onehot = F.one_hot(labels, k_pad).to(s.dtype) * point_mask[..., None]  # (B, P, k_pad)
+    sizes = onehot.sum(dim=-2)
+    per_cluster = (onehot.transpose(-1, -2) @ s[..., None])[..., 0] / torch.clamp(sizes, min=1.0)
+    min_sil = torch.where(active, per_cluster, torch.full_like(per_cluster, math.inf)).amin(dim=-1)
+    one = torch.ones_like(min_sil)
+    # k=1: a single cluster, silhouette undefined -> 1.0 (stable)
+    min_sil = torch.where(k_eff > 1, min_sil, one)
+    sil_mean = torch.where(k_eff > 1, sil_mean, one)
+    return NMFkScore(min_sil, sil_mean, errs.mean(dim=-1))
+
+
+def _nmfk_score_masked(
+    v: torch.Tensor, k_eff: torch.Tensor, draws: Draws, k_pad: int, nmf_iters: int = 150
+) -> NMFkScore:
+    """``nmfk_score`` for B lanes at rank padded to k_pad and masked to k_eff.
+
+    draws: lane-stacked noise (B, p, n, m) and init draws (B, p, n, k_pad),
+    (B, p, k_pad, m). All B*p fits run as one batched fit; at k_eff == k_pad
+    a lane's draws are the scalar path's.
+    """
+    b, p, n, m = draws.noise.shape
+    vp = _perturb(v, draws.noise).reshape(b * p, n, m)
+    res = _nmf_masked(
+        vp,
+        k_eff.repeat_interleave(p),
+        draws.w.reshape(b * p, n, k_pad),
+        draws.h.reshape(b * p, k_pad, m),
+        k_pad,
+        iters=nmf_iters,
+    )
+    return _pooled_w_score(res.w.reshape(b, p, n, k_pad), res.rel_error.reshape(b, p), k_eff, k_pad)
+
+
+def nmfk_score_batched(
+    v: torch.Tensor,
+    ks: Sequence[int],
+    seed: int = 0,
+    k_pad: int | None = None,
+    n_perturbs: int = 8,
+    nmf_iters: int = 150,
+    epsilon: float = 0.015,
+    draws: DrawSource | None = None,
+) -> NMFkScore:
+    """Score every rank in ``ks`` as one padded NMFk ensemble.
+
+    Fields carry a leading lane axis aligned with ``ks``. Lane i uses
+    ``draws(ks[i], k_pad)`` — by default ``seeded_draws(seed, ...)``, the
+    same schedule as ``make_nmfk_evaluator`` — so at k_pad == ks[i] the
+    scalar and batched scores coincide.
+    """
+    ks_t, _, k_pad = batched_lanes(ks, seed, k_pad, v.device)
+    n, m = v.shape
+    source = draws if draws is not None else seeded_draws(seed, n, m, n_perturbs, epsilon, v.device)
+    lanes = stack_draws([source(int(k), k_pad) for k in ks])
+    return _nmfk_score_masked(v, ks_t, lanes, k_pad, nmf_iters)
+
+
+def make_nmfk_evaluator(
+    v: torch.Tensor,
+    seed: int = 0,
+    n_perturbs: int = 8,
+    nmf_iters: int = 150,
+    epsilon: float = 0.015,
+    statistic: str = "min",
+    draws: DrawSource | None = None,
+) -> Callable[[int], float]:
+    """Binary Bleed ``evaluate(k)`` closure over a dataset."""
+    if statistic not in ("min", "mean"):
+        raise ValueError(f"statistic must be 'min' or 'mean', got {statistic!r}")
+    n, m = v.shape
+    source = draws if draws is not None else seeded_draws(seed, n, m, n_perturbs, epsilon, v.device)
+
+    def evaluate(k: int, should_abort=None) -> float:
+        del should_abort  # one fit per call: no chunk boundary to poll
+        sc = nmfk_score(v, int(k), source(int(k), int(k)), nmf_iters=nmf_iters)
+        return float(sc.min_silhouette if statistic == "min" else sc.mean_silhouette)
+
+    return evaluate

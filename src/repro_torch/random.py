@@ -1,0 +1,88 @@
+"""Explicit randomness for NMFk.
+
+Randomness enters an NMFk score only through a ``Draws`` value: the
+multiplicative perturbation noise of each resampled copy of V and the
+unscaled uniform W/H inits of each perturbation fit. Fit and score
+functions take ``Draws`` explicitly, so a test can hand them the JAX
+reference's draws; by default they come from a ``torch.Generator`` seeded
+from ``(seed, k)`` (the counterpart of the reference's ``fold_in(key, k)``).
+The port's own draws are not the reference's bits.
+"""
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+import torch
+
+_MASK63 = (1 << 63) - 1
+
+
+class Draws(NamedTuple):
+    """The random inputs of one k's perturbation ensemble.
+
+    noise (p, n, m): multiplicative factors in [1 - eps, 1 + eps);
+    w (p, n, k_draw) and h (p, k_draw, m): unscaled init draws in [0.1, 1).
+    ``k_draw`` is k on the scalar path and k_pad on the batched path, so
+    a batched lane at k == k_pad starts from the scalar fit's draws.
+    """
+
+    noise: torch.Tensor
+    w: torch.Tensor
+    h: torch.Tensor
+
+
+def lane_seed(seed: int, k: int) -> int:
+    """Seed of lane k: a fixed mix of (seed, k), the port's ``fold_in``."""
+    return (int(seed) * 0x9E3779B97F4A7C15 + int(k) * 0xBF58476D1CE4E5B9 + 1) & _MASK63
+
+
+def seeded_generator(seed: int, device: str | torch.device) -> torch.Generator:
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(seed))
+    return gen
+
+
+def lane_generator(seed: int, k: int, device: str | torch.device) -> torch.Generator:
+    """A generator on ``device`` seeded from ``(seed, k)``."""
+    return seeded_generator(lane_seed(seed, k), device)
+
+
+def init_draws(
+    generator: torch.Generator, n: int, m: int, k_draw: int, lead: tuple[int, ...] = ()
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Unscaled U[0.1, 1) W (lead..., n, k_draw) and H (lead..., k_draw, m) draws."""
+    dev = generator.device
+    w = torch.empty(lead + (n, k_draw), device=dev).uniform_(0.1, 1.0, generator=generator)
+    h = torch.empty(lead + (k_draw, m), device=dev).uniform_(0.1, 1.0, generator=generator)
+    return w, h
+
+
+def make_draws(
+    generator: torch.Generator, n: int, m: int, k_draw: int, n_perturbs: int, epsilon: float
+) -> Draws:
+    """Perturbation noise then W/H inits for ``n_perturbs`` fits at ``k_draw``."""
+    dev = generator.device
+    noise = torch.empty((n_perturbs, n, m), device=dev).uniform_(
+        1.0 - epsilon, 1.0 + epsilon, generator=generator
+    )
+    w, h = init_draws(generator, n, m, k_draw, (n_perturbs,))
+    return Draws(noise, w, h)
+
+
+DrawSource = Callable[[int, int], Draws]  # (k, k_draw) -> the draws of rank k
+
+
+def seeded_draws(
+    seed: int, n: int, m: int, n_perturbs: int, epsilon: float, device: str | torch.device
+) -> DrawSource:
+    """The default draw source: rank k draws from ``lane_generator(seed, k)``."""
+
+    def draw(k: int, k_draw: int) -> Draws:
+        return make_draws(lane_generator(seed, k, device), n, m, k_draw, n_perturbs, epsilon)
+
+    return draw
+
+
+def stack_draws(draws: list[Draws]) -> Draws:
+    """Per-lane draws stacked on a leading lane axis (all at one k_draw)."""
+    return Draws(*(torch.stack(parts) for parts in zip(*draws)))
