@@ -11,8 +11,8 @@ fixed ``k_pad`` (pass the top of the search range) and the batch axis is
 bucketed by ``repro_torch.factorization.batching.bucket_batch`` (pow2
 rounding, reuse of an already-dispatched bucket). ``WavefrontScheduler(
 max_wave=N)`` sets the plane's ``dispatch_cap`` so padding never exceeds an
-explicit memory bound; ``pad_batch=False`` disables pow2 bucketing.
-``shapes_dispatched`` records the distinct (batch, k_pad) shapes.
+explicit memory bound. ``shapes_dispatched`` records the distinct
+(batch, k_pad) shapes.
 
 Every dispatch observes ``lane_utilization`` (real lanes / dispatched
 lanes). Mesh sharding, the K-Means plane and the elastic plane wait for
@@ -35,10 +35,8 @@ from .nmfk import _perturb, _pooled_w_score, nmfk_score_batched
 class _BatchPlaneBase:
     """Shared padding / bucketing / accounting for the batched planes."""
 
-    def __init__(self, k_pad: int | None, pad_batch: bool, bucket_min: int | None = None):
+    def __init__(self, k_pad: int | None):
         self.k_pad = k_pad
-        self.pad_batch = pad_batch
-        self.bucket_min = bucket_min if bucket_min is not None else 1
         # dispatch cap (number of lanes per batch). WavefrontScheduler sets
         # this to its max_wave so batch padding never exceeds the
         # device-memory bound the cap was chosen for.
@@ -56,14 +54,11 @@ class _BatchPlaneBase:
         if k_pad < max(ks):
             raise ValueError(f"plane k_pad={k_pad} smaller than requested k={max(ks)}")
         n_real = len(ks)
-        target = n_real
-        if self.pad_batch:
-            target = bucket_batch(
-                n_real,
-                bucket_min=self.bucket_min,
-                cap=self.dispatch_cap,
-                compiled=(b for b, kp in self.shapes_dispatched if kp == k_pad),
-            )
+        target = bucket_batch(
+            n_real,
+            cap=self.dispatch_cap,
+            compiled=(b for b, kp in self.shapes_dispatched if kp == k_pad),
+        )
         ks = ks + [ks[0]] * (target - n_real)
         self.n_dispatches += 1
         self.n_evals += n_real
@@ -115,19 +110,14 @@ class NMFkBatchPlane(_BatchPlaneBase):
         epsilon: float = 0.015,
         statistic: str = "min",
         k_pad: int | None = None,
-        pad_batch: bool = True,
-        bucket_min: int | None = None,
         draws: DrawSource | None = None,
     ):
-        super().__init__(k_pad, pad_batch, bucket_min)
+        super().__init__(k_pad)
         if statistic not in ("min", "mean"):
             raise ValueError(f"statistic must be 'min' or 'mean', got {statistic!r}")
         n, m = v.shape
         self.v = v
-        self.seed = seed
-        self.n_perturbs = n_perturbs
         self.nmf_iters = nmf_iters
-        self.epsilon = epsilon
         self.statistic = statistic
         self.draws = draws if draws is not None else seeded_draws(seed, n, m, n_perturbs, epsilon, v.device)
 
@@ -172,8 +162,7 @@ class NMFkBatchPlane(_BatchPlaneBase):
         with tracer.span("fit", track=self._dispatch_track(), kind="nmfk",
                          ks=[int(k) for k in ks], batch=len(padded), k_pad=k_pad):
             sc = nmfk_score_batched(
-                self.v, padded, self.seed, k_pad=k_pad, n_perturbs=self.n_perturbs,
-                nmf_iters=self.nmf_iters, epsilon=self.epsilon, draws=self.draws,
+                self.v, padded, k_pad=k_pad, nmf_iters=self.nmf_iters, draws=self.draws
             )
             scores = sc.min_silhouette if self.statistic == "min" else sc.mean_silhouette
         with tracer.span("score", track=self._dispatch_track(), kind="nmfk", batch=len(padded)):

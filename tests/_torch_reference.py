@@ -10,26 +10,12 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
-import torch
 
 from repro_torch.convert import draws_from_reference
-from repro_torch.device import resolve
-
-
-def card() -> torch.device:
-    """The CUDA device for a ``cuda``-marked test; skips the test without one.
-
-    Decided inside the test, never at import or collection, so every pytest
-    worker collects the same tests.
-    """
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA card: torch.cuda.is_available() is False")
-    return resolve("cuda")
 
 
 def uniform(key, shape, lo, hi) -> np.ndarray:
-    return np.asarray(jax.random.uniform(key, shape, jnp.float32, lo, hi))
+    return np.array(jax.random.uniform(key, shape, jnp.float32, lo, hi))
 
 
 def init_draws(key, n: int, m: int, k_draw: int) -> tuple[np.ndarray, np.ndarray]:

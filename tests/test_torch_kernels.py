@@ -1,10 +1,10 @@
-"""Port kernels: plain versions vs the JAX reference, and the CUDA kernels
-vs their plain versions on a card (``cuda`` marker).
+"""Port kernels: the plain versions vs the JAX reference.
 
 On the CPU the port's wrappers run their plain versions; those are held
 against the reference's Pallas kernels (interpret mode) and its jnp oracles
 at ragged shapes with masked components, at the reference's own
-tolerances (``tests/test_kernels.py``).
+tolerances (``tests/test_kernels.py``). The CUDA kernels themselves are
+held against the plain versions on a card in ``test_torch_cuda.py``.
 """
 import numpy as np
 import pytest
@@ -13,10 +13,9 @@ torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
 
-from _torch_reference import card  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
-from repro_torch.kernels import build, ops, ref  # noqa: E402
+from repro_torch.kernels import build, ops  # noqa: E402
 
 MU_TOL = dict(rtol=3e-5, atol=3e-5)  # tests/test_kernels.py fp32 MU tolerance
 SUMS_TOL = dict(rtol=1e-4, atol=1e-3)  # tests/test_kernels.py fp32 distance tolerance
@@ -145,34 +144,3 @@ def test_failed_build_raises(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc failed for nmf_update.cu"):
         build.build(["nmf_update"])
     assert not list((tmp_path / "out").glob("*.so"))
-
-
-# -----------------------------------------------------------------------------
-# on the card: each CUDA kernel vs its plain version (skips without a card)
-# -----------------------------------------------------------------------------
-@pytest.mark.cuda
-@pytest.mark.parametrize("lanes,n,m,k", [(1, 40, 24, 5), (6, 100, 90, 13), (4, 257, 130, 16)])
-def test_cuda_mu_kernels_match_plain(lanes, n, m, k):
-    dev = card()
-    v, w, h = (t.to(dev) for t in _t(*_mu_problem(k, (lanes,), n, m, k, dead=2)))
-    for fn, plain in ((ops.mu_update_h, ref.mu_update_h), (ops.mu_update_w, ref.mu_update_w)):
-        before = fn.launches
-        got, want = fn(v, w, h), plain(v, w, h)
-        torch.cuda.synchronize()
-        assert fn.launches == before + 1
-        torch.testing.assert_close(got, want, **MU_TOL)
-    assert float(ops.mu_update_h(v, w, h)[:, -2:, :].abs().max()) == 0.0
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("b,n,d,k", [(1, 52, 1000, 13), (8, 64, 1000, 16), (3, 33, 17, 5)])
-def test_cuda_dist_sums_kernel_matches_plain(b, n, d, k):
-    dev = card()
-    x, _, onehot = (torch.from_numpy(a).to(dev) for a in _sums_problem(b + n, (b,), n, n, d, k, masked=4))
-    # held against the plain version in float64: fp32 cancellation noise in
-    # |x|^2 + |y|^2 - 2 x.y differs between evaluation orders
-    want = ref.silhouette_dist_sums(x.double(), onehot.double())
-    got = ops.silhouette_dist_sums_batched(x, onehot)
-    torch.testing.assert_close(got.double(), want, **SUMS_TOL)
-    got2 = ops.silhouette_dist_sums(x[0], onehot[0])
-    torch.testing.assert_close(got2.double(), want[0], **SUMS_TOL)

@@ -38,7 +38,7 @@ SRC = str(Path(__file__).resolve().parents[1] / "src")
 @pytest.fixture(scope="module")
 def v_np():
     v, _, _ = jnmf_data(KEY, n=96, m=104, k_true=5)
-    return np.asarray(v)
+    return np.array(v)
 
 
 def _same_search(got, want):

@@ -1,4 +1,6 @@
 """Port NMF fits vs ``repro.factorization.nmf`` with the reference's init draws."""
+import importlib
+
 import jax
 import numpy as np
 import pytest
@@ -6,9 +8,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from _torch_reference import init_draws  # noqa: E402
-import importlib  # noqa: E402
-
 from repro.factorization.synthetic import nmf_data as jnmf_data  # noqa: E402
+from repro_torch.convert import factors_from_reference, to_tensor  # noqa: E402
 from repro_torch.random import init_draws as port_init_draws  # noqa: E402
 from repro_torch.random import lane_generator  # noqa: E402
 
@@ -23,7 +24,7 @@ FACTOR_TOL = dict(rtol=1e-4, atol=1e-6)  # W/H after a full fit, fp32
 @pytest.fixture(scope="module")
 def v_np():
     v, _, _ = jnmf_data(KEY, n=48, m=40, k_true=4)
-    return np.asarray(v)
+    return np.array(v)
 
 
 @pytest.mark.parametrize("k", [2, 4, 6])
@@ -35,6 +36,15 @@ def test_nmf_matches_reference(v_np, k):
     np.testing.assert_allclose(got.w.numpy(), np.asarray(ref.w), **FACTOR_TOL)
     np.testing.assert_allclose(got.h.numpy(), np.asarray(ref.h), **FACTOR_TOL)
     np.testing.assert_allclose(float(got.rel_error), float(ref.rel_error), rtol=1e-5)
+
+
+def test_reference_factors_carry_across(v_np):
+    """W/H of a reference fit, converted, give the reference's rel_error."""
+    ref = jnmf.nmf(v_np, 4, KEY, iters=40)
+    w, h = factors_from_reference(ref.w, ref.h, device="cpu")
+    err = tnmf.reconstruction_error(to_tensor(v_np, "cpu"), w, h)
+    np.testing.assert_allclose(float(err), float(ref.rel_error), rtol=1e-5)
+    assert w.dtype == torch.float32 and tuple(h.shape) == (4, v_np.shape[1])
 
 
 @pytest.mark.parametrize("k_eff,k_pad", [(3, 6), (6, 6), (1, 4)])

@@ -30,7 +30,7 @@ KS = list(range(2, 9))
 @pytest.fixture(scope="module")
 def v_np():
     v, _, _ = jnmf_data(KEY, n=N, m=M, k_true=5)
-    return np.asarray(v)
+    return np.array(v)
 
 
 def _assert_scores(got, want):

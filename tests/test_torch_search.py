@@ -77,3 +77,14 @@ def test_threads_find_the_reference_optimum(kind, k0):
     t = tcore.binary_bleed_search(t_eval, (2, 30), 0.7, num_resources=4)
     assert t.k_optimal == j.k_optimal
     assert set(t.visited_ks) <= set(range(2, 31))
+
+
+@pytest.mark.parametrize("n_real", [1, 3, 5, 8, 9])
+@pytest.mark.parametrize("cap,compiled", [(None, ()), (4, ()), (None, (8,)), (16, (2, 16))])
+def test_bucket_batch_policy_matches_reference(n_real, cap, compiled):
+    from repro.factorization.batching import bucket_batch as j_bucket
+    from repro_torch.factorization.batching import bucket_batch as t_bucket
+
+    for lanes, bucket_min in ((1, 1), (4, 4)):
+        args = dict(lanes=lanes, bucket_min=bucket_min, cap=cap, compiled=compiled)
+        assert t_bucket(n_real, **args) == j_bucket(n_real, **args)
