@@ -8,18 +8,25 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 Phases, each fatal on failure:
 
   1. print the card (nvidia-smi name and power limit, torch device name);
-  2. build every CUDA kernel from ``src/repro_torch/kernels/csrc`` with nvcc
-     (build time and ``-Xptxas -v``: registers, shared memory, spills);
+  2. build every CUDA kernel from ``src/repro_torch/kernels/csrc`` with nvcc,
+     one process per source, all at once (build time and ``-Xptxas -v``:
+     registers, shared memory, spills);
   3. hold each kernel wrapper against its plain PyTorch version on the card
-     at the shapes of the main path, with the tolerance stated, and time
-     kernel, plain version and the card's bound (CUDA events, warmed up);
-  4. hold the batched NMFk score on the card against the same computation
-     on the CPU (plain versions, same draws) at a small size;
-  5. run the paper-scale search (V 1000x1100, k_true 8, k 2..16, 4
-     perturbations, 120 sweeps) through the port's ``ksearch`` on the
-     ``batched`` and the ``threads`` executors, with every launch count set
-     to 0 just before each run and read just after; assert k_optimal == 8
-     and that the run went through its kernels.
+     at the shapes of the main paths, with the tolerance stated, and time
+     kernel, plain version, the card's bound and, where one PyTorch call
+     computes the same function, that call (CUDA events, warmed up);
+  4. hold the batched NMFk score, and the K-Means + Davies-Bouldin search
+     of ``tests/test_integration.py`` with a small K-Means silhouette wave,
+     on the card against the same computation on the CPU (plain versions,
+     same draws);
+  5. run each main path with every launch count set to 0 just before it and
+     read just after, asserting the answer and that the run went through
+     its kernels: the paper-scale NMFk search (V 1000x1100, k_true 8,
+     k 2..16, 4 perturbations, 120 sweeps) through the port's ``ksearch``
+     on the ``batched`` and ``threads`` executors (k_optimal 8), then
+     ``kmeans_db_1m`` — Binary Bleed over K-Means with Davies-Bouldin on
+     10^6 blob points (d 6, k_true 7, k 2..24) — on the scalar executor (two
+     threads) and the batched one (k_optimal 7).
 
 The second-to-last line is ``{"kernels": [...]}`` and the last line is
 ``{"ok": true, "device": {...}}``. Without a card, or outside a checkout of
@@ -43,6 +50,18 @@ MU_TOL = dict(rtol=3e-5, atol=3e-5)  # the reference's own MU kernel tolerance (
 SUMS_TOL = dict(rtol=1e-4, atol=1e-3)  # the reference's distance tolerance (fp32)
 NMFK_SIL_ATOL = 2e-3  # 120 sweeps of kernel vs plain arithmetic, then the greedy scorer
 NMFK_ERR_RTOL = 1e-3  # the reference's kernel-vs-jnp tolerance for a whole fit
+PAIRWISE_TOL = dict(rtol=1e-4, atol=1e-3)  # the reference's pairwise fp32 tolerance
+# Davies-Bouldin's centroid separation sqrt(|c_i|^2 + |c_j|^2 - 2 c_i.c_j)
+# is a cancellation at a k that splits a blob; two fp32 evaluation orders
+# of the same labels differ there by ~1e-4 (tests/test_torch_kmeans.py).
+# The fits must agree label for label; the scores are held at that floor.
+KM_DB_RTOL = 5e-4
+KM_SIL_ATOL = 1e-3  # the silhouette's self-distance is sqrt of fp32 noise (SUMS_TOL)
+
+# kmeans_db_1m: examples/kmeans_earlystop.py with 10^6 points
+KM_DATA = dict(n=1_000_000, d=6, k_true=7, std=0.5, noise=0.05, spread=8.0, seed=1)
+KM_SEARCH = dict(k_range=(2, 24), select_threshold=0.6, stop_threshold=1.6, mode="minimize")
+KM_K_PAD, KM_MAX_ITERS, KM_WAVE = 24, 100, 16
 
 PAPER_ARGS = ["--n", "1000", "--m", "1100", "--k-true", "8", "--k-max", "16",
               "--n-perturbs", "4", "--nmf-iters", "120", "--device", "cuda", "--quiet"]
@@ -54,6 +73,11 @@ def smi_line() -> str:
         check=True, capture_output=True, text=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def sync_wall(torch) -> float:
+    torch.cuda.synchronize()
+    return time.perf_counter()
 
 
 def bound_ms(n_bytes: float, flops: float) -> tuple[float, str]:
@@ -193,6 +217,62 @@ def check_sums(torch, dev, ops, ref, records: dict, log) -> None:
         records.setdefault(name, []).append(entry)
 
 
+def check_pairwise(torch, dev, ops, ref, records: dict, log) -> None:
+    """Both pairwise wrappers at the K-Means main paths' shapes: 10^6 blob
+    points (d 6) against 24 centroid slots with x shared by the lanes (lane
+    stride 0) of a 1-lane and a 16-lane wave, and in 2-D; plus a ragged
+    small case."""
+    from repro_torch.factorization.synthetic import blob_data
+
+    x, _ = blob_data(**KM_DATA, device=dev)
+    n, d = x.shape
+    b, m = KM_WAVE, KM_K_PAD
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    # centroid slots near data points, as k-means++ and Lloyd place them
+    pick = torch.randint(0, n, (b, m), device=dev, generator=gen)
+    y = (x[pick] + 0.1 * torch.randn((b, m, d), device=dev, generator=gen)).contiguous()
+    rng_x = torch.randn((3, 70, 17), device=dev, generator=gen)
+    rng_y = torch.randn((3, 30, 17), device=dev, generator=gen)
+    cases = (
+        # Binary Bleed prunes one side of most waves, so the batched run's
+        # waves mostly carry one lane: that shape first (the kernels line
+        # reports the first timed case), then a full 16-lane wave
+        ("pairwise_sq_dists_batched", ops.pairwise_sq_dists_batched, (x, y[:1]),
+         f"b=1 lane, x shared (n={n}, d={d}), m={m}", True),
+        ("pairwise_sq_dists_batched", ops.pairwise_sq_dists_batched, (x, y),
+         f"b={b} lanes, x shared (n={n}, d={d}), m={m}", True),
+        ("pairwise_sq_dists", ops.pairwise_sq_dists, (x, y[0]), f"n={n}, m={m}, d={d}", True),
+        ("pairwise_sq_dists_batched", ops.pairwise_sq_dists_batched, (rng_x, rng_y),
+         "ragged b=3, n=70, m=30, d=17", False),
+    )
+    for name, fn, (xx, yy), label, main in cases:
+        got, want = fn(xx, yy), ref.pairwise_sq_dists(xx, yy)
+        torch.cuda.synchronize()
+        err = compare(torch, got, want, PAIRWISE_TOL["rtol"], PAIRWISE_TOL["atol"], f"{name} [{label}]")
+        fp64_err = float((got.double() - ref.pairwise_sq_dists(xx.double(), yy.double())).abs().max())
+        entry = {"case": label, "max_abs_err": err, "max_abs_err_vs_fp64": fp64_err}
+        del got, want
+        if main:
+            lanes = yy.shape[0] if yy.dim() == 3 else 1
+            n_x, n_y = xx.shape[-2], yy.shape[-2]
+            x_bytes = xx.numel()  # a 2-D x is read once for every lane
+            n_bytes = 4 * (x_bytes + yy.numel() + lanes * n_x * n_y)
+            flops = lanes * n_x * n_y * (2 * d + 3) + 2 * xx.numel() + 2 * yy.numel()
+            b_ms, b_by = bound_ms(n_bytes, flops)
+            x_lib = xx.expand(lanes, n_x, d) if yy.dim() == 3 else xx
+            entry.update(
+                ms=time_ms(torch, lambda: fn(xx, yy)),
+                plain_ms=time_ms(torch, lambda: ref.pairwise_sq_dists(xx, yy)),
+                bound_ms=b_ms, bound_by=b_by,
+                library_ms=time_ms(
+                    torch, lambda: torch.cdist(x_lib, yy, compute_mode="use_mm_for_euclid_dist")),
+                library="torch.cdist(use_mm_for_euclid_dist): the square root of the same D^2, one call",
+            )
+        log(json.dumps({"check": name, **entry}))
+        records.setdefault(name, []).append(entry)
+
+
 def check_nmfk_small(torch, dev, log) -> None:
     """Batched NMFk on the card (kernels) vs on the CPU (plain), same draws."""
     from repro_torch.factorization.nmfk import nmfk_score_batched
@@ -221,6 +301,101 @@ def check_nmfk_small(torch, dev, log) -> None:
                     "rel_error_max_rel_gap": rel}))
 
 
+def check_kmeans_small(torch, dev, ops, log) -> None:
+    """tests/test_integration.py's K-Means + Davies-Bouldin search (serial,
+    so the visit order is fixed) on the card (kernels) and on the CPU (plain
+    versions) with the same draws; then a small K-Means silhouette wave."""
+    from repro_torch.core import binary_bleed_search, davies_bouldin_score
+    from repro_torch.factorization.kmeans import kmeans
+    from repro_torch.factorization.planes import KMeansBatchPlane
+    from repro_torch.factorization.synthetic import blob_data
+    from repro_torch.random import KMeansDraws, seeded_kmeans_draws
+
+    x, _ = blob_data(n=240, d=5, k_true=5, std=0.3, spread=10.0, seed=3, device=dev)
+    card_draws = seeded_kmeans_draws(3, 240, dev)
+
+    def cpu_draws(k, k_draw):
+        return KMeansDraws(*(t.cpu() for t in card_draws(k, k_draw)))
+
+    runs = {}
+    for where, xx, draws in (("card", x, card_draws), ("cpu", x.cpu(), cpu_draws)):
+        labels = {}
+
+        def ev(k, should_abort=None, xx=xx, draws=draws, labels=labels):
+            labels[k] = kmeans(xx, k, draws(k, k)).labels.cpu()
+            return float(davies_bouldin_score(xx, labels[k].to(xx.device), k))
+
+        ops.reset_launch_counts()
+        res = binary_bleed_search(ev, (2, 12), 0.5, 1.6, mode="minimize", num_resources=1)
+        runs[where] = (res, labels, ops.launch_counts())
+    (card, card_labels, launches), (cpu, cpu_labels, _) = runs["card"], runs["cpu"]
+    if card.k_optimal != cpu.k_optimal or card.k_optimal != 5:
+        raise AssertionError(f"K-Means search: k_optimal card {card.k_optimal}, cpu {cpu.k_optimal}, want 5")
+    if card.visited_ks != cpu.visited_ks:
+        raise AssertionError(f"K-Means search visited {sorted(card.visited_ks)} on the card, "
+                             f"{sorted(cpu.visited_ks)} on the CPU")
+    card_db = {v.k: v.score for v in card.visits}
+    cpu_db = {v.k: v.score for v in cpu.visits}
+    for k in card_db:
+        if not torch.equal(card_labels[k], cpu_labels[k]):
+            raise AssertionError(f"K-Means k={k}: card and CPU labels differ")
+        if abs(card_db[k] - cpu_db[k]) > KM_DB_RTOL * abs(cpu_db[k]):
+            raise AssertionError(f"K-Means k={k}: DB card {card_db[k]} vs CPU {cpu_db[k]}")
+    if launches["pairwise_sq_dists"] < 1:
+        raise AssertionError("the card's K-Means search never launched pairwise_sq_dists")
+    gap = max(abs(card_db[k] - cpu_db[k]) for k in card_db)
+    log(json.dumps({"check": "kmeans + davies_bouldin search card vs plain", "k_optimal": card.k_optimal,
+                    "visited": sorted(card.visited_ks), "db_card": card_db, "db_max_abs_gap": gap,
+                    "launches": launches}))
+
+    ks = [2, 3, 4, 5]
+    ops.reset_launch_counts()
+    on_card = KMeansBatchPlane(x, score="silhouette", max_iters=25, k_pad=8, draws=card_draws).evaluate_batch(ks)
+    sil_launches = ops.launch_counts()["silhouette_dist_sums_batched"]
+    on_cpu = KMeansBatchPlane(x.cpu(), score="silhouette", max_iters=25, k_pad=8,
+                              draws=cpu_draws).evaluate_batch(ks)
+    gap = max(abs(a - c) for a, c in zip(on_card, on_cpu))
+    if not gap <= KM_SIL_ATOL or sil_launches < 1:
+        raise AssertionError(f"K-Means silhouette wave: card vs plain gap {gap:.3e}, "
+                             f"{sil_launches} silhouette_dist_sums_batched launches")
+    log(json.dumps({"check": "kmeans silhouette wave card vs plain", "ks": ks, "card": on_card,
+                    "max_abs_gap": gap, "silhouette_dist_sums_batched_launches": sil_launches}))
+
+
+def run_kmeans_search(torch, dev, ops, executor: str, log) -> dict[str, int]:
+    """kmeans_db_1m on one executor; counts reset just before, read just after."""
+    from repro_torch.core import binary_bleed_search, davies_bouldin_score
+    from repro_torch.factorization.kmeans import kmeans
+    from repro_torch.factorization.planes import KMeansBatchPlane
+    from repro_torch.factorization.synthetic import blob_data
+
+    x, _ = blob_data(**KM_DATA, device=dev)
+    if executor == "batched":
+        evaluate = KMeansBatchPlane(x, seed=0, score="davies_bouldin", max_iters=KM_MAX_ITERS, k_pad=KM_K_PAD)
+        kw = dict(executor="batched")
+    else:
+        def evaluate(k, should_abort=None):
+            res = kmeans(x, int(k), seed=0, max_iters=KM_MAX_ITERS)
+            return float(davies_bouldin_score(x, res.labels, int(k)))
+        kw = dict(num_resources=2)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = sync_wall(torch)
+    res = binary_bleed_search(evaluate, **KM_SEARCH, **kw)
+    wall = sync_wall(torch) - t0
+    counts = ops.launch_counts()
+    log(json.dumps({"search": f"kmeans_db_1m {executor}", "k_optimal": res.k_optimal,
+                    "visited": {v.k: v.score for v in sorted(res.visits, key=lambda v: v.k)},
+                    "waves": getattr(evaluate, "n_dispatches", None), "wall_s": wall,
+                    "max_memory_allocated": torch.cuda.max_memory_allocated(), "launches": counts}))
+    if res.k_optimal != KM_DATA["k_true"]:
+        raise AssertionError(f"kmeans_db_1m {executor}: k_optimal {res.k_optimal} != {KM_DATA['k_true']}")
+    name = "pairwise_sq_dists_batched" if executor == "batched" else "pairwise_sq_dists"
+    if counts[name] < 1:
+        raise AssertionError(f"kmeans_db_1m {executor}: kernel {name} was never launched on the main path")
+    return counts
+
+
 def run_search(torch, ops, ksearch, executor: str, log) -> dict[str, int]:
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
@@ -246,6 +421,9 @@ SOURCES = {
         "src/repro_torch/kernels/csrc/silhouette_sums.cu", "src/repro/kernels/silhouette_sums.py:80"),
     "silhouette_dist_sums_batched": (
         "src/repro_torch/kernels/csrc/silhouette_sums.cu", "src/repro/kernels/silhouette_sums.py:156"),
+    "pairwise_sq_dists": ("src/repro_torch/kernels/csrc/pairwise_dist.cu", "src/repro/kernels/pairwise_dist.py:48"),
+    "pairwise_sq_dists_batched": (
+        "src/repro_torch/kernels/csrc/pairwise_dist.cu", "src/repro/kernels/pairwise_dist.py:103"),
 }
 
 
@@ -285,9 +463,12 @@ def main() -> int:
     records: dict[str, list] = {}
     check_mu(torch, dev, ops, ref, records, log)
     check_sums(torch, dev, ops, ref, records, log)
+    check_pairwise(torch, dev, ops, ref, records, log)
     check_nmfk_small(torch, dev, log)
+    check_kmeans_small(torch, dev, ops, log)
 
-    by_path = {ex: run_search(torch, ops, ksearch, ex, log) for ex in ("batched", "threads")}
+    by_path = {f"nmfk_{ex}": run_search(torch, ops, ksearch, ex, log) for ex in ("batched", "threads")}
+    by_path.update({f"kmeans_{ex}": run_kmeans_search(torch, dev, ops, ex, log) for ex in ("threads", "batched")})
 
     kernels = []
     for name, (source, replaces) in SOURCES.items():
@@ -299,7 +480,7 @@ def main() -> int:
             "max_abs_err": max(r["max_abs_err"] for r in records[name]),
             "ms": timed["ms"], "plain_ms": timed["plain_ms"],
             "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"],
-            "library_ms": None, "case": timed["case"],
+            "library_ms": timed.get("library_ms"), "case": timed["case"],
         })
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(smi_line())

@@ -1,7 +1,7 @@
 """Binary Bleed core: the paper's contribution as a composable library.
 
 The search layer is the reference's pure-Python driver; ``scoring`` is the
-PyTorch counterpart of the silhouette scorer. There is no jit cache to
+PyTorch counterpart of the silhouette and Davies-Bouldin scorers. There is no jit cache to
 persist, so the reference's ``compile_cache`` has no counterpart here.
 """
 from .api import (  # noqa: F401
@@ -30,6 +30,8 @@ from .coordinator import Bounds, FileCoordinator, InProcessCoordinator  # noqa: 
 from .scheduler import ResourceEvent  # noqa: F401
 from .scoring import (  # noqa: F401
     cluster_dist_sums,
+    davies_bouldin_score,
+    davies_bouldin_score_masked,
     laplacian_score,
     pairwise_sq_dists,
     silhouette_samples_masked,

@@ -1,5 +1,6 @@
-"""Factorization substrates the paper selects k for (NMF / NMFk slice)."""
+"""Factorization & clustering substrates the paper selects k for (NMF / NMFk and K-Means slices)."""
 from .batching import batched_lanes, bucket_batch, next_pow2, round_up_multiple  # noqa: F401
+from .kmeans import KMeansResult, kmeans, kmeans_batched, kmeans_multi_restart  # noqa: F401
 from .nmf import (  # noqa: F401
     NMFResult,
     mu_step,
@@ -14,5 +15,5 @@ from .nmfk import (  # noqa: F401
     nmfk_score,
     nmfk_score_batched,
 )
-from .planes import NMFkBatchPlane  # noqa: F401
-from .synthetic import nmf_data  # noqa: F401
+from .planes import KMeansBatchPlane, NMFkBatchPlane  # noqa: F401
+from .synthetic import blob_data, nmf_data  # noqa: F401

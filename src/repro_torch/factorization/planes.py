@@ -15,8 +15,7 @@ explicit memory bound. ``shapes_dispatched`` records the distinct
 (batch, k_pad) shapes.
 
 Every dispatch observes ``lane_utilization`` (real lanes / dispatched
-lanes). Mesh sharding, the K-Means plane and the elastic plane wait for
-later slices.
+lanes). Mesh sharding and the elastic plane wait for later slices.
 """
 from __future__ import annotations
 
@@ -24,10 +23,12 @@ from typing import Sequence
 
 import torch
 
+from repro_torch.core.scoring import davies_bouldin_score_masked, silhouette_score_masked
 from repro_torch.obs import get_metrics, get_tracer
-from repro_torch.random import DrawSource, seeded_draws
+from repro_torch.random import DrawSource, KMeansDrawSource, seeded_draws, seeded_kmeans_draws
 
 from .batching import bucket_batch
+from .kmeans import _kmeans_masked_assign, _kmeans_masked_chunk, _kmeans_masked_init, kmeans_batched
 from .nmf import _masked_init, _masked_sweeps
 from .nmfk import _perturb, _pooled_w_score, nmfk_score_batched
 
@@ -169,4 +170,83 @@ class NMFkBatchPlane(_BatchPlaneBase):
             return [float(s) for s in scores[:n_real].tolist()]
 
 
-__all__ = ["NMFkBatchPlane"]
+class KMeansBatchPlane(_BatchPlaneBase):
+    """K-Means Davies-Bouldin (minimize) or silhouette (maximize) per wave.
+
+    Lane k draws ``draws(k, k_pad)`` — by default ``seeded_kmeans_draws(
+    seed, ...)``, the schedule of ``kmeans(x, k, seed=seed)`` — and masked
+    fits are draw-for-draw the per-k fits, so this plane matches a threaded
+    K-Means evaluator score for score. x (n, d) is shared by every lane and
+    never copied per lane.
+    """
+
+    def __init__(
+        self,
+        x: torch.Tensor,
+        seed: int = 0,
+        score: str = "davies_bouldin",
+        max_iters: int = 100,
+        k_pad: int | None = None,
+        draws: KMeansDrawSource | None = None,
+    ):
+        super().__init__(k_pad)
+        if score not in ("davies_bouldin", "silhouette"):
+            raise ValueError(f"score must be 'davies_bouldin' or 'silhouette', got {score!r}")
+        self.x = x
+        self.score = score
+        self.max_iters = max_iters
+        self.draws = draws if draws is not None else seeded_kmeans_draws(seed, x.shape[0], x.device)
+
+    def _score(self, labels: torch.Tensor, ks: Sequence[int], k_pad: int) -> torch.Tensor:
+        """Scores (b,) of labels (b, n) fitted at ks."""
+        if self.score == "silhouette":
+            return silhouette_score_masked(self.x, labels, k_pad)
+        ks_t = torch.tensor([int(k) for k in ks], device=self.x.device)
+        cluster_mask = torch.arange(k_pad, device=self.x.device)[None, :] < ks_t[:, None]
+        return davies_bouldin_score_masked(self.x, labels, k_pad, cluster_mask=cluster_mask)
+
+    def _evaluate_one_chunked(self, k: int, should_abort) -> float:
+        """Scalar K-Means with abort polling between Lloyd chunks.
+
+        Chunking changes nothing: ``_kmeans_masked_chunk`` halts on exactly
+        the convergence condition of the whole fit, so an unaborted chunked
+        fit reproduces the batch fit's centroids; the host stops early when
+        delta clears tol. Aborts before the first chunk return NaN (void
+        score).
+        """
+        k = int(k)
+        k_pad = self.k_pad if self.k_pad is not None else k
+        k_eff = torch.tensor(k, device=self.x.device)
+        centers = _kmeans_masked_init(self.x, k_eff, self.draws(k, k_pad), k_pad)
+        it = 0
+        ran = False
+        self.last_scalar_sweeps = 0
+        while it < self.max_iters:
+            if should_abort():
+                break
+            chunk = min(self.abort_chunk, self.max_iters - it)
+            centers, delta, did = _kmeans_masked_chunk(self.x, centers, k_eff, k_pad, chunk)
+            it += int(did)
+            ran = True
+            self.last_scalar_sweeps = it
+            if float(delta) <= 1e-6:
+                break
+        if not ran:
+            return float("nan")
+        labels, _ = _kmeans_masked_assign(self.x, centers, k_eff, k_pad)
+        return float(self._score(labels[None], [k], k_pad)[0])
+
+    def evaluate_batch(self, ks: Sequence[int]) -> list[float]:
+        tracer = get_tracer()
+        padded, k_pad, n_real = self._pad_ks(ks)
+        with tracer.span("fit", track=self._dispatch_track(), kind="kmeans",
+                         ks=[int(k) for k in ks], batch=len(padded), k_pad=k_pad):
+            res = kmeans_batched(self.x, padded, k_pad=k_pad, max_iters=self.max_iters, draws=self.draws)
+        # x stays unbatched (n, d): the card's kernels read it once for every
+        # lane, and the CPU tiers broadcast it against the batched labels
+        with tracer.span("score", track=self._dispatch_track(), kind=self.score, batch=len(padded)):
+            scores = self._score(res.labels, padded, k_pad)
+            return [float(s) for s in scores[:n_real].tolist()]
+
+
+__all__ = ["NMFkBatchPlane", "KMeansBatchPlane"]

@@ -1,11 +1,15 @@
 """Synthetic data matching the paper's experimental setup (§IV-A).
 
-``nmf_data`` — "synthetic data generator with random Gaussian features for
-a predetermined k": V = W_true H_true + noise, 1000x1100 at full scale,
-with block-structured factors so silhouette-vs-k is a square wave. Drawn
-on the device with a ``torch.Generator`` seeded from ``seed`` (the port's
-draws, not the reference's bits). The K-Means and RESCAL generators wait
-for their slices.
+  * ``nmf_data`` — "synthetic data generator with random Gaussian features
+    for a predetermined k": V = W_true H_true + noise, 1000x1100 at full
+    scale, with block-structured factors so silhouette-vs-k is a square
+    wave.
+  * ``blob_data`` — K-Means experiment: Gaussian clusters (std 0.5) with
+    overlaid random noise.
+
+Both draw on the device with a ``torch.Generator`` seeded from ``seed``
+(the port's draws, not the reference's bits). The RESCAL generator waits
+for its slice.
 """
 from __future__ import annotations
 
@@ -47,3 +51,29 @@ def nmf_data(
     h = h_bg + h_sig * torch.abs(1.0 + 0.1 * h_load)
     v = w @ h + noise * uniform((n, m), 0.0, 1.0)
     return v, w, h
+
+
+def blob_data(
+    n: int = 600,
+    d: int = 8,
+    k_true: int = 5,
+    std: float = 0.5,
+    noise: float = 0.05,
+    spread: float = 4.0,
+    seed: int = 0,
+    device: str | torch.device | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Gaussian blobs (paper §IV-A K-Means: std 0.5 plus overlaid noise).
+
+    Centers ~ spread * N(0, I) in d dimensions, labels uniform in
+    [0, k_true), x = centers[labels] + std * N(0, I) + noise * N(0, I).
+    Returns x (n, d) float32 and labels (n,) int64.
+    """
+    dev = resolve(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(seed))
+    centers = spread * torch.randn((k_true, d), device=dev, generator=gen)
+    labels = torch.randint(0, k_true, (n,), device=dev, generator=gen)
+    x = centers[labels] + std * torch.randn((n, d), device=dev, generator=gen)
+    x = x + noise * torch.randn((n, d), device=dev, generator=gen)
+    return x, labels

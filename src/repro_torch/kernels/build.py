@@ -31,7 +31,7 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # source stem -> {C function: argtypes}; every function returns cudaError_t as int
 SIGNATURES: dict[str, dict[str, list]] = {
     "nmf_update": {
@@ -40,6 +40,9 @@ SIGNATURES: dict[str, dict[str, list]] = {
     },
     "silhouette_sums": {
         "silhouette_dist_sums": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    },
+    "pairwise_dist": {
+        "pairwise_sq_dists": [_P, _P, _P, _I, _I, _I, _I, _L, _L, _P],
     },
 }
 

@@ -20,6 +20,8 @@ from . import build, ref
 
 MAX_RANK = 128  # largest k the MU kernels take (nmf_update.cu kMaxRank)
 MAX_CLUSTERS = 128  # largest k the distance-sum kernel takes (silhouette_sums.cu)
+MAX_LANES = 65535  # grid limit on the lane axis (pairwise_dist.cu)
+MAX_PAIRWISE_COLS = 65535 * 32  # grid limit on m (pairwise_dist.cu: 32 y rows per block)
 
 _count_lock = threading.Lock()
 
@@ -163,7 +165,63 @@ def silhouette_dist_sums_batched(
     return out
 
 
-KERNEL_WRAPPERS = (mu_update_h, mu_update_w, silhouette_dist_sums, silhouette_dist_sums_batched)
+# -----------------------------------------------------------------------------
+# Pairwise squared distances (csrc/pairwise_dist.cu)
+# -----------------------------------------------------------------------------
+def _pairwise_launch(x: torch.Tensor, y: torch.Tensor, lanes: int) -> torch.Tensor:
+    """out (lanes, n, m); a 2-D operand is shared by every lane (lane stride 0)."""
+    n, d = x.shape[-2:]
+    m = y.shape[-2]
+    if y.shape[-1] != d or min(n, m, d) < 1:
+        raise ValueError(f"pairwise shapes x {tuple(x.shape)}, y {tuple(y.shape)} do not match")
+    if not 1 <= lanes <= MAX_LANES or m > MAX_PAIRWISE_COLS:
+        raise ValueError(f"the pairwise kernel takes <= {MAX_LANES} lanes and m <= {MAX_PAIRWISE_COLS}")
+    out = torch.empty((lanes, n, m), device=x.device, dtype=torch.float32)
+    lib = build.load("pairwise_dist")
+    rc = lib.pairwise_sq_dists(
+        x.data_ptr(), y.data_ptr(), out.data_ptr(), lanes, n, m, d,
+        n * d if x.dim() == 3 else 0, m * d if y.dim() == 3 else 0, _stream(x),
+    )
+    _check(rc, "pairwise_sq_dists")
+    return out
+
+
+def pairwise_sq_dists(x: torch.Tensor, y: torch.Tensor | None = None) -> torch.Tensor:
+    """(n, m) ``max(|x_i|^2 + |y_j|^2 - 2 x_i.y_j, 0)``; x (n, d), y (m, d) (default x)."""
+    y = x if y is None else y
+    if not _on_card(x, y):
+        return ref.pairwise_sq_dists(x, y)
+    if not x.dim() == y.dim() == 2:
+        raise ValueError("pairwise_sq_dists takes 2-D operands; use the _batched entry for 3-D")
+    out = _pairwise_launch(x, y, 1)
+    _count(pairwise_sq_dists)
+    return out[0]
+
+
+def pairwise_sq_dists_batched(x: torch.Tensor, y: torch.Tensor | None = None) -> torch.Tensor:
+    """Leading-lane form -> (b, n, m): x (b, n, d), y (b, m, d) (default x).
+
+    One operand may be 2-D, (n, d) or (m, d): it is shared by every lane and
+    read once, never copied per lane.
+    """
+    y = x if y is None else y
+    if not _on_card(x, y):
+        return ref.pairwise_sq_dists(x, y)
+    dims = (x.dim(), y.dim())
+    if dims not in ((3, 3), (2, 3), (3, 2)) or (dims == (3, 3) and x.shape[0] != y.shape[0]):
+        raise ValueError(
+            f"pairwise_sq_dists_batched takes 3-D operands with one lane count (one may be 2-D), "
+            f"got x {tuple(x.shape)}, y {tuple(y.shape)}"
+        )
+    out = _pairwise_launch(x, y, (x if x.dim() == 3 else y).shape[0])
+    _count(pairwise_sq_dists_batched)
+    return out
+
+
+KERNEL_WRAPPERS = (
+    mu_update_h, mu_update_w, silhouette_dist_sums, silhouette_dist_sums_batched,
+    pairwise_sq_dists, pairwise_sq_dists_batched,
+)
 for _wrapper in KERNEL_WRAPPERS:
     _wrapper.launches = 0
 

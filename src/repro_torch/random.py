@@ -1,12 +1,14 @@
-"""Explicit randomness for NMFk.
+"""Explicit randomness for NMFk and K-Means.
 
 Randomness enters an NMFk score only through a ``Draws`` value: the
 multiplicative perturbation noise of each resampled copy of V and the
-unscaled uniform W/H inits of each perturbation fit. Fit and score
-functions take ``Draws`` explicitly, so a test can hand them the JAX
-reference's draws; by default they come from a ``torch.Generator`` seeded
-from ``(seed, k)`` (the counterpart of the reference's ``fold_in(key, k)``).
-The port's own draws are not the reference's bits.
+unscaled uniform W/H inits of each perturbation fit. A K-Means fit takes
+it only through a ``KMeansDraws`` value: the first center's index and
+one uniform per further k-means++ slot. Fit and score functions take their
+draws explicitly, so a test can hand them the JAX reference's draws; by
+default they come from a ``torch.Generator`` seeded from ``(seed, k)`` (the
+counterpart of the reference's ``fold_in(key, k)``). The port's own draws
+are not the reference's bits.
 """
 from __future__ import annotations
 
@@ -83,6 +85,54 @@ def seeded_draws(
     return draw
 
 
-def stack_draws(draws: list[Draws]) -> Draws:
-    """Per-lane draws stacked on a leading lane axis (all at one k_draw)."""
-    return Draws(*(torch.stack(parts) for parts in zip(*draws)))
+def stack_draws(draws: list):
+    """Per-lane ``Draws`` or ``KMeansDraws`` stacked on a leading lane axis
+    (all at one k_draw)."""
+    return type(draws[0])(*(torch.stack(parts) for parts in zip(*draws)))
+
+
+# -----------------------------------------------------------------------------
+# K-Means
+# -----------------------------------------------------------------------------
+KMEANS_DRAW_SLOTS = 128  # uniforms drawn per k-means++ init, whatever k_draw
+
+
+class KMeansDraws(NamedTuple):
+    """The random inputs of one k-means++ init.
+
+    first (): index of the first center; u (k_draw - 1,): one uniform in
+    [0, 1) per further slot, consumed as ``jax.random.choice`` consumes
+    its uniform (``searchsorted(cumsum(p), cumsum(p)[-1] * (1 - u))``). A
+    fit at k_eff <= k_draw uses the first k_eff - 1 of them, so the draws at
+    k_pad start with the draws at k.
+    """
+
+    first: torch.Tensor
+    u: torch.Tensor
+
+
+def kmeans_draws(generator: torch.Generator, n: int, k_draw: int) -> KMeansDraws:
+    """``first`` in [0, n) then ``KMEANS_DRAW_SLOTS - 1`` uniforms cut to k_draw - 1.
+
+    The uniforms are drawn at one fixed length: a draw of length k_pad - 1
+    need not begin with the draw of length k - 1 on the card, and the fixed
+    length keeps a padded lane's draws those of its per-k fit.
+    """
+    if not 1 <= k_draw <= KMEANS_DRAW_SLOTS:
+        raise ValueError(f"k-means++ draws take 1 <= k_draw <= {KMEANS_DRAW_SLOTS}, got {k_draw}")
+    dev = generator.device
+    first = torch.randint(0, n, (), device=dev, generator=generator)
+    u = torch.rand((KMEANS_DRAW_SLOTS - 1,), device=dev, generator=generator)
+    return KMeansDraws(first, u[: k_draw - 1])
+
+
+KMeansDrawSource = Callable[[int, int], KMeansDraws]  # (k, k_draw) -> the draws of k
+
+
+def seeded_kmeans_draws(seed: int, n: int, device: str | torch.device) -> KMeansDrawSource:
+    """The default K-Means draw source: k draws from ``lane_generator(seed, k)``."""
+
+    def draw(k: int, k_draw: int) -> KMeansDraws:
+        return kmeans_draws(lane_generator(seed, k, device), n, k_draw)
+
+    return draw

@@ -1,8 +1,8 @@
 """Shared helpers of the port's parity tests: the JAX reference's draws.
 
 The port never imports JAX; these helpers run the reference's random
-schedule (``nmfk.py`` / ``nmf.py`` key splits) here, in the test process,
-and hand the draws to the port as numpy arrays through
+schedule (``nmfk.py`` / ``nmf.py`` / ``kmeans.py`` key splits) here, in the
+test process, and hand the draws to the port as numpy arrays through
 ``repro_torch.convert``.
 """
 from __future__ import annotations
@@ -11,7 +11,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from repro_torch.convert import draws_from_reference
+from repro_torch.convert import draws_from_reference, kmeans_draws_from_reference
 
 
 def uniform(key, shape, lo, hi) -> np.ndarray:
@@ -33,6 +33,31 @@ def ensemble_draws(key, n: int, m: int, k_draw: int, n_perturbs: int, epsilon: f
     noise = np.stack([uniform(pk, (n, m), 1.0 - epsilon, 1.0 + epsilon) for pk in pkeys])
     inits = [init_draws(fk, n, m, k_draw) for fk in fkeys]
     return noise, np.stack([w for w, _ in inits]), np.stack([h for _, h in inits])
+
+
+def kmeans_draws(key, n: int, k_draw: int) -> tuple[int, np.ndarray]:
+    """(first, u) of ``_kmeanspp_init`` / ``_masked_kmeanspp_init`` at
+    ``key``, k_draw slots: ``k0, key = split(key)``, ``first = randint(k0,
+    (), 0, n)``, then per slot ``key, sub = split(key)`` and the uniform that
+    ``jax.random.choice(sub, n, p=p)`` draws (``uniform(sub, ())``)."""
+    k0, key = jax.random.split(key)
+    first = int(jax.random.randint(k0, (), 0, n))
+    u = []
+    for _ in range(1, k_draw):
+        key, sub = jax.random.split(key)
+        u.append(float(jax.random.uniform(sub, (), jnp.float32)))
+    return first, np.asarray(u, np.float32)
+
+
+def reference_kmeans_draw_source(key, n: int):
+    """A port K-Means draw source ``(k, k_draw) -> KMeansDraws`` yielding the
+    reference's draws of k under ``fold_in(key, k)`` (the evaluators' and
+    ``kmeans_batched``'s schedule)."""
+
+    def draw(k: int, k_draw: int):
+        return kmeans_draws_from_reference(*kmeans_draws(jax.random.fold_in(key, k), n, k_draw), device="cpu")
+
+    return draw
 
 
 def reference_draw_source(key, n: int, m: int, n_perturbs: int, epsilon: float = 0.015):

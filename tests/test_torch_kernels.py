@@ -104,6 +104,36 @@ def test_dist_sums_batched_matches_reference(b, n, d, k, masked):
     np.testing.assert_allclose(got, np.asarray(jref.silhouette_dist_sums_ref(x, onehot)), **SUMS_TOL)
 
 
+PAIRWISE_TOL = dict(rtol=1e-4, atol=1e-3)  # tests/test_kernels.py::test_pairwise fp32 tolerance
+
+
+@pytest.mark.parametrize("n,m,d", [(32, 40, 5), (128, 128, 128), (70, 30, 17), (8, 8, 200)])
+def test_pairwise_matches_reference(n, m, d):
+    rng = np.random.default_rng(n * m * d)
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    y = rng.normal(size=(m, d)).astype(np.float32)
+    got = ops.pairwise_sq_dists(*_t(x, y)).numpy()
+    np.testing.assert_allclose(got, np.asarray(jops.pairwise_sq_dists(x, y, interpret=True)), **PAIRWISE_TOL)
+    np.testing.assert_allclose(got, np.asarray(jref.pairwise_sq_dists_ref(x, y)), **PAIRWISE_TOL)
+    assert got.min() >= 0.0
+
+
+@pytest.mark.parametrize("b,n,m,d", [(3, 40, 24, 7), (2, 70, 30, 17), (4, 16, 8, 6)])
+def test_pairwise_batched_matches_reference(b, n, m, d):
+    """The reference's batched entry (``test_evalplane.py`` shape first), and a
+    2-D x shared by every lane against the reference's broadcast copies."""
+    rng = np.random.default_rng(b * n + m * d)
+    x = rng.normal(size=(b, n, d)).astype(np.float32)
+    y = rng.normal(size=(b, m, d)).astype(np.float32)
+    got = ops.pairwise_sq_dists_batched(*_t(x, y)).numpy()
+    want = np.asarray(jops.pairwise_sq_dists_batched(jnp.asarray(x), jnp.asarray(y), interpret=True))
+    np.testing.assert_allclose(got, want, **PAIRWISE_TOL)
+    shared = ops.pairwise_sq_dists_batched(torch.from_numpy(x[0]), torch.from_numpy(y)).numpy()
+    x0 = jnp.broadcast_to(jnp.asarray(x[0]), (b, n, d))
+    want0 = np.asarray(jops.pairwise_sq_dists_batched(x0, jnp.asarray(y), interpret=True))
+    np.testing.assert_allclose(shared, want0, **PAIRWISE_TOL)
+
+
 def test_wrappers_refuse_tensors_off_the_cpu_and_card():
     """A tensor that is neither on the CPU nor on one card raises: no fallback."""
     v, w, h = (t.to("meta") for t in _t(*_mu_problem(0, (), 8, 8, 2)))
@@ -112,6 +142,8 @@ def test_wrappers_refuse_tensors_off_the_cpu_and_card():
     x = torch.zeros((4, 3), device="meta")
     with pytest.raises(ValueError, match="CPU or all on one CUDA device"):
         ops.silhouette_dist_sums(x, torch.zeros((4, 2)))
+    with pytest.raises(ValueError, match="CPU or all on one CUDA device"):
+        ops.pairwise_sq_dists_batched(x, torch.zeros((2, 5, 3)))
 
 
 def test_plain_path_launches_no_kernel():
@@ -119,8 +151,11 @@ def test_plain_path_launches_no_kernel():
     v, w, h = _t(*_mu_problem(1, (), 16, 12, 3))
     ops.mu_update_h(v, w, h)
     ops.silhouette_dist_sums(w, torch.eye(3)[torch.arange(16) % 3])
+    ops.pairwise_sq_dists(w)
+    ops.pairwise_sq_dists_batched(w, h[None].transpose(1, 2).contiguous())
     assert ops.launch_counts() == dict.fromkeys(
-        ["mu_update_h", "mu_update_w", "silhouette_dist_sums", "silhouette_dist_sums_batched"], 0
+        ["mu_update_h", "mu_update_w", "silhouette_dist_sums", "silhouette_dist_sums_batched",
+         "pairwise_sq_dists", "pairwise_sq_dists_batched"], 0
     )
 
 
