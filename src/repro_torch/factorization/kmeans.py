@@ -128,7 +128,7 @@ def _masked_lloyd(
     k_eff: torch.Tensor,
     k_pad: int,
     max_iters: int,
-    tol: float,
+    tol: float = 1e-6,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Up to ``max_iters`` masked Lloyd iterations from ``centers``.
 
@@ -150,35 +150,15 @@ def _masked_lloyd(
         iters = iters + running.long()
 
 
-def _kmeans_masked_init(
-    x: torch.Tensor, k_eff: torch.Tensor, draws: KMeansDraws, k_pad: int
-) -> torch.Tensor:
-    """Masked k-means++ seeding (the chunked path's init)."""
-    return _masked_kmeanspp_init(x, k_eff, draws, k_pad)
-
-
-def _kmeans_masked_chunk(
-    x: torch.Tensor,
-    centers: torch.Tensor,
-    k_eff: torch.Tensor,
-    k_pad: int,
-    chunk: int,
-    tol: float = 1e-6,
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Resumable chunk of a masked Lloyd fit: up to ``chunk`` iterations.
-
-    Returns (centers, delta, iters_done); the caller stops when delta <= tol
-    (the same iterations as the unchunked fit) or polls §III-D abort between
-    chunks.
-    """
-    return _masked_lloyd(x, centers, k_eff, k_pad, chunk, tol)
-
-
-def _kmeans_masked_assign(
-    x: torch.Tensor, centers: torch.Tensor, k_eff: torch.Tensor, k_pad: int
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """Final assignment of the chunked path."""
-    return _masked_assign(x, centers, k_eff, k_pad)
+# The reference's resumable entry points of the chunked (abortable) path
+# are jit wrappers; eagerly they are these functions under their names.
+# ``_kmeans_masked_chunk(x, centers, k_eff, k_pad, chunk, tol=1e-6)`` runs
+# up to ``chunk`` iterations; the caller stops when the returned delta <=
+# tol (the same iterations as the unchunked fit) or polls §III-D abort
+# between chunks.
+_kmeans_masked_init = _masked_kmeanspp_init
+_kmeans_masked_chunk = _masked_lloyd
+_kmeans_masked_assign = _masked_assign
 
 
 def _kmeans_masked(
