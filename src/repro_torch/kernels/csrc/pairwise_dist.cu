@@ -24,7 +24,7 @@
 // loads and stores, not padded.
 //
 // Index arithmetic per output cell bounds such a kernel by instruction
-// issue, not by the write (one cell per thread ran at 1/6 of the HBM rate),
+// throughput, not by the write (one cell per thread ran at 1/6 of the HBM rate),
 // so here the per-cell work is FMAs and one staged store: a 16-lane wave at
 // n = 1e6, m = 24, d = 6 takes 1.24 ms against a 0.47 ms byte bound (NVIDIA
 // H100 80GB HBM3, 700 W; chip_smoke.py). fp32 FMA on CUDA cores; no wgmma
