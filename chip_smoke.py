@@ -15,18 +15,23 @@ Phases, each fatal on failure:
      at the shapes of the main paths, with the tolerance stated, and time
      kernel, plain version, the card's bound and, where one PyTorch call
      computes the same function, that call (CUDA events, warmed up);
-  4. hold the batched NMFk score, and the K-Means + Davies-Bouldin search
-     of ``tests/test_integration.py`` with a small K-Means silhouette wave,
-     on the card against the same computation on the CPU (plain versions,
-     same draws);
+  4. hold the batched NMFk score, the K-Means + Davies-Bouldin search of
+     ``tests/test_integration.py`` with a small K-Means silhouette wave, and
+     the LM's prefill and greedy decode (qwen2-0.5b at full width cut to 2
+     layers; reduced h2o-danube, whose window bites) on the card against the
+     same computation on the CPU (plain versions, same draws and weights);
   5. run each main path with every launch count set to 0 just before it and
      read just after, asserting the answer and that the run went through
      its kernels: the paper-scale NMFk search (V 1000x1100, k_true 8,
      k 2..16, 4 perturbations, 120 sweeps) through the port's ``ksearch``
-     on the ``batched`` and ``threads`` executors (k_optimal 8), then
+     on the ``batched`` and ``threads`` executors (k_optimal 8);
      ``kmeans_db_1m`` — Binary Bleed over K-Means with Davies-Bouldin on
      10^6 blob points (d 6, k_true 7, k 2..24) — on the scalar executor (two
-     threads) and the batched one (k_optimal 7).
+     threads) and the batched one (k_optimal 7); then the port's ``serve``
+     with qwen2-0.5b at its published widths (24 layers, random weights from
+     seed 0), 4 prompts of 1000 tokens, 32 new tokens: one flash launch per
+     layer, finite logits, and decode-step logits (plain attention over the
+     cache) matching a flash prefill of the extended sequence.
 
 The second-to-last line is ``{"kernels": [...]}`` and the last line is
 ``{"ok": true, "device": {...}}``. Without a card, or outside a checkout of
@@ -34,6 +39,8 @@ the repository, the script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import copy
+import dataclasses
 import json
 import math
 import subprocess
@@ -66,6 +73,15 @@ KM_SIL_ATOL = 1e-3  # the silhouette's self-distance is sqrt of fp32 noise (SUMS
 KM_DATA = dict(n=1_000_000, d=6, k_true=7, std=0.5, noise=0.05, spread=8.0, seed=0)
 KM_SEARCH = dict(k_range=(2, 24), select_threshold=0.6, stop_threshold=1.6, mode="minimize")
 KM_K_PAD, KM_MAX_ITERS, KM_WAVE = 24, 100, 16
+
+FLASH_TOL = dict(rtol=3e-5, atol=3e-5)  # the reference's flash tolerance (tests/test_kernels.py)
+LOGIT_TOL = dict(rtol=2e-3, atol=2e-3)  # the reference's decode-vs-forward tolerance (tests/test_models.py)
+
+# the serve path: qwen2-0.5b at its published widths, weights from seed 0
+SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT, SERVE_TOKENS = "qwen2-0.5b", 4, 1000, 32
+SERVE_ARGS = ["--arch", SERVE_ARCH, "--no-reduced", "--batch", str(SERVE_BATCH),
+              "--prompt-len", str(SERVE_PROMPT), "--tokens", str(SERVE_TOKENS),
+              "--device", "cuda", "--seed", "0", "--quiet"]
 
 PAPER_ARGS = ["--n", "1000", "--m", "1100", "--k-true", "8", "--k-max", "16",
               "--n-perturbs", "4", "--nmf-iters", "120", "--device", "cuda", "--quiet"]
@@ -421,6 +437,178 @@ def run_search(torch, ops, ksearch, executor: str, log) -> dict[str, int]:
     return counts
 
 
+def _live_pairs(lq: int, lk: int, causal: bool, window: int | None) -> int:
+    """(query, key) pairs the masks leave live: the work this run's data needs."""
+    if not causal and window is None:
+        return lq * lk
+    w = window if window is not None else lk
+    return sum(min(i + 1, w) for i in range(lq))
+
+
+def _plain_fp64_err(ref, q, k, v, got, plain32, causal, window) -> tuple[float, float]:
+    """Max abs error of the kernel and of the fp32 plain version against the
+    plain version in float64, taken one kv head at a time (bounded memory)."""
+    group = q.shape[1] // k.shape[1]
+    err_kernel = err_plain = 0.0
+    for kh in range(k.shape[1]):
+        hs = slice(kh * group, (kh + 1) * group)
+        want = ref.attention(q[:, hs].double(), k[:, kh:kh + 1].double(), v[:, kh:kh + 1].double(),
+                             causal=causal, window=window)
+        err_kernel = max(err_kernel, float((got[:, hs].double() - want).abs().max()))
+        err_plain = max(err_plain, float((plain32[:, hs].double() - want).abs().max()))
+        del want
+    return err_kernel, err_plain
+
+
+def check_flash(torch, dev, ops, ref, records: dict, log) -> None:
+    """The flash kernel at the serve path's prefill shape (qwen2-0.5b: B 4,
+    Hq 14, Hk 2, L 1000, D 64, causal), at h2o-danube-1.8b's heads with its
+    window (B 1, Hq 32, Hk 8, L 6000, D 80, window 4096: ragged, and the
+    window skip bites) and on a small ragged non-causal case. Held against
+    the fp32 plain version at the reference's tolerance; the errors of both
+    against a float64 plain version are reported beside."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    cases = (
+        ("qwen2-0.5b prefill: B 4, Hq 14, Hk 2, L 1000, D 64, causal", (4, 14, 2, 1000, 1000, 64), True, None, True),
+        ("h2o-danube-1.8b heads: B 1, Hq 32, Hk 8, L 6000, D 80, causal, window 4096",
+         (1, 32, 8, 6000, 6000, 80), True, 4096, True),
+        ("ragged non-causal: B 2, Hq 6, Hk 3, Lq 70, Lk 45, D 17", (2, 6, 3, 70, 45, 17), False, None, False),
+    )
+    for label, (b, hq, hk, lq, lk, d), causal, window, timed in cases:
+        q = torch.randn((b, hq, lq, d), device=dev, generator=gen)
+        k = torch.randn((b, hk, lk, d), device=dev, generator=gen)
+        v = torch.randn((b, hk, lk, d), device=dev, generator=gen)
+        got = ops.flash_attention(q, k, v, causal=causal, window=window)
+        plain = ref.attention(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        err = compare(torch, got, plain, FLASH_TOL["rtol"], FLASH_TOL["atol"], f"flash_attention [{label}]")
+        err64, plain_err64 = _plain_fp64_err(ref, q, k, v, got, plain, causal, window)
+        entry = {"case": label, "max_abs_err": err, "max_abs_err_vs_fp64": err64,
+                 "plain_fp32_max_abs_err_vs_fp64": plain_err64}
+        del got, plain
+        if timed:
+            pairs = _live_pairs(lq, lk, causal, window)
+            flops = 4 * b * hq * d * pairs  # q.k and p.v multiply-adds on the live pairs
+            n_bytes = 4 * (2 * q.numel() + k.numel() + v.numel())  # q, k, v read; out written
+            b_ms, b_by = bound_ms(n_bytes, flops)
+            if window is None:
+                lib_kw = dict(is_causal=causal)
+            else:  # SDPA takes a window only as an explicit mask
+                i = torch.arange(lq, device=dev)
+                lib_kw = dict(attn_mask=(i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window))
+            entry.update(
+                flops=flops, ms=time_ms(torch, lambda: ops.flash_attention(q, k, v, causal=causal, window=window)),
+                plain_ms=time_ms(torch, lambda: ref.attention(q, k, v, causal=causal, window=window), reps=10),
+                bound_ms=b_ms, bound_by=b_by,
+                library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v, enable_gqa=True, **lib_kw)),
+                library="F.scaled_dot_product_attention(fp32, enable_gqa=True): the same function, one call",
+            )
+        del q, k, v
+        log(json.dumps({"check": "flash_attention", **entry}))
+        records.setdefault("flash_attention", []).append(entry)
+
+
+def _decided(torch, logits, tokens) -> None:
+    """Greedy tokens must agree wherever the top-2 logit margin exceeds the tolerance."""
+    top2 = torch.topk(logits, 2, dim=-1).values
+    tol = LOGIT_TOL["atol"] + LOGIT_TOL["rtol"] * top2[..., 0].abs()
+    decided = (top2[..., 0] - top2[..., 1]) > 2 * tol
+    bad = decided & (torch.argmax(logits, dim=-1) != tokens)
+    if bool(bad.any()):
+        raise AssertionError(f"greedy tokens differ at a decided logit margin: {bad.nonzero().tolist()}")
+
+
+def check_lm_small(torch, dev, ops, log) -> None:
+    """The LM's prefill logits and 8 greedy tokens on the card (flash kernel)
+    against the CPU (plain path), same weights, teacher-forced with the
+    card's tokens: qwen2-0.5b at full width (vocab 151,936) cut to 2 layers,
+    B 1, prompt 200; reduced h2o-danube-1.8b (window 16), B 2, prompt 40."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.launch.serve import setup
+    from repro_torch.serve.decode import generate
+
+    cpu = torch.device("cpu")
+    cases = (
+        ("qwen2-0.5b, full width, 2 layers", dataclasses.replace(get_config("qwen2-0.5b"), num_layers=2), 1, 200),
+        ("h2o-danube-1.8b reduced, window 16", reduced_config(get_config("h2o-danube-1.8b")), 2, 40),
+    )
+    steps = 8
+    for label, cfg, batch, plen in cases:
+        cpu_model, prompt, _, _ = setup(cfg, batch, plen, cpu, seed=0)
+        card_model = copy.deepcopy(cpu_model).to(dev)
+        ops.reset_launch_counts()
+        lg_card, c_card = card_model.prefill({"tokens": prompt.to(dev)}, cache_len=plen + steps)
+        flash = ops.launch_counts()["flash_attention"]
+        lg_cpu, c_cpu = cpu_model.prefill({"tokens": prompt}, cache_len=plen + steps)
+        gaps = [compare(torch, lg_card.cpu(), lg_cpu, LOGIT_TOL["rtol"], LOGIT_TOL["atol"], f"{label}: prefill logits")]
+        tok = torch.argmax(lg_card[:, -1], dim=-1)[:, None]
+        _decided(torch, lg_cpu[:, -1], tok[:, 0].cpu())
+        tokens = [tok]
+        for i in range(steps - 1):
+            lg_card, c_card = card_model.decode_step(c_card, tok, plen + i)
+            lg_cpu, c_cpu = cpu_model.decode_step(c_cpu, tok.cpu(), plen + i)
+            gaps.append(compare(torch, lg_card.cpu(), lg_cpu, LOGIT_TOL["rtol"], LOGIT_TOL["atol"],
+                                f"{label}: decode step {i} logits"))
+            tok = torch.argmax(lg_card[:, -1], dim=-1)[:, None]
+            _decided(torch, lg_cpu[:, -1], tok[:, 0].cpu())
+            tokens.append(tok)
+        tokens = torch.cat(tokens, dim=1)
+        if not torch.equal(generate(card_model, prompt.to(dev), steps=steps), tokens.to(torch.int32)):
+            raise AssertionError(f"{label}: generate's greedy tokens differ from the teacher-forced loop's")
+        if flash != cfg.num_layers:
+            raise AssertionError(f"{label}: {flash} flash launches in one prefill of {cfg.num_layers} layers")
+        log(json.dumps({"check": f"lm card vs plain: {label}", "batch": batch, "prompt": plen,
+                        "logits_max_abs_gap": max(gaps), "tokens": tokens.tolist(),
+                        "flash_launches_per_prefill": flash}))
+        del card_model, c_card
+
+
+def run_serve(torch, dev, ops, serve, log) -> dict[str, int]:
+    """The serve path at full width; counts reset just before, read just
+    after. Then a teacher-forced check with the same weights: decode-step
+    logits (plain attention over the cache) against the last row of a flash
+    prefill of the extended sequence."""
+    from repro_torch.configs import get_config
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    out = serve.main(SERVE_ARGS)
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    tokens = out["tokens"]
+    new = SERVE_BATCH * (SERVE_TOKENS - 1)
+    log(json.dumps({"serve": f"{SERVE_ARCH} full width", "batch": SERVE_BATCH, "prompt": SERVE_PROMPT,
+                    "tokens": SERVE_TOKENS, "wall_s": out["seconds"], "prefill_s": out["prefill_s"],
+                    "decode_s": out["decode_s"], "decode_tokens_per_s": new / out["decode_s"],
+                    "tokens_per_s": SERVE_BATCH * SERVE_TOKENS / out["seconds"],
+                    "max_memory_allocated": peak, "launches": counts, "sample": tokens[0].tolist()}))
+    cfg = get_config(SERVE_ARCH)
+    if tuple(tokens.shape) != (SERVE_BATCH, SERVE_TOKENS):
+        raise AssertionError(f"serve: tokens of shape {tuple(tokens.shape)}")
+    if counts["flash_attention"] != cfg.num_layers:
+        raise AssertionError(f"serve: {counts['flash_attention']} flash launches for one prefill of "
+                             f"{cfg.num_layers} layers")
+
+    model, prompt, _, _ = serve.setup(cfg, SERVE_BATCH, SERVE_PROMPT, dev, seed=0)
+    lg, caches = model.prefill({"tokens": prompt}, cache_len=SERVE_PROMPT + 2)
+    _decided(torch, lg[:, -1], tokens[:, 0])
+    gaps = []
+    for i in range(2):
+        lg_dec, caches = model.decode_step(caches, tokens[:, i:i + 1], SERVE_PROMPT + i)
+        seq = torch.cat([prompt, tokens[:, :i + 1].long()], dim=1)
+        lg_full, _ = model.prefill({"tokens": seq})
+        gaps.append(compare(torch, lg_dec, lg_full, LOGIT_TOL["rtol"], LOGIT_TOL["atol"],
+                            f"serve: decode step {i} vs flash prefill of {seq.shape[1]} tokens"))
+        _decided(torch, lg_dec[:, -1], tokens[:, i + 1])
+    log(json.dumps({"check": "serve decode vs flash prefill, teacher-forced", "steps": 2,
+                    "logits_max_abs_gap": max(gaps), "logits_max_abs": float(lg_full.abs().max())}))
+    del model, caches
+    return counts
+
+
 SOURCES = {
     "mu_update_h": ("src/repro_torch/kernels/csrc/nmf_update.cu", "src/repro/kernels/nmf_update.py:98"),
     "mu_update_w": ("src/repro_torch/kernels/csrc/nmf_update.cu", "src/repro/kernels/nmf_update.py:129"),
@@ -431,6 +619,8 @@ SOURCES = {
     "pairwise_sq_dists": ("src/repro_torch/kernels/csrc/pairwise_dist.cu", "src/repro/kernels/pairwise_dist.py:48"),
     "pairwise_sq_dists_batched": (
         "src/repro_torch/kernels/csrc/pairwise_dist.cu", "src/repro/kernels/pairwise_dist.py:103"),
+    "flash_attention": (
+        "src/repro_torch/kernels/csrc/flash_attention.cu", "src/repro/kernels/flash_attention.py:102"),
 }
 
 
@@ -448,7 +638,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.device import resolve
     from repro_torch.kernels import build, ops, ref
-    from repro_torch.launch import ksearch
+    from repro_torch.launch import ksearch, serve
 
     def log(line: str) -> None:
         print(line, flush=True)
@@ -464,18 +654,21 @@ def main() -> int:
     for b in built.values():
         log(f"build {b.name}: {b.path.name} nvcc {b.seconds if b.seconds is None else round(b.seconds, 2)} s")
         for line in b.log.splitlines():
-            if "ptxas" in line:
+            if "ptxas" in line or "spill" in line:
                 log(f"  {line.strip()}")
 
     records: dict[str, list] = {}
     check_mu(torch, dev, ops, ref, records, log)
     check_sums(torch, dev, ops, ref, records, log)
     check_pairwise(torch, dev, ops, ref, records, log)
+    check_flash(torch, dev, ops, ref, records, log)
     check_nmfk_small(torch, dev, log)
     check_kmeans_small(torch, dev, ops, log)
+    check_lm_small(torch, dev, ops, log)
 
     by_path = {f"nmfk_{ex}": run_search(torch, ops, ksearch, ex, log) for ex in ("batched", "threads")}
     by_path.update({f"kmeans_{ex}": run_kmeans_search(torch, dev, ops, ex, log) for ex in ("threads", "batched")})
+    by_path["serve"] = run_serve(torch, dev, ops, serve, log)
 
     kernels = []
     for name, (source, replaces) in SOURCES.items():

@@ -60,7 +60,16 @@ def _active(k_eff: torch.Tensor, k_pad: int) -> torch.Tensor:
 def _choice(p: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     """Index drawn with probabilities p (..., n) from uniforms u (...), as
     ``jax.random.choice(p=p)`` draws it: ties and empty mass go to the first
-    index, and an index past the end is clamped as a JAX gather clamps it."""
+    index, and an index past the end is clamped as a JAX gather clamps it.
+
+    On the card the cumulative sum runs in float64. ``torch.cumsum`` of a
+    CUDA float tensor is not deterministic (its scan adds in an order that
+    depends on timing), and in float32 that noise moves a draw to the
+    neighbouring index, an unrelated point, in a few percent of draws at
+    n = 10^6: the same fit then seeded differently from run to run. The CPU
+    keeps the reference's float32."""
+    if p.is_cuda:
+        p, u = p.double(), u.double()
     cum = torch.cumsum(p, dim=-1)
     r = cum[..., -1:] * (1.0 - u[..., None])
     return torch.searchsorted(cum, r)[..., 0].clamp_(max=p.shape[-1] - 1)

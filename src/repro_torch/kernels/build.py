@@ -31,7 +31,7 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # source stem -> {C function: argtypes}; every function returns cudaError_t as int
 SIGNATURES: dict[str, dict[str, list]] = {
     "nmf_update": {
@@ -43,6 +43,9 @@ SIGNATURES: dict[str, dict[str, list]] = {
     },
     "pairwise_dist": {
         "pairwise_sq_dists": [_P, _P, _P, _I, _I, _I, _I, _L, _L, _P],
+    },
+    "flash_attention": {
+        "flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, *[_L] * 12, _F, _I, _I, _P],
     },
 }
 

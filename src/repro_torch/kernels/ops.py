@@ -22,13 +22,17 @@ MAX_RANK = 128  # largest k the MU kernels take (nmf_update.cu kMaxRank)
 MAX_CLUSTERS = 128  # largest k the distance-sum kernel takes (silhouette_sums.cu)
 MAX_LANES = 65535  # grid limit on the lane axis (pairwise_dist.cu)
 MAX_PAIRWISE_COLS = 65535 * 32  # grid limit on m (pairwise_dist.cu: 32 y rows per block)
+MAX_HEAD_DIM = 128  # largest head dim the flash kernel takes (flash_attention.cu)
+MAX_GRID_YZ = 65535  # grid limit on heads and batch (flash_attention.cu)
 
 _count_lock = threading.Lock()
 
 
-def _on_card(*tensors: torch.Tensor) -> bool:
+def _on_card(*tensors: torch.Tensor, contiguous: bool = True) -> bool:
     """False for all-CPU tensors (plain path); True for one CUDA device after
-    checking what the kernels take; raises for anything else."""
+    checking what the kernels take (float32; contiguous, or with
+    ``contiguous=False`` unit stride along the last axis); raises for
+    anything else."""
     devices = {t.device for t in tensors}
     if all(d.type == "cpu" for d in devices):
         return False
@@ -37,8 +41,10 @@ def _on_card(*tensors: torch.Tensor) -> bool:
     for t in tensors:
         if t.dtype != torch.float32:
             raise TypeError(f"the CUDA kernels take float32 tensors, got {t.dtype}")
-        if not t.is_contiguous():
+        if contiguous and not t.is_contiguous():
             raise ValueError("the CUDA kernels take contiguous tensors")
+        if not contiguous and t.shape[-1] > 1 and t.stride(-1) != 1:
+            raise ValueError("the flash-attention kernel takes unit stride along the head dim")
     return True
 
 
@@ -218,9 +224,60 @@ def pairwise_sq_dists_batched(x: torch.Tensor, y: torch.Tensor | None = None) ->
     return out
 
 
+# -----------------------------------------------------------------------------
+# Flash attention (csrc/flash_attention.cu)
+# -----------------------------------------------------------------------------
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    causal: bool = True,
+    window: int | None = None,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """Causal/windowed GQA softmax attention: q (B, Hq, Lq, D), k and v (B, Hk, Lk, D)
+    -> (B, Hq, Lq, D); query head h reads kv head ``h // (Hq // Hk)``.
+
+    ``scale`` defaults to D^-0.5 and multiplies q.k. Causal or windowed
+    attention takes Lq == Lk only (query row i is position i, as in the TPU
+    kernel). On the card the operands may be strided views (unit stride along
+    D); the output has q's layout.
+    """
+    if not q.dim() == k.dim() == v.dim() == 4:
+        raise ValueError("flash_attention takes 4-D (B, H, L, D) operands")
+    b, hq, lq, d = q.shape
+    _, hk, lk, _ = k.shape
+    if k.shape[0] != b or k.shape[-1] != d or v.shape != k.shape or hk < 1 or hq % hk != 0:
+        raise ValueError(
+            f"flash_attention shapes q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)} do not match "
+            "(B, Hq, Lq, D), (B, Hk, Lk, D) with Hq % Hk == 0"
+        )
+    if (causal or window is not None) and lq != lk:
+        raise ValueError(f"causal or windowed flash_attention takes Lq == Lk, got Lq={lq}, Lk={lk}")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+    scale = float(scale if scale is not None else d**-0.5)
+    if not _on_card(q, k, v, contiguous=False):
+        return ref.attention(q, k, v, causal=causal, window=window, scale=scale)
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"the flash-attention kernel takes head dim 1..{MAX_HEAD_DIM}, got {d}")
+    if min(b, lq, lk) < 1 or max(b, hq) > MAX_GRID_YZ:
+        raise ValueError(f"the flash-attention kernel takes 1 <= B, Hq <= {MAX_GRID_YZ} and non-empty L")
+    out = torch.empty_like(q)  # q's layout when q is dense (a transposed view included)
+    lib = build.load("flash_attention")
+    rc = lib.flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq, hk, lq, lk, d,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+        scale, int(causal), window or 0, _stream(q),
+    )
+    _check(rc, "flash_attention")
+    _count(flash_attention)
+    return out
+
+
 KERNEL_WRAPPERS = (
     mu_update_h, mu_update_w, silhouette_dist_sums, silhouette_dist_sums_batched,
-    pairwise_sq_dists, pairwise_sq_dists_batched,
+    pairwise_sq_dists, pairwise_sq_dists_batched, flash_attention,
 )
 for _wrapper in KERNEL_WRAPPERS:
     _wrapper.launches = 0

@@ -39,3 +39,38 @@ def silhouette_dist_sums(
 ) -> torch.Tensor:
     """Dense: materialize sqrt distances, contract with the one-hot."""
     return torch.matmul(torch.sqrt(pairwise_sq_dists(x, y)), onehot)
+
+
+def attention(
+    q: torch.Tensor,  # (B, Hq, Lq, D)
+    k: torch.Tensor,  # (B, Hk, Lk, D)
+    v: torch.Tensor,  # (B, Hk, Lk, D)
+    causal: bool = True,
+    window: int | None = None,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """Dense softmax attention with GQA/causal/sliding-window, in fp32 math
+    (float64 inputs stay float64).
+
+    Query head h reads kv head ``h // (Hq // Hk)``. Query rows are offset
+    by ``Lk - Lq`` for the causal and window masks (the reference oracle's
+    decode convention; the kernel's wrapper takes causal only at Lq == Lk).
+    """
+    lq, d = q.shape[-2:]
+    lk = k.shape[-2]
+    group = q.shape[1] // k.shape[1]
+    scale = float(scale if scale is not None else d**-0.5)
+    ct = torch.promote_types(q.dtype, torch.float32)
+    kf = k.to(ct).repeat_interleave(group, dim=1)
+    vf = v.to(ct).repeat_interleave(group, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.to(ct), kf) * scale
+    q_idx = torch.arange(lq, device=q.device)[:, None] + (lk - lq)
+    k_idx = torch.arange(lk, device=q.device)[None, :]
+    mask = torch.ones((lq, lk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= k_idx <= q_idx
+    if window is not None:
+        mask &= k_idx > q_idx - window
+    s = torch.where(mask, s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, vf).to(q.dtype)

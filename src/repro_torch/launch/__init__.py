@@ -1,1 +1,1 @@
-"""Entry points of the port: the k-search driver."""
+"""Entry points of the port: the k-search and LM serving launchers."""

@@ -160,3 +160,112 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         ops.mu_update_w(v, big, torch.ones((1, 129, 12), device=dev))
     with pytest.raises(ValueError, match="CPU or all on one CUDA device"):
         ops.mu_update_h(v, w.cpu(), h)
+
+
+FLASH_TOL = dict(rtol=3e-5, atol=3e-5)  # tests/test_kernels.py::test_flash_attention
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "b,hq,hk,lq,lk,d,causal,window",
+    [
+        (2, 14, 2, 1000, 1000, 64, True, None),  # qwen2: group 7, ragged L
+        (1, 8, 2, 333, 333, 80, True, 100),      # h2o-danube head dim, window bites, ragged
+        (1, 4, 1, 64, 64, 32, True, 24),         # MQA + window inside one tile
+        (2, 6, 3, 70, 45, 17, False, None),      # non-causal, Lq != Lk, odd D
+        (1, 2, 2, 256, 256, 128, True, None),    # largest head dim
+        (3, 4, 4, 1, 1, 16, True, None),         # one row
+    ],
+)
+def test_flash_kernel_matches_plain(b, hq, hk, lq, lk, d, causal, window):
+    dev = card()
+    rng = np.random.default_rng(b * hq + lq + d)
+    q = torch.from_numpy(rng.normal(size=(b, hq, lq, d)).astype(np.float32)).to(dev)
+    k = torch.from_numpy(rng.normal(size=(b, hk, lk, d)).astype(np.float32)).to(dev)
+    v = torch.from_numpy(rng.normal(size=(b, hk, lk, d)).astype(np.float32)).to(dev)
+    before = ops.flash_attention.launches
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert ops.flash_attention.launches == before + 1
+    torch.testing.assert_close(got, ref.attention(q, k, v, causal=causal, window=window), **FLASH_TOL)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_takes_the_models_strided_views():
+    """(B, L, H, D) projections passed as (B, H, L, D) views: no copies,
+    output in q's layout."""
+    dev = card()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    q = torch.randn((2, 77, 14, 64), device=dev, generator=gen)
+    k = torch.randn((2, 77, 2, 64), device=dev, generator=gen)
+    v = torch.randn((2, 77, 2, 64), device=dev, generator=gen)
+    got = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+    assert got.stride() == q.transpose(1, 2).stride()
+    want = ref.attention(*(t.transpose(1, 2).contiguous() for t in (q, k, v)))
+    torch.testing.assert_close(got, want, **FLASH_TOL)
+
+
+@pytest.mark.cuda
+def test_flash_wrapper_refuses_what_the_kernel_does_not_take():
+    dev = card()
+    q = torch.ones((1, 4, 16, 32), device=dev)
+    k = torch.ones((1, 2, 16, 32), device=dev)
+    with pytest.raises(TypeError, match="float32"):
+        ops.flash_attention(q.bfloat16(), k.bfloat16(), k.bfloat16())
+    with pytest.raises(ValueError, match="unit stride"):
+        ops.flash_attention(q.transpose(2, 3), k.transpose(2, 3), k.transpose(2, 3), causal=False)
+    with pytest.raises(ValueError, match="Lq == Lk"):
+        ops.flash_attention(q[:, :, :8], k, k)
+    with pytest.raises(ValueError, match="head dim"):
+        big = torch.ones((1, 2, 16, 136), device=dev)
+        ops.flash_attention(big, big, big)
+    with pytest.raises(ValueError, match="CPU or all on one CUDA device"):
+        ops.flash_attention(q, k.cpu(), k)
+
+
+@pytest.mark.cuda
+def test_model_prefill_and_decode_on_the_card_match_the_cpu():
+    """Reduced h2o-danube (window 16 < prompt 40): the card's prefill runs the
+    flash kernel, the CPU's the plain path; same weights, same tokens."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.launch.serve import setup
+
+    dev = card()
+    cfg = reduced_config(get_config("h2o-danube-1.8b"))
+    cpu_model, prompt, _, _ = setup(cfg, 2, 40, torch.device("cpu"), seed=1)
+    card_model, _, _, _ = setup(cfg, 2, 40, torch.device("cpu"), seed=1)
+    card_model.to(dev)
+    before = ops.flash_attention.launches
+    lg_card, c_card = card_model.prefill({"tokens": prompt.to(dev)}, cache_len=44)
+    assert ops.flash_attention.launches == before + cfg.num_layers
+    lg_cpu, c_cpu = cpu_model.prefill({"tokens": prompt}, cache_len=44)
+    torch.testing.assert_close(lg_card.cpu(), lg_cpu, rtol=2e-3, atol=2e-3)
+    tok = torch.argmax(lg_cpu[:, -1], -1)[:, None]
+    for i in range(3):
+        lg_card, c_card = card_model.decode_step(c_card, tok.to(dev), 40 + i)
+        lg_cpu, c_cpu = cpu_model.decode_step(c_cpu, tok, 40 + i)
+        torch.testing.assert_close(lg_card.cpu(), lg_cpu, rtol=2e-3, atol=2e-3)
+        tok = torch.argmax(lg_cpu[:, -1], -1)[:, None]
+
+
+@pytest.mark.cuda
+def test_kmeanspp_choice_on_the_card_is_the_exact_draw():
+    """k-means++ picks index searchsorted(cumsum(p), total * (1 - u)). A
+    float32 ``torch.cumsum`` on the card adds in a timing-dependent order, and
+    at n = 10^6 its ulp noise moves a few percent of draws to the
+    neighbouring index: the same fit was seeded differently from run to run.
+    The card's draws must be the exact (float64, CPU) draws, every time."""
+    from repro_torch.factorization.kmeans import _choice
+
+    dev = card()
+    rng = np.random.default_rng(0)
+    p = rng.exponential(size=1_000_000).astype(np.float32)
+    p /= p.sum()
+    u = rng.uniform(size=256).astype(np.float32)
+    exact = _choice(torch.from_numpy(p).double().expand(256, -1), torch.from_numpy(u).double())
+    pc = torch.from_numpy(p).to(dev).expand(256, -1)
+    for _ in range(5):
+        got = _choice(pc, torch.from_numpy(u).to(dev))
+        assert torch.equal(got.cpu(), exact)
+        got_1d = torch.stack([_choice(pc[i], torch.from_numpy(u[i:i + 1]).to(dev)[0]) for i in range(16)])
+        assert torch.equal(got_1d.cpu(), exact[:16])
