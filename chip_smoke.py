@@ -150,12 +150,19 @@ def mu_problem(torch, dev, lanes: int, k_pad: int, k_effs):
 
 
 def check_mu(torch, dev, ops, ref, records: dict, log) -> None:
-    lanes, n, m = 32, 1000, 1100
+    """Both MU wrappers against their plain versions at the batched wave's
+    shape (L=32; k_pad 16, and ragged k_pad 13) and the threads executor's
+    (L=4, k=16): masked components exactly zero, two calls bitwise equal;
+    timed at k=16 with the wrapper's G or Q product alone beside (the
+    kernels line reports the L=32 case, the first timed)."""
+    n, m = 1000, 1100
     cases = [
-        ("k_pad=16, ks 9..16", 16, [9 + i // 4 for i in range(lanes)]),
-        ("k_pad=13, ragged, ks 10..13", 13, [10 + (i // 4) % 4 for i in range(lanes)]),
+        ("k_pad=16, ks 9..16", 32, 16, [9 + i // 4 for i in range(32)]),
+        ("k_pad=13, ragged, ks 10..13", 32, 13, [10 + (i // 4) % 4 for i in range(32)]),
+        ("threads: L=4, k=16", 4, 16, [16] * 4),
     ]
-    for label, k, k_effs in cases:
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for label, lanes, k, k_effs in cases:
         v, w, h, k_eff = mu_problem(torch, dev, lanes, k, k_effs)
         dead = torch.arange(k, device=dev)[None, :] >= k_eff[:, None]  # (L, k) masked comps
         for name, fn, plain, out_of in (
@@ -163,20 +170,30 @@ def check_mu(torch, dev, ops, ref, records: dict, log) -> None:
             ("mu_update_w", ops.mu_update_w, ref.mu_update_w, "w"),
         ):
             got, want = fn(v, w, h), plain(v, w, h)
+            again = fn(v, w, h)
             torch.cuda.synchronize()
             err = compare(torch, got, want, MU_TOL["rtol"], MU_TOL["atol"], f"{name} [{label}]")
+            if not torch.equal(got, again):
+                raise AssertionError(f"{name} [{label}]: two calls differ bitwise")
             masked = got[dead] if out_of == "h" else got.transpose(1, 2)[dead]
             if masked.numel() and float(masked.abs().max()) != 0.0:
                 raise AssertionError(f"{name} [{label}]: masked components are not exactly zero")
-            entry = {"case": label, "shape": {"L": lanes, "n": n, "m": m, "k": k}, "max_abs_err": err}
-            if k == 16:  # the main-path shape: time it
+            plan = ops._mu_plan(out_of, lanes, n, m, k, sms)
+            entry = {"case": label, "shape": {"L": lanes, "n": n, "m": m, "k": k}, "max_abs_err": err,
+                     "bitwise_equal_rerun": True,
+                     "plan": {"whole": plan.whole, "split": plan.split, "chunk": plan.chunk, "items": plan.items, "blocks": plan.blocks,
+                              "scratch_bytes": 4 * math.prod(plan.scratch)}}
+            if k == 16:  # the main paths' shape: time it
                 n_bytes = 4 * lanes * (n * m + n * k + k * m + k * k + (k * m if out_of == "h" else n * k))
                 flops = lanes * (2 * n * m * k + (2 * k * k * m + 3 * k * m if out_of == "h" else 2 * n * k * k + 3 * n * k))
                 b_ms, b_by = bound_ms(n_bytes, flops)
+                # the wrapper's own k x k product (G = W^T W or Q = H H^T), timed alone
+                gram = (lambda: torch.bmm(w.transpose(1, 2), w)) if out_of == "h" else (
+                    lambda: torch.bmm(h, h.transpose(1, 2)))
                 entry.update(
                     ms=time_ms(torch, lambda: fn(v, w, h)),
                     plain_ms=time_ms(torch, lambda: plain(v, w, h)),
-                    bound_ms=b_ms, bound_by=b_by,
+                    bound_ms=b_ms, bound_by=b_by, gram_bmm_ms=time_ms(torch, gram),
                 )
             log(json.dumps({"check": name, **entry}))
             records.setdefault(name, []).append(entry)
@@ -656,6 +673,9 @@ def main() -> int:
         for line in b.log.splitlines():
             if "ptxas" in line or "spill" in line:
                 log(f"  {line.strip()}")
+    mu_lib = build.load("nmf_update")
+    log("nmf_update dynamic shared memory (bytes) by rank bucket: " + json.dumps(
+        {f"{upd}_kb{kb}": mu_lib.mu_dynamic_smem(i, kb) for i, upd in enumerate("hw") for kb in (16, 32, 64, 128)}))
 
     records: dict[str, list] = {}
     check_mu(torch, dev, ops, ref, records, log)

@@ -32,11 +32,13 @@ NVCC_FLAGS = (
 )
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-# source stem -> {C function: argtypes}; every function returns cudaError_t as int
+# source stem -> {C function: argtypes}; every function returns an int:
+# cudaError_t for a launch, a byte count for mu_dynamic_smem
 SIGNATURES: dict[str, dict[str, list]] = {
     "nmf_update": {
-        "mu_update_h": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-        "mu_update_w": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        "mu_update_h": [_P, _P, _P, _P, _P, _P, _P, *[_I] * 8, _P],
+        "mu_update_w": [_P, _P, _P, _P, _P, _P, _P, *[_I] * 8, _P],
+        "mu_dynamic_smem": [_I, _I],
     },
     "silhouette_sums": {
         "silhouette_dist_sums": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],

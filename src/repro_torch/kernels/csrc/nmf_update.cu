@@ -1,4 +1,4 @@
-// Lee-Seung multiplicative-update kernels for Hopper (sm_90a), fp32.
+// Lee-Seung multiplicative-update kernels for Hopper (sm_90a), fp32 on CUDA cores.
 //
 // Replaces the TPU kernels of repro/kernels/nmf_update.py:
 //   h_update (_h_update_kernel):  H <- H * (W^T V) / (G H + 1e-9),  G = W^T W
@@ -11,238 +11,873 @@
 // What bounds it on an H100: reading V. Per fit and half-sweep the kernel
 // does 2*n*m*k flops against 4*n*m bytes of V; at k = 16 that is 8 flops a
 // byte, below the 20 flops a byte where fp32 CUDA-core math (67 TFLOP/s)
-// would overtake HBM (3.35 TB/s). So each V element is read from device
-// memory once, by coalesced loads, and used for all k of its products while
-// it sits in a register; each thread keeps a register tile of accumulators
-// (k x 4 columns, or 8 rows x k) so that a loaded value feeds many FMAs.
-// The (k, m) / (n, k) numerator never reaches device memory: the
-// divide-multiply epilogue runs on the block's reduced sums. Blocks run in
-// any order and own disjoint outputs; the reduction axis is walked inside
-// the block, with fixed-order (deterministic) reductions between its
-// threads and no atomics. Ragged n, m and k are masked in the kernel, so no
-// padded copy of V is made. Components masked to zero (W columns / H rows)
-// stay exactly zero: 0 * acc / (0 + 1e-9) = 0.
+// would overtake HBM (3.35 TB/s). So the design is about keeping V in
+// flight on every SM and ending all SMs together, not about tensor cores:
 //
-// fp32 FMA on CUDA cores. wgmma, TMA and bf16 are later work.
+// - One persistent block per SM walks a list of work items (see "Work
+//   items" below). Its copy warps fill a ring of up to six shared-memory
+//   stages ahead of its eight math warps, with a "full" and an "empty"
+//   mbarrier per slot and no block-wide barrier per stage, so V keeps
+//   streaming while the math warps reduce and store a finished item. Where
+//   the operands allow it (rows a multiple of 16 bytes, aligned), one thread
+//   issues each stage as 3-D tensor-memory-accelerator boxes; otherwise the
+//   copy threads stage it with cp.async, 16 or 4 bytes at a time.
+// - Math threads read V and W (or H) from shared memory as float4 and keep
+//   a register tile of accumulators, so one shared load feeds 16-32 FMAs.
+// - A unit (one output tile of one lane) is reduced by one block, or, for
+//   the units left over after whole rounds of the blocks, split across
+//   blocks: each writes its partial sums to scratch and bumps the unit's
+//   int32 arrival counter; the block that arrives last adds the S partials
+//   in index order 0..S-1, applies the epilogue and sets the counter back
+//   to zero, so the counters, zeroed once when the wrapper allocates them,
+//   are zero before every launch. Data is never added with atomics, so the
+//   output is bitwise equal from call to call. The wrapper plans the cut
+//   (ops._mu_plan); at L=32, n=1000, m=1100, k=16 the H-update splits 24 of
+//   its 288 units five ways (1.2 MB of partials written and read back,
+//   mostly in L2, against V's 141 MB) and the W-update splits none; at L=4
+//   every unit is split (2.0 and 1.0 MB against 17.6 MB).
+// - Inside a block the reduction is split over row (H) or column (W)
+//   slices of each stage; the slices' sums are added in a fixed order
+//   through shared memory. The divide-multiply epilogue runs on the reduced
+//   sums, so the (k, m) / (n, k) numerator never reaches device memory
+//   except as the partials of a split unit.
+//
+// Ragged n, m and k are masked in the kernel (rows and columns out of range
+// arrive as zeros), so no padded copy of V is made. Components masked to
+// zero (W columns / H rows) stay exactly zero: 0 * acc / (x + 1e-9) = 0.
+// fp32 FMA only: no TF32, no wgmma.
 
+#include <cuda.h>  // CUtensorMap (the encoder is fetched from the driver at run time)
 #include <cuda_runtime.h>
 #include <stddef.h>
+#include <stdint.h>
+
+#include <mutex>
 
 namespace {
 
 constexpr int kMaxRank = 128;  // largest k the kernels take
 constexpr float kEps = 1e-9f;
+constexpr int kMath = 256;              // 8 math warps
+constexpr int kCopy = 128;              // 4 copy warps
+constexpr int kThreads = kMath + kCopy;
+constexpr int kMaxStages = 6;           // deepest ring
+constexpr int kSmemFloats = 226 * 256;  // 226 KB of the 227 a block may hold; 1 KB aligns the ring
+
+// Ring slots that fit beside the parking space for a block's sums.
+constexpr int ring_stages(int stage_floats, int park_floats) {
+  const int fit = (kSmemFloats - park_floats) / stage_floats;
+  return fit < kMaxStages ? fit : kMaxStages;
+}
 
 // ---------------------------------------------------------------------------
-// H-update. grid (ceil(m / (32 * COLS)), L), block (32, SLICES).
-// Thread (tx, ty) owns columns j0 + tx + 32 c (c < COLS) for all KB >= k
-// ranks and walks rows ty, ty + SLICES, ... of V and W: one coalesced V load
-// per column feeds KB FMAs, and the W row is a broadcast load. The SLICES
-// partial sums are then added in a fixed order through shared memory.
+// Asynchronous copies (cp.async) and shared-memory barriers (mbarrier). A
+// copy whose source is out of range has source size 0: the 16 (or 4) bytes
+// in shared memory are zero-filled and nothing is read.
 // ---------------------------------------------------------------------------
-constexpr int kSlices = 8;
-constexpr int kRowBatch = 4;  // rows of V loaded together per thread
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
 
-template <int KB, int COLS>
-__global__ void __launch_bounds__(32 * kSlices)
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(full ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool full) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(full ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+// Wait until the barrier's phase with this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile(
+      "{\n"
+      ".reg .b64 state;\n"
+      "mbarrier.arrive.shared::cta.b64 state, [%0];\n"
+      "}\n" ::"r"(smem_u32(bar))
+      : "memory");
+}
+
+// Arrive on the barrier once every cp.async this thread has issued so far
+// has landed.
+__device__ __forceinline__ void mbar_arrive_on_copies(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// Announce `bytes` of tensor copies on the barrier and arrive once.
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, int bytes) {
+  asm volatile(
+      "{\n"
+      ".reg .b64 state;\n"
+      "mbarrier.arrive.expect_tx.shared::cta.b64 state, [%0], %1;\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// One box of a 3-D tensor map (coordinates innermost first) into shared
+// memory by the tensor memory accelerator; out-of-range elements arrive as
+// zeros, and the barrier counts the box's bytes when they have landed.
+__device__ __forceinline__ void tma_box(float* dst, const CUtensorMap* map, int c0, int c1, int c2,
+                                        uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4}], "
+      "[%5];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// A barrier of the math warps only: the copy warps never wait for them.
+__device__ __forceinline__ void math_sync() { asm volatile("bar.sync 1, %0;\n" ::"n"(kMath) : "memory"); }
+
+// Copy thread `lane` (of kCopy) stages its share of a ROWS x COLS tile of a
+// row-major matrix (row stride ld floats) into shared memory with row pitch
+// PITCH: rows r < vr and columns c < vc from src, everything else zero.
+// `vec`: 16-byte copies, which needs src, ld and vc to be multiples of 4
+// floats (and `safe` 16-byte aligned); `safe` is an in-range address handed
+// to the zero-filling copies.
+template <int ROWS, int COLS, int PITCH>
+__device__ __forceinline__ void stage_tile(float* dst, const float* src, const float* safe, int ld,
+                                           int vr, int vc, bool vec, int lane) {
+  if (vec) {
+    constexpr int kC4 = COLS / 4;
+#pragma unroll 4
+    for (int e = lane; e < ROWS * kC4; e += kCopy) {
+      const int r = e / kC4, c = (e % kC4) * 4;
+      const bool ok = r < vr && c < vc;
+      cp_async16(dst + r * PITCH + c, ok ? src + (size_t)r * ld + c : safe, ok);
+    }
+  } else {
+#pragma unroll 4
+    for (int e = lane; e < ROWS * COLS; e += kCopy) {
+      const int r = e / COLS, c = e % COLS;
+      const bool ok = r < vr && c < vc;
+      cp_async4(dst + r * PITCH + c, ok ? src + (size_t)r * ld + c : safe, ok);
+    }
+  }
+}
+
+// Arrival of one split block at its tile's counter, after all its math
+// threads stored their partials. Thread 0 adds 1 with release-acquire
+// semantics at device scope: the barrier before it orders the block's
+// stores before the release, and the barrier after it orders the acquire
+// before every read of the other blocks' partials (through L2: __ldcg).
+// True in the block that arrived last, which resets the counter and owns
+// the epilogue.
+__device__ bool arrive_last(int* counter, int split) {
+  __shared__ int last;
+  math_sync();
+  if (threadIdx.x == 0) {
+    int before;
+    asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], 1;\n" : "=r"(before) : "l"(counter) : "memory");
+    last = before == split - 1;
+    if (last) *counter = 0;
+  }
+  math_sync();
+  return last;
+}
+
+// num[i] = sum over s = 0 .. split-1, in that order, of p[s * stride + off[i]]:
+// the loads of kGroup splits are in flight together.
+template <int N>
+__device__ __forceinline__ void sum_partials(float (&num)[N], const float* p, const int (&off)[N],
+                                             const bool (&live)[N], int split, size_t stride) {
+  constexpr int kGroup = N >= 32 ? 1 : 32 / N < 8 ? 32 / N : 8;
+#pragma unroll
+  for (int i = 0; i < N; ++i) num[i] = 0.f;
+  for (int s0 = 0; s0 < split; s0 += kGroup) {
+    float x[kGroup][N];
+#pragma unroll
+    for (int d = 0; d < kGroup; ++d)
+#pragma unroll
+      for (int i = 0; i < N; ++i)
+        x[d][i] = (live[i] && s0 + d < split) ? __ldcg(p + (s0 + d) * stride + off[i]) : 0.f;
+#pragma unroll
+    for (int d = 0; d < kGroup; ++d)
+#pragma unroll
+      for (int i = 0; i < N; ++i)
+        if (s0 + d < split) num[i] = (s0 + d == 0) ? x[d][i] : num[i] + x[d][i];
+  }
+}
+
+__device__ __forceinline__ void fma4(float (&acc)[4], float s, const float4& x) {
+  acc[0] = fmaf(s, x.x, acc[0]);
+  acc[1] = fmaf(s, x.y, acc[1]);
+  acc[2] = fmaf(s, x.z, acc[2]);
+  acc[3] = fmaf(s, x.w, acc[3]);
+}
+
+__device__ __forceinline__ float dot4(const float4& a, const float4& b, float acc) {
+  acc = fmaf(a.x, b.x, acc);
+  acc = fmaf(a.y, b.y, acc);
+  acc = fmaf(a.z, b.z, acc);
+  return fmaf(a.w, b.w, acc);
+}
+
+// ---------------------------------------------------------------------------
+// Work items and the persistent walk.
+// A unit is one output tile of one lane (tile fastest, so the blocks at work
+// at one moment read whole rows of V together). The first `whole` units are
+// items of their own: their reduction runs in one block, which stores the
+// update itself. Each of the other units (the tail) is cut into `split`
+// items of `chunk` rows or columns (whole stages), whose blocks meet at the
+// unit's arrival counter; with split == 1 they too are whole. The grid is persistent: block b takes
+// items b, b + G, b + 2G, ... (G = gridDim.x) and walks the stages of all of
+// them as one stream. Its copy warps run up to a ring's depth ahead of the
+// math warps (one "full" and one "empty" barrier per ring slot), also while
+// they reduce and store a finished item.
+// ---------------------------------------------------------------------------
+struct Walk {
+  int tiles, units, whole, split, chunk, len, step;
+
+  __device__ __forceinline__ int items() const { return whole + (units - whole) * split; }
+};
+
+struct Cursor {
+  int item, tile, s, t, stages;
+  int s_begin;  // first row (H) or column (W) of the item's reduction
+  int tail;     // a piece's unit among the tail units: its partials' and counter's index
+  size_t lane;
+  bool piece;  // one of `split` items of a tail unit
+
+  __device__ __forceinline__ void at(int it, const Walk& wk) {
+    item = it;
+    t = 0;
+    int unit, begin = 0, size = wk.len;
+    if (it < wk.whole) {
+      unit = it;
+      s = tail = 0;
+      piece = false;
+    } else {
+      const int j = it - wk.whole, tail = max(wk.units - wk.whole, 1);  // 0 only past the last item
+      this->tail = j % tail;
+      unit = wk.whole + this->tail;
+      s = j / tail;
+      begin = s * wk.chunk;
+      size = min(wk.len, begin + wk.chunk) - begin;
+      piece = wk.split > 1;
+    }
+    tile = unit % wk.tiles;
+    lane = (size_t)(unit / wk.tiles);
+    stages = (size + wk.step - 1) / wk.step;
+    s_begin = begin;
+  }
+  // Next stage; true when it starts the next item (the last one is done).
+  __device__ __forceinline__ bool next(const Walk& wk) {
+    if (++t < stages) return false;
+    at(item + gridDim.x, wk);
+    return true;
+  }
+};
+
+// The block's walk: the copy warps fill ring slots, the math warps consume
+// them in the same order and finish each item after its last stage. `Op`
+// supplies the shapes and issue / compute / finish.
+template <class Op>
+__device__ __forceinline__ void walk(Op& op, float* ring, uint64_t* full, uint64_t* empty) {
+  Cursor c;
+  c.at(blockIdx.x, op.wk);
+  const int items = op.wk.items();
+  if (threadIdx.x >= kMath) {  // the copy warps: one thread with tensor maps, else all of them
+    const int lane = threadIdx.x - kMath;
+    if (op.tma && lane != 0) return;
+    for (int g = 0; c.item < items; ++g) {
+      const int slot = g % Op::kStages;
+      if (g >= Op::kStages) mbar_wait(&empty[slot], (g / Op::kStages - 1) & 1);
+      if (op.tma) {
+        mbar_expect(&full[slot], Op::kTmaBytes);
+        op.issue_tma(c, ring + slot * Op::kStage, &full[slot]);
+      } else {
+        op.issue(c, ring + slot * Op::kStage, lane);
+        mbar_arrive_on_copies(&full[slot]);
+      }
+      c.next(op.wk);
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    return;
+  }
+  for (int g = 0; c.item < items; ++g) {
+    const int slot = g % Op::kStages;
+    mbar_wait(&full[slot], (g / Op::kStages) & 1);
+    op.compute(ring + slot * Op::kStage);
+    __syncwarp();
+    if ((threadIdx.x & 31) == 0) mbar_arrive(&empty[slot]);
+    const Cursor it = c;  // the item this stage belongs to
+    if (c.next(op.wk)) op.finish(it);
+  }
+}
+
+template <class Op>
+__device__ __forceinline__ void init_barriers(uint64_t* full, uint64_t* empty, bool tma) {
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < Op::kStages; ++i) {
+      mbar_init(&full[i], tma ? 1 : kCopy);  // the tensor-map thread, or every copy thread
+      mbar_init(&empty[i], kMath / 32);  // every math warp, when it is done with the slot
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+}
+
+// The ring starts on a 1 KB boundary (swizzled tensor boxes need it); the
+// launch asks for 1 KB more than the layout.
+__device__ __forceinline__ float* align_1k(float* p) {
+  const unsigned pad = (1024u - (smem_u32(p) & 1023u)) & 1023u;
+  return p + pad / 4;
+}
+
+// ---------------------------------------------------------------------------
+// H-update. Units: tiles of kHCols columns of H, per lane; the reduction
+// runs over n. A stage is kHRows rows of V (kHRows x 128) and the same rows
+// of W (kHRows x KB). Math thread (tx, tr, sl) owns 16 ranks tr*16 .. +15 x
+// 4 columns 4 tx .. +3 (64 accumulators) and the rows sl, sl + SL, ... of
+// each stage: per row one float4 of V and four broadcast float4s of W feed
+// 64 FMAs.
+// ---------------------------------------------------------------------------
+constexpr int kHCols = 128;  // columns per tile (ops.MU_H_COLS)
+constexpr int kHRows = 32;   // rows of V per stage (ops.MU_H_STAGE)
+
+template <int KB>
+struct HUpdate {
+  static constexpr int kTR = KB / 16;  // rank groups of 16
+  static constexpr int kSL = 8 / kTR;  // row slices
+  static constexpr int kVFloats = kHRows * kHCols;
+  static constexpr int kStage = kVFloats + kHRows * KB;
+  static constexpr int kPark = kMath * 64;  // every math thread's 64 sums
+  static constexpr int kStages = ring_stages(kStage, kPark);
+  static constexpr int kSmemBytes = 4 * (kStages * kStage + kPark) + 1024;
+  static constexpr int kPer = KB * kHCols / kMath;  // elements a math thread finishes: tid + kMath * i
+  static constexpr int kTmaBytes = 4 * kStage;       // a stage's two boxes
+
+  const float *v, *w, *h, *g;
+  float *out, *part;
+  int* count;
+  int lanes, n, m, k;
+  Walk wk;
+  bool vec_v, vec_w, tma;
+  const CUtensorMap *map_v, *map_w;  // V as (m, n, L), box (128, 32); W as (k, n, L), box (KB, 32)
+  float* park;  // (SL, KB, kHCols)
+  float acc[16][4];
+
+  __device__ __forceinline__ void issue_tma(const Cursor& c, float* st, uint64_t* bar) const {
+    const int r0 = c.s_begin + c.t * kHRows;  // splits are whole stages: a box never crosses one
+    tma_box(st, map_v, c.tile * kHCols, r0, (int)c.lane, bar);
+    tma_box(st + kVFloats, map_w, 0, r0, (int)c.lane, bar);
+  }
+
+  __device__ __forceinline__ void issue(const Cursor& c, float* st, int lane) const {
+    const int i_end = c.piece ? min(n, c.s_begin + wk.chunk) : n;
+    const int r0 = c.s_begin + c.t * kHRows, vr = min(kHRows, i_end - r0);
+    const int j0 = c.tile * kHCols;
+    const float* vl = v + c.lane * n * m;
+    const float* wl = w + c.lane * n * k;
+    stage_tile<kHRows, kHCols, kHCols>(st, vl + (size_t)r0 * m + j0, vl, m, vr, min(kHCols, m - j0), vec_v, lane);
+    stage_tile<kHRows, KB, KB>(st + kVFloats, wl + (size_t)r0 * k, wl, k, vr, k, vec_w, lane);
+  }
+
+  __device__ __forceinline__ void compute(const float* vs) {
+    const int tid = threadIdx.x, tx = tid & 31, tr = (tid >> 5) % kTR, sl = tid / (32 * kTR);
+    const float* ws = vs + kVFloats;
+#pragma unroll
+    for (int q = 0; q < kHRows / kSL; ++q) {
+      const int rr = sl + q * kSL;
+      const float4 x = *reinterpret_cast<const float4*>(vs + rr * kHCols + 4 * tx);
+      const float4* wr = reinterpret_cast<const float4*>(ws + rr * KB + 16 * tr);
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        const float4 y = wr[p];
+        fma4(acc[4 * p + 0], y.x, x);
+        fma4(acc[4 * p + 1], y.y, x);
+        fma4(acc[4 * p + 2], y.z, x);
+        fma4(acc[4 * p + 3], y.w, x);
+      }
+    }
+  }
+
+  // The item's last stage is done. The epilogue's operands (the H tile and
+  // G) are requested first, so their latency hides behind the sums: each
+  // math thread parks its 64 sums in its slice's (KB, kHCols) block and
+  // zeroes them, and each element is added over the slices in the fixed
+  // order 0 .. SL-1.
+  __device__ __forceinline__ void finish(const Cursor& it) {
+    const int tid = threadIdx.x, tx = tid & 31, tr = (tid >> 5) % kTR, sl = tid / (32 * kTR);
+    const int j0 = it.tile * kHCols, cols = min(kHCols, m - j0);
+    const float* hl = h + it.lane * k * m + j0;
+    const float* gl = g + it.lane * k * k;
+    int off[kPer];  // element tid + kMath * i: rank r, column cl -> r * m + cl
+    bool live[kPer];
+    float hv[kPer];
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int e = tid + kMath * i, r = e / kHCols, cl = e % kHCols;
+      off[i] = r * m + cl;
+      live[i] = r < k && cl < cols;
+      hv[i] = live[i] ? __ldg(hl + off[i]) : 0.f;
+    }
+    constexpr bool kGInSmem = KB <= 64;  // G beside the H tile in the parking space
+    constexpr int kGPer = (KB * KB + kMath - 1) / kMath;
+    float gv[kGInSmem ? kGPer : 1];
+    if constexpr (kGInSmem) {
+#pragma unroll
+      for (int i = 0; i < kGPer; ++i) {
+        const int e = tid + kMath * i, r = e / KB, q = e % KB;
+        gv[i] = (e < KB * KB && r < k && q < k) ? __ldg(gl + r * k + q) : 0.f;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 16; ++r) {
+      *reinterpret_cast<float4*>(park + (sl * KB + 16 * tr + r) * kHCols + 4 * tx) =
+          make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
+    }
+    math_sync();
+    float num[kPer];  // W^T V of element tid + kMath * i, over this item
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int e = tid + kMath * i;
+      float a = park[e];
+#pragma unroll
+      for (int q = 1; q < kSL; ++q) a += park[q * KB * kHCols + e];
+      num[i] = a;
+    }
+    if (it.piece) {
+      // partials (S, tail units, k, kHCols): store this split's; the last
+      // block to arrive at the unit adds all S in index order and stores
+      // the update. Element tid + kMath * i sits at that offset of its tile.
+      const int tail = wk.units - wk.whole, tile_floats = k * kHCols;
+      int poff[kPer];
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) poff[i] = tid + kMath * i;
+      float* mine = part + ((size_t)it.s * tail + it.tail) * tile_floats;
+#pragma unroll
+      for (int i = 0; i < kPer; ++i)
+        if (live[i]) mine[poff[i]] = num[i];
+      if (!arrive_last(count + it.tail, wk.split)) return;
+      sum_partials(num, part + (size_t)it.tail * tile_floats, poff, live, wk.split, (size_t)tail * tile_floats);
+    }
+    float* hs = park;                 // (KB, kHCols) H tile
+    float* gs = park + KB * kHCols;   // (KB, KB) G, when it fits
+    math_sync();  // every math thread has read its sums out of the parking space
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) hs[tid + kMath * i] = hv[i];
+    if constexpr (kGInSmem) {
+#pragma unroll
+      for (int i = 0; i < kGPer; ++i)
+        if (tid + kMath * i < KB * KB) gs[tid + kMath * i] = gv[i];
+    }
+    math_sync();
+    float* ol = out + it.lane * k * m + j0;
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      if (!live[i]) continue;
+      const int e = tid + kMath * i, r = e / kHCols, cl = e % kHCols;
+      float gh = 0.f;
+#pragma unroll 16
+      for (int q = 0; q < k; ++q)
+        gh += (kGInSmem ? gs[r * KB + q] : __ldg(gl + r * k + q)) * hs[q * kHCols + cl];
+      ol[off[i]] = hv[i] * num[i] / (gh + kEps);
+    }
+  }
+};
+
+// ---------------------------------------------------------------------------
+// W-update. Units: tiles of BN = 1024 / KB rows of W, per lane; the
+// reduction runs over m. A stage is kWCols columns of the tile's V rows
+// (BN x kWCols) and of H (KB x kWCols). Math warp sl is a column slice
+// (float4 columns sl, sl + 8 of each stage); within a warp, lane (rg, cg)
+// owns rows rg + RG u (u < 8) x ranks cg + CG v (v < 4), 32 accumulators.
+// Per float4 column 8 loads of V and 4 of H feed 128 FMAs, and the
+// m-reduction stays in the thread's registers. H is read from L2 once per
+// BN rows (16 times a lane at n = 1000, k <= 16).
+// ---------------------------------------------------------------------------
+constexpr int kWCols = 64;  // columns of V per stage (ops.MU_W_STAGE)
+
+// Float offset of (row, col) in an R x 64 stage tile kept as two R x 32
+// halves of 128-byte rows, 16-byte chunk j of row r stored at j ^ (r % 8)
+// (the tensor memory accelerator's 128-byte swizzle): the float4 reads of 8
+// consecutive rows at one column hit 8 distinct bank groups.
+template <int R>
+__device__ __forceinline__ int swz(int row, int col) {
+  return (col >> 5) * (R * 32) + row * 32 + ((((col & 31) >> 2) ^ (row & 7)) << 2) + (col & 3);
+}
+
+template <int KB>
+struct WUpdate {
+  static constexpr int kCG = KB / 4;    // rank groups (4 ranks a thread)
+  static constexpr int kRG = 32 / kCG;  // row groups (8 rows a thread)
+  static constexpr int kBN = 8 * kRG;   // rows a tile (ops.mu_w_rows)
+  static constexpr int kVFloats = kBN * kWCols;
+  static constexpr int kStage = kVFloats + KB * kWCols;  // a multiple of 1 KB: swizzled boxes stay aligned
+  static constexpr int kPark = 8 * kBN * KB;  // every math thread's 32 sums
+  static constexpr int kStages = ring_stages(kStage, kPark);
+  static constexpr int kSmemBytes = 4 * (kStages * kStage + kPark) + 1024;
+  static constexpr int kPer = kBN * KB / kMath;  // 4 elements a math thread: tid + kMath * i
+  static constexpr int kTmaBytes = 4 * kStage;    // a stage's four boxes
+
+  const float *v, *h, *w, *q;
+  float *out, *part;
+  int* count;
+  int lanes, n, m, k;
+  Walk wk;
+  bool tma;
+  const CUtensorMap *map_v, *map_h;  // V as (m, n, L), box (32, kBN); H as (m, k, L), box (32, KB); swizzled
+  float* park;  // (8, kBN, KB)
+  float acc[8][4];
+
+  __device__ __forceinline__ void issue_tma(const Cursor& c, float* st, uint64_t* bar) const {
+    const int j = c.s_begin + c.t * kWCols;  // splits are whole stages: a box never crosses one
+    const int i0 = c.tile * kBN, l = (int)c.lane;
+    tma_box(st, map_v, j, i0, l, bar);
+    tma_box(st + kBN * 32, map_v, j + 32, i0, l, bar);
+    tma_box(st + kVFloats, map_h, j, 0, l, bar);
+    tma_box(st + kVFloats + KB * 32, map_h, j + 32, 0, l, bar);
+  }
+
+  // Without tensor maps (m not a multiple of 4, or unaligned operands): the
+  // copy threads stage 4 bytes each, in the same swizzled layout.
+  template <int R>
+  __device__ __forceinline__ void stage_swizzled(float* dst, const float* src, const float* safe, int vr, int vc,
+                                                 int lane) const {
+#pragma unroll 4
+    for (int e = lane; e < R * kWCols; e += kCopy) {
+      const int r = e / kWCols, c = e % kWCols;
+      const bool ok = r < vr && c < vc;
+      cp_async4(dst + swz<R>(r, c), ok ? src + (size_t)r * m + c : safe, ok);
+    }
+  }
+
+  __device__ __forceinline__ void issue(const Cursor& c, float* st, int lane) const {
+    const int c_end = c.piece ? min(m, c.s_begin + wk.chunk) : m;
+    const int j = c.s_begin + c.t * kWCols, vc = min(kWCols, c_end - j);
+    const int i0 = c.tile * kBN;
+    const float* vl = v + c.lane * n * m;
+    const float* hl = h + c.lane * k * m;
+    stage_swizzled<kBN>(st, vl + (size_t)i0 * m + j, vl, min(kBN, n - i0), vc, lane);
+    stage_swizzled<KB>(st + kVFloats, hl + j, hl, k, vc, lane);
+  }
+
+  __device__ __forceinline__ void compute(const float* vs) {
+    const int sl = threadIdx.x >> 5, lid = threadIdx.x & 31, cg = lid % kCG, rg = lid / kCG;
+    const float* hs = vs + kVFloats;
+#pragma unroll
+    for (int p = 0; p < kWCols / 32; ++p) {
+      const int c = 4 * (sl + 8 * p);
+      float4 x[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) x[u] = *reinterpret_cast<const float4*>(vs + swz<kBN>(rg + kRG * u, c));
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float4 y = *reinterpret_cast<const float4*>(hs + swz<KB>(cg + kCG * r, c));
+#pragma unroll
+        for (int u = 0; u < 8; ++u) acc[u][r] = dot4(x[u], y, acc[u][r]);
+      }
+    }
+  }
+
+  // The item's last stage is done. The epilogue's operands (the tile's W
+  // rows and Q) are requested first; each math thread parks its 32 sums in
+  // its warp's (kBN, KB) block and zeroes them, and each element is added
+  // over the 8 column slices in the fixed order 0 .. 7.
+  __device__ __forceinline__ void finish(const Cursor& it) {
+    const int tid = threadIdx.x, sl = tid >> 5, lid = tid & 31, cg = lid % kCG, rg = lid / kCG;
+    const int i0 = it.tile * kBN, rows = min(kBN, n - i0);
+    const float* wl = w + (it.lane * n + i0) * k;
+    const float* ql = q + it.lane * k * k;
+    int off[kPer];  // element tid + kMath * i: row r, rank c -> r * k + c
+    bool live[kPer];
+    float wv[kPer];
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int e = tid + kMath * i, r = e / KB, c = e % KB;
+      off[i] = r * k + c;
+      live[i] = r < rows && c < k;
+      wv[i] = live[i] ? __ldg(wl + off[i]) : 0.f;
+    }
+    constexpr bool kQInSmem = KB <= 64;  // Q beside the W rows in the parking space
+    constexpr int kQPer = (KB * KB + kMath - 1) / kMath;
+    float qv[kQInSmem ? kQPer : 1];
+    if constexpr (kQInSmem) {
+#pragma unroll
+      for (int i = 0; i < kQPer; ++i) {
+        const int e = tid + kMath * i, p = e / KB, c = e % KB;
+        qv[i] = (e < KB * KB && p < k && c < k) ? __ldg(ql + p * k + c) : 0.f;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 8; ++u)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        park[(sl * kBN + rg + kRG * u) * KB + cg + kCG * r] = acc[u][r];
+        acc[u][r] = 0.f;
+      }
+    math_sync();
+    float num[kPer];  // V H^T of element tid + kMath * i, over this item
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int e = tid + kMath * i;
+      float a = park[e];
+#pragma unroll
+      for (int z = 1; z < 8; ++z) a += park[z * kBN * KB + e];
+      num[i] = a;
+    }
+    if (it.piece) {
+      // partials (S, tail units, kBN, k): store this split's; the last block
+      // adds all S in order
+      const int tail = wk.units - wk.whole, tile_floats = kBN * k;
+      float* mine = part + ((size_t)it.s * tail + it.tail) * tile_floats;
+#pragma unroll
+      for (int i = 0; i < kPer; ++i)
+        if (live[i]) mine[off[i]] = num[i];
+      if (!arrive_last(count + it.tail, wk.split)) return;
+      sum_partials(num, part + (size_t)it.tail * tile_floats, off, live, wk.split, (size_t)tail * tile_floats);
+    }
+    float* ws = park;             // (kBN, KB) W rows
+    float* qs = park + kBN * KB;  // (KB, KB) Q, when it fits
+    math_sync();  // every math thread has read its sums out of the parking space
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) ws[tid + kMath * i] = wv[i];
+    if constexpr (kQInSmem) {
+#pragma unroll
+      for (int i = 0; i < kQPer; ++i)
+        if (tid + kMath * i < KB * KB) qs[tid + kMath * i] = qv[i];
+    }
+    math_sync();
+    float* ol = out + (it.lane * n + i0) * k;
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      if (!live[i]) continue;
+      const int e = tid + kMath * i, r = e / KB, c = e % KB;
+      float wq = 0.f;
+#pragma unroll 16
+      for (int p = 0; p < k; ++p) wq += ws[r * KB + p] * (kQInSmem ? qs[p * KB + c] : __ldg(ql + p * k + c));
+      ol[off[i]] = wv[i] * num[i] / (wq + kEps);
+    }
+  }
+};
+
+template <int KB>
+__global__ void __launch_bounds__(kThreads, 1)
 h_update_kernel(const float* __restrict__ v, const float* __restrict__ w,
                 const float* __restrict__ h, const float* __restrict__ g,
-                float* __restrict__ out, int n, int m, int k) {
-  constexpr int kCols = 32 * COLS;  // columns per block
-  __shared__ float red[KB][kCols];  // block sum of W^T V
-  __shared__ float hs[KB][kCols];   // H tile for the epilogue
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * 32 + tx;
-  const int j0 = blockIdx.x * kCols;
-  const size_t lane = blockIdx.y;
-  v += lane * n * m;
-  w += lane * n * k;
-  h += lane * k * m;
-  g += lane * k * k;
-  out += lane * k * m;
-
-  float acc[KB][COLS];
-#pragma unroll
-  for (int r = 0; r < KB; ++r)
-#pragma unroll
-    for (int c = 0; c < COLS; ++c) acc[r][c] = 0.f;
-
-  // kRowBatch rows per step: their V loads are all in flight at once
-  for (int i = ty; i < n; i += kRowBatch * kSlices) {
-    float vv[kRowBatch][COLS];
-#pragma unroll
-    for (int u = 0; u < kRowBatch; ++u) {
-      const int iu = i + u * kSlices;
-      const float* vrow = v + (size_t)iu * m;
-#pragma unroll
-      for (int c = 0; c < COLS; ++c) {
-        const int j = j0 + tx + 32 * c;
-        vv[u][c] = (iu < n && j < m) ? vrow[j] : 0.f;
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < KB; ++r) {
-#pragma unroll
-      for (int u = 0; u < kRowBatch; ++u) {
-        const int iu = i + u * kSlices;
-        const float wr = (r < k && iu < n) ? __ldg(w + (size_t)iu * k + r) : 0.f;
-#pragma unroll
-        for (int c = 0; c < COLS; ++c) acc[r][c] += wr * vv[u][c];
-      }
-    }
-  }
-
-  // fixed-order sum of the slices: slice 0 stores, slices 1.. add in turn
-  for (int s = 0; s < kSlices; ++s) {
-    if (ty == s) {
-#pragma unroll
-      for (int r = 0; r < KB; ++r)
-#pragma unroll
-        for (int c = 0; c < COLS; ++c) {
-          float* cell = &red[r][tx + 32 * c];
-          *cell = (s == 0) ? acc[r][c] : *cell + acc[r][c];
-        }
-    }
-    __syncthreads();
-  }
-
-  for (int e = tid; e < KB * kCols; e += 32 * kSlices) {
-    const int r = e / kCols, cl = e % kCols;
-    const int j = j0 + cl;
-    hs[r][cl] = (r < k && j < m) ? h[(size_t)r * m + j] : 0.f;
-  }
-  __syncthreads();
-  for (int e = tid; e < KB * kCols; e += 32 * kSlices) {
-    const int r = e / kCols, cl = e % kCols;
-    const int j = j0 + cl;
-    if (r >= k || j >= m) continue;
-    float gh = 0.f;
-    for (int q = 0; q < k; ++q) gh += g[r * k + q] * hs[q][cl];
-    out[(size_t)r * m + j] = hs[r][cl] * red[r][cl] / (gh + kEps);
-  }
+                float* __restrict__ out, float* __restrict__ part, int* __restrict__ count,
+                int lanes, int n, int m, int k, int split, int chunk, int whole, bool vec_v, bool vec_w,
+                bool tma, const __grid_constant__ CUtensorMap map_v, const __grid_constant__ CUtensorMap map_w) {
+  using Op = HUpdate<KB>;
+  extern __shared__ __align__(16) float smem_raw[];
+  __shared__ __align__(8) uint64_t bars[2 * kMaxStages];
+  float* ring = align_1k(smem_raw);
+  init_barriers<Op>(bars, bars + kMaxStages, tma);
+  const int tiles = (m + kHCols - 1) / kHCols;
+  const Walk wk{tiles, tiles * lanes, whole, split, chunk, n, kHRows};
+  Op op{v, w, h, g, out, part, count, lanes, n, m, k, wk, vec_v, vec_w, tma, &map_v, &map_w,
+        ring + Op::kStages * Op::kStage, {}};
+  walk(op, ring, bars, bars + kMaxStages);
 }
 
-// ---------------------------------------------------------------------------
-// W-update. grid (ceil(n / ROWS), L), block (kWThreads).
-// The block owns ROWS rows of V and W; its threads stride over the columns j
-// of those rows (coalesced V and H loads), each keeping ROWS x KB partial
-// sums of V H^T. A fixed-order shuffle tree and a shared-memory pass add the
-// partial sums of all threads; the epilogue applies W * acc / (W Q + eps).
-// ---------------------------------------------------------------------------
-constexpr int kWThreads = 64;
-constexpr int kWWarps = kWThreads / 32;
-
-template <int KB, int ROWS>
-__global__ void __launch_bounds__(kWThreads)
+template <int KB>
+__global__ void __launch_bounds__(kThreads, 1)
 w_update_kernel(const float* __restrict__ v, const float* __restrict__ h,
                 const float* __restrict__ w, const float* __restrict__ q,
-                float* __restrict__ out, int n, int m, int k) {
-  __shared__ float red[kWWarps][ROWS * KB];
-  const int tid = threadIdx.x, warp = tid / 32, lane_id = tid % 32;
-  const int i0 = blockIdx.x * ROWS;
-  const size_t lane = blockIdx.y;
-  v += lane * n * m;
-  h += lane * k * m;
-  w += lane * n * k;
-  q += lane * k * k;
-  out += lane * n * k;
+                float* __restrict__ out, float* __restrict__ part, int* __restrict__ count,
+                int lanes, int n, int m, int k, int split, int chunk, int whole, bool tma,
+                const __grid_constant__ CUtensorMap map_v, const __grid_constant__ CUtensorMap map_h) {
+  using Op = WUpdate<KB>;
+  extern __shared__ __align__(16) float smem_raw[];
+  __shared__ __align__(8) uint64_t bars[2 * kMaxStages];
+  float* ring = align_1k(smem_raw);
+  init_barriers<Op>(bars, bars + kMaxStages, tma);
+  const int tiles = (n + Op::kBN - 1) / Op::kBN;
+  const Walk wk{tiles, tiles * lanes, whole, split, chunk, m, kWCols};
+  Op op{v, h, w, q, out, part, count, lanes, n, m, k, wk, tma, &map_v, &map_h, ring + Op::kStages * Op::kStage, {}};
+  walk(op, ring, bars, bars + kMaxStages);
+}
 
-  float acc[ROWS][KB];
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r)
-#pragma unroll
-    for (int c = 0; c < KB; ++c) acc[r][c] = 0.f;
+int k_bucket(int k) { return k <= 16 ? 16 : k <= 32 ? 32 : k <= 64 ? 64 : 128; }
 
-  // two columns per step: their V and H loads are in flight together
-  for (int j = tid; j < m; j += 2 * kWThreads) {
-    const int j2 = j + kWThreads;
-    float vv[2][ROWS];
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) {
-      const bool row = i0 + r < n;
-      vv[0][r] = row ? v[(size_t)(i0 + r) * m + j] : 0.f;
-      vv[1][r] = (row && j2 < m) ? v[(size_t)(i0 + r) * m + j2] : 0.f;
-    }
-#pragma unroll
-    for (int c = 0; c < KB; ++c) {
-      const float h0 = c < k ? h[(size_t)c * m + j] : 0.f;
-      const float h1 = (c < k && j2 < m) ? h[(size_t)c * m + j2] : 0.f;
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) {
-        acc[r][c] += vv[0][r] * h0;
-        acc[r][c] += vv[1][r] * h1;
-      }
+
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+// The driver's tensor-map encoder, fetched through the runtime, so the
+// library links against no driver stub.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t rc = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t rc = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return rc == cudaSuccess && found == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p) : nullptr;
+  }();
+  return fn;
+}
+
+// A float32 (d0, d1, d2) tensor, d0 innermost and a multiple of 4, read in
+// (b0, b1, 1) boxes; false if the driver refuses it.
+bool tensor_map(CUtensorMap* map, const float* base, int d0, int d1, int d2, int b0, int b1, bool swizzle) {
+  const EncodeTiled encode = encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)d0, (cuuint64_t)d1, (cuuint64_t)d2};
+  const cuuint64_t strides[2] = {(cuuint64_t)d0 * 4, (cuuint64_t)d0 * d1 * 4};
+  const cuuint32_t box[3] = {(cuuint32_t)b0, (cuuint32_t)b1, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<float*>(base), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// tensor_map, remembered: a map depends only on its arguments, and encoding
+// one costs the host more than the launch. The threads executor reuses a
+// few dozen (V per fit, and the allocator's few W and H addresses).
+bool cached_map(CUtensorMap* map, const float* base, int d0, int d1, int d2, int b0, int b1, bool swizzle) {
+  struct Key {
+    const float* base;
+    int d0, d1, d2, b0, b1;
+    bool swizzle;
+  };
+  constexpr int kSlots = 64;
+  static std::mutex mu;
+  static Key keys[kSlots];
+  static CUtensorMap maps[kSlots];
+  static int used = 0, next = 0;
+  std::lock_guard<std::mutex> lock(mu);
+  for (int i = 0; i < used; ++i) {
+    const Key& q = keys[i];
+    if (q.base == base && q.d0 == d0 && q.d1 == d1 && q.d2 == d2 && q.b0 == b0 && q.b1 == b1 &&
+        q.swizzle == swizzle) {
+      *map = maps[i];
+      return true;
     }
   }
-
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r)
-#pragma unroll
-    for (int c = 0; c < KB; ++c) {
-      float s = acc[r][c];
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) s += __shfl_down_sync(0xffffffffu, s, off);
-      if (lane_id == 0) red[warp][r * KB + c] = s;
-    }
-  __syncthreads();
-
-  for (int e = tid; e < ROWS * k; e += kWThreads) {
-    const int r = e / k, c = e % k;
-    const int i = i0 + r;
-    if (i >= n) continue;
-    float num = 0.f;
-#pragma unroll
-    for (int wp = 0; wp < kWWarps; ++wp) num += red[wp][r * KB + c];
-    const float* wrow = w + (size_t)i * k;
-    float wq = 0.f;
-    for (int p = 0; p < k; ++p) wq += wrow[p] * q[p * k + c];
-    out[(size_t)i * k + c] = wrow[c] * num / (wq + kEps);
-  }
+  if (!tensor_map(map, base, d0, d1, d2, b0, b1, swizzle)) return false;
+  keys[next] = {base, d0, d1, d2, b0, b1, swizzle};
+  maps[next] = *map;
+  next = (next + 1) % kSlots;
+  if (used < kSlots) ++used;
+  return true;
 }
 
-bool bad_shape(int lanes, int n, int m, int k) {
-  return lanes < 1 || lanes > 65535 || n < 1 || m < 1 || k < 1 || k > kMaxRank;
+// The walk must fit int item indices, and each tail unit's split must cover
+// its reduction (length `len`) exactly with no empty part:
+// (split - 1) * chunk < len <= split * chunk; a part is whole stages.
+bool bad_call(int lanes, int n, int m, int k, int split, int chunk, int whole, int blocks, int len,
+              int tiles, int step, const void* part, const void* count) {
+  if (lanes < 1 || lanes > 65535 || n < 1 || m < 1 || k < 1 || k > kMaxRank) return true;
+  const long long units = (long long)tiles * lanes;
+  if (split < 1 || chunk < 1 || chunk % step != 0 || blocks < 1 || whole < 0 || whole > units) return true;
+  if (units * split + blocks >= (1LL << 31)) return true;
+  if ((long long)(split - 1) * chunk >= len || (long long)split * chunk < len) return true;
+  return whole < units && split > 1 && (part == nullptr || count == nullptr);
 }
 
-template <int KB, int COLS>
-void launch_h(const float* v, const float* w, const float* h, const float* g, float* out,
-              int lanes, int n, int m, int k, cudaStream_t stream) {
-  const dim3 grid((m + 32 * COLS - 1) / (32 * COLS), lanes), block(32, kSlices);
-  h_update_kernel<KB, COLS><<<grid, block, 0, stream>>>(v, w, h, g, out, n, m, k);
+template <int KB>
+int launch_h(const float* v, const float* w, const float* h, const float* g, float* out,
+             float* part, int* count, int lanes, int n, int m, int k, int split, int chunk,
+             int whole, int blocks, cudaStream_t stream) {
+  constexpr int kSmem = HUpdate<KB>::kSmemBytes;
+  static const cudaError_t attr =  // once per process (thread-safe static init)
+      cudaFuncSetAttribute(h_update_kernel<KB>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (attr != cudaSuccess) return (int)attr;
+  const bool vec_v = m % 4 == 0 && aligned16(v);
+  const bool vec_w = k % 4 == 0 && aligned16(w);
+  CUtensorMap map_v{}, map_w{};
+  const bool tma = vec_v && vec_w && cached_map(&map_v, v, m, n, lanes, kHCols, kHRows, false) &&
+                   cached_map(&map_w, w, k, n, lanes, KB, kHRows, false);
+  h_update_kernel<KB><<<blocks, kThreads, kSmem, stream>>>(v, w, h, g, out, part, count, lanes, n, m, k, split,
+                                                           chunk, whole, vec_v, vec_w, tma, map_v, map_w);
+  return (int)cudaGetLastError();
 }
 
-template <int KB, int ROWS>
-void launch_w(const float* v, const float* h, const float* w, const float* q, float* out,
-              int lanes, int n, int m, int k, cudaStream_t stream) {
-  const dim3 grid((n + ROWS - 1) / ROWS, lanes), block(kWThreads);
-  w_update_kernel<KB, ROWS><<<grid, block, 0, stream>>>(v, h, w, q, out, n, m, k);
+template <int KB>
+int launch_w(const float* v, const float* h, const float* w, const float* q, float* out,
+             float* part, int* count, int lanes, int n, int m, int k, int split, int chunk,
+             int whole, int blocks, cudaStream_t stream) {
+  using Op = WUpdate<KB>;
+  constexpr int kSmem = Op::kSmemBytes;
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(w_update_kernel<KB>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (attr != cudaSuccess) return (int)attr;
+  CUtensorMap map_v{}, map_h{};
+  const bool tma = m % 4 == 0 && aligned16(v) && aligned16(h) && cached_map(&map_v, v, m, n, lanes, 32, Op::kBN, true) &&
+                   cached_map(&map_h, h, m, k, lanes, 32, KB, true);
+  w_update_kernel<KB><<<blocks, kThreads, kSmem, stream>>>(v, h, w, q, out, part, count, lanes, n, m, k, split,
+                                                           chunk, whole, tma, map_v, map_h);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // C interface, loaded with ctypes. Pointers are device pointers of contiguous
 // fp32 tensors: v (L, n, m), w (L, n, k), h (L, k, m), g / q (L, k, k), out
-// like h (H-update) or w (W-update). The register tile is picked from the
-// smallest rank bucket KB >= k (16, 32, 64, 128). Launches on `stream` and
+// like h (H-update) or w (W-update). The kernel is picked from the smallest
+// rank bucket KB >= k (16, 32, 64, 128). An output tile of one lane is a
+// unit (ceil(m / 128) * L units for H, ceil(n / (1024 / KB)) * L for W); the
+// first `whole` units are reduced in one block each, the others in `split`
+// blocks of `chunk` rows (H: of n) or columns (W: of m) each, and `blocks`
+// persistent blocks walk the items. With split units, `part` is float32
+// scratch of (split, tail units, k, 128) (H) or (split, tail units,
+// 1024 / KB, k) (W) and `count` int32 zeros, one per tail unit, which every
+// launch leaves at zero (the last block of a unit resets its counter);
+// otherwise both may be null. Launches on `stream` and
 // returns cudaGetLastError() (0 on success).
 extern "C" int mu_update_h(const float* v, const float* w, const float* h, const float* g,
-                           float* out, int lanes, int n, int m, int k, void* stream) {
-  if (bad_shape(lanes, n, m, k)) return (int)cudaErrorInvalidValue;
+                           float* out, float* part, int* count, int lanes, int n, int m, int k,
+                           int split, int chunk, int whole, int blocks, void* stream) {
+  const int tiles = (m + kHCols - 1) / kHCols;
+  if (bad_call(lanes, n, m, k, split, chunk, whole, blocks, n, tiles, kHRows, part, count))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (k <= 16) launch_h<16, 4>(v, w, h, g, out, lanes, n, m, k, s);
-  else if (k <= 32) launch_h<32, 2>(v, w, h, g, out, lanes, n, m, k, s);
-  else if (k <= 64) launch_h<64, 1>(v, w, h, g, out, lanes, n, m, k, s);
-  else launch_h<128, 1>(v, w, h, g, out, lanes, n, m, k, s);
-  return (int)cudaGetLastError();
+  if (k <= 16) return launch_h<16>(v, w, h, g, out, part, count, lanes, n, m, k, split, chunk, whole, blocks, s);
+  if (k <= 32) return launch_h<32>(v, w, h, g, out, part, count, lanes, n, m, k, split, chunk, whole, blocks, s);
+  if (k <= 64) return launch_h<64>(v, w, h, g, out, part, count, lanes, n, m, k, split, chunk, whole, blocks, s);
+  return launch_h<128>(v, w, h, g, out, part, count, lanes, n, m, k, split, chunk, whole, blocks, s);
 }
 
 extern "C" int mu_update_w(const float* v, const float* h, const float* w, const float* q,
-                           float* out, int lanes, int n, int m, int k, void* stream) {
-  if (bad_shape(lanes, n, m, k)) return (int)cudaErrorInvalidValue;
+                           float* out, float* part, int* count, int lanes, int n, int m, int k,
+                           int split, int chunk, int whole, int blocks, void* stream) {
+  const int bn = 1024 / k_bucket(k);  // rows a W tile (WUpdate::kBN)
+  if (bad_call(lanes, n, m, k, split, chunk, whole, blocks, m, (n + bn - 1) / bn, kWCols, part, count))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (k <= 16) launch_w<16, 8>(v, h, w, q, out, lanes, n, m, k, s);
-  else if (k <= 32) launch_w<32, 4>(v, h, w, q, out, lanes, n, m, k, s);
-  else if (k <= 64) launch_w<64, 2>(v, h, w, q, out, lanes, n, m, k, s);
-  else launch_w<128, 1>(v, h, w, q, out, lanes, n, m, k, s);
-  return (int)cudaGetLastError();
+  if (k <= 16) return launch_w<16>(v, h, w, q, out, part, count, lanes, n, m, k, split, chunk, whole, blocks, s);
+  if (k <= 32) return launch_w<32>(v, h, w, q, out, part, count, lanes, n, m, k, split, chunk, whole, blocks, s);
+  if (k <= 64) return launch_w<64>(v, h, w, q, out, part, count, lanes, n, m, k, split, chunk, whole, blocks, s);
+  return launch_w<128>(v, h, w, q, out, part, count, lanes, n, m, k, split, chunk, whole, blocks, s);
+}
+
+// Dynamic shared memory (bytes) a launch of the H (update 0) or W (update 1)
+// kernel requests at rank k, for reports beside ptxas' static counts.
+extern "C" int mu_dynamic_smem(int update, int k) {
+  const int kb = k_bucket(k);
+  if (update == 0)
+    return kb == 16 ? HUpdate<16>::kSmemBytes : kb == 32 ? HUpdate<32>::kSmemBytes
+           : kb == 64 ? HUpdate<64>::kSmemBytes : HUpdate<128>::kSmemBytes;
+  return kb == 16 ? WUpdate<16>::kSmemBytes : kb == 32 ? WUpdate<32>::kSmemBytes
+         : kb == 64 ? WUpdate<64>::kSmemBytes : WUpdate<128>::kSmemBytes;
 }

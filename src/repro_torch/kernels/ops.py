@@ -12,6 +12,9 @@ edges themselves.
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
+import math
 import threading
 
 import torch
@@ -85,20 +88,136 @@ def _mu_shapes(v: torch.Tensor, w: torch.Tensor, h: torch.Tensor) -> tuple[int, 
 # -----------------------------------------------------------------------------
 # NMF multiplicative updates (csrc/nmf_update.cu)
 # -----------------------------------------------------------------------------
+H100_SMS = 132  # streaming multiprocessors of an H100 SXM: the planner's default
+# Persistent blocks of the MU kernels per SM: one fits (173 KB of shared
+# memory for the H-update at KB = 16, nmf_update.cu mu_dynamic_smem).
+MU_BLOCKS_PER_SM = 1
+MU_H_COLS = 128  # columns of H per tile (nmf_update.cu kHCols)
+MU_H_STAGE = 32  # rows of V per pipeline stage of the H kernel (kHRows)
+MU_W_STAGE = 64  # columns of V per pipeline stage of the W kernel (kWCols)
+# What finishing an item costs a block (park, sum, partials, epilogue), in
+# stages: the planner's price for one more split.
+MU_ITEM_COST = 1
+
+
+def rank_bucket(k: int) -> int:
+    """The kernels' register tile is compiled for KB in (16, 32, 64, 128) >= k."""
+    return next(kb for kb in (16, 32, 64, MAX_RANK) if k <= kb)
+
+
+def mu_w_rows(k: int) -> int:
+    """Rows of V and W per tile of the W kernel (nmf_update.cu WUpdate::kBN)."""
+    return 1024 // rank_bucket(k)
+
+
+@dataclasses.dataclass(frozen=True)
+class MuPlan:
+    """How one MU launch is cut. A unit is one output tile of one lane
+    (``tiles`` per lane: column tiles of H, or row tiles of W). The first
+    ``whole`` units are reduced (over n for H, over m for W) by one block
+    each; every other unit is cut into ``split`` items, item s taking
+    ``[s * chunk, min(length, (s + 1) * chunk))``, whose partials the last
+    of their blocks adds up. ``blocks`` persistent blocks walk the
+    ``items`` round-robin."""
+
+    tiles: int
+    units: int
+    whole: int
+    split: int
+    chunk: int
+    length: int  # the reduction's length: n for H, m for W
+    items: int
+    blocks: int
+    scratch: tuple[int, ...]  # float32 partials (S, tail units, floats of a tile); () if none
+    counters: int  # int32 arrival counters, one per tail unit, when the tail is split; else 0
+
+
+@functools.lru_cache(maxsize=4096)
+def _mu_plan(update: str, lanes: int, n: int, m: int, k: int, sms: int = H100_SMS) -> MuPlan:
+    """Pick the cut that finishes soonest on ``sms`` SMs. Whole units fill
+    ``rounds`` rounds of the persistent blocks; the remaining units are
+    split so that their items fill the blocks once more. A round costs the
+    stages of its items plus ``MU_ITEM_COST`` each. Every SM gets an item
+    where the shape has enough of them; ties go to fewer items."""
+    if update == "h":
+        tiles, length, stage = math.ceil(m / MU_H_COLS), n, MU_H_STAGE
+    elif update == "w":
+        tiles, length, stage = math.ceil(n / mu_w_rows(k)), m, MU_W_STAGE
+    else:
+        raise ValueError(f"update must be 'h' or 'w', got {update!r}")
+    units, slots, stages = tiles * lanes, MU_BLOCKS_PER_SM * sms, math.ceil(length / stage)
+    best = None
+    for rounds in range(units // slots + 1):
+        whole = rounds * slots
+        tail = units - whole
+        for per in range(1, stages + 1) if tail else (stages,):  # stages a split item walks
+            chunk = per * stage
+            split = math.ceil(length / chunk) if tail else 1
+            items = whole + tail * split
+            cost = rounds * (stages + MU_ITEM_COST) + math.ceil(tail * split / slots) * (per + MU_ITEM_COST)
+            key = (items < min(slots, units * stages), cost, items)
+            if best is None or key < best[0]:
+                best = (key, whole, split, chunk, items)
+    _, whole, split, chunk, items = best
+    if whole < units and split > 1:
+        tile_floats = k * MU_H_COLS if update == "h" else mu_w_rows(k) * k
+        scratch, counters = (split, units - whole, tile_floats), units - whole
+    else:
+        scratch, counters = (), 0
+    return MuPlan(tiles, units, whole, split, chunk, length, items, min(items, slots), scratch, counters)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+_scratch = threading.local()
+
+
+def _mu_scratch(device: torch.device, stream: int, n_part: int, n_count: int):
+    """This thread's MU scratch for ``stream``: float32 partials and int32
+    arrival counters, grown when a launch needs more and kept otherwise.
+    The counters are zeroed when allocated, and every launch leaves them at
+    zero (the last block of a split unit resets its counter), so no call
+    zeroes them again. Kept per thread and stream, so no two launches that
+    may run at once share them."""
+    bufs = _scratch.__dict__.setdefault("bufs", {})
+    part, count = bufs.get((device, stream), (None, None))
+    if part is None or part.numel() < n_part:
+        part = torch.empty(n_part, device=device, dtype=torch.float32)
+    if count is None or count.numel() < n_count:
+        count = torch.zeros(n_count, device=device, dtype=torch.int32)
+    bufs[(device, stream)] = (part, count)
+    return part, count
+
+
+def _mu_launch(name: str, update: str, v3, a, b, gram, out) -> None:
+    """Plan one MU launch, find its scratch and launch it."""
+    lanes, n, m = v3.shape
+    k = gram.shape[-1]
+    plan = _mu_plan(update, lanes, n, m, k, _sm_count(v3.device))
+    stream = _stream(v3)
+    part = count = None
+    if plan.counters:
+        part, count = (t.data_ptr() for t in _mu_scratch(v3.device, stream, math.prod(plan.scratch), plan.counters))
+    lib = build.load("nmf_update")
+    rc = getattr(lib, name)(
+        v3.data_ptr(), a.data_ptr(), b.data_ptr(), gram.data_ptr(), out.data_ptr(), part, count,
+        lanes, n, m, k, plan.split, plan.chunk, plan.whole, plan.blocks, stream,
+    )
+    _check(rc, name)
+
+
 def mu_update_h(v: torch.Tensor, w: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     """H <- H * (W^T V) / (G H + 1e-9), G = W^T W; v (L, n, m) or (n, m)."""
     if not _on_card(v, w, h):
         return ref.mu_update_h(v, w, h)
     was_2d, (v3, w3, h3) = _lead3(v, w, h)
-    lanes, n, m, k = _mu_shapes(v3, w3, h3)
+    _mu_shapes(v3, w3, h3)
     g = torch.bmm(w3.transpose(1, 2), w3)
     out = torch.empty_like(h3)
-    lib = build.load("nmf_update")
-    rc = lib.mu_update_h(
-        v3.data_ptr(), w3.data_ptr(), h3.data_ptr(), g.data_ptr(), out.data_ptr(),
-        lanes, n, m, k, _stream(v3),
-    )
-    _check(rc, "mu_update_h")
+    _mu_launch("mu_update_h", "h", v3, w3, h3, g, out)
     _count(mu_update_h)
     return out[0] if was_2d else out
 
@@ -108,15 +227,10 @@ def mu_update_w(v: torch.Tensor, w: torch.Tensor, h: torch.Tensor) -> torch.Tens
     if not _on_card(v, w, h):
         return ref.mu_update_w(v, w, h)
     was_2d, (v3, w3, h3) = _lead3(v, w, h)
-    lanes, n, m, k = _mu_shapes(v3, w3, h3)
+    _mu_shapes(v3, w3, h3)
     q = torch.bmm(h3, h3.transpose(1, 2))
     out = torch.empty_like(w3)
-    lib = build.load("nmf_update")
-    rc = lib.mu_update_w(
-        v3.data_ptr(), h3.data_ptr(), w3.data_ptr(), q.data_ptr(), out.data_ptr(),
-        lanes, n, m, k, _stream(v3),
-    )
-    _check(rc, "mu_update_w")
+    _mu_launch("mu_update_w", "w", v3, h3, w3, q, out)
     _count(mu_update_w)
     return out[0] if was_2d else out
 

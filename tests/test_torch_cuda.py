@@ -56,6 +56,65 @@ def test_mu_kernels_match_plain(lanes, n, m, k):
     torch.testing.assert_close(got2, ref.mu_update_h(v[0], w[0], h[0]), **MU_TOL)
 
 
+# (L, n, m, k) through the split reduction: n at an H split boundary (at
+# L=4, m=1100 the planner cuts n=128 into 4 x 32 rows: 128 and +-1), m at a W
+# split boundary (at L=4, n=1000 it cuts m=256 into 4 x 64 columns; 255 and
+# 257 take the 4-byte copies), n below one chunk, n = 1, the paper's shape at
+# the threads executor's L=4 and the batched wave's L=32, ragged k, and the
+# KB=32 and KB=128 buckets.
+MU_SPLIT_SHAPES = [
+    (4, 127, 1100, 16), (4, 128, 1100, 16), (4, 129, 1100, 16),
+    (4, 1000, 255, 16), (4, 1000, 256, 16), (4, 1000, 257, 16),
+    (4, 20, 1100, 16), (3, 1, 1100, 16), (4, 1000, 1100, 16), (32, 1000, 1100, 16),
+    (4, 1000, 1100, 13), (4, 300, 520, 17), (2, 300, 520, 100),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes,n,m,k", MU_SPLIT_SHAPES)
+def test_mu_kernels_split_reduction_matches_plain(lanes, n, m, k):
+    dev = card()
+    v, w, h = _mu_problem(dev, n + m + k, lanes, n, m, k, dead=2)
+    for fn, plain, update in ((ops.mu_update_h, ref.mu_update_h, "h"), (ops.mu_update_w, ref.mu_update_w, "w")):
+        plan = ops._mu_plan(update, lanes, n, m, k, torch.cuda.get_device_properties(dev).multi_processor_count)
+        before = fn.launches
+        got, want = fn(v, w, h), plain(v, w, h)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1, "one launch per call, whatever the split"
+        assert plan.blocks >= 1 and plan.items == plan.whole + (plan.units - plan.whole) * plan.split
+        torch.testing.assert_close(got, want, **MU_TOL, msg=lambda e, p=plan: f"{p}: {e}")
+        dead = got[:, -2:, :] if update == "h" else got[:, :, -2:]
+        assert float(dead.abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes,n,m,k", [(32, 1000, 1100, 16), (4, 1000, 1100, 16), (4, 129, 257, 13)])
+def test_mu_kernels_are_bitwise_deterministic(lanes, n, m, k):
+    """The split's last block adds the partials in index order, never with
+    atomics: five calls give the same bits."""
+    dev = card()
+    v, w, h = _mu_problem(dev, 7, lanes, n, m, k, dead=2)
+    for fn in (ops.mu_update_h, ops.mu_update_w):
+        first = fn(v, w, h)
+        for _ in range(4):
+            assert torch.equal(fn(v, w, h), first)
+
+
+@pytest.mark.cuda
+def test_mu_kernels_leave_their_arrival_counters_at_zero():
+    """The wrapper zeroes its counters once, when it allocates them; every
+    launch must leave them at zero for the next."""
+    dev = card()
+    v, w, h = _mu_problem(dev, 3, 4, 1000, 1100, 16, dead=2)
+    for _ in range(2):
+        ops.mu_update_h(v, w, h)
+        ops.mu_update_w(v, w, h)
+    torch.cuda.synchronize()
+    _, count = ops._mu_scratch(v.device, torch.cuda.current_stream(v.device).cuda_stream, 0, 0)
+    assert count.numel() >= ops._mu_plan("h", 4, 1000, 1100, 16).counters > 0
+    assert int(count.abs().sum()) == 0
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,n,d,k", [(1, 52, 1000, 13), (8, 64, 1000, 16), (3, 33, 17, 5), (2, 40, 9, 130 - 2)])
 def test_dist_sums_kernel_matches_plain(b, n, d, k):

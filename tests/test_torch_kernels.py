@@ -6,6 +6,8 @@ at ragged shapes with masked components, at the reference's own
 tolerances (``tests/test_kernels.py``). The CUDA kernels themselves are
 held against the plain versions on a card in ``test_torch_cuda.py``.
 """
+import math
+
 import numpy as np
 import pytest
 
@@ -180,3 +182,133 @@ def test_failed_build_raises(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc failed for nmf_update.cu"):
         build.build(["nmf_update"])
     assert not list((tmp_path / "out").glob("*.so"))
+
+
+# (L, n, m, k): the two main-path shapes (the batched wave and the threads
+# executor's lanes), n = 1, n below one stage, n and m at split boundaries,
+# ragged m and k, every rank bucket, and the most lanes.
+MU_PLAN_SHAPES = [
+    (32, 1000, 1100, 16), (4, 1000, 1100, 16), (1, 1, 24, 5), (4, 20, 1100, 16), (4, 127, 1100, 16),
+    (4, 128, 1100, 16), (4, 129, 1100, 16), (4, 1000, 255, 13), (4, 1000, 257, 13), (6, 100, 90, 13),
+    (2, 70, 50, 33), (2, 40, 30, 100), (1, 5000, 7, 64), (65535, 3, 3, 1),
+]
+
+
+def _splits(plan):
+    """The parts of a split unit's reduction, as nmf_update.cu walks them."""
+    return [(s * plan.chunk, min(plan.length, (s + 1) * plan.chunk)) for s in range(plan.split)]
+
+
+@pytest.mark.parametrize("update", ["h", "w"])
+@pytest.mark.parametrize("lanes,n,m,k", MU_PLAN_SHAPES)
+def test_mu_plan_splits_cover_the_reduction(update, lanes, n, m, k):
+    plan = ops._mu_plan(update, lanes, n, m, k)
+    assert plan.length == (n if update == "h" else m)
+    spans = _splits(plan)
+    assert spans[0][0] == 0 and spans[-1][1] == plan.length
+    assert all(a < b for a, b in spans), "an empty split"
+    assert all(spans[s][1] == spans[s + 1][0] for s in range(plan.split - 1))
+    stage = ops.MU_H_STAGE if update == "h" else ops.MU_W_STAGE
+    assert plan.chunk % stage == 0
+    # every unit is walked: whole ones by one item, the others by `split`
+    assert plan.units == plan.tiles * lanes and 0 <= plan.whole <= plan.units
+    assert plan.items == plan.whole + (plan.units - plan.whole) * plan.split
+    assert plan.blocks == min(plan.items, ops.MU_BLOCKS_PER_SM * ops.H100_SMS)
+    # the output tiles cover the output exactly: 128 columns of H, BN rows of W
+    width, extent = (ops.MU_H_COLS, m) if update == "h" else (ops.mu_w_rows(k), n)
+    assert (plan.tiles - 1) * width < extent <= plan.tiles * width
+
+
+@pytest.mark.parametrize("update", ["h", "w"])
+@pytest.mark.parametrize("lanes,n,m,k", MU_PLAN_SHAPES)
+def test_mu_plan_scratch_is_what_the_kernel_indexes(update, lanes, n, m, k):
+    """nmf_update.cu writes split s of tail unit u at (s * tail + u) * tile
+    floats, element (rank r, column cl) at r * 128 + cl of an H tile and
+    (row r, rank c) at r * k + c of a W tile, and counts arrivals at u: the
+    last index of each must be the buffer's last."""
+    plan = ops._mu_plan(update, lanes, n, m, k)
+    tail = plan.units - plan.whole
+    if tail == 0 or plan.split == 1:
+        assert plan.scratch == () and plan.counters == 0
+        return
+    rows, width = (k, ops.MU_H_COLS) if update == "h" else (ops.mu_w_rows(k), k)
+    last = ((plan.split - 1) * tail + (tail - 1)) * rows * width + (rows - 1) * width + (width - 1)
+    assert math.prod(plan.scratch) == last + 1
+    assert plan.counters == tail
+
+
+@pytest.mark.parametrize("update", ["h", "w"])
+@pytest.mark.parametrize("lanes", [32, 4])
+def test_mu_plan_fills_the_card_at_the_main_path_shapes(update, lanes):
+    """The batched wave (L=32) and the threads executor (L=4) at the paper's
+    1000 x 1100, k=16: a persistent block on every SM of an H100, every
+    block with an item, at most one item more on one block than on another,
+    and the partials small beside V."""
+    plan = ops._mu_plan(update, lanes, 1000, 1100, 16)
+    assert plan.blocks == ops.MU_BLOCKS_PER_SM * ops.H100_SMS
+    assert plan.items >= plan.blocks
+    assert math.prod(plan.scratch) <= lanes * 1000 * 1100 // 4
+    if lanes == 4:
+        assert plan.split > 1, "36 tiles (H) or 64 (W) alone leave SMs idle"
+    # no block walks a second round of whole units while another idles
+    assert plan.whole % plan.blocks == 0
+
+
+def test_mu_plan_follows_the_card_size():
+    """Fewer SMs, fewer blocks; an item for every block."""
+    plan = ops._mu_plan("h", 4, 1000, 1100, 16, sms=66)
+    assert plan.blocks == 66 and plan.items >= 66
+
+
+def test_mu_plan_rejects_an_unknown_update():
+    with pytest.raises(ValueError, match="'h' or 'w'"):
+        ops._mu_plan("x", 1, 8, 8, 2)
+
+
+@pytest.mark.parametrize("update,lanes,n,m,k", [("h", 32, 1000, 1100, 16), ("w", 4, 1000, 1100, 16), ("h", 1, 40, 24, 5)])
+def test_mu_launch_hands_the_kernel_its_plan(monkeypatch, update, lanes, n, m, k):
+    """The wrapper's call into nmf_update.cu, with the library stubbed: the
+    C argument order, the plan's split and chunk, scratch only when split."""
+    calls = []
+
+    class Lib:
+        def mu_update_h(self, *args):
+            calls.append(args)
+            return 0
+
+        mu_update_w = mu_update_h
+
+    monkeypatch.setattr(build, "load", lambda name: Lib())
+    monkeypatch.setattr(ops, "_sm_count", lambda device: ops.H100_SMS)
+    monkeypatch.setattr(ops, "_stream", lambda t: 12345)
+    v = torch.zeros((lanes, n, m))
+    w, h = torch.zeros((lanes, n, k)), torch.zeros((lanes, k, m))
+    gram, out = torch.zeros((lanes, k, k)), torch.empty_like(h if update == "h" else w)
+    a, b = (w, h) if update == "h" else (h, w)
+    ops._mu_launch(f"mu_update_{update}", update, v, a, b, gram, out)
+    (args,) = calls
+    plan = ops._mu_plan(update, lanes, n, m, k)
+    assert args[:5] == (v.data_ptr(), a.data_ptr(), b.data_ptr(), gram.data_ptr(), out.data_ptr())
+    assert (args[5] is None, args[6] is None) == ((plan.counters == 0),) * 2
+    assert args[7:] == (lanes, n, m, k, plan.split, plan.chunk, plan.whole, plan.blocks, 12345)
+
+
+def test_mu_scratch_is_kept_per_thread_and_stream_and_grows():
+    """The wrapper's partials and arrival counters: one pair per thread and
+    stream, reused while large enough, counters zero when allocated."""
+    import threading
+
+    cpu = torch.device("cpu")
+    part, count = ops._mu_scratch(cpu, 1, 100, 8)
+    assert part.numel() >= 100 and count.dtype == torch.int32 and int(count.abs().sum()) == 0
+    again = ops._mu_scratch(cpu, 1, 50, 4)
+    assert again[0].data_ptr() == part.data_ptr() and again[1].data_ptr() == count.data_ptr()
+    bigger = ops._mu_scratch(cpu, 1, 200, 16)
+    assert bigger[0].numel() >= 200 and bigger[1].numel() >= 16 and int(bigger[1].abs().sum()) == 0
+    other_stream = ops._mu_scratch(cpu, 2, 50, 4)
+    assert other_stream[0].data_ptr() != bigger[0].data_ptr()
+    seen = []
+    thread = threading.Thread(target=lambda: seen.append(ops._mu_scratch(cpu, 1, 50, 4)))
+    thread.start()
+    thread.join()
+    assert seen[0][0].data_ptr() != bigger[0].data_ptr()
