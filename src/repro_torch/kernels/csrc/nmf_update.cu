@@ -21,7 +21,9 @@
 //   streaming while the math warps reduce and store a finished item. Where
 //   the operands allow it (rows a multiple of 16 bytes, aligned), one thread
 //   issues each stage as 3-D tensor-memory-accelerator boxes; otherwise the
-//   copy threads stage it with cp.async, 16 or 4 bytes at a time.
+//   copy threads stage it with cp.async, 16 or 4 bytes at a time. Built
+//   with -DMU_NO_TMA, every stage takes the cp.async path (tools/time_mu.py
+//   --no-tma times the two paths against each other).
 // - Math threads read V and W (or H) from shared memory as float4 and keep
 //   a register tile of accumulators, so one shared load feeds 16-32 FMAs.
 // - A unit (one output tile of one lane) is reduced by one block, or, for
@@ -443,6 +445,7 @@ struct HUpdate {
         gv[i] = (e < KB * KB && r < k && q < k) ? __ldg(gl + r * k + q) : 0.f;
       }
     }
+    math_sync();  // the previous item's epilogue has read H and G out of the parking space
 #pragma unroll
     for (int r = 0; r < 16; ++r) {
       *reinterpret_cast<float4*>(park + (sl * KB + 16 * tr + r) * kHCols + 4 * tx) =
@@ -539,7 +542,7 @@ struct WUpdate {
   int* count;
   int lanes, n, m, k;
   Walk wk;
-  bool tma;
+  bool vec, tma;
   const CUtensorMap *map_v, *map_h;  // V as (m, n, L), box (32, kBN); H as (m, k, L), box (32, KB); swizzled
   float* park;  // (8, kBN, KB)
   float acc[8][4];
@@ -553,16 +556,26 @@ struct WUpdate {
     tma_box(st + kVFloats + KB * 32, map_h, j + 32, 0, l, bar);
   }
 
-  // Without tensor maps (m not a multiple of 4, or unaligned operands): the
-  // copy threads stage 4 bytes each, in the same swizzled layout.
+  // Without tensor maps: the copy threads stage an R x kWCols tile (row
+  // stride m) in the same swizzled layout, 16 bytes a copy where `vec` (m a
+  // multiple of 4 floats, operands aligned), else 4.
   template <int R>
   __device__ __forceinline__ void stage_swizzled(float* dst, const float* src, const float* safe, int vr, int vc,
                                                  int lane) const {
+    if (vec) {
 #pragma unroll 4
-    for (int e = lane; e < R * kWCols; e += kCopy) {
-      const int r = e / kWCols, c = e % kWCols;
-      const bool ok = r < vr && c < vc;
-      cp_async4(dst + swz<R>(r, c), ok ? src + (size_t)r * m + c : safe, ok);
+      for (int e = lane; e < R * kWCols / 4; e += kCopy) {
+        const int r = e / (kWCols / 4), c = (e % (kWCols / 4)) * 4;
+        const bool ok = r < vr && c < vc;
+        cp_async16(dst + swz<R>(r, c), ok ? src + (size_t)r * m + c : safe, ok);
+      }
+    } else {
+#pragma unroll 4
+      for (int e = lane; e < R * kWCols; e += kCopy) {
+        const int r = e / kWCols, c = e % kWCols;
+        const bool ok = r < vr && c < vc;
+        cp_async4(dst + swz<R>(r, c), ok ? src + (size_t)r * m + c : safe, ok);
+      }
     }
   }
 
@@ -623,6 +636,7 @@ struct WUpdate {
         qv[i] = (e < KB * KB && p < k && c < k) ? __ldg(ql + p * k + c) : 0.f;
       }
     }
+    math_sync();  // the previous item's epilogue has read W and Q out of the parking space
 #pragma unroll
     for (int u = 0; u < 8; ++u)
 #pragma unroll
@@ -699,7 +713,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 w_update_kernel(const float* __restrict__ v, const float* __restrict__ h,
                 const float* __restrict__ w, const float* __restrict__ q,
                 float* __restrict__ out, float* __restrict__ part, int* __restrict__ count,
-                int lanes, int n, int m, int k, int split, int chunk, int whole, bool tma,
+                int lanes, int n, int m, int k, int split, int chunk, int whole, bool vec, bool tma,
                 const __grid_constant__ CUtensorMap map_v, const __grid_constant__ CUtensorMap map_h) {
   using Op = WUpdate<KB>;
   extern __shared__ __align__(16) float smem_raw[];
@@ -708,7 +722,8 @@ w_update_kernel(const float* __restrict__ v, const float* __restrict__ h,
   init_barriers<Op>(bars, bars + kMaxStages, tma);
   const int tiles = (n + Op::kBN - 1) / Op::kBN;
   const Walk wk{tiles, tiles * lanes, whole, split, chunk, m, kWCols};
-  Op op{v, h, w, q, out, part, count, lanes, n, m, k, wk, tma, &map_v, &map_h, ring + Op::kStages * Op::kStage, {}};
+  Op op{v, h, w, q, out, part, count, lanes, n, m, k, wk, vec, tma, &map_v, &map_h, ring + Op::kStages * Op::kStage,
+        {}};
   walk(op, ring, bars, bars + kMaxStages);
 }
 
@@ -716,6 +731,12 @@ int k_bucket(int k) { return k <= 16 ? 16 : k <= 32 ? 32 : k <= 64 ? 64 : 128; }
 
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+#ifdef MU_NO_TMA
+constexpr bool kTma = false;  // a build that times the cp.async path alone
+#else
+constexpr bool kTma = true;
+#endif
 
 // The driver's tensor-map encoder, fetched through the runtime, so the
 // library links against no driver stub.
@@ -806,7 +827,7 @@ int launch_h(const float* v, const float* w, const float* h, const float* g, flo
   const bool vec_v = m % 4 == 0 && aligned16(v);
   const bool vec_w = k % 4 == 0 && aligned16(w);
   CUtensorMap map_v{}, map_w{};
-  const bool tma = vec_v && vec_w && cached_map(&map_v, v, m, n, lanes, kHCols, kHRows, false) &&
+  const bool tma = kTma && vec_v && vec_w && cached_map(&map_v, v, m, n, lanes, kHCols, kHRows, false) &&
                    cached_map(&map_w, w, k, n, lanes, KB, kHRows, false);
   h_update_kernel<KB><<<blocks, kThreads, kSmem, stream>>>(v, w, h, g, out, part, count, lanes, n, m, k, split,
                                                            chunk, whole, vec_v, vec_w, tma, map_v, map_w);
@@ -823,10 +844,11 @@ int launch_w(const float* v, const float* h, const float* w, const float* q, flo
       cudaFuncSetAttribute(w_update_kernel<KB>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (attr != cudaSuccess) return (int)attr;
   CUtensorMap map_v{}, map_h{};
-  const bool tma = m % 4 == 0 && aligned16(v) && aligned16(h) && cached_map(&map_v, v, m, n, lanes, 32, Op::kBN, true) &&
+  const bool vec = m % 4 == 0 && aligned16(v) && aligned16(h);
+  const bool tma = kTma && vec && cached_map(&map_v, v, m, n, lanes, 32, Op::kBN, true) &&
                    cached_map(&map_h, h, m, k, lanes, 32, KB, true);
   w_update_kernel<KB><<<blocks, kThreads, kSmem, stream>>>(v, h, w, q, out, part, count, lanes, n, m, k, split,
-                                                           chunk, whole, tma, map_v, map_h);
+                                                           chunk, whole, vec, tma, map_v, map_h);
   return (int)cudaGetLastError();
 }
 

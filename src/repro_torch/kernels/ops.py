@@ -178,10 +178,13 @@ _scratch = threading.local()
 def _mu_scratch(device: torch.device, stream: int, n_part: int, n_count: int):
     """This thread's MU scratch for ``stream``: float32 partials and int32
     arrival counters, grown when a launch needs more and kept otherwise.
-    The counters are zeroed when allocated, and every launch leaves them at
-    zero (the last block of a split unit resets its counter), so no call
-    zeroes them again. Kept per thread and stream, so no two launches that
-    may run at once share them."""
+
+    Invariant: the counters are zero before every launch. They are zeroed
+    when allocated, and a launch that runs to its end leaves them at zero
+    (the last block of a split unit resets its counter). A launch that
+    fails drops the thread's scratch (``_mu_launch``), so the next one
+    allocates zeroed counters. Kept per thread and stream, so no two
+    launches that may run at once share them."""
     bufs = _scratch.__dict__.setdefault("bufs", {})
     part, count = bufs.get((device, stream), (None, None))
     if part is None or part.numel() < n_part:
@@ -192,20 +195,34 @@ def _mu_scratch(device: torch.device, stream: int, n_part: int, n_count: int):
     return part, count
 
 
+def _mu_args(update: str, device: torch.device, stream: int, lanes: int, n: int, m: int, k: int) -> tuple:
+    """The C arguments of a launch after its five operands: scratch
+    pointers, shape, plan and stream. Remembered per thread, so a repeated
+    shape costs one dict lookup; each entry holds its scratch tensors, so
+    a pointer stays valid after the scratch grows."""
+    cache = _scratch.__dict__.setdefault("args", {})
+    key = (update, device, stream, lanes, n, m, k)
+    hit = cache.get(key)
+    if hit is None:
+        plan = _mu_plan(update, lanes, n, m, k, _sm_count(device))
+        held = _mu_scratch(device, stream, math.prod(plan.scratch), plan.counters) if plan.counters else ()
+        ptrs = tuple(t.data_ptr() for t in held) or (None, None)
+        if len(cache) >= 1024:
+            cache.clear()
+        hit = cache[key] = (held, (*ptrs, lanes, n, m, k, plan.split, plan.chunk, plan.whole, plan.blocks, stream))
+    return hit[1]
+
+
 def _mu_launch(name: str, update: str, v3, a, b, gram, out) -> None:
-    """Plan one MU launch, find its scratch and launch it."""
+    """Plan one MU launch, find its scratch and launch it. After a failed
+    launch the thread's scratch is dropped: its counters may be nonzero."""
     lanes, n, m = v3.shape
-    k = gram.shape[-1]
-    plan = _mu_plan(update, lanes, n, m, k, _sm_count(v3.device))
-    stream = _stream(v3)
-    part = count = None
-    if plan.counters:
-        part, count = (t.data_ptr() for t in _mu_scratch(v3.device, stream, math.prod(plan.scratch), plan.counters))
-    lib = build.load("nmf_update")
-    rc = getattr(lib, name)(
-        v3.data_ptr(), a.data_ptr(), b.data_ptr(), gram.data_ptr(), out.data_ptr(), part, count,
-        lanes, n, m, k, plan.split, plan.chunk, plan.whole, plan.blocks, stream,
+    args = _mu_args(update, v3.device, _stream(v3), lanes, n, m, gram.shape[-1])
+    rc = getattr(build.load("nmf_update"), name)(
+        v3.data_ptr(), a.data_ptr(), b.data_ptr(), gram.data_ptr(), out.data_ptr(), *args
     )
+    if rc != 0:
+        _scratch.__dict__.clear()
     _check(rc, name)
 
 

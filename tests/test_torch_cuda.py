@@ -103,16 +103,19 @@ def test_mu_kernels_are_bitwise_deterministic(lanes, n, m, k):
 @pytest.mark.cuda
 def test_mu_kernels_leave_their_arrival_counters_at_zero():
     """The wrapper zeroes its counters once, when it allocates them; every
-    launch must leave them at zero for the next."""
+    launch must leave them at zero for the next. Checks every counter this
+    thread's launches were handed."""
     dev = card()
     v, w, h = _mu_problem(dev, 3, 4, 1000, 1100, 16, dead=2)
     for _ in range(2):
         ops.mu_update_h(v, w, h)
         ops.mu_update_w(v, w, h)
     torch.cuda.synchronize()
-    _, count = ops._mu_scratch(v.device, torch.cuda.current_stream(v.device).cuda_stream, 0, 0)
-    assert count.numel() >= ops._mu_plan("h", 4, 1000, 1100, 16).counters > 0
-    assert int(count.abs().sum()) == 0
+    stream = torch.cuda.current_stream(v.device).cuda_stream
+    held, _ = ops._scratch.args[("h", v.device, stream, 4, 1000, 1100, 16)]
+    assert held[1].numel() >= ops._mu_plan("h", 4, 1000, 1100, 16).counters > 0
+    counters = [held[1] for held, _ in ops._scratch.args.values() if held]
+    assert counters and all(int(c.abs().sum()) == 0 for c in counters)
 
 
 @pytest.mark.cuda

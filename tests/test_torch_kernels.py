@@ -312,3 +312,34 @@ def test_mu_scratch_is_kept_per_thread_and_stream_and_grows():
     thread.start()
     thread.join()
     assert seen[0][0].data_ptr() != bigger[0].data_ptr()
+
+
+def test_mu_launch_drops_its_scratch_after_a_failed_launch(monkeypatch):
+    """A launch that fails may stop before its last blocks reset their
+    arrival counters; the wrapper then drops the thread's scratch, so the
+    next launch is handed counters zeroed anew."""
+    rcs, calls = [0, 700, 0], []
+
+    class Lib:
+        def mu_update_h(self, *args):
+            calls.append(args)
+            return rcs[len(calls) - 1]
+
+    monkeypatch.setattr(build, "load", lambda name: Lib())
+    monkeypatch.setattr(ops, "_sm_count", lambda device: ops.H100_SMS)
+    monkeypatch.setattr(ops, "_stream", lambda t: 54321)
+    lanes, n, m, k = 4, 1000, 1100, 16
+    v, w, h = torch.zeros((lanes, n, m)), torch.zeros((lanes, n, k)), torch.zeros((lanes, k, m))
+    gram, out = torch.zeros((lanes, k, k)), torch.empty_like(h)
+    key = ("h", v.device, 54321, lanes, n, m, k)
+    ops._mu_launch("mu_update_h", "h", v, w, h, gram, out)
+    held, _ = ops._scratch.args[key]
+    assert calls[0][6] == held[1].data_ptr()
+    held[1].fill_(3)  # as a launch cut short would leave them
+    with pytest.raises(RuntimeError, match="CUDA error 700"):
+        ops._mu_launch("mu_update_h", "h", v, w, h, gram, out)
+    ops._mu_launch("mu_update_h", "h", v, w, h, gram, out)
+    held, _ = ops._scratch.args[key]
+    assert calls[2][6] == held[1].data_ptr()
+    assert held[1].numel() >= ops._mu_plan("h", lanes, n, m, k).counters > 0
+    assert int(held[1].abs().sum()) == 0

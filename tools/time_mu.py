@@ -1,0 +1,137 @@
+#!/usr/bin/env python3
+"""Time the port's MU wrappers on the card, and the NMFk searches that run them.
+
+For ``mu_update_h`` and ``mu_update_w`` at the two main-path shapes (the
+batched wave, L=32, and the threads executor, L=4, both at V 1000 x 1100,
+k=16) prints one JSON line each with:
+
+- ``ms``: the wrapper's device time per call, its G or Q ``bmm`` included
+  (CUDA events behind a spin kernel, as ``chip_smoke.py`` times it);
+- ``host_us``: the wrapper's host time per call, the median of five
+  rounds of back-to-back calls queued behind a spin kernel (so the host
+  never waits for the device);
+- ``plain_ms``: the plain PyTorch version's device time.
+
+Each wrapper is first held against its plain version at the reference's
+fp32 MU tolerance (3e-5).
+
+Then the wall times of ``--searches`` paper-scale NMFk searches (the
+search of ``chip_smoke.py``) on each executor, after one warm-up. Run from
+the root of a checkout on a machine with a card:
+
+    python3 tools/time_mu.py [--src src] [--searches 3] [--tag name] [--no-tma]
+
+``--src`` points at the ``src`` directory of another checkout, to time that
+version of the port with the same script. ``--no-tma`` builds the MU kernels
+with ``-DMU_NO_TMA``, so every stage takes the cp.async copy path instead
+of tensor-memory-accelerator boxes.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+SEARCH = ["--n", "1000", "--m", "1100", "--k-true", "8", "--k-max", "16", "--n-perturbs", "4",
+          "--nmf-iters", "120", "--device", "cuda", "--quiet"]
+SHAPES = [(32, 1000, 1100, 16), (4, 1000, 1100, 16)]  # (L, n, m, k)
+
+
+def device_ms(torch, fn, reps: int = 20) -> float:
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def host_us(torch, fn, reps: int = 100, rounds: int = 5) -> float:
+    for _ in range(3):
+        fn()
+    per_call = []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(200_000_000)  # ~0.1 s: longer than the host takes to queue every call
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        per_call.append((time.perf_counter() - t0) / reps * 1e6)
+    torch.cuda.synchronize()
+    return statistics.median(per_call)
+
+
+def load_without_tma(build) -> None:
+    """Build nmf_update.cu with -DMU_NO_TMA beside the usual library and
+    make it the one the wrappers launch."""
+    path = build.library_path("nmf_update")
+    path = path.with_name(f"{path.stem}_no_tma.so")
+    if not path.is_file():
+        path.parent.mkdir(parents=True, exist_ok=True)
+        subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-DMU_NO_TMA", "-o", str(path),
+                        str(build.CSRC / "nmf_update.cu")], check=True, capture_output=True)
+    lib = ctypes.CDLL(str(path))
+    for fn_name, argtypes in build.SIGNATURES["nmf_update"].items():
+        getattr(lib, fn_name).argtypes = argtypes
+        getattr(lib, fn_name).restype = ctypes.c_int
+    build._loaded["nmf_update"] = lib
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--src", default=str(Path(__file__).resolve().parents[1] / "src"))
+    ap.add_argument("--searches", type=int, default=3)
+    ap.add_argument("--tag", default=None, help="label of this version in the output (default: --src)")
+    ap.add_argument("--no-tma", action="store_true", help="time the MU kernels' cp.async copy path alone")
+    args = ap.parse_args(argv)
+    sys.path.insert(0, args.src)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("time_mu: needs an NVIDIA card", file=sys.stderr)
+        return 1
+    from repro_torch.kernels import build, ops, ref
+    from repro_torch.launch import ksearch
+
+    if args.no_tma:
+        load_without_tma(build)
+    tag = args.tag or args.src
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    for lanes, n, m, k in SHAPES:
+        v = torch.rand((lanes, n, m), device="cuda", generator=gen)
+        w = torch.rand((lanes, n, k), device="cuda", generator=gen) + 0.1
+        h = torch.rand((lanes, k, m), device="cuda", generator=gen) + 0.1
+        for name, fn, plain in (("mu_update_h", ops.mu_update_h, ref.mu_update_h),
+                                ("mu_update_w", ops.mu_update_w, ref.mu_update_w)):
+            # the reference's fp32 MU kernel tolerance (chip_smoke.MU_TOL)
+            torch.testing.assert_close(fn(v, w, h), plain(v, w, h), rtol=3e-5, atol=3e-5)
+            print(json.dumps({
+                "tag": tag, "wrapper": name, "shape": {"L": lanes, "n": n, "m": m, "k": k},
+                "ms": device_ms(torch, lambda: fn(v, w, h)),
+                "host_us": host_us(torch, lambda: fn(v, w, h)),
+                "plain_ms": device_ms(torch, lambda: plain(v, w, h)),
+            }), flush=True)
+    for executor in ("threads", "batched") if args.searches else ():
+        run = SEARCH + ["--executor", executor]
+        ksearch.main(run)  # warm up
+        results = [ksearch.main(run) for _ in range(args.searches)]
+        print(json.dumps({
+            "tag": tag, "search": executor, "k_optimal": [r["k_optimal"] for r in results],
+            "wall_s": [r["seconds"] for r in results],
+        }), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
