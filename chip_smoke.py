@@ -257,8 +257,10 @@ def check_sums(torch, dev, ops, ref, records: dict, log) -> None:
 def check_pairwise(torch, dev, ops, ref, records: dict, log) -> None:
     """Both pairwise wrappers at the K-Means main paths' shapes: 10^6 blob
     points (d 6) against 24 centroid slots with x shared by the lanes (lane
-    stride 0) of a 1-lane and a 16-lane wave, and in 2-D; plus a ragged
-    small case."""
+    stride 0) of a 1-lane and a 16-lane wave, and in 2-D at m = 24 and at
+    three more k of the threads path (2, 7, 13); a shape of the general
+    path (m past the thin path's limit); a ragged small case. Every case is
+    called twice and must give the same bits."""
     from repro_torch.factorization.synthetic import blob_data
 
     x, _ = blob_data(**KM_DATA, device=dev)
@@ -271,7 +273,11 @@ def check_pairwise(torch, dev, ops, ref, records: dict, log) -> None:
     y = (x[pick] + 0.1 * torch.randn((b, m, d), device=dev, generator=gen)).contiguous()
     rng_x = torch.randn((3, 70, 17), device=dev, generator=gen)
     rng_y = torch.randn((3, 30, 17), device=dev, generator=gen)
-    cases = (
+    m_gen = 4 * ops.PAIRWISE_THIN_COLS // 3  # past the thin path: the general one
+    pick_gen = torch.randint(0, n, (2, m_gen), device=dev, generator=gen)
+    y_gen = (x[pick_gen] + 0.1 * torch.randn((2, m_gen, d), device=dev, generator=gen)).contiguous()
+    x_gen = x[: n // 10]
+    cases = [
         # Binary Bleed prunes one side of most waves, so the batched run's
         # waves mostly carry one lane: that shape first (the kernels line
         # reports the first timed case), then a full 16-lane wave
@@ -280,24 +286,34 @@ def check_pairwise(torch, dev, ops, ref, records: dict, log) -> None:
         ("pairwise_sq_dists_batched", ops.pairwise_sq_dists_batched, (x, y),
          f"b={b} lanes, x shared (n={n}, d={d}), m={m}", True),
         ("pairwise_sq_dists", ops.pairwise_sq_dists, (x, y[0]), f"n={n}, m={m}, d={d}", True),
+    ]
+    cases += [("pairwise_sq_dists", ops.pairwise_sq_dists, (x, y[0, :k].contiguous()), f"n={n}, m={k}, d={d}", True)
+              for k in (2, 7, 13)]
+    cases += [
+        ("pairwise_sq_dists_batched", ops.pairwise_sq_dists_batched, (x_gen, y_gen),
+         f"general path: b=2 lanes, x shared (n={x_gen.shape[0]}, d={d}), m={m_gen}", True),
         ("pairwise_sq_dists_batched", ops.pairwise_sq_dists_batched, (rng_x, rng_y),
          "ragged b=3, n=70, m=30, d=17", False),
-    )
-    for name, fn, (xx, yy), label, main in cases:
+    ]
+    for name, fn, (xx, yy), label, timed in cases:
         got, want = fn(xx, yy), ref.pairwise_sq_dists(xx, yy)
+        again = fn(xx, yy)
         torch.cuda.synchronize()
         err = compare(torch, got, want, PAIRWISE_TOL["rtol"], PAIRWISE_TOL["atol"], f"{name} [{label}]")
+        if not torch.equal(got, again):
+            raise AssertionError(f"{name} [{label}]: two calls differ bitwise")
+        del want, again
         fp64_err = float((got.double() - ref.pairwise_sq_dists(xx.double(), yy.double())).abs().max())
-        entry = {"case": label, "max_abs_err": err, "max_abs_err_vs_fp64": fp64_err}
-        del got, want
-        if main:
+        entry = {"case": label, "max_abs_err": err, "max_abs_err_vs_fp64": fp64_err, "bitwise_equal_rerun": True}
+        del got
+        if timed:
             lanes = yy.shape[0] if yy.dim() == 3 else 1
-            n_x, n_y = xx.shape[-2], yy.shape[-2]
+            n_x, n_y, dd = xx.shape[-2], yy.shape[-2], xx.shape[-1]
             x_bytes = xx.numel()  # a 2-D x is read once for every lane
             n_bytes = 4 * (x_bytes + yy.numel() + lanes * n_x * n_y)
-            flops = lanes * n_x * n_y * (2 * d + 3) + 2 * xx.numel() + 2 * yy.numel()
+            flops = lanes * n_x * n_y * (2 * dd + 3) + 2 * xx.numel() + 2 * yy.numel()
             b_ms, b_by = bound_ms(n_bytes, flops)
-            x_lib = xx.expand(lanes, n_x, d) if yy.dim() == 3 else xx
+            x_lib = xx.expand(lanes, n_x, dd) if yy.dim() == 3 else xx
             entry.update(
                 ms=time_ms(torch, lambda: fn(xx, yy)),
                 plain_ms=time_ms(torch, lambda: ref.pairwise_sq_dists(xx, yy)),

@@ -23,8 +23,14 @@ from . import build, ref
 
 MAX_RANK = 128  # largest k the MU kernels take (nmf_update.cu kMaxRank)
 MAX_CLUSTERS = 128  # largest k the distance-sum kernel takes (silhouette_sums.cu)
-MAX_LANES = 65535  # grid limit on the lane axis (pairwise_dist.cu)
-MAX_PAIRWISE_COLS = 65535 * 32  # grid limit on m (pairwise_dist.cu: 32 y rows per block)
+# pairwise_dist.cu: the thin path (every K-Means launch) takes m <= 64 and
+# d <= 32; larger shapes take the general path, whose grid bounds m (32 y
+# rows per block, 65535 blocks). Both bound the lanes: the general path's
+# grid.z, the thin path's chunks of lanes on grid.y.
+PAIRWISE_THIN_COLS = 64  # kThinMaxM
+PAIRWISE_THIN_DIM = 32  # kThinMaxD
+MAX_LANES = 65535
+MAX_PAIRWISE_COLS = 65535 * 32  # kTileM y rows per block of the general path
 MAX_HEAD_DIM = 128  # largest head dim the flash kernel takes (flash_attention.cu)
 MAX_GRID_YZ = 65535  # grid limit on heads and batch (flash_attention.cu)
 

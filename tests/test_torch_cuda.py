@@ -136,10 +136,22 @@ def test_dist_sums_kernel_matches_plain(b, n, d, k):
 PAIRWISE_TOL = dict(rtol=1e-4, atol=1e-3)  # tests/test_kernels.py::test_pairwise fp32 tolerance
 
 
+THIN_M, THIN_D = ops.PAIRWISE_THIN_COLS, ops.PAIRWISE_THIN_DIM
+PAIRWISE_SHAPES = [
+    (1, 40, 24, 6), (3, 70, 30, 17), (1, 8, 8, 200), (2, 128, 128, 128), (16, 4097, 24, 6),
+    # the thin path's edges: m and d at its limits, and one above each (general path)
+    (2, 100, THIN_M, THIN_D), (2, 100, THIN_M + 1, 6), (2, 100, 24, THIN_D + 1), (2, 100, THIN_M + 1, THIN_D + 1),
+    (1, 1000, 24, 6), (3, 4099, 13, 6),  # n not a multiple of a warp's or a block's rows
+    (2, 5, 24, 6), (1, 1, 7, 6),  # n below one tile
+    (2, 77, 24, 1),  # d = 1
+    (3, 77, 13, 6), (2, 333, 7, 3),  # n m and n d not multiples of 4: unaligned lane bases
+    (16, 999, 7, 3),  # 16 lanes, x or y shared below
+    (160, 70, 24, 6), (300, 33, 2, 6),  # more lanes than SMs
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize(
-    "b,n,m,d", [(1, 40, 24, 6), (3, 70, 30, 17), (1, 8, 8, 200), (2, 128, 128, 128), (16, 4097, 24, 6)]
-)
+@pytest.mark.parametrize("b,n,m,d", PAIRWISE_SHAPES)
 def test_pairwise_kernels_match_plain(b, n, m, d):
     dev = card()
     rng = np.random.default_rng(b * n + m * d)
@@ -157,6 +169,37 @@ def test_pairwise_kernels_match_plain(b, n, m, d):
     torch.testing.assert_close(ops.pairwise_sq_dists(x[0], y[0]), ref.pairwise_sq_dists(x[0], y[0]), **PAIRWISE_TOL)
     torch.testing.assert_close(ops.pairwise_sq_dists(x[0]), ref.pairwise_sq_dists(x[0]), **PAIRWISE_TOL)
     assert ops.pairwise_sq_dists.launches == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [1, 16])
+def test_pairwise_kernels_are_bitwise_deterministic(lanes):
+    """Two calls at the K-Means main path's shape (10^6 points, d 6, 24
+    centroid slots; x shared by the lanes) give the same bits."""
+    dev = card()
+    rng = np.random.default_rng(lanes)
+    x = torch.from_numpy(rng.normal(size=(10**6, 6)).astype(np.float32)).to(dev)
+    y = torch.from_numpy(rng.normal(size=(lanes, 24, 6)).astype(np.float32)).to(dev)
+    first = ops.pairwise_sq_dists_batched(x, y)
+    assert torch.equal(first, ops.pairwise_sq_dists_batched(x, y))
+    del first
+    first = ops.pairwise_sq_dists(x, y[0])
+    assert torch.equal(first, ops.pairwise_sq_dists(x, y[0]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,d", [(1, 5000, 6), (3, 777, 17), (2, 300, 32)])
+def test_pairwise_thin_and_general_paths_agree_bitwise(b, n, d):
+    """The same centroids through the thin path (m at its limit) and, with
+    one more row, through the general one: the shared columns are equal bit
+    for bit, as both add in the same order."""
+    dev = card()
+    rng = np.random.default_rng(n + d)
+    x = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32)).to(dev)
+    y = torch.from_numpy(rng.normal(size=(b, THIN_M + 1, d)).astype(np.float32)).to(dev)
+    general = ops.pairwise_sq_dists_batched(x, y)
+    thin = ops.pairwise_sq_dists_batched(x, y[:, :THIN_M].contiguous())
+    assert torch.equal(general[..., :THIN_M], thin)
 
 
 @pytest.mark.cuda

@@ -2,8 +2,8 @@
 
 Every ``repro_torch`` module and ``chip_smoke.py`` are imported in a fresh
 interpreter, which must end with neither ``jax`` nor any ``repro`` /
-``repro.*`` module loaded; the sources are also scanned with ``ast`` for
-such imports, including ones inside functions.
+``repro.*`` module loaded; their sources and the port's ``tools/*.py`` are
+also scanned with ``ast`` for such imports, including ones inside functions.
 """
 import ast
 import json
@@ -18,7 +18,7 @@ pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("*.py"))
 
 
 def _module_names() -> list[str]:

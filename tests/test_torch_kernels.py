@@ -343,3 +343,57 @@ def test_mu_launch_drops_its_scratch_after_a_failed_launch(monkeypatch):
     assert calls[2][6] == held[1].data_ptr()
     assert held[1].numel() >= ops._mu_plan("h", lanes, n, m, k).counters > 0
     assert int(held[1].abs().sum()) == 0
+
+
+def test_pairwise_limits_follow_the_kernel_source():
+    """The wrapper's limits are the ones pairwise_dist.cu compiles in."""
+    import re
+
+    src = (build.CSRC / "pairwise_dist.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+    assert ops.PAIRWISE_THIN_COLS == const("kThinMaxM")
+    assert ops.PAIRWISE_THIN_DIM == const("kThinMaxD")
+    assert ops.MAX_PAIRWISE_COLS == 65535 * const("kTileM")
+    assert f"b > {ops.MAX_LANES}" in src
+
+
+@pytest.mark.parametrize(
+    "x_shape,y_shape,lanes,strides",
+    [
+        ((50, 6), (7, 6), 1, (0, 0)),  # 2-D
+        ((50, 6), (16, 24, 6), 16, (0, 24 * 6)),  # x shared by the lanes
+        ((3, 50, 6), (24, 6), 3, (50 * 6, 0)),  # y shared
+        ((3, 77, 13), (3, 5, 13), 3, (77 * 13, 5 * 13)),  # both per lane
+    ],
+)
+def test_pairwise_launch_hands_the_kernel_its_lane_strides(monkeypatch, x_shape, y_shape, lanes, strides):
+    """The wrapper's call into pairwise_dist.cu, with the library stubbed: a
+    2-D operand is shared by every lane (stride 0) and never copied."""
+    calls = []
+
+    class Lib:
+        def pairwise_sq_dists(self, *args):
+            calls.append(args)
+            return 0
+
+    monkeypatch.setattr(build, "load", lambda name: Lib())
+    monkeypatch.setattr(ops, "_stream", lambda t: 777)
+    x, y = torch.zeros(x_shape), torch.zeros(y_shape)
+    out = ops._pairwise_launch(x, y, lanes)
+    (args,) = calls
+    n, d, m = x_shape[-2], x_shape[-1], y_shape[-2]
+    assert out.shape == (lanes, n, m)
+    assert args == (x.data_ptr(), y.data_ptr(), out.data_ptr(), lanes, n, m, d, *strides, 777)
+
+
+def test_pairwise_launch_refuses_shapes_past_the_kernel_limits(monkeypatch):
+    monkeypatch.setattr(build, "load", lambda name: pytest.fail("no launch past the limits"))
+    with pytest.raises(ValueError, match="lanes"):
+        ops._pairwise_launch(torch.zeros((4, 1)), torch.zeros((ops.MAX_LANES + 1, 2, 1)), ops.MAX_LANES + 1)
+    with pytest.raises(ValueError, match="m <="):
+        ops._pairwise_launch(torch.zeros((4, 1)), torch.zeros((ops.MAX_PAIRWISE_COLS + 1, 1)), 1)
+    with pytest.raises(ValueError, match="do not match"):
+        ops._pairwise_launch(torch.zeros((4, 2)), torch.zeros((3, 5)), 1)
