@@ -135,14 +135,14 @@ def compare(torch, got, want, rtol: float, atol: float, what: str) -> float:
     return max_abs
 
 
-def mu_problem(torch, dev, lanes: int, k_pad: int, k_effs):
+def mu_problem(torch, dev, lanes: int, k_pad: int, k_effs, n: int = 1000, m: int = 1100):
     """Perturbed V per fit and a masked init, as a wave of NMFk fits has them."""
     from repro_torch.factorization.nmf import _masked_init
     from repro_torch.factorization.synthetic import nmf_data
     from repro_torch.random import make_draws, seeded_generator
 
-    v, _, _ = nmf_data(1000, 1100, 8, seed=1, device=dev)
-    d = make_draws(seeded_generator(7, dev), 1000, 1100, k_pad, lanes, 0.015)
+    v, _, _ = nmf_data(n, m, 8, seed=1, device=dev)
+    d = make_draws(seeded_generator(7, dev), n, m, k_pad, lanes, 0.015)
     vp = (v * d.noise).contiguous()
     k_eff = torch.tensor(k_effs, device=dev)
     w, h = _masked_init(vp, k_eff, d.w, d.h, k_pad)
@@ -152,18 +152,21 @@ def mu_problem(torch, dev, lanes: int, k_pad: int, k_effs):
 def check_mu(torch, dev, ops, ref, records: dict, log) -> None:
     """Both MU wrappers against their plain versions at the batched wave's
     shape (L=32; k_pad 16, and ragged k_pad 13) and the threads executor's
-    (L=4, k=16): masked components exactly zero, two calls bitwise equal;
-    timed at k=16 with the wrapper's G or Q product alone beside (the
-    kernels line reports the L=32 case, the first timed)."""
-    n, m = 1000, 1100
+    (L=4, k=16), and past the tiled kernels' largest rank (k_pad 129 and
+    200 at L=2, V 300 x 320: the any-rank kernel): masked components
+    exactly zero, two calls bitwise equal; timed at k=16 with the wrapper's
+    G or Q product alone beside (the kernels line reports the L=32 case,
+    the first timed)."""
     cases = [
-        ("k_pad=16, ks 9..16", 32, 16, [9 + i // 4 for i in range(32)]),
-        ("k_pad=13, ragged, ks 10..13", 32, 13, [10 + (i // 4) % 4 for i in range(32)]),
-        ("threads: L=4, k=16", 4, 16, [16] * 4),
+        ("k_pad=16, ks 9..16", 32, 16, [9 + i // 4 for i in range(32)], 1000, 1100),
+        ("k_pad=13, ragged, ks 10..13", 32, 13, [10 + (i // 4) % 4 for i in range(32)], 1000, 1100),
+        ("threads: L=4, k=16", 4, 16, [16] * 4, 1000, 1100),
+        ("any rank: k_pad=129, ks 129, 120", 2, 129, [129, 120], 300, 320),
+        ("any rank: k_pad=200, ks 200, 150", 2, 200, [200, 150], 300, 320),
     ]
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    for label, lanes, k, k_effs in cases:
-        v, w, h, k_eff = mu_problem(torch, dev, lanes, k, k_effs)
+    for label, lanes, k, k_effs, n, m in cases:
+        v, w, h, k_eff = mu_problem(torch, dev, lanes, k, k_effs, n, m)
         dead = torch.arange(k, device=dev)[None, :] >= k_eff[:, None]  # (L, k) masked comps
         for name, fn, plain, out_of in (
             ("mu_update_h", ops.mu_update_h, ref.mu_update_h, "h"),
@@ -178,11 +181,12 @@ def check_mu(torch, dev, ops, ref, records: dict, log) -> None:
             masked = got[dead] if out_of == "h" else got.transpose(1, 2)[dead]
             if masked.numel() and float(masked.abs().max()) != 0.0:
                 raise AssertionError(f"{name} [{label}]: masked components are not exactly zero")
-            plan = ops._mu_plan(out_of, lanes, n, m, k, sms)
             entry = {"case": label, "shape": {"L": lanes, "n": n, "m": m, "k": k}, "max_abs_err": err,
-                     "bitwise_equal_rerun": True,
-                     "plan": {"whole": plan.whole, "split": plan.split, "chunk": plan.chunk, "items": plan.items, "blocks": plan.blocks,
-                              "scratch_bytes": 4 * math.prod(plan.scratch)}}
+                     "bitwise_equal_rerun": True}
+            if k <= ops.MU_TILED_MAX_RANK:
+                plan = ops._mu_plan(out_of, lanes, n, m, k, sms)
+                entry["plan"] = {"whole": plan.whole, "split": plan.split, "chunk": plan.chunk, "items": plan.items,
+                                 "blocks": plan.blocks, "scratch_bytes": 4 * math.prod(plan.scratch)}
             if k == 16:  # the main paths' shape: time it
                 n_bytes = 4 * lanes * (n * m + n * k + k * m + k * k + (k * m if out_of == "h" else n * k))
                 flops = lanes * (2 * n * m * k + (2 * k * k * m + 3 * k * m if out_of == "h" else 2 * n * k * k + 3 * n * k))
@@ -217,39 +221,75 @@ def pooled_columns(torch, dev, b: int, p: int, k: int, k_effs, d: int = 1000):
 
 
 def check_sums(torch, dev, ops, ref, records: dict, log) -> None:
-    d = 1000
-    x, onehot = pooled_columns(torch, dev, 8, 4, 16, [9, 10, 11, 12, 13, 14, 15, 16], d)
-    x2, onehot2 = pooled_columns(torch, dev, 1, 4, 13, [13], d)
-    x2, onehot2 = x2[0], onehot2[0]
-    for name, fn, args in (
-        ("silhouette_dist_sums_batched", ops.silhouette_dist_sums_batched, (x, onehot)),
-        ("silhouette_dist_sums", ops.silhouette_dist_sums, (x2, onehot2)),
-    ):
+    """Both silhouette wrappers on pooled near-duplicate columns (x = y), at
+    d 1000: the batched wave (b 8, k_pad 16) and the threads path's 2-D
+    point counts (p 4: k 2, 7, 13, 16), timed; a ragged d (999); k past 128
+    (p 2: k 129 in 2-D, k 200 at b 2; and 100 points over 200 clusters on
+    the thin path); the thin path's largest point count
+    (128) and, with one more y row whose one-hot row is zero, the same sums
+    through the general path; and a K-Means-like general-path case (240
+    points, d 5). Every case is called twice and must give the same bits.
+    The kernels line reports the first timed case of each wrapper."""
+    cases = [  # (label, b, p, k, k_effs, d, 2-D, timed)
+        ("b=8, points=64, d=1000, k=16", 8, 4, 16, [9, 10, 11, 12, 13, 14, 15, 16], 1000, False, True),
+        ("points=52, d=1000, k=13", 1, 4, 13, [13], 1000, True, True),
+        ("points=8, d=1000, k=2", 1, 4, 2, [2], 1000, True, True),
+        ("points=28, d=1000, k=7", 1, 4, 7, [7], 1000, True, True),
+        ("points=64, d=1000, k=16", 1, 4, 16, [16], 1000, True, True),
+        ("ragged d: points=52, d=999, k=13", 1, 4, 13, [13], 999, True, False),
+        ("ragged d: b=8, points=64, d=999, k=16", 8, 4, 16, [16] * 8, 999, False, False),
+        ("k past 128: points=258, d=1000, k=129", 1, 2, 129, [129], 1000, True, False),
+        ("k past 128: b=2, points=400, d=1000, k=200", 2, 2, 200, [200, 170], 1000, False, False),
+        ("k past 128, thin path: b=2, points=100, d=1000, k=200", 2, 1, 100, [100, 100], 1000, False, False),
+        ("thin limit: b=2, points=128, d=1000, k=32", 2, 4, 32, [32, 32], 1000, False, False),
+        ("general path: b=2, points=240, d=5, k=8", 2, 30, 8, [8, 6], 5, False, False),
+    ]
+    for label, b, p, k, k_effs, d, two_d, timed in cases:
+        x, onehot = pooled_columns(torch, dev, b, p, k, k_effs, d)
+        if label.startswith("k past 128, thin path"):  # 100 points (p 1, k 100), point j in cluster 2 j of 200
+            points, k = k, 200
+            labels = 2 * torch.arange(points, device=dev)
+            onehot = torch.nn.functional.one_hot(labels, k).float().expand(b, points, k).contiguous()
+        name, fn, args = "silhouette_dist_sums_batched", ops.silhouette_dist_sums_batched, (x, onehot)
+        if two_d:
+            name, fn, args = "silhouette_dist_sums", ops.silhouette_dist_sums, (x[0], onehot[0])
         # Near-duplicate pooled columns make |x|^2 + |y|^2 - 2 x.y a
         # cancellation: in fp32 at d=1000 its rounding noise (~1e-6) reaches
         # ~1e-3 after sqrt in ANY fp32 evaluation order, the plain version's
         # included. So the kernel is held against the plain version run in
         # float64 on the same inputs, and the fp32 plain version's own gap
         # to it is reported beside.
-        got = fn(*args)
+        got, again = fn(*args), fn(*args)
         want = ref.silhouette_dist_sums(*(a.double() for a in args))
         plain32 = ref.silhouette_dist_sums(*args)
         torch.cuda.synchronize()
-        err = compare(torch, got, want, SUMS_TOL["rtol"], SUMS_TOL["atol"], name)
-        plain32_err = float((plain32.double() - want).abs().max())
-        xx, oh = args
-        b = xx.shape[0] if xx.dim() == 3 else 1
-        n, k = xx.shape[-2], oh.shape[-1]
-        n_bytes = 4 * b * (n * d + n * k + n * k)  # x (= y) read once, one-hot, out
-        flops = b * (2 * n * n * d + 2 * n * d + 5 * n * n + 2 * n * n * k)
-        b_ms, b_by = bound_ms(n_bytes, flops)
-        entry = {
-            "case": f"b={b}, points={n}, d={d}, k={k}", "max_abs_err": err,
-            "plain_fp32_max_abs_err": plain32_err,
-            "ms": time_ms(torch, lambda: fn(*args)),
-            "plain_ms": time_ms(torch, lambda: ref.silhouette_dist_sums(*args)),
-            "bound_ms": b_ms, "bound_by": b_by,
-        }
+        err = compare(torch, got, want, SUMS_TOL["rtol"], SUMS_TOL["atol"], f"{name} [{label}]")
+        if not torch.equal(got, again):
+            raise AssertionError(f"{name} [{label}]: two calls differ bitwise")
+        entry = {"case": label, "max_abs_err": err, "bitwise_equal_rerun": True,
+                 "plain_fp32_max_abs_err": float((plain32.double() - want).abs().max())}
+        if label.startswith("thin limit"):
+            # the same sums through the general path: one more y row, whose
+            # one-hot row is zero. The two paths add d in other orders, so
+            # they agree at SUMS_TOL, not bit for bit.
+            y_more = torch.cat([x, x[:, :1]], dim=1).contiguous()
+            onehot_more = torch.cat([onehot, torch.zeros_like(onehot[:, :1])], dim=1).contiguous()
+            general = fn(x, onehot_more, y_more)
+            entry["thin_vs_general_max_abs_diff"] = compare(
+                torch, general, got, SUMS_TOL["rtol"], SUMS_TOL["atol"], f"{name} [{label}]: general vs thin")
+        if timed:
+            n = x.shape[1]
+            n_bytes = 4 * b * (n * d + n * k + n * k)  # x (= y) read once, one-hot, out
+            flops = b * (2 * n * n * d + 2 * n * d + 5 * n * n + 2 * n * n * k)
+            b_ms, b_by = bound_ms(n_bytes, flops)
+            out = torch.empty_like(got)
+            entry.update(
+                ms=time_ms(torch, lambda: fn(*args)),
+                plain_ms=time_ms(torch, lambda: ref.silhouette_dist_sums(*args)),
+                bound_ms=b_ms, bound_by=b_by,
+                fill_ms=time_ms(torch, lambda: out.fill_(1.0)),  # the launch floor
+            )
+            entry.update(bound_share=b_ms / entry["ms"], fill_multiple=entry["ms"] / entry["fill_ms"])
         log(json.dumps({"check": name, **entry}))
         records.setdefault(name, []).append(entry)
 
@@ -327,31 +367,43 @@ def check_pairwise(torch, dev, ops, ref, records: dict, log) -> None:
 
 
 def check_nmfk_small(torch, dev, log) -> None:
-    """Batched NMFk on the card (kernels) vs on the CPU (plain), same draws."""
+    """Batched NMFk on the card (kernels) vs on the CPU (plain), same draws:
+    ks 2..8 at k_pad 8 (96 x 104, 120 sweeps), and a wave padded past 128
+    ranks (ks 3 and 129 at k_pad 129; 40 x 44, 2 perturbations, 20 sweeps),
+    whose fits take the any-rank MU kernel and whose 258 pooled columns the
+    general silhouette path."""
     from repro_torch.factorization.nmfk import nmfk_score_batched
     from repro_torch.factorization.synthetic import nmf_data
+    from repro_torch.kernels import ops
     from repro_torch.random import Draws, seeded_draws
 
-    v, _, _ = nmf_data(96, 104, 5, seed=0, device=dev)
-    ks = [2, 3, 4, 5, 6, 7, 8]
-    card_draws = seeded_draws(0, 96, 104, 4, 0.015, dev)
+    for (n, m, k_true), ks, k_pad, p, iters in (
+        ((96, 104, 5), [2, 3, 4, 5, 6, 7, 8], 8, 4, 120),
+        ((40, 44, 4), [3, 129], 129, 2, 20),
+    ):
+        v, _, _ = nmf_data(n, m, k_true, seed=0, device=dev)
+        card_draws = seeded_draws(0, n, m, p, 0.015, dev)
 
-    def cpu_draws(k, k_draw):
-        return Draws(*(t.cpu() for t in card_draws(k, k_draw)))
+        def cpu_draws(k, k_draw, card_draws=card_draws):
+            return Draws(*(t.cpu() for t in card_draws(k, k_draw)))
 
-    on_card = nmfk_score_batched(v, ks, k_pad=8, n_perturbs=4, nmf_iters=120, draws=card_draws)
-    on_cpu = nmfk_score_batched(v.cpu(), ks, k_pad=8, n_perturbs=4, nmf_iters=120, draws=cpu_draws)
-    for field in ("min_silhouette", "mean_silhouette"):
-        gap = float((getattr(on_card, field).cpu() - getattr(on_cpu, field)).abs().max())
-        if not gap <= NMFK_SIL_ATOL:
-            raise AssertionError(f"NMFk {field}: card vs plain gap {gap:.3e} > {NMFK_SIL_ATOL}")
-    rel = float(((on_card.rel_error.cpu() - on_cpu.rel_error) / on_cpu.rel_error).abs().max())
-    if not rel <= NMFK_ERR_RTOL:
-        raise AssertionError(f"NMFk rel_error: card vs plain relative gap {rel:.3e} > {NMFK_ERR_RTOL}")
-    log(json.dumps({"check": "nmfk_score_batched card vs plain", "ks": ks,
-                    "min_silhouette_card": on_card.min_silhouette.tolist(),
-                    "min_silhouette_plain": on_cpu.min_silhouette.tolist(),
-                    "rel_error_max_rel_gap": rel}))
+        ops.reset_launch_counts()
+        on_card = nmfk_score_batched(v, ks, k_pad=k_pad, n_perturbs=p, nmf_iters=iters, draws=card_draws)
+        launches = ops.launch_counts()
+        on_cpu = nmfk_score_batched(v.cpu(), ks, k_pad=k_pad, n_perturbs=p, nmf_iters=iters, draws=cpu_draws)
+        for field in ("min_silhouette", "mean_silhouette"):
+            gap = float((getattr(on_card, field).cpu() - getattr(on_cpu, field)).abs().max())
+            if not gap <= NMFK_SIL_ATOL:
+                raise AssertionError(f"NMFk k_pad {k_pad} {field}: card vs plain gap {gap:.3e} > {NMFK_SIL_ATOL}")
+        rel = float(((on_card.rel_error.cpu() - on_cpu.rel_error) / on_cpu.rel_error).abs().max())
+        if not rel <= NMFK_ERR_RTOL:
+            raise AssertionError(f"NMFk k_pad {k_pad} rel_error: card vs plain relative gap {rel:.3e} > {NMFK_ERR_RTOL}")
+        if min(launches["mu_update_h"], launches["mu_update_w"], launches["silhouette_dist_sums_batched"]) < 1:
+            raise AssertionError(f"NMFk k_pad {k_pad} on the card missed a kernel: {launches}")
+        log(json.dumps({"check": "nmfk_score_batched card vs plain", "shape": [n, m], "ks": ks, "k_pad": k_pad,
+                        "min_silhouette_card": on_card.min_silhouette.tolist(),
+                        "min_silhouette_plain": on_cpu.min_silhouette.tolist(),
+                        "rel_error_max_rel_gap": rel}))
 
 
 def check_kmeans_small(torch, dev, ops, log) -> None:
@@ -396,10 +448,17 @@ def check_kmeans_small(torch, dev, ops, log) -> None:
             raise AssertionError(f"K-Means k={k}: DB card {card_db[k]} vs CPU {cpu_db[k]}")
     if launches["pairwise_sq_dists"] < 1:
         raise AssertionError("the card's K-Means search never launched pairwise_sq_dists")
+    # k past one block of k-means++ draws (128): same draws, same labels
+    fits = {where: kmeans(xx, 129, draws(129, 129), max_iters=25)
+            for where, xx, draws in (("card", x, card_draws), ("cpu", x.cpu(), cpu_draws))}
+    if not torch.equal(fits["card"].labels.cpu(), fits["cpu"].labels):
+        raise AssertionError("K-Means k=129: card and CPU labels differ")
+    if tuple(fits["card"].centroids.shape) != (129, x.shape[1]):
+        raise AssertionError(f"K-Means k=129: centroids of shape {tuple(fits['card'].centroids.shape)}")
     gap = max(abs(card_db[k] - cpu_db[k]) for k in card_db)
     log(json.dumps({"check": "kmeans + davies_bouldin search card vs plain", "k_optimal": card.k_optimal,
                     "visited": sorted(card.visited_ks), "db_card": card_db, "db_max_abs_gap": gap,
-                    "launches": launches}))
+                    "launches": launches, "k129_labels_equal": True, "k129_iters": int(fits["card"].iters)}))
 
     ks = [2, 3, 4, 5]
     ops.reset_launch_counts()

@@ -38,6 +38,8 @@ SIGNATURES: dict[str, dict[str, list]] = {
     "nmf_update": {
         "mu_update_h": [_P, _P, _P, _P, _P, _P, _P, *[_I] * 8, _P],
         "mu_update_w": [_P, _P, _P, _P, _P, _P, _P, *[_I] * 8, _P],
+        "mu_update_h_any": [_P, _P, _P, _P, _P, *[_I] * 4, _P],
+        "mu_update_w_any": [_P, _P, _P, _P, _P, *[_I] * 4, _P],
         "mu_dynamic_smem": [_I, _I],
     },
     "silhouette_sums": {

@@ -58,7 +58,7 @@
 
 namespace {
 
-constexpr int kMaxRank = 128;  // largest k the kernels take
+constexpr int kTiledMaxRank = 128;  // largest k the tiled kernels take; above it, mu_update_*_any
 constexpr float kEps = 1e-9f;
 constexpr int kMath = 256;              // 8 math warps
 constexpr int kCopy = 128;              // 4 copy warps
@@ -808,7 +808,7 @@ bool cached_map(CUtensorMap* map, const float* base, int d0, int d1, int d2, int
 // (split - 1) * chunk < len <= split * chunk; a part is whole stages.
 bool bad_call(int lanes, int n, int m, int k, int split, int chunk, int whole, int blocks, int len,
               int tiles, int step, const void* part, const void* count) {
-  if (lanes < 1 || lanes > 65535 || n < 1 || m < 1 || k < 1 || k > kMaxRank) return true;
+  if (lanes < 1 || lanes > 65535 || n < 1 || m < 1 || k < 1 || k > kTiledMaxRank) return true;
   const long long units = (long long)tiles * lanes;
   if (split < 1 || chunk < 1 || chunk % step != 0 || blocks < 1 || whole < 0 || whole > units) return true;
   if (units * split + blocks >= (1LL << 31)) return true;
@@ -852,6 +852,89 @@ int launch_w(const float* v, const float* h, const float* w, const float* q, flo
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// Any rank (k > kTiledMaxRank, where the register tiles above would spill):
+// out = X * (A B) / (C D + 1e-9) for each lane's (R, S) output, every
+// operand given by element strides, so one kernel serves both updates
+// (H: X = H, A = W^T, B = V, C = G, D = H; W: X = W, A = V, B = H^T, C = W,
+// D = Q). A block owns a 32 x 32 output tile; 16 x 16 threads own 2 x 2
+// outputs each and walk both reductions in ascending order through
+// 32-deep shared-memory tiles. Right rather than fast: strided operands are
+// read as they lie. Each output is one thread's sum in a fixed order, so
+// the result is bitwise equal from call to call; a masked rank (X zero)
+// stays exactly zero.
+// ---------------------------------------------------------------------------
+struct Strided {
+  const float* p;
+  long long lane, row, col;  // element strides
+};
+
+constexpr int kAnyTile = 32;  // output rows and columns a block
+constexpr int kAnyStep = 32;  // reduction depth a shared tile
+
+// acc[i][j] += sum over p < len of A[r0 + ty + 16 i, p] B[p, c0 + tx + 16 j]
+__device__ __forceinline__ void any_product(float (&acc)[2][2], const Strided& a, const Strided& b, int rows,
+                                            int cols, int len, int r0, int c0, float (*as)[kAnyStep + 1],
+                                            float (*bs)[kAnyTile + 1]) {
+  const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * 16 + tx;
+  for (int p0 = 0; p0 < len; p0 += kAnyStep) {
+    for (int e = tid; e < kAnyTile * kAnyStep; e += 256) {
+      const int hi = e >> 5, lo = e & 31;  // as[row hi][depth lo]; bs[depth hi][column lo]
+      const int r = r0 + hi, pa = p0 + lo, pb = p0 + hi, c = c0 + lo;
+      as[hi][lo] = (r < rows && pa < len) ? a.p[r * a.row + pa * a.col] : 0.f;
+      bs[hi][lo] = (pb < len && c < cols) ? b.p[pb * b.row + c * b.col] : 0.f;
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int p = 0; p < kAnyStep; ++p) {
+      const float a0 = as[ty][p], a1 = as[ty + 16][p];
+      const float b0 = bs[p][tx], b1 = bs[p][tx + 16];
+      acc[0][0] = fmaf(a0, b0, acc[0][0]);
+      acc[0][1] = fmaf(a0, b1, acc[0][1]);
+      acc[1][0] = fmaf(a1, b0, acc[1][0]);
+      acc[1][1] = fmaf(a1, b1, acc[1][1]);
+    }
+    __syncthreads();
+  }
+}
+
+// grid (ceil(S / 32), ceil(R / 32), L), block (16, 16); out (L, R, S) row-major.
+__global__ void __launch_bounds__(256)
+any_rank_kernel(Strided x, Strided a, Strided b, Strided c, Strided d, float* __restrict__ out, int rows,
+                int cols, int len_ab, int len_cd) {
+  __shared__ float as[kAnyTile][kAnyStep + 1];
+  __shared__ float bs[kAnyStep][kAnyTile + 1];
+  const long long lane = blockIdx.z;
+  x.p += lane * x.lane;
+  a.p += lane * a.lane;
+  b.p += lane * b.lane;
+  c.p += lane * c.lane;
+  d.p += lane * d.lane;
+  out += lane * rows * cols;
+  const int r0 = blockIdx.y * kAnyTile, c0 = blockIdx.x * kAnyTile;
+  float num[2][2] = {}, den[2][2] = {};
+  any_product(num, a, b, rows, cols, len_ab, r0, c0, as, bs);
+  any_product(den, c, d, rows, cols, len_cd, r0, c0, as, bs);
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int r = r0 + threadIdx.y + 16 * i, col = c0 + threadIdx.x + 16 * j;
+      if (r < rows && col < cols)
+        out[(long long)r * cols + col] = x.p[r * x.row + col * x.col] * num[i][j] / (den[i][j] + kEps);
+    }
+}
+
+int launch_any(const Strided& x, const Strided& a, const Strided& b, const Strided& c, const Strided& d,
+               float* out, int lanes, int rows, int cols, int len_ab, int len_cd, void* stream) {
+  if (lanes < 1 || lanes > 65535 || rows < 1 || cols < 1 || len_ab < 1 || len_cd < 1) return (int)cudaErrorInvalidValue;
+  const long long row_tiles = ((long long)rows + kAnyTile - 1) / kAnyTile;
+  if (row_tiles > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid((cols + kAnyTile - 1) / kAnyTile, (unsigned)row_tiles, lanes), block(16, 16);
+  any_rank_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(x, a, b, c, d, out, rows, cols, len_ab, len_cd);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // C interface, loaded with ctypes. Pointers are device pointers of contiguous
@@ -891,6 +974,22 @@ extern "C" int mu_update_w(const float* v, const float* h, const float* w, const
   if (k <= 32) return launch_w<32>(v, h, w, q, out, part, count, lanes, n, m, k, split, chunk, whole, blocks, s);
   if (k <= 64) return launch_w<64>(v, h, w, q, out, part, count, lanes, n, m, k, split, chunk, whole, blocks, s);
   return launch_w<128>(v, h, w, q, out, part, count, lanes, n, m, k, split, chunk, whole, blocks, s);
+}
+
+// Any rank: the same updates for k > 128 (and any k >= 1), without a plan
+// or scratch. Same operands as mu_update_h / mu_update_w.
+extern "C" int mu_update_h_any(const float* v, const float* w, const float* h, const float* g,
+                               float* out, int lanes, int n, int m, int k, void* stream) {
+  const long long nm = (long long)n * m, nk = (long long)n * k, km = (long long)k * m, kk = (long long)k * k;
+  return launch_any({h, km, m, 1}, {w, nk, 1, k}, {v, nm, m, 1}, {g, kk, k, 1}, {h, km, m, 1}, out, lanes, k, m, n,
+                    k, stream);
+}
+
+extern "C" int mu_update_w_any(const float* v, const float* h, const float* w, const float* q,
+                               float* out, int lanes, int n, int m, int k, void* stream) {
+  const long long nm = (long long)n * m, nk = (long long)n * k, km = (long long)k * m, kk = (long long)k * k;
+  return launch_any({w, nk, k, 1}, {v, nm, m, 1}, {h, km, 1, m}, {w, nk, k, 1}, {q, kk, k, 1}, out, lanes, n, k, m,
+                    k, stream);
 }
 
 // Dynamic shared memory (bytes) a launch of the H (update 0) or W (update 1)

@@ -21,8 +21,13 @@ import torch
 
 from . import build, ref
 
-MAX_RANK = 128  # largest k the MU kernels take (nmf_update.cu kMaxRank)
-MAX_CLUSTERS = 128  # largest k the distance-sum kernel takes (silhouette_sums.cu)
+# nmf_update.cu: ranks up to MU_TILED_MAX_RANK take the tiled, planned
+# kernels; larger ranks the any-rank kernel (mu_update_*_any).
+MU_TILED_MAX_RANK = 128  # kTiledMaxRank
+# silhouette_sums.cu: up to this many points (y rows) take the thin path
+# (the d reduction spread over a thread block cluster), more take the
+# general path. Both take any k.
+SILHOUETTE_THIN_POINTS = 128  # kThinMaxM
 # pairwise_dist.cu: the thin path (every K-Means launch) takes m <= 64 and
 # d <= 32; larger shapes take the general path, whose grid bounds m (32 y
 # rows per block, 65535 blocks). Both bound the lanes: the general path's
@@ -86,8 +91,8 @@ def _mu_shapes(v: torch.Tensor, w: torch.Tensor, h: torch.Tensor) -> tuple[int, 
     k = w.shape[-1]
     if w.shape != (lanes, n, k) or h.shape != (lanes, k, m):
         raise ValueError(f"MU shapes v {tuple(v.shape)}, w {tuple(w.shape)}, h {tuple(h.shape)} do not match")
-    if not 1 <= k <= MAX_RANK:
-        raise ValueError(f"the MU kernels take 1 <= k <= {MAX_RANK}, got k={k}")
+    if min(n, m, k) < 1 or not 1 <= lanes <= MAX_LANES:
+        raise ValueError(f"the MU kernels take non-empty operands and 1..{MAX_LANES} lanes")
     return lanes, n, m, k
 
 
@@ -107,8 +112,10 @@ MU_ITEM_COST = 1
 
 
 def rank_bucket(k: int) -> int:
-    """The kernels' register tile is compiled for KB in (16, 32, 64, 128) >= k."""
-    return next(kb for kb in (16, 32, 64, MAX_RANK) if k <= kb)
+    """The tiled kernels' register tile is compiled for KB in (16, 32, 64, 128) >= k."""
+    if not 1 <= k <= MU_TILED_MAX_RANK:
+        raise ValueError(f"the tiled MU kernels take 1 <= k <= {MU_TILED_MAX_RANK}, got k={k}")
+    return next(kb for kb in (16, 32, 64, MU_TILED_MAX_RANK) if k <= kb)
 
 
 def mu_w_rows(k: int) -> int:
@@ -221,12 +228,17 @@ def _mu_args(update: str, device: torch.device, stream: int, lanes: int, n: int,
 
 def _mu_launch(name: str, update: str, v3, a, b, gram, out) -> None:
     """Plan one MU launch, find its scratch and launch it. After a failed
-    launch the thread's scratch is dropped: its counters may be nonzero."""
+    launch the thread's scratch is dropped: its counters may be nonzero.
+    Ranks above ``MU_TILED_MAX_RANK`` go to the any-rank kernel, which
+    takes no plan and no scratch."""
     lanes, n, m = v3.shape
-    args = _mu_args(update, v3.device, _stream(v3), lanes, n, m, gram.shape[-1])
-    rc = getattr(build.load("nmf_update"), name)(
-        v3.data_ptr(), a.data_ptr(), b.data_ptr(), gram.data_ptr(), out.data_ptr(), *args
-    )
+    k = gram.shape[-1]
+    ptrs = (v3.data_ptr(), a.data_ptr(), b.data_ptr(), gram.data_ptr(), out.data_ptr())
+    lib = build.load("nmf_update")
+    if k > MU_TILED_MAX_RANK:
+        _check(getattr(lib, f"{name}_any")(*ptrs, lanes, n, m, k, _stream(v3)), f"{name}_any")
+        return
+    rc = getattr(lib, name)(*ptrs, *_mu_args(update, v3.device, _stream(v3), lanes, n, m, k))
     if rc != 0:
         _scratch.__dict__.clear()
     _check(rc, name)
@@ -268,8 +280,8 @@ def _dist_sums_launch(x: torch.Tensor, y: torch.Tensor, onehot: torch.Tensor) ->
         raise ValueError(
             f"dist-sum shapes x {tuple(x.shape)}, y {tuple(y.shape)}, onehot {tuple(onehot.shape)} do not match"
         )
-    if not 1 <= k <= MAX_CLUSTERS:
-        raise ValueError(f"the distance-sum kernel takes 1 <= k <= {MAX_CLUSTERS}, got k={k}")
+    if min(n, m, d, k) < 1 or not 1 <= b <= MAX_LANES:
+        raise ValueError(f"the distance-sum kernel takes non-empty operands and 1..{MAX_LANES} lanes")
     out = torch.empty((b, n, k), device=x.device, dtype=torch.float32)
     lib = build.load("silhouette_sums")
     rc = lib.silhouette_dist_sums(

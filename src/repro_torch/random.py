@@ -94,7 +94,7 @@ def stack_draws(draws: list):
 # -----------------------------------------------------------------------------
 # K-Means
 # -----------------------------------------------------------------------------
-KMEANS_DRAW_SLOTS = 128  # uniforms drawn per k-means++ init, whatever k_draw
+KMEANS_DRAW_SLOTS = 128  # k-means++ slots one block serves: the first index and 127 uniforms
 
 
 class KMeansDraws(NamedTuple):
@@ -112,17 +112,23 @@ class KMeansDraws(NamedTuple):
 
 
 def kmeans_draws(generator: torch.Generator, n: int, k_draw: int) -> KMeansDraws:
-    """``first`` in [0, n) then ``KMEANS_DRAW_SLOTS - 1`` uniforms cut to k_draw - 1.
+    """``first`` in [0, n) then uniforms in blocks of ``KMEANS_DRAW_SLOTS - 1``,
+    cut to k_draw - 1.
 
-    The uniforms are drawn at one fixed length: a draw of length k_pad - 1
-    need not begin with the draw of length k - 1 on the card, and the fixed
-    length keeps a padded lane's draws those of its per-k fit.
+    Each block is one ``torch.rand`` call of a fixed length, and as many
+    blocks are drawn as k_draw - 1 needs: a draw of length k_pad - 1 need not
+    begin with the draw of length k - 1 on the card, but a later block never
+    changes an earlier one, so a padded lane's draws start with those of its
+    per-k fit at any k and k_pad. Up to k_draw = ``KMEANS_DRAW_SLOTS`` one
+    block is drawn.
     """
-    if not 1 <= k_draw <= KMEANS_DRAW_SLOTS:
-        raise ValueError(f"k-means++ draws take 1 <= k_draw <= {KMEANS_DRAW_SLOTS}, got {k_draw}")
+    if k_draw < 1:
+        raise ValueError(f"k-means++ draws take k_draw >= 1, got {k_draw}")
     dev = generator.device
     first = torch.randint(0, n, (), device=dev, generator=generator)
-    u = torch.rand((KMEANS_DRAW_SLOTS - 1,), device=dev, generator=generator)
+    block = KMEANS_DRAW_SLOTS - 1
+    blocks = max(1, -(-(k_draw - 1) // block))
+    u = torch.cat([torch.rand((block,), device=dev, generator=generator) for _ in range(blocks)])
     return KMeansDraws(first, u[: k_draw - 1])
 
 

@@ -133,6 +133,133 @@ def test_dist_sums_kernel_matches_plain(b, n, d, k):
     torch.testing.assert_close(ops.silhouette_dist_sums(x[0], onehot[0]).double(), want[0], **SUMS_TOL)
 
 
+def _pooled(dev, b: int, p: int, k: int, k_effs, d: int, seed: int = 3):
+    """Pooled L2-normalized W columns of b lanes (p near-duplicate copies of
+    k components, NMFk's case; x = y) and their masked one-hot."""
+    rng = np.random.default_rng(seed + b + p + k + d)
+    base = rng.uniform(size=(b, 1, d, k))
+    cols = base + 0.01 * rng.uniform(size=(b, p, d, k))
+    cols /= np.linalg.norm(cols, axis=2, keepdims=True)
+    x = np.ascontiguousarray(cols.transpose(0, 1, 3, 2).reshape(b, p * k, d), dtype=np.float32)
+    onehot = np.tile(np.eye(k, dtype=np.float32), (1, p, 1)).repeat(b, 0).reshape(b, p * k, k)
+    onehot *= np.tile(np.arange(k)[None, :] < np.asarray(k_effs)[:, None], (1, p))[..., None]
+    return torch.from_numpy(x).to(dev), torch.from_numpy(np.ascontiguousarray(onehot)).to(dev)
+
+
+# (b, p, k, d): the threads path's 2-D point counts at d 1000 (p 4: k 2, 7,
+# 13, 16), the batched wave (b 8, k_pad 16), a ragged d, k past 128 (p 2:
+# 258 and 400 points, the general path; p 1: 129 and 200 points, and 64
+# points of 2 copies at k 32), the thin path's limit of points and one
+# beyond it, and d below one 16-byte copy.
+SUMS_CASES = [
+    (1, 4, 2, 1000), (1, 4, 7, 1000), (1, 4, 13, 1000), (1, 4, 16, 1000), (8, 4, 16, 1000),
+    (1, 4, 13, 999), (2, 4, 16, 999), (1, 2, 129, 1000), (2, 2, 200, 1000), (1, 1, 129, 1000), (2, 1, 200, 300),
+    (3, 4, 32, 1000), (2, 3, 43, 1000), (2, 1, 40, 3), (4, 4, 16, 129),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,p,k,d", SUMS_CASES)
+def test_dist_sums_kernel_matches_float64_plain_at_nmfk_shapes(b, p, k, d):
+    """Pooled near-duplicate columns with masked clusters on lanes after the
+    first: held against the plain version in float64 (the fp32 cancellation
+    noise of |x|^2 + |y|^2 - 2 x.y differs between evaluation orders), and
+    two calls give the same bits."""
+    dev = card()
+    k_effs = [k - (i % 3) for i in range(b)]
+    x, onehot = _pooled(dev, b, p, k, k_effs, d)
+    want = ref.silhouette_dist_sums(x.double(), onehot.double())
+    before = ops.silhouette_dist_sums_batched.launches
+    got = ops.silhouette_dist_sums_batched(x, onehot)
+    torch.cuda.synchronize()
+    assert ops.silhouette_dist_sums_batched.launches == before + 1
+    torch.testing.assert_close(got.double(), want, **SUMS_TOL)
+    assert torch.equal(got, ops.silhouette_dist_sums_batched(x, onehot))
+    got2 = ops.silhouette_dist_sums(x[0], onehot[0])
+    torch.testing.assert_close(got2.double(), want[0], **SUMS_TOL)
+    assert torch.equal(got2, ops.silhouette_dist_sums(x[0], onehot[0]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,points,k", [(1, 100, 200), (2, 128, 129), (3, 60, 300)])
+def test_dist_sums_thin_path_takes_more_clusters_than_one_chunk(b, points, k):
+    """Points within the thin path's limit spread over k > 128 clusters
+    (point j in cluster (2 j) % k): the contraction walks several chunks."""
+    dev = card()
+    x, _ = _pooled(dev, b, 1, points, [points] * b, 1000)
+    labels = (2 * torch.arange(points, device=dev)) % k
+    onehot = torch.nn.functional.one_hot(labels, k).float().expand(b, points, k).contiguous()
+    got = ops.silhouette_dist_sums_batched(x, onehot)
+    torch.testing.assert_close(got.double(), ref.silhouette_dist_sums(x.double(), onehot.double()), **SUMS_TOL)
+    assert torch.equal(got, ops.silhouette_dist_sums_batched(x, onehot))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,k,d", [(2, 32, 1000), (1, 13, 999), (3, 7, 64)])
+def test_dist_sums_thin_and_general_paths_agree(b, k, d):
+    """The thin path's largest point count, and the same points with one
+    more y row whose one-hot row is zero, which takes the general path: the
+    same sums. They add d in another order (the thin path in cluster slices,
+    the general one in steps of 32), so they agree at SUMS_TOL, not bit for
+    bit."""
+    dev = card()
+    thin_m = ops.SILHOUETTE_THIN_POINTS
+    p = -(-thin_m // k)
+    x, onehot = _pooled(dev, b, p, k, [k] * b, d)
+    x, onehot = x[:, :thin_m].contiguous(), onehot[:, :thin_m].contiguous()
+    y_more = torch.cat([x, x[:, :1]], dim=1).contiguous()
+    onehot_more = torch.cat([onehot, torch.zeros_like(onehot[:, :1])], dim=1).contiguous()
+    thin = ops.silhouette_dist_sums_batched(x, onehot)
+    general = ops.silhouette_dist_sums_batched(x, onehot_more, y_more)
+    torch.testing.assert_close(thin, general, **SUMS_TOL)
+    torch.testing.assert_close(thin.double(), ref.silhouette_dist_sums(x.double(), onehot.double()), **SUMS_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [129, 200, 256])
+def test_mu_kernels_above_128_ranks_match_plain(k):
+    """Ranks past the tiled kernels' largest bucket go to the any-rank
+    kernel: held against plain, masked ranks exactly zero, two calls equal."""
+    dev = card()
+    v, w, h = _mu_problem(dev, k, 2, 300, 320, k, dead=3)
+    for fn, plain, upd in ((ops.mu_update_h, ref.mu_update_h, "h"), (ops.mu_update_w, ref.mu_update_w, "w")):
+        before = fn.launches
+        got = fn(v, w, h)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1
+        torch.testing.assert_close(got, plain(v, w, h), **MU_TOL)
+        dead = got[:, -3:, :] if upd == "h" else got[:, :, -3:]
+        assert float(dead.abs().max()) == 0.0
+        assert torch.equal(got, fn(v, w, h))
+        # 2-D is one lane (its G or Q comes from a one-lane bmm, so its bits may differ)
+        torch.testing.assert_close(fn(v[1], w[1], h[1]), plain(v[1], w[1], h[1]), **MU_TOL)
+
+
+# Output digests (sum of the int32 views) of the tiled MU kernels at ranks
+# up to 128, measured on an NVIDIA H100 80GB HBM3 from the commit before the
+# any-rank kernel was added (tools/time_mu.py --digests): the tiled kernels'
+# bits must not move.
+MU_DIGESTS = {
+    (32, 1000, 1100, 16): [507532595009927, 461387685527039],
+    (4, 1000, 1100, 16): [63440461428910, 57675464258088],
+    (4, 129, 257, 13): [11679949365003, 5862794496431],
+    (2, 300, 520, 100): [102576548729336, 59180937803992],
+    (6, 100, 90, 13): [6135525964978, 6815542290109],
+    (2, 70, 50, 33): [3163396716413, 4429103366259],
+    (2, 300, 320, 128): [80912866556872, 75853946397493],
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", sorted(MU_DIGESTS))
+def test_mu_kernels_up_to_128_ranks_keep_their_bits(shape):
+    dev = card()
+    lanes, n, m, k = shape
+    v, w, h = _mu_problem(dev, sum(shape), lanes, n, m, k, dead=2)
+    bits = [int(fn(v, w, h).view(torch.int32).sum(dtype=torch.int64)) for fn in (ops.mu_update_h, ops.mu_update_w)]
+    assert bits == MU_DIGESTS[shape]
+
+
 PAIRWISE_TOL = dict(rtol=1e-4, atol=1e-3)  # tests/test_kernels.py::test_pairwise fp32 tolerance
 
 
@@ -260,9 +387,11 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         ops.mu_update_h(v.double(), w.double(), h.double())
     with pytest.raises(ValueError, match="contiguous"):
         ops.mu_update_h(v.transpose(1, 2), w, h.transpose(1, 2))
-    with pytest.raises(ValueError, match="k <= 128"):
-        big = torch.ones((1, 16, 129), device=dev)
-        ops.mu_update_w(v, big, torch.ones((1, 129, 12), device=dev))
+    # k = 129, past the tiled kernels' largest rank bucket, is taken (it
+    # once raised here): the any-rank kernel, held against plain
+    v, w, h = _mu_problem(dev, 1, 1, 16, 12, 129, dead=1)
+    torch.testing.assert_close(ops.mu_update_w(v, w, h), ref.mu_update_w(v, w, h), **MU_TOL)
+    torch.testing.assert_close(ops.mu_update_h(v, w, h), ref.mu_update_h(v, w, h), **MU_TOL)
     with pytest.raises(ValueError, match="CPU or all on one CUDA device"):
         ops.mu_update_h(v, w.cpu(), h)
 

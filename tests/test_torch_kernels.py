@@ -397,3 +397,85 @@ def test_pairwise_launch_refuses_shapes_past_the_kernel_limits(monkeypatch):
         ops._pairwise_launch(torch.zeros((4, 1)), torch.zeros((ops.MAX_PAIRWISE_COLS + 1, 1)), 1)
     with pytest.raises(ValueError, match="do not match"):
         ops._pairwise_launch(torch.zeros((4, 2)), torch.zeros((3, 5)), 1)
+
+
+def test_silhouette_and_mu_limits_follow_the_kernel_sources():
+    """The wrappers' thin-path point limit and tiled rank limit are the ones
+    silhouette_sums.cu and nmf_update.cu compile in."""
+    import re
+
+    def const(source, name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", (build.CSRC / source).read_text()).group(1))
+
+    assert ops.SILHOUETTE_THIN_POINTS == const("silhouette_sums.cu", "kThinMaxM")
+    assert ops.MU_TILED_MAX_RANK == const("nmf_update.cu", "kTiledMaxRank")
+    assert ops.rank_bucket(ops.MU_TILED_MAX_RANK) == ops.MU_TILED_MAX_RANK
+
+
+@pytest.mark.parametrize(
+    "b,n,m,d,k,same",
+    [
+        (1, 52, 52, 1000, 13, True),  # the threads path's 2-D call
+        (8, 64, 64, 1000, 16, True),  # a batched wave
+        (2, 258, 258, 1000, 129, True),  # k past 128
+        (3, 70, 40, 17, 200, False),  # y other than x
+    ],
+)
+def test_dist_sums_launch_hands_the_kernel_its_arguments(monkeypatch, b, n, m, d, k, same):
+    """The wrapper's call into silhouette_sums.cu, with the library stubbed:
+    the C argument order, any k, y aliasing x when it is x."""
+    calls = []
+
+    class Lib:
+        def silhouette_dist_sums(self, *args):
+            calls.append(args)
+            return 0
+
+    monkeypatch.setattr(build, "load", lambda name: Lib())
+    monkeypatch.setattr(ops, "_stream", lambda t: 4242)
+    x = torch.zeros((b, n, d))
+    y = x if same else torch.zeros((b, m, d))
+    onehot = torch.zeros((b, m, k))
+    out = ops._dist_sums_launch(x, y, onehot)
+    (args,) = calls
+    assert out.shape == (b, n, k)
+    assert args == (x.data_ptr(), y.data_ptr(), onehot.data_ptr(), out.data_ptr(), b, n, m, d, k, 4242)
+    assert (args[0] == args[1]) == same
+
+
+def test_dist_sums_launch_refuses_what_the_kernel_does_not_take(monkeypatch):
+    monkeypatch.setattr(build, "load", lambda name: pytest.fail("no launch past the limits"))
+    with pytest.raises(ValueError, match="do not match"):
+        ops._dist_sums_launch(torch.zeros((1, 5, 3)), torch.zeros((1, 5, 4)), torch.zeros((1, 5, 2)))
+    with pytest.raises(ValueError, match="non-empty"):
+        ops._dist_sums_launch(torch.zeros((1, 5, 3)), torch.zeros((1, 5, 3)), torch.zeros((1, 5, 0)))
+    big = torch.zeros((ops.MAX_LANES + 1, 1, 1))
+    with pytest.raises(ValueError, match="lanes"):
+        ops._dist_sums_launch(big, big, big)
+
+
+@pytest.mark.parametrize("update,k", [("h", 129), ("w", 129), ("h", 200), ("w", 256)])
+def test_mu_launch_takes_the_any_rank_kernel_above_128(monkeypatch, update, k):
+    """Past the tiled kernels' largest rank the wrapper calls the any-rank
+    entry point: the five operands, the shape and the stream, no plan and
+    no scratch."""
+    calls = []
+
+    class Lib:
+        def __getattr__(self, name):
+            def launch(*args):
+                calls.append((name, args))
+                return 0
+            return launch
+
+    monkeypatch.setattr(build, "load", lambda name: Lib())
+    monkeypatch.setattr(ops, "_stream", lambda t: 99)
+    lanes, n, m = 2, 30, 20
+    v = torch.zeros((lanes, n, m))
+    w, h = torch.zeros((lanes, n, k)), torch.zeros((lanes, k, m))
+    gram, out = torch.zeros((lanes, k, k)), torch.empty_like(h if update == "h" else w)
+    a, b = (w, h) if update == "h" else (h, w)
+    ops._mu_launch(f"mu_update_{update}", update, v, a, b, gram, out)
+    ((name, args),) = calls
+    assert name == f"mu_update_{update}_any"
+    assert args == (v.data_ptr(), a.data_ptr(), b.data_ptr(), gram.data_ptr(), out.data_ptr(), lanes, n, m, k, 99)

@@ -227,3 +227,47 @@ def test_blob_data_plants_k_true_blobs():
     # clean blobs: every fitted cluster is one planted blob
     for c in range(5):
         assert len(set(labels[fit.labels == c].tolist())) == 1
+
+
+# -----------------------------------------------------------------------------
+# k above 128: the port once drew its k-means++ uniforms at one fixed length
+# of 127 and refused more; it now draws them in blocks of that length.
+# -----------------------------------------------------------------------------
+@pytest.mark.parametrize("k", [129, 200])
+def test_kmeans_above_128_clusters_matches_reference(k):
+    """``kmeans`` at k past one block of draws: the reference's centroids and
+    labels from the reference's own draws."""
+    x, _ = j_blob_data(jax.random.fold_in(KEY, 5), n=400, d=3, k_true=6)
+    x = np.array(x)
+    key = jax.random.fold_in(KEY, k)
+    got = kmeans(torch.from_numpy(x), k, _draws(key, len(x), k), max_iters=20)
+    assert got.centroids.shape == (k, 3)
+    _assert_fit_matches(got, jkmeans.kmeans(x, k, key, max_iters=20))
+
+
+@pytest.mark.parametrize("k_draw", [1, 2, 7, 127, 128])
+def test_kmeans_draws_up_to_128_are_one_block(k_draw):
+    """Up to k_draw = 128 the draws are what they always were: the first
+    index, then one ``rand(127)`` cut to k_draw - 1, bit for bit."""
+    from repro_torch.random import kmeans_draws, seeded_generator
+
+    gen = seeded_generator(11, "cpu")
+    first = torch.randint(0, 500, (), generator=gen)
+    u = torch.rand((127,), generator=gen)
+    got = kmeans_draws(seeded_generator(11, "cpu"), 500, k_draw)
+    assert torch.equal(got.first, first)
+    assert torch.equal(got.u, u[: k_draw - 1])
+
+
+@pytest.mark.parametrize("k_pad", [129, 200, 300])
+def test_kmeans_draws_at_k_pad_start_with_the_draws_at_k(k_pad):
+    """A padded lane's draws start with those of its per-k fit for every
+    k < k_pad, across block boundaries."""
+    from repro_torch.random import kmeans_draws, seeded_generator
+
+    padded = kmeans_draws(seeded_generator(5, "cpu"), 1000, k_pad)
+    assert padded.u.shape == (k_pad - 1,)
+    for k in [k for k in (1, 2, 64, 127, 128, 129, 200, 254, 255, 256, k_pad - 1) if k < k_pad]:
+        per_k = kmeans_draws(seeded_generator(5, "cpu"), 1000, k)
+        assert torch.equal(per_k.first, padded.first)
+        assert torch.equal(per_k.u, padded.u[: k - 1])

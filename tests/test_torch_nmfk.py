@@ -93,3 +93,19 @@ def test_greedy_ties_go_to_the_first_index():
     sim = torch.ones((1, 3, 3))
     got = tnmfk._greedy_assign(sim, torch.tensor([3]), torch.zeros((1, 3), dtype=torch.long))
     assert got.tolist() == [[0, 1, 2]]
+
+
+def test_nmfk_score_batched_at_k_pad_above_128_matches_reference():
+    """A wave padded past 128 ranks (k_pad 129), small V, few sweeps: the
+    port took no rank above 128 once."""
+    n, m, p, iters = 40, 44, 2, 20
+    key = jax.random.fold_in(KEY, 129)
+    v, _, _ = jnmf_data(key, n=n, m=m, k_true=4)
+    v = np.array(v)
+    ks = [3, 129]
+    want = jnmfk.nmfk_score_batched(v, ks, key, k_pad=129, n_perturbs=p, nmf_iters=iters, epsilon=EPS)
+    got = tnmfk.nmfk_score_batched(
+        to_tensor(v, "cpu"), ks, k_pad=129, n_perturbs=p, nmf_iters=iters, epsilon=EPS,
+        draws=reference_draw_source(key, n, m, p, EPS),
+    )
+    _assert_scores(got, want)

@@ -64,3 +64,64 @@ def test_operands_have_the_recorded_shape(shape):
     assert x.shape == ((lanes, n, d) if x_dim == 3 else (n, d))
     assert y.shape == ((lanes, m, d) if y_dim == 3 else (m, d))
     assert x.is_contiguous() and y.is_contiguous()
+
+
+def test_sums_record_shapes_counts_launches_by_shape_and_restores_the_launch():
+    import time_sums
+
+    def launch(x, y, onehot):
+        return ("launched", x.shape[0])
+
+    ops = types.SimpleNamespace(_dist_sums_launch=launch)
+    x3, y3 = torch.zeros((2, 64, 10)), torch.zeros((2, 30, 10))
+    oh3, oh30 = torch.zeros((2, 64, 16)), torch.zeros((2, 30, 16))
+    x2 = torch.zeros((52, 10))
+    seen = []
+
+    def run():
+        seen.append(ops._dist_sums_launch(x3, x3, oh3))
+        seen.append(ops._dist_sums_launch(x3, x3, oh3))
+        seen.append(ops._dist_sums_launch(x3, y3, oh30))
+        # the 2-D wrapper hands the launch views of one tensor: still y is x
+        seen.append(ops._dist_sums_launch(x2.unsqueeze(0), x2.unsqueeze(0), torch.zeros((1, 52, 13))))
+
+    hist = time_sums.record_shapes(ops, run)
+    assert hist == {(2, 64, 64, 10, 16, True): 2, (2, 64, 30, 10, 16, False): 1, (1, 52, 52, 10, 13, True): 1}
+    assert seen == [("launched", 2)] * 3 + [("launched", 1)]
+    assert ops._dist_sums_launch is launch
+
+
+@pytest.mark.parametrize("shape", [(1, 52, 52, 40, 13, True), (3, 64, 64, 17, 16, True), (2, 30, 20, 9, 7, False),
+                                   (1, 258, 258, 12, 129, True)])
+def test_sums_operands_have_the_recorded_shape(shape):
+    import time_sums
+
+    b, n, m, d, k, same = shape
+    x, y, onehot = time_sums.operands(torch, shape, torch.device("cpu"))
+    assert x.shape == (b, n, d) and y.shape == (b, m, d) and onehot.shape == (b, m, k)
+    assert (y is x) == same
+    assert x.is_contiguous() and y.is_contiguous() and onehot.is_contiguous()
+    torch.testing.assert_close(x.norm(dim=-1), torch.ones((b, n)))  # unit columns, as NMFk pools them
+    assert torch.equal(onehot.sum(dim=-1), torch.ones((b, m)))
+
+
+def test_sums_phase_summary_scales_each_block_by_its_own_timer():
+    import time_sums
+
+    # two blocks: clocks at 2 and 1 cycles a ns; phases of 10, 20, 30, 40, 50 ns
+    one = [0, 20, 60, 120, 200, 300, 1000, 1150]
+    two = [5, 15, 35, 65, 105, 155, 1005, 1155]
+    out = time_sums.phase_summary([one, two])
+    assert len(one) == time_sums.STAMPS
+    assert out["blocks"] == 2 and out["span_ns"] == 155 and out["start_spread_ns"] == 5
+    assert out["clock_ghz"] == 1.5
+    for name, want in zip(time_sums.PHASES, (10, 20, 30, 40, 50)):
+        assert out["phases"][name] == {"median_ns": want, "max_ns": want}
+
+
+def test_sums_thin_blocks_follow_the_kernel_rule():
+    import time_sums
+
+    assert time_sums.thin_blocks(1, 52, 1000, 132) == 8 * 4  # clusters of 8, 16-row units
+    assert time_sums.thin_blocks(8, 64, 1000, 132) == 8 * 2 * 8  # 16-row units would need 256 > 132
+    assert time_sums.thin_blocks(2, 40, 17, 132) == 1 * 3 * 2  # d <= 128: one block a cluster

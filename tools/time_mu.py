@@ -24,7 +24,11 @@ the root of a checkout on a machine with a card:
 ``--src`` points at the ``src`` directory of another checkout, to time that
 version of the port with the same script. ``--no-tma`` builds the MU kernels
 with ``-DMU_NO_TMA``, so every stage takes the cp.async copy path instead
-of tensor-memory-accelerator boxes.
+of tensor-memory-accelerator boxes. ``--digests`` first prints, for both
+wrappers at ``DIGEST_SHAPES`` (ranks up to 128, the tiled kernels), a
+digest of the output's bits (the sum of its int32 views) on inputs made
+with numpy from a seed, as ``tests/test_torch_cuda.py`` makes them, so two
+versions can be compared bit for bit.
 """
 from __future__ import annotations
 
@@ -40,6 +44,29 @@ from pathlib import Path
 SEARCH = ["--n", "1000", "--m", "1100", "--k-true", "8", "--k-max", "16", "--n-perturbs", "4",
           "--nmf-iters", "120", "--device", "cuda", "--quiet"]
 SHAPES = [(32, 1000, 1100, 16), (4, 1000, 1100, 16)]  # (L, n, m, k)
+DIGEST_SHAPES = [(32, 1000, 1100, 16), (4, 1000, 1100, 16), (4, 129, 257, 13), (2, 300, 520, 100),
+                 (6, 100, 90, 13), (2, 70, 50, 33), (2, 300, 320, 128)]
+
+
+def digests(torch, ops) -> dict[tuple, list[int]]:
+    """Output-bit digests of both MU wrappers at ``DIGEST_SHAPES``: V in
+    U[0, 1), W and H in U[0.1, 1) from numpy's generator seeded with the
+    sum of the shape, the last two ranks masked to zero."""
+    import numpy as np
+
+    out = {}
+    for shape in DIGEST_SHAPES:
+        lanes, n, m, k = shape
+        rng = np.random.default_rng(sum(shape))
+        v = rng.uniform(0.0, 1.0, (lanes, n, m)).astype(np.float32)
+        w = rng.uniform(0.1, 1.0, (lanes, n, k)).astype(np.float32)
+        h = rng.uniform(0.1, 1.0, (lanes, k, m)).astype(np.float32)
+        w[..., :, k - 2:] = 0.0
+        h[..., k - 2:, :] = 0.0
+        v, w, h = (torch.from_numpy(a).cuda() for a in (v, w, h))
+        out[shape] = [int(fn(v, w, h).view(torch.int32).sum(dtype=torch.int64))
+                      for fn in (ops.mu_update_h, ops.mu_update_w)]
+    return out
 
 
 def device_ms(torch, fn, reps: int = 20) -> float:
@@ -93,6 +120,7 @@ def main(argv=None) -> int:
     ap.add_argument("--searches", type=int, default=3)
     ap.add_argument("--tag", default=None, help="label of this version in the output (default: --src)")
     ap.add_argument("--no-tma", action="store_true", help="time the MU kernels' cp.async copy path alone")
+    ap.add_argument("--digests", action="store_true", help="first print output-bit digests at DIGEST_SHAPES")
     args = ap.parse_args(argv)
     sys.path.insert(0, args.src)
     import torch
@@ -106,6 +134,9 @@ def main(argv=None) -> int:
     if args.no_tma:
         load_without_tma(build)
     tag = args.tag or args.src
+    if args.digests:
+        for shape, bits in digests(torch, ops).items():
+            print(json.dumps({"tag": tag, "digest": dict(zip(("L", "n", "m", "k"), shape)), "bits": bits}), flush=True)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     for lanes, n, m, k in SHAPES:
