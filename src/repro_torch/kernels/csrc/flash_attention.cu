@@ -1,30 +1,18 @@
-// Causal / sliding-window GQA flash attention for Hopper (sm_90a), fp32.
+// Causal / sliding-window GQA flash attention for Hopper (sm_90a), fp32 in
+// and out, the products on the tensor cores in split TF32.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py:102
 // (`flash_attention`, whose `_flash_kernel` carries the running fp32
-// (m, l, acc) in VMEM scratch across a sequential kv grid axis). Here blocks
-// run in parallel and in no order, so one block owns a tile of kBQ query rows
-// of one (batch, query head) and walks every live kv tile itself, in
-// ascending order: the result is deterministic, and (m, l, acc) live in
-// registers for the whole walk. Output is written once.
+// (m, l, acc) in VMEM scratch across a sequential kv grid axis). Here one
+// warp owns a band of query rows of one (batch, query head) and walks every
+// live kv tile itself, in ascending order: the result is deterministic, and
+// (m, l, acc) live in registers for the whole walk. Output is written once.
 //
 //   out[b, h, i, :] = sum_j softmax_j(scale * q[b,h,i,:] . k[b,h/g,j,:]) v[b,h/g,j,:]
 //
 // over the unmasked j: j < Lk; j <= i when causal; j > i - window with a
 // window. Query head h reads kv head h / group (group = Hq / Hk, any
 // integer: qwen2's is 7), so GQA needs no replicated K/V.
-//
-// What bounds it: at the serve path's shape (B 4, Hq 14, L 1000, D 64,
-// causal) the work is ~4 * B * Hq * D * L^2 / 2 = 7.2 GFLOP against 15 MB of
-// q/k/v/out, so it is bound by operations: ~0.11 ms at the H100's 67 TFLOP/s
-// of fp32 on CUDA cores (TF32 stays off: the port is held to fp32 parity).
-// The design serves that bound with register tiling: 256 threads as a 16x16
-// grid, each owning a 4x4 block of the (kBQ x kBK) score tile and a 4 x D/16
-// block of the output. Both products read float4 runs from shared memory,
-// eight loads per 64 FMAs for S = Q K^T. Rows and columns a thread owns are
-// strided by 16 and the shared tiles padded, so the loads are free of bank
-// conflicts. Tiles that the causal or window mask rules out entirely are
-// never visited, so windowed attention costs O(L * W).
 //
 // Masking follows the reference: masked scores are the finite -1e30, not
 // -inf. A live tile that is fully masked for one row gives that row exp(0)
@@ -35,15 +23,70 @@
 //
 // Operands are (B, H, L, D) with unit stride along D and any b/h/l strides,
 // so the model passes views of its (B, L, H, D) projections without copies.
+//
+// Two paths behind one library:
+//
+// * The tensor-core path (flash_attention_tc), for D % 4 == 0 with q and
+//   out 16-byte aligned and their b/h/l strides multiples of 4 floats (the
+//   wrapper states the rule: ops.flash_path). What bounds it: at the serve
+//   path's prefill (B 4, Hq 14, L 1000, D 64, causal) the work is 7.2 GFLOP
+//   against 33 MB, bound by operations: 0.107 ms at 67 TFLOP/s of fp32 on
+//   CUDA cores. TF32 on the tensor cores is 7x faster, but one TF32 pass
+//   keeps 10 mantissa bits and misses the port's fp32 tolerance (3e-5) by
+//   about 30x. So every product is split TF32 ("3xTF32"): x = hi + lo with
+//   hi = tf32(x), lo = tf32(x - hi), rounded to nearest with ties away from
+//   zero (cvt.rna), and A.B = lo(A).hi(B) + hi(A).lo(B) + hi(A).hi(B), the
+//   small terms first. Bound: 3 x 7.2 GFLOP over 495 TFLOP/s = 0.043 ms.
+//   - wgmma.m64nNk8 TF32: S = Q K^T with Q's split fragments as register A
+//     operands (from shared memory where they do not fit, D > 80) and K's
+//     images as B; P V with P as register A operands and V^T's images as
+//     B. TF32 wgmma takes only K-major shared-memory operands, so V is
+//     staged transposed. Operand images are core-matrix layouts without
+//     swizzle (8 x 16-byte rows, 128 B apart along k, 256 B apart along
+//     rows), written whole by the split pass and copied as they are.
+//   - A split pass (split_kv_kernel) reads K and V once per call, with
+//     their strides, and writes each BK-key tile's images: K (BK rows, k
+//     = D) and V^T (DP rows, k = keys), each as a hi and a lo image. Ragged
+//     keys and columns are zero. Splitting once per call instead of per
+//     product matters: the kernel is bound by the instructions it issues
+//     beside its products, not by bytes. Q is split once per work item.
+//   - P V takes P straight from the S accumulator: the accumulator holds
+//     columns (2t, 2t + 1) where the A fragment wants k (t, t + 4), so
+//     V^T's image orders each 8-key chunk 0, 2, 4, 6, 1, 3, 5, 7 instead of
+//     shuffling P (P V sums over keys; only the order of the sum moves).
+//   - Each tile's P V sums into a fresh accumulator that O takes by an
+//     IEEE FFMA: the tensor core adds into its accumulator with truncation,
+//     and over thousands of keys one accumulator ends up 5-10x further
+//     from float64 than the fp32 plain version.
+//   - One persistent block per SM walks a host-built list of (b, h, q
+//     tile) items, longest walk first (ops.flash_work_list). A producer
+//     warpgroup, which gives its registers to the consumers (setmaxnreg),
+//     keeps a ring of two or three K/V tiles filled with bulk copies
+//     (cp.async.bulk, completing on an mbarrier per slot); two consumer
+//     warpgroups of 64 query rows run the products and the online softmax
+//     (in log2 units: one FFMA and one ex2 a score), one's softmax beside
+//     the other's products. A warpgroup skips the tiles its rows mask out
+//     entirely. The main kernel is a programmatic dependent of the split
+//     pass: it starts, and stages Q, while the last split blocks run.
+// * The general path (flash_attention), for everything else: fp32 FMA on
+//   CUDA cores, one block of 256 threads per 64-row q tile, each thread a
+//   4x4 register tile of S and a 4 x D/16 tile of the output.
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
+
+constexpr float kNegBig = -1e30f;
+
+// =============================================================================
+// General path: fp32 FMA on CUDA cores
+// =============================================================================
+namespace general {
 
 constexpr int kBQ = 64;                 // query rows per block
 constexpr int kBK = 64;                 // kv rows per tile
 constexpr int kThreads = 256;           // 16 x 16 threads
 constexpr int kPadP = kBK + 16;         // row length of the P tile
-constexpr float kNegBig = -1e30f;
 
 // Head dim padded to DP = 16 * NJ (each thread owns NJ output columns);
 // the Q/K tiles' rows are DP + 4 floats long: a multiple of 4 (float4
@@ -228,9 +271,10 @@ cudaError_t launch(const float* q, const float* k, const float* v, float* out,
                    float scale, int causal, int window, cudaStream_t stream)
 {
     constexpr size_t bytes = Tiles<NJ>::kBytes;
-    cudaError_t err = cudaFuncSetAttribute(flash_kernel<NJ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(bytes));
-    if (err != cudaSuccess) return err;
+    // once per instantiation (the port drives one card)
+    static const cudaError_t attr = cudaFuncSetAttribute(
+        flash_kernel<NJ>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+    if (attr != cudaSuccess) return attr;
     const dim3 grid((lq + kBQ - 1) / kBQ, hq, b);
     flash_kernel<NJ><<<grid, kThreads, bytes, stream>>>(
         q, k, v, out, hq / hk, lq, lk, d, qsb, qsh, qsl, ksb, ksh, ksl, vsb, vsh, vsl, osb, osh, osl,
@@ -238,10 +282,656 @@ cudaError_t launch(const float* q, const float* k, const float* v, float* out,
     return cudaGetLastError();
 }
 
+}  // namespace general
+
+// =============================================================================
+// Tensor-core path: split TF32 on wgmma
+// =============================================================================
+namespace tc {
+
+constexpr int kWGs = 2;                          // consumer warpgroups of 64 query rows
+constexpr int kConsumers = 4 * kWGs;             // consumer warps
+constexpr int kThreads = 32 * (kConsumers + 4);  // + a producer warpgroup
+// Registers a thread holds after setmaxnreg: the producer warpgroup gives
+// its registers to the consumers (4 x 32 x 40 + 8 x 32 x 232 <= 65536).
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;
+constexpr int kWGRows = 64;                      // query rows of a consumer warpgroup: one wgmma m64
+constexpr int kBQ = kWGs * kWGRows;              // query rows a block owns
+constexpr int kMaxStages = 3;                    // K/V tiles in flight, where they fit
+constexpr int kSplitThreads = 256;
+constexpr int kSmem = 232448;                    // shared memory one block may hold
+
+// Head dim padded to DP = 16 * NJ; BK keys per kv tile: 64 up to DP 64, 32
+// up to 96, 16 above, so that Q's split images and at least two stages of
+// K/V images fit in shared memory (DP 64: 64 KB of Q and two 64 KB stages;
+// DP 80: 80 KB and three 40 KB stages).
+template <int NJ>
+struct Cfg {
+    static constexpr int DP = 16 * NJ;
+    static constexpr int KS = DP / 8;               // k steps of Q K^T; n8 blocks of P V
+    static constexpr int BK = DP <= 64 ? 64 : DP <= 96 ? 32 : 16;
+    static constexpr int NT = BK / 8;               // n8 blocks of Q K^T; k steps of P V
+    static constexpr bool kQRegs = DP <= 80;        // Q's split fragments fit in registers
+    static constexpr int kImageFloats = BK * DP;    // one operand image of a tile (hi or lo)
+    static constexpr int kTileFloats = 2 * kImageFloats;  // K (or V^T) of a tile: hi image, lo image
+    static constexpr int kQFloats = 2 * kWGRows * DP;     // a warpgroup's Q: hi image, lo image
+    static constexpr size_t kStageBytes = sizeof(float) * 2 * kTileFloats;
+    static constexpr size_t kQBytes = sizeof(float) * kWGs * kQFloats;
+    static constexpr int kFit = static_cast<int>((kSmem - kQBytes - 2 * kMaxStages * sizeof(uint64_t)) / kStageBytes);
+    static constexpr int STAGES = kFit < kMaxStages ? kFit : kMaxStages;  // ring slots
+    static constexpr size_t kQOffset = STAGES * kStageBytes;
+    static constexpr size_t kBarOffset = kQOffset + kQBytes;
+    static constexpr size_t kBytes = kBarOffset + 2 * STAGES * sizeof(uint64_t);
+    static_assert(STAGES >= 2 && kBytes <= kSmem, "Q and two stages fit in shared memory");
+};
+
+// Float offset of element (r, k) in the shared-memory image of an R-row,
+// K-major wgmma operand without swizzle: k steps of 8 one after another
+// (R * 8 floats each); inside one, 8-row groups (256 B) of two 8 x 4 core
+// matrices (128 B, rows of 16 B), k 0-3 then k 4-7. Its descriptor: the k
+// step's address, 128 B between core matrices along k (leading byte
+// offset), 256 B between 8-row groups (stride byte offset).
+template <int R>
+__device__ __forceinline__ int image_at(int r, int k) {
+    return (k >> 3) * (R * 8) + (r >> 3) * 64 + ((k >> 2) & 1) * 32 + (r & 7) * 4 + (k & 3);
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+    return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ uint64_t image_desc(const float* p) {
+    return static_cast<uint64_t>((smem_u32(p) >> 4) & 0x3FFF) | (static_cast<uint64_t>(128 >> 4) << 16) |
+           (static_cast<uint64_t>(256 >> 4) << 32);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint64_t* bar, int parity) {
+    uint32_t done;
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+    return done != 0;
+}
+
+// Wait until the barrier's phase with this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+    while (!mbar_try_wait(bar, parity)) {
+    }
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+    asm volatile(
+        "{\n"
+        ".reg .b64 state;\n"
+        "mbarrier.arrive.shared::cta.b64 state, [%0];\n"
+        "}\n" ::"r"(smem_u32(bar))
+        : "memory");
+}
+
+// Announce `bytes` of bulk copies on the barrier and arrive once.
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, int bytes) {
+    asm volatile(
+        "{\n"
+        ".reg .b64 state;\n"
+        "mbarrier.arrive.expect_tx.shared::cta.b64 state, [%0], %1;\n"
+        "}\n" ::"r"(smem_u32(bar)),
+        "r"(bytes)
+        : "memory");
+}
+
+// `bytes` (a multiple of 16, both ends 16-byte aligned) from global into
+// shared memory by the copy engine; the barrier counts them when landed.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, int bytes, uint64_t* bar) {
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+            smem_u32(dst)),
+        "l"(src), "r"(bytes), "r"(smem_u32(bar))
+        : "memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+    float y;
+    asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+    return y;
+}
+
+// x = hi + lo for finite x, hi = cvt.rna.tf32.f32(x) (round to nearest,
+// ties away from zero: add half of the 13 dropped bits' range to the
+// magnitude, drop them) and lo = cvt.rna.tf32.f32(x - hi), which is exact
+// in fp32. sm_90 has no cvt.rna.tf32 instruction: ptxas emulates it with a
+// guard for NaN and inf, four instructions a call; here the guard goes
+// (the operands are finite) and lo keeps its dropped bits, which the tensor
+// core ignores, as ptxas itself does for a cvt that feeds a product.
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+    hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+    lo = __float_as_uint(x - __uint_as_float(hi)) + 0x1000u;
+}
+
+__device__ __forceinline__ float4 hi4(const float4& x, float4& lo) {
+    uint32_t h[4], l[4];
+    split(x.x, h[0], l[0]);
+    split(x.y, h[1], l[1]);
+    split(x.z, h[2], l[2]);
+    split(x.w, h[3], l[3]);
+    lo = make_float4(__uint_as_float(l[0]), __uint_as_float(l[1]), __uint_as_float(l[2]), __uint_as_float(l[3]));
+    return make_float4(__uint_as_float(h[0]), __uint_as_float(h[1]), __uint_as_float(h[2]), __uint_as_float(h[3]));
+}
+
+// d (+)= a b on a warpgroup's m64 x N x k8 tile, fp32 accumulators: d[4 j + e]
+// of a thread holds row 16 w + g + 8 (e / 2), column 8 j + 2 t + e % 2 (warp w
+// of the warpgroup, lane 4 g + t). scale_d 0 overwrites d. wgmma_ss takes A
+// and B as shared-memory images (image_desc); wgmma_rs takes A from
+// registers: (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4) of the warp's
+// 16 rows, k step columns t and t + 4.
+template <int N>
+__device__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db, int scale_d);
+template <int N>
+__device__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db, int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_ss<16>(float (&d)[8], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<16>(float (&d)[8], const uint32_t (&a)[4], uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<32>(float (&d)[16], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<32>(float (&d)[16], const uint32_t (&a)[4], uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<48>(float (&d)[24], const uint32_t (&a)[4], uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n48k8.f32.tf32.tf32 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23}, {%24, %25, %26, %27}, %28, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32], const uint32_t (&a)[4], uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<80>(float (&d)[40], const uint32_t (&a)[4], uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n80k8.f32.tf32.tf32 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39}, {%40, %41, %42, %43}, %44, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<96>(float (&d)[48], const uint32_t (&a)[4], uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n96k8.f32.tf32.tf32 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, {%48, %49, %50, %51}, %52, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<112>(float (&d)[56], const uint32_t (&a)[4], uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %61, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n112k8.f32.tf32.tf32 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55}, {%56, %57, %58, %59}, %60, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const uint32_t (&a)[4], uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_wait() {
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// The registers of an asynchronous product: the compiler may neither read
+// them before this point nor reuse them until it (after wgmma_wait).
+template <int N>
+__device__ __forceinline__ void hold(float (&x)[N]) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) asm volatile("" : "+f"(x[i])::"memory");
+}
+
+// Live kv tiles [lo, hi] of the query rows [q0, min(q0 + bq, lq)) (ops.flash_kv_tiles).
+__device__ __forceinline__ void kv_tiles(int q0, int bq, int bk, int lq, int lk, int causal, int window,
+                                         int& lo, int& hi) {
+    lo = (window > 0 && q0 - window + 1 > 0) ? (q0 - window + 1) / bk : 0;
+    hi = (lk - 1) / bk;
+    if (causal) hi = min(hi, (min(q0 + bq, lq) - 1) / bk);
+}
+
+// One block per (kv tile, kv head, batch): stage the raw BK x D tile of K
+// and of V, then write the images: K as the B operand of S = Q K^T (BK
+// rows, k = the D columns), V^T as the B operand of P V (DP rows, k = the
+// BK keys, each 8-key chunk in the order 0, 2, 4, 6, 1, 3, 5, 7 that P's
+// registers hold them in), each split into a hi and a lo image.
+template <int NJ>
+__global__ void __launch_bounds__(kSplitThreads)
+split_kv_kernel(const float* __restrict__ k, const float* __restrict__ v, float* __restrict__ kimg,
+                float* __restrict__ vimg, int hk, int lk, int d, int ktiles,
+                long long ksb, long long ksh, long long ksl, long long vsb, long long vsh, long long vsl, int vec)
+{
+    using C = Cfg<NJ>;
+    constexpr int DP = C::DP, BK = C::BK, R = DP + 4;  // R: rows read 8 apart hit other banks
+    __shared__ __align__(16) float ks[BK * R];
+    __shared__ __align__(16) float vs[BK * R];
+    // the main kernel may launch now: it waits for this grid before reading the images
+    asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+    const int t = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+    const float* kb = k + b * ksb + h * ksh;
+    const float* vb = v + b * vsb + h * vsh;
+    const int k0 = t * BK;
+    if (vec) {  // rows of whole float4s: D, the strides and the bases all multiples of 4 floats
+        for (int i = threadIdx.x; i < BK * DP / 4; i += kSplitThreads) {
+            const int r = i / (DP / 4), c = 4 * (i % (DP / 4));
+            const bool in = k0 + r < lk && c < d;
+            const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+            *reinterpret_cast<float4*>(ks + r * R + c) =
+                in ? *reinterpret_cast<const float4*>(kb + (k0 + r) * ksl + c) : zero;
+            *reinterpret_cast<float4*>(vs + r * R + c) =
+                in ? *reinterpret_cast<const float4*>(vb + (k0 + r) * vsl + c) : zero;
+        }
+    } else {
+        for (int i = threadIdx.x; i < BK * DP; i += kSplitThreads) {
+            const int r = i / DP, c = i % DP;
+            const bool in = k0 + r < lk && c < d;
+            ks[r * R + c] = in ? kb[(k0 + r) * ksl + c] : 0.f;
+            vs[r * R + c] = in ? vb[(k0 + r) * vsl + c] : 0.f;
+        }
+    }
+    __syncthreads();
+    const size_t tile = (static_cast<size_t>(b * hk + h) * ktiles + t) * C::kTileFloats;
+    float4* ko = reinterpret_cast<float4*>(kimg + tile);
+    float4* vo = reinterpret_cast<float4*>(vimg + tile);
+    // float4 o of an image holds k 4 (o / 8 % 2) .. + 3 of row 8 (o / 16 % (R / 8)) + o % 8 in k step o / (2 R)
+    for (int o = threadIdx.x; o < C::kImageFloats / 4; o += kSplitThreads) {
+        const int rr = o & 7, half = (o >> 3) & 1;
+        float4 lo;
+        {  // K: rows are keys
+            const int r = ((o >> 4) % (BK / 8)) * 8 + rr, kk = (o >> 4) / (BK / 8);
+            ko[o] = hi4(*reinterpret_cast<const float4*>(ks + r * R + kk * 8 + 4 * half), lo);
+            ko[o + C::kImageFloats / 4] = lo;
+        }
+        {  // V^T: rows are columns of V, k = keys 2 e + half (e = 0..3) of chunk c
+            const int dc = ((o >> 4) % (DP / 8)) * 8 + rr, c = (o >> 4) / (DP / 8);
+            const float* col = vs + (c * 8 + half) * R + dc;
+            vo[o] = hi4(make_float4(col[0], col[2 * R], col[4 * R], col[6 * R]), lo);
+            vo[o + C::kImageFloats / 4] = lo;
+        }
+    }
+}
+
+template <int W, bool MAX, int N>
+__device__ __forceinline__ float tree(float (&x)[N]) {
+    if constexpr (W == 0) {
+        return x[0];
+    } else {
+#pragma unroll
+        for (int i = 0; i < W; ++i) x[i] = MAX ? fmaxf(x[i], x[i + W]) : x[i] + x[i + W];
+        return tree<W / 2, MAX>(x);
+    }
+}
+
+template <int NJ>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_tc_kernel(const float* __restrict__ q, const float* __restrict__ kimg, const float* __restrict__ vimg,
+                float* __restrict__ out, const int* __restrict__ work,
+                int hq, int hk, int lq, int lk, int d, int qtiles, int ktiles,
+                long long qsb, long long qsh, long long qsl,
+                long long osb, long long osh, long long osl,
+                float scale, int causal, int window)
+{
+    using C = Cfg<NJ>;
+    constexpr int DP = C::DP, KS = C::KS, NT = C::NT, BK = C::BK, IMG = C::kImageFloats;
+    constexpr int kTileBytes = C::kTileFloats * static_cast<int>(sizeof(float));
+    extern __shared__ __align__(128) unsigned char smem[];
+    float* ring = reinterpret_cast<float*>(smem);  // stage s: K hi, K lo, V^T hi, V^T lo images
+    float* qsm = reinterpret_cast<float*>(smem + C::kQOffset);
+    uint64_t* full = reinterpret_cast<uint64_t*>(smem + C::kBarOffset);
+    uint64_t* empty = full + C::STAGES;
+
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    if (threadIdx.x == 0) {
+        for (int s = 0; s < C::STAGES; ++s) {
+            mbar_init(&full[s], 1);
+            mbar_init(&empty[s], kConsumers);
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+
+    const int begin = work[blockIdx.x], end = work[blockIdx.x + 1];
+    const int* items = work + gridDim.x + 1;
+    const int group = hq / hk;
+
+    if (warp >= kConsumers) {  // producer warpgroup: one thread keeps the ring full
+        asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+        if (warp != kConsumers || lane != 0) return;
+        asm volatile("griddepcontrol.wait;\n" ::: "memory");  // the split pass's images are written
+        int s = 0, phase = 0;
+        for (int it = begin; it < end; ++it) {
+            const int item = items[it];
+            const int qt = item % qtiles, bh = item / qtiles;
+            const int h = bh % hq, b = bh / hq;
+            int lo, hi;
+            kv_tiles(qt * kBQ, kBQ, BK, lq, lk, causal, window, lo, hi);
+            const size_t head = static_cast<size_t>(b * hk + h / group) * ktiles;
+            for (int t = lo; t <= hi; ++t) {
+                mbar_wait(&empty[s], phase ^ 1);
+                mbar_expect(&full[s], 2 * kTileBytes);
+                float* stage = ring + s * 2 * C::kTileFloats;
+                bulk_load(stage, kimg + (head + t) * C::kTileFloats, kTileBytes, &full[s]);
+                bulk_load(stage + C::kTileFloats, vimg + (head + t) * C::kTileFloats, kTileBytes, &full[s]);
+                if (++s == C::STAGES) s = 0, phase ^= 1;
+            }
+        }
+        return;
+    }
+
+    // consumers: warpgroup wg owns query rows [qg0, qg0 + 64) of each item,
+    // its warp w rows [qw0, qw0 + 16)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int wg = warp >> 2, tid = threadIdx.x & 127;
+    const int g = lane >> 2, tq = lane & 3;
+    const float sl2 = scale * 1.4426950408889634f;  // scores in log2 units: exp(s scale) = 2^(s sl2)
+    float* qhi = qsm + wg * C::kQFloats;
+    float* qlo = qhi + C::kQFloats / 2;
+    int s = 0, phase = 0;
+    for (int it = begin; it < end; ++it) {
+        const int item = items[it];
+        const int qt = item % qtiles, bh = item / qtiles;
+        const int h = bh % hq, b = bh / hq;
+        const int q0 = qt * kBQ, qg0 = q0 + wg * kWGRows, qg_last = qg0 + kWGRows - 1;
+        const int qw0 = qg0 + (warp & 3) * 16, qw_last = qw0 + 15;
+        int lo, hi;
+        kv_tiles(q0, kBQ, BK, lq, lk, causal, window, lo, hi);
+
+        // this warpgroup's Q rows, split, as the A images of S = Q K^T
+        const float* qb = q + b * qsb + h * qsh;
+        asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");  // the previous item's products are done
+#pragma unroll 4
+        for (int x = tid; x < kWGRows * (DP / 4); x += 128) {
+            const int r = x / (DP / 4), c4 = x % (DP / 4);
+            float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
+            if (qg0 + r < lq && 4 * c4 < d) val = *reinterpret_cast<const float4*>(qb + (qg0 + r) * qsl + 4 * c4);
+            float4 low;
+            const int at = image_at<kWGRows>(r, 4 * c4);
+            *reinterpret_cast<float4*>(qhi + at) = hi4(val, low);
+            *reinterpret_cast<float4*>(qlo + at) = low;
+        }
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // visible to the tensor cores
+        asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+        // where they fit, this warp's fragments of Q as register A operands:
+        // rows (g, g + 8) of its 16, columns (t, t + 4) of each k step
+        uint32_t qfh[C::kQRegs ? KS : 1][4], qfl[C::kQRegs ? KS : 1][4];
+        if constexpr (C::kQRegs) {
+            const int r0 = (warp & 3) * 16 + g;
+#pragma unroll
+            for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    const int at = image_at<kWGRows>(r0 + 8 * (e & 1), kk * 8 + tq + 4 * (e >> 1));
+                    qfh[kk][e] = __float_as_uint(qhi[at]);
+                    qfl[kk][e] = __float_as_uint(qlo[at]);
+                }
+        }
+
+        float m_r[2] = {kNegBig, kNegBig}, l_r[2] = {0.f, 0.f}, acc[DP / 2];
+#pragma unroll
+        for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+
+        for (int t = lo; t <= hi; ++t) {
+            const int k0 = t * BK;
+            mbar_wait(&full[s], phase);
+            // skip the tile if no row of this warpgroup sees any of its keys
+            const bool live = qg0 < lq && (!causal || k0 <= qg_last) && (window <= 0 || k0 + BK - 1 > qg0 - window);
+            if (live) {
+                const float* khi = ring + s * 2 * C::kTileFloats;
+                const float* vhi = khi + C::kTileFloats;
+
+                // S = Q K^T: lo.hi + hi.lo + hi.hi for each k step
+                float sacc[BK / 2];
+                wgmma_fence();
+#pragma unroll
+                for (int kk = 0; kk < KS; ++kk) {
+                    const uint64_t kh = image_desc(khi + kk * BK * 8), kl = image_desc(khi + IMG + kk * BK * 8);
+                    if constexpr (C::kQRegs) {
+                        wgmma_rs<BK>(sacc, qfl[kk], kh, kk > 0);
+                        wgmma_rs<BK>(sacc, qfh[kk], kl, 1);
+                        wgmma_rs<BK>(sacc, qfh[kk], kh, 1);
+                    } else {
+                        const uint64_t qh = image_desc(qhi + kk * kWGRows * 8), ql = image_desc(qlo + kk * kWGRows * 8);
+                        wgmma_ss<BK>(sacc, ql, kh, kk > 0);
+                        wgmma_ss<BK>(sacc, qh, kl, 1);
+                        wgmma_ss<BK>(sacc, qh, kh, 1);
+                    }
+                }
+                wgmma_wait();
+                hold(sacc);
+
+                // mask (tiles on an edge of this warp's rows only), online
+                // softmax in log2 units; row g + 8 r sits in the 4 lanes of
+                // group g (xor shuffles 1, 2). On a masked tile the scores are
+                // scaled here and masked ones set to -1e30, so that 2^(x - m)
+                // is exactly 1 for a row with no live key yet (wiped by the
+                // next live tile) and 0 after one.
+                const bool masked = k0 + BK > lk || (causal && k0 + BK - 1 > qw0) ||
+                                    (window > 0 && k0 <= qw_last - window);
+                const float mul = masked ? 1.f : sl2;  // what turns sacc into log2 units
+                float corr_r[2];
+#pragma unroll
+                for (int r = 0; r < 2; ++r) {
+                    float mx[2 * NT];
+                    if (masked) {
+                        const int qi = qw0 + g + 8 * r;
+#pragma unroll
+                        for (int j = 0; j < NT; ++j)
+#pragma unroll
+                            for (int c = 0; c < 2; ++c) {
+                                const int kj = k0 + j * 8 + 2 * tq + c;
+                                bool in = kj < lk;
+                                if (causal) in = in && kj <= qi;
+                                if (window > 0) in = in && kj > qi - window;
+                                float& x = sacc[4 * j + 2 * r + c];
+                                x = in ? x * sl2 : kNegBig;
+                                mx[2 * j + c] = x;
+                            }
+                    } else {
+#pragma unroll
+                        for (int j = 0; j < NT; ++j)
+#pragma unroll
+                            for (int c = 0; c < 2; ++c) mx[2 * j + c] = sacc[4 * j + 2 * r + c];
+                    }
+                    float m = tree<NT, true>(mx) * mul;
+                    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+                    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+                    const float m_new = fmaxf(m_r[r], m);
+                    corr_r[r] = ex2(m_r[r] - m_new);
+                    float ps[2 * NT];
+#pragma unroll
+                    for (int j = 0; j < NT; ++j)
+#pragma unroll
+                        for (int c = 0; c < 2; ++c) {
+                            float& x = sacc[4 * j + 2 * r + c];
+                            x = ex2(fmaf(x, mul, -m_new));
+                            ps[2 * j + c] = x;
+                        }
+                    l_r[r] = l_r[r] * corr_r[r] + tree<NT, false>(ps);  // this lane's share; summed at the end
+                    m_r[r] = m_new;
+                }
+
+                // pv = P V, P split into hi parts (in sacc) and lo parts (in
+                // pl): key chunk c of P is S's n8 block c, its columns (2t,
+                // 2t + 1) taken as the A fragment's k (t, t + 4), which the V^T
+                // image holds in that order. The tensor core adds into its
+                // accumulator with truncation, so each tile sums into a fresh
+                // one and O takes it by an IEEE FFMA with the correction: over
+                // thousands of keys one accumulator ends up 5-10x further from
+                // float64 than the fp32 plain version.
+                float pv[DP / 2], pl[BK / 2];
+#pragma unroll
+                for (int i = 0; i < BK / 2; ++i) {
+                    uint32_t ph, lo;
+                    split(sacc[i], ph, lo);
+                    sacc[i] = __uint_as_float(ph);
+                    pl[i] = __uint_as_float(lo);
+                }
+                wgmma_fence();  // after the last write of the A registers
+#pragma unroll
+                for (int c = 0; c < NT; ++c) {
+                    const uint32_t ah[4] = {__float_as_uint(sacc[4 * c]), __float_as_uint(sacc[4 * c + 2]),
+                                            __float_as_uint(sacc[4 * c + 1]), __float_as_uint(sacc[4 * c + 3])};
+                    const uint32_t al[4] = {__float_as_uint(pl[4 * c]), __float_as_uint(pl[4 * c + 2]),
+                                            __float_as_uint(pl[4 * c + 1]), __float_as_uint(pl[4 * c + 3])};
+                    const uint64_t vh = image_desc(vhi + c * DP * 8), vl = image_desc(vhi + IMG + c * DP * 8);
+                    wgmma_rs<DP>(pv, al, vh, c > 0);
+                    wgmma_rs<DP>(pv, ah, vl, 1);
+                    wgmma_rs<DP>(pv, ah, vh, 1);
+                }
+                wgmma_wait();
+                hold(pv);
+                hold(sacc);
+                hold(pl);
+#pragma unroll
+                for (int i = 0; i < DP / 2; ++i) acc[i] = fmaf(acc[i], corr_r[(i >> 1) & 1], pv[i]);
+            }
+            __syncwarp();
+            if (lane == 0) mbar_arrive(&empty[s]);
+            if (++s == C::STAGES) s = 0, phase ^= 1;
+        }
+
+        float* ob = out + b * osb + h * osh;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+            float l = l_r[r];
+            l += __shfl_xor_sync(0xffffffffu, l, 1);
+            l += __shfl_xor_sync(0xffffffffu, l, 2);
+            const float inv = 1.f / fmaxf(l, 1e-30f);
+            const int qi = qw0 + g + 8 * r;
+            if (qi >= lq) continue;
+#pragma unroll
+            for (int j = 0; j < KS; ++j) {
+                const int col = j * 8 + 2 * tq;
+                if (col < d)
+                    *reinterpret_cast<float2*>(ob + qi * osl + col) =
+                        make_float2(acc[4 * j + 2 * r] * inv, acc[4 * j + 2 * r + 1] * inv);
+            }
+        }
+    }
+}
+
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+template <int NJ>
+cudaError_t launch(const float* q, const float* k, const float* v, float* out, float* kimg, float* vimg,
+                   const int* work, int blocks, int bq, int bk,
+                   int b, int hq, int hk, int lq, int lk, int d,
+                   long long qsb, long long qsh, long long qsl,
+                   long long ksb, long long ksh, long long ksl,
+                   long long vsb, long long vsh, long long vsl,
+                   long long osb, long long osh, long long osl,
+                   float scale, int causal, int window, cudaStream_t stream)
+{
+    using C = Cfg<NJ>;
+    if (bq != kBQ || bk != C::BK) return cudaErrorInvalidValue;  // the wrapper's tiles are not these
+    // once per instantiation (the port drives one card)
+    static const cudaError_t attr = cudaFuncSetAttribute(
+        flash_tc_kernel<NJ>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(C::kBytes));
+    if (attr != cudaSuccess) return attr;
+    const int ktiles = (lk + C::BK - 1) / C::BK;
+    const int vec = d % 4 == 0 && aligned16(k) && aligned16(v) && (ksb | ksh | ksl | vsb | vsh | vsl) % 4 == 0;
+    split_kv_kernel<NJ><<<dim3(ktiles, hk, b), kSplitThreads, 0, stream>>>(
+        k, v, kimg, vimg, hk, lk, d, ktiles, ksb, ksh, ksl, vsb, vsh, vsl, vec);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    // launched as a programmatic dependent of the split pass: its blocks may
+    // start (and stage Q) while the last split blocks run
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(blocks);
+    cfg.blockDim = dim3(kThreads);
+    cfg.dynamicSmemBytes = C::kBytes;
+    cfg.stream = stream;
+    cudaLaunchAttribute pdl[1];
+    pdl[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    pdl[0].val.programmaticStreamSerializationAllowed = 1;
+    cfg.attrs = pdl;
+    cfg.numAttrs = 1;
+    err = cudaLaunchKernelEx(&cfg, flash_tc_kernel<NJ>, q, static_cast<const float*>(kimg),
+                             static_cast<const float*>(vimg), out, work, hq, hk, lq, lk, d, (lq + kBQ - 1) / kBQ,
+                             ktiles, qsb, qsh, qsl, osb, osh, osl, scale, causal, window);
+    return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+}  // namespace tc
+
+bool bad_shape(int b, int hq, int hk, int lq, int lk, int d) {
+    return b < 1 || hq < 1 || hk < 1 || hq % hk != 0 || lq < 1 || lk < 1 || d < 1 || d > 128;
+}
+
 }  // namespace
 
-// q (B, Hq, Lq, D), k and v (B, Hk, Lk, D), out (B, Hq, Lq, D): fp32, unit
-// stride along D, element strides for b, h, l. window <= 0: no window.
+// The general path. q (B, Hq, Lq, D), k and v (B, Hk, Lk, D), out (B, Hq,
+// Lq, D): fp32, unit stride along D, element strides for b, h, l.
+// window <= 0: no window.
 extern "C" int flash_attention(const float* q, const float* k, const float* v, float* out,
                                int b, int hq, int hk, int lq, int lk, int d,
                                long long qsb, long long qsh, long long qsl,
@@ -250,13 +940,12 @@ extern "C" int flash_attention(const float* q, const float* k, const float* v, f
                                long long osb, long long osh, long long osl,
                                float scale, int causal, int window, cudaStream_t stream)
 {
-    if (b < 1 || hq < 1 || hk < 1 || hq % hk != 0 || lq < 1 || lk < 1 || d < 1 || d > 128)
-        return static_cast<int>(cudaErrorInvalidValue);
+    if (bad_shape(b, hq, hk, lq, lk, d)) return static_cast<int>(cudaErrorInvalidValue);
 #define REPRO_FLASH_CASE(NJ)                                                                       \
     case NJ:                                                                                       \
-        return static_cast<int>(launch<NJ>(q, k, v, out, b, hq, hk, lq, lk, d, qsb, qsh, qsl, ksb, \
-                                           ksh, ksl, vsb, vsh, vsl, osb, osh, osl, scale, causal,  \
-                                           window, stream));
+        return static_cast<int>(general::launch<NJ>(q, k, v, out, b, hq, hk, lq, lk, d, qsb, qsh, qsl, \
+                                                    ksb, ksh, ksl, vsb, vsh, vsl, osb, osh, osl, scale, \
+                                                    causal, window, stream));
     switch ((d + 15) / 16) {
         REPRO_FLASH_CASE(1)
         REPRO_FLASH_CASE(2)
@@ -270,3 +959,127 @@ extern "C" int flash_attention(const float* q, const float* k, const float* v, f
 #undef REPRO_FLASH_CASE
     return static_cast<int>(cudaErrorInvalidValue);
 }
+
+// The tensor-core path: the operands of flash_attention, plus the split
+// images' scratch (kimg, vimg: B * Hk * ceil(Lk / bk) * bk * DP * 2 floats
+// each, 16-byte aligned), the work list (int32: blocks + 1 offsets, then
+// the items (b * Hq + h) * ceil(Lq / bq) + q tile; block i takes items
+// [work[i], work[i + 1])) and the tiles (bq, bk) the wrapper built it for,
+// which must be the ones compiled for this D. Takes D % 4 == 0 with q and
+// out 16-byte aligned and their strides multiples of 4 floats.
+extern "C" int flash_attention_tc(const float* q, const float* k, const float* v, float* out,
+                                  float* kimg, float* vimg, const int* work, int blocks, int bq, int bk,
+                                  int b, int hq, int hk, int lq, int lk, int d,
+                                  long long qsb, long long qsh, long long qsl,
+                                  long long ksb, long long ksh, long long ksl,
+                                  long long vsb, long long vsh, long long vsl,
+                                  long long osb, long long osh, long long osl,
+                                  float scale, int causal, int window, cudaStream_t stream)
+{
+    if (bad_shape(b, hq, hk, lq, lk, d) || d % 4 != 0 || blocks < 1 || !tc::aligned16(q) ||
+        !tc::aligned16(out) || !tc::aligned16(kimg) || !tc::aligned16(vimg) ||
+        (qsb | qsh | qsl | osb | osh | osl) % 4 != 0)
+        return static_cast<int>(cudaErrorInvalidValue);
+#define REPRO_FLASH_TC_CASE(NJ)                                                                        \
+    case NJ:                                                                                           \
+        return static_cast<int>(tc::launch<NJ>(q, k, v, out, kimg, vimg, work, blocks, bq, bk, b, hq, hk, \
+                                               lq, lk, d, qsb, qsh, qsl, ksb, ksh, ksl, vsb, vsh, vsl, osb, \
+                                               osh, osl, scale, causal, window, stream));
+    switch ((d + 15) / 16) {
+        REPRO_FLASH_TC_CASE(1)
+        REPRO_FLASH_TC_CASE(2)
+        REPRO_FLASH_TC_CASE(3)
+        REPRO_FLASH_TC_CASE(4)
+        REPRO_FLASH_TC_CASE(5)
+        REPRO_FLASH_TC_CASE(6)
+        REPRO_FLASH_TC_CASE(7)
+        REPRO_FLASH_TC_CASE(8)
+    }
+#undef REPRO_FLASH_TC_CASE
+    return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The tensor-core path's tiles for head dim d: field 0 the padded D, 1 the
+// kv tile (bk), 2 the query rows a block owns (bq); -1 for d out of range.
+extern "C" int flash_tc_tiles(int d, int field)
+{
+    if (d < 1 || d > 128 || field < 0 || field > 2) return -1;
+#define REPRO_FLASH_TILES(NJ) \
+    case NJ:                  \
+        return field == 0 ? tc::Cfg<NJ>::DP : field == 1 ? tc::Cfg<NJ>::BK : tc::kBQ;
+    switch ((d + 15) / 16) {
+        REPRO_FLASH_TILES(1)
+        REPRO_FLASH_TILES(2)
+        REPRO_FLASH_TILES(3)
+        REPRO_FLASH_TILES(4)
+        REPRO_FLASH_TILES(5)
+        REPRO_FLASH_TILES(6)
+        REPRO_FLASH_TILES(7)
+        REPRO_FLASH_TILES(8)
+    }
+#undef REPRO_FLASH_TILES
+    return -1;
+}
+
+#ifdef FLASH_MMA_RATE
+// tools/time_flash.py --mma-rate: the card's rate of TF32 tensor-core
+// products, `blocks` blocks of `warps` warps, `iters` rounds. kind 0:
+// mma.sync.m16n8k8 into `acc` independent accumulators a warp; kind 1:
+// wgmma.m64n64k8 with both operands in shared memory, one accumulator a
+// warpgroup (`acc` ignored). Built only with -DFLASH_MMA_RATE.
+namespace {
+template <int ACC>
+__global__ void mma_rate_kernel(float* out, int iters) {
+    uint32_t a[4];
+    for (int e = 0; e < 4; ++e) a[e] = __float_as_uint(threadIdx.x * 1e-3f + e) & 0xffffe000u;
+    const uint32_t b0 = __float_as_uint(1.5f), b1 = __float_as_uint(0.25f);
+    float c[ACC][4] = {};
+    for (int it = 0; it < iters; ++it) {
+#pragma unroll
+        for (int x = 0; x < ACC; ++x)
+            asm volatile(
+                "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+                "{%0, %1, %2, %3};\n"
+                : "+f"(c[x][0]), "+f"(c[x][1]), "+f"(c[x][2]), "+f"(c[x][3])
+                : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+    }
+    float sum = 0.f;
+    for (int x = 0; x < ACC; ++x)
+        for (int e = 0; e < 4; ++e) sum += c[x][e];
+    if (sum == 1234.5f) out[threadIdx.x] = sum;  // keeps the products
+}
+
+__global__ void wgmma_rate_kernel(float* out, int iters) {
+    __shared__ __align__(128) float tiles[2 * 64 * 8];
+    for (int i = threadIdx.x; i < 2 * 64 * 8; i += blockDim.x) tiles[i] = 1e-3f * (i & 63);
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    const uint64_t da = tc::image_desc(tiles), db = tc::image_desc(tiles + 64 * 8);
+    float d[32];
+    tc::wgmma_fence();
+    tc::wgmma_ss<64>(d, da, db, 0);
+    for (int it = 1; it < iters; ++it) tc::wgmma_ss<64>(d, da, db, 1);
+    tc::wgmma_wait();
+    float sum = 0.f;
+    for (int i = 0; i < 32; ++i) sum += d[i];
+    if (sum == 1234.5f) out[threadIdx.x] = sum;
+}
+}  // namespace
+
+extern "C" int flash_mma_rate(float* out, int blocks, int warps, int iters, int acc, int kind, cudaStream_t stream)
+{
+    if (blocks < 1 || warps < 1 || warps > 32 || iters < 1 || (kind == 1 && warps % 4 != 0))
+        return static_cast<int>(cudaErrorInvalidValue);
+    if (kind == 1) {
+        wgmma_rate_kernel<<<blocks, 32 * warps, 0, stream>>>(out, iters);
+        return static_cast<int>(cudaGetLastError());
+    }
+    switch (acc) {
+        case 1: mma_rate_kernel<1><<<blocks, 32 * warps, 0, stream>>>(out, iters); break;
+        case 4: mma_rate_kernel<4><<<blocks, 32 * warps, 0, stream>>>(out, iters); break;
+        case 16: mma_rate_kernel<16><<<blocks, 32 * warps, 0, stream>>>(out, iters); break;
+        default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+    return static_cast<int>(cudaGetLastError());
+}
+#endif

@@ -41,6 +41,18 @@ def silhouette_dist_sums(
     return torch.matmul(torch.sqrt(pairwise_sq_dists(x, y)), onehot)
 
 
+def _mask(lq: int, lk: int, causal: bool, window: int | None, device) -> torch.Tensor:
+    """(Lq, Lk) live pairs; query rows offset by Lk - Lq."""
+    q_idx = torch.arange(lq, device=device)[:, None] + (lk - lq)
+    k_idx = torch.arange(lk, device=device)[None, :]
+    mask = torch.ones((lq, lk), dtype=torch.bool, device=device)
+    if causal:
+        mask &= k_idx <= q_idx
+    if window is not None:
+        mask &= k_idx > q_idx - window
+    return mask
+
+
 def attention(
     q: torch.Tensor,  # (B, Hq, Lq, D)
     k: torch.Tensor,  # (B, Hk, Lk, D)
@@ -64,13 +76,56 @@ def attention(
     kf = k.to(ct).repeat_interleave(group, dim=1)
     vf = v.to(ct).repeat_interleave(group, dim=1)
     s = torch.einsum("bhqd,bhkd->bhqk", q.to(ct), kf) * scale
-    q_idx = torch.arange(lq, device=q.device)[:, None] + (lk - lq)
-    k_idx = torch.arange(lk, device=q.device)[None, :]
-    mask = torch.ones((lq, lk), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= k_idx <= q_idx
-    if window is not None:
-        mask &= k_idx > q_idx - window
-    s = torch.where(mask, s, -1e30)
+    s = torch.where(_mask(lq, lk, causal, window, q.device), s, -1e30)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", p, vf).to(q.dtype)
+
+
+# -----------------------------------------------------------------------------
+# Split TF32: the arithmetic of the flash kernel's tensor-core path. Used by
+# the tests only; the wrappers' plain path is ``attention``.
+# -----------------------------------------------------------------------------
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 to the nearest TF32 value (10 stored mantissa bits), ties away
+    from zero, as ``cvt.rna.tf32.f32``. Zeros, infinities and NaN pass
+    through, subnormals round on the same grid, and a value past the largest
+    TF32 rounds to infinity."""
+    if x.dtype != torch.float32:
+        raise TypeError(f"tf32_round takes float32, got {x.dtype}")
+    bits = x.contiguous().view(torch.int32)
+    # add half of the 13 dropped bits' range to the magnitude, then drop them;
+    # only NaN bit patterns can carry out of the int32 range
+    rounded = ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+    return torch.where(torch.isnan(x), x, rounded)
+
+
+def _mm3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b as lo(a) hi(b) + hi(a) lo(b) + hi(a) hi(b), x = hi + lo both TF32:
+    each product of two TF32 values is exact in float32, the sums are not."""
+    a_hi, b_hi = tf32_round(a), tf32_round(b)
+    a_lo, b_lo = tf32_round(a - a_hi), tf32_round(b - b_hi)
+    return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+
+
+def attention_3xtf32(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    causal: bool = True,
+    window: int | None = None,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """``attention`` in float32 with both products in split TF32, as the
+    flash kernel's tensor-core path computes them: S = Q K^T in three TF32
+    passes, then the unnormalized P = exp(S - max) times V in three passes,
+    divided by the row sum."""
+    lq, d = q.shape[-2:]
+    lk = k.shape[-2]
+    group = q.shape[1] // k.shape[1]
+    scale = float(scale if scale is not None else d**-0.5)
+    kf = k.float().repeat_interleave(group, dim=1)
+    vf = v.float().repeat_interleave(group, dim=1)
+    s = _mm3(q.float(), kf.transpose(-1, -2)) * scale
+    s = torch.where(_mask(lq, lk, causal, window, q.device), s, -1e30)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    return _mm3(p, vf) / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)

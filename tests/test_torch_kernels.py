@@ -479,3 +479,233 @@ def test_mu_launch_takes_the_any_rank_kernel_above_128(monkeypatch, update, k):
     ((name, args),) = calls
     assert name == f"mu_update_{update}_any"
     assert args == (v.data_ptr(), a.data_ptr(), b.data_ptr(), gram.data_ptr(), out.data_ptr(), lanes, n, m, k, 99)
+
+
+# -----------------------------------------------------------------------------
+# flash attention: split TF32, the path rule, the tensor-core path's schedule
+# -----------------------------------------------------------------------------
+def _tf32_oracle(x: float) -> float:
+    """The nearest TF32 value (11 significant bits; the fp32 subnormal grid
+    coarsened by 2^13), ties away from zero, by exact rational arithmetic."""
+    from fractions import Fraction
+
+    if x != x or x in (float("inf"), float("-inf")) or x == 0.0:
+        return x
+    mag = Fraction(abs(x))
+    _, e = math.frexp(abs(x))  # abs(x) = m 2^e, 0.5 <= m < 1
+    step = Fraction(2) ** (max(e, -125) - 11)  # spacing of TF32 values around x
+    units = mag / step
+    rounded = math.floor(units) + (1 if units - math.floor(units) >= Fraction(1, 2) else 0)
+    out = float(rounded * step)
+    return math.copysign(out, x)
+
+
+TF32_CASES = {
+    "ties away from zero": [1 + 2**-11, -(1 + 2**-11), 1 + 3 * 2**-11, 2**20 * (1 + 2**-11), 0.75 + 2**-12],
+    "nearest below a tie": [1 + 2**-11 - 2**-23, -(1 + 2**-11 - 2**-23), 3.0 + 2**-10, 1 / 3, -1e30, 1e30],
+    "zeros and the largest": [0.0, -0.0, 3.3895313892515355e38, 3.4028234663852886e38],
+    "subnormals": [2**-140, 2**-136, 3 * 2**-137, -2**-130, 1e-39, 2**-126 - 2**-149],
+}
+
+
+@pytest.mark.parametrize("case", list(TF32_CASES))
+def test_tf32_round_is_cvt_rna(case):
+    """``ref.tf32_round`` keeps 10 mantissa bits, rounding to nearest with
+    ties away from zero (``cvt.rna.tf32.f32``); finite values past the
+    largest TF32 round to infinity."""
+    from repro_torch.kernels import ref
+
+    xs = torch.tensor(TF32_CASES[case], dtype=torch.float32)
+    got = ref.tf32_round(xs)
+    want = [_tf32_oracle(float(x)) for x in xs]
+    assert torch.equal(torch.signbit(got), torch.signbit(xs))
+    for g, w, x in zip(got.tolist(), want, xs.tolist()):
+        if abs(w) > 3.4028234663852886e38:
+            assert g == math.copysign(math.inf, x)
+        else:
+            assert g == w, (x, g, w)
+    assert torch.all(got.view(torch.int32) & 0x1FFF == 0)
+
+
+def test_tf32_round_passes_inf_and_nan_and_matches_random_values():
+    from repro_torch.kernels import ref
+
+    special = torch.tensor([float("inf"), float("-inf"), float("nan")])
+    got = ref.tf32_round(special)
+    assert got[0] == math.inf and got[1] == -math.inf and torch.isnan(got[2])
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(2000).astype(np.float32) * 10.0)
+    got = ref.tf32_round(x)
+    assert got.tolist() == [_tf32_oracle(v) for v in x.tolist()]
+    # x = hi + lo exactly when lo is TF32 too: the split the kernel feeds its products
+    lo = ref.tf32_round(x - got)
+    assert torch.all((got.double() + lo.double() - x.double()).abs() <= x.double().abs() * 2.0**-21)
+
+
+@pytest.mark.parametrize("d", [1, 4, 16, 17, 48, 64, 65, 80, 96, 97, 112, 128])
+def test_flash_tiles_follow_the_kernel_source(d):
+    """The tensor-core tiles the wrapper builds its schedule and scratch for
+    are the ones flash_attention.cu compiles (tc::Cfg, tc::kBQ)."""
+    import re
+
+    src = (build.CSRC / "flash_attention.cu").read_text()
+    groups = int(re.search(r"constexpr int kWGs = (\d+);", src).group(1))
+    rows = int(re.search(r"constexpr int kWGRows = (\d+);", src).group(1))
+    a, b, c, e, small = map(int, re.search(r"BK = DP <= (\d+) \? (\d+) : DP <= (\d+) \? (\d+) : (\d+);", src).groups())
+    dp = 16 * math.ceil(d / 16)
+    assert ops.flash_tc_tiles(d) == (dp, b if dp <= a else e if dp <= c else small, groups * rows)
+    assert ops.FLASH_TC_BQ == groups * rows
+
+
+def _flash_views(shape_blhd, dtype=torch.float32):
+    """q as the model passes it: a (B, H, L, D) view of a (B, L, H, D) tensor."""
+    return torch.zeros(shape_blhd, dtype=dtype).transpose(1, 2)
+
+
+@pytest.mark.parametrize(
+    "make,path",
+    [
+        (lambda: torch.zeros((4, 14, 1000, 64)), "tensor_core"),  # contiguous, qwen2 prefill
+        (lambda: _flash_views((2, 77, 14, 64)), "tensor_core"),  # the model's strided views
+        (lambda: _flash_views((1, 600, 32, 80)), "tensor_core"),  # h2o-danube's head dim
+        (lambda: torch.zeros((2, 6, 70, 17)), "general"),  # D 17: 68-byte rows
+        (lambda: torch.zeros((1, 2, 10, 66))[..., :64], "general"),  # l stride 66 floats
+        (lambda: torch.zeros(1 + 2 * 3 * 8 * 64)[1:].view(2, 3, 8, 64), "general"),  # base 4 bytes off
+        (lambda: torch.zeros((1, 2, 9, 12)), "tensor_core"),  # small D, multiple of 4
+    ],
+)
+def test_flash_path_rule(make, path):
+    """``ops.flash_path``: the tensor-core path takes D % 4 == 0 with q and
+    out on 16-byte boundaries and b/h/l strides that are multiples of 4
+    floats; everything else takes the general path."""
+    q = make()
+    out = torch.empty_like(q)
+    assert ops.flash_path(q, out) == path
+
+
+@pytest.mark.parametrize(
+    "b,hq,hk,lq,lk,causal,window,bk",
+    [
+        (4, 14, 2, 1000, 1000, True, None, 64),  # qwen2 prefill
+        (1, 32, 8, 6000, 6000, True, 4096, 32),  # h2o-danube heads
+        (2, 6, 3, 70, 45, False, None, 64),  # non-causal, ragged
+        (1, 4, 1, 300, 300, True, 24, 16),  # window inside one block's rows
+        (3, 4, 4, 1, 1, True, None, 64),  # one row
+    ],
+)
+def test_flash_kv_tiles_are_the_tiles_with_a_live_pair(b, hq, hk, lq, lk, causal, window, bk):
+    """The kv tiles an item walks are exactly those holding a pair the plain
+    version's mask leaves live for one of its query rows."""
+    from repro_torch.kernels import ref
+
+    bq = ops.FLASH_TC_BQ
+    mask = ref._mask(lq, lk, causal, window, "cpu")
+    for qt in range(math.ceil(lq / bq)):
+        rows = mask[qt * bq:(qt + 1) * bq]
+        live = [t for t in range(math.ceil(lk / bk)) if bool(rows[:, t * bk:(t + 1) * bk].any())]
+        lo, hi = ops.flash_kv_tiles(qt * bq, bq, bk, lq, lk, causal, window)
+        assert list(range(lo, hi + 1)) == live
+
+
+@pytest.mark.parametrize(
+    "b,hq,hk,lq,lk,causal,window,bk,blocks",
+    [
+        (4, 14, 2, 1000, 1000, True, None, 64, 132),
+        (1, 32, 8, 6000, 6000, True, 4096, 32, 132),
+        (2, 6, 3, 70, 45, False, None, 64, 132),  # fewer items than blocks
+        (1, 4, 1, 1000, 1000, True, 100, 64, 7),
+        (3, 2, 2, 129, 129, True, None, 64, 1),
+    ],
+)
+def test_flash_work_list_covers_every_item_once_longest_first(b, hq, hk, lq, lk, causal, window, bk, blocks):
+    """Every (b, h, q tile) is in exactly one block's list; each block walks
+    its items longest first; the greedy deal keeps every block within one
+    item of the least loaded; equal lengths keep the heads of a kv head
+    together."""
+    bq = ops.FLASH_TC_BQ
+    offsets, items = ops.flash_work_list(b, hq, hk, lq, lk, causal, window, bq, bk, blocks)
+    qtiles = math.ceil(lq / bq)
+    assert sorted(items) == list(range(b * hq * qtiles))
+    assert offsets[0] == 0 and offsets[-1] == len(items) and len(offsets) == min(blocks, len(items)) + 1
+
+    def cost(item):
+        lo, hi = ops.flash_kv_tiles((item % qtiles) * bq, bq, bk, lq, lk, causal, window)
+        return hi - lo + 1
+
+    loads = []
+    for i in range(len(offsets) - 1):
+        mine = [cost(item) for item in items[offsets[i]:offsets[i + 1]]]
+        assert mine and mine == sorted(mine, reverse=True)
+        loads.append(sum(mine))
+    longest = max(cost(item) for item in items)
+    assert max(loads) - min(loads) <= longest
+    firsts = [items[offsets[i]] for i in range(len(offsets) - 1)]
+    assert [cost(item) for item in firsts] == sorted((cost(item) for item in firsts), reverse=True)
+
+
+@pytest.mark.parametrize("blhd,d_path", [((2, 77, 14, 64), "tensor_core"), ((2, 45, 6, 17), "general")])
+def test_flash_launch_hands_each_path_its_arguments(monkeypatch, blhd, d_path):
+    """The wrapper's calls into flash_attention.cu, with the library stubbed:
+    the general entry keeps its arguments; the tensor-core entry also gets
+    its K/V scratch (bk * DP * 2 floats a tile), the work list on q's
+    device (offsets, then items) and the tiles the list was built for."""
+    calls = []
+
+    class Lib:
+        def __getattr__(self, name):
+            def launch(*args):
+                calls.append((name, args))
+                return 0
+            return launch
+
+    monkeypatch.setattr(build, "load", lambda name: Lib())
+    monkeypatch.setattr(ops, "_stream", lambda t: 77)
+    monkeypatch.setattr(ops, "_sm_count", lambda device: 132)
+    bsz, length, hq, d = blhd
+    hk = 2 if d == 64 else 3
+    q = _flash_views((bsz, length, hq, d))
+    k = _flash_views((bsz, length, hk, d))
+    v = _flash_views((bsz, length, hk, d))
+    out = torch.empty_like(q)
+    assert ops._flash_launch(q, k, v, out, 0.125, True, None) == d_path
+    ((name, args),) = calls
+    strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
+    tail = (bsz, hq, hk, length, length, d, *strides, 0.125, 1, 0, 77)
+    if d_path == "general":
+        assert name == "flash_attention"
+        assert args == (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *tail)
+        return
+    assert name == "flash_attention_tc"
+    dp, bk, bq = ops.flash_tc_tiles(d)
+    offsets, items = ops.flash_work_list(bsz, hq, hk, length, length, True, None, bq, bk, 132)
+    work, blocks = ops._flash_work(q.device, (bsz, hq, hk, length, length, True, None, bq, bk, 132))
+    assert work.tolist() == list(offsets + items) and blocks == len(offsets) - 1
+    assert args[:4] == (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    assert args[6:10] == (work.data_ptr(), blocks, bq, bk) and args[10:] == tail
+
+
+def test_flash_launch_raises_when_the_kernel_refuses(monkeypatch):
+    """A refused tensor-core launch raises, naming the path; nothing falls
+    back to the general path or to the plain version."""
+    calls = []
+
+    class Lib:
+        def flash_attention_tc(self, *args):
+            calls.append("tc")
+            return 1
+
+        def flash_attention(self, *args):
+            pytest.fail("no fallback to the general path")
+
+    monkeypatch.setattr(build, "load", lambda name: Lib())
+    monkeypatch.setattr(ops, "_stream", lambda t: 0)
+    monkeypatch.setattr(ops, "_sm_count", lambda device: 132)
+    q = torch.zeros((1, 2, 16, 32))
+    with pytest.raises(RuntimeError, match="tensor_core path"):
+        ops._flash_launch(q, q, q, torch.empty_like(q), 0.2, True, None)
+    assert calls == ["tc"]
+
+
+def test_reset_launch_counts_zeroes_the_flash_path_counters():
+    ops.flash_attention.path_launches["tensor_core"] += 3
+    ops.reset_launch_counts()
+    assert ops.flash_attention.path_launches == {"tensor_core": 0, "general": 0}

@@ -59,16 +59,16 @@ def _params(jparams) -> torch.nn.ParameterDict:
 # -----------------------------------------------------------------------------
 # flash attention: plain version and CPU wrapper vs the Pallas kernel
 # -----------------------------------------------------------------------------
-@pytest.mark.parametrize(
-    "b,hq,hk,l,d,window",
-    [
-        (1, 4, 2, 64, 16, None),   # GQA
-        (2, 8, 8, 128, 64, None),  # MHA
-        (1, 4, 1, 64, 32, 24),     # MQA + sliding window
-        (1, 2, 2, 256, 128, None), # 128-aligned tiles
-        (1, 14, 2, 64, 64, None),  # qwen-style 7x group
-    ],
-)
+FLASH_SHAPES = [
+    (1, 4, 2, 64, 16, None),   # GQA
+    (2, 8, 8, 128, 64, None),  # MHA
+    (1, 4, 1, 64, 32, 24),     # MQA + sliding window
+    (1, 2, 2, 256, 128, None), # 128-aligned tiles
+    (1, 14, 2, 64, 64, None),  # qwen-style 7x group
+]
+
+
+@pytest.mark.parametrize("b,hq,hk,l,d,window", FLASH_SHAPES)
 def test_flash_attention_matches_reference(b, hq, hk, l, d, window):
     q = _normal(hq * l + d, (b, hq, l, d))
     k = _normal(hq * l + d + 1, (b, hk, l, d))
@@ -82,6 +82,25 @@ def test_flash_attention_matches_reference(b, hq, hk, l, d, window):
         np.testing.assert_allclose(got.numpy(), want_kernel, **FLASH_TOL)
         np.testing.assert_allclose(got.numpy(), want_oracle, **FLASH_TOL)
     assert ops.flash_attention.launches == before  # the CPU path launches no kernel
+
+
+@pytest.mark.parametrize("b,hq,hk,l,d,window", FLASH_SHAPES)
+def test_flash_3xtf32_emulation_matches_reference(b, hq, hk, l, d, window):
+    """The card's tensor-core path computes both products in split TF32
+    (x = hi + lo, three TF32 products each, ``ref.attention_3xtf32``
+    emulates it); that arithmetic holds the reference's flash kernel
+    (interpret mode) at the fp32 tolerance, while inputs rounded to TF32
+    once do not."""
+    q = _normal(hq * l + d, (b, hq, l, d))
+    k = _normal(hq * l + d + 1, (b, hk, l, d))
+    v = _normal(hq * l + d + 2, (b, hk, l, d))
+    want = np.asarray(jops.flash_attention(q, k, v, causal=True, window=window, interpret=True))
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    got = ref.attention_3xtf32(tq, tk, tv, causal=True, window=window)
+    np.testing.assert_allclose(got.numpy(), want, **FLASH_TOL)
+    one_pass = ref.attention(ref.tf32_round(tq), ref.tf32_round(tk), ref.tf32_round(tv), causal=True, window=window)
+    excess = np.abs(one_pass.numpy() - want) - (FLASH_TOL["atol"] + FLASH_TOL["rtol"] * np.abs(want))
+    assert float(excess.max()) > 0  # inputs rounded to TF32 once already miss the fp32 tolerance
 
 
 def test_flash_attention_non_causal_ragged_matches_oracle():

@@ -125,3 +125,61 @@ def test_sums_thin_blocks_follow_the_kernel_rule():
     assert time_sums.thin_blocks(1, 52, 1000, 132) == 8 * 4  # clusters of 8, 16-row units
     assert time_sums.thin_blocks(8, 64, 1000, 132) == 8 * 2 * 8  # 16-row units would need 256 > 132
     assert time_sums.thin_blocks(2, 40, 17, 132) == 1 * 3 * 2  # d <= 128: one block a cluster
+
+
+def test_flash_parse_args_defaults_and_flags():
+    import time_flash
+
+    args = time_flash.parse_args([])
+    assert Path(args.src) == Path(time_flash.__file__).resolve().parents[1] / "src"
+    assert args.tag is None and not args.mma_rate and args.seed == 11
+    args = time_flash.parse_args(["--src", "build/parent/src", "--tag", "parent", "--mma-rate", "--seed", "3"])
+    assert (args.src, args.tag, args.mma_rate, args.seed) == ("build/parent/src", "parent", True, 3)
+
+
+@pytest.mark.parametrize(
+    "lq,lk,causal,window",
+    [(64, 64, True, None), (70, 45, False, None), (50, 50, True, 7), (33, 33, False, 5), (1, 1, True, None),
+     (9, 30, True, 4)],
+)
+def test_flash_live_pairs_count_the_plain_versions_mask(lq, lk, causal, window):
+    import time_flash
+    from repro_torch.kernels import ref
+
+    assert time_flash.live_pairs(lq, lk, causal, window) == int(ref._mask(lq, lk, causal, window, "cpu").sum())
+
+
+def test_flash_bounds_at_the_serve_and_window_shapes():
+    """The qwen2 prefill's 7.2 GFLOP and 15 MB: 0.107 ms on fp32 CUDA cores,
+    0.0435 ms as three TF32 products on the tensor cores; h2o-danube's heads:
+    165.8 GFLOP, 2.47 and 1.00 ms."""
+    import time_flash
+
+    flops, n_bytes = time_flash.work(4, 14, 2, 1000, 1000, 64, True, None)
+    assert flops == 4 * 4 * 14 * 64 * 500_500 and n_bytes == 4 * (2 * 4 * 14 * 1000 * 64 + 2 * 4 * 2 * 1000 * 64)
+    got = time_flash.bounds(flops, n_bytes)
+    assert got["bound_fp32_ms"] == pytest.approx(flops / 67e12 * 1e3) and got["bound_fp32_ms"] == pytest.approx(
+        0.1071, abs=1e-4)
+    assert got["bound_3xtf32_ms"] == pytest.approx(3 * flops / 495e12 * 1e3) and got["bound_3xtf32_ms"] == pytest.approx(
+        0.04349, abs=1e-4)
+    flops, n_bytes = time_flash.work(1, 32, 8, 6000, 6000, 80, True, 4096)
+    assert flops == pytest.approx(165.8e9, rel=1e-3)
+    got = time_flash.bounds(flops, n_bytes)
+    assert got["bound_fp32_ms"] == pytest.approx(2.475, abs=1e-3)
+    assert got["bound_3xtf32_ms"] == pytest.approx(1.005, abs=1e-3)
+    # a tiny call is bound by its bytes on both
+    got = time_flash.bounds(10, 3_350_000)
+    assert got == {"bound_fp32_ms": pytest.approx(1e-3), "bound_3xtf32_ms": pytest.approx(1e-3)}
+
+
+def test_flash_mma_rate_arithmetic():
+    import time_flash
+
+    # 132 blocks x 4 warps x 4096 rounds x 16 products of 2048 flops in 0.239 ms
+    assert time_flash.mma_tflops("mma.sync", 132, 4, 4096, 16, 0.239) == pytest.approx(
+        132 * 4 * 4096 * 16 * 2048 / 0.239e-3 / 1e12)
+    assert time_flash.mma_tflops("mma.sync", 132, 4, 4096, 16, 0.239) == pytest.approx(296.5, abs=0.5)
+    # wgmma: one m64n64k8 product (65,536 flops) a warpgroup a round, whatever ``acc``
+    assert time_flash.mma_tflops("wgmma", 132, 8, 4096, 1, 1.0) == pytest.approx(
+        132 * 2 * 4096 * 2 * 64 * 64 * 8 / 1e-3 / 1e12)
+    assert time_flash.mma_tflops("wgmma", 132, 8, 4096, 16, 1.0) == time_flash.mma_tflops("wgmma", 132, 8, 4096, 1, 1.0)
