@@ -33,7 +33,7 @@ NVCC_FLAGS = (
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # source stem -> {C function: argtypes}; every function returns an int:
-# cudaError_t for a launch, a byte count for mu_dynamic_smem, a tile for flash_tc_tiles
+# cudaError_t for a launch, a byte count for mu_dynamic_smem, a tile for flash_tiles
 SIGNATURES: dict[str, dict[str, list]] = {
     "nmf_update": {
         "mu_update_h": [_P, _P, _P, _P, _P, _P, _P, *[_I] * 8, _P],
@@ -49,9 +49,8 @@ SIGNATURES: dict[str, dict[str, list]] = {
         "pairwise_sq_dists": [_P, _P, _P, _I, _I, _I, _I, _L, _L, _P],
     },
     "flash_attention": {
-        "flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, *[_L] * 12, _F, _I, _I, _P],
-        "flash_attention_tc": [*[_P] * 7, _I, _I, _I, _I, _I, _I, _I, _I, _I, *[_L] * 12, _F, _I, _I, _P],
-        "flash_tc_tiles": [_I, _I],
+        "flash_attention": [*[_P] * 7, _I, _I, _I, _I, _I, _I, _I, *[_L] * 12, _F, _I, _I, _P],
+        "flash_tiles": [_I, _I],
     },
 }
 

@@ -24,270 +24,56 @@
 // Operands are (B, H, L, D) with unit stride along D and any b/h/l strides,
 // so the model passes views of its (B, L, H, D) projections without copies.
 //
-// Two paths behind one library:
-//
-// * The tensor-core path (flash_attention_tc), for D % 4 == 0 with q and
-//   out 16-byte aligned and their b/h/l strides multiples of 4 floats (the
-//   wrapper states the rule: ops.flash_path). What bounds it: at the serve
-//   path's prefill (B 4, Hq 14, L 1000, D 64, causal) the work is 7.2 GFLOP
-//   against 33 MB, bound by operations: 0.107 ms at 67 TFLOP/s of fp32 on
-//   CUDA cores. TF32 on the tensor cores is 7x faster, but one TF32 pass
-//   keeps 10 mantissa bits and misses the port's fp32 tolerance (3e-5) by
-//   about 30x. So every product is split TF32 ("3xTF32"): x = hi + lo with
-//   hi = tf32(x), lo = tf32(x - hi), rounded to nearest with ties away from
-//   zero (cvt.rna), and A.B = lo(A).hi(B) + hi(A).lo(B) + hi(A).hi(B), the
-//   small terms first. Bound: 3 x 7.2 GFLOP over 495 TFLOP/s = 0.043 ms.
-//   - wgmma.m64nNk8 TF32: S = Q K^T with Q's split fragments as register A
-//     operands (from shared memory where they do not fit, D > 80) and K's
-//     images as B; P V with P as register A operands and V^T's images as
-//     B. TF32 wgmma takes only K-major shared-memory operands, so V is
-//     staged transposed. Operand images are core-matrix layouts without
-//     swizzle (8 x 16-byte rows, 128 B apart along k, 256 B apart along
-//     rows), written whole by the split pass and copied as they are.
-//   - A split pass (split_kv_kernel) reads K and V once per call, with
-//     their strides, and writes each BK-key tile's images: K (BK rows, k
-//     = D) and V^T (DP rows, k = keys), each as a hi and a lo image. Ragged
-//     keys and columns are zero. Splitting once per call instead of per
-//     product matters: the kernel is bound by the instructions it issues
-//     beside its products, not by bytes. Q is split once per work item.
-//   - P V takes P straight from the S accumulator: the accumulator holds
-//     columns (2t, 2t + 1) where the A fragment wants k (t, t + 4), so
-//     V^T's image orders each 8-key chunk 0, 2, 4, 6, 1, 3, 5, 7 instead of
-//     shuffling P (P V sums over keys; only the order of the sum moves).
-//   - Each tile's P V sums into a fresh accumulator that O takes by an
-//     IEEE FFMA: the tensor core adds into its accumulator with truncation,
-//     and over thousands of keys one accumulator ends up 5-10x further
-//     from float64 than the fp32 plain version.
-//   - One persistent block per SM walks a host-built list of (b, h, q
-//     tile) items, longest walk first (ops.flash_work_list). A producer
-//     warpgroup, which gives its registers to the consumers (setmaxnreg),
-//     keeps a ring of two or three K/V tiles filled with bulk copies
-//     (cp.async.bulk, completing on an mbarrier per slot); two consumer
-//     warpgroups of 64 query rows run the products and the online softmax
-//     (in log2 units: one FFMA and one ex2 a score), one's softmax beside
-//     the other's products. A warpgroup skips the tiles its rows mask out
-//     entirely. The main kernel is a programmatic dependent of the split
-//     pass: it starts, and stages Q, while the last split blocks run.
-// * The general path (flash_attention), for everything else: fp32 FMA on
-//   CUDA cores, one block of 256 threads per 64-row q tile, each thread a
-//   4x4 register tile of S and a 4 x D/16 tile of the output.
+// What bounds it: at the serve path's prefill (B 4, Hq 14, L 1000, D 64,
+// causal) the work is 7.2 GFLOP against 33 MB, bound by operations:
+// 0.107 ms at 67 TFLOP/s of fp32 on CUDA cores. TF32 on the tensor cores
+// is 7x faster, but one TF32 pass
+// keeps 10 mantissa bits and misses the port's fp32 tolerance (3e-5) by
+// about 30x. So every product is split TF32 ("3xTF32"): x = hi + lo with
+// hi = tf32(x), lo = tf32(x - hi), rounded to nearest with ties away from
+// zero (cvt.rna), and A.B = lo(A).hi(B) + hi(A).lo(B) + hi(A).hi(B), the
+// small terms first. Bound: 3 x 7.2 GFLOP over 495 TFLOP/s = 0.043 ms.
+// - wgmma.m64nNk8 TF32: S = Q K^T with Q's split fragments as register A
+//   operands (from shared memory where they do not fit, D > 80) and K's
+//   images as B; P V with P as register A operands and V^T's images as
+//   B. TF32 wgmma takes only K-major shared-memory operands, so V is
+//   staged transposed. Operand images are core-matrix layouts without
+//   swizzle (8 x 16-byte rows, 128 B apart along k, 256 B apart along
+//   rows), written whole by the split pass and copied as they are.
+// - A split pass (split_kv_kernel) reads K and V once per call, with
+//   their strides, and writes each BK-key tile's images: K (BK rows, k
+//   = D) and V^T (DP rows, k = keys), each as a hi and a lo image. Ragged
+//   keys and columns are zero. Splitting once per call instead of per
+//   product matters: the kernel is bound by the instructions it issues
+//   beside its products, not by bytes. Q is split once per work item.
+// - P V takes P straight from the S accumulator: the accumulator holds
+//   columns (2t, 2t + 1) where the A fragment wants k (t, t + 4), so
+//   V^T's image orders each 8-key chunk 0, 2, 4, 6, 1, 3, 5, 7 instead of
+//   shuffling P (P V sums over keys; only the order of the sum moves).
+// - Each tile's P V sums into a fresh accumulator that O takes by an
+//   IEEE FFMA: the tensor core adds into its accumulator with truncation,
+//   and over thousands of keys one accumulator ends up 5-10x further
+//   from float64 than the fp32 plain version.
+// - One persistent block per SM walks a host-built list of (b, h, q
+//   tile) items, longest walk first (ops.flash_work_list). A producer
+//   warpgroup, which gives its registers to the consumers (setmaxnreg),
+//   keeps a ring of two or three K/V tiles filled with bulk copies
+//   (cp.async.bulk, completing on an mbarrier per slot); two consumer
+//   warpgroups of 64 query rows run the products and the online softmax
+//   (in log2 units: one FFMA and one ex2 a score), one's softmax beside
+//   the other's products. A warpgroup skips the tiles its rows mask out
+//   entirely. The main kernel is a programmatic dependent of the split
+//   pass: it starts, and stages Q, while the last split blocks run.
+// - Any D from 1 to 128, stride and alignment: Q rows are staged, and
+//   output rows stored, as float4 / float2 where D, the strides and the
+//   base allow, else element by element (D 17, offset views); the split
+//   pass does the same for K and V. The images are always aligned.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr float kNegBig = -1e30f;
-
-// =============================================================================
-// General path: fp32 FMA on CUDA cores
-// =============================================================================
-namespace general {
-
-constexpr int kBQ = 64;                 // query rows per block
-constexpr int kBK = 64;                 // kv rows per tile
-constexpr int kThreads = 256;           // 16 x 16 threads
-constexpr int kPadP = kBK + 16;         // row length of the P tile
-
-// Head dim padded to DP = 16 * NJ (each thread owns NJ output columns);
-// the Q/K tiles' rows are DP + 4 floats long: a multiple of 4 (float4
-// loads) with an odd number of 16-byte groups (no bank conflicts).
-template <int NJ>
-struct Tiles {
-    static constexpr int DP = 16 * NJ;
-    static constexpr int R = DP + 4;
-    static constexpr int kQ = 0;                      // q  [kBQ][R]
-    static constexpr int kK = kQ + kBQ * R;           // k  [kBK][R]
-    static constexpr int kV = kK + kBK * R;           // v  [kBK][DP]
-    static constexpr int kP = kV + kBK * DP;          // p  [kBQ][kPadP]
-    static constexpr int kFloats = kP + kBQ * kPadP;
-    static constexpr size_t kBytes = sizeof(float) * kFloats;
-};
-
-template <int NJ>
-__global__ void __launch_bounds__(kThreads, 2)
-flash_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-             float* __restrict__ out, int group, int lq, int lk, int d,
-             long long qsb, long long qsh, long long qsl,
-             long long ksb, long long ksh, long long ksl,
-             long long vsb, long long vsh, long long vsl,
-             long long osb, long long osh, long long osl,
-             float scale, int causal, int window)
-{
-    using T = Tiles<NJ>;
-    constexpr int DP = T::DP, R = T::R;
-    extern __shared__ float4 smem4[];
-    float* smem = reinterpret_cast<float*>(smem4);
-    float* qs = smem + T::kQ;
-    float* ks = smem + T::kK;
-    float* vs = smem + T::kV;
-    float* ps = smem + T::kP;
-
-    const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-    const int qt = gridDim.x - 1 - blockIdx.x;  // causal: the longest walks start first
-    const int h = blockIdx.y, b = blockIdx.z;
-    const int q0 = qt * kBQ;
-    const int q_rows = min(kBQ, lq - q0);
-    const float* qb = q + b * qsb + h * qsh;
-    const float* kb = k + b * ksb + (h / group) * ksh;
-    const float* vb = v + b * vsb + (h / group) * vsh;
-
-    for (int i = tid; i < kBQ * DP; i += kThreads) {
-        const int r = i / DP, c = i % DP;
-        qs[r * R + c] = (r < q_rows && c < d) ? qb[(q0 + r) * qsl + c] : 0.f;
-    }
-
-    // live kv tiles: [t_lo, t_hi]
-    const int q_last = q0 + q_rows - 1;
-    int t_lo = 0;
-    if (window > 0 && q0 - window + 1 > 0) t_lo = (q0 - window + 1) / kBK;
-    int t_hi = (lk - 1) / kBK;
-    if (causal) t_hi = min(t_hi, q_last / kBK);
-
-    float m_r[4], l_r[4], acc[4][NJ];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        m_r[i] = kNegBig;
-        l_r[i] = 0.f;
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
-    }
-
-    for (int t = t_lo; t <= t_hi; ++t) {
-        const int k0 = t * kBK;
-        __syncthreads();  // the previous tile's K, V and P are consumed
-        for (int i = tid; i < kBK * DP; i += kThreads) {
-            const int r = i / DP, c = i % DP;
-            const bool in = k0 + r < lk && c < d;
-            ks[r * R + c] = in ? kb[(k0 + r) * ksl + c] : 0.f;
-            vs[r * DP + c] = in ? vb[(k0 + r) * vsl + c] : 0.f;
-        }
-        __syncthreads();
-
-        // S = Q K^T: rows ty + 16 i, columns tx + 16 j
-        float s[4][4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-        for (int c = 0; c < DP; c += 4) {
-            float4 a[4], bk[4];
-#pragma unroll
-            for (int i = 0; i < 4; ++i) a[i] = *reinterpret_cast<const float4*>(qs + (ty + 16 * i) * R + c);
-#pragma unroll
-            for (int j = 0; j < 4; ++j) bk[j] = *reinterpret_cast<const float4*>(ks + (tx + 16 * j) * R + c);
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-#pragma unroll
-                for (int j = 0; j < 4; ++j) {
-                    s[i][j] = fmaf(a[i].x, bk[j].x, s[i][j]);
-                    s[i][j] = fmaf(a[i].y, bk[j].y, s[i][j]);
-                    s[i][j] = fmaf(a[i].z, bk[j].z, s[i][j]);
-                    s[i][j] = fmaf(a[i].w, bk[j].w, s[i][j]);
-                }
-        }
-
-        // scale, mask, online softmax; a row's 64 scores sit in the 16
-        // threads of one half-warp (same ty), reduced with xor shuffles
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-            const int qi = q0 + ty + 16 * i;
-            float mx = kNegBig;
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-                const int kj = k0 + tx + 16 * j;
-                bool live = kj < lk;
-                if (causal) live = live && kj <= qi;
-                if (window > 0) live = live && kj > qi - window;
-                s[i][j] = live ? s[i][j] * scale : kNegBig;
-                mx = fmaxf(mx, s[i][j]);
-            }
-#pragma unroll
-            for (int off = 8; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-            const float m_new = fmaxf(m_r[i], mx);
-            const float corr = expf(m_r[i] - m_new);
-            float sum = 0.f;
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-                s[i][j] = expf(s[i][j] - m_new);
-                sum += s[i][j];
-                ps[(ty + 16 * i) * kPadP + tx + 16 * j] = s[i][j];
-            }
-#pragma unroll
-            for (int off = 8; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-            l_r[i] = l_r[i] * corr + sum;
-            m_r[i] = m_new;
-#pragma unroll
-            for (int j = 0; j < NJ; ++j) acc[i][j] *= corr;
-        }
-        __syncthreads();
-
-        // acc += P V: rows ty + 16 i, columns tx + 16 j
-#pragma unroll 2
-        for (int c = 0; c < kBK; c += 4) {
-            float4 p4[4];
-#pragma unroll
-            for (int i = 0; i < 4; ++i) p4[i] = *reinterpret_cast<const float4*>(ps + (ty + 16 * i) * kPadP + c);
-#pragma unroll
-            for (int j = 0; j < NJ; ++j) {
-                const float v0 = vs[(c + 0) * DP + tx + 16 * j];
-                const float v1 = vs[(c + 1) * DP + tx + 16 * j];
-                const float v2 = vs[(c + 2) * DP + tx + 16 * j];
-                const float v3 = vs[(c + 3) * DP + tx + 16 * j];
-#pragma unroll
-                for (int i = 0; i < 4; ++i) {
-                    float a = acc[i][j];
-                    a = fmaf(p4[i].x, v0, a);
-                    a = fmaf(p4[i].y, v1, a);
-                    a = fmaf(p4[i].z, v2, a);
-                    a = fmaf(p4[i].w, v3, a);
-                    acc[i][j] = a;
-                }
-            }
-        }
-    }
-
-    float* ob = out + b * osb + h * osh;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        const int r = ty + 16 * i;
-        if (r >= q_rows) continue;
-        const float inv = 1.f / fmaxf(l_r[i], 1e-30f);
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-            const int c = tx + 16 * j;
-            if (c < d) ob[(q0 + r) * osl + c] = acc[i][j] * inv;
-        }
-    }
-}
-
-template <int NJ>
-cudaError_t launch(const float* q, const float* k, const float* v, float* out,
-                   int b, int hq, int hk, int lq, int lk, int d,
-                   long long qsb, long long qsh, long long qsl,
-                   long long ksb, long long ksh, long long ksl,
-                   long long vsb, long long vsh, long long vsl,
-                   long long osb, long long osh, long long osl,
-                   float scale, int causal, int window, cudaStream_t stream)
-{
-    constexpr size_t bytes = Tiles<NJ>::kBytes;
-    // once per instantiation (the port drives one card)
-    static const cudaError_t attr = cudaFuncSetAttribute(
-        flash_kernel<NJ>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
-    if (attr != cudaSuccess) return attr;
-    const dim3 grid((lq + kBQ - 1) / kBQ, hq, b);
-    flash_kernel<NJ><<<grid, kThreads, bytes, stream>>>(
-        q, k, v, out, hq / hk, lq, lk, d, qsb, qsh, qsl, ksb, ksh, ksl, vsb, vsh, vsl, osb, osh, osl,
-        scale, causal, window);
-    return cudaGetLastError();
-}
-
-}  // namespace general
-
-// =============================================================================
-// Tensor-core path: split TF32 on wgmma
-// =============================================================================
-namespace tc {
 
 constexpr int kWGs = 2;                          // consumer warpgroups of 64 query rows
 constexpr int kConsumers = 4 * kWGs;             // consumer warps
@@ -633,12 +419,12 @@ __device__ __forceinline__ float tree(float (&x)[N]) {
 
 template <int NJ>
 __global__ void __launch_bounds__(kThreads, 1)
-flash_tc_kernel(const float* __restrict__ q, const float* __restrict__ kimg, const float* __restrict__ vimg,
+flash_kernel(const float* __restrict__ q, const float* __restrict__ kimg, const float* __restrict__ vimg,
                 float* __restrict__ out, const int* __restrict__ work,
                 int hq, int hk, int lq, int lk, int d, int qtiles, int ktiles,
                 long long qsb, long long qsh, long long qsl,
                 long long osb, long long osh, long long osl,
-                float scale, int causal, int window)
+                float scale, int causal, int window, int qvec, int ovec)
 {
     using C = Cfg<NJ>;
     constexpr int DP = C::DP, KS = C::KS, NT = C::NT, BK = C::BK, IMG = C::kImageFloats;
@@ -710,11 +496,21 @@ flash_tc_kernel(const float* __restrict__ q, const float* __restrict__ kimg, con
         asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");  // the previous item's products are done
 #pragma unroll 4
         for (int x = tid; x < kWGRows * (DP / 4); x += 128) {
-            const int r = x / (DP / 4), c4 = x % (DP / 4);
+            const int r = x / (DP / 4), c = 4 * (x % (DP / 4));
             float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-            if (qg0 + r < lq && 4 * c4 < d) val = *reinterpret_cast<const float4*>(qb + (qg0 + r) * qsl + 4 * c4);
+            if (qg0 + r < lq && c < d) {
+                const float* row = qb + (qg0 + r) * qsl + c;
+                if (qvec) {
+                    val = *reinterpret_cast<const float4*>(row);
+                } else {  // any D, stride and base: element by element
+                    val.x = row[0];
+                    if (c + 1 < d) val.y = row[1];
+                    if (c + 2 < d) val.z = row[2];
+                    if (c + 3 < d) val.w = row[3];
+                }
+            }
             float4 low;
-            const int at = image_at<kWGRows>(r, 4 * c4);
+            const int at = image_at<kWGRows>(r, c);
             *reinterpret_cast<float4*>(qhi + at) = hi4(val, low);
             *reinterpret_cast<float4*>(qlo + at) = low;
         }
@@ -871,20 +667,25 @@ flash_tc_kernel(const float* __restrict__ q, const float* __restrict__ kimg, con
 #pragma unroll
             for (int j = 0; j < KS; ++j) {
                 const int col = j * 8 + 2 * tq;
-                if (col < d)
-                    *reinterpret_cast<float2*>(ob + qi * osl + col) =
-                        make_float2(acc[4 * j + 2 * r] * inv, acc[4 * j + 2 * r + 1] * inv);
+                if (col >= d) continue;
+                float* o = ob + qi * osl + col;
+                const float x0 = acc[4 * j + 2 * r] * inv, x1 = acc[4 * j + 2 * r + 1] * inv;
+                if (ovec) {
+                    *reinterpret_cast<float2*>(o) = make_float2(x0, x1);
+                } else {
+                    o[0] = x0;
+                    if (col + 1 < d) o[1] = x1;
+                }
             }
         }
     }
 }
 
-bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+bool aligned(const void* p, int bytes) { return reinterpret_cast<uintptr_t>(p) % bytes == 0; }
 
 template <int NJ>
 cudaError_t launch(const float* q, const float* k, const float* v, float* out, float* kimg, float* vimg,
-                   const int* work, int blocks, int bq, int bk,
-                   int b, int hq, int hk, int lq, int lk, int d,
+                   const int* work, int blocks, int b, int hq, int hk, int lq, int lk, int d,
                    long long qsb, long long qsh, long long qsl,
                    long long ksb, long long ksh, long long ksl,
                    long long vsb, long long vsh, long long vsl,
@@ -892,15 +693,18 @@ cudaError_t launch(const float* q, const float* k, const float* v, float* out, f
                    float scale, int causal, int window, cudaStream_t stream)
 {
     using C = Cfg<NJ>;
-    if (bq != kBQ || bk != C::BK) return cudaErrorInvalidValue;  // the wrapper's tiles are not these
     // once per instantiation (the port drives one card)
     static const cudaError_t attr = cudaFuncSetAttribute(
-        flash_tc_kernel<NJ>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(C::kBytes));
+        flash_kernel<NJ>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(C::kBytes));
     if (attr != cudaSuccess) return attr;
     const int ktiles = (lk + C::BK - 1) / C::BK;
-    const int vec = d % 4 == 0 && aligned16(k) && aligned16(v) && (ksb | ksh | ksl | vsb | vsh | vsl) % 4 == 0;
+    // vector loads and stores where rows are whole float4s (float2s for the
+    // output): D, the strides and the base all multiples of them
+    const int kvvec = d % 4 == 0 && aligned(k, 16) && aligned(v, 16) && (ksb | ksh | ksl | vsb | vsh | vsl) % 4 == 0;
+    const int qvec = d % 4 == 0 && aligned(q, 16) && (qsb | qsh | qsl) % 4 == 0;
+    const int ovec = d % 2 == 0 && aligned(out, 8) && (osb | osh | osl) % 2 == 0;
     split_kv_kernel<NJ><<<dim3(ktiles, hk, b), kSplitThreads, 0, stream>>>(
-        k, v, kimg, vimg, hk, lk, d, ktiles, ksb, ksh, ksl, vsb, vsh, vsl, vec);
+        k, v, kimg, vimg, hk, lk, d, ktiles, ksb, ksh, ksl, vsb, vsh, vsl, kvvec);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     // launched as a programmatic dependent of the split pass: its blocks may
@@ -915,13 +719,11 @@ cudaError_t launch(const float* q, const float* k, const float* v, float* out, f
     pdl[0].val.programmaticStreamSerializationAllowed = 1;
     cfg.attrs = pdl;
     cfg.numAttrs = 1;
-    err = cudaLaunchKernelEx(&cfg, flash_tc_kernel<NJ>, q, static_cast<const float*>(kimg),
+    err = cudaLaunchKernelEx(&cfg, flash_kernel<NJ>, q, static_cast<const float*>(kimg),
                              static_cast<const float*>(vimg), out, work, hq, hk, lq, lk, d, (lq + kBQ - 1) / kBQ,
-                             ktiles, qsb, qsh, qsl, osb, osh, osl, scale, causal, window);
+                             ktiles, qsb, qsh, qsl, osb, osh, osl, scale, causal, window, qvec, ovec);
     return err != cudaSuccess ? err : cudaGetLastError();
 }
-
-}  // namespace tc
 
 bool bad_shape(int b, int hq, int hk, int lq, int lk, int d) {
     return b < 1 || hq < 1 || hk < 1 || hq % hk != 0 || lq < 1 || lk < 1 || d < 1 || d > 128;
@@ -929,10 +731,15 @@ bool bad_shape(int b, int hq, int hk, int lq, int lk, int d) {
 
 }  // namespace
 
-// The general path. q (B, Hq, Lq, D), k and v (B, Hk, Lk, D), out (B, Hq,
-// Lq, D): fp32, unit stride along D, element strides for b, h, l.
-// window <= 0: no window.
+// q (B, Hq, Lq, D), k and v (B, Hk, Lk, D), out (B, Hq, Lq, D): fp32, unit
+// stride along D, element strides for b, h, l; window <= 0: no window. kimg
+// and vimg: the split images' scratch (B * Hk * ceil(Lk / bk) * bk * DP * 2
+// floats each, 16-byte aligned; flash_tiles gives DP and bk). work: the
+// work list (int32: blocks + 1 offsets, then the items (b * Hq + h) *
+// ceil(Lq / bq) + q tile; block i takes items [work[i], work[i + 1])), built
+// for flash_tiles' bq and bk.
 extern "C" int flash_attention(const float* q, const float* k, const float* v, float* out,
+                               float* kimg, float* vimg, const int* work, int blocks,
                                int b, int hq, int hk, int lq, int lk, int d,
                                long long qsb, long long qsh, long long qsl,
                                long long ksb, long long ksh, long long ksl,
@@ -940,12 +747,13 @@ extern "C" int flash_attention(const float* q, const float* k, const float* v, f
                                long long osb, long long osh, long long osl,
                                float scale, int causal, int window, cudaStream_t stream)
 {
-    if (bad_shape(b, hq, hk, lq, lk, d)) return static_cast<int>(cudaErrorInvalidValue);
-#define REPRO_FLASH_CASE(NJ)                                                                       \
-    case NJ:                                                                                       \
-        return static_cast<int>(general::launch<NJ>(q, k, v, out, b, hq, hk, lq, lk, d, qsb, qsh, qsl, \
-                                                    ksb, ksh, ksl, vsb, vsh, vsl, osb, osh, osl, scale, \
-                                                    causal, window, stream));
+    if (bad_shape(b, hq, hk, lq, lk, d) || blocks < 1 || !aligned(kimg, 16) || !aligned(vimg, 16))
+        return static_cast<int>(cudaErrorInvalidValue);
+#define REPRO_FLASH_CASE(NJ)                                                                           \
+    case NJ:                                                                                           \
+        return static_cast<int>(launch<NJ>(q, k, v, out, kimg, vimg, work, blocks, b, hq, hk, lq, lk, d, \
+                                           qsb, qsh, qsl, ksb, ksh, ksl, vsb, vsh, vsl, osb, osh, osl,   \
+                                           scale, causal, window, stream));
     switch ((d + 15) / 16) {
         REPRO_FLASH_CASE(1)
         REPRO_FLASH_CASE(2)
@@ -960,53 +768,14 @@ extern "C" int flash_attention(const float* q, const float* k, const float* v, f
     return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The tensor-core path: the operands of flash_attention, plus the split
-// images' scratch (kimg, vimg: B * Hk * ceil(Lk / bk) * bk * DP * 2 floats
-// each, 16-byte aligned), the work list (int32: blocks + 1 offsets, then
-// the items (b * Hq + h) * ceil(Lq / bq) + q tile; block i takes items
-// [work[i], work[i + 1])) and the tiles (bq, bk) the wrapper built it for,
-// which must be the ones compiled for this D. Takes D % 4 == 0 with q and
-// out 16-byte aligned and their strides multiples of 4 floats.
-extern "C" int flash_attention_tc(const float* q, const float* k, const float* v, float* out,
-                                  float* kimg, float* vimg, const int* work, int blocks, int bq, int bk,
-                                  int b, int hq, int hk, int lq, int lk, int d,
-                                  long long qsb, long long qsh, long long qsl,
-                                  long long ksb, long long ksh, long long ksl,
-                                  long long vsb, long long vsh, long long vsl,
-                                  long long osb, long long osh, long long osl,
-                                  float scale, int causal, int window, cudaStream_t stream)
-{
-    if (bad_shape(b, hq, hk, lq, lk, d) || d % 4 != 0 || blocks < 1 || !tc::aligned16(q) ||
-        !tc::aligned16(out) || !tc::aligned16(kimg) || !tc::aligned16(vimg) ||
-        (qsb | qsh | qsl | osb | osh | osl) % 4 != 0)
-        return static_cast<int>(cudaErrorInvalidValue);
-#define REPRO_FLASH_TC_CASE(NJ)                                                                        \
-    case NJ:                                                                                           \
-        return static_cast<int>(tc::launch<NJ>(q, k, v, out, kimg, vimg, work, blocks, bq, bk, b, hq, hk, \
-                                               lq, lk, d, qsb, qsh, qsl, ksb, ksh, ksl, vsb, vsh, vsl, osb, \
-                                               osh, osl, scale, causal, window, stream));
-    switch ((d + 15) / 16) {
-        REPRO_FLASH_TC_CASE(1)
-        REPRO_FLASH_TC_CASE(2)
-        REPRO_FLASH_TC_CASE(3)
-        REPRO_FLASH_TC_CASE(4)
-        REPRO_FLASH_TC_CASE(5)
-        REPRO_FLASH_TC_CASE(6)
-        REPRO_FLASH_TC_CASE(7)
-        REPRO_FLASH_TC_CASE(8)
-    }
-#undef REPRO_FLASH_TC_CASE
-    return static_cast<int>(cudaErrorInvalidValue);
-}
-
-// The tensor-core path's tiles for head dim d: field 0 the padded D, 1 the
-// kv tile (bk), 2 the query rows a block owns (bq); -1 for d out of range.
-extern "C" int flash_tc_tiles(int d, int field)
+// The tiles for head dim d: field 0 the padded D, 1 the kv tile (bk), 2 the
+// query rows a block owns (bq); -1 for d out of range.
+extern "C" int flash_tiles(int d, int field)
 {
     if (d < 1 || d > 128 || field < 0 || field > 2) return -1;
 #define REPRO_FLASH_TILES(NJ) \
     case NJ:                  \
-        return field == 0 ? tc::Cfg<NJ>::DP : field == 1 ? tc::Cfg<NJ>::BK : tc::kBQ;
+        return field == 0 ? Cfg<NJ>::DP : field == 1 ? Cfg<NJ>::BK : kBQ;
     switch ((d + 15) / 16) {
         REPRO_FLASH_TILES(1)
         REPRO_FLASH_TILES(2)
@@ -1020,66 +789,3 @@ extern "C" int flash_tc_tiles(int d, int field)
 #undef REPRO_FLASH_TILES
     return -1;
 }
-
-#ifdef FLASH_MMA_RATE
-// tools/time_flash.py --mma-rate: the card's rate of TF32 tensor-core
-// products, `blocks` blocks of `warps` warps, `iters` rounds. kind 0:
-// mma.sync.m16n8k8 into `acc` independent accumulators a warp; kind 1:
-// wgmma.m64n64k8 with both operands in shared memory, one accumulator a
-// warpgroup (`acc` ignored). Built only with -DFLASH_MMA_RATE.
-namespace {
-template <int ACC>
-__global__ void mma_rate_kernel(float* out, int iters) {
-    uint32_t a[4];
-    for (int e = 0; e < 4; ++e) a[e] = __float_as_uint(threadIdx.x * 1e-3f + e) & 0xffffe000u;
-    const uint32_t b0 = __float_as_uint(1.5f), b1 = __float_as_uint(0.25f);
-    float c[ACC][4] = {};
-    for (int it = 0; it < iters; ++it) {
-#pragma unroll
-        for (int x = 0; x < ACC; ++x)
-            asm volatile(
-                "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-                "{%0, %1, %2, %3};\n"
-                : "+f"(c[x][0]), "+f"(c[x][1]), "+f"(c[x][2]), "+f"(c[x][3])
-                : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-    }
-    float sum = 0.f;
-    for (int x = 0; x < ACC; ++x)
-        for (int e = 0; e < 4; ++e) sum += c[x][e];
-    if (sum == 1234.5f) out[threadIdx.x] = sum;  // keeps the products
-}
-
-__global__ void wgmma_rate_kernel(float* out, int iters) {
-    __shared__ __align__(128) float tiles[2 * 64 * 8];
-    for (int i = threadIdx.x; i < 2 * 64 * 8; i += blockDim.x) tiles[i] = 1e-3f * (i & 63);
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    __syncthreads();
-    const uint64_t da = tc::image_desc(tiles), db = tc::image_desc(tiles + 64 * 8);
-    float d[32];
-    tc::wgmma_fence();
-    tc::wgmma_ss<64>(d, da, db, 0);
-    for (int it = 1; it < iters; ++it) tc::wgmma_ss<64>(d, da, db, 1);
-    tc::wgmma_wait();
-    float sum = 0.f;
-    for (int i = 0; i < 32; ++i) sum += d[i];
-    if (sum == 1234.5f) out[threadIdx.x] = sum;
-}
-}  // namespace
-
-extern "C" int flash_mma_rate(float* out, int blocks, int warps, int iters, int acc, int kind, cudaStream_t stream)
-{
-    if (blocks < 1 || warps < 1 || warps > 32 || iters < 1 || (kind == 1 && warps % 4 != 0))
-        return static_cast<int>(cudaErrorInvalidValue);
-    if (kind == 1) {
-        wgmma_rate_kernel<<<blocks, 32 * warps, 0, stream>>>(out, iters);
-        return static_cast<int>(cudaGetLastError());
-    }
-    switch (acc) {
-        case 1: mma_rate_kernel<1><<<blocks, 32 * warps, 0, stream>>>(out, iters); break;
-        case 4: mma_rate_kernel<4><<<blocks, 32 * warps, 0, stream>>>(out, iters); break;
-        case 16: mma_rate_kernel<16><<<blocks, 32 * warps, 0, stream>>>(out, iters); break;
-        default: return static_cast<int>(cudaErrorInvalidValue);
-    }
-    return static_cast<int>(cudaGetLastError());
-}
-#endif

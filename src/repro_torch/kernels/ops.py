@@ -38,7 +38,7 @@ PAIRWISE_THIN_DIM = 32  # kThinMaxD
 MAX_LANES = 65535
 MAX_PAIRWISE_COLS = 65535 * 32  # kTileM y rows per block of the general path
 MAX_HEAD_DIM = 128  # largest head dim the flash kernel takes (flash_attention.cu)
-MAX_GRID_YZ = 65535  # grid limit on heads and batch (flash_attention.cu)
+MAX_GRID_YZ = 65535  # grid limit on heads and batch (flash_attention.cu's split pass)
 
 _count_lock = threading.Lock()
 
@@ -377,36 +377,9 @@ def pairwise_sq_dists_batched(x: torch.Tensor, y: torch.Tensor | None = None) ->
 # -----------------------------------------------------------------------------
 # Flash attention (csrc/flash_attention.cu)
 # -----------------------------------------------------------------------------
-FLASH_PATHS = ("tensor_core", "general")
-FLASH_TC_BQ = 128  # query rows of a tensor-core block: two warpgroups of 64 (flash_attention.cu tc::kBQ)
-
-
-def flash_tc_tiles(d: int) -> tuple[int, int, int]:
-    """(padded D, kv tile bk, query rows a block bq) the tensor-core path
-    compiles for head dim ``d`` (flash_attention.cu ``tc::Cfg``; the C entry
-    refuses other tiles)."""
-    if not 1 <= d <= MAX_HEAD_DIM:
-        raise ValueError(f"the flash-attention kernel takes head dim 1..{MAX_HEAD_DIM}, got {d}")
-    dp = 16 * math.ceil(d / 16)
-    return dp, 64 if dp <= 64 else 32 if dp <= 96 else 16, FLASH_TC_BQ
-
-
-def flash_path(q: torch.Tensor, out: torch.Tensor) -> str:
-    """Which kernel a launch takes: ``"tensor_core"`` when D % 4 == 0 and q
-    and out start on 16 bytes with b/h/l strides that are multiples of 4
-    floats (the tensor-core path loads Q rows as float4 and stores pairs of
-    output columns); ``"general"`` otherwise. K and V take any strides on
-    both paths: the tensor-core path reads them once, element by element,
-    into its split images."""
-    tc = q.shape[-1] % 4 == 0 and all(
-        t.data_ptr() % 16 == 0 and all(s % 4 == 0 for s in t.stride()[:3]) for t in (q, out)
-    )
-    return "tensor_core" if tc else "general"
-
-
 def flash_kv_tiles(q0: int, bq: int, bk: int, lq: int, lk: int, causal: bool, window: int | None) -> tuple[int, int]:
     """The live kv tiles [lo, hi] of query rows [q0, min(q0 + bq, lq)): the
-    tiles the kernel walks for one item (flash_attention.cu ``tc::kv_tiles``)."""
+    tiles the kernel walks for one item (flash_attention.cu ``kv_tiles``)."""
     lo = (q0 - window + 1) // bk if window and q0 - window + 1 > 0 else 0
     hi = (lk - 1) // bk
     if causal:
@@ -414,11 +387,10 @@ def flash_kv_tiles(q0: int, bq: int, bk: int, lq: int, lk: int, causal: bool, wi
     return lo, hi
 
 
-@functools.lru_cache(maxsize=256)
 def flash_work_list(
     b: int, hq: int, hk: int, lq: int, lk: int, causal: bool, window: int | None, bq: int, bk: int, blocks: int
 ) -> tuple[tuple[int, ...], tuple[int, ...]]:
-    """The tensor-core path's schedule: ``(offsets, items)``, block i walking
+    """The kernel's schedule: ``(offsets, items)``, block i walking
     ``items[offsets[i]:offsets[i + 1]]``. An item is one q tile of one
     (batch, query head), ``(b * Hq + h) * ceil(Lq / bq) + q tile``; its cost
     is its count of live kv tiles. Items are dealt longest first, each to the
@@ -453,42 +425,31 @@ def flash_work_list(
 _flash_work_cache: dict = {}
 
 
-def _flash_work(device: torch.device, key: tuple) -> tuple[torch.Tensor, int]:
-    """The work list of ``key`` (flash_work_list's arguments) as one int32
-    tensor on ``device`` (offsets, then items) and its block count; copied to
-    the device once per shape."""
-    hit = _flash_work_cache.get((device, key))
-    if hit is None:
-        offsets, items = flash_work_list(*key)
-        if len(_flash_work_cache) >= 256:
-            _flash_work_cache.clear()
-        tensor = torch.tensor(offsets + items, dtype=torch.int32, device=device)
-        hit = _flash_work_cache[(device, key)] = (tensor, len(offsets) - 1)
-    return hit
-
-
-def _flash_launch(q, k, v, out, scale: float, causal: bool, window: int | None) -> str:
-    """Launch the path ``flash_path`` picks; returns its name. The
-    tensor-core path's K/V images are scratch from ``torch.empty``."""
+def _flash_launch(q, k, v, out, scale: float, causal: bool, window: int | None) -> None:
+    """Launch the kernel: its tiles come from the library (``flash_tiles``),
+    its K/V images are scratch from ``torch.empty``, and its work list is
+    copied to the device once per shape."""
     b, hq, lq, d = q.shape
     _, hk, lk, _ = k.shape
-    path = flash_path(q, out)
-    strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
-    tail = (b, hq, hk, lq, lk, d, *strides, scale, int(causal), window or 0, _stream(q))
     lib = build.load("flash_attention")
-    if path == "general":
-        rc = lib.flash_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *tail)
-    else:
-        dp, bk, bq = flash_tc_tiles(d)
-        image = b * hk * math.ceil(lk / bk) * bk * dp * 2  # floats of the K (and of the V) image
-        images = torch.empty(2 * image, device=q.device, dtype=torch.float32)
-        work, blocks = _flash_work(q.device, (b, hq, hk, lq, lk, causal, window, bq, bk, _sm_count(q.device)))
-        rc = lib.flash_attention_tc(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), images.data_ptr(),
-            images.data_ptr() + 4 * image, work.data_ptr(), blocks, bq, bk, *tail,
-        )
-    _check(rc, f"flash_attention ({path} path)")
-    return path
+    dp, bk, bq = (lib.flash_tiles(d, field) for field in range(3))
+    key = (q.device, b, hq, hk, lq, lk, causal, window, bq, bk)
+    hit = _flash_work_cache.get(key)
+    if hit is None:
+        offsets, items = flash_work_list(*key[1:], _sm_count(q.device))
+        if len(_flash_work_cache) >= 256:
+            _flash_work_cache.clear()
+        tensor = torch.tensor(offsets + items, dtype=torch.int32, device=q.device)
+        hit = _flash_work_cache[key] = (tensor, len(offsets) - 1)
+    work, blocks = hit
+    image = b * hk * math.ceil(lk / bk) * bk * dp * 2  # floats of the K (and of the V) image
+    images = torch.empty(2 * image, device=q.device, dtype=torch.float32)
+    strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
+    rc = lib.flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), images.data_ptr(), images.data_ptr() + 4 * image,
+        work.data_ptr(), blocks, b, hq, hk, lq, lk, d, *strides, scale, int(causal), window or 0, _stream(q),
+    )
+    _check(rc, "flash_attention")
 
 
 def flash_attention(
@@ -505,9 +466,7 @@ def flash_attention(
     ``scale`` defaults to D^-0.5 and multiplies q.k. Causal or windowed
     attention takes Lq == Lk only (query row i is position i, as in the TPU
     kernel). On the card the operands may be strided views (unit stride along
-    D); the output has q's layout. The card takes the tensor-core path or the
-    general one by ``flash_path``; ``flash_attention.path_launches`` counts
-    each.
+    D); the output has q's layout.
     """
     if not q.dim() == k.dim() == v.dim() == 4:
         raise ValueError("flash_attention takes 4-D (B, H, L, D) operands")
@@ -530,10 +489,8 @@ def flash_attention(
     if min(b, lq, lk) < 1 or max(b, hq) > MAX_GRID_YZ:
         raise ValueError(f"the flash-attention kernel takes 1 <= B, Hq <= {MAX_GRID_YZ} and non-empty L")
     out = torch.empty_like(q)  # q's layout when q is dense (a transposed view included)
-    path = _flash_launch(q, k, v, out, scale, causal, window)
-    with _count_lock:
-        flash_attention.launches += 1
-        flash_attention.path_launches[path] += 1
+    _flash_launch(q, k, v, out, scale, causal, window)
+    _count(flash_attention)
     return out
 
 
@@ -545,14 +502,10 @@ for _wrapper in KERNEL_WRAPPERS:
     _wrapper.launches = 0
 
 
-flash_attention.path_launches = dict.fromkeys(FLASH_PATHS, 0)
-
-
 def reset_launch_counts() -> None:
     with _count_lock:
         for wrapper in KERNEL_WRAPPERS:
             wrapper.launches = 0
-        flash_attention.path_launches = dict.fromkeys(FLASH_PATHS, 0)
 
 
 def launch_counts() -> dict[str, int]:

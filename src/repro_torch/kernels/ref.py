@@ -82,8 +82,8 @@ def attention(
 
 
 # -----------------------------------------------------------------------------
-# Split TF32: the arithmetic of the flash kernel's tensor-core path. Used by
-# the tests only; the wrappers' plain path is ``attention``.
+# Split TF32: the arithmetic of the flash kernel on the card. Used by the
+# tests only; the wrappers' plain path is ``attention``.
 # -----------------------------------------------------------------------------
 def tf32_round(x: torch.Tensor) -> torch.Tensor:
     """float32 to the nearest TF32 value (10 stored mantissa bits), ties away
@@ -116,7 +116,7 @@ def attention_3xtf32(
     scale: float | None = None,
 ) -> torch.Tensor:
     """``attention`` in float32 with both products in split TF32, as the
-    flash kernel's tensor-core path computes them: S = Q K^T in three TF32
+    flash kernel computes them on the card: S = Q K^T in three TF32
     passes, then the unnormalized P = exp(S - max) times V in three passes,
     divided by the row sum."""
     lq, d = q.shape[-2:]

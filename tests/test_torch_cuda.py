@@ -15,7 +15,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.device import resolve  # noqa: E402
-from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import build, ops, ref  # noqa: E402
 
 MU_TOL = dict(rtol=3e-5, atol=3e-5)  # tests/test_kernels.py fp32 MU tolerance
 SUMS_TOL = dict(rtol=1e-4, atol=1e-3)  # tests/test_kernels.py fp32 distance tolerance
@@ -399,17 +399,18 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
 FLASH_TOL = dict(rtol=3e-5, atol=3e-5)  # tests/test_kernels.py::test_flash_attention
 
 
-FLASH_CASES = [  # (b, hq, hk, lq, lk, d, causal, window, the path the wrapper's rule names)
-    (2, 14, 2, 1000, 1000, 64, True, None, "tensor_core"),  # qwen2: group 7, ragged L
-    (1, 8, 2, 333, 333, 80, True, 100, "tensor_core"),      # h2o-danube head dim, window bites, ragged
-    (1, 4, 1, 64, 64, 32, True, 24, "tensor_core"),         # MQA + window inside one tile
-    (2, 6, 3, 70, 45, 17, False, None, "general"),          # non-causal, Lq != Lk, odd D
-    (1, 2, 2, 256, 256, 128, True, None, "tensor_core"),    # largest head dim
-    (3, 4, 4, 1, 1, 16, True, None, "tensor_core"),         # one row
-    (2, 6, 3, 70, 45, 16, False, None, "tensor_core"),      # non-causal, Lq != Lk, D % 4 == 0
-    (1, 4, 2, 300, 300, 96, True, None, "tensor_core"),     # 32-key tiles
-    (1, 3, 3, 517, 517, 112, True, 77, "tensor_core"),      # 16-key tiles, window
-    (2, 4, 2, 129, 129, 4, True, None, "tensor_core"),      # smallest D the tensor-core path takes
+FLASH_CASES = [  # (b, hq, hk, lq, lk, d, causal, window)
+    (2, 14, 2, 1000, 1000, 64, True, None),  # qwen2: group 7, ragged L
+    (1, 8, 2, 333, 333, 80, True, 100),      # h2o-danube head dim, window bites, ragged
+    (1, 4, 1, 64, 64, 32, True, 24),         # MQA + window inside one tile
+    (2, 6, 3, 70, 45, 17, False, None),      # non-causal, Lq != Lk, odd D: element-by-element rows
+    (1, 2, 2, 256, 256, 128, True, None),    # largest head dim
+    (3, 4, 4, 1, 1, 16, True, None),         # one row
+    (2, 6, 3, 70, 45, 16, False, None),      # non-causal, Lq != Lk, D % 4 == 0
+    (1, 4, 2, 300, 300, 96, True, None),     # 32-key tiles
+    (1, 3, 3, 517, 517, 112, True, 77),      # 16-key tiles, window
+    (2, 4, 2, 129, 129, 4, True, None),      # D 4
+    (1, 2, 1, 100, 100, 1, True, None),      # D 1
 ]
 
 
@@ -422,80 +423,73 @@ def _flash_inputs(dev, b, hq, hk, lq, lk, d):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,hq,hk,lq,lk,d,causal,window,path", FLASH_CASES)
-def test_flash_kernel_matches_plain(b, hq, hk, lq, lk, d, causal, window, path):
+@pytest.mark.parametrize("b,hq,hk,lq,lk,d,causal,window", FLASH_CASES)
+def test_flash_kernel_matches_plain(b, hq, hk, lq, lk, d, causal, window):
     dev = card()
     q, k, v = _flash_inputs(dev, b, hq, hk, lq, lk, d)
     before = ops.flash_attention.launches
-    paths = dict(ops.flash_attention.path_launches)
     got = ops.flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     assert ops.flash_attention.launches == before + 1
-    assert ops.flash_attention.path_launches[path] == paths[path] + 1
     torch.testing.assert_close(got, ref.attention(q, k, v, causal=causal, window=window), **FLASH_TOL)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", [0, 1, 3, 6], ids=lambda i: FLASH_CASES[i][-1] + f"-{i}")
+@pytest.mark.parametrize("case", [0, 1, 3, 6])
 def test_flash_kernel_is_bitwise_deterministic(case):
     """Each row's kv tiles are walked in ascending order by one warp, with
     no split over kv and no atomics: two calls give the same bits."""
-    b, hq, hk, lq, lk, d, causal, window, _ = FLASH_CASES[case]
+    b, hq, hk, lq, lk, d, causal, window = FLASH_CASES[case]
     q, k, v = _flash_inputs(card(), b, hq, hk, lq, lk, d)
     first = ops.flash_attention(q, k, v, causal=causal, window=window)
     assert torch.equal(first, ops.flash_attention(q, k, v, causal=causal, window=window))
 
 
-@pytest.mark.cuda
-def test_flash_models_views_take_the_tensor_core_path():
-    """The model's prefill attention (``models.attention._attend``) hands the
-    kernel (B, H, L, D) views of its (B, L, H, D) projections: they take the
-    tensor-core path, uncopied, and the output comes back in q's layout."""
-    from repro_torch.models import attention
-
-    dev = card()
-    gen = torch.Generator(device=dev).manual_seed(1)
-    q = torch.randn((2, 150, 14, 64), device=dev, generator=gen)
-    k = torch.randn((2, 150, 2, 64), device=dev, generator=gen)
-    v = torch.randn((2, 150, 2, 64), device=dev, generator=gen)
-    assert ops.flash_path(q.transpose(1, 2), torch.empty_like(q.transpose(1, 2))) == "tensor_core"
-    before = ops.flash_attention.path_launches["tensor_core"]
-    got = attention._attend(q, k, v, window=None)
-    assert ops.flash_attention.path_launches["tensor_core"] == before + 1
-    want = ref.attention(*(t.transpose(1, 2) for t in (q, k, v))).transpose(1, 2)
-    torch.testing.assert_close(got, want, **FLASH_TOL)
+def _offset_rows(t: torch.Tensor, row: int) -> torch.Tensor:
+    """t's values in a view whose rows are ``row`` floats apart and whose
+    base is one float past a 16-byte boundary."""
+    *lead, length, d = t.shape
+    buf = torch.zeros((*lead, length, row), device=t.device)
+    view = buf[..., 1:1 + d]
+    view.copy_(t)
+    return view
 
 
 @pytest.mark.cuda
-def test_flash_tensor_core_path_reads_kv_of_any_stride():
-    """K and V with rows of 66 floats, one float off a 16-byte boundary: q
-    and out still take the tensor-core path, whose split pass reads K and V
-    element by element."""
+@pytest.mark.parametrize("d", [64, 17])
+def test_flash_kernel_reads_operands_of_any_stride_and_alignment(d):
+    """q, k and v with rows of 66 floats, one float off a 16-byte boundary:
+    the kernel stages them element by element and gives the bits it gives
+    for dense copies of the same values."""
     dev = card()
-    q, k, v = _flash_inputs(dev, 2, 6, 3, 150, 150, 64)
-    kv = torch.zeros((2, 2, 3, 150, 66), device=dev)
-    kv[0, ..., 1:65], kv[1, ..., 1:65] = k, v
-    k_odd, v_odd = kv[0, ..., 1:65], kv[1, ..., 1:65]
-    assert k_odd.stride()[2] == 66 and k_odd.data_ptr() % 16 != 0
-    before = ops.flash_attention.path_launches["tensor_core"]
-    got = ops.flash_attention(q, k_odd, v_odd, window=40)
-    assert ops.flash_attention.path_launches["tensor_core"] == before + 1
+    q, k, v = _flash_inputs(dev, 2, 6, 3, 150, 150, d)
+    q_odd, k_odd, v_odd = (_offset_rows(t, 66) for t in (q, k, v))
+    assert q_odd.stride()[2] == 66 and q_odd.data_ptr() % 16 != 0
+    got = ops.flash_attention(q_odd, k_odd, v_odd, window=40)
     torch.testing.assert_close(got, ref.attention(q, k, v, window=40), **FLASH_TOL)
-    assert torch.equal(got, ops.flash_attention(q, k, v, window=40))  # same bits as from dense K, V
+    assert torch.equal(got, ops.flash_attention(q, k, v, window=40))
 
 
 @pytest.mark.cuda
-def test_flash_tensor_core_launch_failure_raises(monkeypatch):
-    """Tiles the library was not compiled for make the tensor-core entry
-    refuse the launch, and the wrapper raises: no fallback."""
+def test_flash_launch_failure_raises(monkeypatch):
+    """A launch the library refuses (here: K/V scratch off a 16-byte
+    boundary) raises, and counts no launch."""
     dev = card()
+    lib = build.load("flash_attention")
+
+    class Misaligned:
+        def flash_tiles(self, d, field):
+            return lib.flash_tiles(d, field)
+
+        def flash_attention(self, *args):
+            return lib.flash_attention(*args[:4], args[4] + 4, *args[5:])
+
+    monkeypatch.setattr(build, "load", lambda name: Misaligned())
     q = torch.ones((1, 2, 16, 32), device=dev)
-    real = ops.flash_tc_tiles
-    monkeypatch.setattr(ops, "flash_tc_tiles", lambda d: (real(d)[0], real(d)[1] * 2, real(d)[2]))
-    general = ops.flash_attention.path_launches["general"]
-    with pytest.raises(RuntimeError, match="tensor_core path"):
+    before = ops.flash_attention.launches
+    with pytest.raises(RuntimeError, match="flash_attention: CUDA error"):
         ops.flash_attention(q, q, q)
-    assert ops.flash_attention.path_launches["general"] == general
+    assert ops.flash_attention.launches == before
 
 
 @pytest.mark.cuda

@@ -482,7 +482,7 @@ def test_mu_launch_takes_the_any_rank_kernel_above_128(monkeypatch, update, k):
 
 
 # -----------------------------------------------------------------------------
-# flash attention: split TF32, the path rule, the tensor-core path's schedule
+# flash attention: split TF32, the kernel's schedule and its launch
 # -----------------------------------------------------------------------------
 def _tf32_oracle(x: float) -> float:
     """The nearest TF32 value (11 significant bits; the fp32 subnormal grid
@@ -541,45 +541,12 @@ def test_tf32_round_passes_inf_and_nan_and_matches_random_values():
     assert torch.all((got.double() + lo.double() - x.double()).abs() <= x.double().abs() * 2.0**-21)
 
 
-@pytest.mark.parametrize("d", [1, 4, 16, 17, 48, 64, 65, 80, 96, 97, 112, 128])
-def test_flash_tiles_follow_the_kernel_source(d):
-    """The tensor-core tiles the wrapper builds its schedule and scratch for
-    are the ones flash_attention.cu compiles (tc::Cfg, tc::kBQ)."""
-    import re
-
-    src = (build.CSRC / "flash_attention.cu").read_text()
-    groups = int(re.search(r"constexpr int kWGs = (\d+);", src).group(1))
-    rows = int(re.search(r"constexpr int kWGRows = (\d+);", src).group(1))
-    a, b, c, e, small = map(int, re.search(r"BK = DP <= (\d+) \? (\d+) : DP <= (\d+) \? (\d+) : (\d+);", src).groups())
-    dp = 16 * math.ceil(d / 16)
-    assert ops.flash_tc_tiles(d) == (dp, b if dp <= a else e if dp <= c else small, groups * rows)
-    assert ops.FLASH_TC_BQ == groups * rows
+FLASH_BQ = 128  # query rows a block of the flash kernel owns (flash_attention.cu kBQ)
 
 
 def _flash_views(shape_blhd, dtype=torch.float32):
     """q as the model passes it: a (B, H, L, D) view of a (B, L, H, D) tensor."""
     return torch.zeros(shape_blhd, dtype=dtype).transpose(1, 2)
-
-
-@pytest.mark.parametrize(
-    "make,path",
-    [
-        (lambda: torch.zeros((4, 14, 1000, 64)), "tensor_core"),  # contiguous, qwen2 prefill
-        (lambda: _flash_views((2, 77, 14, 64)), "tensor_core"),  # the model's strided views
-        (lambda: _flash_views((1, 600, 32, 80)), "tensor_core"),  # h2o-danube's head dim
-        (lambda: torch.zeros((2, 6, 70, 17)), "general"),  # D 17: 68-byte rows
-        (lambda: torch.zeros((1, 2, 10, 66))[..., :64], "general"),  # l stride 66 floats
-        (lambda: torch.zeros(1 + 2 * 3 * 8 * 64)[1:].view(2, 3, 8, 64), "general"),  # base 4 bytes off
-        (lambda: torch.zeros((1, 2, 9, 12)), "tensor_core"),  # small D, multiple of 4
-    ],
-)
-def test_flash_path_rule(make, path):
-    """``ops.flash_path``: the tensor-core path takes D % 4 == 0 with q and
-    out on 16-byte boundaries and b/h/l strides that are multiples of 4
-    floats; everything else takes the general path."""
-    q = make()
-    out = torch.empty_like(q)
-    assert ops.flash_path(q, out) == path
 
 
 @pytest.mark.parametrize(
@@ -597,7 +564,7 @@ def test_flash_kv_tiles_are_the_tiles_with_a_live_pair(b, hq, hk, lq, lk, causal
     version's mask leaves live for one of its query rows."""
     from repro_torch.kernels import ref
 
-    bq = ops.FLASH_TC_BQ
+    bq = FLASH_BQ
     mask = ref._mask(lq, lk, causal, window, "cpu")
     for qt in range(math.ceil(lq / bq)):
         rows = mask[qt * bq:(qt + 1) * bq]
@@ -621,7 +588,7 @@ def test_flash_work_list_covers_every_item_once_longest_first(b, hq, hk, lq, lk,
     its items longest first; the greedy deal keeps every block within one
     item of the least loaded; equal lengths keep the heads of a kv head
     together."""
-    bq = ops.FLASH_TC_BQ
+    bq = FLASH_BQ
     offsets, items = ops.flash_work_list(b, hq, hk, lq, lk, causal, window, bq, bk, blocks)
     qtiles = math.ceil(lq / bq)
     assert sorted(items) == list(range(b * hq * qtiles))
@@ -642,70 +609,80 @@ def test_flash_work_list_covers_every_item_once_longest_first(b, hq, hk, lq, lk,
     assert [cost(item) for item in firsts] == sorted((cost(item) for item in firsts), reverse=True)
 
 
-@pytest.mark.parametrize("blhd,d_path", [((2, 77, 14, 64), "tensor_core"), ((2, 45, 6, 17), "general")])
-def test_flash_launch_hands_each_path_its_arguments(monkeypatch, blhd, d_path):
-    """The wrapper's calls into flash_attention.cu, with the library stubbed:
-    the general entry keeps its arguments; the tensor-core entry also gets
-    its K/V scratch (bk * DP * 2 floats a tile), the work list on q's
-    device (offsets, then items) and the tiles the list was built for."""
-    calls = []
+class _FlashLib:
+    """A stand-in for the flash library: records each launch and returns
+    ``rc``; its tiles (DP, bk 16, bq 64) are not the compiled ones, so a test
+    sees the wrapper take them from the library."""
 
-    class Lib:
-        def __getattr__(self, name):
-            def launch(*args):
-                calls.append((name, args))
-                return 0
-            return launch
+    def __init__(self, rc=0):
+        self.rc, self.calls = rc, []
 
-    monkeypatch.setattr(build, "load", lambda name: Lib())
+    def flash_tiles(self, d, field):
+        return (16 * math.ceil(d / 16), 16, 64)[field]
+
+    def flash_attention(self, *args):
+        self.calls.append(args)
+        return self.rc
+
+
+@pytest.mark.parametrize(
+    "make",
+    [
+        lambda: _flash_views((2, 77, 14, 64)),  # the model's strided views
+        lambda: torch.zeros((2, 14, 45, 17)),  # D 17: 68-byte rows
+        lambda: torch.zeros(1 + 2 * 14 * 8 * 64)[1:].view(2, 14, 8, 64),  # base 4 bytes off
+        lambda: _flash_views((1, 130, 14, 80)),  # h2o-danube's head dim
+    ],
+)
+def test_flash_launch_hands_the_kernel_its_arguments(monkeypatch, make):
+    """The wrapper's call into flash_attention.cu, with the library stubbed:
+    the operands and their strides as they are (any layout), K/V scratch of
+    bk * DP * 2 floats a tile, and the work list on q's device (offsets,
+    then items) built for the library's own tiles."""
+    lib = _FlashLib()
+    monkeypatch.setattr(build, "load", lambda name: lib)
     monkeypatch.setattr(ops, "_stream", lambda t: 77)
     monkeypatch.setattr(ops, "_sm_count", lambda device: 132)
-    bsz, length, hq, d = blhd
-    hk = 2 if d == 64 else 3
-    q = _flash_views((bsz, length, hq, d))
-    k = _flash_views((bsz, length, hk, d))
-    v = _flash_views((bsz, length, hk, d))
+    monkeypatch.setattr(ops, "_flash_work_cache", {})
+    q = make()
+    bsz, hq, length, d = q.shape
+    k = v = q[:, :2]
     out = torch.empty_like(q)
-    assert ops._flash_launch(q, k, v, out, 0.125, True, None) == d_path
-    ((name, args),) = calls
-    strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
-    tail = (bsz, hq, hk, length, length, d, *strides, 0.125, 1, 0, 77)
-    if d_path == "general":
-        assert name == "flash_attention"
-        assert args == (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *tail)
-        return
-    assert name == "flash_attention_tc"
-    dp, bk, bq = ops.flash_tc_tiles(d)
-    offsets, items = ops.flash_work_list(bsz, hq, hk, length, length, True, None, bq, bk, 132)
-    work, blocks = ops._flash_work(q.device, (bsz, hq, hk, length, length, True, None, bq, bk, 132))
+    ops._flash_launch(q, k, v, out, 0.125, True, None)
+    (args,) = lib.calls
+    dp, bk, bq = 16 * math.ceil(d / 16), 16, 64
+    offsets, items = ops.flash_work_list(bsz, hq, 2, length, length, True, None, bq, bk, 132)
+    ((work, blocks),) = ops._flash_work_cache.values()
     assert work.tolist() == list(offsets + items) and blocks == len(offsets) - 1
+    image = bsz * 2 * math.ceil(length / bk) * bk * dp * 2
     assert args[:4] == (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
-    assert args[6:10] == (work.data_ptr(), blocks, bq, bk) and args[10:] == tail
+    assert args[5] - args[4] == 4 * image
+    strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
+    assert args[6:] == (work.data_ptr(), blocks, bsz, hq, 2, length, length, d, *strides, 0.125, 1, 0, 77)
+
+
+def test_flash_launch_copies_each_work_list_once(monkeypatch):
+    """The work list goes to the device once per shape: a second call of the
+    same shape reuses it; another length gets its own."""
+    lib = _FlashLib()
+    monkeypatch.setattr(build, "load", lambda name: lib)
+    monkeypatch.setattr(ops, "_stream", lambda t: 0)
+    monkeypatch.setattr(ops, "_sm_count", lambda device: 8)
+    monkeypatch.setattr(ops, "_flash_work_cache", {})
+    for length in (40, 40, 90):
+        q = torch.zeros((1, 4, length, 32))
+        ops._flash_launch(q, q, q, torch.empty_like(q), 0.2, True, None)
+    assert len(ops._flash_work_cache) == 2
+    assert lib.calls[0][6] == lib.calls[1][6] != lib.calls[2][6]
 
 
 def test_flash_launch_raises_when_the_kernel_refuses(monkeypatch):
-    """A refused tensor-core launch raises, naming the path; nothing falls
-    back to the general path or to the plain version."""
-    calls = []
-
-    class Lib:
-        def flash_attention_tc(self, *args):
-            calls.append("tc")
-            return 1
-
-        def flash_attention(self, *args):
-            pytest.fail("no fallback to the general path")
-
-    monkeypatch.setattr(build, "load", lambda name: Lib())
+    """A refused launch raises, with the library's error code."""
+    lib = _FlashLib(rc=1)
+    monkeypatch.setattr(build, "load", lambda name: lib)
     monkeypatch.setattr(ops, "_stream", lambda t: 0)
     monkeypatch.setattr(ops, "_sm_count", lambda device: 132)
     q = torch.zeros((1, 2, 16, 32))
-    with pytest.raises(RuntimeError, match="tensor_core path"):
+    with pytest.raises(RuntimeError, match="flash_attention: CUDA error 1"):
         ops._flash_launch(q, q, q, torch.empty_like(q), 0.2, True, None)
-    assert calls == ["tc"]
-
-
-def test_reset_launch_counts_zeroes_the_flash_path_counters():
-    ops.flash_attention.path_launches["tensor_core"] += 3
-    ops.reset_launch_counts()
-    assert ops.flash_attention.path_launches == {"tensor_core": 0, "general": 0}
+    assert len(lib.calls) == 1

@@ -86,7 +86,7 @@ def test_flash_attention_matches_reference(b, hq, hk, l, d, window):
 
 @pytest.mark.parametrize("b,hq,hk,l,d,window", FLASH_SHAPES)
 def test_flash_3xtf32_emulation_matches_reference(b, hq, hk, l, d, window):
-    """The card's tensor-core path computes both products in split TF32
+    """The card's flash kernel computes both products in split TF32
     (x = hi + lo, three TF32 products each, ``ref.attention_3xtf32``
     emulates it); that arithmetic holds the reference's flash kernel
     (interpret mode) at the fp32 tolerance, while inputs rounded to TF32

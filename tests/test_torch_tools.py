@@ -132,9 +132,9 @@ def test_flash_parse_args_defaults_and_flags():
 
     args = time_flash.parse_args([])
     assert Path(args.src) == Path(time_flash.__file__).resolve().parents[1] / "src"
-    assert args.tag is None and not args.mma_rate and args.seed == 11
-    args = time_flash.parse_args(["--src", "build/parent/src", "--tag", "parent", "--mma-rate", "--seed", "3"])
-    assert (args.src, args.tag, args.mma_rate, args.seed) == ("build/parent/src", "parent", True, 3)
+    assert args.tag is None and args.seed == 11
+    args = time_flash.parse_args(["--src", "build/parent/src", "--tag", "parent", "--seed", "3"])
+    assert (args.src, args.tag, args.seed) == ("build/parent/src", "parent", 3)
 
 
 @pytest.mark.parametrize(
@@ -172,14 +172,62 @@ def test_flash_bounds_at_the_serve_and_window_shapes():
     assert got == {"bound_fp32_ms": pytest.approx(1e-3), "bound_3xtf32_ms": pytest.approx(1e-3)}
 
 
-def test_flash_mma_rate_arithmetic():
-    import time_flash
+def test_serve_parse_args_defaults_and_flags():
+    import profile_serve
 
-    # 132 blocks x 4 warps x 4096 rounds x 16 products of 2048 flops in 0.239 ms
-    assert time_flash.mma_tflops("mma.sync", 132, 4, 4096, 16, 0.239) == pytest.approx(
-        132 * 4 * 4096 * 16 * 2048 / 0.239e-3 / 1e12)
-    assert time_flash.mma_tflops("mma.sync", 132, 4, 4096, 16, 0.239) == pytest.approx(296.5, abs=0.5)
-    # wgmma: one m64n64k8 product (65,536 flops) a warpgroup a round, whatever ``acc``
-    assert time_flash.mma_tflops("wgmma", 132, 8, 4096, 1, 1.0) == pytest.approx(
-        132 * 2 * 4096 * 2 * 64 * 64 * 8 / 1e-3 / 1e12)
-    assert time_flash.mma_tflops("wgmma", 132, 8, 4096, 16, 1.0) == time_flash.mma_tflops("wgmma", 132, 8, 4096, 1, 1.0)
+    args = profile_serve.parse_args([])
+    assert Path(args.src) == Path(profile_serve.__file__).resolve().parents[1] / "src"
+    assert (args.tag, args.repeats, args.turns, args.parent) == (None, 5, 0, None)
+    args = profile_serve.parse_args(["--turns", "5", "--parent", "build/parent/src", "--repeats", "3"])
+    assert (args.turns, args.parent, args.repeats) == (5, "build/parent/src", 3)
+    for bad in (["--turns", "2"], ["--repeats", "0"]):
+        with pytest.raises(SystemExit):
+            profile_serve.parse_args(bad)
+
+
+@pytest.mark.parametrize("turns", [1, 2, 5])
+def test_serve_turns_alternate_which_version_runs_first(turns):
+    import profile_serve
+
+    order = profile_serve.turn_order(turns)
+    assert order[:4] == ["parent", "change", "change", "parent"][: 2 * turns]
+    assert order.count("parent") == order.count("change") == turns
+    assert all({order[2 * i], order[2 * i + 1]} == {"parent", "change"} for i in range(turns))
+
+
+def test_serve_summary_takes_median_and_range_of_each_version():
+    import profile_serve
+
+    def run(tag, x):
+        return {"tag": tag, **{key: x for key in profile_serve.SUMMARY_KEYS}}
+
+    runs = [run("parent", 3.0), run("change", 1.0), run("change", 2.0), run("parent", 5.0), run("change", 9.0)]
+    got = profile_serve.summarize(runs)
+    assert list(got) == ["parent", "change"]
+    assert got["parent"]["runs"] == 2 and got["change"]["runs"] == 3
+    assert got["parent"]["prefill_median_s"] == {"median": 4.0, "min": 3.0, "max": 5.0}
+    assert got["change"]["flash_ms"] == {"median": 2.0, "min": 1.0, "max": 9.0}
+
+
+def test_serve_flash_ms_counts_both_versions_kernels():
+    import profile_serve
+
+    times = {
+        "void (anonymous namespace)::flash_kernel<4>(float const*, ...)": (2.0, 24),
+        "void (anonymous namespace)::split_kv_kernel<4>(float const*, ...)": (0.25, 24),
+        "cutlass_80_simt_sgemm_128x64": (50.0, 168),
+    }
+    assert profile_serve.flash_ms(times) == 2.25
+
+
+def test_serve_host_waits_count_the_calls_that_hold_the_host():
+    import profile_serve
+    from torch.autograd import DeviceType
+
+    prof = types.SimpleNamespace(key_averages=lambda: [
+        _event("cudaStreamSynchronize", DeviceType.CPU, 0.0, 48),
+        _event("cudaMemcpyAsync", DeviceType.CPU, 0.0, 49),
+        _event("cudaLaunchKernel", DeviceType.CPU, 0.0, 1141),
+        _event("aten::to", DeviceType.CPU, 0.0, 48),
+    ])
+    assert profile_serve.host_waits(prof) == {"cudaStreamSynchronize": 48, "cudaMemcpyAsync": 49}

@@ -8,8 +8,6 @@ window 4096) makes q, k and v on the card from a seed, holds the wrapper
 against the fp32 plain version at the reference's flash tolerance (rtol
 3e-5, atol 3e-5), and prints one JSON line with:
 
-- ``path``: the kernel the wrapper took (``flash_attention.path_launches``;
-  null for a version without path counters);
 - ``ms``: device time per call (CUDA events behind a spin kernel), and
   ``host_us``, the host time per call;
 - ``plain_ms``: the plain PyTorch version; ``sdpa_ms``: one
@@ -26,16 +24,9 @@ against the fp32 plain version at the reference's flash tolerance (rtol
   ``plain_err_vs_fp64`` beside; ``bits``, a digest of the output's bits
   (the sum of its int32 views), to compare versions and repeated calls.
 
-``--mma-rate`` first builds ``flash_attention.cu`` with ``-DFLASH_MMA_RATE``
-and prints the card's rate of TF32 tensor-core products on 132 blocks:
-warp-level ``mma.sync.m16n8k8`` (4 or 8 warps a block, 1, 4 or 16
-independent accumulators a warp) and warpgroup ``wgmma.m64n64k8`` with
-both operands in shared memory (1 or 2 warpgroups a block), the ceilings
-the tensor-core path's products can reach.
-
 Run from the root of a checkout on a machine with a card:
 
-    python3 tools/time_flash.py [--src src] [--tag name] [--mma-rate]
+    python3 tools/time_flash.py [--src src] [--tag name]
 
 ``--src`` points at the ``src`` directory of another checkout, to time that
 version of the port with the same script; compare two versions by running
@@ -44,7 +35,6 @@ the script for each in turn (parent, change, change, parent).
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import subprocess
 import sys
@@ -59,17 +49,12 @@ SHAPES = [
     ("qwen2-0.5b prefill", 4, 14, 2, 1000, 1000, 64, True, None),
     ("h2o-danube-1.8b heads", 1, 32, 8, 6000, 6000, 80, True, 4096),
 ]
-# (kind, warps a block, accumulators a warp): mma.sync, then wgmma (one accumulator a warpgroup)
-MMA_RATE_CASES = [("mma.sync", 4, 1), ("mma.sync", 4, 4), ("mma.sync", 4, 16), ("mma.sync", 8, 4),
-                  ("mma.sync", 8, 16), ("wgmma", 4, 1), ("wgmma", 8, 1)]
-MMA_FLOPS = {"mma.sync": 2 * 16 * 8 * 8, "wgmma": 2 * 64 * 64 * 8}  # one product of each kind
 
 
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", default=str(Path(__file__).resolve().parents[1] / "src"))
     ap.add_argument("--tag", default=None, help="label of this version in the output (default: --src)")
-    ap.add_argument("--mma-rate", action="store_true", help="first measure the card's TF32 product rates")
     ap.add_argument("--seed", type=int, default=11)
     return ap.parse_args(argv)
 
@@ -105,38 +90,6 @@ def bounds(flops: int, n_bytes: int) -> dict[str, float]:
     }
 
 
-def mma_tflops(kind: str, blocks: int, warps: int, iters: int, acc: int, ms: float) -> float:
-    """TFLOP/s of ``flash_mma_rate``: ``acc`` m16n8k8 products a warp, or one
-    m64n64k8 product a warpgroup, each round."""
-    products = blocks * warps * acc if kind == "mma.sync" else blocks * (warps // 4)
-    return products * iters * MMA_FLOPS[kind] / (ms * 1e-3) / 1e12
-
-
-def mma_rate(torch, build, tag: str) -> None:
-    """Build flash_attention.cu with -DFLASH_MMA_RATE and print the rate of
-    its TF32 product loops at ``MMA_RATE_CASES`` on 132 blocks."""
-    path = build.library_path("flash_attention")
-    path = path.with_name(f"{path.stem}_mma_rate.so")
-    if not path.is_file():
-        path.parent.mkdir(parents=True, exist_ok=True)
-        subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-DFLASH_MMA_RATE", "-o", str(path),
-                        str(build.CSRC / "flash_attention.cu")], check=True, capture_output=True)
-    lib = ctypes.CDLL(str(path))
-    lib.flash_mma_rate.argtypes = [ctypes.c_void_p, *[ctypes.c_int] * 5, ctypes.c_void_p]
-    lib.flash_mma_rate.restype = ctypes.c_int
-    out = torch.zeros(1024, device="cuda")
-    stream = torch.cuda.current_stream().cuda_stream
-    blocks, iters = 132, 4096
-    for kind, warps, acc in MMA_RATE_CASES:
-        def call(kind=kind, warps=warps, acc=acc):
-            if lib.flash_mma_rate(out.data_ptr(), blocks, warps, iters, acc, int(kind == "wgmma"), stream) != 0:
-                raise RuntimeError("flash_mma_rate failed")
-        ms = device_ms(torch, call, reps=5)
-        print(json.dumps({"tag": tag, "mma_rate": {"kind": kind, "blocks": blocks, "warps": warps, "accumulators": acc,
-                                                   "ms": ms, "tflops": mma_tflops(kind, blocks, warps, iters, acc, ms)}}),
-              flush=True)
-
-
 def main(argv=None) -> int:
     args = parse_args(argv)
     sys.path.insert(0, args.src)
@@ -146,15 +99,13 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("time_flash: needs an NVIDIA card", file=sys.stderr)
         return 1
-    from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels import ops, ref
 
     tag = args.tag or args.src
     dev = torch.device("cuda")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
     print(json.dumps({"tag": tag, "card": smi, "torch": torch.__version__}), flush=True)
-    if args.mma_rate:
-        mma_rate(torch, build, tag)
 
     for label, b, hq, hk, lq, lk, d, causal, window in SHAPES:
         gen = torch.Generator(device=dev).manual_seed(args.seed)
@@ -165,11 +116,7 @@ def main(argv=None) -> int:
         def call():
             return ops.flash_attention(q, k, v, causal=causal, window=window)
 
-        paths = getattr(ops.flash_attention, "path_launches", None)
-        before = dict(paths) if paths is not None else None
         got = call()
-        after = getattr(ops.flash_attention, "path_launches", None)
-        path = None if before is None else next(p for p in after if after[p] != before[p])
         plain = ref.attention(q, k, v, causal=causal, window=window)
         torch.testing.assert_close(got, plain, **FLASH_TOL)
         again = call()
@@ -190,7 +137,7 @@ def main(argv=None) -> int:
         flops, n_bytes = work(b, hq, hk, lq, lk, d, causal, window)
         out = torch.empty_like(got)
         entry = {
-            "tag": tag, "shape": label, "dims": [b, hq, hk, lq, lk, d, causal, window], "path": path,
+            "tag": tag, "shape": label, "dims": [b, hq, hk, lq, lk, d, causal, window],
             "ms": device_ms(torch, call),
             "host_us": host_us(torch, call, reps=20),
             "plain_ms": device_ms(torch, lambda: ref.attention(q, k, v, causal=causal, window=window), reps=5),
