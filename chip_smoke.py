@@ -16,7 +16,9 @@ Phases, each fatal on failure:
      kernel, plain version, the card's bound and, where one PyTorch call
      computes the same function, that call (CUDA events, warmed up); the
      flash kernel's cases also assert a bitwise repeat;
-  4. hold the batched NMFk score, the K-Means + Davies-Bouldin search of
+  4. hold the batched NMFk score, the elastic NMFk plane (ks 2..8 drained
+     at tol 0, with and without warm starts: scores, sweep counts and
+     warm-start hits), the K-Means + Davies-Bouldin search of
      ``tests/test_integration.py`` with a small K-Means silhouette wave, and
      the LM's prefill and greedy decode (qwen2-0.5b at full width cut to 2
      layers; reduced h2o-danube, whose window bites) on the card against the
@@ -25,7 +27,11 @@ Phases, each fatal on failure:
      read just after, asserting the answer and that the run went through
      its kernels: the paper-scale NMFk search (V 1000x1100, k_true 8,
      k 2..16, 4 perturbations, 120 sweeps) through the port's ``ksearch``
-     on the ``batched`` and ``threads`` executors (k_optimal 8);
+     on the ``batched`` and ``threads`` executors (k_optimal 8), then on
+     the ``elastic`` executor twice: at tol 0 without warm starts (the
+     draw-for-draw oracle: each visited k's score against the batched
+     plane's) and at its defaults (tol 1e-3, warm starts), each with
+     k_optimal 8 and sweeps run + saved == the fixed-iteration total;
      ``kmeans_db_1m`` — Binary Bleed over K-Means with Davies-Bouldin on
      10^6 blob points (d 6, k_true 7, k 2..24) — on the scalar executor (two
      threads) and the batched one (k_optimal 7); then the port's ``serve``
@@ -408,6 +414,59 @@ def check_nmfk_small(torch, dev, log) -> None:
                         "rel_error_max_rel_gap": rel}))
 
 
+def drain(plane) -> dict[int, float]:
+    """Tick an elastic plane until idle; {k: score}."""
+    scores = {}
+    while not plane.idle:
+        scores.update(plane.tick())
+    return scores
+
+
+def check_nmfk_elastic_small(torch, dev, ops, log) -> None:
+    """The elastic NMFk plane on the card (kernels) vs on the CPU (plain),
+    same draws: ks 2..8 submitted at once and drained (96 x 104, k_pad 8,
+    4 perturbations, 120 sweeps, chunks of 25, 8 slots), tol 0 with warm
+    starts and without. Each k's scores within NMFK_SIL_ATOL; the sweep
+    counts and warm-start hits equal on both devices."""
+    from repro_torch.factorization.planes import NMFkElasticPlane
+    from repro_torch.factorization.synthetic import nmf_data
+    from repro_torch.random import Draws, seeded_draws
+
+    n, m, p, ks = 96, 104, 4, list(range(2, 9))
+    v, _, _ = nmf_data(n, m, 5, seed=0, device=dev)
+    card_draws = seeded_draws(0, n, m, p, 0.015, dev)
+
+    def cpu_draws(k, k_draw):
+        return Draws(*(t.cpu() for t in card_draws(k, k_draw)))
+
+    for warm in (True, False):
+        runs = {}
+        for where, vv, draws in (("card", v, card_draws), ("cpu", v.cpu(), cpu_draws)):
+            plane = NMFkElasticPlane(vv, n_perturbs=p, nmf_iters=120, k_pad=8, tol=0.0, chunk=25,
+                                     warm_start=warm, draws=draws)
+            for k in ks:
+                plane.submit(k)
+            ops.reset_launch_counts()
+            scores = drain(plane)
+            runs[where] = (plane, scores, ops.launch_counts())
+        (card, on_card, launches), (cpu, on_cpu, _) = runs["card"], runs["cpu"]
+        what = f"elastic NMFk, warm_start={warm}"
+        if sorted(on_card) != ks or sorted(on_cpu) != ks:
+            raise AssertionError(f"{what}: scored ks card {sorted(on_card)}, cpu {sorted(on_cpu)}, want {ks}")
+        gap = max(abs(on_card[k] - on_cpu[k]) for k in ks)
+        if not gap <= NMFK_SIL_ATOL:
+            raise AssertionError(f"{what}: card vs plain score gap {gap:.3e} > {NMFK_SIL_ATOL}")
+        counts = {f: (getattr(card, f), getattr(cpu, f)) for f in ("sweeps_run", "sweeps_saved", "sweeps_fixed_total")}
+        counts["warm_start_hits"] = (card.warm_cache.hits, cpu.warm_cache.hits)
+        if any(a != b for a, b in counts.values()) or (counts["warm_start_hits"][0] > 0) != warm:
+            raise AssertionError(f"{what}: card vs cpu counts (card, cpu) {counts}")
+        if min(launches["mu_update_h"], launches["mu_update_w"], launches["silhouette_dist_sums_batched"]) < 1:
+            raise AssertionError(f"{what} on the card missed a kernel: {launches}")
+        log(json.dumps({"check": "NMFkElasticPlane card vs plain", "warm_start": warm, "shape": [n, m],
+                        "ks": ks, "max_abs_gap": gap, "counts_card_cpu": counts,
+                        "dispatched_shapes": sorted(card.shapes_dispatched), "launches": launches}))
+
+
 def check_kmeans_small(torch, dev, ops, log) -> None:
     """tests/test_integration.py's K-Means + Davies-Bouldin search (serial,
     so the visit order is fixed) on the card (kernels) and on the CPU (plain
@@ -528,6 +587,53 @@ def run_search(torch, ops, ksearch, executor: str, log) -> dict[str, int]:
     for name in ("mu_update_h", "mu_update_w", sums):
         if counts[name] < 1:
             raise AssertionError(f"{executor}: kernel {name} was never launched on the main path")
+    return counts
+
+
+def run_elastic_search(torch, dev, ops, ksearch, label: str, extra: list[str], log, oracle: bool = False) -> dict[str, int]:
+    """The paper-scale search on the elastic executor with ``extra`` flags;
+    counts reset just before, read just after. The ``oracle`` run (tol 0, no
+    warm starts) also writes its trace, whose ``record`` events give the
+    score of each visited k, and holds each against the batched executor's
+    plane (same draws; its lane count, so not the same bits)."""
+    trace = ROOT / "build" / "chip_smoke" / f"{label}.jsonl"
+    if oracle:
+        trace.parent.mkdir(parents=True, exist_ok=True)
+        extra = [*extra, "--trace", str(trace)]
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    out = ksearch.main(PAPER_ARGS + ["--executor", "elastic", *extra])
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    keys = ("ticks", "dispatched_shapes", "tol", "warm_start", "sweeps_run", "sweeps_saved",
+            "sweeps_fixed_total", "warm_start_hits", "lane_occupancy")
+    entry = {"search": label, "k_optimal": out["k_optimal"], "visited": out["visited"], "wall_s": out["seconds"],
+             "sweeps_run_share": out["sweeps_run"] / out["sweeps_fixed_total"],
+             **{key: out[key] for key in keys}, "max_memory_allocated": peak, "launches": counts}
+    if out["k_optimal"] != 8:
+        raise AssertionError(f"{label}: k_optimal {out['k_optimal']} != 8")
+    if out["sweeps_run"] + out["sweeps_saved"] != out["sweeps_fixed_total"]:
+        raise AssertionError(f"{label}: sweeps run {out['sweeps_run']} + saved {out['sweeps_saved']} "
+                             f"!= fixed total {out['sweeps_fixed_total']}")
+    for name in ("mu_update_h", "mu_update_w", "silhouette_dist_sums_batched"):
+        if counts[name] < 1:
+            raise AssertionError(f"{label}: kernel {name} was never launched on the main path")
+    if oracle:
+        from repro_torch.factorization.planes import NMFkBatchPlane
+        from repro_torch.factorization.synthetic import nmf_data
+
+        records = [json.loads(line) for line in trace.read_text().splitlines()]
+        scores = {r["args"]["k"]: r["args"]["score"] for r in records if r["name"] == "record"}
+        if sorted(scores) != out["visited"]:
+            raise AssertionError(f"{label}: the trace scored ks {sorted(scores)}, the search visited {out['visited']}")
+        v, _, _ = nmf_data(1000, 1100, 8, seed=0, device=dev)
+        plane = NMFkBatchPlane(v, 0, n_perturbs=4, nmf_iters=120, k_pad=16)
+        batched = dict(zip(out["visited"], plane.evaluate_batch(out["visited"])))
+        gap = max(abs(scores[k] - batched[k]) for k in scores)
+        entry.update(scores=scores, batched_scores=batched, max_abs_gap_to_batched=gap)
+        if not gap <= NMFK_SIL_ATOL:
+            raise AssertionError(f"{label}: score gap to the batched plane {gap:.3e} > {NMFK_SIL_ATOL}")
+    log(json.dumps(entry))
     return counts
 
 
@@ -771,10 +877,14 @@ def main() -> int:
     check_pairwise(torch, dev, ops, ref, records, log)
     check_flash(torch, dev, ops, ref, records, log)
     check_nmfk_small(torch, dev, log)
+    check_nmfk_elastic_small(torch, dev, ops, log)
     check_kmeans_small(torch, dev, ops, log)
     check_lm_small(torch, dev, ops, log)
 
     by_path = {f"nmfk_{ex}": run_search(torch, ops, ksearch, ex, log) for ex in ("batched", "threads")}
+    by_path["nmfk_elastic_oracle"] = run_elastic_search(
+        torch, dev, ops, ksearch, "nmfk_elastic_oracle", ["--tol", "0", "--no-warm-start"], log, oracle=True)
+    by_path["nmfk_elastic"] = run_elastic_search(torch, dev, ops, ksearch, "nmfk_elastic", [], log)
     by_path.update({f"kmeans_{ex}": run_kmeans_search(torch, dev, ops, ex, log) for ex in ("threads", "batched")})
     by_path["serve"] = run_serve(torch, dev, ops, serve, log)
 

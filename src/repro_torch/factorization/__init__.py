@@ -1,11 +1,18 @@
 """Factorization & clustering substrates the paper selects k for (NMF / NMFk and K-Means slices)."""
-from .batching import batched_lanes, bucket_batch, next_pow2, round_up_multiple  # noqa: F401
+from .batching import (  # noqa: F401
+    WarmStartCache,
+    batched_lanes,
+    bucket_batch,
+    next_pow2,
+    round_up_multiple,
+)
 from .kmeans import KMeansResult, kmeans, kmeans_batched, kmeans_multi_restart  # noqa: F401
 from .nmf import (  # noqa: F401
     NMFResult,
     mu_step,
     nmf,
     nmf_batched,
+    nmf_chunked,
     nmf_init,
     reconstruction_error,
 )
@@ -15,5 +22,5 @@ from .nmfk import (  # noqa: F401
     nmfk_score,
     nmfk_score_batched,
 )
-from .planes import KMeansBatchPlane, NMFkBatchPlane  # noqa: F401
+from .planes import KMeansBatchPlane, NMFkBatchPlane, NMFkElasticPlane  # noqa: F401
 from .synthetic import blob_data, nmf_data  # noqa: F401

@@ -11,6 +11,9 @@ This module also owns the shape-bucketing policy the evaluation planes use
 to pick a padded batch size (``bucket_batch``): pow2 rounding with a floor
 keeps the set of distinct ``(batch, k_pad)`` shapes small and stable across
 searches, and an already-dispatched bucket is reused where it fits.
+
+``WarmStartCache`` holds the completed W factors the elastic plane seeds
+refilled lanes from.
 """
 from __future__ import annotations
 
@@ -19,6 +22,54 @@ from typing import Iterable, Sequence
 import torch
 
 from repro_torch.random import lane_seed
+
+
+class WarmStartCache:
+    """Completed-fit W factors keyed by (k, perturbation) for cross-k warm starts.
+
+    Binary Bleed's pre-order visit order clusters nearby k's in time, so a
+    freshly drained lane usually has a recently-completed neighbor whose
+    W is a far better starting point than a random draw. ``nearest``
+    prefers the same perturbation index (its noise realization matches the
+    new lane's), breaking distance ties toward smaller k (truncating a
+    larger fit discards information; padding a smaller one keeps it all).
+
+    Stores one entry per (k, perturbation) and evicts whole k's FIFO beyond
+    ``max_ks``. The tensors are held as given: callers pass a tensor no one
+    writes afterwards (the elastic plane clones a slot's W before caching it).
+    """
+
+    def __init__(self, window: int = 8, max_ks: int = 16):
+        self.window = int(window)
+        self.max_ks = int(max_ks)
+        self._by_k: dict[int, dict[int, torch.Tensor]] = {}
+        self.hits = 0
+        self.misses = 0
+
+    def put(self, k: int, perturbation: int, w: torch.Tensor) -> None:
+        slot = self._by_k.setdefault(int(k), {})
+        slot[int(perturbation)] = w
+        while len(self._by_k) > self.max_ks:
+            self._by_k.pop(next(iter(self._by_k)))
+
+    def nearest(self, k: int, perturbation: int) -> tuple[int, torch.Tensor] | None:
+        """Best (k_src, w_src) within ``window`` of k, or None (cold start)."""
+        k, perturbation = int(k), int(perturbation)
+        best = None
+        for k_src, slot in self._by_k.items():
+            dist = abs(k_src - k)
+            if dist > self.window or not slot:
+                continue
+            p_src = perturbation if perturbation in slot else next(iter(slot))
+            # rank: distance, then mismatched perturbation, then prefer k_src < k
+            rank = (dist, 0 if p_src == perturbation else 1, 0 if k_src <= k else 1)
+            if best is None or rank < best[0]:
+                best = (rank, k_src, slot[p_src])
+        if best is None:
+            self.misses += 1
+            return None
+        self.hits += 1
+        return best[1], best[2]
 
 
 def next_pow2(n: int) -> int:

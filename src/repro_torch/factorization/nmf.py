@@ -6,6 +6,11 @@ classic Lee-Seung updates
     H <- H * (W^T V) / (W^T W H + eps)
     W <- W * (V H^T) / (W H H^T + eps)
 
+``nmf`` runs a fixed number of sweeps; ``nmf_chunked`` runs them in
+chunks with a ``should_abort`` poll and an optional convergence ``tol``
+between chunks (the paper's §III-D: a k pruned by another resource stops
+paying for its fit at the next chunk boundary).
+
 Every function takes optional leading batch axes (one per independent
 fit), written out where the reference vmaps. ``mu_step`` is the kernel
 boundary: on a CUDA tensor each half-sweep is the hand-written Hopper
@@ -15,7 +20,7 @@ U[0.1, 1) init draws the caller passes (see ``repro_torch.random``).
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Sequence
+from typing import Callable, NamedTuple, Sequence
 
 import torch
 
@@ -71,6 +76,43 @@ def nmf(
     for _ in range(iters):
         w, h = mu_step(v, w, h)
     return NMFResult(w, h, reconstruction_error(v, w, h), iters)
+
+
+def nmf_chunked(
+    v: torch.Tensor,
+    k: int,
+    w_draw: torch.Tensor,
+    h_draw: torch.Tensor,
+    iters: int = 200,
+    chunk: int = 25,
+    should_abort: Callable[[], bool] | None = None,
+    tol: float | None = None,
+) -> NMFResult:
+    """Chunked NMF with §III-D early abort and an optional convergence tol.
+
+    Before each chunk of up to ``chunk`` sweeps, ``should_abort()`` may stop
+    the fit; after it, with ``tol``, the fit stops once the relative error
+    improved by less than ``tol`` over the chunk (one host read a chunk).
+    ``iters`` of the result is the sweeps applied; an aborted fit returns
+    its partial factors (callers treat it as void). Never aborted and
+    without ``tol``, it applies the sweeps ``nmf`` applies.
+    """
+    w, h = nmf_init(_mean(v), k, w_draw, h_draw)
+    done = 0
+    prev_err = float("inf")
+    while done < iters:
+        if should_abort is not None and should_abort():
+            break
+        step = min(chunk, iters - done)
+        for _ in range(step):
+            w, h = mu_step(v, w, h)
+        done += step
+        if tol is not None:
+            err = float(reconstruction_error(v, w, h))
+            if prev_err - err < tol:
+                break
+            prev_err = err
+    return NMFResult(w, h, reconstruction_error(v, w, h), done)
 
 
 def _active(k_eff: torch.Tensor, k_pad: int, like: torch.Tensor) -> torch.Tensor:

@@ -28,7 +28,7 @@ from repro_torch.core.scoring import silhouette_samples_masked
 from repro_torch.random import Draws, DrawSource, seeded_draws, stack_draws
 
 from .batching import batched_lanes
-from .nmf import _nmf_masked, nmf
+from .nmf import _masked_init, _masked_sweeps, _nmf_masked, nmf
 
 
 class NMFkScore(NamedTuple):
@@ -194,6 +194,94 @@ def nmfk_score_batched(
     source = draws if draws is not None else seeded_draws(seed, n, m, n_perturbs, epsilon, v.device)
     lanes = stack_draws([source(int(k), k_pad) for k in ks])
     return _nmfk_score_masked(v, ks_t, lanes, k_pad, nmf_iters)
+
+
+# ---------------------------------------------------------------------------
+# elastic lanes: chunked convergence-gated fits with warm starts
+# ---------------------------------------------------------------------------
+# The elastic executor schedules fit-chunks, not whole fits: one lane is one
+# perturbation fit of one k, advanced up to ``chunk`` MU sweeps a dispatch.
+# These are the lane lifecycle's device steps: cold and warm init, the
+# resumable chunk and the pooled-column score of a completed ensemble. A
+# lane starts from its perturbed V (``_perturb(v, draws.noise[p])``, which
+# the plane keeps per slot) and the unscaled init draws of its
+# perturbation, so a cold lane that runs the whole sweep budget is
+# draw-for-draw the batched plane's fit of the same (k, perturbation).
+
+
+def _k_eff(k: int, like: torch.Tensor, shape: tuple[int, ...] = ()) -> torch.Tensor:
+    """k as an int64 tensor on ``like``'s device, made by a fill (a Python
+    scalar handed to ``torch.as_tensor`` would be a copy from the host)."""
+    return torch.full(shape, int(k), dtype=torch.long, device=like.device)
+
+
+def elastic_lane_init(
+    vp: torch.Tensor, k_eff: int, w_draw: torch.Tensor, h_draw: torch.Tensor, k_pad: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Cold lane init: the (W, H) a masked fit of the perturbed V ``vp``
+    (n, m) from the init draws w_draw (n, k_pad) / h_draw (k_pad, m) starts
+    from."""
+    return _masked_init(vp, _k_eff(k_eff, vp), w_draw, h_draw, k_pad)
+
+
+def elastic_lane_warm_init(
+    vp: torch.Tensor,
+    k_eff: int,
+    w_draw: torch.Tensor,
+    h_draw: torch.Tensor,
+    w_src: torch.Tensor,
+    k_src: int,
+    k_pad: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Warm lane init from a completed neighbor's W (n, k_pad) (cross-k
+    warm start).
+
+    The first ``min(k_eff, k_src)`` columns of the cold-draw W are replaced
+    by the source fit's columns, L2-renormalized to the cold draw's column
+    norms so the init's magnitude statistics (and the MU updates' scale
+    balance against the fresh H) are preserved; extra columns (k_eff >
+    k_src) and H keep their cold draws. Zero source columns fall back to
+    the cold draw — a zeroed column is unrecoverable under Lee-Seung.
+    """
+    w0, h0 = elastic_lane_init(vp, k_eff, w_draw, h_draw, k_pad)
+    take = torch.arange(k_pad, device=vp.device) < min(int(k_eff), int(k_src))
+    src_norm = torch.linalg.vector_norm(w_src, dim=0, keepdim=True)
+    unit = w_src / torch.clamp(src_norm, min=1e-12)
+    tgt_norm = torch.linalg.vector_norm(w0, dim=0, keepdim=True)
+    w = torch.where((take & (src_norm[0] > 1e-12))[None, :], unit * tgt_norm, w0)
+    return w, h0
+
+
+def elastic_chunk(
+    vp: torch.Tensor,
+    w: torch.Tensor,
+    h: torch.Tensor,
+    k_eff: torch.Tensor,
+    steps: torch.Tensor,
+    k_pad: int,
+    chunk: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Advance a batch of lanes up to ``chunk`` masked MU sweeps.
+
+    vp (L, n, m) / w (L, n, k_pad) / h (L, k_pad, m) / k_eff (L,) / steps
+    (L,), all on one device. Lane i applies exactly ``steps[i] <= chunk``
+    sweeps (a lane near its budget trims its last chunk; padding lanes take
+    0 and come back unchanged); the gate stays on the device, so the chunk
+    reads nothing back. Returns (w, h, rel_error (L,)), the error against
+    each lane's own perturbed V: the convergence signal the tol gate tests
+    on the host.
+    """
+    return _masked_sweeps(vp, w, h, k_eff, k_pad, chunk, steps=steps)
+
+
+def elastic_pooled_score(
+    w_all: torch.Tensor, errs: torch.Tensor, k_eff: int, k_pad: int
+) -> NMFkScore:
+    """Score one k's completed lane ensemble: w_all (p, n, k_pad) raw W
+    factors, errs (p,) rel errors; the pooled-column silhouette tail as one
+    lane of ``_pooled_w_score``. Fields are 0-d tensors."""
+    sc = _pooled_w_score(w_all[None], errs[None], _k_eff(k_eff, w_all, (1,)), k_pad)
+    return NMFkScore(*(field[0] for field in sc))
 
 
 def make_nmfk_evaluator(

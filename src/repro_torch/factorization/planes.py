@@ -15,22 +15,34 @@ explicit memory bound. ``shapes_dispatched`` records the distinct
 (batch, k_pad) shapes.
 
 Every dispatch observes ``lane_utilization`` (real lanes / dispatched
-lanes). Mesh sharding and the elastic plane wait for later slices.
+lanes). ``NMFkElasticPlane`` is the back end of the elastic executor
+(``ElasticWavefrontScheduler``): convergence-gated fit-chunks over a pool
+of lane slots. Mesh sharding waits for a later slice.
 """
 from __future__ import annotations
 
+import dataclasses
+from collections import deque
 from typing import Sequence
 
 import torch
 
 from repro_torch.core.scoring import davies_bouldin_score_masked, silhouette_score_masked
 from repro_torch.obs import get_metrics, get_tracer
-from repro_torch.random import DrawSource, KMeansDrawSource, seeded_draws, seeded_kmeans_draws
+from repro_torch.random import Draws, DrawSource, KMeansDrawSource, seeded_draws, seeded_kmeans_draws
 
-from .batching import bucket_batch
+from .batching import WarmStartCache, bucket_batch, next_pow2
 from .kmeans import _kmeans_masked_assign, _kmeans_masked_chunk, _kmeans_masked_init, kmeans_batched
 from .nmf import _masked_init, _masked_sweeps
-from .nmfk import _perturb, _pooled_w_score, nmfk_score_batched
+from .nmfk import (
+    _perturb,
+    _pooled_w_score,
+    elastic_chunk,
+    elastic_lane_init,
+    elastic_lane_warm_init,
+    elastic_pooled_score,
+    nmfk_score_batched,
+)
 
 
 class _BatchPlaneBase:
@@ -249,4 +261,301 @@ class KMeansBatchPlane(_BatchPlaneBase):
             return [float(s) for s in scores[:n_real].tolist()]
 
 
-__all__ = ["NMFkBatchPlane", "KMeansBatchPlane"]
+# ---------------------------------------------------------------------------
+# elastic plane: continuous batching of (k, perturbation) fit-chunks
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass
+class _Lane:
+    """One occupied slot: a single perturbation fit of a single k."""
+
+    k: int
+    p: int
+    done: int = 0  # MU sweeps applied so far
+    prev_err: float = float("inf")  # rel_error at the previous chunk boundary
+
+
+@dataclasses.dataclass
+class _KTask:
+    """Host-side lifecycle of one submitted k (its P perturbation lanes)."""
+
+    draws: Draws | None  # the k's noise and init draws, until its last lane is slotted
+    slotted: int = 0  # lanes slotted so far
+    w_parts: dict = dataclasses.field(default_factory=dict)  # p -> (n, k_pad) W
+    errs: dict = dataclasses.field(default_factory=dict)  # p -> final rel_error (0-d tensor)
+    cancelled: bool = False
+    scored: bool = False
+
+
+class NMFkElasticPlane:
+    """Convergence-gated chunked NMFk fits over a fixed pool of lane slots.
+
+    The unit of dispatch is a *chunk* — up to ``chunk`` masked MU sweeps of
+    every occupied lane, one batched fit at a fixed padded shape (each MU
+    half-sweep is one kernel launch on the card) — instead of a whole wave
+    of fixed-iteration fits. One lane is one (k, perturbation) fit. Between
+    chunks, host-side:
+
+      * **convergence gate** — a lane retires when its rel_error improved
+        by less than ``tol`` over the last chunk (or its sweep budget
+        ``nmf_iters`` is exhausted); the sweeps it didn't run are counted
+        as ``sweeps_saved``;
+      * **lane refill** — freed slots immediately drain queued
+        (k, perturbation) lanes submitted by the scheduler, so the batch
+        stays full while ks enter and leave at their own pace;
+      * **warm starts** — a refilled lane seeds its W from the nearest
+        completed k's factors via ``elastic_lane_warm_init`` (cold draw when
+        the ``WarmStartCache`` has nothing within its window);
+      * **eviction** — ``cancel(k)`` (the scheduler's reaction to a Binary
+        Bleed prune) removes queued lanes and evicts in-flight ones
+        mid-fit, crediting their remaining sweeps to ``sweeps_saved``.
+
+    Lane (k, p) draws from ``draws(k, k_pad)`` (default: ``seeded_draws(
+    seed, ...)``, the batched plane's schedule). ``tol <= 0`` disables the
+    gate: every lane runs exactly ``nmf_iters`` sweeps and (with
+    ``warm_start=False``) reproduces the batched plane draw-for-draw.
+    Accounting invariant: ``sweeps_run + sweeps_saved ==
+    sweeps_fixed_total`` over any completed search, where
+    ``sweeps_fixed_total`` counts ``n_perturbs * nmf_iters`` for every
+    submitted k.
+
+    Occupied slots are kept compacted in a prefix (retirement moves the
+    last occupied lane into the freed slot), and each dispatch runs the
+    bucketed prefix (``bucket_batch`` pow2 policy), so dispatch shapes stay
+    O(log slots). Each slot keeps its lane's perturbed V, W, H and k on the
+    device; slots never written are zeros, which the MU update keeps zero.
+    A tick copies the per-lane sweep budgets to the device once and reads
+    the lanes' errors back once.
+    """
+
+    track = "device:0"  # the tracer track of chunk, evict and warm_start records
+
+    def __init__(
+        self,
+        v: torch.Tensor,
+        seed: int = 0,
+        n_perturbs: int = 8,
+        nmf_iters: int = 150,
+        epsilon: float = 0.015,
+        statistic: str = "min",
+        k_pad: int | None = None,
+        tol: float = 1e-3,
+        chunk: int = 25,
+        slots: int | None = None,
+        warm_start: bool = True,
+        warm_window: int = 8,
+        draws: DrawSource | None = None,
+    ):
+        if statistic not in ("min", "mean"):
+            raise ValueError(f"statistic must be 'min' or 'mean', got {statistic!r}")
+        if k_pad is None:
+            raise ValueError("NMFkElasticPlane needs an explicit k_pad (slots persist across ks)")
+        if chunk < 1:
+            raise ValueError("chunk must be >= 1")
+        if slots is None:
+            slots = next_pow2(2 * n_perturbs)
+        if slots < 1:
+            raise ValueError(f"slots={slots} must be positive")
+        n, m = v.shape
+        self.v = v
+        self.n_perturbs = int(n_perturbs)
+        self.nmf_iters = int(nmf_iters)
+        self.statistic = statistic
+        self.k_pad = int(k_pad)
+        self.tol = float(tol)
+        self.chunk = int(chunk)
+        self.slots = int(slots)
+        self.warm_start = bool(warm_start)
+        self.warm_cache = WarmStartCache(window=warm_window)
+        self.draws = draws if draws is not None else seeded_draws(seed, n, m, n_perturbs, epsilon, v.device)
+
+        self._vp = torch.zeros((self.slots, n, m), dtype=v.dtype, device=v.device)
+        self._w = torch.zeros((self.slots, n, self.k_pad), dtype=v.dtype, device=v.device)
+        self._h = torch.zeros((self.slots, self.k_pad, m), dtype=v.dtype, device=v.device)
+        self._keff = torch.zeros((self.slots,), dtype=torch.long, device=v.device)
+        self._slot: list[_Lane | None] = [None] * self.slots
+        self._n_occ = 0
+        self._queue: deque[tuple[int, int]] = deque()
+        self._tasks: dict[int, _KTask] = {}
+        self._ready: list[tuple[int, float]] = []
+
+        # accounting (the invariant: run + saved == fixed_total)
+        self.sweeps_run = 0
+        self.sweeps_saved = 0
+        self.sweeps_fixed_total = 0
+        self.n_ticks = 0
+        self.shapes_dispatched: set[tuple[int, int]] = set()
+        self.last_lane_occupancy: float | None = None
+
+    # -- scheduler surface -------------------------------------------------------
+    @property
+    def backlog(self) -> int:
+        """Queued lanes not yet slotted (admission signal for the refiller)."""
+        return len(self._queue)
+
+    @property
+    def idle(self) -> bool:
+        return not self._queue and self._n_occ == 0 and not self._ready
+
+    def inflight_ks(self) -> set[int]:
+        """ks submitted but not yet scored or cancelled."""
+        return {k for k, t in self._tasks.items() if not t.scored and not t.cancelled}
+
+    def submit(self, k: int) -> None:
+        """Enqueue the P perturbation lanes of k (slotted by the next tick)."""
+        k = int(k)
+        if k > self.k_pad:
+            raise ValueError(f"k={k} exceeds plane k_pad={self.k_pad}")
+        if k in self._tasks:
+            raise ValueError(f"k={k} already submitted")
+        self._tasks[k] = _KTask(draws=self.draws(k, self.k_pad))
+        for p in range(self.n_perturbs):
+            self._queue.append((k, p))
+        self.sweeps_fixed_total += self.n_perturbs * self.nmf_iters
+        get_metrics().inc("sweeps_fixed_total", self.n_perturbs * self.nmf_iters)
+
+    def cancel(self, k: int) -> bool:
+        """Evict k mid-flight (Binary Bleed pruned it): dequeue its pending
+        lanes and free its occupied slots, crediting unspent sweeps."""
+        k = int(k)
+        task = self._tasks.get(k)
+        if task is None or task.scored or task.cancelled:
+            return False
+        task.cancelled = True
+        task.draws = None
+        pending = sum(1 for kk, _ in self._queue if kk == k)
+        if pending:
+            self._queue = deque((kk, p) for kk, p in self._queue if kk != k)
+            self._credit_saved(pending * self.nmf_iters)
+        evicted = 0
+        for i in range(self._n_occ - 1, -1, -1):
+            lane = self._slot[i]
+            if lane is not None and lane.k == k:
+                self._credit_saved(self.nmf_iters - lane.done)
+                self._free_slot(i)
+                evicted += 1
+        get_tracer().event("evict", track=self.track, k=k,
+                           pending=pending, evicted=evicted)
+        return True
+
+    def tick(self) -> list[tuple[int, float]]:
+        """Refill freed slots, advance every occupied lane one chunk, retire
+        converged / budget-exhausted lanes; returns newly scored (k, score)."""
+        tracer = get_tracer()
+        metrics = get_metrics()
+        self._refill()
+        if self._n_occ == 0:
+            out, self._ready = self._ready, []
+            return out
+        self.n_ticks += 1
+        n_occ = self._n_occ
+        batch = bucket_batch(
+            n_occ, cap=self.slots,
+            compiled=(b for b, kp in self.shapes_dispatched if kp == self.k_pad),
+        )
+        self.shapes_dispatched.add((batch, self.k_pad))
+        steps_host = [
+            min(self.chunk, self.nmf_iters - self._slot[i].done) if i < n_occ else 0
+            for i in range(batch)
+        ]
+        occupancy = n_occ / batch
+        self.last_lane_occupancy = occupancy
+        metrics.observe("lane_occupancy", occupancy)
+        metrics.set_gauge("lane_occupancy", occupancy)
+        with tracer.span(
+            "chunk", track=self.track, kind="nmfk_elastic", batch=batch,
+            n_occ=n_occ, k_pad=self.k_pad, sweeps=max(steps_host),
+            ks=sorted({self._slot[i].k for i in range(n_occ)}),
+        ):
+            steps = torch.tensor(steps_host, device=self.v.device)
+            w_new, h_new, errs = elastic_chunk(
+                self._vp[:batch], self._w[:batch], self._h[:batch], self._keff[:batch], steps,
+                self.k_pad, self.chunk,
+            )
+            self._w[:batch] = w_new
+            self._h[:batch] = h_new
+            errs_host = errs[:n_occ].tolist()
+
+        retire: list[int] = []
+        for i in range(n_occ):
+            lane = self._slot[i]
+            st = steps_host[i]
+            lane.done += st
+            self.sweeps_run += st
+            metrics.inc("sweeps_run", st)
+            err = errs_host[i]
+            converged = self.tol > 0 and (lane.prev_err - err) < self.tol
+            lane.prev_err = err
+            if converged or lane.done >= self.nmf_iters:
+                if lane.done < self.nmf_iters:
+                    self._credit_saved(self.nmf_iters - lane.done)
+                retire.append(i)
+        for i in sorted(retire, reverse=True):
+            # the slot is overwritten by compaction and refill: keep a copy
+            self._finish_lane(self._slot[i], self._w[i].clone(), errs[i])
+            self._free_slot(i)
+        out, self._ready = self._ready, []
+        return out
+
+    # -- internals ---------------------------------------------------------------
+    def _credit_saved(self, sweeps: int) -> None:
+        if sweeps > 0:
+            self.sweeps_saved += sweeps
+            get_metrics().inc("sweeps_saved", sweeps)
+
+    def _refill(self) -> None:
+        metrics = get_metrics()
+        while self._queue and self._n_occ < self.slots:
+            k, p = self._queue.popleft()
+            task = self._tasks[k]
+            if task.cancelled:  # defensive: cancel() already dequeues
+                continue
+            d = task.draws
+            i = self._n_occ
+            vp = self._vp[i]
+            torch.mul(self.v, d.noise[p], out=vp)  # _perturb, written into the slot
+            src = self.warm_cache.nearest(k, p) if self.warm_start else None
+            if src is not None:
+                k_src, w_src = src
+                w0, h0 = elastic_lane_warm_init(vp, k, d.w[p], d.h[p], w_src, k_src, self.k_pad)
+                metrics.inc("warm_start_hits")
+                get_tracer().event("warm_start", track=self.track, k=k, p=p, k_src=int(k_src))
+            else:
+                w0, h0 = elastic_lane_init(vp, k, d.w[p], d.h[p], self.k_pad)
+            self._w[i] = w0
+            self._h[i] = h0
+            self._keff[i] = k
+            self._slot[i] = _Lane(k=k, p=p)
+            self._n_occ += 1
+            task.slotted += 1
+            if task.slotted == self.n_perturbs:
+                task.draws = None
+
+    def _free_slot(self, i: int) -> None:
+        """Compact: move the last occupied lane into freed slot i."""
+        j = self._n_occ - 1
+        if i != j:
+            self._vp[i] = self._vp[j]
+            self._w[i] = self._w[j]
+            self._h[i] = self._h[j]
+            self._keff[i] = self._keff[j]
+            self._slot[i] = self._slot[j]
+        self._slot[j] = None
+        self._n_occ = j
+
+    def _finish_lane(self, lane: _Lane, w_row: torch.Tensor, err: torch.Tensor) -> None:
+        task = self._tasks[lane.k]
+        task.w_parts[lane.p] = w_row
+        task.errs[lane.p] = err
+        self.warm_cache.put(lane.k, lane.p, w_row)
+        if len(task.w_parts) < self.n_perturbs or task.cancelled:
+            return
+        w_all = torch.stack([task.w_parts[p] for p in range(self.n_perturbs)])
+        errs = torch.stack([task.errs[p] for p in range(self.n_perturbs)])
+        sc = elastic_pooled_score(w_all, errs, lane.k, self.k_pad)
+        score = float(sc.min_silhouette if self.statistic == "min" else sc.mean_silhouette)
+        task.scored = True
+        task.w_parts.clear()  # the warm cache holds what future ks need
+        self._ready.append((lane.k, score))
+
+
+__all__ = ["NMFkBatchPlane", "KMeansBatchPlane", "NMFkElasticPlane"]

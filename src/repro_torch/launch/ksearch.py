@@ -5,7 +5,7 @@ Binary Bleed over NMFk scores, on the card by default:
 
   PYTHONPATH=src python -m repro_torch.launch.ksearch --k-max 16 --k-true 5
 
-Two executors:
+Three executors:
 
   * ``threads`` (default): ``ThreadPoolScheduler`` over a scalar
     ``evaluate(k)``; each of ``--resources`` worker threads fits one k at a
@@ -14,11 +14,20 @@ Two executors:
     that makes the search restartable.
   * ``batched``: ``WavefrontScheduler`` over ``NMFkBatchPlane``; each wave
     of independent midpoints is one padded batched fit.
+  * ``elastic``: ``ElasticWavefrontScheduler`` over ``NMFkElasticPlane``;
+    continuous batching over fit-chunks of ``--fit-chunk`` sweeps. Lanes
+    retire as soon as their fit converges (``--tol``; 0 runs every lane the
+    full ``--nmf-iters``, the batched executor's fits draw for draw), freed
+    slots refill from the worklist mid-stream, refilled ks warm-start from
+    completed neighbors (``--warm-start``), and prunes evict in-flight ks
+    between chunks:
+
+      PYTHONPATH=src python -m repro_torch.launch.ksearch --executor elastic
 
 ``--device cpu`` runs the plain PyTorch versions of the kernels. The
-reference's sharded and elastic executors (and ``--lanes``,
-``--data-shards``, ``--comm``, ``--distributed-fit``, ``--compile-cache``)
-are not ported yet; the parser refuses them.
+reference's sharded executor (and ``--lanes``, ``--data-shards``,
+``--comm``, ``--distributed-fit``, ``--compile-cache``) is not ported yet;
+the parser refuses it.
 """
 from __future__ import annotations
 
@@ -29,15 +38,17 @@ import time
 import torch
 
 from repro_torch.core import (
+    ElasticWavefrontScheduler,
     FileCoordinator,
     InProcessCoordinator,
+    LaneRefillPolicy,
     ThreadPoolScheduler,
     WavefrontScheduler,
     make_space,
 )
 from repro_torch.device import resolve
 from repro_torch.factorization.nmfk import make_nmfk_evaluator
-from repro_torch.factorization.planes import NMFkBatchPlane
+from repro_torch.factorization.planes import NMFkBatchPlane, NMFkElasticPlane
 from repro_torch.factorization.synthetic import nmf_data
 from repro_torch.obs import NULL_TRACER, Metrics, Tracer, use_metrics, use_tracer
 
@@ -57,11 +68,27 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--n-perturbs", type=int, default=4)
     ap.add_argument("--nmf-iters", type=int, default=120)
     ap.add_argument("--journal", default=None, help="dir for FileCoordinator (restartable)")
-    ap.add_argument("--executor", default="threads", choices=["threads", "batched"],
+    ap.add_argument("--executor", default="threads", choices=["threads", "batched", "elastic"],
                     help="threads: one NMFk fit per k per worker thread; batched: "
-                    "wavefront frontiers as one padded batched NMFk fit per wave")
+                    "wavefront frontiers as one padded batched NMFk fit per wave; "
+                    "elastic: continuous batching over fit-chunks — lanes retire "
+                    "on per-fit convergence (--tol), freed slots refill from the "
+                    "worklist, new ks warm-start from neighbors")
     ap.add_argument("--max-wave", type=int, default=None,
                     help="cap ks per batched dispatch (batched executor)")
+    ap.add_argument("--tol", type=float, default=1e-3,
+                    help="elastic convergence gate: a lane retires when its "
+                    "rel_error improved by less than this over the last chunk "
+                    "(chunk-size dependent; <= 0 disables the gate — every "
+                    "lane then runs exactly --nmf-iters sweeps, reproducing "
+                    "the batched executor draw-for-draw)")
+    ap.add_argument("--fit-chunk", type=int, default=25,
+                    help="elastic chunk size: MU sweeps per dispatch between "
+                    "convergence checks / refills / abort polls")
+    ap.add_argument("--warm-start", action=argparse.BooleanOptionalAction, default=True,
+                    help="seed refilled elastic lanes from the nearest "
+                    "completed k's W (column pad/truncate + re-normalize); "
+                    "--no-warm-start cold-starts every lane")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="cuda runs the hand-written kernels; cpu their plain versions")
     ap.add_argument("--seed", type=int, default=0,
@@ -102,6 +129,34 @@ def _wall(device: torch.device) -> float:
 
 
 def _run_search(args, ap, space, v):
+    if args.executor == "elastic":
+        if not args.quiet:
+            for flag, used in (("--journal", args.journal),
+                               ("--resources", args.resources != ap.get_default("resources")),
+                               ("--max-wave", args.max_wave is not None)):
+                if used:
+                    print(f"note: {flag} is ignored by the elastic executor")
+        plane = NMFkElasticPlane(
+            v, args.seed, n_perturbs=args.n_perturbs, nmf_iters=args.nmf_iters,
+            k_pad=args.k_max, tol=args.tol, chunk=args.fit_chunk, warm_start=args.warm_start,
+        )
+        sched = ElasticWavefrontScheduler(space, refill=LaneRefillPolicy(order=args.order))
+        t0 = _wall(v.device)
+        result = sched.run(plane)
+        dt = _wall(v.device) - t0
+        extra = {
+            "ticks": sched.n_ticks,
+            "dispatched_shapes": sorted(plane.shapes_dispatched),
+            "tol": args.tol,
+            "fit_chunk": args.fit_chunk,
+            "warm_start": args.warm_start,
+            "sweeps_run": plane.sweeps_run,
+            "sweeps_saved": plane.sweeps_saved,
+            "sweeps_fixed_total": plane.sweeps_fixed_total,
+            "warm_start_hits": plane.warm_cache.hits,
+            "lane_occupancy": plane.last_lane_occupancy,
+        }
+        return result, dt, extra
     if args.executor == "batched":
         if not args.quiet:
             ignored = (

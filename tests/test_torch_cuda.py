@@ -571,3 +571,47 @@ def test_kmeanspp_choice_on_the_card_is_the_exact_draw():
         assert torch.equal(got.cpu(), exact)
         got_1d = torch.stack([_choice(pc[i], torch.from_numpy(u[i:i + 1]).to(dev)[0]) for i in range(16)])
         assert torch.equal(got_1d.cpu(), exact[:16])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("warm_start", [True, False])
+def test_elastic_plane_on_the_card_matches_the_cpu(warm_start):
+    """chip_smoke.py's phase-4 size: ks 2..8 drained at tol 0 (96 x 104,
+    k_pad 8, 4 perturbations, 120 sweeps, chunks of 25), the card's draws
+    on both devices. Scores within 2e-3 (120 sweeps of kernel vs plain
+    arithmetic, then the greedy scorer: chip_smoke.NMFK_SIL_ATOL), equal
+    sweep counts and warm-start hits, the kernels launched on the card."""
+    from repro_torch.factorization.planes import NMFkElasticPlane
+    from repro_torch.factorization.synthetic import nmf_data
+    from repro_torch.random import Draws, seeded_draws
+
+    dev = card()
+    n, m, p, ks = 96, 104, 4, list(range(2, 9))
+    v, _, _ = nmf_data(n, m, 5, seed=0, device=dev)
+    card_draws = seeded_draws(0, n, m, p, 0.015, dev)
+
+    def cpu_draws(k, k_draw):
+        return Draws(*(t.cpu() for t in card_draws(k, k_draw)))
+
+    planes, scores = [], []
+    for vv, draws in ((v, card_draws), (v.cpu(), cpu_draws)):
+        plane = NMFkElasticPlane(vv, n_perturbs=p, nmf_iters=120, k_pad=8, tol=0.0, chunk=25,
+                                 warm_start=warm_start, draws=draws)
+        for k in ks:
+            plane.submit(k)
+        ops.reset_launch_counts()
+        got = {}
+        while not plane.idle:
+            got.update(plane.tick())
+        if vv.is_cuda:
+            launches = ops.launch_counts()
+        planes.append(plane)
+        scores.append(got)
+    assert sorted(scores[0]) == sorted(scores[1]) == ks
+    np.testing.assert_allclose([scores[0][k] for k in ks], [scores[1][k] for k in ks], rtol=0, atol=2e-3)
+    card_plane, cpu_plane = planes
+    for field in ("sweeps_run", "sweeps_saved", "sweeps_fixed_total"):
+        assert getattr(card_plane, field) == getattr(cpu_plane, field)
+    assert card_plane.warm_cache.hits == cpu_plane.warm_cache.hits
+    assert (card_plane.warm_cache.hits > 0) == warm_start
+    assert min(launches["mu_update_h"], launches["mu_update_w"], launches["silhouette_dist_sums_batched"]) >= 1

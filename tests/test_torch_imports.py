@@ -2,8 +2,9 @@
 
 Every ``repro_torch`` module and ``chip_smoke.py`` are imported in a fresh
 interpreter, which must end with neither ``jax`` nor any ``repro`` /
-``repro.*`` module loaded; their sources and the port's ``tools/*.py`` are
-also scanned with ``ast`` for such imports, including ones inside functions.
+``repro.*`` module loaded; their sources, the port's ``tools/*.py`` and its
+example scripts ``examples/torch_*.py`` are also scanned with ``ast`` for
+such imports, including ones inside functions.
 """
 import ast
 import json
@@ -18,7 +19,8 @@ pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("*.py"))
+SOURCES = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("*.py"))
+           + sorted((ROOT / "examples").glob("torch_*.py")))
 
 
 def _module_names() -> list[str]:

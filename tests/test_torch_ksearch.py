@@ -4,7 +4,9 @@
    draws gives the reference's ``k_optimal`` and visited set, through the
    port's ``NMFkBatchPlane`` (batched) and the port's evaluator (serial).
 2. ``python -m repro_torch.launch.ksearch --device cpu`` finds the planted
-   rank on the port's own V; the journal, trace and metrics outputs work.
+   rank on the port's own V on every executor; the journal, trace and
+   metrics outputs work; ``examples/torch_quickstart.py --device cpu``
+   finds it with Binary Bleed and grid search.
 3. The default device is the card: without one, entry points raise.
 """
 import json
@@ -32,7 +34,8 @@ from repro_torch.launch import ksearch  # noqa: E402
 
 KEY = jax.random.PRNGKey(0)
 P, ITERS, K_RANGE, THRESHOLD = 4, 80, (2, 12), 0.9
-SRC = str(Path(__file__).resolve().parents[1] / "src")
+ROOT = Path(__file__).resolve().parents[1]
+SRC = str(ROOT / "src")
 
 
 @pytest.fixture(scope="module")
@@ -104,6 +107,27 @@ def test_batched_executor_with_trace_and_metrics(tmp_path):
     assert json.loads(metrics.read_text())["result"]["k_optimal"] == 5
 
 
+def test_elastic_executor_finds_planted_rank_with_accounting():
+    out = ksearch.main(["--device", "cpu", "--k-max", "12", "--n-perturbs", "4", "--nmf-iters", "80",
+                        "--executor", "elastic", "--quiet"])
+    assert out["k_optimal"] == out["k_true"] == 5
+    assert out["executor"] == "elastic" and out["ticks"] >= 1
+    assert out["sweeps_run"] + out["sweeps_saved"] == out["sweeps_fixed_total"]
+    assert out["sweeps_saved"] > 0 and out["warm_start_hits"] > 0  # the defaults: tol 1e-3, warm starts
+    oracle = ksearch.main(["--device", "cpu", "--k-max", "12", "--n-perturbs", "4", "--nmf-iters", "80",
+                           "--executor", "elastic", "--tol", "0", "--no-warm-start", "--fit-chunk", "30",
+                           "--quiet"])
+    assert oracle["k_optimal"] == 5 and oracle["warm_start_hits"] == 0
+    assert oracle["sweeps_run"] == 4 * 80 * oracle["n_visited"]
+
+
+def test_quickstart_example_on_the_cpu():
+    env = dict(os.environ, PYTHONPATH=SRC + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    out = subprocess.run([sys.executable, str(ROOT / "examples" / "torch_quickstart.py"), "--device", "cpu"],
+                         capture_output=True, text=True, env=env, timeout=300, check=True)
+    assert "Binary Bleed : k_optimal=5" in out.stdout and "Grid search  : k_optimal=5" in out.stdout
+
+
 def test_journal_restart_replays_the_search(tmp_path):
     args = ["--device", "cpu", "--k-max", "8", "--n-perturbs", "3", "--nmf-iters", "40",
             "--quiet", "--journal", str(tmp_path / "journal")]
@@ -113,8 +137,8 @@ def test_journal_restart_replays_the_search(tmp_path):
 
 
 def test_parser_refuses_unported_executors_and_flags():
-    for extra in (["--executor", "sharded"], ["--executor", "elastic"], ["--lanes", "2"],
-                  ["--data-shards", "2"], ["--compile-cache", "x"]):
+    for extra in (["--executor", "sharded"], ["--lanes", "2"], ["--data-shards", "2"],
+                  ["--comm", "pipelined"], ["--distributed-fit"], ["--compile-cache", "x"]):
         with pytest.raises(SystemExit):
             ksearch._parser().parse_args(extra)
 

@@ -12,9 +12,11 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "tools"))
+ROOT = Path(__file__).resolve().parents[1]
+sys.path[:0] = [str(ROOT / "tools"), str(ROOT)]
 
 import profile_ksearch  # noqa: E402
+import time_mu  # noqa: E402
 import time_pairwise  # noqa: E402
 
 
@@ -35,6 +37,24 @@ def test_device_times_count_each_kernel_once():
     ])
     times = profile_ksearch.device_times(prof)
     assert times == {"cutlass_sgemm": (146.0, 407), "pairwise_thin<8>": (38.0, 861)}
+
+
+@pytest.mark.parametrize("update", ["h", "w"])
+def test_mu_bound_is_chip_smokes_and_scales_with_lanes(update):
+    """time_mu's bound is the one chip_smoke.py reports: at the paper's
+    1000 x 1100, k 16 the bytes bind (0.044 ms at the batched wave's L=32),
+    and it is linear in the lane count (the elastic executor's L=8 a
+    quarter of it)."""
+    import chip_smoke
+
+    lanes, n, m, k = 32, 1000, 1100, 16
+    n_bytes = 4 * lanes * (n * m + n * k + k * m + k * k + (k * m if update == "h" else n * k))
+    flops = lanes * (2 * n * m * k + (2 * k * k * m + 3 * k * m if update == "h" else 2 * n * k * k + 3 * n * k))
+    want = chip_smoke.bound_ms(n_bytes, flops)
+    assert time_mu.bound_ms(update, lanes, n, m, k) == pytest.approx(want) and want[1] == "bytes"
+    assert abs(want[0] - 0.044) < 0.001
+    ms8, by8 = time_mu.bound_ms(update, 8, n, m, k)
+    assert ms8 == pytest.approx(want[0] / 4) and by8 == "bytes"
 
 
 def test_record_shapes_counts_launches_by_shape_and_restores_the_wrapper():

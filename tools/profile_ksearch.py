@@ -5,7 +5,8 @@
 ``chip_smoke.py`` (V 1000 x 1100, k_true 8, k 2..16, 4 perturbations, 120
 sweeps); ``--search kmeans`` runs its ``kmeans_db_1m`` (K-Means with
 Davies-Bouldin on 10^6 blob points, d 6, k_true 7, k 2..24). Each runs on
-each executor: once to warm up, ``--repeats`` times on the host clock, then
+each executor (NMFk also on ``elastic``, at its defaults: tol 1e-3, chunks
+of 25, warm starts): once to warm up, ``--repeats`` times on the host clock, then
 once under ``torch.profiler``. Prints one JSON line per executor with the
 wall times, the device's busy time (the sum of the kernels' own device
 time) and the kernels that took the most of it. Run from the root of a
@@ -95,13 +96,15 @@ def main(argv=None) -> int:
 
         def run(executor):
             return kmeans_db_1m(torch, x, executor)
+        executors = ("threads", "batched")
     else:
         from repro_torch.launch import ksearch
 
         def run(executor):
             return ksearch.main(SEARCH + ["--executor", executor])
+        executors = ("threads", "batched", "elastic")
 
-    for executor in ("threads", "batched"):
+    for executor in executors:
         run(executor)  # warm up: kernels built and loaded, plans cached
         walls = [round(run(executor)["seconds"], 4) for _ in range(args.repeats)]
         torch.cuda.synchronize()

@@ -1,22 +1,27 @@
 #!/usr/bin/env python3
 """Time the port's MU wrappers on the card, and the NMFk searches that run them.
 
-For ``mu_update_h`` and ``mu_update_w`` at the two main-path shapes (the
-batched wave, L=32, and the threads executor, L=4, both at V 1000 x 1100,
-k=16) prints one JSON line each with:
+For ``mu_update_h`` and ``mu_update_w`` at the three main-path shapes (the
+batched wave, L=32, the elastic executor's full lane batch, L=8, and the
+threads executor, L=4, all at V 1000 x 1100, k=16) prints one JSON line
+each with:
 
 - ``ms``: the wrapper's device time per call, its G or Q ``bmm`` included
   (CUDA events behind a spin kernel, as ``chip_smoke.py`` times it);
 - ``host_us``: the wrapper's host time per call, the median of five
   rounds of back-to-back calls queued behind a spin kernel (so the host
   never waits for the device);
-- ``plain_ms``: the plain PyTorch version's device time.
+- ``plain_ms``: the plain PyTorch version's device time;
+- ``bound_ms``, ``bound_by``: the least time the card could take, as
+  ``chip_smoke.py`` counts it (each input read and the output written once
+  over 3.35 TB/s, or the operations over 67 TFLOP/s fp32, the larger).
 
 Each wrapper is first held against its plain version at the reference's
 fp32 MU tolerance (3e-5).
 
 Then the wall times of ``--searches`` paper-scale NMFk searches (the
-search of ``chip_smoke.py``) on each executor, after one warm-up. Run from
+search of ``chip_smoke.py``) on each executor (``elastic`` at its defaults:
+tol 1e-3, chunks of 25, warm starts), after one warm-up. Run from
 the root of a checkout on a machine with a card:
 
     python3 tools/time_mu.py [--src src] [--searches 3] [--tag name] [--no-tma]
@@ -43,7 +48,9 @@ from pathlib import Path
 
 SEARCH = ["--n", "1000", "--m", "1100", "--k-true", "8", "--k-max", "16", "--n-perturbs", "4",
           "--nmf-iters", "120", "--device", "cuda", "--quiet"]
-SHAPES = [(32, 1000, 1100, 16), (4, 1000, 1100, 16)]  # (L, n, m, k)
+SHAPES = [(32, 1000, 1100, 16), (8, 1000, 1100, 16), (4, 1000, 1100, 16)]  # (L, n, m, k)
+# published H100 SXM peaks (NVIDIA data sheet), as chip_smoke.py takes them
+HBM_BYTES_PER_S, FP32_FLOPS_PER_S = 3.35e12, 67e12
 DIGEST_SHAPES = [(32, 1000, 1100, 16), (4, 1000, 1100, 16), (4, 129, 257, 13), (2, 300, 520, 100),
                  (6, 100, 90, 13), (2, 70, 50, 33), (2, 300, 320, 128)]
 
@@ -67,6 +74,15 @@ def digests(torch, ops) -> dict[tuple, list[int]]:
         out[shape] = [int(fn(v, w, h).view(torch.int32).sum(dtype=torch.int64))
                       for fn in (ops.mu_update_h, ops.mu_update_w)]
     return out
+
+
+def bound_ms(update: str, lanes: int, n: int, m: int, k: int) -> tuple[float, str]:
+    """The least time of one MU half-sweep (``update`` "h" or "w"): V, W, H,
+    the k x k product and the output moved once, against its operations."""
+    n_bytes = 4 * lanes * (n * m + n * k + k * m + k * k + (k * m if update == "h" else n * k))
+    flops = lanes * (2 * n * m * k + (2 * k * k * m + 3 * k * m if update == "h" else 2 * n * k * k + 3 * n * k))
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def device_ms(torch, fn, reps: int = 20) -> float:
@@ -147,13 +163,15 @@ def main(argv=None) -> int:
                                 ("mu_update_w", ops.mu_update_w, ref.mu_update_w)):
             # the reference's fp32 MU kernel tolerance (chip_smoke.MU_TOL)
             torch.testing.assert_close(fn(v, w, h), plain(v, w, h), rtol=3e-5, atol=3e-5)
+            b_ms, b_by = bound_ms(name[-1], lanes, n, m, k)
             print(json.dumps({
                 "tag": tag, "wrapper": name, "shape": {"L": lanes, "n": n, "m": m, "k": k},
                 "ms": device_ms(torch, lambda: fn(v, w, h)),
                 "host_us": host_us(torch, lambda: fn(v, w, h)),
                 "plain_ms": device_ms(torch, lambda: plain(v, w, h)),
+                "bound_ms": b_ms, "bound_by": b_by,
             }), flush=True)
-    for executor in ("threads", "batched") if args.searches else ():
+    for executor in ("threads", "batched", "elastic") if args.searches else ():
         run = SEARCH + ["--executor", executor]
         ksearch.main(run)  # warm up
         results = [ksearch.main(run) for _ in range(args.searches)]
