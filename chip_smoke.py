@@ -114,6 +114,15 @@ def bound_ms(n_bytes: float, flops: float, flops_per_s: float = FP32_FLOPS_PER_S
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def mu_bound(update: str, lanes: int, n: int, m: int, k: int) -> tuple[float, str]:
+    """The least time of one MU half-sweep (``update`` "h" or "w") over
+    ``lanes`` fits: V, W, H, the k x k product and the output moved once,
+    against its operations."""
+    n_bytes = 4 * lanes * (n * m + n * k + k * m + k * k + (k * m if update == "h" else n * k))
+    flops = lanes * (2 * n * m * k + (2 * k * k * m + 3 * k * m if update == "h" else 2 * n * k * k + 3 * n * k))
+    return bound_ms(n_bytes, flops)
+
+
 def time_ms(torch, fn, reps: int = 20) -> float:
     """Device milliseconds per call. A spin kernel is queued first, so the
     host enqueues every timed launch before the first one runs and the
@@ -159,8 +168,9 @@ def mu_problem(torch, dev, lanes: int, k_pad: int, k_effs, n: int = 1000, m: int
 
 def check_mu(torch, dev, ops, ref, records: dict, log) -> None:
     """Both MU wrappers against their plain versions at the batched wave's
-    shape (L=32; k_pad 16, and ragged k_pad 13) and the threads executor's
-    (L=4, k=16), and past the tiled kernels' largest rank (k_pad 129 and
+    shape (L=32; k_pad 16, and ragged k_pad 13), the elastic executor's
+    full lane batch (L=8, k_pad 16, one k per lane) and the threads
+    executor's (L=4, k=16), and past the tiled kernels' largest rank (k_pad 129 and
     200 at L=2, V 300 x 320: the any-rank kernel): masked components
     exactly zero, two calls bitwise equal; timed at k=16 with the wrapper's
     G or Q product alone beside (the kernels line reports the L=32 case,
@@ -168,6 +178,7 @@ def check_mu(torch, dev, ops, ref, records: dict, log) -> None:
     cases = [
         ("k_pad=16, ks 9..16", 32, 16, [9 + i // 4 for i in range(32)], 1000, 1100),
         ("k_pad=13, ragged, ks 10..13", 32, 13, [10 + (i // 4) % 4 for i in range(32)], 1000, 1100),
+        ("elastic: L=8, k=16, ks 9..16", 8, 16, [9 + i for i in range(8)], 1000, 1100),
         ("threads: L=4, k=16", 4, 16, [16] * 4, 1000, 1100),
         ("any rank: k_pad=129, ks 129, 120", 2, 129, [129, 120], 300, 320),
         ("any rank: k_pad=200, ks 200, 150", 2, 200, [200, 150], 300, 320),
@@ -196,9 +207,7 @@ def check_mu(torch, dev, ops, ref, records: dict, log) -> None:
                 entry["plan"] = {"whole": plan.whole, "split": plan.split, "chunk": plan.chunk, "items": plan.items,
                                  "blocks": plan.blocks, "scratch_bytes": 4 * math.prod(plan.scratch)}
             if k == 16:  # the main paths' shape: time it
-                n_bytes = 4 * lanes * (n * m + n * k + k * m + k * k + (k * m if out_of == "h" else n * k))
-                flops = lanes * (2 * n * m * k + (2 * k * k * m + 3 * k * m if out_of == "h" else 2 * n * k * k + 3 * n * k))
-                b_ms, b_by = bound_ms(n_bytes, flops)
+                b_ms, b_by = mu_bound(out_of, lanes, n, m, k)
                 # the wrapper's own k x k product (G = W^T W or Q = H H^T), timed alone
                 gram = (lambda: torch.bmm(w.transpose(1, 2), w)) if out_of == "h" else (
                     lambda: torch.bmm(h, h.transpose(1, 2)))

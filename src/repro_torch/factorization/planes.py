@@ -304,7 +304,7 @@ class NMFkElasticPlane:
         stays full while ks enter and leave at their own pace;
       * **warm starts** — a refilled lane seeds its W from the nearest
         completed k's factors via ``elastic_lane_warm_init`` (cold draw when
-        the ``WarmStartCache`` has nothing within its window);
+        the ``WarmStartCache`` has nothing within its window of 8 ks);
       * **eviction** — ``cancel(k)`` (the scheduler's reaction to a Binary
         Bleed prune) removes queued lanes and evicts in-flight ones
         mid-fit, crediting their remaining sweeps to ``sweeps_saved``.
@@ -342,7 +342,6 @@ class NMFkElasticPlane:
         chunk: int = 25,
         slots: int | None = None,
         warm_start: bool = True,
-        warm_window: int = 8,
         draws: DrawSource | None = None,
     ):
         if statistic not in ("min", "mean"):
@@ -365,7 +364,7 @@ class NMFkElasticPlane:
         self.chunk = int(chunk)
         self.slots = int(slots)
         self.warm_start = bool(warm_start)
-        self.warm_cache = WarmStartCache(window=warm_window)
+        self.warm_cache = WarmStartCache()
         self.draws = draws if draws is not None else seeded_draws(seed, n, m, n_perturbs, epsilon, v.device)
 
         self._vp = torch.zeros((self.slots, n, m), dtype=v.dtype, device=v.device)

@@ -41,20 +41,16 @@ def test_device_times_count_each_kernel_once():
 
 @pytest.mark.parametrize("update", ["h", "w"])
 def test_mu_bound_is_chip_smokes_and_scales_with_lanes(update):
-    """time_mu's bound is the one chip_smoke.py reports: at the paper's
-    1000 x 1100, k 16 the bytes bind (0.044 ms at the batched wave's L=32),
-    and it is linear in the lane count (the elastic executor's L=8 a
-    quarter of it)."""
+    """time_mu reports chip_smoke.py's bound: at the paper's 1000 x 1100,
+    k 16 the bytes bind (0.044 ms at the batched wave's L=32), and it is
+    linear in the lane count (the elastic executor's L=8 a quarter of it)."""
     import chip_smoke
 
-    lanes, n, m, k = 32, 1000, 1100, 16
-    n_bytes = 4 * lanes * (n * m + n * k + k * m + k * k + (k * m if update == "h" else n * k))
-    flops = lanes * (2 * n * m * k + (2 * k * k * m + 3 * k * m if update == "h" else 2 * n * k * k + 3 * n * k))
-    want = chip_smoke.bound_ms(n_bytes, flops)
-    assert time_mu.bound_ms(update, lanes, n, m, k) == pytest.approx(want) and want[1] == "bytes"
-    assert abs(want[0] - 0.044) < 0.001
-    ms8, by8 = time_mu.bound_ms(update, 8, n, m, k)
-    assert ms8 == pytest.approx(want[0] / 4) and by8 == "bytes"
+    assert time_mu.mu_bound is chip_smoke.mu_bound
+    ms32, by32 = chip_smoke.mu_bound(update, 32, 1000, 1100, 16)
+    assert abs(ms32 - 0.044) < 0.001 and by32 == "bytes"
+    ms8, by8 = chip_smoke.mu_bound(update, 8, 1000, 1100, 16)
+    assert ms8 == pytest.approx(ms32 / 4) and by8 == "bytes"
 
 
 def test_record_shapes_counts_launches_by_shape_and_restores_the_wrapper():

@@ -12,8 +12,8 @@ each with:
   rounds of back-to-back calls queued behind a spin kernel (so the host
   never waits for the device);
 - ``plain_ms``: the plain PyTorch version's device time;
-- ``bound_ms``, ``bound_by``: the least time the card could take, as
-  ``chip_smoke.py`` counts it (each input read and the output written once
+- ``bound_ms``, ``bound_by``: the least time the card could take,
+  ``chip_smoke.mu_bound`` (each input read and the output written once
   over 3.35 TB/s, or the operations over 67 TFLOP/s fp32, the larger).
 
 Each wrapper is first held against its plain version at the reference's
@@ -46,11 +46,12 @@ import sys
 import time
 from pathlib import Path
 
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+from chip_smoke import mu_bound  # noqa: E402  (the bound chip_smoke.py reports)
+
 SEARCH = ["--n", "1000", "--m", "1100", "--k-true", "8", "--k-max", "16", "--n-perturbs", "4",
           "--nmf-iters", "120", "--device", "cuda", "--quiet"]
 SHAPES = [(32, 1000, 1100, 16), (8, 1000, 1100, 16), (4, 1000, 1100, 16)]  # (L, n, m, k)
-# published H100 SXM peaks (NVIDIA data sheet), as chip_smoke.py takes them
-HBM_BYTES_PER_S, FP32_FLOPS_PER_S = 3.35e12, 67e12
 DIGEST_SHAPES = [(32, 1000, 1100, 16), (4, 1000, 1100, 16), (4, 129, 257, 13), (2, 300, 520, 100),
                  (6, 100, 90, 13), (2, 70, 50, 33), (2, 300, 320, 128)]
 
@@ -74,15 +75,6 @@ def digests(torch, ops) -> dict[tuple, list[int]]:
         out[shape] = [int(fn(v, w, h).view(torch.int32).sum(dtype=torch.int64))
                       for fn in (ops.mu_update_h, ops.mu_update_w)]
     return out
-
-
-def bound_ms(update: str, lanes: int, n: int, m: int, k: int) -> tuple[float, str]:
-    """The least time of one MU half-sweep (``update`` "h" or "w"): V, W, H,
-    the k x k product and the output moved once, against its operations."""
-    n_bytes = 4 * lanes * (n * m + n * k + k * m + k * k + (k * m if update == "h" else n * k))
-    flops = lanes * (2 * n * m * k + (2 * k * k * m + 3 * k * m if update == "h" else 2 * n * k * k + 3 * n * k))
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def device_ms(torch, fn, reps: int = 20) -> float:
@@ -163,7 +155,7 @@ def main(argv=None) -> int:
                                 ("mu_update_w", ops.mu_update_w, ref.mu_update_w)):
             # the reference's fp32 MU kernel tolerance (chip_smoke.MU_TOL)
             torch.testing.assert_close(fn(v, w, h), plain(v, w, h), rtol=3e-5, atol=3e-5)
-            b_ms, b_by = bound_ms(name[-1], lanes, n, m, k)
+            b_ms, b_by = mu_bound(name[-1], lanes, n, m, k)
             print(json.dumps({
                 "tag": tag, "wrapper": name, "shape": {"L": lanes, "n": n, "m": m, "k": k},
                 "ms": device_ms(torch, lambda: fn(v, w, h)),
