@@ -23,6 +23,10 @@ Phases, each fatal on failure:
      the LM's prefill and greedy decode (qwen2-0.5b at full width cut to 2
      layers; reduced h2o-danube, whose window bites) on the card against the
      same computation on the CPU (plain versions, same draws and weights);
+     then RESCAL and RESCALk (96 entities, 3 relations, k 2..6) and the
+     distributed fits on a one-rank NCCL group (``distributed_nmf`` sync and
+     pipelined, bitwise equal at one rank; ``distributed_rescal``; the
+     masked body against the single-device masked fit) against the CPU;
   5. run each main path with every launch count set to 0 just before it and
      read just after, asserting the answer and that the run went through
      its kernels: the paper-scale NMFk search (V 1000x1100, k_true 8,
@@ -32,6 +36,12 @@ Phases, each fatal on failure:
      draw-for-draw oracle: each visited k's score against the batched
      plane's) and at its defaults (tol 1e-3, warm starts), each with
      k_optimal 8 and sweeps run + saved == the fixed-iteration total;
+     ``nmfk_distributed_fit``: the same search on ``threads`` with
+     ``--distributed-fit --resources 2`` (each worker's one-rank NCCL group
+     runs ``distributed_nmf`` for every k it scores; k_optimal 8);
+     ``rescalk_1000``: Binary Bleed over RESCALk (§IV-C's RESCAL setup of
+     ``benchmarks/bench_distributed.py`` at 1000 entities, 4 relations,
+     k_true 4, k 2..11) on the serial and the threads executor (k_optimal 4);
      ``kmeans_db_1m`` — Binary Bleed over K-Means with Davies-Bouldin on
      10^6 blob points (d 6, k_true 7, k 2..24) — on the scalar executor (two
      threads) and the batched one (k_optimal 7); then the port's ``serve``
@@ -84,6 +94,23 @@ KM_K_PAD, KM_MAX_ITERS, KM_WAVE = 24, 100, 16
 
 FLASH_TOL = dict(rtol=3e-5, atol=3e-5)  # the reference's flash tolerance (tests/test_kernels.py)
 LOGIT_TOL = dict(rtol=2e-3, atol=2e-3)  # the reference's decode-vs-forward tolerance (tests/test_models.py)
+
+# RESCAL card vs CPU: cuBLAS against the CPU's BLAS, fp32, from the same
+# draws. Held where NMFk is held (NMFK_SIL_ATOL, NMFK_ERR_RTOL); the
+# factors, well determined at k_true, at the same relative tolerance.
+RESCAL_SIL_ATOL = NMFK_SIL_ATOL
+RESCAL_RTOL = NMFK_ERR_RTOL
+# Distributed fits at one rank, card vs CPU: the same products, TF32 off.
+DIST_RTOL = NMFK_ERR_RTOL
+
+# rescalk_1000: benchmarks/bench_distributed.py's RESCAL setup (§IV-C:
+# 4 relations, k_true 4, noise 0.003, k 2..11, select 0.8, stop 0.25, P 3,
+# 150 sweeps, eps 0.015) with the entities raised from 80 to 1000. X is
+# drawn on the CPU and moved to the card, so the reference's search can be
+# run on the same X (PERF.md: both choose 4).
+RESCAL_DATA = dict(n_entities=1000, n_relations=4, k_true=4, noise=0.003, seed=0)
+RESCAL_SEARCH = dict(k_range=(2, 11), select_threshold=0.8, stop_threshold=0.25)
+RESCAL_P, RESCAL_ITERS, RESCAL_EPS, RESCAL_THREADS = 3, 150, 0.015, 4
 
 # the serve path: qwen2-0.5b at its published widths, weights from seed 0
 SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT, SERVE_TOKENS = "qwen2-0.5b", 4, 1000, 32
@@ -170,7 +197,8 @@ def check_mu(torch, dev, ops, ref, records: dict, log) -> None:
     """Both MU wrappers against their plain versions at the batched wave's
     shape (L=32; k_pad 16, and ragged k_pad 13), the elastic executor's
     full lane batch (L=8, k_pad 16, one k per lane) and the threads
-    executor's (L=4, k=16), and past the tiled kernels' largest rank (k_pad 129 and
+    executor's (L=4, k=16), the distributed fit's one lane (L=1, k=16),
+    and past the tiled kernels' largest rank (k_pad 129 and
     200 at L=2, V 300 x 320: the any-rank kernel): masked components
     exactly zero, two calls bitwise equal; timed at k=16 with the wrapper's
     G or Q product alone beside (the kernels line reports the L=32 case,
@@ -180,6 +208,7 @@ def check_mu(torch, dev, ops, ref, records: dict, log) -> None:
         ("k_pad=13, ragged, ks 10..13", 32, 13, [10 + (i // 4) % 4 for i in range(32)], 1000, 1100),
         ("elastic: L=8, k=16, ks 9..16", 8, 16, [9 + i for i in range(8)], 1000, 1100),
         ("threads: L=4, k=16", 4, 16, [16] * 4, 1000, 1100),
+        ("distributed fit: L=1, k=16", 1, 16, [16], 1000, 1100),
         ("any rank: k_pad=129, ks 129, 120", 2, 129, [129, 120], 300, 320),
         ("any rank: k_pad=200, ks 200, 150", 2, 200, [200, 150], 300, 320),
     ]
@@ -239,8 +268,9 @@ def pooled_columns(torch, dev, b: int, p: int, k: int, k_effs, d: int = 1000):
 
 def check_sums(torch, dev, ops, ref, records: dict, log) -> None:
     """Both silhouette wrappers on pooled near-duplicate columns (x = y), at
-    d 1000: the batched wave (b 8, k_pad 16) and the threads path's 2-D
-    point counts (p 4: k 2, 7, 13, 16), timed; a ragged d (999); k past 128
+    d 1000: the batched wave (b 8, k_pad 16), the threads path's 2-D
+    point counts (p 4: k 2, 7, 13, 16) and RESCALk's (p 3: k 4 and 11),
+    timed; a ragged d (999); k past 128
     (p 2: k 129 in 2-D, k 200 at b 2; and 100 points over 200 clusters on
     the thin path); the thin path's largest point count
     (128) and, with one more y row whose one-hot row is zero, the same sums
@@ -253,6 +283,8 @@ def check_sums(torch, dev, ops, ref, records: dict, log) -> None:
         ("points=8, d=1000, k=2", 1, 4, 2, [2], 1000, True, True),
         ("points=28, d=1000, k=7", 1, 4, 7, [7], 1000, True, True),
         ("points=64, d=1000, k=16", 1, 4, 16, [16], 1000, True, True),
+        ("rescalk: points=12, d=1000, k=4", 1, 3, 4, [4], 1000, True, True),
+        ("rescalk: points=33, d=1000, k=11", 1, 3, 11, [11], 1000, True, True),
         ("ragged d: points=52, d=999, k=13", 1, 4, 13, [13], 999, True, False),
         ("ragged d: b=8, points=64, d=999, k=16", 8, 4, 16, [16] * 8, 999, False, False),
         ("k past 128: points=258, d=1000, k=129", 1, 2, 129, [129], 1000, True, False),
@@ -646,6 +678,158 @@ def run_elastic_search(torch, dev, ops, ksearch, label: str, extra: list[str], l
     return counts
 
 
+def check_rescal_small(torch, dev, ops, log) -> None:
+    """RESCAL and RESCALk on the card against the CPU, same X and draws (96
+    entities, 3 relations, k_true 4): a 150-sweep ``rescal`` at k 4 (factors
+    and error), then ``rescalk_score`` at k 2..6 (P 3, 150 sweeps):
+    silhouettes and mean errors, and the silhouette kernel launched."""
+    from repro_torch.factorization.rescal import rescal, rescalk_score
+    from repro_torch.factorization.synthetic import rescal_data
+    from repro_torch.random import RESCALDraws, seeded_rescal_draws
+
+    n, nr, p = 96, 3, 3
+    x, _, _ = rescal_data(n_entities=n, n_relations=nr, k_true=4, noise=0.01, seed=0, device="cpu")
+    source = seeded_rescal_draws(0, n, nr, p, RESCAL_EPS, "cpu")
+    d = source(4)
+    cpu = rescal(x, 4, d.a[0], d.r[0], iters=150)
+    card = rescal(x.to(dev), 4, d.a[0].to(dev), d.r[0].to(dev), iters=150)
+    gaps = {"a": compare(torch, card.a.cpu(), cpu.a, RESCAL_RTOL, 1e-6, "rescal k=4: A"),
+            "r": compare(torch, card.r.cpu(), cpu.r, RESCAL_RTOL, 1e-6, "rescal k=4: R"),
+            "rel_error": compare(torch, card.rel_error.cpu(), cpu.rel_error, RESCAL_RTOL, 0.0, "rescal k=4: error")}
+    scores = {}
+    ops.reset_launch_counts()
+    for k in range(2, 7):
+        d = source(k)
+        sil_cpu, err_cpu = rescalk_score(x, k, d, iters=150)
+        sil, err = rescalk_score(x.to(dev), k, RESCALDraws(*(t.to(dev) for t in d)), iters=150)
+        scores[k] = (float(sil), float(sil_cpu), float(err), float(err_cpu))
+    launches = ops.launch_counts()
+    sil_gap = max(abs(s - c) for s, c, _, _ in scores.values())
+    err_gap = max(abs(e - c) / c for _, _, e, c in scores.values())
+    if not sil_gap <= RESCAL_SIL_ATOL or not err_gap <= RESCAL_RTOL:
+        raise AssertionError(f"rescalk_score card vs CPU: silhouette gap {sil_gap:.3e} (atol {RESCAL_SIL_ATOL}), "
+                             f"error gap {err_gap:.3e} (rtol {RESCAL_RTOL})")
+    if launches["silhouette_dist_sums"] < 5:
+        raise AssertionError(f"rescalk_score on the card missed the silhouette kernel: {launches}")
+    log(json.dumps({"check": "rescal / rescalk_score card vs CPU", "entities": n, "relations": nr,
+                    "rescal_k4_max_abs_gap": gaps, "silhouette_max_abs_gap": sil_gap,
+                    "rel_error_max_rel_gap": err_gap, "scores_card_cpu": scores, "launches": launches}))
+
+
+def check_distributed_small(torch, dev, ops, log) -> None:
+    """The distributed fits on a one-rank NCCL group (a ``file://`` store in
+    a temporary directory, destroyed at the end of the phase) against the
+    same calls on the CPU without a group: ``distributed_nmf`` sync and
+    pipelined (bitwise equal at one rank), ``distributed_rescal``, and
+    ``_dnmf_masked_local`` against the single-device ``_nmf_masked`` on the
+    same draws. The collectives' spellings are called once on the group;
+    the W-update's MU kernel launches are counted."""
+    import torch.distributed as dist
+
+    from repro_torch.factorization import distributed as D
+    from repro_torch.factorization.nmf import _nmf_masked
+    from repro_torch.factorization.synthetic import nmf_data, rescal_data
+    from repro_torch.random import init_draws, rescal_init_draws, seeded_generator
+
+    v, _, _ = nmf_data(96, 104, 5, seed=0, device="cpu")
+    x, _, _ = rescal_data(n_entities=96, n_relations=3, k_true=4, noise=0.01, seed=0, device="cpu")
+    w, h = init_draws(seeded_generator(1, "cpu"), 96, 104, 6)
+    a, r = rescal_init_draws(seeded_generator(2, "cpu"), 96, 3, 4)
+    entry = {"check": "distributed fits on a one-rank NCCL group vs CPU"}
+    with D.local_groups(dev, 1) as (group,):
+        entry["backend"] = str(dist.get_backend(group))
+        probe = torch.arange(12.0, device=dev).reshape(4, 3)
+        out = torch.empty_like(probe)
+        D._reduce_scatter(out, probe, group=group, async_op=True).wait()
+        gathered = torch.empty_like(probe)
+        D._all_gather(gathered, probe, group=group)
+        if not (torch.equal(out, probe) and torch.equal(gathered, probe)):
+            raise AssertionError("one-rank reduce-scatter / all-gather is not the identity")
+        entry["spellings"] = [D._reduce_scatter.__name__, D._all_gather.__name__]
+        ops.reset_launch_counts()
+        fits = {comm: D.distributed_nmf(v.to(dev), 5, w[:, :5].to(dev), h[:5].to(dev), group, iters=100, comm=comm)
+                for comm in D.COMM_MODES}
+        entry["nmf_launches"] = ops.launch_counts()
+        sync, pipe = fits["sync"], fits["pipelined"]
+        if not all(torch.equal(s_, p_) for s_, p_ in zip(sync, pipe)):
+            raise AssertionError("distributed_nmf at one rank: pipelined differs from sync")
+        cpu = D.distributed_nmf(v, 5, w[:, :5], h[:5], None, iters=100)
+        entry["nmf_gap"] = [compare(torch, got.cpu(), want, DIST_RTOL, 1e-6, f"distributed_nmf {name}")
+                            for name, got, want in zip(("w", "h", "err"), sync, cpu)]
+        res = D.distributed_rescal(x.to(dev), 4, a.to(dev), r.to(dev), group, iters=100)
+        cpu = D.distributed_rescal(x, 4, a, r, None, iters=100)
+        entry["rescal_gap"] = [compare(torch, got.cpu(), want, DIST_RTOL, 1e-6, f"distributed_rescal {name}")
+                               for name, got, want in zip(("a", "r", "err"), res, cpu)]
+        w_l, err = D._dnmf_masked_local(v.to(dev), 4, w.to(dev), h.to(dev), 6, 100, group)
+        single = _nmf_masked(v.to(dev), 4, w.to(dev), h.to(dev), 6, 100)
+        cpu_w, cpu_err = D._dnmf_masked_local(v, 4, w, h, 6, 100, None)
+        entry["masked_vs_single_gap"] = [compare(torch, w_l, single.w, DIST_RTOL, 1e-6, "masked vs single-device W"),
+                                         compare(torch, err, single.rel_error, DIST_RTOL, 0.0, "masked vs single err")]
+        entry["masked_vs_cpu_gap"] = [compare(torch, w_l.cpu(), cpu_w, DIST_RTOL, 1e-6, "masked W card vs CPU"),
+                                      compare(torch, err.cpu(), cpu_err, DIST_RTOL, 0.0, "masked err card vs CPU")]
+        if float(w_l[:, 4:].abs().max()) != 0.0:
+            raise AssertionError("masked distributed fit: masked components are not exactly zero")
+    if dist.is_initialized():
+        raise AssertionError("the phase's process groups outlived it")
+    if entry["nmf_launches"]["mu_update_w"] != 2 * 100:
+        raise AssertionError(f"distributed_nmf: {entry['nmf_launches']['mu_update_w']} mu_update_w launches "
+                             f"for 2 fits of 100 sweeps")
+    log(json.dumps(entry))
+
+
+def run_rescalk_searches(torch, dev, ops, log) -> dict[str, dict[str, int]]:
+    """rescalk_1000 on the serial and the threads executor: launch counts by path."""
+    from repro_torch.factorization.synthetic import rescal_data
+
+    x = rescal_data(**RESCAL_DATA, device="cpu")[0].to(dev)
+    return {f"rescalk_1000_{ex}": run_rescalk_search(torch, ops, x, ex, log) for ex in ("serial", "threads")}
+
+
+def run_rescalk_search(torch, ops, x, executor: str, log) -> dict[str, int]:
+    """rescalk_1000 on one executor; counts reset just before, read just after."""
+    from repro_torch.core import binary_bleed_search
+    from repro_torch.factorization.rescal import make_rescalk_evaluator
+
+    evaluate = make_rescalk_evaluator(x, seed=0, n_perturbs=RESCAL_P, iters=RESCAL_ITERS, epsilon=RESCAL_EPS)
+    resources = 1 if executor == "serial" else RESCAL_THREADS
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = sync_wall(torch)
+    res = binary_bleed_search(evaluate, **RESCAL_SEARCH, num_resources=resources)
+    wall = sync_wall(torch) - t0
+    counts = ops.launch_counts()
+    log(json.dumps({"search": f"rescalk_1000 {executor}", "k_optimal": res.k_optimal, "resources": resources,
+                    "visited": {v.k: v.score for v in sorted(res.visits, key=lambda v: v.k)}, "wall_s": wall,
+                    "max_memory_allocated": torch.cuda.max_memory_allocated(), "launches": counts}))
+    if res.k_optimal != RESCAL_DATA["k_true"]:
+        raise AssertionError(f"rescalk_1000 {executor}: k_optimal {res.k_optimal} != {RESCAL_DATA['k_true']}")
+    if counts["silhouette_dist_sums"] < 1:
+        raise AssertionError(f"rescalk_1000 {executor}: silhouette_dist_sums was never launched on the main path")
+    return counts
+
+
+def run_distributed_fit_search(torch, ops, ksearch, log) -> dict[str, int]:
+    """The paper-scale NMFk search on threads with --distributed-fit
+    --resources 2; counts reset just before, read just after."""
+    import torch.distributed as dist
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    out = ksearch.main(PAPER_ARGS + ["--executor", "threads", "--distributed-fit", "--resources", "2"])
+    counts = ops.launch_counts()
+    log(json.dumps({"search": "nmfk_distributed_fit", "k_optimal": out["k_optimal"], "visited": out["visited"],
+                    "wall_s": out["seconds"], "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                    "launches": counts}))
+    if out["k_optimal"] != 8:
+        raise AssertionError(f"nmfk_distributed_fit: k_optimal {out['k_optimal']} != 8")
+    if dist.is_initialized():
+        raise AssertionError("nmfk_distributed_fit: the search's process groups outlived it")
+    # each scored k: the distributed fit's W-update beside each NMFk sweep's H and W
+    if counts["mu_update_h"] < 1 or counts["mu_update_w"] != 2 * counts["mu_update_h"]:
+        raise AssertionError(f"nmfk_distributed_fit: MU launches {counts}, want W twice H")
+    return counts
+
+
 def _live_pairs(lq: int, lk: int, causal: bool, window: int | None) -> int:
     """(query, key) pairs the masks leave live: the work this run's data needs."""
     if not causal and window is None:
@@ -889,11 +1073,15 @@ def main() -> int:
     check_nmfk_elastic_small(torch, dev, ops, log)
     check_kmeans_small(torch, dev, ops, log)
     check_lm_small(torch, dev, ops, log)
+    check_rescal_small(torch, dev, ops, log)
+    check_distributed_small(torch, dev, ops, log)
 
     by_path = {f"nmfk_{ex}": run_search(torch, ops, ksearch, ex, log) for ex in ("batched", "threads")}
     by_path["nmfk_elastic_oracle"] = run_elastic_search(
         torch, dev, ops, ksearch, "nmfk_elastic_oracle", ["--tol", "0", "--no-warm-start"], log, oracle=True)
     by_path["nmfk_elastic"] = run_elastic_search(torch, dev, ops, ksearch, "nmfk_elastic", [], log)
+    by_path["nmfk_distributed_fit"] = run_distributed_fit_search(torch, ops, ksearch, log)
+    by_path.update(run_rescalk_searches(torch, dev, ops, log))
     by_path.update({f"kmeans_{ex}": run_kmeans_search(torch, dev, ops, ex, log) for ex in ("threads", "batched")})
     by_path["serve"] = run_serve(torch, dev, ops, serve, log)
 

@@ -1,9 +1,9 @@
 """Carry the reference's arrays across into port tensors.
 
-NMF and K-Means have no trained weights; what crosses from the JAX
-reference to the port is data: the matrix V or the points x (``to_tensor``),
-the random draws of an NMFk ensemble or of a k-means++ init, and W/H
-factors. The LM's parameter tree crosses whole
+NMF, RESCAL and K-Means have no trained weights; what crosses from the
+JAX reference to the port is data: the matrix V, the tensor X or the points
+x (``to_tensor``), the random draws of an NMFk or RESCALk ensemble or of a
+k-means++ init, and W/H factors. The LM's parameter tree crosses whole
 (``model_params_from_reference``). Each comes in as a numpy-convertible
 array (never a JAX object: the port imports no JAX) and leaves as a tensor
 on ``device`` (default: the card), float32 except for indices.
@@ -18,7 +18,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve
 from repro_torch.models.layers import frozen
 from repro_torch.models.transformer import build_segments
-from repro_torch.random import Draws, KMeansDraws
+from repro_torch.random import Draws, KMeansDraws, RESCALDraws
 
 
 def to_tensor(array, device: str | torch.device | None = None) -> torch.Tensor:
@@ -34,6 +34,16 @@ def draws_from_reference(noise, w, h, device: str | torch.device | None = None) 
     are its ``uniform(kw/kh, ..., 0.1, 1.0)`` init draws before scaling.
     """
     return Draws(to_tensor(noise, device), to_tensor(w, device), to_tensor(h, device))
+
+
+def rescal_draws_from_reference(noise, a, r, device: str | torch.device | None = None) -> RESCALDraws:
+    """``RESCALDraws`` from the reference's RESCALk ensemble draws.
+
+    noise (p, nr, n, n) is ``uniform(pk, x.shape, 1-eps, 1+eps)`` per
+    perturbation; a (p, n, k) and r (p, nr, k, k) are ``rescal._init``'s
+    ``uniform(ka/kr, ..., 0.1, 1.0)`` draws before scaling.
+    """
+    return RESCALDraws(to_tensor(noise, device), to_tensor(a, device), to_tensor(r, device))
 
 
 def kmeans_draws_from_reference(first, u, device: str | torch.device | None = None) -> KMeansDraws:

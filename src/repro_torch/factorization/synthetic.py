@@ -6,10 +6,11 @@
     wave.
   * ``blob_data`` — K-Means experiment: Gaussian clusters (std 0.5) with
     overlaid random noise.
+  * ``rescal_data`` — relational tensors X_r = A R_r A^T + noise for
+    RESCALk.
 
-Both draw on the device with a ``torch.Generator`` seeded from ``seed``
-(the port's draws, not the reference's bits). The RESCAL generator waits
-for its slice.
+Each draws on the device with a ``torch.Generator`` seeded from ``seed``
+(the port's draws, not the reference's bits).
 """
 from __future__ import annotations
 
@@ -77,3 +78,37 @@ def blob_data(
     x = centers[labels] + std * torch.randn((n, d), device=dev, generator=gen)
     x = x + noise * torch.randn((n, d), device=dev, generator=gen)
     return x, labels
+
+
+def rescal_data(
+    n_entities: int = 120,
+    n_relations: int = 4,
+    k_true: int = 6,
+    noise: float = 0.01,
+    seed: int = 0,
+    device: str | torch.device | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Nonnegative relational tensor X (nr, n, n) = A R_r A^T + noise.
+
+    Each latent component owns a contiguous block of entities (one-hot A
+    plus a U[0, 0.05) background); R_r ~ U[0, 1) is sparsified toward
+    block-diagonal interactions by 0.2 + 0.8 I; the noise is U[0, noise).
+    Returns x, a (n, k_true), r (nr, k_true, k_true).
+    """
+    dev = resolve(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(seed))
+
+    def uniform(shape, lo, hi):
+        return torch.empty(shape, device=dev).uniform_(lo, hi, generator=gen)
+
+    blocks = torch.clamp(
+        torch.arange(n_entities, device=dev) // max(n_entities // k_true, 1), 0, k_true - 1
+    )
+    a = F.one_hot(blocks, k_true).float()
+    a = a + uniform(a.shape, 0.0, 0.05)
+    r = uniform((n_relations, k_true, k_true), 0.0, 1.0)
+    r = r * (0.2 + 0.8 * torch.eye(k_true, device=dev))[None]
+    x = a @ r @ a.T  # (nr, n, n)
+    x = x + noise * uniform(x.shape, 0.0, 1.0)
+    return x, a, r

@@ -24,14 +24,24 @@ Three executors:
 
       PYTHONPATH=src python -m repro_torch.launch.ksearch --executor elastic
 
+``--distributed-fit`` (threads executor) adds the paper's distributed
+mode: each worker leases its own one-rank process group ("resource") from
+a ``SubmeshPool`` and runs ``distributed_nmf`` over it for every k it
+evaluates (its result is not used; the score still comes from
+``nmfk_score``). A single-process launch makes a one-rank default group
+(NCCL on ``cuda``, gloo on ``cpu``, from a ``file://`` store in a temporary
+directory) and ``--resources`` one-rank subgroups of it:
+
+  PYTHONPATH=src python -m repro_torch.launch.ksearch --device cpu --distributed-fit --resources 2
+
 ``--device cpu`` runs the plain PyTorch versions of the kernels. The
 reference's sharded executor (and ``--lanes``, ``--data-shards``,
-``--comm``, ``--distributed-fit``, ``--compile-cache``) is not ported yet;
-the parser refuses it.
+``--comm``, ``--compile-cache``) is not ported yet; the parser refuses it.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import time
 
@@ -47,10 +57,13 @@ from repro_torch.core import (
     make_space,
 )
 from repro_torch.device import resolve
+from repro_torch.factorization.distributed import distributed_nmf, local_groups, shard_rows
 from repro_torch.factorization.nmfk import make_nmfk_evaluator
 from repro_torch.factorization.planes import NMFkBatchPlane, NMFkElasticPlane
 from repro_torch.factorization.synthetic import nmf_data
+from repro_torch.launch.mesh import SubmeshPool
 from repro_torch.obs import NULL_TRACER, Metrics, Tracer, use_metrics, use_tracer
+from repro_torch.random import init_draws, lane_generator
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -68,6 +81,9 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--n-perturbs", type=int, default=4)
     ap.add_argument("--nmf-iters", type=int, default=120)
     ap.add_argument("--journal", default=None, help="dir for FileCoordinator (restartable)")
+    ap.add_argument("--distributed-fit", action="store_true",
+                    help="threads executor: also run each k's NMF fit with distributed_nmf "
+                    "over the worker's leased process group")
     ap.add_argument("--executor", default="threads", choices=["threads", "batched", "elastic"],
                     help="threads: one NMFk fit per k per worker thread; batched: "
                     "wavefront frontiers as one padded batched NMFk fit per wave; "
@@ -132,6 +148,7 @@ def _run_search(args, ap, space, v):
     if args.executor == "elastic":
         if not args.quiet:
             for flag, used in (("--journal", args.journal),
+                               ("--distributed-fit", args.distributed_fit),
                                ("--resources", args.resources != ap.get_default("resources")),
                                ("--max-wave", args.max_wave is not None)):
                 if used:
@@ -161,6 +178,7 @@ def _run_search(args, ap, space, v):
         if not args.quiet:
             ignored = (
                 ("--journal", args.journal),
+                ("--distributed-fit", args.distributed_fit),
                 ("--order", args.order != "pre"),
                 ("--resources", args.resources != ap.get_default("resources")),
             )
@@ -188,10 +206,32 @@ def _run_search(args, ap, space, v):
         v, args.seed, n_perturbs=args.n_perturbs, nmf_iters=args.nmf_iters,
     )
     sched = ThreadPoolScheduler(space, args.resources, order=args.order, coordinator=coord)
-    t0 = _wall(v.device)
-    result = sched.run(evaluate, skip=visited)
-    dt = _wall(v.device) - t0
-    return result, dt, {"resources": args.resources}
+    with contextlib.ExitStack() as stack:
+        if args.distributed_fit:
+            pool = SubmeshPool(stack.enter_context(local_groups(v.device, args.resources)))
+            evaluate = _with_distributed_fit(evaluate, v, args.seed, args.nmf_iters, pool)
+        t0 = _wall(v.device)
+        result = sched.run(evaluate, skip=visited)
+        dt = _wall(v.device) - t0
+    return result, dt, {"resources": args.resources, "distributed_fit": args.distributed_fit}
+
+
+def _with_distributed_fit(score, v, seed: int, iters: int, pool: SubmeshPool):
+    """``score`` preceded by the paper's distributed-within-k NMF fit of k.
+
+    The fit runs over the calling *worker's* leased group (a worker-identity
+    resource: keying on k would put concurrent workers on one group), from
+    the first draws of ``lane_generator(seed, k)``; its result is not used.
+    """
+    n, m = v.shape
+
+    def evaluate(k: int, should_abort=None) -> float:
+        group = pool.acquire()
+        w_draw, h_draw = init_draws(lane_generator(seed, int(k), v.device), n, m, int(k))
+        distributed_nmf(shard_rows(v, group), int(k), w_draw, h_draw, group, iters=iters)
+        return score(k, should_abort)
+
+    return evaluate
 
 
 def _emit(args, result, dt, extra, tracer, metrics) -> dict:

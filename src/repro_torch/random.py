@@ -1,10 +1,13 @@
-"""Explicit randomness for NMFk and K-Means.
+"""Explicit randomness for NMFk, K-Means and RESCALk.
 
 Randomness enters an NMFk score only through a ``Draws`` value: the
 multiplicative perturbation noise of each resampled copy of V and the
 unscaled uniform W/H inits of each perturbation fit. A K-Means fit takes
 it only through a ``KMeansDraws`` value: the first center's index and
-one uniform per further k-means++ slot. Fit and score functions take their
+one uniform per further k-means++ slot. A RESCALk score takes a
+``RESCALDraws`` value: the noise of each resampled copy of X and the
+unscaled A/R inits. The distributed fits take full-shape init draws and
+keep their own rank's rows. Fit and score functions take their
 draws explicitly, so a test can hand them the JAX reference's draws; by
 default they come from a ``torch.Generator`` seeded from ``(seed, k)`` (the
 counterpart of the reference's ``fold_in(key, k)``). The port's own draws
@@ -140,5 +143,59 @@ def seeded_kmeans_draws(seed: int, n: int, device: str | torch.device) -> KMeans
 
     def draw(k: int, k_draw: int) -> KMeansDraws:
         return kmeans_draws(lane_generator(seed, k, device), n, k_draw)
+
+    return draw
+
+
+# -----------------------------------------------------------------------------
+# RESCAL
+# -----------------------------------------------------------------------------
+class RESCALDraws(NamedTuple):
+    """The random inputs of one k's RESCALk perturbation ensemble.
+
+    noise (p, nr, n, n): multiplicative factors in [1 - eps, 1 + eps);
+    a (p, n, k) and r (p, nr, k, k): unscaled init draws in [0.1, 1).
+    """
+
+    noise: torch.Tensor
+    a: torch.Tensor
+    r: torch.Tensor
+
+
+def rescal_init_draws(
+    generator: torch.Generator, n: int, nr: int, k: int, lead: tuple[int, ...] = ()
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Unscaled U[0.1, 1) A (lead..., n, k) and R (lead..., nr, k, k) draws.
+
+    A distributed RESCAL fit takes the full (n, k) A draw and keeps its own
+    rank's rows, so every world size starts from the same factors.
+    """
+    dev = generator.device
+    a = torch.empty(lead + (n, k), device=dev).uniform_(0.1, 1.0, generator=generator)
+    r = torch.empty(lead + (nr, k, k), device=dev).uniform_(0.1, 1.0, generator=generator)
+    return a, r
+
+
+def make_rescal_draws(
+    generator: torch.Generator, n: int, nr: int, k: int, n_perturbs: int, epsilon: float
+) -> RESCALDraws:
+    """Perturbation noise then A/R inits for ``n_perturbs`` RESCAL fits at k."""
+    noise = torch.empty((n_perturbs, nr, n, n), device=generator.device).uniform_(
+        1.0 - epsilon, 1.0 + epsilon, generator=generator
+    )
+    a, r = rescal_init_draws(generator, n, nr, k, (n_perturbs,))
+    return RESCALDraws(noise, a, r)
+
+
+RESCALDrawSource = Callable[[int], RESCALDraws]  # k -> the draws of rank k
+
+
+def seeded_rescal_draws(
+    seed: int, n: int, nr: int, n_perturbs: int, epsilon: float, device: str | torch.device
+) -> RESCALDrawSource:
+    """The default RESCAL draw source: rank k draws from ``lane_generator(seed, k)``."""
+
+    def draw(k: int) -> RESCALDraws:
+        return make_rescal_draws(lane_generator(seed, k, device), n, nr, k, n_perturbs, epsilon)
 
     return draw

@@ -1,9 +1,9 @@
 """Shared helpers of the port's parity tests: the JAX reference's draws.
 
 The port never imports JAX; these helpers run the reference's random
-schedule (``nmfk.py`` / ``nmf.py`` / ``kmeans.py`` key splits) here, in the
-test process, and hand the draws to the port as numpy arrays through
-``repro_torch.convert``.
+schedule (``nmfk.py`` / ``nmf.py`` / ``kmeans.py`` / ``rescal.py`` /
+``distributed.py`` key splits) here, in the test process, and hand the
+draws to the port as numpy arrays through ``repro_torch.convert``.
 """
 from __future__ import annotations
 
@@ -11,7 +11,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from repro_torch.convert import draws_from_reference, kmeans_draws_from_reference
+from repro_torch.convert import draws_from_reference, kmeans_draws_from_reference, rescal_draws_from_reference
 
 
 def uniform(key, shape, lo, hi) -> np.ndarray:
@@ -69,3 +69,51 @@ def reference_draw_source(key, n: int, m: int, n_perturbs: int, epsilon: float =
         return draws_from_reference(*arrays, device="cpu")
 
     return draw
+
+
+def rescal_init_draws(key, n: int, nr: int, k: int) -> tuple[np.ndarray, np.ndarray]:
+    """Unscaled A/R draws of ``rescal._init`` for ``key``."""
+    ka, kr = jax.random.split(key)
+    return uniform(ka, (n, k), 0.1, 1.0), uniform(kr, (nr, k, k), 0.1, 1.0)
+
+
+def rescal_ensemble_draws(key, n: int, nr: int, k: int, n_perturbs: int, epsilon: float):
+    """(noise, a, r) numpy draws of one RESCALk ensemble at ``key`` (already
+    folded with k), as ``rescalk_score`` makes them."""
+    kp, kf = jax.random.split(key)
+    pkeys = jax.random.split(kp, n_perturbs)
+    fkeys = jax.random.split(kf, n_perturbs)
+    noise = np.stack([uniform(pk, (nr, n, n), 1.0 - epsilon, 1.0 + epsilon) for pk in pkeys])
+    inits = [rescal_init_draws(fk, n, nr, k) for fk in fkeys]
+    return noise, np.stack([a for a, _ in inits]), np.stack([r for _, r in inits])
+
+
+def reference_rescal_draw_source(key, n: int, nr: int, n_perturbs: int, epsilon: float = 0.015):
+    """A port RESCAL draw source ``k -> RESCALDraws`` yielding the reference's
+    draws of rank k under ``fold_in(key, k)`` (``make_rescalk_evaluator``'s
+    schedule)."""
+
+    def draw(k: int):
+        arrays = rescal_ensemble_draws(jax.random.fold_in(key, k), n, nr, k, n_perturbs, epsilon)
+        return rescal_draws_from_reference(*arrays, device="cpu")
+
+    return draw
+
+
+def dnmf_draws(key, n: int, m: int, k: int, shards: int) -> tuple[np.ndarray, np.ndarray]:
+    """Full-shape unscaled W (n, k) / H (k, m) of ``_dnmf_local`` over
+    ``shards`` row blocks: shard i draws its rows from ``fold_in(kw, i)``,
+    so the full W is their concatenation; H is ``kh``'s, on every shard."""
+    kw, kh = jax.random.split(key)
+    rows = n // shards
+    w = np.concatenate([uniform(jax.random.fold_in(kw, i), (rows, k), 0.1, 1.0) for i in range(shards)])
+    return w, uniform(kh, (k, m), 0.1, 1.0)
+
+
+def drescal_draws(key, n: int, nr: int, k: int, shards: int) -> tuple[np.ndarray, np.ndarray]:
+    """Full-shape unscaled A (n, k) / R (nr, k, k) of ``_drescal_local`` over
+    ``shards`` entity-row blocks (A's rows from ``fold_in(ka, i)``)."""
+    ka, kr = jax.random.split(key)
+    rows = n // shards
+    a = np.concatenate([uniform(jax.random.fold_in(ka, i), (rows, k), 0.1, 1.0) for i in range(shards)])
+    return a, uniform(kr, (nr, k, k), 0.1, 1.0)

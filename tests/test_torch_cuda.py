@@ -615,3 +615,71 @@ def test_elastic_plane_on_the_card_matches_the_cpu(warm_start):
     assert card_plane.warm_cache.hits == cpu_plane.warm_cache.hits
     assert (card_plane.warm_cache.hits > 0) == warm_start
     assert min(launches["mu_update_h"], launches["mu_update_w"], launches["silhouette_dist_sums_batched"]) >= 1
+
+
+@pytest.mark.cuda
+def test_rescalk_score_on_the_card_matches_the_cpu():
+    """RESCALk at 96 entities (3 relations, k_true 4, P 3, 150 sweeps), the
+    same X and draws on both devices: silhouettes within 2e-3 and mean
+    errors within 1e-3 relative (chip_smoke.RESCAL_SIL_ATOL / RESCAL_RTOL),
+    one silhouette kernel launch a k on the card."""
+    from repro_torch.factorization.rescal import rescalk_score
+    from repro_torch.factorization.synthetic import rescal_data
+    from repro_torch.random import RESCALDraws, seeded_rescal_draws
+
+    dev = card()
+    x, _, _ = rescal_data(n_entities=96, n_relations=3, k_true=4, noise=0.01, seed=0, device="cpu")
+    source = seeded_rescal_draws(0, 96, 3, 3, 0.015, "cpu")
+    for k in (2, 4, 6):
+        d = source(k)
+        before = ops.silhouette_dist_sums.launches
+        sil, err = rescalk_score(x.to(dev), k, RESCALDraws(*(t.to(dev) for t in d)), iters=150)
+        assert ops.silhouette_dist_sums.launches == before + 1
+        sil_cpu, err_cpu = rescalk_score(x, k, d, iters=150)
+        assert abs(float(sil) - float(sil_cpu)) <= 2e-3
+        np.testing.assert_allclose(float(err), float(err_cpu), rtol=1e-3)
+
+
+@pytest.mark.cuda
+def test_distributed_nmf_on_a_one_rank_nccl_group_matches_the_cpu():
+    """``distributed_nmf`` over a one-rank NCCL group on the card against the
+    CPU without a group, same draws (rtol 1e-3); pipelined is sync bit for
+    bit at one rank; one MU W-update launch a sweep; the groups are gone
+    after ``local_groups`` exits."""
+    import torch.distributed as dist
+
+    from repro_torch.factorization.distributed import distributed_nmf, local_groups
+    from repro_torch.factorization.synthetic import nmf_data
+    from repro_torch.random import init_draws, seeded_generator
+
+    dev = card()
+    v, _, _ = nmf_data(96, 104, 5, seed=0, device="cpu")
+    w, h = init_draws(seeded_generator(1, "cpu"), 96, 104, 5)
+    with local_groups(dev, 1) as (group,):
+        assert dist.get_backend(group) == "nccl"
+        before = ops.mu_update_w.launches
+        sync = distributed_nmf(v.to(dev), 5, w.to(dev), h.to(dev), group, iters=60)
+        assert ops.mu_update_w.launches == before + 60
+        pipe = distributed_nmf(v.to(dev), 5, w.to(dev), h.to(dev), group, iters=60, comm="pipelined")
+    assert not dist.is_initialized()
+    for a, b in zip(sync, pipe):
+        assert torch.equal(a, b)
+    cpu = distributed_nmf(v, 5, w, h, None, iters=60)
+    for got, want in zip(sync, cpu):
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-3, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_cuda_tensors_on_a_gloo_group_raise():
+    """The backend follows the tensors' device and is never switched: a
+    gloo group with CUDA tensors raises."""
+    import torch.distributed as dist
+
+    from repro_torch.factorization.distributed import distributed_nmf, local_groups
+
+    dev = card()
+    with local_groups("cpu", 1) as (group,):
+        assert dist.get_backend(group) == "gloo"
+        v = torch.rand((8, 6), device=dev)
+        with pytest.raises(ValueError, match="nccl"):
+            distributed_nmf(v, 2, torch.rand((8, 2), device=dev), torch.rand((2, 6), device=dev), group, iters=2)

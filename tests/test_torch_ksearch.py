@@ -4,7 +4,8 @@
    draws gives the reference's ``k_optimal`` and visited set, through the
    port's ``NMFkBatchPlane`` (batched) and the port's evaluator (serial).
 2. ``python -m repro_torch.launch.ksearch --device cpu`` finds the planted
-   rank on the port's own V on every executor; the journal, trace and
+   rank on the port's own V on every executor and with
+   ``--distributed-fit``; the journal, trace and
    metrics outputs work; ``examples/torch_quickstart.py --device cpu``
    finds it with Binary Bleed and grid search.
 3. The default device is the card: without one, entry points raise.
@@ -121,6 +122,19 @@ def test_elastic_executor_finds_planted_rank_with_accounting():
     assert oracle["sweeps_run"] == 4 * 80 * oracle["n_visited"]
 
 
+def test_distributed_fit_finds_planted_rank_and_releases_its_groups():
+    """``--distributed-fit``: each of the 2 workers runs ``distributed_nmf``
+    over its own one-rank gloo group before scoring; the groups and the
+    default group made for them are gone after the run."""
+    import torch.distributed as dist
+
+    out = ksearch.main(["--device", "cpu", "--distributed-fit", "--resources", "2", "--k-max", "12",
+                        "--n-perturbs", "4", "--nmf-iters", "80", "--quiet"])
+    assert out["k_optimal"] == out["k_true"] == 5
+    assert out["distributed_fit"] and out["resources"] == 2
+    assert not dist.is_initialized()
+
+
 def test_quickstart_example_on_the_cpu():
     env = dict(os.environ, PYTHONPATH=SRC + os.pathsep + os.environ.get("PYTHONPATH", ""))
     out = subprocess.run([sys.executable, str(ROOT / "examples" / "torch_quickstart.py"), "--device", "cpu"],
@@ -138,7 +152,7 @@ def test_journal_restart_replays_the_search(tmp_path):
 
 def test_parser_refuses_unported_executors_and_flags():
     for extra in (["--executor", "sharded"], ["--lanes", "2"], ["--data-shards", "2"],
-                  ["--comm", "pipelined"], ["--distributed-fit"], ["--compile-cache", "x"]):
+                  ["--comm", "pipelined"], ["--compile-cache", "x"]):
         with pytest.raises(SystemExit):
             ksearch._parser().parse_args(extra)
 

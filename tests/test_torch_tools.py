@@ -247,3 +247,26 @@ def test_serve_host_waits_count_the_calls_that_hold_the_host():
         _event("aten::to", DeviceType.CPU, 0.0, 48),
     ])
     assert profile_serve.host_waits(prof) == {"cudaStreamSynchronize": 48, "cudaMemcpyAsync": 49}
+
+
+def test_rescalk_profile_runs_chip_smokes_search(monkeypatch):
+    """``--search rescalk`` profiles chip_smoke.py's rescalk_1000: the same
+    settings, and the serial and threads executors as 1 and 4 resources."""
+    import chip_smoke
+
+    assert profile_ksearch.RESCAL_DATA is chip_smoke.RESCAL_DATA
+    calls = []
+
+    def search(evaluate, **kw):
+        calls.append(kw)
+        return types.SimpleNamespace(k_optimal=4)
+
+    import repro_torch.core
+
+    monkeypatch.setattr(repro_torch.core, "binary_bleed_search", search)
+    fake_torch = types.SimpleNamespace(cuda=types.SimpleNamespace(synchronize=lambda: None))
+    x = torch.zeros((4, 6, 6))
+    for executor in ("serial", "threads"):
+        assert profile_ksearch.rescalk_1000(fake_torch, x, executor)["k_optimal"] == 4
+    assert [c["num_resources"] for c in calls] == [1, chip_smoke.RESCAL_THREADS]
+    assert all(c["k_range"] == (2, 11) and c["select_threshold"] == 0.8 for c in calls)
