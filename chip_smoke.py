@@ -27,6 +27,10 @@ Phases, each fatal on failure:
      distributed fits on a one-rank NCCL group (``distributed_nmf`` sync and
      pipelined, bitwise equal at one rank; ``distributed_rescal``; the
      masked body against the single-device masked fit) against the CPU;
+     then the sharded planes on a one-rank ``(lane, data)`` NCCL mesh
+     against the unsharded ones on the card (``nmfk_score_sharded`` sync and
+     pipelined bitwise; ``KMeansBatchPlane(mesh=)`` labels and scores; the
+     elastic plane drained at tol 0: scores, sweep counts, warm-start hits);
   5. run each main path with every launch count set to 0 just before it and
      read just after, asserting the answer and that the run went through
      its kernels: the paper-scale NMFk search (V 1000x1100, k_true 8,
@@ -39,6 +43,11 @@ Phases, each fatal on failure:
      ``nmfk_distributed_fit``: the same search on ``threads`` with
      ``--distributed-fit --resources 2`` (each worker's one-rank NCCL group
      runs ``distributed_nmf`` for every k it scores; k_optimal 8);
+     ``nmfk_sharded``: the same search on ``--executor sharded --comm sync``
+     (a one-rank NCCL mesh; k_optimal 8); with 4 or more cards also
+     ``torchrun`` runs of it at 4 ranks (``--lanes 4``, then ``--lanes 2
+     --data-shards 2`` sync and pipelined; every rank the same result,
+     k_optimal 8), else one line saying they were not made;
      ``rescalk_1000``: Binary Bleed over RESCALk (§IV-C's RESCAL setup of
      ``benchmarks/bench_distributed.py`` at 1000 entities, 4 relations,
      k_true 4, k 2..11) on the serial and the threads executor (k_optimal 4);
@@ -613,22 +622,100 @@ def run_kmeans_search(torch, dev, ops, executor: str, log) -> dict[str, int]:
     return counts
 
 
-def run_search(torch, ops, ksearch, executor: str, log) -> dict[str, int]:
+def run_search(torch, ops, ksearch, executor: str, log, extra: tuple[str, ...] = (), label: str | None = None) -> dict[str, int]:
+    """The paper-scale search on one executor with ``extra`` flags; counts
+    reset just before, read just after."""
+    import torch.distributed as dist
+
+    label = label or executor
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
-    out = ksearch.main(PAPER_ARGS + ["--executor", executor])
+    out = ksearch.main(PAPER_ARGS + ["--executor", executor, *extra])
     counts = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    log(json.dumps({"search": executor, "k_optimal": out["k_optimal"], "visited": out["visited"],
-                    "waves": out.get("waves"), "wall_s": out["seconds"],
+    log(json.dumps({"search": label, "k_optimal": out["k_optimal"], "visited": out["visited"],
+                    "waves": out.get("waves"), "wall_s": out["seconds"], "scores": out["scores"],
+                    **{key: out[key] for key in ("mesh", "comm", "lane_utilization_last") if key in out},
                     "max_memory_allocated": peak, "launches": counts}))
     if out["k_optimal"] != 8:
-        raise AssertionError(f"{executor}: k_optimal {out['k_optimal']} != 8")
-    sums = "silhouette_dist_sums_batched" if executor == "batched" else "silhouette_dist_sums"
+        raise AssertionError(f"{label}: k_optimal {out['k_optimal']} != 8")
+    if dist.is_initialized():
+        raise AssertionError(f"{label}: the search's process groups outlived it")
+    sums = "silhouette_dist_sums_batched" if executor in ("batched", "sharded") else "silhouette_dist_sums"
     for name in ("mu_update_h", "mu_update_w", sums):
         if counts[name] < 1:
-            raise AssertionError(f"{executor}: kernel {name} was never launched on the main path")
+            raise AssertionError(f"{label}: kernel {name} was never launched on the main path")
     return counts
+
+
+MULTI_RANK_MESHES = {"lanes4": ["--lanes", "4"],
+                     "lanes2_data2_sync": ["--lanes", "2", "--data-shards", "2", "--comm", "sync"],
+                     "lanes2_data2_pipelined": ["--lanes", "2", "--data-shards", "2", "--comm", "pipelined"]}
+MULTI_RANK_TIMEOUT_S = 300
+
+
+def run_multi_rank_searches(torch, log) -> dict[str, dict[str, int]]:
+    """The paper-scale sharded search at 4 ranks, one process per card
+    (``torchrun``, rendezvous on localhost), on each mesh of
+    ``MULTI_RANK_MESHES``: every rank writes its result and its launch
+    counts; each rank must find k_optimal 8 and all the same visited ks and
+    scores. Launch counts are summed over the ranks. Needs 4 cards."""
+    import os
+    import signal
+    import tempfile
+
+    cards = torch.cuda.device_count()
+    if cards < 4:
+        log(f"multi-rank sharded runs: not made ({cards} card(s) visible; the 4-rank runs need 4)")
+        return {}
+    by_path = {}
+    for tag, flags in MULTI_RANK_MESHES.items():
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_ranks_") as outdir:
+            cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "4",
+                   str(ROOT / "chip_smoke.py"), "--rank-search", outdir, *PAPER_ARGS, "--executor", "sharded", *flags]
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                                    start_new_session=True)
+            try:
+                text, _ = proc.communicate(timeout=MULTI_RANK_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.communicate()
+                raise AssertionError(f"nmfk_sharded_4rank_{tag}: no result within {MULTI_RANK_TIMEOUT_S} s")
+            if proc.returncode != 0:
+                raise AssertionError(f"nmfk_sharded_4rank_{tag}: torchrun exited {proc.returncode}:\n{text[-4000:]}")
+            ranks = [json.loads((Path(outdir) / f"rank{r}.json").read_text()) for r in range(4)]
+        first = ranks[0]["out"]
+        for r, rank in enumerate(ranks):
+            got = rank["out"]
+            if got["k_optimal"] != 8 or any(got[key] != first[key] for key in ("visited", "scores", "mesh")):
+                raise AssertionError(f"nmfk_sharded_4rank_{tag}: rank {r} returned {got}, rank 0 {first}")
+        counts = {name: sum(rank["launches"][name] for rank in ranks) for name in ranks[0]["launches"]}
+        log(json.dumps({"search": f"nmfk_sharded_4rank_{tag}", "k_optimal": first["k_optimal"],
+                        "visited": first["visited"], "mesh": first["mesh"], "comm": first["comm"],
+                        "wall_s": first["seconds"], "overlap_fraction": first.get("overlap_fraction"),
+                        "launches_by_rank": [rank["launches"] for rank in ranks]}))
+        for name in ("mu_update_h", "mu_update_w", "silhouette_dist_sums_batched"):
+            if min(rank["launches"][name] for rank in ranks) < 1 and not (
+                    name == "mu_update_h" and first["mesh"]["data"] > 1):
+                raise AssertionError(f"nmfk_sharded_4rank_{tag}: a rank never launched {name}")
+        by_path[f"nmfk_sharded_4rank_{tag}"] = counts
+    return by_path
+
+
+def rank_search(outdir: Path, argv: list[str]) -> int:
+    """One rank of ``run_multi_rank_searches`` (under ``torchrun``): the
+    port's ``ksearch`` with ``argv``, its result and launch counts written
+    to ``outdir/rank<RANK>.json``."""
+    import os
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import ops
+    from repro_torch.launch import ksearch
+
+    ops.reset_launch_counts()
+    out = ksearch.main(argv)
+    (outdir / f"rank{os.environ['RANK']}.json").write_text(json.dumps({"out": out, "launches": ops.launch_counts()}))
+    return 0
 
 
 def run_elastic_search(torch, dev, ops, ksearch, label: str, extra: list[str], log, oracle: bool = False) -> dict[str, int]:
@@ -774,6 +861,64 @@ def check_distributed_small(torch, dev, ops, log) -> None:
     if entry["nmf_launches"]["mu_update_w"] != 2 * 100:
         raise AssertionError(f"distributed_nmf: {entry['nmf_launches']['mu_update_w']} mu_update_w launches "
                              f"for 2 fits of 100 sweeps")
+    log(json.dumps(entry))
+
+
+def check_sharded_small(torch, dev, ops, log) -> None:
+    """The sharded planes on a one-rank ``(lane, data)`` mesh (NCCL; the
+    default group made by ``make_wave_mesh`` and destroyed on exit) against
+    the unsharded ones on the card. At one rank the lane block is the whole
+    wave and pipelined has nothing to overlap, so every result must be the
+    same bits: ``nmfk_score_sharded`` sync and pipelined (ks 2..8, 96 x 104,
+    k_pad 8, 4 perturbations, 120 sweeps) against ``nmfk_score_batched``;
+    ``KMeansBatchPlane(mesh=)`` labels and Davies-Bouldin scores; the elastic
+    plane drained at tol 0 with warm starts: scores, sweep counts and
+    warm-start hits."""
+    import torch.distributed as dist
+
+    from repro_torch.factorization.nmfk import nmfk_score_batched, nmfk_score_sharded
+    from repro_torch.factorization.planes import KMeansBatchPlane, NMFkElasticPlane
+    from repro_torch.factorization.synthetic import blob_data, nmf_data
+    from repro_torch.launch.mesh import make_wave_mesh
+
+    n, m, p, ks = 96, 104, 4, list(range(2, 9))
+    v, _, _ = nmf_data(n, m, 5, seed=0, device=dev)
+    x, _ = blob_data(n=240, d=5, k_true=5, std=0.3, spread=10.0, seed=3, device=dev)
+    km_ks = [2, 3, 4, 5, 6, 7, 8, 8]
+    entry = {"check": "sharded planes on a one-rank NCCL mesh vs unsharded on the card"}
+    with make_wave_mesh(device=dev) as mesh:
+        entry.update(backend=str(dist.get_backend(mesh.lane_group)), mesh=mesh.shape, device=str(mesh.device))
+        want = nmfk_score_batched(v, ks, k_pad=8, n_perturbs=p, nmf_iters=120)
+        ops.reset_launch_counts()
+        for comm in ("sync", "pipelined"):
+            got = nmfk_score_sharded(v, ks, mesh=mesh, k_pad=8, n_perturbs=p, nmf_iters=120, comm=comm)
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                raise AssertionError(f"nmfk_score_sharded {comm} at one rank differs from nmfk_score_batched")
+        entry["nmfk_launches"] = ops.launch_counts()
+        planes = [KMeansBatchPlane(x, seed=3, max_iters=25, k_pad=8, mesh=mm) for mm in (None, mesh)]
+        km = [planes[0].evaluate_batch(km_ks)]
+        ops.reset_launch_counts()
+        km.append(planes[1].evaluate_batch(km_ks))
+        entry["kmeans_launches"] = ops.launch_counts()
+        if km[0] != km[1] or not torch.equal(planes[0].last_labels, planes[1].last_labels):
+            raise AssertionError(f"KMeansBatchPlane(mesh=) at one rank: scores {km[1]} vs {km[0]} or labels differ")
+        runs = []
+        for mm in (None, mesh):
+            plane = NMFkElasticPlane(v, n_perturbs=p, nmf_iters=120, k_pad=8, tol=0.0, chunk=25, mesh=mm)
+            for k in ks:
+                plane.submit(k)
+            scores = drain(plane)
+            runs.append((scores, plane.sweeps_run, plane.sweeps_saved, plane.sweeps_fixed_total, plane.warm_cache.hits))
+        if runs[0] != runs[1] or runs[0][-1] < 1:
+            raise AssertionError(f"elastic plane at one rank: sharded {runs[1]} vs unsharded {runs[0]}")
+    if dist.is_initialized():
+        raise AssertionError("the sharded phase's process groups outlived it")
+    if min(entry["nmfk_launches"][name] for name in ("mu_update_h", "mu_update_w", "silhouette_dist_sums_batched")) < 1:
+        raise AssertionError(f"nmfk_score_sharded on the card missed a kernel: {entry['nmfk_launches']}")
+    if entry["kmeans_launches"]["pairwise_sq_dists_batched"] < 1:
+        raise AssertionError(f"KMeansBatchPlane(mesh=) on the card missed its kernel: {entry['kmeans_launches']}")
+    entry.update(nmfk_bitwise=True, kmeans_scores=km[1], kmeans_bitwise=True, elastic_scores=runs[1][0],
+                 elastic_counts=list(runs[1][1:]))
     log(json.dumps(entry))
 
 
@@ -1029,6 +1174,8 @@ SOURCES = {
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--rank-search"]:  # one rank of run_multi_rank_searches
+        return rank_search(Path(sys.argv[2]), sys.argv[3:])
     import torch
 
     if not torch.cuda.is_available():
@@ -1075,12 +1222,15 @@ def main() -> int:
     check_lm_small(torch, dev, ops, log)
     check_rescal_small(torch, dev, ops, log)
     check_distributed_small(torch, dev, ops, log)
+    check_sharded_small(torch, dev, ops, log)
 
     by_path = {f"nmfk_{ex}": run_search(torch, ops, ksearch, ex, log) for ex in ("batched", "threads")}
     by_path["nmfk_elastic_oracle"] = run_elastic_search(
         torch, dev, ops, ksearch, "nmfk_elastic_oracle", ["--tol", "0", "--no-warm-start"], log, oracle=True)
     by_path["nmfk_elastic"] = run_elastic_search(torch, dev, ops, ksearch, "nmfk_elastic", [], log)
     by_path["nmfk_distributed_fit"] = run_distributed_fit_search(torch, ops, ksearch, log)
+    by_path["nmfk_sharded"] = run_search(torch, ops, ksearch, "sharded", log, ("--comm", "sync"), "nmfk_sharded")
+    by_path.update(run_multi_rank_searches(torch, log))
     by_path.update(run_rescalk_searches(torch, dev, ops, log))
     by_path.update({f"kmeans_{ex}": run_kmeans_search(torch, dev, ops, ex, log) for ex in ("threads", "batched")})
     by_path["serve"] = run_serve(torch, dev, ops, serve, log)

@@ -196,6 +196,109 @@ def nmfk_score_batched(
     return _nmfk_score_masked(v, ks_t, lanes, k_pad, nmf_iters)
 
 
+def _dist_fits(
+    v_l: torch.Tensor, k_eff: int, draws: Draws, k_pad: int, data_group, comm: str, nmf_iters: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One lane's perturbation ensemble row-distributed over ``data_group``:
+    the whole W (p, n, k_pad) on every rank and the errors (p,). Each fit
+    keeps this rank's rows of its perturbation's full-shape noise and runs
+    ``_dnmf_masked_local`` from the full-shape init draws."""
+    from .distributed import _dnmf_masked_local, _rows, ring_all_gather
+
+    n_l = v_l.shape[0]
+    w_parts, errs = [], []
+    for p in range(draws.noise.shape[0]):
+        vp_l = _perturb(v_l, _rows(draws.noise[p], n_l, data_group))
+        w_l, err = _dnmf_masked_local(vp_l, k_eff, draws.w[p], draws.h[p], k_pad, nmf_iters, data_group, comm)
+        w_parts.append(w_l)
+        errs.append(err)
+    w_all = ring_all_gather(torch.stack(w_parts, dim=1), data_group)  # (n, p, k_pad)
+    return w_all.transpose(0, 1), torch.stack(errs)
+
+
+def _nmfk_score_masked_dist(
+    v_l: torch.Tensor,
+    k_eff: int,
+    draws: Draws,
+    k_pad: int,
+    data_group,
+    comm: str = "sync",
+    nmf_iters: int = 150,
+) -> NMFkScore:
+    """``_nmfk_score_masked`` of one lane with its fits row-distributed over
+    ``data_group``.
+
+    v_l (n_l, m) is this rank's row block of V. ``draws`` are the lane's
+    full-shape draws (noise (p, n, m), w (p, n, k_pad), h (p, k_pad, m)),
+    the ones the single-device path consumes; each rank keeps its rows
+    (``_dist_fits``: W rows local, H replicated, the Gram sums all-reduced;
+    ``comm="pipelined"`` overlaps them with the local W-update). W is
+    all-gathered (p × n × k_pad, small next to V) and the pooled-column
+    score runs on every rank. Fields are 0-d tensors.
+    """
+    w_all, errs = _dist_fits(v_l, k_eff, draws, k_pad, data_group, comm, nmf_iters)
+    sc = _pooled_w_score(w_all[None], errs[None], _k_eff(k_eff, v_l, (1,)), k_pad)
+    return NMFkScore(*(field[0] for field in sc))
+
+
+def nmfk_score_sharded(
+    v: torch.Tensor,
+    ks: Sequence[int],
+    seed: int = 0,
+    mesh=None,
+    k_pad: int | None = None,
+    n_perturbs: int = 8,
+    nmf_iters: int = 150,
+    epsilon: float = 0.015,
+    comm: str = "sync",
+    draws: DrawSource | None = None,
+) -> NMFkScore:
+    """``nmfk_score_batched`` over a ``(lane, data)`` mesh
+    (``repro_torch.launch.mesh.WaveMesh``), one call per rank.
+
+    The wave is split into ``mesh.lane_count`` contiguous blocks; this rank
+    scores its own block. With one data shard that is ``nmfk_score_batched``
+    of the block on the whole V — lane for lane the batched plane's
+    arithmetic, so the scores are its bits. With ``data > 1`` each lane's
+    fits are row-distributed over ``mesh.data_group``
+    (``_nmfk_score_masked_dist`` on this rank's rows of V; equal to the
+    batched scores up to the order of the Gram sums under ``comm="sync"``,
+    and to the staleness of the overlapped schedule under ``"pipelined"``).
+    The three score fields are then all-gathered over ``mesh.lane_group``,
+    so every rank returns the whole wave's scores. Lane k draws from
+    ``draws(k, k_pad)`` (default ``seeded_draws(seed, ...)``), as in
+    ``nmfk_score_batched``.
+
+    Requires ``len(ks)`` divisible by the lane count (the planes pad the
+    wave to a lane multiple) and, with ``data > 1``, V's rows divisible by
+    the data count.
+    """
+    from .distributed import COMM_MODES, ring_all_gather, shard_rows
+
+    if comm not in COMM_MODES:
+        raise ValueError(f"comm must be one of {COMM_MODES}, got {comm!r}")
+    ks = [int(k) for k in ks]
+    _, _, k_pad = batched_lanes(ks, seed, k_pad, v.device)
+    lanes, data = mesh.lane_count, mesh.data_count
+    if len(ks) % lanes:
+        raise ValueError(f"wave size {len(ks)} not divisible by lane count {lanes}")
+    if data > 1 and v.shape[0] % data:
+        raise ValueError(f"v rows {v.shape[0]} not divisible by data-axis size {data}")
+    per = len(ks) // lanes
+    block = ks[mesh.lane_index * per:(mesh.lane_index + 1) * per]
+    if data == 1:
+        sc = nmfk_score_batched(v, block, seed, k_pad, n_perturbs, nmf_iters, epsilon, draws)
+    else:
+        n, m = v.shape
+        source = draws if draws is not None else seeded_draws(seed, n, m, n_perturbs, epsilon, v.device)
+        v_l = shard_rows(v, mesh.data_group)
+        lane_scores = [_nmfk_score_masked_dist(v_l, k, source(k, k_pad), k_pad, mesh.data_group, comm, nmf_iters)
+                       for k in block]
+        sc = NMFkScore(*(torch.stack(field) for field in zip(*lane_scores)))
+    gathered = ring_all_gather(torch.stack(list(sc), dim=1), mesh.lane_group)  # (len(ks), 3)
+    return NMFkScore(*gathered.unbind(dim=1))
+
+
 # ---------------------------------------------------------------------------
 # elastic lanes: chunked convergence-gated fits with warm starts
 # ---------------------------------------------------------------------------
@@ -272,6 +375,37 @@ def elastic_chunk(
     on the host.
     """
     return _masked_sweeps(vp, w, h, k_eff, k_pad, chunk, steps=steps)
+
+
+def elastic_chunk_sharded(
+    vp: torch.Tensor,
+    w: torch.Tensor,
+    h: torch.Tensor,
+    k_eff: torch.Tensor,
+    steps: torch.Tensor,
+    k_pad: int,
+    chunk: int,
+    data_group=None,
+    comm: str = "sync",
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``elastic_chunk`` of this rank's block of lanes on a ``(lane, data)``
+    mesh.
+
+    With one data shard (``data_group`` None or of one rank) the block is one
+    batched ``elastic_chunk``. Otherwise vp (L, n_l, m) and w (L, n_l, k_pad)
+    hold this rank's rows of each lane's perturbed V and W, h (L, k_pad, m)
+    is replicated over the group, and each lane runs
+    ``_dnmf_masked_chunk_local`` over ``data_group``: the Gram sums and the
+    residual are all-reduced, so the returned rel_error is the whole
+    lane's, equal on every rank of the group.
+    """
+    from .distributed import _dnmf_masked_chunk_local, _world
+
+    if _world(data_group) == 1:
+        return elastic_chunk(vp, w, h, k_eff, steps, k_pad, chunk)
+    lanes = [_dnmf_masked_chunk_local(vp[i], w[i], h[i], k_eff[i], k_pad, chunk, data_group, comm, steps[i])
+             for i in range(vp.shape[0])]
+    return tuple(torch.stack(part) for part in zip(*lanes))
 
 
 def elastic_pooled_score(

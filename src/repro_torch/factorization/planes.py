@@ -17,7 +17,22 @@ explicit memory bound. ``shapes_dispatched`` records the distinct
 Every dispatch observes ``lane_utilization`` (real lanes / dispatched
 lanes). ``NMFkElasticPlane`` is the back end of the elastic executor
 (``ElasticWavefrontScheduler``): convergence-gated fit-chunks over a pool
-of lane slots. Mesh sharding waits for a later slice.
+of lane slots.
+
+Two dispatch modes, selected by ``mesh=``:
+
+  * **single-device** (``mesh=None``, default): the padded wave runs as one
+    batched fit on V's device.
+  * **mesh-sharded**: a ``(lane, data)`` mesh from
+    ``repro_torch.launch.mesh.make_wave_mesh``; one process per rank, each
+    running the same search (SPMD). The wave is padded to a multiple of the
+    lane count and split into contiguous lane blocks; each rank fits its own
+    block and the scores are all-gathered over the lane group, so every rank
+    sees the same floats and takes the same decisions. With ``data > 1``
+    (NMFk planes only) each fit is also row-distributed over the data group
+    (``factorization.distributed``'s all-reduced Gram sums). Under a mesh
+    the dispatch spans go to the ``device:all`` track and each lane group's
+    block to a ``lane`` span on ``device:{i}``.
 """
 from __future__ import annotations
 
@@ -31,25 +46,42 @@ from repro_torch.core.scoring import davies_bouldin_score_masked, silhouette_sco
 from repro_torch.obs import get_metrics, get_tracer
 from repro_torch.random import Draws, DrawSource, KMeansDrawSource, seeded_draws, seeded_kmeans_draws
 
-from .batching import WarmStartCache, bucket_batch, next_pow2
+from .batching import WarmStartCache, bucket_batch, next_pow2, round_up_multiple
+from .distributed import COMM_MODES, overlap_model, ring_all_gather
 from .kmeans import _kmeans_masked_assign, _kmeans_masked_chunk, _kmeans_masked_init, kmeans_batched
 from .nmf import _masked_init, _masked_sweeps
 from .nmfk import (
     _perturb,
     _pooled_w_score,
-    elastic_chunk,
+    elastic_chunk_sharded,
     elastic_lane_init,
     elastic_lane_warm_init,
     elastic_pooled_score,
     nmfk_score_batched,
+    nmfk_score_sharded,
 )
+
+
+def _check_comm(comm: str) -> None:
+    if comm not in COMM_MODES:
+        raise ValueError(f"comm must be one of {COMM_MODES}, got {comm!r}")
+
+
+def _check_rows(v: torch.Tensor, data_count: int) -> None:
+    if data_count > 1 and v.shape[0] % data_count:
+        raise ValueError(f"v rows {v.shape[0]} not divisible by data-axis size {data_count}")
 
 
 class _BatchPlaneBase:
     """Shared padding / bucketing / accounting for the batched planes."""
 
-    def __init__(self, k_pad: int | None):
+    def __init__(self, k_pad: int | None, mesh=None, comm: str = "sync"):
+        _check_comm(comm)
         self.k_pad = k_pad
+        self.mesh = mesh
+        self.comm = comm
+        self.lane_count = mesh.lane_count if mesh is not None else 1
+        self.data_count = mesh.data_count if mesh is not None else 1
         # dispatch cap (number of lanes per batch). WavefrontScheduler sets
         # this to its max_wave so batch padding never exceeds the
         # device-memory bound the cap was chosen for.
@@ -69,6 +101,8 @@ class _BatchPlaneBase:
         n_real = len(ks)
         target = bucket_batch(
             n_real,
+            lanes=self.lane_count,
+            bucket_min=self.lane_count,  # a wave below the lane count: one k a lane group
             cap=self.dispatch_cap,
             compiled=(b for b, kp in self.shapes_dispatched if kp == k_pad),
         )
@@ -82,7 +116,25 @@ class _BatchPlaneBase:
         return ks, k_pad, n_real
 
     def _dispatch_track(self) -> str:
-        return "device:0"
+        return "device:all" if self.mesh is not None else "device:0"
+
+    def _lane_block(self, padded: list[int]) -> list[int]:
+        """This rank's contiguous block of the padded wave (all of it without a mesh)."""
+        if self.mesh is None:
+            return padded
+        per = len(padded) // self.lane_count
+        return padded[self.mesh.lane_index * per:(self.mesh.lane_index + 1) * per]
+
+    def _emit_lane_spans(self, tracer, t0_us: float, padded: list[int], n_real: int, kind: str) -> None:
+        """Retroactive per-lane-group spans: lane group i carried the
+        contiguous block padded[i*per:(i+1)*per] for the whole dispatch."""
+        if self.mesh is None or self.lane_count <= 1 or not tracer.enabled:
+            return
+        dur = max(tracer.now_us() - t0_us, 0.0)
+        per = len(padded) // self.lane_count
+        for i in range(self.lane_count):
+            tracer.add_span("lane", t0_us, dur, track=f"device:{i}", kind=kind, ks=padded[i * per:(i + 1) * per],
+                            n_real=max(0, min(n_real - i * per, per)), data_shards=self.data_count)
 
     # chunk size of the abortable scalar path; per-chunk sweep counts land
     # in ``last_scalar_sweeps``
@@ -112,6 +164,13 @@ class NMFkBatchPlane(_BatchPlaneBase):
     ...)``, the schedule of ``make_nmfk_evaluator`` — so the batched and
     threaded executors agree on the score landscape (exactly at k == k_pad,
     to init-draw noise below it).
+
+    With ``mesh=`` each rank scores its lane block (``nmfk_score_sharded``):
+    lane-only, the batched plane's bits; with a data axis each fit is also
+    row-distributed (V's rows must divide by the data count), and
+    ``comm="pipelined"`` overlaps its Gram reductions with the local
+    W-update. Such dispatches publish the ``overlap_fraction`` gauge of
+    ``overlap_model`` and, when tracing, modeled per-sweep spans.
     """
 
     def __init__(
@@ -124,10 +183,13 @@ class NMFkBatchPlane(_BatchPlaneBase):
         statistic: str = "min",
         k_pad: int | None = None,
         draws: DrawSource | None = None,
+        mesh=None,
+        comm: str = "sync",
     ):
-        super().__init__(k_pad)
+        super().__init__(k_pad, mesh, comm)
         if statistic not in ("min", "mean"):
             raise ValueError(f"statistic must be 'min' or 'mean', got {statistic!r}")
+        _check_rows(v, self.data_count)
         n, m = v.shape
         self.v = v
         self.nmf_iters = nmf_iters
@@ -167,19 +229,53 @@ class NMFkBatchPlane(_BatchPlaneBase):
         score = sc.min_silhouette if self.statistic == "min" else sc.mean_silhouette
         return float(score[0])
 
+    _MAX_TRACE_SWEEPS = 16  # per-sweep modeled spans emitted per dispatch
+
+    def _emit_overlap_telemetry(self, tracer, t0_us: float, k_pad: int) -> None:
+        """Publish the pipelined schedule's comm/compute overlap.
+
+        The sweeps' collectives are not timed one by one, so the spans are
+        *modeled* (and marked so): the measured dispatch wall apportioned
+        uniformly over the sweeps, the comm spans' lengths from
+        ``overlap_model``. The ``overlap_fraction`` gauge (share of a
+        sweep's comm hidden behind the local W-update) is always published;
+        the spans only when tracing is on.
+        """
+        if self.comm != "pipelined" or self.data_count <= 1:
+            return
+        model = overlap_model(self.v.shape[0], self.v.shape[1], k_pad, self.data_count)
+        get_metrics().set_gauge("overlap_fraction", model["overlap_fraction"])
+        get_metrics().observe("overlap_fraction_hist", model["overlap_fraction"])
+        if not tracer.enabled:
+            return
+        per = max(tracer.now_us() - t0_us, 0.0) / max(self.nmf_iters, 1)
+        for i in range(min(self.nmf_iters, self._MAX_TRACE_SWEEPS)):
+            t = t0_us + i * per
+            tracer.add_span("sweep_compute", t, per, track="data:compute", sweep=i, modeled=True,
+                            data_shards=self.data_count)
+            tracer.add_span("gram_ring", t, per * model["comm_fraction"], track="data:comm", sweep=i,
+                            modeled=True, overlap_fraction=model["overlap_fraction"])
+
     def evaluate_batch(self, ks: Sequence[int]) -> list[float]:
         tracer = get_tracer()
         padded, k_pad, n_real = self._pad_ks(ks)
-        # "fit" brackets the batched fit+score launches; "score" brackets
-        # the device->host read of the silhouette statistics.
+        t0_us = tracer.now_us()
+        # "fit" brackets the batched fit+score launches (and, under a mesh,
+        # the scores' all-gather); "score" brackets the device->host read of
+        # the silhouette statistics.
         with tracer.span("fit", track=self._dispatch_track(), kind="nmfk",
-                         ks=[int(k) for k in ks], batch=len(padded), k_pad=k_pad):
-            sc = nmfk_score_batched(
-                self.v, padded, k_pad=k_pad, nmf_iters=self.nmf_iters, draws=self.draws
-            )
+                         ks=[int(k) for k in ks], batch=len(padded), k_pad=k_pad, comm=self.comm):
+            if self.mesh is not None:
+                sc = nmfk_score_sharded(self.v, padded, mesh=self.mesh, k_pad=k_pad, nmf_iters=self.nmf_iters,
+                                        comm=self.comm, draws=self.draws)
+            else:
+                sc = nmfk_score_batched(self.v, padded, k_pad=k_pad, nmf_iters=self.nmf_iters, draws=self.draws)
             scores = sc.min_silhouette if self.statistic == "min" else sc.mean_silhouette
         with tracer.span("score", track=self._dispatch_track(), kind="nmfk", batch=len(padded)):
-            return [float(s) for s in scores[:n_real].tolist()]
+            out = [float(s) for s in scores[:n_real].tolist()]
+        self._emit_lane_spans(tracer, t0_us, padded, n_real, kind="nmfk")
+        self._emit_overlap_telemetry(tracer, t0_us, k_pad)
+        return out
 
 
 class KMeansBatchPlane(_BatchPlaneBase):
@@ -189,7 +285,13 @@ class KMeansBatchPlane(_BatchPlaneBase):
     seed, ...)``, the schedule of ``kmeans(x, k, seed=seed)`` — and masked
     fits are draw-for-draw the per-k fits, so this plane matches a threaded
     K-Means evaluator score for score. x (n, d) is shared by every lane and
-    never copied per lane.
+    never copied per lane. ``last_labels`` keeps the labels (b, n) of the
+    last dispatch's lanes (under a mesh: this rank's block).
+
+    ``mesh=`` splits the wave over the mesh's lane axis; x stays whole on
+    every rank (K-Means has no Gram sums to reduce over row blocks, so a
+    data axis above 1 is refused). The draws are per k, so every lane's
+    labels and score are the unsharded plane's bits.
     """
 
     def __init__(
@@ -200,14 +302,18 @@ class KMeansBatchPlane(_BatchPlaneBase):
         max_iters: int = 100,
         k_pad: int | None = None,
         draws: KMeansDrawSource | None = None,
+        mesh=None,
     ):
-        super().__init__(k_pad)
+        super().__init__(k_pad, mesh)
+        if self.data_count > 1:
+            raise ValueError("KMeansBatchPlane supports lane-only meshes (data axis must be 1)")
         if score not in ("davies_bouldin", "silhouette"):
             raise ValueError(f"score must be 'davies_bouldin' or 'silhouette', got {score!r}")
         self.x = x
         self.score = score
         self.max_iters = max_iters
         self.draws = draws if draws is not None else seeded_kmeans_draws(seed, x.shape[0], x.device)
+        self.last_labels: torch.Tensor | None = None
 
     def _score(self, labels: torch.Tensor, ks: Sequence[int], k_pad: int) -> torch.Tensor:
         """Scores (b,) of labels (b, n) fitted at ks."""
@@ -251,14 +357,21 @@ class KMeansBatchPlane(_BatchPlaneBase):
     def evaluate_batch(self, ks: Sequence[int]) -> list[float]:
         tracer = get_tracer()
         padded, k_pad, n_real = self._pad_ks(ks)
+        block = self._lane_block(padded)
+        t0_us = tracer.now_us()
         with tracer.span("fit", track=self._dispatch_track(), kind="kmeans",
                          ks=[int(k) for k in ks], batch=len(padded), k_pad=k_pad):
-            res = kmeans_batched(self.x, padded, k_pad=k_pad, max_iters=self.max_iters, draws=self.draws)
+            res = kmeans_batched(self.x, block, k_pad=k_pad, max_iters=self.max_iters, draws=self.draws)
+        self.last_labels = res.labels
         # x stays unbatched (n, d): the card's kernels read it once for every
         # lane, and the CPU tiers broadcast it against the batched labels
         with tracer.span("score", track=self._dispatch_track(), kind=self.score, batch=len(padded)):
-            scores = self._score(res.labels, padded, k_pad)
-            return [float(s) for s in scores[:n_real].tolist()]
+            scores = self._score(res.labels, block, k_pad)
+            if self.mesh is not None:
+                scores = ring_all_gather(scores, self.mesh.lane_group)
+            out = [float(s) for s in scores[:n_real].tolist()]
+        self._emit_lane_spans(tracer, t0_us, padded, n_real, kind="kmeans")
+        return out
 
 
 # ---------------------------------------------------------------------------
@@ -318,16 +431,29 @@ class NMFkElasticPlane:
     ``sweeps_fixed_total`` counts ``n_perturbs * nmf_iters`` for every
     submitted k.
 
-    Occupied slots are kept compacted in a prefix (retirement moves the
-    last occupied lane into the freed slot), and each dispatch runs the
-    bucketed prefix (``bucket_batch`` pow2 policy), so dispatch shapes stay
-    O(log slots). Each slot keeps its lane's perturbed V, W, H and k on the
-    device; slots never written are zeros, which the MU update keeps zero.
-    A tick copies the per-lane sweep budgets to the device once and reads
-    the lanes' errors back once.
-    """
+    The slots form ``lane_count`` equal blocks (one without a mesh).
+    Occupied slots are kept compacted in a prefix of their block
+    (retirement moves the block's last occupied lane into the freed slot),
+    a refilled lane goes to the least occupied block (the first on ties),
+    and each dispatch runs the same bucketed prefix (``bucket_batch`` pow2
+    policy) of every block, so dispatch shapes stay O(log slots). Each slot
+    keeps its lane's perturbed V, W, H and k on the device; slots never
+    written are zeros, which the MU update keeps zero. A tick copies the
+    per-lane sweep budgets to the device once and reads the lanes' errors
+    back once.
 
-    track = "device:0"  # the tracer track of chunk, evict and warm_start records
+    With ``mesh=`` (SPMD: one plane per rank, the same calls on every rank)
+    the host side — queue, refill, retirement, warm cache, accounting — is
+    replicated, and each rank keeps on its device only the slots of its
+    lane block (with ``data > 1``, its rows of their V and W, H whole).
+    Each tick advances the rank's block (``elastic_chunk_sharded``:
+    row-distributed fits over the data group when ``data > 1``) and makes
+    exactly one all-gather over the lane group, of the lanes' (rel_error,
+    sweeps applied), so every rank takes the same decisions. A retiring
+    lane's W is gathered over the data group, then over the lane group, so
+    every rank scores the same ensembles and caches the same W for warm
+    starts. The slot count must be a multiple of the lane count.
+    """
 
     def __init__(
         self,
@@ -343,17 +469,25 @@ class NMFkElasticPlane:
         slots: int | None = None,
         warm_start: bool = True,
         draws: DrawSource | None = None,
+        mesh=None,
+        comm: str = "sync",
     ):
         if statistic not in ("min", "mean"):
             raise ValueError(f"statistic must be 'min' or 'mean', got {statistic!r}")
+        _check_comm(comm)
         if k_pad is None:
             raise ValueError("NMFkElasticPlane needs an explicit k_pad (slots persist across ks)")
         if chunk < 1:
             raise ValueError("chunk must be >= 1")
+        self.mesh = mesh
+        self.comm = comm
+        self.lane_count = mesh.lane_count if mesh is not None else 1
+        self.data_count = mesh.data_count if mesh is not None else 1
+        _check_rows(v, self.data_count)
         if slots is None:
-            slots = next_pow2(2 * n_perturbs)
-        if slots < 1:
-            raise ValueError(f"slots={slots} must be positive")
+            slots = round_up_multiple(next_pow2(max(2 * n_perturbs, self.lane_count)), self.lane_count)
+        if slots < 1 or slots % self.lane_count:
+            raise ValueError(f"slots={slots} must be a positive multiple of lane count {self.lane_count}")
         n, m = v.shape
         self.v = v
         self.n_perturbs = int(n_perturbs)
@@ -366,13 +500,22 @@ class NMFkElasticPlane:
         self.warm_start = bool(warm_start)
         self.warm_cache = WarmStartCache()
         self.draws = draws if draws is not None else seeded_draws(seed, n, m, n_perturbs, epsilon, v.device)
+        # the tracer track of chunk, evict and warm_start records
+        self.track = "device:all" if mesh is not None else "device:0"
 
-        self._vp = torch.zeros((self.slots, n, m), dtype=v.dtype, device=v.device)
-        self._w = torch.zeros((self.slots, n, self.k_pad), dtype=v.dtype, device=v.device)
-        self._h = torch.zeros((self.slots, self.k_pad, m), dtype=v.dtype, device=v.device)
-        self._keff = torch.zeros((self.slots,), dtype=torch.long, device=v.device)
-        self._slot: list[_Lane | None] = [None] * self.slots
-        self._n_occ = 0
+        # this rank's block of slots (its rows of them under data > 1)
+        self.block = self.slots // self.lane_count
+        self._lane = mesh.lane_index if mesh is not None else 0
+        n_l = n // self.data_count
+        data_index = mesh.data_index if mesh is not None else 0
+        self._rows = slice(data_index * n_l, (data_index + 1) * n_l)
+        self._vp = torch.zeros((self.block, n_l, m), dtype=v.dtype, device=v.device)
+        self._w = torch.zeros((self.block, n_l, self.k_pad), dtype=v.dtype, device=v.device)
+        self._h = torch.zeros((self.block, self.k_pad, m), dtype=v.dtype, device=v.device)
+        self._keff = torch.zeros((self.block,), dtype=torch.long, device=v.device)
+        # every block's occupancy, replicated on every rank
+        self._slot: list[list[_Lane | None]] = [[None] * self.block for _ in range(self.lane_count)]
+        self._n_occ = [0] * self.lane_count
         self._queue: deque[tuple[int, int]] = deque()
         self._tasks: dict[int, _KTask] = {}
         self._ready: list[tuple[int, float]] = []
@@ -384,6 +527,7 @@ class NMFkElasticPlane:
         self.n_ticks = 0
         self.shapes_dispatched: set[tuple[int, int]] = set()
         self.last_lane_occupancy: float | None = None
+        self.last_lane_utilization: float | None = None  # the batched planes' name for it
 
     # -- scheduler surface -------------------------------------------------------
     @property
@@ -393,7 +537,7 @@ class NMFkElasticPlane:
 
     @property
     def idle(self) -> bool:
-        return not self._queue and self._n_occ == 0 and not self._ready
+        return not self._queue and sum(self._n_occ) == 0 and not self._ready
 
     def inflight_ks(self) -> set[int]:
         """ks submitted but not yet scored or cancelled."""
@@ -426,12 +570,13 @@ class NMFkElasticPlane:
             self._queue = deque((kk, p) for kk, p in self._queue if kk != k)
             self._credit_saved(pending * self.nmf_iters)
         evicted = 0
-        for i in range(self._n_occ - 1, -1, -1):
-            lane = self._slot[i]
-            if lane is not None and lane.k == k:
-                self._credit_saved(self.nmf_iters - lane.done)
-                self._free_slot(i)
-                evicted += 1
+        for b in range(self.lane_count):
+            for j in range(self._n_occ[b] - 1, -1, -1):
+                lane = self._slot[b][j]
+                if lane is not None and lane.k == k:
+                    self._credit_saved(self.nmf_iters - lane.done)
+                    self._free_slot(b, j)
+                    evicted += 1
         get_tracer().event("evict", track=self.track, k=k,
                            pending=pending, evicted=evicted)
         return True
@@ -442,60 +587,89 @@ class NMFkElasticPlane:
         tracer = get_tracer()
         metrics = get_metrics()
         self._refill()
-        if self._n_occ == 0:
+        n_occ = sum(self._n_occ)
+        if n_occ == 0:
             out, self._ready = self._ready, []
             return out
         self.n_ticks += 1
-        n_occ = self._n_occ
-        batch = bucket_batch(
-            n_occ, cap=self.slots,
-            compiled=(b for b, kp in self.shapes_dispatched if kp == self.k_pad),
+        lanes = self.lane_count
+        per = bucket_batch(
+            max(self._n_occ), cap=self.block,
+            compiled=(b // lanes for b, kp in self.shapes_dispatched if kp == self.k_pad),
         )
+        batch = per * lanes
         self.shapes_dispatched.add((batch, self.k_pad))
         steps_host = [
-            min(self.chunk, self.nmf_iters - self._slot[i].done) if i < n_occ else 0
-            for i in range(batch)
+            min(self.chunk, self.nmf_iters - self._slot[b][j].done) if j < self._n_occ[b] else 0
+            for b in range(lanes) for j in range(per)
         ]
         occupancy = n_occ / batch
-        self.last_lane_occupancy = occupancy
+        self.last_lane_occupancy = self.last_lane_utilization = occupancy
         metrics.observe("lane_occupancy", occupancy)
         metrics.set_gauge("lane_occupancy", occupancy)
         with tracer.span(
             "chunk", track=self.track, kind="nmfk_elastic", batch=batch,
             n_occ=n_occ, k_pad=self.k_pad, sweeps=max(steps_host),
-            ks=sorted({self._slot[i].k for i in range(n_occ)}),
+            ks=sorted({lane.k for block in self._slot for lane in block if lane is not None}),
         ):
-            steps = torch.tensor(steps_host, device=self.v.device)
-            w_new, h_new, errs = elastic_chunk(
-                self._vp[:batch], self._w[:batch], self._h[:batch], self._keff[:batch], steps,
-                self.k_pad, self.chunk,
+            steps = torch.tensor(steps_host[self._lane * per:(self._lane + 1) * per], device=self.v.device)
+            w_new, h_new, errs = elastic_chunk_sharded(
+                self._vp[:per], self._w[:per], self._h[:per], self._keff[:per], steps,
+                self.k_pad, self.chunk, self._data_group(), self.comm,
             )
-            self._w[:batch] = w_new
-            self._h[:batch] = h_new
-            errs_host = errs[:n_occ].tolist()
+            self._w[:per] = w_new
+            self._h[:per] = h_new
+            # the tick's one collective and one device read: every lane's
+            # (rel_error, sweeps applied), in slot order
+            report = ring_all_gather(torch.stack([errs, steps.to(errs.dtype)], dim=1), self._lane_group())
+            report_host = report.tolist()
+        if [int(r[1]) for r in report_host] != steps_host:
+            raise RuntimeError("the lane blocks' sweeps differ from the plan every rank shares")
 
-        retire: list[int] = []
-        for i in range(n_occ):
-            lane = self._slot[i]
-            st = steps_host[i]
-            lane.done += st
-            self.sweeps_run += st
-            metrics.inc("sweeps_run", st)
-            err = errs_host[i]
-            converged = self.tol > 0 and (lane.prev_err - err) < self.tol
-            lane.prev_err = err
-            if converged or lane.done >= self.nmf_iters:
-                if lane.done < self.nmf_iters:
-                    self._credit_saved(self.nmf_iters - lane.done)
-                retire.append(i)
-        for i in sorted(retire, reverse=True):
-            # the slot is overwritten by compaction and refill: keep a copy
-            self._finish_lane(self._slot[i], self._w[i].clone(), errs[i])
-            self._free_slot(i)
+        retire: list[tuple[int, int]] = []
+        for b in range(lanes):
+            for j in range(self._n_occ[b]):
+                lane = self._slot[b][j]
+                st = steps_host[b * per + j]
+                lane.done += st
+                self.sweeps_run += st
+                metrics.inc("sweeps_run", st)
+                err = report_host[b * per + j][0]
+                converged = self.tol > 0 and (lane.prev_err - err) < self.tol
+                lane.prev_err = err
+                if converged or lane.done >= self.nmf_iters:
+                    if lane.done < self.nmf_iters:
+                        self._credit_saved(self.nmf_iters - lane.done)
+                    retire.append((b, j))
+        if retire:
+            w_retired = self._gather_retired(retire)
+            for b, j in sorted(retire, reverse=True):
+                self._finish_lane(self._slot[b][j], w_retired[(b, j)], report[b * per + j, 0])
+                self._free_slot(b, j)
         out, self._ready = self._ready, []
         return out
 
     # -- internals ---------------------------------------------------------------
+    def _lane_group(self):
+        return self.mesh.lane_group if self.mesh is not None else None
+
+    def _data_group(self):
+        return self.mesh.data_group if self.mesh is not None else None
+
+    def _gather_retired(self, retire: list[tuple[int, int]]) -> dict[tuple[int, int], torch.Tensor]:
+        """The whole W (n, k_pad) of every retiring lane, on every rank: each
+        block's retiring slots (padded to the most any block retires), their
+        rows gathered over the data group, then the blocks over the lane
+        group. The result is a fresh tensor: compaction and refill may
+        overwrite the slots, never the cached W."""
+        by_block = [[j for b, j in retire if b == bb] for bb in range(self.lane_count)]
+        most = max(len(js) for js in by_block)
+        mine = by_block[self._lane]
+        w = self._w[torch.tensor(mine + [0] * (most - len(mine)), device=self.v.device)]  # (most, n_l, k_pad)
+        w = ring_all_gather(w.transpose(0, 1), self._data_group()).transpose(0, 1)  # (most, n, k_pad)
+        w = ring_all_gather(w, self._lane_group())  # (lanes * most, n, k_pad)
+        return {(b, j): w[b * most + i] for b, js in enumerate(by_block) for i, j in enumerate(js)}
+
     def _credit_saved(self, sweeps: int) -> None:
         if sweeps > 0:
             self.sweeps_saved += sweeps
@@ -503,43 +677,54 @@ class NMFkElasticPlane:
 
     def _refill(self) -> None:
         metrics = get_metrics()
-        while self._queue and self._n_occ < self.slots:
+        while self._queue and sum(self._n_occ) < self.slots:
             k, p = self._queue.popleft()
             task = self._tasks[k]
             if task.cancelled:  # defensive: cancel() already dequeues
                 continue
-            d = task.draws
-            i = self._n_occ
-            vp = self._vp[i]
-            torch.mul(self.v, d.noise[p], out=vp)  # _perturb, written into the slot
+            b = min(range(self.lane_count), key=lambda bb: (self._n_occ[bb], bb))
+            j = self._n_occ[b]
             src = self.warm_cache.nearest(k, p) if self.warm_start else None
             if src is not None:
-                k_src, w_src = src
-                w0, h0 = elastic_lane_warm_init(vp, k, d.w[p], d.h[p], w_src, k_src, self.k_pad)
                 metrics.inc("warm_start_hits")
-                get_tracer().event("warm_start", track=self.track, k=k, p=p, k_src=int(k_src))
-            else:
-                w0, h0 = elastic_lane_init(vp, k, d.w[p], d.h[p], self.k_pad)
-            self._w[i] = w0
-            self._h[i] = h0
-            self._keff[i] = k
-            self._slot[i] = _Lane(k=k, p=p)
-            self._n_occ += 1
+                get_tracer().event("warm_start", track=self.track, k=k, p=p, k_src=int(src[0]))
+            if b == self._lane:
+                self._init_slot(j, k, task.draws, p, src)
+            self._slot[b][j] = _Lane(k=k, p=p)
+            self._n_occ[b] += 1
             task.slotted += 1
             if task.slotted == self.n_perturbs:
                 task.draws = None
 
-    def _free_slot(self, i: int) -> None:
-        """Compact: move the last occupied lane into freed slot i."""
-        j = self._n_occ - 1
-        if i != j:
-            self._vp[i] = self._vp[j]
-            self._w[i] = self._w[j]
-            self._h[i] = self._h[j]
-            self._keff[i] = self._keff[j]
-            self._slot[i] = self._slot[j]
-        self._slot[j] = None
-        self._n_occ = j
+    def _init_slot(self, j: int, k: int, d: Draws, p: int, src) -> None:
+        """Write lane (k, p)'s perturbed V and (cold or warm) init into this
+        rank's slot j: the whole-V init, of which the slot keeps its rows."""
+        if self.data_count == 1:
+            vp = self._vp[j]
+            torch.mul(self.v, d.noise[p], out=vp)  # _perturb, written into the slot
+        else:
+            vp = _perturb(self.v, d.noise[p])
+            self._vp[j] = vp[self._rows]
+        if src is not None:
+            w0, h0 = elastic_lane_warm_init(vp, k, d.w[p], d.h[p], src[1], src[0], self.k_pad)
+        else:
+            w0, h0 = elastic_lane_init(vp, k, d.w[p], d.h[p], self.k_pad)
+        self._w[j] = w0[self._rows]
+        self._h[j] = h0
+        self._keff[j] = k
+
+    def _free_slot(self, b: int, j: int) -> None:
+        """Compact: move block b's last occupied lane into its freed slot j."""
+        last = self._n_occ[b] - 1
+        if j != last:
+            if b == self._lane:
+                self._vp[j] = self._vp[last]
+                self._w[j] = self._w[last]
+                self._h[j] = self._h[last]
+                self._keff[j] = self._keff[last]
+            self._slot[b][j] = self._slot[b][last]
+        self._slot[b][last] = None
+        self._n_occ[b] = last
 
     def _finish_lane(self, lane: _Lane, w_row: torch.Tensor, err: torch.Tensor) -> None:
         task = self._tasks[lane.k]

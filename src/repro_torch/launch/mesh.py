@@ -1,15 +1,151 @@
-"""Process-group leasing for the k-search's distributed fits.
+"""Process meshes for the k-search: the sharded planes' ``(lane, data)``
+mesh and the distributed-fit executor's per-worker groups.
+
+``make_wave_mesh`` builds the 2-D ``(lane, data)`` ``DeviceMesh`` the
+sharded wavefront planes run on. The port is SPMD over processes: one
+process per rank (``torchrun``), every rank running the whole search, each
+computing only its own lane block of a dispatch and, with ``data > 1``, its
+own row block of V. The mesh spans the whole world (``lanes × data ==
+world size``): a rank left out of it would wait forever on the scheduler's
+collectives.
 
 ``SubmeshPool`` leases per-worker process groups to the threaded
 distributed-fit executor: each worker keeps ONE group for its lifetime —
 a group is a worker-identity resource, not a function of the k being
-evaluated. (The reference's ``make_wave_mesh`` and the LM's production
-mesh helpers wait for the sharded planes and the train path.)
+evaluated. (The LM's production mesh helpers wait for the train path.)
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+import os
+import tempfile
 import threading
-from typing import Any, Sequence
+from pathlib import Path
+from typing import Any, Iterator, Sequence
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.factorization.distributed import backend_for
+
+LANE, DATA = "lane", "data"
+
+
+@dataclasses.dataclass(frozen=True)
+class WaveMesh:
+    """This rank's view of a ``(lane, data)`` mesh.
+
+    ``lane_group`` holds the ranks that share this rank's data index (one
+    per lane block: scores and retired factors are gathered over it);
+    ``data_group`` holds the ranks that share its lane block (one per row
+    block of V: the fits' Gram sums are reduced over it). ``lane_index`` /
+    ``data_index`` are this rank's coordinates, which are also its ranks
+    within those two groups.
+    """
+
+    mesh: Any  # torch.distributed.device_mesh.DeviceMesh
+    lane_group: Any
+    data_group: Any
+    lane_index: int
+    data_index: int
+    lane_count: int
+    data_count: int
+    device: torch.device
+
+    @property
+    def shape(self) -> dict[str, int]:
+        return {LANE: self.lane_count, DATA: self.data_count}
+
+
+def _mesh_device(device: torch.device | str) -> torch.device:
+    """The device this rank runs on: the CPU, or ``cuda:{LOCAL_RANK}`` for a
+    ``cuda`` device without an index (``torchrun`` sets ``LOCAL_RANK``)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+    return dev
+
+
+def _mesh_shape(world: int, lanes: int | None, data: int) -> tuple[int, int]:
+    if data < 1:
+        raise ValueError(f"data must be >= 1, got {data}")
+    if lanes is None:
+        if world % data:
+            raise ValueError(f"{world} ranks do not split into data={data} shards")
+        lanes = world // data
+    if lanes < 1:
+        raise ValueError(f"lanes must be >= 1, got {lanes}")
+    need = lanes * data
+    if need > world:
+        raise ValueError(f"mesh ({lanes} lanes x {data} data) needs {need} ranks, have {world}")
+    if need != world:
+        raise ValueError(f"mesh ({lanes} lanes x {data} data) must span all {world} ranks: "
+                         "a rank outside it would wait on the search's collectives")
+    return lanes, data
+
+
+@contextlib.contextmanager
+def make_wave_mesh(
+    lanes: int | None = None, data: int = 1, device: torch.device | str = "cuda"
+) -> Iterator[WaveMesh]:
+    """2-D ``(lane, data)`` mesh over the ranks of the default process group.
+
+    ``lanes`` parallel k-fits, each distributed over ``data`` ranks; with
+    ``lanes=None`` every rank not taken by ``data`` becomes a lane. Raises
+    if ``data`` or ``lanes`` is below 1, the world does not split into
+    ``data``, or ``lanes × data`` is not the world size.
+
+    Without a default group one is made here: from ``torchrun``'s
+    environment (``MASTER_ADDR``, ``WORLD_SIZE``, ``RANK``) if it is set,
+    else a one-rank group on a ``file://`` store in a temporary directory.
+    The backend is the device's (NCCL on CUDA, gloo on the CPU). On exit the
+    context destroys what it made and nothing else: the default group if it
+    made it (with every subgroup), else the mesh's own subgroups. Before
+    yielding, one all-reduce over each of the two groups checks their sizes.
+    """
+    from torch.distributed.device_mesh import init_device_mesh
+
+    dev = _mesh_device(device)
+    backend = backend_for(dev)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    store = None
+    made_default = not dist.is_initialized()
+    if made_default:
+        if "MASTER_ADDR" in os.environ and "WORLD_SIZE" in os.environ:
+            dist.init_process_group(backend, init_method="env://")
+        else:
+            store = tempfile.TemporaryDirectory(prefix="repro_torch_pg_")
+            dist.init_process_group(backend, init_method=(Path(store.name) / "store").as_uri(),
+                                    world_size=1, rank=0)
+    groups: list = []
+    try:
+        if str(dist.get_backend()) != backend:
+            raise ValueError(f"a mesh on {dev} needs a {backend} default group, got {dist.get_backend()}")
+        lanes, data = _mesh_shape(dist.get_world_size(), lanes, data)
+        mesh = init_device_mesh(dev.type, (lanes, data), mesh_dim_names=(LANE, DATA))
+        lane_group, data_group = mesh.get_group(LANE), mesh.get_group(DATA)
+        groups = [g for g in (lane_group, data_group) if g is not dist.group.WORLD]
+        wave = WaveMesh(mesh, lane_group, data_group, mesh.get_local_rank(LANE), mesh.get_local_rank(DATA),
+                        lanes, data, dev)
+        for group, size in ((lane_group, lanes), (data_group, data)):
+            probe = torch.ones((), device=dev)
+            dist.all_reduce(probe, group=group)
+            if int(probe.item()) != size or dist.get_world_size(group) != size:
+                raise RuntimeError(f"mesh group of {dist.get_world_size(group)} ranks summed {probe.item()}, "
+                                   f"want {size}")
+        if (dist.get_rank(lane_group), dist.get_rank(data_group)) != (wave.lane_index, wave.data_index):
+            raise RuntimeError("mesh coordinates differ from the ranks within the mesh's groups")
+        yield wave
+    finally:
+        if made_default:
+            dist.destroy_process_group()
+            if store is not None:
+                store.cleanup()
+        else:
+            for group in {id(g): g for g in groups}.values():
+                dist.destroy_process_group(group)
 
 
 class SubmeshPool:

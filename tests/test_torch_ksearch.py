@@ -151,8 +151,11 @@ def test_journal_restart_replays_the_search(tmp_path):
 
 
 def test_parser_refuses_unported_executors_and_flags():
-    for extra in (["--executor", "sharded"], ["--lanes", "2"], ["--data-shards", "2"],
-                  ["--comm", "pipelined"], ["--compile-cache", "x"]):
+    """The reference's ``--compile-cache`` has no counterpart (no jit cache to
+    persist), and an executor or comm mode the reference lacks is refused.
+    The sharded executor and its mesh flags are ported
+    (``tests/test_torch_sharded.py``)."""
+    for extra in (["--compile-cache", "x"], ["--executor", "mesh"], ["--comm", "async"], ["--lanes", "two"]):
         with pytest.raises(SystemExit):
             ksearch._parser().parse_args(extra)
 

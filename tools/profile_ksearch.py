@@ -7,11 +7,13 @@ sweeps); ``--search kmeans`` runs its ``kmeans_db_1m`` (K-Means with
 Davies-Bouldin on 10^6 blob points, d 6, k_true 7, k 2..24); ``--search
 rescalk`` its ``rescalk_1000`` (RESCALk on X 4 x 1000 x 1000, k_true 4, k
 2..11, 3 perturbations, 150 sweeps; serial and 4 threads). Each runs on
-each executor (NMFk also on ``elastic``, at its defaults: tol 1e-3, chunks
-of 25, warm starts): once to warm up, ``--repeats`` times on the host clock, then
+each executor (NMFk also on ``sharded``, on a one-rank NCCL mesh, and on
+``elastic``, at its defaults: tol 1e-3, chunks of 25, warm starts): once to
+warm up, ``--repeats`` times on the host clock, then
 once under ``torch.profiler``. Prints one JSON line per executor with the
 wall times, the device's busy time (the sum of the kernels' own device
-time) and the kernels that took the most of it. Run from the root of a
+time), the part of it in NCCL's kernels and the kernels that took the most
+of it. Run from the root of a
 checkout on a machine with a card:
 
     python3 tools/profile_ksearch.py [--search nmfk|kmeans|rescalk] [--src src] [--repeats 3] [--threads N]
@@ -44,6 +46,7 @@ from chip_smoke import (  # noqa: E402
     RESCAL_P,
     RESCAL_SEARCH,
     RESCAL_THREADS,
+    smi_line,
 )
 
 
@@ -144,7 +147,7 @@ def main(argv=None) -> int:
 
         def run(executor):
             return ksearch.main(SEARCH + ["--executor", executor] + (threads if executor == "threads" else []))
-        executors = ("threads", "batched", "elastic")
+        executors = ("threads", "batched", "sharded", "elastic")
 
     for executor in executors:
         run(executor)  # warm up: kernels built and loaded, plans cached
@@ -163,9 +166,11 @@ def main(argv=None) -> int:
             "k_optimal": out["k_optimal"],
             "wall_s": walls, "profiled_wall_s": round(wall, 4), "device_busy_ms": round(busy, 2),
             "device_busy_share": round(busy / 1e3 / wall, 4),
+            "nccl_ms": round(sum(ms for name, (ms, _) in times.items() if "nccl" in name.lower()), 3),
             "top": [[name[:70], round(ms, 3), count] for name, (ms, count) in top],
         }), flush=True)
     print(torch.cuda.get_device_name(0), flush=True)
+    print(smi_line(), flush=True)
     return 0
 
 
