@@ -657,9 +657,10 @@ MULTI_RANK_TIMEOUT_S = 300
 def run_multi_rank_searches(torch, log) -> dict[str, dict[str, int]]:
     """The paper-scale sharded search at 4 ranks, one process per card
     (``torchrun``, rendezvous on localhost), on each mesh of
-    ``MULTI_RANK_MESHES``: every rank writes its result and its launch
-    counts; each rank must find k_optimal 8 and all the same visited ks and
-    scores. Launch counts are summed over the ranks. Needs 4 cards."""
+    ``MULTI_RANK_MESHES``, twice a process (``rank_search``): every rank
+    writes its result and its launch counts; each rank must find k_optimal
+    8 and all the same visited ks and scores. Launch counts (of each
+    process's second search) are summed over the ranks. Needs 4 cards."""
     import os
     import signal
     import tempfile
@@ -671,8 +672,11 @@ def run_multi_rank_searches(torch, log) -> dict[str, dict[str, int]]:
     by_path = {}
     for tag, flags in MULTI_RANK_MESHES.items():
         with tempfile.TemporaryDirectory(prefix="chip_smoke_ranks_") as outdir:
+            # the search's flags go in a file: torchrun's own parser takes an
+            # abbreviation such as --n or --m after the script for one of its options
+            (Path(outdir) / "argv.json").write_text(json.dumps([*PAPER_ARGS, "--executor", "sharded", *flags]))
             cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "4",
-                   str(ROOT / "chip_smoke.py"), "--rank-search", outdir, *PAPER_ARGS, "--executor", "sharded", *flags]
+                   str(ROOT / "chip_smoke.py"), "--rank-search", outdir]
             proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
                                     start_new_session=True)
             try:
@@ -687,12 +691,14 @@ def run_multi_rank_searches(torch, log) -> dict[str, dict[str, int]]:
         first = ranks[0]["out"]
         for r, rank in enumerate(ranks):
             got = rank["out"]
-            if got["k_optimal"] != 8 or any(got[key] != first[key] for key in ("visited", "scores", "mesh")):
+            if got["k_optimal"] != 8 or rank["cold_k_optimal"] != 8 or any(
+                    got[key] != first[key] for key in ("visited", "scores", "mesh")):
                 raise AssertionError(f"nmfk_sharded_4rank_{tag}: rank {r} returned {got}, rank 0 {first}")
         counts = {name: sum(rank["launches"][name] for rank in ranks) for name in ranks[0]["launches"]}
         log(json.dumps({"search": f"nmfk_sharded_4rank_{tag}", "k_optimal": first["k_optimal"],
-                        "visited": first["visited"], "mesh": first["mesh"], "comm": first["comm"],
-                        "wall_s": first["seconds"], "overlap_fraction": first.get("overlap_fraction"),
+                        "visited": first["visited"], "scores": first["scores"], "mesh": first["mesh"], "comm": first["comm"],
+                        "wall_s": first["seconds"], "cold_wall_s": ranks[0]["cold_seconds"],
+                        "overlap_fraction": first.get("overlap_fraction"),
                         "launches_by_rank": [rank["launches"] for rank in ranks]}))
         for name in ("mu_update_h", "mu_update_w", "silhouette_dist_sums_batched"):
             if min(rank["launches"][name] for rank in ranks) < 1 and not (
@@ -702,19 +708,24 @@ def run_multi_rank_searches(torch, log) -> dict[str, dict[str, int]]:
     return by_path
 
 
-def rank_search(outdir: Path, argv: list[str]) -> int:
+def rank_search(outdir: Path) -> int:
     """One rank of ``run_multi_rank_searches`` (under ``torchrun``): the
-    port's ``ksearch`` with ``argv``, its result and launch counts written
-    to ``outdir/rank<RANK>.json``."""
+    port's ``ksearch`` with the flags in ``outdir/argv.json``, twice (the
+    first in a fresh process pays its cold start), the second's result and
+    launch counts and the first's wall written to ``outdir/rank<RANK>.json``."""
     import os
 
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import ops
     from repro_torch.launch import ksearch
 
+    argv = json.loads((outdir / "argv.json").read_text())
+    cold = ksearch.main(argv)
     ops.reset_launch_counts()
     out = ksearch.main(argv)
-    (outdir / f"rank{os.environ['RANK']}.json").write_text(json.dumps({"out": out, "launches": ops.launch_counts()}))
+    (outdir / f"rank{os.environ['RANK']}.json").write_text(json.dumps(
+        {"out": out, "launches": ops.launch_counts(), "cold_k_optimal": cold["k_optimal"],
+         "cold_seconds": cold["seconds"]}))
     return 0
 
 
@@ -1175,7 +1186,7 @@ SOURCES = {
 
 def main() -> int:
     if sys.argv[1:2] == ["--rank-search"]:  # one rank of run_multi_rank_searches
-        return rank_search(Path(sys.argv[2]), sys.argv[3:])
+        return rank_search(Path(sys.argv[2]))
     import torch
 
     if not torch.cuda.is_available():

@@ -213,7 +213,8 @@ def _dist_fits(
         w_parts.append(w_l)
         errs.append(err)
     w_all = ring_all_gather(torch.stack(w_parts, dim=1), data_group)  # (n, p, k_pad)
-    return w_all.transpose(0, 1), torch.stack(errs)
+    # contiguous: the pooled score's silhouette kernel takes contiguous columns
+    return w_all.transpose(0, 1).contiguous(), torch.stack(errs)
 
 
 def _nmfk_score_masked_dist(

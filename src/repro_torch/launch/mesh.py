@@ -31,6 +31,12 @@ from repro_torch.factorization.distributed import backend_for
 
 LANE, DATA = "lane", "data"
 
+# default groups made from torchrun's environment in this process: each gets
+# its own key space in the launcher's store, which outlives the groups it
+# served (a second group under the first one's keys would meet its stale
+# addresses). Every rank makes its meshes in the same order, so the counts agree.
+_env_groups = 0
+
 
 @dataclasses.dataclass(frozen=True)
 class WaveMesh:
@@ -114,7 +120,11 @@ def make_wave_mesh(
     made_default = not dist.is_initialized()
     if made_default:
         if "MASTER_ADDR" in os.environ and "WORLD_SIZE" in os.environ:
-            dist.init_process_group(backend, init_method="env://")
+            global _env_groups
+            _env_groups += 1
+            env_store, rank, world = next(dist.rendezvous("env://"))
+            dist.init_process_group(backend, store=dist.PrefixStore(f"repro_torch_mesh_{_env_groups}", env_store),
+                                    rank=rank, world_size=world)
         else:
             store = tempfile.TemporaryDirectory(prefix="repro_torch_pg_")
             dist.init_process_group(backend, init_method=(Path(store.name) / "store").as_uri(),

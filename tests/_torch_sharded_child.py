@@ -145,6 +145,7 @@ def _rank_main(rank: int, world: int, inputs: str, outdir: str) -> None:
                         sc = _nmfk_score_masked_dist(v_l, k, ref_source(k, cfg["k_pad"]), cfg["k_pad"],
                                                      mesh.data_group, comm, cfg["iters"])
                         out.update({f"dist{data}_{comm}_w": w_all, f"dist{data}_{comm}_errs": errs,
+                                    f"dist{data}_{comm}_contiguous": torch.tensor(w_all.is_contiguous()),
                                     **{f"dist{data}_{comm}_{i}": field for i, field in enumerate(sc)}})
 
         # the k-search CLI: every rank runs it, rank 0 alone prints

@@ -212,6 +212,7 @@ def test_data_sharded_body_matches_the_reference_vmapped(runs, world, data, comm
     w_ref, errs_ref, score_ref = reference[(data, comm)]
     for arrays, _ in ranks[world]:
         score = _scores(arrays, f"dist{data}_{comm}")
+        assert arrays[f"dist{data}_{comm}_contiguous"]  # the card's silhouette kernel takes contiguous columns
         if comm == "sync":
             np.testing.assert_allclose(arrays[f"dist{data}_sync_w"], w_ref, **FIT_TOL)
             np.testing.assert_allclose(arrays[f"dist{data}_sync_errs"], errs_ref, rtol=ERR_RTOL)
