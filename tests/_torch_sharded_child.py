@@ -24,6 +24,7 @@ JOIN_TIMEOUT_S = 240
 # the meshes each world size runs: (lanes, data)
 LANE_MESHES = {1: [(1, 1)], 2: [(2, 1)], 4: [(4, 1)]}
 DATA_MESHES = {1: [], 2: [(1, 2)], 4: [(2, 2), (1, 4)]}
+ELASTIC_DATA_MESHES = [(1, 2), (2, 2)]  # the data-sharded elastic plane runs sync on these
 MESH_SHAPES = {1: [(1, 1), (None, 1)], 2: [(2, 1), (1, 2), (None, 2)], 4: [(4, 1), (2, 2), (1, 4), (None, 2)]}
 BAD_MESHES = {1: [], 2: [(1, 1), (None, 3)], 4: [(1, 2), (3, 1), (4, 2), (None, 3)]}
 
@@ -120,12 +121,11 @@ def _rank_main(rank: int, world: int, inputs: str, outdir: str) -> None:
                     sc = nmfk_score_sharded(v, ks, mesh=mesh, k_pad=cfg["k_pad"], nmf_iters=cfg["iters"], comm=comm,
                                             draws=ref_source)
                     out.update({f"sharded_{tag}_{comm}_{i}": field for i, field in enumerate(sc)})
-                    plane = NMFkBatchPlane(v, mesh=mesh, comm=comm, **plane_kw)
-                    out[f"plane_{tag}_{comm}"] = torch.tensor(plane.evaluate_batch(ks))
                     res = binary_bleed_search(NMFkBatchPlane(v, mesh=mesh, comm=comm, **plane_kw), **search_kw)
                     info[f"search_{tag}_{comm}"] = [res.k_optimal, sorted(res.visited_ks),
                                                     {r.k: r.score for r in res.visits}]
-                    info[f"elastic_{tag}_{comm}"] = elastic(mesh, comm)
+                if data == 1 or (lanes, data) in ELASTIC_DATA_MESHES:
+                    info[f"elastic_{tag}_sync"] = elastic(mesh, "sync")
                 if data == 1:
                     plane = KMeansBatchPlane(x, seed=1, max_iters=20, k_pad=8, mesh=mesh)
                     out[f"km_scores_{tag}"] = torch.tensor(plane.evaluate_batch(km_ks))
@@ -138,15 +138,13 @@ def _rank_main(rank: int, world: int, inputs: str, outdir: str) -> None:
                         info[f"km_data_{tag}"] = str(err)
                     # the data-sharded body at this mesh's data count, one lane
                     v_l = shard_rows(v, mesh.data_group)
+                    k, draws = cfg["k_true"], ref_source(cfg["k_true"], cfg["k_pad"])
+                    w_all, errs = _dist_fits(v_l, k, draws, cfg["k_pad"], mesh.data_group, "sync", cfg["iters"])
+                    out.update({f"dist{data}_sync_w": w_all, f"dist{data}_sync_errs": errs,
+                                f"dist{data}_sync_contiguous": torch.tensor(w_all.is_contiguous())})
                     for comm in ("sync", "pipelined"):
-                        k = cfg["k_true"]
-                        w_all, errs = _dist_fits(v_l, k, ref_source(k, cfg["k_pad"]), cfg["k_pad"], mesh.data_group,
-                                                 comm, cfg["iters"])
-                        sc = _nmfk_score_masked_dist(v_l, k, ref_source(k, cfg["k_pad"]), cfg["k_pad"],
-                                                     mesh.data_group, comm, cfg["iters"])
-                        out.update({f"dist{data}_{comm}_w": w_all, f"dist{data}_{comm}_errs": errs,
-                                    f"dist{data}_{comm}_contiguous": torch.tensor(w_all.is_contiguous()),
-                                    **{f"dist{data}_{comm}_{i}": field for i, field in enumerate(sc)}})
+                        sc = _nmfk_score_masked_dist(v_l, k, draws, cfg["k_pad"], mesh.data_group, comm, cfg["iters"])
+                        out.update({f"dist{data}_{comm}_{i}": field for i, field in enumerate(sc)})
 
         # the k-search CLI: every rank runs it, rank 0 alone prints
         printed = io.StringIO()
