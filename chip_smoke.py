@@ -5,6 +5,10 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
 
+On a machine with four, ``python3 chip_smoke.py --multi-rank-only`` builds
+the kernels and runs only the 4-rank searches of phase 5 and the one-rank
+searches they are compared with.
+
 Phases, each fatal on failure:
 
   1. print the card (nvidia-smi name and power limit, torch device name);
@@ -43,11 +47,14 @@ Phases, each fatal on failure:
      ``nmfk_distributed_fit``: the same search on ``threads`` with
      ``--distributed-fit --resources 2`` (each worker's one-rank NCCL group
      runs ``distributed_nmf`` for every k it scores; k_optimal 8);
-     ``nmfk_sharded``: the same search on ``--executor sharded --comm sync``
-     (a one-rank NCCL mesh; k_optimal 8); with 4 or more cards also
-     ``torchrun`` runs of it at 4 ranks (``--lanes 4``, then ``--lanes 2
-     --data-shards 2`` sync and pipelined; every rank the same result,
-     k_optimal 8), else one line saying they were not made;
+     ``nmfk_elastic_mesh``: the elastic defaults on a one-rank NCCL mesh
+     (``--lanes 1``; the ``nmfk_elastic`` run's scores, sweeps and warm-start
+     hits); ``nmfk_sharded``: the same search on ``--executor sharded --comm
+     sync`` (a one-rank NCCL mesh; k_optimal 8); with 4 or more cards also
+     ``torchrun`` runs at 4 ranks (sharded ``--lanes 4``, then ``--lanes 2
+     --data-shards 2`` sync and pipelined, and elastic ``--lanes 2
+     --data-shards 2``; every rank the same result, k_optimal 8), else one
+     line saying they were not made;
      ``rescalk_1000``: Binary Bleed over RESCALk (§IV-C's RESCAL setup of
      ``benchmarks/bench_distributed.py`` at 1000 entities, 4 relations,
      k_true 4, k 2..11) on the serial and the threads executor (k_optimal 4);
@@ -648,33 +655,41 @@ def run_search(torch, ops, ksearch, executor: str, log, extra: tuple[str, ...] =
     return counts
 
 
-MULTI_RANK_MESHES = {"lanes4": ["--lanes", "4"],
-                     "lanes2_data2_sync": ["--lanes", "2", "--data-shards", "2", "--comm", "sync"],
-                     "lanes2_data2_pipelined": ["--lanes", "2", "--data-shards", "2", "--comm", "pipelined"]}
+MULTI_RANK_MESHES = {
+    "nmfk_sharded_4rank_lanes4": ["--executor", "sharded", "--lanes", "4"],
+    "nmfk_sharded_4rank_lanes2_data2_sync": ["--executor", "sharded", "--lanes", "2", "--data-shards", "2",
+                                             "--comm", "sync"],
+    "nmfk_sharded_4rank_lanes2_data2_pipelined": ["--executor", "sharded", "--lanes", "2", "--data-shards", "2",
+                                                  "--comm", "pipelined"],
+    "nmfk_elastic_4rank_lanes2_data2": ["--executor", "elastic", "--lanes", "2", "--data-shards", "2"],
+}
 MULTI_RANK_TIMEOUT_S = 300
+# what every rank of a multi-rank search must return alike (those an executor reports)
+RANK_AGREES = ("visited", "scores", "mesh", "sweeps_run", "sweeps_saved", "sweeps_fixed_total", "warm_start_hits")
 
 
 def run_multi_rank_searches(torch, log) -> dict[str, dict[str, int]]:
-    """The paper-scale sharded search at 4 ranks, one process per card
-    (``torchrun``, rendezvous on localhost), on each mesh of
+    """The paper-scale search at 4 ranks, one process per card
+    (``torchrun``, rendezvous on localhost), on each executor and mesh of
     ``MULTI_RANK_MESHES``, twice a process (``rank_search``): every rank
     writes its result and its launch counts; each rank must find k_optimal
-    8 and all the same visited ks and scores. Launch counts (of each
-    process's second search) are summed over the ranks. Needs 4 cards."""
+    8 and all the same ``RANK_AGREES`` entries (the elastic run: also its
+    sweep counts and warm-start hits). Launch counts (of each process's
+    second search) are summed over the ranks. Needs 4 cards."""
     import os
     import signal
     import tempfile
 
     cards = torch.cuda.device_count()
     if cards < 4:
-        log(f"multi-rank sharded runs: not made ({cards} card(s) visible; the 4-rank runs need 4)")
+        log(f"multi-rank searches: not made ({cards} card(s) visible; the 4-rank runs need 4)")
         return {}
     by_path = {}
-    for tag, flags in MULTI_RANK_MESHES.items():
+    for label, flags in MULTI_RANK_MESHES.items():
         with tempfile.TemporaryDirectory(prefix="chip_smoke_ranks_") as outdir:
             # the search's flags go in a file: torchrun's own parser takes an
             # abbreviation such as --n or --m after the script for one of its options
-            (Path(outdir) / "argv.json").write_text(json.dumps([*PAPER_ARGS, "--executor", "sharded", *flags]))
+            (Path(outdir) / "argv.json").write_text(json.dumps([*PAPER_ARGS, *flags]))
             cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "4",
                    str(ROOT / "chip_smoke.py"), "--rank-search", outdir]
             proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
@@ -684,27 +699,29 @@ def run_multi_rank_searches(torch, log) -> dict[str, dict[str, int]]:
             except subprocess.TimeoutExpired:
                 os.killpg(proc.pid, signal.SIGKILL)
                 proc.communicate()
-                raise AssertionError(f"nmfk_sharded_4rank_{tag}: no result within {MULTI_RANK_TIMEOUT_S} s")
+                raise AssertionError(f"{label}: no result within {MULTI_RANK_TIMEOUT_S} s")
             if proc.returncode != 0:
-                raise AssertionError(f"nmfk_sharded_4rank_{tag}: torchrun exited {proc.returncode}:\n{text[-4000:]}")
+                raise AssertionError(f"{label}: torchrun exited {proc.returncode}:\n{text[-4000:]}")
             ranks = [json.loads((Path(outdir) / f"rank{r}.json").read_text()) for r in range(4)]
         first = ranks[0]["out"]
         for r, rank in enumerate(ranks):
             got = rank["out"]
             if got["k_optimal"] != 8 or rank["cold_k_optimal"] != 8 or any(
-                    got[key] != first[key] for key in ("visited", "scores", "mesh")):
-                raise AssertionError(f"nmfk_sharded_4rank_{tag}: rank {r} returned {got}, rank 0 {first}")
+                    got.get(key) != first.get(key) for key in RANK_AGREES):
+                raise AssertionError(f"{label}: rank {r} returned {got}, rank 0 {first}")
+        if "sweeps_run" in first and first["sweeps_run"] + first["sweeps_saved"] != first["sweeps_fixed_total"]:
+            raise AssertionError(f"{label}: sweeps run + saved != the fixed-iteration total: {first}")
         counts = {name: sum(rank["launches"][name] for rank in ranks) for name in ranks[0]["launches"]}
-        log(json.dumps({"search": f"nmfk_sharded_4rank_{tag}", "k_optimal": first["k_optimal"],
+        log(json.dumps({"search": label, "k_optimal": first["k_optimal"],
                         "visited": first["visited"], "scores": first["scores"], "mesh": first["mesh"], "comm": first["comm"],
                         "wall_s": first["seconds"], "cold_wall_s": ranks[0]["cold_seconds"],
-                        "overlap_fraction": first.get("overlap_fraction"),
+                        **{key: first[key] for key in RANK_AGREES[3:] + ("overlap_fraction",) if key in first},
                         "launches_by_rank": [rank["launches"] for rank in ranks]}))
         for name in ("mu_update_h", "mu_update_w", "silhouette_dist_sums_batched"):
             if min(rank["launches"][name] for rank in ranks) < 1 and not (
                     name == "mu_update_h" and first["mesh"]["data"] > 1):
-                raise AssertionError(f"nmfk_sharded_4rank_{tag}: a rank never launched {name}")
-        by_path[f"nmfk_sharded_4rank_{tag}"] = counts
+                raise AssertionError(f"{label}: a rank never launched {name}")
+        by_path[label] = counts
     return by_path
 
 
@@ -729,12 +746,15 @@ def rank_search(outdir: Path) -> int:
     return 0
 
 
-def run_elastic_search(torch, dev, ops, ksearch, label: str, extra: list[str], log, oracle: bool = False) -> dict[str, int]:
+def run_elastic_search(torch, dev, ops, ksearch, label: str, extra: list[str], log, oracle: bool = False,
+                       same_as: dict | None = None) -> tuple[dict[str, int], dict]:
     """The paper-scale search on the elastic executor with ``extra`` flags;
-    counts reset just before, read just after. The ``oracle`` run (tol 0, no
-    warm starts) also writes its trace, whose ``record`` events give the
-    score of each visited k, and holds each against the batched executor's
-    plane (same draws; its lane count, so not the same bits)."""
+    counts reset just before, read just after; returns them and the search's
+    result. The ``oracle`` run (tol 0, no warm starts) also writes its trace,
+    whose ``record`` events give the score of each visited k, and holds each
+    against the batched executor's plane (same draws; its lane count, so not
+    the same bits). With ``same_as`` (an earlier run's result) the visited
+    ks, scores, sweep counts and warm-start hits must be that run's."""
     trace = ROOT / "build" / "chip_smoke" / f"{label}.jsonl"
     if oracle:
         trace.parent.mkdir(parents=True, exist_ok=True)
@@ -745,10 +765,10 @@ def run_elastic_search(torch, dev, ops, ksearch, label: str, extra: list[str], l
     counts = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     keys = ("ticks", "dispatched_shapes", "tol", "warm_start", "sweeps_run", "sweeps_saved",
-            "sweeps_fixed_total", "warm_start_hits", "lane_occupancy")
+            "sweeps_fixed_total", "warm_start_hits", "lane_occupancy", "mesh", "comm")
     entry = {"search": label, "k_optimal": out["k_optimal"], "visited": out["visited"], "wall_s": out["seconds"],
              "sweeps_run_share": out["sweeps_run"] / out["sweeps_fixed_total"],
-             **{key: out[key] for key in keys}, "max_memory_allocated": peak, "launches": counts}
+             **{key: out[key] for key in keys if key in out}, "max_memory_allocated": peak, "launches": counts}
     if out["k_optimal"] != 8:
         raise AssertionError(f"{label}: k_optimal {out['k_optimal']} != 8")
     if out["sweeps_run"] + out["sweeps_saved"] != out["sweeps_fixed_total"]:
@@ -757,6 +777,11 @@ def run_elastic_search(torch, dev, ops, ksearch, label: str, extra: list[str], l
     for name in ("mu_update_h", "mu_update_w", "silhouette_dist_sums_batched"):
         if counts[name] < 1:
             raise AssertionError(f"{label}: kernel {name} was never launched on the main path")
+    if same_as is not None:
+        agree = ("visited", "scores", "sweeps_run", "sweeps_saved", "warm_start_hits")
+        if any(out[key] != same_as[key] for key in agree):
+            raise AssertionError(f"{label}: {[out[key] for key in agree]} vs {[same_as[key] for key in agree]}")
+        entry["same_as_unsharded"] = True
     if oracle:
         from repro_torch.factorization.planes import NMFkBatchPlane
         from repro_torch.factorization.synthetic import nmf_data
@@ -773,7 +798,7 @@ def run_elastic_search(torch, dev, ops, ksearch, label: str, extra: list[str], l
         if not gap <= NMFK_SIL_ATOL:
             raise AssertionError(f"{label}: score gap to the batched plane {gap:.3e} > {NMFK_SIL_ATOL}")
     log(json.dumps(entry))
-    return counts
+    return counts, out
 
 
 def check_rescal_small(torch, dev, ops, log) -> None:
@@ -1184,9 +1209,47 @@ SOURCES = {
 }
 
 
+def multi_rank_only() -> int:
+    """``--multi-rank-only``, on a machine with 4 cards: build the kernels,
+    run the world-1 searches the 4-rank ones are compared with (batched,
+    sharded sync and elastic; twice, in turns), then only the multi-rank
+    phase (``run_multi_rank_searches``)."""
+    import torch
+
+    if torch.cuda.device_count() < 4:
+        print(f"chip_smoke --multi-rank-only: needs 4 cards, sees {torch.cuda.device_count()}", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.device import resolve
+    from repro_torch.kernels import build, ops
+    from repro_torch.launch import ksearch
+
+    def log(line: str) -> None:
+        print(line, flush=True)
+
+    log(smi_line())
+    log(f"torch: {torch.__version__} cuda {torch.version.cuda} cards {torch.cuda.device_count()}")
+    dev = resolve("cuda")
+    t0 = time.perf_counter()
+    build.build()
+    log(f"build: {time.perf_counter() - t0:.2f} s")
+    for _ in range(2):
+        run_search(torch, ops, ksearch, "batched", log)
+        run_search(torch, ops, ksearch, "sharded", log, ("--comm", "sync"), "nmfk_sharded")
+        run_elastic_search(torch, dev, ops, ksearch, "nmfk_elastic", [], log)
+    t0 = time.perf_counter()
+    by_path = run_multi_rank_searches(torch, log)
+    log(f"multi-rank phase: {time.perf_counter() - t0:.1f} s")
+    log(smi_line())
+    log(json.dumps(by_path))
+    return 0
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--rank-search"]:  # one rank of run_multi_rank_searches
         return rank_search(Path(sys.argv[2]))
+    if sys.argv[1:] == ["--multi-rank-only"]:
+        return multi_rank_only()
     import torch
 
     if not torch.cuda.is_available():
@@ -1236,9 +1299,11 @@ def main() -> int:
     check_sharded_small(torch, dev, ops, log)
 
     by_path = {f"nmfk_{ex}": run_search(torch, ops, ksearch, ex, log) for ex in ("batched", "threads")}
-    by_path["nmfk_elastic_oracle"] = run_elastic_search(
+    by_path["nmfk_elastic_oracle"], _ = run_elastic_search(
         torch, dev, ops, ksearch, "nmfk_elastic_oracle", ["--tol", "0", "--no-warm-start"], log, oracle=True)
-    by_path["nmfk_elastic"] = run_elastic_search(torch, dev, ops, ksearch, "nmfk_elastic", [], log)
+    by_path["nmfk_elastic"], elastic = run_elastic_search(torch, dev, ops, ksearch, "nmfk_elastic", [], log)
+    by_path["nmfk_elastic_mesh"], _ = run_elastic_search(
+        torch, dev, ops, ksearch, "nmfk_elastic_mesh", ["--lanes", "1"], log, same_as=elastic)
     by_path["nmfk_distributed_fit"] = run_distributed_fit_search(torch, ops, ksearch, log)
     by_path["nmfk_sharded"] = run_search(torch, ops, ksearch, "sharded", log, ("--comm", "sync"), "nmfk_sharded")
     by_path.update(run_multi_rank_searches(torch, log))

@@ -101,6 +101,18 @@ def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
     return x
 
 
+def check_comm(comm: str) -> None:
+    """Raise unless ``comm`` is one of ``COMM_MODES``."""
+    if comm not in COMM_MODES:
+        raise ValueError(f"comm must be one of {COMM_MODES}, got {comm!r}")
+
+
+def check_rows(v: torch.Tensor, data_count: int) -> None:
+    """Raise unless V's rows split into ``data_count`` equal blocks."""
+    if data_count > 1 and v.shape[0] % data_count:
+        raise ValueError(f"v rows {v.shape[0]} not divisible by data-axis size {data_count}")
+
+
 def shard_rows(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     """This rank's block of ``x`` along ``dim`` (``world`` equal blocks)."""
     world = _world(group)
@@ -259,8 +271,11 @@ def _mu_sweeps(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Run ``iters`` multiplicative-update sweeps under the chosen schedule.
 
-    ``active`` is the (k_pad,) float rank mask of the masked fits (None for
-    the unmasked path). ``"sync"`` blocks both factor updates on the Gram
+    The factors may carry a leading fit axis (v_l (B, n_l, m), w_l (B, n_l,
+    k), h (B, k, m)): every collective of a sweep then carries all B fits
+    at once, and the W-update is one MU launch of B lanes. ``active`` is the
+    (k_pad,) or (B, k_pad) float rank mask of the masked fits (None for the
+    unmasked path). ``"sync"`` blocks both factor updates on the Gram
     all-reduces; ``"pipelined"`` fuses the two Grams into one ``(k, m+k)``
     buffer, starts its reduce-scatter asynchronously, runs the local
     W-update with the previous sweep's H while it is in flight, then
@@ -268,23 +283,22 @@ def _mu_sweeps(
     by one synchronous sweep so the measured residual comes from a coupled
     (W, H) pair.
 
-    ``steps`` (a 0-d tensor on the fit's device) gates sweeps inside the
-    fixed ``iters`` loop: sweep s applies only while ``s < steps``, with no
-    read back to the host. With ``steps < iters`` under ``"pipelined"`` the
-    closing synchronous sweep is gated off too.
+    ``steps`` (a 0-d or (B,) tensor on the fit's device) gates sweeps inside
+    the fixed ``iters`` loop: sweep s applies to a fit only while ``s <
+    steps``, with no read back to the host. With ``steps < iters`` under
+    ``"pipelined"`` the closing synchronous sweep is gated off too.
     """
-    if comm not in COMM_MODES:
-        raise ValueError(f"comm must be one of {COMM_MODES}, got {comm!r}")
-    m = v_l.shape[1]
+    check_comm(comm)
+    m = v_l.shape[-1]
 
     def mask_h(h):
-        return h if active is None else h * active[:, None]
+        return h if active is None else h * active[..., :, None]
 
     def mask_w(w):
-        return w if active is None else w * active[None, :]
+        return w if active is None else w * active[..., None, :]
 
     def sync_sweep(w_l, h):
-        wt = w_l.T
+        wt = w_l.transpose(-1, -2)
         wtv = _all_reduce(wt @ v_l, group)  # (k, m): the pyDNMFk all-reduce
         wtw = _all_reduce(wt @ w_l, group)  # (k, k)
         h = mask_h(h * wtv / (wtw @ h + _EPS))
@@ -293,12 +307,13 @@ def _mu_sweeps(
 
     def pipe_sweep(w_l, h):
         # fused Gram: one scatter+gather pair in flight instead of two all-reduces
-        gram = w_l.T @ torch.cat([v_l, w_l], dim=1)  # (k, m + k)
-        shard, lead, work = ring_psum_start(gram, group, async_op=True)
+        gram = w_l.transpose(-1, -2) @ torch.cat([v_l, w_l], dim=-1)  # (k, m + k)
+        # scattered over every fit's k rows at once
+        shard, lead, work = ring_psum_start(gram.reshape(-1, gram.shape[-1]), group, async_op=True)
         # overlapped: the purely-local W-update with the stale (this sweep's input) H
         w_new = mask_w(kernel_ops.mu_update_w(v_l, w_l, h))
-        full = ring_psum_finish(shard, lead, group, work=work)
-        wtv, wtw = full[:, :m], full[:, m:]
+        full = ring_psum_finish(shard, lead, group, work=work).reshape(gram.shape)
+        wtv, wtw = full[..., :m], full[..., m:]
         h_new = mask_h(h * wtv / (wtw @ h + _EPS))
         return w_new, h_new
 
@@ -306,7 +321,7 @@ def _mu_sweeps(
         w_new, h_new = sweep(w_l, h)
         if steps is None:
             return w_new, h_new
-        live = s < steps
+        live = (s < steps)[..., None, None]
         return torch.where(live, w_new, w_l), torch.where(live, h_new, h)
 
     if comm == "sync" or _world(group) == 1 or iters == 0:
@@ -319,16 +334,22 @@ def _mu_sweeps(
 
 
 def _global_rel_error(sq: torch.Tensor, ref_sq: torch.Tensor, group) -> torch.Tensor:
-    """sqrt(Σ sq) / max(sqrt(Σ ref_sq), eps) over the group, one all-reduce."""
+    """sqrt(Σ sq) / max(sqrt(Σ ref_sq), eps) over the group, one all-reduce
+    (sq and ref_sq 0-d, or (B,) for B fits)."""
     both = _all_reduce(torch.stack([sq, ref_sq]), group)
     return torch.sqrt(both[0]) / torch.clamp(torch.sqrt(both[1]), min=_EPS)
 
 
 def _rows(draw: torch.Tensor, n_l: int, group) -> torch.Tensor:
-    """This rank's n_l rows of a full-shape draw (world · n_l rows)."""
-    if draw.shape[0] != _world(group) * n_l:
-        raise ValueError(f"a draw of {draw.shape[0]} rows does not match {_world(group)} ranks of {n_l} rows")
-    return draw[_rank(group) * n_l:(_rank(group) + 1) * n_l]
+    """This rank's n_l rows (dim -2) of a full-shape draw (world · n_l rows)."""
+    if draw.shape[-2] != _world(group) * n_l:
+        raise ValueError(f"a draw of {draw.shape[-2]} rows does not match {_world(group)} ranks of {n_l} rows")
+    return draw[..., _rank(group) * n_l:(_rank(group) + 1) * n_l, :]
+
+
+def _sq_sum(x: torch.Tensor) -> torch.Tensor:
+    """Σ x² of each fit: 0-d for (n, m), (B,) for (B, n, m)."""
+    return x.square().sum(dim=(-2, -1))
 
 
 def _dnmf_local(
@@ -446,18 +467,22 @@ def _dnmf_masked_local(
     ``_nmf_masked(v, k_eff, w_draw, h_draw, k_pad, iters)`` up to float
     reduction order.
 
+    With a leading fit axis (v_l (B, n_l, m), k_eff (B,), w_draw (B, n,
+    k_pad), h_draw (B, k_pad, m)) the B fits run together: each collective
+    of a sweep carries all of them (the reference's vmap over fits).
+
     Returns (w_l, rel_error), rel_error the global ||V - WH||_F / ||V||_F.
     """
     check_group(group, v_l, w_draw, h_draw)
-    n_l, m = v_l.shape
+    n_l, m = v_l.shape[-2:]
     n_total = _world(group) * n_l
     active = _active(k_eff, k_pad, v_l)
-    v_mean = _all_reduce(v_l.sum(), group) / (n_total * m)
-    scale = torch.sqrt(torch.clamp(v_mean, min=_EPS) / torch.as_tensor(k_eff, device=v_l.device))
-    w_l = (scale * _rows(w_draw, n_l, group)) * active[None, :]
-    h = (scale * h_draw) * active[:, None]
+    v_mean = _all_reduce(v_l.sum(dim=(-2, -1)), group) / (n_total * m)
+    scale = torch.sqrt(torch.clamp(v_mean, min=_EPS) / torch.as_tensor(k_eff, device=v_l.device))[..., None, None]
+    w_l = (scale * _rows(w_draw, n_l, group)) * active[..., None, :]
+    h = (scale * h_draw) * active[..., :, None]
     w_l, h = _mu_sweeps(v_l, w_l, h, active, iters, group, comm)
-    err = _global_rel_error((v_l - w_l @ h).square().sum(), v_l.square().sum(), group)
+    err = _global_rel_error(_sq_sum(v_l - w_l @ h), _sq_sum(v_l), group)
     return w_l, err
 
 
@@ -482,12 +507,13 @@ def _dnmf_masked_chunk_local(
     sweep, like a short ``_mu_sweeps`` run).
 
     v_l (n_local, m) row block; w_l (n_local, k_pad) local rows; h
-    replicated. Returns (w_l, h, rel_error).
+    replicated. With a leading fit axis (k_eff and steps (B,)) the B fits
+    share each sweep's collectives. Returns (w_l, h, rel_error).
     """
     check_group(group, v_l, w_l, h)
     active = _active(k_eff, k_pad, v_l)
     w_l, h = _mu_sweeps(v_l, w_l, h, active, chunk, group, comm, steps=steps)
-    err = _global_rel_error((v_l - w_l @ h).square().sum(), v_l.square().sum(), group)
+    err = _global_rel_error(_sq_sum(v_l - w_l @ h), _sq_sum(v_l), group)
     return w_l, h, err
 
 

@@ -197,24 +197,26 @@ def nmfk_score_batched(
 
 
 def _dist_fits(
-    v_l: torch.Tensor, k_eff: int, draws: Draws, k_pad: int, data_group, comm: str, nmf_iters: int
+    v_l: torch.Tensor, k_eff: torch.Tensor, draws: Draws, k_pad: int, data_group, comm: str, nmf_iters: int
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """One lane's perturbation ensemble row-distributed over ``data_group``:
-    the whole W (p, n, k_pad) on every rank and the errors (p,). Each fit
-    keeps this rank's rows of its perturbation's full-shape noise and runs
-    ``_dnmf_masked_local`` from the full-shape init draws."""
+    """B lanes' perturbation ensembles row-distributed over ``data_group``:
+    the whole W (B, p, n, k_pad) on every rank and the errors (B, p).
+
+    ``draws`` are lane-stacked full-shape draws (noise (B, p, n, m), w (B,
+    p, n, k_pad), h (B, p, k_pad, m)) and k_eff is (B,). Each fit keeps this
+    rank's rows of its perturbation's noise, and all B·p fits run as one
+    ``_dnmf_masked_local`` call: each sweep's collectives carry every fit
+    (the reference's vmap over lanes and perturbations)."""
     from .distributed import _dnmf_masked_local, _rows, ring_all_gather
 
+    b, p, n, m = draws.noise.shape
     n_l = v_l.shape[0]
-    w_parts, errs = [], []
-    for p in range(draws.noise.shape[0]):
-        vp_l = _perturb(v_l, _rows(draws.noise[p], n_l, data_group))
-        w_l, err = _dnmf_masked_local(vp_l, k_eff, draws.w[p], draws.h[p], k_pad, nmf_iters, data_group, comm)
-        w_parts.append(w_l)
-        errs.append(err)
-    w_all = ring_all_gather(torch.stack(w_parts, dim=1), data_group)  # (n, p, k_pad)
+    vp_l = _perturb(v_l, _rows(draws.noise, n_l, data_group)).reshape(b * p, n_l, m)
+    w_l, errs = _dnmf_masked_local(vp_l, k_eff.repeat_interleave(p), draws.w.reshape(b * p, n, k_pad),
+                                   draws.h.reshape(b * p, k_pad, m), k_pad, nmf_iters, data_group, comm)
+    w_all = ring_all_gather(w_l.transpose(0, 1), data_group)  # (n, b * p, k_pad)
     # contiguous: the pooled score's silhouette kernel takes contiguous columns
-    return w_all.transpose(0, 1).contiguous(), torch.stack(errs)
+    return w_all.transpose(0, 1).reshape(b, p, n, k_pad).contiguous(), errs.reshape(b, p)
 
 
 def _nmfk_score_masked_dist(
@@ -237,8 +239,9 @@ def _nmfk_score_masked_dist(
     all-gathered (p × n × k_pad, small next to V) and the pooled-column
     score runs on every rank. Fields are 0-d tensors.
     """
-    w_all, errs = _dist_fits(v_l, k_eff, draws, k_pad, data_group, comm, nmf_iters)
-    sc = _pooled_w_score(w_all[None], errs[None], _k_eff(k_eff, v_l, (1,)), k_pad)
+    k_t = _k_eff(k_eff, v_l, (1,))
+    w_all, errs = _dist_fits(v_l, k_t, stack_draws([draws]), k_pad, data_group, comm, nmf_iters)
+    sc = _pooled_w_score(w_all, errs, k_t, k_pad)
     return NMFkScore(*(field[0] for field in sc))
 
 
@@ -255,47 +258,49 @@ def nmfk_score_sharded(
     draws: DrawSource | None = None,
 ) -> NMFkScore:
     """``nmfk_score_batched`` over a ``(lane, data)`` mesh
-    (``repro_torch.launch.mesh.WaveMesh``), one call per rank.
+    (``repro_torch.launch.mesh.WaveMesh``), one call per rank; ``mesh=None``
+    is one rank, ``nmfk_score_batched`` itself.
 
     The wave is split into ``mesh.lane_count`` contiguous blocks; this rank
     scores its own block. With one data shard that is ``nmfk_score_batched``
     of the block on the whole V — lane for lane the batched plane's
-    arithmetic, so the scores are its bits. With ``data > 1`` each lane's
-    fits are row-distributed over ``mesh.data_group``
-    (``_nmfk_score_masked_dist`` on this rank's rows of V; equal to the
-    batched scores up to the order of the Gram sums under ``comm="sync"``,
-    and to the staleness of the overlapped schedule under ``"pipelined"``).
-    The three score fields are then all-gathered over ``mesh.lane_group``,
-    so every rank returns the whole wave's scores. Lane k draws from
-    ``draws(k, k_pad)`` (default ``seeded_draws(seed, ...)``), as in
-    ``nmfk_score_batched``.
+    arithmetic, so the scores are its bits. With ``data > 1`` the block's
+    fits are row-distributed over ``mesh.data_group`` (``_dist_fits`` on
+    this rank's rows of V, every fit of the block in each sweep's
+    collectives; equal to the batched scores up to the order of the Gram
+    sums under ``comm="sync"``, and to the staleness of the overlapped
+    schedule under ``"pipelined"``). The three score fields are then
+    all-gathered over ``mesh.lane_group``, so every rank returns the whole
+    wave's scores. Lane k draws from ``draws(k, k_pad)`` (default
+    ``seeded_draws(seed, ...)``), as in ``nmfk_score_batched``.
 
     Requires ``len(ks)`` divisible by the lane count (the planes pad the
     wave to a lane multiple) and, with ``data > 1``, V's rows divisible by
     the data count.
     """
-    from .distributed import COMM_MODES, ring_all_gather, shard_rows
+    from .distributed import check_comm, check_rows, ring_all_gather, shard_rows
 
-    if comm not in COMM_MODES:
-        raise ValueError(f"comm must be one of {COMM_MODES}, got {comm!r}")
+    check_comm(comm)
     ks = [int(k) for k in ks]
     _, _, k_pad = batched_lanes(ks, seed, k_pad, v.device)
-    lanes, data = mesh.lane_count, mesh.data_count
+    lanes, data = (mesh.lane_count, mesh.data_count) if mesh is not None else (1, 1)
     if len(ks) % lanes:
         raise ValueError(f"wave size {len(ks)} not divisible by lane count {lanes}")
-    if data > 1 and v.shape[0] % data:
-        raise ValueError(f"v rows {v.shape[0]} not divisible by data-axis size {data}")
+    check_rows(v, data)
     per = len(ks) // lanes
-    block = ks[mesh.lane_index * per:(mesh.lane_index + 1) * per]
+    lane_index = mesh.lane_index if mesh is not None else 0
+    block = ks[lane_index * per:(lane_index + 1) * per]
     if data == 1:
         sc = nmfk_score_batched(v, block, seed, k_pad, n_perturbs, nmf_iters, epsilon, draws)
     else:
+        ks_t = torch.tensor(block, device=v.device)
         n, m = v.shape
         source = draws if draws is not None else seeded_draws(seed, n, m, n_perturbs, epsilon, v.device)
-        v_l = shard_rows(v, mesh.data_group)
-        lane_scores = [_nmfk_score_masked_dist(v_l, k, source(k, k_pad), k_pad, mesh.data_group, comm, nmf_iters)
-                       for k in block]
-        sc = NMFkScore(*(torch.stack(field) for field in zip(*lane_scores)))
+        w_all, errs = _dist_fits(shard_rows(v, mesh.data_group), ks_t, stack_draws([source(k, k_pad) for k in block]),
+                                 k_pad, mesh.data_group, comm, nmf_iters)
+        sc = _pooled_w_score(w_all, errs, ks_t, k_pad)
+    if mesh is None:
+        return sc
     gathered = ring_all_gather(torch.stack(list(sc), dim=1), mesh.lane_group)  # (len(ks), 3)
     return NMFkScore(*gathered.unbind(dim=1))
 
@@ -395,18 +400,17 @@ def elastic_chunk_sharded(
     With one data shard (``data_group`` None or of one rank) the block is one
     batched ``elastic_chunk``. Otherwise vp (L, n_l, m) and w (L, n_l, k_pad)
     hold this rank's rows of each lane's perturbed V and W, h (L, k_pad, m)
-    is replicated over the group, and each lane runs
-    ``_dnmf_masked_chunk_local`` over ``data_group``: the Gram sums and the
-    residual are all-reduced, so the returned rel_error is the whole
-    lane's, equal on every rank of the group.
+    is replicated over the group, and the block runs as one batched
+    ``_dnmf_masked_chunk_local`` over ``data_group``: each sweep's Gram sums
+    (of every lane at once) and the residuals are all-reduced, so the
+    returned rel_error is each whole lane's, equal on every rank of the
+    group.
     """
     from .distributed import _dnmf_masked_chunk_local, _world
 
     if _world(data_group) == 1:
         return elastic_chunk(vp, w, h, k_eff, steps, k_pad, chunk)
-    lanes = [_dnmf_masked_chunk_local(vp[i], w[i], h[i], k_eff[i], k_pad, chunk, data_group, comm, steps[i])
-             for i in range(vp.shape[0])]
-    return tuple(torch.stack(part) for part in zip(*lanes))
+    return _dnmf_masked_chunk_local(vp, w, h, k_eff, k_pad, chunk, data_group, comm, steps)
 
 
 def elastic_pooled_score(

@@ -47,7 +47,7 @@ from repro_torch.obs import get_metrics, get_tracer
 from repro_torch.random import Draws, DrawSource, KMeansDrawSource, seeded_draws, seeded_kmeans_draws
 
 from .batching import WarmStartCache, bucket_batch, next_pow2, round_up_multiple
-from .distributed import COMM_MODES, overlap_model, ring_all_gather
+from .distributed import check_comm, check_rows, overlap_model, ring_all_gather
 from .kmeans import _kmeans_masked_assign, _kmeans_masked_chunk, _kmeans_masked_init, kmeans_batched
 from .nmf import _masked_init, _masked_sweeps
 from .nmfk import (
@@ -57,26 +57,15 @@ from .nmfk import (
     elastic_lane_init,
     elastic_lane_warm_init,
     elastic_pooled_score,
-    nmfk_score_batched,
     nmfk_score_sharded,
 )
-
-
-def _check_comm(comm: str) -> None:
-    if comm not in COMM_MODES:
-        raise ValueError(f"comm must be one of {COMM_MODES}, got {comm!r}")
-
-
-def _check_rows(v: torch.Tensor, data_count: int) -> None:
-    if data_count > 1 and v.shape[0] % data_count:
-        raise ValueError(f"v rows {v.shape[0]} not divisible by data-axis size {data_count}")
 
 
 class _BatchPlaneBase:
     """Shared padding / bucketing / accounting for the batched planes."""
 
     def __init__(self, k_pad: int | None, mesh=None, comm: str = "sync"):
-        _check_comm(comm)
+        check_comm(comm)
         self.k_pad = k_pad
         self.mesh = mesh
         self.comm = comm
@@ -114,6 +103,9 @@ class _BatchPlaneBase:
         get_metrics().observe("lane_utilization", util)
         self.shapes_dispatched.add((len(ks), k_pad))
         return ks, k_pad, n_real
+
+    def _lane_group(self):
+        return self.mesh.lane_group if self.mesh is not None else None
 
     def _dispatch_track(self) -> str:
         return "device:all" if self.mesh is not None else "device:0"
@@ -189,7 +181,7 @@ class NMFkBatchPlane(_BatchPlaneBase):
         super().__init__(k_pad, mesh, comm)
         if statistic not in ("min", "mean"):
             raise ValueError(f"statistic must be 'min' or 'mean', got {statistic!r}")
-        _check_rows(v, self.data_count)
+        check_rows(v, self.data_count)
         n, m = v.shape
         self.v = v
         self.nmf_iters = nmf_iters
@@ -265,11 +257,8 @@ class NMFkBatchPlane(_BatchPlaneBase):
         # the silhouette statistics.
         with tracer.span("fit", track=self._dispatch_track(), kind="nmfk",
                          ks=[int(k) for k in ks], batch=len(padded), k_pad=k_pad, comm=self.comm):
-            if self.mesh is not None:
-                sc = nmfk_score_sharded(self.v, padded, mesh=self.mesh, k_pad=k_pad, nmf_iters=self.nmf_iters,
-                                        comm=self.comm, draws=self.draws)
-            else:
-                sc = nmfk_score_batched(self.v, padded, k_pad=k_pad, nmf_iters=self.nmf_iters, draws=self.draws)
+            sc = nmfk_score_sharded(self.v, padded, mesh=self.mesh, k_pad=k_pad, nmf_iters=self.nmf_iters,
+                                    comm=self.comm, draws=self.draws)
             scores = sc.min_silhouette if self.statistic == "min" else sc.mean_silhouette
         with tracer.span("score", track=self._dispatch_track(), kind="nmfk", batch=len(padded)):
             out = [float(s) for s in scores[:n_real].tolist()]
@@ -366,9 +355,7 @@ class KMeansBatchPlane(_BatchPlaneBase):
         # x stays unbatched (n, d): the card's kernels read it once for every
         # lane, and the CPU tiers broadcast it against the batched labels
         with tracer.span("score", track=self._dispatch_track(), kind=self.score, batch=len(padded)):
-            scores = self._score(res.labels, block, k_pad)
-            if self.mesh is not None:
-                scores = ring_all_gather(scores, self.mesh.lane_group)
+            scores = ring_all_gather(self._score(res.labels, block, k_pad), self._lane_group())
             out = [float(s) for s in scores[:n_real].tolist()]
         self._emit_lane_spans(tracer, t0_us, padded, n_real, kind="kmeans")
         return out
@@ -474,7 +461,7 @@ class NMFkElasticPlane:
     ):
         if statistic not in ("min", "mean"):
             raise ValueError(f"statistic must be 'min' or 'mean', got {statistic!r}")
-        _check_comm(comm)
+        check_comm(comm)
         if k_pad is None:
             raise ValueError("NMFkElasticPlane needs an explicit k_pad (slots persist across ks)")
         if chunk < 1:
@@ -483,7 +470,7 @@ class NMFkElasticPlane:
         self.comm = comm
         self.lane_count = mesh.lane_count if mesh is not None else 1
         self.data_count = mesh.data_count if mesh is not None else 1
-        _check_rows(v, self.data_count)
+        check_rows(v, self.data_count)
         if slots is None:
             slots = round_up_multiple(next_pow2(max(2 * n_perturbs, self.lane_count)), self.lane_count)
         if slots < 1 or slots % self.lane_count:
@@ -527,7 +514,6 @@ class NMFkElasticPlane:
         self.n_ticks = 0
         self.shapes_dispatched: set[tuple[int, int]] = set()
         self.last_lane_occupancy: float | None = None
-        self.last_lane_utilization: float | None = None  # the batched planes' name for it
 
     # -- scheduler surface -------------------------------------------------------
     @property
@@ -604,7 +590,7 @@ class NMFkElasticPlane:
             for b in range(lanes) for j in range(per)
         ]
         occupancy = n_occ / batch
-        self.last_lane_occupancy = self.last_lane_utilization = occupancy
+        self.last_lane_occupancy = occupancy
         metrics.observe("lane_occupancy", occupancy)
         metrics.set_gauge("lane_occupancy", occupancy)
         with tracer.span(

@@ -227,7 +227,7 @@ def _run_search(args, ap, space, v, mesh, lead: bool):
             "lane_occupancy": plane.last_lane_occupancy,
         }
         if mesh is not None:
-            extra.update(_mesh_extra(plane, args.comm))
+            extra.update(_mesh_extra(plane, args.comm, plane.last_lane_occupancy))
         elif args.comm != "sync" and not quiet:
             print("note: --comm is ignored by the elastic executor without a mesh")
         return result, dt, extra
@@ -256,7 +256,7 @@ def _run_search(args, ap, space, v, mesh, lead: bool):
         dt = _wall(v.device) - t0
         extra = {"waves": sched.n_dispatches, "dispatched_shapes": sorted(plane.shapes_dispatched)}
         if mesh is not None:
-            extra.update(_mesh_extra(plane, args.comm))
+            extra.update(_mesh_extra(plane, args.comm, plane.last_lane_utilization))
         return result, dt, extra
     visited: set[int] = set()
     if args.journal:
@@ -280,10 +280,11 @@ def _run_search(args, ap, space, v, mesh, lead: bool):
     return result, dt, {"resources": args.resources, "distributed_fit": args.distributed_fit}
 
 
-def _mesh_extra(plane, comm: str) -> dict:
-    """The mesh entries of a sharded run's result."""
+def _mesh_extra(plane, comm: str, utilization: float | None) -> dict:
+    """The mesh entries of a sharded run's result (``utilization``: the last
+    dispatch's share of real lanes)."""
     extra = {"mesh": {"lanes": plane.lane_count, "data": plane.data_count},
-             "lane_utilization_last": plane.last_lane_utilization, "comm": comm}
+             "lane_utilization_last": utilization, "comm": comm}
     if comm == "pipelined" and plane.data_count > 1 and get_metrics().gauge("overlap_fraction") is not None:
         extra["overlap_fraction"] = get_metrics().gauge("overlap_fraction")
     return extra

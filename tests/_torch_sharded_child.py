@@ -26,6 +26,8 @@ LANE_MESHES = {1: [(1, 1)], 2: [(2, 1)], 4: [(4, 1)]}
 DATA_MESHES = {1: [], 2: [(1, 2)], 4: [(2, 2), (1, 4)]}
 ELASTIC_DATA_MESHES = [(1, 2), (2, 2)]  # the data-sharded elastic plane runs sync on these
 MESH_SHAPES = {1: [(1, 1), (None, 1)], 2: [(2, 1), (1, 2), (None, 2)], 4: [(4, 1), (2, 2), (1, 4), (None, 2)]}
+# lanes of one batched data-sharded chunk: their k_eff and sweeps (the second lane is padding)
+CHUNK_KEFF, CHUNK_STEPS = [4, 2, 9], [7, 0, 10]
 BAD_MESHES = {1: [], 2: [(1, 1), (None, 3)], 4: [(1, 2), (3, 1), (4, 2), (None, 3)]}
 
 
@@ -56,12 +58,13 @@ def _rank_main(rank: int, world: int, inputs: str, outdir: str) -> None:
     import torch.distributed as dist
 
     from repro_torch.core import binary_bleed_search
-    from repro_torch.factorization.distributed import shard_rows
+    from repro_torch.factorization.distributed import _dnmf_masked_chunk_local, _rows, shard_rows
     from repro_torch.factorization.nmfk import _dist_fits, _nmfk_score_masked_dist, nmfk_score_batched, nmfk_score_sharded
     from repro_torch.factorization.planes import KMeansBatchPlane, NMFkBatchPlane, NMFkElasticPlane
     from repro_torch.factorization.synthetic import blob_data
     from repro_torch.launch import ksearch
     from repro_torch.launch.mesh import make_wave_mesh
+    from repro_torch.random import stack_draws
 
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=(Path(outdir) / "store").as_uri(), world_size=world, rank=rank)
@@ -139,12 +142,26 @@ def _rank_main(rank: int, world: int, inputs: str, outdir: str) -> None:
                     # the data-sharded body at this mesh's data count, one lane
                     v_l = shard_rows(v, mesh.data_group)
                     k, draws = cfg["k_true"], ref_source(cfg["k_true"], cfg["k_pad"])
-                    w_all, errs = _dist_fits(v_l, k, draws, cfg["k_pad"], mesh.data_group, "sync", cfg["iters"])
-                    out.update({f"dist{data}_sync_w": w_all, f"dist{data}_sync_errs": errs,
-                                f"dist{data}_sync_contiguous": torch.tensor(w_all.is_contiguous())})
                     for comm in ("sync", "pipelined"):
+                        w_all, errs = _dist_fits(v_l, torch.tensor([k]), stack_draws([draws]), cfg["k_pad"],
+                                                 mesh.data_group, comm, cfg["iters"])
+                        out.update({f"dist{data}_{comm}_w": w_all[0], f"dist{data}_{comm}_errs": errs[0],
+                                    f"dist{data}_{comm}_contiguous": torch.tensor(w_all.is_contiguous())})
                         sc = _nmfk_score_masked_dist(v_l, k, draws, cfg["k_pad"], mesh.data_group, comm, cfg["iters"])
                         out.update({f"dist{data}_{comm}_{i}": field for i, field in enumerate(sc)})
+                        # a chunk of three lanes at once against each lane alone
+                        lanes = (v_l * _rows(draws.noise, v_l.shape[0], mesh.data_group),
+                                 _rows(draws.w, v_l.shape[0], mesh.data_group), draws.h,
+                                 torch.tensor(CHUNK_KEFF), torch.tensor(CHUNK_STEPS))
+                        together = _dnmf_masked_chunk_local(*lanes[:4], cfg["k_pad"], cfg["el_chunk"],
+                                                            mesh.data_group, comm, lanes[4])
+                        alone = [_dnmf_masked_chunk_local(*(part[i] for part in lanes[:4]), cfg["k_pad"],
+                                                          cfg["el_chunk"], mesh.data_group, comm, lanes[4][i])
+                                 for i in range(len(CHUNK_STEPS))]
+                        for name, got, want in zip(("w", "h", "err"), together, zip(*alone)):
+                            out[f"chunk{data}_{comm}_together_{name}"] = got
+                            out[f"chunk{data}_{comm}_alone_{name}"] = torch.stack(want)
+                        out[f"chunk{data}_{comm}_w0"] = lanes[1]
 
         # the k-search CLI: every rank runs it, rank 0 alone prints
         printed = io.StringIO()
