@@ -27,6 +27,12 @@ Phases, each fatal on failure:
      the LM's prefill and greedy decode (qwen2-0.5b at full width cut to 2
      layers; reduced h2o-danube, whose window bites) on the card against the
      same computation on the CPU (plain versions, same draws and weights);
+     LM training at the same cut (B 2, L 32): the loss and every parameter's
+     gradient against the CPU's (each nonzero on the card), remat ``full``
+     and ``dots`` against ``none``, 2 microbatches against 1, one AdamW step
+     on the same gradients, a bitwise checkpoint round trip of (params, opt
+     state), no flash launch, and the flash wrapper refusing an operand that
+     requires grad;
      then RESCAL and RESCALk (96 entities, 3 relations, k 2..6) and the
      distributed fits on a one-rank NCCL group (``distributed_nmf`` sync and
      pipelined, bitwise equal at one rank; ``distributed_rescal``; the
@@ -64,7 +70,12 @@ Phases, each fatal on failure:
      with qwen2-0.5b at its published widths (24 layers, random weights from
      seed 0), 4 prompts of 1000 tokens, 32 new tokens: one flash launch per
      layer, finite logits, and decode-step logits (plain attention over the
-     cache) matching a flash prefill of the extended sequence.
+     cache) matching a flash prefill of the extended sequence; then the
+     port's ``train`` with qwen2-0.5b at its published widths (24 layers,
+     fp32, random weights from seed 0), 12 steps of B 8, L 64 in 2
+     microbatches: finite losses and gradient norms, the last loss below the
+     first, no kernel launch (training takes plain attention), the median
+     step time, tokens/s and peak memory logged (``qwen2_train``).
 
 The second-to-last line is ``{"kernels": [...]}`` and the last line is
 ``{"ok": true, "device": {...}}``. Without a card, or outside a checkout of
@@ -133,6 +144,22 @@ SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT, SERVE_TOKENS = "qwen2-0.5b", 4, 1000, 32
 SERVE_ARGS = ["--arch", SERVE_ARCH, "--no-reduced", "--batch", str(SERVE_BATCH),
               "--prompt-len", str(SERVE_PROMPT), "--tokens", str(SERVE_TOKENS),
               "--device", "cuda", "--seed", "0", "--quiet"]
+
+# training, card vs CPU (qwen2-0.5b at full width cut to 2 layers, B 2, L 32,
+# the same weights): fp32 with TF32 off, so only reduction orders differ.
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_NORM_RTOL = 1e-4  # ||g_card - g_cpu|| / ||g_cpu||, each parameter
+# one AdamW step on the same gradients: the same float32 arithmetic; the
+# global norm summed in another order moves the clip factor by ~1e-7
+ADAMW_TOL = dict(rtol=1e-5, atol=1e-9)
+MICRO_LOSS_ATOL, MICRO_PARAM_ATOL = 1e-4, 2e-4  # tests/test_train.py::test_microbatching_matches_single_batch
+
+# the training path: qwen2-0.5b at its published widths (24 layers, fp32),
+# random weights from seed 0, 12 steps of B 8, L 64 in 2 microbatches
+TRAIN_ARCH, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO = "qwen2-0.5b", 12, 8, 64, 2
+TRAIN_ARGS = ["--arch", TRAIN_ARCH, "--no-reduced", "--steps", str(TRAIN_STEPS), "--batch", str(TRAIN_BATCH),
+              "--seq", str(TRAIN_SEQ), "--microbatches", str(TRAIN_MICRO), "--lr", "1e-3", "--device", "cuda",
+              "--seed", "0", "--quiet"]
 
 PAPER_ARGS = ["--n", "1000", "--m", "1100", "--k-true", "8", "--k-max", "16",
               "--n-perturbs", "4", "--nmf-iters", "120", "--device", "cuda", "--quiet"]
@@ -1150,6 +1177,166 @@ def check_lm_small(torch, dev, ops, log) -> None:
         del card_model, c_card
 
 
+def _loss_and_grads(torch, model, batch):
+    """The loss and every parameter's gradient, by parameter name."""
+    model.params.requires_grad_(True)
+    names, leaves = zip(*model.params.named_parameters())
+    loss = model.loss_fn(batch)
+    return loss.detach(), dict(zip(names, torch.autograd.grad(loss, leaves)))
+
+
+def check_train_small(torch, dev, ops, log) -> None:
+    """Training on the card against the CPU: qwen2-0.5b at full width
+    (vocab 151,936) cut to 2 layers, B 2, L 32, the same weights and batch.
+    The loss, and every parameter's gradient (nonzero on the card); remat
+    ``full`` and ``dots`` against ``none``, bit for bit wherever two
+    ``none`` runs are; 2 microbatches against 1; one AdamW step on the same
+    gradients; a bitwise checkpoint round trip of (params, opt state). No
+    flash launch, and the flash wrapper refuses an operand that requires
+    grad."""
+    import tempfile
+
+    from repro_torch.checkpoint import checkpointer as ckpt
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.data.pipeline import SyntheticTokenSource, device_put_batch
+    from repro_torch.models.transformer import Model
+    from repro_torch.train.optimizer import AdamWConfig, adamw_update, init_opt_state
+    from repro_torch.train.train_step import TrainConfig, make_train_step
+
+    cfg = dataclasses.replace(get_config("qwen2-0.5b"), num_layers=2)
+    cpu = torch.device("cpu")
+    cpu_model = Model(cfg, remat="none")
+    cpu_model.init(torch.Generator().manual_seed(0))
+    batch_np = SyntheticTokenSource(cfg, ShapeConfig("smoke", 32, 2, "train")).batch_at(0)
+    loss_cpu, g_cpu = _loss_and_grads(torch, cpu_model, device_put_batch(batch_np, cpu))
+    batch = device_put_batch(batch_np, dev)
+
+    def card_model(remat: str = "none") -> "Model":
+        m = Model(cfg, remat=remat)
+        m.params = copy.deepcopy(cpu_model.params).to(dev)
+        return m
+
+    ops.reset_launch_counts()
+    runs = {name: _loss_and_grads(torch, card_model(name.split()[0]), batch)
+            for name in ("none", "none again", "full", "dots")}
+    loss, grads = runs["none"]
+    loss_gap = abs(float(loss) - float(loss_cpu)) / abs(float(loss_cpu))
+    if not math.isfinite(float(loss)) or loss_gap > TRAIN_LOSS_RTOL:
+        raise AssertionError(f"train: card loss {float(loss)} against the CPU's {float(loss_cpu)}")
+    worst = 0.0
+    for name, g in grads.items():
+        if not bool(torch.isfinite(g).all()) or float(g.abs().max()) == 0.0:
+            raise AssertionError(f"train: the card's gradient of {name} is zero or not finite")
+        want = g_cpu[name].to(dev)
+        gap = float(torch.linalg.norm(g - want) / torch.linalg.norm(want))
+        worst = max(worst, gap)
+        if gap > TRAIN_GRAD_NORM_RTOL:
+            raise AssertionError(f"train: gradient of {name}: relative norm error {gap:.3e} against the CPU's")
+    bitwise = {}
+    for name in ("none again", "full", "dots"):
+        l_r, g_r = runs[name]
+        bitwise[name] = bool(torch.equal(l_r, loss)) and all(torch.equal(g_r[k], grads[k]) for k in grads)
+        gap = max(float(torch.linalg.norm(g_r[k] - grads[k]) / torch.linalg.norm(grads[k])) for k in grads)
+        if gap > TRAIN_GRAD_NORM_RTOL or (bitwise["none again"] and not bitwise[name]):
+            raise AssertionError(f"train: remat {name} differs from none (relative norm error {gap:.3e}; "
+                                 f"two none runs bitwise: {bitwise['none again']})")
+    del runs
+
+    opt_cfg = AdamWConfig(lr=1e-3, weight_decay=0.0)
+    micro = []
+    for n in (1, 2):
+        m = card_model()
+        step = make_train_step(m, TrainConfig(opt=opt_cfg, microbatches=n))
+        p, _, metrics = step(m.params, init_opt_state(m.params, opt_cfg), batch)
+        micro.append((float(metrics["loss"]), p))
+    loss_gap_micro = abs(micro[0][0] - micro[1][0])
+    with torch.no_grad():
+        param_gap_micro = max(float((a - b).abs().max())
+                              for a, b in zip(micro[0][1].parameters(), micro[1][1].parameters()))
+    if loss_gap_micro > MICRO_LOSS_ATOL or param_gap_micro > MICRO_PARAM_ATOL:
+        raise AssertionError(f"train: 2 microbatches against 1: loss gap {loss_gap_micro:.3e}, params {param_gap_micro:.3e}")
+    del micro, m, p
+
+    adamw_cfg = AdamWConfig(lr=1e-3)
+    params_cpu = copy.deepcopy(cpu_model.params)
+    params = copy.deepcopy(cpu_model.params).to(dev)
+    _, st_cpu, met_cpu = adamw_update(params_cpu, g_cpu, init_opt_state(params_cpu, adamw_cfg), adamw_cfg)
+    _, st, met = adamw_update(params, {k: g.to(dev) for k, g in g_cpu.items()}, init_opt_state(params, adamw_cfg),
+                              adamw_cfg)
+    adamw_gap = max(
+        [compare(torch, a.cpu(), b, what=f"adamw: {n}", **ADAMW_TOL)
+         for (n, a), b in zip(params.named_parameters(), params_cpu.parameters())]
+        + [compare(torch, st.m[k].cpu(), st_cpu.m[k], what=f"adamw: m of {k}", **ADAMW_TOL) for k in st.m]
+        + [compare(torch, st.v[k].cpu(), st_cpu.v[k], what=f"adamw: v of {k}", **ADAMW_TOL) for k in st.v])
+
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        ckpt.save(root, 1, (params, st))
+        (got_p, got_st), step = ckpt.restore(root, (params, st))
+        ckpt_s = time.perf_counter() - t0
+    same = (step == 1 and torch.equal(got_st.step, st.step)
+            and all(a.device == b.device and torch.equal(a, b) for a, b in zip(got_p.parameters(), params.parameters()))
+            and all(torch.equal(got_st.m[k], st.m[k]) and torch.equal(got_st.v[k], st.v[k]) for k in st.m))
+    if not same:
+        raise AssertionError("train: the checkpoint round trip of (params, opt state) is not bitwise")
+
+    q = torch.zeros((1, 2, 8, 16), device=dev, requires_grad=True)
+    try:
+        ops.flash_attention(q, q[:, :1].detach(), q[:, :1].detach())
+    except RuntimeError as e:
+        if "no backward" not in str(e):
+            raise
+    else:
+        raise AssertionError("train: the flash wrapper took an operand that requires grad")
+    flash = ops.launch_counts()["flash_attention"]
+    if flash:
+        raise AssertionError(f"train: {flash} flash launches in the training checks")
+    log(json.dumps({"check": "train card vs plain: qwen2-0.5b, full width, 2 layers", "batch": 2, "seq": 32,
+                    "loss": float(loss), "loss_rel_gap": loss_gap, "grad_worst_rel_norm_err": worst,
+                    "params_with_grad": len(grads), "bitwise_vs_none": bitwise,
+                    "microbatch_loss_gap": loss_gap_micro, "microbatch_param_gap": param_gap_micro,
+                    "adamw_max_abs_err": adamw_gap, "grad_norm": float(met["grad_norm"]),
+                    "grad_norm_cpu": float(met_cpu["grad_norm"]), "checkpoint_roundtrip_s": ckpt_s,
+                    "flash_launches": flash, "flash_guard": "raised"}))
+    del params, params_cpu, st, st_cpu, got_p, got_st, cpu_model
+
+
+def run_train(torch, dev, ops, train, log) -> dict[str, int]:
+    """The training path at full width; counts reset just before, read just after."""
+    import statistics
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(TRAIN_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    out = train.main(TRAIN_ARGS)
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses, norms, walls = out["losses"], out["grad_norms"], out["step_seconds"]
+    median = statistics.median(walls)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    n_params = sum(p.numel() for p in out["params"].parameters())
+    # matmul work of a step: 6 flops a parameter a token (forward and backward; the tied table is the LM head)
+    bound, bound_by = bound_ms(0, 6 * n_params * tokens)
+    log(json.dumps({"train": f"{TRAIN_ARCH} full width", "layers": cfg.num_layers, "params": n_params,
+                    "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "microbatches": TRAIN_MICRO, "steps": len(losses),
+                    "losses": losses, "grad_norms": norms, "step_seconds": walls, "median_step_s": median,
+                    "tokens_per_s_median": tokens / median, "tokens_per_s": out["tokens_per_s"],
+                    "step_bound_ms": bound, "step_bound_by": bound_by, "max_memory_allocated": peak,
+                    "launches": counts, "card": smi_line()}))
+    if len(losses) != TRAIN_STEPS or not all(math.isfinite(x) for x in losses + norms):
+        raise AssertionError(f"train: losses {losses}, grad norms {norms}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train: the loss did not fall: {losses[0]} -> {losses[-1]}")
+    if not all(bool(torch.isfinite(p).all()) for p in out["params"].parameters()):
+        raise AssertionError("train: non-finite parameters after training")
+    if any(counts.values()):
+        raise AssertionError(f"train: kernel launches on the training path: {counts}")
+    del out
+    return counts
+
+
 def run_serve(torch, dev, ops, serve, log) -> dict[str, int]:
     """The serve path at full width; counts reset just before, read just
     after. Then a teacher-forced check with the same weights: decode-step
@@ -1263,7 +1450,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.device import resolve
     from repro_torch.kernels import build, ops, ref
-    from repro_torch.launch import ksearch, serve
+    from repro_torch.launch import ksearch, serve, train
 
     def log(line: str) -> None:
         print(line, flush=True)
@@ -1294,6 +1481,7 @@ def main() -> int:
     check_nmfk_elastic_small(torch, dev, ops, log)
     check_kmeans_small(torch, dev, ops, log)
     check_lm_small(torch, dev, ops, log)
+    check_train_small(torch, dev, ops, log)
     check_rescal_small(torch, dev, ops, log)
     check_distributed_small(torch, dev, ops, log)
     check_sharded_small(torch, dev, ops, log)
@@ -1310,6 +1498,7 @@ def main() -> int:
     by_path.update(run_rescalk_searches(torch, dev, ops, log))
     by_path.update({f"kmeans_{ex}": run_kmeans_search(torch, dev, ops, ex, log) for ex in ("threads", "batched")})
     by_path["serve"] = run_serve(torch, dev, ops, serve, log)
+    by_path["qwen2_train"] = run_train(torch, dev, ops, train, log)
 
     kernels = []
     for name, (source, replaces) in SOURCES.items():

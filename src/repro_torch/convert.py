@@ -4,7 +4,8 @@ NMF, RESCAL and K-Means have no trained weights; what crosses from the
 JAX reference to the port is data: the matrix V, the tensor X or the points
 x (``to_tensor``), the random draws of an NMFk or RESCALk ensemble or of a
 k-means++ init, and W/H factors. The LM's parameter tree crosses whole
-(``model_params_from_reference``). Each comes in as a numpy-convertible
+(``model_params_from_reference``), and so does an AdamW state
+(``opt_state_from_reference``). Each comes in as a numpy-convertible
 array (never a JAX object: the port imports no JAX) and leaves as a tensor
 on ``device`` (default: the card), float32 except for indices.
 """
@@ -19,6 +20,7 @@ from repro_torch.device import resolve
 from repro_torch.models.layers import frozen
 from repro_torch.models.transformer import build_segments
 from repro_torch.random import Draws, KMeansDraws, RESCALDraws
+from repro_torch.train.optimizer import OptState
 
 
 def to_tensor(array, device: str | torch.device | None = None) -> torch.Tensor:
@@ -87,3 +89,37 @@ def model_params_from_reference(params, cfg: ArchConfig, device: str | torch.dev
         stacked = params[f"seg{si}"]
         out[f"seg{si}"] = nn.ModuleList(_tree(stacked, dev, r) for r in range(seg.repeat))
     return nn.ModuleDict(out)
+
+
+def reference_leaf(tree, name: str):
+    """The array of the reference's parameter-shaped tree (parameters,
+    gradients, AdamW moments) at the port's parameter name:
+    ``seg{i}.{r}.l{j}.mixer.wq`` is ``tree["seg{i}"]["l{j}"]["mixer"]["wq"][r]``."""
+    parts = name.split(".")
+    if parts[0].startswith("seg"):
+        node = tree[parts[0]]
+        for p in parts[2:]:
+            node = node[p]
+        return np.asarray(node)[int(parts[1])]
+    node = tree
+    for p in parts:
+        node = node[p]
+    return np.asarray(node)
+
+
+def opt_state_from_reference(opt_state, names, device: str | torch.device | None = None) -> OptState:
+    """The port's ``OptState`` from the reference's ``(step, m, v)``: the moments
+    of each parameter in ``names`` (the port's ``named_parameters()`` names),
+    in their stored dtype (float32 or bfloat16), and the step as int32."""
+    dev = resolve(device)
+
+    def tensor(a) -> torch.Tensor:
+        t = torch.tensor(np.asarray(a, dtype=np.float32), device=dev)
+        return t.to(torch.bfloat16) if str(np.asarray(a).dtype) == "bfloat16" else t
+
+    step, m, v = opt_state
+    return OptState(
+        step=torch.tensor(int(np.asarray(step)), dtype=torch.int32, device=dev),
+        m={n: tensor(reference_leaf(m, n)) for n in names},
+        v={n: tensor(reference_leaf(v, n)) for n in names},
+    )

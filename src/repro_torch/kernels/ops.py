@@ -466,7 +466,8 @@ def flash_attention(
     ``scale`` defaults to D^-0.5 and multiplies q.k. Causal or windowed
     attention takes Lq == Lk only (query row i is position i, as in the TPU
     kernel). On the card the operands may be strided views (unit stride along
-    D); the output has q's layout.
+    D); the output has q's layout. The kernel has no backward, so on the card
+    it raises when grad mode is on and an operand requires grad.
     """
     if not q.dim() == k.dim() == v.dim() == 4:
         raise ValueError("flash_attention takes 4-D (B, H, L, D) operands")
@@ -484,6 +485,12 @@ def flash_attention(
     scale = float(scale if scale is not None else d**-0.5)
     if not _on_card(q, k, v, contiguous=False):
         return ref.attention(q, k, v, causal=causal, window=window, scale=scale)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "the flash-attention kernel has no backward: its output would drop the gradients of q, k "
+            "and v; train through the plain attention (gqa_forward(use_flash=False)) or call it under "
+            "torch.no_grad()"
+        )
     if not 1 <= d <= MAX_HEAD_DIM:
         raise ValueError(f"the flash-attention kernel takes head dim 1..{MAX_HEAD_DIM}, got {d}")
     if min(b, lq, lk) < 1 or max(b, hq) > MAX_GRID_YZ:

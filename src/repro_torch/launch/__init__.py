@@ -1,1 +1,1 @@
-"""Entry points of the port: the k-search and LM serving launchers."""
+"""Entry points of the port: the k-search, LM serving and LM training launchers."""

@@ -1,11 +1,12 @@
 """GQA attention mixer (+RoPE, sliding window, QKV bias): full-sequence,
 prefill and KV-cache decode paths.
 
-The device decides the prefill attention: on a CUDA tensor ``gqa_forward``
-and ``gqa_prefill`` run the hand-written flash-attention kernel
-(``kernels.ops.flash_attention``, the counterpart of the reference's
-``use_flash=True``); on a CPU tensor they run the plain ``_sdpa_auto``, as
-the reference's prefill always does. Decode attends one query row against
+The serve prefill (``gqa_prefill``) runs the hand-written flash-attention
+kernel (``kernels.ops.flash_attention``) on a CUDA tensor and the plain
+``_sdpa_auto`` on a CPU tensor. ``gqa_forward`` does the same with
+``use_flash=True``; with ``use_flash=False`` (the default, as in the
+reference, and what training takes) it runs ``_sdpa_auto`` on every
+device: the kernel has no backward. Decode attends one query row against
 the masked cache with the plain ``_sdpa`` on every device.
 
 Windowed archs keep (k, v) in a ring buffer of ``min(window, cache_len)``
@@ -13,7 +14,7 @@ slots, entry at absolute position p in slot ``p % s``. ``gqa_decode``
 writes the new entry into the cache in place (the reference returns an
 updated copy) and returns the same cache.
 
-MLA (DeepSeek-V2) is not ported yet (ROADMAP Queue 1 item 15).
+MLA (DeepSeek-V2) is not ported yet (ROADMAP Queue 1 M4).
 """
 from __future__ import annotations
 
@@ -155,15 +156,21 @@ def _project_qkv(params, x: torch.Tensor, cfg: ArchConfig):
 
 
 def gqa_forward(
-    params, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor | None = None
+    params, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor | None = None,
+    use_flash: bool = False,
 ) -> torch.Tensor:
-    """Full-sequence causal attention of x (B, L, d)."""
+    """Full-sequence causal attention of x (B, L, d). ``use_flash``: the
+    flash kernel on the card (``_attend``), which has no backward; else the
+    differentiable ``_sdpa_auto`` on every device."""
     l = x.shape[1]
     positions = torch.arange(l, device=x.device) if positions is None else positions
     q, k, v = _project_qkv(params, x, cfg)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
-    out = _attend(q, k, v, cfg.window)
+    if use_flash:
+        out = _attend(q, k, v, cfg.window)
+    else:
+        out = _sdpa_auto(q, k, v, causal=True, window=cfg.window)
     return torch.einsum("blhk,hkd->bld", out, params["wo"])
 
 

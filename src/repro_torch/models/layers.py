@@ -4,8 +4,9 @@ embedding and LM head.
 Parameters live in ``nn.ParameterDict``s (nested in ``nn.ModuleDict``s)
 under the reference's names and einsum layouts, so the functions read like
 the reference's (``rmsnorm(params["norm1"], x)``) and a reference parameter
-tree converts by copying (``repro_torch.convert``). Serving is inference
-only: every parameter is created with ``requires_grad=False``.
+tree converts by copying (``repro_torch.convert``). Every parameter is
+created with ``requires_grad=False``, as serving wants it; training turns
+gradients on for the tree it trains (``train.train_step``).
 
 The reference's sharding helpers (``Axes``, ``shard``, the ``*_specs``
 functions) have no counterpart: on one card they are no-ops.
@@ -88,3 +89,13 @@ def lm_logits(params, x: torch.Tensor) -> torch.Tensor:
     else:
         logits = x @ params["table"].to(x.dtype).T
     return logits.float()
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, ignore_id: int = -1) -> torch.Tensor:
+    """Mean token NLL; labels == ignore_id are masked."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.clamp(min=0).long()[..., None])[..., 0]
+    nll = logz - gold
+    mask = (labels != ignore_id).float()
+    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)

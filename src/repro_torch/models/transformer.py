@@ -8,23 +8,30 @@ loop walks it. Parameters keep the reference's names:
 ``params["seg{i}"][r]["l{j}"]["mixer"]["wq"]`` is the reference's
 ``params["seg{i}"]["l{j}"]["mixer"]["wq"][r]``.
 
-Ported: the attention mixer (GQA) and the dense SwiGLU FFN. MLA, Mamba,
-RWKV and MoE raise ``NotImplementedError`` (ROADMAP Queue 1 item 15), and
-so does nothing else silently run in their place. Training (``loss_fn``,
-``cross_entropy``, remat) is not ported yet either.
+Ported: the attention mixer (GQA) and the dense SwiGLU FFN, for serving
+(``backbone``, ``prefill``, ``decode_step``, under ``inference_mode``) and
+for training (``loss_fn``: the same layers with autograd on, rematerialized
+as the reference's ``remat`` / ``remat_group`` ask, through
+``torch.utils.checkpoint``). MLA, Mamba and RWKV (ROADMAP Queue 1 M4) and
+the MoE FFN (M3) raise ``NotImplementedError``, and nothing else silently
+runs in their place.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch.configs.base import ArchConfig
 from . import attention as attn
-from .layers import embed_tokens, embedding_init, lm_logits, mlp, mlp_init, rmsnorm, rmsnorm_init
+from .layers import cross_entropy, embed_tokens, embedding_init, lm_logits, mlp, mlp_init, rmsnorm, rmsnorm_init
 
-_UNPORTED = "is not ported yet (ROADMAP Queue 1 item 15)"
+_UNPORTED_MOE = "is not ported yet (ROADMAP Queue 1 M3)"
+_UNPORTED = "is not ported yet (ROADMAP Queue 1 M4)"
+REMAT = ("none", "full", "dots")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,7 +92,7 @@ def check_ported(cfg: ArchConfig, desc: LayerDesc) -> None:
     if desc.mixer == "r" or desc.ffn == "rwkv":
         raise NotImplementedError(f"{cfg.name}: the RWKV time and channel mix {_UNPORTED}")
     if desc.ffn == "moe":
-        raise NotImplementedError(f"{cfg.name}: the MoE FFN {_UNPORTED}")
+        raise NotImplementedError(f"{cfg.name}: the MoE FFN {_UNPORTED_MOE}")
     if desc.mixer != "a" or desc.ffn != "dense":
         raise NotImplementedError(f"{cfg.name}: layer {desc} {_UNPORTED}")
 
@@ -103,10 +110,11 @@ def layer_init(gen: torch.Generator, cfg: ArchConfig, desc: LayerDesc, dtype=tor
     })
 
 
-def layer_forward(params, x: torch.Tensor, cfg: ArchConfig, desc: LayerDesc) -> torch.Tensor:
+def layer_forward(params, x: torch.Tensor, cfg: ArchConfig, desc: LayerDesc,
+                  use_flash: bool = False) -> torch.Tensor:
     """Full-sequence layer."""
     h = rmsnorm(params["norm1"], x, cfg.norm_eps)
-    x = x + attn.gqa_forward(params["mixer"], h, cfg)
+    x = x + attn.gqa_forward(params["mixer"], h, cfg, use_flash=use_flash)
     h2 = rmsnorm(params["norm2"], x, cfg.norm_eps)
     return x + mlp(params["ffn"], h2)
 
@@ -139,18 +147,59 @@ def layer_prefill(params, x: torch.Tensor, cfg: ArchConfig, desc: LayerDesc,
 
 
 # -----------------------------------------------------------------------------
+# remat
+# -----------------------------------------------------------------------------
+def _dots_policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """Save the outputs of matmuls without batch dims, recompute the rest:
+    the counterpart of ``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``.
+    ``torch.einsum`` runs a contraction without batch dims (the QKV and
+    output projections) as ``aten.bmm`` over a batch of 1."""
+    aten = torch.ops.aten
+    if op in (aten.mm.default, aten.addmm.default) or (op is aten.bmm.default and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_dots_contexts = functools.partial(create_selective_checkpoint_contexts, _dots_policy)
+
+
+def _remat(fn, remat: str):
+    """``fn`` (x -> x) checkpointed as ``remat`` asks: ``"full"`` keeps only
+    its input and recomputes the rest in the backward, ``"dots"`` also keeps
+    its batch-free matmuls, ``"none"`` keeps everything."""
+    if remat == "full":
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    if remat == "dots":
+        return functools.partial(checkpoint, fn, use_reentrant=False, context_fn=_dots_contexts)
+    return fn
+
+
+# -----------------------------------------------------------------------------
 # the model
 # -----------------------------------------------------------------------------
 class Model(nn.Module):
     """The decoder bound to a config. ``init(generator)`` draws the
     parameters on the generator's device; a converted parameter tree can be
     assigned to ``params`` instead. Every method runs on the parameters'
-    device, without autograd."""
+    device; only ``loss_fn`` records autograd.
 
-    def __init__(self, cfg: ArchConfig, dtype=torch.float32):
+    ``remat`` (``"full"``, ``"dots"``, ``"none"``) and ``remat_group`` are
+    the reference's: with ``remat_group = g`` each segment checkpoints
+    groups of the largest divisor of its repeat count that is <= g, with a
+    per-repeat checkpoint inside each group. ``use_flash`` runs the full-
+    sequence forward through the flash kernel on the card, which has no
+    backward; training keeps the default, plain attention."""
+
+    def __init__(self, cfg: ArchConfig, dtype=torch.float32, remat: str = "full", remat_group: int = 1,
+                 use_flash: bool = False):
         super().__init__()
+        if remat not in REMAT:
+            raise ValueError(f"remat must be one of {REMAT}, got {remat!r}")
         self.cfg = cfg
         self.dtype = dtype
+        self.remat = remat
+        self.remat_group = max(1, remat_group)
+        self.use_flash = use_flash
         self.segments = build_segments(cfg)
         assert sum(s.repeat * len(s.layers) for s in self.segments) == cfg.num_layers
         for seg in self.segments:
@@ -187,13 +236,53 @@ class Model(nn.Module):
                     yield rep[f"l{i}"], d, si, r, f"l{i}"
 
     # ---- forward --------------------------------------------------------------
-    @torch.inference_mode()
-    def backbone(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        """(B, L, d) -> (hidden, moe_aux); aux is 0 (no MoE layer is ported)."""
-        for params, d, *_ in self._layers():
-            x = layer_forward(params, x, self.cfg, d)
+    def _repeat(self, seg: Segment, rep: nn.ModuleDict, x: torch.Tensor) -> torch.Tensor:
+        """One repeat of a segment: its layers in order."""
+        for i, d in enumerate(seg.layers):
+            x = layer_forward(rep[f"l{i}"], x, self.cfg, d, self.use_flash)
+        return x
+
+    def _group(self, seg: Segment, reps: list[nn.ModuleDict], x: torch.Tensor) -> torch.Tensor:
+        """Several repeats, each checkpointed on its own (the reference's
+        nested remat: the group's checkpoint bounds the stash, the inner ones
+        the group's backward working set)."""
+        for rep in reps:
+            x = checkpoint(functools.partial(self._repeat, seg, rep), x, use_reentrant=False)
+        return x
+
+    def hidden(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """(B, L, d) -> (final-normed hidden, moe_aux); aux is 0 (no MoE layer
+        is ported). Where autograd records, each segment runs in checkpointed
+        groups as ``remat`` and ``remat_group`` ask; elsewhere straight."""
+        grad = torch.is_grad_enabled()
+        for si, seg in enumerate(self.segments):
+            reps = list(self.params[f"seg{si}"])
+            if not grad:
+                for rep in reps:
+                    x = self._repeat(seg, rep, x)
+                continue
+            # largest divisor of the stack depth <= requested group size
+            g = max(d for d in range(1, self.remat_group + 1) if seg.repeat % d == 0)
+            for r in range(0, seg.repeat, g):
+                if g == 1:
+                    body = functools.partial(self._repeat, seg, reps[r])
+                else:
+                    body = functools.partial(self._group, seg, reps[r : r + g])
+                x = _remat(body, self.remat)(x)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         return rmsnorm(self.params["final_norm"], x, self.cfg.norm_eps), aux
+
+    @torch.inference_mode()
+    def backbone(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """(B, L, d) -> (hidden, moe_aux), for serving."""
+        return self.hidden(x)
+
+    def loss_fn(self, batch: dict[str, torch.Tensor]) -> torch.Tensor:
+        """Mean next-token NLL of ``batch`` (``tokens``, ``labels``, and
+        ``embeds`` for an embeddings arch) plus the MoE aux loss; autograd
+        records it wherever grad mode is on."""
+        h, aux = self.hidden(self.embed_input(batch))
+        return cross_entropy(self.logits(h), batch["labels"]) + aux
 
     def embed_input(self, batch: dict[str, torch.Tensor]) -> torch.Tensor:
         if self.cfg.input_mode == "embeddings" and "embeds" in batch:

@@ -155,9 +155,14 @@ def test_rescalk_scores_stable_at_k_true():
 @pytest.mark.parametrize("resources", [1, 3])  # serial worklist, threads
 def test_binary_bleed_over_rescalk_finds_k_true(resources):
     """``benchmarks/bench_distributed.py``'s RESCAL setup (4 relations,
-    k_true 4, noise 0.003, select 0.8, stop 0.25) at 48 entities."""
+    k_true 4, noise 0.003, select 0.8, stop 0.25) at 48 entities. The serial
+    search's visits are deterministic, so it is held to pruning; the
+    threads' depend on when a select lands against the ks still to hand
+    out, so they are held to k_optimal only (the threads executor's pruning
+    is held by ``tests/test_torch_search.py``'s blocking-scorer test)."""
     x, _, _ = rescal_data(n_entities=48, n_relations=4, k_true=4, noise=0.003, seed=0, device="cpu")
     evaluate = tr.make_rescalk_evaluator(x, seed=0, n_perturbs=3, iters=100)
     res = binary_bleed_search(evaluate, (2, 9), 0.8, 0.25, num_resources=resources)
     assert res.k_optimal == 4
-    assert res.n_visited < res.n_candidates
+    if resources == 1:
+        assert res.n_visited < res.n_candidates

@@ -88,3 +88,53 @@ def test_bucket_batch_policy_matches_reference(n_real, cap, compiled):
     for lanes, bucket_min in ((1, 1), (4, 4)):
         args = dict(lanes=lanes, bucket_min=bucket_min, cap=cap, compiled=compiled)
         assert t_bucket(n_real, **args) == j_bucket(n_real, **args)
+
+
+class _ReleasingCoordinator(tcore.InProcessCoordinator):
+    """Sets ``released`` once a published bound prunes something."""
+
+    def __init__(self, released):
+        super().__init__()
+        self.released = released
+
+    def publish(self, bounds):
+        merged = super().publish(bounds)
+        if math.isfinite(bounds.lo_bound) or math.isfinite(bounds.hi_bound):
+            self.released.set()
+        return merged
+
+
+@pytest.mark.parametrize(
+    "pruner,kind,visited",
+    [
+        (7, "select", [5, 6, 7, 8, 9]),  # worker 2's first k selects: 2, 3, 4 are pruned
+        (5, "select", [5, 6, 7, 8, 9]),  # worker 0's first k selects
+        (6, "stop", [2, 3, 4, 5, 6, 7]),  # worker 1's first k stops: 8, 9 are pruned
+    ],
+)
+def test_threads_prune_the_ks_handed_out_after_a_bound_lands(pruner, kind, visited):
+    """The scorers fix the order of events: the first k of every worker
+    (worklists [5, 2, 8], [6, 3, 9], [7, 4] over 2..9 on 3 workers) meets
+    the others at a barrier, so all three are in flight; then every scorer
+    but the pruning k's blocks until that k's bound is published. Every k
+    handed out after the bound lands that the bound excludes is skipped."""
+    import threading
+
+    in_flight = threading.Barrier(3, timeout=30)
+    released = threading.Event()
+    waited = []
+
+    def score(k: int) -> float:
+        if k in (5, 6, 7):
+            in_flight.wait()
+        if k == pruner:
+            return 1.0 if kind == "select" else 0.0
+        waited.append(released.wait(timeout=30))
+        return 0.5
+
+    space = tcore.make_space((2, 9), 0.8, stop_threshold=0.25)
+    assert tcore.plan_worklists(space.ks, 3, "pre", "T4") == [[5, 2, 8], [6, 3, 9], [7, 4]]
+    res = tcore.ThreadPoolScheduler(space, 3, coordinator=_ReleasingCoordinator(released)).run(score)
+    assert all(waited)  # no scorer timed out
+    assert sorted(res.visited_ks) == visited
+    assert res.k_optimal == (pruner if kind == "select" else None)
