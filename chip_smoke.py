@@ -152,7 +152,7 @@ TRAIN_GRAD_NORM_RTOL = 1e-4  # ||g_card - g_cpu|| / ||g_cpu||, each parameter
 # one AdamW step on the same gradients: the same float32 arithmetic; the
 # global norm summed in another order moves the clip factor by ~1e-7
 ADAMW_TOL = dict(rtol=1e-5, atol=1e-9)
-MICRO_LOSS_ATOL, MICRO_PARAM_ATOL = 1e-4, 2e-4  # tests/test_train.py::test_microbatching_matches_single_batch
+MICRO_LOSS_ATOL = 1e-4  # tests/test_train.py::test_microbatching_matches_single_batch
 
 # the training path: qwen2-0.5b at its published widths (24 layers, fp32),
 # random weights from seed 0, 12 steps of B 8, L 64 in 2 microbatches
@@ -1177,21 +1177,14 @@ def check_lm_small(torch, dev, ops, log) -> None:
         del card_model, c_card
 
 
-def _loss_and_grads(torch, model, batch):
-    """The loss and every parameter's gradient, by parameter name."""
-    model.params.requires_grad_(True)
-    names, leaves = zip(*model.params.named_parameters())
-    loss = model.loss_fn(batch)
-    return loss.detach(), dict(zip(names, torch.autograd.grad(loss, leaves)))
-
-
 def check_train_small(torch, dev, ops, log) -> None:
     """Training on the card against the CPU: qwen2-0.5b at full width
     (vocab 151,936) cut to 2 layers, B 2, L 32, the same weights and batch.
     The loss, and every parameter's gradient (nonzero on the card); remat
     ``full`` and ``dots`` against ``none``, bit for bit wherever two
-    ``none`` runs are; 2 microbatches against 1; one AdamW step on the same
-    gradients; a bitwise checkpoint round trip of (params, opt state). No
+    ``none`` runs are; 2 microbatches' accumulated gradients against 1's,
+    and against a planted fault (the second microbatch dropped) that the
+    check must catch; one AdamW step on the same gradients; a bitwise checkpoint round trip of (params, opt state). No
     flash launch, and the flash wrapper refuses an operand that requires
     grad."""
     import tempfile
@@ -1201,14 +1194,14 @@ def check_train_small(torch, dev, ops, log) -> None:
     from repro_torch.data.pipeline import SyntheticTokenSource, device_put_batch
     from repro_torch.models.transformer import Model
     from repro_torch.train.optimizer import AdamWConfig, adamw_update, init_opt_state
-    from repro_torch.train.train_step import TrainConfig, make_train_step
+    from repro_torch.train.train_step import accumulate_grads
 
     cfg = dataclasses.replace(get_config("qwen2-0.5b"), num_layers=2)
     cpu = torch.device("cpu")
     cpu_model = Model(cfg, remat="none")
     cpu_model.init(torch.Generator().manual_seed(0))
     batch_np = SyntheticTokenSource(cfg, ShapeConfig("smoke", 32, 2, "train")).batch_at(0)
-    loss_cpu, g_cpu = _loss_and_grads(torch, cpu_model, device_put_batch(batch_np, cpu))
+    loss_cpu, g_cpu = accumulate_grads(cpu_model, device_put_batch(batch_np, cpu), 1)
     batch = device_put_batch(batch_np, dev)
 
     def card_model(remat: str = "none") -> "Model":
@@ -1217,7 +1210,7 @@ def check_train_small(torch, dev, ops, log) -> None:
         return m
 
     ops.reset_launch_counts()
-    runs = {name: _loss_and_grads(torch, card_model(name.split()[0]), batch)
+    runs = {name: accumulate_grads(card_model(name.split()[0]), batch, 1)
             for name in ("none", "none again", "full", "dots")}
     loss, grads = runs["none"]
     loss_gap = abs(float(loss) - float(loss_cpu)) / abs(float(loss_cpu))
@@ -1242,20 +1235,22 @@ def check_train_small(torch, dev, ops, log) -> None:
                                  f"two none runs bitwise: {bitwise['none again']})")
     del runs
 
-    opt_cfg = AdamWConfig(lr=1e-3, weight_decay=0.0)
-    micro = []
-    for n in (1, 2):
-        m = card_model()
-        step = make_train_step(m, TrainConfig(opt=opt_cfg, microbatches=n))
-        p, _, metrics = step(m.params, init_opt_state(m.params, opt_cfg), batch)
-        micro.append((float(metrics["loss"]), p))
-    loss_gap_micro = abs(micro[0][0] - micro[1][0])
-    with torch.no_grad():
-        param_gap_micro = max(float((a - b).abs().max())
-                              for a, b in zip(micro[0][1].parameters(), micro[1][1].parameters()))
-    if loss_gap_micro > MICRO_LOSS_ATOL or param_gap_micro > MICRO_PARAM_ATOL:
-        raise AssertionError(f"train: 2 microbatches against 1: loss gap {loss_gap_micro:.3e}, params {param_gap_micro:.3e}")
-    del micro, m, p
+    def worst_gap(got: dict, want: dict) -> float:
+        return max(float(torch.linalg.norm(got[k] - want[k]) / torch.linalg.norm(want[k])) for k in want)
+
+    m = card_model()
+    loss_micro, g_micro = accumulate_grads(m, batch, 2)
+    loss_gap_micro = abs(float(loss_micro) - float(loss))
+    grad_gap_micro = worst_gap(g_micro, grads)
+    if loss_gap_micro > MICRO_LOSS_ATOL or grad_gap_micro > TRAIN_GRAD_NORM_RTOL:
+        raise AssertionError(f"train: 2 microbatches against 1: loss gap {loss_gap_micro:.3e}, "
+                             f"gradients' relative norm error {grad_gap_micro:.3e}")
+    # the planted fault: the first microbatch's gradients alone, divided by 2
+    _, g_first = accumulate_grads(m, {k: v[: v.shape[0] // 2] for k, v in batch.items()}, 1)
+    fault_gap = worst_gap({k: g / 2 for k, g in g_first.items()}, grads)
+    if fault_gap <= TRAIN_GRAD_NORM_RTOL:
+        raise AssertionError(f"train: dropping the second microbatch moves the gradients by {fault_gap:.3e} only")
+    del m, g_micro, g_first
 
     adamw_cfg = AdamWConfig(lr=1e-3)
     params_cpu = copy.deepcopy(cpu_model.params)
@@ -1264,7 +1259,7 @@ def check_train_small(torch, dev, ops, log) -> None:
     _, st, met = adamw_update(params, {k: g.to(dev) for k, g in g_cpu.items()}, init_opt_state(params, adamw_cfg),
                               adamw_cfg)
     adamw_gap = max(
-        [compare(torch, a.cpu(), b, what=f"adamw: {n}", **ADAMW_TOL)
+        [compare(torch, a.detach().cpu(), b.detach(), what=f"adamw: {n}", **ADAMW_TOL)
          for (n, a), b in zip(params.named_parameters(), params_cpu.parameters())]
         + [compare(torch, st.m[k].cpu(), st_cpu.m[k], what=f"adamw: m of {k}", **ADAMW_TOL) for k in st.m]
         + [compare(torch, st.v[k].cpu(), st_cpu.v[k], what=f"adamw: v of {k}", **ADAMW_TOL) for k in st.v])
@@ -1294,7 +1289,8 @@ def check_train_small(torch, dev, ops, log) -> None:
     log(json.dumps({"check": "train card vs plain: qwen2-0.5b, full width, 2 layers", "batch": 2, "seq": 32,
                     "loss": float(loss), "loss_rel_gap": loss_gap, "grad_worst_rel_norm_err": worst,
                     "params_with_grad": len(grads), "bitwise_vs_none": bitwise,
-                    "microbatch_loss_gap": loss_gap_micro, "microbatch_param_gap": param_gap_micro,
+                    "microbatch_loss_gap": loss_gap_micro, "microbatch_grad_worst_rel_norm_err": grad_gap_micro,
+                    "microbatch_dropped_fault_rel_norm_err": fault_gap,
                     "adamw_max_abs_err": adamw_gap, "grad_norm": float(met["grad_norm"]),
                     "grad_norm_cpu": float(met_cpu["grad_norm"]), "checkpoint_roundtrip_s": ckpt_s,
                     "flash_launches": flash, "flash_guard": "raised"}))

@@ -488,8 +488,8 @@ def flash_attention(
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise RuntimeError(
             "the flash-attention kernel has no backward: its output would drop the gradients of q, k "
-            "and v; train through the plain attention (gqa_forward(use_flash=False)) or call it under "
-            "torch.no_grad()"
+            "and v; train through the plain attention (models.attention.gqa_forward) or call it "
+            "under torch.no_grad()"
         )
     if not 1 <= d <= MAX_HEAD_DIM:
         raise ValueError(f"the flash-attention kernel takes head dim 1..{MAX_HEAD_DIM}, got {d}")

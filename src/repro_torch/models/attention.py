@@ -3,11 +3,11 @@ prefill and KV-cache decode paths.
 
 The serve prefill (``gqa_prefill``) runs the hand-written flash-attention
 kernel (``kernels.ops.flash_attention``) on a CUDA tensor and the plain
-``_sdpa_auto`` on a CPU tensor. ``gqa_forward`` does the same with
-``use_flash=True``; with ``use_flash=False`` (the default, as in the
-reference, and what training takes) it runs ``_sdpa_auto`` on every
-device: the kernel has no backward. Decode attends one query row against
-the masked cache with the plain ``_sdpa`` on every device.
+``_sdpa_auto`` on a CPU tensor. ``gqa_forward``, the full-sequence forward
+that training takes, runs ``_sdpa_auto`` on every device, as the
+reference's default ``use_flash=False`` does: the kernel has no backward.
+Decode attends one query row against the masked cache with the plain
+``_sdpa`` on every device.
 
 Windowed archs keep (k, v) in a ring buffer of ``min(window, cache_len)``
 slots, entry at absolute position p in slot ``p % s``. ``gqa_decode``
@@ -156,21 +156,16 @@ def _project_qkv(params, x: torch.Tensor, cfg: ArchConfig):
 
 
 def gqa_forward(
-    params, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor | None = None,
-    use_flash: bool = False,
+    params, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor | None = None
 ) -> torch.Tensor:
-    """Full-sequence causal attention of x (B, L, d). ``use_flash``: the
-    flash kernel on the card (``_attend``), which has no backward; else the
+    """Full-sequence causal attention of x (B, L, d), through the
     differentiable ``_sdpa_auto`` on every device."""
     l = x.shape[1]
     positions = torch.arange(l, device=x.device) if positions is None else positions
     q, k, v = _project_qkv(params, x, cfg)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
-    if use_flash:
-        out = _attend(q, k, v, cfg.window)
-    else:
-        out = _sdpa_auto(q, k, v, causal=True, window=cfg.window)
+    out = _sdpa_auto(q, k, v, causal=True, window=cfg.window)
     return torch.einsum("blhk,hkd->bld", out, params["wo"])
 
 

@@ -11,10 +11,9 @@ loop walks it. Parameters keep the reference's names:
 Ported: the attention mixer (GQA) and the dense SwiGLU FFN, for serving
 (``backbone``, ``prefill``, ``decode_step``, under ``inference_mode``) and
 for training (``loss_fn``: the same layers with autograd on, rematerialized
-as the reference's ``remat`` / ``remat_group`` ask, through
-``torch.utils.checkpoint``). MLA, Mamba and RWKV (ROADMAP Queue 1 M4) and
-the MoE FFN (M3) raise ``NotImplementedError``, and nothing else silently
-runs in their place.
+as the reference's ``remat`` asks, through ``torch.utils.checkpoint``).
+MLA, Mamba and RWKV (ROADMAP Queue 1 M4) and the MoE FFN (M3) raise
+``NotImplementedError``, and nothing else silently runs in their place.
 """
 from __future__ import annotations
 
@@ -110,11 +109,10 @@ def layer_init(gen: torch.Generator, cfg: ArchConfig, desc: LayerDesc, dtype=tor
     })
 
 
-def layer_forward(params, x: torch.Tensor, cfg: ArchConfig, desc: LayerDesc,
-                  use_flash: bool = False) -> torch.Tensor:
+def layer_forward(params, x: torch.Tensor, cfg: ArchConfig, desc: LayerDesc) -> torch.Tensor:
     """Full-sequence layer."""
     h = rmsnorm(params["norm1"], x, cfg.norm_eps)
-    x = x + attn.gqa_forward(params["mixer"], h, cfg, use_flash=use_flash)
+    x = x + attn.gqa_forward(params["mixer"], h, cfg)
     h2 = rmsnorm(params["norm2"], x, cfg.norm_eps)
     return x + mlp(params["ffn"], h2)
 
@@ -183,23 +181,17 @@ class Model(nn.Module):
     assigned to ``params`` instead. Every method runs on the parameters'
     device; only ``loss_fn`` records autograd.
 
-    ``remat`` (``"full"``, ``"dots"``, ``"none"``) and ``remat_group`` are
-    the reference's: with ``remat_group = g`` each segment checkpoints
-    groups of the largest divisor of its repeat count that is <= g, with a
-    per-repeat checkpoint inside each group. ``use_flash`` runs the full-
-    sequence forward through the flash kernel on the card, which has no
-    backward; training keeps the default, plain attention."""
+    ``remat`` (``"full"``, ``"dots"``, ``"none"``) is the reference's, one
+    checkpoint per repeat of a segment. The full-sequence forward takes
+    plain attention on every device: the flash kernel has no backward."""
 
-    def __init__(self, cfg: ArchConfig, dtype=torch.float32, remat: str = "full", remat_group: int = 1,
-                 use_flash: bool = False):
+    def __init__(self, cfg: ArchConfig, dtype=torch.float32, remat: str = "full"):
         super().__init__()
         if remat not in REMAT:
             raise ValueError(f"remat must be one of {REMAT}, got {remat!r}")
         self.cfg = cfg
         self.dtype = dtype
         self.remat = remat
-        self.remat_group = max(1, remat_group)
-        self.use_flash = use_flash
         self.segments = build_segments(cfg)
         assert sum(s.repeat * len(s.layers) for s in self.segments) == cfg.num_layers
         for seg in self.segments:
@@ -239,36 +231,17 @@ class Model(nn.Module):
     def _repeat(self, seg: Segment, rep: nn.ModuleDict, x: torch.Tensor) -> torch.Tensor:
         """One repeat of a segment: its layers in order."""
         for i, d in enumerate(seg.layers):
-            x = layer_forward(rep[f"l{i}"], x, self.cfg, d, self.use_flash)
-        return x
-
-    def _group(self, seg: Segment, reps: list[nn.ModuleDict], x: torch.Tensor) -> torch.Tensor:
-        """Several repeats, each checkpointed on its own (the reference's
-        nested remat: the group's checkpoint bounds the stash, the inner ones
-        the group's backward working set)."""
-        for rep in reps:
-            x = checkpoint(functools.partial(self._repeat, seg, rep), x, use_reentrant=False)
+            x = layer_forward(rep[f"l{i}"], x, self.cfg, d)
         return x
 
     def hidden(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """(B, L, d) -> (final-normed hidden, moe_aux); aux is 0 (no MoE layer
-        is ported). Where autograd records, each segment runs in checkpointed
-        groups as ``remat`` and ``remat_group`` ask; elsewhere straight."""
-        grad = torch.is_grad_enabled()
+        is ported). Where autograd records, each repeat is checkpointed as
+        ``remat`` asks; elsewhere it runs straight."""
+        remat = self.remat if torch.is_grad_enabled() else "none"
         for si, seg in enumerate(self.segments):
-            reps = list(self.params[f"seg{si}"])
-            if not grad:
-                for rep in reps:
-                    x = self._repeat(seg, rep, x)
-                continue
-            # largest divisor of the stack depth <= requested group size
-            g = max(d for d in range(1, self.remat_group + 1) if seg.repeat % d == 0)
-            for r in range(0, seg.repeat, g):
-                if g == 1:
-                    body = functools.partial(self._repeat, seg, reps[r])
-                else:
-                    body = functools.partial(self._group, seg, reps[r : r + g])
-                x = _remat(body, self.remat)(x)
+            for rep in self.params[f"seg{si}"]:
+                x = _remat(functools.partial(self._repeat, seg, rep), remat)(x)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         return rmsnorm(self.params["final_norm"], x, self.cfg.norm_eps), aux
 

@@ -2,12 +2,12 @@
 compression, AdamW.
 
 ``make_train_step(model, tcfg)`` returns ``train_step(params, opt_state,
-batch) -> (params, opt_state, metrics)``. Each of the ``microbatches``
-slices of the batch runs its forward and backward on its own (activations
-never exceed one microbatch); the gradients are summed in ``accum_dtype``
-and divided by their count, as the reference's scan does. The reference's
-``batch_specs`` and ``metric_specs`` are sharding specs and have no
-counterpart on one card (ROADMAP Queue 1 M5).
+batch) -> (params, opt_state, metrics)``. ``accumulate_grads`` runs each of
+the ``microbatches`` slices of the batch forward and backward on its own
+(activations never exceed one microbatch); the gradients are summed in
+``accum_dtype`` and divided by their count, as the reference's scan does.
+The reference's ``batch_specs`` and ``metric_specs`` are sharding specs and
+have no counterpart on one card (ROADMAP Queue 1 M5).
 """
 from __future__ import annotations
 
@@ -62,6 +62,34 @@ def _split_microbatches(batch: dict[str, torch.Tensor], n: int) -> dict[str, tor
     return {k: r(v) for k, v in batch.items()}
 
 
+def accumulate_grads(
+    model: Model, batch: dict[str, torch.Tensor], n: int, accum_dtype: torch.dtype = torch.float32
+) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """(mean loss, gradients by parameter name) of ``model.params`` over
+    ``batch`` in ``n`` microbatches: each runs its forward and backward on
+    its own, the gradients are summed in ``accum_dtype`` and divided by
+    ``n``. Turns gradients on for ``model.params``."""
+    model.params.requires_grad_(True)
+    names, leaves = zip(*model.params.named_parameters())
+    with torch.enable_grad():
+        if n == 1:
+            loss = model.loss_fn(batch)
+            grads = torch.autograd.grad(loss, leaves)
+            loss = loss.detach()
+        else:
+            mb = _split_microbatches(batch, n)
+            loss = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+            grads = [torch.zeros(p.shape, dtype=accum_dtype, device=p.device) for p in leaves]
+            for i in range(n):
+                loss_i = model.loss_fn({k: v[i] for k, v in mb.items()})
+                for g_sum, g_i in zip(grads, torch.autograd.grad(loss_i, leaves)):
+                    g_sum += g_i.to(accum_dtype)
+                loss = loss + loss_i.detach()
+            loss = loss / n
+            grads = [g / n for g in grads]
+    return loss, dict(zip(names, grads))
+
+
 def make_train_step(
     model: Model, tcfg: TrainConfig
 ) -> Callable[[nn.Module, OptState, dict[str, torch.Tensor]], tuple[nn.Module, OptState, dict[str, torch.Tensor]]]:
@@ -72,27 +100,9 @@ def make_train_step(
     ``lr`` as 0-d tensors on the parameters' device."""
 
     def train_step(params: nn.Module, opt_state: OptState, batch: dict[str, torch.Tensor]):
-        params.requires_grad_(True)
         model.params = params
-        names, leaves = zip(*params.named_parameters())
-        n = tcfg.microbatches
-        with torch.enable_grad():
-            if n == 1:
-                loss = model.loss_fn(batch)
-                grads = torch.autograd.grad(loss, leaves)
-                loss = loss.detach()
-            else:
-                mb = _split_microbatches(batch, n)
-                loss = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
-                grads = [torch.zeros(p.shape, dtype=tcfg.accum_dtype, device=p.device) for p in leaves]
-                for i in range(n):
-                    loss_i = model.loss_fn({k: v[i] for k, v in mb.items()})
-                    for g_sum, g_i in zip(grads, torch.autograd.grad(loss_i, leaves)):
-                        g_sum += g_i.to(tcfg.accum_dtype)
-                    loss = loss + loss_i.detach()
-                loss = loss / n
-                grads = [g / n for g in grads]
-        grads = compress_tree(dict(zip(names, grads)), tcfg.compression)
+        loss, grads = accumulate_grads(model, batch, tcfg.microbatches, tcfg.accum_dtype)
+        grads = compress_tree(grads, tcfg.compression)
         params, opt_state, metrics = adamw_update(params, grads, opt_state, tcfg.opt)
         return params, opt_state, dict(metrics, loss=loss)
 

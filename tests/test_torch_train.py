@@ -115,10 +115,7 @@ def _port(arch: str, **model_kw) -> Model:
 
 
 def _loss_and_grads(m: Model, batch):
-    m.params.requires_grad_(True)
-    names, leaves = zip(*m.params.named_parameters())
-    loss = m.loss_fn(_torch(batch))
-    return loss.detach(), dict(zip(names, torch.autograd.grad(loss, leaves)))
+    return tstep.accumulate_grads(m, _torch(batch), 1)
 
 
 # -----------------------------------------------------------------------------
@@ -164,12 +161,13 @@ def test_every_gradient_matches_reference(arch):
         np.testing.assert_allclose(g.numpy(), ref, rtol=GRAD_RTOL, atol=GRAD_ATOL_SCALE * scale, err_msg=name)
 
 
-@pytest.mark.parametrize("remat,group", [("full", 1), ("dots", 1), ("none", 2), ("full", 2), ("dots", 2)])
-def test_remat_gives_the_loss_and_gradients_of_none(remat, group):
+@pytest.mark.parametrize("arch", ARCHS[:2])
+@pytest.mark.parametrize("remat", ["full", "dots"])
+def test_remat_gives_the_loss_and_gradients_of_none(remat, arch):
     """Rematerialization recomputes the same float32 ops: bit for bit on the CPU."""
-    _, _, batch, *_ = _reference("qwen2-0.5b")
-    loss0, grads0 = _loss_and_grads(_port("qwen2-0.5b", remat="none"), batch)
-    loss, grads = _loss_and_grads(_port("qwen2-0.5b", remat=remat, remat_group=group), batch)
+    _, _, batch, *_ = _reference(arch)
+    loss0, grads0 = _loss_and_grads(_port(arch, remat="none"), batch)
+    loss, grads = _loss_and_grads(_port(arch, remat=remat), batch)
     assert torch.equal(loss, loss0)
     for name, g in grads.items():
         assert torch.equal(g, grads0[name]), name
@@ -181,18 +179,17 @@ def test_model_rejects_an_unknown_remat():
 
 
 def test_training_forward_takes_plain_attention(monkeypatch):
-    """``use_flash=False`` (the default) never reaches ``_attend``, the path
-    that is the flash kernel on the card; ``use_flash=True`` does, once a
-    layer (on the CPU ``_attend`` is the plain ``_sdpa_auto``)."""
+    """``loss_fn`` never reaches ``_attend``, the path that is the flash
+    kernel on the card; serving's prefill does, once a layer."""
     _, _, batch, want, _ = _reference("qwen2-0.5b")
     calls = []
     real = attn._attend
     monkeypatch.setattr(attn, "_attend", lambda *a, **k: calls.append(1) or real(*a, **k))
-    plain = float(_port("qwen2-0.5b").loss_fn(_torch(batch)))
+    m = _port("qwen2-0.5b")
+    np.testing.assert_allclose(float(m.loss_fn(_torch(batch))), want, rtol=LOSS_RTOL)
     assert calls == []
-    flash = float(_port("qwen2-0.5b", use_flash=True).loss_fn(_torch(batch)))
+    m.prefill(_torch(batch))
     assert len(calls) == 2
-    np.testing.assert_allclose([plain, flash], [want, want], rtol=LOSS_RTOL)
 
 
 def test_flash_kernel_refuses_operands_that_require_grad(monkeypatch):
@@ -325,6 +322,23 @@ def test_microbatching_matches_single_batch():
     assert abs(outs[0][0] - outs[1][0]) < 1e-4
     for a, b in zip(outs[0][1].parameters(), outs[1][1].parameters()):
         np.testing.assert_allclose(a.detach().numpy(), b.detach().numpy(), atol=2e-4)
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_accumulated_gradients_match_one_batch(n):
+    """``accumulate_grads`` over n microbatches gives one batch's loss and
+    gradients (relative norm error at the gradients' tolerance); the first
+    microbatch alone, divided by n, a fault the check must catch, does not."""
+    _, _, batch, *_ = _reference("qwen2-0.5b")
+    m = _port("qwen2-0.5b", remat="none")
+    loss1, g1 = tstep.accumulate_grads(m, _torch(batch), 1)
+    loss, g = tstep.accumulate_grads(m, _torch(batch), n)
+    np.testing.assert_allclose(float(loss), float(loss1), rtol=LOSS_RTOL)
+    assert set(g) == set(g1)
+    for name in g1:
+        assert torch.linalg.norm(g[name] - g1[name]) <= GRAD_NORM_RTOL * torch.linalg.norm(g1[name]), name
+    _, first = tstep.accumulate_grads(m, {k: v[: B // n] for k, v in _torch(batch).items()}, 1)
+    assert any(torch.linalg.norm(first[k] / n - g1[k]) > GRAD_NORM_RTOL * torch.linalg.norm(g1[k]) for k in g1)
 
 
 @pytest.mark.parametrize("microbatches,compression", [(2, "none"), (1, "bf16")])

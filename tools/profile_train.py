@@ -1,10 +1,14 @@
 #!/usr/bin/env python3
 """Time and profile the port's LM training step on the card.
 
-The step is that of ``chip_smoke.py``'s ``qwen2_train`` phase: qwen2-0.5b
-at its published widths (24 layers, fp32, weights and tokens from seed 0),
-B 8, L 64 in 2 microbatches, AdamW, no remat. One run is one process and
-prints one JSON line with:
+The step is that of ``chip_smoke.py``'s ``qwen2_train`` phase by default:
+qwen2-0.5b at its published widths (24 layers, fp32, weights and tokens
+from seed 0), B 8, L 64 in 2 microbatches, AdamW, no remat. ``--batch``,
+``--seq``, ``--microbatches`` and ``--remat`` change the shape; Qwen2's
+pretraining context is 4,096 tokens (Qwen2 Technical Report,
+arXiv:2407.10671, section 3.2), so ``--seq 4096 --batch 4 --microbatches 4
+--remat full`` takes one such sequence a microbatch. One run is one process
+and prints one JSON line with:
 
 - ``cold_step_s``: the first step (host clock, ending in a synchronize);
   ``step_s``: ``--repeats`` steps after it, ``step_median_s`` their median;
@@ -17,11 +21,13 @@ prints one JSON line with:
   time, ``profile_ksearch.device_times``), ``device_events`` (their count:
   kernels, copies, fills), ``sgemm_ms`` (the kernels whose name holds
   ``gemm``), ``host_waits`` (``profile_serve.host_waits``) and the
-  ``--top`` kernels by device time; ``--trace PATH`` writes its timeline.
+  ``--top`` kernels by device time; ``--trace PATH`` writes its timeline;
+- ``tokens_per_s`` (B L over the median step) and ``max_memory_allocated``.
 
 Run from the root of a checkout on a machine with a card:
 
     python3 tools/profile_train.py [--repeats 5] [--remat none|full|dots]
+        [--batch 8] [--seq 64] [--microbatches 2]
 """
 from __future__ import annotations
 
@@ -36,7 +42,7 @@ from pathlib import Path
 from profile_ksearch import device_times
 from profile_serve import host_waits
 
-ARCH, BATCH, SEQ, MICRO = "qwen2-0.5b", 8, 64, 2  # chip_smoke.py's qwen2_train phase
+ARCH = "qwen2-0.5b"
 
 
 def main(argv=None) -> int:
@@ -44,6 +50,9 @@ def main(argv=None) -> int:
     ap.add_argument("--src", default=str(Path(__file__).resolve().parents[1] / "src"))
     ap.add_argument("--repeats", type=int, default=5)
     ap.add_argument("--remat", default="none", choices=("none", "full", "dots"))
+    ap.add_argument("--batch", type=int, default=8)  # chip_smoke.py's qwen2_train phase
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--microbatches", type=int, default=2)
     ap.add_argument("--top", type=int, default=10)
     ap.add_argument("--trace", default=None, help="write the profiled step's chrome trace here")
     args = ap.parse_args(argv)
@@ -67,10 +76,10 @@ def main(argv=None) -> int:
     cfg = get_config(ARCH)
     model = Model(cfg, remat=args.remat)
     params = model.init(torch.Generator(device=dev).manual_seed(0))
-    tcfg = TrainConfig(opt=AdamWConfig(lr=1e-3, warmup_steps=5, total_steps=12), microbatches=MICRO)
+    tcfg = TrainConfig(opt=AdamWConfig(lr=1e-3, warmup_steps=5, total_steps=12), microbatches=args.microbatches)
     opt = init_opt_state(params, tcfg.opt)
     step_fn = make_train_step(model, tcfg)
-    src = SyntheticTokenSource(cfg, ShapeConfig("profile", SEQ, BATCH, "train"))
+    src = SyntheticTokenSource(cfg, ShapeConfig("profile", args.seq, args.batch, "train"))
     batches = [device_put_batch(src.batch_at(i), dev) for i in range(args.repeats + 2)]
 
     def timed(fn) -> float:
@@ -91,7 +100,7 @@ def main(argv=None) -> int:
 
     leaves = list(state["params"].parameters())
     names = [n for n, _ in state["params"].named_parameters()]
-    micro = {k: v[0] for k, v in _split_microbatches(batches[0], MICRO).items()}
+    micro = {k: v[0] for k, v in _split_microbatches(batches[0], args.microbatches).items()}
     grads = {}
 
     def fwd_bwd() -> None:
@@ -115,8 +124,11 @@ def main(argv=None) -> int:
     top = sorted(times.items(), key=lambda kv: -kv[1][0])[: args.top]
     print(json.dumps({
         "card": smi, "device": torch.cuda.get_device_name(0), "torch": torch.__version__,
-        "shape": f"{ARCH} full width, B {BATCH}, L {SEQ}, {MICRO} microbatches, remat {args.remat}",
+        "shape": f"{ARCH} full width, B {args.batch}, L {args.seq}, {args.microbatches} microbatches, "
+                 f"remat {args.remat}",
         "cold_step_s": cold, "step_s": walls, "step_median_s": statistics.median(walls),
+        "tokens_per_s": args.batch * args.seq / statistics.median(walls),
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
         "phase_s": {"fwd_bwd": statistics.median(fwd_bwd_s), "adamw": statistics.median(adamw_s)},
         "profiled_wall_s": wall, "device_busy_ms": busy, "device_busy_share": busy / 1e3 / wall,
         "device_events": sum(count for _, count in times.values()),
