@@ -24,15 +24,21 @@ Phases, each fatal on failure:
      at tol 0, with and without warm starts: scores, sweep counts and
      warm-start hits), the K-Means + Davies-Bouldin search of
      ``tests/test_integration.py`` with a small K-Means silhouette wave, and
-     the LM's prefill and greedy decode (qwen2-0.5b at full width cut to 2
-     layers; reduced h2o-danube, whose window bites) on the card against the
-     same computation on the CPU (plain versions, same draws and weights);
-     LM training at the same cut (B 2, L 32): the loss and every parameter's
-     gradient against the CPU's (each nonzero on the card), remat ``full``
-     and ``dots`` against ``none``, 2 microbatches against 1, one AdamW step
-     on the same gradients, a bitwise checkpoint round trip of (params, opt
-     state), no flash launch, and the flash wrapper refusing an operand that
-     requires grad;
+     the LM's prefill and greedy decode (qwen2-0.5b and granite-moe-1b-a400m
+     at full width cut to 2 layers; deepseek-v2 at full widths cut to 2
+     layers and 16 routed experts, MLA with no flash launch; reduced
+     h2o-danube, whose window bites) on the card against the same
+     computation on the CPU (plain versions, same draws and weights), every
+     MoE route held to the CPU's on the CPU's layer input (a token may
+     route differently only at a near-tie of its k-th and (k+1)-th
+     probabilities, printed with its margin); LM training at the same cut
+     (qwen2 and granite, B 2, L 32): the loss, the router aux loss and
+     every parameter's gradient against the CPU's (each nonzero on the
+     card), remat ``full`` and ``dots`` against ``none``, the routes; on
+     qwen2 also 2 microbatches against 1, one AdamW step on the same
+     gradients, a bitwise checkpoint round trip of (params, opt state), no
+     flash launch, and the flash wrapper refusing an operand that requires
+     grad;
      then RESCAL and RESCALk (96 entities, 3 relations, k 2..6) and the
      distributed fits on a one-rank NCCL group (``distributed_nmf`` sync and
      pipelined, bitwise equal at one rank; ``distributed_rescal``; the
@@ -67,15 +73,21 @@ Phases, each fatal on failure:
      ``kmeans_db_1m`` — Binary Bleed over K-Means with Davies-Bouldin on
      10^6 blob points (d 6, k_true 7, k 2..24) — on the scalar executor (two
      threads) and the batched one (k_optimal 7); then the port's ``serve``
-     with qwen2-0.5b at its published widths (24 layers, random weights from
-     seed 0), 4 prompts of 1000 tokens, 32 new tokens: one flash launch per
-     layer, finite logits, and decode-step logits (plain attention over the
-     cache) matching a flash prefill of the extended sequence; then the
-     port's ``train`` with qwen2-0.5b at its published widths (24 layers,
-     fp32, random weights from seed 0), 12 steps of B 8, L 64 in 2
-     microbatches: finite losses and gradient norms, the last loss below the
-     first, no kernel launch (training takes plain attention), the median
-     step time, tokens/s and peak memory logged (``qwen2_train``).
+     with qwen2-0.5b and with granite-moe-1b-a400m at their published widths
+     (24 layers, random weights from seed 0), 4 prompts of 1000 tokens, 32
+     new tokens: one flash launch per layer, finite logits, and decode-step
+     logits (plain attention over the cache) matching a flash prefill of the
+     extended sequence in every row that kept all its MoE slots (each
+     prefill's dropped slots printed); ``deepseek_serve_2l``: deepseek-v2 at
+     its published widths (160 routed and 2 shared experts) cut to 2 layers,
+     on the card only, B 1, prompt 256, 8 tokens: no kernel launch, the
+     absorbed MLA decode's logits against the expanded forward, peak memory;
+     then the port's ``train`` with qwen2-0.5b and with granite-moe-1b-a400m
+     at their published widths (24 layers, fp32, random weights from seed 0),
+     12 steps of B 8, L 64 in 2 microbatches: finite losses and gradient
+     norms, the last loss below the first, no kernel launch (training takes
+     plain attention), the median step time, tokens/s and peak memory logged
+     (``qwen2_train``, ``granite_train``).
 
 The second-to-last line is ``{"kernels": [...]}`` and the last line is
 ``{"ok": true, "device": {...}}``. Without a card, or outside a checkout of
@@ -121,6 +133,15 @@ KM_K_PAD, KM_MAX_ITERS, KM_WAVE = 24, 100, 16
 
 FLASH_TOL = dict(rtol=3e-5, atol=3e-5)  # the reference's flash tolerance (tests/test_kernels.py)
 LOGIT_TOL = dict(rtol=2e-3, atol=2e-3)  # the reference's decode-vs-forward tolerance (tests/test_models.py)
+# MoE routes, card against CPU on the same layer input: only the router's fp32
+# matmul and softmax differ in reduction order, which moves a probability by
+# up to 3.3e-7 on an H100 (granite, d 1024). A token may take
+# other experts on the card only where its k-th and (k+1)-th probabilities
+# are closer than this; a probability gap above half of it fails.
+ROUTE_TIE_TOL = 1e-5
+# deepseek-v2 card vs CPU: 16 of the 160 routed experts keep the CPU copy at
+# 1.96 B parameters (7.8 GB) instead of 5.36 B
+DEEPSEEK_SMALL_EXPERTS = 16
 
 # RESCAL card vs CPU: cuBLAS against the CPU's BLAS, fp32, from the same
 # draws. Held where NMFk is held (NMFK_SIL_ATOL, NMFK_ERR_RTOL); the
@@ -139,11 +160,19 @@ RESCAL_DATA = dict(n_entities=1000, n_relations=4, k_true=4, noise=0.003, seed=0
 RESCAL_SEARCH = dict(k_range=(2, 11), select_threshold=0.8, stop_threshold=0.25)
 RESCAL_P, RESCAL_ITERS, RESCAL_EPS, RESCAL_THREADS = 3, 150, 0.015, 4
 
-# the serve path: qwen2-0.5b at its published widths, weights from seed 0
-SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT, SERVE_TOKENS = "qwen2-0.5b", 4, 1000, 32
-SERVE_ARGS = ["--arch", SERVE_ARCH, "--no-reduced", "--batch", str(SERVE_BATCH),
-              "--prompt-len", str(SERVE_PROMPT), "--tokens", str(SERVE_TOKENS),
-              "--device", "cuda", "--seed", "0", "--quiet"]
+# the serve paths: qwen2-0.5b and granite-moe-1b-a400m at their published
+# widths, weights from seed 0, 4 prompts of 1000 tokens, 32 new tokens
+SERVE_BATCH, SERVE_PROMPT, SERVE_TOKENS = 4, 1000, 32
+
+
+def serve_args(arch: str) -> list[str]:
+    return ["--arch", arch, "--no-reduced", "--batch", str(SERVE_BATCH), "--prompt-len", str(SERVE_PROMPT),
+            "--tokens", str(SERVE_TOKENS), "--device", "cuda", "--seed", "0", "--quiet"]
+
+
+# deepseek-v2 at its published widths (160 routed + 2 shared experts) cut to
+# 2 layers, on the card only: B 1, prompt 256, 8 new tokens
+DEEPSEEK_LAYERS, DEEPSEEK_PROMPT, DEEPSEEK_TOKENS = 2, 256, 8
 
 # training, card vs CPU (qwen2-0.5b at full width cut to 2 layers, B 2, L 32,
 # the same weights): fp32 with TF32 off, so only reduction orders differ.
@@ -154,12 +183,16 @@ TRAIN_GRAD_NORM_RTOL = 1e-4  # ||g_card - g_cpu|| / ||g_cpu||, each parameter
 ADAMW_TOL = dict(rtol=1e-5, atol=1e-9)
 MICRO_LOSS_ATOL = 1e-4  # tests/test_train.py::test_microbatching_matches_single_batch
 
-# the training path: qwen2-0.5b at its published widths (24 layers, fp32),
-# random weights from seed 0, 12 steps of B 8, L 64 in 2 microbatches
-TRAIN_ARCH, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO = "qwen2-0.5b", 12, 8, 64, 2
-TRAIN_ARGS = ["--arch", TRAIN_ARCH, "--no-reduced", "--steps", str(TRAIN_STEPS), "--batch", str(TRAIN_BATCH),
-              "--seq", str(TRAIN_SEQ), "--microbatches", str(TRAIN_MICRO), "--lr", "1e-3", "--device", "cuda",
-              "--seed", "0", "--quiet"]
+# the training paths: qwen2-0.5b and granite-moe-1b-a400m at their published
+# widths (24 layers, fp32), random weights from seed 0, 12 steps of B 8, L 64
+# in 2 microbatches
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO = 12, 8, 64, 2
+
+
+def train_args(arch: str) -> list[str]:
+    return ["--arch", arch, "--no-reduced", "--steps", str(TRAIN_STEPS), "--batch", str(TRAIN_BATCH),
+            "--seq", str(TRAIN_SEQ), "--microbatches", str(TRAIN_MICRO), "--lr", "1e-3", "--device", "cuda",
+            "--seed", "0", "--quiet"]
 
 PAPER_ARGS = ["--n", "1000", "--m", "1100", "--k-true", "8", "--k-max", "16",
               "--n-perturbs", "4", "--nmf-iters", "120", "--device", "cuda", "--quiet"]
@@ -1132,19 +1165,111 @@ def _decided(torch, logits, tokens) -> None:
         raise AssertionError(f"greedy tokens differ at a decided logit margin: {bad.nonzero().tolist()}")
 
 
+class RouteWatch:
+    """Hold the card's MoE routes to the CPU's, on the CPU's layer input.
+
+    While active, every ``models.moe.route`` call on a CPU tensor is also
+    made on the card (the same router and tokens moved there, the same
+    capacity), and the two are compared token by token: each token's set of
+    experts, and which of its slots are kept. A token may route differently
+    only where the CPU's top-k margin (its k-th probability less its
+    (k+1)-th) is below ``ROUTE_TIE_TOL``; a kept/dropped difference is
+    allowed only on an expert such a flip touched, for a later token (its
+    queue shifted). Anything else raises at once."""
+
+    def __init__(self, torch, dev, label: str):
+        from repro_torch.models import moe
+
+        self.torch, self.dev, self.label, self.moe = torch, dev, label, moe
+        self.calls, self.flips, self.dropped, self.min_margin, self.max_prob_gap = 0, [], 0, math.inf, 0.0
+
+    def __enter__(self) -> "RouteWatch":
+        self.real = self.moe.route
+
+        def spy(params, xt, cfg, capacity):
+            r = self.real(params, xt, cfg, capacity)
+            if not xt.is_cuda:
+                with self.torch.no_grad():
+                    self._compare(params, xt, cfg, capacity, r)
+            return r
+
+        self.moe.route = spy
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.moe.route = self.real
+
+    def _compare(self, params, xt, cfg, capacity: int, r_cpu) -> None:
+        torch = self.torch
+        k = cfg.moe.top_k
+        r_card = self.real({"router": params["router"].detach().to(self.dev)}, xt.detach().to(self.dev), cfg, capacity)
+        self.calls += 1
+        self.dropped += int((~r_cpu.keep).sum())
+        self.min_margin = min(self.min_margin, float(r_cpu.margin.min()))
+        self.max_prob_gap = max(self.max_prob_gap, float((r_card.probs.cpu() - r_cpu.probs).abs().max()))
+        if self.max_prob_gap > ROUTE_TIE_TOL / 2:
+            raise AssertionError(f"{self.label}: route {self.calls}: the card's router probabilities are "
+                                 f"{self.max_prob_gap:.3e} from the CPU's")
+        ids_cpu, order_cpu = r_cpu.expert_ids.view(-1, k).sort(dim=1)
+        ids_card, order_card = r_card.expert_ids.cpu().view(-1, k).sort(dim=1)
+        keep_cpu = r_cpu.keep.view(-1, k).gather(1, order_cpu)
+        keep_card = r_card.keep.cpu().view(-1, k).gather(1, order_card)
+        flipped = (ids_cpu != ids_card).any(dim=1).nonzero()[:, 0].tolist()
+        margins = r_cpu.margin
+        far = [t for t in flipped if float(margins[t]) >= ROUTE_TIE_TOL]
+        if far:
+            raise AssertionError(f"{self.label}: route {self.calls}: the card routes tokens {far[:8]} to other "
+                                 f"experts at CPU margins {[float(margins[t]) for t in far[:8]]} >= {ROUTE_TIE_TOL}")
+        touched = set()
+        for t in flipped:
+            touched |= set(ids_cpu[t].tolist()) ^ set(ids_card[t].tolist())
+            self.flips.append({"route": self.calls, "token": t, "margin": float(margins[t]),
+                               "cpu": ids_cpu[t].tolist(), "card": ids_card[t].tolist()})
+            print(f"{self.label}: near-tie route flip {self.flips[-1]}", flush=True)
+        first = min(flipped, default=None)
+        for t, j in (keep_cpu != keep_card).nonzero().tolist():
+            if t in flipped:
+                continue
+            if first is None or t < first or int(ids_cpu[t, j]) not in touched:
+                raise AssertionError(f"{self.label}: route {self.calls}: token {t} slot of expert "
+                                     f"{int(ids_cpu[t, j])} kept on one side only, with no near-tie flip before it")
+
+    def blame(self, e: AssertionError) -> AssertionError:
+        """``e`` again, saying whether it coincides with near-tie route flips."""
+        if not self.flips:
+            return e
+        return AssertionError(f"{e} (coincides with {len(self.flips)} near-tie route flips, margins "
+                              f"{[f['margin'] for f in self.flips]})")
+
+    def summary(self) -> dict:
+        return {"routes_compared": self.calls, "route_flips": self.flips, "min_route_margin": self.min_margin,
+                "max_prob_gap": self.max_prob_gap, "route_tie_tol": ROUTE_TIE_TOL, "dropped_slots_cpu": self.dropped}
+
+
 def check_lm_small(torch, dev, ops, log) -> None:
-    """The LM's prefill logits and 8 greedy tokens on the card (flash kernel)
-    against the CPU (plain path), same weights, teacher-forced with the
-    card's tokens: qwen2-0.5b at full width (vocab 151,936) cut to 2 layers,
-    B 1, prompt 200; reduced h2o-danube-1.8b (window 16), B 2, prompt 40."""
+    """The LM's prefill logits and 8 greedy tokens on the card (flash kernel
+    for GQA) against the CPU (plain path), same weights, teacher-forced with
+    the card's tokens: qwen2-0.5b at full width (vocab 151,936) cut to 2
+    layers, B 1, prompt 200; reduced h2o-danube-1.8b (window 16), B 2,
+    prompt 40; granite-moe-1b-a400m at full width cut to 2 layers, B 1,
+    prompt 200; deepseek-v2 at full widths cut to 2 layers (the dense first
+    layer and one MoE layer) and 16 of its 160 routed experts, B 1, prompt
+    64 (MLA: no flash launch). Every MoE route is held to the CPU's
+    (``RouteWatch``)."""
     from repro_torch.configs import get_config, reduced_config
     from repro_torch.launch.serve import setup
     from repro_torch.serve.decode import generate
 
     cpu = torch.device("cpu")
+    deepseek = get_config("deepseek-v2-236b")
     cases = (
         ("qwen2-0.5b, full width, 2 layers", dataclasses.replace(get_config("qwen2-0.5b"), num_layers=2), 1, 200),
         ("h2o-danube-1.8b reduced, window 16", reduced_config(get_config("h2o-danube-1.8b")), 2, 40),
+        ("granite-moe-1b-a400m, full width, 2 layers",
+         dataclasses.replace(get_config("granite-moe-1b-a400m"), num_layers=2), 1, 200),
+        (f"deepseek-v2, full widths, 2 layers (dense + MoE), {DEEPSEEK_SMALL_EXPERTS} routed experts",
+         dataclasses.replace(deepseek, num_layers=2,
+                             moe=dataclasses.replace(deepseek.moe, num_experts=DEEPSEEK_SMALL_EXPERTS)), 1, 64),
     )
     steps = 8
     for label, cfg, batch, plen in cases:
@@ -1153,55 +1278,61 @@ def check_lm_small(torch, dev, ops, log) -> None:
         ops.reset_launch_counts()
         lg_card, c_card = card_model.prefill({"tokens": prompt.to(dev)}, cache_len=plen + steps)
         flash = ops.launch_counts()["flash_attention"]
-        lg_cpu, c_cpu = cpu_model.prefill({"tokens": prompt}, cache_len=plen + steps)
-        gaps = [compare(torch, lg_card.cpu(), lg_cpu, LOGIT_TOL["rtol"], LOGIT_TOL["atol"], f"{label}: prefill logits")]
-        tok = torch.argmax(lg_card[:, -1], dim=-1)[:, None]
-        _decided(torch, lg_cpu[:, -1], tok[:, 0].cpu())
-        tokens = [tok]
-        for i in range(steps - 1):
-            lg_card, c_card = card_model.decode_step(c_card, tok, plen + i)
-            lg_cpu, c_cpu = cpu_model.decode_step(c_cpu, tok.cpu(), plen + i)
-            gaps.append(compare(torch, lg_card.cpu(), lg_cpu, LOGIT_TOL["rtol"], LOGIT_TOL["atol"],
-                                f"{label}: decode step {i} logits"))
-            tok = torch.argmax(lg_card[:, -1], dim=-1)[:, None]
-            _decided(torch, lg_cpu[:, -1], tok[:, 0].cpu())
-            tokens.append(tok)
+        with RouteWatch(torch, dev, label) as routes:
+            lg_cpu, c_cpu = cpu_model.prefill({"tokens": prompt}, cache_len=plen + steps)
+            gaps = []
+            try:
+                gaps.append(compare(torch, lg_card.cpu(), lg_cpu, LOGIT_TOL["rtol"], LOGIT_TOL["atol"],
+                                    f"{label}: prefill logits"))
+                tok = torch.argmax(lg_card[:, -1], dim=-1)[:, None]
+                _decided(torch, lg_cpu[:, -1], tok[:, 0].cpu())
+                tokens = [tok]
+                for i in range(steps - 1):
+                    lg_card, c_card = card_model.decode_step(c_card, tok, plen + i)
+                    lg_cpu, c_cpu = cpu_model.decode_step(c_cpu, tok.cpu(), plen + i)
+                    gaps.append(compare(torch, lg_card.cpu(), lg_cpu, LOGIT_TOL["rtol"], LOGIT_TOL["atol"],
+                                        f"{label}: decode step {i} logits"))
+                    tok = torch.argmax(lg_card[:, -1], dim=-1)[:, None]
+                    _decided(torch, lg_cpu[:, -1], tok[:, 0].cpu())
+                    tokens.append(tok)
+            except AssertionError as e:
+                raise routes.blame(e) from e
         tokens = torch.cat(tokens, dim=1)
         if not torch.equal(generate(card_model, prompt.to(dev), steps=steps), tokens.to(torch.int32)):
             raise AssertionError(f"{label}: generate's greedy tokens differ from the teacher-forced loop's")
-        if flash != cfg.num_layers:
-            raise AssertionError(f"{label}: {flash} flash launches in one prefill of {cfg.num_layers} layers")
+        want_flash = 0 if cfg.attention == "mla" else cfg.num_layers
+        if flash != want_flash:
+            raise AssertionError(f"{label}: {flash} flash launches in one prefill of {cfg.num_layers} layers, "
+                                 f"not {want_flash}")
+        if cfg.moe is not None and not routes.calls:
+            raise AssertionError(f"{label}: no MoE route was compared")
         log(json.dumps({"check": f"lm card vs plain: {label}", "batch": batch, "prompt": plen,
                         "logits_max_abs_gap": max(gaps), "tokens": tokens.tolist(),
-                        "flash_launches_per_prefill": flash}))
-        del card_model, c_card
+                        "flash_launches_per_prefill": flash,
+                        **(routes.summary() if cfg.moe is not None else {})}))
+        del card_model, c_card, cpu_model, c_cpu
 
 
-def check_train_small(torch, dev, ops, log) -> None:
-    """Training on the card against the CPU: qwen2-0.5b at full width
-    (vocab 151,936) cut to 2 layers, B 2, L 32, the same weights and batch.
-    The loss, and every parameter's gradient (nonzero on the card); remat
-    ``full`` and ``dots`` against ``none``, bit for bit wherever two
-    ``none`` runs are; 2 microbatches' accumulated gradients against 1's,
-    and against a planted fault (the second microbatch dropped) that the
-    check must catch; one AdamW step on the same gradients; a bitwise checkpoint round trip of (params, opt state). No
-    flash launch, and the flash wrapper refuses an operand that requires
-    grad."""
-    import tempfile
-
-    from repro_torch.checkpoint import checkpointer as ckpt
-    from repro_torch.configs import ShapeConfig, get_config
+def _train_vs_cpu(torch, dev, log, label: str, cfg):
+    """Loss, router aux loss and every gradient of ``cfg`` on the card
+    against the CPU (B 2, L 32, the same weights and batch), MoE routes held
+    to the CPU's; remat ``full`` and ``dots`` against ``none``, bit for bit
+    wherever two ``none`` runs are. Returns (CPU model, card batch, card
+    loss, card gradients, CPU gradients)."""
+    from repro_torch.configs import ShapeConfig
     from repro_torch.data.pipeline import SyntheticTokenSource, device_put_batch
     from repro_torch.models.transformer import Model
-    from repro_torch.train.optimizer import AdamWConfig, adamw_update, init_opt_state
     from repro_torch.train.train_step import accumulate_grads
 
-    cfg = dataclasses.replace(get_config("qwen2-0.5b"), num_layers=2)
     cpu = torch.device("cpu")
     cpu_model = Model(cfg, remat="none")
     cpu_model.init(torch.Generator().manual_seed(0))
     batch_np = SyntheticTokenSource(cfg, ShapeConfig("smoke", 32, 2, "train")).batch_at(0)
-    loss_cpu, g_cpu = accumulate_grads(cpu_model, device_put_batch(batch_np, cpu), 1)
+    batch_cpu = device_put_batch(batch_np, cpu)
+    with RouteWatch(torch, dev, f"train {label}") as routes:
+        loss_cpu, g_cpu = accumulate_grads(cpu_model, batch_cpu, 1)
+        with torch.no_grad():
+            _, aux_cpu = cpu_model.hidden(cpu_model.embed_input(batch_cpu))
     batch = device_put_batch(batch_np, dev)
 
     def card_model(remat: str = "none") -> "Model":
@@ -1209,35 +1340,85 @@ def check_train_small(torch, dev, ops, log) -> None:
         m.params = copy.deepcopy(cpu_model.params).to(dev)
         return m
 
-    ops.reset_launch_counts()
     runs = {name: accumulate_grads(card_model(name.split()[0]), batch, 1)
             for name in ("none", "none again", "full", "dots")}
     loss, grads = runs["none"]
+    m = card_model()
+    with torch.no_grad():
+        _, aux = m.hidden(m.embed_input(batch))
+    del m
     loss_gap = abs(float(loss) - float(loss_cpu)) / abs(float(loss_cpu))
-    if not math.isfinite(float(loss)) or loss_gap > TRAIN_LOSS_RTOL:
-        raise AssertionError(f"train: card loss {float(loss)} against the CPU's {float(loss_cpu)}")
-    worst = 0.0
-    for name, g in grads.items():
-        if not bool(torch.isfinite(g).all()) or float(g.abs().max()) == 0.0:
-            raise AssertionError(f"train: the card's gradient of {name} is zero or not finite")
-        want = g_cpu[name].to(dev)
-        gap = float(torch.linalg.norm(g - want) / torch.linalg.norm(want))
-        worst = max(worst, gap)
-        if gap > TRAIN_GRAD_NORM_RTOL:
-            raise AssertionError(f"train: gradient of {name}: relative norm error {gap:.3e} against the CPU's")
+    aux_gap = abs(float(aux) - float(aux_cpu)) / max(abs(float(aux_cpu)), 1e-30)
+    try:
+        if not math.isfinite(float(loss)) or loss_gap > TRAIN_LOSS_RTOL:
+            raise AssertionError(f"train {label}: card loss {float(loss)} against the CPU's {float(loss_cpu)}")
+        if cfg.moe is not None and (aux_gap > TRAIN_LOSS_RTOL or not float(aux_cpu) > 0):
+            raise AssertionError(f"train {label}: card aux loss {float(aux)} against the CPU's {float(aux_cpu)}")
+        worst = 0.0
+        for name, g in grads.items():
+            if not bool(torch.isfinite(g).all()) or float(g.abs().max()) == 0.0:
+                raise AssertionError(f"train {label}: the card's gradient of {name} is zero or not finite")
+            want = g_cpu[name].to(dev)
+            gap = float(torch.linalg.norm(g - want) / torch.linalg.norm(want))
+            worst = max(worst, gap)
+            if gap > TRAIN_GRAD_NORM_RTOL:
+                raise AssertionError(f"train {label}: gradient of {name}: relative norm error {gap:.3e} "
+                                     "against the CPU's")
+    except AssertionError as e:
+        raise routes.blame(e) from e
     bitwise = {}
     for name in ("none again", "full", "dots"):
         l_r, g_r = runs[name]
         bitwise[name] = bool(torch.equal(l_r, loss)) and all(torch.equal(g_r[k], grads[k]) for k in grads)
         gap = max(float(torch.linalg.norm(g_r[k] - grads[k]) / torch.linalg.norm(grads[k])) for k in grads)
         if gap > TRAIN_GRAD_NORM_RTOL or (bitwise["none again"] and not bitwise[name]):
-            raise AssertionError(f"train: remat {name} differs from none (relative norm error {gap:.3e}; "
+            raise AssertionError(f"train {label}: remat {name} differs from none (relative norm error {gap:.3e}; "
                                  f"two none runs bitwise: {bitwise['none again']})")
     del runs
+    if cfg.moe is not None and not routes.calls:
+        raise AssertionError(f"train {label}: no MoE route was compared")
+    log(json.dumps({"check": f"train card vs plain: {label}", "batch": 2, "seq": 32,
+                    "loss": float(loss), "loss_rel_gap": loss_gap, "aux": float(aux), "aux_rel_gap": aux_gap,
+                    "grad_worst_rel_norm_err": worst, "params_with_grad": len(grads), "bitwise_vs_none": bitwise,
+                    **(routes.summary() if cfg.moe is not None else {})}))
+    return cpu_model, batch, loss, grads, g_cpu
+
+
+def check_train_small(torch, dev, ops, log) -> None:
+    """Training on the card against the CPU, the same weights and batch
+    (``_train_vs_cpu``): qwen2-0.5b and granite-moe-1b-a400m, each at full
+    width (vocab 151,936 / 49,155) cut to 2 layers, B 2, L 32. Then, on
+    qwen2 only, 2 microbatches' accumulated gradients against 1's, and
+    against a planted fault (the second microbatch dropped) that the check
+    must catch; one AdamW step on the same gradients; a bitwise checkpoint
+    round trip of (params, opt state). No flash launch, and the flash
+    wrapper refuses an operand that requires grad."""
+    import tempfile
+
+    from repro_torch.checkpoint import checkpointer as ckpt
+    from repro_torch.configs import get_config
+    from repro_torch.train.optimizer import AdamWConfig, adamw_update, init_opt_state
+    from repro_torch.train.train_step import accumulate_grads
+
+    ops.reset_launch_counts()
+    granite = dataclasses.replace(get_config("granite-moe-1b-a400m"), num_layers=2)
+    _train_vs_cpu(torch, dev, log, "granite-moe-1b-a400m, full width, 2 layers", granite)
+    cfg = dataclasses.replace(get_config("qwen2-0.5b"), num_layers=2)
+    cpu_model, batch, loss, grads, g_cpu = _train_vs_cpu(torch, dev, log, "qwen2-0.5b, full width, 2 layers", cfg)
+
+    def card_model() -> "Model":
+        from repro_torch.models.transformer import Model
+
+        m = Model(cfg, remat="none")
+        m.params = copy.deepcopy(cpu_model.params).to(dev)
+        return m
 
     def worst_gap(got: dict, want: dict) -> float:
         return max(float(torch.linalg.norm(got[k] - want[k]) / torch.linalg.norm(want[k])) for k in want)
 
+    # 2 microbatches against 1, on qwen2 only: an MoE layer's capacity is per
+    # microbatch and its load-balance loss is not linear over microbatches
+    # (as in the reference), so on granite the two do not agree
     m = card_model()
     loss_micro, g_micro = accumulate_grads(m, batch, 2)
     loss_gap_micro = abs(float(loss_micro) - float(loss))
@@ -1286,9 +1467,7 @@ def check_train_small(torch, dev, ops, log) -> None:
     flash = ops.launch_counts()["flash_attention"]
     if flash:
         raise AssertionError(f"train: {flash} flash launches in the training checks")
-    log(json.dumps({"check": "train card vs plain: qwen2-0.5b, full width, 2 layers", "batch": 2, "seq": 32,
-                    "loss": float(loss), "loss_rel_gap": loss_gap, "grad_worst_rel_norm_err": worst,
-                    "params_with_grad": len(grads), "bitwise_vs_none": bitwise,
+    log(json.dumps({"check": "train card vs plain, qwen2-0.5b: microbatches, AdamW, checkpoint, flash guard",
                     "microbatch_loss_gap": loss_gap_micro, "microbatch_grad_worst_rel_norm_err": grad_gap_micro,
                     "microbatch_dropped_fault_rel_norm_err": fault_gap,
                     "adamw_max_abs_err": adamw_gap, "grad_norm": float(met["grad_norm"]),
@@ -1297,83 +1476,190 @@ def check_train_small(torch, dev, ops, log) -> None:
     del params, params_cpu, st, st_cpu, got_p, got_st, cpu_model
 
 
-def run_train(torch, dev, ops, train, log) -> dict[str, int]:
+def run_train(torch, dev, ops, train, log, arch: str) -> dict[str, int]:
     """The training path at full width; counts reset just before, read just after."""
     import statistics
 
     from repro_torch.configs import get_config
 
-    cfg = get_config(TRAIN_ARCH)
+    cfg = get_config(arch)
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
-    out = train.main(TRAIN_ARGS)
+    out = train.main(train_args(arch))
     counts = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     losses, norms, walls = out["losses"], out["grad_norms"], out["step_seconds"]
     median = statistics.median(walls)
     tokens = TRAIN_BATCH * TRAIN_SEQ
     n_params = sum(p.numel() for p in out["params"].parameters())
-    # matmul work of a step: 6 flops a parameter a token (forward and backward; the tied table is the LM head)
-    bound, bound_by = bound_ms(0, 6 * n_params * tokens)
-    log(json.dumps({"train": f"{TRAIN_ARCH} full width", "layers": cfg.num_layers, "params": n_params,
-                    "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "microbatches": TRAIN_MICRO, "steps": len(losses),
+    # matmul work of a step: 6 flops a parameter a token (forward and
+    # backward), counting each MoE layer's active experts (top-k of them)
+    n_active = cfg.active_param_count() if cfg.moe is not None else n_params
+    bound, bound_by = bound_ms(0, 6 * n_active * tokens)
+    log(json.dumps({"train": f"{arch} full width", "layers": cfg.num_layers, "params": n_params,
+                    "active_params": n_active, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+                    "microbatches": TRAIN_MICRO, "steps": len(losses),
                     "losses": losses, "grad_norms": norms, "step_seconds": walls, "median_step_s": median,
                     "tokens_per_s_median": tokens / median, "tokens_per_s": out["tokens_per_s"],
                     "step_bound_ms": bound, "step_bound_by": bound_by, "max_memory_allocated": peak,
                     "launches": counts, "card": smi_line()}))
     if len(losses) != TRAIN_STEPS or not all(math.isfinite(x) for x in losses + norms):
-        raise AssertionError(f"train: losses {losses}, grad norms {norms}")
+        raise AssertionError(f"train {arch}: losses {losses}, grad norms {norms}")
     if not losses[-1] < losses[0]:
-        raise AssertionError(f"train: the loss did not fall: {losses[0]} -> {losses[-1]}")
+        raise AssertionError(f"train {arch}: the loss did not fall: {losses[0]} -> {losses[-1]}")
     if not all(bool(torch.isfinite(p).all()) for p in out["params"].parameters()):
-        raise AssertionError("train: non-finite parameters after training")
+        raise AssertionError(f"train {arch}: non-finite parameters after training")
     if any(counts.values()):
-        raise AssertionError(f"train: kernel launches on the training path: {counts}")
+        raise AssertionError(f"train {arch}: kernel launches on the training path: {counts}")
     del out
     return counts
 
 
-def run_serve(torch, dev, ops, serve, log) -> dict[str, int]:
+class DropCount:
+    """Count the dropped MoE slots of every ``models.moe.route`` call made
+    while active, by batch row (``rows`` rows of the same length; one host
+    read a call)."""
+
+    def __init__(self, rows: int):
+        from repro_torch.models import moe
+
+        self.moe, self.rows, self.by_call = moe, rows, []
+
+    def __enter__(self) -> "DropCount":
+        self.real = self.moe.route
+
+        def spy(params, xt, cfg, capacity):
+            r = self.real(params, xt, cfg, capacity)
+            self.by_call.append((~r.keep).view(self.rows, -1).sum(dim=1).tolist())
+            return r
+
+        self.moe.route = spy
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.moe.route = self.real
+
+    def by_row(self) -> list[int]:
+        return [sum(call[b] for call in self.by_call) for b in range(self.rows)]
+
+
+def run_serve(torch, dev, ops, serve, log, arch: str) -> dict[str, int]:
     """The serve path at full width; counts reset just before, read just
     after. Then a teacher-forced check with the same weights: decode-step
     logits (plain attention over the cache) against the last row of a flash
-    prefill of the extended sequence."""
+    prefill of the extended sequence, with each prefill's dropped MoE slots
+    (capacity factor 2.0, as decode)."""
     from repro_torch.configs import get_config
 
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
-    out = serve.main(SERVE_ARGS)
+    out = serve.main(serve_args(arch))
     counts = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     tokens = out["tokens"]
     new = SERVE_BATCH * (SERVE_TOKENS - 1)
-    log(json.dumps({"serve": f"{SERVE_ARCH} full width", "batch": SERVE_BATCH, "prompt": SERVE_PROMPT,
+    log(json.dumps({"serve": f"{arch} full width", "batch": SERVE_BATCH, "prompt": SERVE_PROMPT,
                     "tokens": SERVE_TOKENS, "wall_s": out["seconds"], "prefill_s": out["prefill_s"],
                     "decode_s": out["decode_s"], "decode_tokens_per_s": new / out["decode_s"],
                     "tokens_per_s": SERVE_BATCH * SERVE_TOKENS / out["seconds"],
                     "max_memory_allocated": peak, "launches": counts,
                     "sample": tokens[0].tolist()}))
-    cfg = get_config(SERVE_ARCH)
+    cfg = get_config(arch)
     if tuple(tokens.shape) != (SERVE_BATCH, SERVE_TOKENS):
-        raise AssertionError(f"serve: tokens of shape {tuple(tokens.shape)}")
+        raise AssertionError(f"serve {arch}: tokens of shape {tuple(tokens.shape)}")
     if counts["flash_attention"] != cfg.num_layers:
-        raise AssertionError(f"serve: {counts['flash_attention']} flash launches for one prefill of "
+        raise AssertionError(f"serve {arch}: {counts['flash_attention']} flash launches for one prefill of "
                              f"{cfg.num_layers} layers")
 
     model, prompt, _, _ = serve.setup(cfg, SERVE_BATCH, SERVE_PROMPT, dev, seed=0)
-    lg, caches = model.prefill({"tokens": prompt}, cache_len=SERVE_PROMPT + 2)
-    _decided(torch, lg[:, -1], tokens[:, 0])
-    gaps = []
+    with DropCount(SERVE_BATCH) as drops:
+        lg, caches = model.prefill({"tokens": prompt}, cache_len=SERVE_PROMPT + 2)
+    row_drops = drops.by_row()
+    dropped = [sum(row_drops)]
+    gaps, dropped_row_gaps = [], []
     for i in range(2):
         lg_dec, caches = model.decode_step(caches, tokens[:, i:i + 1], SERVE_PROMPT + i)
         seq = torch.cat([prompt, tokens[:, :i + 1].long()], dim=1)
-        lg_full, _ = model.prefill({"tokens": seq})
-        gaps.append(compare(torch, lg_dec, lg_full, LOGIT_TOL["rtol"], LOGIT_TOL["atol"],
-                            f"serve: decode step {i} vs flash prefill of {seq.shape[1]} tokens"))
-        _decided(torch, lg_dec[:, -1], tokens[:, i + 1])
-    log(json.dumps({"check": "serve decode vs flash prefill, teacher-forced", "steps": 2,
-                    "logits_max_abs_gap": max(gaps), "logits_max_abs": float(lg_full.abs().max())}))
+        with DropCount(SERVE_BATCH) as drops:
+            lg_full, _ = model.prefill({"tokens": seq})
+        dropped.append(sum(drops.by_row()))
+        row_drops = [a + b for a, b in zip(row_drops, drops.by_row())]
+        # a row whose tokens kept every MoE slot in both prefills is computed
+        # alike by both: its slots never pass an expert's capacity (decode's
+        # batch of 4 never does). A row with a dropped slot is not: the
+        # prefill dropped what decode keeps. Queues fill in batch order, so
+        # the first capacity / prompt rows always keep theirs.
+        rows = [b for b in range(SERVE_BATCH) if row_drops[b] == 0]
+        if not rows:
+            raise AssertionError(f"serve {arch}: every row dropped MoE slots ({row_drops}); nothing to compare")
+        what = f"serve {arch}: decode step {i} vs flash prefill of {seq.shape[1]} tokens, rows {rows}"
+        gaps.append(compare(torch, lg_dec[rows], lg_full[rows], LOGIT_TOL["rtol"], LOGIT_TOL["atol"], what))
+        _decided(torch, lg_dec[rows, -1], tokens[rows, i + 1])
+        if len(rows) < SERVE_BATCH:
+            dropped_row_gaps.append(float((lg_dec - lg_full).abs().amax(dim=(1, 2)).max()))
+    log(json.dumps({"check": f"serve {arch} decode vs flash prefill, teacher-forced", "steps": 2,
+                    "logits_max_abs_gap": max(gaps), "logits_max_abs": float(lg_full.abs().max()),
+                    **({"dropped_slots_by_prefill": dropped, "dropped_slots_by_row": row_drops,
+                        "rows_compared": rows, "max_abs_gap_with_dropped_rows": max(dropped_row_gaps, default=0.0)}
+                       if cfg.moe is not None else {})}))
     del model, caches
+    return counts
+
+
+def run_deepseek_serve(torch, dev, ops, log) -> dict[str, int]:
+    """deepseek-v2 at its published widths (MLA, 160 routed and 2 shared
+    experts) cut to 2 layers, on the card only: ``generate`` with counts reset
+    just before, read just after (no flash launch: MLA takes plain
+    attention); then the absorbed MLA decode's logits, teacher-forced,
+    against the last row of the expanded full forward of the extended
+    sequence, routed at a capacity factor of E / top_k + 1, where every
+    expert has a slot for every token and none can drop (the reference's
+    ``test_decode_matches_full_forward`` aligns its capacity factor the same
+    way): a prefill of 257 tokens at 2.0 has 19 slots an expert and may drop
+    the newest token's, which the decode step keeps."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import setup
+    from repro_torch.models.transformer import Model
+    from repro_torch.serve.decode import generate
+
+    full = get_config("deepseek-v2-236b")
+    cfg = dataclasses.replace(full, num_layers=DEEPSEEK_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    model, prompt, _, _ = setup(cfg, 1, DEEPSEEK_PROMPT, dev, seed=0)
+    n_params = sum(p.numel() for p in model.params.parameters())
+    timings: dict = {}
+    ops.reset_launch_counts()
+    t0 = sync_wall(torch)
+    tokens = generate(model, prompt, steps=DEEPSEEK_TOKENS, timings=timings)
+    wall = sync_wall(torch) - t0
+    counts = ops.launch_counts()
+    if any(counts.values()):
+        raise AssertionError(f"deepseek serve: kernel launches {counts} (MLA takes no kernel)")
+    aligned = Model(dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k + 1)))
+    aligned.params = model.params
+    with DropCount(1) as drops:
+        lg, caches = model.prefill({"tokens": prompt}, cache_len=DEEPSEEK_PROMPT + DEEPSEEK_TOKENS)
+    prefill_dropped = sum(drops.by_row())
+    gaps = []
+    for i in range(DEEPSEEK_TOKENS - 1):
+        lg_dec, caches = model.decode_step(caches, tokens[:, i:i + 1], DEEPSEEK_PROMPT + i)
+        seq = torch.cat([prompt, tokens[:, :i + 1].long()], dim=1)
+        with DropCount(1) as drops:
+            h, _ = aligned.backbone(aligned.embed_input({"tokens": seq}))
+        if any(drops.by_row()):
+            raise AssertionError(f"deepseek serve: the aligned forward dropped {drops.by_row()} slots")
+        gaps.append(compare(torch, lg_dec, aligned.logits(h[:, -1:]), LOGIT_TOL["rtol"], LOGIT_TOL["atol"],
+                            f"deepseek serve: absorbed decode step {i} vs the expanded forward of {seq.shape[1]}"))
+        _decided(torch, lg_dec[:, -1], tokens[:, i + 1])
+    peak = torch.cuda.max_memory_allocated()
+    log(json.dumps({"serve": f"deepseek-v2 full widths, {DEEPSEEK_LAYERS} layers", "params": n_params,
+                    "batch": 1, "prompt": DEEPSEEK_PROMPT, "tokens": DEEPSEEK_TOKENS, "wall_s": wall,
+                    "prefill_s": timings["prefill_s"], "decode_s": timings["decode_s"],
+                    "sample": tokens[0].tolist(), "launches": counts,
+                    "decode_vs_expanded_max_abs_gap": max(gaps), "logits_max_abs": float(lg_dec.abs().max()),
+                    "prefill_dropped_slots": prefill_dropped, "max_memory_allocated": peak}))
+    del model, aligned, caches
     return counts
 
 
@@ -1493,8 +1779,11 @@ def main() -> int:
     by_path.update(run_multi_rank_searches(torch, log))
     by_path.update(run_rescalk_searches(torch, dev, ops, log))
     by_path.update({f"kmeans_{ex}": run_kmeans_search(torch, dev, ops, ex, log) for ex in ("threads", "batched")})
-    by_path["serve"] = run_serve(torch, dev, ops, serve, log)
-    by_path["qwen2_train"] = run_train(torch, dev, ops, train, log)
+    by_path["serve"] = run_serve(torch, dev, ops, serve, log, "qwen2-0.5b")
+    by_path["granite_serve"] = run_serve(torch, dev, ops, serve, log, "granite-moe-1b-a400m")
+    by_path["deepseek_serve_2l"] = run_deepseek_serve(torch, dev, ops, log)
+    by_path["qwen2_train"] = run_train(torch, dev, ops, train, log, "qwen2-0.5b")
+    by_path["granite_train"] = run_train(torch, dev, ops, train, log, "granite-moe-1b-a400m")
 
     kernels = []
     for name, (source, replaces) in SOURCES.items():

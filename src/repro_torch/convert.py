@@ -66,11 +66,19 @@ def factors_from_reference(w, h, device: str | torch.device | None = None) -> tu
 
 def _tree(node, device: torch.device, index: int | None = None) -> nn.Module:
     """A ModuleDict / ParameterDict of a nested dict of arrays, taking
-    ``[index]`` of every array when given (one repeat of a stacked segment)."""
+    ``[index]`` of every array when given (one repeat of a stacked segment).
+    A node of sub-dicts only is a ModuleDict; a node holding arrays is a
+    ParameterDict, with any sub-dicts beside them (MLA's ``q_norm``, the MoE
+    FFN's ``shared``) as submodules."""
     if all(isinstance(v, dict) for v in node.values()):
         return nn.ModuleDict({k: _tree(v, device, index) for k, v in node.items()})
-    arrays = {k: np.asarray(v) if index is None else np.asarray(v)[index] for k, v in node.items()}
-    return frozen(**{k: to_tensor(a, device) for k, a in arrays.items()})
+
+    def entry(v):
+        if isinstance(v, dict):
+            return _tree(v, device, index)
+        return to_tensor(np.asarray(v) if index is None else np.asarray(v)[index], device)
+
+    return frozen(**{k: entry(v) for k, v in node.items()})
 
 
 def model_params_from_reference(params, cfg: ArchConfig, device: str | torch.device | None = None) -> nn.ModuleDict:

@@ -1,2 +1,2 @@
-"""The LM substrate of the port: dense GQA decoder, prefill and decode."""
+"""The LM substrate of the port: the decoder (GQA or MLA attention, dense or MoE FFN), prefill and decode."""
 from .transformer import Model, build_segments  # noqa: F401

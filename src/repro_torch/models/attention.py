@@ -1,5 +1,6 @@
-"""GQA attention mixer (+RoPE, sliding window, QKV bias): full-sequence,
-prefill and KV-cache decode paths.
+"""Attention mixers: GQA (+RoPE, sliding window, QKV bias) and DeepSeek-V2
+MLA (multi-head latent attention), full-sequence, prefill and KV-cache
+decode paths.
 
 The serve prefill (``gqa_prefill``) runs the hand-written flash-attention
 kernel (``kernels.ops.flash_attention``) on a CUDA tensor and the plain
@@ -14,7 +15,12 @@ slots, entry at absolute position p in slot ``p % s``. ``gqa_decode``
 writes the new entry into the cache in place (the reference returns an
 updated copy) and returns the same cache.
 
-MLA (DeepSeek-V2) is not ported yet (ROADMAP Queue 1 M4).
+MLA's full-sequence forward and prefill expand the latent and take the
+plain ``_sdpa_auto`` on every device, as the reference's do: its qk head
+(nope + rope, 192 at full width) is wider than its v head (128), which the
+flash kernel does not take. Its decode is the absorbed-matmul form against
+the cached latent (``kv_lora_rank + qk_rope_head_dim`` wide), written in
+place at ``pos`` as ``gqa_decode`` does.
 """
 from __future__ import annotations
 
@@ -26,7 +32,7 @@ from torch import nn
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops as kops
 
-from .layers import dense_init, frozen
+from .layers import dense_init, frozen, rmsnorm, rmsnorm_init
 
 _NEG = -1e30
 
@@ -228,4 +234,112 @@ def gqa_decode(
     kv_len = min(pos + 1, s) if cfg.window is not None else pos + 1
     out = _sdpa(q, cache.k, cache.v, causal=False, window=None, q_offset=pos, kv_len=kv_len)
     y = torch.einsum("blhk,hkd->bld", out, params["wo"])
+    return y, cache
+
+
+# =============================================================================
+# MLA (DeepSeek-V2)
+# =============================================================================
+class MLACache(NamedTuple):
+    ckv: torch.Tensor  # (B, S, kv_lora + rope_dim): latent ‖ roped shared key
+
+
+def mla_init(gen: torch.Generator, cfg: ArchConfig, dtype=torch.float32) -> nn.ParameterDict:
+    m = cfg.mla
+    d, h = cfg.d_model, cfg.num_heads
+    qk_head = m.qk_nope_head_dim + m.qk_rope_head_dim
+    return frozen(
+        wq_a=dense_init(gen, (d, m.q_lora_rank), d, dtype),
+        q_norm=rmsnorm_init(m.q_lora_rank, gen.device),
+        wq_b=dense_init(gen, (m.q_lora_rank, h, qk_head), m.q_lora_rank, dtype),
+        wkv_a=dense_init(gen, (d, m.kv_lora_rank + m.qk_rope_head_dim), d, dtype),
+        kv_norm=rmsnorm_init(m.kv_lora_rank, gen.device),
+        wkv_b=dense_init(gen, (m.kv_lora_rank, h, m.qk_nope_head_dim + m.v_head_dim), m.kv_lora_rank, dtype),
+        wo=dense_init(gen, (h, m.v_head_dim, d), h * m.v_head_dim, dtype),
+    )
+
+
+def _mla_latent(params, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor):
+    """(c_kv, k_rope): the normed latent (B, L, kv_lora) and the roped shared key (B, L, rope_dim)."""
+    r = cfg.mla.kv_lora_rank
+    kv = x @ params["wkv_a"]  # (B, L, kv_lora + rdim)
+    c_kv = rmsnorm(params["kv_norm"], kv[..., :r], cfg.norm_eps)
+    k_rope = rope(kv[..., r:][:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
+    return c_kv, k_rope
+
+
+def _mla_project(params, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor):
+    nope = cfg.mla.qk_nope_head_dim
+    q = rmsnorm(params["q_norm"], x @ params["wq_a"], cfg.norm_eps)
+    q = torch.einsum("blr,rhk->blhk", q, params["wq_b"])
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    q_rope = rope(q_rope, positions, cfg.rope_theta)
+    c_kv, k_rope = _mla_latent(params, x, cfg, positions)
+    return q_nope, q_rope, c_kv, k_rope
+
+
+def mla_forward(params, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor | None = None) -> torch.Tensor:
+    """Train/prefill: expand the latent and run standard MHA."""
+    m = cfg.mla
+    b, l, _ = x.shape
+    positions = torch.arange(l, device=x.device) if positions is None else positions
+    q_nope, q_rope, c_kv, k_rope = _mla_project(params, x, cfg, positions)
+    kvb = torch.einsum("blr,rhk->blhk", c_kv, params["wkv_b"])
+    k_nope, v = kvb[..., : m.qk_nope_head_dim], kvb[..., m.qk_nope_head_dim :]
+    k_rope_h = k_rope[:, :, None, :].expand(b, l, cfg.num_heads, m.qk_rope_head_dim)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope_h], dim=-1)
+    scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
+    out = _sdpa_auto(q, k, v, causal=True, window=None, scale=scale)
+    return torch.einsum("blhv,hvd->bld", out, params["wo"])
+
+
+def mla_cache_init(cfg: ArchConfig, batch: int, seq_len: int, dtype=torch.float32, device=None) -> MLACache:
+    m = cfg.mla
+    return MLACache(ckv=torch.zeros((batch, seq_len, m.kv_lora_rank + m.qk_rope_head_dim), dtype=dtype,
+                                    device=device))
+
+
+def mla_prefill(
+    params, x: torch.Tensor, cfg: ArchConfig, cache_len: int | None = None
+) -> tuple[torch.Tensor, MLACache]:
+    b, l, _ = x.shape
+    cache_len = cache_len or l
+    positions = torch.arange(l, device=x.device)
+    y = mla_forward(params, x, cfg, positions)
+    # recompute the latents for the cache (cheap projections)
+    c_kv, k_rope = _mla_latent(params, x, cfg, positions)
+    cache = mla_cache_init(cfg, b, cache_len, c_kv.dtype, x.device)
+    cache.ckv[:, :l] = torch.cat([c_kv, k_rope], dim=-1)
+    return y, cache
+
+
+def mla_decode(
+    params,
+    x: torch.Tensor,  # (B, 1, d)
+    cache: MLACache,
+    pos: int,
+    cfg: ArchConfig,
+) -> tuple[torch.Tensor, MLACache]:
+    """Absorbed-matmul MLA decode: attention reads are against the latent,
+    not H x head_dim expanded keys. The cache is updated in place."""
+    m = cfg.mla
+    nope, rdim = m.qk_nope_head_dim, m.qk_rope_head_dim
+    posb = torch.tensor([pos], device=x.device)
+    q_nope, q_rope, c_kv_new, k_rope_new = _mla_project(params, x, cfg, posb)
+    s_len = cache.ckv.shape[1]
+    cache.ckv[:, min(pos, s_len - 1)] = torch.cat([c_kv_new, k_rope_new], dim=-1)[:, 0]
+    c, kr = cache.ckv[..., : m.kv_lora_rank], cache.ckv[..., m.kv_lora_rank :]
+    w_uk = params["wkv_b"][..., :nope]  # (r, h, nope)
+    w_uv = params["wkv_b"][..., nope:]  # (r, h, vdim)
+    # absorb W_UK into the query: q_c (B, 1, H, r)
+    q_c = torch.einsum("bqhd,rhd->bqhr", q_nope, w_uk)
+    scale = (nope + rdim) ** -0.5
+    s = (torch.einsum("bqhr,bsr->bhqs", q_c.float(), c.float())
+         + torch.einsum("bqhr,bsr->bhqs", q_rope.float(), kr.float())) * scale
+    mask = torch.arange(s_len, device=x.device) < pos + 1
+    p = torch.softmax(torch.where(mask, s, _NEG), dim=-1)
+    ctx_c = torch.einsum("bhqs,bsr->bqhr", p, c.float()).to(x.dtype)
+    ctx = torch.einsum("bqhr,rhv->bqhv", ctx_c, w_uv)
+    y = torch.einsum("bqhv,hvd->bqd", ctx, params["wo"])
     return y, cache

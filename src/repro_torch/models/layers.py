@@ -18,9 +18,13 @@ import torch.nn.functional as F
 from torch import nn
 
 
-def frozen(**tensors: torch.Tensor) -> nn.ParameterDict:
-    """A ParameterDict of inference-only parameters."""
-    return nn.ParameterDict({k: nn.Parameter(t, requires_grad=False) for k, t in tensors.items()})
+def frozen(**entries: torch.Tensor | nn.Module) -> nn.ParameterDict:
+    """A ParameterDict of inference-only parameters. An entry that is a
+    module (a sub-dict of the reference's tree, such as MLA's ``q_norm`` or
+    the MoE FFN's ``shared``) is held as a submodule, so parameter names are
+    the reference's key paths (``mixer.q_norm.scale``)."""
+    return nn.ParameterDict({k: v if isinstance(v, nn.Module) else nn.Parameter(v, requires_grad=False)
+                             for k, v in entries.items()})
 
 
 # -----------------------------------------------------------------------------

@@ -8,12 +8,16 @@ loop walks it. Parameters keep the reference's names:
 ``params["seg{i}"][r]["l{j}"]["mixer"]["wq"]`` is the reference's
 ``params["seg{i}"]["l{j}"]["mixer"]["wq"][r]``.
 
-Ported: the attention mixer (GQA) and the dense SwiGLU FFN, for serving
-(``backbone``, ``prefill``, ``decode_step``, under ``inference_mode``) and
-for training (``loss_fn``: the same layers with autograd on, rematerialized
-as the reference's ``remat`` asks, through ``torch.utils.checkpoint``).
-MLA, Mamba and RWKV (ROADMAP Queue 1 M4) and the MoE FFN (M3) raise
-``NotImplementedError``, and nothing else silently runs in their place.
+Ported: the attention mixers (GQA, and DeepSeek-V2's MLA), the dense
+SwiGLU FFN and the MoE FFN, for serving (``backbone``, ``prefill``,
+``decode_step``, under ``inference_mode``) and for training (``loss_fn``:
+the same layers with autograd on, rematerialized as the reference's
+``remat`` asks, through ``torch.utils.checkpoint``). An MoE layer's router
+aux loss is summed over the layers and added to the loss, as in the
+reference; prefill and decode route at capacity factor 2.0, the
+full-sequence forward at the config's. Mamba and RWKV (ROADMAP Queue 1 M4)
+raise ``NotImplementedError``, and nothing else silently runs in their
+place.
 """
 from __future__ import annotations
 
@@ -26,9 +30,9 @@ from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selectiv
 
 from repro_torch.configs.base import ArchConfig
 from . import attention as attn
+from . import moe as moe_mod
 from .layers import cross_entropy, embed_tokens, embedding_init, lm_logits, mlp, mlp_init, rmsnorm, rmsnorm_init
 
-_UNPORTED_MOE = "is not ported yet (ROADMAP Queue 1 M3)"
 _UNPORTED = "is not ported yet (ROADMAP Queue 1 M4)"
 REMAT = ("none", "full", "dots")
 
@@ -84,15 +88,11 @@ def build_segments(cfg: ArchConfig) -> tuple[Segment, ...]:
 
 def check_ported(cfg: ArchConfig, desc: LayerDesc) -> None:
     """Raise for a mixer or FFN kind the port does not have."""
-    if desc.mixer == "a" and cfg.attention == "mla":
-        raise NotImplementedError(f"{cfg.name}: the MLA attention mixer {_UNPORTED}")
     if desc.mixer == "m":
         raise NotImplementedError(f"{cfg.name}: the Mamba mixer {_UNPORTED}")
     if desc.mixer == "r" or desc.ffn == "rwkv":
         raise NotImplementedError(f"{cfg.name}: the RWKV time and channel mix {_UNPORTED}")
-    if desc.ffn == "moe":
-        raise NotImplementedError(f"{cfg.name}: the MoE FFN {_UNPORTED_MOE}")
-    if desc.mixer != "a" or desc.ffn != "dense":
+    if desc.mixer != "a" or desc.ffn not in ("dense", "moe"):
         raise NotImplementedError(f"{cfg.name}: layer {desc} {_UNPORTED}")
 
 
@@ -101,47 +101,74 @@ def check_ported(cfg: ArchConfig, desc: LayerDesc) -> None:
 # -----------------------------------------------------------------------------
 def layer_init(gen: torch.Generator, cfg: ArchConfig, desc: LayerDesc, dtype=torch.float32) -> nn.ModuleDict:
     check_ported(cfg, desc)
+    mla = cfg.attention == "mla"
     return nn.ModuleDict({
         "norm1": rmsnorm_init(cfg.d_model, gen.device),
-        "mixer": attn.gqa_init(gen, cfg, dtype),
+        "mixer": attn.mla_init(gen, cfg, dtype) if mla else attn.gqa_init(gen, cfg, dtype),
         "norm2": rmsnorm_init(cfg.d_model, gen.device),
-        "ffn": mlp_init(gen, cfg.d_model, cfg.d_ff, dtype),
+        "ffn": moe_mod.moe_init(gen, cfg, dtype) if desc.ffn == "moe" else mlp_init(gen, cfg.d_model, cfg.d_ff, dtype),
     })
 
 
-def layer_forward(params, x: torch.Tensor, cfg: ArchConfig, desc: LayerDesc) -> torch.Tensor:
-    """Full-sequence layer."""
+def _ffn(params, h: torch.Tensor, cfg: ArchConfig, desc: LayerDesc,
+         capacity_factor: float | None = None) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """The layer's FFN on h, and its weighted router aux loss (None for a dense FFN)."""
+    if desc.ffn != "moe":
+        return mlp(params, h), None
+    out, aux = moe_mod.moe_ffn(params, h, cfg, capacity_factor)
+    m = cfg.moe
+    return out, m.router_aux_weight * aux.load_balance + m.router_z_weight * aux.z_loss
+
+
+def layer_forward(params, x: torch.Tensor, cfg: ArchConfig, desc: LayerDesc) -> tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence layer. Returns (x, moe_aux): the router aux loss, 0 for a dense FFN."""
     h = rmsnorm(params["norm1"], x, cfg.norm_eps)
-    x = x + attn.gqa_forward(params["mixer"], h, cfg)
-    h2 = rmsnorm(params["norm2"], x, cfg.norm_eps)
-    return x + mlp(params["ffn"], h2)
+    if cfg.attention == "mla":
+        x = x + attn.mla_forward(params["mixer"], h, cfg)
+    else:
+        x = x + attn.gqa_forward(params["mixer"], h, cfg)
+    out, aux = _ffn(params["ffn"], rmsnorm(params["norm2"], x, cfg.norm_eps), cfg, desc)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + out, aux
 
 
 # -----------------------------------------------------------------------------
 # caches (decode)
 # -----------------------------------------------------------------------------
+Cache = attn.KVCache | attn.MLACache
+
+
 def layer_cache_init(cfg: ArchConfig, desc: LayerDesc, batch: int, seq_len: int, dtype=torch.float32,
-                     device=None) -> attn.KVCache:
+                     device=None) -> Cache:
+    if cfg.attention == "mla":
+        return attn.mla_cache_init(cfg, batch, seq_len, dtype, device)
     return attn.gqa_cache_init(cfg, batch, seq_len, dtype, device)
 
 
-def layer_decode(params, x: torch.Tensor, cache: attn.KVCache, pos: int, cfg: ArchConfig,
-                 desc: LayerDesc) -> tuple[torch.Tensor, attn.KVCache]:
+def layer_decode(params, x: torch.Tensor, cache: Cache, pos: int, cfg: ArchConfig,
+                 desc: LayerDesc) -> tuple[torch.Tensor, Cache]:
     h = rmsnorm(params["norm1"], x, cfg.norm_eps)
-    mix, cache = attn.gqa_decode(params["mixer"], h, cache, pos, cfg)
+    if cfg.attention == "mla":
+        mix, cache = attn.mla_decode(params["mixer"], h, cache, pos, cfg)
+    else:
+        mix, cache = attn.gqa_decode(params["mixer"], h, cache, pos, cfg)
     x = x + mix
-    h2 = rmsnorm(params["norm2"], x, cfg.norm_eps)
-    return x + mlp(params["ffn"], h2), cache
+    out, _ = _ffn(params["ffn"], rmsnorm(params["norm2"], x, cfg.norm_eps), cfg, desc, capacity_factor=2.0)
+    return x + out, cache
 
 
 def layer_prefill(params, x: torch.Tensor, cfg: ArchConfig, desc: LayerDesc,
-                  cache_len: int | None = None) -> tuple[torch.Tensor, attn.KVCache]:
+                  cache_len: int | None = None) -> tuple[torch.Tensor, Cache]:
     """Full-seq forward that also emits the decode cache for this layer."""
     h = rmsnorm(params["norm1"], x, cfg.norm_eps)
-    mix, cache = attn.gqa_prefill(params["mixer"], h, cfg, cache_len)
+    if cfg.attention == "mla":
+        mix, cache = attn.mla_prefill(params["mixer"], h, cfg, cache_len)
+    else:
+        mix, cache = attn.gqa_prefill(params["mixer"], h, cfg, cache_len)
     x = x + mix
-    h2 = rmsnorm(params["norm2"], x, cfg.norm_eps)
-    return x + mlp(params["ffn"], h2), cache
+    out, _ = _ffn(params["ffn"], rmsnorm(params["norm2"], x, cfg.norm_eps), cfg, desc, capacity_factor=2.0)
+    return x + out, cache
 
 
 # -----------------------------------------------------------------------------
@@ -162,9 +189,11 @@ _dots_contexts = functools.partial(create_selective_checkpoint_contexts, _dots_p
 
 
 def _remat(fn, remat: str):
-    """``fn`` (x -> x) checkpointed as ``remat`` asks: ``"full"`` keeps only
-    its input and recomputes the rest in the backward, ``"dots"`` also keeps
-    its batch-free matmuls, ``"none"`` keeps everything."""
+    """``fn`` ((x, aux) -> (x, aux)) checkpointed as ``remat`` asks:
+    ``"full"`` keeps only its inputs and recomputes the rest in the backward,
+    ``"dots"`` also keeps its batch-free matmuls (so the MoE router's ``mm``
+    is kept and the expert ``bmm``s, batched over E > 1, are recomputed),
+    ``"none"`` keeps everything."""
     if remat == "full":
         return functools.partial(checkpoint, fn, use_reentrant=False)
     if remat == "dots":
@@ -228,21 +257,26 @@ class Model(nn.Module):
                     yield rep[f"l{i}"], d, si, r, f"l{i}"
 
     # ---- forward --------------------------------------------------------------
-    def _repeat(self, seg: Segment, rep: nn.ModuleDict, x: torch.Tensor) -> torch.Tensor:
-        """One repeat of a segment: its layers in order."""
+    def _repeat(self, seg: Segment, rep: nn.ModuleDict, x: torch.Tensor,
+                aux: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """One repeat of a segment: its layers in order, each adding its
+        router aux loss to the carried ``aux``, as the reference's scan body."""
         for i, d in enumerate(seg.layers):
-            x = layer_forward(rep[f"l{i}"], x, self.cfg, d)
-        return x
+            x, a = layer_forward(rep[f"l{i}"], x, self.cfg, d)
+            aux = aux + a
+        return x, aux
 
     def hidden(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        """(B, L, d) -> (final-normed hidden, moe_aux); aux is 0 (no MoE layer
-        is ported). Where autograd records, each repeat is checkpointed as
-        ``remat`` asks; elsewhere it runs straight."""
+        """(B, L, d) -> (final-normed hidden, moe_aux): the weighted router
+        aux losses summed over the layers (0 without an MoE layer). Where
+        autograd records, each repeat is checkpointed as ``remat`` asks,
+        with the carried aux its second input and output; elsewhere it runs
+        straight."""
         remat = self.remat if torch.is_grad_enabled() else "none"
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for si, seg in enumerate(self.segments):
             for rep in self.params[f"seg{si}"]:
-                x = _remat(functools.partial(self._repeat, seg, rep), remat)(x)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+                x, aux = _remat(functools.partial(self._repeat, seg, rep), remat)(x, aux)
         return rmsnorm(self.params["final_norm"], x, self.cfg.norm_eps), aux
 
     @torch.inference_mode()
@@ -266,7 +300,7 @@ class Model(nn.Module):
         return lm_logits(self.params["embed"], h)
 
     # ---- prefill / decode -----------------------------------------------------
-    def cache_init(self, batch: int, seq_len: int) -> dict[str, list[dict[str, attn.KVCache]]]:
+    def cache_init(self, batch: int, seq_len: int) -> dict[str, list[dict[str, Cache]]]:
         caches: dict[str, list] = {}
         for si, seg in enumerate(self.segments):
             caches[f"seg{si}"] = [

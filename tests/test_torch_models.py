@@ -231,13 +231,29 @@ MODEL_CASES = {
     "h2o-danube-1.8b": lambda c: c.reduced_config(c.get_config("h2o-danube-1.8b")),
     "qwen2-0.5b-14/2-heads": _qwen_14_2,
     "internvl2-1b": lambda c: c.reduced_config(c.get_config("internvl2-1b")),
+    "granite-moe-1b-a400m": lambda c: c.reduced_config(c.get_config("granite-moe-1b-a400m")),
+    "deepseek-v2-236b": lambda c: c.reduced_config(c.get_config("deepseek-v2-236b")),
 }
 B, L, STEPS = 2, 24, 3
+# the prompt's seed: 1, but granite's seed-1 prompt leaves both rows' top-2
+# prefill logits within the greedy check's margin, where it says nothing
+PROMPT_SEED = {"granite-moe-1b-a400m": 2}
 
 
-def _pair(case: str):
+def _align_cf(cfg):
+    """The reference's ``align_cf``: an MoE config's capacity factor set to
+    2.0, the prefill's and decode's, so the full forward routes as they do
+    (at 4 experts, top-2, that is a slot for every token: none drops)."""
+    if cfg.moe is None:
+        return cfg
+    return dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=2.0))
+
+
+def _pair(case: str, align_cf: bool = False):
     """(reference model, its params, port model with the same weights)."""
     jcfg, cfg = MODEL_CASES[case](jconfigs), MODEL_CASES[case](configs)
+    if align_cf:
+        jcfg, cfg = _align_cf(jcfg), _align_cf(cfg)
     jm = JModel(jcfg, remat="none", dtype=jnp.float32)
     jp = jm.init(KEY)
     m = Model(cfg)
@@ -270,7 +286,7 @@ def _argmax_where_decided(logits: np.ndarray, tokens: np.ndarray) -> None:
 def test_model_prefill_and_decode_match_reference(case):
     jm, jp, m = _pair(case)
     cfg = m.cfg
-    batch = _batch(cfg, 1, L)
+    batch = _batch(cfg, PROMPT_SEED.get(case, 1), L)
     want_logits, jcaches = jm.prefill(jp, batch, cache_len=L + STEPS + 1)
     got_logits, caches = m.prefill(_torch_batch(batch), cache_len=L + STEPS + 1)
     assert got_logits.shape == (B, 1, cfg.vocab_size)
@@ -290,15 +306,20 @@ def test_model_prefill_and_decode_match_reference(case):
 @pytest.mark.parametrize("case", sorted(MODEL_CASES))
 def test_decode_matches_full_forward(case):
     """The port's own decode steps against its full forward, teacher-forced
-    (the reference's ``test_decode_matches_full_forward``)."""
-    _, _, m = _pair(case)
+    (the reference's ``test_decode_matches_full_forward``, with its
+    ``align_cf``); the full forward's aux loss is the reference's (0 without
+    an MoE layer)."""
+    jm, jp, m = _pair(case, align_cf=True)
     cfg = m.cfg
-    full = _torch_batch(_batch(cfg, 2, L + 2))
+    batch = _batch(cfg, 2, L + 2)
+    full = _torch_batch(batch)
 
     def full_logits(n):
         x = m.embed_input({k: v[:, :n] for k, v in full.items()})
         h, aux = m.backbone(x)
-        assert float(aux) == 0.0
+        _, want_aux = jm.backbone(jp, jm.embed_input(jp, {k: v[:, :n] for k, v in batch.items()}))
+        np.testing.assert_allclose(float(aux), float(want_aux), **BLOCK_TOL)
+        assert (float(aux) > 0) == (cfg.moe is not None)
         return m.logits(h)[:, -1]
 
     lg, caches = m.prefill({k: v[:, :L] for k, v in full.items()}, cache_len=L + 4)
@@ -321,6 +342,12 @@ def test_model_init_has_the_reference_parameters():
     assert not any(p.requires_grad for p in params.parameters())
     jp = JModel(jconfigs.reduced_config(jconfigs.get_config("qwen2-0.5b")), remat="none", dtype=jnp.float32).init(KEY)
     got = {k: tuple(v.shape) for k, v in m.params.state_dict().items()}
+    assert got == _reference_shapes(jp)
+
+
+def _reference_shapes(jp) -> dict[str, tuple[int, ...]]:
+    """The port's parameter names and shapes of a reference tree: key paths
+    joined by dots, stacked segments unstacked into ``seg{i}.{r}``."""
     want = {}
     for path, leaf in jax.tree_util.tree_flatten_with_path(jp)[0]:
         keys = [p.key for p in path]
@@ -329,10 +356,27 @@ def test_model_init_has_the_reference_parameters():
                 want[".".join([keys[0], str(r)] + keys[1:])] = tuple(leaf.shape[1:])
         else:
             want[".".join(keys)] = tuple(leaf.shape)
-    assert got == want
+    return want
 
 
-@pytest.mark.parametrize("name", ["deepseek-v2-236b", "rwkv6-1.6b", "jamba-v0.1-52b", "granite-moe-1b-a400m"])
+@pytest.mark.parametrize("name", ["granite-moe-1b-a400m", "deepseek-v2-236b"])
+def test_moe_model_init_has_the_reference_parameters(name):
+    """Names, shapes and count of the MoE archs' trees, including the nodes
+    that mix arrays and sub-dicts (MLA's ``q_norm`` / ``kv_norm``, the shared
+    experts); ``param_count`` leaves out MLA's two norms and the final norm.
+    The converted reference tree has the same names."""
+    cfg = configs.reduced_config(configs.get_config(name))
+    params = Model(cfg).init(torch.Generator().manual_seed(0))
+    jcfg = jconfigs.reduced_config(jconfigs.get_config(name))
+    jp = JModel(jcfg, remat="none", dtype=jnp.float32).init(KEY)
+    want = _reference_shapes(jp)
+    assert {k: tuple(v.shape) for k, v in params.state_dict().items()} == want
+    assert set(model_params_from_reference(_np_tree(jp), cfg, "cpu").state_dict()) == set(want)
+    norms = cfg.num_layers * (cfg.mla.q_lora_rank + cfg.mla.kv_lora_rank) if cfg.mla else 0
+    assert sum(p.numel() for p in params.parameters()) == cfg.param_count() + norms + cfg.d_model
+
+
+@pytest.mark.parametrize("name", ["rwkv6-1.6b", "jamba-v0.1-52b"])
 def test_unported_mixers_raise(name):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Model(configs.reduced_config(configs.get_config(name)))

@@ -249,6 +249,31 @@ def test_serve_host_waits_count_the_calls_that_hold_the_host():
     assert profile_serve.host_waits(prof) == {"cudaStreamSynchronize": 48, "cudaMemcpyAsync": 49}
 
 
+def test_drop_count_counts_each_route_by_row_and_restores_it():
+    """``chip_smoke.DropCount`` (the profilers' too) counts the dropped slots
+    of each MoE route made while active, by batch row, and puts ``route``
+    back."""
+    import chip_smoke
+    import profile_serve
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import configs
+    from repro_torch.models import moe
+
+    cfg = configs.reduced_config(configs.get_config("granite-moe-1b-a400m"))
+    params = moe.moe_init(torch.Generator().manual_seed(0), cfg)
+    x = torch.ones((2, 20, cfg.d_model))  # 40 equal tokens: each takes the same 2 experts
+    real = moe.route
+    with chip_smoke.DropCount(2) as drops:
+        moe.moe_ffn(params, x, cfg)
+        moe.moe_ffn(params, x, cfg, 2.0)
+    # 40 tokens into each of 2 experts: 25 slots at capacity factor 1.25 (the
+    # second row's last 15 tokens drop), 40 at 2.0
+    assert drops.by_call == [[0, 2 * 15], [0, 0]] and drops.by_row() == [0, 30] and moe.route is real
+    assert profile_serve.DropCount is chip_smoke.DropCount
+    assert profile_serve.parse_args(["--arch", "granite-moe-1b-a400m"]).arch == "granite-moe-1b-a400m"
+
+
 def test_rescalk_profile_runs_chip_smokes_search(monkeypatch):
     """``--search rescalk`` profiles chip_smoke.py's rescalk_1000: the same
     settings, and the serial and threads executors as 1 and 4 resources."""

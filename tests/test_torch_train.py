@@ -24,7 +24,9 @@ Tolerances:
 """
 import copy
 import functools
+import importlib.util
 import math
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -59,8 +61,11 @@ GRAD_RTOL, GRAD_ATOL_SCALE = 1e-4, 1e-5
 EXACT_TOL = dict(rtol=1e-6, atol=0.0)
 RUN_RTOL = 1e-4
 KEY = jax.random.PRNGKey(0)
-ARCHS = ["qwen2-0.5b", "h2o-danube-1.8b", "internvl2-1b"]  # danube's window 16 bites at L 32
+# danube's window 16 bites at L 32
+ARCHS = ["qwen2-0.5b", "h2o-danube-1.8b", "internvl2-1b", "granite-moe-1b-a400m", "deepseek-v2-236b"]
+MOE_ARCHS = ARCHS[3:]
 B, L = 4, 32
+ROOT = Path(__file__).resolve().parents[1]
 
 
 @pytest.fixture(autouse=True)
@@ -161,7 +166,7 @@ def test_every_gradient_matches_reference(arch):
         np.testing.assert_allclose(g.numpy(), ref, rtol=GRAD_RTOL, atol=GRAD_ATOL_SCALE * scale, err_msg=name)
 
 
-@pytest.mark.parametrize("arch", ARCHS[:2])
+@pytest.mark.parametrize("arch", ARCHS[:2] + MOE_ARCHS)
 @pytest.mark.parametrize("remat", ["full", "dots"])
 def test_remat_gives_the_loss_and_gradients_of_none(remat, arch):
     """Rematerialization recomputes the same float32 ops: bit for bit on the CPU."""
@@ -171,6 +176,18 @@ def test_remat_gives_the_loss_and_gradients_of_none(remat, arch):
     assert torch.equal(loss, loss0)
     for name, g in grads.items():
         assert torch.equal(g, grads0[name]), name
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_aux_loss_matches_reference(arch):
+    """The router aux loss summed over the layers: the reference backbone's
+    ``moe_aux`` (the loss carries it: ``test_loss_fn_matches_reference``)."""
+    jm, jp, batch, want_loss, _ = _reference(arch)
+    _, want_aux = jm.backbone(jp, jm.embed_input(jp, batch))
+    m = _port(arch, remat="none")
+    _, aux = m.hidden(m.embed_input(_torch(batch)))
+    assert float(aux) > 0
+    np.testing.assert_allclose(float(aux), float(want_aux), rtol=LOSS_RTOL)
 
 
 def test_model_rejects_an_unknown_remat():
@@ -365,6 +382,27 @@ def test_three_steps_follow_the_reference_loss_trajectory(microbatches, compress
         np.testing.assert_allclose(float(met["lr"]), float(jmet["lr"]), **EXACT_TOL)
 
 
+def test_moe_microbatches_average_loss_and_aux_as_the_reference():
+    """One step of granite-MoE in 2 microbatches: each microbatch routes at
+    its own capacity and carries its own aux loss, and the step's loss and
+    gradient norm are their means, as the reference's scan has them."""
+    jcfg, cfg = _cfgs("granite-moe-1b-a400m")
+    kw = dict(lr=3e-3, warmup_steps=1, total_steps=10)
+    jm = JModel(jcfg, remat="none", dtype=jnp.float32)
+    jp = jm.init(KEY)
+    jt = jax.jit(jstep.make_train_step(jm, jstep.TrainConfig(opt=jopt.AdamWConfig(**kw), microbatches=2)))
+    batch = _batch(jcfg, 4)
+    _, _, jmet = jt(jp, jopt.init_opt_state(jp, jopt.AdamWConfig(**kw)), {k: jnp.asarray(v) for k, v in batch.items()})
+    m = Model(cfg, remat="none")
+    params = model_params_from_reference(_np(jp), cfg, "cpu")
+    tcfg = tstep.TrainConfig(opt=opt.AdamWConfig(**kw), microbatches=2)
+    _, _, met = tstep.make_train_step(m, tcfg)(params, opt.init_opt_state(params, tcfg.opt), _torch(batch))
+    np.testing.assert_allclose(float(met["loss"]), float(jmet["loss"]), rtol=LOSS_RTOL)
+    np.testing.assert_allclose(float(met["grad_norm"]), float(jmet["grad_norm"]), rtol=GRAD_NORM_RTOL)
+    whole = float(_port("granite-moe-1b-a400m", remat="none").loss_fn(_torch(batch)))
+    assert abs(float(met["loss"]) - whole) > 1e-6  # not one batch's loss: capacity and aux are per microbatch
+
+
 def test_split_microbatches_refuses_a_ragged_split():
     with pytest.raises(ValueError, match="microbatches"):
         tstep._split_microbatches({"tokens": torch.zeros((6, 4))}, 4)
@@ -468,7 +506,31 @@ def test_launcher_runs_on_the_card_by_default():
             train.main(["--steps", "1", "--quiet"])
 
 
-@pytest.mark.parametrize("arch,item", [("granite-moe-1b-a400m", "M3"), ("rwkv6-1.6b", "M4")])
+def test_loss_decreases_moe():
+    """Port of ``test_loss_decreases_moe``."""
+    out = train.main(["--device", "cpu", "--arch", "granite-moe-1b-a400m", "--steps", "12", "--batch", "8",
+                      "--seq", "32", "--lr", "3e-3", "--quiet"])
+    assert out["losses"][-1] < out["losses"][0]
+
+
+def test_deepseek_trains_with_remat_dots():
+    out = train.main(["--device", "cpu", "--arch", "deepseek-v2-236b", "--steps", "4", "--batch", "4", "--seq", "16",
+                      "--remat", "dots", "--quiet"])
+    assert len(out["losses"]) == 4 and all(math.isfinite(x) for x in out["losses"])
+
+
+def test_train_lm_example_runs_on_the_cpu():
+    """``examples/torch_train_lm.py`` at its defaults (reduced granite-MoE,
+    200 steps, B 16, L 64, 4 microbatches, a checkpoint every 50 steps) on
+    the CPU: its own assert is that the loss drops by more than 0.3 nats."""
+    spec = importlib.util.spec_from_file_location("torch_train_lm", ROOT / "examples" / "torch_train_lm.py")
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    out = example.run(["--device", "cpu"])
+    assert len(out["losses"]) == 200 and out["losses"][0] - out["final_loss"] > 0.3
+
+
+@pytest.mark.parametrize("arch,item", [("rwkv6-1.6b", "M4")])
 def test_unported_archs_name_their_roadmap_item(arch, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):
         train.main(["--device", "cpu", "--arch", arch, "--steps", "1", "--quiet"])

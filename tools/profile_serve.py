@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Time and profile the port's serve prefill on the card.
 
-The prefill is that of ``chip_smoke.py``'s serve phase: qwen2-0.5b at its
-published widths (24 layers, weights from seed 0), 4 prompts of 1000
-tokens, one flash-attention launch per layer. One run is one process and
-prints one JSON line with:
+The prefill is that of ``chip_smoke.py``'s serve phases: qwen2-0.5b (or
+``--arch``, e.g. granite-moe-1b-a400m) at its published widths (24 layers,
+weights from seed 0), 4 prompts of 1000 tokens, one flash-attention launch
+per layer. One run is one process and prints one JSON line with:
 
 - ``cold_prefill_s``: the first prefill of the process (host clock, ending
   in a synchronize), after the kernels are built and loaded;
@@ -23,7 +23,11 @@ prints one JSON line with:
   synchronize holds the host until the device has caught up, and the
   launches after it then reach an idle device) and the ``--top`` kernels
   by device time; ``--trace PATH`` writes its timeline
-  (``export_chrome_trace``).
+  (``export_chrome_trace``);
+- for an MoE arch, ``dropped_slots``: the slots each MoE layer dropped in
+  one more prefill (``chip_smoke.DropCount``; a host read a layer, outside
+  the timed and profiled prefills) and ``routed_slots``, the slots a layer
+  routes.
 
 ``--turns N --parent SRC`` instead runs 2N such processes in turns (parent,
 change, change, parent, ...; the change is ``--src``) and, last, prints
@@ -45,9 +49,9 @@ from pathlib import Path
 
 from profile_ksearch import device_times
 
-ARCH, BATCH, PROMPT, TOKENS = "qwen2-0.5b", 4, 1000, 32  # chip_smoke.py's serve phase
-SERVE_ARGS = ["--arch", ARCH, "--no-reduced", "--batch", str(BATCH), "--prompt-len", str(PROMPT),
-              "--tokens", str(TOKENS), "--quiet"]
+from chip_smoke import DropCount  # noqa: E402  (profile_ksearch puts the repo root on the path)
+
+BATCH, PROMPT, TOKENS = 4, 1000, 32  # chip_smoke.py's serve phases
 # the figures of one process that the turns summarize
 SUMMARY_KEYS = ("prefill_median_s", "cold_prefill_s", "serve_prefill_s", "profiled_wall_s", "device_busy_ms",
                 "flash_ms")
@@ -58,6 +62,7 @@ HOST_WAITS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaMemcpy", "c
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", default=str(Path(__file__).resolve().parents[1] / "src"))
+    ap.add_argument("--arch", default="qwen2-0.5b")
     ap.add_argument("--tag", default=None, help="label of this version in the output (default: --src)")
     ap.add_argument("--repeats", type=int, default=5, help="warm prefills on the host clock")
     ap.add_argument("--top", type=int, default=8)
@@ -111,7 +116,7 @@ def run_turns(args) -> int:
     runs = []
     for tag in turn_order(args.turns):
         cmd = [sys.executable, str(here), "--src", srcs[tag], "--tag", tag, "--repeats", str(args.repeats),
-               "--top", str(args.top)]
+               "--top", str(args.top), "--arch", args.arch]
         proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
         if proc.returncode != 0:
             print(proc.stdout + proc.stderr, file=sys.stderr)
@@ -143,7 +148,8 @@ def main(argv=None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
     build.load("flash_attention")
-    model, prompt, _, _ = serve.setup(get_config(ARCH), BATCH, PROMPT, dev, seed=0)
+    cfg = get_config(args.arch)
+    model, prompt, _, _ = serve.setup(cfg, BATCH, PROMPT, dev, seed=0)
     prefill = make_prefill(model, PROMPT + TOKENS)
     batch = {"tokens": prompt}
 
@@ -161,7 +167,8 @@ def main(argv=None) -> int:
     ops.reset_launch_counts()
     walls = [timed() for _ in range(args.repeats)]
     launches = ops.launch_counts()["flash_attention"] / args.repeats
-    out = serve.main(SERVE_ARGS)
+    out = serve.main(["--arch", args.arch, "--no-reduced", "--batch", str(BATCH), "--prompt-len", str(PROMPT),
+                      "--tokens", str(TOKENS), "--quiet"])
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         wall = timed()
@@ -171,13 +178,19 @@ def main(argv=None) -> int:
     times = device_times(prof)
     busy = sum(ms for ms, _ in times.values())
     top = sorted(times.items(), key=lambda kv: -kv[1][0])[: args.top]
+    moe = {}
+    if cfg.moe is not None:
+        with DropCount(BATCH) as drops:
+            timed()
+        moe = {"dropped_slots": [sum(c) for c in drops.by_call], "routed_slots": BATCH * PROMPT * cfg.moe.top_k}
     print(json.dumps({
         "tag": args.tag or args.src, "card": smi, "device": torch.cuda.get_device_name(0),
-        "shape": f"{ARCH} full width, B {BATCH}, prompt {PROMPT}",
+        "shape": f"{args.arch} full width, B {BATCH}, prompt {PROMPT}",
         "cold_prefill_s": cold, "prefill_s": walls, "prefill_median_s": statistics.median(walls),
         "serve_prefill_s": out["prefill_s"], "serve_decode_s": out["decode_s"], "flash_launches": launches,
         "profiled_wall_s": wall, "device_busy_ms": busy, "device_busy_share": busy / 1e3 / wall,
         "flash_ms": flash_ms(times), "host_waits": host_waits(prof), "top": [[name[:70], ms, count] for name, (ms, count) in top],
+        **moe,
     }), flush=True)
     return 0
 

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Time and profile the port's LM training step on the card.
 
-The step is that of ``chip_smoke.py``'s ``qwen2_train`` phase by default:
-qwen2-0.5b at its published widths (24 layers, fp32, weights and tokens
+The step is that of ``chip_smoke.py``'s ``qwen2_train`` phase by default
+(``--arch granite-moe-1b-a400m``: its ``granite_train`` phase): the arch at
+its published widths (24 layers, fp32, weights and tokens
 from seed 0), B 8, L 64 in 2 microbatches, AdamW, no remat. ``--batch``,
 ``--seq``, ``--microbatches`` and ``--remat`` change the shape; Qwen2's
 pretraining context is 4,096 tokens (Qwen2 Technical Report,
@@ -22,11 +23,17 @@ and prints one JSON line with:
   kernels, copies, fills), ``sgemm_ms`` (the kernels whose name holds
   ``gemm``), ``host_waits`` (``profile_serve.host_waits``) and the
   ``--top`` kernels by device time; ``--trace PATH`` writes its timeline;
-- ``tokens_per_s`` (B L over the median step) and ``max_memory_allocated``.
+- ``tokens_per_s`` (B L over the median step) and ``max_memory_allocated``;
+- for an MoE arch, ``dropped_slots``: the slots each MoE layer dropped in
+  one more forward of the first microbatch (``chip_smoke.DropCount``,
+  outside the timed and profiled steps), and ``routed_slots``, the slots a
+  layer routes. Granite 3.0 was pretrained at 4,096 tokens too (IBM,
+  "Granite 3.0 Language Models", 2024), so the same flags take its
+  pretraining context.
 
 Run from the root of a checkout on a machine with a card:
 
-    python3 tools/profile_train.py [--repeats 5] [--remat none|full|dots]
+    python3 tools/profile_train.py [--arch qwen2-0.5b] [--repeats 5] [--remat none|full|dots]
         [--batch 8] [--seq 64] [--microbatches 2]
 """
 from __future__ import annotations
@@ -40,14 +47,13 @@ import time
 from pathlib import Path
 
 from profile_ksearch import device_times
-from profile_serve import host_waits
-
-ARCH = "qwen2-0.5b"
+from profile_serve import DropCount, host_waits
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", default=str(Path(__file__).resolve().parents[1] / "src"))
+    ap.add_argument("--arch", default="qwen2-0.5b")
     ap.add_argument("--repeats", type=int, default=5)
     ap.add_argument("--remat", default="none", choices=("none", "full", "dots"))
     ap.add_argument("--batch", type=int, default=8)  # chip_smoke.py's qwen2_train phase
@@ -73,7 +79,7 @@ def main(argv=None) -> int:
     dev = resolve("cuda")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
-    cfg = get_config(ARCH)
+    cfg = get_config(args.arch)
     model = Model(cfg, remat=args.remat)
     params = model.init(torch.Generator(device=dev).manual_seed(0))
     tcfg = TrainConfig(opt=AdamWConfig(lr=1e-3, warmup_steps=5, total_steps=12), microbatches=args.microbatches)
@@ -122,9 +128,14 @@ def main(argv=None) -> int:
     times = device_times(prof)
     busy = sum(ms for ms, _ in times.values())
     top = sorted(times.items(), key=lambda kv: -kv[1][0])[: args.top]
+    moe = {}
+    if cfg.moe is not None:
+        with torch.no_grad(), DropCount(micro["tokens"].shape[0]) as drops:
+            model.loss_fn(micro)
+        moe = {"dropped_slots": [sum(c) for c in drops.by_call], "routed_slots": micro["tokens"].numel() * cfg.moe.top_k}
     print(json.dumps({
         "card": smi, "device": torch.cuda.get_device_name(0), "torch": torch.__version__,
-        "shape": f"{ARCH} full width, B {args.batch}, L {args.seq}, {args.microbatches} microbatches, "
+        "shape": f"{args.arch} full width, B {args.batch}, L {args.seq}, {args.microbatches} microbatches, "
                  f"remat {args.remat}",
         "cold_step_s": cold, "step_s": walls, "step_median_s": statistics.median(walls),
         "tokens_per_s": args.batch * args.seq / statistics.median(walls),
@@ -134,6 +145,7 @@ def main(argv=None) -> int:
         "device_events": sum(count for _, count in times.values()),
         "sgemm_ms": sum(ms for name, (ms, _) in times.items() if "gemm" in name.lower()),
         "host_waits": host_waits(prof), "top": [[name[:80], ms, count] for name, (ms, count) in top],
+        **moe,
     }), flush=True)
     return 0
 
