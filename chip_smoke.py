@@ -1095,8 +1095,10 @@ def _plain_fp64_err(ref, q, k, v, got, plain32, causal, window) -> tuple[float, 
 
 
 def check_flash(torch, dev, ops, ref, records: dict, log) -> None:
-    """The flash kernel at the serve path's prefill shape (qwen2-0.5b: B 4,
-    Hq 14, Hk 2, L 1000, D 64, causal), at h2o-danube-1.8b's heads with its
+    """The flash kernel at the serve paths' prefill shapes (qwen2-0.5b: B 4,
+    Hq 14, Hk 2, L 1000, D 64, causal; granite-moe-1b-a400m: B 4, Hq 16,
+    Hk 8, L 1000, D 64, causal, drawn last so that the other cases keep
+    their inputs), at h2o-danube-1.8b's heads with its
     window (B 1, Hq 32, Hk 8, L 6000, D 80, window 4096: ragged, and the
     window skip bites) and on a small ragged non-causal case with D 17 and
     an offset base (element-by-element loads and stores). Held against the
@@ -1116,6 +1118,8 @@ def check_flash(torch, dev, ops, ref, records: dict, log) -> None:
          (1, 32, 8, 6000, 6000, 80), True, 4096, True),
         ("ragged non-causal, offset base: B 2, Hq 6, Hk 3, Lq 70, Lk 45, D 17", (2, 6, 3, 70, 45, 17), False,
          None, False),
+        ("granite-moe-1b-a400m prefill: B 4, Hq 16, Hk 8, L 1000, D 64, causal", (4, 16, 8, 1000, 1000, 64), True,
+         None, True),
     )
     for label, (b, hq, hk, lq, lk, d), causal, window, timed in cases:
         q, k, v = (torch.randn((b, h, n, d), device=dev, generator=gen) for h, n in ((hq, lq), (hk, lk), (hk, lk)))
@@ -1543,12 +1547,52 @@ class DropCount:
         return [sum(call[b] for call in self.by_call) for b in range(self.rows)]
 
 
+def _teacher_forced(torch, model, prompt, tokens, arch: str, order: list[int]) -> dict:
+    """One pass of ``run_serve``'s teacher-forced check, with the batch rows
+    in ``order``: two decode steps fed the served tokens, each held against
+    the last row of a flash prefill of the extended sequence, on the rows
+    that kept every MoE slot in both prefills. Such a row is computed alike
+    by both: its slots never pass an expert's capacity (decode's batch of 4
+    never does). A row with a dropped slot is not: the prefill dropped what
+    decode keeps. Queues fill in batch order, so the later rows drop
+    first."""
+    prompt, tokens = prompt[order], tokens[order]
+    with DropCount(SERVE_BATCH) as drops:
+        lg, caches = model.prefill({"tokens": prompt}, cache_len=SERVE_PROMPT + 2)
+    row_drops = drops.by_row()
+    dropped = [sum(row_drops)]
+    gaps, dropped_row_gaps = [], []
+    for i in range(2):
+        lg_dec, caches = model.decode_step(caches, tokens[:, i:i + 1], SERVE_PROMPT + i)
+        seq = torch.cat([prompt, tokens[:, :i + 1].long()], dim=1)
+        with DropCount(SERVE_BATCH) as drops:
+            lg_full, _ = model.prefill({"tokens": seq})
+        dropped.append(sum(drops.by_row()))
+        row_drops = [a + b for a, b in zip(row_drops, drops.by_row())]
+        rows = [b for b in range(SERVE_BATCH) if row_drops[b] == 0]
+        if rows:
+            what = (f"serve {arch}: decode step {i} vs flash prefill of {seq.shape[1]} tokens, "
+                    f"prompts {[order[b] for b in rows]} in rows {rows}")
+            gaps.append(compare(torch, lg_dec[rows], lg_full[rows], LOGIT_TOL["rtol"], LOGIT_TOL["atol"], what))
+            _decided(torch, lg_dec[rows, -1], tokens[rows, i + 1])
+        if len(rows) < SERVE_BATCH:
+            dropped_row_gaps.append(float((lg_dec - lg_full).abs().amax(dim=(1, 2)).max()))
+    del caches
+    return {"order": order, "prompts_compared": [order[b] for b in rows], "logits_max_abs_gap": max(gaps, default=0.0),
+            "logits_max_abs": float(lg_full.abs().max()), "dropped_slots_by_prefill": dropped,
+            "dropped_slots_by_row": row_drops, "max_abs_gap_with_dropped_rows": max(dropped_row_gaps, default=0.0)}
+
+
 def run_serve(torch, dev, ops, serve, log, arch: str) -> dict[str, int]:
     """The serve path at full width; counts reset just before, read just
     after. Then a teacher-forced check with the same weights: decode-step
     logits (plain attention over the cache) against the last row of a flash
     prefill of the extended sequence, with each prefill's dropped MoE slots
-    (capacity factor 2.0, as decode)."""
+    (capacity factor 2.0, as decode). With MoE it runs twice, the second
+    time with the two halves of the batch swapped, and every prompt must be
+    compared in one of the two passes: granite's capacity at factor 2.0
+    (t · 8 · 2 / 32) is half the tokens and a token takes one slot of an
+    expert at most, so the first half of the batch never drops."""
     from repro_torch.configs import get_config
 
     torch.cuda.reset_peak_memory_stats()
@@ -1572,37 +1616,20 @@ def run_serve(torch, dev, ops, serve, log, arch: str) -> dict[str, int]:
                              f"{cfg.num_layers} layers")
 
     model, prompt, _, _ = serve.setup(cfg, SERVE_BATCH, SERVE_PROMPT, dev, seed=0)
-    with DropCount(SERVE_BATCH) as drops:
-        lg, caches = model.prefill({"tokens": prompt}, cache_len=SERVE_PROMPT + 2)
-    row_drops = drops.by_row()
-    dropped = [sum(row_drops)]
-    gaps, dropped_row_gaps = [], []
-    for i in range(2):
-        lg_dec, caches = model.decode_step(caches, tokens[:, i:i + 1], SERVE_PROMPT + i)
-        seq = torch.cat([prompt, tokens[:, :i + 1].long()], dim=1)
-        with DropCount(SERVE_BATCH) as drops:
-            lg_full, _ = model.prefill({"tokens": seq})
-        dropped.append(sum(drops.by_row()))
-        row_drops = [a + b for a, b in zip(row_drops, drops.by_row())]
-        # a row whose tokens kept every MoE slot in both prefills is computed
-        # alike by both: its slots never pass an expert's capacity (decode's
-        # batch of 4 never does). A row with a dropped slot is not: the
-        # prefill dropped what decode keeps. Queues fill in batch order, so
-        # the first capacity / prompt rows always keep theirs.
-        rows = [b for b in range(SERVE_BATCH) if row_drops[b] == 0]
-        if not rows:
-            raise AssertionError(f"serve {arch}: every row dropped MoE slots ({row_drops}); nothing to compare")
-        what = f"serve {arch}: decode step {i} vs flash prefill of {seq.shape[1]} tokens, rows {rows}"
-        gaps.append(compare(torch, lg_dec[rows], lg_full[rows], LOGIT_TOL["rtol"], LOGIT_TOL["atol"], what))
-        _decided(torch, lg_dec[rows, -1], tokens[rows, i + 1])
-        if len(rows) < SERVE_BATCH:
-            dropped_row_gaps.append(float((lg_dec - lg_full).abs().amax(dim=(1, 2)).max()))
+    orders = [list(range(SERVE_BATCH))]
+    if cfg.moe is not None:
+        half = SERVE_BATCH // 2
+        orders.append(orders[0][half:] + orders[0][:half])
+    passes = [_teacher_forced(torch, model, prompt, tokens, arch, order) for order in orders]
+    compared = sorted(set().union(*(p["prompts_compared"] for p in passes)))
+    if compared != orders[0]:
+        raise AssertionError(f"serve {arch}: prompts {sorted(set(orders[0]) - set(compared))} dropped MoE slots "
+                             f"in every pass; not compared ({passes})")
     log(json.dumps({"check": f"serve {arch} decode vs flash prefill, teacher-forced", "steps": 2,
-                    "logits_max_abs_gap": max(gaps), "logits_max_abs": float(lg_full.abs().max()),
-                    **({"dropped_slots_by_prefill": dropped, "dropped_slots_by_row": row_drops,
-                        "rows_compared": rows, "max_abs_gap_with_dropped_rows": max(dropped_row_gaps, default=0.0)}
-                       if cfg.moe is not None else {})}))
-    del model, caches
+                    "logits_max_abs_gap": max(p["logits_max_abs_gap"] for p in passes),
+                    "logits_max_abs": max(p["logits_max_abs"] for p in passes),
+                    **({"passes": passes} if cfg.moe is not None else {})}))
+    del model
     return counts
 
 

@@ -55,7 +55,9 @@ class Route(NamedTuple):
     gates: torch.Tensor  # (T, top_k) renormalized top-k probabilities
     buf_idx: torch.Tensor  # (T * top_k,) row of the (E * C, d) buffers; dropped slots alias C - 1
     keep: torch.Tensor  # (T * top_k,) bool: the slot is inside its expert's capacity
-    margin: torch.Tensor  # (T,) k-th probability less the (k+1)-th (inf when top_k == E)
+    # (T,) k-th probability less the (k+1)-th (inf when top_k == E); read only
+    # by the checks that hold one device's routes to another's at near-ties
+    margin: torch.Tensor
 
 
 def moe_init(gen: torch.Generator, cfg: ArchConfig, dtype=torch.float32) -> nn.ParameterDict:

@@ -120,16 +120,15 @@ def _ffn(params, h: torch.Tensor, cfg: ArchConfig, desc: LayerDesc,
     return out, m.router_aux_weight * aux.load_balance + m.router_z_weight * aux.z_loss
 
 
-def layer_forward(params, x: torch.Tensor, cfg: ArchConfig, desc: LayerDesc) -> tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence layer. Returns (x, moe_aux): the router aux loss, 0 for a dense FFN."""
+def layer_forward(params, x: torch.Tensor, cfg: ArchConfig,
+                  desc: LayerDesc) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """Full-sequence layer. Returns (x, moe_aux): the router aux loss, None for a dense FFN."""
     h = rmsnorm(params["norm1"], x, cfg.norm_eps)
     if cfg.attention == "mla":
         x = x + attn.mla_forward(params["mixer"], h, cfg)
     else:
         x = x + attn.gqa_forward(params["mixer"], h, cfg)
     out, aux = _ffn(params["ffn"], rmsnorm(params["norm2"], x, cfg.norm_eps), cfg, desc)
-    if aux is None:
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x + out, aux
 
 
@@ -260,10 +259,12 @@ class Model(nn.Module):
     def _repeat(self, seg: Segment, rep: nn.ModuleDict, x: torch.Tensor,
                 aux: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """One repeat of a segment: its layers in order, each adding its
-        router aux loss to the carried ``aux``, as the reference's scan body."""
+        router aux loss (an MoE layer's) to the carried ``aux``, as the
+        reference's scan body."""
         for i, d in enumerate(seg.layers):
             x, a = layer_forward(rep[f"l{i}"], x, self.cfg, d)
-            aux = aux + a
+            if a is not None:
+                aux = aux + a
         return x, aux
 
     def hidden(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
