@@ -16,7 +16,8 @@ Phases, each fatal on failure:
      one process per source, all at once (build time and ``-Xptxas -v``:
      registers, shared memory, spills);
   3. hold each kernel wrapper against its plain PyTorch version on the card
-     at the shapes of the main paths, with the tolerance stated, and time
+     at the shapes of the main paths (flash also at jamba's D 128), with the
+     tolerance stated, and time
      kernel, plain version, the card's bound and, where one PyTorch call
      computes the same function, that call (CUDA events, warmed up); the
      flash kernel's cases also assert a bitwise repeat;
@@ -26,13 +27,17 @@ Phases, each fatal on failure:
      ``tests/test_integration.py`` with a small K-Means silhouette wave, and
      the LM's prefill and greedy decode (qwen2-0.5b and granite-moe-1b-a400m
      at full width cut to 2 layers; deepseek-v2 at full widths cut to 2
-     layers and 16 routed experts, MLA with no flash launch; reduced
-     h2o-danube, whose window bites) on the card against the same
+     layers and 16 routed experts, MLA with no flash launch; jamba-v0.1-52b
+     at full widths cut to one 8-layer period and 4 experts, one flash
+     launch; rwkv6-1.6b at full width cut to 2 layers, at prompts taking the
+     token recurrence and the chunked WKV; reduced h2o-danube, whose window
+     bites) on the card against the same
      computation on the CPU (plain versions, same draws and weights), every
      MoE route held to the CPU's on the CPU's layer input (a token may
      route differently only at a near-tie of its k-th and (k+1)-th
      probabilities, printed with its margin); LM training at the same cut
-     (qwen2 and granite, B 2, L 32): the loss, the router aux loss and
+     (qwen2, granite and rwkv6; jamba cut to 2 layers, Mamba with the dense
+     FFN and with MoE; B 2, L 32): the loss, the router aux loss and
      every parameter's gradient against the CPU's (each nonzero on the
      card), remat ``full`` and ``dots`` against ``none``, the routes; on
      qwen2 also 2 microbatches against 1, one AdamW step on the same
@@ -82,12 +87,20 @@ Phases, each fatal on failure:
      its published widths (160 routed and 2 shared experts) cut to 2 layers,
      on the card only, B 1, prompt 256, 8 tokens: no kernel launch, the
      absorbed MLA decode's logits against the expanded forward, peak memory;
-     then the port's ``train`` with qwen2-0.5b and with granite-moe-1b-a400m
-     at their published widths (24 layers, fp32, random weights from seed 0),
-     12 steps of B 8, L 64 in 2 microbatches: finite losses and gradient
-     norms, the last loss below the first, no kernel launch (training takes
-     plain attention), the median step time, tokens/s and peak memory logged
-     (``qwen2_train``, ``granite_train``).
+     ``rwkv6_serve``: the port's ``serve`` with rwkv6-1.6b at its published
+     widths (24 layers), 4 prompts of 1024 tokens (the chunked WKV), 32 new
+     tokens: no kernel launch, decode logits against a prefill of the
+     extended sequence; ``jamba_serve_8l``: jamba-v0.1-52b at its published
+     widths cut to one 8-layer period (13.30 B parameters, 53.2 GB), on the
+     card only, 4 prompts of 1024 tokens, 32 new tokens: one flash launch
+     (D 128), prompt 0's decode against the full forward at a capacity
+     factor where nothing drops, peak memory; then the port's ``train`` with
+     qwen2-0.5b, granite-moe-1b-a400m and rwkv6-1.6b at their published
+     widths (24 layers, fp32, random weights from seed 0), 12 steps of B 8,
+     L 64 in 2 microbatches: finite losses and gradient norms, the last loss
+     below the first, no kernel launch (training takes plain attention), the
+     median step time, tokens/s and peak memory logged (``qwen2_train``,
+     ``granite_train``, ``rwkv6_train``).
 
 The second-to-last line is ``{"kernels": [...]}`` and the last line is
 ``{"ok": true, "device": {...}}``. Without a card, or outside a checkout of
@@ -142,6 +155,10 @@ ROUTE_TIE_TOL = 1e-5
 # deepseek-v2 card vs CPU: 16 of the 160 routed experts keep the CPU copy at
 # 1.96 B parameters (7.8 GB) instead of 5.36 B
 DEEPSEEK_SMALL_EXPERTS = 16
+# jamba-v0.1-52b card vs CPU: one 8-layer period (m m m m a m m m, MoE on
+# layers 1, 3, 5, 7) with 4 of its 16 experts (top-2 kept): 4.84 B
+# parameters (19.4 GB) a side instead of 13.30 B
+JAMBA_LAYERS, JAMBA_SMALL_EXPERTS = 8, 4
 
 # RESCAL card vs CPU: cuBLAS against the CPU's BLAS, fp32, from the same
 # draws. Held where NMFk is held (NMFK_SIL_ATOL, NMFK_ERR_RTOL); the
@@ -165,14 +182,21 @@ RESCAL_P, RESCAL_ITERS, RESCAL_EPS, RESCAL_THREADS = 3, 150, 0.015, 4
 SERVE_BATCH, SERVE_PROMPT, SERVE_TOKENS = 4, 1000, 32
 
 
-def serve_args(arch: str) -> list[str]:
-    return ["--arch", arch, "--no-reduced", "--batch", str(SERVE_BATCH), "--prompt-len", str(SERVE_PROMPT),
+def serve_args(arch: str, prompt: int = SERVE_PROMPT) -> list[str]:
+    return ["--arch", arch, "--no-reduced", "--batch", str(SERVE_BATCH), "--prompt-len", str(prompt),
             "--tokens", str(SERVE_TOKENS), "--device", "cuda", "--seed", "0", "--quiet"]
 
 
 # deepseek-v2 at its published widths (160 routed + 2 shared experts) cut to
 # 2 layers, on the card only: B 1, prompt 256, 8 new tokens
 DEEPSEEK_LAYERS, DEEPSEEK_PROMPT, DEEPSEEK_TOKENS = 2, 256, 8
+# the scan archs' serve paths, SERVE_BATCH prompts of 1024 tokens (16
+# divides it: the reference's chunked branch of both scans), SERVE_TOKENS
+# new tokens: rwkv6-1.6b whole, and jamba-v0.1-52b at its published widths
+# cut to one 8-layer period (13.30 B parameters, 53.2 GB in fp32; the whole
+# model is 51.57 B, 206 GB) on the card only, its decode held over
+# JAMBA_CHECK_STEPS steps
+SCAN_SERVE_PROMPT, JAMBA_CHECK_STEPS = 1024, 3
 
 # training, card vs CPU (qwen2-0.5b at full width cut to 2 layers, B 2, L 32,
 # the same weights): fp32 with TF32 off, so only reduction orders differ.
@@ -1097,8 +1121,11 @@ def _plain_fp64_err(ref, q, k, v, got, plain32, causal, window) -> tuple[float, 
 def check_flash(torch, dev, ops, ref, records: dict, log) -> None:
     """The flash kernel at the serve paths' prefill shapes (qwen2-0.5b: B 4,
     Hq 14, Hk 2, L 1000, D 64, causal; granite-moe-1b-a400m: B 4, Hq 16,
-    Hk 8, L 1000, D 64, causal, drawn last so that the other cases keep
-    their inputs), at h2o-danube-1.8b's heads with its
+    Hk 8, L 1000, D 64, causal; jamba-v0.1-52b: B 4, Hq 32, Hk 8, L 1024,
+    D 128, causal, the kernel's D-128 instantiation: 16 kv rows a tile, Q's
+    split fragments read from shared memory. Granite's and jamba's cases
+    are drawn last, in that order, so that the other cases keep their
+    inputs), at h2o-danube-1.8b's heads with its
     window (B 1, Hq 32, Hk 8, L 6000, D 80, window 4096: ragged, and the
     window skip bites) and on a small ragged non-causal case with D 17 and
     an offset base (element-by-element loads and stores). Held against the
@@ -1119,6 +1146,8 @@ def check_flash(torch, dev, ops, ref, records: dict, log) -> None:
         ("ragged non-causal, offset base: B 2, Hq 6, Hk 3, Lq 70, Lk 45, D 17", (2, 6, 3, 70, 45, 17), False,
          None, False),
         ("granite-moe-1b-a400m prefill: B 4, Hq 16, Hk 8, L 1000, D 64, causal", (4, 16, 8, 1000, 1000, 64), True,
+         None, True),
+        ("jamba-v0.1-52b prefill: B 4, Hq 32, Hk 8, L 1024, D 128, causal", (4, 32, 8, 1024, 1024, 128), True,
          None, True),
     )
     for label, (b, hq, hk, lq, lk, d), causal, window, timed in cases:
@@ -1250,6 +1279,16 @@ class RouteWatch:
                 "max_prob_gap": self.max_prob_gap, "route_tie_tol": ROUTE_TIE_TOL, "dropped_slots_cpu": self.dropped}
 
 
+def flash_layers(cfg) -> int:
+    """Flash launches in one prefill: one a GQA attention layer; none for
+    MLA (its qk and v heads differ), Mamba or RWKV."""
+    return 0 if cfg.attention == "mla" else cfg.pattern().count("a")
+
+
+def prefill_label(cfg) -> str:
+    return "flash prefill" if flash_layers(cfg) else "prefill"
+
+
 def check_lm_small(torch, dev, ops, log) -> None:
     """The LM's prefill logits and 8 greedy tokens on the card (flash kernel
     for GQA) against the CPU (plain path), same weights, teacher-forced with
@@ -1258,7 +1297,11 @@ def check_lm_small(torch, dev, ops, log) -> None:
     prompt 40; granite-moe-1b-a400m at full width cut to 2 layers, B 1,
     prompt 200; deepseek-v2 at full widths cut to 2 layers (the dense first
     layer and one MoE layer) and 16 of its 160 routed experts, B 1, prompt
-    64 (MLA: no flash launch). Every MoE route is held to the CPU's
+    64 (MLA: no flash launch); jamba-v0.1-52b at full widths cut to one
+    8-layer period with 4 of its 16 experts, B 1, prompt 64 (one flash
+    launch; both scans take their chunked branch); rwkv6-1.6b at full width
+    cut to 2 layers, B 2, prompts 40 (the token recurrence) and 64 (the
+    chunked WKV), no flash launch. Every MoE route is held to the CPU's
     (``RouteWatch``)."""
     from repro_torch.configs import get_config, reduced_config
     from repro_torch.launch.serve import setup
@@ -1266,6 +1309,8 @@ def check_lm_small(torch, dev, ops, log) -> None:
 
     cpu = torch.device("cpu")
     deepseek = get_config("deepseek-v2-236b")
+    jamba = get_config("jamba-v0.1-52b")
+    rwkv6_2l = dataclasses.replace(get_config("rwkv6-1.6b"), num_layers=2)
     cases = (
         ("qwen2-0.5b, full width, 2 layers", dataclasses.replace(get_config("qwen2-0.5b"), num_layers=2), 1, 200),
         ("h2o-danube-1.8b reduced, window 16", reduced_config(get_config("h2o-danube-1.8b")), 2, 40),
@@ -1274,6 +1319,11 @@ def check_lm_small(torch, dev, ops, log) -> None:
         (f"deepseek-v2, full widths, 2 layers (dense + MoE), {DEEPSEEK_SMALL_EXPERTS} routed experts",
          dataclasses.replace(deepseek, num_layers=2,
                              moe=dataclasses.replace(deepseek.moe, num_experts=DEEPSEEK_SMALL_EXPERTS)), 1, 64),
+        (f"jamba-v0.1-52b, full widths, {JAMBA_LAYERS} layers, {JAMBA_SMALL_EXPERTS} experts (both scans chunked)",
+         dataclasses.replace(jamba, num_layers=JAMBA_LAYERS,
+                             moe=dataclasses.replace(jamba.moe, num_experts=JAMBA_SMALL_EXPERTS)), 1, 64),
+        ("rwkv6-1.6b, full width, 2 layers (the token recurrence)", rwkv6_2l, 2, 40),
+        ("rwkv6-1.6b, full width, 2 layers (the chunked WKV)", rwkv6_2l, 2, 64),
     )
     steps = 8
     for label, cfg, batch, plen in cases:
@@ -1304,7 +1354,7 @@ def check_lm_small(torch, dev, ops, log) -> None:
         tokens = torch.cat(tokens, dim=1)
         if not torch.equal(generate(card_model, prompt.to(dev), steps=steps), tokens.to(torch.int32)):
             raise AssertionError(f"{label}: generate's greedy tokens differ from the teacher-forced loop's")
-        want_flash = 0 if cfg.attention == "mla" else cfg.num_layers
+        want_flash = flash_layers(cfg)
         if flash != want_flash:
             raise AssertionError(f"{label}: {flash} flash launches in one prefill of {cfg.num_layers} layers, "
                                  f"not {want_flash}")
@@ -1390,8 +1440,11 @@ def _train_vs_cpu(torch, dev, log, label: str, cfg):
 
 def check_train_small(torch, dev, ops, log) -> None:
     """Training on the card against the CPU, the same weights and batch
-    (``_train_vs_cpu``): qwen2-0.5b and granite-moe-1b-a400m, each at full
-    width (vocab 151,936 / 49,155) cut to 2 layers, B 2, L 32. Then, on
+    (``_train_vs_cpu``): qwen2-0.5b, granite-moe-1b-a400m and rwkv6-1.6b,
+    each at full width (vocab 151,936 / 49,155 / 65,536) cut to 2 layers,
+    and jamba-v0.1-52b at full widths cut to 2 layers (Mamba with the dense
+    FFN, Mamba with MoE) and 4 of its 16 experts, B 2, L 32 (both scans
+    take their chunked branch). Then, on
     qwen2 only, 2 microbatches' accumulated gradients against 1's, and
     against a planted fault (the second microbatch dropped) that the check
     must catch; one AdamW step on the same gradients; a bitwise checkpoint
@@ -1407,6 +1460,13 @@ def check_train_small(torch, dev, ops, log) -> None:
     ops.reset_launch_counts()
     granite = dataclasses.replace(get_config("granite-moe-1b-a400m"), num_layers=2)
     _train_vs_cpu(torch, dev, log, "granite-moe-1b-a400m, full width, 2 layers", granite)
+    _train_vs_cpu(torch, dev, log, "rwkv6-1.6b, full width, 2 layers",
+                  dataclasses.replace(get_config("rwkv6-1.6b"), num_layers=2))
+    jamba = get_config("jamba-v0.1-52b")
+    _train_vs_cpu(torch, dev, log, f"jamba-v0.1-52b, full widths, 2 layers (Mamba + dense, Mamba + MoE), "
+                  f"{JAMBA_SMALL_EXPERTS} experts",
+                  dataclasses.replace(jamba, num_layers=2,
+                                      moe=dataclasses.replace(jamba.moe, num_experts=JAMBA_SMALL_EXPERTS)))
     cfg = dataclasses.replace(get_config("qwen2-0.5b"), num_layers=2)
     cpu_model, batch, loss, grads, g_cpu = _train_vs_cpu(torch, dev, log, "qwen2-0.5b, full width, 2 layers", cfg)
 
@@ -1557,13 +1617,14 @@ def _teacher_forced(torch, model, prompt, tokens, arch: str, order: list[int]) -
     decode keeps. Queues fill in batch order, so the later rows drop
     first."""
     prompt, tokens = prompt[order], tokens[order]
+    plen = prompt.shape[1]
     with DropCount(SERVE_BATCH) as drops:
-        lg, caches = model.prefill({"tokens": prompt}, cache_len=SERVE_PROMPT + 2)
+        lg, caches = model.prefill({"tokens": prompt}, cache_len=plen + 2)
     row_drops = drops.by_row()
     dropped = [sum(row_drops)]
     gaps, dropped_row_gaps = [], []
     for i in range(2):
-        lg_dec, caches = model.decode_step(caches, tokens[:, i:i + 1], SERVE_PROMPT + i)
+        lg_dec, caches = model.decode_step(caches, tokens[:, i:i + 1], plen + i)
         seq = torch.cat([prompt, tokens[:, :i + 1].long()], dim=1)
         with DropCount(SERVE_BATCH) as drops:
             lg_full, _ = model.prefill({"tokens": seq})
@@ -1571,7 +1632,7 @@ def _teacher_forced(torch, model, prompt, tokens, arch: str, order: list[int]) -
         row_drops = [a + b for a, b in zip(row_drops, drops.by_row())]
         rows = [b for b in range(SERVE_BATCH) if row_drops[b] == 0]
         if rows:
-            what = (f"serve {arch}: decode step {i} vs flash prefill of {seq.shape[1]} tokens, "
+            what = (f"serve {arch}: decode step {i} vs {prefill_label(model.cfg)} of {seq.shape[1]} tokens, "
                     f"prompts {[order[b] for b in rows]} in rows {rows}")
             gaps.append(compare(torch, lg_dec[rows], lg_full[rows], LOGIT_TOL["rtol"], LOGIT_TOL["atol"], what))
             _decided(torch, lg_dec[rows, -1], tokens[rows, i + 1])
@@ -1583,11 +1644,13 @@ def _teacher_forced(torch, model, prompt, tokens, arch: str, order: list[int]) -
             "dropped_slots_by_row": row_drops, "max_abs_gap_with_dropped_rows": max(dropped_row_gaps, default=0.0)}
 
 
-def run_serve(torch, dev, ops, serve, log, arch: str) -> dict[str, int]:
-    """The serve path at full width; counts reset just before, read just
-    after. Then a teacher-forced check with the same weights: decode-step
-    logits (plain attention over the cache) against the last row of a flash
-    prefill of the extended sequence, with each prefill's dropped MoE slots
+def run_serve(torch, dev, ops, serve, log, arch: str, prompt_len: int = SERVE_PROMPT) -> dict[str, int]:
+    """The serve path at full width, ``SERVE_BATCH`` prompts of ``prompt_len``
+    tokens; counts reset just before, read just after: one flash launch an
+    attention layer (none for rwkv6). Then a teacher-forced check with the
+    same weights: decode-step logits (plain attention over the cache; the
+    recurrent states of Mamba or RWKV) against the last row of a prefill of
+    the extended sequence, with each prefill's dropped MoE slots
     (capacity factor 2.0, as decode). With MoE it runs twice, the second
     time with the two halves of the batch swapped, and every prompt must be
     compared in one of the two passes: granite's capacity at factor 2.0
@@ -1597,12 +1660,12 @@ def run_serve(torch, dev, ops, serve, log, arch: str) -> dict[str, int]:
 
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
-    out = serve.main(serve_args(arch))
+    out = serve.main(serve_args(arch, prompt_len))
     counts = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     tokens = out["tokens"]
     new = SERVE_BATCH * (SERVE_TOKENS - 1)
-    log(json.dumps({"serve": f"{arch} full width", "batch": SERVE_BATCH, "prompt": SERVE_PROMPT,
+    log(json.dumps({"serve": f"{arch} full width", "batch": SERVE_BATCH, "prompt": prompt_len,
                     "tokens": SERVE_TOKENS, "wall_s": out["seconds"], "prefill_s": out["prefill_s"],
                     "decode_s": out["decode_s"], "decode_tokens_per_s": new / out["decode_s"],
                     "tokens_per_s": SERVE_BATCH * SERVE_TOKENS / out["seconds"],
@@ -1611,11 +1674,11 @@ def run_serve(torch, dev, ops, serve, log, arch: str) -> dict[str, int]:
     cfg = get_config(arch)
     if tuple(tokens.shape) != (SERVE_BATCH, SERVE_TOKENS):
         raise AssertionError(f"serve {arch}: tokens of shape {tuple(tokens.shape)}")
-    if counts["flash_attention"] != cfg.num_layers:
+    if counts["flash_attention"] != flash_layers(cfg):
         raise AssertionError(f"serve {arch}: {counts['flash_attention']} flash launches for one prefill of "
-                             f"{cfg.num_layers} layers")
+                             f"{cfg.pattern().count('a')} attention layers")
 
-    model, prompt, _, _ = serve.setup(cfg, SERVE_BATCH, SERVE_PROMPT, dev, seed=0)
+    model, prompt, _, _ = serve.setup(cfg, SERVE_BATCH, prompt_len, dev, seed=0)
     orders = [list(range(SERVE_BATCH))]
     if cfg.moe is not None:
         half = SERVE_BATCH // 2
@@ -1625,7 +1688,7 @@ def run_serve(torch, dev, ops, serve, log, arch: str) -> dict[str, int]:
     if compared != orders[0]:
         raise AssertionError(f"serve {arch}: prompts {sorted(set(orders[0]) - set(compared))} dropped MoE slots "
                              f"in every pass; not compared ({passes})")
-    log(json.dumps({"check": f"serve {arch} decode vs flash prefill, teacher-forced", "steps": 2,
+    log(json.dumps({"check": f"serve {arch} decode vs {prefill_label(cfg)}, teacher-forced", "steps": 2,
                     "logits_max_abs_gap": max(p["logits_max_abs_gap"] for p in passes),
                     "logits_max_abs": max(p["logits_max_abs"] for p in passes),
                     **({"passes": passes} if cfg.moe is not None else {})}))
@@ -1687,6 +1750,74 @@ def run_deepseek_serve(torch, dev, ops, log) -> dict[str, int]:
                     "decode_vs_expanded_max_abs_gap": max(gaps), "logits_max_abs": float(lg_dec.abs().max()),
                     "prefill_dropped_slots": prefill_dropped, "max_memory_allocated": peak}))
     del model, aligned, caches
+    return counts
+
+
+def run_jamba_serve(torch, dev, ops, log) -> dict[str, int]:
+    """jamba-v0.1-52b at its published widths cut to one 8-layer period (7
+    Mamba layers, 1 attention layer, MoE on layers 1, 3, 5, 7), on the card
+    only, one copy of the weights: ``generate`` for SERVE_BATCH prompts of
+    SCAN_SERVE_PROMPT tokens with counts reset just before, read just after
+    (one flash launch, at Hq 32, Hk 8, D 128); then prompt 0's decode,
+    teacher-forced over JAMBA_CHECK_STEPS steps from its own prefill,
+    against the last row of the full forward of the extended sequence, all
+    at a capacity factor of E / top_k + 1 = 9, where every expert has a slot
+    for every token and none drops (``run_deepseek_serve``'s alignment). At
+    B 4 that factor would need ≈ 13 GB of expert buffers beside the 53 GB of
+    weights; B 1 needs a quarter."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import setup
+    from repro_torch.models.transformer import Model
+    from repro_torch.serve.decode import generate
+
+    full = get_config("jamba-v0.1-52b")
+    cfg = dataclasses.replace(full, num_layers=JAMBA_LAYERS)
+    torch.cuda.empty_cache()  # the earlier phases' cached blocks: 53 GB of weights follow
+    torch.cuda.reset_peak_memory_stats()
+    model, prompt, _, _ = setup(cfg, SERVE_BATCH, SCAN_SERVE_PROMPT, dev, seed=0)
+    n_params = sum(p.numel() for p in model.params.parameters())
+    timings: dict = {}
+    ops.reset_launch_counts()
+    t0 = sync_wall(torch)
+    tokens = generate(model, prompt, steps=SERVE_TOKENS, timings=timings)
+    wall = sync_wall(torch) - t0
+    counts = ops.launch_counts()
+    serve_peak = torch.cuda.max_memory_allocated()
+    if tuple(tokens.shape) != (SERVE_BATCH, SERVE_TOKENS):
+        raise AssertionError(f"jamba serve: tokens of shape {tuple(tokens.shape)}")
+    if counts["flash_attention"] != flash_layers(cfg) or flash_layers(cfg) != 1:
+        raise AssertionError(f"jamba serve: {counts['flash_attention']} flash launches for one prefill of "
+                             f"{cfg.pattern().count('a')} attention layer")
+    aligned = Model(dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k + 1)))
+    aligned.params = model.params
+    del model
+    row, served = prompt[:1], tokens[:1]
+    with DropCount(1) as drops:
+        lg, caches = aligned.prefill({"tokens": row}, cache_len=SCAN_SERVE_PROMPT + JAMBA_CHECK_STEPS)
+    gaps = []
+    for i in range(JAMBA_CHECK_STEPS):
+        lg_dec, caches = aligned.decode_step(caches, served[:, i:i + 1], SCAN_SERVE_PROMPT + i)
+        seq = torch.cat([row, served[:, :i + 1].long()], dim=1)
+        with DropCount(1) as full_drops:
+            h, _ = aligned.backbone(aligned.embed_input({"tokens": seq}))
+        if any(full_drops.by_row()):
+            raise AssertionError(f"jamba serve: the aligned forward dropped {full_drops.by_row()} slots")
+        gaps.append(compare(torch, lg_dec, aligned.logits(h[:, -1:]), LOGIT_TOL["rtol"], LOGIT_TOL["atol"],
+                            f"jamba serve: decode step {i} vs the full forward of {seq.shape[1]}"))
+        _decided(torch, lg_dec[:, -1], served[:, i + 1])
+    if any(drops.by_row()):
+        raise AssertionError(f"jamba serve: the aligned prefill dropped {drops.by_row()} slots")
+    peak = torch.cuda.max_memory_allocated()
+    log(json.dumps({"serve": f"jamba-v0.1-52b full widths, {JAMBA_LAYERS} layers", "params": n_params,
+                    "batch": SERVE_BATCH, "prompt": SCAN_SERVE_PROMPT, "tokens": SERVE_TOKENS, "wall_s": wall,
+                    "prefill_s": timings["prefill_s"], "decode_s": timings["decode_s"],
+                    "decode_tokens_per_s": SERVE_BATCH * (SERVE_TOKENS - 1) / timings["decode_s"],
+                    "sample": tokens[0].tolist(), "launches": counts,
+                    "decode_vs_full_forward_max_abs_gap": max(gaps), "checked_steps": JAMBA_CHECK_STEPS,
+                    "logits_max_abs": float(lg_dec.abs().max()),
+                    "max_memory_allocated_serve": serve_peak, "max_memory_allocated": peak, "card": smi_line()}))
+    del aligned, caches
     return counts
 
 
@@ -1809,8 +1940,11 @@ def main() -> int:
     by_path["serve"] = run_serve(torch, dev, ops, serve, log, "qwen2-0.5b")
     by_path["granite_serve"] = run_serve(torch, dev, ops, serve, log, "granite-moe-1b-a400m")
     by_path["deepseek_serve_2l"] = run_deepseek_serve(torch, dev, ops, log)
+    by_path["rwkv6_serve"] = run_serve(torch, dev, ops, serve, log, "rwkv6-1.6b", SCAN_SERVE_PROMPT)
+    by_path["jamba_serve_8l"] = run_jamba_serve(torch, dev, ops, log)
     by_path["qwen2_train"] = run_train(torch, dev, ops, train, log, "qwen2-0.5b")
     by_path["granite_train"] = run_train(torch, dev, ops, train, log, "granite-moe-1b-a400m")
+    by_path["rwkv6_train"] = run_train(torch, dev, ops, train, log, "rwkv6-1.6b")
 
     kernels = []
     for name, (source, replaces) in SOURCES.items():

@@ -1,2 +1,3 @@
-"""The LM substrate of the port: the decoder (GQA or MLA attention, dense or MoE FFN), prefill and decode."""
+"""The LM substrate of the port: the decoder (GQA or MLA attention, Mamba or RWKV-6 mixers; dense, MoE or
+RWKV channel-mix FFN), prefill and decode."""
 from .transformer import Model, build_segments  # noqa: F401

@@ -1,4 +1,5 @@
-"""Config-driven decoder stack: the dense GQA transformer.
+"""Config-driven decoder stack: uniform, MoE, hybrid (Jamba) and
+attention-free (RWKV) architectures.
 
 Layers are grouped into *segments* of identical structure, as in the
 reference (``build_segments``). The reference stacks each segment's
@@ -8,16 +9,20 @@ loop walks it. Parameters keep the reference's names:
 ``params["seg{i}"][r]["l{j}"]["mixer"]["wq"]`` is the reference's
 ``params["seg{i}"]["l{j}"]["mixer"]["wq"][r]``.
 
-Ported: the attention mixers (GQA, and DeepSeek-V2's MLA), the dense
-SwiGLU FFN and the MoE FFN, for serving (``backbone``, ``prefill``,
-``decode_step``, under ``inference_mode``) and for training (``loss_fn``:
-the same layers with autograd on, rematerialized as the reference's
-``remat`` asks, through ``torch.utils.checkpoint``). An MoE layer's router
-aux loss is summed over the layers and added to the loss, as in the
-reference; prefill and decode route at capacity factor 2.0, the
-full-sequence forward at the config's. Mamba and RWKV (ROADMAP Queue 1 M4)
-raise ``NotImplementedError``, and nothing else silently runs in their
-place.
+Every mixer and FFN of the registry is ported: the attention mixers (GQA,
+and DeepSeek-V2's MLA), Mamba and RWKV-6's time mix; the dense SwiGLU FFN,
+the MoE FFN and RWKV's channel mix. They run for serving (``backbone``,
+``prefill``, ``decode_step``, under ``inference_mode``) and for training
+(``loss_fn``: the same layers with autograd on, rematerialized as the
+reference's ``remat`` asks, through ``torch.utils.checkpoint``). An MoE
+layer's router aux loss is summed over the layers and added to the loss,
+as in the reference; prefill and decode route at capacity factor 2.0, the
+full-sequence forward at the config's.
+
+A Mamba or RWKV layer's prefill takes its decode state from the forward's
+own scan; the reference runs the scan a second time for it
+(``_mamba_final_state``, ``_rwkv_final_state``, kept here as the plain
+versions the tests hold the prefill's states against).
 """
 from __future__ import annotations
 
@@ -25,15 +30,17 @@ import dataclasses
 import functools
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch.configs.base import ArchConfig
 from . import attention as attn
+from . import mamba as mam
 from . import moe as moe_mod
+from . import rwkv as rwkv_mod
 from .layers import cross_entropy, embed_tokens, embedding_init, lm_logits, mlp, mlp_init, rmsnorm, rmsnorm_init
 
-_UNPORTED = "is not ported yet (ROADMAP Queue 1 M4)"
 REMAT = ("none", "full", "dots")
 
 
@@ -86,33 +93,40 @@ def build_segments(cfg: ArchConfig) -> tuple[Segment, ...]:
     return tuple(segments)
 
 
-def check_ported(cfg: ArchConfig, desc: LayerDesc) -> None:
-    """Raise for a mixer or FFN kind the port does not have."""
-    if desc.mixer == "m":
-        raise NotImplementedError(f"{cfg.name}: the Mamba mixer {_UNPORTED}")
-    if desc.mixer == "r" or desc.ffn == "rwkv":
-        raise NotImplementedError(f"{cfg.name}: the RWKV time and channel mix {_UNPORTED}")
-    if desc.mixer != "a" or desc.ffn not in ("dense", "moe"):
-        raise NotImplementedError(f"{cfg.name}: layer {desc} {_UNPORTED}")
-
-
 # -----------------------------------------------------------------------------
 # single layer
 # -----------------------------------------------------------------------------
+def _mixer_init(gen: torch.Generator, cfg: ArchConfig, desc: LayerDesc, dtype) -> nn.ParameterDict:
+    if desc.mixer == "a":
+        return attn.mla_init(gen, cfg, dtype) if cfg.attention == "mla" else attn.gqa_init(gen, cfg, dtype)
+    if desc.mixer == "m":
+        return mam.mamba_init(gen, cfg, dtype)
+    return rwkv_mod.rwkv_time_mix_init(gen, cfg, dtype)
+
+
+def _ffn_init(gen: torch.Generator, cfg: ArchConfig, desc: LayerDesc, dtype) -> nn.ParameterDict:
+    if desc.ffn == "moe":
+        return moe_mod.moe_init(gen, cfg, dtype)
+    if desc.ffn == "rwkv":
+        return rwkv_mod.rwkv_channel_mix_init(gen, cfg, dtype)
+    return mlp_init(gen, cfg.d_model, cfg.d_ff, dtype)
+
+
 def layer_init(gen: torch.Generator, cfg: ArchConfig, desc: LayerDesc, dtype=torch.float32) -> nn.ModuleDict:
-    check_ported(cfg, desc)
-    mla = cfg.attention == "mla"
     return nn.ModuleDict({
         "norm1": rmsnorm_init(cfg.d_model, gen.device),
-        "mixer": attn.mla_init(gen, cfg, dtype) if mla else attn.gqa_init(gen, cfg, dtype),
+        "mixer": _mixer_init(gen, cfg, desc, dtype),
         "norm2": rmsnorm_init(cfg.d_model, gen.device),
-        "ffn": moe_mod.moe_init(gen, cfg, dtype) if desc.ffn == "moe" else mlp_init(gen, cfg.d_model, cfg.d_ff, dtype),
+        "ffn": _ffn_init(gen, cfg, desc, dtype),
     })
 
 
 def _ffn(params, h: torch.Tensor, cfg: ArchConfig, desc: LayerDesc,
          capacity_factor: float | None = None) -> tuple[torch.Tensor, torch.Tensor | None]:
-    """The layer's FFN on h, and its weighted router aux loss (None for a dense FFN)."""
+    """The layer's FFN on h, and its weighted router aux loss (None without
+    an MoE FFN). RWKV's channel mix takes a zero token shift before h."""
+    if desc.ffn == "rwkv":
+        return rwkv_mod.rwkv_channel_mix(params, h), None
     if desc.ffn != "moe":
         return mlp(params, h), None
     out, aux = moe_mod.moe_ffn(params, h, cfg, capacity_factor)
@@ -122,9 +136,13 @@ def _ffn(params, h: torch.Tensor, cfg: ArchConfig, desc: LayerDesc,
 
 def layer_forward(params, x: torch.Tensor, cfg: ArchConfig,
                   desc: LayerDesc) -> tuple[torch.Tensor, torch.Tensor | None]:
-    """Full-sequence layer. Returns (x, moe_aux): the router aux loss, None for a dense FFN."""
+    """Full-sequence layer. Returns (x, moe_aux): the router aux loss, None without an MoE FFN."""
     h = rmsnorm(params["norm1"], x, cfg.norm_eps)
-    if cfg.attention == "mla":
+    if desc.mixer == "m":
+        x = x + mam.mamba_forward(params["mixer"], h, cfg)
+    elif desc.mixer == "r":
+        x = x + rwkv_mod.rwkv_time_mix(params["mixer"], h, cfg)
+    elif cfg.attention == "mla":
         x = x + attn.mla_forward(params["mixer"], h, cfg)
     else:
         x = x + attn.gqa_forward(params["mixer"], h, cfg)
@@ -135,11 +153,15 @@ def layer_forward(params, x: torch.Tensor, cfg: ArchConfig,
 # -----------------------------------------------------------------------------
 # caches (decode)
 # -----------------------------------------------------------------------------
-Cache = attn.KVCache | attn.MLACache
+Cache = attn.KVCache | attn.MLACache | mam.MambaState | rwkv_mod.RWKVState
 
 
 def layer_cache_init(cfg: ArchConfig, desc: LayerDesc, batch: int, seq_len: int, dtype=torch.float32,
                      device=None) -> Cache:
+    if desc.mixer == "m":
+        return mam.mamba_state_init(cfg, batch, dtype, device)
+    if desc.mixer == "r":
+        return rwkv_mod.rwkv_state_init(cfg, batch, dtype, device)
     if cfg.attention == "mla":
         return attn.mla_cache_init(cfg, batch, seq_len, dtype, device)
     return attn.gqa_cache_init(cfg, batch, seq_len, dtype, device)
@@ -148,26 +170,76 @@ def layer_cache_init(cfg: ArchConfig, desc: LayerDesc, batch: int, seq_len: int,
 def layer_decode(params, x: torch.Tensor, cache: Cache, pos: int, cfg: ArchConfig,
                  desc: LayerDesc) -> tuple[torch.Tensor, Cache]:
     h = rmsnorm(params["norm1"], x, cfg.norm_eps)
-    if cfg.attention == "mla":
+    if desc.mixer == "m":
+        mix, cache = mam.mamba_decode(params["mixer"], h, cache, cfg)
+    elif desc.mixer == "r":
+        mix, cache = rwkv_mod.rwkv_decode(params["mixer"], params["ffn"], h, cache, cfg)
+    elif cfg.attention == "mla":
         mix, cache = attn.mla_decode(params["mixer"], h, cache, pos, cfg)
     else:
         mix, cache = attn.gqa_decode(params["mixer"], h, cache, pos, cfg)
     x = x + mix
-    out, _ = _ffn(params["ffn"], rmsnorm(params["norm2"], x, cfg.norm_eps), cfg, desc, capacity_factor=2.0)
+    h2 = rmsnorm(params["norm2"], x, cfg.norm_eps)
+    if desc.ffn == "rwkv":
+        # the channel mix shifts in the previous token's input, then this token's becomes it
+        out = rwkv_mod.rwkv_channel_mix(params["ffn"], h2, x_prev=cache.x_prev_cm)
+        cache = cache._replace(x_prev_cm=h2[:, 0])
+    else:
+        out, _ = _ffn(params["ffn"], h2, cfg, desc, capacity_factor=2.0)
     return x + out, cache
 
 
 def layer_prefill(params, x: torch.Tensor, cfg: ArchConfig, desc: LayerDesc,
                   cache_len: int | None = None) -> tuple[torch.Tensor, Cache]:
-    """Full-seq forward that also emits the decode cache for this layer."""
+    """Full-seq forward that also emits the decode cache for this layer.
+    A Mamba or RWKV layer's state comes from the forward's own scan; the
+    token-shift inputs are copies of the last positions."""
     h = rmsnorm(params["norm1"], x, cfg.norm_eps)
-    if cfg.attention == "mla":
+    if desc.mixer == "m":
+        mix, cache = mam.mamba_forward_with_state(params["mixer"], h, cfg)
+    elif desc.mixer == "r":
+        mix, s = rwkv_mod.rwkv_time_mix_with_state(params["mixer"], h, cfg)
+        cache = rwkv_mod.RWKVState(x_prev_tm=h[:, -1].clone(), x_prev_cm=torch.zeros_like(h[:, -1]), s=s)
+    elif cfg.attention == "mla":
         mix, cache = attn.mla_prefill(params["mixer"], h, cfg, cache_len)
     else:
         mix, cache = attn.gqa_prefill(params["mixer"], h, cfg, cache_len)
     x = x + mix
-    out, _ = _ffn(params["ffn"], rmsnorm(params["norm2"], x, cfg.norm_eps), cfg, desc, capacity_factor=2.0)
+    h2 = rmsnorm(params["norm2"], x, cfg.norm_eps)
+    out, _ = _ffn(params["ffn"], h2, cfg, desc, capacity_factor=2.0)
+    if desc.ffn == "rwkv":
+        cache = cache._replace(x_prev_cm=h2[:, -1].clone())
     return x + out, cache
+
+
+def _mamba_final_state(mixer, h: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """The reference's final SSM state after h: the scan run again, as the
+    reference's prefill does. The prefill takes the forward's own state;
+    this is the plain version the tests hold it against."""
+    x, _, d_in, d_state, dt_rank = mam._project(mixer, h, cfg)
+    x = F.silu(mam._conv_causal(x, mixer["conv_w"], mixer["conv_b"]))
+    dt, b, c, a = mam._ssm_params(mixer, x, d_state, dt_rank)
+    h0 = torch.zeros((h.shape[0], d_in, d_state), dtype=torch.float32, device=h.device)
+    return mam._ssm_scan(x.float(), dt, b, c, a, h0)[0]
+
+
+def _rwkv_final_state(mixer, h: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """The reference's final WKV state after h, computed again with r = 0 (r
+    never enters the state update); the plain version the tests hold the
+    prefill's state against."""
+    b, l, _ = h.shape
+    nh, hs, _ = rwkv_mod._dims(cfg)
+    x_prev = rwkv_mod._shift(h)
+    k = rwkv_mod._mix(h, x_prev, mixer["mix_k"]) @ mixer["wk"]
+    v = rwkv_mod._mix(h, x_prev, mixer["mix_v"]) @ mixer["wv"]
+    w = rwkv_mod._decay(mixer, rwkv_mod._mix(h, x_prev, mixer["mix_w"]))
+    kh = k.reshape(b, l, nh, hs).float()
+    vh = v.reshape(b, l, nh, hs).float()
+    wh = w.reshape(b, l, nh, hs)
+    rh = torch.zeros_like(kh)
+    s0 = torch.zeros((b, nh, hs, hs), dtype=torch.float32, device=h.device)
+    wkv = rwkv_mod._wkv_chunked if l % rwkv_mod._WKV_CHUNK == 0 else rwkv_mod._wkv_naive
+    return wkv(rh, kh, vh, wh, mixer["u"], s0)[0]
 
 
 # -----------------------------------------------------------------------------
@@ -222,9 +294,6 @@ class Model(nn.Module):
         self.remat = remat
         self.segments = build_segments(cfg)
         assert sum(s.repeat * len(s.layers) for s in self.segments) == cfg.num_layers
-        for seg in self.segments:
-            for desc in seg.layers:
-                check_ported(cfg, desc)
         self.params: nn.ModuleDict | None = None
 
     @property

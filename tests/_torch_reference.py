@@ -1,4 +1,5 @@
-"""Shared helpers of the port's parity tests: the JAX reference's draws.
+"""Shared helpers of the port's parity tests: the JAX reference's draws,
+the names of its parameter trees, and its greedy serve runs.
 
 The port never imports JAX; these helpers run the reference's random
 schedule (``nmfk.py`` / ``nmf.py`` / ``kmeans.py`` / ``rescal.py`` /
@@ -117,3 +118,35 @@ def drescal_draws(key, n: int, nr: int, k: int, shards: int) -> tuple[np.ndarray
     rows = n // shards
     a = np.concatenate([uniform(jax.random.fold_in(ka, i), (rows, k), 0.1, 1.0) for i in range(shards)])
     return a, uniform(kr, (nr, k, k), 0.1, 1.0)
+
+
+def reference_shapes(jp) -> dict[str, tuple[int, ...]]:
+    """The port's parameter names and shapes of a reference ``Model.init``
+    tree: key paths joined by dots, stacked segments unstacked into
+    ``seg{i}.{r}``."""
+    want = {}
+    for path, leaf in jax.tree_util.tree_flatten_with_path(jp)[0]:
+        keys = [p.key for p in path]
+        if keys[0].startswith("seg"):
+            for r in range(leaf.shape[0]):
+                want[".".join([keys[0], str(r)] + keys[1:])] = tuple(leaf.shape[1:])
+        else:
+            want[".".join(keys)] = tuple(leaf.shape)
+    return want
+
+
+def reference_greedy_run(jm, jp, decode, prompt: np.ndarray, steps: int, cache_len: int) -> dict:
+    """The reference model ``jm``'s jitted prefill of ``prompt`` and ``steps``
+    greedy decode steps after it (``decode``: its jitted ``decode_step``,
+    which compiles once for every prompt of one ``cache_len``): each step's
+    logits and caches as numpy, and the tokens fed."""
+    logits, caches = jax.jit(jm.prefill, static_argnames="cache_len")(jp, {"tokens": prompt}, cache_len=cache_len)
+    run = {"prompt": prompt, "logits": [np.asarray(logits)], "caches": [jax.tree.map(np.asarray, caches)], "tokens": []}
+    l = prompt.shape[1]
+    for i in range(steps):
+        tok = np.argmax(run["logits"][-1][:, -1], -1).astype(np.int32)[:, None]
+        logits, caches = decode(jp, caches, tok, jnp.asarray(l + i, jnp.int32))
+        run["tokens"].append(tok)
+        run["logits"].append(np.asarray(logits))
+        run["caches"].append(jax.tree.map(np.asarray, caches))
+    return run

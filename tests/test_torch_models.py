@@ -38,6 +38,8 @@ from repro_torch.models.layers import frozen  # noqa: E402
 from repro_torch.models.transformer import Model  # noqa: E402
 from repro_torch.serve.decode import generate  # noqa: E402
 
+from _torch_reference import reference_shapes  # noqa: E402
+
 FLASH_TOL = dict(rtol=3e-5, atol=3e-5)  # tests/test_kernels.py::test_flash_attention
 BLOCK_TOL = dict(rtol=1e-5, atol=1e-5)  # same fp32 algebra, other evaluation order
 LOGIT_TOL = dict(rtol=2e-3, atol=2e-3)  # tests/test_models.py decode vs full forward
@@ -342,21 +344,7 @@ def test_model_init_has_the_reference_parameters():
     assert not any(p.requires_grad for p in params.parameters())
     jp = JModel(jconfigs.reduced_config(jconfigs.get_config("qwen2-0.5b")), remat="none", dtype=jnp.float32).init(KEY)
     got = {k: tuple(v.shape) for k, v in m.params.state_dict().items()}
-    assert got == _reference_shapes(jp)
-
-
-def _reference_shapes(jp) -> dict[str, tuple[int, ...]]:
-    """The port's parameter names and shapes of a reference tree: key paths
-    joined by dots, stacked segments unstacked into ``seg{i}.{r}``."""
-    want = {}
-    for path, leaf in jax.tree_util.tree_flatten_with_path(jp)[0]:
-        keys = [p.key for p in path]
-        if keys[0].startswith("seg"):
-            for r in range(leaf.shape[0]):
-                want[".".join([keys[0], str(r)] + keys[1:])] = tuple(leaf.shape[1:])
-        else:
-            want[".".join(keys)] = tuple(leaf.shape)
-    return want
+    assert got == reference_shapes(jp)
 
 
 @pytest.mark.parametrize("name", ["granite-moe-1b-a400m", "deepseek-v2-236b"])
@@ -369,17 +357,24 @@ def test_moe_model_init_has_the_reference_parameters(name):
     params = Model(cfg).init(torch.Generator().manual_seed(0))
     jcfg = jconfigs.reduced_config(jconfigs.get_config(name))
     jp = JModel(jcfg, remat="none", dtype=jnp.float32).init(KEY)
-    want = _reference_shapes(jp)
+    want = reference_shapes(jp)
     assert {k: tuple(v.shape) for k, v in params.state_dict().items()} == want
     assert set(model_params_from_reference(_np_tree(jp), cfg, "cpu").state_dict()) == set(want)
     norms = cfg.num_layers * (cfg.mla.q_lora_rank + cfg.mla.kv_lora_rank) if cfg.mla else 0
     assert sum(p.numel() for p in params.parameters()) == cfg.param_count() + norms + cfg.d_model
 
 
-@pytest.mark.parametrize("name", ["rwkv6-1.6b", "jamba-v0.1-52b"])
-def test_unported_mixers_raise(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Model(configs.reduced_config(configs.get_config(name)))
+@pytest.mark.parametrize("name", sorted(jconfigs.registry()))
+def test_every_arch_builds_and_serves_a_step(name):
+    """Every layer kind of the registry is ported: the model builds at the
+    published config's depth and pattern, and the reduced config takes a
+    prefill and a decode step with finite logits."""
+    full = Model(configs.get_config(name))
+    assert sum(s.repeat * len(s.layers) for s in full.segments) == configs.get_config(name).num_layers
+    cfg = configs.reduced_config(configs.get_config(name))
+    model, prompt, extra, _ = serve.setup(cfg, 2, 5, torch.device("cpu"), seed=0)
+    tokens = generate(model, prompt, steps=2, batch_extra=extra)
+    assert tokens.shape == (2, 2) and int(tokens.min()) >= 0 and int(tokens.max()) < cfg.vocab_size
 
 
 # -----------------------------------------------------------------------------
@@ -395,6 +390,15 @@ def test_serve_main_on_the_cpu_is_seeded():
     assert torch.equal(serve.main(argv)["tokens"], tokens)
     windowed = serve.main(argv + ["--arch", "h2o-danube-1.8b", "--prompt-len", "40"])["tokens"]
     assert windowed.shape == (3, 5)
+
+
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "rwkv6-1.6b"])
+def test_serve_main_runs_the_scan_archs_on_the_cpu(arch):
+    """The Mamba hybrid and the attention-free arch (``num_heads`` 0)
+    through the launcher, at a prompt that takes each scan's chunked branch."""
+    out = serve.main(["--device", "cpu", "--arch", arch, "--batch", "2", "--prompt-len", "32", "--tokens", "4",
+                      "--quiet"])
+    assert out["tokens"].shape == (2, 4) and int(out["tokens"].max()) < 512
 
 
 def test_serve_parser_reduced_flag():

@@ -201,6 +201,20 @@ def test_serve_parse_args_defaults_and_flags():
             profile_serve.parse_args(bad)
 
 
+def test_serve_parse_args_depth_cut_and_prompt_length():
+    """``--layers`` cuts the depth (0: the arch's own) and ``--prompt-len``
+    sets the prompt (default: chip_smoke.py's serve phases' 1000)."""
+    import profile_serve
+
+    args = profile_serve.parse_args([])
+    assert (args.layers, args.prompt_len) == (0, profile_serve.PROMPT) == (0, 1000)
+    args = profile_serve.parse_args(["--arch", "jamba-v0.1-52b", "--layers", "8", "--prompt-len", "1024"])
+    assert (args.arch, args.layers, args.prompt_len) == ("jamba-v0.1-52b", 8, 1024)
+    for bad in (["--layers", "-1"], ["--prompt-len", "0"]):
+        with pytest.raises(SystemExit):
+            profile_serve.parse_args(bad)
+
+
 @pytest.mark.parametrize("turns", [1, 2, 5])
 def test_serve_turns_alternate_which_version_runs_first(turns):
     import profile_serve

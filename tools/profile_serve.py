@@ -3,15 +3,19 @@
 
 The prefill is that of ``chip_smoke.py``'s serve phases: qwen2-0.5b (or
 ``--arch``, e.g. granite-moe-1b-a400m) at its published widths (24 layers,
-weights from seed 0), 4 prompts of 1000 tokens, one flash-attention launch
-per layer. One run is one process and prints one JSON line with:
+weights from seed 0), 4 prompts of 1000 tokens (``--prompt-len``), one
+flash-attention launch per attention layer. ``--layers N`` cuts the depth
+to N layers (jamba-v0.1-52b's one 8-layer period is 13.3 B parameters,
+53 GB in fp32; the whole model does not fit one card). One run is one
+process and prints one JSON line with:
 
 - ``cold_prefill_s``: the first prefill of the process (host clock, ending
   in a synchronize), after the kernels are built and loaded;
 - ``prefill_s``: ``--repeats`` prefills after it, each on the host clock
   and ending in a synchronize; ``prefill_median_s`` their median;
-- ``serve_prefill_s`` and ``serve_decode_s``: ``launch.serve.main`` as
-  ``chip_smoke.py`` runs it (32 new tokens), after those prefills;
+- ``serve_prefill_s`` and ``serve_decode_s``: ``serve.decode.generate``
+  as ``launch.serve.main`` runs it (32 new tokens), on the same weights,
+  after those prefills;
 - ``flash_launches``: the flash-attention launches of one prefill;
 - one more prefill under ``torch.profiler``: ``profiled_wall_s``,
   ``device_busy_ms`` (the device events' own time, summed:
@@ -35,11 +39,13 @@ for each version the median, least and largest of the processes' figures.
 Run from the root of a checkout on a machine with a card:
 
     python3 tools/profile_serve.py [--src src] [--repeats 5]
+    python3 tools/profile_serve.py --arch jamba-v0.1-52b --layers 8 --prompt-len 1024
     python3 tools/profile_serve.py --turns 5 --parent build/parent/src
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -63,6 +69,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", default=str(Path(__file__).resolve().parents[1] / "src"))
     ap.add_argument("--arch", default="qwen2-0.5b")
+    ap.add_argument("--layers", type=int, default=0, help="cut the depth to this many layers (default: the arch's)")
+    ap.add_argument("--prompt-len", type=int, default=PROMPT)
     ap.add_argument("--tag", default=None, help="label of this version in the output (default: --src)")
     ap.add_argument("--repeats", type=int, default=5, help="warm prefills on the host clock")
     ap.add_argument("--top", type=int, default=8)
@@ -74,6 +82,8 @@ def parse_args(argv=None) -> argparse.Namespace:
         ap.error("--turns needs --parent")
     if args.repeats < 1:
         ap.error("--repeats takes at least 1")
+    if args.layers < 0 or args.prompt_len < 1:
+        ap.error("--layers takes 0 or more, --prompt-len 1 or more")
     return args
 
 
@@ -116,7 +126,8 @@ def run_turns(args) -> int:
     runs = []
     for tag in turn_order(args.turns):
         cmd = [sys.executable, str(here), "--src", srcs[tag], "--tag", tag, "--repeats", str(args.repeats),
-               "--top", str(args.top), "--arch", args.arch]
+               "--top", str(args.top), "--arch", args.arch, "--layers", str(args.layers),
+               "--prompt-len", str(args.prompt_len)]
         proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
         if proc.returncode != 0:
             print(proc.stdout + proc.stderr, file=sys.stderr)
@@ -142,15 +153,17 @@ def main(argv=None) -> int:
     from repro_torch.configs import get_config
     from repro_torch.kernels import build, ops
     from repro_torch.launch import serve
-    from repro_torch.serve.decode import make_prefill
+    from repro_torch.serve.decode import generate, make_prefill
 
     dev = torch.device("cuda")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
     build.load("flash_attention")
     cfg = get_config(args.arch)
-    model, prompt, _, _ = serve.setup(cfg, BATCH, PROMPT, dev, seed=0)
-    prefill = make_prefill(model, PROMPT + TOKENS)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
+    model, prompt, _, _ = serve.setup(cfg, BATCH, args.prompt_len, dev, seed=0)
+    prefill = make_prefill(model, args.prompt_len + TOKENS)
     batch = {"tokens": prompt}
 
     def timed() -> float:
@@ -167,9 +180,8 @@ def main(argv=None) -> int:
     ops.reset_launch_counts()
     walls = [timed() for _ in range(args.repeats)]
     launches = ops.launch_counts()["flash_attention"] / args.repeats
-    out = serve.main(["--arch", args.arch, "--no-reduced", "--batch", str(BATCH), "--prompt-len", str(PROMPT),
-                      "--tokens", str(TOKENS), "--quiet"])
-    torch.cuda.synchronize()
+    out: dict = {}
+    generate(model, prompt, steps=TOKENS, timings=out)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         wall = timed()
     if args.trace:
@@ -182,10 +194,13 @@ def main(argv=None) -> int:
     if cfg.moe is not None:
         with DropCount(BATCH) as drops:
             timed()
-        moe = {"dropped_slots": [sum(c) for c in drops.by_call], "routed_slots": BATCH * PROMPT * cfg.moe.top_k}
+        moe = {"dropped_slots": [sum(c) for c in drops.by_call],
+               "routed_slots": BATCH * args.prompt_len * cfg.moe.top_k}
     print(json.dumps({
         "tag": args.tag or args.src, "card": smi, "device": torch.cuda.get_device_name(0),
-        "shape": f"{args.arch} full width, B {BATCH}, prompt {PROMPT}",
+        "shape": f"{args.arch} full width, {cfg.num_layers} layers, B {BATCH}, prompt {args.prompt_len}",
+        "params": sum(p.numel() for p in model.params.parameters()),
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
         "cold_prefill_s": cold, "prefill_s": walls, "prefill_median_s": statistics.median(walls),
         "serve_prefill_s": out["prefill_s"], "serve_decode_s": out["decode_s"], "flash_launches": launches,
         "profiled_wall_s": wall, "device_busy_ms": busy, "device_busy_share": busy / 1e3 / wall,
