@@ -7,7 +7,7 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 
 On a machine with four, ``python3 chip_smoke.py --multi-rank-only`` builds
 the kernels and runs only the 4-rank searches of phase 5 and the one-rank
-searches they are compared with.
+searches they are compared with, then phase 5's 4-rank serves.
 
 Phases, each fatal on failure:
 
@@ -16,7 +16,8 @@ Phases, each fatal on failure:
      one process per source, all at once (build time and ``-Xptxas -v``:
      registers, shared memory, spills);
   3. hold each kernel wrapper against its plain PyTorch version on the card
-     at the shapes of the main paths (flash also at jamba's D 128), with the
+     at the shapes of the main paths (flash also at jamba's D 128, and at
+     one rank's heads of ``jamba_serve_tp4``: Hq 8, Hk 2), with the
      tolerance stated, and time
      kernel, plain version, the card's bound and, where one PyTorch call
      computes the same function, that call (CUDA events, warmed up); the
@@ -94,7 +95,17 @@ Phases, each fatal on failure:
      widths cut to one 8-layer period (13.30 B parameters, 53.2 GB), on the
      card only, 4 prompts of 1024 tokens, 32 new tokens: one flash launch
      (D 128), prompt 0's decode against the full forward at a capacity
-     factor where nothing drops, peak memory; then the port's ``train`` with
+     factor where nothing drops, peak memory; with 4 or more cards the serve
+     path on a ``(data, model)`` mesh of 4 ranks, one process a card
+     (``torchrun``): ``jamba_serve_tp4``, jamba-v0.1-52b whole (32 layers,
+     51.57 B parameters, 206 GB) at (1, 4) through the port's ``serve``
+     (``--model-shards 4``): 4 flash launches on each rank (Hq 8, Hk 2),
+     every rank the same tokens, prompt 0's decode against the full
+     forward at a capacity factor where nothing drops, each rank's peak
+     memory and times; ``jamba_serve_8l_mesh22``: the 8-layer cut at (2, 2)
+     teacher-forced against the one-card run of the same weights (logits
+     within 2e-3, the served tokens the one-card run's up to a printed
+     near-tie), else one line saying they were not made; then the port's ``train`` with
      qwen2-0.5b, granite-moe-1b-a400m and rwkv6-1.6b at their published
      widths (24 layers, fp32, random weights from seed 0), 12 steps of B 8,
      L 64 in 2 microbatches: finite losses and gradient norms, the last loss
@@ -1123,9 +1134,10 @@ def check_flash(torch, dev, ops, ref, records: dict, log) -> None:
     Hq 14, Hk 2, L 1000, D 64, causal; granite-moe-1b-a400m: B 4, Hq 16,
     Hk 8, L 1000, D 64, causal; jamba-v0.1-52b: B 4, Hq 32, Hk 8, L 1024,
     D 128, causal, the kernel's D-128 instantiation: 16 kv rows a tile, Q's
-    split fragments read from shared memory. Granite's and jamba's cases
-    are drawn last, in that order, so that the other cases keep their
-    inputs), at h2o-danube-1.8b's heads with its
+    split fragments read from shared memory; and jamba's heads on one rank
+    of ``jamba_serve_tp4``'s model axis of 4: Hq 8, Hk 2. Granite's and
+    jamba's cases are drawn last, in that order, so that the other cases
+    keep their inputs), at h2o-danube-1.8b's heads with its
     window (B 1, Hq 32, Hk 8, L 6000, D 80, window 4096: ragged, and the
     window skip bites) and on a small ragged non-causal case with D 17 and
     an offset base (element-by-element loads and stores). Held against the
@@ -1149,6 +1161,8 @@ def check_flash(torch, dev, ops, ref, records: dict, log) -> None:
          None, True),
         ("jamba-v0.1-52b prefill: B 4, Hq 32, Hk 8, L 1024, D 128, causal", (4, 32, 8, 1024, 1024, 128), True,
          None, True),
+        ("jamba-v0.1-52b prefill, one rank of jamba_serve_tp4: B 4, Hq 8, Hk 2, L 1024, D 128, causal",
+         (4, 8, 2, 1024, 1024, 128), True, None, True),
     )
     for label, (b, hq, hk, lq, lk, d), causal, window, timed in cases:
         q, k, v = (torch.randn((b, h, n, d), device=dev, generator=gen) for h, n in ((hq, lq), (hk, lk), (hk, lk)))
@@ -1219,8 +1233,8 @@ class RouteWatch:
     def __enter__(self) -> "RouteWatch":
         self.real = self.moe.route
 
-        def spy(params, xt, cfg, capacity):
-            r = self.real(params, xt, cfg, capacity)
+        def spy(params, xt, cfg, capacity, sh=None):
+            r = self.real(params, xt, cfg, capacity, sh)
             if not xt.is_cuda:
                 with self.torch.no_grad():
                     self._compare(params, xt, cfg, capacity, r)
@@ -1592,8 +1606,8 @@ class DropCount:
     def __enter__(self) -> "DropCount":
         self.real = self.moe.route
 
-        def spy(params, xt, cfg, capacity):
-            r = self.real(params, xt, cfg, capacity)
+        def spy(params, xt, cfg, capacity, sh=None):
+            r = self.real(params, xt, cfg, capacity, sh)
             self.by_call.append((~r.keep).view(self.rows, -1).sum(dim=1).tolist())
             return r
 
@@ -1725,8 +1739,7 @@ def run_deepseek_serve(torch, dev, ops, log) -> dict[str, int]:
     counts = ops.launch_counts()
     if any(counts.values()):
         raise AssertionError(f"deepseek serve: kernel launches {counts} (MLA takes no kernel)")
-    aligned = Model(dataclasses.replace(cfg, moe=dataclasses.replace(
-        cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k + 1)))
+    aligned = Model(aligned_cfg(cfg))
     aligned.params = model.params
     with DropCount(1) as drops:
         lg, caches = model.prefill({"tokens": prompt}, cache_len=DEEPSEEK_PROMPT + DEEPSEEK_TOKENS)
@@ -1751,6 +1764,38 @@ def run_deepseek_serve(torch, dev, ops, log) -> dict[str, int]:
                     "prefill_dropped_slots": prefill_dropped, "max_memory_allocated": peak}))
     del model, aligned, caches
     return counts
+
+
+def aligned_cfg(cfg):
+    """``cfg`` at an MoE capacity factor of E / top_k + 1, where every expert
+    has a slot for every token and none can drop."""
+    return dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=cfg.moe.num_experts
+                                                            / cfg.moe.top_k + 1))
+
+
+def aligned_decode_gaps(torch, model, row, served, label: str) -> list[float]:
+    """Prompt ``row``'s decode (1, L), teacher-forced with the ``served``
+    tokens over JAMBA_CHECK_STEPS steps from its own prefill, each step's
+    logits against the last row of the full forward of the extended
+    sequence; ``model`` routes at an aligned capacity (``aligned_cfg``), where
+    no slot may drop. Returns each step's gap."""
+    plen = row.shape[1]
+    with DropCount(1) as drops:
+        lg, caches = model.prefill({"tokens": row}, cache_len=plen + JAMBA_CHECK_STEPS)
+    gaps = []
+    for i in range(JAMBA_CHECK_STEPS):
+        lg_dec, caches = model.decode_step(caches, served[:, i:i + 1], plen + i)
+        seq = torch.cat([row, served[:, :i + 1].long()], dim=1)
+        with DropCount(1) as full_drops:
+            h, _ = model.backbone(model.embed_input({"tokens": seq}))
+        if any(full_drops.by_row()):
+            raise AssertionError(f"{label}: the aligned forward dropped {full_drops.by_row()} slots")
+        gaps.append(compare(torch, lg_dec, model.logits(h[:, -1:]), LOGIT_TOL["rtol"], LOGIT_TOL["atol"],
+                            f"{label}: decode step {i} vs the full forward of {seq.shape[1]}"))
+        _decided(torch, lg_dec[:, -1], served[:, i + 1])
+    if any(drops.by_row()):
+        raise AssertionError(f"{label}: the aligned prefill dropped {drops.by_row()} slots")
+    return gaps
 
 
 def run_jamba_serve(torch, dev, ops, log) -> dict[str, int]:
@@ -1788,26 +1833,10 @@ def run_jamba_serve(torch, dev, ops, log) -> dict[str, int]:
     if counts["flash_attention"] != flash_layers(cfg) or flash_layers(cfg) != 1:
         raise AssertionError(f"jamba serve: {counts['flash_attention']} flash launches for one prefill of "
                              f"{cfg.pattern().count('a')} attention layer")
-    aligned = Model(dataclasses.replace(cfg, moe=dataclasses.replace(
-        cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k + 1)))
-    aligned.params = model.params
+    check = Model(aligned_cfg(cfg))
+    check.params = model.params
     del model
-    row, served = prompt[:1], tokens[:1]
-    with DropCount(1) as drops:
-        lg, caches = aligned.prefill({"tokens": row}, cache_len=SCAN_SERVE_PROMPT + JAMBA_CHECK_STEPS)
-    gaps = []
-    for i in range(JAMBA_CHECK_STEPS):
-        lg_dec, caches = aligned.decode_step(caches, served[:, i:i + 1], SCAN_SERVE_PROMPT + i)
-        seq = torch.cat([row, served[:, :i + 1].long()], dim=1)
-        with DropCount(1) as full_drops:
-            h, _ = aligned.backbone(aligned.embed_input({"tokens": seq}))
-        if any(full_drops.by_row()):
-            raise AssertionError(f"jamba serve: the aligned forward dropped {full_drops.by_row()} slots")
-        gaps.append(compare(torch, lg_dec, aligned.logits(h[:, -1:]), LOGIT_TOL["rtol"], LOGIT_TOL["atol"],
-                            f"jamba serve: decode step {i} vs the full forward of {seq.shape[1]}"))
-        _decided(torch, lg_dec[:, -1], served[:, i + 1])
-    if any(drops.by_row()):
-        raise AssertionError(f"jamba serve: the aligned prefill dropped {drops.by_row()} slots")
+    gaps = aligned_decode_gaps(torch, check, prompt[:1], tokens[:1], "jamba serve")
     peak = torch.cuda.max_memory_allocated()
     log(json.dumps({"serve": f"jamba-v0.1-52b full widths, {JAMBA_LAYERS} layers", "params": n_params,
                     "batch": SERVE_BATCH, "prompt": SCAN_SERVE_PROMPT, "tokens": SERVE_TOKENS, "wall_s": wall,
@@ -1815,10 +1844,204 @@ def run_jamba_serve(torch, dev, ops, log) -> dict[str, int]:
                     "decode_tokens_per_s": SERVE_BATCH * (SERVE_TOKENS - 1) / timings["decode_s"],
                     "sample": tokens[0].tolist(), "launches": counts,
                     "decode_vs_full_forward_max_abs_gap": max(gaps), "checked_steps": JAMBA_CHECK_STEPS,
-                    "logits_max_abs": float(lg_dec.abs().max()),
                     "max_memory_allocated_serve": serve_peak, "max_memory_allocated": peak, "card": smi_line()}))
-    del aligned, caches
+    del check
     return counts
+
+
+# the serve path on a (data, model) mesh of 4 ranks, one process a card:
+# jamba-v0.1-52b whole (32 layers, 51.57 B parameters, 206 GB in fp32) at
+# (1, 4) through the serve launcher, and the 8-layer cut at (2, 2) against
+# the one-card run of the same weights (``record_jamba_8l``)
+MULTI_RANK_SERVES = {"jamba_serve_tp4": (1, 4, 32), "jamba_serve_8l_mesh22": (2, 2, JAMBA_LAYERS)}
+MULTI_RANK_SERVE_TIMEOUT_S = 900
+
+
+def record_jamba_8l(torch, dev, path: Path) -> None:
+    """The one-card greedy run of ``jamba_serve_8l``'s model and prompts
+    (seed 0): the prompt, the SERVE_TOKENS tokens and each step's logits,
+    saved to ``path`` for ``jamba_serve_8l_mesh22``. Frees the card after."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import setup
+
+    cfg = dataclasses.replace(get_config("jamba-v0.1-52b"), num_layers=JAMBA_LAYERS)
+    torch.cuda.empty_cache()
+    model, prompt, _, _ = setup(cfg, SERVE_BATCH, SCAN_SERVE_PROMPT, dev, seed=0)
+    lg, caches = model.prefill({"tokens": prompt}, cache_len=SCAN_SERVE_PROMPT + SERVE_TOKENS)
+    logits, tokens = [lg], [torch.argmax(lg[:, -1], dim=-1).to(torch.int32)[:, None]]
+    for i in range(SERVE_TOKENS - 1):
+        lg, caches = model.decode_step(caches, tokens[-1], SCAN_SERVE_PROMPT + i)
+        logits.append(lg)
+        tokens.append(torch.argmax(lg[:, -1], dim=-1).to(torch.int32)[:, None])
+    torch.save({"prompt": prompt.cpu(), "tokens": torch.cat(tokens, dim=1).cpu(),
+                "logits": torch.cat(logits, dim=1).cpu()}, path)
+    del model, caches, lg, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def run_multi_rank_serves(torch, dev, log) -> dict[str, dict[str, int]]:
+    """The serve path on 4 ranks, one process a card (``torchrun``,
+    rendezvous on localhost), each mesh of ``MULTI_RANK_SERVES`` in one
+    launch (``rank_serve``): each rank serves SERVE_BATCH prompts of
+    SCAN_SERVE_PROMPT tokens and SERVE_TOKENS new tokens with counts reset
+    just before, read just after, and writes its tokens, launches, times,
+    peak memory and checks. Gates: one flash launch an attention layer on
+    every rank, the same tokens on every rank of a model group, and each
+    rank's own checks (``rank_serve``). Launch counts are summed over the
+    ranks. Needs 4 cards."""
+    import os
+    import signal
+    import tempfile
+
+    from repro_torch.configs import get_config
+
+    cards = torch.cuda.device_count()
+    if cards < 4:
+        log(f"multi-rank serves: not made ({cards} card(s) visible; jamba_serve_tp4 and jamba_serve_8l_mesh22 "
+            "need 4)")
+        return {}
+    by_path = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as tmp:
+        record_jamba_8l(torch, dev, Path(tmp) / "jamba_8l.pt")
+        for label, (data, model, layers) in MULTI_RANK_SERVES.items():
+            outdir = Path(tmp) / label
+            outdir.mkdir()
+            (outdir / "spec.json").write_text(json.dumps({"label": label, "data": data, "model": model,
+                                                          "layers": layers, "record": str(Path(tmp) / "jamba_8l.pt")}))
+            cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "4",
+                   str(ROOT / "chip_smoke.py"), "--rank-serve", str(outdir)]
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                                    start_new_session=True)
+            try:
+                text, _ = proc.communicate(timeout=MULTI_RANK_SERVE_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.communicate()
+                raise AssertionError(f"{label}: no result within {MULTI_RANK_SERVE_TIMEOUT_S} s")
+            for line in text.splitlines():
+                if "near-tie" in line:
+                    log(line)
+            if proc.returncode != 0:
+                raise AssertionError(f"{label}: torchrun exited {proc.returncode}:\n{text[-4000:]}")
+            ranks = [json.loads((outdir / f"rank{r}.json").read_text()) for r in range(4)]
+            attn = flash_layers(dataclasses.replace(get_config("jamba-v0.1-52b"), num_layers=layers))
+            for r, rank in enumerate(ranks):
+                group = ranks[r - r % model]
+                if rank["tokens"] != group["tokens"] or rank["launches"]["flash_attention"] != attn:
+                    raise AssertionError(f"{label}: rank {r} tokens {rank['tokens']} and "
+                                         f"{rank['launches']['flash_attention']} flash launches; rank "
+                                         f"{r - r % model}: {group['tokens']}, want {attn} launches")
+            log(json.dumps({"serve": label, "mesh": {"data": data, "model": model}, "layers": layers,
+                            "batch": SERVE_BATCH, "prompt": SCAN_SERVE_PROMPT, "tokens": SERVE_TOKENS,
+                            "prefill_s": [rank["prefill_s"] for rank in ranks],
+                            "decode_s": [rank["decode_s"] for rank in ranks],
+                            "max_memory_allocated": [rank["max_memory_allocated"] for rank in ranks],
+                            "max_memory_allocated_check": [rank["max_memory_allocated_check"] for rank in ranks],
+                            "params_per_rank": [rank["params"] for rank in ranks],
+                            "sample": ranks[0]["tokens"][0], "check": ranks[0]["check"],
+                            "launches_by_rank": [rank["launches"] for rank in ranks], "card": smi_line()}))
+            by_path[label] = {name: sum(rank["launches"][name] for rank in ranks) for name in ranks[0]["launches"]}
+    return by_path
+
+
+def rank_serve(outdir: Path) -> int:
+    """One rank of ``run_multi_rank_serves`` (under ``torchrun``), the mesh in
+    ``outdir/spec.json``. ``jamba_serve_tp4``: the serve launcher
+    (``launch.serve.main``) with jamba-v0.1-52b whole at ``--data-shards 1
+    --model-shards 4``, then prompt 0's decode against the full forward at
+    an aligned capacity (``aligned_decode_gaps``). ``jamba_serve_8l_mesh22``:
+    ``setup`` and ``generate`` on the 8-layer cut at (2, 2), then this
+    rank's rows teacher-forced with the one-card run's tokens, each step's
+    logits within LOGIT_TOL of the one-card run's, and the served tokens
+    the one-card run's up to a near-tie of its top two logits (printed).
+    Writes ``outdir/rank<RANK>.json``."""
+    import os
+
+    import torch
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get_config
+    from repro_torch.device import resolve
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_lm_mesh
+    from repro_torch.models.transformer import Model
+    from repro_torch.serve.decode import generate
+
+    spec = json.loads((outdir / "spec.json").read_text())
+    label, data, model_size = spec["label"], spec["data"], spec["model"]
+    dev = resolve("cuda")
+    cfg = dataclasses.replace(get_config("jamba-v0.1-52b"), num_layers=spec["layers"])
+    torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    if label == "jamba_serve_tp4":
+        out = serve.main([*serve_args("jamba-v0.1-52b", SCAN_SERVE_PROMPT), "--data-shards", str(data),
+                          "--model-shards", str(model_size)])
+        tokens, timings = out["tokens"], out
+    else:
+        with make_lm_mesh(data, model_size, dev) as mesh:
+            model, prompt, _, _ = serve.setup(cfg, SERVE_BATCH, SCAN_SERVE_PROMPT, mesh.device, 0, mesh)
+            timings: dict = {}
+            tokens = generate(model, prompt, steps=SERVE_TOKENS, timings=timings)
+            del model
+    counts = ops.launch_counts()
+    result = {"tokens": tokens.tolist(), "launches": counts, "prefill_s": timings["prefill_s"],
+              "decode_s": timings["decode_s"], "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    torch.cuda.reset_peak_memory_stats()
+    with make_lm_mesh(data, model_size, dev) as mesh:
+        if label == "jamba_serve_tp4":
+            check, prompt, _, _ = serve.setup(aligned_cfg(cfg), SERVE_BATCH, SCAN_SERVE_PROMPT, mesh.device, 0, mesh)
+            result["params"] = sum(p.numel() for p in check.params.parameters())
+            gaps = aligned_decode_gaps(torch, check, prompt[:1], tokens[:1].to(mesh.device), label)
+            result["check"] = {"decode_vs_full_forward_max_abs_gap": max(gaps), "checked_steps": len(gaps)}
+        else:
+            check, prompt, _, _ = serve.setup(cfg, SERVE_BATCH, SCAN_SERVE_PROMPT, mesh.device, 0, mesh)
+            result["params"] = sum(p.numel() for p in check.params.parameters())
+            result["check"] = vs_one_card(torch, check, prompt, tokens, torch.load(spec["record"]), mesh, label)
+    result["max_memory_allocated_check"] = torch.cuda.max_memory_allocated()
+    (outdir / f"rank{os.environ['RANK']}.json").write_text(json.dumps(result))
+    return 0
+
+
+def vs_one_card(torch, model, prompt, served, record: dict, mesh, label: str) -> dict:
+    """This data rank's rows on the mesh ``model`` against the one-card
+    ``record`` of the same weights (``record_jamba_8l``): the same prompt;
+    teacher-forced with the recorded tokens, the prefill's and each decode
+    step's logits within LOGIT_TOL, and the argmax the recorded token
+    wherever the logits decide it; the ``served`` (free-running) tokens the
+    recorded ones, each row up to its first step where the one-card run's
+    top two logits lie within the tolerance (a near-tie, printed)."""
+    dev = prompt.device
+    rows = slice(mesh.data_index * prompt.shape[0], (mesh.data_index + 1) * prompt.shape[0])
+    want_tokens, want_logits = record["tokens"][rows].to(dev), record["logits"][rows].to(dev)
+    if not torch.equal(prompt.cpu(), record["prompt"][rows]):
+        raise AssertionError(f"{label}: the mesh drew another prompt than the one-card run")
+    plen = prompt.shape[1]
+    lg, caches = model.prefill({"tokens": prompt}, cache_len=plen + SERVE_TOKENS)
+    gaps = [compare(torch, lg, want_logits[:, :1], LOGIT_TOL["rtol"], LOGIT_TOL["atol"], f"{label}: prefill logits")]
+    _decided(torch, lg[:, -1], want_tokens[:, 0])
+    for i in range(SERVE_TOKENS - 1):
+        lg, caches = model.decode_step(caches, want_tokens[:, i:i + 1], plen + i)
+        gaps.append(compare(torch, lg, want_logits[:, i + 1:i + 2], LOGIT_TOL["rtol"], LOGIT_TOL["atol"],
+                            f"{label}: decode step {i} logits"))
+        _decided(torch, lg[:, -1], want_tokens[:, i + 1])
+    near_ties = []
+    for b, (got, want) in enumerate(zip(served.tolist(), want_tokens.tolist())):
+        step = next((i for i, (g, w) in enumerate(zip(got, want)) if g != w), None)
+        if step is None:
+            continue
+        top2 = torch.topk(want_logits[b, step], 2).values
+        margin = float(top2[0] - top2[1])
+        if margin > 2 * (LOGIT_TOL["atol"] + LOGIT_TOL["rtol"] * abs(float(top2[0]))):
+            raise AssertionError(f"{label}: row {rows.start + b} served token {got[step]} at step {step}, the "
+                                 f"one-card run {want[step]} at a top-2 margin of {margin:.3e}")
+        near_ties.append({"row": rows.start + b, "step": step, "margin": margin})
+        print(f"{label}: near-tie {near_ties[-1]}", flush=True)
+    return {"logits_max_abs_gap_vs_one_card": max(gaps), "steps": len(gaps), "near_ties": near_ties}
 
 
 SOURCES = {
@@ -1840,7 +2063,7 @@ def multi_rank_only() -> int:
     """``--multi-rank-only``, on a machine with 4 cards: build the kernels,
     run the world-1 searches the 4-rank ones are compared with (batched,
     sharded sync and elastic; twice, in turns), then only the multi-rank
-    phase (``run_multi_rank_searches``)."""
+    phase (``run_multi_rank_searches``, ``run_multi_rank_serves``)."""
     import torch
 
     if torch.cuda.device_count() < 4:
@@ -1866,7 +2089,10 @@ def multi_rank_only() -> int:
         run_elastic_search(torch, dev, ops, ksearch, "nmfk_elastic", [], log)
     t0 = time.perf_counter()
     by_path = run_multi_rank_searches(torch, log)
-    log(f"multi-rank phase: {time.perf_counter() - t0:.1f} s")
+    log(f"multi-rank searches: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    by_path.update(run_multi_rank_serves(torch, dev, log))
+    log(f"multi-rank serves: {time.perf_counter() - t0:.1f} s")
     log(smi_line())
     log(json.dumps(by_path))
     return 0
@@ -1875,6 +2101,8 @@ def multi_rank_only() -> int:
 def main() -> int:
     if sys.argv[1:2] == ["--rank-search"]:  # one rank of run_multi_rank_searches
         return rank_search(Path(sys.argv[2]))
+    if sys.argv[1:2] == ["--rank-serve"]:  # one rank of run_multi_rank_serves
+        return rank_serve(Path(sys.argv[2]))
     if sys.argv[1:] == ["--multi-rank-only"]:
         return multi_rank_only()
     import torch
@@ -1942,6 +2170,7 @@ def main() -> int:
     by_path["deepseek_serve_2l"] = run_deepseek_serve(torch, dev, ops, log)
     by_path["rwkv6_serve"] = run_serve(torch, dev, ops, serve, log, "rwkv6-1.6b", SCAN_SERVE_PROMPT)
     by_path["jamba_serve_8l"] = run_jamba_serve(torch, dev, ops, log)
+    by_path.update(run_multi_rank_serves(torch, dev, log))
     by_path["qwen2_train"] = run_train(torch, dev, ops, train, log, "qwen2-0.5b")
     by_path["granite_train"] = run_train(torch, dev, ops, train, log, "granite-moe-1b-a400m")
     by_path["rwkv6_train"] = run_train(torch, dev, ops, train, log, "rwkv6-1.6b")

@@ -4,7 +4,9 @@ NMF, RESCAL and K-Means have no trained weights; what crosses from the
 JAX reference to the port is data: the matrix V, the tensor X or the points
 x (``to_tensor``), the random draws of an NMFk or RESCALk ensemble or of a
 k-means++ init, and W/H factors. The LM's parameter tree crosses whole
-(``model_params_from_reference``), and so does an AdamW state
+(``model_params_from_reference``; on a ``(data, model)`` mesh each rank
+keeps its blocks, and ``model_params_to_reference`` joins them back), and
+so does an AdamW state
 (``opt_state_from_reference``). Each comes in as a numpy-convertible
 array (never a JAX object: the port imports no JAX) and leaves as a tensor
 on ``device`` (default: the card), float32 except for indices.
@@ -18,7 +20,7 @@ from torch import nn
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve
 from repro_torch.models.layers import frozen
-from repro_torch.models.transformer import build_segments
+from repro_torch.models.transformer import Model, build_segments
 from repro_torch.random import Draws, KMeansDraws, RESCALDraws
 from repro_torch.train.optimizer import OptState
 
@@ -81,14 +83,17 @@ def _tree(node, device: torch.device, index: int | None = None) -> nn.Module:
     return frozen(**{k: entry(v) for k, v in node.items()})
 
 
-def model_params_from_reference(params, cfg: ArchConfig, device: str | torch.device | None = None) -> nn.ModuleDict:
+def model_params_from_reference(params, cfg: ArchConfig, device: str | torch.device | None = None,
+                                mesh=None) -> nn.ModuleDict:
     """The port's ``Model.params`` from the reference's parameter tree.
 
     ``params`` is the reference's ``Model.init`` pytree as nested dicts of
     numpy arrays: ``embed`` (``table``, ``lm_head`` unless tied),
     ``final_norm.scale``, and ``seg{i}.l{j}.*`` stacked on a leading repeat
     axis. Layouts are kept (``wq`` (d, h, hd), ``wo`` (h, hd, d), ...), so
-    the conversion is a copy and an unstack of the repeat axis.
+    the conversion is a copy and an unstack of the repeat axis. With a
+    ``mesh`` (``launch.mesh.LMMesh``) it returns this rank's blocks
+    (``Model.place``).
     """
     dev = resolve(device)
     out: dict[str, nn.Module] = {"embed": _tree(params["embed"], dev),
@@ -96,7 +101,34 @@ def model_params_from_reference(params, cfg: ArchConfig, device: str | torch.dev
     for si, seg in enumerate(build_segments(cfg)):
         stacked = params[f"seg{si}"]
         out[f"seg{si}"] = nn.ModuleList(_tree(stacked, dev, r) for r in range(seg.repeat))
-    return nn.ModuleDict(out)
+    return Model(cfg, mesh=mesh).place(nn.ModuleDict(out))
+
+
+def model_params_to_reference(params: nn.Module, model: Model) -> dict:
+    """The reference's parameter tree (nested dicts of numpy arrays, each
+    segment's leaves stacked on a leading repeat axis) of the port's
+    ``params``: ``model_params_from_reference``'s inverse. On a mesh
+    ``params`` are this rank's blocks, joined over the mesh's groups
+    (``Model.gather``), so every rank of the mesh must call it."""
+    tree: dict = {}
+    for name, whole in model.gather(params).items():
+        path = name.split(".")
+        if path[0].startswith("seg"):  # seg{i}.{r}.l{j}...: one repeat of a stacked leaf
+            path = [path[0]] + path[2:]
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        leaf = whole.detach().cpu().numpy()
+        if name.startswith("seg"):
+            node.setdefault(path[-1], []).append(leaf)  # repeats come in order
+        else:
+            node[path[-1]] = leaf
+
+    def stack(node):
+        return {k: stack(v) if isinstance(v, dict) else np.stack(v) if isinstance(v, list) else v
+                for k, v in node.items()}
+
+    return stack(tree)
 
 
 def reference_leaf(tree, name: str):

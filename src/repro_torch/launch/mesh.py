@@ -1,5 +1,7 @@
-"""Process meshes for the k-search: the sharded planes' ``(lane, data)``
-mesh and the distributed-fit executor's per-worker groups.
+"""Process meshes: the k-search's sharded planes' ``(lane, data)`` mesh,
+the distributed-fit executor's per-worker groups, and the LM's ``(data,
+model)`` mesh with its axis environment (``make_lm_mesh``, ``make_axes``,
+``dp_size``).
 
 ``make_wave_mesh`` builds the 2-D ``(lane, data)`` ``DeviceMesh`` the
 sharded wavefront planes run on. The port is SPMD over processes: one
@@ -12,7 +14,14 @@ collectives.
 ``SubmeshPool`` leases per-worker process groups to the threaded
 distributed-fit executor: each worker keeps ONE group for its lifetime —
 a group is a worker-identity resource, not a function of the k being
-evaluated. (The LM's production mesh helpers wait for the train path.)
+evaluated.
+
+``make_lm_mesh`` builds the LM's ``(data, model)`` mesh the same way, over
+the whole world: the serve path's ranks each hold a block of the batch
+(``data``) and of the parameters and caches (``model``; ``models.layers``
+says how). The reference's production helpers for training and the dry
+run (``make_production_mesh``, ``apply_fsdp``, ``named``) wait for ROADMAP
+M5's second half.
 """
 from __future__ import annotations
 
@@ -28,8 +37,9 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.factorization.distributed import backend_for
+from repro_torch.models.layers import Axes
 
-LANE, DATA = "lane", "data"
+LANE, DATA, MODEL = "lane", "data", "model"
 
 # default groups made from torchrun's environment in this process: each gets
 # its own key space in the launcher's store, which outlives the groups it
@@ -92,29 +102,22 @@ def _mesh_shape(world: int, lanes: int | None, data: int) -> tuple[int, int]:
 
 
 @contextlib.contextmanager
-def make_wave_mesh(
-    lanes: int | None = None, data: int = 1, device: torch.device | str = "cuda"
-) -> Iterator[WaveMesh]:
-    """2-D ``(lane, data)`` mesh over the ranks of the default process group.
-
-    ``lanes`` parallel k-fits, each distributed over ``data`` ranks; with
-    ``lanes=None`` every rank not taken by ``data`` becomes a lane. Raises
-    if ``data`` or ``lanes`` is below 1, the world does not split into
-    ``data``, or ``lanes × data`` is not the world size.
-
-    Without a default group one is made here: from ``torchrun``'s
-    environment (``MASTER_ADDR``, ``WORLD_SIZE``, ``RANK``) if it is set,
-    else a one-rank group on a ``file://`` store in a temporary directory.
-    The backend is the device's (NCCL on CUDA, gloo on the CPU). On exit the
-    context destroys what it made and nothing else: the default group if it
-    made it (with every subgroup), else the mesh's own subgroups. Before
-    yielding, one all-reduce over each of the two groups checks their sizes.
-    """
+def _process_mesh(names: tuple[str, str], shape, device: torch.device | str):
+    """(DeviceMesh, its two groups, this rank's coordinates, device) of a 2-D
+    mesh over the ranks of the default process group; ``shape(world)``
+    returns the mesh's shape or raises. Makes the default group if there is
+    none (see ``make_wave_mesh``), checks both groups with one all-reduce
+    each, and destroys what it made on exit."""
     from torch.distributed.device_mesh import init_device_mesh
 
     dev = _mesh_device(device)
     backend = backend_for(dev)
     if dev.type == "cuda":
+        cards = torch.cuda.device_count()
+        ranks_here = int(os.environ.get("LOCAL_WORLD_SIZE", os.environ.get("WORLD_SIZE", 1)))
+        if cards < ranks_here or dev.index >= cards:
+            raise RuntimeError(f"a mesh on cuda needs a card for each of the {ranks_here} ranks on this host "
+                               f"(rank on {dev}); {cards} visible")
         torch.cuda.set_device(dev)
     store = None
     made_default = not dist.is_initialized()
@@ -133,21 +136,20 @@ def make_wave_mesh(
     try:
         if str(dist.get_backend()) != backend:
             raise ValueError(f"a mesh on {dev} needs a {backend} default group, got {dist.get_backend()}")
-        lanes, data = _mesh_shape(dist.get_world_size(), lanes, data)
-        mesh = init_device_mesh(dev.type, (lanes, data), mesh_dim_names=(LANE, DATA))
-        lane_group, data_group = mesh.get_group(LANE), mesh.get_group(DATA)
-        groups = [g for g in (lane_group, data_group) if g is not dist.group.WORLD]
-        wave = WaveMesh(mesh, lane_group, data_group, mesh.get_local_rank(LANE), mesh.get_local_rank(DATA),
-                        lanes, data, dev)
-        for group, size in ((lane_group, lanes), (data_group, data)):
+        dims = shape(dist.get_world_size())
+        mesh = init_device_mesh(dev.type, dims, mesh_dim_names=names)
+        pair = [mesh.get_group(n) for n in names]
+        groups = [g for g in pair if g is not dist.group.WORLD]
+        coords = [mesh.get_local_rank(n) for n in names]
+        for group, size in zip(pair, dims):
             probe = torch.ones((), device=dev)
             dist.all_reduce(probe, group=group)
             if int(probe.item()) != size or dist.get_world_size(group) != size:
                 raise RuntimeError(f"mesh group of {dist.get_world_size(group)} ranks summed {probe.item()}, "
                                    f"want {size}")
-        if (dist.get_rank(lane_group), dist.get_rank(data_group)) != (wave.lane_index, wave.data_index):
+        if [dist.get_rank(g) for g in pair] != coords:
             raise RuntimeError("mesh coordinates differ from the ranks within the mesh's groups")
-        yield wave
+        yield mesh, pair, coords, dims, dev
     finally:
         if made_default:
             dist.destroy_process_group()
@@ -156,6 +158,92 @@ def make_wave_mesh(
         else:
             for group in {id(g): g for g in groups}.values():
                 dist.destroy_process_group(group)
+
+
+@contextlib.contextmanager
+def make_wave_mesh(
+    lanes: int | None = None, data: int = 1, device: torch.device | str = "cuda"
+) -> Iterator[WaveMesh]:
+    """2-D ``(lane, data)`` mesh over the ranks of the default process group.
+
+    ``lanes`` parallel k-fits, each distributed over ``data`` ranks; with
+    ``lanes=None`` every rank not taken by ``data`` becomes a lane. Raises
+    if ``data`` or ``lanes`` is below 1, the world does not split into
+    ``data``, or ``lanes × data`` is not the world size, and on ``cuda``
+    when fewer cards are visible than ranks on this host.
+
+    Without a default group one is made here: from ``torchrun``'s
+    environment (``MASTER_ADDR``, ``WORLD_SIZE``, ``RANK``) if it is set,
+    else a one-rank group on a ``file://`` store in a temporary directory.
+    The backend is the device's (NCCL on CUDA, gloo on the CPU). On exit the
+    context destroys what it made and nothing else: the default group if it
+    made it (with every subgroup), else the mesh's own subgroups. Before
+    yielding, one all-reduce over each of the two groups checks their sizes.
+    """
+    with _process_mesh((LANE, DATA), lambda world: _mesh_shape(world, lanes, data), device) as made:
+        mesh, (lane_group, data_group), (lane_index, data_index), (n_lanes, n_data), dev = made
+        yield WaveMesh(mesh, lane_group, data_group, lane_index, data_index, n_lanes, n_data, dev)
+
+
+@dataclasses.dataclass(frozen=True)
+class LMMesh:
+    """This rank's view of the LM's ``(data, model)`` mesh.
+
+    ``model_group`` holds the ranks that share this rank's data index (they
+    hold the blocks of one copy of the model and sum their partial
+    products); ``data_group`` holds the ranks that share its model index
+    (one per block of the batch). ``data_index`` / ``model_index`` are this
+    rank's coordinates, which are also its ranks within those two groups.
+    """
+
+    mesh: Any  # torch.distributed.device_mesh.DeviceMesh
+    data_group: Any
+    model_group: Any
+    data_index: int
+    model_index: int
+    data_count: int
+    model_count: int
+    device: torch.device
+
+    @property
+    def shape(self) -> dict[str, int]:
+        return {DATA: self.data_count, MODEL: self.model_count}
+
+
+def _lm_shape(world: int, data: int, model: int) -> tuple[int, int]:
+    if data < 1 or model < 1:
+        raise ValueError(f"data and model must be >= 1, got {data} and {model}")
+    if data * model != world:
+        raise ValueError(f"mesh ({data} data x {model} model) needs {data * model} ranks and must span all "
+                         f"{world}: a rank outside it would wait on the model's collectives")
+    return data, model
+
+
+@contextlib.contextmanager
+def make_lm_mesh(data: int = 1, model: int = 1, device: torch.device | str = "cuda") -> Iterator[LMMesh]:
+    """2-D ``(data, model)`` mesh over the ranks of the default process group,
+    as ``make_wave_mesh`` makes its mesh (the default group made here if
+    there is none, checked, destroyed on exit). ``data × model`` must be
+    the world size; on ``cuda`` each rank on this host needs its own card."""
+    with _process_mesh((DATA, MODEL), lambda world: _lm_shape(world, data, model), device) as made:
+        mesh, (data_group, model_group), (data_index, model_index), (n_data, n_model), dev = made
+        yield LMMesh(mesh, data_group, model_group, data_index, model_index, n_data, n_model, dev)
+
+
+def make_axes(mesh: LMMesh, global_batch: int | None = None) -> Axes:
+    """Axis environment for a mesh; drops batch sharding when the global
+    batch can't shard evenly (long_500k's batch=1)."""
+    batch_axes = tuple(n for n in ("pod", DATA) if n in mesh.shape)
+    if global_batch is not None and global_batch % dp_size(mesh) != 0:
+        batch_axes = ()
+    return Axes(batch=batch_axes, model=MODEL, model_size=mesh.shape[MODEL])
+
+
+def dp_size(mesh: LMMesh) -> int:
+    dp = 1
+    for n in ("pod", DATA):
+        dp *= mesh.shape.get(n, 1)
+    return dp
 
 
 class SubmeshPool:

@@ -10,6 +10,18 @@ reference's default ``use_flash=False`` does: the kernel has no backward.
 Decode attends one query row against the masked cache with the plain
 ``_sdpa`` on every device.
 
+On a ``(data, model)`` mesh (``sh``, ``layers.Shard``) GQA computes on
+this rank's query heads (``gqa_specs`` cut ``wq`` and ``wo`` on heads; the
+mesh path requires the heads to divide the model axis) and ends in an
+all-reduce after ``wo``. When the kv heads divide too, a rank holds the kv
+heads its query heads use; when they do not, ``wk``/``wv`` are whole and
+each rank hands the kernel the kv heads of its own query heads
+(``_local_kv``: the local ratio of query to kv heads can differ from the
+global one). The decode cache follows ``gqa_cache_specs``: cut on kv heads
+when they divide, else on head_dim (``_cache_dim``), in which case decode
+scores every query head on this rank's block of head_dim, sums the scores
+over the group and gathers the outputs' blocks back.
+
 Windowed archs keep (k, v) in a ring buffer of ``min(window, cache_len)``
 slots, entry at absolute position p in slot ``p % s``. ``gqa_decode``
 writes the new entry into the cache in place (the reference returns an
@@ -32,7 +44,7 @@ from torch import nn
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops as kops
 
-from .layers import dense_init, frozen, rmsnorm, rmsnorm_init
+from .layers import P, Axes, Shard, dense_init, frozen, rmsnorm, rmsnorm_init, rmsnorm_specs, split_over
 
 _NEG = -1e30
 
@@ -67,11 +79,14 @@ def _sdpa(
     q_offset: int = 0,
     kv_len: int | None = None,
     scale: float | None = None,
+    psum=None,
 ) -> torch.Tensor:
     """Dense scaled-dot-product attention with GQA + causal/window/len masks.
 
     ``q_offset``: absolute position of q row 0 (decode: current pos).
     ``kv_len``: number of valid kv entries (decode with ring/full cache).
+    ``psum``: sums the scores over ranks that each hold a block of head_dim
+    (then ``scale`` must be the whole head_dim's).
     """
     lq, h, hd = q.shape[1:]
     lk, hk = k.shape[1], k.shape[2]
@@ -79,6 +94,8 @@ def _sdpa(
     scale = float(scale if scale is not None else hd**-0.5)
     qf = q.float() * scale
     s = torch.einsum("bqhd,bkhd->bhqk", qf, k.float().repeat_interleave(group, dim=2))
+    if psum is not None:
+        s = psum(s)
     q_idx = q_offset + torch.arange(lq, device=q.device)[:, None]
     k_idx = torch.arange(lk, device=q.device)[None, :]
     bias = torch.zeros((lq, lk), dtype=torch.float32, device=q.device)
@@ -152,6 +169,74 @@ def gqa_init(gen: torch.Generator, cfg: ArchConfig, dtype=torch.float32) -> nn.P
     return frozen(**p)
 
 
+def gqa_specs(ax: Axes, cfg: ArchConfig) -> dict:
+    h, hk = cfg.num_heads, cfg.num_kv_heads
+    hq_ax = ax.dim_axis(h)
+    kv_ax = ax.dim_axis(hk)
+    # weights shard on the head axis only; heads that don't divide the
+    # axis replicate
+    p = {
+        "wq": P(None, hq_ax, None),
+        "wk": P(None, kv_ax, None),
+        "wv": P(None, kv_ax, None),
+        "wo": P(hq_ax, None, None),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = P(hq_ax, None)
+        p["bk"] = P(kv_ax, None)
+        p["bv"] = P(kv_ax, None)
+    return p
+
+
+def gqa_cache_specs(cfg: ArchConfig, ax: Axes) -> "KVCache":
+    hk, hd = cfg.num_kv_heads, cfg.resolved_head_dim()
+    kv_pick = ax.pick(hk, hd)
+    spec = [None, None]
+    if kv_pick >= 0:
+        spec[kv_pick] = ax.model
+    return KVCache(k=P(ax.b, None, *spec), v=P(ax.b, None, *spec))
+
+
+def _cache_dim(cfg: ArchConfig, sh: Shard | None) -> int:
+    """The dimension of a (B, S, Hk, hd) cache that ``gqa_cache_specs`` cuts
+    over the model axis: 2 (kv heads), 3 (head_dim) or -1 (none)."""
+    if sh is None or sh.ax.model_size == 1:
+        return -1
+    pick = sh.ax.pick(cfg.num_kv_heads, cfg.resolved_head_dim())
+    return pick + 2 if pick >= 0 else -1
+
+
+def _block(t: torch.Tensor, dim: int, sh: Shard) -> torch.Tensor:
+    """This rank's block of ``t`` along ``dim`` cut over the model axis."""
+    size = t.shape[dim] // sh.ax.model_size
+    return t.narrow(dim, sh.model_index * size, size)
+
+
+def _local_kv(k: torch.Tensor, v: torch.Tensor, cfg: ArchConfig, sh: Shard | None):
+    """The kv heads of (B, L, Hk, hd) k and v that this rank's query heads
+    attend with. When the query heads are cut and the kv heads are not,
+    query head h uses kv head h // (H / Hk): a contiguous run of kv heads,
+    each shared by equally many local query heads, is a view; any other
+    pattern takes one kv head per local query head."""
+    if sh is None or not sh.split(cfg.num_heads) or sh.split(cfg.num_kv_heads):
+        return k, v
+    hl = cfg.num_heads // sh.ax.model_size
+    group = cfg.num_heads // cfg.num_kv_heads
+    idx = [(sh.model_index * hl + j) // group for j in range(hl)]
+    lo, n = idx[0], idx[-1] - idx[0] + 1
+    if hl % n == 0 and idx == [lo + j // (hl // n) for j in range(hl)]:
+        return k[:, :, lo : lo + n], v[:, :, lo : lo + n]
+    return k[:, :, idx], v[:, :, idx]
+
+
+def _out_proj(params, out: torch.Tensor, cfg: ArchConfig, sh: Shard | None) -> torch.Tensor:
+    """(B, L, H, hd) -> (B, L, d) through ``wo``, summed over the model group
+    when the heads are cut."""
+    y = torch.einsum("blhk,hkd->bld", out, params["wo"])
+    sh = split_over(sh, cfg.num_heads)
+    return y if sh is None else sh.psum(y)
+
+
 def _project_qkv(params, x: torch.Tensor, cfg: ArchConfig):
     q = torch.einsum("bld,dhk->blhk", x, params["wq"])
     k = torch.einsum("bld,dhk->blhk", x, params["wk"])
@@ -162,7 +247,7 @@ def _project_qkv(params, x: torch.Tensor, cfg: ArchConfig):
 
 
 def gqa_forward(
-    params, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor | None = None
+    params, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor | None = None, sh: Shard | None = None
 ) -> torch.Tensor:
     """Full-sequence causal attention of x (B, L, d), through the
     differentiable ``_sdpa_auto`` on every device."""
@@ -171,8 +256,8 @@ def gqa_forward(
     q, k, v = _project_qkv(params, x, cfg)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
-    out = _sdpa_auto(q, k, v, causal=True, window=cfg.window)
-    return torch.einsum("blhk,hkd->bld", out, params["wo"])
+    out = _sdpa_auto(q, *_local_kv(k, v, cfg, sh), causal=True, window=cfg.window)
+    return _out_proj(params, out, cfg, sh)
 
 
 def gqa_cache_init(cfg: ArchConfig, batch: int, seq_len: int, dtype=torch.float32,
@@ -185,7 +270,7 @@ def gqa_cache_init(cfg: ArchConfig, batch: int, seq_len: int, dtype=torch.float3
 
 
 def gqa_prefill(
-    params, x: torch.Tensor, cfg: ArchConfig, cache_len: int | None = None
+    params, x: torch.Tensor, cfg: ArchConfig, cache_len: int | None = None, sh: Shard | None = None
 ) -> tuple[torch.Tensor, KVCache]:
     """Full-sequence forward that also returns the (ring-windowed) cache.
 
@@ -199,10 +284,12 @@ def gqa_prefill(
     q, k, v = _project_qkv(params, x, cfg)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
-    out = _attend(q, k, v, cfg.window)
-    y = torch.einsum("blhk,hkd->bld", out, params["wo"])
+    out = _attend(q, *_local_kv(k, v, cfg, sh), cfg.window)
+    y = _out_proj(params, out, cfg, sh)
+    if _cache_dim(cfg, sh) == 3:
+        k, v = _block(k, 3, sh), _block(v, 3, sh)
     s = min(cfg.window, cache_len) if cfg.window is not None else cache_len
-    cache = gqa_cache_init(cfg, b, s, k.dtype, x.device)
+    cache = KVCache(k=k.new_zeros((b, s, *k.shape[2:])), v=v.new_zeros((b, s, *v.shape[2:])))
     if cfg.window is not None and l >= s:
         # align the ring: entry at absolute pos p lives in slot p % s
         slots = torch.arange(l - s, l, device=x.device) % s
@@ -220,11 +307,15 @@ def gqa_decode(
     cache: KVCache,
     pos: int,  # absolute position of this token
     cfg: ArchConfig,
+    sh: Shard | None = None,
 ) -> tuple[torch.Tensor, KVCache]:
     q, k_new, v_new = _project_qkv(params, x, cfg)
     posb = torch.tensor([pos], device=x.device)
     q = rope(q, posb, cfg.rope_theta)
     k_new = rope(k_new, posb, cfg.rope_theta)
+    hd_cut = _cache_dim(cfg, sh) == 3
+    if hd_cut:
+        k_new, v_new = _block(k_new, 3, sh), _block(v_new, 3, sh)
     s = cache.k.shape[1]
     slot = pos % s if cfg.window is not None else min(pos, s - 1)
     cache.k[:, slot] = k_new[:, 0]
@@ -232,9 +323,18 @@ def gqa_decode(
     # ring buffer: every slot valid once pos+1 >= s; RoPE phases are
     # absolute so scores are position-correct without rotation.
     kv_len = min(pos + 1, s) if cfg.window is not None else pos + 1
-    out = _sdpa(q, cache.k, cache.v, causal=False, window=None, q_offset=pos, kv_len=kv_len)
-    y = torch.einsum("blhk,hkd->bld", out, params["wo"])
-    return y, cache
+    if hd_cut:
+        # every query head scored on this rank's block of head_dim, the
+        # scores summed over the group; then the outputs' blocks joined and
+        # this rank's query heads kept
+        q_all = _block(sh.gather(q, 2), 3, sh)
+        out = _sdpa(q_all, cache.k, cache.v, causal=False, window=None, q_offset=pos, kv_len=kv_len,
+                    scale=cfg.resolved_head_dim() ** -0.5, psum=sh.psum)
+        out = _block(sh.gather(out, 3), 2, sh)
+    else:
+        out = _sdpa(q, *_local_kv(cache.k, cache.v, cfg, sh), causal=False, window=None, q_offset=pos,
+                    kv_len=kv_len)
+    return _out_proj(params, out, cfg, sh), cache
 
 
 # =============================================================================
@@ -257,6 +357,24 @@ def mla_init(gen: torch.Generator, cfg: ArchConfig, dtype=torch.float32) -> nn.P
         wkv_b=dense_init(gen, (m.kv_lora_rank, h, m.qk_nope_head_dim + m.v_head_dim), m.kv_lora_rank, dtype),
         wo=dense_init(gen, (h, m.v_head_dim, d), h * m.v_head_dim, dtype),
     )
+
+
+def mla_specs(ax: Axes, cfg: ArchConfig) -> dict:
+    ha = ax.dim_axis(cfg.num_heads)
+    return {
+        "wq_a": P(None, ax.dim_axis(cfg.mla.q_lora_rank)),
+        "q_norm": rmsnorm_specs(),
+        "wq_b": P(None, ha, None),
+        "wkv_a": P(None, None),
+        "kv_norm": rmsnorm_specs(),
+        "wkv_b": P(None, ha, None),
+        "wo": P(ha, None, None),
+    }
+
+
+def mla_cache_specs(cfg: ArchConfig, ax: Axes) -> "MLACache":
+    width = cfg.mla.kv_lora_rank + cfg.mla.qk_rope_head_dim
+    return MLACache(ckv=P(ax.b, None, ax.dim_axis(width)))
 
 
 def _mla_latent(params, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor):

@@ -11,6 +11,15 @@ update in its order. The chunking changes no arithmetic. Decode carries
 (conv_state, ssm_state). Plain PyTorch on every device: the reference has
 no kernel for the scan.
 
+On a ``(data, model)`` mesh (``sh``) the mixer runs on this rank's block
+of the ``d_in`` channels (``mamba_specs``): the conv, dt, A, D and the scan
+are per channel; ``x_proj``'s dt, B and C are partial sums over the
+channels, all-reduced before ``dt_proj``, and ``out_proj``'s output is
+all-reduced. ``in_proj`` is cut on its fused ``2·d_in`` output; the port
+lays a rank's block out as ``[x_r | z_r]`` (``in_proj_layout``), its own
+channels of x and of z, where the spec's contiguous block of ``[x | z]``
+would hand rank r other channels of x or of z than its own.
+
 ``mamba_forward_with_state`` also returns the decode state after the
 sequence (the last ``d_conv - 1`` rows of the pre-conv ``x`` and the
 scan's final state), which the prefill takes from the forward's own scan.
@@ -25,7 +34,7 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig, SSMConfig
 
-from .layers import dense_init, frozen
+from .layers import P, Axes, Shard, dense_init, frozen
 
 
 class MambaState(NamedTuple):
@@ -65,6 +74,38 @@ def mamba_init(gen: torch.Generator, cfg: ArchConfig, dtype=torch.float32) -> nn
     )
 
 
+def mamba_specs(ax: Axes, cfg: ArchConfig) -> dict:
+    d_in, _, _, _ = _dims(cfg)
+    di = ax.dim_axis(d_in)
+    return {
+        "in_proj": P(None, ax.dim_axis(2 * d_in)),
+        "conv_w": P(None, di),
+        "conv_b": P(di),
+        "x_proj": P(di, None),
+        "dt_proj": P(None, di),
+        "dt_bias": P(di),
+        "a_log": P(di, None),
+        "d_skip": P(di),
+        "out_proj": P(di, None),
+    }
+
+
+def mamba_state_specs(cfg: ArchConfig, ax: Axes) -> "MambaState":
+    d_in, _, _, _ = _dims(cfg)
+    di = ax.dim_axis(d_in)
+    return MambaState(conv=P(ax.b, None, di), ssm=P(ax.b, di, None))
+
+
+def in_proj_layout(w: torch.Tensor, blocks: int, inverse: bool = False) -> torch.Tensor:
+    """``in_proj`` (d, 2·d_in) = [x | z] with its columns reordered so that
+    contiguous block r of ``blocks`` is [x_r | z_r] (``inverse``: back)."""
+    d, width = w.shape
+    cols = (2, blocks, width // (2 * blocks))
+    if inverse:
+        cols = (blocks, 2, width // (2 * blocks))
+    return w.reshape(d, *cols).transpose(1, 2).reshape(d, width)
+
+
 def _conv_causal(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Depthwise causal conv. x: (B, L, d_in), w: (d_conv, d_in)."""
     d_conv, l = w.shape[0], x.shape[1]
@@ -97,13 +138,19 @@ def _ssm_scan(xs: torch.Tensor, dt: torch.Tensor, b: torch.Tensor, c: torch.Tens
 
 
 def _project(params, u: torch.Tensor, cfg: ArchConfig):
-    d_in, d_state, _, dt_rank = _dims(cfg)
+    """(x, z, d_in, d_state, dt_rank); d_in is this rank's channels (half of in_proj's columns)."""
+    _, d_state, _, dt_rank = _dims(cfg)
     xz = u @ params["in_proj"]  # (B, L, 2*d_in)
+    d_in = xz.shape[-1] // 2
     return xz[..., :d_in], xz[..., d_in:], d_in, d_state, dt_rank
 
 
-def _ssm_params(params, x: torch.Tensor, d_state: int, dt_rank: int):
+def _ssm_params(params, x: torch.Tensor, d_state: int, dt_rank: int, sh: Shard | None = None):
+    """dt, B, C and A from the conv's output x. ``sh``: x holds this rank's
+    block of channels, so ``x_proj``'s output is summed over the group."""
     proj = x @ params["x_proj"]  # (B, L, dt_rank + 2n)
+    if sh is not None:
+        proj = sh.psum(proj)
     dt = F.softplus(proj[..., :dt_rank] @ params["dt_proj"] + params["dt_bias"]).float()
     b = proj[..., dt_rank : dt_rank + d_state].float()
     c = proj[..., dt_rank + d_state :].float()
@@ -111,23 +158,26 @@ def _ssm_params(params, x: torch.Tensor, d_state: int, dt_rank: int):
     return dt, b, c, a
 
 
-def mamba_forward_with_state(params, u: torch.Tensor, cfg: ArchConfig) -> tuple[torch.Tensor, MambaState]:
-    """u: (B, L, d) -> ((B, L, d), the decode state after u)."""
+def mamba_forward_with_state(params, u: torch.Tensor, cfg: ArchConfig,
+                             sh: Shard | None = None) -> tuple[torch.Tensor, MambaState]:
+    """u: (B, L, d) -> ((B, L, d), the decode state after u). ``sh``: the
+    d_in channels are cut over its model axis."""
     x, z, d_in, d_state, dt_rank = _project(params, u, cfg)
     d_conv = params["conv_w"].shape[0]
     xc = F.silu(_conv_causal(x, params["conv_w"], params["conv_b"]))
-    dt, b, c, a = _ssm_params(params, xc, d_state, dt_rank)
+    dt, b, c, a = _ssm_params(params, xc, d_state, dt_rank, sh)
     h0 = torch.zeros((u.shape[0], d_in, d_state), dtype=torch.float32, device=u.device)
     h, y = _ssm_scan(xc.float(), dt, b, c, a, h0)
     y = y + params["d_skip"] * xc.float()
     y = y.to(u.dtype) * F.silu(z)
+    out = y @ params["out_proj"]
     # a copy, so the state does not hold the whole (B, L, 2 d_in) projection
-    return y @ params["out_proj"], MambaState(conv=x[:, -(d_conv - 1) :].clone(), ssm=h)
+    return out if sh is None else sh.psum(out), MambaState(conv=x[:, -(d_conv - 1) :].clone(), ssm=h)
 
 
-def mamba_forward(params, u: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+def mamba_forward(params, u: torch.Tensor, cfg: ArchConfig, sh: Shard | None = None) -> torch.Tensor:
     """u: (B, L, d) -> (B, L, d)."""
-    return mamba_forward_with_state(params, u, cfg)[0]
+    return mamba_forward_with_state(params, u, cfg, sh)[0]
 
 
 def mamba_state_init(cfg: ArchConfig, batch: int, dtype=torch.float32, device=None) -> MambaState:
@@ -138,15 +188,17 @@ def mamba_state_init(cfg: ArchConfig, batch: int, dtype=torch.float32, device=No
     )
 
 
-def mamba_decode(params, u: torch.Tensor, state: MambaState, cfg: ArchConfig) -> tuple[torch.Tensor, MambaState]:
+def mamba_decode(params, u: torch.Tensor, state: MambaState, cfg: ArchConfig,
+                 sh: Shard | None = None) -> tuple[torch.Tensor, MambaState]:
     """u: (B, 1, d) single-token step."""
     x, z, d_in, d_state, dt_rank = _project(params, u, cfg)
     window = torch.cat([state.conv, x], dim=1)  # (B, d_conv, d_in): conv over [state.conv ‖ x]
     xc = torch.einsum("bld,ld->bd", window, params["conv_w"]) + params["conv_b"]
     xc = F.silu(xc)[:, None, :]  # (B, 1, d_in)
-    dt, b, c, a = _ssm_params(params, xc, d_state, dt_rank)
+    dt, b, c, a = _ssm_params(params, xc, d_state, dt_rank, sh)
     da = torch.exp(dt[:, 0, :, None] * a)  # (B, d_in, n)
     h = da * state.ssm + (dt[:, 0] * xc[:, 0].float())[..., None] * b[:, 0][:, None, :]
     y = torch.einsum("bdn,bn->bd", h, c[:, 0]) + params["d_skip"] * xc[:, 0].float()
     y = y[:, None, :].to(u.dtype) * F.silu(z)
-    return y @ params["out_proj"], MambaState(conv=window[:, 1:], ssm=h)
+    out = y @ params["out_proj"]
+    return out if sh is None else sh.psum(out), MambaState(conv=window[:, 1:], ssm=h)

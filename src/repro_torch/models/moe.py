@@ -21,6 +21,17 @@ divergences):
   scatter-add over ``token_of``: the same terms, with no atomics (whose
   order varies from run to run on a card), in torch's reduction order.
 
+On a ``(data, model)`` mesh (``sh``) every rank routes every token of its
+batch rows (the router is whole, its input bit-identical across the model
+group). When the batch is cut over the data axis, the capacity is the
+whole batch's and the queue positions are too: the ranks all-gather their
+expert ids over the data group (T·k integers), run the dispatch on the
+whole batch and keep their own slots, so the drops are the unsharded
+model's. When the experts divide the model axis (``moe_specs``) a rank
+fills and runs only its own experts' buffers (expert parallelism);
+otherwise ``d_expert`` is cut, or nothing. Either way each rank sums the
+routed outputs it holds and the model group all-reduces them.
+
 The backward stays free of float atomics too: the gradient of the scatter
 is a gather, and a token's ``top_k`` copies are an ``expand``, whose
 gradient is a sum.
@@ -33,12 +44,13 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig, MoEConfig
 
-from .layers import dense_init, frozen
+from .layers import P, Axes, Shard, dense_init, frozen, split_over
 
 
 class MoEAux(NamedTuple):
@@ -81,6 +93,25 @@ def moe_init(gen: torch.Generator, cfg: ArchConfig, dtype=torch.float32) -> nn.P
     return frozen(**p)
 
 
+def moe_specs(ax: Axes, cfg: ArchConfig) -> dict:
+    m = cfg.moe
+    ea = ax.dim_axis(m.num_experts)  # expert parallelism over 'model'
+    p = {
+        "router": P(None, None),
+        "w_gate": P(ea, None, None if ea else ax.dim_axis(m.d_expert)),
+        "w_up": P(ea, None, None if ea else ax.dim_axis(m.d_expert)),
+        "w_down": P(ea, None if ea else ax.dim_axis(m.d_expert), None),
+    }
+    if m.num_shared:
+        ds = m.num_shared * m.d_expert
+        p["shared"] = {
+            "w_gate": P(None, ax.dim_axis(ds)),
+            "w_up": P(None, ax.dim_axis(ds)),
+            "w_down": P(ax.dim_axis(ds), None),
+        }
+    return p
+
+
 def capacity_of(t: int, m: MoEConfig, capacity_factor: float | None = None) -> int:
     """Slots an expert takes for ``t`` tokens: the reference's formula, in Python floats."""
     cf = capacity_factor or m.capacity_factor
@@ -110,8 +141,10 @@ def _dispatch_indices(expert_ids: torch.Tensor, num_experts: int, capacity: int)
     return buf_idx, keep
 
 
-def route(params, xt: torch.Tensor, cfg: ArchConfig, capacity: int) -> Route:
-    """Route T tokens xt (T, d) to their top-k experts, ``capacity`` slots an expert."""
+def route(params, xt: torch.Tensor, cfg: ArchConfig, capacity: int, sh: Shard | None = None) -> Route:
+    """Route T tokens xt (T, d) to their top-k experts, ``capacity`` slots an
+    expert. ``sh`` with the batch cut over the data axis: the queues are the
+    whole batch's (xt is this rank's block of its tokens)."""
     m: MoEConfig = cfg.moe
     logits = xt.float() @ params["router"]  # (T, E)
     probs = torch.softmax(logits, dim=-1)
@@ -124,7 +157,11 @@ def route(params, xt: torch.Tensor, cfg: ArchConfig, capacity: int) -> Route:
     gates, idx = vals[:, : m.top_k], idx[:, : m.top_k]
     gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
     expert_ids = idx.reshape(-1)
-    buf_idx, keep = _dispatch_indices(expert_ids, m.num_experts, capacity)
+    if sh is not None and sh.batch_split:
+        ours = slice(sh.data_index * expert_ids.shape[0], (sh.data_index + 1) * expert_ids.shape[0])
+        buf_idx, keep = (t[ours] for t in _dispatch_indices(sh.gather_data(expert_ids), m.num_experts, capacity))
+    else:
+        buf_idx, keep = _dispatch_indices(expert_ids, m.num_experts, capacity)
     return Route(logits, probs, expert_ids, gates, buf_idx, keep, margin)
 
 
@@ -139,34 +176,49 @@ def _expert_buffers(contrib: torch.Tensor, r: Route, num_experts: int, capacity:
     return buffers[: e * capacity].view(e, capacity, d)
 
 
-def moe_ffn(params, x: torch.Tensor, cfg: ArchConfig,
-            capacity_factor: float | None = None) -> tuple[torch.Tensor, MoEAux]:
+def moe_ffn(params, x: torch.Tensor, cfg: ArchConfig, capacity_factor: float | None = None,
+            sh: Shard | None = None) -> tuple[torch.Tensor, MoEAux]:
     """x: (B, L, d) -> (B, L, d), plus router aux losses."""
     m: MoEConfig = cfg.moe
     b, l, d = x.shape
     t, e = b * l, m.num_experts
+    data = sh.data_count if sh is not None and sh.batch_split else 1
     xt = x.reshape(t, d)
-    capacity = capacity_of(t, m, capacity_factor)
-    r = route(params, xt, cfg, capacity)
+    capacity = capacity_of(t * data, m, capacity_factor)
+    r = route(params, xt, cfg, capacity, sh)
 
     # each token's top_k copies, token-major as expert_ids (token_of = repeat(arange(t), top_k))
     contrib = xt[:, None, :].expand(t, m.top_k, d).reshape(t * m.top_k, d)
-    buffers = _expert_buffers(contrib, r, e, capacity)
+    e_local, mine = e, r
+    if split_over(sh, e) is not None:  # expert parallel: this rank's experts' slots only
+        e_local = e // sh.ax.model_size
+        first = sh.model_index * e_local
+        ours = (r.expert_ids >= first) & (r.expert_ids < first + e_local)
+        mine = r._replace(keep=r.keep & ours, buf_idx=torch.where(ours, r.buf_idx - first * capacity, 0))
+    buffers = _expert_buffers(contrib, mine, e_local, capacity)
 
     h = F.silu(torch.bmm(buffers, params["w_gate"])) * torch.bmm(buffers, params["w_up"])
-    out_buf = torch.bmm(h, params["w_down"]).reshape(e * capacity, d)
-    routed = out_buf[r.buf_idx] * (r.gates.reshape(-1)[:, None] * r.keep[:, None]).to(x.dtype)
+    out_buf = torch.bmm(h, params["w_down"]).reshape(e_local * capacity, d)
+    routed = out_buf[mine.buf_idx] * (r.gates.reshape(-1)[:, None] * mine.keep[:, None]).to(x.dtype)
     y = routed.view(t, m.top_k, d).sum(1)
+    if split_over(sh, m.num_experts) is not None or split_over(sh, m.d_expert) is not None:
+        y = sh.psum(y)
 
     if m.num_shared:
         s = params["shared"]
         hs = F.silu(xt @ s["w_gate"]) * (xt @ s["w_up"])
-        y = y + hs @ s["w_down"]
+        shared = split_over(sh, m.num_shared * m.d_expert)
+        y = y + (hs @ s["w_down"] if shared is None else shared.psum(hs @ s["w_down"]))
 
     # Switch load-balance loss: E * sum_e f_e * p_e (f = fraction routed,
     # p = mean router prob); z-loss: mean logsumexp^2.
-    f = _counts(r.expert_ids, e).float() / (t * m.top_k)
+    counts = _counts(r.expert_ids, e).float()
     pmean = torch.mean(r.probs, dim=0)
-    lb = e * torch.sum(f * pmean)
     z = torch.mean(torch.logsumexp(r.logits, dim=-1) ** 2)
+    if data > 1:  # the whole batch's: the data ranks' means of t tokens each, averaged
+        sums = torch.cat([counts, pmean, z[None]])
+        dist.all_reduce(sums, group=sh.data_group)
+        counts, pmean, z = sums[:e], sums[e : 2 * e] / data, sums[2 * e] / data
+    f = counts / (t * data * m.top_k)
+    lb = e * torch.sum(f * pmean)
     return y.reshape(b, l, d), MoEAux(lb, z)

@@ -15,6 +15,10 @@ for the WKV.
 
 ``rwkv_time_mix_with_state`` also returns the WKV state after the
 sequence, which the prefill takes from the forward's own scan.
+
+The ``*_specs`` functions are the reference's sharding specs, as data: the
+RWKV layers have no mesh path yet (ROADMAP M5), and ``transformer.Model``
+refuses them on a model axis of more than one rank.
 """
 from __future__ import annotations
 
@@ -26,7 +30,7 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig, RWKVConfig
 
-from .layers import dense_init, frozen
+from .layers import P, Axes, dense_init, frozen
 
 
 class RWKVState(NamedTuple):
@@ -63,6 +67,19 @@ def rwkv_time_mix_init(gen: torch.Generator, cfg: ArchConfig, dtype=torch.float3
         u=torch.zeros((nh, hs), dtype=torch.float32, device=dev),  # per-head bonus
         ln_scale=torch.ones((nh, hs), dtype=torch.float32, device=dev),  # per-head output norm
     )
+
+
+def rwkv_time_mix_specs(ax: Axes, cfg: ArchConfig) -> dict:
+    da = ax.dim_axis(cfg.d_model)
+    ha = ax.dim_axis(_dims(cfg)[0])
+    return {
+        "mix_r": P(None), "mix_k": P(None), "mix_v": P(None), "mix_g": P(None), "mix_w": P(None),
+        "wr": P(None, da), "wk": P(None, da), "wv": P(None, da), "wg": P(None, da),
+        "wo": P(da, None),
+        "w0": P(None), "w_a": P(None, None), "w_b": P(None, None),
+        "u": P(ha, None),
+        "ln_scale": P(ha, None),
+    }
 
 
 def _mix(x: torch.Tensor, x_prev: torch.Tensor, mu: torch.Tensor) -> torch.Tensor:
@@ -174,6 +191,14 @@ def rwkv_channel_mix_init(gen: torch.Generator, cfg: ArchConfig, dtype=torch.flo
     return frozen(mix_k=_halves(d, gen.device), mix_r=_halves(d, gen.device), wk=wk, wv=wv, wr=wr)
 
 
+def rwkv_channel_mix_specs(ax: Axes, cfg: ArchConfig) -> dict:
+    ff = ax.dim_axis(cfg.d_ff)
+    return {
+        "mix_k": P(None), "mix_r": P(None),
+        "wk": P(None, ff), "wv": P(ff, None), "wr": P(None, ax.dim_axis(cfg.d_model)),
+    }
+
+
 def rwkv_channel_mix(params, x: torch.Tensor, x_prev: torch.Tensor | None = None) -> torch.Tensor:
     """Squared-ReLU FFN with token shift. x: (B, L, d); x_prev (B, d), the
     input before x (zeros when None)."""
@@ -191,6 +216,14 @@ def rwkv_state_init(cfg: ArchConfig, batch: int, dtype=torch.float32, device=Non
         x_prev_tm=torch.zeros((batch, d), dtype=dtype, device=device),
         x_prev_cm=torch.zeros((batch, d), dtype=dtype, device=device),
         s=torch.zeros((batch, nh, hs, hs), dtype=torch.float32, device=device),
+    )
+
+
+def rwkv_state_specs(cfg: ArchConfig, ax: Axes) -> RWKVState:
+    return RWKVState(
+        x_prev_tm=P(ax.b, None),
+        x_prev_cm=P(ax.b, None),
+        s=P(ax.b, ax.dim_axis(_dims(cfg)[0]), None, None),
     )
 
 

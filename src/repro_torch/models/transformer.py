@@ -19,6 +19,21 @@ layer's router aux loss is summed over the layers and added to the loss,
 as in the reference; prefill and decode route at capacity factor 2.0, the
 full-sequence forward at the config's.
 
+On a ``(data, model)`` mesh (``Model(cfg, ax=..., mesh=...)``, the mesh
+of ``launch.mesh.make_lm_mesh``) each rank holds its block of every
+parameter by ``param_specs`` (``Model.place``; ``init`` draws each layer
+whole from the one generator and keeps this rank's blocks, so a mesh model
+drawn from a seed holds the one-card model's weights, cut) and its block
+of every cache by ``cache_specs``; the layer functions take the mesh's
+``layers.Shard`` and end each contraction over a cut dimension in an
+all-reduce. A spec tree is the reference's: a segment's specs carry a
+leading ``None`` for the repeat axis, so the spec of the port's tensor
+``params["seg{i}"][r]…`` is the reference leaf's spec without its first
+entry (``leaf_specs``). The batch is cut over the data axis when ``ax``
+names it. The layer kinds with no mesh path (MLA, RWKV, attention whose
+heads do not divide the model axis) raise on a model axis of more than
+one rank (``check_mesh``); training on a mesh waits too (ROADMAP M5).
+
 A Mamba or RWKV layer's prefill takes its decode state from the forward's
 own scan; the reference runs the scan a second time for it
 (``_mamba_final_state``, ``_rwkv_final_state``, kept here as the plain
@@ -39,7 +54,23 @@ from . import attention as attn
 from . import mamba as mam
 from . import moe as moe_mod
 from . import rwkv as rwkv_mod
-from .layers import cross_entropy, embed_tokens, embedding_init, lm_logits, mlp, mlp_init, rmsnorm, rmsnorm_init
+from .layers import (
+    P,
+    Axes,
+    Shard,
+    cross_entropy,
+    embed_tokens,
+    embedding_init,
+    embedding_specs,
+    lm_logits,
+    mlp,
+    mlp_init,
+    mlp_specs,
+    rmsnorm,
+    rmsnorm_init,
+    rmsnorm_specs,
+    split_over,
+)
 
 REMAT = ("none", "full", "dots")
 
@@ -54,6 +85,43 @@ class LayerDesc:
 class Segment:
     repeat: int
     layers: tuple[LayerDesc, ...]
+
+
+def seq_sharded_mode(cfg: ArchConfig, ax: Axes) -> bool:
+    """The reference's sequence-parallel residual stream, used when attention
+    heads do NOT divide the model axis (qwen2 14H, llama3.2 24H over 16):
+    tokens shard over 'model', MLP weights replicate. Data here (it sets
+    ``mlp_specs``); the port has no such path (``check_mesh``)."""
+    return (
+        cfg.attention == "gqa"
+        and cfg.num_heads > 0
+        and ax.model_size > 1
+        and cfg.num_heads % ax.model_size != 0
+        and cfg.d_model % ax.model_size == 0
+    )
+
+
+def check_mesh(cfg: ArchConfig, ax: Axes) -> None:
+    """Raise ``NotImplementedError`` for a layer kind that has no path on a
+    model axis of ``ax.model_size`` > 1 ranks (ROADMAP M5)."""
+    m = ax.model_size
+    if m == 1:
+        return
+    kinds = set(cfg.pattern())
+    missing = None
+    if "a" in kinds and cfg.attention == "mla":
+        missing = "MLA attention"
+    elif "r" in kinds:
+        missing = "RWKV time and channel mix"
+    elif "a" in kinds and cfg.num_heads % m:
+        missing = (f"attention whose {cfg.num_heads} heads do not divide the axis"
+                   + (" (the reference's sequence-parallel residual, seq_sharded_mode)" if seq_sharded_mode(cfg, ax)
+                      else ""))
+    elif "m" in kinds and mam._dims(cfg)[0] % m and (2 * mam._dims(cfg)[0]) % m == 0:
+        missing = "a Mamba mixer whose d_in does not divide the axis while 2·d_in does"
+    if missing:
+        raise NotImplementedError(f"{cfg.name} on a model axis of {m} ranks: {missing} has no mesh path "
+                                  "yet (ROADMAP M5)")
 
 
 def build_segments(cfg: ArchConfig) -> tuple[Segment, ...]:
@@ -112,6 +180,31 @@ def _ffn_init(gen: torch.Generator, cfg: ArchConfig, desc: LayerDesc, dtype) -> 
     return mlp_init(gen, cfg.d_model, cfg.d_ff, dtype)
 
 
+def _mixer_specs(ax: Axes, cfg: ArchConfig, desc: LayerDesc) -> dict:
+    if desc.mixer == "a":
+        return attn.mla_specs(ax, cfg) if cfg.attention == "mla" else attn.gqa_specs(ax, cfg)
+    if desc.mixer == "m":
+        return mam.mamba_specs(ax, cfg)
+    return rwkv_mod.rwkv_time_mix_specs(ax, cfg)
+
+
+def _ffn_specs(ax: Axes, cfg: ArchConfig, desc: LayerDesc) -> dict:
+    if desc.ffn == "moe":
+        return moe_mod.moe_specs(ax, cfg)
+    if desc.ffn == "rwkv":
+        return rwkv_mod.rwkv_channel_mix_specs(ax, cfg)
+    return mlp_specs(ax, cfg.d_model, cfg.d_ff, seq_sharded=seq_sharded_mode(cfg, ax))
+
+
+def layer_specs(ax: Axes, cfg: ArchConfig, desc: LayerDesc) -> dict:
+    return {
+        "norm1": rmsnorm_specs(),
+        "mixer": _mixer_specs(ax, cfg, desc),
+        "norm2": rmsnorm_specs(),
+        "ffn": _ffn_specs(ax, cfg, desc),
+    }
+
+
 def layer_init(gen: torch.Generator, cfg: ArchConfig, desc: LayerDesc, dtype=torch.float32) -> nn.ModuleDict:
     return nn.ModuleDict({
         "norm1": rmsnorm_init(cfg.d_model, gen.device),
@@ -121,32 +214,36 @@ def layer_init(gen: torch.Generator, cfg: ArchConfig, desc: LayerDesc, dtype=tor
     })
 
 
-def _ffn(params, h: torch.Tensor, cfg: ArchConfig, desc: LayerDesc,
-         capacity_factor: float | None = None) -> tuple[torch.Tensor, torch.Tensor | None]:
+def _ffn(params, h: torch.Tensor, cfg: ArchConfig, desc: LayerDesc, capacity_factor: float | None = None,
+         sh: Shard | None = None) -> tuple[torch.Tensor, torch.Tensor | None]:
     """The layer's FFN on h, and its weighted router aux loss (None without
     an MoE FFN). RWKV's channel mix takes a zero token shift before h."""
     if desc.ffn == "rwkv":
         return rwkv_mod.rwkv_channel_mix(params, h), None
     if desc.ffn != "moe":
-        return mlp(params, h), None
-    out, aux = moe_mod.moe_ffn(params, h, cfg, capacity_factor)
+        return mlp(params, h, split_over(sh, cfg.d_ff)), None
+    out, aux = moe_mod.moe_ffn(params, h, cfg, capacity_factor, sh)
     m = cfg.moe
     return out, m.router_aux_weight * aux.load_balance + m.router_z_weight * aux.z_loss
 
 
-def layer_forward(params, x: torch.Tensor, cfg: ArchConfig,
-                  desc: LayerDesc) -> tuple[torch.Tensor, torch.Tensor | None]:
+def _mamba_sh(cfg: ArchConfig, sh: Shard | None) -> Shard | None:
+    return split_over(sh, mam._dims(cfg)[0])
+
+
+def layer_forward(params, x: torch.Tensor, cfg: ArchConfig, desc: LayerDesc,
+                  sh: Shard | None = None) -> tuple[torch.Tensor, torch.Tensor | None]:
     """Full-sequence layer. Returns (x, moe_aux): the router aux loss, None without an MoE FFN."""
     h = rmsnorm(params["norm1"], x, cfg.norm_eps)
     if desc.mixer == "m":
-        x = x + mam.mamba_forward(params["mixer"], h, cfg)
+        x = x + mam.mamba_forward(params["mixer"], h, cfg, _mamba_sh(cfg, sh))
     elif desc.mixer == "r":
         x = x + rwkv_mod.rwkv_time_mix(params["mixer"], h, cfg)
     elif cfg.attention == "mla":
         x = x + attn.mla_forward(params["mixer"], h, cfg)
     else:
-        x = x + attn.gqa_forward(params["mixer"], h, cfg)
-    out, aux = _ffn(params["ffn"], rmsnorm(params["norm2"], x, cfg.norm_eps), cfg, desc)
+        x = x + attn.gqa_forward(params["mixer"], h, cfg, sh=sh)
+    out, aux = _ffn(params["ffn"], rmsnorm(params["norm2"], x, cfg.norm_eps), cfg, desc, sh=sh)
     return x + out, aux
 
 
@@ -167,17 +264,27 @@ def layer_cache_init(cfg: ArchConfig, desc: LayerDesc, batch: int, seq_len: int,
     return attn.gqa_cache_init(cfg, batch, seq_len, dtype, device)
 
 
+def layer_cache_specs(cfg: ArchConfig, desc: LayerDesc, ax: Axes) -> Cache:
+    if desc.mixer == "m":
+        return mam.mamba_state_specs(cfg, ax)
+    if desc.mixer == "r":
+        return rwkv_mod.rwkv_state_specs(cfg, ax)
+    if cfg.attention == "mla":
+        return attn.mla_cache_specs(cfg, ax)
+    return attn.gqa_cache_specs(cfg, ax)
+
+
 def layer_decode(params, x: torch.Tensor, cache: Cache, pos: int, cfg: ArchConfig,
-                 desc: LayerDesc) -> tuple[torch.Tensor, Cache]:
+                 desc: LayerDesc, sh: Shard | None = None) -> tuple[torch.Tensor, Cache]:
     h = rmsnorm(params["norm1"], x, cfg.norm_eps)
     if desc.mixer == "m":
-        mix, cache = mam.mamba_decode(params["mixer"], h, cache, cfg)
+        mix, cache = mam.mamba_decode(params["mixer"], h, cache, cfg, _mamba_sh(cfg, sh))
     elif desc.mixer == "r":
         mix, cache = rwkv_mod.rwkv_decode(params["mixer"], params["ffn"], h, cache, cfg)
     elif cfg.attention == "mla":
         mix, cache = attn.mla_decode(params["mixer"], h, cache, pos, cfg)
     else:
-        mix, cache = attn.gqa_decode(params["mixer"], h, cache, pos, cfg)
+        mix, cache = attn.gqa_decode(params["mixer"], h, cache, pos, cfg, sh)
     x = x + mix
     h2 = rmsnorm(params["norm2"], x, cfg.norm_eps)
     if desc.ffn == "rwkv":
@@ -185,28 +292,28 @@ def layer_decode(params, x: torch.Tensor, cache: Cache, pos: int, cfg: ArchConfi
         out = rwkv_mod.rwkv_channel_mix(params["ffn"], h2, x_prev=cache.x_prev_cm)
         cache = cache._replace(x_prev_cm=h2[:, 0])
     else:
-        out, _ = _ffn(params["ffn"], h2, cfg, desc, capacity_factor=2.0)
+        out, _ = _ffn(params["ffn"], h2, cfg, desc, capacity_factor=2.0, sh=sh)
     return x + out, cache
 
 
 def layer_prefill(params, x: torch.Tensor, cfg: ArchConfig, desc: LayerDesc,
-                  cache_len: int | None = None) -> tuple[torch.Tensor, Cache]:
+                  cache_len: int | None = None, sh: Shard | None = None) -> tuple[torch.Tensor, Cache]:
     """Full-seq forward that also emits the decode cache for this layer.
     A Mamba or RWKV layer's state comes from the forward's own scan; the
     token-shift inputs are copies of the last positions."""
     h = rmsnorm(params["norm1"], x, cfg.norm_eps)
     if desc.mixer == "m":
-        mix, cache = mam.mamba_forward_with_state(params["mixer"], h, cfg)
+        mix, cache = mam.mamba_forward_with_state(params["mixer"], h, cfg, _mamba_sh(cfg, sh))
     elif desc.mixer == "r":
         mix, s = rwkv_mod.rwkv_time_mix_with_state(params["mixer"], h, cfg)
         cache = rwkv_mod.RWKVState(x_prev_tm=h[:, -1].clone(), x_prev_cm=torch.zeros_like(h[:, -1]), s=s)
     elif cfg.attention == "mla":
         mix, cache = attn.mla_prefill(params["mixer"], h, cfg, cache_len)
     else:
-        mix, cache = attn.gqa_prefill(params["mixer"], h, cfg, cache_len)
+        mix, cache = attn.gqa_prefill(params["mixer"], h, cfg, cache_len, sh)
     x = x + mix
     h2 = rmsnorm(params["norm2"], x, cfg.norm_eps)
-    out, _ = _ffn(params["ffn"], h2, cfg, desc, capacity_factor=2.0)
+    out, _ = _ffn(params["ffn"], h2, cfg, desc, capacity_factor=2.0, sh=sh)
     if desc.ffn == "rwkv":
         cache = cache._replace(x_prev_cm=h2[:, -1].clone())
     return x + out, cache
@@ -275,17 +382,41 @@ def _remat(fn, remat: str):
 # -----------------------------------------------------------------------------
 # the model
 # -----------------------------------------------------------------------------
+def _with_repeat_axis(tree):
+    """A spec tree with a leading ``None`` on every spec (a stacked segment's repeat axis)."""
+    if isinstance(tree, P):
+        return P(None, *tree)
+    if isinstance(tree, dict):
+        return {k: _with_repeat_axis(v) for k, v in tree.items()}
+    return type(tree)(*(_with_repeat_axis(v) for v in tree))  # a cache NamedTuple
+
+
+def _flat(tree, prefix: str = "") -> dict[str, P]:
+    """A nested dict of specs as {dotted name: spec}."""
+    out = {}
+    for k, v in tree.items():
+        out.update(_flat(v, f"{prefix}{k}.") if isinstance(v, dict) else {f"{prefix}{k}": v})
+    return out
+
+
 class Model(nn.Module):
     """The decoder bound to a config. ``init(generator)`` draws the
     parameters on the generator's device; a converted parameter tree can be
-    assigned to ``params`` instead. Every method runs on the parameters'
-    device; only ``loss_fn`` records autograd.
+    assigned to ``params`` instead (on a mesh, through ``place``). Every
+    method runs on the parameters' device; only ``loss_fn`` records autograd.
 
     ``remat`` (``"full"``, ``"dots"``, ``"none"``) is the reference's, one
     checkpoint per repeat of a segment. The full-sequence forward takes
-    plain attention on every device: the flash kernel has no backward."""
+    plain attention on every device: the flash kernel has no backward.
 
-    def __init__(self, cfg: ArchConfig, dtype=torch.float32, remat: str = "full"):
+    ``ax`` is the reference's axis environment, which sets the specs
+    (``param_specs``, ``cache_specs``); without a ``mesh`` nothing is cut.
+    ``mesh`` (``launch.mesh.LMMesh``) places the model on a ``(data,
+    model)`` mesh of ranks; ``ax`` then defaults to the mesh's (batch over
+    ``data``), and its model size must be the mesh's."""
+
+    def __init__(self, cfg: ArchConfig, dtype=torch.float32, remat: str = "full", ax: Axes | None = None,
+                 mesh=None):
         super().__init__()
         if remat not in REMAT:
             raise ValueError(f"remat must be one of {REMAT}, got {remat!r}")
@@ -295,24 +426,98 @@ class Model(nn.Module):
         self.segments = build_segments(cfg)
         assert sum(s.repeat * len(s.layers) for s in self.segments) == cfg.num_layers
         self.params: nn.ModuleDict | None = None
+        model_size = mesh.model_count if mesh is not None else 1
+        self.ax = ax or Axes(batch=("data",), model="model", model_size=model_size)
+        self.sh: Shard | None = None
+        if mesh is not None:
+            if self.ax.model_size != mesh.model_count:
+                raise ValueError(f"axes of model size {self.ax.model_size} on a mesh of {mesh.model_count} model ranks")
+            check_mesh(cfg, self.ax)
+            self.sh = Shard(self.ax, mesh.model_group, mesh.model_index, mesh.data_group, mesh.data_index,
+                            mesh.data_count)
 
     @property
     def device(self) -> torch.device:
         return self.params["embed"]["table"].device
 
+    # ---- specs ----------------------------------------------------------------
+    def param_specs(self) -> dict:
+        """The reference's ``Model.param_specs``: the embedding's and final
+        norm's specs, and each segment's layer specs with a leading ``None``."""
+        cfg, ax = self.cfg, self.ax
+        p = {"embed": embedding_specs(ax, cfg.vocab_size, cfg.tie_embeddings), "final_norm": rmsnorm_specs()}
+        for si, seg in enumerate(self.segments):
+            p[f"seg{si}"] = _with_repeat_axis({f"l{i}": layer_specs(ax, cfg, d) for i, d in enumerate(seg.layers)})
+        return p
+
+    def cache_specs(self) -> dict:
+        """The reference's ``Model.cache_specs``, by segment and layer."""
+        return {f"seg{si}": _with_repeat_axis({f"l{i}": layer_cache_specs(self.cfg, d, self.ax)
+                                                for i, d in enumerate(seg.layers)})
+                for si, seg in enumerate(self.segments)}
+
+    def leaf_specs(self) -> dict[str, P]:
+        """Each parameter's spec by the port's parameter name: a segment's
+        ``seg{i}.{r}.l{j}.…`` takes the reference leaf's spec without its
+        repeat entry."""
+        out = {}
+        for name, spec in _flat(self.param_specs()).items():
+            if name.startswith("seg"):
+                si, rest = name.split(".", 1)
+                for r in range(self.segments[int(si[3:])].repeat):
+                    out[f"{si}.{r}.{rest}"] = P(*spec[1:])
+            else:
+                out[name] = spec
+        return out
+
+    def _relaid(self, name: str) -> bool:
+        """Whether this rank's block of parameter ``name`` is a re-laid Mamba ``in_proj``."""
+        return self.sh is not None and name.endswith("mixer.in_proj") and self.sh.split(mam._dims(self.cfg)[0])
+
+    def place(self, params: nn.Module, prefix: str = "") -> nn.Module:
+        """Cut every parameter of ``params`` (a whole tree, or the subtree
+        at ``prefix``) to this rank's block by its spec, in place: a
+        contiguous copy, so the whole tensor can be freed. A Mamba
+        ``in_proj``'s block is laid out as [x_r | z_r]
+        (``mamba.in_proj_layout``). No-op without a mesh."""
+        if self.sh is None:
+            return params
+        specs = self.leaf_specs()
+        for name, param in params.named_parameters(prefix=prefix.rstrip(".")):
+            whole = param.data
+            if self._relaid(name):
+                whole = mam.in_proj_layout(whole, self.ax.model_size)
+            param.data = self.sh.cut(whole, specs[name]).clone()
+        return params
+
+    def gather(self, params: nn.Module) -> dict[str, torch.Tensor]:
+        """{name: whole tensor} of this rank's blocks ``params``, joined over
+        the mesh's groups (``place``'s inverse; every rank of the mesh must
+        call it)."""
+        if self.sh is None:
+            return {name: p.data for name, p in params.named_parameters()}
+        specs, out = self.leaf_specs(), {}
+        for name, param in params.named_parameters():
+            whole = self.sh.join(param.data, specs[name])
+            out[name] = mam.in_proj_layout(whole, self.ax.model_size, inverse=True) if self._relaid(name) else whole
+        return out
+
     # ---- init -----------------------------------------------------------------
     def init(self, gen: torch.Generator) -> nn.ModuleDict:
         """Draw every parameter from ``gen``, in order: embedding, then each
-        segment's repeats and layers."""
+        segment's repeats and layers. On a mesh each of these is drawn whole
+        and cut to this rank's blocks at once (the transient is one layer)."""
         cfg = self.cfg
         p = {
-            "embed": embedding_init(gen, cfg.vocab_size, cfg.d_model, cfg.tie_embeddings, self.dtype),
+            "embed": self.place(embedding_init(gen, cfg.vocab_size, cfg.d_model, cfg.tie_embeddings, self.dtype),
+                                "embed"),
             "final_norm": rmsnorm_init(cfg.d_model, gen.device),
         }
         for si, seg in enumerate(self.segments):
             p[f"seg{si}"] = nn.ModuleList(
-                nn.ModuleDict({f"l{i}": layer_init(gen, cfg, d, self.dtype) for i, d in enumerate(seg.layers)})
-                for _ in range(seg.repeat)
+                nn.ModuleDict({f"l{i}": self.place(layer_init(gen, cfg, d, self.dtype), f"seg{si}.{r}.l{i}")
+                               for i, d in enumerate(seg.layers)})
+                for r in range(seg.repeat)
             )
         self.params = nn.ModuleDict(p)
         return self.params
@@ -331,7 +536,7 @@ class Model(nn.Module):
         router aux loss (an MoE layer's) to the carried ``aux``, as the
         reference's scan body."""
         for i, d in enumerate(seg.layers):
-            x, a = layer_forward(rep[f"l{i}"], x, self.cfg, d)
+            x, a = layer_forward(rep[f"l{i}"], x, self.cfg, d, self.sh)
             if a is not None:
                 aux = aux + a
         return x, aux
@@ -357,36 +562,50 @@ class Model(nn.Module):
     def loss_fn(self, batch: dict[str, torch.Tensor]) -> torch.Tensor:
         """Mean next-token NLL of ``batch`` (``tokens``, ``labels``, and
         ``embeds`` for an embeddings arch) plus the MoE aux loss; autograd
-        records it wherever grad mode is on."""
+        records it wherever grad mode is on. Not on a mesh: training there
+        waits for ROADMAP M5's second half (the collectives have no backward here)."""
+        if self.sh is not None:
+            raise NotImplementedError("training on a mesh is not ported yet (ROADMAP M5)")
         h, aux = self.hidden(self.embed_input(batch))
         return cross_entropy(self.logits(h), batch["labels"]) + aux
 
     def embed_input(self, batch: dict[str, torch.Tensor]) -> torch.Tensor:
         if self.cfg.input_mode == "embeddings" and "embeds" in batch:
             return batch["embeds"].to(self.dtype)
-        return embed_tokens(self.params["embed"], batch["tokens"])
+        return embed_tokens(self.params["embed"], batch["tokens"], split_over(self.sh, self.cfg.vocab_size))
 
     def logits(self, h: torch.Tensor) -> torch.Tensor:
-        return lm_logits(self.params["embed"], h)
+        """fp32 logits over the whole vocabulary (gathered on a mesh)."""
+        return lm_logits(self.params["embed"], h, split_over(self.sh, self.cfg.vocab_size))
 
     # ---- prefill / decode -----------------------------------------------------
     def cache_init(self, batch: int, seq_len: int) -> dict[str, list[dict[str, Cache]]]:
+        """Zero caches for ``batch`` rows (on a mesh: the whole batch's, of
+        which this rank keeps its blocks by ``cache_specs``)."""
         caches: dict[str, list] = {}
+        specs = self.cache_specs()
         for si, seg in enumerate(self.segments):
-            caches[f"seg{si}"] = [
-                {f"l{i}": layer_cache_init(self.cfg, d, batch, seq_len, self.dtype, self.device)
-                 for i, d in enumerate(seg.layers)}
-                for _ in range(seg.repeat)
-            ]
+            caches[f"seg{si}"] = []
+            for _ in range(seg.repeat):
+                rep = {}
+                for i, d in enumerate(seg.layers):
+                    cache = layer_cache_init(self.cfg, d, batch, seq_len, self.dtype, self.device)
+                    if self.sh is not None:
+                        spec = specs[f"seg{si}"][f"l{i}"]
+                        cache = type(cache)(*(self.sh.cut(t, P(*sp[1:])).clone() for t, sp in zip(cache, spec)))
+                    rep[f"l{i}"] = cache
+                caches[f"seg{si}"].append(rep)
         return caches
 
     @torch.inference_mode()
     def prefill(self, batch: dict[str, torch.Tensor], cache_len: int | None = None):
-        """Returns (last-token logits (B, 1, V), caches with ``cache_len`` decode capacity)."""
+        """Returns (last-token logits (B, 1, V), caches with ``cache_len`` decode capacity).
+        On a mesh ``batch`` holds this rank's rows (its data block of the
+        batch when ``ax`` cuts it), and so do the logits and caches."""
         x = self.embed_input(batch)
         caches = {f"seg{si}": [{} for _ in range(seg.repeat)] for si, seg in enumerate(self.segments)}
         for params, d, si, r, name in self._layers():
-            x, caches[f"seg{si}"][r][name] = layer_prefill(params, x, self.cfg, d, cache_len)
+            x, caches[f"seg{si}"][r][name] = layer_prefill(params, x, self.cfg, d, cache_len, self.sh)
         h = rmsnorm(self.params["final_norm"], x, self.cfg.norm_eps)
         return self.logits(h[:, -1:]), caches
 
@@ -394,9 +613,9 @@ class Model(nn.Module):
     def decode_step(self, caches, tokens: torch.Tensor, pos: int):
         """tokens: (B, 1) int; pos: absolute position. Returns (logits (B, 1, V), caches);
         the caches are updated in place."""
-        x = embed_tokens(self.params["embed"], tokens)
+        x = embed_tokens(self.params["embed"], tokens, split_over(self.sh, self.cfg.vocab_size))
         for params, d, si, r, name in self._layers():
             seg_cache = caches[f"seg{si}"][r]
-            x, seg_cache[name] = layer_decode(params, x, seg_cache[name], pos, self.cfg, d)
+            x, seg_cache[name] = layer_decode(params, x, seg_cache[name], pos, self.cfg, d, self.sh)
         h = rmsnorm(self.params["final_norm"], x, self.cfg.norm_eps)
         return self.logits(h), caches

@@ -4,6 +4,11 @@
 against the KV caches, greedy or sampled at a temperature.
 ``generate`` drives prefill and the decode loop from the host.
 
+On a ``(data, model)`` mesh (a ``Model`` made with ``mesh=``) every rank
+runs ``generate`` on its rows of the prompt: the ranks of a model group
+compute the same whole logits, so they return the same tokens, and each
+data rank returns its block of the batch's rows.
+
 Sampling at ``temperature > 0`` draws with ``torch.multinomial`` over the
 softmax from an explicit ``torch.Generator``; it cannot reproduce the bits
 of the reference's ``jax.random.categorical``.
@@ -14,6 +19,7 @@ import time
 
 import torch
 
+from repro_torch.models.layers import P
 from repro_torch.models.transformer import Model
 
 
@@ -40,6 +46,13 @@ def make_prefill(model: Model, cache_len: int):
     return prefill
 
 
+def decode_input_specs(model: Model) -> dict[str, P]:
+    """The reference's decode-step input specs: tokens cut by batch, the
+    position and the sampling key (here the generator) whole on every rank."""
+    ax = model.ax
+    return {"tokens": P(ax.b, None), "pos": P(), "key": P()}
+
+
 def _sync(device: torch.device) -> float:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -59,7 +72,7 @@ def generate(
     """Greedy/temperature generation loop (host-driven) -> (B, steps) int32.
 
     With a ``timings`` dict, records ``prefill_s`` and ``decode_s``: host
-    seconds, each ending in a device synchronize.
+    seconds, each ending in a synchronize of this rank's device.
     """
     b, l = prompt.shape
     cache_len = cache_len or (l + steps)
