@@ -7,7 +7,7 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 
 On a machine with four, ``python3 chip_smoke.py --multi-rank-only`` builds
 the kernels and runs only the 4-rank searches of phase 5 and the one-rank
-searches they are compared with, then phase 5's 4-rank serves.
+searches they are compared with, then phase 5's 4-rank serves and trains.
 
 Phases, each fatal on failure:
 
@@ -105,7 +105,17 @@ Phases, each fatal on failure:
      memory and times; ``jamba_serve_8l_mesh22``: the 8-layer cut at (2, 2)
      teacher-forced against the one-card run of the same weights (logits
      within 2e-3, the served tokens the one-card run's up to a printed
-     near-tie), else one line saying they were not made; then the port's ``train`` with
+     near-tie), else one line saying they were not made; with 4 or more
+     cards then ``jamba_train_8l_mesh``: jamba-v0.1-52b's 8-layer cut at
+     its published widths (13.30 B parameters; ≈ 213 GB with gradients
+     and AdamW's moments) trained through ``launch.train --data-shards
+     --model-shards`` at (1, 4), (2, 2) and (4, 1) (FSDP over the data
+     axis), 3 steps of B 8, L 64 in 2 microbatches, remat full, the three
+     held against each other (step 0's loss at 1e-5, gradient norms and
+     losses at 1e-4), every rank the same numbers, no kernel launch, each
+     rank's peak memory against its prediction, and at (2, 2) reduced
+     jamba and granite against a one-card step, else one line saying it
+     was not made; then the port's ``train`` with
      qwen2-0.5b, granite-moe-1b-a400m and rwkv6-1.6b at their published
      widths (24 layers, fp32, random weights from seed 0), 12 steps of B 8,
      L 64 in 2 microbatches: finite losses and gradient norms, the last loss
@@ -2044,6 +2054,232 @@ def vs_one_card(torch, model, prompt, served, record: dict, mesh, label: str) ->
     return {"logits_max_abs_gap_vs_one_card": max(gaps), "steps": len(gaps), "near_ties": near_ties}
 
 
+# LM training on a (data, model) mesh of 4 ranks, one process a card
+# (``jamba_train_8l_mesh``): jamba-v0.1-52b at its published widths cut to
+# one 8-layer period (13.30 B parameters, 53.2 GB in fp32; with its
+# gradients and AdamW's two moments ≈ 213 GB, more than a card holds),
+# weights and the synthetic stream from seed 0, fp32 with TF32 off, B 8,
+# L 64 in 2 microbatches, remat full, AdamW lr 1e-3, 3 steps, at three
+# meshes held against each other: step 0's loss at 1e-5, the gradient
+# norms and the 3 steps' losses at 1e-4, every rank the same numbers
+MULTI_RANK_TRAINS = {"jamba_train_8l_mesh14": (1, 4), "jamba_train_8l_mesh22": (2, 2),
+                     "jamba_train_8l_mesh41": (4, 1)}
+MESH_TRAIN_STEPS = 3
+MESH_TRAIN_LOSS0_RTOL, MESH_TRAIN_RTOL = 1e-5, 1e-4
+MULTI_RANK_TRAIN_TIMEOUT_S = 600
+# reduced jamba and granite at (2, 2) against a one-card step on the card,
+# at tests/test_torch_lm_train_mesh.py's sizes and tolerances (FSDP cuts
+# every leaf of 2^10 elements or more): loss 1e-5; each gradient, joined to
+# whole, relative norm 1e-4 and elementwise rtol 1e-4, atol 1e-5 × its scale
+SMALL_MESH_TRAIN = dict(batch=8, seq=32, microbatches=2, fsdp_min_elems=1 << 10)
+GRAD_RTOL, GRAD_ATOL_SCALE = 1e-4, 1e-5
+
+
+def mesh_train_args(data: int, model: int) -> list[str]:
+    return ["--arch", "jamba-v0.1-52b", "--no-reduced", "--layers", str(JAMBA_LAYERS),
+            "--steps", str(MESH_TRAIN_STEPS), "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+            "--microbatches", str(TRAIN_MICRO), "--remat", "full", "--lr", "1e-3", "--device", "cuda",
+            "--seed", "0", "--quiet", "--data-shards", str(data), "--model-shards", str(model)]
+
+
+def predict_train_peak(cfg, data: int, model: int) -> dict:
+    """The peak a rank of the mesh training step should reach, from the
+    placement alone (``Model.leaf_specs`` on the reference's shapes, no
+    memory): parameters, one accumulated gradient set and AdamW's two
+    moments, all this rank's fp32 blocks; on top, the layer whose FSDP
+    leaves gathered whole are largest, twice (the gathered weights and
+    their whole gradients before the reduce-scatter). Activations at B 8,
+    L 64 are left out."""
+    import types
+
+    from repro_torch.models.transformer import Model
+
+    place = types.SimpleNamespace(data_count=data, model_count=model, model_group=None, model_index=0,
+                                  data_group=None, data_index=0)
+    m = Model(cfg, mesh=place)
+    shapes, specs, dims = m.param_shapes(), m.leaf_specs(), m.fsdp_dims()
+
+    def whole(name: str) -> tuple[int, ...]:
+        node = shapes
+        parts = name.split(".")
+        for part in ([parts[0]] + parts[2:] if name.startswith("seg") else parts):
+            node = node[part]
+        return node[1:] if name.startswith("seg") else node
+
+    block, layer = 0, {}
+    for name, spec in specs.items():
+        n = math.prod(whole(name))
+        for e in spec:
+            n //= model if e == "model" else data if e is not None else 1
+        block += n
+        if name in dims:
+            key = ".".join(name.split(".")[:3]) if name.startswith("seg") else "embed"  # the layer
+            layer[key] = layer.get(key, 0) + n * data
+    steady = 4 * 4 * block
+    transient = 2 * 4 * max(layer.values(), default=0)
+    return {"params_per_rank": block, "steady_bytes": steady, "fsdp_transient_bytes": transient,
+            "predicted_peak_bytes": steady + transient}
+
+
+def run_multi_rank_trains(torch, log) -> dict[str, dict[str, int]]:
+    """The training path on 4 ranks, one process a card (``torchrun``,
+    rendezvous on localhost), each mesh of ``MULTI_RANK_TRAINS`` in one
+    launch (``rank_train``), counts reset just before, read just after.
+    Gates: every rank the same losses and gradient norms, finite, no kernel
+    launch (training takes plain attention); the three meshes agree (step
+    0's loss at MESH_TRAIN_LOSS0_RTOL, gradient norms and losses at
+    MESH_TRAIN_RTOL); at (2, 2) ``rank_train``'s reduced checks. Logs each
+    rank's peak memory against ``predict_train_peak``, the step seconds and
+    the launches. Needs 4 cards."""
+    import os
+    import signal
+    import tempfile
+
+    from repro_torch.configs import get_config
+
+    cards = torch.cuda.device_count()
+    if cards < 4:
+        log(f"multi-rank trains: not made ({cards} card(s) visible; jamba_train_8l_mesh needs 4)")
+        return {}
+    cfg = dataclasses.replace(get_config("jamba-v0.1-52b"), num_layers=JAMBA_LAYERS)
+    by_path, runs = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        for label, (data, model) in MULTI_RANK_TRAINS.items():
+            outdir = Path(tmp) / label
+            outdir.mkdir()
+            (outdir / "spec.json").write_text(json.dumps({"label": label, "data": data, "model": model,
+                                                          "small": (data, model) == (2, 2)}))
+            cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "4",
+                   str(ROOT / "chip_smoke.py"), "--rank-train", str(outdir)]
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                                    start_new_session=True)
+            try:
+                text, _ = proc.communicate(timeout=MULTI_RANK_TRAIN_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.communicate()
+                raise AssertionError(f"{label}: no result within {MULTI_RANK_TRAIN_TIMEOUT_S} s")
+            if proc.returncode != 0:
+                raise AssertionError(f"{label}: torchrun exited {proc.returncode}:\n{text[-4000:]}")
+            ranks = [json.loads((outdir / f"rank{r}.json").read_text()) for r in range(4)]
+            first = ranks[0]
+            for r, rank in enumerate(ranks):
+                if (rank["losses"], rank["grad_norms"]) != (first["losses"], first["grad_norms"]):
+                    raise AssertionError(f"{label}: rank {r} losses {rank['losses']} norms {rank['grad_norms']}, "
+                                         f"rank 0 {first['losses']} {first['grad_norms']}")
+                if any(rank["launches"].values()):
+                    raise AssertionError(f"{label}: rank {r} launched kernels on the training path: {rank['launches']}")
+            if len(first["losses"]) != MESH_TRAIN_STEPS or not all(
+                    math.isfinite(x) for x in first["losses"] + first["grad_norms"]):
+                raise AssertionError(f"{label}: losses {first['losses']}, grad norms {first['grad_norms']}")
+            predicted = predict_train_peak(cfg, data, model)
+            log(json.dumps({"train": label, "mesh": {"data": data, "model": model}, "layers": JAMBA_LAYERS,
+                            "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "microbatches": first["microbatches"],
+                            "remat": "full", "losses": first["losses"], "grad_norms": first["grad_norms"],
+                            "step_seconds": [rank["step_seconds"] for rank in ranks],
+                            "max_memory_allocated": [rank["max_memory_allocated"] for rank in ranks],
+                            **predicted, "params_by_rank": [rank["params"] for rank in ranks],
+                            "small_checks": first.get("small"),
+                            "launches_by_rank": [rank["launches"] for rank in ranks], "card": smi_line()}))
+            runs[label] = first
+            by_path[label] = {name: sum(rank["launches"][name] for rank in ranks) for name in first["launches"]}
+    base_label = next(iter(runs))
+    base = runs[base_label]
+    for label, run in runs.items():
+        loss0 = abs(run["losses"][0] - base["losses"][0]) / abs(base["losses"][0])
+        norms = max(abs(a - b) / abs(b) for a, b in zip(run["grad_norms"], base["grad_norms"]))
+        losses = max(abs(a - b) / abs(b) for a, b in zip(run["losses"], base["losses"]))
+        if loss0 > MESH_TRAIN_LOSS0_RTOL or norms > MESH_TRAIN_RTOL or losses > MESH_TRAIN_RTOL:
+            raise AssertionError(f"{label} against {base_label}: step 0 loss {loss0:.3e}, gradient norms {norms:.3e}, "
+                                 f"losses {losses:.3e} (relative)")
+        log(json.dumps({"train_mesh_agreement": label, "against": base_label, "loss0_rel_gap": loss0,
+                        "grad_norm_max_rel_gap": norms, "loss_max_rel_gap": losses}))
+    return by_path
+
+
+def small_mesh_train_checks(torch, data: int, model_size: int) -> dict:
+    """Reduced jamba and granite on the ``(data, model)`` mesh of this
+    ``torchrun`` against a one-card step on this rank's card, the same
+    weights (seed 0) and batch: the loss, and every gradient joined to
+    whole (``SMALL_MESH_TRAIN``'s tolerances); FSDP must cut some leaves."""
+    from repro_torch.configs import ShapeConfig, get_config, reduced_config
+    from repro_torch.data.pipeline import SyntheticTokenSource, device_put_batch
+    from repro_torch.launch.mesh import make_axes, make_lm_mesh
+    from repro_torch.models.transformer import Model
+    from repro_torch.train.train_step import accumulate_grads
+
+    out = {}
+    b, n = SMALL_MESH_TRAIN["batch"], SMALL_MESH_TRAIN["microbatches"]
+    with make_lm_mesh(data, model_size, "cuda") as mesh:
+        dev = mesh.device
+        for arch in ("jamba-v0.1-52b", "granite-moe-1b-a400m"):
+            cfg = reduced_config(get_config(arch))
+            batch = device_put_batch(
+                SyntheticTokenSource(cfg, ShapeConfig("smoke", SMALL_MESH_TRAIN["seq"], b, "train")).batch_at(0), dev)
+            m = Model(cfg, remat="full", ax=make_axes(mesh, b), mesh=mesh,
+                      fsdp_min_elems=SMALL_MESH_TRAIN["fsdp_min_elems"])
+            m.init(torch.Generator(device=dev).manual_seed(0))
+            one = Model(cfg, remat="full")
+            one.init(torch.Generator(device=dev).manual_seed(0))
+            loss, grads = accumulate_grads(m, batch, n)
+            loss1, grads1 = accumulate_grads(one, batch, n)
+            joined = m.gather(grads)
+            if not m.fsdp_dims() or set(joined) != set(grads1):
+                raise AssertionError(f"{arch} on the mesh: FSDP leaves {len(m.fsdp_dims())}, "
+                                     f"gradients {sorted(set(joined) ^ set(grads1))} unmatched")
+            loss_gap = abs(float(loss) - float(loss1)) / abs(float(loss1))
+            if loss_gap > TRAIN_LOSS_RTOL:
+                raise AssertionError(f"{arch} on the mesh: loss {float(loss)} against one card's {float(loss1)}")
+            worst = 0.0
+            for name, g in joined.items():
+                want = grads1[name]
+                gap = float(torch.linalg.norm(g - want) / torch.linalg.norm(want))
+                worst = max(worst, gap)
+                scale = float(want.abs().max())
+                if gap > TRAIN_GRAD_NORM_RTOL or not torch.allclose(g, want, rtol=GRAD_RTOL,
+                                                                      atol=GRAD_ATOL_SCALE * scale):
+                    raise AssertionError(f"{arch} on the mesh: gradient of {name}: relative norm error {gap:.3e} "
+                                         "against one card's")
+            out[arch] = {"loss": float(loss), "loss_rel_gap": loss_gap, "grad_worst_rel_norm_err": worst,
+                         "fsdp_leaves": len(m.fsdp_dims()), "params_with_grad": len(joined)}
+            del m, one, grads, grads1, joined
+    return out
+
+
+def rank_train(outdir: Path) -> int:
+    """One rank of ``run_multi_rank_trains`` (under ``torchrun``), the mesh in
+    ``outdir/spec.json``: ``launch.train.main`` (``mesh_train_args``), its
+    losses, gradient norms, step seconds, peak memory and launches; at
+    (2, 2) then ``small_mesh_train_checks``. Writes ``outdir/rank<RANK>.json``."""
+    import gc
+    import os
+
+    import torch
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+
+    spec = json.loads((outdir / "spec.json").read_text())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    out = train.main(mesh_train_args(spec["data"], spec["model"]))
+    counts = ops.launch_counts()
+    result = {"losses": out["losses"], "grad_norms": out["grad_norms"], "step_seconds": out["step_seconds"],
+              "max_memory_allocated": torch.cuda.max_memory_allocated(), "launches": counts,
+              "params": sum(p.numel() for p in out["params"].parameters()), "microbatches": out["microbatches"]}
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    if spec["small"]:
+        result["small"] = small_mesh_train_checks(torch, spec["data"], spec["model"])
+    (outdir / f"rank{os.environ['RANK']}.json").write_text(json.dumps(result))
+    return 0
+
+
 SOURCES = {
     "mu_update_h": ("src/repro_torch/kernels/csrc/nmf_update.cu", "src/repro/kernels/nmf_update.py:98"),
     "mu_update_w": ("src/repro_torch/kernels/csrc/nmf_update.cu", "src/repro/kernels/nmf_update.py:129"),
@@ -2093,6 +2329,9 @@ def multi_rank_only() -> int:
     t0 = time.perf_counter()
     by_path.update(run_multi_rank_serves(torch, dev, log))
     log(f"multi-rank serves: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    by_path.update(run_multi_rank_trains(torch, log))
+    log(f"multi-rank trains: {time.perf_counter() - t0:.1f} s")
     log(smi_line())
     log(json.dumps(by_path))
     return 0
@@ -2103,6 +2342,8 @@ def main() -> int:
         return rank_search(Path(sys.argv[2]))
     if sys.argv[1:2] == ["--rank-serve"]:  # one rank of run_multi_rank_serves
         return rank_serve(Path(sys.argv[2]))
+    if sys.argv[1:2] == ["--rank-train"]:  # one rank of run_multi_rank_trains
+        return rank_train(Path(sys.argv[2]))
     if sys.argv[1:] == ["--multi-rank-only"]:
         return multi_rank_only()
     import torch
@@ -2171,6 +2412,7 @@ def main() -> int:
     by_path["rwkv6_serve"] = run_serve(torch, dev, ops, serve, log, "rwkv6-1.6b", SCAN_SERVE_PROMPT)
     by_path["jamba_serve_8l"] = run_jamba_serve(torch, dev, ops, log)
     by_path.update(run_multi_rank_serves(torch, dev, log))
+    by_path.update(run_multi_rank_trains(torch, log))
     by_path["qwen2_train"] = run_train(torch, dev, ops, train, log, "qwen2-0.5b")
     by_path["granite_train"] = run_train(torch, dev, ops, train, log, "granite-moe-1b-a400m")
     by_path["rwkv6_train"] = run_train(torch, dev, ops, train, log, "rwkv6-1.6b")

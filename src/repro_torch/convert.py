@@ -13,6 +13,8 @@ on ``device`` (default: the card), float32 except for indices.
 """
 from __future__ import annotations
 
+from typing import Mapping
+
 import numpy as np
 import torch
 from torch import nn
@@ -84,7 +86,7 @@ def _tree(node, device: torch.device, index: int | None = None) -> nn.Module:
 
 
 def model_params_from_reference(params, cfg: ArchConfig, device: str | torch.device | None = None,
-                                mesh=None) -> nn.ModuleDict:
+                                mesh=None, model: Model | None = None) -> nn.ModuleDict:
     """The port's ``Model.params`` from the reference's parameter tree.
 
     ``params`` is the reference's ``Model.init`` pytree as nested dicts of
@@ -92,8 +94,9 @@ def model_params_from_reference(params, cfg: ArchConfig, device: str | torch.dev
     ``final_norm.scale``, and ``seg{i}.l{j}.*`` stacked on a leading repeat
     axis. Layouts are kept (``wq`` (d, h, hd), ``wo`` (h, hd, d), ...), so
     the conversion is a copy and an unstack of the repeat axis. With a
-    ``mesh`` (``launch.mesh.LMMesh``) it returns this rank's blocks
-    (``Model.place``).
+    ``mesh`` (``launch.mesh.LMMesh``) it returns this rank's blocks,
+    placed as ``model`` places them (``Model.place``; default ``Model(cfg,
+    mesh=mesh)``: pass the training model to carry its FSDP widening).
     """
     dev = resolve(device)
     out: dict[str, nn.Module] = {"embed": _tree(params["embed"], dev),
@@ -101,15 +104,17 @@ def model_params_from_reference(params, cfg: ArchConfig, device: str | torch.dev
     for si, seg in enumerate(build_segments(cfg)):
         stacked = params[f"seg{si}"]
         out[f"seg{si}"] = nn.ModuleList(_tree(stacked, dev, r) for r in range(seg.repeat))
-    return Model(cfg, mesh=mesh).place(nn.ModuleDict(out))
+    return (model or Model(cfg, mesh=mesh)).place(nn.ModuleDict(out))
 
 
-def model_params_to_reference(params: nn.Module, model: Model) -> dict:
+def model_params_to_reference(params: nn.Module | Mapping[str, torch.Tensor], model: Model) -> dict:
     """The reference's parameter tree (nested dicts of numpy arrays, each
     segment's leaves stacked on a leading repeat axis) of the port's
-    ``params``: ``model_params_from_reference``'s inverse. On a mesh
-    ``params`` are this rank's blocks, joined over the mesh's groups
-    (``Model.gather``), so every rank of the mesh must call it."""
+    ``params``: ``model_params_from_reference``'s inverse. ``params`` may
+    also be any mapping of parameter name to tensor: gradients or AdamW
+    moments (``grads_to_reference``). On a mesh they are this rank's
+    blocks, joined over the mesh's groups (``Model.gather``), so every rank
+    of the mesh must call it."""
     tree: dict = {}
     for name, whole in model.gather(params).items():
         path = name.split(".")
@@ -129,6 +134,12 @@ def model_params_to_reference(params: nn.Module, model: Model) -> dict:
                 for k, v in node.items()}
 
     return stack(tree)
+
+
+def grads_to_reference(grads: Mapping[str, torch.Tensor], model: Model) -> dict:
+    """A rank's gradients (``train_step.accumulate_grads``), joined to whole
+    tensors in the reference's tree (``jax.grad(Model.loss_fn)``'s layout)."""
+    return model_params_to_reference(grads, model)
 
 
 def reference_leaf(tree, name: str):

@@ -19,9 +19,10 @@ evaluated.
 ``make_lm_mesh`` builds the LM's ``(data, model)`` mesh the same way, over
 the whole world: the serve path's ranks each hold a block of the batch
 (``data``) and of the parameters and caches (``model``; ``models.layers``
-says how). The reference's production helpers for training and the dry
-run (``make_production_mesh``, ``apply_fsdp``, ``named``) wait for ROADMAP
-M5's second half.
+says how). ``apply_fsdp`` widens the parameter specs over ``data`` as the
+reference's does (``models.transformer.Model`` places and gathers by the
+widened specs). The reference's dry-run helpers (``make_production_mesh``,
+``named``) wait for ROADMAP M5 item 2.
 """
 from __future__ import annotations
 
@@ -37,7 +38,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.factorization.distributed import backend_for
-from repro_torch.models.layers import Axes
+from repro_torch.models.layers import P, Axes
 
 LANE, DATA, MODEL = "lane", "data", "model"
 
@@ -244,6 +245,37 @@ def dp_size(mesh: LMMesh) -> int:
     for n in ("pod", DATA):
         dp *= mesh.shape.get(n, 1)
     return dp
+
+
+def apply_fsdp(specs, shapes, fsdp_axis: str = DATA, fsdp_size: int = 16, min_elems: int = 1 << 22):
+    """Widen param specs with FSDP sharding over ``fsdp_axis``, the
+    reference's rule: a leaf of at least ``min_elems`` elements takes the
+    axis on its largest dimension whose spec entry is ``None`` and whose
+    size ``fsdp_size`` divides, never dimension 0 of a leaf of three or more
+    dimensions (a stacked segment's repeat axis). ``specs`` is a nested dict
+    of ``P``; ``shapes`` the same tree of shapes (the reference's stacked
+    shapes: ``Model.param_shapes``)."""
+
+    def widen(spec: P, shape) -> P:
+        shape = tuple(shape)
+        if len(shape) != len(spec):
+            return spec
+        n = 1
+        for size in shape:
+            n *= size
+        if n < min_elems:
+            return spec
+        entries = list(spec)
+        start = 1 if len(shape) >= 3 else 0
+        for i in sorted(range(start, len(shape)), key=lambda i: -shape[i]):
+            if entries[i] is None and shape[i] % fsdp_size == 0:
+                entries[i] = fsdp_axis
+                return P(*entries)
+        return spec
+
+    if isinstance(specs, P):
+        return widen(specs, shapes)
+    return {k: apply_fsdp(v, shapes[k], fsdp_axis, fsdp_size, min_elems) for k, v in specs.items()}
 
 
 class SubmeshPool:

@@ -65,7 +65,10 @@ def setup(cfg: ArchConfig, batch: int, prompt_len: int, device: torch.device, se
     this rank's rows (``decode_input_specs``)."""
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
-    model = Model(cfg, dtype=torch.float32, ax=make_axes(mesh, batch) if mesh is not None else None, mesh=mesh)
+    # no FSDP for serving: each decode step would gather every layer's
+    # weights over the data group for one token (PERF.md, PR 26)
+    model = Model(cfg, dtype=torch.float32, ax=make_axes(mesh, batch) if mesh is not None else None, mesh=mesh,
+                  fsdp=1)
     model.init(gen)
     prompt = torch.randint(0, cfg.vocab_size, (batch, prompt_len), generator=gen, device=device)
     extra = None

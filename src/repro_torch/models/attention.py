@@ -237,12 +237,22 @@ def _out_proj(params, out: torch.Tensor, cfg: ArchConfig, sh: Shard | None) -> t
     return y if sh is None else sh.psum(y)
 
 
-def _project_qkv(params, x: torch.Tensor, cfg: ArchConfig):
-    q = torch.einsum("bld,dhk->blhk", x, params["wq"])
-    k = torch.einsum("bld,dhk->blhk", x, params["wk"])
-    v = torch.einsum("bld,dhk->blhk", x, params["wv"])
+def _project_qkv(params, x: torch.Tensor, cfg: ArchConfig, sh: Shard | None = None):
+    """q, k and v of x. ``sh`` with the query heads cut: x enters the cut
+    projections through ``Shard.enter``; whole ``wk``/``wv`` (kv heads that
+    do not divide) give whole k and v, which enter as each rank takes its
+    query heads' kv heads (``_local_kv``)."""
+    heads = split_over(sh, cfg.num_heads)
+    kv_cut = heads is not None and heads.split(cfg.num_kv_heads)
+    xq = x if heads is None else heads.enter(x)
+    xkv = xq if kv_cut else x
+    q = torch.einsum("bld,dhk->blhk", xq, params["wq"])
+    k = torch.einsum("bld,dhk->blhk", xkv, params["wk"])
+    v = torch.einsum("bld,dhk->blhk", xkv, params["wv"])
     if cfg.qkv_bias:
         q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
+    if heads is not None and not kv_cut:
+        k, v = heads.enter(k), heads.enter(v)
     return q, k, v
 
 
@@ -253,7 +263,7 @@ def gqa_forward(
     differentiable ``_sdpa_auto`` on every device."""
     l = x.shape[1]
     positions = torch.arange(l, device=x.device) if positions is None else positions
-    q, k, v = _project_qkv(params, x, cfg)
+    q, k, v = _project_qkv(params, x, cfg, sh)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     out = _sdpa_auto(q, *_local_kv(k, v, cfg, sh), causal=True, window=cfg.window)
@@ -281,7 +291,7 @@ def gqa_prefill(
     b, l, _ = x.shape
     cache_len = cache_len or l
     positions = torch.arange(l, device=x.device)
-    q, k, v = _project_qkv(params, x, cfg)
+    q, k, v = _project_qkv(params, x, cfg, sh)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     out = _attend(q, *_local_kv(k, v, cfg, sh), cfg.window)

@@ -23,6 +23,19 @@ reference's ``shard`` constraints, which need no runtime counterpart
 beyond them; activations between layers are whole (replicated) on every
 rank of a model group, and bit-identical there, since every all-reduce
 hands each rank the same sum.
+
+The collectives are ``torch.autograd.Function``s, so a mesh model trains.
+Over the model group: ``psum`` (all-reduce; its backward passes the
+gradient through, as every rank holds the same downstream), ``enter``
+(identity; its backward all-reduces, placed where a replicated activation
+enters a block cut over the model axis, whose ranks each hold a partial
+gradient of it) and ``gather`` (its backward keeps this rank's slice).
+Over the data group: ``gather_data`` (its backward reduce-scatters, summing
+the ranks' gradients into each rank's block: the FSDP weight gathers) and
+``sum_data`` (all-reduce both ways). A data rank's gradients are thus
+``data`` times its rows' share of the batch's, and the train step averages
+them over the data group (``train.train_step``). Outside autograd (serving
+under ``inference_mode``) each runs its one collective, as before.
 """
 from __future__ import annotations
 
@@ -102,17 +115,40 @@ class Shard:
 
     def psum(self, t: torch.Tensor) -> torch.Tensor:
         """``t`` summed over the model group (every rank gets the same bits)."""
-        t = t.contiguous()
-        dist.all_reduce(t, group=self.model_group)
-        return t
+        return _AllReduce.apply(t, self.model_group, False)
+
+    def enter(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` (whole on every rank of the model group) as it enters a block
+        cut over the model axis: the identity, whose gradient is summed over
+        the group."""
+        return _Enter.apply(t, self.model_group) if _records(t) else t
 
     def gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
         """The model group's blocks of ``t`` joined along ``dim``, in rank order."""
-        return _all_gather(t, dim, self.model_group, self.ax.model_size)
+        return _Gather.apply(t, dim, self.model_group, self.ax.model_size, self.model_index, False)
 
-    def gather_data(self, t: torch.Tensor) -> torch.Tensor:
-        """The data group's blocks of ``t`` joined along dim 0, in rank order."""
-        return _all_gather(t, 0, self.data_group, self.data_count)
+    def gather_data(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """The data group's blocks of ``t`` joined along ``dim``, in rank order
+        (the gradient: the group's gradients summed, this rank's block)."""
+        return _Gather.apply(t, dim, self.data_group, self.data_count, self.data_index, True)
+
+    def sum_data(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over the data group (the gradient: summed too)."""
+        return _AllReduce.apply(t, self.data_group, True)
+
+    def cut_axes(self, spec: P) -> tuple[str, ...]:
+        """The mesh axes (``"model"``, ``"data"``) of more than one rank that
+        ``spec`` cuts a leaf over."""
+        axes = []
+        if self.ax.model_size > 1 and self.ax.model in spec:
+            axes.append("model")
+        if self.data_count > 1 and any(e is not None and e != self.ax.model for e in spec):
+            axes.append("data")
+        return tuple(axes)
+
+    def group(self, axis: str):
+        """The process group of mesh axis ``axis`` (``"model"`` or ``"data"``)."""
+        return self.model_group if axis == "model" else self.data_group
 
     def _index(self, entry) -> tuple[int, int] | None:
         """(this rank's block, blocks) of a dimension whose spec entry is ``entry``."""
@@ -152,6 +188,74 @@ def _all_gather(t: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
     parts = [torch.empty_like(t, memory_format=torch.contiguous_format) for _ in range(n)]
     dist.all_gather(parts, t.contiguous(), group=group)
     return torch.cat(parts, dim=dim)
+
+
+def _records(t: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and t.requires_grad
+
+
+def _all_reduce(t: torch.Tensor, group, copy: bool) -> torch.Tensor:
+    """``t`` summed over ``group``: in place unless ``copy`` (an input that
+    autograd records is never written)."""
+    t = t.clone(memory_format=torch.contiguous_format) if copy else t.contiguous()
+    dist.all_reduce(t, group=group)
+    return t
+
+
+class _AllReduce(torch.autograd.Function):
+    """Sum over ``group``; the backward passes the gradient through, or with
+    ``both`` sums it over the group too."""
+
+    @staticmethod
+    def forward(ctx, t, group, both: bool):
+        ctx.group, ctx.both = group, both
+        return _all_reduce(t, group, copy=t.requires_grad)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_all_reduce(g, ctx.group, copy=True) if ctx.both else g), None, None
+
+
+class _Enter(torch.autograd.Function):
+    """The identity; the backward sums the gradient over ``group``."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group, copy=True), None
+
+
+class _Gather(torch.autograd.Function):
+    """All-gather along ``dim`` over ``group`` (``n`` ranks, this one
+    ``index``). The backward keeps this rank's slice of the gradient, or with
+    ``reduce`` sums the ranks' gradients into it (a reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx, t, dim: int, group, n: int, index: int, reduce: bool):
+        ctx.dim, ctx.group, ctx.n, ctx.index, ctx.reduce = dim % t.dim(), group, n, index, reduce
+        if n == 1:
+            return t.view_as(t)
+        if ctx.dim == 0:
+            out = torch.empty((n * t.shape[0], *t.shape[1:]), dtype=t.dtype, device=t.device)
+            dist.all_gather_into_tensor(out, t.contiguous(), group=group)
+            return out
+        return _all_gather(t, ctx.dim, group, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.n == 1:
+            return g, None, None, None, None, None
+        size = g.shape[ctx.dim] // ctx.n
+        if not ctx.reduce:
+            return g.narrow(ctx.dim, ctx.index * size, size), None, None, None, None, None
+        whole = g.movedim(ctx.dim, 0).contiguous()
+        block = whole.new_empty((size, *whole.shape[1:]))
+        dist.reduce_scatter_tensor(block, whole, group=ctx.group)
+        return block.movedim(0, ctx.dim), None, None, None, None, None
 
 
 def split_over(sh: Shard | None, size: int) -> Shard | None:
@@ -230,6 +334,8 @@ def mlp_specs(ax: Axes, d: int, d_ff: int, seq_sharded: bool = False) -> dict:
 def mlp(params, x: torch.Tensor, sh: Shard | None = None) -> torch.Tensor:
     """SwiGLU. ``sh``: the hidden dimension is cut over its model axis
     (column- then row-parallel), so the output is summed over the group."""
+    if sh is not None:
+        x = sh.enter(x)
     h = F.silu(x @ params["w_gate"]) * (x @ params["w_up"])
     y = h @ params["w_down"]
     return y if sh is None else sh.psum(y)
@@ -271,6 +377,8 @@ def lm_logits(params, x: torch.Tensor, sh: Shard | None = None) -> torch.Tensor:
     """(B, L, d) -> (B, L, V), fp32 logits. ``sh``: the vocabulary is cut
     over its model axis; each rank computes its block of columns and the
     group all-gathers them (the sampler needs the whole vocabulary)."""
+    if sh is not None:
+        x = sh.enter(x)
     if "lm_head" in params:
         logits = x @ params["lm_head"].to(x.dtype)
     else:
@@ -279,11 +387,17 @@ def lm_logits(params, x: torch.Tensor, sh: Shard | None = None) -> torch.Tensor:
     return logits if sh is None else sh.gather(logits, -1)
 
 
-def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, ignore_id: int = -1) -> torch.Tensor:
-    """Mean token NLL; labels == ignore_id are masked."""
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, ignore_id: int = -1,
+                  sh: Shard | None = None) -> torch.Tensor:
+    """Mean token NLL; labels == ignore_id are masked. ``sh`` with the batch
+    cut over the data axis: the mean over the whole batch's unmasked labels
+    (the summed NLL and the label count summed over the data group)."""
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.clamp(min=0).long()[..., None])[..., 0]
     nll = logz - gold
     mask = (labels != ignore_id).float()
-    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    total, count = torch.sum(nll * mask), torch.sum(mask)
+    if sh is not None and sh.batch_split:
+        total, count = sh.sum_data(total), _all_reduce(count, sh.data_group, copy=False)
+    return total / torch.clamp(count, min=1.0)

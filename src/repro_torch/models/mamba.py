@@ -15,7 +15,9 @@ On a ``(data, model)`` mesh (``sh``) the mixer runs on this rank's block
 of the ``d_in`` channels (``mamba_specs``): the conv, dt, A, D and the scan
 are per channel; ``x_proj``'s dt, B and C are partial sums over the
 channels, all-reduced before ``dt_proj``, and ``out_proj``'s output is
-all-reduced. ``in_proj`` is cut on its fused ``2·d_in`` output; the port
+all-reduced. For training, the input and the all-reduced projection enter
+the rank's channels through ``Shard.enter`` (their gradients are partial
+sums over the channels). ``in_proj`` is cut on its fused ``2·d_in`` output; the port
 lays a rank's block out as ``[x_r | z_r]`` (``in_proj_layout``), its own
 channels of x and of z, where the spec's contiguous block of ``[x | z]``
 would hand rank r other channels of x or of z than its own.
@@ -149,8 +151,8 @@ def _ssm_params(params, x: torch.Tensor, d_state: int, dt_rank: int, sh: Shard |
     """dt, B, C and A from the conv's output x. ``sh``: x holds this rank's
     block of channels, so ``x_proj``'s output is summed over the group."""
     proj = x @ params["x_proj"]  # (B, L, dt_rank + 2n)
-    if sh is not None:
-        proj = sh.psum(proj)
+    if sh is not None:  # whole again, and entering this rank's channels (dt_proj, the scan)
+        proj = sh.enter(sh.psum(proj))
     dt = F.softplus(proj[..., :dt_rank] @ params["dt_proj"] + params["dt_bias"]).float()
     b = proj[..., dt_rank : dt_rank + d_state].float()
     c = proj[..., dt_rank + d_state :].float()
@@ -162,7 +164,7 @@ def mamba_forward_with_state(params, u: torch.Tensor, cfg: ArchConfig,
                              sh: Shard | None = None) -> tuple[torch.Tensor, MambaState]:
     """u: (B, L, d) -> ((B, L, d), the decode state after u). ``sh``: the
     d_in channels are cut over its model axis."""
-    x, z, d_in, d_state, dt_rank = _project(params, u, cfg)
+    x, z, d_in, d_state, dt_rank = _project(params, u if sh is None else sh.enter(u), cfg)
     d_conv = params["conv_w"].shape[0]
     xc = F.silu(_conv_causal(x, params["conv_w"], params["conv_b"]))
     dt, b, c, a = _ssm_params(params, xc, d_state, dt_rank, sh)

@@ -30,7 +30,11 @@ whole batch and keep their own slots, so the drops are the unsharded
 model's. When the experts divide the model axis (``moe_specs``) a rank
 fills and runs only its own experts' buffers (expert parallelism);
 otherwise ``d_expert`` is cut, or nothing. Either way each rank sums the
-routed outputs it holds and the model group all-reduces them.
+routed outputs it holds and the model group all-reduces them; the tokens
+and the gates enter the cut experts through ``Shard.enter``, so their
+gradients (and the router's, and the residual stream's) are the group's
+sums. The aux losses' means are summed over the data group by
+``Shard.sum_data``, whose gradient is summed too.
 
 The backward stays free of float atomics too: the gradient of the scatter
 is a gather, and a token's ``top_k`` copies are an ``expand``, whose
@@ -44,7 +48,6 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
-import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -187,8 +190,11 @@ def moe_ffn(params, x: torch.Tensor, cfg: ArchConfig, capacity_factor: float | N
     capacity = capacity_of(t * data, m, capacity_factor)
     r = route(params, xt, cfg, capacity, sh)
 
+    routed_sh = split_over(sh, e) or split_over(sh, m.d_expert)
+    # the tokens and gates enter the experts cut over the model axis (their gradients are partial sums)
+    xe, gates = (xt, r.gates) if routed_sh is None else (routed_sh.enter(xt), routed_sh.enter(r.gates))
     # each token's top_k copies, token-major as expert_ids (token_of = repeat(arange(t), top_k))
-    contrib = xt[:, None, :].expand(t, m.top_k, d).reshape(t * m.top_k, d)
+    contrib = xe[:, None, :].expand(t, m.top_k, d).reshape(t * m.top_k, d)
     e_local, mine = e, r
     if split_over(sh, e) is not None:  # expert parallel: this rank's experts' slots only
         e_local = e // sh.ax.model_size
@@ -199,15 +205,16 @@ def moe_ffn(params, x: torch.Tensor, cfg: ArchConfig, capacity_factor: float | N
 
     h = F.silu(torch.bmm(buffers, params["w_gate"])) * torch.bmm(buffers, params["w_up"])
     out_buf = torch.bmm(h, params["w_down"]).reshape(e_local * capacity, d)
-    routed = out_buf[mine.buf_idx] * (r.gates.reshape(-1)[:, None] * mine.keep[:, None]).to(x.dtype)
+    routed = out_buf[mine.buf_idx] * (gates.reshape(-1)[:, None] * mine.keep[:, None]).to(x.dtype)
     y = routed.view(t, m.top_k, d).sum(1)
-    if split_over(sh, m.num_experts) is not None or split_over(sh, m.d_expert) is not None:
-        y = sh.psum(y)
+    if routed_sh is not None:
+        y = routed_sh.psum(y)
 
     if m.num_shared:
         s = params["shared"]
-        hs = F.silu(xt @ s["w_gate"]) * (xt @ s["w_up"])
         shared = split_over(sh, m.num_shared * m.d_expert)
+        xs = xt if shared is None else shared.enter(xt)
+        hs = F.silu(xs @ s["w_gate"]) * (xs @ s["w_up"])
         y = y + (hs @ s["w_down"] if shared is None else shared.psum(hs @ s["w_down"]))
 
     # Switch load-balance loss: E * sum_e f_e * p_e (f = fraction routed,
@@ -216,8 +223,7 @@ def moe_ffn(params, x: torch.Tensor, cfg: ArchConfig, capacity_factor: float | N
     pmean = torch.mean(r.probs, dim=0)
     z = torch.mean(torch.logsumexp(r.logits, dim=-1) ** 2)
     if data > 1:  # the whole batch's: the data ranks' means of t tokens each, averaged
-        sums = torch.cat([counts, pmean, z[None]])
-        dist.all_reduce(sums, group=sh.data_group)
+        sums = sh.sum_data(torch.cat([counts, pmean, z[None]]))
         counts, pmean, z = sums[:e], sums[e : 2 * e] / data, sums[2 * e] / data
     f = counts / (t * data * m.top_k)
     lb = e * torch.sum(f * pmean)

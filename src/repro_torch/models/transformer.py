@@ -32,7 +32,18 @@ leading ``None`` for the repeat axis, so the spec of the port's tensor
 entry (``leaf_specs``). The batch is cut over the data axis when ``ax``
 names it. The layer kinds with no mesh path (MLA, RWKV, attention whose
 heads do not divide the model axis) raise on a model axis of more than
-one rank (``check_mesh``); training on a mesh waits too (ROADMAP M5).
+one rank (``check_mesh``).
+
+FSDP: with ``data`` > 1 ranks the specs are widened over the data axis by
+the reference's ``apply_fsdp`` (``launch.mesh``), decided on the
+reference's stacked shapes (``param_shapes``). Each layer gathers its
+widened leaves over the data group just before use (``_use``, a
+``_Gathered`` view; the gather's backward reduce-scatters the gradient
+into the rank's block), inside the layer's own checkpoint: under remat
+``full`` the gathered weights do not outlive their layer's forward and
+are gathered again in its backward.
+``loss_fn`` trains on a mesh: its collectives are autograd Functions
+(``layers``) and its cross entropy is the whole batch's mean.
 
 A Mamba or RWKV layer's prefill takes its decode state from the forward's
 own scan; the reference runs the scan a second time for it
@@ -43,6 +54,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+from collections.abc import Mapping
 
 import torch
 import torch.nn.functional as F
@@ -399,24 +411,60 @@ def _flat(tree, prefix: str = "") -> dict[str, P]:
     return out
 
 
+class _Gathered(Mapping):
+    """A parameter subtree of a FSDP model as the layer functions read it:
+    each FSDP leaf gathered whole over the data group when it is first read,
+    just before its use. Its gather node then follows the layer's earlier
+    ops in autograd's order, so the backward reduce-scatters the leaf's
+    gradient as soon as it is complete, and the layer's whole gradients do
+    not pile up."""
+
+    def __init__(self, model: "Model", node: nn.Module, prefix: str):
+        self._model, self._node, self._prefix, self._read = model, node, prefix, {}
+
+    def __getitem__(self, key: str):
+        if key not in self._read:
+            value, name = self._node[key], f"{self._prefix}{key}"
+            dims = self._model.fsdp_dims()
+            if isinstance(value, nn.Module):
+                value = _Gathered(self._model, value, f"{name}.")
+            elif name in dims:
+                value = self._model.sh.gather_data(value, dims[name])
+            self._read[key] = value
+        return self._read[key]
+
+    def __contains__(self, key) -> bool:
+        return key in self._node
+
+    def __iter__(self):
+        return iter(self._node.keys())
+
+    def __len__(self) -> int:
+        return len(self._node)
+
+
 class Model(nn.Module):
     """The decoder bound to a config. ``init(generator)`` draws the
     parameters on the generator's device; a converted parameter tree can be
     assigned to ``params`` instead (on a mesh, through ``place``). Every
     method runs on the parameters' device; only ``loss_fn`` records autograd.
 
-    ``remat`` (``"full"``, ``"dots"``, ``"none"``) is the reference's, one
-    checkpoint per repeat of a segment. The full-sequence forward takes
+    ``remat`` (``"full"``, ``"dots"``, ``"none"``) is the reference's
+    policy, with one checkpoint a layer (the reference's: one a repeat of a
+    segment, which holds a whole period's recomputed activations, and on a
+    FSDP mesh its gathered weights, at once). The full-sequence forward takes
     plain attention on every device: the flash kernel has no backward.
 
     ``ax`` is the reference's axis environment, which sets the specs
     (``param_specs``, ``cache_specs``); without a ``mesh`` nothing is cut.
     ``mesh`` (``launch.mesh.LMMesh``) places the model on a ``(data,
     model)`` mesh of ranks; ``ax`` then defaults to the mesh's (batch over
-    ``data``), and its model size must be the mesh's."""
+    ``data``), and its model size must be the mesh's. ``fsdp`` (default: the
+    mesh's data ranks) and ``fsdp_min_elems`` are ``apply_fsdp``'s
+    ``fsdp_size`` and ``min_elems``; ``fsdp`` 1 widens nothing."""
 
     def __init__(self, cfg: ArchConfig, dtype=torch.float32, remat: str = "full", ax: Axes | None = None,
-                 mesh=None):
+                 mesh=None, fsdp: int | None = None, fsdp_min_elems: int = 1 << 22):
         super().__init__()
         if remat not in REMAT:
             raise ValueError(f"remat must be one of {REMAT}, got {remat!r}")
@@ -429,6 +477,12 @@ class Model(nn.Module):
         model_size = mesh.model_count if mesh is not None else 1
         self.ax = ax or Axes(batch=("data",), model="model", model_size=model_size)
         self.sh: Shard | None = None
+        self.fsdp = 1 if mesh is None else (mesh.data_count if fsdp is None else fsdp)
+        self.fsdp_min_elems = fsdp_min_elems
+        if self.fsdp > 1 and self.fsdp != mesh.data_count:
+            raise ValueError(f"fsdp over {self.fsdp} ranks on a mesh of {mesh.data_count} data ranks")
+        self._specs: dict[str, P] | None = None
+        self._dims: dict[str, int] | None = None
         if mesh is not None:
             if self.ax.model_size != mesh.model_count:
                 raise ValueError(f"axes of model size {self.ax.model_size} on a mesh of {mesh.model_count} model ranks")
@@ -456,19 +510,66 @@ class Model(nn.Module):
                                                 for i, d in enumerate(seg.layers)})
                 for si, seg in enumerate(self.segments)}
 
+    def param_shapes(self) -> dict:
+        """The reference's parameter shapes (``jax.eval_shape(Model.init)``):
+        a segment's leaves stacked on a leading repeat axis. One repeat of
+        each segment is drawn on fake tensors (no memory)."""
+        from torch._subclasses.fake_tensor import FakeTensorMode
+
+        cfg, gen = self.cfg, torch.Generator()
+
+        def shapes(node, lead=()):
+            return {k: shapes(v, lead) if isinstance(v, nn.Module) else (*lead, *v.shape) for k, v in node.items()}
+
+        with FakeTensorMode():
+            tree = {"embed": shapes(embedding_init(gen, cfg.vocab_size, cfg.d_model, cfg.tie_embeddings, self.dtype)),
+                    "final_norm": shapes(rmsnorm_init(cfg.d_model, gen.device))}
+            for si, seg in enumerate(self.segments):
+                tree[f"seg{si}"] = {f"l{i}": shapes(layer_init(gen, cfg, d, self.dtype), (seg.repeat,))
+                                    for i, d in enumerate(seg.layers)}
+        return tree
+
+    def placed_specs(self) -> dict:
+        """The spec tree this model places its parameters by: ``param_specs``,
+        widened over the data axis by ``apply_fsdp`` when ``fsdp`` > 1."""
+        from repro_torch.launch.mesh import apply_fsdp  # launch.mesh imports models
+
+        if self.fsdp == 1:
+            return self.param_specs()
+        return apply_fsdp(self.param_specs(), self.param_shapes(), "data", self.fsdp, self.fsdp_min_elems)
+
     def leaf_specs(self) -> dict[str, P]:
-        """Each parameter's spec by the port's parameter name: a segment's
-        ``seg{i}.{r}.l{j}.…`` takes the reference leaf's spec without its
-        repeat entry."""
+        """Each parameter's spec by the port's parameter name (of
+        ``placed_specs``): a segment's ``seg{i}.{r}.l{j}.…`` takes the
+        reference leaf's spec without its repeat entry."""
+        if self._specs is not None:
+            return self._specs
         out = {}
-        for name, spec in _flat(self.param_specs()).items():
+        for name, spec in _flat(self.placed_specs()).items():
             if name.startswith("seg"):
+                if spec[0] is not None:
+                    raise NotImplementedError(f"{name}: FSDP over a segment's repeat axis ({spec}) has no "
+                                              "per-repeat layout (ROADMAP M5)")
                 si, rest = name.split(".", 1)
                 for r in range(self.segments[int(si[3:])].repeat):
                     out[f"{si}.{r}.{rest}"] = P(*spec[1:])
             else:
                 out[name] = spec
+        self._specs = out
         return out
+
+    def fsdp_dims(self) -> dict[str, int]:
+        """{parameter name: the dimension cut over the data axis} of the FSDP leaves."""
+        if self._dims is None:
+            self._dims = {name: dim for name, spec in self.leaf_specs().items() for dim, e in enumerate(spec)
+                          if e is not None and e != self.ax.model} if self.fsdp > 1 else {}
+        return self._dims
+
+    def _use(self, node: nn.Module, prefix: str):
+        """``node`` (a subtree of ``params`` at ``prefix``) as the layer
+        functions read it: the module itself without FSDP leaves, else a
+        ``_Gathered`` view of it."""
+        return _Gathered(self, node, prefix) if self.fsdp_dims() else node
 
     def _relaid(self, name: str) -> bool:
         """Whether this rank's block of parameter ``name`` is a re-laid Mamba ``in_proj``."""
@@ -490,15 +591,17 @@ class Model(nn.Module):
             param.data = self.sh.cut(whole, specs[name]).clone()
         return params
 
-    def gather(self, params: nn.Module) -> dict[str, torch.Tensor]:
-        """{name: whole tensor} of this rank's blocks ``params``, joined over
-        the mesh's groups (``place``'s inverse; every rank of the mesh must
-        call it)."""
+    def gather(self, params) -> dict[str, torch.Tensor]:
+        """{name: whole tensor} of this rank's blocks ``params`` (a parameter
+        tree, or a mapping of parameter name to block, such as gradients),
+        joined over the mesh's groups (``place``'s inverse; every rank of the
+        mesh must call it)."""
+        named = params.named_parameters() if isinstance(params, nn.Module) else params.items()
         if self.sh is None:
-            return {name: p.data for name, p in params.named_parameters()}
+            return {name: p.detach() for name, p in named}
         specs, out = self.leaf_specs(), {}
-        for name, param in params.named_parameters():
-            whole = self.sh.join(param.data, specs[name])
+        for name, param in named:
+            whole = self.sh.join(param.detach(), specs[name])
             out[name] = mam.in_proj_layout(whole, self.ax.model_size, inverse=True) if self._relaid(name) else whole
         return out
 
@@ -530,29 +633,28 @@ class Model(nn.Module):
                     yield rep[f"l{i}"], d, si, r, f"l{i}"
 
     # ---- forward --------------------------------------------------------------
-    def _repeat(self, seg: Segment, rep: nn.ModuleDict, x: torch.Tensor,
-                aux: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        """One repeat of a segment: its layers in order, each adding its
-        router aux loss (an MoE layer's) to the carried ``aux``, as the
-        reference's scan body."""
-        for i, d in enumerate(seg.layers):
-            x, a = layer_forward(rep[f"l{i}"], x, self.cfg, d, self.sh)
-            if a is not None:
-                aux = aux + a
-        return x, aux
+    def _layer(self, params: nn.ModuleDict, desc: LayerDesc, prefix: str, x: torch.Tensor,
+               aux: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """One layer, adding its router aux loss (an MoE layer's) to the
+        carried ``aux``, as the reference's scan body; its FSDP leaves are
+        gathered inside (``_use``)."""
+        x, a = layer_forward(self._use(params, prefix), x, self.cfg, desc, self.sh)
+        return x, aux if a is None else aux + a
 
     def hidden(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """(B, L, d) -> (final-normed hidden, moe_aux): the weighted router
         aux losses summed over the layers (0 without an MoE layer). Where
-        autograd records, each repeat is checkpointed as ``remat`` asks,
+        autograd records, each layer is checkpointed as ``remat`` asks,
         with the carried aux its second input and output; elsewhere it runs
         straight."""
         remat = self.remat if torch.is_grad_enabled() else "none"
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for si, seg in enumerate(self.segments):
-            for rep in self.params[f"seg{si}"]:
-                x, aux = _remat(functools.partial(self._repeat, seg, rep), remat)(x, aux)
-        return rmsnorm(self.params["final_norm"], x, self.cfg.norm_eps), aux
+            for r, rep in enumerate(self.params[f"seg{si}"]):
+                for i, d in enumerate(seg.layers):
+                    layer = functools.partial(self._layer, rep[f"l{i}"], d, f"seg{si}.{r}.l{i}.")
+                    x, aux = _remat(layer, remat)(x, aux)
+        return rmsnorm(self._use(self.params["final_norm"], "final_norm."), x, self.cfg.norm_eps), aux
 
     @torch.inference_mode()
     def backbone(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -562,21 +664,20 @@ class Model(nn.Module):
     def loss_fn(self, batch: dict[str, torch.Tensor]) -> torch.Tensor:
         """Mean next-token NLL of ``batch`` (``tokens``, ``labels``, and
         ``embeds`` for an embeddings arch) plus the MoE aux loss; autograd
-        records it wherever grad mode is on. Not on a mesh: training there
-        waits for ROADMAP M5's second half (the collectives have no backward here)."""
-        if self.sh is not None:
-            raise NotImplementedError("training on a mesh is not ported yet (ROADMAP M5)")
+        records it wherever grad mode is on. On a mesh ``batch`` holds this
+        rank's rows, and the loss is the whole batch's, the same on every rank."""
         h, aux = self.hidden(self.embed_input(batch))
-        return cross_entropy(self.logits(h), batch["labels"]) + aux
+        return cross_entropy(self.logits(h), batch["labels"], sh=self.sh) + aux
 
     def embed_input(self, batch: dict[str, torch.Tensor]) -> torch.Tensor:
         if self.cfg.input_mode == "embeddings" and "embeds" in batch:
             return batch["embeds"].to(self.dtype)
-        return embed_tokens(self.params["embed"], batch["tokens"], split_over(self.sh, self.cfg.vocab_size))
+        return embed_tokens(self._use(self.params["embed"], "embed."), batch["tokens"],
+                            split_over(self.sh, self.cfg.vocab_size))
 
     def logits(self, h: torch.Tensor) -> torch.Tensor:
         """fp32 logits over the whole vocabulary (gathered on a mesh)."""
-        return lm_logits(self.params["embed"], h, split_over(self.sh, self.cfg.vocab_size))
+        return lm_logits(self._use(self.params["embed"], "embed."), h, split_over(self.sh, self.cfg.vocab_size))
 
     # ---- prefill / decode -----------------------------------------------------
     def cache_init(self, batch: int, seq_len: int) -> dict[str, list[dict[str, Cache]]]:
@@ -605,17 +706,19 @@ class Model(nn.Module):
         x = self.embed_input(batch)
         caches = {f"seg{si}": [{} for _ in range(seg.repeat)] for si, seg in enumerate(self.segments)}
         for params, d, si, r, name in self._layers():
-            x, caches[f"seg{si}"][r][name] = layer_prefill(params, x, self.cfg, d, cache_len, self.sh)
-        h = rmsnorm(self.params["final_norm"], x, self.cfg.norm_eps)
+            x, caches[f"seg{si}"][r][name] = layer_prefill(self._use(params, f"seg{si}.{r}.{name}."), x, self.cfg, d,
+                                                           cache_len, self.sh)
+        h = rmsnorm(self._use(self.params["final_norm"], "final_norm."), x, self.cfg.norm_eps)
         return self.logits(h[:, -1:]), caches
 
     @torch.inference_mode()
     def decode_step(self, caches, tokens: torch.Tensor, pos: int):
         """tokens: (B, 1) int; pos: absolute position. Returns (logits (B, 1, V), caches);
         the caches are updated in place."""
-        x = embed_tokens(self.params["embed"], tokens, split_over(self.sh, self.cfg.vocab_size))
+        x = embed_tokens(self._use(self.params["embed"], "embed."), tokens, split_over(self.sh, self.cfg.vocab_size))
         for params, d, si, r, name in self._layers():
             seg_cache = caches[f"seg{si}"][r]
-            x, seg_cache[name] = layer_decode(params, x, seg_cache[name], pos, self.cfg, d, self.sh)
-        h = rmsnorm(self.params["final_norm"], x, self.cfg.norm_eps)
+            x, seg_cache[name] = layer_decode(self._use(params, f"seg{si}.{r}.{name}."), x, seg_cache[name], pos,
+                                              self.cfg, d, self.sh)
+        h = rmsnorm(self._use(self.params["final_norm"], "final_norm."), x, self.cfg.norm_eps)
         return self.logits(h), caches

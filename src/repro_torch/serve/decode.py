@@ -9,9 +9,13 @@ runs ``generate`` on its rows of the prompt: the ranks of a model group
 compute the same whole logits, so they return the same tokens, and each
 data rank returns its block of the batch's rows.
 
-Sampling at ``temperature > 0`` draws with ``torch.multinomial`` over the
-softmax from an explicit ``torch.Generator``; it cannot reproduce the bits
-of the reference's ``jax.random.categorical``.
+Sampling at ``temperature > 0`` draws by inverse CDF over the softmax,
+one uniform a row from an explicit ``torch.Generator`` (it cannot
+reproduce the bits of the reference's ``jax.random.categorical``). As the
+reference samples the whole batch with one replicated key, every rank
+draws the uniforms of the whole global batch from its generator (seeded
+alike on every rank) and takes its own rows' (``_sample``), so the tokens
+do not depend on how the batch is cut and a model group still agrees.
 """
 from __future__ import annotations
 
@@ -23,15 +27,30 @@ from repro_torch.models.layers import P
 from repro_torch.models.transformer import Model
 
 
+def _sample(logits: torch.Tensor, generator: torch.Generator | None, blocks: int = 1,
+            index: int = 0) -> torch.Tensor:
+    """One token a row of ``logits`` (B, V), drawn from its softmax by inverse
+    CDF: the first token whose cumulative probability exceeds the row's
+    uniform (a zero-probability token is never drawn). ``blocks`` rows of B
+    (the global batch) draw their uniforms at once, and these rows take
+    block ``index``'s."""
+    b = logits.shape[0]
+    u = torch.rand((blocks * b,), generator=generator, device=logits.device)[index * b:(index + 1) * b]
+    cdf = torch.cumsum(torch.softmax(logits, dim=-1), dim=-1)
+    nxt = torch.searchsorted(cdf, (u * cdf[:, -1])[:, None], right=True)[:, 0]
+    return nxt.clamp(max=logits.shape[-1] - 1)
+
+
 def make_serve_step(model: Model, temperature: float = 0.0):
     """serve_step(caches, tokens, pos, generator) -> (next_tokens (B, 1), caches)."""
+    sh = model.sh
+    blocks, index = (sh.data_count, sh.data_index) if sh is not None and sh.batch_split else (1, 0)
 
     def serve_step(caches, tokens: torch.Tensor, pos: int, generator: torch.Generator | None = None):
         logits, caches = model.decode_step(caches, tokens, pos)
         last = logits[:, -1]
         if temperature > 0.0:
-            probs = torch.softmax(last / temperature, dim=-1)
-            nxt = torch.multinomial(probs, 1, generator=generator)[:, 0]
+            nxt = _sample(last / temperature, generator, blocks, index)
         else:
             nxt = torch.argmax(last, dim=-1)
         return nxt.to(torch.int32)[:, None], caches

@@ -1,13 +1,25 @@
 """Training step: microbatched gradient accumulation, optional gradient
-compression, AdamW.
+compression, AdamW, and the reference's batch and metric specs.
 
 ``make_train_step(model, tcfg)`` returns ``train_step(params, opt_state,
 batch) -> (params, opt_state, metrics)``. ``accumulate_grads`` runs each of
 the ``microbatches`` slices of the batch forward and backward on its own
-(activations never exceed one microbatch); the gradients are summed in
-``accum_dtype`` and divided by their count, as the reference's scan does.
-The reference's ``batch_specs`` and ``metric_specs`` are sharding specs and
-have no counterpart on one card (ROADMAP Queue 1 M5).
+(activations never exceed one microbatch); each parameter's gradient is
+added into one ``accum_dtype`` buffer as autograd produces it (a
+post-accumulate hook), so no second full set of gradients is held, and the
+sums are divided by their count, as the reference's scan does.
+
+On a ``(data, model)`` mesh (``Model(mesh=...)``) every rank is handed the
+whole global batch: it is split into microbatches first, as the
+reference's ``_split_microbatches`` splits it, and each microbatch is then
+cut to this rank's rows by ``batch_specs``, so a microbatch holds the
+reference's rows (an MoE layer's capacity is the microbatch's). A data
+rank's gradients are ``data`` times its rows' share (``models.layers``);
+after the microbatch loop the gradients of leaves whole over the data
+axis are all-reduced over the data group, and every gradient is divided
+by the data ranks (an FSDP leaf's was summed by its gather's
+reduce-scatter). ZeRO-1 moments and ``int8`` compression on a cut mesh
+raise (ROADMAP).
 """
 from __future__ import annotations
 
@@ -15,8 +27,10 @@ import dataclasses
 from typing import Callable
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
+from repro_torch.models.layers import P
 from repro_torch.models.transformer import Model
 from .compression import compress_tree
 from .optimizer import AdamWConfig, OptState, adamw_update
@@ -28,6 +42,8 @@ class TrainConfig:
     microbatches: int = 1  # grad-accumulation steps per optimizer step
     compression: str = "none"  # none | bf16 | int8
     accum_dtype: torch.dtype = torch.float32  # bf16 halves the grad buffer at 405B
+    # AdamW moments cut further over 'data' (opt_state_specs(zero1=True)); no step on a cut mesh yet
+    zero1: bool = False
 
 
 def auto_train_config(param_count: int, global_batch: int, dp: int, moe: bool = False) -> TrainConfig:
@@ -50,6 +66,19 @@ def auto_train_config(param_count: int, global_batch: int, dp: int, moe: bool = 
     return TrainConfig(opt=AdamWConfig(state_dtype=state), microbatches=n, accum_dtype=accum)
 
 
+def batch_specs(model: Model, shape_kind: str = "train") -> dict[str, P]:
+    """The reference's: tokens, labels (and embeds) cut by batch."""
+    ax = model.ax
+    specs = {"tokens": P(ax.b, None), "labels": P(ax.b, None)}
+    if model.cfg.input_mode == "embeddings":
+        specs["embeds"] = P(ax.b, None, None)
+    return specs
+
+
+def metric_specs() -> dict[str, P]:
+    return {"loss": P(), "grad_norm": P(), "lr": P()}
+
+
 def _split_microbatches(batch: dict[str, torch.Tensor], n: int) -> dict[str, torch.Tensor]:
     """(B, ...) -> (n, B/n, ...): microbatch i is ``{k: v[i]}``."""
 
@@ -67,26 +96,60 @@ def accumulate_grads(
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """(mean loss, gradients by parameter name) of ``model.params`` over
     ``batch`` in ``n`` microbatches: each runs its forward and backward on
-    its own, the gradients are summed in ``accum_dtype`` and divided by
-    ``n``. Turns gradients on for ``model.params``."""
+    its own, each gradient is added into its ``accum_dtype`` buffer as it
+    appears and the sums are divided by ``n`` (``n`` 1: autograd's gradients
+    as they come). On a mesh ``batch`` is the global batch and the
+    gradients are this rank's blocks, reduced over the data group. Turns
+    gradients on for ``model.params``."""
     model.params.requires_grad_(True)
     names, leaves = zip(*model.params.named_parameters())
-    with torch.enable_grad():
-        if n == 1:
-            loss = model.loss_fn(batch)
-            grads = torch.autograd.grad(loss, leaves)
-            loss = loss.detach()
-        else:
-            mb = _split_microbatches(batch, n)
-            loss = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
-            grads = [torch.zeros(p.shape, dtype=accum_dtype, device=p.device) for p in leaves]
-            for i in range(n):
-                loss_i = model.loss_fn({k: v[i] for k, v in mb.items()})
-                for g_sum, g_i in zip(grads, torch.autograd.grad(loss_i, leaves)):
-                    g_sum += g_i.to(accum_dtype)
-                loss = loss + loss_i.detach()
-            loss = loss / n
-            grads = [g / n for g in grads]
+    sh = model.sh
+    rows = batch_specs(model)
+    grads: list = ([None] * len(leaves) if n == 1 else
+                   [torch.zeros(p.shape, dtype=accum_dtype, device=p.device) for p in leaves])
+
+    def adder(i: int):
+        def add(p: torch.Tensor) -> None:
+            if n == 1:
+                grads[i] = p.grad
+            else:
+                grads[i] += p.grad.to(accum_dtype)
+            p.grad = None
+
+        return add
+
+    def mine(part: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+        return part if sh is None else {k: sh.cut(v, rows[k]) for k, v in part.items()}
+
+    hooks = [p.register_post_accumulate_grad_hook(adder(i)) for i, p in enumerate(leaves)]
+    try:
+        with torch.enable_grad():
+            if n == 1:
+                loss = model.loss_fn(mine(batch))
+                loss.backward()
+                loss = loss.detach()
+            else:
+                mb = _split_microbatches(batch, n)
+                loss = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+                for i in range(n):
+                    loss_i = model.loss_fn(mine({k: v[i] for k, v in mb.items()}))
+                    loss_i.backward()
+                    loss = loss + loss_i.detach()
+                loss = loss / n
+                for g in grads:  # in place: a second full set of gradients would not fit a large model
+                    g.div_(n)
+    finally:
+        for hook in hooks:
+            hook.remove()
+    missing = [name for name, g in zip(names, grads) if g is None]
+    if missing:
+        raise RuntimeError(f"no gradient reached {missing}")
+    if sh is not None and sh.data_count > 1:
+        specs = model.leaf_specs()
+        for name, g in zip(names, grads):
+            if "data" not in sh.cut_axes(specs[name]):
+                dist.all_reduce(g, group=sh.data_group)
+            g /= sh.data_count
     return loss, dict(zip(names, grads))
 
 
@@ -97,13 +160,25 @@ def make_train_step(
 
     ``params`` becomes the model's parameter tree, with gradients turned on,
     and is updated in place; ``metrics`` holds ``loss``, ``grad_norm`` and
-    ``lr`` as 0-d tensors on the parameters' device."""
+    ``lr`` as 0-d tensors on the parameters' device (on a mesh, the same on
+    every rank). On a mesh that cuts any leaf, ZeRO-1 moments and ``int8``
+    compression (whose 256-element blocks run over a whole leaf's order)
+    raise ``NotImplementedError``."""
+    sh = model.sh
+    cut = sh is not None and (sh.data_count > 1 or sh.ax.model_size > 1)
+    if cut and tcfg.zero1 and sh.data_count > 1:
+        raise NotImplementedError("a train step with ZeRO-1 moments (opt_state_specs(zero1=True)) on a mesh "
+                                  "is not ported yet (ROADMAP M5)")
+    if cut and tcfg.compression == "int8":
+        raise NotImplementedError("int8 gradient compression on a mesh is not ported yet: its blocks run over "
+                                  "a whole leaf (ROADMAP M5)")
+    specs = model.leaf_specs() if sh is not None else None
 
     def train_step(params: nn.Module, opt_state: OptState, batch: dict[str, torch.Tensor]):
         model.params = params
         loss, grads = accumulate_grads(model, batch, tcfg.microbatches, tcfg.accum_dtype)
         grads = compress_tree(grads, tcfg.compression)
-        params, opt_state, metrics = adamw_update(params, grads, opt_state, tcfg.opt)
+        params, opt_state, metrics = adamw_update(params, grads, opt_state, tcfg.opt, sh, specs)
         return params, opt_state, dict(metrics, loss=loss)
 
     return train_step

@@ -1,0 +1,353 @@
+"""The port's LM training on a ``(data, model)`` mesh against the JAX reference.
+
+The specs are data: ``apply_fsdp``, ``opt_state_specs`` (with and without
+ZeRO-1), ``batch_specs`` and ``metric_specs`` equal the reference's trees
+for every arch of the registry at meshes ``(16, 16)``, ``(2, 2)`` and
+``(4, 1)``, on the reference's stacked shapes (``jax.eval_shape`` of its
+``Model.init``, which ``Model.param_shapes`` reproduces).
+
+The mesh runs in ``tests/_torch_lm_train_mesh_child.py``: gloo ranks, one
+spawn per mesh shape, every case of that shape inside it, while the
+reference runs here, unsharded. Reduced jamba (8 layers) at ``(1, 4)``,
+``(2, 2)`` and ``(4, 1)``, reduced granite (MoE, router aux weights raised
+to 0.1 and 0.01) at ``(2, 2)`` and ``(4, 1)``, reduced qwen2 at ``(4, 1)``
+with ``ignore_id`` labels spread unevenly over the data ranks; FSDP cuts
+every leaf of 2^10 elements or more over the data axis. Tolerances, the
+one-card port's (``tests/test_torch_train.py``): the loss at rtol 1e-5 of
+the reference's ``jax.value_and_grad(loss_fn)``; every gradient, joined to
+whole, at a relative norm error of 1e-4 and elementwise at rtol 1e-4, atol
+1e-5 times the leaf's largest |g|; three training steps through
+``launch.train.main`` (2 microbatches, remat ``none`` and ``full``) at rtol
+1e-4 of the one-card launcher's losses and gradient norms. Every rank
+returns the same loss bits, remat ``full`` gives ``none``'s bits, and
+``--ckpt``, ``int8`` and ZeRO-1 moments on a cut mesh raise.
+
+Sampled serving on a data-cut mesh draws the whole batch's uniforms on
+every rank: at ``(2, 1)`` and ``(2, 2)`` the served tokens are the
+one-process run's, row for row, and two data ranks given the same prompts
+draw different tokens.
+"""
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+from jax.sharding import PartitionSpec  # noqa: E402
+
+from repro import configs as jconfigs  # noqa: E402
+from repro.launch.mesh import apply_fsdp as japply_fsdp  # noqa: E402
+from repro.models import transformer as jtf  # noqa: E402
+from repro.models.layers import Axes as JAxes  # noqa: E402
+from repro.train import optimizer as jopt  # noqa: E402
+from repro.train import train_step as jstep  # noqa: E402
+from repro_torch import configs  # noqa: E402
+from repro_torch.convert import reference_leaf  # noqa: E402
+from repro_torch.launch import serve, train  # noqa: E402
+from repro_torch.launch.mesh import apply_fsdp  # noqa: E402
+from repro_torch.models import transformer as tf  # noqa: E402
+from repro_torch.models.layers import P, Axes  # noqa: E402
+from repro_torch.train import optimizer as opt  # noqa: E402
+from repro_torch.train import train_step as tstep  # noqa: E402
+
+from _torch_lm_mesh_child import _flat  # noqa: E402
+from _torch_lm_train_mesh_child import (AUX, B, CASES, L, MESH_CASES, SERVE_ARGS, TRAIN_ARGS,  # noqa: E402
+                                        TRAIN_REMATS)
+
+ROOT = Path(__file__).resolve().parents[1]
+SRC = str(ROOT / "src")
+KEY = jax.random.PRNGKey(0)
+LOSS_RTOL = 1e-5
+GRAD_NORM_RTOL = 1e-4
+GRAD_RTOL, GRAD_ATOL_SCALE = 1e-4, 1e-5
+RUN_RTOL = 1e-4
+SPEC_MESHES = [(16, 16), (2, 2), (4, 1)]  # (data, model)
+ARCHS = sorted(configs.registry())
+CHILD_TIMEOUT_S = 300
+
+
+def _ref_leaves(tree) -> dict[str, tuple]:
+    leaves = jax.tree_util.tree_flatten_with_path(tree, is_leaf=lambda s: isinstance(s, PartitionSpec))[0]
+    return {".".join(str(getattr(k, "key", getattr(k, "name", k))) for k in path): tuple(spec)
+            for path, spec in leaves}
+
+
+def _port_leaves(tree, prefix: str = "") -> dict[str, tuple]:
+    if isinstance(tree, (P, tuple)) and not hasattr(tree, "_fields"):
+        return {prefix[:-1]: tuple(tree)}
+    items = tree.items() if isinstance(tree, dict) else zip(tree._fields, tree)
+    out = {}
+    for k, v in items:
+        out.update(_port_leaves(v, f"{prefix}{k}."))
+    return out
+
+
+def _flat_shapes(tree, prefix: str = "") -> dict[str, tuple]:
+    out = {}
+    for k, v in tree.items():
+        out.update(_flat_shapes(v, f"{prefix}{k}.") if isinstance(v, dict) else {f"{prefix}{k}": tuple(v)})
+    return out
+
+
+_SHAPES: dict = {}
+
+
+def _shapes(arch: str):
+    """(the reference's ``jax.eval_shape(Model.init)``, the port's ``param_shapes``)
+    of ``arch`` at its published widths."""
+    if arch not in _SHAPES:
+        _SHAPES[arch] = (jax.eval_shape(jtf.Model(jconfigs.get_config(arch)).init, KEY),
+                         tf.Model(configs.get_config(arch)).param_shapes())
+    return _SHAPES[arch]
+
+
+# ---------------------------------------------------------------------------
+# the mesh runs, gloo ranks
+# ---------------------------------------------------------------------------
+def _cfgs(case: str):
+    jcfg = jconfigs.reduced_config(jconfigs.get_config(CASES[case]))
+    if case == "granite":
+        jcfg = dataclasses.replace(jcfg, moe=dataclasses.replace(jcfg.moe, **AUX))
+    return jcfg
+
+
+def _batch(case: str, vocab: int) -> dict[str, np.ndarray]:
+    rng = np.random.default_rng(sorted(CASES).index(case) + 11)
+    toks = rng.integers(0, vocab, (B, L + 1)).astype(np.int32)
+    batch = {"tokens": toks[:, :L], "labels": toks[:, 1:].copy()}
+    if case == "qwen2":  # unmasked labels by data rank at (4, 1): 3, 12, 16, 15
+        batch["labels"][0, :] = -1
+        batch["labels"][1, :5] = -1
+        batch["labels"][2, 4:] = -1
+        batch["labels"][7, 0] = -1
+    return batch
+
+
+MESH_TAGS = [f"{d}x{m}" for d, m in MESH_CASES]
+GRAD_CASES = [(f"{d}x{m}", case) for (d, m), cases in MESH_CASES.items() for case in cases]
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """({tag: [(npz, json) per rank]}, {case: reference (loss, grads, params)},
+    {(case, remat): one-card launcher run}, one-process sampled tokens). The
+    child's ranks start once the reference's weights are drawn; the
+    reference and the one-card runs are computed while they work."""
+    tmp = tmp_path_factory.mktemp("lm_train_mesh")
+    models = {case: jtf.Model(_cfgs(case), remat="none", dtype=jnp.float32) for case in CASES}
+    params = {case: jax.tree.map(np.asarray, jax.jit(jm.init)(KEY)) for case, jm in models.items()}
+    batches = {case: _batch(case, jm.cfg.vocab_size) for case, jm in models.items()}
+    inputs = {f"params/{case}/{k}": v for case, p in params.items() for k, v in _flat(p).items()}
+    inputs.update({f"batch/{case}/{k}": v for case, b in batches.items() for k, v in b.items()})
+    np.savez(tmp / "inputs.npz", **inputs)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(p for p in (SRC, os.environ.get("PYTHONPATH")) if p))
+    procs = [subprocess.Popen([sys.executable, str(ROOT / "tests" / "_torch_lm_train_mesh_child.py"),
+                               str(tmp / "inputs.npz"), str(tmp), tag],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+             for tag in MESH_TAGS]  # one spawn a mesh shape, all at once
+    try:
+        reference = {}
+        for case, jm in models.items():
+            loss, grads = jax.jit(jax.value_and_grad(jm.loss_fn))(params[case], batches[case])
+            reference[case] = (float(loss), jax.tree.map(np.asarray, grads))
+        n = torch.get_num_threads()
+        torch.set_num_threads(1)
+        try:
+            one_card = {(case, remat): train.main(["--arch", CASES[case], *TRAIN_ARGS, "--remat", remat])
+                        for case in CASES for remat in TRAIN_REMATS[case]}
+            sampled = serve.main(SERVE_ARGS)["tokens"].numpy()
+        finally:
+            torch.set_num_threads(n)
+        for arch in ARCHS:  # the spec tests' shapes, while the ranks work
+            _shapes(arch)
+    finally:
+        done = [(proc, *proc.communicate(timeout=CHILD_TIMEOUT_S)) for proc in procs]
+    for proc, stdout, stderr in done:
+        assert proc.returncode == 0, f"child failed:\n{stdout}\n{stderr}"
+        assert "lm train mesh child OK" in stdout
+    ranks = {}
+    for d, m in MESH_CASES:
+        tag = f"{d}x{m}"
+        ranks[tag] = [(dict(np.load(tmp / tag / f"rank{r}.npz")), json.loads((tmp / tag / f"rank{r}.json").read_text()))
+                      for r in range(d * m)]
+    return ranks, reference, one_card, sampled
+
+
+@pytest.mark.parametrize("tag,case", GRAD_CASES)
+def test_loss_and_every_gradient_match_the_reference(runs, tag, case):
+    """The loss on every rank, and every gradient joined to whole, against
+    the reference's unsharded ``jax.value_and_grad(loss_fn)``."""
+    ranks, reference, _, _ = runs
+    want_loss, want = reference[case]
+    for arrays, _ in ranks[tag]:
+        np.testing.assert_allclose(float(arrays[f"{case}/loss"]), want_loss, rtol=LOSS_RTOL)
+    arrays = ranks[tag][0][0]
+    names = sorted(k[len(f"{case}/grad/"):] for k in arrays if k.startswith(f"{case}/grad/"))
+    assert names == sorted(_flat(want))
+    for name in names:
+        got, ref = arrays[f"{case}/grad/{name}"], _flat(want)[name]
+        scale = float(np.abs(ref).max())
+        assert scale > 0, name
+        assert np.linalg.norm(got - ref) <= GRAD_NORM_RTOL * np.linalg.norm(ref), name
+        np.testing.assert_allclose(got, ref, rtol=GRAD_RTOL, atol=GRAD_ATOL_SCALE * scale, err_msg=name)
+
+
+@pytest.mark.parametrize("tag,case", GRAD_CASES)
+def test_fsdp_cuts_leaves_over_the_data_axis(runs, tag, case):
+    """At data > 1 the case's larger leaves are FSDP blocks: a ``data`` entry
+    in the spec, and the rank's gradient block that dimension's share."""
+    ranks, reference, _, _ = runs
+    data, model = (int(n) for n in tag.split("x"))
+    for _, info in ranks[tag]:
+        leaves = info[f"{case}/fsdp_leaves"]
+        assert bool(leaves) == (data > 1)
+        for name, (shape, spec) in leaves.items():
+            whole = reference_leaf(reference[case][1], name).shape
+            dim = spec.index("data")
+            assert shape[dim] * data == whole[dim], name
+            model_dims = [i for i, e in enumerate(spec) if e == "model"]
+            assert all(shape[i] * model == whole[i] for i in model_dims), name
+
+
+@pytest.mark.parametrize("tag", MESH_TAGS[:3])
+def test_every_rank_returns_the_same_loss_and_gradients(runs, tag):
+    """The loss's bits on every rank of the mesh (a model group's ranks and
+    the data ranks alike), and the joined gradients."""
+    ranks = runs[0][tag]
+    first = ranks[0][0]
+    for arrays, info in ranks[1:]:
+        for key in first:
+            if not key.startswith("serve/"):
+                np.testing.assert_array_equal(arrays[key], first[key], err_msg=key)
+        for key, run in info.items():
+            if "/train/" in key:
+                assert run == ranks[0][1][key], key
+
+
+@pytest.mark.parametrize("tag,case", GRAD_CASES)
+def test_remat_full_gives_the_loss_and_gradients_of_none(runs, tag, case):
+    """Twin of tests/test_torch_train.py::test_remat_gives_the_loss_and_gradients_of_none
+    on the mesh: the replayed forward re-runs its collectives, bit for bit."""
+    for _, info in runs[0][tag]:
+        assert info[f"{case}/remat_differs"] == []
+
+
+@pytest.mark.parametrize("tag,case,remat", [(tag, case, remat) for tag, case in GRAD_CASES
+                                             for remat in TRAIN_REMATS[case]])
+def test_three_steps_follow_the_one_card_run(runs, tag, case, remat):
+    """``launch.train.main`` on the mesh (2 microbatches, the global batch
+    split first) against the one-card launcher: losses and gradient norms."""
+    ranks, _, one_card, _ = runs
+    want = one_card[(case, remat)]
+    data, model = (int(n) for n in tag.split("x"))
+    for _, info in ranks[tag]:
+        got = info[f"{case}/train/{remat}"]
+        assert got["mesh"] == {"data": data, "model": model} and got["microbatches"] == 2
+        np.testing.assert_allclose(got["losses"], want["losses"], rtol=RUN_RTOL)
+        np.testing.assert_allclose(got["grad_norms"], want["grad_norms"], rtol=RUN_RTOL)
+
+
+def test_uneven_labels_reach_the_ranks_unevenly():
+    """qwen2's batch gives the data ranks of (4, 1) different counts of
+    unmasked labels, so a mean of per-rank means would miss the loss."""
+    labels = _batch("qwen2", 512)["labels"]
+    counts = [(labels[2 * r:2 * r + 2] != -1).sum() for r in range(4)]
+    assert len(set(counts)) == 4
+
+
+def test_refusals_on_a_cut_mesh_name_roadmap(runs):
+    for _, info in runs[0]["2x2"]:
+        raises = info["raises"]
+        assert "sharded checkpoints" in raises["ckpt"] and "ROADMAP" in raises["ckpt"]
+        assert "int8" in raises["int8"] and "ROADMAP" in raises["int8"]
+        assert "ZeRO-1" in raises["zero1"] and "ROADMAP" in raises["zero1"]
+
+
+@pytest.mark.parametrize("tag", ["2x1", "2x2"])
+def test_sampled_serving_returns_the_one_process_tokens(runs, tag):
+    """``launch.serve.main --temperature 1``: each data rank's rows are the
+    one-process run's, row for row."""
+    ranks, _, _, sampled = runs
+    model = int(tag.split("x")[1])
+    for rank, (arrays, _) in enumerate(ranks[tag]):
+        data = rank // model
+        np.testing.assert_array_equal(arrays["serve/tokens"], sampled[2 * data:2 * data + 2])
+
+
+@pytest.mark.parametrize("tag", ["2x1", "2x2"])
+def test_two_data_ranks_with_the_same_prompts_draw_differently(runs, tag):
+    """Each data rank takes its own rows' uniforms of the global batch, so
+    the same two prompts on both data ranks do not draw the same tokens."""
+    ranks = runs[0][tag]
+    model = int(tag.split("x")[1])
+    first, second = ranks[0][0]["serve/same_rows"], ranks[model][0]["serve/same_rows"]
+    np.testing.assert_array_equal(first[:, 0], second[:, 0])  # the first token is greedy
+    assert not np.array_equal(first, second)
+    for rank in range(1, model):  # a model group agrees
+        np.testing.assert_array_equal(ranks[rank][0]["serve/same_rows"], first)
+
+
+# ---------------------------------------------------------------------------
+# the specs, as data (after the mesh runs, whose fixture draws the shapes while the ranks work)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("data,model_size", SPEC_MESHES)
+@pytest.mark.parametrize("arch", ARCHS)
+def test_fsdp_opt_state_batch_and_metric_specs_are_the_reference_trees(arch, data, model_size):
+    jcfg, cfg = jconfigs.get_config(arch), configs.get_config(arch)
+    ref_shapes, port_shapes = _shapes(arch)
+    assert _flat_shapes(port_shapes) == _flat_shapes(jax.tree.map(lambda s: s.shape, ref_shapes))
+    jax_ax, ax = JAxes(model_size=model_size), Axes(model_size=model_size)
+    ref, port = jtf.Model(jcfg, jax_ax), tf.Model(cfg, ax=ax)
+    want = japply_fsdp(ref.param_specs(), ref_shapes, fsdp_axis="data", fsdp_size=data)
+    got = apply_fsdp(port.param_specs(), port_shapes, "data", data)
+    assert _port_leaves(got) == _ref_leaves(want)
+    assert any("data" in spec for spec in _port_leaves(got).values())
+    for zero1 in (False, True):
+        want_opt = jopt.opt_state_specs(want, jax_ax, zero1=zero1)
+        got_opt = opt.opt_state_specs(got, ax, zero1=zero1)
+        assert tuple(got_opt.step) == tuple(want_opt.step) == ()
+        assert _port_leaves(got_opt.m) == _ref_leaves(want_opt.m)
+        assert _port_leaves(got_opt.v) == _ref_leaves(want_opt.v)
+    assert _port_leaves(tstep.batch_specs(port)) == _ref_leaves(jstep.batch_specs(ref))
+    assert _port_leaves(tstep.metric_specs()) == _ref_leaves(jstep.metric_specs())
+
+
+def test_apply_fsdp_widens_large_leaves():
+    """Twin of tests/test_dryrun_tools.py::test_apply_fsdp_widens_large_leaves."""
+    specs = {"big": P(None, "model"), "small": P(None, None), "stacked": P(None, None, "model")}
+    shapes = {"big": (4096, 4096), "small": (64, 64), "stacked": (24, 4096, 4096)}
+    out = apply_fsdp(specs, shapes, fsdp_axis="data", fsdp_size=16, min_elems=1 << 20)
+    assert out["big"] == P("data", "model")
+    assert out["small"] == P(None, None)  # too small
+    assert out["stacked"] == P(None, "data", "model")  # never the stack dim
+
+
+def test_a_mesh_model_places_by_the_widened_specs():
+    """``Model.leaf_specs`` of a mesh model is ``apply_fsdp`` of its specs,
+    without the repeat entry; without a mesh nothing is widened."""
+    cfg = configs.reduced_config(configs.get_config("jamba-v0.1-52b"))
+
+    @dataclasses.dataclass
+    class FakeMesh:  # a (4, 1) mesh's shape; no collective runs here
+        data_count: int = 4
+        model_count: int = 1
+        model_group: object = None
+        model_index: int = 0
+        data_group: object = None
+        data_index: int = 0
+
+    m = tf.Model(cfg, mesh=FakeMesh(), fsdp_min_elems=1 << 10)
+    widened = _port_leaves(apply_fsdp(m.param_specs(), m.param_shapes(), "data", 4, 1 << 10))
+    assert m.leaf_specs()["seg0.0.l0.mixer.in_proj"] == P(*widened["seg0.l0.mixer.in_proj"][1:]) == P("data", "model")
+    assert m.fsdp_dims()["embed.table"] == 1 and "final_norm.scale" not in m.fsdp_dims()
+    assert tf.Model(cfg).fsdp_dims() == {} and tf.Model(cfg, mesh=FakeMesh()).fsdp_dims() == {}
+    with pytest.raises(ValueError, match="fsdp over 2"):
+        tf.Model(cfg, mesh=FakeMesh(), fsdp=2)
