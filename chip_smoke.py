@@ -14,7 +14,15 @@ Phases, each fatal on failure:
   1. print the card (nvidia-smi name and power limit, torch device name);
   2. build every CUDA kernel from ``src/repro_torch/kernels/csrc`` with nvcc,
      one process per source, all at once (build time and ``-Xptxas -v``:
-     registers, shared memory, spills);
+     registers, shared memory, spills); then start the dry run
+     (``launch.dryrun``) on the host in two processes of its own, one a
+     production mesh ((16, 16) and (2, 16, 16)), with no card visible:
+     every arch's decode_32k and long_500k, train_4k of llama3-405b and
+     granite-moe-1b-a400m, granite's prefill_32k, each cell's step run
+     once on ``meta`` over a fake process group; read at the end of phase
+     5: ``ok`` where ``check_mesh`` admits the arch at model 16, ``error``
+     with exactly its refusal, ``skip`` exactly where ``shape_applicable``
+     says, one line a cell (bytes a rank, peak, FLOPs, census bytes);
   3. hold each kernel wrapper against its plain PyTorch version on the card
      at the shapes of the main paths (flash also at jamba's D 128, and at
      one rank's heads of ``jamba_serve_tp4``: Hq 8, Hk 2), with the
@@ -112,10 +120,15 @@ Phases, each fatal on failure:
      --model-shards`` at (1, 4), (2, 2) and (4, 1) (FSDP over the data
      axis), 3 steps of B 8, L 64 in 2 microbatches, remat full, the three
      held against each other (step 0's loss at 1e-5, gradient norms and
-     losses at 1e-4), every rank the same numbers, no kernel launch, each
-     rank's peak memory against its prediction, and at (2, 2) reduced
-     jamba and granite against a one-card step, else one line saying it
-     was not made; then the port's ``train`` with
+     losses at 1e-4), every rank the same numbers, no kernel launch, and
+     at (2, 2) reduced jamba and granite against a one-card step; then
+     ``granite_train_pod``: granite-moe-1b-a400m at its published widths,
+     the same step at (pod 2, data 2, model 1) against (pod 1, data 4,
+     model 1), the same gates; each run's parameters and optimizer-state
+     bytes a rank exactly its dry-run cell's (``launch.dryrun.measure`` at
+     that mesh and shape, in a process of its own), its peak memory logged
+     beside the dry run's; else one line saying they were not made; then
+     the port's ``train`` with
      qwen2-0.5b, granite-moe-1b-a400m and rwkv6-1.6b at their published
      widths (24 layers, fp32, random weights from seed 0), 12 steps of B 8,
      L 64 in 2 microbatches: finite losses and gradient norms, the last loss
@@ -129,12 +142,14 @@ the repository, the script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import atexit
 import copy
 import dataclasses
 import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -2054,16 +2069,26 @@ def vs_one_card(torch, model, prompt, served, record: dict, mesh, label: str) ->
     return {"logits_max_abs_gap_vs_one_card": max(gaps), "steps": len(gaps), "near_ties": near_ties}
 
 
-# LM training on a (data, model) mesh of 4 ranks, one process a card
-# (``jamba_train_8l_mesh``): jamba-v0.1-52b at its published widths cut to
-# one 8-layer period (13.30 B parameters, 53.2 GB in fp32; with its
-# gradients and AdamW's two moments ≈ 213 GB, more than a card holds),
-# weights and the synthetic stream from seed 0, fp32 with TF32 off, B 8,
-# L 64 in 2 microbatches, remat full, AdamW lr 1e-3, 3 steps, at three
-# meshes held against each other: step 0's loss at 1e-5, the gradient
-# norms and the 3 steps' losses at 1e-4, every rank the same numbers
-MULTI_RANK_TRAINS = {"jamba_train_8l_mesh14": (1, 4), "jamba_train_8l_mesh22": (2, 2),
-                     "jamba_train_8l_mesh41": (4, 1)}
+# LM training on a mesh of 4 ranks, one process a card, each label
+# (arch, pod, data, model), weights and the synthetic stream from seed 0,
+# fp32 with TF32 off, B 8, L 64 in 2 microbatches, remat full, AdamW lr
+# 1e-3, 3 steps. ``jamba_train_8l_mesh``: jamba-v0.1-52b at its published
+# widths cut to one 8-layer period (13.30 B parameters, 53.2 GB in fp32;
+# with its gradients and AdamW's two moments ≈ 213 GB, more than a card
+# holds) at three (data, model) meshes; ``granite_train_pod``:
+# granite-moe-1b-a400m at its published widths on the pod axis, (pod 2,
+# data 2, model 1: FSDP over data 2, the batch over 4 ranks) against (pod
+# 1, data 4, model 1). Each group is held to its first mesh: step 0's loss
+# at 1e-5, the gradient norms and the 3 steps' losses at 1e-4, every rank
+# the same numbers. Each run's dry-run cell (``launch.dryrun.measure`` on
+# a fake group of 4 ranks, the same step on ``meta``) must give each
+# rank's measured parameter count and optimizer-state bytes exactly; its
+# peak is logged beside each rank's ``max_memory_allocated``
+MULTI_RANK_TRAINS = {"jamba_train_8l_mesh14": ("jamba-v0.1-52b", 1, 1, 4),
+                     "jamba_train_8l_mesh22": ("jamba-v0.1-52b", 1, 2, 2),
+                     "jamba_train_8l_mesh41": ("jamba-v0.1-52b", 1, 4, 1)}
+POD_TRAINS = {"granite_train_pod1": ("granite-moe-1b-a400m", 1, 4, 1),
+              "granite_train_pod2": ("granite-moe-1b-a400m", 2, 2, 1)}
 MESH_TRAIN_STEPS = 3
 MESH_TRAIN_LOSS0_RTOL, MESH_TRAIN_RTOL = 1e-5, 1e-4
 MULTI_RANK_TRAIN_TIMEOUT_S = 600
@@ -2075,80 +2100,202 @@ SMALL_MESH_TRAIN = dict(batch=8, seq=32, microbatches=2, fsdp_min_elems=1 << 10)
 GRAD_RTOL, GRAD_ATOL_SCALE = 1e-4, 1e-5
 
 
-def mesh_train_args(data: int, model: int) -> list[str]:
-    return ["--arch", "jamba-v0.1-52b", "--no-reduced", "--layers", str(JAMBA_LAYERS),
-            "--steps", str(MESH_TRAIN_STEPS), "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
-            "--microbatches", str(TRAIN_MICRO), "--remat", "full", "--lr", "1e-3", "--device", "cuda",
-            "--seed", "0", "--quiet", "--data-shards", str(data), "--model-shards", str(model)]
+def mesh_train_args(arch: str, pod: int, data: int, model: int) -> list[str]:
+    layers = ["--layers", str(JAMBA_LAYERS)] if arch == "jamba-v0.1-52b" else []
+    return ["--arch", arch, "--no-reduced", *layers, "--steps", str(MESH_TRAIN_STEPS), "--batch", str(TRAIN_BATCH),
+            "--seq", str(TRAIN_SEQ), "--microbatches", str(TRAIN_MICRO), "--remat", "full", "--lr", "1e-3",
+            "--device", "cuda", "--seed", "0", "--quiet", "--pod-shards", str(pod), "--data-shards", str(data),
+            "--model-shards", str(model)]
 
 
-def predict_train_peak(cfg, data: int, model: int) -> dict:
-    """The peak a rank of the mesh training step should reach, from the
-    placement alone (``Model.leaf_specs`` on the reference's shapes, no
-    memory): parameters, one accumulated gradient set and AdamW's two
-    moments, all this rank's fp32 blocks; on top, the layer whose FSDP
-    leaves gathered whole are largest, twice (the gathered weights and
-    their whole gradients before the reduce-scatter). Activations at B 8,
-    L 64 are left out."""
-    import types
+def mesh_train_cell(arch: str, pod: int, data: int, model: int) -> dict:
+    """The dry-run cell of a mesh training run (``dry_run``'s spec)."""
+    return {"arch": arch, "layers": JAMBA_LAYERS if arch == "jamba-v0.1-52b" else None, "seq": TRAIN_SEQ,
+            "batch": TRAIN_BATCH, "microbatches": TRAIN_MICRO, "steps": MESH_TRAIN_STEPS, "pod": pod,
+            "data": data, "model": model}
 
-    from repro_torch.models.transformer import Model
 
-    place = types.SimpleNamespace(data_count=data, model_count=model, model_group=None, model_index=0,
-                                  data_group=None, data_index=0)
-    m = Model(cfg, mesh=place)
-    shapes, specs, dims = m.param_shapes(), m.leaf_specs(), m.fsdp_dims()
+def run_dry_run(cells: list[dict], outdir: Path) -> subprocess.Popen:
+    """Start ``dry_run`` over ``cells`` in a process of its own, with no card
+    visible (the dry run needs none); ``dry_run_records`` reads it."""
+    import os
 
-    def whole(name: str) -> tuple[int, ...]:
-        node = shapes
-        parts = name.split(".")
-        for part in ([parts[0]] + parts[2:] if name.startswith("seg") else parts):
-            node = node[part]
-        return node[1:] if name.startswith("seg") else node
+    (outdir / "spec.json").write_text(json.dumps(cells))
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    proc = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--dry-run", str(outdir)],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env,
+                            start_new_session=True)
+    return proc
 
-    block, layer = 0, {}
-    for name, spec in specs.items():
-        n = math.prod(whole(name))
-        for e in spec:
-            n //= model if e == "model" else data if e is not None else 1
-        block += n
-        if name in dims:
-            key = ".".join(name.split(".")[:3]) if name.startswith("seg") else "embed"  # the layer
-            layer[key] = layer.get(key, 0) + n * data
-    steady = 4 * 4 * block
-    transient = 2 * 4 * max(layer.values(), default=0)
-    return {"params_per_rank": block, "steady_bytes": steady, "fsdp_transient_bytes": transient,
-            "predicted_peak_bytes": steady + transient}
+
+def stop_process(proc: subprocess.Popen, scratch: Path) -> None:
+    """Kill ``proc``'s process group if it still runs, and remove ``scratch``."""
+    import os
+    import shutil
+    import signal
+
+    if proc.poll() is None:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+    shutil.rmtree(scratch, ignore_errors=True)
+
+
+def dry_run_records(proc: subprocess.Popen, outdir: Path, deadline: float) -> tuple[list[dict], float]:
+    """(the records of a ``run_dry_run`` process, its wall); it must exit 0
+    before ``deadline`` (``time.perf_counter``; else it is killed and this
+    raises)."""
+    import os
+    import signal
+
+    try:
+        text, _ = proc.communicate(timeout=max(1.0, deadline - time.perf_counter()))
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        text, _ = proc.communicate()
+        raise AssertionError(f"the dry run found no end in time:\n{text[-4000:]}")
+    if proc.returncode != 0:
+        raise AssertionError(f"the dry run exited {proc.returncode}:\n{text[-4000:]}")
+    out = json.loads((outdir / "records.json").read_text())
+    return out["records"], out["seconds"]
+
+
+def dry_run(outdir: Path) -> int:
+    """``--dry-run OUTDIR``: the cells of ``OUTDIR/spec.json``: the
+    production cells (``arch``, ``shape``, ``multi``) through
+    ``dryrun.run_cells``, then the mesh training runs (``mesh_train_cell``:
+    ``dryrun.measure`` at fp32 with ``launch.train``'s AdamW, on a fake
+    group of its ranks); writes ``OUTDIR/records.json``."""
+    import torch
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_step import TrainConfig
+
+    t0 = time.perf_counter()
+    cells = json.loads((outdir / "spec.json").read_text())
+    production = [(cell["arch"], cell["shape"], cell["multi"]) for cell in cells if "shape" in cell]
+    records = dryrun.run_cells(production, str(outdir / "cells"), force=True)[0] if production else []
+    for cell in cells:
+        if "shape" in cell:
+            continue
+        cfg = get_config(cell["arch"])
+        if cell["layers"]:
+            cfg = dataclasses.replace(cfg, num_layers=cell["layers"])
+        tcfg = TrainConfig(opt=AdamWConfig(lr=1e-3, warmup_steps=5, total_steps=max(cell["steps"], 10)),
+                           microbatches=cell["microbatches"])
+        shape = ShapeConfig("mesh_train", cell["seq"], cell["batch"], "train")
+        with dryrun.fake_mesh(cell["data"], cell["model"], cell["pod"]) as mesh:
+            rec = dryrun.measure(dryrun.cell_model(cfg, shape, mesh, torch.float32), shape, mesh, tcfg)
+        records.append(rec)
+        print(json.dumps({k: rec.get(k) for k in ("arch", "remat", "run_s")}), flush=True)
+    (outdir / "records.json").write_text(json.dumps({"records": records, "seconds": time.perf_counter() - t0}))
+    return 0
+
+
+def dry_run_summary(rec: dict) -> dict:
+    """A record's numbers for the log: bytes a rank, the peak, FLOPs, census bytes."""
+    mem = rec["memory"]
+    arguments = {k: v for k, v in mem.items() if k not in ("output_bytes", "peak_bytes")}
+    return {"params_per_rank": rec["params_per_rank"], "argument_bytes": arguments, "peak_bytes": mem["peak_bytes"],
+            "output_bytes": mem["output_bytes"], "flops": rec["flops"],
+            "census_bytes": rec["collectives"]["total_bytes"], "collectives": rec["collectives"]["by_op"],
+            "build_s": rec["build_s"], "run_s": rec["run_s"]}
+
+
+# the dry run (``launch.dryrun``) on the host, in two processes (one a
+# mesh) started after the build and read at the end, no card visible:
+# every arch's decode_32k and long_500k, train_4k of ``DRYRUN_TRAINS`` and
+# prefill_32k of ``DRYRUN_PREFILLS``, on the production meshes (16, 16)
+# and (2, 16, 16). Gates: ``ok`` where ``check_mesh`` admits the arch at
+# model 16, ``error`` with exactly its ``NotImplementedError`` where it
+# refuses, ``skip`` exactly where ``shape_applicable`` says
+DRYRUN_TRAINS = ("llama3-405b", "granite-moe-1b-a400m")
+DRYRUN_PREFILLS = ("granite-moe-1b-a400m",)
+DRYRUN_TIMEOUT_S = 900
+
+
+def dry_run_cells(multi: bool) -> list[dict]:
+    """The cells of one production mesh (``multi``: the 2-pod one)."""
+    from repro_torch.configs import registry
+
+    cells = [{"arch": a, "shape": s, "multi": multi} for a in sorted(registry()) for s in ("decode_32k", "long_500k")]
+    cells += [{"arch": a, "shape": "train_4k", "multi": multi} for a in DRYRUN_TRAINS]
+    return cells + [{"arch": a, "shape": "prefill_32k", "multi": multi} for a in DRYRUN_PREFILLS]
+
+
+def check_dry_run(runs: list[tuple[list[dict], float]], log) -> None:
+    """The gates of the production cells' records (``dry_run_cells``), each
+    run's (records, wall); one line a cell: an ``ok`` cell's bytes a rank,
+    peak, FLOPs and census."""
+    from repro_torch.configs import SHAPES, get_config, shape_applicable
+    from repro_torch.models.layers import Axes
+    from repro_torch.models.transformer import check_mesh
+
+    counts = {"ok": 0, "error": 0, "skip": 0}
+    records = [rec for recs, _ in runs for rec in recs]
+    for rec in records:
+        cfg, shape = get_config(rec["arch"]), SHAPES[rec["shape"]]
+        refusal = None
+        try:
+            check_mesh(cfg, Axes(model_size=16))
+        except NotImplementedError as err:
+            refusal = f"NotImplementedError: {err}"
+        want = "skip" if not shape_applicable(cfg, shape)[0] else "error" if refusal else "ok"
+        if rec["status"] != want or (want == "error" and rec["error"] != refusal):
+            raise AssertionError(f"dry run {rec['cell']}: {rec['status']} ({rec.get('error') or rec.get('reason')}), "
+                                 f"want {want} ({refusal})\n{rec.get('traceback', '')}")
+        counts[want] += 1
+        if want != "ok":
+            log(json.dumps({"dryrun": rec["cell"], "status": want, "why": rec.get("error") or rec.get("reason")}))
+            continue
+        summary = dry_run_summary(rec)
+        held = summary["argument_bytes"]["total"] - summary["argument_bytes"]["inputs"]
+        if not (summary["params_per_rank"] > 0 and summary["flops"] > 0 and summary["census_bytes"] > 0
+                and summary["peak_bytes"] >= held):
+            raise AssertionError(f"dry run {rec['cell']}: {summary}")
+        log(json.dumps({"dryrun": rec["cell"], "status": "ok", "dtype": rec["dtype"], "remat": rec["remat"],
+                        "remat_group": rec["remat_group"], "microbatches": rec.get("microbatches"), **summary}))
+    walls = ", ".join(f"{seconds:.1f}" for _, seconds in runs)
+    log(f"dry run: {walls} s on the host (a process a mesh) for {len(records)} cells ({json.dumps(counts)})")
 
 
 def run_multi_rank_trains(torch, log) -> dict[str, dict[str, int]]:
     """The training path on 4 ranks, one process a card (``torchrun``,
-    rendezvous on localhost), each mesh of ``MULTI_RANK_TRAINS`` in one
-    launch (``rank_train``), counts reset just before, read just after.
-    Gates: every rank the same losses and gradient norms, finite, no kernel
-    launch (training takes plain attention); the three meshes agree (step
-    0's loss at MESH_TRAIN_LOSS0_RTOL, gradient norms and losses at
-    MESH_TRAIN_RTOL); at (2, 2) ``rank_train``'s reduced checks. Logs each
-    rank's peak memory against ``predict_train_peak``, the step seconds and
-    the launches. Needs 4 cards."""
+    rendezvous on localhost), each mesh of ``MULTI_RANK_TRAINS`` and
+    ``POD_TRAINS`` in one launch (``rank_train``), counts reset just before,
+    read just after. Gates: every rank the same losses and gradient norms,
+    finite, no kernel launch (training takes plain attention); each group
+    agrees with its first mesh (step 0's loss at MESH_TRAIN_LOSS0_RTOL,
+    gradient norms and losses at MESH_TRAIN_RTOL); each run's dry-run cell
+    (run first, in a process of its own) gives every rank's parameter count
+    and optimizer-state bytes exactly; at (2, 2) ``rank_train``'s reduced
+    checks. Logs each rank's peak memory against the dry run's peak, the
+    step seconds and the launches. Needs 4 cards."""
     import os
     import signal
     import tempfile
 
-    from repro_torch.configs import get_config
-
     cards = torch.cuda.device_count()
     if cards < 4:
-        log(f"multi-rank trains: not made ({cards} card(s) visible; jamba_train_8l_mesh needs 4)")
+        log(f"multi-rank trains: not made ({cards} card(s) visible; jamba_train_8l_mesh and granite_train_pod "
+            "need 4)")
         return {}
-    cfg = dataclasses.replace(get_config("jamba-v0.1-52b"), num_layers=JAMBA_LAYERS)
+    trains = {**MULTI_RANK_TRAINS, **POD_TRAINS}
     by_path, runs = {}, {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
-        for label, (data, model) in MULTI_RANK_TRAINS.items():
+        proc = run_dry_run([mesh_train_cell(*spec) for spec in trains.values()], Path(tmp))
+        records, seconds = dry_run_records(proc, Path(tmp), time.perf_counter() + MULTI_RANK_TRAIN_TIMEOUT_S)
+        log(f"mesh train dry runs: {seconds:.1f} s for {len(records)} cells")
+        predicted = dict(zip(trains, records))
+        for label, (arch, pod, data, model) in trains.items():
             outdir = Path(tmp) / label
             outdir.mkdir()
-            (outdir / "spec.json").write_text(json.dumps({"label": label, "data": data, "model": model,
-                                                          "small": (data, model) == (2, 2)}))
+            (outdir / "spec.json").write_text(json.dumps({"label": label, "arch": arch, "pod": pod, "data": data,
+                                                          "model": model,
+                                                          "small": (arch, pod, data, model) == (
+                                                              "jamba-v0.1-52b", 1, 2, 2)}))
             cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "4",
                    str(ROOT / "chip_smoke.py"), "--rank-train", str(outdir)]
             proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
@@ -2172,28 +2319,41 @@ def run_multi_rank_trains(torch, log) -> dict[str, dict[str, int]]:
             if len(first["losses"]) != MESH_TRAIN_STEPS or not all(
                     math.isfinite(x) for x in first["losses"] + first["grad_norms"]):
                 raise AssertionError(f"{label}: losses {first['losses']}, grad norms {first['grad_norms']}")
-            predicted = predict_train_peak(cfg, data, model)
-            log(json.dumps({"train": label, "mesh": {"data": data, "model": model}, "layers": JAMBA_LAYERS,
+            rec = predicted[label]
+            for r, rank in enumerate(ranks):
+                if rank["params"] != rec["params_per_rank"]:
+                    raise AssertionError(f"{label}: rank {r} holds {rank['params']} parameters, the dry run "
+                                         f"{rec['params_per_rank']}")
+                if rank["opt_state_bytes"] != rec["memory"]["opt_state"]:
+                    raise AssertionError(f"{label}: rank {r} holds {rank['opt_state_bytes']} bytes of optimizer "
+                                         f"state, the dry run {rec['memory']['opt_state']}")
+            peaks = [rank["max_memory_allocated"] for rank in ranks]
+            log(json.dumps({"train": label, "arch": arch, "mesh": {"pod": pod, "data": data, "model": model},
+                            "layers": JAMBA_LAYERS if arch == "jamba-v0.1-52b" else "all",
                             "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "microbatches": first["microbatches"],
                             "remat": "full", "losses": first["losses"], "grad_norms": first["grad_norms"],
                             "step_seconds": [rank["step_seconds"] for rank in ranks],
-                            "max_memory_allocated": [rank["max_memory_allocated"] for rank in ranks],
-                            **predicted, "params_by_rank": [rank["params"] for rank in ranks],
+                            "max_memory_allocated": peaks, "dryrun": dry_run_summary(rec),
+                            "dryrun_peak_rel_gap": [(rec["memory"]["peak_bytes"] - p) / p for p in peaks],
+                            "params_by_rank": [rank["params"] for rank in ranks],
+                            "opt_state_bytes_by_rank": [rank["opt_state_bytes"] for rank in ranks],
                             "small_checks": first.get("small"),
                             "launches_by_rank": [rank["launches"] for rank in ranks], "card": smi_line()}))
             runs[label] = first
             by_path[label] = {name: sum(rank["launches"][name] for rank in ranks) for name in first["launches"]}
-    base_label = next(iter(runs))
-    base = runs[base_label]
-    for label, run in runs.items():
-        loss0 = abs(run["losses"][0] - base["losses"][0]) / abs(base["losses"][0])
-        norms = max(abs(a - b) / abs(b) for a, b in zip(run["grad_norms"], base["grad_norms"]))
-        losses = max(abs(a - b) / abs(b) for a, b in zip(run["losses"], base["losses"]))
-        if loss0 > MESH_TRAIN_LOSS0_RTOL or norms > MESH_TRAIN_RTOL or losses > MESH_TRAIN_RTOL:
-            raise AssertionError(f"{label} against {base_label}: step 0 loss {loss0:.3e}, gradient norms {norms:.3e}, "
-                                 f"losses {losses:.3e} (relative)")
-        log(json.dumps({"train_mesh_agreement": label, "against": base_label, "loss0_rel_gap": loss0,
-                        "grad_norm_max_rel_gap": norms, "loss_max_rel_gap": losses}))
+    for group in (MULTI_RANK_TRAINS, POD_TRAINS):
+        base_label = next(iter(group))
+        base = runs[base_label]
+        for label in group:
+            run = runs[label]
+            loss0 = abs(run["losses"][0] - base["losses"][0]) / abs(base["losses"][0])
+            norms = max(abs(a - b) / abs(b) for a, b in zip(run["grad_norms"], base["grad_norms"]))
+            losses = max(abs(a - b) / abs(b) for a, b in zip(run["losses"], base["losses"]))
+            if loss0 > MESH_TRAIN_LOSS0_RTOL or norms > MESH_TRAIN_RTOL or losses > MESH_TRAIN_RTOL:
+                raise AssertionError(f"{label} against {base_label}: step 0 loss {loss0:.3e}, gradient norms "
+                                     f"{norms:.3e}, losses {losses:.3e} (relative)")
+            log(json.dumps({"train_mesh_agreement": label, "against": base_label, "loss0_rel_gap": loss0,
+                            "grad_norm_max_rel_gap": norms, "loss_max_rel_gap": losses}))
     return by_path
 
 
@@ -2247,10 +2407,11 @@ def small_mesh_train_checks(torch, data: int, model_size: int) -> dict:
 
 
 def rank_train(outdir: Path) -> int:
-    """One rank of ``run_multi_rank_trains`` (under ``torchrun``), the mesh in
+    """One rank of ``run_multi_rank_trains`` (under ``torchrun``), the run in
     ``outdir/spec.json``: ``launch.train.main`` (``mesh_train_args``), its
-    losses, gradient norms, step seconds, peak memory and launches; at
-    (2, 2) then ``small_mesh_train_checks``. Writes ``outdir/rank<RANK>.json``."""
+    losses, gradient norms, step seconds, peak memory, parameter count,
+    optimizer-state bytes and launches; then, if the spec says so,
+    ``small_mesh_train_checks``. Writes ``outdir/rank<RANK>.json``."""
     import gc
     import os
 
@@ -2266,12 +2427,15 @@ def rank_train(outdir: Path) -> int:
     torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
-    out = train.main(mesh_train_args(spec["data"], spec["model"]))
+    out = train.main(mesh_train_args(spec["arch"], spec["pod"], spec["data"], spec["model"]))
     counts = ops.launch_counts()
+    opt = out["opt_state"]
     result = {"losses": out["losses"], "grad_norms": out["grad_norms"], "step_seconds": out["step_seconds"],
               "max_memory_allocated": torch.cuda.max_memory_allocated(), "launches": counts,
-              "params": sum(p.numel() for p in out["params"].parameters()), "microbatches": out["microbatches"]}
-    del out
+              "params": sum(p.numel() for p in out["params"].parameters()), "microbatches": out["microbatches"],
+              "opt_state_bytes": sum(t.numel() * t.element_size() for t in [opt.step, *opt.m.values(),
+                                                                            *opt.v.values()])}
+    del out, opt
     gc.collect()
     torch.cuda.empty_cache()
     if spec["small"]:
@@ -2344,6 +2508,8 @@ def main() -> int:
         return rank_serve(Path(sys.argv[2]))
     if sys.argv[1:2] == ["--rank-train"]:  # one rank of run_multi_rank_trains
         return rank_train(Path(sys.argv[2]))
+    if sys.argv[1:2] == ["--dry-run"]:  # the dry run's cells, on the host (run_dry_run)
+        return dry_run(Path(sys.argv[2]))
     if sys.argv[1:] == ["--multi-rank-only"]:
         return multi_rank_only()
     import torch
@@ -2372,6 +2538,11 @@ def main() -> int:
     t0 = time.perf_counter()
     built = build.build()
     log(f"build: {time.perf_counter() - t0:.2f} s for {len(built)} libraries (parallel nvcc)")
+    dry_deadline, dry_runs = time.perf_counter() + DRYRUN_TIMEOUT_S, []
+    for multi in (False, True):  # one process a production mesh, both at once
+        dry_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"))
+        dry_runs.append((run_dry_run(dry_run_cells(multi), dry_dir), dry_dir))
+        atexit.register(stop_process, *dry_runs[-1])
     for b in built.values():
         log(f"build {b.name}: {b.path.name} nvcc {b.seconds if b.seconds is None else round(b.seconds, 2)} s")
         for line in b.log.splitlines():
@@ -2416,6 +2587,8 @@ def main() -> int:
     by_path["qwen2_train"] = run_train(torch, dev, ops, train, log, "qwen2-0.5b")
     by_path["granite_train"] = run_train(torch, dev, ops, train, log, "granite-moe-1b-a400m")
     by_path["rwkv6_train"] = run_train(torch, dev, ops, train, log, "rwkv6-1.6b")
+
+    check_dry_run([dry_run_records(proc, path, dry_deadline) for proc, path in dry_runs], log)
 
     kernels = []
     for name, (source, replaces) in SOURCES.items():

@@ -17,12 +17,14 @@ a group is a worker-identity resource, not a function of the k being
 evaluated.
 
 ``make_lm_mesh`` builds the LM's ``(data, model)`` mesh the same way, over
-the whole world: the serve path's ranks each hold a block of the batch
-(``data``) and of the parameters and caches (``model``; ``models.layers``
-says how). ``apply_fsdp`` widens the parameter specs over ``data`` as the
-reference's does (``models.transformer.Model`` places and gathers by the
-widened specs). The reference's dry-run helpers (``make_production_mesh``,
-``named``) wait for ROADMAP M5 item 2.
+the whole world, or with ``pod`` above 1 the reference's multi-pod ``(pod,
+data, model)`` mesh: each rank holds a block of the batch (over ``data``,
+or the pod × data ranks) and of the parameters and caches (``model``;
+``models.layers`` says how). ``apply_fsdp`` widens the parameter specs
+over ``data`` as the reference's does (``models.transformer.Model`` places
+and gathers by the widened specs). ``make_production_mesh`` is the
+reference's 16 × 16 or 2 × 16 × 16 mesh, and ``named`` pairs a spec tree
+with a mesh, for the dry run (``launch.dryrun``).
 """
 from __future__ import annotations
 
@@ -38,9 +40,9 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.factorization.distributed import backend_for
-from repro_torch.models.layers import P, Axes
+from repro_torch.models.layers import P, Axes, block_shape
 
-LANE, DATA, MODEL = "lane", "data", "model"
+LANE, POD, DATA, MODEL = "lane", "pod", "data", "model"
 
 # default groups made from torchrun's environment in this process: each gets
 # its own key space in the launcher's store, which outlives the groups it
@@ -102,13 +104,26 @@ def _mesh_shape(world: int, lanes: int | None, data: int) -> tuple[int, int]:
     return lanes, data
 
 
+def _check_group(group, size: int, dev: torch.device) -> None:
+    """One all-reduce over ``group``, which must sum ``size`` ones (skipped
+    on a ``fake`` group, whose collectives move nothing)."""
+    if str(dist.get_backend()) == "fake":
+        return
+    probe = torch.ones((), device=dev)
+    dist.all_reduce(probe, group=group)
+    if int(probe.item()) != size or dist.get_world_size(group) != size:
+        raise RuntimeError(f"mesh group of {dist.get_world_size(group)} ranks summed {probe.item()}, want {size}")
+
+
 @contextlib.contextmanager
-def _process_mesh(names: tuple[str, str], shape, device: torch.device | str):
-    """(DeviceMesh, its two groups, this rank's coordinates, device) of a 2-D
-    mesh over the ranks of the default process group; ``shape(world)``
-    returns the mesh's shape or raises. Makes the default group if there is
-    none (see ``make_wave_mesh``), checks both groups with one all-reduce
-    each, and destroys what it made on exit."""
+def _process_mesh(names: tuple[str, ...], shape, device: torch.device | str):
+    """(DeviceMesh, its groups, this rank's coordinates, the shape, device)
+    of a mesh over the ranks of the default process group, one group and
+    coordinate a name of ``names``; ``shape(world)`` returns the mesh's
+    shape or raises. Makes the default group if there is none (see
+    ``make_wave_mesh``), checks each group with one all-reduce (not on a
+    ``fake`` group, whose collectives move nothing), and destroys what it
+    made on exit."""
     from torch.distributed.device_mesh import init_device_mesh
 
     dev = _mesh_device(device)
@@ -133,31 +148,28 @@ def _process_mesh(names: tuple[str, str], shape, device: torch.device | str):
             store = tempfile.TemporaryDirectory(prefix="repro_torch_pg_")
             dist.init_process_group(backend, init_method=(Path(store.name) / "store").as_uri(),
                                     world_size=1, rank=0)
-    groups: list = []
+    made: list = []
     try:
-        if str(dist.get_backend()) != backend:
+        fake = str(dist.get_backend()) == "fake"
+        if str(dist.get_backend()) != backend and not fake:
             raise ValueError(f"a mesh on {dev} needs a {backend} default group, got {dist.get_backend()}")
         dims = shape(dist.get_world_size())
         mesh = init_device_mesh(dev.type, dims, mesh_dim_names=names)
-        pair = [mesh.get_group(n) for n in names]
-        groups = [g for g in pair if g is not dist.group.WORLD]
+        groups = [mesh.get_group(n) for n in names]
+        made = [g for g in groups if g is not dist.group.WORLD]
         coords = [mesh.get_local_rank(n) for n in names]
-        for group, size in zip(pair, dims):
-            probe = torch.ones((), device=dev)
-            dist.all_reduce(probe, group=group)
-            if int(probe.item()) != size or dist.get_world_size(group) != size:
-                raise RuntimeError(f"mesh group of {dist.get_world_size(group)} ranks summed {probe.item()}, "
-                                   f"want {size}")
-        if [dist.get_rank(g) for g in pair] != coords:
+        for group, size in zip(groups, dims):
+            _check_group(group, size, dev)
+        if [dist.get_rank(g) for g in groups] != coords:
             raise RuntimeError("mesh coordinates differ from the ranks within the mesh's groups")
-        yield mesh, pair, coords, dims, dev
+        yield mesh, groups, coords, dims, dev, made
     finally:
         if made_default:
             dist.destroy_process_group()
             if store is not None:
                 store.cleanup()
         else:
-            for group in {id(g): g for g in groups}.values():
+            for group in {id(g): g for g in made}.values():
                 dist.destroy_process_group(group)
 
 
@@ -182,19 +194,24 @@ def make_wave_mesh(
     yielding, one all-reduce over each of the two groups checks their sizes.
     """
     with _process_mesh((LANE, DATA), lambda world: _mesh_shape(world, lanes, data), device) as made:
-        mesh, (lane_group, data_group), (lane_index, data_index), (n_lanes, n_data), dev = made
+        mesh, (lane_group, data_group), (lane_index, data_index), (n_lanes, n_data), dev, _ = made
         yield WaveMesh(mesh, lane_group, data_group, lane_index, data_index, n_lanes, n_data, dev)
 
 
 @dataclasses.dataclass(frozen=True)
 class LMMesh:
-    """This rank's view of the LM's ``(data, model)`` mesh.
+    """This rank's view of the LM's ``(data, model)`` mesh, or with ``pod``
+    ranks above 1 its ``(pod, data, model)`` mesh.
 
-    ``model_group`` holds the ranks that share this rank's data index (they
-    hold the blocks of one copy of the model and sum their partial
-    products); ``data_group`` holds the ranks that share its model index
-    (one per block of the batch). ``data_index`` / ``model_index`` are this
-    rank's coordinates, which are also its ranks within those two groups.
+    ``model_group`` holds the ranks that share this rank's pod and data
+    indices (they hold the blocks of one copy of the model and sum their
+    partial products); ``data_group`` holds the ranks that share its pod and
+    model indices (FSDP cuts the parameters over them); ``pod_group`` those
+    that share its data and model indices (None on one pod); ``dp_group``
+    those that share its model index, pod-major (the batch is cut over
+    them; the data group on one pod). ``pod_index`` / ``data_index`` /
+    ``model_index`` are this rank's coordinates, which are also its ranks
+    within the pod, data and model groups.
     """
 
     mesh: Any  # torch.distributed.device_mesh.DeviceMesh
@@ -205,36 +222,66 @@ class LMMesh:
     data_count: int
     model_count: int
     device: torch.device
+    dp_group: Any
+    pod_group: Any = None
+    pod_index: int = 0
+    pod_count: int = 1
 
     @property
     def shape(self) -> dict[str, int]:
-        return {DATA: self.data_count, MODEL: self.model_count}
+        pod = {POD: self.pod_count} if self.pod_count > 1 else {}
+        return {**pod, DATA: self.data_count, MODEL: self.model_count}
 
 
-def _lm_shape(world: int, data: int, model: int) -> tuple[int, int]:
-    if data < 1 or model < 1:
-        raise ValueError(f"data and model must be >= 1, got {data} and {model}")
-    if data * model != world:
-        raise ValueError(f"mesh ({data} data x {model} model) needs {data * model} ranks and must span all "
-                         f"{world}: a rank outside it would wait on the model's collectives")
-    return data, model
+def _lm_shape(world: int, data: int, model: int, pod: int = 1) -> tuple[int, ...]:
+    if data < 1 or model < 1 or pod < 1:
+        raise ValueError(f"pod, data and model must be >= 1, got {pod}, {data} and {model}")
+    if pod * data * model != world:
+        raise ValueError(f"mesh ({pod} pod x {data} data x {model} model) needs {pod * data * model} ranks and "
+                         f"must span all {world}: a rank outside it would wait on the model's collectives")
+    return (pod, data, model) if pod > 1 else (data, model)
 
 
 @contextlib.contextmanager
-def make_lm_mesh(data: int = 1, model: int = 1, device: torch.device | str = "cuda") -> Iterator[LMMesh]:
-    """2-D ``(data, model)`` mesh over the ranks of the default process group,
-    as ``make_wave_mesh`` makes its mesh (the default group made here if
-    there is none, checked, destroyed on exit). ``data × model`` must be
-    the world size; on ``cuda`` each rank on this host needs its own card."""
-    with _process_mesh((DATA, MODEL), lambda world: _lm_shape(world, data, model), device) as made:
-        mesh, (data_group, model_group), (data_index, model_index), (n_data, n_model), dev = made
-        yield LMMesh(mesh, data_group, model_group, data_index, model_index, n_data, n_model, dev)
+def make_lm_mesh(data: int = 1, model: int = 1, device: torch.device | str = "cuda", pod: int = 1
+                 ) -> Iterator[LMMesh]:
+    """``(data, model)`` mesh over the ranks of the default process group, or
+    ``(pod, data, model)`` with ``pod`` above 1, as ``make_wave_mesh`` makes
+    its mesh (the default group made here if there is none, checked,
+    destroyed on exit). ``pod × data × model`` must be the world size; on
+    ``cuda`` each rank on this host needs its own card. Over a ``fake``
+    default group (``torch.testing._internal.distributed.fake_pg``) the
+    mesh is this rank's coordinates and groups, whose collectives move
+    nothing: what the dry run (``launch.dryrun``) places a step on."""
+    names = (POD, DATA, MODEL) if pod > 1 else (DATA, MODEL)
+    with _process_mesh(names, lambda world: _lm_shape(world, data, model, pod), device) as made:
+        mesh, groups, coords, dims, dev, subgroups = made
+        if pod == 1:
+            (data_group, model_group), (data_index, model_index) = groups, coords
+            yield LMMesh(mesh, data_group, model_group, data_index, model_index, data, model, dev, data_group)
+            return
+        (pod_group, data_group, model_group), (pod_index, data_index, model_index) = groups, coords
+        # the pod x data ranks of each model index, pod-major: every rank makes every group
+        ranks = mesh.mesh.reshape(pod * data, model).T.tolist()
+        dp_group, _ = dist.new_subgroups_by_enumeration(ranks)
+        subgroups.append(dp_group)
+        _check_group(dp_group, pod * data, dev)
+        yield LMMesh(mesh, data_group, model_group, data_index, model_index, data, model, dev, dp_group,
+                     pod_group=pod_group, pod_index=pod_index, pod_count=pod)
+
+
+def make_production_mesh(multi_pod: bool = False, device: torch.device | str = "cuda"):
+    """The reference's production mesh, by way of ``make_lm_mesh``: ``(data
+    16, model 16)``, or ``(pod 2, data 16, model 16)`` with ``multi_pod``.
+    Over real ranks it needs 256 or 512 processes; the dry run makes it
+    over a ``fake`` default group of that many ranks, at rank 0."""
+    return make_lm_mesh(16, 16, device, pod=2 if multi_pod else 1)
 
 
 def make_axes(mesh: LMMesh, global_batch: int | None = None) -> Axes:
     """Axis environment for a mesh; drops batch sharding when the global
     batch can't shard evenly (long_500k's batch=1)."""
-    batch_axes = tuple(n for n in ("pod", DATA) if n in mesh.shape)
+    batch_axes = tuple(n for n in (POD, DATA) if n in mesh.shape)
     if global_batch is not None and global_batch % dp_size(mesh) != 0:
         batch_axes = ()
     return Axes(batch=batch_axes, model=MODEL, model_size=mesh.shape[MODEL])
@@ -242,7 +289,7 @@ def make_axes(mesh: LMMesh, global_batch: int | None = None) -> Axes:
 
 def dp_size(mesh: LMMesh) -> int:
     dp = 1
-    for n in ("pod", DATA):
+    for n in (POD, DATA):
         dp *= mesh.shape.get(n, 1)
     return dp
 
@@ -276,6 +323,32 @@ def apply_fsdp(specs, shapes, fsdp_axis: str = DATA, fsdp_size: int = 16, min_el
     if isinstance(specs, P):
         return widen(specs, shapes)
     return {k: apply_fsdp(v, shapes[k], fsdp_axis, fsdp_size, min_elems) for k, v in specs.items()}
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A leaf's spec paired with an LM mesh: the port's counterpart of
+    ``jax.sharding.NamedSharding``, for what the dry run asks of one."""
+
+    mesh: LMMesh
+    spec: P
+
+    def shard_shape(self, global_shape) -> tuple[int, ...]:
+        """The shape of the block a rank holds of a leaf of ``global_shape``
+        (``layers.block_shape``, the rule ``Shard.cut`` cuts by)."""
+        return block_shape(global_shape, self.spec, self.mesh.shape)
+
+
+def named(mesh: LMMesh, specs):
+    """``specs`` (a nested dict, list or NamedTuple of ``P``) with each spec
+    paired with ``mesh`` as a ``NamedSharding``."""
+    if isinstance(specs, P):
+        return NamedSharding(mesh, specs)
+    if isinstance(specs, dict):
+        return {k: named(mesh, v) for k, v in specs.items()}
+    if isinstance(specs, tuple) and hasattr(specs, "_fields"):
+        return type(specs)(*(named(mesh, v) for v in specs))
+    return type(specs)(named(mesh, v) for v in specs)
 
 
 class SubmeshPool:

@@ -18,6 +18,8 @@ NCCL; on the CPU gloo): each rank draws the weights layer by layer from
 the seed and keeps its blocks (``models.transformer.Model.place``), takes
 its rows of the prompt and runs ``generate``. The defaults, 1 and 1, are
 the one-card path with no process group. Only rank 0 prints.
+``--pod-shards P`` makes it a ``(pod, data, model)`` mesh of P × D × M
+ranks, the batch cut over the P × D ranks.
 """
 from __future__ import annotations
 
@@ -49,6 +51,8 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="cuda runs the flash-attention kernel; cpu its plain version")
     ap.add_argument("--seed", type=int, default=0, help="seed of the weights, the prompt and sampling")
+    ap.add_argument("--pod-shards", type=int, default=1,
+                    help="pods: copies of the (data, model) mesh the batch is cut over too (under torchrun)")
     ap.add_argument("--data-shards", type=int, default=1, help="ranks the batch is cut over (under torchrun)")
     ap.add_argument("--model-shards", type=int, default=1,
                     help="ranks the parameters and caches are cut over (under torchrun)")
@@ -92,8 +96,8 @@ def main(argv=None) -> dict:
         cfg = reduced_config(cfg)
     with contextlib.ExitStack() as stack:
         mesh = None
-        if (args.data_shards, args.model_shards) != (1, 1):
-            mesh = stack.enter_context(make_lm_mesh(args.data_shards, args.model_shards, dev))
+        if (args.pod_shards, args.data_shards, args.model_shards) != (1, 1, 1):
+            mesh = stack.enter_context(make_lm_mesh(args.data_shards, args.model_shards, dev, pod=args.pod_shards))
             dev = mesh.device
         model, prompt, extra, gen = setup(cfg, args.batch, args.prompt_len, dev, args.seed, mesh)
         timings: dict = {}

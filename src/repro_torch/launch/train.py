@@ -23,7 +23,9 @@ and keeps its rows (``train.train_step``). When the batch does not split
 into ``--microbatches`` of whole data blocks the reference's
 ``auto_train_config`` rule takes fewer. Only rank 0 prints; every rank
 returns the same losses and norms. ``--ckpt`` on a mesh raises (sharded
-checkpoints are queued in ROADMAP).
+checkpoints are queued in ROADMAP). ``--pod-shards P`` makes it the
+reference's multi-pod ``(pod, data, model)`` mesh of P × D × M ranks: the
+batch cut over the P × D ranks, FSDP over the D ranks of a pod.
 """
 from __future__ import annotations
 
@@ -66,6 +68,8 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--remat", default="none", choices=REMAT)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--seed", type=int, default=0, help="seed of the weights and the data")
+    ap.add_argument("--pod-shards", type=int, default=1,
+                    help="pods: copies of the (data, model) mesh the batch is cut over too (under torchrun)")
     ap.add_argument("--data-shards", type=int, default=1, help="ranks the batch is cut over (under torchrun)")
     ap.add_argument("--model-shards", type=int, default=1,
                     help="ranks the parameters are cut over (under torchrun)")
@@ -86,7 +90,7 @@ def microbatches_for(batch: int, n: int, dp: int) -> int:
 
 def main(argv=None) -> dict:
     """Train; returns ``losses``, ``grad_norms`` (before the clip),
-    ``final_loss``, ``params`` (on a mesh, this rank's blocks),
+    ``final_loss``, ``params`` and ``opt_state`` (on a mesh, this rank's blocks),
     ``step_seconds`` (each step's host-clock wall, ending in a synchronize
     on the card), ``tokens_per_s`` (tokens trained over the steps' summed
     walls), ``microbatches`` and ``mesh`` (None without one)."""
@@ -99,10 +103,10 @@ def main(argv=None) -> dict:
         cfg = dataclasses.replace(cfg, num_layers=args.layers)
     with contextlib.ExitStack() as stack:
         mesh = None
-        if (args.data_shards, args.model_shards) != (1, 1):
+        if (args.pod_shards, args.data_shards, args.model_shards) != (1, 1, 1):
             if args.ckpt:
                 raise NotImplementedError("--ckpt on a mesh: sharded checkpoints are not ported yet (ROADMAP)")
-            mesh = stack.enter_context(make_lm_mesh(args.data_shards, args.model_shards, dev))
+            mesh = stack.enter_context(make_lm_mesh(args.data_shards, args.model_shards, dev, pod=args.pod_shards))
             dev = mesh.device
         out = _train(args, cfg, dev, mesh)
     return out
@@ -163,7 +167,7 @@ def _train(args, cfg, dev: torch.device, mesh) -> dict:
         print(f"{len(losses)} steps in {sum(step_seconds):.2f}s (median {statistics.median(step_seconds):.4f}s, "
               f"{tokens_per_s:.0f} tokens/s, {where}); loss {losses[0]:.4f} -> {losses[-1]:.4f}")
     return {"losses": losses, "grad_norms": grad_norms, "final_loss": losses[-1] if losses else float("nan"),
-            "params": params, "step_seconds": step_seconds, "tokens_per_s": tokens_per_s,
+            "params": params, "opt_state": opt, "step_seconds": step_seconds, "tokens_per_s": tokens_per_s,
             "microbatches": microbatches, "mesh": None if mesh is None else mesh.shape}
 
 

@@ -11,7 +11,8 @@ gradients on for the tree it trains (``train.train_step``).
 Sharding. ``Axes`` and the ``*_specs`` functions are the reference's: a
 spec (``P``, the port's own tuple type) names, for each dimension of a
 leaf, the mesh axis it is cut over or ``None`` (whole). On a ``(data,
-model)`` mesh of ranks (``launch.mesh.make_lm_mesh``) each rank holds the
+model)`` or ``(pod, data, model)`` mesh of ranks
+(``launch.mesh.make_lm_mesh``) each rank holds the
 block of every leaf that the specs give it (``Shard.cut``), and the layer
 functions take a ``Shard`` (``sh``; ``None`` on one card) and compute on
 their blocks with explicit ``torch.distributed`` collectives over the
@@ -31,11 +32,13 @@ gradient through, as every rank holds the same downstream), ``enter``
 enters a block cut over the model axis, whose ranks each hold a partial
 gradient of it) and ``gather`` (its backward keeps this rank's slice).
 Over the data group: ``gather_data`` (its backward reduce-scatters, summing
-the ranks' gradients into each rank's block: the FSDP weight gathers) and
-``sum_data`` (all-reduce both ways). A data rank's gradients are thus
-``data`` times its rows' share of the batch's, and the train step averages
-them over the data group (``train.train_step``). Outside autograd (serving
-under ``inference_mode``) each runs its one collective, as before.
+the ranks' gradients into each rank's block: the FSDP weight gathers).
+Over the ranks the batch is cut over (the data group, or on a pod mesh the
+pod × data ranks): ``gather_batch`` and ``sum_batch`` (all-reduce both
+ways). A rank's gradients are thus ``dp`` (pod × data) times its rows'
+share of the batch's, and the train step averages them over the pod ×
+data ranks (``train.train_step``). Outside autograd (serving under
+``inference_mode``) each runs its one collective, as before.
 """
 from __future__ import annotations
 
@@ -90,13 +93,45 @@ class Axes:
         return -1
 
 
+def _names(entry) -> tuple[str, ...]:
+    """The mesh axes a spec entry names (a name, or a tuple of names, pod-major)."""
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def block_count(entry, sizes: dict[str, int]) -> int:
+    """Blocks a dimension whose spec entry is ``entry`` is cut into on a mesh
+    of axis ``sizes`` (1 for ``None``, a missing axis or an axis of one rank)."""
+    n = 1
+    for name in _names(entry) if entry is not None else ():
+        n *= sizes.get(name, 1)
+    return n
+
+
+def block_shape(shape, spec: P, sizes: dict[str, int]) -> tuple[int, ...]:
+    """The shape of a rank's block of a leaf of ``shape`` placed by ``spec``
+    on a mesh of axis ``sizes``: each cut dimension divided by its blocks,
+    raising where it does not divide (the rule ``Shard.cut`` cuts by)."""
+    shape = tuple(shape)
+    out = list(shape)
+    for dim, entry in enumerate(spec):
+        n = block_count(entry, sizes)
+        if shape[dim] % n:
+            raise ValueError(f"dimension {dim} of {shape} does not split into {n} blocks ({spec})")
+        out[dim] = shape[dim] // n
+    return tuple(out)
+
+
 @dataclasses.dataclass(frozen=True)
 class Shard:
-    """This rank's place on a ``(data, model)`` mesh, as the layer functions
-    use it: the axes its specs were made with and the mesh's two groups
-    (``launch.mesh.LMMesh``). A rank holds block ``model_index`` of every
-    dimension a spec cuts over the model axis and block ``data_index`` of
-    the batch when the batch is cut (``batch_split``)."""
+    """This rank's place on a ``(pod, data, model)`` mesh, as the layer
+    functions use it: the axes its specs were made with and the mesh's
+    groups (``launch.mesh.LMMesh``). A spec entry names the axes a
+    dimension is cut over: ``"model"`` (block ``model_index``), ``"data"``
+    (the FSDP entry: block ``data_index`` of the data ranks alone) or the
+    batch entry ``ax.b``, which on a pod mesh is ``("pod", "data")``: block
+    ``pod_index · data_count + data_index`` of the pod × data ranks, pod-major
+    as the reference's mesh orders them. ``dp_group`` holds those pod ×
+    data ranks (the data group on one pod)."""
 
     ax: Axes
     model_group: Any
@@ -104,14 +139,35 @@ class Shard:
     data_group: Any
     data_index: int
     data_count: int
+    dp_group: Any
+    pod_group: Any = None
+    pod_index: int = 0
+    pod_count: int = 1
+
+    @property
+    def sizes(self) -> dict[str, int]:
+        return {"pod": self.pod_count, "data": self.data_count, self.ax.model: self.ax.model_size}
+
+    @property
+    def dp(self) -> int:
+        """The pod × data ranks: copies of the model, each with its rows of the batch."""
+        return self.pod_count * self.data_count
 
     def split(self, size: int) -> bool:
         """Whether a dimension of ``size`` is cut over the model axis."""
         return self.ax.model_size > 1 and self.ax.dim_axis(size) is not None
 
     @property
+    def batch_count(self) -> int:
+        return block_count(self.ax.b, self.sizes)
+
+    @property
+    def batch_index(self) -> int:
+        return self._index(self.ax.b)[0] if self.ax.b is not None else 0
+
+    @property
     def batch_split(self) -> bool:
-        return bool(self.ax.batch) and self.data_count > 1
+        return self.batch_count > 1
 
     def psum(self, t: torch.Tensor) -> torch.Tensor:
         """``t`` summed over the model group (every rank gets the same bits)."""
@@ -129,56 +185,62 @@ class Shard:
 
     def gather_data(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
         """The data group's blocks of ``t`` joined along ``dim``, in rank order
-        (the gradient: the group's gradients summed, this rank's block)."""
+        (the gradient: the group's gradients summed, this rank's block): the
+        FSDP weight gathers."""
         return _Gather.apply(t, dim, self.data_group, self.data_count, self.data_index, True)
 
-    def sum_data(self, t: torch.Tensor) -> torch.Tensor:
-        """``t`` summed over the data group (the gradient: summed too)."""
-        return _AllReduce.apply(t, self.data_group, True)
+    def gather_batch(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """The batch blocks of ``t`` (one a rank of the batch group) joined along ``dim``."""
+        return _Gather.apply(t, dim, self.group(self.ax.b), self.batch_count, self.batch_index, True)
+
+    def sum_batch(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over the ranks the batch is cut over (the gradient: summed too)."""
+        return _AllReduce.apply(t, self.group(self.ax.b), True)
 
     def cut_axes(self, spec: P) -> tuple[str, ...]:
-        """The mesh axes (``"model"``, ``"data"``) of more than one rank that
-        ``spec`` cuts a leaf over."""
-        axes = []
-        if self.ax.model_size > 1 and self.ax.model in spec:
-            axes.append("model")
-        if self.data_count > 1 and any(e is not None and e != self.ax.model for e in spec):
-            axes.append("data")
-        return tuple(axes)
+        """The mesh axes (``"model"``, ``"data"``, ``"pod"``) of more than one
+        rank that ``spec`` cuts a leaf over."""
+        named = {name for e in spec if e is not None for name in _names(e)}
+        return tuple(name for name in (self.ax.model, "data", "pod") if name in named and self.sizes[name] > 1)
 
-    def group(self, axis: str):
-        """The process group of mesh axis ``axis`` (``"model"`` or ``"data"``)."""
-        return self.model_group if axis == "model" else self.data_group
+    def group(self, entry):
+        """The process group of a spec entry: ``"model"``, ``"data"``, ``"pod"``
+        or ``("pod", "data")`` (the pod × data ranks)."""
+        names = _names(entry)
+        if names == (self.ax.model,):
+            return self.model_group
+        if names == ("data",):
+            return self.data_group
+        if names == ("pod",):
+            return self.pod_group
+        if names == ("pod", "data"):
+            return self.dp_group
+        raise ValueError(f"no process group for the spec entry {entry!r}")
 
     def _index(self, entry) -> tuple[int, int] | None:
         """(this rank's block, blocks) of a dimension whose spec entry is ``entry``."""
         if entry is None:
             return None
-        if entry == self.ax.model:
-            return self.model_index, self.ax.model_size
-        return self.data_index, self.data_count  # the batch axes
+        coords = {"pod": self.pod_index, "data": self.data_index, self.ax.model: self.model_index}
+        i = 0
+        for name in _names(entry):
+            i = i * self.sizes[name] + coords[name]
+        return i, block_count(entry, self.sizes)
 
     def cut(self, t: torch.Tensor, spec: P) -> torch.Tensor:
         """This rank's block of a whole ``t`` placed by ``spec`` (a view)."""
+        block = block_shape(t.shape, spec, self.sizes)
         for dim, entry in enumerate(spec):
-            index = self._index(entry)
-            if index is None:
-                continue
-            i, n = index
-            if t.shape[dim] % n:
-                raise ValueError(f"dimension {dim} of {tuple(t.shape)} does not split into {n} blocks ({spec})")
-            size = t.shape[dim] // n
-            t = t.narrow(dim, i * size, size)
+            if entry is not None:
+                t = t.narrow(dim, self._index(entry)[0] * block[dim], block[dim])
         return t
 
     def join(self, t: torch.Tensor, spec: P) -> torch.Tensor:
         """The whole tensor of which ``t`` is this rank's block under ``spec``
         (``cut``'s inverse, by all-gathers over the groups)."""
         for dim, entry in enumerate(spec):
-            if entry is None:
-                continue
-            group = self.model_group if entry == self.ax.model else self.data_group
-            t = _all_gather(t, dim, group, self._index(entry)[1])
+            if entry is not None:
+                t = _all_gather(t, dim, self.group(entry), self._index(entry)[1])
         return t
 
 
@@ -390,8 +452,8 @@ def lm_logits(params, x: torch.Tensor, sh: Shard | None = None) -> torch.Tensor:
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, ignore_id: int = -1,
                   sh: Shard | None = None) -> torch.Tensor:
     """Mean token NLL; labels == ignore_id are masked. ``sh`` with the batch
-    cut over the data axis: the mean over the whole batch's unmasked labels
-    (the summed NLL and the label count summed over the data group)."""
+    cut: the mean over the whole batch's unmasked labels (the summed NLL and
+    the label count summed over the ranks the batch is cut over)."""
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.clamp(min=0).long()[..., None])[..., 0]
@@ -399,5 +461,5 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, ignore_id: int = -
     mask = (labels != ignore_id).float()
     total, count = torch.sum(nll * mask), torch.sum(mask)
     if sh is not None and sh.batch_split:
-        total, count = sh.sum_data(total), _all_reduce(count, sh.data_group, copy=False)
+        total, count = sh.sum_batch(total), _all_reduce(count, sh.group(sh.ax.b), copy=False)
     return total / torch.clamp(count, min=1.0)

@@ -9,7 +9,9 @@ tokens (of 1 when 16 does not divide L); here it is a Python loop over
 tokens carrying the (B, d_in, n) state, with the reference's per-token
 update in its order. The chunking changes no arithmetic. Decode carries
 (conv_state, ssm_state). Plain PyTorch on every device: the reference has
-no kernel for the scan.
+no kernel for the scan. On the ``meta`` device (the dry run, which has no
+values to be sequential about) the loop's shapes, FLOPs and live bytes are
+made without its L steps (``_ssm_scan_meta``).
 
 On a ``(data, model)`` mesh (``sh``) the mixer runs on this rank's block
 of the ``d_in`` channels (``mamba_specs``): the conv, dt, A, D and the scan
@@ -119,16 +121,24 @@ def _conv_causal(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Ten
 _SSM_CHUNK = 16  # the reference's tokens per scan step; no arithmetic depends on it
 
 
+def _ssm_state(h: torch.Tensor, dt_t: torch.Tensor, x_t: torch.Tensor, b_t: torch.Tensor,
+               a: torch.Tensor) -> torch.Tensor:
+    """One token's state update: h (B, d_in, n); dt_t, x_t (B, d_in); b_t (B, n)."""
+    da = torch.exp(dt_t[..., None] * a)  # (B, d_in, n)
+    return da * h + (dt_t * x_t)[..., None] * b_t[:, None, :]
+
+
 def _ssm_scan(xs: torch.Tensor, dt: torch.Tensor, b: torch.Tensor, c: torch.Tensor, a: torch.Tensor,
               h0: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """xs, dt: (B, L, d_in); b, c: (B, L, n); a: (d_in, n); h0: (B, d_in, n).
     Returns (final state, ys (B, L, d_in))."""
+    if xs.is_meta:
+        return _ssm_scan_meta(xs, dt, b, c, a, h0)
     l = xs.shape[1]
     chunk = _SSM_CHUNK if l % _SSM_CHUNK == 0 else 1
 
     def token_update(h, t):
-        da = torch.exp(dt[:, t, :, None] * a)  # (B, d_in, n)
-        h = da * h + (dt[:, t] * xs[:, t])[..., None] * b[:, t, None, :]
+        h = _ssm_state(h, dt[:, t], xs[:, t], b[:, t], a)
         return h, torch.einsum("bdn,bn->bd", h, c[:, t])
 
     h, ys = h0, []
@@ -137,6 +147,27 @@ def _ssm_scan(xs: torch.Tensor, dt: torch.Tensor, b: torch.Tensor, c: torch.Tens
             h, y = token_update(h, t)
             ys.append(y)
     return h, torch.stack(ys, dim=1)
+
+
+def _ssm_scan_meta(xs: torch.Tensor, dt: torch.Tensor, b: torch.Tensor, c: torch.Tensor, a: torch.Tensor,
+                   h0: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``_ssm_scan`` on the ``meta`` device (the dry run), which holds no
+    values to be sequential about: the token loop's shapes, dtypes,
+    contraction FLOPs and live bytes without its L steps. Under autograd
+    the loop keeps every token's decay and state for the backward, so they
+    are made for the whole sequence at once; without it (prefill) the loop
+    holds a few (B, d_in, n) states and its outputs, and so does this: one
+    (B, d_in, L) product for the L contractions, then the loop's state
+    updates from its second token on (h0 and the previous state live)."""
+    if torch.is_grad_enabled():
+        da = torch.exp(dt[..., None] * a)  # (B, L, d_in, n): every token's decay
+        hs = torch.addcmul(da * h0[:, None], (dt * xs)[..., None], b[:, :, None, :])  # every token's state
+        return hs[:, -1].clone(), torch.einsum("bldn,bln->bld", hs, c)
+    ys = torch.bmm(h0, c.transpose(1, 2))  # (B, d_in, L): each token's (B, d_in, n) x (B, n) contraction
+    h = _ssm_state(h0, dt[:, 0], xs[:, 0], b[:, 0], a)
+    if xs.shape[1] > 1:
+        h = _ssm_state(h, dt[:, -1], xs[:, -1], b[:, -1], a)
+    return h, ys.transpose(1, 2).contiguous()
 
 
 def _project(params, u: torch.Tensor, cfg: ArchConfig):

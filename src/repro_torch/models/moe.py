@@ -21,11 +21,12 @@ divergences):
   scatter-add over ``token_of``: the same terms, with no atomics (whose
   order varies from run to run on a card), in torch's reduction order.
 
-On a ``(data, model)`` mesh (``sh``) every rank routes every token of its
-batch rows (the router is whole, its input bit-identical across the model
-group). When the batch is cut over the data axis, the capacity is the
-whole batch's and the queue positions are too: the ranks all-gather their
-expert ids over the data group (T·k integers), run the dispatch on the
+On a ``(data, model)`` or ``(pod, data, model)`` mesh (``sh``) every rank
+routes every token of its batch rows (the router is whole, its input
+bit-identical across the model group). When the batch is cut (over the
+data ranks, or the pod × data ranks), the capacity is the whole batch's
+and the queue positions are too: the ranks all-gather their expert ids
+over the batch's ranks (T·k integers), run the dispatch on the
 whole batch and keep their own slots, so the drops are the unsharded
 model's. When the experts divide the model axis (``moe_specs``) a rank
 fills and runs only its own experts' buffers (expert parallelism);
@@ -33,8 +34,8 @@ otherwise ``d_expert`` is cut, or nothing. Either way each rank sums the
 routed outputs it holds and the model group all-reduces them; the tokens
 and the gates enter the cut experts through ``Shard.enter``, so their
 gradients (and the router's, and the residual stream's) are the group's
-sums. The aux losses' means are summed over the data group by
-``Shard.sum_data``, whose gradient is summed too.
+sums. The aux losses' means are summed over the batch's ranks by
+``Shard.sum_batch``, whose gradient is summed too.
 
 The backward stays free of float atomics too: the gradient of the scatter
 is a gather, and a token's ``top_k`` copies are an ``expand``, whose
@@ -146,8 +147,8 @@ def _dispatch_indices(expert_ids: torch.Tensor, num_experts: int, capacity: int)
 
 def route(params, xt: torch.Tensor, cfg: ArchConfig, capacity: int, sh: Shard | None = None) -> Route:
     """Route T tokens xt (T, d) to their top-k experts, ``capacity`` slots an
-    expert. ``sh`` with the batch cut over the data axis: the queues are the
-    whole batch's (xt is this rank's block of its tokens)."""
+    expert. ``sh`` with the batch cut: the queues are the whole batch's (xt
+    is this rank's block of its tokens)."""
     m: MoEConfig = cfg.moe
     logits = xt.float() @ params["router"]  # (T, E)
     probs = torch.softmax(logits, dim=-1)
@@ -161,8 +162,8 @@ def route(params, xt: torch.Tensor, cfg: ArchConfig, capacity: int, sh: Shard | 
     gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
     expert_ids = idx.reshape(-1)
     if sh is not None and sh.batch_split:
-        ours = slice(sh.data_index * expert_ids.shape[0], (sh.data_index + 1) * expert_ids.shape[0])
-        buf_idx, keep = (t[ours] for t in _dispatch_indices(sh.gather_data(expert_ids), m.num_experts, capacity))
+        ours = slice(sh.batch_index * expert_ids.shape[0], (sh.batch_index + 1) * expert_ids.shape[0])
+        buf_idx, keep = (t[ours] for t in _dispatch_indices(sh.gather_batch(expert_ids), m.num_experts, capacity))
     else:
         buf_idx, keep = _dispatch_indices(expert_ids, m.num_experts, capacity)
     return Route(logits, probs, expert_ids, gates, buf_idx, keep, margin)
@@ -185,7 +186,7 @@ def moe_ffn(params, x: torch.Tensor, cfg: ArchConfig, capacity_factor: float | N
     m: MoEConfig = cfg.moe
     b, l, d = x.shape
     t, e = b * l, m.num_experts
-    data = sh.data_count if sh is not None and sh.batch_split else 1
+    data = sh.batch_count if sh is not None and sh.batch_split else 1
     xt = x.reshape(t, d)
     capacity = capacity_of(t * data, m, capacity_factor)
     r = route(params, xt, cfg, capacity, sh)
@@ -223,7 +224,7 @@ def moe_ffn(params, x: torch.Tensor, cfg: ArchConfig, capacity_factor: float | N
     pmean = torch.mean(r.probs, dim=0)
     z = torch.mean(torch.logsumexp(r.logits, dim=-1) ** 2)
     if data > 1:  # the whole batch's: the data ranks' means of t tokens each, averaged
-        sums = sh.sum_data(torch.cat([counts, pmean, z[None]]))
+        sums = sh.sum_batch(torch.cat([counts, pmean, z[None]]))
         counts, pmean, z = sums[:e], sums[e : 2 * e] / data, sums[2 * e] / data
     f = counts / (t * data * m.top_k)
     lb = e * torch.sum(f * pmean)

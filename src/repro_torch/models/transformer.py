@@ -72,6 +72,7 @@ from .layers import (
     Shard,
     cross_entropy,
     embed_tokens,
+    frozen,
     embedding_init,
     embedding_specs,
     lm_logits,
@@ -378,6 +379,24 @@ def _dots_policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
 _dots_contexts = functools.partial(create_selective_checkpoint_contexts, _dots_policy)
 
 
+def _chain(layers, remat: str):
+    """``layers`` ((x, aux) -> (x, aux) each) one after the other, each
+    checkpointed as ``remat`` asks."""
+
+    def run(x: torch.Tensor, aux: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        for layer in layers:
+            x, aux = _remat(layer, remat)(x, aux)
+        return x, aux
+
+    return run
+
+
+def _group_of(repeat: int, remat_group: int) -> int:
+    """The reference's rule: the largest divisor of a segment's repeat depth
+    that is at most ``remat_group``."""
+    return max(d for d in range(1, remat_group + 1) if repeat % d == 0)
+
+
 def _remat(fn, remat: str):
     """``fn`` ((x, aux) -> (x, aux)) checkpointed as ``remat`` asks:
     ``"full"`` keeps only its inputs and recomputes the rest in the backward,
@@ -409,6 +428,16 @@ def _flat(tree, prefix: str = "") -> dict[str, P]:
     for k, v in tree.items():
         out.update(_flat(v, f"{prefix}{k}.") if isinstance(v, dict) else {f"{prefix}{k}": v})
     return out
+
+
+def _on_meta(node: nn.Module) -> nn.Module:
+    """A copy of a parameter tree (nested ``ParameterDict`` / ``ModuleDict``)
+    whose every parameter is a ``meta`` tensor of the same shape and dtype."""
+    if isinstance(node, nn.ParameterDict):
+        return frozen(**{k: _on_meta(v) if isinstance(v, nn.Module) else torch.empty(v.shape, dtype=v.dtype,
+                                                                                       device="meta")
+                         for k, v in node.items()})
+    return nn.ModuleDict({k: _on_meta(v) for k, v in node.items()})
 
 
 class _Gathered(Mapping):
@@ -452,30 +481,40 @@ class Model(nn.Module):
     ``remat`` (``"full"``, ``"dots"``, ``"none"``) is the reference's
     policy, with one checkpoint a layer (the reference's: one a repeat of a
     segment, which holds a whole period's recomputed activations, and on a
-    FSDP mesh its gathered weights, at once). The full-sequence forward takes
-    plain attention on every device: the flash kernel has no backward.
+    FSDP mesh its gathered weights, at once). ``remat_group`` g is the
+    reference's too: under ``"full"`` or ``"dots"`` one checkpoint holds
+    g' consecutive repeats of a segment (g' layers of a one-layer period;
+    g' the largest divisor of the segment's repeat depth that is at most
+    g), each of its layers checkpointed again inside it (``"full"``), so the
+    backward keeps one input per g' repeats and recomputes one layer at a
+    time; a layer's FSDP gathers stay inside both. The full-sequence
+    forward takes plain attention on every device: the flash kernel has no
+    backward.
 
     ``ax`` is the reference's axis environment, which sets the specs
     (``param_specs``, ``cache_specs``); without a ``mesh`` nothing is cut.
     ``mesh`` (``launch.mesh.LMMesh``) places the model on a ``(data,
-    model)`` mesh of ranks; ``ax`` then defaults to the mesh's (batch over
-    ``data``), and its model size must be the mesh's. ``fsdp`` (default: the
+    model)`` or ``(pod, data, model)`` mesh of ranks; ``ax`` then defaults
+    to the mesh's (batch over ``data``, or the pod × data ranks), and its
+    model size must be the mesh's. ``fsdp`` (default: the
     mesh's data ranks) and ``fsdp_min_elems`` are ``apply_fsdp``'s
     ``fsdp_size`` and ``min_elems``; ``fsdp`` 1 widens nothing."""
 
     def __init__(self, cfg: ArchConfig, dtype=torch.float32, remat: str = "full", ax: Axes | None = None,
-                 mesh=None, fsdp: int | None = None, fsdp_min_elems: int = 1 << 22):
+                 mesh=None, fsdp: int | None = None, fsdp_min_elems: int = 1 << 22, remat_group: int = 1):
         super().__init__()
         if remat not in REMAT:
             raise ValueError(f"remat must be one of {REMAT}, got {remat!r}")
         self.cfg = cfg
         self.dtype = dtype
         self.remat = remat
+        self.remat_group = max(1, remat_group)
         self.segments = build_segments(cfg)
         assert sum(s.repeat * len(s.layers) for s in self.segments) == cfg.num_layers
         self.params: nn.ModuleDict | None = None
         model_size = mesh.model_count if mesh is not None else 1
-        self.ax = ax or Axes(batch=("data",), model="model", model_size=model_size)
+        batch = ("pod", "data") if mesh is not None and mesh.pod_count > 1 else ("data",)
+        self.ax = ax or Axes(batch=batch, model="model", model_size=model_size)
         self.sh: Shard | None = None
         self.fsdp = 1 if mesh is None else (mesh.data_count if fsdp is None else fsdp)
         self.fsdp_min_elems = fsdp_min_elems
@@ -488,7 +527,7 @@ class Model(nn.Module):
                 raise ValueError(f"axes of model size {self.ax.model_size} on a mesh of {mesh.model_count} model ranks")
             check_mesh(cfg, self.ax)
             self.sh = Shard(self.ax, mesh.model_group, mesh.model_index, mesh.data_group, mesh.data_index,
-                            mesh.data_count)
+                            mesh.data_count, mesh.dp_group, mesh.pod_group, mesh.pod_index, mesh.pod_count)
 
     @property
     def device(self) -> torch.device:
@@ -538,25 +577,37 @@ class Model(nn.Module):
             return self.param_specs()
         return apply_fsdp(self.param_specs(), self.param_shapes(), "data", self.fsdp, self.fsdp_min_elems)
 
+    def _unstacked(self, tree: dict) -> dict:
+        """A tree in the reference's stacked layout (a segment's leaves with a
+        leading repeat entry: specs or shapes) by the port's parameter names:
+        a segment's ``seg{i}.{r}.l{j}.…`` takes the leaf without its repeat
+        entry."""
+        out = {}
+        for name, leaf in _flat(tree).items():
+            if not name.startswith("seg"):
+                out[name] = leaf
+                continue
+            si, rest = name.split(".", 1)
+            for r in range(self.segments[int(si[3:])].repeat):
+                out[f"{si}.{r}.{rest}"] = P(*leaf[1:]) if isinstance(leaf, P) else tuple(leaf[1:])
+        return out
+
     def leaf_specs(self) -> dict[str, P]:
         """Each parameter's spec by the port's parameter name (of
-        ``placed_specs``): a segment's ``seg{i}.{r}.l{j}.…`` takes the
-        reference leaf's spec without its repeat entry."""
-        if self._specs is not None:
-            return self._specs
-        out = {}
-        for name, spec in _flat(self.placed_specs()).items():
-            if name.startswith("seg"):
-                if spec[0] is not None:
+        ``placed_specs``, ``_unstacked``)."""
+        if self._specs is None:
+            specs = self.placed_specs()
+            for name, spec in _flat(specs).items():
+                if name.startswith("seg") and spec[0] is not None:
                     raise NotImplementedError(f"{name}: FSDP over a segment's repeat axis ({spec}) has no "
                                               "per-repeat layout (ROADMAP M5)")
-                si, rest = name.split(".", 1)
-                for r in range(self.segments[int(si[3:])].repeat):
-                    out[f"{si}.{r}.{rest}"] = P(*spec[1:])
-            else:
-                out[name] = spec
-        self._specs = out
-        return out
+            self._specs = self._unstacked(specs)
+        return self._specs
+
+    def leaf_shapes(self) -> dict[str, tuple[int, ...]]:
+        """Each parameter's whole shape by the port's parameter name (of
+        ``param_shapes``, ``_unstacked``)."""
+        return self._unstacked(self.param_shapes())
 
     def fsdp_dims(self) -> dict[str, int]:
         """{parameter name: the dimension cut over the data axis} of the FSDP leaves."""
@@ -625,6 +676,29 @@ class Model(nn.Module):
         self.params = nn.ModuleDict(p)
         return self.params
 
+    def init_meta(self) -> nn.ModuleDict:
+        """``init``'s tree on the ``meta`` device, with no values and no
+        memory: the embedding and one repeat of each segment drawn on fake
+        tensors (as ``param_shapes`` draws) and placed by the specs, then
+        every repeat given ``meta`` blocks of those shapes and dtypes (a
+        segment's repeats are placed alike). What the dry run
+        (``launch.dryrun``) steps."""
+        from torch._subclasses.fake_tensor import FakeTensorMode
+
+        cfg, gen = self.cfg, torch.Generator()
+        with FakeTensorMode():
+            embed = self.place(embedding_init(gen, cfg.vocab_size, cfg.d_model, cfg.tie_embeddings, self.dtype),
+                               "embed")
+            norm = rmsnorm_init(cfg.d_model, gen.device)
+            first = [{f"l{i}": self.place(layer_init(gen, cfg, d, self.dtype), f"seg{si}.0.l{i}")
+                      for i, d in enumerate(seg.layers)} for si, seg in enumerate(self.segments)]
+        p = {"embed": _on_meta(embed), "final_norm": _on_meta(norm)}
+        for si, seg in enumerate(self.segments):
+            p[f"seg{si}"] = nn.ModuleList(nn.ModuleDict({k: _on_meta(v) for k, v in first[si].items()})
+                                          for _ in range(seg.repeat))
+        self.params = nn.ModuleDict(p)
+        return self.params
+
     def _layers(self):
         """(layer params, desc, segment index, repeat, layer name) in depth order."""
         for si, seg in enumerate(self.segments):
@@ -650,10 +724,13 @@ class Model(nn.Module):
         remat = self.remat if torch.is_grad_enabled() else "none"
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for si, seg in enumerate(self.segments):
-            for r, rep in enumerate(self.params[f"seg{si}"]):
-                for i, d in enumerate(seg.layers):
-                    layer = functools.partial(self._layer, rep[f"l{i}"], d, f"seg{si}.{r}.l{i}.")
-                    x, aux = _remat(layer, remat)(x, aux)
+            reps = self.params[f"seg{si}"]
+            g = _group_of(seg.repeat, self.remat_group) if remat != "none" else 1
+            for r0 in range(0, seg.repeat, g):
+                layers = [functools.partial(self._layer, reps[r][f"l{i}"], d, f"seg{si}.{r}.l{i}.")
+                          for r in range(r0, r0 + g) for i, d in enumerate(seg.layers)]
+                run = _chain(layers, remat) if g == 1 else _remat(_chain(layers, "full"), remat)
+                x, aux = run(x, aux)
         return rmsnorm(self._use(self.params["final_norm"], "final_norm."), x, self.cfg.norm_eps), aux
 
     @torch.inference_mode()

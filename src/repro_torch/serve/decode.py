@@ -4,10 +4,11 @@
 against the KV caches, greedy or sampled at a temperature.
 ``generate`` drives prefill and the decode loop from the host.
 
-On a ``(data, model)`` mesh (a ``Model`` made with ``mesh=``) every rank
-runs ``generate`` on its rows of the prompt: the ranks of a model group
-compute the same whole logits, so they return the same tokens, and each
-data rank returns its block of the batch's rows.
+On a ``(data, model)`` or ``(pod, data, model)`` mesh (a ``Model`` made
+with ``mesh=``) every rank runs ``generate`` on its rows of the prompt: the
+ranks of a model group compute the same whole logits, so they return the
+same tokens, and each (pod, data) rank returns its block of the batch's
+rows.
 
 Sampling at ``temperature > 0`` draws by inverse CDF over the softmax,
 one uniform a row from an explicit ``torch.Generator`` (it cannot
@@ -44,7 +45,7 @@ def _sample(logits: torch.Tensor, generator: torch.Generator | None, blocks: int
 def make_serve_step(model: Model, temperature: float = 0.0):
     """serve_step(caches, tokens, pos, generator) -> (next_tokens (B, 1), caches)."""
     sh = model.sh
-    blocks, index = (sh.data_count, sh.data_index) if sh is not None and sh.batch_split else (1, 0)
+    blocks, index = (sh.batch_count, sh.batch_index) if sh is not None and sh.batch_split else (1, 0)
 
     def serve_step(caches, tokens: torch.Tensor, pos: int, generator: torch.Generator | None = None):
         logits, caches = model.decode_step(caches, tokens, pos)

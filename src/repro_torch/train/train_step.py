@@ -9,17 +9,18 @@ added into one ``accum_dtype`` buffer as autograd produces it (a
 post-accumulate hook), so no second full set of gradients is held, and the
 sums are divided by their count, as the reference's scan does.
 
-On a ``(data, model)`` mesh (``Model(mesh=...)``) every rank is handed the
-whole global batch: it is split into microbatches first, as the
-reference's ``_split_microbatches`` splits it, and each microbatch is then
-cut to this rank's rows by ``batch_specs``, so a microbatch holds the
-reference's rows (an MoE layer's capacity is the microbatch's). A data
-rank's gradients are ``data`` times its rows' share (``models.layers``);
-after the microbatch loop the gradients of leaves whole over the data
-axis are all-reduced over the data group, and every gradient is divided
-by the data ranks (an FSDP leaf's was summed by its gather's
-reduce-scatter). ZeRO-1 moments and ``int8`` compression on a cut mesh
-raise (ROADMAP).
+On a ``(data, model)`` or ``(pod, data, model)`` mesh (``Model(mesh=...)``)
+every rank is handed the whole global batch: it is split into microbatches
+first, as the reference's ``_split_microbatches`` splits it, and each
+microbatch is then cut to this rank's rows by ``batch_specs``, so a
+microbatch holds the reference's rows (an MoE layer's capacity is the
+microbatch's). A rank's gradients are ``dp`` (pod × data) times its rows'
+share (``models.layers``); after the microbatch loop the gradients of
+leaves whole over the data axis are all-reduced over the pod × data ranks,
+an FSDP leaf's (summed over the data ranks by its gather's
+reduce-scatter) over the pod ranks, and every gradient is divided by
+``dp``. ZeRO-1 moments and ``int8`` compression on a cut mesh raise
+(ROADMAP).
 """
 from __future__ import annotations
 
@@ -99,7 +100,7 @@ def accumulate_grads(
     its own, each gradient is added into its ``accum_dtype`` buffer as it
     appears and the sums are divided by ``n`` (``n`` 1: autograd's gradients
     as they come). On a mesh ``batch`` is the global batch and the
-    gradients are this rank's blocks, reduced over the data group. Turns
+    gradients are this rank's blocks, reduced over the pod × data ranks. Turns
     gradients on for ``model.params``."""
     model.params.requires_grad_(True)
     names, leaves = zip(*model.params.named_parameters())
@@ -144,12 +145,14 @@ def accumulate_grads(
     missing = [name for name, g in zip(names, grads) if g is None]
     if missing:
         raise RuntimeError(f"no gradient reached {missing}")
-    if sh is not None and sh.data_count > 1:
+    if sh is not None and sh.dp > 1:
         specs = model.leaf_specs()
         for name, g in zip(names, grads):
             if "data" not in sh.cut_axes(specs[name]):
-                dist.all_reduce(g, group=sh.data_group)
-            g /= sh.data_count
+                dist.all_reduce(g, group=sh.group(("pod", "data")))
+            elif sh.pod_count > 1:  # summed over the data ranks by its gather's reduce-scatter
+                dist.all_reduce(g, group=sh.pod_group)
+            g /= sh.dp
     return loss, dict(zip(names, grads))
 
 

@@ -1,9 +1,10 @@
 """Import hygiene of the port: no JAX, nothing of the reference package.
 
 Every ``repro_torch`` module, ``chip_smoke.py`` and the ranks' child scripts
-of the distributed, sharded and LM mesh tests (``tests/_torch_dist_child.py``,
-``tests/_torch_sharded_child.py``, ``tests/_torch_lm_mesh_child.py``,
-``tests/_torch_lm_train_mesh_child.py``) are imported in a
+of the distributed, sharded, LM mesh and dry-run tests
+(``tests/_torch_dist_child.py``, ``tests/_torch_sharded_child.py``,
+``tests/_torch_lm_mesh_child.py``, ``tests/_torch_lm_train_mesh_child.py``,
+``tests/_torch_lm_pod_child.py``) are imported in a
 fresh interpreter, which must end with neither ``jax`` nor any ``repro`` /
 ``repro.*`` module loaded; their sources, the port's ``tools/*.py`` and its
 example scripts ``examples/torch_*.py`` are also scanned with ``ast`` for
@@ -26,8 +27,9 @@ DIST_CHILD = ROOT / "tests" / "_torch_dist_child.py"
 SHARDED_CHILD = ROOT / "tests" / "_torch_sharded_child.py"
 LM_MESH_CHILD = ROOT / "tests" / "_torch_lm_mesh_child.py"
 LM_TRAIN_MESH_CHILD = ROOT / "tests" / "_torch_lm_train_mesh_child.py"
+LM_POD_CHILD = ROOT / "tests" / "_torch_lm_pod_child.py"
 SOURCES = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", DIST_CHILD, SHARDED_CHILD, LM_MESH_CHILD,
-                                         LM_TRAIN_MESH_CHILD]
+                                         LM_TRAIN_MESH_CHILD, LM_POD_CHILD]
            + sorted((ROOT / "tools").glob("*.py"))
            + sorted((ROOT / "examples").glob("torch_*.py")))
 
@@ -45,7 +47,7 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
         "import importlib, json, sys\n"
         f"sys.path[:0] = [{str(ROOT / 'src')!r}, {str(ROOT)!r}, {str(DIST_CHILD.parent)!r}]\n"
         f"for name in {_module_names()!r} + ['chip_smoke', {DIST_CHILD.stem!r}, {SHARDED_CHILD.stem!r}, {LM_MESH_CHILD.stem!r}, "
-        f"{LM_TRAIN_MESH_CHILD.stem!r}]:\n"
+        f"{LM_TRAIN_MESH_CHILD.stem!r}, {LM_POD_CHILD.stem!r}]:\n"
         "    importlib.import_module(name)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'repro' or m.startswith('repro.'))\n"

@@ -343,6 +343,10 @@ def test_a_mesh_model_places_by_the_widened_specs():
         model_index: int = 0
         data_group: object = None
         data_index: int = 0
+        pod_group: object = None
+        pod_index: int = 0
+        pod_count: int = 1
+        dp_group: object = None
 
     m = tf.Model(cfg, mesh=FakeMesh(), fsdp_min_elems=1 << 10)
     widened = _port_leaves(apply_fsdp(m.param_specs(), m.param_shapes(), "data", 4, 1 << 10))
