@@ -7,7 +7,8 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 
 On a machine with four, ``python3 chip_smoke.py --multi-rank-only`` builds
 the kernels and runs only the 4-rank searches of phase 5 and the one-rank
-searches they are compared with, then phase 5's 4-rank serves and trains.
+searches they are compared with, then phase 5's 4-rank serves and trains
+(each with the one-card runs it is held to).
 
 Phases, each fatal on failure:
 
@@ -17,15 +18,19 @@ Phases, each fatal on failure:
      registers, shared memory, spills); then start the dry run
      (``launch.dryrun``) on the host in two processes of its own, one a
      production mesh ((16, 16) and (2, 16, 16)), with no card visible:
-     every arch's decode_32k and long_500k, train_4k of llama3-405b and
-     granite-moe-1b-a400m, granite's prefill_32k, each cell's step run
+     every arch's decode_32k and long_500k, train_4k of llama3-405b,
+     granite-moe-1b-a400m and qwen2-0.5b (the sequence-parallel residual),
+     the prefill_32k of granite and deepseek-v2, each cell's step run
      once on ``meta`` over a fake process group; read at the end of phase
-     5: ``ok`` where ``check_mesh`` admits the arch at model 16, ``error``
-     with exactly its refusal, ``skip`` exactly where ``shape_applicable``
-     says, one line a cell (bytes a rank, peak, FLOPs, census bytes);
+     5: ``ok`` where ``check_mesh`` admits the arch at model 16 (every
+     arch of the registry), ``error`` with exactly its refusal, ``skip``
+     exactly where ``shape_applicable`` says, one line a cell (bytes a
+     rank, peak, FLOPs, census bytes);
   3. hold each kernel wrapper against its plain PyTorch version on the card
-     at the shapes of the main paths (flash also at jamba's D 128, and at
-     one rank's heads of ``jamba_serve_tp4``: Hq 8, Hk 2), with the
+     at the shapes of the main paths (flash also at jamba's D 128, at
+     one rank's heads of ``jamba_serve_tp4``: Hq 8, Hk 2, and at each
+     rank's query block of ``qwen2_serve_seq14``'s sequence-parallel
+     prefill: Lq 250 of Lk 1000 at q_offset 0, 250, 500, 750), with the
      tolerance stated, and time
      kernel, plain version, the card's bound and, where one PyTorch call
      computes the same function, that call (CUDA events, warmed up); the
@@ -110,18 +115,31 @@ Phases, each fatal on failure:
      (``--model-shards 4``): 4 flash launches on each rank (Hq 8, Hk 2),
      every rank the same tokens, prompt 0's decode against the full
      forward at a capacity factor where nothing drops, each rank's peak
-     memory and times; ``jamba_serve_8l_mesh22``: the 8-layer cut at (2, 2)
-     teacher-forced against the one-card run of the same weights (logits
-     within 2e-3, the served tokens the one-card run's up to a printed
-     near-tie), else one line saying they were not made; with 4 or more
-     cards then ``jamba_train_8l_mesh``: jamba-v0.1-52b's 8-layer cut at
-     its published widths (13.30 B parameters; ≈ 213 GB with gradients
-     and AdamW's moments) trained through ``launch.train --data-shards
-     --model-shards`` at (1, 4), (2, 2) and (4, 1) (FSDP over the data
-     axis), 3 steps of B 8, L 64 in 2 microbatches, remat full, the three
-     held against each other (step 0's loss at 1e-5, gradient norms and
-     losses at 1e-4), every rank the same numbers, no kernel launch, and
-     at (2, 2) reduced jamba and granite against a one-card step; then
+     memory and times; then, each teacher-forced against the one-card
+     run of the same weights and prompts (logits within 2e-3, the served
+     tokens the one-card run's up to a printed near-tie), every rank of a
+     model group the same tokens: ``jamba_serve_8l_mesh22``, the 8-layer
+     cut at (2, 2); ``qwen2_serve_seq14``, qwen2-0.5b whole at (1, 4)
+     (14 heads over 4: the sequence-parallel prefill, 24 flash launches
+     a rank, each at its rank's query offset); ``deepseek_serve_2l_tp4``,
+     deepseek-v2's 2-layer cut with 16 routed experts at (1, 4) (MLA cut
+     over the model axis, 0 launches); ``rwkv6_serve_tp4``, rwkv6-1.6b
+     whole at (1, 4), prompts of 1024 and 1000 (the chunked WKV and the
+     token loop; 0 launches); else one line saying they were not made;
+     with 4 or more cards then ``jamba_train_8l_mesh``: jamba-v0.1-52b's
+     8-layer cut at its published widths (13.30 B parameters; ≈ 213 GB
+     with gradients and AdamW's moments) trained through ``launch.train
+     --data-shards --model-shards`` at (1, 4), (2, 2) and (4, 1) (FSDP
+     over the data axis), 3 steps of B 8, L 64 in 2 microbatches, remat
+     full, the three held against each other (step 0's loss at 1e-5,
+     gradient norms and losses at 1e-4), every rank the same numbers, no
+     kernel launch, and at (2, 2) reduced jamba and granite against a
+     one-card step; ``qwen2_train_seq14`` (qwen2-0.5b at (1, 1, 4), the
+     sequence-parallel residual), ``rwkv6_train_2l_mesh22`` and
+     ``deepseek_train_2l_mesh22`` (each cut to 2 layers, at (1, 2, 2)),
+     each held against the
+     one-card run of its arch and args (step 0's loss at 1e-5, gradient
+     norms and losses at 1e-4); then
      ``granite_train_pod``: granite-moe-1b-a400m at its published widths,
      the same step at (pod 2, data 2, model 1) against (pod 1, data 4,
      model 1), the same gates; each run's parameters and optimizer-state
@@ -1131,15 +1149,16 @@ def run_distributed_fit_search(torch, ops, ksearch, log) -> dict[str, int]:
     return counts
 
 
-def _live_pairs(lq: int, lk: int, causal: bool, window: int | None) -> int:
-    """(query, key) pairs the masks leave live: the work this run's data needs."""
+def _live_pairs(lq: int, lk: int, causal: bool, window: int | None, q_offset: int = 0) -> int:
+    """(query, key) pairs the masks leave live, query row i at position
+    ``q_offset + i``: the work this run's data needs."""
     if not causal and window is None:
         return lq * lk
     w = window if window is not None else lk
-    return sum(min(i + 1, w) for i in range(lq))
+    return sum(min(q_offset + i + 1, w) for i in range(lq))
 
 
-def _plain_fp64_err(ref, q, k, v, got, plain32, causal, window) -> tuple[float, float]:
+def _plain_fp64_err(ref, q, k, v, got, plain32, causal, window, q_offset=0) -> tuple[float, float]:
     """Max abs error of the kernel and of the fp32 plain version against the
     plain version in float64, taken one kv head at a time (bounded memory)."""
     group = q.shape[1] // k.shape[1]
@@ -1147,7 +1166,7 @@ def _plain_fp64_err(ref, q, k, v, got, plain32, causal, window) -> tuple[float, 
     for kh in range(k.shape[1]):
         hs = slice(kh * group, (kh + 1) * group)
         want = ref.attention(q[:, hs].double(), k[:, kh:kh + 1].double(), v[:, kh:kh + 1].double(),
-                             causal=causal, window=window)
+                             causal=causal, window=window, q_offset=q_offset)
         err_kernel = max(err_kernel, float((got[:, hs].double() - want).abs().max()))
         err_plain = max(err_plain, float((plain32[:, hs].double() - want).abs().max()))
         del want
@@ -1164,13 +1183,19 @@ def check_flash(torch, dev, ops, ref, records: dict, log) -> None:
     jamba's cases are drawn last, in that order, so that the other cases
     keep their inputs), at h2o-danube-1.8b's heads with its
     window (B 1, Hq 32, Hk 8, L 6000, D 80, window 4096: ragged, and the
-    window skip bites) and on a small ragged non-causal case with D 17 and
-    an offset base (element-by-element loads and stores). Held against the
+    window skip bites), on a small ragged non-causal case with D 17 and
+    an offset base (element-by-element loads and stores), and, drawn after
+    all of those, at each rank's query block of ``qwen2_serve_seq14``'s
+    sequence-parallel prefill (B 4, Hq 14, Hk 2, Lq 250 of Lk 1000, D 64,
+    causal, at q_offset 0, 250, 500 and 750: the last rank has 7 times the
+    first's live pairs). Held against the
     fp32 plain version at the reference's tolerance; the errors of both
     against a float64 plain version are reported beside. Each case must give
     the same bits on a second call. The timed cases log both bounds: fp32 on
     CUDA cores, and the split-TF32 products on the tensor cores (the
-    kernel's)."""
+    kernel's). The library's yardstick is SDPA, which takes a window or a
+    query offset only as an explicit boolean mask (its ``is_causal``
+    aligns the mask top-left)."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device=dev)
@@ -1189,35 +1214,40 @@ def check_flash(torch, dev, ops, ref, records: dict, log) -> None:
         ("jamba-v0.1-52b prefill, one rank of jamba_serve_tp4: B 4, Hq 8, Hk 2, L 1024, D 128, causal",
          (4, 8, 2, 1024, 1024, 128), True, None, True),
     )
-    for label, (b, hq, hk, lq, lk, d), causal, window, timed in cases:
+    cases = tuple((*case, 0) for case in cases) + tuple(
+        (f"qwen2-0.5b prefill, rank {r} of qwen2_serve_seq14: B 4, Hq 14, Hk 2, Lq 250, Lk 1000, D 64, causal, "
+         f"q_offset {250 * r}", (4, 14, 2, 250, 1000, 64), True, None, True, 250 * r) for r in range(4))
+    for label, (b, hq, hk, lq, lk, d), causal, window, timed, q_offset in cases:
         q, k, v = (torch.randn((b, h, n, d), device=dev, generator=gen) for h, n in ((hq, lq), (hk, lk), (hk, lk)))
         if not timed:  # one float past a 16-byte boundary
             q, k, v = (torch.empty(t.numel() + 1, device=dev)[1:].view(t.shape).copy_(t) for t in (q, k, v))
-        got = ops.flash_attention(q, k, v, causal=causal, window=window)
-        plain = ref.attention(q, k, v, causal=causal, window=window)
+        kw = dict(causal=causal, window=window, q_offset=q_offset)
+        got = ops.flash_attention(q, k, v, **kw)
+        plain = ref.attention(q, k, v, **kw)
         torch.cuda.synchronize()
         err = compare(torch, got, plain, FLASH_TOL["rtol"], FLASH_TOL["atol"], f"flash_attention [{label}]")
-        if not torch.equal(got, ops.flash_attention(q, k, v, causal=causal, window=window)):
+        if not torch.equal(got, ops.flash_attention(q, k, v, **kw)):
             raise AssertionError(f"flash_attention [{label}]: two calls differ")
-        err64, plain_err64 = _plain_fp64_err(ref, q, k, v, got, plain, causal, window)
+        err64, plain_err64 = _plain_fp64_err(ref, q, k, v, got, plain, causal, window, q_offset)
         entry = {"case": label, "max_abs_err": err, "max_abs_err_vs_fp64": err64,
                  "plain_fp32_max_abs_err_vs_fp64": plain_err64, "repeat_bitwise": True}
         del got, plain
         if timed:
-            pairs = _live_pairs(lq, lk, causal, window)
+            pairs = _live_pairs(lq, lk, causal, window, q_offset)
             flops = 4 * b * hq * d * pairs  # q.k and p.v multiply-adds on the live pairs
             n_bytes = 4 * (2 * q.numel() + k.numel() + v.numel())  # q, k, v read; out written
             b32_ms, b32_by = bound_ms(n_bytes, flops)
             # the kernel's own work: three TF32 products for each fp32 one
             btc_ms, btc_by = bound_ms(n_bytes, 3 * flops, TF32_FLOPS_PER_S)
-            if window is None:
+            if window is None and q_offset == 0:
                 lib_kw = dict(is_causal=causal)
-            else:  # SDPA takes a window only as an explicit mask
-                i = torch.arange(lq, device=dev)
-                lib_kw = dict(attn_mask=(i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window))
+            else:  # SDPA takes a window or a query offset only as an explicit mask
+                i, j = q_offset + torch.arange(lq, device=dev)[:, None], torch.arange(lk, device=dev)[None, :]
+                lib_kw = dict(attn_mask=(j <= i) & (j > i - (window or lk + lq)))
             entry.update(
-                flops=flops, ms=time_ms(torch, lambda: ops.flash_attention(q, k, v, causal=causal, window=window)),
-                plain_ms=time_ms(torch, lambda: ref.attention(q, k, v, causal=causal, window=window), reps=10),
+                flops=flops, q_offset=q_offset, live_pairs=pairs,
+                ms=time_ms(torch, lambda: ops.flash_attention(q, k, v, **kw)),
+                plain_ms=time_ms(torch, lambda: ref.attention(q, k, v, **kw), reps=10),
                 bound_ms=btc_ms, bound_by=btc_by, bound_fp32_ms=b32_ms, bound_fp32_by=b32_by,
                 library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v, enable_gqa=True, **lib_kw)),
                 library="F.scaled_dot_product_attention(fp32, enable_gqa=True): the same function, one call",
@@ -1874,30 +1904,52 @@ def run_jamba_serve(torch, dev, ops, log) -> dict[str, int]:
     return counts
 
 
-# the serve path on a (data, model) mesh of 4 ranks, one process a card:
-# jamba-v0.1-52b whole (32 layers, 51.57 B parameters, 206 GB in fp32) at
-# (1, 4) through the serve launcher, and the 8-layer cut at (2, 2) against
-# the one-card run of the same weights (``record_jamba_8l``)
-MULTI_RANK_SERVES = {"jamba_serve_tp4": (1, 4, 32), "jamba_serve_8l_mesh22": (2, 2, JAMBA_LAYERS)}
+# the serve path on a (data, model) mesh of 4 ranks, one process a card, each
+# label (arch, data, model, layers; None: all): jamba-v0.1-52b whole (32
+# layers, 51.57 B parameters, 206 GB in fp32) at (1, 4) through the serve
+# launcher; the others against the one-card run of the same weights
+# (``record_one_card``): jamba's 8-layer cut at (2, 2); qwen2-0.5b whole at
+# (1, 4), whose 14 heads do not divide 4 (the sequence-parallel prefill,
+# each rank's 250 query rows at q_offset r·250; the decode's attention whole
+# on every rank); deepseek-v2 cut to 2 layers with 16 routed experts at
+# (1, 4) (MLA on a rank's 32 heads, the latent cache cut on its width, 144
+# a rank); rwkv6-1.6b whole at (1, 4) (8 of its 32 heads a rank), at prompts
+# of 1024 (the chunked WKV) and 1000 (the token loop)
+MULTI_RANK_SERVES = {
+    "jamba_serve_tp4": ("jamba-v0.1-52b", 1, 4, None),
+    "jamba_serve_8l_mesh22": ("jamba-v0.1-52b", 2, 2, JAMBA_LAYERS),
+    "qwen2_serve_seq14": ("qwen2-0.5b", 1, 4, None),
+    "deepseek_serve_2l_tp4": ("deepseek-v2-236b", 1, 4, DEEPSEEK_LAYERS),
+    "rwkv6_serve_tp4": ("rwkv6-1.6b", 1, 4, None),
+}
+MESH_SERVE_PROMPTS = {"qwen2-0.5b": (SERVE_PROMPT,), "deepseek-v2-236b": (DEEPSEEK_PROMPT,),
+                      "rwkv6-1.6b": (SCAN_SERVE_PROMPT, SERVE_PROMPT), "jamba-v0.1-52b": (SCAN_SERVE_PROMPT,)}
 MULTI_RANK_SERVE_TIMEOUT_S = 900
 
 
-def record_jamba_8l(torch, dev, path: Path) -> None:
-    """The one-card greedy run of ``jamba_serve_8l``'s model and prompts
-    (seed 0): the prompt, the SERVE_TOKENS tokens and each step's logits,
-    saved to ``path`` for ``jamba_serve_8l_mesh22``. Frees the card after."""
+def mesh_serve_cfg(arch: str, layers: int | None):
+    """A mesh serve's config: the arch at its published widths, cut to
+    ``layers``; deepseek-v2 to ``DEEPSEEK_SMALL_EXPERTS`` routed experts."""
+    from repro_torch.configs import cut_config, get_config
+
+    experts = DEEPSEEK_SMALL_EXPERTS if arch == "deepseek-v2-236b" else None
+    return cut_config(get_config(arch), layers, experts)
+
+
+def record_one_card(torch, dev, cfg, prompt_len: int, path: Path) -> None:
+    """The one-card greedy run of a mesh serve's model and prompts (seed 0):
+    the prompt, the SERVE_TOKENS tokens and each step's logits, saved to
+    ``path`` for ``vs_one_card``. Frees the card after."""
     import gc
 
-    from repro_torch.configs import get_config
     from repro_torch.launch.serve import setup
 
-    cfg = dataclasses.replace(get_config("jamba-v0.1-52b"), num_layers=JAMBA_LAYERS)
     torch.cuda.empty_cache()
-    model, prompt, _, _ = setup(cfg, SERVE_BATCH, SCAN_SERVE_PROMPT, dev, seed=0)
-    lg, caches = model.prefill({"tokens": prompt}, cache_len=SCAN_SERVE_PROMPT + SERVE_TOKENS)
+    model, prompt, _, _ = setup(cfg, SERVE_BATCH, prompt_len, dev, seed=0)
+    lg, caches = model.prefill({"tokens": prompt}, cache_len=prompt_len + SERVE_TOKENS)
     logits, tokens = [lg], [torch.argmax(lg[:, -1], dim=-1).to(torch.int32)[:, None]]
     for i in range(SERVE_TOKENS - 1):
-        lg, caches = model.decode_step(caches, tokens[-1], SCAN_SERVE_PROMPT + i)
+        lg, caches = model.decode_step(caches, tokens[-1], prompt_len + i)
         logits.append(lg)
         tokens.append(torch.argmax(lg[:, -1], dim=-1).to(torch.int32)[:, None])
     torch.save({"prompt": prompt.cpu(), "tokens": torch.cat(tokens, dim=1).cpu(),
@@ -1910,32 +1962,37 @@ def record_jamba_8l(torch, dev, path: Path) -> None:
 def run_multi_rank_serves(torch, dev, log) -> dict[str, dict[str, int]]:
     """The serve path on 4 ranks, one process a card (``torchrun``,
     rendezvous on localhost), each mesh of ``MULTI_RANK_SERVES`` in one
-    launch (``rank_serve``): each rank serves SERVE_BATCH prompts of
-    SCAN_SERVE_PROMPT tokens and SERVE_TOKENS new tokens with counts reset
+    launch (``rank_serve``), after its one-card records (card 0, freed
+    before the launch): each rank serves SERVE_BATCH prompts of each length
+    of ``MESH_SERVE_PROMPTS`` and SERVE_TOKENS new tokens with counts reset
     just before, read just after, and writes its tokens, launches, times,
-    peak memory and checks. Gates: one flash launch an attention layer on
-    every rank, the same tokens on every rank of a model group, and each
-    rank's own checks (``rank_serve``). Launch counts are summed over the
-    ranks. Needs 4 cards."""
+    peak memory and checks. Gates: one flash launch an attention layer and
+    prefill on every rank (none for MLA and RWKV), the same tokens on every
+    rank of a model group, and each rank's own checks (``rank_serve``).
+    Launch counts are summed over the ranks. Needs 4 cards."""
     import os
     import signal
     import tempfile
 
-    from repro_torch.configs import get_config
-
     cards = torch.cuda.device_count()
     if cards < 4:
-        log(f"multi-rank serves: not made ({cards} card(s) visible; jamba_serve_tp4 and jamba_serve_8l_mesh22 "
-            "need 4)")
+        log(f"multi-rank serves: not made ({cards} card(s) visible; {', '.join(MULTI_RANK_SERVES)} need 4)")
         return {}
     by_path = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as tmp:
-        record_jamba_8l(torch, dev, Path(tmp) / "jamba_8l.pt")
-        for label, (data, model, layers) in MULTI_RANK_SERVES.items():
+        for label, (arch, data, model, layers) in MULTI_RANK_SERVES.items():
             outdir = Path(tmp) / label
             outdir.mkdir()
-            (outdir / "spec.json").write_text(json.dumps({"label": label, "data": data, "model": model,
-                                                          "layers": layers, "record": str(Path(tmp) / "jamba_8l.pt")}))
+            cfg = mesh_serve_cfg(arch, layers)
+            prompts = MESH_SERVE_PROMPTS[arch]
+            records = []
+            if label != "jamba_serve_tp4":
+                for plen in prompts:
+                    records.append(str(outdir / f"one_card_{plen}.pt"))
+                    record_one_card(torch, dev, cfg, plen, Path(records[-1]))
+            (outdir / "spec.json").write_text(json.dumps({"label": label, "arch": arch, "data": data, "model": model,
+                                                          "layers": layers, "prompts": prompts,
+                                                          "records": records}))
             cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "4",
                    str(ROOT / "chip_smoke.py"), "--rank-serve", str(outdir)]
             proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
@@ -1952,21 +2009,22 @@ def run_multi_rank_serves(torch, dev, log) -> dict[str, dict[str, int]]:
             if proc.returncode != 0:
                 raise AssertionError(f"{label}: torchrun exited {proc.returncode}:\n{text[-4000:]}")
             ranks = [json.loads((outdir / f"rank{r}.json").read_text()) for r in range(4)]
-            attn = flash_layers(dataclasses.replace(get_config("jamba-v0.1-52b"), num_layers=layers))
+            attn = flash_layers(cfg) * len(prompts)
             for r, rank in enumerate(ranks):
                 group = ranks[r - r % model]
                 if rank["tokens"] != group["tokens"] or rank["launches"]["flash_attention"] != attn:
                     raise AssertionError(f"{label}: rank {r} tokens {rank['tokens']} and "
                                          f"{rank['launches']['flash_attention']} flash launches; rank "
                                          f"{r - r % model}: {group['tokens']}, want {attn} launches")
-            log(json.dumps({"serve": label, "mesh": {"data": data, "model": model}, "layers": layers,
-                            "batch": SERVE_BATCH, "prompt": SCAN_SERVE_PROMPT, "tokens": SERVE_TOKENS,
+            log(json.dumps({"serve": label, "arch": arch, "mesh": {"data": data, "model": model},
+                            "layers": layers or cfg.num_layers, "batch": SERVE_BATCH, "prompts": prompts,
+                            "tokens": SERVE_TOKENS,
                             "prefill_s": [rank["prefill_s"] for rank in ranks],
                             "decode_s": [rank["decode_s"] for rank in ranks],
                             "max_memory_allocated": [rank["max_memory_allocated"] for rank in ranks],
                             "max_memory_allocated_check": [rank["max_memory_allocated_check"] for rank in ranks],
                             "params_per_rank": [rank["params"] for rank in ranks],
-                            "sample": ranks[0]["tokens"][0], "check": ranks[0]["check"],
+                            "sample": ranks[0]["tokens"][0][0], "check": ranks[0]["check"],
                             "launches_by_rank": [rank["launches"] for rank in ranks], "card": smi_line()}))
             by_path[label] = {name: sum(rank["launches"][name] for rank in ranks) for name in ranks[0]["launches"]}
     return by_path
@@ -1977,56 +2035,64 @@ def rank_serve(outdir: Path) -> int:
     ``outdir/spec.json``. ``jamba_serve_tp4``: the serve launcher
     (``launch.serve.main``) with jamba-v0.1-52b whole at ``--data-shards 1
     --model-shards 4``, then prompt 0's decode against the full forward at
-    an aligned capacity (``aligned_decode_gaps``). ``jamba_serve_8l_mesh22``:
-    ``setup`` and ``generate`` on the 8-layer cut at (2, 2), then this
-    rank's rows teacher-forced with the one-card run's tokens, each step's
-    logits within LOGIT_TOL of the one-card run's, and the served tokens
-    the one-card run's up to a near-tie of its top two logits (printed).
-    Writes ``outdir/rank<RANK>.json``."""
+    an aligned capacity (``aligned_decode_gaps``). The others: for each
+    prompt length, ``setup`` and ``generate`` on the mesh (counted and
+    timed), then this rank's rows teacher-forced with the one-card run's
+    tokens, each step's logits within LOGIT_TOL of the one-card run's, and
+    the served tokens the one-card run's up to a near-tie of its top two
+    logits (printed; ``vs_one_card``). Writes ``outdir/rank<RANK>.json``."""
     import os
 
     import torch
 
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.configs import get_config
     from repro_torch.device import resolve
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
     from repro_torch.launch.mesh import make_lm_mesh
-    from repro_torch.models.transformer import Model
     from repro_torch.serve.decode import generate
 
     spec = json.loads((outdir / "spec.json").read_text())
     label, data, model_size = spec["label"], spec["data"], spec["model"]
     dev = resolve("cuda")
-    cfg = dataclasses.replace(get_config("jamba-v0.1-52b"), num_layers=spec["layers"])
+    cfg = mesh_serve_cfg(spec["arch"], spec["layers"])
     torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
     torch.cuda.reset_peak_memory_stats()
-    ops.reset_launch_counts()
     if label == "jamba_serve_tp4":
+        ops.reset_launch_counts()
         out = serve.main([*serve_args("jamba-v0.1-52b", SCAN_SERVE_PROMPT), "--data-shards", str(data),
                           "--model-shards", str(model_size)])
-        tokens, timings = out["tokens"], out
-    else:
+        counts = ops.launch_counts()
+        result = {"tokens": [out["tokens"].tolist()], "launches": counts, "prefill_s": [out["prefill_s"]],
+                  "decode_s": [out["decode_s"]], "max_memory_allocated": torch.cuda.max_memory_allocated()}
+        torch.cuda.reset_peak_memory_stats()
         with make_lm_mesh(data, model_size, dev) as mesh:
-            model, prompt, _, _ = serve.setup(cfg, SERVE_BATCH, SCAN_SERVE_PROMPT, mesh.device, 0, mesh)
-            timings: dict = {}
-            tokens = generate(model, prompt, steps=SERVE_TOKENS, timings=timings)
-            del model
-    counts = ops.launch_counts()
-    result = {"tokens": tokens.tolist(), "launches": counts, "prefill_s": timings["prefill_s"],
-              "decode_s": timings["decode_s"], "max_memory_allocated": torch.cuda.max_memory_allocated()}
-    torch.cuda.reset_peak_memory_stats()
-    with make_lm_mesh(data, model_size, dev) as mesh:
-        if label == "jamba_serve_tp4":
             check, prompt, _, _ = serve.setup(aligned_cfg(cfg), SERVE_BATCH, SCAN_SERVE_PROMPT, mesh.device, 0, mesh)
             result["params"] = sum(p.numel() for p in check.params.parameters())
-            gaps = aligned_decode_gaps(torch, check, prompt[:1], tokens[:1].to(mesh.device), label)
+            gaps = aligned_decode_gaps(torch, check, prompt[:1], out["tokens"][:1].to(mesh.device), label)
             result["check"] = {"decode_vs_full_forward_max_abs_gap": max(gaps), "checked_steps": len(gaps)}
-        else:
-            check, prompt, _, _ = serve.setup(cfg, SERVE_BATCH, SCAN_SERVE_PROMPT, mesh.device, 0, mesh)
-            result["params"] = sum(p.numel() for p in check.params.parameters())
-            result["check"] = vs_one_card(torch, check, prompt, tokens, torch.load(spec["record"]), mesh, label)
+            del check
+    else:
+        result = {"tokens": [], "prefill_s": [], "decode_s": [], "check": []}
+        counts = {name: 0 for name in ops.launch_counts()}
+        peaks = []
+        with make_lm_mesh(data, model_size, dev) as mesh:
+            for plen, record in zip(spec["prompts"], spec["records"]):
+                model, prompt, _, _ = serve.setup(cfg, SERVE_BATCH, plen, mesh.device, 0, mesh)
+                result["params"] = sum(p.numel() for p in model.params.parameters())
+                timings: dict = {}
+                ops.reset_launch_counts()
+                tokens = generate(model, prompt, steps=SERVE_TOKENS, timings=timings)
+                counts = {name: counts[name] + n for name, n in ops.launch_counts().items()}
+                peaks.append(torch.cuda.max_memory_allocated())
+                result["tokens"].append(tokens.tolist())
+                result["prefill_s"].append(timings["prefill_s"])
+                result["decode_s"].append(timings["decode_s"])
+                torch.cuda.reset_peak_memory_stats()
+                result["check"].append({"prompt": plen, **vs_one_card(torch, model, prompt, tokens,
+                                                                      torch.load(record), mesh, f"{label} {plen}")})
+                del model
+        result.update(launches=counts, max_memory_allocated=max(peaks))
     result["max_memory_allocated_check"] = torch.cuda.max_memory_allocated()
     (outdir / f"rank{os.environ['RANK']}.json").write_text(json.dumps(result))
     return 0
@@ -2034,7 +2100,7 @@ def rank_serve(outdir: Path) -> int:
 
 def vs_one_card(torch, model, prompt, served, record: dict, mesh, label: str) -> dict:
     """This data rank's rows on the mesh ``model`` against the one-card
-    ``record`` of the same weights (``record_jamba_8l``): the same prompt;
+    ``record`` of the same weights (``record_one_card``): the same prompt;
     teacher-forced with the recorded tokens, the prefill's and each decode
     step's logits within LOGIT_TOL, and the argmax the recorded token
     wherever the logits decide it; the ``served`` (free-running) tokens the
@@ -2075,18 +2141,40 @@ def vs_one_card(torch, model, prompt, served, record: dict, mesh, label: str) ->
 # 1e-3, 3 steps. ``jamba_train_8l_mesh``: jamba-v0.1-52b at its published
 # widths cut to one 8-layer period (13.30 B parameters, 53.2 GB in fp32;
 # with its gradients and AdamW's two moments ≈ 213 GB, more than a card
-# holds) at three (data, model) meshes; ``granite_train_pod``:
+# holds) at three (data, model) meshes, held to its first;
+# ``qwen2_train_seq14``: qwen2-0.5b
+# whole at (1, 1, 4), the sequence-parallel residual (14 heads over 4; L
+# 64, 16 rows a rank); ``rwkv6_train_2l_mesh22`` and
+# ``deepseek_train_2l_mesh22`` (16 routed experts), each cut to 2 layers, at
+# (1, 2, 2); each held to the one-card run of the same arch, args and seed
+# (``one_card_train``, card 0, before its launch); ``granite_train_pod``:
 # granite-moe-1b-a400m at its published widths on the pod axis, (pod 2,
 # data 2, model 1: FSDP over data 2, the batch over 4 ranks) against (pod
-# 1, data 4, model 1). Each group is held to its first mesh: step 0's loss
-# at 1e-5, the gradient norms and the 3 steps' losses at 1e-4, every rank
-# the same numbers. Each run's dry-run cell (``launch.dryrun.measure`` on
-# a fake group of 4 ranks, the same step on ``meta``) must give each
-# rank's measured parameter count and optimizer-state bytes exactly; its
-# peak is logged beside each rank's ``max_memory_allocated``
+# 1, data 4, model 1), the group held to its first mesh. Either way step
+# 0's loss at 1e-5, the gradient norms and the 3 steps' losses at 1e-4,
+# every rank the same numbers. Each run's dry-run cell
+# (``launch.dryrun.measure`` on a fake group of 4 ranks, the same step on
+# ``meta``) must give each rank's measured parameter count and
+# optimizer-state bytes exactly; its peak is logged beside each rank's
+# ``max_memory_allocated``
 MULTI_RANK_TRAINS = {"jamba_train_8l_mesh14": ("jamba-v0.1-52b", 1, 1, 4),
                      "jamba_train_8l_mesh22": ("jamba-v0.1-52b", 1, 2, 2),
-                     "jamba_train_8l_mesh41": ("jamba-v0.1-52b", 1, 4, 1)}
+                     "jamba_train_8l_mesh41": ("jamba-v0.1-52b", 1, 4, 1),
+                     "qwen2_train_seq14": ("qwen2-0.5b", 1, 1, 4),
+                     "rwkv6_train_2l_mesh22": ("rwkv6-1.6b", 1, 2, 2),
+                     "deepseek_train_2l_mesh22": ("deepseek-v2-236b", 1, 2, 2)}
+# the cut of each mesh training arch: (layers, routed experts); None: whole.
+# rwkv6-1.6b at its published widths has a first gradient that grows with
+# depth at its random init, and one card's own sums in another order (1
+# microbatch against 2) spread it as far: the norm 3618.7 and 5.8 % apart
+# at 24 layers; with its constants moved off their init values 7.59, 17.56,
+# 173.0, 17673 and 3.1e-7, 1.0e-4, 4.8e-3, 7.9e-2 apart at 2, 6, 12, 24
+# layers (``tools/grad_spread.py``). No mesh run of it past 2 layers can
+# meet the 1e-4 gates, so the mesh training run is the 2-layer cut (as
+# ``check_train_small`` holds it, card against CPU)
+MESH_TRAIN_CUTS = {"jamba-v0.1-52b": (JAMBA_LAYERS, None), "deepseek-v2-236b": (DEEPSEEK_LAYERS,
+                                                                                 DEEPSEEK_SMALL_EXPERTS),
+                   "rwkv6-1.6b": (2, None)}
 POD_TRAINS = {"granite_train_pod1": ("granite-moe-1b-a400m", 1, 4, 1),
               "granite_train_pod2": ("granite-moe-1b-a400m", 2, 2, 1)}
 MESH_TRAIN_STEPS = 3
@@ -2101,8 +2189,9 @@ GRAD_RTOL, GRAD_ATOL_SCALE = 1e-4, 1e-5
 
 
 def mesh_train_args(arch: str, pod: int, data: int, model: int) -> list[str]:
-    layers = ["--layers", str(JAMBA_LAYERS)] if arch == "jamba-v0.1-52b" else []
-    return ["--arch", arch, "--no-reduced", *layers, "--steps", str(MESH_TRAIN_STEPS), "--batch", str(TRAIN_BATCH),
+    layers, experts = MESH_TRAIN_CUTS.get(arch, (None, None))
+    cut = [*(["--layers", str(layers)] if layers else []), *(["--experts", str(experts)] if experts else [])]
+    return ["--arch", arch, "--no-reduced", *cut, "--steps", str(MESH_TRAIN_STEPS), "--batch", str(TRAIN_BATCH),
             "--seq", str(TRAIN_SEQ), "--microbatches", str(TRAIN_MICRO), "--remat", "full", "--lr", "1e-3",
             "--device", "cuda", "--seed", "0", "--quiet", "--pod-shards", str(pod), "--data-shards", str(data),
             "--model-shards", str(model)]
@@ -2110,7 +2199,8 @@ def mesh_train_args(arch: str, pod: int, data: int, model: int) -> list[str]:
 
 def mesh_train_cell(arch: str, pod: int, data: int, model: int) -> dict:
     """The dry-run cell of a mesh training run (``dry_run``'s spec)."""
-    return {"arch": arch, "layers": JAMBA_LAYERS if arch == "jamba-v0.1-52b" else None, "seq": TRAIN_SEQ,
+    layers, experts = MESH_TRAIN_CUTS.get(arch, (None, None))
+    return {"arch": arch, "layers": layers, "experts": experts, "seq": TRAIN_SEQ,
             "batch": TRAIN_BATCH, "microbatches": TRAIN_MICRO, "steps": MESH_TRAIN_STEPS, "pod": pod,
             "data": data, "model": model}
 
@@ -2168,7 +2258,7 @@ def dry_run(outdir: Path) -> int:
     import torch
 
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.configs import ShapeConfig, cut_config, get_config
     from repro_torch.launch import dryrun
     from repro_torch.train.optimizer import AdamWConfig
     from repro_torch.train.train_step import TrainConfig
@@ -2180,9 +2270,7 @@ def dry_run(outdir: Path) -> int:
     for cell in cells:
         if "shape" in cell:
             continue
-        cfg = get_config(cell["arch"])
-        if cell["layers"]:
-            cfg = dataclasses.replace(cfg, num_layers=cell["layers"])
+        cfg = cut_config(get_config(cell["arch"]), cell["layers"], cell["experts"])
         tcfg = TrainConfig(opt=AdamWConfig(lr=1e-3, warmup_steps=5, total_steps=max(cell["steps"], 10)),
                            microbatches=cell["microbatches"])
         shape = ShapeConfig("mesh_train", cell["seq"], cell["batch"], "train")
@@ -2209,10 +2297,11 @@ def dry_run_summary(rec: dict) -> dict:
 # every arch's decode_32k and long_500k, train_4k of ``DRYRUN_TRAINS`` and
 # prefill_32k of ``DRYRUN_PREFILLS``, on the production meshes (16, 16)
 # and (2, 16, 16). Gates: ``ok`` where ``check_mesh`` admits the arch at
-# model 16, ``error`` with exactly its ``NotImplementedError`` where it
-# refuses, ``skip`` exactly where ``shape_applicable`` says
-DRYRUN_TRAINS = ("llama3-405b", "granite-moe-1b-a400m")
-DRYRUN_PREFILLS = ("granite-moe-1b-a400m",)
+# model 16 (every arch of the registry), ``error`` with exactly
+# its ``NotImplementedError`` where it refuses, ``skip`` exactly where
+# ``shape_applicable`` says
+DRYRUN_TRAINS = ("llama3-405b", "granite-moe-1b-a400m", "qwen2-0.5b")
+DRYRUN_PREFILLS = ("granite-moe-1b-a400m", "deepseek-v2-236b")
 DRYRUN_TIMEOUT_S = 900
 
 
@@ -2261,28 +2350,61 @@ def check_dry_run(runs: list[tuple[list[dict], float]], log) -> None:
     log(f"dry run: {walls} s on the host (a process a mesh) for {len(records)} cells ({json.dumps(counts)})")
 
 
+def one_card_train(torch, arch: str) -> dict:
+    """``launch.train.main`` of a mesh training run's arch, args and seed on
+    card 0 with no mesh, TF32 off as on the ranks: its losses and gradient
+    norms, the base ``run_multi_rank_trains`` holds the mesh run to. Frees
+    the card after."""
+    import gc
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.launch import train
+
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        out = train.main(mesh_train_args(arch, 1, 1, 1))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+    base = {"losses": out["losses"], "grad_norms": out["grad_norms"], "step_seconds": out["step_seconds"]}
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return base
+
+
 def run_multi_rank_trains(torch, log) -> dict[str, dict[str, int]]:
     """The training path on 4 ranks, one process a card (``torchrun``,
     rendezvous on localhost), each mesh of ``MULTI_RANK_TRAINS`` and
     ``POD_TRAINS`` in one launch (``rank_train``), counts reset just before,
     read just after. Gates: every rank the same losses and gradient norms,
-    finite, no kernel launch (training takes plain attention); each group
-    agrees with its first mesh (step 0's loss at MESH_TRAIN_LOSS0_RTOL,
-    gradient norms and losses at MESH_TRAIN_RTOL); each run's dry-run cell
-    (run first, in a process of its own) gives every rank's parameter count
-    and optimizer-state bytes exactly; at (2, 2) ``rank_train``'s reduced
-    checks. Logs each rank's peak memory against the dry run's peak, the
-    step seconds and the launches. Needs 4 cards."""
+    finite, no kernel launch (training takes plain attention); each run of
+    ``MULTI_RANK_TRAINS`` agrees with the first mesh of its arch, or, for an
+    arch with one mesh, with its one-card run (``one_card_train``), and
+    ``POD_TRAINS`` with its first mesh (step 0's loss at
+    MESH_TRAIN_LOSS0_RTOL, gradient norms and losses at MESH_TRAIN_RTOL);
+    each run's dry-run cell (run first, in a process of its own) gives
+    every rank's parameter count and optimizer-state bytes exactly; at
+    jamba's (2, 2) ``rank_train``'s reduced checks. Logs each
+    rank's peak memory against the dry run's peak, the step seconds and the
+    launches. Needs 4 cards."""
     import os
     import signal
     import tempfile
 
     cards = torch.cuda.device_count()
     if cards < 4:
-        log(f"multi-rank trains: not made ({cards} card(s) visible; jamba_train_8l_mesh and granite_train_pod "
-            "need 4)")
+        log(f"multi-rank trains: not made ({cards} card(s) visible; {', '.join(MULTI_RANK_TRAINS)} and "
+            "granite_train_pod need 4)")
         return {}
     trains = {**MULTI_RANK_TRAINS, **POD_TRAINS}
+    lead = {}  # the first run of each arch of MULTI_RANK_TRAINS
+    for label, (arch, *_) in MULTI_RANK_TRAINS.items():
+        lead.setdefault(arch, label)
+    counts = {arch: sum(spec[0] == arch for spec in MULTI_RANK_TRAINS.values()) for arch in lead}
+    bases = {label: lead[arch] if counts[arch] > 1 else f"{arch} one card"
+             for label, (arch, *_) in MULTI_RANK_TRAINS.items()}
+    bases.update({label: next(iter(POD_TRAINS)) for label in POD_TRAINS})
     by_path, runs = {}, {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
         proc = run_dry_run([mesh_train_cell(*spec) for spec in trains.values()], Path(tmp))
@@ -2292,6 +2414,8 @@ def run_multi_rank_trains(torch, log) -> dict[str, dict[str, int]]:
         for label, (arch, pod, data, model) in trains.items():
             outdir = Path(tmp) / label
             outdir.mkdir()
+            if label in MULTI_RANK_TRAINS and bases[label] == f"{arch} one card":  # before the ranks run
+                runs[bases[label]] = one_card_train(torch, arch)
             (outdir / "spec.json").write_text(json.dumps({"label": label, "arch": arch, "pod": pod, "data": data,
                                                           "model": model,
                                                           "small": (arch, pod, data, model) == (
@@ -2329,7 +2453,7 @@ def run_multi_rank_trains(torch, log) -> dict[str, dict[str, int]]:
                                          f"state, the dry run {rec['memory']['opt_state']}")
             peaks = [rank["max_memory_allocated"] for rank in ranks]
             log(json.dumps({"train": label, "arch": arch, "mesh": {"pod": pod, "data": data, "model": model},
-                            "layers": JAMBA_LAYERS if arch == "jamba-v0.1-52b" else "all",
+                            "layers": MESH_TRAIN_CUTS.get(arch, (None,))[0] or "all",
                             "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "microbatches": first["microbatches"],
                             "remat": "full", "losses": first["losses"], "grad_norms": first["grad_norms"],
                             "step_seconds": [rank["step_seconds"] for rank in ranks],
@@ -2341,19 +2465,16 @@ def run_multi_rank_trains(torch, log) -> dict[str, dict[str, int]]:
                             "launches_by_rank": [rank["launches"] for rank in ranks], "card": smi_line()}))
             runs[label] = first
             by_path[label] = {name: sum(rank["launches"][name] for rank in ranks) for name in first["launches"]}
-    for group in (MULTI_RANK_TRAINS, POD_TRAINS):
-        base_label = next(iter(group))
-        base = runs[base_label]
-        for label in group:
-            run = runs[label]
-            loss0 = abs(run["losses"][0] - base["losses"][0]) / abs(base["losses"][0])
-            norms = max(abs(a - b) / abs(b) for a, b in zip(run["grad_norms"], base["grad_norms"]))
-            losses = max(abs(a - b) / abs(b) for a, b in zip(run["losses"], base["losses"]))
-            if loss0 > MESH_TRAIN_LOSS0_RTOL or norms > MESH_TRAIN_RTOL or losses > MESH_TRAIN_RTOL:
-                raise AssertionError(f"{label} against {base_label}: step 0 loss {loss0:.3e}, gradient norms "
-                                     f"{norms:.3e}, losses {losses:.3e} (relative)")
-            log(json.dumps({"train_mesh_agreement": label, "against": base_label, "loss0_rel_gap": loss0,
-                            "grad_norm_max_rel_gap": norms, "loss_max_rel_gap": losses}))
+    for label, base_label in bases.items():
+        base, run = runs[base_label], runs[label]
+        loss0 = abs(run["losses"][0] - base["losses"][0]) / abs(base["losses"][0])
+        norms = max(abs(a - b) / abs(b) for a, b in zip(run["grad_norms"], base["grad_norms"]))
+        losses = max(abs(a - b) / abs(b) for a, b in zip(run["losses"], base["losses"]))
+        if loss0 > MESH_TRAIN_LOSS0_RTOL or norms > MESH_TRAIN_RTOL or losses > MESH_TRAIN_RTOL:
+            raise AssertionError(f"{label} against {base_label}: step 0 loss {loss0:.3e}, gradient norms "
+                                 f"{norms:.3e}, losses {losses:.3e} (relative)")
+        log(json.dumps({"train_mesh_agreement": label, "against": base_label, "loss0_rel_gap": loss0,
+                        "grad_norm_max_rel_gap": norms, "loss_max_rel_gap": losses}))
     return by_path
 
 
@@ -2463,7 +2584,8 @@ def multi_rank_only() -> int:
     """``--multi-rank-only``, on a machine with 4 cards: build the kernels,
     run the world-1 searches the 4-rank ones are compared with (batched,
     sharded sync and elastic; twice, in turns), then only the multi-rank
-    phase (``run_multi_rank_searches``, ``run_multi_rank_serves``)."""
+    phase (``run_multi_rank_searches``, ``run_multi_rank_serves``,
+    ``run_multi_rank_trains``)."""
     import torch
 
     if torch.cuda.device_count() < 4:

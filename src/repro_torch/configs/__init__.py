@@ -85,3 +85,17 @@ def reduced_config(cfg: ArchConfig, vocab: int = 512) -> ArchConfig:
     if cfg.window is not None:
         changes["window"] = 16
     return dataclasses.replace(cfg, **changes)
+
+
+def cut_config(cfg: ArchConfig, layers: int | None = None, experts: int | None = None) -> ArchConfig:
+    """``cfg`` cut in depth to its first ``layers`` layers (a whole number of
+    its layer pattern's periods) and to ``experts`` routed experts an MoE
+    layer (the top-k, shared experts and widths kept): ``launch.train``'s
+    ``--layers`` and ``--experts``."""
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    if experts:
+        if cfg.moe is None:
+            raise ValueError(f"--experts: {cfg.name} has no MoE layer")
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, num_experts=experts))
+    return cfg

@@ -49,7 +49,7 @@ SIGNATURES: dict[str, dict[str, list]] = {
         "pairwise_sq_dists": [_P, _P, _P, _I, _I, _I, _I, _L, _L, _P],
     },
     "flash_attention": {
-        "flash_attention": [*[_P] * 7, _I, _I, _I, _I, _I, _I, _I, *[_L] * 12, _F, _I, _I, _P],
+        "flash_attention": [*[_P] * 7, _I, _I, _I, _I, _I, _I, _I, *[_L] * 12, _F, _I, _I, _I, _P],
         "flash_tiles": [_I, _I],
     },
 }

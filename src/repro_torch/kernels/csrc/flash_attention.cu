@@ -10,8 +10,10 @@
 //
 //   out[b, h, i, :] = sum_j softmax_j(scale * q[b,h,i,:] . k[b,h/g,j,:]) v[b,h/g,j,:]
 //
-// over the unmasked j: j < Lk; j <= i when causal; j > i - window with a
-// window. Query head h reads kv head h / group (group = Hq / Hk, any
+// over the unmasked j: j < Lk; j <= p when causal; j > p - window with a
+// window, where p = qoff + i is query row i's position (0 <= qoff, and
+// qoff + Lq <= Lk when causal or windowed: one rank's block of a
+// sequence-parallel prefill starts at its offset). Query head h reads kv head h / group (group = Hq / Hk, any
 // integer: qwen2's is 7), so GQA needs no replicated K/V.
 //
 // Masking follows the reference: masked scores are the finite -1e30, not
@@ -337,12 +339,14 @@ __device__ __forceinline__ void hold(float (&x)[N]) {
     for (int i = 0; i < N; ++i) asm volatile("" : "+f"(x[i])::"memory");
 }
 
-// Live kv tiles [lo, hi] of the query rows [q0, min(q0 + bq, lq)) (ops.flash_kv_tiles).
-__device__ __forceinline__ void kv_tiles(int q0, int bq, int bk, int lq, int lk, int causal, int window,
+// Live kv tiles [lo, hi] of the query rows [q0, min(q0 + bq, lq)), row i at
+// position qoff + i (ops.flash_kv_tiles).
+__device__ __forceinline__ void kv_tiles(int q0, int bq, int bk, int lq, int lk, int causal, int window, int qoff,
                                          int& lo, int& hi) {
-    lo = (window > 0 && q0 - window + 1 > 0) ? (q0 - window + 1) / bk : 0;
+    const int p0 = qoff + q0;
+    lo = (window > 0 && p0 - window + 1 > 0) ? (p0 - window + 1) / bk : 0;
     hi = (lk - 1) / bk;
-    if (causal) hi = min(hi, (min(q0 + bq, lq) - 1) / bk);
+    if (causal) hi = min(hi, (qoff + min(q0 + bq, lq) - 1) / bk);
 }
 
 // One block per (kv tile, kv head, batch): stage the raw BK x D tile of K
@@ -424,7 +428,7 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ kimg, const 
                 int hq, int hk, int lq, int lk, int d, int qtiles, int ktiles,
                 long long qsb, long long qsh, long long qsl,
                 long long osb, long long osh, long long osl,
-                float scale, int causal, int window, int qvec, int ovec)
+                float scale, int causal, int window, int qoff, int qvec, int ovec)
 {
     using C = Cfg<NJ>;
     constexpr int DP = C::DP, KS = C::KS, NT = C::NT, BK = C::BK, IMG = C::kImageFloats;
@@ -459,7 +463,7 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ kimg, const 
             const int qt = item % qtiles, bh = item / qtiles;
             const int h = bh % hq, b = bh / hq;
             int lo, hi;
-            kv_tiles(qt * kBQ, kBQ, BK, lq, lk, causal, window, lo, hi);
+            kv_tiles(qt * kBQ, kBQ, BK, lq, lk, causal, window, qoff, lo, hi);
             const size_t head = static_cast<size_t>(b * hk + h / group) * ktiles;
             for (int t = lo; t <= hi; ++t) {
                 mbar_wait(&empty[s], phase ^ 1);
@@ -489,7 +493,7 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ kimg, const 
         const int q0 = qt * kBQ, qg0 = q0 + wg * kWGRows, qg_last = qg0 + kWGRows - 1;
         const int qw0 = qg0 + (warp & 3) * 16, qw_last = qw0 + 15;
         int lo, hi;
-        kv_tiles(q0, kBQ, BK, lq, lk, causal, window, lo, hi);
+        kv_tiles(q0, kBQ, BK, lq, lk, causal, window, qoff, lo, hi);
 
         // this warpgroup's Q rows, split, as the A images of S = Q K^T
         const float* qb = q + b * qsb + h * qsh;
@@ -539,7 +543,8 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ kimg, const 
             const int k0 = t * BK;
             mbar_wait(&full[s], phase);
             // skip the tile if no row of this warpgroup sees any of its keys
-            const bool live = qg0 < lq && (!causal || k0 <= qg_last) && (window <= 0 || k0 + BK - 1 > qg0 - window);
+            const bool live = qg0 < lq && (!causal || k0 <= qoff + qg_last) &&
+                              (window <= 0 || k0 + BK - 1 > qoff + qg0 - window);
             if (live) {
                 const float* khi = ring + s * 2 * C::kTileFloats;
                 const float* vhi = khi + C::kTileFloats;
@@ -570,15 +575,15 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ kimg, const 
                 // scaled here and masked ones set to -1e30, so that 2^(x - m)
                 // is exactly 1 for a row with no live key yet (wiped by the
                 // next live tile) and 0 after one.
-                const bool masked = k0 + BK > lk || (causal && k0 + BK - 1 > qw0) ||
-                                    (window > 0 && k0 <= qw_last - window);
+                const bool masked = k0 + BK > lk || (causal && k0 + BK - 1 > qoff + qw0) ||
+                                    (window > 0 && k0 <= qoff + qw_last - window);
                 const float mul = masked ? 1.f : sl2;  // what turns sacc into log2 units
                 float corr_r[2];
 #pragma unroll
                 for (int r = 0; r < 2; ++r) {
                     float mx[2 * NT];
                     if (masked) {
-                        const int qi = qw0 + g + 8 * r;
+                        const int qi = qoff + qw0 + g + 8 * r;  // the row's position
 #pragma unroll
                         for (int j = 0; j < NT; ++j)
 #pragma unroll
@@ -690,7 +695,7 @@ cudaError_t launch(const float* q, const float* k, const float* v, float* out, f
                    long long ksb, long long ksh, long long ksl,
                    long long vsb, long long vsh, long long vsl,
                    long long osb, long long osh, long long osl,
-                   float scale, int causal, int window, cudaStream_t stream)
+                   float scale, int causal, int window, int qoff, cudaStream_t stream)
 {
     using C = Cfg<NJ>;
     // once per instantiation (the port drives one card)
@@ -721,7 +726,7 @@ cudaError_t launch(const float* q, const float* k, const float* v, float* out, f
     cfg.numAttrs = 1;
     err = cudaLaunchKernelEx(&cfg, flash_kernel<NJ>, q, static_cast<const float*>(kimg),
                              static_cast<const float*>(vimg), out, work, hq, hk, lq, lk, d, (lq + kBQ - 1) / kBQ,
-                             ktiles, qsb, qsh, qsl, osb, osh, osl, scale, causal, window, qvec, ovec);
+                             ktiles, qsb, qsh, qsl, osb, osh, osl, scale, causal, window, qoff, qvec, ovec);
     return err != cudaSuccess ? err : cudaGetLastError();
 }
 
@@ -732,7 +737,8 @@ bool bad_shape(int b, int hq, int hk, int lq, int lk, int d) {
 }  // namespace
 
 // q (B, Hq, Lq, D), k and v (B, Hk, Lk, D), out (B, Hq, Lq, D): fp32, unit
-// stride along D, element strides for b, h, l; window <= 0: no window. kimg
+// stride along D, element strides for b, h, l; window <= 0: no window; qoff:
+// the position of query row 0 (qoff + Lq <= Lk when causal or windowed). kimg
 // and vimg: the split images' scratch (B * Hk * ceil(Lk / bk) * bk * DP * 2
 // floats each, 16-byte aligned; flash_tiles gives DP and bk). work: the
 // work list (int32: blocks + 1 offsets, then the items (b * Hq + h) *
@@ -745,15 +751,16 @@ extern "C" int flash_attention(const float* q, const float* k, const float* v, f
                                long long ksb, long long ksh, long long ksl,
                                long long vsb, long long vsh, long long vsl,
                                long long osb, long long osh, long long osl,
-                               float scale, int causal, int window, cudaStream_t stream)
+                               float scale, int causal, int window, int qoff, cudaStream_t stream)
 {
-    if (bad_shape(b, hq, hk, lq, lk, d) || blocks < 1 || !aligned(kimg, 16) || !aligned(vimg, 16))
+    if (bad_shape(b, hq, hk, lq, lk, d) || blocks < 1 || !aligned(kimg, 16) || !aligned(vimg, 16) || qoff < 0 ||
+        ((causal || window > 0) && static_cast<long long>(qoff) + lq > lk))
         return static_cast<int>(cudaErrorInvalidValue);
 #define REPRO_FLASH_CASE(NJ)                                                                           \
     case NJ:                                                                                           \
         return static_cast<int>(launch<NJ>(q, k, v, out, kimg, vimg, work, blocks, b, hq, hk, lq, lk, d, \
                                            qsb, qsh, qsl, ksb, ksh, ksl, vsb, vsh, vsl, osb, osh, osl,   \
-                                           scale, causal, window, stream));
+                                           scale, causal, window, qoff, stream));
     switch ((d + 15) / 16) {
         REPRO_FLASH_CASE(1)
         REPRO_FLASH_CASE(2)

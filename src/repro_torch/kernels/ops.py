@@ -377,23 +377,27 @@ def pairwise_sq_dists_batched(x: torch.Tensor, y: torch.Tensor | None = None) ->
 # -----------------------------------------------------------------------------
 # Flash attention (csrc/flash_attention.cu)
 # -----------------------------------------------------------------------------
-def flash_kv_tiles(q0: int, bq: int, bk: int, lq: int, lk: int, causal: bool, window: int | None) -> tuple[int, int]:
-    """The live kv tiles [lo, hi] of query rows [q0, min(q0 + bq, lq)): the
-    tiles the kernel walks for one item (flash_attention.cu ``kv_tiles``)."""
-    lo = (q0 - window + 1) // bk if window and q0 - window + 1 > 0 else 0
+def flash_kv_tiles(q0: int, bq: int, bk: int, lq: int, lk: int, causal: bool, window: int | None,
+                   q_offset: int = 0) -> tuple[int, int]:
+    """The live kv tiles [lo, hi] of query rows [q0, min(q0 + bq, lq)), row i
+    at position ``q_offset + i``: the tiles the kernel walks for one item
+    (flash_attention.cu ``kv_tiles``)."""
+    p0 = q_offset + q0
+    lo = (p0 - window + 1) // bk if window and p0 - window + 1 > 0 else 0
     hi = (lk - 1) // bk
     if causal:
-        hi = min(hi, (min(q0 + bq, lq) - 1) // bk)
+        hi = min(hi, (q_offset + min(q0 + bq, lq) - 1) // bk)
     return lo, hi
 
 
 def flash_work_list(
-    b: int, hq: int, hk: int, lq: int, lk: int, causal: bool, window: int | None, bq: int, bk: int, blocks: int
+    b: int, hq: int, hk: int, lq: int, lk: int, causal: bool, window: int | None, bq: int, bk: int, blocks: int,
+    q_offset: int = 0,
 ) -> tuple[tuple[int, ...], tuple[int, ...]]:
     """The kernel's schedule: ``(offsets, items)``, block i walking
     ``items[offsets[i]:offsets[i + 1]]``. An item is one q tile of one
     (batch, query head), ``(b * Hq + h) * ceil(Lq / bq) + q tile``; its cost
-    is its count of live kv tiles. Items are dealt longest first, each to the
+    is its count of live kv tiles (at ``q_offset``). Items are dealt longest first, each to the
     block with the least work so far (ties: the lower block), so each block
     walks its items longest first. Equal lengths keep the query heads of one
     kv head and neighbouring q tiles together: blocks running at once read
@@ -404,7 +408,7 @@ def flash_work_list(
     for bi in range(b):
         for h in range(hq):
             for qt in range(qtiles):
-                lo, hi = flash_kv_tiles(qt * bq, bq, bk, lq, lk, causal, window)
+                lo, hi = flash_kv_tiles(qt * bq, bq, bk, lq, lk, causal, window, q_offset)
                 costed.append((-(hi - lo + 1), bi, h // group, qt, h, (bi * hq + h) * qtiles + qt))
     costed.sort()
     if len(costed) >= 2**31:
@@ -425,7 +429,7 @@ def flash_work_list(
 _flash_work_cache: dict = {}
 
 
-def _flash_launch(q, k, v, out, scale: float, causal: bool, window: int | None) -> None:
+def _flash_launch(q, k, v, out, scale: float, causal: bool, window: int | None, q_offset: int = 0) -> None:
     """Launch the kernel: its tiles come from the library (``flash_tiles``),
     its K/V images are scratch from ``torch.empty``, and its work list is
     copied to the device once per shape."""
@@ -433,10 +437,10 @@ def _flash_launch(q, k, v, out, scale: float, causal: bool, window: int | None) 
     _, hk, lk, _ = k.shape
     lib = build.load("flash_attention")
     dp, bk, bq = (lib.flash_tiles(d, field) for field in range(3))
-    key = (q.device, b, hq, hk, lq, lk, causal, window, bq, bk)
+    key = (q.device, b, hq, hk, lq, lk, causal, window, bq, bk, q_offset)
     hit = _flash_work_cache.get(key)
     if hit is None:
-        offsets, items = flash_work_list(*key[1:], _sm_count(q.device))
+        offsets, items = flash_work_list(*key[1:-1], _sm_count(q.device), q_offset)
         if len(_flash_work_cache) >= 256:
             _flash_work_cache.clear()
         tensor = torch.tensor(offsets + items, dtype=torch.int32, device=q.device)
@@ -447,7 +451,8 @@ def _flash_launch(q, k, v, out, scale: float, causal: bool, window: int | None) 
     strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
     rc = lib.flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), images.data_ptr(), images.data_ptr() + 4 * image,
-        work.data_ptr(), blocks, b, hq, hk, lq, lk, d, *strides, scale, int(causal), window or 0, _stream(q),
+        work.data_ptr(), blocks, b, hq, hk, lq, lk, d, *strides, scale, int(causal), window or 0, q_offset,
+        _stream(q),
     )
     _check(rc, "flash_attention")
 
@@ -459,13 +464,18 @@ def flash_attention(
     causal: bool = True,
     window: int | None = None,
     scale: float | None = None,
+    q_offset: int | None = None,
 ) -> torch.Tensor:
     """Causal/windowed GQA softmax attention: q (B, Hq, Lq, D), k and v (B, Hk, Lk, D)
     -> (B, Hq, Lq, D); query head h reads kv head ``h // (Hq // Hk)``.
 
-    ``scale`` defaults to D^-0.5 and multiplies q.k. Causal or windowed
-    attention takes Lq == Lk only (query row i is position i, as in the TPU
-    kernel). On the card the operands may be strided views (unit stride along
+    ``scale`` defaults to D^-0.5 and multiplies q.k. Query row i is position
+    ``q_offset + i`` (key j is live iff j <= q_offset + i when causal, and
+    q_offset + i - j < window with a window), which causal or windowed
+    attention takes with Lq + q_offset <= Lk, and must name where Lq != Lk
+    (``ref.query_offset``; 0 by default otherwise): at 0 and Lq == Lk the TPU
+    kernel's case, at r·L/m one rank's query block of a sequence-parallel
+    prefill against the whole sequence's keys. On the card the operands may be strided views (unit stride along
     D); the output has q's layout. The kernel has no backward, so on the card
     it raises when grad mode is on and an operand requires grad.
     """
@@ -478,13 +488,15 @@ def flash_attention(
             f"flash_attention shapes q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)} do not match "
             "(B, Hq, Lq, D), (B, Hk, Lk, D) with Hq % Hk == 0"
         )
-    if (causal or window is not None) and lq != lk:
-        raise ValueError(f"causal or windowed flash_attention takes Lq == Lk, got Lq={lq}, Lk={lk}")
+    q_offset = ref.query_offset(lq, lk, causal, window, q_offset)
+    if q_offset < 0 or ((causal or window is not None) and lq + q_offset > lk):
+        raise ValueError(f"causal or windowed flash_attention takes Lq + q_offset <= Lk (q_offset >= 0), got "
+                         f"Lq={lq}, q_offset={q_offset}, Lk={lk}")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
     scale = float(scale if scale is not None else d**-0.5)
     if not _on_card(q, k, v, contiguous=False):
-        return ref.attention(q, k, v, causal=causal, window=window, scale=scale)
+        return ref.attention(q, k, v, causal=causal, window=window, scale=scale, q_offset=q_offset)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise RuntimeError(
             "the flash-attention kernel has no backward: its output would drop the gradients of q, k "
@@ -496,7 +508,7 @@ def flash_attention(
     if min(b, lq, lk) < 1 or max(b, hq) > MAX_GRID_YZ:
         raise ValueError(f"the flash-attention kernel takes 1 <= B, Hq <= {MAX_GRID_YZ} and non-empty L")
     out = torch.empty_like(q)  # q's layout when q is dense (a transposed view included)
-    _flash_launch(q, k, v, out, scale, causal, window)
+    _flash_launch(q, k, v, out, scale, causal, window, q_offset)
     _count(flash_attention)
     return out
 

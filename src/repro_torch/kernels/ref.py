@@ -41,9 +41,23 @@ def silhouette_dist_sums(
     return torch.matmul(torch.sqrt(pairwise_sq_dists(x, y)), onehot)
 
 
-def _mask(lq: int, lk: int, causal: bool, window: int | None, device) -> torch.Tensor:
-    """(Lq, Lk) live pairs; query rows offset by Lk - Lq."""
-    q_idx = torch.arange(lq, device=device)[:, None] + (lk - lq)
+def query_offset(lq: int, lk: int, causal: bool, window: int | None, q_offset: int | None) -> int:
+    """``q_offset``, which causal or windowed attention with Lq != Lk must
+    name (where the rows sit is ambiguous there: the reference oracle puts
+    them at Lk - Lq, a query block of a sequence-parallel prefill at its
+    rank's offset); 0 when it is None and nothing depends on it."""
+    if q_offset is None:
+        if (causal or window is not None) and lq != lk:
+            raise ValueError(f"causal or windowed attention with Lq != Lk takes an explicit q_offset, got "
+                             f"Lq={lq}, Lk={lk}")
+        return 0
+    return q_offset
+
+
+def _mask(lq: int, lk: int, causal: bool, window: int | None, device, q_offset: int | None = None) -> torch.Tensor:
+    """(Lq, Lk) live pairs; query row i at position ``q_offset + i``."""
+    q_offset = query_offset(lq, lk, causal, window, q_offset)
+    q_idx = torch.arange(lq, device=device)[:, None] + q_offset
     k_idx = torch.arange(lk, device=device)[None, :]
     mask = torch.ones((lq, lk), dtype=torch.bool, device=device)
     if causal:
@@ -60,13 +74,16 @@ def attention(
     causal: bool = True,
     window: int | None = None,
     scale: float | None = None,
+    q_offset: int | None = None,
 ) -> torch.Tensor:
     """Dense softmax attention with GQA/causal/sliding-window, in fp32 math
     (float64 inputs stay float64).
 
-    Query head h reads kv head ``h // (Hq // Hk)``. Query rows are offset
-    by ``Lk - Lq`` for the causal and window masks (the reference oracle's
-    decode convention; the kernel's wrapper takes causal only at Lq == Lk).
+    Query head h reads kv head ``h // (Hq // Hk)``. Query row i is position
+    ``q_offset + i`` for the causal and window masks, as in the kernel;
+    causal or windowed attention with Lq != Lk must name it (the reference
+    oracle offsets the rows by Lk - Lq: the same masks at Lq == Lk), and
+    raises without it.
     """
     lq, d = q.shape[-2:]
     lk = k.shape[-2]
@@ -76,7 +93,7 @@ def attention(
     kf = k.to(ct).repeat_interleave(group, dim=1)
     vf = v.to(ct).repeat_interleave(group, dim=1)
     s = torch.einsum("bhqd,bhkd->bhqk", q.to(ct), kf) * scale
-    s = torch.where(_mask(lq, lk, causal, window, q.device), s, -1e30)
+    s = torch.where(_mask(lq, lk, causal, window, q.device, q_offset), s, -1e30)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", p, vf).to(q.dtype)
 
@@ -114,6 +131,7 @@ def attention_3xtf32(
     causal: bool = True,
     window: int | None = None,
     scale: float | None = None,
+    q_offset: int | None = None,
 ) -> torch.Tensor:
     """``attention`` in float32 with both products in split TF32, as the
     flash kernel computes them on the card: S = Q K^T in three TF32
@@ -126,6 +144,6 @@ def attention_3xtf32(
     kf = k.float().repeat_interleave(group, dim=1)
     vf = v.float().repeat_interleave(group, dim=1)
     s = _mm3(q.float(), kf.transpose(-1, -2)) * scale
-    s = torch.where(_mask(lq, lk, causal, window, q.device), s, -1e30)
+    s = torch.where(_mask(lq, lk, causal, window, q.device, q_offset), s, -1e30)
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
     return _mm3(p, vf) / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)

@@ -31,7 +31,6 @@ from __future__ import annotations
 
 import argparse
 import contextlib
-import dataclasses
 import statistics
 import time
 
@@ -39,7 +38,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.checkpoint import checkpointer as ckpt
-from repro_torch.configs import get_config, reduced_config
+from repro_torch.configs import cut_config, get_config, reduced_config
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.data.pipeline import DataConfig, SyntheticTokenSource, device_put_batch
 from repro_torch.device import resolve
@@ -61,6 +60,7 @@ def _parser() -> argparse.ArgumentParser:
                     help="the arch's reduced config (default); --no-reduced: its published widths")
     ap.add_argument("--layers", type=int, default=None,
                     help="cut the arch to its first N layers (a whole number of its layer pattern's periods)")
+    ap.add_argument("--experts", type=int, default=None, help="cut an MoE arch to N routed experts a layer")
     ap.add_argument("--ckpt", default=None, help="checkpoint directory")
     ap.add_argument("--ckpt-every", type=int, default=10)
     ap.add_argument("--resume", action="store_true", help="continue from the newest checkpoint in --ckpt")
@@ -99,8 +99,7 @@ def main(argv=None) -> dict:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced_config(cfg)
-    if args.layers:
-        cfg = dataclasses.replace(cfg, num_layers=args.layers)
+    cfg = cut_config(cfg, args.layers, args.experts)
     with contextlib.ExitStack() as stack:
         mesh = None
         if (args.pod_shards, args.data_shards, args.model_shards) != (1, 1, 1):

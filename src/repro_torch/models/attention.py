@@ -11,9 +11,9 @@ Decode attends one query row against the masked cache with the plain
 ``_sdpa`` on every device.
 
 On a ``(data, model)`` mesh (``sh``, ``layers.Shard``) GQA computes on
-this rank's query heads (``gqa_specs`` cut ``wq`` and ``wo`` on heads; the
-mesh path requires the heads to divide the model axis) and ends in an
-all-reduce after ``wo``. When the kv heads divide too, a rank holds the kv
+this rank's query heads (``gqa_specs`` cut ``wq`` and ``wo`` on heads,
+where the heads divide the model axis) and ends in an all-reduce after
+``wo``. When the kv heads divide too, a rank holds the kv
 heads its query heads use; when they do not, ``wk``/``wv`` are whole and
 each rank hands the kernel the kv heads of its own query heads
 (``_local_kv``: the local ratio of query to kv heads can differ from the
@@ -27,12 +27,22 @@ slots, entry at absolute position p in slot ``p % s``. ``gqa_decode``
 writes the new entry into the cache in place (the reference returns an
 updated copy) and returns the same cache.
 
+When the heads do not divide the model axis, ``wq``/``wk``/``wv``/``wo``
+are whole. With the reference's sequence-parallel residual
+(``transformer.seq_sharded_mode``, ``seq``) a rank projects its own block
+of L / m query rows at their absolute positions, all-gathers K and V over
+the sequence and attends at ``q_offset = r·L/m`` (the flash kernel on the
+card); ``wo`` then needs no all-reduce. Otherwise (decode, a prompt that
+the axis does not divide) every rank computes the whole attention.
+
 MLA's full-sequence forward and prefill expand the latent and take the
 plain ``_sdpa_auto`` on every device, as the reference's do: its qk head
 (nope + rope, 192 at full width) is wider than its v head (128), which the
 flash kernel does not take. Its decode is the absorbed-matmul form against
 the cached latent (``kv_lora_rank + qk_rope_head_dim`` wide), written in
-place at ``pos`` as ``gqa_decode`` does.
+place at ``pos`` as ``gqa_decode`` does. On a mesh MLA computes on this
+rank's heads (``mla_specs``), its q latent cut on ``q_lora_rank`` and
+gathered before ``q_norm``, and its latent cache cut on its width.
 """
 from __future__ import annotations
 
@@ -116,32 +126,36 @@ _Q_CHUNK = 1024
 
 def _sdpa_auto(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, window: int | None,
-    scale: float | None = None,
+    scale: float | None = None, q_offset: int = 0,
 ) -> torch.Tensor:
-    """Dense attention for short seqs; q-chunked for long ones.
+    """Dense attention for short seqs; q-chunked for long ones. ``q_offset``:
+    the position of q's row 0 (a rank's block of a sequence-parallel
+    attention).
 
     The chunked form bounds live scores to (B, H, q_chunk, Lk) per chunk.
     Unlike the reference's scan, the last chunk may be ragged.
     """
     lq = q.shape[1]
     if lq <= _CHUNK_THRESHOLD:
-        return _sdpa(q, k, v, causal=causal, window=window, scale=scale)
+        return _sdpa(q, k, v, causal=causal, window=window, q_offset=q_offset, scale=scale)
     outs = [
-        _sdpa(q[:, i : i + _Q_CHUNK], k, v, causal=causal, window=window, q_offset=i, scale=scale)
+        _sdpa(q[:, i : i + _Q_CHUNK], k, v, causal=causal, window=window, q_offset=q_offset + i, scale=scale)
         for i in range(0, lq, _Q_CHUNK)
     ]
     return torch.cat(outs, dim=1)
 
 
-def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int | None) -> torch.Tensor:
-    """Causal (windowed) self-attention over (B, L, H, hd) q and (B, L, Hk, hd) k, v:
-    the flash kernel on the card, the plain ``_sdpa_auto`` on the CPU."""
+def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int | None,
+            q_offset: int = 0) -> torch.Tensor:
+    """Causal (windowed) attention of (B, Lq, H, hd) q, its row i at position
+    ``q_offset + i``, over (B, Lk, Hk, hd) k, v: the flash kernel on the
+    card, the plain ``_sdpa_auto`` on the CPU."""
     if not q.is_cuda:
-        return _sdpa_auto(q, k, v, causal=True, window=window)
+        return _sdpa_auto(q, k, v, causal=True, window=window, q_offset=q_offset)
     # the kernel takes (B, H, L, D) with any b/h/l strides: these are views,
     # and the output comes back in q's (B, L, H, hd) layout
     out = kops.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                               causal=True, window=window)
+                               causal=True, window=window, q_offset=q_offset)
     return out.transpose(1, 2)
 
 
@@ -256,17 +270,29 @@ def _project_qkv(params, x: torch.Tensor, cfg: ArchConfig, sh: Shard | None = No
     return q, k, v
 
 
-def gqa_forward(
-    params, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor | None = None, sh: Shard | None = None
-) -> torch.Tensor:
-    """Full-sequence causal attention of x (B, L, d), through the
-    differentiable ``_sdpa_auto`` on every device."""
+def _seq_qkv(params, x: torch.Tensor, cfg: ArchConfig, sh: Shard | None, seq: bool):
+    """(q, k, v, q_offset) of x for the attention: RoPE'd at the rows'
+    absolute positions. ``seq`` (the sequence-parallel residual): x holds
+    this rank's block of L / m rows, so its rows start at ``r·L/m``, and k
+    and v are all-gathered over the sequence; their gradients are summed
+    into each rank's block (each rank's queries read every key)."""
     l = x.shape[1]
-    positions = torch.arange(l, device=x.device) if positions is None else positions
+    q_offset = sh.model_index * l if seq else 0
+    positions = torch.arange(q_offset, q_offset + l, device=x.device)
     q, k, v = _project_qkv(params, x, cfg, sh)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
-    out = _sdpa_auto(q, *_local_kv(k, v, cfg, sh), causal=True, window=cfg.window)
+    if seq:
+        k, v = sh.gather(k, 1, reduce=True), sh.gather(v, 1, reduce=True)
+    return q, k, v, q_offset
+
+
+def gqa_forward(params, x: torch.Tensor, cfg: ArchConfig, sh: Shard | None = None, seq: bool = False) -> torch.Tensor:
+    """Full-sequence causal attention of x (B, L, d), through the
+    differentiable ``_sdpa_auto`` on every device. ``seq``: x is this
+    rank's block of the rows (``_seq_qkv``), and so is the output."""
+    q, k, v, q_offset = _seq_qkv(params, x, cfg, sh, seq)
+    out = _sdpa_auto(q, *_local_kv(k, v, cfg, sh), causal=True, window=cfg.window, q_offset=q_offset)
     return _out_proj(params, out, cfg, sh)
 
 
@@ -280,21 +306,23 @@ def gqa_cache_init(cfg: ArchConfig, batch: int, seq_len: int, dtype=torch.float3
 
 
 def gqa_prefill(
-    params, x: torch.Tensor, cfg: ArchConfig, cache_len: int | None = None, sh: Shard | None = None
+    params, x: torch.Tensor, cfg: ArchConfig, cache_len: int | None = None, sh: Shard | None = None,
+    seq: bool = False,
 ) -> tuple[torch.Tensor, KVCache]:
     """Full-sequence forward that also returns the (ring-windowed) cache.
 
     ``cache_len``: total decode capacity (>= l). Window archs get a ring
     buffer of min(window, cache_len) slots aligned to ``slot = pos % s`` —
-    the same convention gqa_decode writes with.
+    the same convention gqa_decode writes with. ``seq``: x is this rank's
+    block of the rows, which the kernel takes at their offset against the
+    whole sequence's keys; the cache holds the whole sequence's (cut by
+    ``gqa_cache_specs``).
     """
-    b, l, _ = x.shape
+    b = x.shape[0]
+    q, k, v, q_offset = _seq_qkv(params, x, cfg, sh, seq)
+    l = k.shape[1]
     cache_len = cache_len or l
-    positions = torch.arange(l, device=x.device)
-    q, k, v = _project_qkv(params, x, cfg, sh)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
-    out = _attend(q, *_local_kv(k, v, cfg, sh), cfg.window)
+    out = _attend(q, *_local_kv(k, v, cfg, sh), cfg.window, q_offset)
     y = _out_proj(params, out, cfg, sh)
     if _cache_dim(cfg, sh) == 3:
         k, v = _block(k, 3, sh), _block(v, 3, sh)
@@ -336,11 +364,14 @@ def gqa_decode(
     if hd_cut:
         # every query head scored on this rank's block of head_dim, the
         # scores summed over the group; then the outputs' blocks joined and
-        # this rank's query heads kept
-        q_all = _block(sh.gather(q, 2), 3, sh)
+        # this rank's query heads kept (when the heads are cut; whole heads,
+        # the replicated attention, are every rank's)
+        heads = split_over(sh, cfg.num_heads)
+        q_all = _block(q if heads is None else sh.gather(q, 2), 3, sh)
         out = _sdpa(q_all, cache.k, cache.v, causal=False, window=None, q_offset=pos, kv_len=kv_len,
                     scale=cfg.resolved_head_dim() ** -0.5, psum=sh.psum)
-        out = _block(sh.gather(out, 3), 2, sh)
+        out = sh.gather(out, 3)
+        out = out if heads is None else _block(out, 2, sh)
     else:
         out = _sdpa(q, *_local_kv(cache.k, cache.v, cfg, sh), causal=False, window=None, q_offset=pos,
                     kv_len=kv_len)
@@ -396,30 +427,50 @@ def _mla_latent(params, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tenso
     return c_kv, k_rope
 
 
-def _mla_project(params, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor):
+def _mla_query(params, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor, sh: Shard | None = None):
+    """(q_nope, q_rope) of x: this rank's heads when ``sh`` cuts them. The q
+    latent is cut on ``q_lora_rank`` where ``wq_a`` is (x entering the cut
+    projection), and all-gathered before ``q_norm``, which normalises over
+    the whole latent; the gather's gradient is summed into each rank's block
+    (each rank's heads read the whole latent), and ``q_norm``'s scale, which
+    a rank applies for its own heads only, enters too."""
     nope = cfg.mla.qk_nope_head_dim
-    q = rmsnorm(params["q_norm"], x @ params["wq_a"], cfg.norm_eps)
+    lat = split_over(sh, cfg.mla.q_lora_rank)
+    if lat is not None:
+        q = lat.gather(lat.enter(x) @ params["wq_a"], -1, reduce=True)
+        q = rmsnorm({"scale": lat.enter(params["q_norm"]["scale"])}, q, cfg.norm_eps)
+    else:
+        q = rmsnorm(params["q_norm"], x @ params["wq_a"], cfg.norm_eps)
+        if sh is not None:  # a whole latent before the cut heads: its gradient summed
+            q = sh.enter(q)
     q = torch.einsum("blr,rhk->blhk", q, params["wq_b"])
-    q_nope, q_rope = q[..., :nope], q[..., nope:]
-    q_rope = rope(q_rope, positions, cfg.rope_theta)
-    c_kv, k_rope = _mla_latent(params, x, cfg, positions)
-    return q_nope, q_rope, c_kv, k_rope
+    return q[..., :nope], rope(q[..., nope:], positions, cfg.rope_theta)
 
 
-def mla_forward(params, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor | None = None) -> torch.Tensor:
-    """Train/prefill: expand the latent and run standard MHA."""
+def mla_forward(params, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor | None = None,
+                sh: Shard | None = None) -> torch.Tensor:
+    """Train/prefill: expand the latent and run standard MHA. ``sh``: on this
+    rank's heads (``mla_specs`` cut ``wq_b``, ``wkv_b`` and ``wo`` on heads):
+    the whole latent and shared key, which every rank computes alike, enter
+    the cut heads (their gradients summed over the group), and the output
+    projection ends in an all-reduce."""
     m = cfg.mla
     b, l, _ = x.shape
     positions = torch.arange(l, device=x.device) if positions is None else positions
-    q_nope, q_rope, c_kv, k_rope = _mla_project(params, x, cfg, positions)
+    sh = split_over(sh, cfg.num_heads)
+    q_nope, q_rope = _mla_query(params, x, cfg, positions, sh)
+    c_kv, k_rope = _mla_latent(params, x, cfg, positions)
+    if sh is not None:
+        c_kv, k_rope = sh.enter(c_kv), sh.enter(k_rope)
     kvb = torch.einsum("blr,rhk->blhk", c_kv, params["wkv_b"])
     k_nope, v = kvb[..., : m.qk_nope_head_dim], kvb[..., m.qk_nope_head_dim :]
-    k_rope_h = k_rope[:, :, None, :].expand(b, l, cfg.num_heads, m.qk_rope_head_dim)
+    k_rope_h = k_rope[:, :, None, :].expand(b, l, q_nope.shape[2], m.qk_rope_head_dim)
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope_h], dim=-1)
     scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
     out = _sdpa_auto(q, k, v, causal=True, window=None, scale=scale)
-    return torch.einsum("blhv,hvd->bld", out, params["wo"])
+    y = torch.einsum("blhv,hvd->bld", out, params["wo"])
+    return y if sh is None else sh.psum(y)
 
 
 def mla_cache_init(cfg: ArchConfig, batch: int, seq_len: int, dtype=torch.float32, device=None) -> MLACache:
@@ -428,17 +479,27 @@ def mla_cache_init(cfg: ArchConfig, batch: int, seq_len: int, dtype=torch.float3
                                     device=device))
 
 
+def _latent_cut(cfg: ArchConfig, sh: Shard | None) -> Shard | None:
+    """``sh`` when ``mla_cache_specs`` cuts the latent cache's width (kv_lora + rope) over its model axis."""
+    return split_over(sh, cfg.mla.kv_lora_rank + cfg.mla.qk_rope_head_dim)
+
+
 def mla_prefill(
-    params, x: torch.Tensor, cfg: ArchConfig, cache_len: int | None = None
+    params, x: torch.Tensor, cfg: ArchConfig, cache_len: int | None = None, sh: Shard | None = None
 ) -> tuple[torch.Tensor, MLACache]:
+    """The forward, and the latent cache (this rank's block of its width
+    when ``mla_cache_specs`` cuts it)."""
     b, l, _ = x.shape
     cache_len = cache_len or l
     positions = torch.arange(l, device=x.device)
-    y = mla_forward(params, x, cfg, positions)
+    y = mla_forward(params, x, cfg, positions, sh)
     # recompute the latents for the cache (cheap projections)
-    c_kv, k_rope = _mla_latent(params, x, cfg, positions)
-    cache = mla_cache_init(cfg, b, cache_len, c_kv.dtype, x.device)
-    cache.ckv[:, :l] = torch.cat([c_kv, k_rope], dim=-1)
+    ckv = torch.cat(_mla_latent(params, x, cfg, positions), dim=-1)
+    cut = _latent_cut(cfg, sh)
+    if cut is not None:
+        ckv = _block(ckv, 2, cut)
+    cache = MLACache(ckv=ckv.new_zeros((b, cache_len, ckv.shape[2])))
+    cache.ckv[:, :l] = ckv
     return y, cache
 
 
@@ -448,26 +509,47 @@ def mla_decode(
     cache: MLACache,
     pos: int,
     cfg: ArchConfig,
+    sh: Shard | None = None,
 ) -> tuple[torch.Tensor, MLACache]:
     """Absorbed-matmul MLA decode: attention reads are against the latent,
-    not H x head_dim expanded keys. The cache is updated in place."""
+    not H x head_dim expanded keys. The cache is updated in place.
+
+    ``sh``: this rank's heads absorb ``w_uk`` into their queries. Where the
+    cache is cut on its width (``kv_lora + rope``, 576: 144 a rank at model
+    4), the absorbed queries ``[q_c | q_rope]`` are gathered over the heads,
+    every head is scored on this rank's width block of the cache and the
+    scores summed over the group; each rank forms its width block of the
+    latent output, the blocks are gathered and the rank's heads apply their
+    ``w_uv``. A block may straddle the latent's end and the shared key's
+    start (at model 16, rank 14 holds c[504:512] and k_rope[0:28]): the
+    scores take both parts alike, and the output keeps the latent's columns."""
     m = cfg.mla
-    nope, rdim = m.qk_nope_head_dim, m.qk_rope_head_dim
+    nope, rdim, r = m.qk_nope_head_dim, m.qk_rope_head_dim, m.kv_lora_rank
     posb = torch.tensor([pos], device=x.device)
-    q_nope, q_rope, c_kv_new, k_rope_new = _mla_project(params, x, cfg, posb)
+    heads = split_over(sh, cfg.num_heads)
+    cut = _latent_cut(cfg, heads)
+    q_nope, q_rope = _mla_query(params, x, cfg, posb, heads)
+    new = torch.cat(_mla_latent(params, x, cfg, posb), dim=-1)[:, 0]  # (B, kv_lora + rdim)
     s_len = cache.ckv.shape[1]
-    cache.ckv[:, min(pos, s_len - 1)] = torch.cat([c_kv_new, k_rope_new], dim=-1)[:, 0]
-    c, kr = cache.ckv[..., : m.kv_lora_rank], cache.ckv[..., m.kv_lora_rank :]
+    cache.ckv[:, min(pos, s_len - 1)] = new if cut is None else _block(new, 1, cut)
     w_uk = params["wkv_b"][..., :nope]  # (r, h, nope)
     w_uv = params["wkv_b"][..., nope:]  # (r, h, vdim)
-    # absorb W_UK into the query: q_c (B, 1, H, r)
-    q_c = torch.einsum("bqhd,rhd->bqhr", q_nope, w_uk)
+    # absorb W_UK into the query: [q_c | q_rope] (B, 1, H, r + rdim) against [c | k_rope]
+    q_abs = torch.cat([torch.einsum("bqhd,rhd->bqhr", q_nope, w_uk), q_rope], dim=-1)
+    if cut is not None:  # every head, on this rank's width block
+        q_abs = _block(cut.gather(q_abs, 2), 3, cut)
     scale = (nope + rdim) ** -0.5
-    s = (torch.einsum("bqhr,bsr->bhqs", q_c.float(), c.float())
-         + torch.einsum("bqhr,bsr->bhqs", q_rope.float(), kr.float())) * scale
+    s = torch.einsum("bqhr,bsr->bhqs", q_abs.float(), cache.ckv.float())
+    if cut is not None:
+        s = cut.psum(s)
+    s = s * scale
     mask = torch.arange(s_len, device=x.device) < pos + 1
     p = torch.softmax(torch.where(mask, s, _NEG), dim=-1)
-    ctx_c = torch.einsum("bhqs,bsr->bqhr", p, c.float()).to(x.dtype)
+    if cut is None:
+        ctx_c = torch.einsum("bhqs,bsr->bqhr", p, cache.ckv[..., :r].float()).to(x.dtype)
+    else:  # this rank's width block of the output, joined, the latent's columns and this rank's heads kept
+        ctx_c = cut.gather(torch.einsum("bhqs,bsr->bqhr", p, cache.ckv.float()), 3)[..., :r]
+        ctx_c = _block(ctx_c, 2, cut).to(x.dtype)
     ctx = torch.einsum("bqhr,rhv->bqhv", ctx_c, w_uv)
     y = torch.einsum("bqhv,hvd->bqd", ctx, params["wo"])
-    return y, cache
+    return (y if heads is None else heads.psum(y)), cache

@@ -23,14 +23,19 @@ whole on every rank. These are the collectives GSPMD would insert for the
 reference's ``shard`` constraints, which need no runtime counterpart
 beyond them; activations between layers are whole (replicated) on every
 rank of a model group, and bit-identical there, since every all-reduce
-hands each rank the same sum.
+hands each rank the same sum. The one exception is the reference's
+sequence-parallel residual (``transformer.seq_sharded_mode``): there a
+rank holds its block of the sequence's rows between layers.
 
 The collectives are ``torch.autograd.Function``s, so a mesh model trains.
 Over the model group: ``psum`` (all-reduce; its backward passes the
 gradient through, as every rank holds the same downstream), ``enter``
 (identity; its backward all-reduces, placed where a replicated activation
 enters a block cut over the model axis, whose ranks each hold a partial
-gradient of it) and ``gather`` (its backward keeps this rank's slice).
+gradient of it, and on a whole weight that a rank applies to its own rows
+only), ``gather`` (its backward keeps this rank's slice, or with ``reduce``
+sums the ranks' gradients into it) and ``scatter`` (this rank's block; its
+backward all-gathers).
 Over the data group: ``gather_data`` (its backward reduce-scatters, summing
 the ranks' gradients into each rank's block: the FSDP weight gathers).
 Over the ranks the batch is cut over (the data group, or on a pod mesh the
@@ -179,9 +184,20 @@ class Shard:
         the group."""
         return _Enter.apply(t, self.model_group) if _records(t) else t
 
-    def gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
-        """The model group's blocks of ``t`` joined along ``dim``, in rank order."""
-        return _Gather.apply(t, dim, self.model_group, self.ax.model_size, self.model_index, False)
+    def gather(self, t: torch.Tensor, dim: int, reduce: bool = False) -> torch.Tensor:
+        """The model group's blocks of ``t`` joined along ``dim``, in rank order.
+        The gradient: this rank's slice, right where everything downstream is
+        the same on every rank of the group; with ``reduce``, the group's
+        gradients summed into this rank's block (a reduce-scatter), for a
+        gathered tensor that feeds different work on each rank (the K/V of a
+        sequence-parallel attention, MLA's q latent before its cut heads)."""
+        return _Gather.apply(t, dim, self.model_group, self.ax.model_size, self.model_index, reduce)
+
+    def scatter(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's block along ``dim`` of ``t``, whole on every rank of the
+        model group (the gradient: the group's blocks joined, as each rank's
+        downstream holds only its block)."""
+        return _Scatter.apply(t, dim, self.model_group, self.ax.model_size, self.model_index)
 
     def gather_data(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
         """The data group's blocks of ``t`` joined along ``dim``, in rank order
@@ -320,6 +336,21 @@ class _Gather(torch.autograd.Function):
         return block.movedim(0, ctx.dim), None, None, None, None, None
 
 
+class _Scatter(torch.autograd.Function):
+    """This rank's block of ``t`` along ``dim``; the backward all-gathers the
+    blocks' gradients over ``group``."""
+
+    @staticmethod
+    def forward(ctx, t, dim: int, group, n: int, index: int):
+        ctx.dim, ctx.group, ctx.n = dim % t.dim(), group, n
+        size = t.shape[ctx.dim] // n
+        return t.narrow(ctx.dim, index * size, size)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.dim, ctx.group, ctx.n), None, None, None, None
+
+
 def split_over(sh: Shard | None, size: int) -> Shard | None:
     """``sh`` when a dimension of ``size`` is cut over its model axis, else
     None: what a layer function that sums over that dimension is handed."""
@@ -383,7 +414,7 @@ def mlp_specs(ax: Axes, d: int, d_ff: int, seq_sharded: bool = False) -> dict:
     if seq_sharded:
         # sequence-parallel residual: tokens shard over 'model', weights
         # replicate (the reference's choice for archs whose heads don't
-        # divide the model axis; no runtime path here, ROADMAP M5)
+        # divide the model axis)
         return {"w_gate": P(None, None), "w_up": P(None, None), "w_down": P(None, None)}
     ff = ax.dim_axis(d_ff)
     return {

@@ -22,7 +22,10 @@ the rank's channels through ``Shard.enter`` (their gradients are partial
 sums over the channels). ``in_proj`` is cut on its fused ``2·d_in`` output; the port
 lays a rank's block out as ``[x_r | z_r]`` (``in_proj_layout``), its own
 channels of x and of z, where the spec's contiguous block of ``[x | z]``
-would hand rank r other channels of x or of z than its own.
+would hand rank r other channels of x or of z than its own. Where d_in
+does not divide the axis but 2·d_in does, ``in_proj`` alone is cut, in its
+natural [x | z] order; its output is all-gathered and the rest of the mixer
+runs whole on every rank.
 
 ``mamba_forward_with_state`` also returns the decode state after the
 sequence (the last ``d_conv - 1`` rows of the pre-conv ``x`` and the
@@ -38,7 +41,7 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig, SSMConfig
 
-from .layers import P, Axes, Shard, dense_init, frozen
+from .layers import P, Axes, Shard, dense_init, frozen, split_over
 
 
 class MambaState(NamedTuple):
@@ -170,10 +173,27 @@ def _ssm_scan_meta(xs: torch.Tensor, dt: torch.Tensor, b: torch.Tensor, c: torch
     return h, ys.transpose(1, 2).contiguous()
 
 
-def _project(params, u: torch.Tensor, cfg: ArchConfig):
-    """(x, z, d_in, d_state, dt_rank); d_in is this rank's channels (half of in_proj's columns)."""
+def _channels_cut(cfg: ArchConfig, sh: Shard | None) -> Shard | None:
+    """``sh`` when the mixer's d_in channels are cut over its model axis (``mamba_specs``)."""
+    return split_over(sh, _dims(cfg)[0])
+
+
+def _in_proj_cut(cfg: ArchConfig, sh: Shard | None) -> Shard | None:
+    """``sh`` when ``in_proj`` alone is cut: 2·d_in divides the axis, d_in does not."""
+    return split_over(sh, 2 * _dims(cfg)[0]) if _channels_cut(cfg, sh) is None else None
+
+
+def _project(params, u: torch.Tensor, cfg: ArchConfig, sh: Shard | None = None):
+    """(x, z, d_in, d_state, dt_rank); d_in is this rank's channels (half of
+    in_proj's columns). ``sh``: the mixer's mesh, which cuts u's projection
+    (u enters it), and whose blocks of ``in_proj``'s output are gathered
+    where ``in_proj`` alone is cut."""
     _, d_state, _, dt_rank = _dims(cfg)
-    xz = u @ params["in_proj"]  # (B, L, 2*d_in)
+    whole = _in_proj_cut(cfg, sh)
+    cut = _channels_cut(cfg, sh) or whole
+    xz = (u if cut is None else cut.enter(u)) @ params["in_proj"]  # (B, L, 2*d_in)
+    if whole is not None:
+        xz = whole.gather(xz, -1)
     d_in = xz.shape[-1] // 2
     return xz[..., :d_in], xz[..., d_in:], d_in, d_state, dt_rank
 
@@ -194,8 +214,9 @@ def _ssm_params(params, x: torch.Tensor, d_state: int, dt_rank: int, sh: Shard |
 def mamba_forward_with_state(params, u: torch.Tensor, cfg: ArchConfig,
                              sh: Shard | None = None) -> tuple[torch.Tensor, MambaState]:
     """u: (B, L, d) -> ((B, L, d), the decode state after u). ``sh``: the
-    d_in channels are cut over its model axis."""
-    x, z, d_in, d_state, dt_rank = _project(params, u if sh is None else sh.enter(u), cfg)
+    mesh, which cuts the d_in channels (``_channels_cut``) or ``in_proj`` alone."""
+    x, z, d_in, d_state, dt_rank = _project(params, u, cfg, sh)
+    sh = _channels_cut(cfg, sh)
     d_conv = params["conv_w"].shape[0]
     xc = F.silu(_conv_causal(x, params["conv_w"], params["conv_b"]))
     dt, b, c, a = _ssm_params(params, xc, d_state, dt_rank, sh)
@@ -224,7 +245,8 @@ def mamba_state_init(cfg: ArchConfig, batch: int, dtype=torch.float32, device=No
 def mamba_decode(params, u: torch.Tensor, state: MambaState, cfg: ArchConfig,
                  sh: Shard | None = None) -> tuple[torch.Tensor, MambaState]:
     """u: (B, 1, d) single-token step."""
-    x, z, d_in, d_state, dt_rank = _project(params, u, cfg)
+    x, z, d_in, d_state, dt_rank = _project(params, u, cfg, sh)
+    sh = _channels_cut(cfg, sh)
     window = torch.cat([state.conv, x], dim=1)  # (B, d_conv, d_in): conv over [state.conv ‖ x]
     xc = torch.einsum("bld,ld->bd", window, params["conv_w"]) + params["conv_b"]
     xc = F.silu(xc)[:, None, :]  # (B, 1, d_in)

@@ -16,9 +16,18 @@ for the WKV.
 ``rwkv_time_mix_with_state`` also returns the WKV state after the
 sequence, which the prefill takes from the forward's own scan.
 
-The ``*_specs`` functions are the reference's sharding specs, as data: the
-RWKV layers have no mesh path yet (ROADMAP M5), and ``transformer.Model``
-refuses them on a model axis of more than one rank.
+On a ``(data, model)`` mesh (``sh``, ``layers.Shard``; the ``*_specs`` are
+the reference's) the time mix runs on this rank's heads: ``wr``, ``wk``,
+``wv`` and ``wg`` are cut on their output d (heads × head size), ``u``,
+``ln_scale`` and the WKV state on heads, and ``wo`` on its input, followed
+by an all-reduce. The decay LoRA (``w0``, ``w_a``, ``w_b``) is whole: a
+rank computes the whole decay and takes its channels. The channel mix cuts
+``wk`` on ``d_ff`` and ``wv`` on its input (an all-reduce after), and
+``wr`` on its output d, whose r is all-gathered before ``r * kv``. For
+training, each token-shifted mix enters the cut projection it feeds
+through ``Shard.enter`` (its gradient is a partial sum over the ranks),
+and so does the whole decay before a rank takes its channels, so that
+``w_a`` and ``w_b`` get the whole gradient.
 """
 from __future__ import annotations
 
@@ -30,7 +39,7 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig, RWKVConfig
 
-from .layers import P, Axes, dense_init, frozen
+from .layers import P, Axes, Shard, dense_init, frozen, split_over
 
 
 class RWKVState(NamedTuple):
@@ -155,31 +164,55 @@ def _wkv_chunked(rh, kh, vh, wh, u, s0, chunk: int = _WKV_CHUNK):
     return s, torch.cat(outs, dim=1)
 
 
-def rwkv_time_mix_with_state(params, x: torch.Tensor, cfg: ArchConfig,
-                             chunked: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, L, d) -> ((B, L, d), the WKV state after x). The chunk-parallel
-    WKV where L allows it and ``chunked``, as the reference."""
-    b, l, d = x.shape
-    nh, hs, _ = _dims(cfg)
-    x_prev = _shift(x)
-    r = _mix(x, x_prev, params["mix_r"]) @ params["wr"]
-    k = _mix(x, x_prev, params["mix_k"]) @ params["wk"]
-    v = _mix(x, x_prev, params["mix_v"]) @ params["wv"]
-    g = F.silu(_mix(x, x_prev, params["mix_g"]) @ params["wg"])
-    w = _decay(params, _mix(x, x_prev, params["mix_w"]))  # (B, L, d) fp32
+def _cut(sh: Shard | None, t: torch.Tensor) -> torch.Tensor:
+    """``t`` (whole on every rank) as it enters a projection cut over ``sh``'s model axis."""
+    return t if sh is None else sh.enter(t)
 
+
+def _time_mix_inputs(params, x: torch.Tensor, x_prev: torch.Tensor, cfg: ArchConfig, sh: Shard | None):
+    """(r, k, v, g, w) of the time mix for inputs x and their token shift
+    x_prev: (B, L, d) or, with ``sh``, this rank's channels (B, L, d / m)."""
+    r = _cut(sh, _mix(x, x_prev, params["mix_r"])) @ params["wr"]
+    k = _cut(sh, _mix(x, x_prev, params["mix_k"])) @ params["wk"]
+    v = _cut(sh, _mix(x, x_prev, params["mix_v"])) @ params["wv"]
+    g = F.silu(_cut(sh, _mix(x, x_prev, params["mix_g"])) @ params["wg"])
+    w = _decay(params, _mix(x, x_prev, params["mix_w"]))  # (B, L, d) fp32, whole
+    if sh is not None:
+        width = w.shape[-1] // sh.ax.model_size
+        w = sh.enter(w).narrow(-1, sh.model_index * width, width)
+    return r, k, v, g, w
+
+
+def _mix_sh(cfg: ArchConfig, sh: Shard | None) -> Shard | None:
+    """``sh`` when the time mix's heads, and so its d_model, are cut over its
+    model axis (``rwkv_time_mix_specs``)."""
+    return split_over(sh, _dims(cfg)[0])
+
+
+def rwkv_time_mix_with_state(params, x: torch.Tensor, cfg: ArchConfig, chunked: bool = True,
+                             sh: Shard | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, L, d) -> ((B, L, d), the WKV state after x: this rank's heads
+    with ``sh``). The chunk-parallel WKV where L allows it and ``chunked``,
+    as the reference."""
+    b, l, d = x.shape
+    _, hs, _ = _dims(cfg)
+    sh = _mix_sh(cfg, sh)
+    r, k, v, g, w = _time_mix_inputs(params, x, _shift(x), cfg, sh)
+    nh = r.shape[-1] // hs  # this rank's heads
     rh, kh, vh = (t.reshape(b, l, nh, hs).float() for t in (r, k, v))
     wh = w.reshape(b, l, nh, hs)
     s0 = torch.zeros((b, nh, hs, hs), dtype=torch.float32, device=x.device)
     wkv = _wkv_chunked if chunked and l % _WKV_CHUNK == 0 else _wkv_naive
     s, out = wkv(rh, kh, vh, wh, params["u"], s0)
-    out = _head_norm(params, out).reshape(b, l, d).to(x.dtype)
-    return (out * g) @ params["wo"], s
+    out = _head_norm(params, out).reshape(b, l, nh * hs).to(x.dtype)
+    y = (out * g) @ params["wo"]
+    return (y if sh is None else sh.psum(y)), s
 
 
-def rwkv_time_mix(params, x: torch.Tensor, cfg: ArchConfig, chunked: bool = True) -> torch.Tensor:
+def rwkv_time_mix(params, x: torch.Tensor, cfg: ArchConfig, chunked: bool = True,
+                  sh: Shard | None = None) -> torch.Tensor:
     """x: (B, L, d) -> (B, L, d)."""
-    return rwkv_time_mix_with_state(params, x, cfg, chunked)[0]
+    return rwkv_time_mix_with_state(params, x, cfg, chunked, sh)[0]
 
 
 def rwkv_channel_mix_init(gen: torch.Generator, cfg: ArchConfig, dtype=torch.float32) -> nn.ParameterDict:
@@ -199,13 +232,22 @@ def rwkv_channel_mix_specs(ax: Axes, cfg: ArchConfig) -> dict:
     }
 
 
-def rwkv_channel_mix(params, x: torch.Tensor, x_prev: torch.Tensor | None = None) -> torch.Tensor:
+def rwkv_channel_mix(params, x: torch.Tensor, x_prev: torch.Tensor | None = None, cfg: ArchConfig | None = None,
+                     sh: Shard | None = None) -> torch.Tensor:
     """Squared-ReLU FFN with token shift. x: (B, L, d); x_prev (B, d), the
-    input before x (zeros when None)."""
+    input before x (zeros when None). ``sh`` (with ``cfg``): ``wk`` cut on
+    d_ff and ``wv`` on its input (summed over the group after), ``wr`` on
+    its output d (r gathered), each where its dimension divides the axis."""
     xp = _shift(x) if x_prev is None else torch.cat([x_prev[:, None], x], dim=1)[:, :-1]
-    k = _mix(x, xp, params["mix_k"]) @ params["wk"]
+    ff = split_over(sh, cfg.d_ff) if sh is not None else None
+    dr = split_over(sh, cfg.d_model) if sh is not None else None
+    k = _cut(ff, _mix(x, xp, params["mix_k"])) @ params["wk"]
     kv = (F.relu(k) ** 2) @ params["wv"]
-    r = torch.sigmoid(_mix(x, xp, params["mix_r"]) @ params["wr"])
+    if ff is not None:
+        kv = ff.psum(kv)
+    r = torch.sigmoid(_cut(dr, _mix(x, xp, params["mix_r"])) @ params["wr"])
+    if dr is not None:
+        r = dr.gather(r, -1)
     return r * kv
 
 
@@ -228,23 +270,22 @@ def rwkv_state_specs(cfg: ArchConfig, ax: Axes) -> RWKVState:
 
 
 def rwkv_decode(tm_params, cm_params, x_tm: torch.Tensor, state: RWKVState,
-                cfg: ArchConfig) -> tuple[torch.Tensor, RWKVState]:
+                cfg: ArchConfig, sh: Shard | None = None) -> tuple[torch.Tensor, RWKVState]:
     """Single-token time-mix step on x_tm (B, 1, d), the post-norm input.
     Returns (time-mix output, state with the new x_prev_tm and S); the
     caller applies the channel mix with ``state.x_prev_cm``. ``cm_params``
-    is not read (the reference's signature)."""
-    b, _, d = x_tm.shape
-    nh, hs, _ = _dims(cfg)
-    xp = state.x_prev_tm[:, None]
-    r = _mix(x_tm, xp, tm_params["mix_r"]) @ tm_params["wr"]
-    k = _mix(x_tm, xp, tm_params["mix_k"]) @ tm_params["wk"]
-    v = _mix(x_tm, xp, tm_params["mix_v"]) @ tm_params["wv"]
-    g = F.silu(_mix(x_tm, xp, tm_params["mix_g"]) @ tm_params["wg"])
-    w = _decay(tm_params, _mix(x_tm, xp, tm_params["mix_w"]))[:, 0].reshape(b, nh, hs)
+    is not read (the reference's signature). ``sh``: on this rank's heads,
+    whose block of S the state holds."""
+    b = x_tm.shape[0]
+    _, hs, _ = _dims(cfg)
+    sh = _mix_sh(cfg, sh)
+    r, k, v, g, w = _time_mix_inputs(tm_params, x_tm, state.x_prev_tm[:, None], cfg, sh)
+    nh = r.shape[-1] // hs
+    w = w[:, 0].reshape(b, nh, hs)
     r_t, k_t, v_t = (t[:, 0].reshape(b, nh, hs).float() for t in (r, k, v))
     kv = k_t[..., :, None] * v_t[..., None, :]
     out = torch.einsum("bhk,bhkv->bhv", r_t, state.s + tm_params["u"][..., None] * kv)
     s_new = w[..., None] * state.s + kv
-    out = _head_norm(tm_params, out[:, None]).reshape(b, 1, d).to(x_tm.dtype)
+    out = _head_norm(tm_params, out[:, None]).reshape(b, 1, nh * hs).to(x_tm.dtype)
     y = (out * g) @ tm_params["wo"]
-    return y, RWKVState(x_prev_tm=x_tm[:, 0], x_prev_cm=state.x_prev_cm, s=s_new)
+    return (y if sh is None else sh.psum(y)), RWKVState(x_prev_tm=x_tm[:, 0], x_prev_cm=state.x_prev_cm, s=s_new)

@@ -30,9 +30,17 @@ all-reduce. A spec tree is the reference's: a segment's specs carry a
 leading ``None`` for the repeat axis, so the spec of the port's tensor
 ``params["seg{i}"][r]…`` is the reference leaf's spec without its first
 entry (``leaf_specs``). The batch is cut over the data axis when ``ax``
-names it. The layer kinds with no mesh path (MLA, RWKV, attention whose
-heads do not divide the model axis) raise on a model axis of more than
-one rank (``check_mesh``).
+names it. Every layer kind of the registry has a mesh path; the
+combinations no registry config reaches and the port does not take raise
+on a model axis of more than one rank (``check_mesh``). Where
+``seq_sharded_mode`` holds and the axis divides the sequence, the residual
+between layers is the reference's sequence-parallel one: a rank holds its
+block of L / m rows from the embedding on (``Shard.scatter``), attention
+gathers K and V over the sequence, the whole MLP runs on the rank's rows,
+and the final-normed hidden is gathered back over the sequence; every
+leaf of such a layer is whole, and as a rank applies it to its own rows
+only, its gradient is summed over the model group (``Shard.enter`` on the
+leaf, ``_Gathered``).
 
 FSDP: with ``data`` > 1 ranks the specs are widened over the data axis by
 the reference's ``apply_fsdp`` (``launch.mesh``), decided on the
@@ -103,8 +111,10 @@ class Segment:
 def seq_sharded_mode(cfg: ArchConfig, ax: Axes) -> bool:
     """The reference's sequence-parallel residual stream, used when attention
     heads do NOT divide the model axis (qwen2 14H, llama3.2 24H over 16):
-    tokens shard over 'model', MLP weights replicate. Data here (it sets
-    ``mlp_specs``); the port has no such path (``check_mesh``)."""
+    tokens shard over 'model', MLP weights replicate (``mlp_specs``), and
+    only K/V all-gather. It applies to a sequence whose length the axis
+    divides (``Model._seq``); other lengths (decode, odd prompts) run the
+    attention whole on every rank."""
     return (
         cfg.attention == "gqa"
         and cfg.num_heads > 0
@@ -115,23 +125,20 @@ def seq_sharded_mode(cfg: ArchConfig, ax: Axes) -> bool:
 
 
 def check_mesh(cfg: ArchConfig, ax: Axes) -> None:
-    """Raise ``NotImplementedError`` for a layer kind that has no path on a
-    model axis of ``ax.model_size`` > 1 ranks (ROADMAP M5)."""
+    """Raise ``NotImplementedError`` for a combination that has no path on a
+    model axis of ``ax.model_size`` > 1 ranks (ROADMAP M5). No config of the
+    registry reaches one at model 2, 4 or 16."""
     m = ax.model_size
     if m == 1:
         return
     kinds = set(cfg.pattern())
     missing = None
-    if "a" in kinds and cfg.attention == "mla":
-        missing = "MLA attention"
-    elif "r" in kinds:
-        missing = "RWKV time and channel mix"
-    elif "a" in kinds and cfg.num_heads % m:
-        missing = (f"attention whose {cfg.num_heads} heads do not divide the axis"
-                   + (" (the reference's sequence-parallel residual, seq_sharded_mode)" if seq_sharded_mode(cfg, ax)
-                      else ""))
-    elif "m" in kinds and mam._dims(cfg)[0] % m and (2 * mam._dims(cfg)[0]) % m == 0:
-        missing = "a Mamba mixer whose d_in does not divide the axis while 2·d_in does"
+    if "a" in kinds and cfg.attention == "mla" and cfg.num_heads % m:
+        missing = f"MLA whose {cfg.num_heads} heads do not divide the axis"
+    elif "r" in kinds and cfg.d_model % m == 0 and rwkv_mod._dims(cfg)[0] % m:
+        missing = f"an RWKV time mix whose d_model divides the axis while its {rwkv_mod._dims(cfg)[0]} heads do not"
+    elif seq_sharded_mode(cfg, ax) and (kinds != {"a"} or cfg.moe is not None):
+        missing = "a Mamba, RWKV or MoE layer in a model whose residual is sequence-cut (seq_sharded_mode)"
     if missing:
         raise NotImplementedError(f"{cfg.name} on a model axis of {m} ranks: {missing} has no mesh path "
                                   "yet (ROADMAP M5)")
@@ -230,32 +237,32 @@ def layer_init(gen: torch.Generator, cfg: ArchConfig, desc: LayerDesc, dtype=tor
 def _ffn(params, h: torch.Tensor, cfg: ArchConfig, desc: LayerDesc, capacity_factor: float | None = None,
          sh: Shard | None = None) -> tuple[torch.Tensor, torch.Tensor | None]:
     """The layer's FFN on h, and its weighted router aux loss (None without
-    an MoE FFN). RWKV's channel mix takes a zero token shift before h."""
+    an MoE FFN). RWKV's channel mix takes a zero token shift before h. The
+    dense MLP is whole (no collective) under ``seq_sharded_mode``'s specs."""
     if desc.ffn == "rwkv":
-        return rwkv_mod.rwkv_channel_mix(params, h), None
+        return rwkv_mod.rwkv_channel_mix(params, h, cfg=cfg, sh=sh), None
     if desc.ffn != "moe":
-        return mlp(params, h, split_over(sh, cfg.d_ff)), None
+        whole = sh is None or seq_sharded_mode(cfg, sh.ax)
+        return mlp(params, h, None if whole else split_over(sh, cfg.d_ff)), None
     out, aux = moe_mod.moe_ffn(params, h, cfg, capacity_factor, sh)
     m = cfg.moe
     return out, m.router_aux_weight * aux.load_balance + m.router_z_weight * aux.z_loss
 
 
-def _mamba_sh(cfg: ArchConfig, sh: Shard | None) -> Shard | None:
-    return split_over(sh, mam._dims(cfg)[0])
-
-
 def layer_forward(params, x: torch.Tensor, cfg: ArchConfig, desc: LayerDesc,
-                  sh: Shard | None = None) -> tuple[torch.Tensor, torch.Tensor | None]:
-    """Full-sequence layer. Returns (x, moe_aux): the router aux loss, None without an MoE FFN."""
+                  sh: Shard | None = None, seq: bool = False) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """Full-sequence layer. Returns (x, moe_aux): the router aux loss, None
+    without an MoE FFN. ``seq``: x is this rank's block of the rows (the
+    sequence-parallel residual), and so is the output."""
     h = rmsnorm(params["norm1"], x, cfg.norm_eps)
     if desc.mixer == "m":
-        x = x + mam.mamba_forward(params["mixer"], h, cfg, _mamba_sh(cfg, sh))
+        x = x + mam.mamba_forward(params["mixer"], h, cfg, sh)
     elif desc.mixer == "r":
-        x = x + rwkv_mod.rwkv_time_mix(params["mixer"], h, cfg)
+        x = x + rwkv_mod.rwkv_time_mix(params["mixer"], h, cfg, sh=sh)
     elif cfg.attention == "mla":
-        x = x + attn.mla_forward(params["mixer"], h, cfg)
+        x = x + attn.mla_forward(params["mixer"], h, cfg, sh=sh)
     else:
-        x = x + attn.gqa_forward(params["mixer"], h, cfg, sh=sh)
+        x = x + attn.gqa_forward(params["mixer"], h, cfg, sh, seq)
     out, aux = _ffn(params["ffn"], rmsnorm(params["norm2"], x, cfg.norm_eps), cfg, desc, sh=sh)
     return x + out, aux
 
@@ -291,18 +298,18 @@ def layer_decode(params, x: torch.Tensor, cache: Cache, pos: int, cfg: ArchConfi
                  desc: LayerDesc, sh: Shard | None = None) -> tuple[torch.Tensor, Cache]:
     h = rmsnorm(params["norm1"], x, cfg.norm_eps)
     if desc.mixer == "m":
-        mix, cache = mam.mamba_decode(params["mixer"], h, cache, cfg, _mamba_sh(cfg, sh))
+        mix, cache = mam.mamba_decode(params["mixer"], h, cache, cfg, sh)
     elif desc.mixer == "r":
-        mix, cache = rwkv_mod.rwkv_decode(params["mixer"], params["ffn"], h, cache, cfg)
+        mix, cache = rwkv_mod.rwkv_decode(params["mixer"], params["ffn"], h, cache, cfg, sh)
     elif cfg.attention == "mla":
-        mix, cache = attn.mla_decode(params["mixer"], h, cache, pos, cfg)
+        mix, cache = attn.mla_decode(params["mixer"], h, cache, pos, cfg, sh)
     else:
         mix, cache = attn.gqa_decode(params["mixer"], h, cache, pos, cfg, sh)
     x = x + mix
     h2 = rmsnorm(params["norm2"], x, cfg.norm_eps)
     if desc.ffn == "rwkv":
         # the channel mix shifts in the previous token's input, then this token's becomes it
-        out = rwkv_mod.rwkv_channel_mix(params["ffn"], h2, x_prev=cache.x_prev_cm)
+        out = rwkv_mod.rwkv_channel_mix(params["ffn"], h2, x_prev=cache.x_prev_cm, cfg=cfg, sh=sh)
         cache = cache._replace(x_prev_cm=h2[:, 0])
     else:
         out, _ = _ffn(params["ffn"], h2, cfg, desc, capacity_factor=2.0, sh=sh)
@@ -310,20 +317,22 @@ def layer_decode(params, x: torch.Tensor, cache: Cache, pos: int, cfg: ArchConfi
 
 
 def layer_prefill(params, x: torch.Tensor, cfg: ArchConfig, desc: LayerDesc,
-                  cache_len: int | None = None, sh: Shard | None = None) -> tuple[torch.Tensor, Cache]:
+                  cache_len: int | None = None, sh: Shard | None = None,
+                  seq: bool = False) -> tuple[torch.Tensor, Cache]:
     """Full-seq forward that also emits the decode cache for this layer.
     A Mamba or RWKV layer's state comes from the forward's own scan; the
-    token-shift inputs are copies of the last positions."""
+    token-shift inputs are copies of the last positions. ``seq``: x is this
+    rank's block of the rows (``layer_forward``)."""
     h = rmsnorm(params["norm1"], x, cfg.norm_eps)
     if desc.mixer == "m":
-        mix, cache = mam.mamba_forward_with_state(params["mixer"], h, cfg, _mamba_sh(cfg, sh))
+        mix, cache = mam.mamba_forward_with_state(params["mixer"], h, cfg, sh)
     elif desc.mixer == "r":
-        mix, s = rwkv_mod.rwkv_time_mix_with_state(params["mixer"], h, cfg)
+        mix, s = rwkv_mod.rwkv_time_mix_with_state(params["mixer"], h, cfg, sh=sh)
         cache = rwkv_mod.RWKVState(x_prev_tm=h[:, -1].clone(), x_prev_cm=torch.zeros_like(h[:, -1]), s=s)
     elif cfg.attention == "mla":
-        mix, cache = attn.mla_prefill(params["mixer"], h, cfg, cache_len)
+        mix, cache = attn.mla_prefill(params["mixer"], h, cfg, cache_len, sh)
     else:
-        mix, cache = attn.gqa_prefill(params["mixer"], h, cfg, cache_len, sh)
+        mix, cache = attn.gqa_prefill(params["mixer"], h, cfg, cache_len, sh, seq)
     x = x + mix
     h2 = rmsnorm(params["norm2"], x, cfg.norm_eps)
     out, _ = _ffn(params["ffn"], h2, cfg, desc, capacity_factor=2.0, sh=sh)
@@ -446,19 +455,24 @@ class _Gathered(Mapping):
     just before its use. Its gather node then follows the layer's earlier
     ops in autograd's order, so the backward reduce-scatters the leaf's
     gradient as soon as it is complete, and the layer's whole gradients do
-    not pile up."""
+    not pile up. ``enter``: each leaf, whole, is applied by this rank to its
+    own rows of the sequence only, so its gradient is summed over the model
+    group (``Shard.enter``)."""
 
-    def __init__(self, model: "Model", node: nn.Module, prefix: str):
-        self._model, self._node, self._prefix, self._read = model, node, prefix, {}
+    def __init__(self, model: "Model", node: nn.Module, prefix: str, enter: bool = False):
+        self._model, self._node, self._prefix, self._enter, self._read = model, node, prefix, enter, {}
 
     def __getitem__(self, key: str):
         if key not in self._read:
             value, name = self._node[key], f"{self._prefix}{key}"
             dims = self._model.fsdp_dims()
             if isinstance(value, nn.Module):
-                value = _Gathered(self._model, value, f"{name}.")
-            elif name in dims:
-                value = self._model.sh.gather_data(value, dims[name])
+                value = _Gathered(self._model, value, f"{name}.", self._enter)
+            else:
+                if name in dims:
+                    value = self._model.sh.gather_data(value, dims[name])
+                if self._enter:
+                    value = self._model.sh.enter(value)
             self._read[key] = value
         return self._read[key]
 
@@ -616,11 +630,18 @@ class Model(nn.Module):
                           if e is not None and e != self.ax.model} if self.fsdp > 1 else {}
         return self._dims
 
-    def _use(self, node: nn.Module, prefix: str):
+    def _use(self, node: nn.Module, prefix: str, seq: bool = False):
         """``node`` (a subtree of ``params`` at ``prefix``) as the layer
-        functions read it: the module itself without FSDP leaves, else a
-        ``_Gathered`` view of it."""
-        return _Gathered(self, node, prefix) if self.fsdp_dims() else node
+        functions read it: the module itself without FSDP leaves and outside
+        the sequence-parallel residual (``seq``), else a ``_Gathered`` view
+        of it."""
+        return _Gathered(self, node, prefix, seq) if self.fsdp_dims() or seq else node
+
+    def _seq(self, length: int) -> bool:
+        """Whether the residual of a ``length``-token sequence is cut over the
+        model axis: the reference's sequence-parallel residual
+        (``seq_sharded_mode``, where the axis divides the length)."""
+        return self.sh is not None and seq_sharded_mode(self.cfg, self.ax) and length % self.ax.model_size == 0
 
     def _relaid(self, name: str) -> bool:
         """Whether this rank's block of parameter ``name`` is a re-laid Mamba ``in_proj``."""
@@ -707,12 +728,12 @@ class Model(nn.Module):
                     yield rep[f"l{i}"], d, si, r, f"l{i}"
 
     # ---- forward --------------------------------------------------------------
-    def _layer(self, params: nn.ModuleDict, desc: LayerDesc, prefix: str, x: torch.Tensor,
+    def _layer(self, params: nn.ModuleDict, desc: LayerDesc, prefix: str, seq: bool, x: torch.Tensor,
                aux: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """One layer, adding its router aux loss (an MoE layer's) to the
         carried ``aux``, as the reference's scan body; its FSDP leaves are
         gathered inside (``_use``)."""
-        x, a = layer_forward(self._use(params, prefix), x, self.cfg, desc, self.sh)
+        x, a = layer_forward(self._use(params, prefix, seq), x, self.cfg, desc, self.sh, seq)
         return x, aux if a is None else aux + a
 
     def hidden(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -720,18 +741,24 @@ class Model(nn.Module):
         aux losses summed over the layers (0 without an MoE layer). Where
         autograd records, each layer is checkpointed as ``remat`` asks,
         with the carried aux its second input and output; elsewhere it runs
-        straight."""
+        straight. On the sequence-parallel residual (``_seq``) the layers run
+        on this rank's block of the rows, and the final-normed hidden is
+        gathered back over the sequence."""
+        seq = self._seq(x.shape[1])
+        if seq:
+            x = self.sh.scatter(x, 1)
         remat = self.remat if torch.is_grad_enabled() else "none"
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for si, seg in enumerate(self.segments):
             reps = self.params[f"seg{si}"]
             g = _group_of(seg.repeat, self.remat_group) if remat != "none" else 1
             for r0 in range(0, seg.repeat, g):
-                layers = [functools.partial(self._layer, reps[r][f"l{i}"], d, f"seg{si}.{r}.l{i}.")
+                layers = [functools.partial(self._layer, reps[r][f"l{i}"], d, f"seg{si}.{r}.l{i}.", seq)
                           for r in range(r0, r0 + g) for i, d in enumerate(seg.layers)]
                 run = _chain(layers, remat) if g == 1 else _remat(_chain(layers, "full"), remat)
                 x, aux = run(x, aux)
-        return rmsnorm(self._use(self.params["final_norm"], "final_norm."), x, self.cfg.norm_eps), aux
+        h = rmsnorm(self._use(self.params["final_norm"], "final_norm.", seq), x, self.cfg.norm_eps)
+        return (self.sh.gather(h, 1) if seq else h), aux
 
     @torch.inference_mode()
     def backbone(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -781,12 +808,15 @@ class Model(nn.Module):
         On a mesh ``batch`` holds this rank's rows (its data block of the
         batch when ``ax`` cuts it), and so do the logits and caches."""
         x = self.embed_input(batch)
+        seq = self._seq(x.shape[1])
+        if seq:  # this rank's block of the rows; the last row is the last rank's
+            x = self.sh.scatter(x, 1)
         caches = {f"seg{si}": [{} for _ in range(seg.repeat)] for si, seg in enumerate(self.segments)}
         for params, d, si, r, name in self._layers():
             x, caches[f"seg{si}"][r][name] = layer_prefill(self._use(params, f"seg{si}.{r}.{name}."), x, self.cfg, d,
-                                                           cache_len, self.sh)
-        h = rmsnorm(self._use(self.params["final_norm"], "final_norm."), x, self.cfg.norm_eps)
-        return self.logits(h[:, -1:]), caches
+                                                           cache_len, self.sh, seq)
+        h = rmsnorm(self._use(self.params["final_norm"], "final_norm."), x[:, -1:], self.cfg.norm_eps)
+        return self.logits(self.sh.gather(h, 1)[:, -1:] if seq else h), caches
 
     @torch.inference_mode()
     def decode_step(self, caches, tokens: torch.Tensor, pos: int):

@@ -11,8 +11,9 @@ logits and every cache joined back to whole tensors after each, its MoE
 routes, and the unsharded port's logits on the whole batch fed the same
 tokens. It
 also runs the ``convert`` round trip, a mesh ``init`` against the one-card
-``init`` cut, the data-sharded MoE drops against the unsharded ones, the
-raises, and ``launch.serve.main`` on a mesh. Each rank writes
+``init`` cut, the data-sharded MoE drops against the unsharded ones, a
+Mamba mixer at d_in 6 at (1, 4) (``_mamba6``), the raises, and
+``launch.serve.main`` on a mesh. Each rank writes
 ``OUTDIR/rank<r>.npz`` and ``OUTDIR/rank<r>.json``. Imports only
 ``repro_torch`` (no JAX, nothing of the reference package).
 """
@@ -28,12 +29,33 @@ from pathlib import Path
 JOIN_TIMEOUT_S = 240
 WORLD = 4
 MESHES = [(1, 4), (2, 2)]  # (data, model)
-CASES = {"jamba24": ("jamba-v0.1-52b", 24), "jamba32": ("jamba-v0.1-52b", 32), "granite24": ("granite-moe-1b-a400m", 24)}
+CASES = {"jamba24": ("jamba-v0.1-52b", 24), "jamba32": ("jamba-v0.1-52b", 32),
+         "granite24": ("granite-moe-1b-a400m", 24),
+         # qwen2 at 6 heads (OVERRIDES): at model 4 the prompt of 24 takes the sequence-parallel residual,
+         # the prompt of 22 the replicated attention; MLA with its MoE; RWKV-6's token loop and chunks of 16
+         "qwen24": ("qwen2-0.5b", 24), "qwen22": ("qwen2-0.5b", 22), "deepseek24": ("deepseek-v2-236b", 24),
+         "rwkv24": ("rwkv6-1.6b", 24), "rwkv32": ("rwkv6-1.6b", 32)}
+# the reduced configs' changes: reduced qwen2's 4 heads divide every axis, 6 do not divide 4
+OVERRIDES = {"qwen2-0.5b": dict(num_heads=6, num_kv_heads=2)}
+# a Mamba mixer whose d_in (6) does not divide a model axis of 4 while 2·d_in does: reduced jamba's
+# mixer at d_model 3, on the (1, 4) mesh, against the reference's mixer
+MAMBA6 = dict(d_model=3)
+MAMBA6_L, MAMBA6_STEPS = 12, 2
+# a combination no registry config reaches: Mamba layers in a model whose residual is sequence-cut
+REFUSED = ("jamba-v0.1-52b", dict(num_heads=6, num_kv_heads=2))
 STEPS = 3
 CACHE_LEN = 32 + STEPS  # one cache length for every case, as the reference's runs use
 DROP_CAPACITY = 10  # slots an expert in the drop check: 48 tokens x 2 slots over 4 experts overflow it
 DROP_FACTOR = 0.5  # the MoE FFN's capacity factor in the drop check (12 slots an expert)
 SERVE_ARGS = ["--device", "cpu", "--arch", "jamba-v0.1-52b", "--batch", "4", "--prompt-len", "32", "--tokens", "4"]
+
+
+def case_config(arch: str, get_config, reduced_config, **changes):
+    """The reduced config of ``arch`` with its ``OVERRIDES`` (and ``changes``):
+    the port's or the reference's, by the ``get_config`` and ``reduced_config`` given."""
+    import dataclasses
+
+    return dataclasses.replace(reduced_config(get_config(arch)), **{**OVERRIDES.get(arch, {}), **changes})
 
 
 def tree(z: dict, prefix: str) -> dict:
@@ -135,7 +157,7 @@ def _rank_main(rank: int, world: int, inputs: str, outdir: str) -> None:
     dist.init_process_group("gloo", init_method=(Path(outdir) / "store").as_uri(), world_size=world, rank=rank)
     try:
         z = dict(np.load(inputs))
-        cfgs = {arch: reduced_config(get_config(arch)) for arch, _ in CASES.values()}
+        cfgs = {arch: case_config(arch, get_config, reduced_config) for arch, _ in CASES.values()}
         refs = {arch: tree(z, f"params/{arch}/") for arch in cfgs}
         out: dict = {}
         info: dict = {"raises": {}}
@@ -181,12 +203,15 @@ def _rank_main(rank: int, world: int, inputs: str, outdir: str) -> None:
                     out[f"{tag}/drop/aux_all"] = torch.stack(list(aux_all))
                     out[f"{tag}/drop/aux_mine"] = torch.stack(list(aux_mine))
                 if tag == "1x4":
-                    for arch in ("deepseek-v2-236b", "rwkv6-1.6b"):
-                        try:
-                            Model(reduced_config(get_config(arch)), mesh=mesh)
-                            info["raises"][arch] = "made"
-                        except NotImplementedError as err:
-                            info["raises"][arch] = str(err)
+                    out.update(_mamba6(z, mesh))
+                    for arch in ("deepseek-v2-236b", "rwkv6-1.6b"):  # refused on a model axis before
+                        Model(cfgs[arch], mesh=mesh)
+                        info["raises"][arch] = "made"
+                    try:
+                        Model(case_config(REFUSED[0], get_config, reduced_config, **REFUSED[1]), mesh=mesh)
+                        info["raises"]["refused"] = "made"
+                    except NotImplementedError as err:
+                        info["raises"]["refused"] = str(err)
         try:
             with make_lm_mesh(1, 2, "cpu"):
                 info["raises"]["mesh_1x2"] = "made"
@@ -204,6 +229,40 @@ def _rank_main(rank: int, world: int, inputs: str, outdir: str) -> None:
         (Path(outdir) / f"rank{rank}.json").write_text(json.dumps(info))
     finally:
         dist.destroy_process_group()
+
+
+def _mamba6(z: dict, mesh) -> dict:
+    """Reduced jamba's Mamba mixer at d_model 3 (d_in 6) on ``mesh`` with the
+    reference's weights: ``in_proj`` alone is cut; the forward and its
+    state, ``MAMBA6_STEPS`` decode steps, and the gradients of sum(out · cot)
+    (``in_proj``'s joined) and of the input."""
+    import torch
+
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.convert import to_tensor
+    from repro_torch.models import mamba
+    from repro_torch.models.layers import frozen
+    from repro_torch.models.transformer import Model
+
+    cfg = case_config("jamba-v0.1-52b", get_config, reduced_config, **MAMBA6)
+    model = Model(cfg, mesh=mesh)
+    whole = frozen(**{k: to_tensor(v, "cpu") for k, v in tree(z, "mamba6/params/").items()})
+    params = model.place(whole, "seg0.0.l0.mixer")
+    u = torch.from_numpy(z["mamba6/u"]).requires_grad_(True)
+    for p in params.values():
+        p.requires_grad_(True)
+    y, state = mamba.mamba_forward_with_state(params, u, cfg, model.sh)
+    torch.sum(y * torch.from_numpy(z["mamba6/cot"])).backward()
+    state = mamba.MambaState(state.conv.detach(), state.ssm.detach())
+    out = {"mamba6/y": y.detach(), "mamba6/conv": state.conv, "mamba6/ssm": state.ssm, "mamba6/du": u.grad,
+           "mamba6/in_proj_shape": torch.tensor(params["in_proj"].shape)}
+    out.update({f"mamba6/grad/{k}": g.detach() for k, g in model.gather(
+        {f"seg0.0.l0.mixer.{k}": p.grad for k, p in params.items()}).items()})
+    with torch.no_grad():
+        for i in range(MAMBA6_STEPS):
+            yi, state = mamba.mamba_decode(params, torch.from_numpy(z[f"mamba6/step{i}"]), state, cfg, model.sh)
+            out[f"mamba6/decode{i}"] = yi
+    return {f"1x4/{k}": v for k, v in out.items()}
 
 
 def _flat(node, prefix: str = "") -> dict:

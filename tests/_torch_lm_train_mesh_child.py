@@ -10,7 +10,9 @@ mesh model places them, FSDP-widened over the data axis down to
 ``FSDP_MIN_ELEMS`` elements) the loss and every gradient of the case's
 batch, joined back to whole tensors in the reference's tree, under remat
 ``none`` and ``full``; then three steps of ``launch.train.main`` on the mesh
-under remat ``none`` and ``full``. On ``(2, 2)`` it also runs the refusals
+under the remats of ``TRAIN_REMATS``; at ``(1, 4)`` the gradients of
+``NARROWED`` again with every model-group gather's backward narrowing. On
+``(2, 2)`` it also runs the refusals
 (``--ckpt``, ``int8``, ZeRO-1 moments); on ``(2, 2)`` and ``(2, 1)`` sampled
 serving (``launch.serve.main --temperature``) and a batch whose two data
 blocks are the same prompts. Each rank writes ``OUTDIR/<DATA>x<MODEL>/rank<r>.npz``
@@ -31,13 +33,21 @@ from _torch_lm_mesh_child import _flat, tree
 JOIN_TIMEOUT_S = 240
 B, L = 8, 8
 FSDP_MIN_ELEMS = 1 << 10  # small enough that FSDP cuts the reduced models' larger leaves
-CASES = {"jamba": "jamba-v0.1-52b", "granite": "granite-moe-1b-a400m", "qwen2": "qwen2-0.5b"}
-MESH_CASES = {(1, 4): ["jamba"], (2, 2): ["jamba", "granite"], (4, 1): ["jamba", "granite", "qwen2"], (2, 1): []}
+CASES = {"jamba": "jamba-v0.1-52b", "granite": "granite-moe-1b-a400m", "qwen2": "qwen2-0.5b",
+         "qwen2_6h": "qwen2-0.5b", "deepseek": "deepseek-v2-236b", "rwkv": "rwkv6-1.6b"}
+# qwen2 at 6 heads and 2 kv heads: at (1, 4) the sequence-parallel residual (L 8), at (2, 2) cut on heads
+MESH_CASES = {(1, 4): ["jamba", "qwen2_6h", "deepseek", "rwkv"], (2, 2): ["jamba", "granite", "qwen2_6h", "deepseek",
+                                                                          "rwkv"],
+              (4, 1): ["jamba", "granite", "qwen2"], (2, 1): []}
+# the cases whose gradients are taken again at (1, 4) with every model-group gather's backward narrowing
+# (``Shard.gather`` without ``reduce``): the K/V gather of the sequence-parallel attention, MLA's q latent
+NARROWED = ("qwen2_6h", "deepseek")
 # granite's router aux weights raised, so that the aux loss's share of the router gradient is far above
 # the gradient tolerance (a data-group sum whose backward is 1/data short shows)
 AUX = dict(router_aux_weight=0.1, router_z_weight=0.01)
 REMATS = ("none", "full")
-TRAIN_REMATS = {"jamba": REMATS, "granite": ("full",), "qwen2": ("none",)}  # the 3-step launcher runs
+TRAIN_REMATS = {"jamba": REMATS, "granite": ("full",), "qwen2": ("none",), "qwen2_6h": (), "deepseek": (),
+                "rwkv": ()}  # the 3-step launcher runs
 TRAIN_ARGS = ["--device", "cpu", "--steps", "3", "--batch", str(B), "--seq", str(L), "--microbatches", "2",
               "--lr", "3e-3", "--fsdp-min-elems", str(FSDP_MIN_ELEMS), "--quiet"]
 SERVE_ARGS = ["--device", "cpu", "--arch", "jamba-v0.1-52b", "--batch", "4", "--prompt-len", "24", "--tokens", "8",
@@ -48,7 +58,24 @@ def case_config(case: str, get_config, reduced_config):
     cfg = reduced_config(get_config(CASES[case]))
     if case == "granite":
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, **AUX))
+    if case == "qwen2_6h":
+        cfg = dataclasses.replace(cfg, num_heads=6, num_kv_heads=2)
     return cfg
+
+
+def _narrowed_grads(cfg, ref, batch, mesh):
+    """The gradients, joined, with every ``Shard.gather`` over the model
+    group keeping this rank's slice in its backward (no ``reduce``)."""
+    from repro_torch.convert import grads_to_reference
+    from repro_torch.models.layers import Shard
+
+    real = Shard.gather
+    Shard.gather = lambda self, t, dim, reduce=False: real(self, t, dim)
+    try:
+        _, grads, model = _grad_case(cfg, ref, batch, mesh, "none")
+    finally:
+        Shard.gather = real
+    return _flat(grads_to_reference(grads, model))
 
 
 def _grad_case(cfg, ref, batch, mesh, remat: str):
@@ -104,6 +131,9 @@ def _rank_main(rank: int, world: int, data: int, model_size: int, inputs: str, o
                     + (["loss"] if not torch.equal(loss, runs["full"][0]) else []))
                 joined = _flat(grads_to_reference(grads, model))
                 out.update({f"{case}/grad/{k}": torch.from_numpy(v) for k, v in joined.items()})
+                if (data, model_size) == (1, 4) and case in NARROWED:
+                    out.update({f"{case}/narrowed/{k}": torch.from_numpy(v)
+                                for k, v in _narrowed_grads(cfg, ref, batch, mesh).items()})
                 for remat in TRAIN_REMATS[case]:
                     res = train.main(["--arch", CASES[case], *TRAIN_ARGS, "--remat", remat,
                                       "--data-shards", str(data), "--model-shards", str(model_size)])

@@ -445,6 +445,29 @@ def test_flash_kernel_is_bitwise_deterministic(case):
     assert torch.equal(first, ops.flash_attention(q, k, v, causal=causal, window=window))
 
 
+FLASH_OFFSET_CASES = [  # (b, hq, hk, lq, lk, d, window, q_offset)
+    (1, 14, 2, 250, 1000, 64, None, 750),   # the last rank's block of qwen2's prefill at model 4
+    (1, 14, 2, 250, 1000, 64, None, 250),
+    (2, 4, 2, 100, 300, 80, 40, 137),       # window, an offset off the tiles
+    (1, 3, 1, 33, 97, 17, None, 64),        # odd D, ragged block ending at Lk
+    (1, 2, 2, 64, 256, 128, 16, 100),       # D 128, a window inside the block
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,hq,hk,lq,lk,d,window,q_offset", FLASH_OFFSET_CASES)
+def test_flash_kernel_at_a_query_offset_matches_plain(b, hq, hk, lq, lk, d, window, q_offset):
+    """Query row i at position ``q_offset + i`` against every key: the
+    kernel against the plain version at that offset, twice the same bits."""
+    dev = card()
+    q, _, _ = _flash_inputs(dev, b, hq, hk, lq, lq, d)
+    _, k, v = _flash_inputs(dev, b, hq, hk, lk, lk, d)
+    got = ops.flash_attention(q, k, v, causal=True, window=window, q_offset=q_offset)
+    torch.testing.assert_close(got, ref.attention(q, k, v, causal=True, window=window, q_offset=q_offset),
+                               **FLASH_TOL)
+    assert torch.equal(got, ops.flash_attention(q, k, v, causal=True, window=window, q_offset=q_offset))
+
+
 def _offset_rows(t: torch.Tensor, row: int) -> torch.Tensor:
     """t's values in a view whose rows are ``row`` floats apart and whose
     base is one float past a 16-byte boundary."""
@@ -516,8 +539,8 @@ def test_flash_wrapper_refuses_what_the_kernel_does_not_take():
         ops.flash_attention(q.bfloat16(), k.bfloat16(), k.bfloat16())
     with pytest.raises(ValueError, match="unit stride"):
         ops.flash_attention(q.transpose(2, 3), k.transpose(2, 3), k.transpose(2, 3), causal=False)
-    with pytest.raises(ValueError, match="Lq == Lk"):
-        ops.flash_attention(q[:, :, :8], k, k)
+    with pytest.raises(ValueError, match=r"Lq \+ q_offset <= Lk"):
+        ops.flash_attention(q[:, :, :8], k, k, q_offset=9)
     with pytest.raises(ValueError, match="head dim"):
         big = torch.ones((1, 2, 16, 136), device=dev)
         ops.flash_attention(big, big, big)

@@ -6,7 +6,7 @@ cell (and the twins of ``tests/test_dryrun_tools.py``); the bytes a rank
 of parameters, optimizer state and cache equal the reference's block sizes
 (``jax.eval_shape`` of its ``Model.init``, its ``apply_fsdp``,
 ``param_specs``, ``opt_state_specs`` and ``cache_specs`` under its
-``Axes``) for every arch the port places at model 16, at published widths
+``Axes``) for every arch of the registry, at published widths
 on both production meshes, without running a step; the FLOPs of reduced
 qwen2 and granite at train and prefill equal the reference's
 ``parse_hlo(...)["dot_flops_per_device"]`` of a CPU ``jit`` within
@@ -14,7 +14,8 @@ qwen2 and granite at train and prefill equal the reference's
 the collective census of a reduced dense decode cell on a fake group of 4
 ranks equals a hand count from the layer code, and the decode and train
 cells' censuses equal those of the same cells on real gloo ranks; refused
-cells record ``check_mesh``'s ``NotImplementedError``, inapplicable ones
+cells (a stand-in refusal: ``check_mesh`` refuses no registry arch) record
+``check_mesh``'s ``NotImplementedError``, inapplicable ones
 skip, a second ``run_cell`` reads the record back, and no default process
 group is left behind.
 
@@ -82,7 +83,8 @@ GRAD_RTOL, GRAD_ATOL_SCALE = 1e-4, 1e-5
 RUN_RTOL = 1e-4
 FLOPS_RTOL = 0.01
 CHILD_TIMEOUT_S = 300
-PLACED = ["granite-moe-1b-a400m", "h2o-danube-1.8b", "jamba-v0.1-52b", "llama3-405b", "musicgen-large"]
+PLACED = ["deepseek-v2-236b", "granite-moe-1b-a400m", "h2o-danube-1.8b", "internvl2-1b", "jamba-v0.1-52b",
+          "llama3-405b", "llama3.2-3b", "musicgen-large", "qwen2-0.5b", "rwkv6-1.6b"]
 POD_TAGS = ["x".join(map(str, shape)) for shape in MESH_CASES]
 
 
@@ -475,11 +477,27 @@ def test_the_dry_runs_peak_is_the_steps_own():
     assert not torch.distributed.is_initialized()
 
 
-def test_refused_and_inapplicable_cells_and_reading_back(tmp_path, capsys):
-    """``run_cell``: a cell ``check_mesh`` refuses records ``error`` with its
+def _refusing(monkeypatch, arch: str) -> None:
+    """``check_mesh`` refusing ``arch`` as it refuses a combination with no
+    mesh path (the registry's archs have one at every production model size)."""
+    real = tf.check_mesh
+
+    def check_mesh(cfg, ax):
+        if cfg.name == arch and ax.model_size > 1:
+            raise NotImplementedError(f"{cfg.name} on a model axis of {ax.model_size} ranks: a refused "
+                                      "combination has no mesh path yet (ROADMAP M5)")
+        real(cfg, ax)
+
+    monkeypatch.setattr(tf, "check_mesh", check_mesh)
+
+
+def test_refused_and_inapplicable_cells_and_reading_back(tmp_path, capsys, monkeypatch):
+    """``run_cell``: a cell ``check_mesh`` refuses (here by a stand-in: no
+    registry arch is refused any more) records ``error`` with its
     ``NotImplementedError``; an inapplicable one skips; a second call reads
     the record back; ``main`` prints the reference's lines. No default
     process group is left behind."""
+    _refusing(monkeypatch, "qwen2-0.5b")
     err = dryrun.run_cell("qwen2-0.5b", "decode_32k", True, str(tmp_path))
     with pytest.raises(NotImplementedError) as want:
         tf.check_mesh(configs.get_config("qwen2-0.5b"), Axes(model_size=16))
@@ -493,6 +511,7 @@ def test_refused_and_inapplicable_cells_and_reading_back(tmp_path, capsys):
     assert dryrun.run_cell("qwen2-0.5b", "decode_32k", True, str(tmp_path))["marker"] == 1
     assert "marker" not in dryrun.run_cell("qwen2-0.5b", "decode_32k", True, str(tmp_path), force=True)
     assert not torch.distributed.is_initialized()
+    _refusing(monkeypatch, "rwkv6-1.6b")
     counts = dryrun.main(["--arch", "rwkv6-1.6b", "--shape", "long_500k", "--mesh", "both", "--out", str(tmp_path)])
     out = capsys.readouterr().out.splitlines()
     assert counts == {"ok": 0, "error": 2, "skip": 0} and out[-1] == "done: ok=0 err=2 skip=0"
@@ -500,10 +519,11 @@ def test_refused_and_inapplicable_cells_and_reading_back(tmp_path, capsys):
     assert not torch.distributed.is_initialized()
 
 
-def test_chip_smokes_dry_run_gates(tmp_path):
-    """``chip_smoke.check_dry_run`` passes a refused cell's and an
-    inapplicable cell's records and fails one whose error is not
-    ``check_mesh``'s refusal."""
+def test_chip_smokes_dry_run_gates(tmp_path, monkeypatch):
+    """``chip_smoke.check_dry_run`` passes a refused cell's (``check_mesh``
+    refusing by a stand-in) and an inapplicable cell's records and fails
+    one whose error is not ``check_mesh``'s refusal."""
+    _refusing(monkeypatch, "llama3.2-3b")
     sys.path.insert(0, str(ROOT))
     try:
         import chip_smoke

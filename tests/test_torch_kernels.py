@@ -574,6 +574,38 @@ def test_flash_kv_tiles_are_the_tiles_with_a_live_pair(b, hq, hk, lq, lk, causal
 
 
 @pytest.mark.parametrize(
+    "lq,lk,causal,window,q_offset,bk",
+    [
+        (250, 1000, True, None, 750, 64),  # the last rank's block of qwen2's prefill at model 4
+        (250, 1000, True, None, 250, 64),
+        (100, 300, True, 24, 150, 16),  # a window inside the block
+        (64, 130, True, None, 66, 32),  # the block's end at Lk, ragged tiles
+        (40, 90, False, 16, 50, 16),  # a window without the causal mask
+    ],
+)
+def test_flash_kv_tiles_at_a_query_offset_are_the_tiles_with_a_live_pair(lq, lk, causal, window, q_offset, bk):
+    """With query row i at position ``q_offset + i``: the kv tiles an item
+    walks are exactly those holding a pair that the plain version's mask at
+    that offset leaves live, and the work list costs each item by them."""
+    from repro_torch.kernels import ref
+
+    bq = FLASH_BQ
+    mask = ref._mask(lq, lk, causal, window, "cpu", q_offset)
+    costs = {}
+    for qt in range(math.ceil(lq / bq)):
+        rows = mask[qt * bq:(qt + 1) * bq]
+        live = [t for t in range(math.ceil(lk / bk)) if bool(rows[:, t * bk:(t + 1) * bk].any())]
+        lo, hi = ops.flash_kv_tiles(qt * bq, bq, bk, lq, lk, causal, window, q_offset)
+        assert list(range(lo, hi + 1)) == live
+        costs[qt] = len(live)
+    offsets, items = ops.flash_work_list(2, 4, 2, lq, lk, causal, window, bq, bk, 3, q_offset)
+    assert sorted(items) == list(range(2 * 4 * len(costs)))
+    for i in range(len(offsets) - 1):
+        mine = [costs[item % len(costs)] for item in items[offsets[i]:offsets[i + 1]]]
+        assert mine == sorted(mine, reverse=True)
+
+
+@pytest.mark.parametrize(
     "b,hq,hk,lq,lk,causal,window,bk,blocks",
     [
         (4, 14, 2, 1000, 1000, True, None, 64, 132),
@@ -658,7 +690,7 @@ def test_flash_launch_hands_the_kernel_its_arguments(monkeypatch, make):
     assert args[:4] == (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
     assert args[5] - args[4] == 4 * image
     strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
-    assert args[6:] == (work.data_ptr(), blocks, bsz, hq, 2, length, length, d, *strides, 0.125, 1, 0, 77)
+    assert args[6:] == (work.data_ptr(), blocks, bsz, hq, 2, length, length, d, *strides, 0.125, 1, 0, 0, 77)
 
 
 def test_flash_launch_copies_each_work_list_once(monkeypatch):

@@ -11,7 +11,13 @@ spawn per mesh shape, every case of that shape inside it, while the
 reference runs here, unsharded. Reduced jamba (8 layers) at ``(1, 4)``,
 ``(2, 2)`` and ``(4, 1)``, reduced granite (MoE, router aux weights raised
 to 0.1 and 0.01) at ``(2, 2)`` and ``(4, 1)``, reduced qwen2 at ``(4, 1)``
-with ``ignore_id`` labels spread unevenly over the data ranks; FSDP cuts
+with ``ignore_id`` labels spread unevenly over the data ranks; reduced
+qwen2 at 6 heads (the sequence-parallel residual at ``(1, 4)``: K/V
+gathered over the sequence, every leaf's gradient summed over the model
+group), reduced deepseek-v2 (MLA and MoE) and reduced rwkv6 at ``(1, 4)``
+and ``(2, 2)``, where at ``(1, 4)`` the gradients taken with every
+model-group gather narrowing its backward miss the reference (the K/V and
+q-latent gathers must reduce-scatter); FSDP cuts
 every leaf of 2^10 elements or more over the data axis. Tolerances, the
 one-card port's (``tests/test_torch_train.py``): the loss at rtol 1e-5 of
 the reference's ``jax.value_and_grad(loss_fn)``; every gradient, joined to
@@ -59,8 +65,8 @@ from repro_torch.train import optimizer as opt  # noqa: E402
 from repro_torch.train import train_step as tstep  # noqa: E402
 
 from _torch_lm_mesh_child import _flat  # noqa: E402
-from _torch_lm_train_mesh_child import (AUX, B, CASES, L, MESH_CASES, SERVE_ARGS, TRAIN_ARGS,  # noqa: E402
-                                        TRAIN_REMATS)
+from _torch_lm_train_mesh_child import (B, CASES, L, MESH_CASES, NARROWED, SERVE_ARGS, TRAIN_ARGS,  # noqa: E402
+                                        TRAIN_REMATS, case_config)
 
 ROOT = Path(__file__).resolve().parents[1]
 SRC = str(ROOT / "src")
@@ -113,10 +119,26 @@ def _shapes(arch: str):
 # the mesh runs, gloo ranks
 # ---------------------------------------------------------------------------
 def _cfgs(case: str):
-    jcfg = jconfigs.reduced_config(jconfigs.get_config(CASES[case]))
-    if case == "granite":
-        jcfg = dataclasses.replace(jcfg, moe=dataclasses.replace(jcfg.moe, **AUX))
-    return jcfg
+    return case_config(case, jconfigs.get_config, jconfigs.reduced_config)
+
+
+def _moved_off_init(case: str, params: dict) -> dict:
+    """RWKV-6's constants moved off their init values, as tests/test_torch_rwkv.py
+    moves them (token-shift mixes, bonus u, head-norm scale, w0 to about -1):
+    at init u is 0, so the first token's WKV output is exactly 0, where the
+    head norm's backward scales rounding by 1/sqrt(eps) ≈ 316 and the
+    one-card port itself leaves the gradient tolerance. Other cases as drawn."""
+    if case != "rwkv":
+        return params
+    rng = np.random.default_rng(5)
+    for seg in sorted(k for k in params if k.startswith("seg")):
+        mixer, ffn = params[seg]["l0"]["mixer"], params[seg]["l0"]["ffn"]
+        for node, names in ((mixer, ("mix_r", "mix_k", "mix_v", "mix_g", "mix_w", "u", "ln_scale")),
+                            (ffn, ("mix_k", "mix_r"))):
+            for name in names:
+                node[name] = (node[name] + 0.1 * rng.normal(size=node[name].shape)).astype(np.float32)
+        mixer["w0"] = (-1.0 + 0.3 * rng.normal(size=mixer["w0"].shape)).astype(np.float32)
+    return params
 
 
 def _batch(case: str, vocab: int) -> dict[str, np.ndarray]:
@@ -143,7 +165,8 @@ def runs(tmp_path_factory):
     reference and the one-card runs are computed while they work."""
     tmp = tmp_path_factory.mktemp("lm_train_mesh")
     models = {case: jtf.Model(_cfgs(case), remat="none", dtype=jnp.float32) for case in CASES}
-    params = {case: jax.tree.map(np.asarray, jax.jit(jm.init)(KEY)) for case, jm in models.items()}
+    params = {case: _moved_off_init(case, jax.tree.map(np.asarray, jax.jit(jm.init)(KEY)))
+              for case, jm in models.items()}
     batches = {case: _batch(case, jm.cfg.vocab_size) for case, jm in models.items()}
     inputs = {f"params/{case}/{k}": v for case, p in params.items() for k, v in _flat(p).items()}
     inputs.update({f"batch/{case}/{k}": v for case, b in batches.items() for k, v in b.items()})
@@ -253,6 +276,26 @@ def test_three_steps_follow_the_one_card_run(runs, tag, case, remat):
         assert got["mesh"] == {"data": data, "model": model} and got["microbatches"] == 2
         np.testing.assert_allclose(got["losses"], want["losses"], rtol=RUN_RTOL)
         np.testing.assert_allclose(got["grad_norms"], want["grad_norms"], rtol=RUN_RTOL)
+
+
+@pytest.mark.parametrize("case", NARROWED)
+def test_a_narrowing_backward_on_the_model_gathers_misses_the_reference(runs, case):
+    """The K/V of the sequence-parallel attention (qwen2 at 6 heads) and MLA's
+    q latent (deepseek) are gathered over the model group and feed other
+    queries or heads on each rank: with a backward that keeps this rank's
+    slice instead of summing the ranks' gradients into it, the gradients
+    leave the reference's tolerance, while the reduce-scatter's meet it
+    (``test_loss_and_every_gradient_match_the_reference``)."""
+    ranks, reference, _, _ = runs
+    want = _flat(reference[case][1])
+    arrays = ranks["1x4"][0][0]
+    missed = [name for name in want
+              if np.linalg.norm(arrays[f"{case}/narrowed/{name}"] - want[name]) > GRAD_NORM_RTOL * np.linalg.norm(
+                  want[name])]
+    assert missed, "a narrowing backward on the model-group gathers met the reference's gradients"
+    for name in missed:
+        assert np.linalg.norm(arrays[f"{case}/grad/{name}"] - want[name]) <= GRAD_NORM_RTOL * np.linalg.norm(
+            want[name]), name
 
 
 def test_uneven_labels_reach_the_ranks_unevenly():

@@ -114,16 +114,45 @@ def test_flash_attention_non_causal_ragged_matches_oracle():
 
 def test_flash_attention_wrapper_refuses_what_the_kernel_does_not_take():
     q, k = torch.zeros((1, 4, 8, 16)), torch.zeros((1, 2, 8, 16))
-    with pytest.raises(ValueError, match="Lq == Lk"):
-        ops.flash_attention(q[:, :, :5], k, k, causal=True)
-    with pytest.raises(ValueError, match="Lq == Lk"):
-        ops.flash_attention(q[:, :, :5], k, k, causal=False, window=4)
+    with pytest.raises(ValueError, match=r"Lq \+ q_offset <= Lk"):
+        ops.flash_attention(q[:, :, :5], k, k, causal=True, q_offset=4)
+    with pytest.raises(ValueError, match=r"Lq \+ q_offset <= Lk"):
+        ops.flash_attention(q[:, :, :5], k, k, causal=False, window=4, q_offset=4)
+    with pytest.raises(ValueError, match=r"Lq \+ q_offset <= Lk"):
+        ops.flash_attention(q, k, k, q_offset=-1)
+    for causal, window in ((True, None), (False, 4)):  # Lq != Lk names where its rows sit
+        for f in (ops.flash_attention, ref.attention, ref.attention_3xtf32):
+            with pytest.raises(ValueError, match="explicit q_offset"):
+                f(q[:, :, :5], k, k, causal=causal, window=window)
+    assert ops.flash_attention(q[:, :, :5], k, k, causal=False).shape == (1, 4, 5, 16)
     with pytest.raises(ValueError, match="window"):
         ops.flash_attention(q, k, k, window=0)
     with pytest.raises(ValueError, match="do not match"):
         ops.flash_attention(q, torch.zeros((1, 3, 8, 16)), torch.zeros((1, 3, 8, 16)))
     with pytest.raises(ValueError, match="4-D"):
         ops.flash_attention(q[0], k[0], k[0])
+
+
+@pytest.mark.parametrize("q_offset,rows,window", [(0, 16, None), (16, 16, None), (48, 16, None), (24, 40, 12),
+                                                  (40, 24, 40)])
+def test_flash_at_a_query_offset_is_the_references_rows(q_offset, rows, window):
+    """One rank's block of a sequence-parallel prefill: query rows
+    [q_offset, q_offset + rows) of a 64-token sequence against all its keys.
+    The plain version, the CPU wrapper and the split-TF32 emulation at
+    ``q_offset`` give the reference's ``_sdpa`` of the whole sequence in
+    those rows."""
+    b, l, hq, hk, d = 2, 64, 6, 2, 16
+    q, k, v = _normal(40, (b, l, hq, d)), _normal(41, (b, l, hk, d)), _normal(42, (b, l, hk, d))
+    want = np.asarray(jattn._sdpa(q, k, v, causal=True, window=window))[:, q_offset:q_offset + rows]
+    tq, tk, tv = (torch.from_numpy(a).transpose(1, 2) for a in (q, k, v))
+    block = tq[:, :, q_offset:q_offset + rows]
+    for got in (ref.attention(block, tk, tv, causal=True, window=window, q_offset=q_offset),
+                ops.flash_attention(block, tk, tv, causal=True, window=window, q_offset=q_offset),
+                ref.attention_3xtf32(block, tk, tv, causal=True, window=window, q_offset=q_offset)):
+        np.testing.assert_allclose(got.transpose(1, 2).numpy(), want, **FLASH_TOL)
+    model = attn._sdpa(torch.from_numpy(q)[:, q_offset:q_offset + rows], torch.from_numpy(k), torch.from_numpy(v),
+                       causal=True, window=window, q_offset=q_offset)
+    np.testing.assert_allclose(model.numpy(), want, **BLOCK_TOL)
 
 
 def test_flash_matches_model_sdpa():

@@ -15,6 +15,7 @@ torch = pytest.importorskip("torch")
 ROOT = Path(__file__).resolve().parents[1]
 sys.path[:0] = [str(ROOT / "tools"), str(ROOT)]
 
+import grad_spread  # noqa: E402
 import profile_ksearch  # noqa: E402
 import time_mu  # noqa: E402
 import time_pairwise  # noqa: E402
@@ -162,7 +163,9 @@ def test_flash_live_pairs_count_the_plain_versions_mask(lq, lk, causal, window):
     import time_flash
     from repro_torch.kernels import ref
 
-    assert time_flash.live_pairs(lq, lk, causal, window) == int(ref._mask(lq, lk, causal, window, "cpu").sum())
+    q_offset = lk - lq if lq < lk else 0  # the rows at the sequence's end where Lq != Lk
+    assert time_flash.live_pairs(lq, lk, causal, window, q_offset) == int(
+        ref._mask(lq, lk, causal, window, "cpu", q_offset).sum())
 
 
 def test_flash_bounds_at_the_serve_and_window_shapes():
@@ -309,3 +312,45 @@ def test_rescalk_profile_runs_chip_smokes_search(monkeypatch):
         assert profile_ksearch.rescalk_1000(fake_torch, x, executor)["k_optimal"] == 4
     assert [c["num_resources"] for c in calls] == [1, chip_smoke.RESCAL_THREADS]
     assert all(c["k_range"] == (2, 11) and c["select_threshold"] == 0.8 for c in calls)
+
+
+def test_grad_spread_takes_the_mesh_runs_first_step():
+    """grad_spread's one step is chip_smoke's mesh training run's (B 8, L
+    64, remat full, seed 0, published widths) at the given microbatches."""
+    from repro_torch.launch import train
+
+    args = train._parser().parse_args(grad_spread.step_args("rwkv6-1.6b", None, 2))
+    assert (args.arch, args.reduced, args.layers, args.steps, args.microbatches) == ("rwkv6-1.6b", False, None, 1, 2)
+    assert (args.batch, args.seq, args.remat, args.seed, args.device) == (8, 64, "full", 0, "cuda")
+    assert train._parser().parse_args(grad_spread.step_args("rwkv6-1.6b", 2, 1)).layers == 2
+
+
+def test_rwkv_off_init_moves_the_time_mix_constants_alike_on_every_draw():
+    """Inside ``grad_spread.rwkv_off_init`` RWKV-6's mixes, u, ln_scale and w0
+    leave their init values (0.5, 0, 1, -6), the same on every draw from one seed;
+    outside it, and with ``on`` False, init is as before."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.models.transformer import Model
+
+    def draw():
+        model = Model(reduced_config(get_config("rwkv6-1.6b")))
+        return {k: v.clone() for k, v in model.init(torch.Generator().manual_seed(0)).named_parameters()}
+
+    plain = draw()
+    with grad_spread.rwkv_off_init():
+        moved, again = draw(), draw()
+    with grad_spread.rwkv_off_init(False):
+        unmoved = draw()
+    assert all(torch.equal(moved[k], again[k]) for k in moved)
+    assert all(torch.equal(plain[k], unmoved[k]) and torch.equal(plain[k], draw()[k]) for k in plain)
+    mixers = [k for k in moved if k.endswith("mixer.u")]
+    assert mixers
+    for key in mixers:
+        stem = key[: -len("u")]
+        assert float(plain[key].abs().max()) == 0.0 and 0.0 < float(moved[key].abs().mean()) < 0.3
+        assert float((moved[stem + "ln_scale"] - 1).abs().mean()) > 0.01
+        assert float((moved[stem + "mix_w"] - 0.5).abs().mean()) > 0.01
+        assert float((moved[stem.replace("mixer", "ffn") + "mix_r"] - 0.5).abs().mean()) > 0.01
+        assert abs(float(moved[stem + "w0"].mean()) + 1) < 0.3 and float(plain[stem + "w0"].mean()) == -6.0
+    first = mixers[0][: -len("u")]  # the draws before the first layer's moves are the same
+    assert all(torch.equal(moved[first + name], plain[first + name]) for name in ("wr", "w_b"))

@@ -59,12 +59,13 @@ def parse_args(argv=None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
-def live_pairs(lq: int, lk: int, causal: bool, window: int | None) -> int:
+def live_pairs(lq: int, lk: int, causal: bool, window: int | None, q_offset: int = 0) -> int:
     """(query, key) pairs the masks leave live, query row i at position
-    i + Lk - Lq (the plain version's convention): the work these inputs need."""
+    ``q_offset + i`` (the kernel's and the plain version's convention): the
+    work these inputs need."""
     total = 0
     for i in range(lq):
-        pos = i + lk - lq
+        pos = q_offset + i
         hi = min(pos, lk - 1) if causal else lk - 1
         lo = max(0, pos - window + 1) if window else 0
         total += max(0, hi - lo + 1)
