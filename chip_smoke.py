@@ -8,7 +8,8 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 On a machine with four, ``python3 chip_smoke.py --multi-rank-only`` builds
 the kernels and runs only the 4-rank searches of phase 5 and the one-rank
 searches they are compared with, then phase 5's 4-rank serves and trains
-(each with the one-card runs it is held to).
+(each with the one-card runs it is held to) and the training options on a
+mesh (``granite_train_opts_mesh22``).
 
 Phases, each fatal on failure:
 
@@ -25,7 +26,9 @@ Phases, each fatal on failure:
      5: ``ok`` where ``check_mesh`` admits the arch at model 16 (every
      arch of the registry), ``error`` with exactly its refusal, ``skip``
      exactly where ``shape_applicable`` says, one line a cell (bytes a
-     rank, peak, FLOPs, census bytes);
+     rank, peak, FLOPs, census bytes), qwen2-0.5b's train_4k peak below
+     80 × 10^9 bytes a rank (its loss keeps the logits cut over the
+     vocabulary);
   3. hold each kernel wrapper against its plain PyTorch version on the card
      at the shapes of the main paths (flash also at jamba's D 128, at
      one rank's heads of ``jamba_serve_tp4``: Hq 8, Hk 2, and at each
@@ -145,7 +148,15 @@ Phases, each fatal on failure:
      model 1), the same gates; each run's parameters and optimizer-state
      bytes a rank exactly its dry-run cell's (``launch.dryrun.measure`` at
      that mesh and shape, in a process of its own), its peak memory logged
-     beside the dry run's; else one line saying they were not made; then
+     beside the dry run's; then ``granite_train_opts_mesh22``: granite at
+     its published widths at (pod 1, data 2, model 2), FSDP off, 4 steps:
+     ZeRO-1 moments bitwise the plain run (losses, norms, joined
+     parameters) with a rank's moment bytes exactly its zero1 blocks',
+     ``int8``'s step-0 gradients joined bitwise one card's
+     ``compress_tree`` of the joined gradients, and ``launch.train --ckpt``
+     resumed at step 2 bitwise an uninterrupted run, its checkpoint
+     restored on one card bitwise the mesh run's parameters; else one
+     line saying they were not made; then
      the port's ``train`` with
      qwen2-0.5b, granite-moe-1b-a400m and rwkv6-1.6b at their published
      widths (24 layers, fp32, random weights from seed 0), 12 steps of B 8,
@@ -2303,6 +2314,10 @@ def dry_run_summary(rec: dict) -> dict:
 DRYRUN_TRAINS = ("llama3-405b", "granite-moe-1b-a400m", "qwen2-0.5b")
 DRYRUN_PREFILLS = ("granite-moe-1b-a400m", "deepseek-v2-236b")
 DRYRUN_TIMEOUT_S = 900
+# qwen2-0.5b's train_4k must fit an 80 GB card a rank: its training loss
+# keeps the logits cut over the vocabulary (151,936 over 16), where joined
+# rows of the whole vocabulary peaked at 100.2 GB a rank
+DRYRUN_PEAK_LIMITS = {("qwen2-0.5b", "train_4k"): 80e9}
 
 
 def dry_run_cells(multi: bool) -> list[dict]:
@@ -2344,6 +2359,9 @@ def check_dry_run(runs: list[tuple[list[dict], float]], log) -> None:
         if not (summary["params_per_rank"] > 0 and summary["flops"] > 0 and summary["census_bytes"] > 0
                 and summary["peak_bytes"] >= held):
             raise AssertionError(f"dry run {rec['cell']}: {summary}")
+        limit = DRYRUN_PEAK_LIMITS.get((rec["arch"], rec["shape"]))
+        if limit is not None and not summary["peak_bytes"] < limit:
+            raise AssertionError(f"dry run {rec['cell']}: peak {summary['peak_bytes']} bytes a rank, not below {limit}")
         log(json.dumps({"dryrun": rec["cell"], "status": "ok", "dtype": rec["dtype"], "remat": rec["remat"],
                         "remat_group": rec["remat_group"], "microbatches": rec.get("microbatches"), **summary}))
     walls = ", ".join(f"{seconds:.1f}" for _, seconds in runs)
@@ -2565,6 +2583,246 @@ def rank_train(outdir: Path) -> int:
     return 0
 
 
+# ``granite_train_opts_mesh22``: the training options on a mesh, at the
+# published widths of granite-moe-1b-a400m (24 layers), (pod 1, data 2,
+# model 2), FSDP off, fp32 with TF32 off, seed 0, B 8, L 64 in 2
+# microbatches, remat full, 4 steps, one ``torchrun`` (``rank_train_opts``).
+# (a) ZeRO-1 moments against none: losses, gradient norms and joined
+# parameters bit for bit, and a rank's moment bytes exactly its blocks of
+# ``opt_state_specs(zero1=True)`` in GSPMD's ceil layout; (b) ``int8``:
+# step 0's compressed gradients, joined, bit for bit one-card
+# ``compress_tree`` of the joined gradients, then 4 steps with finite
+# losses; (c) ``launch.train --ckpt --ckpt-every 2``: 2 steps, then
+# ``--resume`` to 4, the losses of an uninterrupted 4-step run bit for bit,
+# and the checkpoint restored on one card the mesh run's joined parameters
+TRAIN_OPTS = dict(label="granite_train_opts_mesh22", arch="granite-moe-1b-a400m", data=2, model=2, steps=4)
+TRAIN_OPTS_TIMEOUT_S = 600
+
+
+def _gspmd_elems(shape, spec, coords: dict[str, tuple[int, int]]) -> int:
+    """Elements of a rank's block of a leaf of ``shape`` placed by ``spec`` in
+    GSPMD's layout: a dimension cut over n ranks in blocks of ceil(size / n),
+    the last short or empty; ``coords``: {axis: (this rank's index, ranks)}."""
+    n = 1
+    for size, entry in zip(shape, spec):
+        if entry is None:
+            n *= size
+            continue
+        index, count = coords[entry]
+        per = -(-size // count)
+        n *= max(0, min(per, size - index * per))
+    return n
+
+
+def run_train_opts(torch, log) -> dict[str, dict[str, int]]:
+    """``TRAIN_OPTS`` on 4 ranks, one process a card (``torchrun``), counts
+    reset just before, read just after; gates (a)-(c) and no kernel launch,
+    every rank the same numbers. Logs each rank's peak memory and step
+    seconds. Needs 4 cards."""
+    import os
+    import signal
+
+    label = TRAIN_OPTS["label"]
+    cards = torch.cuda.device_count()
+    if cards < 4:
+        log(f"multi-rank training options: not made ({cards} card(s) visible; {label} needs 4)")
+        return {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_opts_") as tmp:
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "4",
+               str(ROOT / "chip_smoke.py"), "--rank-train-opts", tmp]
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                                start_new_session=True)
+        try:
+            text, _ = proc.communicate(timeout=TRAIN_OPTS_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.communicate()
+            raise AssertionError(f"{label}: no result within {TRAIN_OPTS_TIMEOUT_S} s")
+        if proc.returncode != 0:
+            raise AssertionError(f"{label}: torchrun exited {proc.returncode}:\n{text[-4000:]}")
+        wall = time.perf_counter() - t0
+        ranks = [json.loads((Path(tmp) / f"rank{r}.json").read_text()) for r in range(4)]
+    first = ranks[0]
+    runs = ("plain", "zero1", "int8")
+    for r, rank in enumerate(ranks):
+        for run in runs:
+            if (rank[run]["losses"], rank[run]["grad_norms"]) != (first[run]["losses"], first[run]["grad_norms"]):
+                raise AssertionError(f"{label} {run}: rank {r} {rank[run]}, rank 0 {first[run]}")
+        if any(rank["launches"].values()):
+            raise AssertionError(f"{label}: rank {r} launched kernels on the training path: {rank['launches']}")
+        if not (rank["zero1"]["params_equal"] and rank["zero1"]["moment_bytes"] == rank["zero1"]["want_moment_bytes"]):
+            raise AssertionError(f"{label} (a): rank {r} parameters equal {rank['zero1']['params_equal']}, moment "
+                                 f"bytes {rank['zero1']['moment_bytes']}, the zero1 blocks "
+                                 f"{rank['zero1']['want_moment_bytes']}")
+        if rank["int8"]["mismatched"] or not rank["int8"]["joined"]:
+            raise AssertionError(f"{label} (b): rank {r} compressed leaves unlike one card's: "
+                                 f"{rank['int8']['mismatched'][:5]}, joined {rank['int8']['joined']}")
+        if rank["ckpt"]["losses"] != rank["ckpt"]["uninterrupted"]:
+            raise AssertionError(f"{label} (c): rank {r} resumed losses {rank['ckpt']['losses']}, uninterrupted "
+                                 f"{rank['ckpt']['uninterrupted']}")
+    plain, zero1 = first["plain"], first["zero1"]
+    if (zero1["losses"], zero1["grad_norms"]) != (plain["losses"], plain["grad_norms"]):
+        raise AssertionError(f"{label} (a): ZeRO-1 {zero1['losses']} {zero1['grad_norms']}, plain {plain['losses']} "
+                             f"{plain['grad_norms']}")
+    if not all(math.isfinite(x) for run in runs for x in first[run]["losses"] + first[run]["grad_norms"]):
+        raise AssertionError(f"{label}: {first}")
+    if first["ckpt"]["restored_on_one_card"] is not True:
+        raise AssertionError(f"{label} (c): the checkpoint restored on one card: {first['ckpt']['restored_on_one_card']}")
+    log(json.dumps({"train": label, "arch": TRAIN_OPTS["arch"], "mesh": {"pod": 1, "data": TRAIN_OPTS["data"],
+                                                                        "model": TRAIN_OPTS["model"]},
+                    "fsdp": False, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "microbatches": TRAIN_MICRO,
+                    "remat": "full", "steps": TRAIN_OPTS["steps"],
+                    **{run: {k: first[run][k] for k in ("losses", "grad_norms")} for run in runs},
+                    "step_seconds": {run: [rank[run]["step_seconds"] for rank in ranks] for run in runs},
+                    "moment_bytes_by_rank": {run: [rank[run]["moment_bytes"] for rank in ranks]
+                                             for run in ("plain", "zero1")},
+                    "int8_joined_leaves": first["int8"]["joined"], "int8_local_leaves": first["int8"]["local"],
+                    "ckpt_losses": first["ckpt"]["losses"], "ckpt_seconds": [rank["ckpt"]["seconds"] for rank in ranks],
+                    "max_memory_allocated": [rank["max_memory_allocated"] for rank in ranks],
+                    "wall_s": wall, "launches_by_rank": [rank["launches"] for rank in ranks], "card": smi_line()}))
+    return {label: {name: sum(rank["launches"][name] for rank in ranks) for name in first["launches"]}}
+
+
+def rank_train_opts(outdir: Path) -> int:
+    """One rank of ``run_train_opts`` (under ``torchrun``): gates (a) and (b)
+    on a ``make_lm_mesh(2, 2)`` through ``make_train_step``, then (c)
+    through ``launch.train.main``; writes ``outdir/rank<RANK>.json``."""
+    import gc
+    import os
+
+    import torch
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.checkpoint import checkpointer as ckpt
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokenSource, device_put_batch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_axes, make_lm_mesh
+    from repro_torch.models.transformer import Model
+    from repro_torch.train import train_step as tstep
+    from repro_torch.train.compression import compress_tree
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state, opt_state_specs
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    arch, data, model_size, steps = (TRAIN_OPTS[k] for k in ("arch", "data", "model", "steps"))
+    cfg = get_config(arch)
+    no_fsdp = 1 << 62  # --fsdp-min-elems above every leaf: FSDP off
+    result: dict = {}
+
+    def tcfg(**kw) -> "tstep.TrainConfig":
+        return tstep.TrainConfig(opt=AdamWConfig(lr=1e-3, warmup_steps=5, total_steps=max(steps, 10)),
+                                 microbatches=TRAIN_MICRO, **kw)
+
+    def nbytes(tensors) -> int:
+        return sum(t.numel() * t.element_size() for t in tensors)
+
+    with make_lm_mesh(data, model_size, "cuda") as mesh:
+        dev = mesh.device
+        src = SyntheticTokenSource(cfg, ShapeConfig("cli", TRAIN_SEQ, TRAIN_BATCH, "train"), DataConfig(seed=0))
+        batches = [device_put_batch(src.batch_at(step), dev) for step in range(steps)]
+
+        def drawn() -> "Model":
+            m = Model(cfg, torch.float32, remat="full", ax=make_axes(mesh, TRAIN_BATCH), mesh=mesh, fsdp=1)
+            m.init(torch.Generator(device=dev).manual_seed(0))
+            return m
+
+        def run(m, t) -> dict:
+            step_fn, opt, params = tstep.make_train_step(m, t), tstep.init_state(m, t), m.params
+            out = {"losses": [], "grad_norms": [], "step_seconds": [],
+                   "moment_bytes": nbytes([*opt.m.values(), *opt.v.values()])}
+            for batch in batches:
+                t0 = sync_wall(torch)
+                params, opt, metrics = step_fn(params, opt, batch)
+                out["step_seconds"].append(sync_wall(torch) - t0)
+                out["losses"].append(float(metrics["loss"]))
+                out["grad_norms"].append(float(metrics["grad_norm"]))
+            return out
+
+        # (a) ZeRO-1 against none, and the moments' bytes of the zero1 blocks
+        plain = drawn()
+        result["plain"] = run(plain, tcfg())
+        gc.collect()
+        zero1 = drawn()
+        result["zero1"] = run(zero1, tcfg(zero1=True))
+        coords = {"data": (mesh.data_index, data), "model": (mesh.model_index, model_size)}
+        specs = opt_state_specs(zero1.placed_specs(), zero1.ax, zero1=True).m
+        shapes = zero1.param_shapes()
+
+        def elems(spec_node, shape_node) -> int:
+            if isinstance(spec_node, dict):
+                return sum(elems(spec_node[k], shape_node[k]) for k in spec_node)
+            return _gspmd_elems(shape_node, spec_node, coords)
+
+        result["zero1"]["want_moment_bytes"] = 2 * elems(specs, shapes) * torch.float32.itemsize
+        result["zero1"]["params_equal"] = all(
+            torch.equal(plain.join_leaf(name, a.detach()), zero1.join_leaf(name, b.detach()))
+            for (name, a), (_, b) in zip(plain.params.named_parameters(), zero1.params.named_parameters()))
+        del plain, zero1
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (b) int8: step 0's gradients, joined, against one-card compress_tree of the joined gradients
+        m = drawn()
+        _, grads = tstep.accumulate_grads(m, batches[0], TRAIN_MICRO)
+        joined, real = [], m.join_leaf
+
+        def join_leaf(name, block):
+            joined.append(name)
+            return real(name, block)
+
+        m.join_leaf = join_leaf
+        compressed = tstep.compress_grads(m, grads, "int8")
+        del m.join_leaf
+        specs = m.leaf_specs()
+        mismatched = [name for name, g in grads.items()
+                      if not torch.equal(m.join_leaf(name, compressed[name]),
+                                         compress_tree({name: m.join_leaf(name, g)}, "int8")[name])]
+        local = sorted(name for name in grads if m.sh.cut_axes(specs[name]) and name not in joined)
+        del grads, compressed
+        result["int8"] = {**run(m, tcfg(compression="int8")), "mismatched": mismatched, "joined": len(joined),
+                          "local": len(local)}
+        del m
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (c) checkpoints through the launcher: 2 steps, --resume to 4, against 4 uninterrupted
+    args = ["--arch", arch, "--no-reduced", "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--microbatches",
+            str(TRAIN_MICRO), "--remat", "full", "--lr", "1e-3", "--device", "cuda", "--seed", "0", "--quiet",
+            "--data-shards", str(data), "--model-shards", str(model_size), "--fsdp-min-elems", str(no_fsdp)]
+    ckpt_dir = str(outdir / "ckpt")
+    t0 = time.perf_counter()
+    first = train.main([*args, "--steps", "2", "--ckpt", ckpt_dir, "--ckpt-every", "2"])
+    resumed = train.main([*args, "--steps", str(steps), "--ckpt", ckpt_dir, "--ckpt-every", "2", "--resume"])
+    seconds = time.perf_counter() - t0
+    result["ckpt"] = {"losses": first["losses"] + resumed["losses"], "seconds": seconds}
+    del first
+    result["ckpt"]["uninterrupted"] = train.main([*args, "--steps", str(steps)])["losses"]
+    with make_lm_mesh(data, model_size, "cuda") as mesh:
+        m = Model(cfg, torch.float32, remat="full", ax=make_axes(mesh, TRAIN_BATCH), mesh=mesh,
+                  fsdp_min_elems=no_fsdp)
+        whole = {name: m.join_leaf(name, p.detach()) for name, p in resumed["params"].named_parameters()}
+        del resumed
+        restored = None
+        if os.environ["RANK"] == "0":
+            one = Model(cfg, torch.float32)
+            like = one.init(torch.Generator(device=mesh.device).manual_seed(1))
+            (like, _), step = ckpt.restore(ckpt_dir, (like, init_opt_state(like, AdamWConfig())))
+            got = dict(like.named_parameters())
+            restored = step == steps and sorted(got) == sorted(whole) and all(
+                torch.equal(got[name], whole[name]) for name in whole)
+        result["ckpt"]["restored_on_one_card"] = restored
+    result["launches"] = ops.launch_counts()
+    result["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    (outdir / f"rank{os.environ['RANK']}.json").write_text(json.dumps(result))
+    return 0
+
+
 SOURCES = {
     "mu_update_h": ("src/repro_torch/kernels/csrc/nmf_update.cu", "src/repro/kernels/nmf_update.py:98"),
     "mu_update_w": ("src/repro_torch/kernels/csrc/nmf_update.cu", "src/repro/kernels/nmf_update.py:129"),
@@ -2585,7 +2843,7 @@ def multi_rank_only() -> int:
     run the world-1 searches the 4-rank ones are compared with (batched,
     sharded sync and elastic; twice, in turns), then only the multi-rank
     phase (``run_multi_rank_searches``, ``run_multi_rank_serves``,
-    ``run_multi_rank_trains``)."""
+    ``run_multi_rank_trains``, ``run_train_opts``)."""
     import torch
 
     if torch.cuda.device_count() < 4:
@@ -2618,6 +2876,9 @@ def multi_rank_only() -> int:
     t0 = time.perf_counter()
     by_path.update(run_multi_rank_trains(torch, log))
     log(f"multi-rank trains: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    by_path.update(run_train_opts(torch, log))
+    log(f"multi-rank training options: {time.perf_counter() - t0:.1f} s")
     log(smi_line())
     log(json.dumps(by_path))
     return 0
@@ -2630,6 +2891,8 @@ def main() -> int:
         return rank_serve(Path(sys.argv[2]))
     if sys.argv[1:2] == ["--rank-train"]:  # one rank of run_multi_rank_trains
         return rank_train(Path(sys.argv[2]))
+    if sys.argv[1:2] == ["--rank-train-opts"]:  # one rank of run_train_opts
+        return rank_train_opts(Path(sys.argv[2]))
     if sys.argv[1:2] == ["--dry-run"]:  # the dry run's cells, on the host (run_dry_run)
         return dry_run(Path(sys.argv[2]))
     if sys.argv[1:] == ["--multi-rank-only"]:
@@ -2706,6 +2969,7 @@ def main() -> int:
     by_path["jamba_serve_8l"] = run_jamba_serve(torch, dev, ops, log)
     by_path.update(run_multi_rank_serves(torch, dev, log))
     by_path.update(run_multi_rank_trains(torch, log))
+    by_path.update(run_train_opts(torch, log))
     by_path["qwen2_train"] = run_train(torch, dev, ops, train, log, "qwen2-0.5b")
     by_path["granite_train"] = run_train(torch, dev, ops, train, log, "granite-moe-1b-a400m")
     by_path["rwkv6_train"] = run_train(torch, dev, ops, train, log, "rwkv6-1.6b")

@@ -22,8 +22,11 @@ data axis, ``models.transformer.Model``), builds each step's whole batch
 and keeps its rows (``train.train_step``). When the batch does not split
 into ``--microbatches`` of whole data blocks the reference's
 ``auto_train_config`` rule takes fewer. Only rank 0 prints; every rank
-returns the same losses and norms. ``--ckpt`` on a mesh raises (sharded
-checkpoints are queued in ROADMAP). ``--pod-shards P`` makes it the
+returns the same losses and norms. ``--ckpt`` on a mesh writes the
+one-card checkpoint of the whole ``(params, opt_state)`` (rank 0 writes,
+every rank joins: ``train_step.StatePlacement``), and ``--resume`` cuts
+each rank's blocks from it, so a run resumes at any mesh shape or on one
+card. ``--pod-shards P`` makes it the
 reference's multi-pod ``(pod, data, model)`` mesh of P × D × M ranks: the
 batch cut over the P × D ranks, FSDP over the D ranks of a pod.
 """
@@ -45,7 +48,7 @@ from repro_torch.device import resolve
 from repro_torch.launch.mesh import dp_size, make_axes, make_lm_mesh
 from repro_torch.models.transformer import REMAT, Model
 from repro_torch.train.optimizer import AdamWConfig, init_opt_state
-from repro_torch.train.train_step import TrainConfig, make_train_step
+from repro_torch.train.train_step import StatePlacement, TrainConfig, make_train_step
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -103,8 +106,6 @@ def main(argv=None) -> dict:
     with contextlib.ExitStack() as stack:
         mesh = None
         if (args.pod_shards, args.data_shards, args.model_shards) != (1, 1, 1):
-            if args.ckpt:
-                raise NotImplementedError("--ckpt on a mesh: sharded checkpoints are not ported yet (ROADMAP)")
             mesh = stack.enter_context(make_lm_mesh(args.data_shards, args.model_shards, dev, pod=args.pod_shards))
             dev = mesh.device
         out = _train(args, cfg, dev, mesh)
@@ -129,11 +130,12 @@ def _train(args, cfg, dev: torch.device, mesh) -> dict:
     start_step = 0
     saver = None
     if args.ckpt:
+        placement = StatePlacement(model) if mesh is not None else None
         if args.resume and ckpt.latest_step(args.ckpt) is not None:
-            (params, opt), start_step = ckpt.restore(args.ckpt, (params, opt))
+            (params, opt), start_step = ckpt.restore(args.ckpt, (params, opt), placement=placement)
             if loud:
                 print(f"resumed from step {start_step}")
-        saver = ckpt.AsyncCheckpointer(args.ckpt)
+        saver = ckpt.AsyncCheckpointer(args.ckpt, placement=placement)
 
     def sync() -> float:
         if dev.type == "cuda":
@@ -155,7 +157,7 @@ def _train(args, cfg, dev: torch.device, mesh) -> dict:
                       f"gnorm {grad_norms[-1]:.3f} lr {float(metrics['lr']):.2e}")
             if saver and (step + 1) % args.ckpt_every == 0:
                 saver.submit(step + 1, (params, opt))
-        if saver:
+        if saver and args.steps % args.ckpt_every:  # the last step, unless the loop saved it
             saver.submit(args.steps, (params, opt))
     finally:
         if saver:

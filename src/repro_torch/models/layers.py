@@ -480,17 +480,72 @@ def lm_logits(params, x: torch.Tensor, sh: Shard | None = None) -> torch.Tensor:
     return logits if sh is None else sh.gather(logits, -1)
 
 
+def vocab_block(vocab: int, sh: Shard) -> tuple[int, int]:
+    """(first column, columns) of this rank's block of a ``vocab``-wide row
+    cut over the model axis in GSPMD's layout: ceil(V / m) columns a rank,
+    the last block short or empty. Where m divides V these are the rows of
+    the rank's block of the table (``embedding_specs``)."""
+    per = -(-vocab // sh.ax.model_size)
+    start = min(sh.model_index * per, vocab)
+    return start, min(per, vocab - start)
+
+
+def lm_logits_block(params, x: torch.Tensor, sh: Shard, vocab: int) -> tuple[torch.Tensor, int]:
+    """(this rank's block of the fp32 logits (B, L, columns), its first
+    column) of ``vocab_block``: the training loss's logits, which stay cut,
+    as the reference's ``shard(logits, P(ax.b, None, ax.model))`` keeps
+    them. A table cut over the model axis gives the rank's columns as is;
+    a whole table (V does not divide the axis) is narrowed to them, and as
+    each rank then uses only its columns, the table's gradient is summed
+    over the group (``Shard.enter``), as is ``x``'s."""
+    start, n = vocab_block(vocab, sh)
+    x = sh.enter(x)
+    head = "lm_head" in params
+    w = params["lm_head"] if head else params["table"]
+    if not sh.split(vocab):
+        w = sh.enter(w).narrow(1 if head else 0, start, n)
+    logits = x @ (w.to(x.dtype) if head else w.to(x.dtype).T)
+    return logits.float(), start
+
+
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, ignore_id: int = -1,
-                  sh: Shard | None = None) -> torch.Tensor:
+                  sh: Shard | None = None, vocab_start: int | None = None) -> torch.Tensor:
     """Mean token NLL; labels == ignore_id are masked. ``sh`` with the batch
     cut: the mean over the whole batch's unmasked labels (the summed NLL and
-    the label count summed over the ranks the batch is cut over)."""
+    the label count summed over the ranks the batch is cut over).
+    ``vocab_start``: ``logits`` are this rank's block of the vocabulary's
+    columns from that column on (``lm_logits_block``), and the
+    log-sum-exp and the gold logit are summed over the model group
+    (``_cut_logz_gold``)."""
     logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.clamp(min=0).long()[..., None])[..., 0]
+    if vocab_start is None:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels.clamp(min=0).long()[..., None])[..., 0]
+    else:
+        logz, gold = _cut_logz_gold(logits, labels, vocab_start, sh)
     nll = logz - gold
     mask = (labels != ignore_id).float()
     total, count = torch.sum(nll * mask), torch.sum(mask)
     if sh is not None and sh.batch_split:
         total, count = sh.sum_batch(total), _all_reduce(count, sh.group(sh.ax.b), copy=False)
     return total / torch.clamp(count, min=1.0)
+
+
+def _cut_logz_gold(logits: torch.Tensor, labels: torch.Tensor, start: int,
+                   sh: Shard) -> tuple[torch.Tensor, torch.Tensor]:
+    """(log-sum-exp, gold logit) of each row, whose columns are cut over the
+    model group, ``logits`` this rank's from column ``start``: the row's
+    max over the group (detached: it only shifts the exponents), the sum of
+    ``exp(logits - max)`` summed over the group, and the gold logit from
+    the rank that holds the label's column (the others add 0). Both sums
+    are ``Shard.psum``, whose backward passes the gradient through: every
+    rank's downstream is the same."""
+    n = logits.shape[-1]
+    peak = logits.detach().amax(-1) if n else logits.new_full(logits.shape[:-1], float("-inf"))
+    dist.all_reduce(peak, op=dist.ReduceOp.MAX, group=sh.model_group)
+    logz = torch.log(sh.psum(torch.sum(torch.exp(logits - peak[..., None]), dim=-1))) + peak
+    local = labels.long() - start
+    hit = (local >= 0) & (local < n)
+    gold = (torch.where(hit, torch.gather(logits, -1, local.clamp(0, n - 1)[..., None])[..., 0], 0.0) if n
+            else torch.zeros_like(peak))
+    return logz, sh.psum(gold)

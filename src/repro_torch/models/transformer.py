@@ -51,7 +51,8 @@ into the rank's block), inside the layer's own checkpoint: under remat
 ``full`` the gathered weights do not outlive their layer's forward and
 are gathered again in its backward.
 ``loss_fn`` trains on a mesh: its collectives are autograd Functions
-(``layers``) and its cross entropy is the whole batch's mean.
+(``layers``) and its cross entropy is the whole batch's mean, taken on
+each rank's block of the vocabulary's columns (``layers.lm_logits_block``).
 
 A Mamba or RWKV layer's prefill takes its decode state from the forward's
 own scan; the reference runs the scan a second time for it
@@ -84,6 +85,7 @@ from .layers import (
     embedding_init,
     embedding_specs,
     lm_logits,
+    lm_logits_block,
     mlp,
     mlp_init,
     mlp_specs,
@@ -655,13 +657,28 @@ class Model(nn.Module):
         (``mamba.in_proj_layout``). No-op without a mesh."""
         if self.sh is None:
             return params
-        specs = self.leaf_specs()
         for name, param in params.named_parameters(prefix=prefix.rstrip(".")):
-            whole = param.data
-            if self._relaid(name):
-                whole = mam.in_proj_layout(whole, self.ax.model_size)
-            param.data = self.sh.cut(whole, specs[name]).clone()
+            param.data = self.cut_leaf(name, param.data).clone()
         return params
+
+    def cut_leaf(self, name: str, whole: torch.Tensor) -> torch.Tensor:
+        """This rank's block (a view where it can be) of a whole tensor laid
+        out as parameter ``name`` (the parameter, its gradient or a moment),
+        as ``place`` cuts it; ``whole`` itself without a mesh."""
+        if self.sh is None:
+            return whole
+        if self._relaid(name):
+            whole = mam.in_proj_layout(whole, self.ax.model_size)
+        return self.sh.cut(whole, self.leaf_specs()[name])
+
+    def join_leaf(self, name: str, block: torch.Tensor) -> torch.Tensor:
+        """The whole tensor of which ``block`` is this rank's block of
+        parameter ``name`` (``cut_leaf``'s inverse; every rank of the mesh
+        must call it)."""
+        if self.sh is None:
+            return block
+        whole = self.sh.join(block, self.leaf_specs()[name])
+        return mam.in_proj_layout(whole, self.ax.model_size, inverse=True) if self._relaid(name) else whole
 
     def gather(self, params) -> dict[str, torch.Tensor]:
         """{name: whole tensor} of this rank's blocks ``params`` (a parameter
@@ -669,13 +686,7 @@ class Model(nn.Module):
         joined over the mesh's groups (``place``'s inverse; every rank of the
         mesh must call it)."""
         named = params.named_parameters() if isinstance(params, nn.Module) else params.items()
-        if self.sh is None:
-            return {name: p.detach() for name, p in named}
-        specs, out = self.leaf_specs(), {}
-        for name, param in named:
-            whole = self.sh.join(param.detach(), specs[name])
-            out[name] = mam.in_proj_layout(whole, self.ax.model_size, inverse=True) if self._relaid(name) else whole
-        return out
+        return {name: self.join_leaf(name, p.detach()) for name, p in named}
 
     # ---- init -----------------------------------------------------------------
     def init(self, gen: torch.Generator) -> nn.ModuleDict:
@@ -769,9 +780,14 @@ class Model(nn.Module):
         """Mean next-token NLL of ``batch`` (``tokens``, ``labels``, and
         ``embeds`` for an embeddings arch) plus the MoE aux loss; autograd
         records it wherever grad mode is on. On a mesh ``batch`` holds this
-        rank's rows, and the loss is the whole batch's, the same on every rank."""
+        rank's rows, and the loss is the whole batch's, the same on every rank;
+        on a model axis of more than one rank the logits stay cut over the
+        vocabulary (``lm_logits_block``): no rank holds a whole row."""
         h, aux = self.hidden(self.embed_input(batch))
-        return cross_entropy(self.logits(h), batch["labels"], sh=self.sh) + aux
+        if self.sh is None or self.ax.model_size == 1:
+            return cross_entropy(self.logits(h), batch["labels"], sh=self.sh) + aux
+        logits, start = lm_logits_block(self._use(self.params["embed"], "embed."), h, self.sh, self.cfg.vocab_size)
+        return cross_entropy(logits, batch["labels"], sh=self.sh, vocab_start=start) + aux
 
     def embed_input(self, batch: dict[str, torch.Tensor]) -> torch.Tensor:
         if self.cfg.input_mode == "embeddings" and "embeds" in batch:

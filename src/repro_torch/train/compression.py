@@ -11,14 +11,14 @@ from typing import Mapping
 
 import torch
 
-_BLOCK = 256
+BLOCK = 256
 
 
 def quantize_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Blockwise symmetric int8: returns (q (blocks, 256) int8, scales (blocks, 1) float32)."""
     flat = x.float().reshape(-1)
-    flat = torch.nn.functional.pad(flat, (0, (-flat.numel()) % _BLOCK))
-    blocks = flat.reshape(-1, _BLOCK)
+    flat = torch.nn.functional.pad(flat, (0, (-flat.numel()) % BLOCK))
+    blocks = flat.reshape(-1, BLOCK)
     scale = torch.amax(torch.abs(blocks), dim=1, keepdim=True) / 127.0
     q = torch.clamp(torch.round(blocks / torch.clamp(scale, min=1e-12)), -127, 127).to(torch.int8)
     return q, scale
@@ -32,6 +32,11 @@ def dequantize_int8(q: torch.Tensor, scale: torch.Tensor, shape: tuple[int, ...]
     return flat[:n].reshape(shape).to(dtype)
 
 
+def int8_roundtrip(g: torch.Tensor) -> torch.Tensor:
+    """``g`` quantized in blocks of 256 of its flattened order and back."""
+    return dequantize_int8(*quantize_int8(g), g.shape, g.dtype)
+
+
 def compress_tree(grads: Mapping[str, torch.Tensor], mode: str = "none") -> Mapping[str, torch.Tensor]:
     """Apply lossy compression to named gradients (``none``, ``bf16``, ``int8``)."""
     if mode == "none":
@@ -39,5 +44,5 @@ def compress_tree(grads: Mapping[str, torch.Tensor], mode: str = "none") -> Mapp
     if mode == "bf16":
         return {k: g.to(torch.bfloat16) for k, g in grads.items()}
     if mode == "int8":
-        return {k: dequantize_int8(*quantize_int8(g), g.shape, g.dtype) for k, g in grads.items()}
+        return {k: int8_roundtrip(g) for k, g in grads.items()}
     raise ValueError(f"unknown compression mode {mode!r}")

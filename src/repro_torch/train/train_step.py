@@ -19,8 +19,12 @@ share (``models.layers``); after the microbatch loop the gradients of
 leaves whole over the data axis are all-reduced over the pod × data ranks,
 an FSDP leaf's (summed over the data ranks by its gather's
 reduce-scatter) over the pod ranks, and every gradient is divided by
-``dp``. ZeRO-1 moments and ``int8`` compression on a cut mesh raise
-(ROADMAP).
+``dp``. ZeRO-1 moments (``TrainConfig.zero1``) keep a rank's slices of
+each moment (``optimizer.zero1_layout``; build the state with
+``init_state``). ``int8`` compression runs on the whole leaf, as the
+reference's blocks of 256 run over the whole leaf's order
+(``compress_grads``). ``state_placement`` tells the checkpointer how the
+``(params, opt_state)`` tree lies on the mesh.
 """
 from __future__ import annotations
 
@@ -33,8 +37,8 @@ from torch import nn
 
 from repro_torch.models.layers import P
 from repro_torch.models.transformer import Model
-from .compression import compress_tree
-from .optimizer import AdamWConfig, OptState, adamw_update
+from .compression import BLOCK, compress_tree, int8_roundtrip
+from .optimizer import AdamWConfig, OptState, Zero1Slice, adamw_update, init_opt_state, zero1_layout
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,7 +47,7 @@ class TrainConfig:
     microbatches: int = 1  # grad-accumulation steps per optimizer step
     compression: str = "none"  # none | bf16 | int8
     accum_dtype: torch.dtype = torch.float32  # bf16 halves the grad buffer at 405B
-    # AdamW moments cut further over 'data' (opt_state_specs(zero1=True)); no step on a cut mesh yet
+    # AdamW moments cut further over 'data' (opt_state_specs(zero1=True), optimizer.zero1_layout)
     zero1: bool = False
 
 
@@ -156,6 +160,35 @@ def accumulate_grads(
     return loss, dict(zip(names, grads))
 
 
+def compress_grads(model: Model, grads: dict[str, torch.Tensor], mode: str) -> dict[str, torch.Tensor]:
+    """``compress_tree`` of a rank's gradients. On a mesh ``int8`` quantizes
+    each leaf in the 256-element blocks of its whole flattened order, as the
+    reference's ``compress_tree`` does the global leaf: a cut leaf is joined
+    over its cut axes, compressed whole and cut back to the rank's block,
+    unless the block is one run of the whole leaf's order (cut on its first
+    dimension alone) of a multiple of 256 elements, whose blocks are then
+    the whole leaf's, and which is compressed where it lies. A leaf whole on
+    the rank compresses as on one card."""
+    sh = model.sh
+    if sh is None or mode != "int8":
+        return compress_tree(grads, mode)
+    specs, out = model.leaf_specs(), {}
+    for name, g in grads.items():
+        cut = sh.cut_axes(specs[name])
+        aligned = all(e is None for e in specs[name][1:]) and g.numel() % BLOCK == 0
+        if not cut or aligned:
+            out[name] = int8_roundtrip(g)
+        else:
+            out[name] = model.cut_leaf(name, int8_roundtrip(model.join_leaf(name, g))).clone()
+    return out
+
+
+def init_state(model: Model, tcfg: TrainConfig) -> OptState:
+    """``init_opt_state`` of ``model.params`` for the step ``make_train_step``
+    makes: with ``tcfg.zero1`` on a mesh, this rank's ZeRO-1 slices."""
+    return init_opt_state(model.params, tcfg.opt, zero1_layout(model) if tcfg.zero1 else None)
+
+
 def make_train_step(
     model: Model, tcfg: TrainConfig
 ) -> Callable[[nn.Module, OptState, dict[str, torch.Tensor]], tuple[nn.Module, OptState, dict[str, torch.Tensor]]]:
@@ -164,24 +197,61 @@ def make_train_step(
     ``params`` becomes the model's parameter tree, with gradients turned on,
     and is updated in place; ``metrics`` holds ``loss``, ``grad_norm`` and
     ``lr`` as 0-d tensors on the parameters' device (on a mesh, the same on
-    every rank). On a mesh that cuts any leaf, ZeRO-1 moments and ``int8``
-    compression (whose 256-element blocks run over a whole leaf's order)
-    raise ``NotImplementedError``."""
+    every rank). With ``tcfg.zero1`` on a mesh of data ranks ``opt_state``
+    holds this rank's ZeRO-1 slices (``init_state``); a FSDP leaf then
+    raises ``ValueError`` here (``optimizer.zero1_layout``)."""
     sh = model.sh
-    cut = sh is not None and (sh.data_count > 1 or sh.ax.model_size > 1)
-    if cut and tcfg.zero1 and sh.data_count > 1:
-        raise NotImplementedError("a train step with ZeRO-1 moments (opt_state_specs(zero1=True)) on a mesh "
-                                  "is not ported yet (ROADMAP M5)")
-    if cut and tcfg.compression == "int8":
-        raise NotImplementedError("int8 gradient compression on a mesh is not ported yet: its blocks run over "
-                                  "a whole leaf (ROADMAP M5)")
     specs = model.leaf_specs() if sh is not None else None
+    layout = zero1_layout(model) if tcfg.zero1 else None
 
     def train_step(params: nn.Module, opt_state: OptState, batch: dict[str, torch.Tensor]):
         model.params = params
         loss, grads = accumulate_grads(model, batch, tcfg.microbatches, tcfg.accum_dtype)
-        grads = compress_tree(grads, tcfg.compression)
-        params, opt_state, metrics = adamw_update(params, grads, opt_state, tcfg.opt, sh, specs)
+        grads = compress_grads(model, grads, tcfg.compression)
+        params, opt_state, metrics = adamw_update(params, grads, opt_state, tcfg.opt, sh, specs, layout)
         return params, opt_state, dict(metrics, loss=loss)
 
     return train_step
+
+
+class StatePlacement:
+    """How the training state ``(params, opt_state)`` (the tree
+    ``launch.train`` checkpoints; key paths ``0.<parameter>``, ``1.step``,
+    ``1.m.<parameter>``, ``1.v.<parameter>``) lies on a mesh, for
+    ``checkpoint.checkpointer``: each leaf is joined to the whole tensor a
+    one-card run holds (a parameter, or a moment of its layout, by
+    ``Model.join_leaf``; a ZeRO-1 slice first joined to its block) and cut
+    back to this rank's block. ``writer``: global rank 0."""
+
+    def __init__(self, model: Model, layout: dict[str, Zero1Slice] | None = None):
+        self.model, self.layout = model, layout or {}
+        self.writer = dist.get_rank() == 0
+        self._shapes = model.leaf_shapes()
+
+    def _leaf(self, key: str) -> tuple[str | None, Zero1Slice | None]:
+        """(parameter name, its ZeRO-1 slice for a moment) of a key path; (None, None) for the step."""
+        if key.startswith("0."):
+            return key[2:], None
+        if key.startswith(("1.m.", "1.v.")):
+            return key[4:], self.layout.get(key[4:])
+        return None, None
+
+    def whole_shape(self, key: str, block: torch.Tensor) -> tuple[int, ...]:
+        name, _ = self._leaf(key)
+        return tuple(block.shape) if name is None else tuple(self._shapes[name])
+
+    def join(self, key: str, block: torch.Tensor) -> torch.Tensor:
+        name, z = self._leaf(key)
+        if name is None:
+            return block
+        return self.model.join_leaf(name, block if z is None else z.join(block, self.model.sh))
+
+    def cut(self, key: str, whole: torch.Tensor) -> torch.Tensor:
+        name, z = self._leaf(key)
+        if name is None:
+            return whole
+        block = self.model.cut_leaf(name, whole)
+        return block if z is None else z.take(block)
+
+    def barrier(self) -> None:
+        dist.barrier()

@@ -25,8 +25,23 @@ whole, at a relative norm error of 1e-4 and elementwise at rtol 1e-4, atol
 1e-5 times the leaf's largest |g|; three training steps through
 ``launch.train.main`` (2 microbatches, remat ``none`` and ``full``) at rtol
 1e-4 of the one-card launcher's losses and gradient norms. Every rank
-returns the same loss bits, remat ``full`` gives ``none``'s bits, and
-``--ckpt``, ``int8`` and ZeRO-1 moments on a cut mesh raise.
+returns the same loss bits, and remat ``full`` gives ``none``'s bits.
+Reduced internvl2 at a vocabulary of 510 (its tied table whole at ``(1,
+4)``) meets the same gates, and at ``(1, 4)`` neither it nor qwen2 at 6
+heads (a cut table) holds a tensor as wide as the vocabulary in the
+loss's forward or backward (the one-card loss does).
+
+The training options on a mesh, bit for bit: ZeRO-1 moments at ``(2,
+1)``, ``(2, 2)`` and ``(4, 1)`` give ``zero1=False``'s losses, norms and
+parameters, a rank holding the elements of the reference's
+``opt_state_specs(zero1=True)`` blocks in GSPMD's ceil layout (an uneven
+repeat axis and an uneven table), and with FSDP they raise where JAX's
+``NamedSharding`` refuses the reference's spec; ``int8`` compression's
+joined gradients are the reference's ``compress_tree`` of the joined
+gradients, on the joined and on the aligned local path; a ``(2, 2)``
+checkpoint's files are the one-card ``save`` of the joined state, a
+resumed run's losses the uninterrupted run's, and it restores at ``(1,
+4)`` and on one card to the same parameters.
 
 Sampled serving on a data-cut mesh draws the whole batch's uniforms on
 every rank: at ``(2, 1)`` and ``(2, 2)`` the served tokens are the
@@ -47,15 +62,17 @@ torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
-from jax.sharding import PartitionSpec  # noqa: E402
+from jax.sharding import Mesh, NamedSharding, PartitionSpec  # noqa: E402
 
 from repro import configs as jconfigs  # noqa: E402
 from repro.launch.mesh import apply_fsdp as japply_fsdp  # noqa: E402
 from repro.models import transformer as jtf  # noqa: E402
 from repro.models.layers import Axes as JAxes  # noqa: E402
+from repro.train import compression as jcomp  # noqa: E402
 from repro.train import optimizer as jopt  # noqa: E402
 from repro.train import train_step as jstep  # noqa: E402
 from repro_torch import configs  # noqa: E402
+from repro_torch.checkpoint import checkpointer as ckpt  # noqa: E402
 from repro_torch.convert import reference_leaf  # noqa: E402
 from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.launch.mesh import apply_fsdp  # noqa: E402
@@ -65,8 +82,9 @@ from repro_torch.train import optimizer as opt  # noqa: E402
 from repro_torch.train import train_step as tstep  # noqa: E402
 
 from _torch_lm_mesh_child import _flat  # noqa: E402
-from _torch_lm_train_mesh_child import (B, CASES, L, MESH_CASES, NARROWED, SERVE_ARGS, TRAIN_ARGS,  # noqa: E402
-                                        TRAIN_REMATS, case_config)
+from _torch_lm_train_mesh_child import (B, CASES, CUT_LOSS, FSDP_MIN_ELEMS, L, MESH_CASES, NARROWED,  # noqa: E402
+                                        SERVE_ARGS, TRAIN_ARGS, TRAIN_REMATS, ZERO1_MESHES, _wide_outputs,
+                                        case_config, zero1_config)
 
 ROOT = Path(__file__).resolve().parents[1]
 SRC = str(ROOT / "src")
@@ -160,7 +178,8 @@ GRAD_CASES = [(f"{d}x{m}", case) for (d, m), cases in MESH_CASES.items() for cas
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """({tag: [(npz, json) per rank]}, {case: reference (loss, grads, params)},
-    {(case, remat): one-card launcher run}, one-process sampled tokens). The
+    {(case, remat): one-card launcher run}, one-process sampled tokens, the
+    child's directory, whose ``<tag>/`` holds the checkpoints). The
     child's ranks start once the reference's weights are drawn; the
     reference and the one-card runs are computed while they work."""
     tmp = tmp_path_factory.mktemp("lm_train_mesh")
@@ -201,14 +220,14 @@ def runs(tmp_path_factory):
         tag = f"{d}x{m}"
         ranks[tag] = [(dict(np.load(tmp / tag / f"rank{r}.npz")), json.loads((tmp / tag / f"rank{r}.json").read_text()))
                       for r in range(d * m)]
-    return ranks, reference, one_card, sampled
+    return ranks, reference, one_card, sampled, tmp
 
 
 @pytest.mark.parametrize("tag,case", GRAD_CASES)
 def test_loss_and_every_gradient_match_the_reference(runs, tag, case):
     """The loss on every rank, and every gradient joined to whole, against
     the reference's unsharded ``jax.value_and_grad(loss_fn)``."""
-    ranks, reference, _, _ = runs
+    ranks, reference, _, _, _ = runs
     want_loss, want = reference[case]
     for arrays, _ in ranks[tag]:
         np.testing.assert_allclose(float(arrays[f"{case}/loss"]), want_loss, rtol=LOSS_RTOL)
@@ -227,7 +246,7 @@ def test_loss_and_every_gradient_match_the_reference(runs, tag, case):
 def test_fsdp_cuts_leaves_over_the_data_axis(runs, tag, case):
     """At data > 1 the case's larger leaves are FSDP blocks: a ``data`` entry
     in the spec, and the rank's gradient block that dimension's share."""
-    ranks, reference, _, _ = runs
+    ranks, reference, _, _, _ = runs
     data, model = (int(n) for n in tag.split("x"))
     for _, info in ranks[tag]:
         leaves = info[f"{case}/fsdp_leaves"]
@@ -268,7 +287,7 @@ def test_remat_full_gives_the_loss_and_gradients_of_none(runs, tag, case):
 def test_three_steps_follow_the_one_card_run(runs, tag, case, remat):
     """``launch.train.main`` on the mesh (2 microbatches, the global batch
     split first) against the one-card launcher: losses and gradient norms."""
-    ranks, _, one_card, _ = runs
+    ranks, _, one_card, _, _ = runs
     want = one_card[(case, remat)]
     data, model = (int(n) for n in tag.split("x"))
     for _, info in ranks[tag]:
@@ -286,7 +305,7 @@ def test_a_narrowing_backward_on_the_model_gathers_misses_the_reference(runs, ca
     slice instead of summing the ranks' gradients into it, the gradients
     leave the reference's tolerance, while the reduce-scatter's meet it
     (``test_loss_and_every_gradient_match_the_reference``)."""
-    ranks, reference, _, _ = runs
+    ranks, reference, _, _, _ = runs
     want = _flat(reference[case][1])
     arrays = ranks["1x4"][0][0]
     missed = [name for name in want
@@ -306,19 +325,153 @@ def test_uneven_labels_reach_the_ranks_unevenly():
     assert len(set(counts)) == 4
 
 
-def test_refusals_on_a_cut_mesh_name_roadmap(runs):
+@pytest.mark.parametrize("case", CUT_LOSS)
+def test_the_training_loss_never_holds_a_whole_vocabulary_row(runs, case):
+    """At (1, 4) no op of the loss's forward or backward outputs a tensor as
+    wide as the vocabulary, on a cut table (qwen2 at 6 heads, 512 over 4)
+    and on a whole one (internvl2, 510); the one-card loss does."""
+    for _, info in runs[0]["1x4"]:
+        assert info[f"{case}/wide"] == []
+    cfg = _cfgs(case)
+    model = tf.Model(cfg, remat="none")
+    model.init(torch.Generator().manual_seed(0))
+    batch = {k: torch.from_numpy(v).long() for k, v in _batch(case, cfg.vocab_size).items()}
+    assert _wide_outputs(model, batch, cfg.vocab_size)
+
+
+def _zero1_jax_model(model_size: int):
+    jcfg = zero1_config(jconfigs.get_config, jconfigs.reduced_config)
+    return jtf.Model(jcfg, JAxes(model_size=model_size))
+
+
+def _gspmd_elems(shape, spec, coords: dict[str, tuple[int, int]]) -> int:
+    """Elements of a rank's block of a leaf of ``shape`` placed by ``spec`` in
+    GSPMD's layout: a dimension cut over n ranks in blocks of ceil(size / n),
+    the last short or empty; ``coords``: {axis: (this rank's index, ranks)}."""
+    n = 1
+    for size, entry in zip(shape, spec):
+        if entry is None:
+            n *= size
+            continue
+        index, count = coords[entry]
+        per = -(-size // count)
+        n *= max(0, min(per, size - index * per))
+    return n
+
+
+@pytest.mark.parametrize("tag", [f"{d}x{m}" for d, m in ZERO1_MESHES])
+def test_zero1_steps_are_bitwise_the_plain_steps(runs, tag):
+    """Three steps with ZeRO-1 moments: the losses, gradient norms and joined
+    parameters of ``zero1=False`` bit for bit, on every rank."""
+    for _, info in runs[0][tag]:
+        assert info["zero1/True"]["losses"] == info["zero1/False"]["losses"]
+        assert info["zero1/True"]["grad_norms"] == info["zero1/False"]["grad_norms"]
+        assert info["zero1/params_equal"] == info["zero1/param_names"]
+        assert info["zero1/True"]["sliced"] > 0
+
+
+@pytest.mark.parametrize("tag", [f"{d}x{m}" for d, m in ZERO1_MESHES])
+def test_zero1_moments_are_the_reference_zero1_blocks(runs, tag):
+    """A rank's moment elements equal its blocks of the reference's
+    ``opt_state_specs(param_specs, zero1=True)`` in GSPMD's ceil layout: the
+    3 repeats over 2 data ranks as 2 and 1, over 4 as 1, 1, 1, 0; at (2, 2)
+    the whole 509-row table's moments as 255 and 254 rows. Without ZeRO-1,
+    the parameters' blocks."""
+    data, model_size = (int(n) for n in tag.split("x"))
+    jm = _zero1_jax_model(model_size)
+    specs = _ref_leaves(jm.param_specs())
+    shapes = {".".join(str(getattr(k, "key", k)) for k in path): leaf.shape
+              for path, leaf in jax.tree_util.tree_flatten_with_path(jax.eval_shape(jm.init, KEY))[0]}
+    zero1 = _ref_leaves(jopt.opt_state_specs(jm.param_specs(), jm.ax, zero1=True).m)
+    for _, info in runs[0][tag]:
+        d, m = info["coords"]
+        coords = {"data": (d, data), "model": (m, model_size)}
+        assert info["zero1/True"]["moment_elems"] == sum(_gspmd_elems(shapes[k], zero1[k], coords) for k in zero1)
+        assert info["zero1/False"]["moment_elems"] == sum(_gspmd_elems(shapes[k], specs[k], coords) for k in specs)
+    assert len({info["zero1/True"]["moment_elems"] for _, info in runs[0][tag]}) > 1  # uneven
+
+
+def test_zero1_with_fsdp_raises_as_jax_refuses_the_reference_spec(runs):
+    """With FSDP the reference's ZeRO-1 spec names ``data`` twice: JAX's
+    ``NamedSharding`` raises ``DuplicateSpecError`` on it, and the port's
+    step raises ``ValueError`` naming the leaf and the spec."""
+    jm = _zero1_jax_model(2)
+    shapes = jax.eval_shape(jm.init, KEY)
+    widened = japply_fsdp(jm.param_specs(), shapes, fsdp_axis="data", fsdp_size=2, min_elems=FSDP_MIN_ELEMS)
+    spec = jopt.opt_state_specs(widened, jm.ax, zero1=True).m["embed"]["table"]
+    mesh = Mesh(np.array(jax.devices()[:1]).reshape(1, 1), ("data", "model"))
+    with pytest.raises(Exception, match="duplicate entries") as err:
+        NamedSharding(mesh, spec)
+    assert type(err.value).__name__ == "DuplicateSpecError"
     for _, info in runs[0]["2x2"]:
-        raises = info["raises"]
-        assert "sharded checkpoints" in raises["ckpt"] and "ROADMAP" in raises["ckpt"]
-        assert "int8" in raises["int8"] and "ROADMAP" in raises["int8"]
-        assert "ZeRO-1" in raises["zero1"] and "ROADMAP" in raises["zero1"]
+        assert "embed.table" in info["zero1/fsdp"] and str(P(*spec)) in info["zero1/fsdp"]
+
+
+@pytest.mark.parametrize("case", ["jamba", "zero1"])
+def test_int8_on_the_mesh_is_the_reference_compress_tree_of_the_joined_gradients(runs, case):
+    """At (2, 2) ``compress_grads(int8)``'s gradients, joined, are the
+    reference's ``compress_tree`` of the joined uncompressed gradients, bit
+    for bit: jamba's (FSDP, the Mamba ``in_proj``'s re-laid block) through
+    the joined path; qwen2's, FSDP off, also through the aligned local path
+    (``w_down`` and ``wo`` cut on their first dimension alone)."""
+    for arrays, info in runs[0]["2x2"]:
+        raw = {k[len(f"int8/{case}/raw/"):]: v for k, v in arrays.items() if k.startswith(f"int8/{case}/raw/")}
+        want = jax.tree.map(np.asarray, jcomp.compress_tree({k: jnp.asarray(v) for k, v in raw.items()}, "int8"))
+        for name, ref in want.items():
+            np.testing.assert_array_equal(arrays[f"int8/{case}/q/{name}"], ref, err_msg=name)
+        joined, cut = set(info[f"int8/{case}/joined"]), set(info[f"int8/{case}/cut"])
+        assert joined and joined <= cut
+        if case == "zero1":
+            assert cut - joined  # the aligned local path
+
+
+def test_a_mesh_checkpoint_is_the_one_card_checkpoint_of_the_joined_state(runs):
+    """A (2, 2) checkpoint through ``launch.train.main --ckpt`` holds the
+    bytes of a one-card ``save`` of the joined state, file for file; the
+    ZeRO-1 state's checkpoint those of the plain state's, and it restores
+    the ZeRO-1 slices exactly."""
+    root = runs[4] / "2x2"
+    for a, b in (("ckpt", "one_card"), ("zero1_True", "zero1_False")):
+        mine, other = root / a / "step_00000003", root / b / "step_00000003"
+        names = sorted(p.name for p in mine.iterdir())
+        assert names == sorted(p.name for p in other.iterdir()) and "manifest.json" in names
+        for name in names:
+            assert (mine / name).read_bytes() == (other / name).read_bytes(), (a, name)
+    for _, info in runs[0]["2x2"]:
+        assert info["zero1/restored_equal"]
+
+
+def test_a_resumed_mesh_run_is_the_uninterrupted_run(runs):
+    """One step with ``--ckpt``, then ``--resume`` to three, at (2, 2): the
+    uninterrupted three steps' losses, bit for bit."""
+    for _, info in runs[0]["2x2"]:
+        assert info["ckpt/losses"] == info["jamba/train/none"]["losses"]
+
+
+def test_a_mesh_checkpoint_restores_at_another_mesh_and_on_one_card(runs):
+    """The (2, 2) run's last checkpoint restored at (1, 4) on the same ranks,
+    and on one card here, gives the (2, 2) run's joined parameters bit for
+    bit."""
+    arrays = runs[0]["2x2"][0][0]
+    final = {k[len("ckpt/final/0."):]: v for k, v in arrays.items() if k.startswith("ckpt/final/")}
+    for name, want in final.items():
+        np.testing.assert_array_equal(arrays[f"ckpt/1x4/{name}"], want, err_msg=name)
+    cfg = _cfgs("jamba")
+    model = tf.Model(cfg, remat="none")
+    params = model.init(torch.Generator().manual_seed(1))
+    (params, _), step = ckpt.restore(str(runs[4] / "2x2" / "ckpt"), (params, opt.init_opt_state(params, opt.AdamWConfig())))
+    assert step == 3
+    got = dict(params.named_parameters())
+    assert sorted(got) == sorted(final)
+    for name, want in final.items():
+        np.testing.assert_array_equal(got[name].detach().numpy(), want, err_msg=name)
 
 
 @pytest.mark.parametrize("tag", ["2x1", "2x2"])
 def test_sampled_serving_returns_the_one_process_tokens(runs, tag):
     """``launch.serve.main --temperature 1``: each data rank's rows are the
     one-process run's, row for row."""
-    ranks, _, _, sampled = runs
+    ranks, _, _, sampled, _ = runs
     model = int(tag.split("x")[1])
     for rank, (arrays, _) in enumerate(ranks[tag]):
         data = rank // model
