@@ -111,7 +111,14 @@ Phases, each fatal on failure:
      widths cut to one 8-layer period (13.30 B parameters, 53.2 GB), on the
      card only, 4 prompts of 1024 tokens, 32 new tokens: one flash launch
      (D 128), prompt 0's decode against the full forward at a capacity
-     factor where nothing drops, peak memory; with 4 or more cards the serve
+     factor where nothing drops, peak memory; ``qwen2_serve_bf16`` and
+     ``jamba_serve_8l_bf16``: the same two serves (qwen2 after ``serve``,
+     jamba after ``jamba_serve_8l``) with the weights at bf16, the
+     reference Model's own dtype: 24 and 1 launches of the bf16 flash
+     kernel and none of any other, prompt 0 teacher-forced over 3 decode
+     steps on the card against the CPU's plain bf16 copy (within twice the
+     bf16-vs-fp32 gap of the same weights, the fp32 side run on the card),
+     walls and peak memory beside the fp32 serve's; with 4 or more cards the serve
      path on a ``(data, model)`` mesh of 4 ranks, one process a card
      (``torchrun``): ``jamba_serve_tp4``, jamba-v0.1-52b whole (32 layers,
      51.57 B parameters, 206 GB) at (1, 4) through the port's ``serve``
@@ -172,6 +179,7 @@ the repository, the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import atexit
+import contextlib
 import copy
 import dataclasses
 import json
@@ -188,6 +196,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
 TF32_FLOPS_PER_S = 495e12
+BF16_FLOPS_PER_S = 989e12  # dense bf16 on the tensor cores
 
 MU_TOL = dict(rtol=3e-5, atol=3e-5)  # the reference's own MU kernel tolerance (fp32)
 SUMS_TOL = dict(rtol=1e-4, atol=1e-3)  # the reference's distance tolerance (fp32)
@@ -210,7 +219,16 @@ KM_SEARCH = dict(k_range=(2, 24), select_threshold=0.6, stop_threshold=1.6, mode
 KM_K_PAD, KM_MAX_ITERS, KM_WAVE = 24, 100, 16
 
 FLASH_TOL = dict(rtol=3e-5, atol=3e-5)  # the reference's flash tolerance (tests/test_kernels.py)
+# the reference's bf16 flash tolerance (tests/test_kernels.py::test_flash_attention_bf16); the kernel's
+# error from float64 at most this many times the plain version's (its own bf16 output rounding)
+BF16_FLASH_TOL, BF16_FP64_RATIO = dict(rtol=3e-2, atol=3e-2), 2.0
 LOGIT_TOL = dict(rtol=2e-3, atol=2e-3)  # the reference's decode-vs-forward tolerance (tests/test_models.py)
+# bf16 on the card against the CPU's plain bf16 run of the same weights
+# (tests/test_torch_bf16.py's bound): at each of a prefill and BF16_STEPS
+# teacher-forced decode steps, the logits within BF16_GAP_RATIO times the
+# gap between the CPU's bf16 logits and an fp32 run of the same weights;
+# greedy tokens equal wherever the CPU's top-2 margin exceeds twice that
+BF16_STEPS, BF16_GAP_RATIO = 3, 2.0
 # MoE routes, card against CPU on the same layer input: only the router's fp32
 # matmul and softmax differ in reduction order, which moves a probability by
 # up to 3.3e-7 on an H100 (granite, d 1024). A token may take
@@ -245,6 +263,8 @@ RESCAL_P, RESCAL_ITERS, RESCAL_EPS, RESCAL_THREADS = 3, 150, 0.015, 4
 # the serve paths: qwen2-0.5b and granite-moe-1b-a400m at their published
 # widths, weights from seed 0, 4 prompts of 1000 tokens, 32 new tokens
 SERVE_BATCH, SERVE_PROMPT, SERVE_TOKENS = 4, 1000, 32
+# each fp32 serve path's walls and peak memory, beside which its bf16 twin logs its own
+SERVE_RECORDS: dict[str, dict] = {}
 
 
 def serve_args(arch: str, prompt: int = SERVE_PROMPT) -> list[str]:
@@ -1211,24 +1231,7 @@ def check_flash(torch, dev, ops, ref, records: dict, log) -> None:
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(11)
-    cases = (
-        ("qwen2-0.5b prefill: B 4, Hq 14, Hk 2, L 1000, D 64, causal", (4, 14, 2, 1000, 1000, 64), True, None,
-         True),
-        ("h2o-danube-1.8b heads: B 1, Hq 32, Hk 8, L 6000, D 80, causal, window 4096",
-         (1, 32, 8, 6000, 6000, 80), True, 4096, True),
-        ("ragged non-causal, offset base: B 2, Hq 6, Hk 3, Lq 70, Lk 45, D 17", (2, 6, 3, 70, 45, 17), False,
-         None, False),
-        ("granite-moe-1b-a400m prefill: B 4, Hq 16, Hk 8, L 1000, D 64, causal", (4, 16, 8, 1000, 1000, 64), True,
-         None, True),
-        ("jamba-v0.1-52b prefill: B 4, Hq 32, Hk 8, L 1024, D 128, causal", (4, 32, 8, 1024, 1024, 128), True,
-         None, True),
-        ("jamba-v0.1-52b prefill, one rank of jamba_serve_tp4: B 4, Hq 8, Hk 2, L 1024, D 128, causal",
-         (4, 8, 2, 1024, 1024, 128), True, None, True),
-    )
-    cases = tuple((*case, 0) for case in cases) + tuple(
-        (f"qwen2-0.5b prefill, rank {r} of qwen2_serve_seq14: B 4, Hq 14, Hk 2, Lq 250, Lk 1000, D 64, causal, "
-         f"q_offset {250 * r}", (4, 14, 2, 250, 1000, 64), True, None, True, 250 * r) for r in range(4))
-    for label, (b, hq, hk, lq, lk, d), causal, window, timed, q_offset in cases:
+    for label, (b, hq, hk, lq, lk, d), causal, window, timed, q_offset in flash_cases():
         q, k, v = (torch.randn((b, h, n, d), device=dev, generator=gen) for h, n in ((hq, lq), (hk, lk), (hk, lk)))
         if not timed:  # one float past a 16-byte boundary
             q, k, v = (torch.empty(t.numel() + 1, device=dev)[1:].view(t.shape).copy_(t) for t in (q, k, v))
@@ -1250,11 +1253,7 @@ def check_flash(torch, dev, ops, ref, records: dict, log) -> None:
             b32_ms, b32_by = bound_ms(n_bytes, flops)
             # the kernel's own work: three TF32 products for each fp32 one
             btc_ms, btc_by = bound_ms(n_bytes, 3 * flops, TF32_FLOPS_PER_S)
-            if window is None and q_offset == 0:
-                lib_kw = dict(is_causal=causal)
-            else:  # SDPA takes a window or a query offset only as an explicit mask
-                i, j = q_offset + torch.arange(lq, device=dev)[:, None], torch.arange(lk, device=dev)[None, :]
-                lib_kw = dict(attn_mask=(j <= i) & (j > i - (window or lk + lq)))
+            lib_kw = sdpa_kw(torch, dev, lq, lk, causal, window, q_offset)
             entry.update(
                 flops=flops, q_offset=q_offset, live_pairs=pairs,
                 ms=time_ms(torch, lambda: ops.flash_attention(q, k, v, **kw)),
@@ -1266,6 +1265,94 @@ def check_flash(torch, dev, ops, ref, records: dict, log) -> None:
         del q, k, v
         log(json.dumps({"check": "flash_attention", **entry}))
         records.setdefault("flash_attention", []).append(entry)
+
+
+def flash_cases():
+    """(label, (B, Hq, Hk, Lq, Lk, D), causal, window, timed, q_offset) of
+    ``check_flash``, in its drawing order."""
+    cases = (
+        ("qwen2-0.5b prefill: B 4, Hq 14, Hk 2, L 1000, D 64, causal", (4, 14, 2, 1000, 1000, 64), True, None,
+         True),
+        ("h2o-danube-1.8b heads: B 1, Hq 32, Hk 8, L 6000, D 80, causal, window 4096",
+         (1, 32, 8, 6000, 6000, 80), True, 4096, True),
+        ("ragged non-causal, offset base: B 2, Hq 6, Hk 3, Lq 70, Lk 45, D 17", (2, 6, 3, 70, 45, 17), False,
+         None, False),
+        ("granite-moe-1b-a400m prefill: B 4, Hq 16, Hk 8, L 1000, D 64, causal", (4, 16, 8, 1000, 1000, 64), True,
+         None, True),
+        ("jamba-v0.1-52b prefill: B 4, Hq 32, Hk 8, L 1024, D 128, causal", (4, 32, 8, 1024, 1024, 128), True,
+         None, True),
+        ("jamba-v0.1-52b prefill, one rank of jamba_serve_tp4: B 4, Hq 8, Hk 2, L 1024, D 128, causal",
+         (4, 8, 2, 1024, 1024, 128), True, None, True),
+    )
+    return tuple((*case, 0) for case in cases) + tuple(
+        (f"qwen2-0.5b prefill, rank {r} of qwen2_serve_seq14: B 4, Hq 14, Hk 2, Lq 250, Lk 1000, D 64, causal, "
+         f"q_offset {250 * r}", (4, 14, 2, 250, 1000, 64), True, None, True, 250 * r) for r in range(4))
+
+
+def sdpa_kw(torch, dev, lq: int, lk: int, causal: bool, window: int | None, q_offset: int) -> dict:
+    """SDPA's arguments for the same masks: ``is_causal`` where it aligns
+    (its mask is top-left), else an explicit boolean mask."""
+    if window is None and q_offset == 0:
+        return dict(is_causal=causal)
+    i, j = q_offset + torch.arange(lq, device=dev)[:, None], torch.arange(lk, device=dev)[None, :]
+    return dict(attn_mask=(j <= i) & (j > i - (window or lk + lq)))
+
+
+def check_flash_bf16(torch, dev, ops, ref, records: dict, log) -> None:
+    """The bf16 flash kernel (``flash_attention_bf16``) at every shape of
+    ``check_flash``, on bf16 inputs drawn there: held against the plain
+    version (fp32 scores, softmax and sums, bf16 out) at the reference's
+    bf16 tolerance, its max error from the float64 plain version at most
+    ``BF16_FP64_RATIO`` times the plain version's, the same bits on a
+    second call, and no launch of the fp32 kernel. Timed against the bf16
+    bound (bf16 bytes at the HBM rate against the live pairs' FLOPs at the
+    dense bf16 rate) and SDPA at bf16."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(12)
+    name = ops.FLASH_BF16
+    for label, (b, hq, hk, lq, lk, d), causal, window, timed, q_offset in flash_cases():
+        q, k, v = (torch.randn((b, h, n, d), device=dev, generator=gen).bfloat16()
+                   for h, n in ((hq, lq), (hk, lk), (hk, lk)))
+        if not timed:  # one element past a 16-byte boundary
+            q, k, v = (torch.empty(t.numel() + 1, device=dev, dtype=t.dtype)[1:].view(t.shape).copy_(t)
+                       for t in (q, k, v))
+        kw = dict(causal=causal, window=window, q_offset=q_offset)
+        ops.reset_launch_counts()
+        got = ops.flash_attention(q, k, v, **kw)
+        counts = ops.launch_counts()
+        if counts[name] != 1 or counts["flash_attention"] != 0 or got.dtype != torch.bfloat16:
+            raise AssertionError(f"{name} [{label}]: launches {counts}, output {got.dtype}")
+        plain = ref.attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        err = compare(torch, got, plain, BF16_FLASH_TOL["rtol"], BF16_FLASH_TOL["atol"], f"{name} [{label}]")
+        if not torch.equal(got, ops.flash_attention(q, k, v, **kw)):
+            raise AssertionError(f"{name} [{label}]: two calls differ")
+        err64, plain_err64 = _plain_fp64_err(ref, q, k, v, got, plain, causal, window, q_offset)
+        if err64 > BF16_FP64_RATIO * plain_err64:
+            raise AssertionError(f"{name} [{label}]: {err64:.3e} from float64, over {BF16_FP64_RATIO} x the plain "
+                                 f"version's {plain_err64:.3e}")
+        entry = {"case": label, "max_abs_err": err, "max_abs_err_vs_fp64": err64,
+                 "plain_max_abs_err_vs_fp64": plain_err64, "repeat_bitwise": True}
+        del got, plain
+        if timed:
+            pairs = _live_pairs(lq, lk, causal, window, q_offset)
+            flops = 4 * b * hq * d * pairs  # q.k and p.v multiply-adds on the live pairs
+            n_bytes = 2 * (2 * q.numel() + k.numel() + v.numel())  # q, k, v read; out written
+            bms, bby = bound_ms(n_bytes, flops, BF16_FLOPS_PER_S)
+            lib_kw = sdpa_kw(torch, dev, lq, lk, causal, window, q_offset)
+            entry.update(
+                flops=flops, q_offset=q_offset, live_pairs=pairs,
+                ms=time_ms(torch, lambda: ops.flash_attention(q, k, v, **kw)),
+                plain_ms=time_ms(torch, lambda: ref.attention(q, k, v, **kw), reps=10),
+                bound_ms=bms, bound_by=bby,
+                library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v, enable_gqa=True, **lib_kw)),
+                library="F.scaled_dot_product_attention(bf16, enable_gqa=True): the same function, one call",
+            )
+        del q, k, v
+        log(json.dumps({"check": name, **entry}))
+        records.setdefault(name, []).append(entry)
 
 
 def _decided(torch, logits, tokens) -> None:
@@ -1369,6 +1456,191 @@ def prefill_label(cfg) -> str:
     return "flash prefill" if flash_layers(cfg) else "prefill"
 
 
+class RouteReplay:
+    """Teacher-forced MoE routes for the bf16 checks. ``record`` keeps every
+    ``models.moe.route`` call of one run (the card's bf16 run); ``replay``
+    makes another run (the CPU's bf16 copy, the fp32 run) take the recorded
+    calls' experts in order, with its own router's logits, probabilities
+    and gates at those experts, so the runs compute the same experts'
+    outputs and their logits differ by arithmetic alone. Without it a
+    token whose k-th and (k+1)-th router probabilities lie within bf16's
+    noise takes other experts on either side, and one token's flip moves
+    the logits by ~10x bf16's own gap (granite at full width, 32 experts,
+    top 8). Each replaying run keeps its own probabilities and the tokens
+    whose own top-k differs from the recorded one (``check``)."""
+
+    def __init__(self, torch):
+        from repro_torch.models import moe
+
+        self.torch, self.moe, self.routes = torch, moe, []
+
+    @contextlib.contextmanager
+    def record(self):
+        real = self.moe.route
+
+        def spy(params, xt, cfg, capacity, sh=None):
+            r = real(params, xt, cfg, capacity, sh)
+            self.routes.append(r)
+            return r
+
+        self.moe.route = spy
+        try:
+            yield self
+        finally:
+            self.moe.route = real
+
+    @contextlib.contextmanager
+    def replay(self, run: dict):
+        """``run`` gains ``probs`` (each call's own probabilities, on the
+        CPU) and ``differ`` (each call's tokens whose own top-k is not the
+        recorded one, with their own top-k margins)."""
+        torch, moe, real, calls = self.torch, self.moe, self.moe.route, iter(self.routes)
+        run.update(probs=[], differ=[])
+
+        def take(params, xt, cfg, capacity, sh=None):
+            own, rec, k = real(params, xt, cfg, capacity, sh), next(calls), cfg.moe.top_k
+            ids = rec.expert_ids.to(own.expert_ids.device)
+            differ = (own.expert_ids.view(-1, k).sort(1).values != ids.view(-1, k).sort(1).values).any(1)
+            run["probs"].append(own.probs.cpu())
+            run["differ"].append((differ.nonzero()[:, 0].cpu(), own.margin[differ].cpu()))
+            gates = own.probs.gather(1, ids.view(-1, k))
+            gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+            buf_idx, keep = moe._dispatch_indices(ids, cfg.moe.num_experts, capacity)
+            return own._replace(expert_ids=ids, gates=gates, buf_idx=buf_idx, keep=keep)
+
+        moe.route = take
+        try:
+            yield run
+        finally:
+            moe.route = real
+        if len(run["probs"]) != len(self.routes):
+            raise AssertionError(f"the replaying run made {len(run['probs'])} route calls, the recorded one "
+                                 f"{len(self.routes)}")
+
+    def check(self, cpu: dict, fp32: dict, label: str) -> dict:
+        """The card's router probabilities within BF16_GAP_RATIO times the
+        gap between the CPU's bf16 ones and the fp32 run's (the logits'
+        gate, on the router), and every token the CPU's bf16 router would
+        send elsewhere explained by that noise: its own top-k margin at most
+        twice its largest probability gap to the card (no smaller change
+        can swap two experts)."""
+        if not self.routes:
+            return {}
+        gaps = [(r.probs.cpu() - p).abs() for r, p in zip(self.routes, cpu["probs"])]
+        card_gap = max(float(g.max()) for g in gaps)
+        bound = BF16_GAP_RATIO * max(float((p - q).abs().max()) for p, q in zip(cpu["probs"], fp32["probs"]))
+        if card_gap > bound:
+            raise AssertionError(f"{label}: card router probabilities {card_gap:.3g} from the CPU's, over "
+                                 f"{BF16_GAP_RATIO} x the CPU's bf16-vs-fp32 gap ({bound:.3g})")
+        flips = []
+        for call, (g, (tokens, margins)) in enumerate(zip(gaps, cpu["differ"])):
+            for t, m in zip(tokens.tolist(), margins.tolist()):
+                noise = float(g[t].max())
+                if m > 2 * noise:
+                    raise AssertionError(f"{label}: route {call}: token {t} takes other experts on the CPU at a "
+                                         f"top-k margin {m:.3g} over twice its probability gap {noise:.3g}")
+                flips.append(m)
+        return {"routes_replayed": len(self.routes), "router_prob_gap": card_gap, "router_prob_bound": bound,
+                "cpu_route_flips": len(flips), "max_flip_margin": max(flips, default=0.0)}
+
+
+def cast_model(torch, model, dtype):
+    """``model``'s weights cast in place, leaf by leaf, as a ``Model`` of
+    ``dtype``: at bfloat16 each leaf takes the dtype the port's own bf16
+    init gives it (bf16; float32 for the norms and the MoE router, read
+    from ``init_meta``), at float32 every leaf is float32."""
+    from repro_torch.models.transformer import Model
+
+    out = Model(model.cfg, dtype=dtype)
+    dtypes = {n: p.dtype for n, p in out.init_meta().named_parameters()}
+    for n, p in model.params.named_parameters():
+        p.data = p.data.to(dtypes[n])
+    out.params = model.params
+    return out
+
+
+def model_copy(torch, model, device, dtype=None):
+    """A copy of ``model`` on ``device``, leaf by leaf (float32 casts every leaf)."""
+    from repro_torch.models.transformer import Model
+
+    memo = {id(p): torch.nn.Parameter(p.detach().to(device, dtype or p.dtype), requires_grad=False)
+            for p in model.params.parameters()}
+    out = Model(model.cfg, dtype=dtype or model.dtype)
+    out.params = copy.deepcopy(model.params, memo)
+    return out
+
+
+def forced(torch, model, prompt, steps: int, tokens=None):
+    """(logits of a prefill of ``prompt`` and of ``steps`` decode steps,
+    float32 on the CPU; the tokens fed): each step is fed ``tokens[:, i]``,
+    or without ``tokens`` the greedy token of the step before."""
+    dev, plen = model.device, prompt.shape[1]
+    lg, caches = model.prefill({"tokens": prompt.to(dev)}, cache_len=plen + steps)
+    out, fed = [lg.float().cpu()], []
+    for i in range(steps):
+        tok = torch.argmax(out[-1][:, -1], dim=-1)[:, None] if tokens is None else tokens[:, i:i + 1].cpu()
+        fed.append(tok)
+        lg, caches = model.decode_step(caches, tok.to(dev), plen + i)
+        out.append(lg.float().cpu())
+    del caches
+    return out, torch.cat(fed, dim=1)
+
+
+def hold_bf16(torch, card: list, cpu: list, fp32: list, label: str) -> dict:
+    """The bf16 gates of ``forced`` runs, step by step: the card's logits
+    within BF16_GAP_RATIO times the gap between the CPU's bf16 logits and
+    the fp32 run's, and the card's greedy token the CPU's wherever the
+    CPU's top-2 margin exceeds twice that bound."""
+    gaps, bounds, decided = [], [], 0
+    for i, (a, b, c) in enumerate(zip(card, cpu, fp32)):
+        if not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"{label}: step {i}: non-finite card logits")
+        gap, bound = float((a - b).abs().max()), BF16_GAP_RATIO * float((b - c).abs().max())
+        if gap > bound:
+            raise AssertionError(f"{label}: step {i}: card bf16 logits {gap:.4g} from the CPU's, over "
+                                 f"{BF16_GAP_RATIO} x the CPU's bf16-vs-fp32 gap ({bound:.4g})")
+        top2 = torch.topk(b[:, -1], 2, dim=-1).values
+        sure = (top2[:, 0] - top2[:, 1]) > 2 * bound
+        if bool((sure & (torch.argmax(a[:, -1], -1) != torch.argmax(b[:, -1], -1))).any()):
+            raise AssertionError(f"{label}: step {i}: greedy tokens differ at a decided margin")
+        gaps.append(gap)
+        bounds.append(bound)
+        decided += int(sure.sum())
+    return {"bf16_logit_gaps": gaps, "bf16_bounds": bounds, "decided_tokens": decided,
+            "logits_max_abs": max(float(b.abs().max()) for b in cpu)}
+
+
+def check_lm_bf16(torch, dev, ops, log, label: str, cpu_model, prompt) -> None:
+    """``cpu_model``'s weights at bf16 (``cast_model``, in place) on the card
+    (the bf16 flash kernel) against the same bf16 model on the CPU (plain
+    path), a prefill of ``prompt`` and BF16_STEPS decode steps fed the
+    card's greedy tokens, held by ``hold_bf16`` against an fp32 run of the
+    same weights on the CPU; the card's prefill launches the bf16 flash
+    kernel once an attention layer and the fp32 kernel never; the CPU runs
+    take the card's MoE routes (``RouteReplay``)."""
+    cpu16 = cast_model(torch, cpu_model, torch.bfloat16)
+    cpu32 = model_copy(torch, cpu16, "cpu", torch.float32)
+    card = model_copy(torch, cpu16, dev)
+    routes, on_cpu, on_32 = RouteReplay(torch), {}, {}
+    ops.reset_launch_counts()
+    with routes.record():
+        lg_card, tokens = forced(torch, card, prompt, BF16_STEPS)
+    counts = ops.launch_counts()
+    del card
+    want = flash_layers(cpu16.cfg)
+    if counts[ops.FLASH_BF16] != want or counts["flash_attention"] != 0:
+        raise AssertionError(f"{label} bf16: launches {counts}, not {want} of {ops.FLASH_BF16} and none of the "
+                             "fp32 kernel")
+    with routes.replay(on_cpu):
+        lg_cpu, _ = forced(torch, cpu16, prompt, BF16_STEPS, tokens)
+    with routes.replay(on_32):
+        lg_32, _ = forced(torch, cpu32, prompt, BF16_STEPS, tokens)
+    held = hold_bf16(torch, lg_card, lg_cpu, lg_32, f"{label} bf16")
+    log(json.dumps({"check": f"lm bf16 card vs plain bf16: {label}", "steps": BF16_STEPS, **held,
+                    "tokens": tokens.tolist(), "launches": {k: counts[k] for k in (ops.FLASH_BF16, "flash_attention")},
+                    **routes.check(on_cpu, on_32, f"{label} bf16")}))
+
+
 def check_lm_small(torch, dev, ops, log) -> None:
     """The LM's prefill logits and 8 greedy tokens on the card (flash kernel
     for GQA) against the CPU (plain path), same weights, teacher-forced with
@@ -1382,7 +1654,8 @@ def check_lm_small(torch, dev, ops, log) -> None:
     launch; both scans take their chunked branch); rwkv6-1.6b at full width
     cut to 2 layers, B 2, prompts 40 (the token recurrence) and 64 (the
     chunked WKV), no flash launch. Every MoE route is held to the CPU's
-    (``RouteWatch``)."""
+    (``RouteWatch``). qwen2, h2o-danube, granite and jamba then run at bf16
+    on the same weights (``check_lm_bf16``)."""
     from repro_torch.configs import get_config, reduced_config
     from repro_torch.launch.serve import setup
     from repro_torch.serve.decode import generate
@@ -1391,22 +1664,24 @@ def check_lm_small(torch, dev, ops, log) -> None:
     deepseek = get_config("deepseek-v2-236b")
     jamba = get_config("jamba-v0.1-52b")
     rwkv6_2l = dataclasses.replace(get_config("rwkv6-1.6b"), num_layers=2)
-    cases = (
-        ("qwen2-0.5b, full width, 2 layers", dataclasses.replace(get_config("qwen2-0.5b"), num_layers=2), 1, 200),
-        ("h2o-danube-1.8b reduced, window 16", reduced_config(get_config("h2o-danube-1.8b")), 2, 40),
+    cases = (  # (label, config, batch, prompt, also at bf16)
+        ("qwen2-0.5b, full width, 2 layers", dataclasses.replace(get_config("qwen2-0.5b"), num_layers=2), 1, 200,
+         True),
+        ("h2o-danube-1.8b reduced, window 16", reduced_config(get_config("h2o-danube-1.8b")), 2, 40, True),
         ("granite-moe-1b-a400m, full width, 2 layers",
-         dataclasses.replace(get_config("granite-moe-1b-a400m"), num_layers=2), 1, 200),
+         dataclasses.replace(get_config("granite-moe-1b-a400m"), num_layers=2), 1, 200, True),
         (f"deepseek-v2, full widths, 2 layers (dense + MoE), {DEEPSEEK_SMALL_EXPERTS} routed experts",
          dataclasses.replace(deepseek, num_layers=2,
-                             moe=dataclasses.replace(deepseek.moe, num_experts=DEEPSEEK_SMALL_EXPERTS)), 1, 64),
+                             moe=dataclasses.replace(deepseek.moe, num_experts=DEEPSEEK_SMALL_EXPERTS)), 1, 64,
+         False),
         (f"jamba-v0.1-52b, full widths, {JAMBA_LAYERS} layers, {JAMBA_SMALL_EXPERTS} experts (both scans chunked)",
          dataclasses.replace(jamba, num_layers=JAMBA_LAYERS,
-                             moe=dataclasses.replace(jamba.moe, num_experts=JAMBA_SMALL_EXPERTS)), 1, 64),
-        ("rwkv6-1.6b, full width, 2 layers (the token recurrence)", rwkv6_2l, 2, 40),
-        ("rwkv6-1.6b, full width, 2 layers (the chunked WKV)", rwkv6_2l, 2, 64),
+                             moe=dataclasses.replace(jamba.moe, num_experts=JAMBA_SMALL_EXPERTS)), 1, 64, True),
+        ("rwkv6-1.6b, full width, 2 layers (the token recurrence)", rwkv6_2l, 2, 40, False),
+        ("rwkv6-1.6b, full width, 2 layers (the chunked WKV)", rwkv6_2l, 2, 64, False),
     )
     steps = 8
-    for label, cfg, batch, plen in cases:
+    for label, cfg, batch, plen, bf16 in cases:
         cpu_model, prompt, _, _ = setup(cfg, batch, plen, cpu, seed=0)
         card_model = copy.deepcopy(cpu_model).to(dev)
         ops.reset_launch_counts()
@@ -1444,7 +1719,10 @@ def check_lm_small(torch, dev, ops, log) -> None:
                         "logits_max_abs_gap": max(gaps), "tokens": tokens.tolist(),
                         "flash_launches_per_prefill": flash,
                         **(routes.summary() if cfg.moe is not None else {})}))
-        del card_model, c_card, cpu_model, c_cpu
+        del card_model, c_card, c_cpu
+        if bf16:
+            check_lm_bf16(torch, dev, ops, log, label, cpu_model, prompt)
+        del cpu_model
 
 
 def _train_vs_cpu(torch, dev, log, label: str, cfg):
@@ -1745,6 +2023,8 @@ def run_serve(torch, dev, ops, serve, log, arch: str, prompt_len: int = SERVE_PR
     peak = torch.cuda.max_memory_allocated()
     tokens = out["tokens"]
     new = SERVE_BATCH * (SERVE_TOKENS - 1)
+    SERVE_RECORDS[arch] = {"wall_s": out["seconds"], "prefill_s": out["prefill_s"], "decode_s": out["decode_s"],
+                           "max_memory_allocated": peak}
     log(json.dumps({"serve": f"{arch} full width", "batch": SERVE_BATCH, "prompt": prompt_len,
                     "tokens": SERVE_TOKENS, "wall_s": out["seconds"], "prefill_s": out["prefill_s"],
                     "decode_s": out["decode_s"], "decode_tokens_per_s": new / out["decode_s"],
@@ -1904,6 +2184,8 @@ def run_jamba_serve(torch, dev, ops, log) -> dict[str, int]:
     del model
     gaps = aligned_decode_gaps(torch, check, prompt[:1], tokens[:1], "jamba serve")
     peak = torch.cuda.max_memory_allocated()
+    SERVE_RECORDS["jamba-v0.1-52b"] = {"wall_s": wall, "prefill_s": timings["prefill_s"],
+                                       "decode_s": timings["decode_s"], "max_memory_allocated": serve_peak}
     log(json.dumps({"serve": f"jamba-v0.1-52b full widths, {JAMBA_LAYERS} layers", "params": n_params,
                     "batch": SERVE_BATCH, "prompt": SCAN_SERVE_PROMPT, "tokens": SERVE_TOKENS, "wall_s": wall,
                     "prefill_s": timings["prefill_s"], "decode_s": timings["decode_s"],
@@ -1912,6 +2194,77 @@ def run_jamba_serve(torch, dev, ops, log) -> dict[str, int]:
                     "decode_vs_full_forward_max_abs_gap": max(gaps), "checked_steps": JAMBA_CHECK_STEPS,
                     "max_memory_allocated_serve": serve_peak, "max_memory_allocated": peak, "card": smi_line()}))
     del check
+    return counts
+
+
+def run_serve_bf16(torch, dev, ops, log, arch: str, layers: int | None = None,
+                   prompt_len: int = SERVE_PROMPT) -> dict[str, int]:
+    """The reference Model's own dtype served on the card: ``arch`` at its
+    published widths (cut to ``layers``), weights from seed 0 (``setup``'s
+    fp32 draw, then ``cast_model`` to bf16 in place), ``generate`` for
+    SERVE_BATCH prompts of ``prompt_len`` tokens and SERVE_TOKENS new ones,
+    counts reset just before, read just after: one launch of the bf16 flash
+    kernel an attention layer, none of any other kernel. Then prompt 0
+    teacher-forced with the served tokens over BF16_STEPS decode steps, on
+    the card and on the CPU's plain bf16 copy of the same weights, held by
+    ``hold_bf16``. The fp32 side of the bound is the same weights' fp32
+    path on the card (cast in place after the bf16 runs): the CPU's within
+    LOGIT_TOL, where a bf16 gap is ~10x that, and an fp32 copy on the host
+    would take jamba's 53 GB beside its bf16 one. Walls and peak memory are
+    logged beside the fp32 serve path's of this run (``SERVE_RECORDS``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import setup
+    from repro_torch.serve.decode import generate
+
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    label = f"{arch} bf16 full width" + (f", {layers} layers" if layers is not None else "")
+    torch.cuda.empty_cache()
+    model, prompt, _, _ = setup(cfg, SERVE_BATCH, prompt_len, dev, seed=0)
+    model = cast_model(torch, model, torch.bfloat16)
+    n_params = sum(p.numel() for p in model.params.parameters())
+    weight_bytes = sum(p.numel() * p.element_size() for p in model.params.parameters())
+    torch.cuda.empty_cache()  # the fp32 draw's blocks
+    torch.cuda.reset_peak_memory_stats()
+    timings: dict = {}
+    ops.reset_launch_counts()
+    t0 = sync_wall(torch)
+    tokens = generate(model, prompt, steps=SERVE_TOKENS, timings=timings)
+    wall = sync_wall(torch) - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if tuple(tokens.shape) != (SERVE_BATCH, SERVE_TOKENS):
+        raise AssertionError(f"{label}: tokens of shape {tuple(tokens.shape)}")
+    want = {name: 0 for name in counts}
+    want[ops.FLASH_BF16] = flash_layers(cfg)
+    if counts != want:
+        raise AssertionError(f"{label}: launches {counts}, not {want}")
+    row, served = prompt[:1], tokens[:1]
+    routes, on_cpu, on_32 = RouteReplay(torch), {}, {}
+    with routes.record():
+        lg_card, _ = forced(torch, model, row, BF16_STEPS, served)
+    cpu16 = model_copy(torch, model, "cpu")
+    t_cpu = time.perf_counter()
+    with routes.replay(on_cpu):
+        lg_cpu, _ = forced(torch, cpu16, row, BF16_STEPS, served)
+    cpu_s = time.perf_counter() - t_cpu
+    del cpu16
+    with routes.replay(on_32):
+        lg_32, _ = forced(torch, cast_model(torch, model, torch.float32), row, BF16_STEPS, served)
+    del model
+    torch.cuda.empty_cache()
+    held = {**hold_bf16(torch, lg_card, lg_cpu, lg_32, label), **routes.check(on_cpu, on_32, label)}
+    mine = {"wall_s": wall, "prefill_s": timings["prefill_s"], "decode_s": timings["decode_s"],
+            "max_memory_allocated": peak}
+    fp32 = SERVE_RECORDS.get(arch, {})
+    log(json.dumps({"serve": label, "params": n_params, "weight_bytes": weight_bytes, "batch": SERVE_BATCH,
+                    "prompt": prompt_len, "tokens": SERVE_TOKENS, **mine,
+                    "decode_tokens_per_s": SERVE_BATCH * (SERVE_TOKENS - 1) / timings["decode_s"],
+                    "launches": counts, "sample": tokens[0].tolist(), "fp32_serve": fp32,
+                    "bf16_over_fp32": {k: mine[k] / fp32[k] for k in fp32 if fp32[k]},
+                    "teacher_forced_prompt": 0, "steps": BF16_STEPS, **held, "cpu_bf16_s": cpu_s,
+                    "card": smi_line()}))
     return counts
 
 
@@ -2835,6 +3188,8 @@ SOURCES = {
         "src/repro_torch/kernels/csrc/pairwise_dist.cu", "src/repro/kernels/pairwise_dist.py:103"),
     "flash_attention": (
         "src/repro_torch/kernels/csrc/flash_attention.cu", "src/repro/kernels/flash_attention.py:102"),
+    "flash_attention[bf16]": (
+        "src/repro_torch/kernels/csrc/flash_attention.cu", "src/repro/kernels/flash_attention.py:102"),
 }
 
 
@@ -2942,6 +3297,7 @@ def main() -> int:
     check_sums(torch, dev, ops, ref, records, log)
     check_pairwise(torch, dev, ops, ref, records, log)
     check_flash(torch, dev, ops, ref, records, log)
+    check_flash_bf16(torch, dev, ops, ref, records, log)
     check_nmfk_small(torch, dev, log)
     check_nmfk_elastic_small(torch, dev, ops, log)
     check_kmeans_small(torch, dev, ops, log)
@@ -2963,10 +3319,13 @@ def main() -> int:
     by_path.update(run_rescalk_searches(torch, dev, ops, log))
     by_path.update({f"kmeans_{ex}": run_kmeans_search(torch, dev, ops, ex, log) for ex in ("threads", "batched")})
     by_path["serve"] = run_serve(torch, dev, ops, serve, log, "qwen2-0.5b")
+    by_path["qwen2_serve_bf16"] = run_serve_bf16(torch, dev, ops, log, "qwen2-0.5b")
     by_path["granite_serve"] = run_serve(torch, dev, ops, serve, log, "granite-moe-1b-a400m")
     by_path["deepseek_serve_2l"] = run_deepseek_serve(torch, dev, ops, log)
     by_path["rwkv6_serve"] = run_serve(torch, dev, ops, serve, log, "rwkv6-1.6b", SCAN_SERVE_PROMPT)
     by_path["jamba_serve_8l"] = run_jamba_serve(torch, dev, ops, log)
+    by_path["jamba_serve_8l_bf16"] = run_serve_bf16(torch, dev, ops, log, "jamba-v0.1-52b", JAMBA_LAYERS,
+                                                    SCAN_SERVE_PROMPT)
     by_path.update(run_multi_rank_serves(torch, dev, log))
     by_path.update(run_multi_rank_trains(torch, log))
     by_path.update(run_train_opts(torch, log))

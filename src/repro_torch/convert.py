@@ -9,7 +9,11 @@ keeps its blocks, and ``model_params_to_reference`` joins them back), and
 so does an AdamW state
 (``opt_state_from_reference``). Each comes in as a numpy-convertible
 array (never a JAX object: the port imports no JAX) and leaves as a tensor
-on ``device`` (default: the card), float32 except for indices.
+on ``device`` (default: the card): data float32, indices int64, and a
+parameter or moment in its own dtype, bfloat16 (``ml_dtypes``' numpy
+dtype, what ``np.asarray`` gives of a JAX bf16 array) or float32. A
+bfloat16 tensor goes back as an ``ml_dtypes.bfloat16`` array: numpy has no
+bfloat16 of its own. Both ways are exact.
 """
 from __future__ import annotations
 
@@ -30,6 +34,25 @@ from repro_torch.train.optimizer import OptState
 def to_tensor(array, device: str | torch.device | None = None) -> torch.Tensor:
     """A float32 tensor on ``device`` holding a copy of ``array``."""
     return torch.tensor(np.asarray(array, dtype=np.float32), device=resolve(device))
+
+
+def leaf_tensor(array, device: torch.device) -> torch.Tensor:
+    """A parameter-shaped array as a tensor of its own dtype: bfloat16 for
+    an ``ml_dtypes.bfloat16`` array (through float32, which holds every
+    bfloat16 value exactly), else float32."""
+    t = torch.tensor(np.asarray(array, dtype=np.float32), device=device)
+    return t.to(torch.bfloat16) if str(np.asarray(array).dtype) == "bfloat16" else t
+
+
+def leaf_array(t: torch.Tensor) -> np.ndarray:
+    """``leaf_tensor``'s inverse: a host numpy array, ``ml_dtypes.bfloat16``
+    for a bfloat16 tensor."""
+    t = t.detach().cpu()
+    if t.dtype != torch.bfloat16:
+        return t.numpy()
+    import ml_dtypes  # only the tests carry bf16 trees to the reference
+
+    return t.float().numpy().astype(ml_dtypes.bfloat16)
 
 
 def draws_from_reference(noise, w, h, device: str | torch.device | None = None) -> Draws:
@@ -80,7 +103,7 @@ def _tree(node, device: torch.device, index: int | None = None) -> nn.Module:
     def entry(v):
         if isinstance(v, dict):
             return _tree(v, device, index)
-        return to_tensor(np.asarray(v) if index is None else np.asarray(v)[index], device)
+        return leaf_tensor(np.asarray(v) if index is None else np.asarray(v)[index], device)
 
     return frozen(**{k: entry(v) for k, v in node.items()})
 
@@ -123,7 +146,7 @@ def model_params_to_reference(params: nn.Module | Mapping[str, torch.Tensor], mo
         node = tree
         for key in path[:-1]:
             node = node.setdefault(key, {})
-        leaf = whole.detach().cpu().numpy()
+        leaf = leaf_array(whole)
         if name.startswith("seg"):
             node.setdefault(path[-1], []).append(leaf)  # repeats come in order
         else:
@@ -163,14 +186,9 @@ def opt_state_from_reference(opt_state, names, device: str | torch.device | None
     of each parameter in ``names`` (the port's ``named_parameters()`` names),
     in their stored dtype (float32 or bfloat16), and the step as int32."""
     dev = resolve(device)
-
-    def tensor(a) -> torch.Tensor:
-        t = torch.tensor(np.asarray(a, dtype=np.float32), device=dev)
-        return t.to(torch.bfloat16) if str(np.asarray(a).dtype) == "bfloat16" else t
-
     step, m, v = opt_state
     return OptState(
         step=torch.tensor(int(np.asarray(step)), dtype=torch.int32, device=dev),
-        m={n: tensor(reference_leaf(m, n)) for n in names},
-        v={n: tensor(reference_leaf(v, n)) for n in names},
+        m={n: leaf_tensor(reference_leaf(m, n), dev) for n in names},
+        v={n: leaf_tensor(reference_leaf(v, n), dev) for n in names},
     )

@@ -50,6 +50,7 @@ SIGNATURES: dict[str, dict[str, list]] = {
     },
     "flash_attention": {
         "flash_attention": [*[_P] * 7, _I, _I, _I, _I, _I, _I, _I, *[_L] * 12, _F, _I, _I, _I, _P],
+        "flash_attention_bf16": [*[_P] * 4, *[_I] * 6, *[_L] * 12, _F, _I, _I, _I, _P],
         "flash_tiles": [_I, _I],
     },
 }

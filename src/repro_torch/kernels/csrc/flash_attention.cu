@@ -1,5 +1,7 @@
-// Causal / sliding-window GQA flash attention for Hopper (sm_90a), fp32 in
-// and out, the products on the tensor cores in split TF32.
+// Causal / sliding-window GQA flash attention for Hopper (sm_90a): fp32 in
+// and out, the products on the tensor cores in split TF32 (flash_attention);
+// and bf16 in and out, fp32 scores, softmax and sums, the products on the
+// bf16 tensor cores (flash_attention_bf16, at the end of this file).
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py:102
 // (`flash_attention`, whose `_flash_kernel` carries the running fp32
@@ -70,6 +72,7 @@
 //   output rows stored, as float4 / float2 where D, the strides and the
 //   base allow, else element by element (D 17, offset views); the split
 //   pass does the same for K and V. The images are always aligned.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -795,4 +798,322 @@ extern "C" int flash_tiles(int d, int field)
     }
 #undef REPRO_FLASH_TILES
     return -1;
+}
+
+// -----------------------------------------------------------------------------
+// bf16: the TPU kernel's bf16 half. q, k and v bf16 (one dtype), the scores,
+// the online softmax and the sums in fp32, out bf16 in q's layout: the same
+// function, masks (causal, window, q_offset), GQA and strides as above.
+//
+// What bounds it: at qwen2's prefill (B 4, Hq 14, L 1000, D 64, causal)
+// 7.2 GFLOP against 16 MB of bf16, 7.3 us at 989 TFLOP/s of dense bf16,
+// bound by operations. A bf16 x bf16 product is exact in fp32, so S = Q K^T
+// is one pass of mma.sync.m16n8k16 (bf16 in, fp32 accumulators), where the
+// fp32 kernel needs three. P is fp32, as in the reference; rounding it to
+// bf16 for P V would add an error of up to 2^-9 |v| a row, as large as the
+// output's own bf16 rounding on a row of few keys. So P is split, P = hi + lo
+// with hi = bf16(P) and lo = bf16(P - hi) (16 bits of P kept), and P V is two
+// passes. Simple first: one block of 4 warps owns 64 query rows of one
+// (batch, query head), each warp 16 rows, and walks the live kv tiles of 64
+// keys in ascending order (deterministic). The block stages each tile in
+// shared memory (K rows as they lie, V transposed, so every B fragment is one
+// 32-bit load), Q's fragments and O's accumulators stay in registers. No
+// work list, TMA or wgmma yet; the q tiles run longest causal walk first.
+// -----------------------------------------------------------------------------
+namespace {
+
+constexpr int kB16Warps = 4;
+constexpr int kB16Threads = 32 * kB16Warps;
+constexpr int kB16Rows = 16 * kB16Warps;  // query rows of a block: one m16 a warp
+constexpr int kB16Keys = 64;              // keys of a kv tile
+
+template <int NJ>
+struct CfgB16 {
+    static constexpr int DP = 16 * NJ;       // head dim padded to k16 steps
+    static constexpr int KS = NJ;            // k16 steps of Q K^T
+    static constexpr int ND = DP / 8;        // n8 blocks of P V
+    static constexpr int NT = kB16Keys / 8;  // n8 blocks of Q K^T
+    static constexpr int PS = kB16Keys / 16; // k16 steps of P V
+    // row strides of the staged tiles (bf16): 8 past the row, so the 8 rows
+    // of a fragment load fall on distinct banks
+    static constexpr int KR = DP + 8, VR = kB16Keys + 8;
+};
+
+// d (+)= a b on a warp's m16 x n8 x k16 tile: bf16 operands, fp32
+// accumulators. a: rows (g, g + 8) x k (2t, 2t + 1), then k + 8; b: k (2t,
+// 2t + 1) and k (2t + 8, 2t + 9) of column g; d: rows (g, g + 8) x columns
+// (2t, 2t + 1) (lane 4 g + t). The lower half of a 32-bit register holds
+// the lower index.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+        "{%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint16_t bf16_bits(float x) { return __bfloat16_as_ushort(__float2bfloat16_rn(x)); }
+
+__device__ __forceinline__ float bf16_value(uint16_t bits) { return __uint_as_float(static_cast<uint32_t>(bits) << 16); }
+
+// x0, x1 as bf16 pairs: hi = bf16(x), lo = bf16(x - hi)
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+    const uint16_t h0 = bf16_bits(x0), h1 = bf16_bits(x1);
+    hi = h0 | (static_cast<uint32_t>(h1) << 16);
+    lo = bf16_bits(x0 - bf16_value(h0)) | (static_cast<uint32_t>(bf16_bits(x1 - bf16_value(h1))) << 16);
+}
+
+__device__ __forceinline__ uint32_t ld32(const uint16_t* p) { return *reinterpret_cast<const uint32_t*>(p); }
+
+union Row8 {  // 8 bf16 of a row: one 16-byte load or store
+    uint4 u;
+    uint16_t h[8];
+};
+
+template <int NJ>
+__global__ void __launch_bounds__(kB16Threads)
+flash_bf16_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k, const uint16_t* __restrict__ v,
+                  uint16_t* __restrict__ out, int hq, int hk, int lq, int lk, int d,
+                  long long qsb, long long qsh, long long qsl,
+                  long long ksb, long long ksh, long long ksl,
+                  long long vsb, long long vsh, long long vsl,
+                  long long osb, long long osh, long long osl,
+                  float scale, int causal, int window, int qoff, int kvvec, int ovec)
+{
+    using C = CfgB16<NJ>;
+    constexpr int DP = C::DP;
+    __shared__ __align__(16) uint16_t ks[kB16Keys * C::KR];  // K tile: row j = key k0 + j
+    __shared__ __align__(16) uint16_t vt[DP * C::VR];        // V^T tile: row c = column c of V
+
+    const int qt = gridDim.x - 1 - blockIdx.x;  // the last q tiles walk the most keys: they go first
+    const int h = blockIdx.y, b = blockIdx.z, kh = h / (hq / hk);
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+    const int q0 = qt * kB16Rows, qw0 = q0 + warp * 16;
+    const uint16_t* qb = q + b * qsb + h * qsh;
+    const uint16_t* kb = k + b * ksb + kh * ksh;
+    const uint16_t* vb = v + b * vsb + kh * vsh;
+
+    // this warp's rows of Q as A fragments: rows (g, g + 8), columns 2t, 2t + 1 (+ 8) of each k16 step
+    uint32_t qf[C::KS][4];
+#pragma unroll
+    for (int kk = 0; kk < C::KS; ++kk)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            const int row = qw0 + g + 8 * (e & 1), col = 16 * kk + 2 * t + 8 * (e >> 1);
+            const uint16_t* p = qb + row * qsl + col;
+            const uint32_t x0 = row < lq && col < d ? p[0] : 0u, x1 = row < lq && col + 1 < d ? p[1] : 0u;
+            qf[kk][e] = x0 | (x1 << 16);
+        }
+
+    int lo, hi;
+    kv_tiles(q0, kB16Rows, kB16Keys, lq, lk, causal, window, qoff, lo, hi);
+    const float sl2 = scale * 1.4426950408889634f;  // scores in log2 units
+    float m_r[2] = {kNegBig, kNegBig}, l_r[2] = {0.f, 0.f}, acc[C::ND][4];
+#pragma unroll
+    for (int n = 0; n < C::ND; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+    for (int tile = lo; tile <= hi; ++tile) {
+        const int k0 = tile * kB16Keys;
+        __syncthreads();  // every warp is done with the previous tile
+        // K: 8 columns a thread, neighbouring threads along a row
+        for (int i = threadIdx.x; i < kB16Keys * (DP / 8); i += kB16Threads) {
+            const int r = i / (DP / 8), c = 8 * (i % (DP / 8));
+            Row8 x;
+            x.u = make_uint4(0u, 0u, 0u, 0u);
+            if (k0 + r < lk && c < d) {
+                const uint16_t* p = kb + (k0 + r) * ksl + c;
+                if (kvvec) {
+                    x.u = *reinterpret_cast<const uint4*>(p);
+                } else {
+#pragma unroll
+                    for (int e = 0; e < 8; ++e) x.h[e] = c + e < d ? p[e] : 0;
+                }
+            }
+            *reinterpret_cast<uint4*>(ks + r * C::KR + c) = x.u;
+        }
+        // V transposed: neighbouring threads on neighbouring keys, so the
+        // 2-byte stores of a column fall on distinct banks
+        for (int i = threadIdx.x; i < kB16Keys * (DP / 8); i += kB16Threads) {
+            const int r = i % kB16Keys, c = 8 * (i / kB16Keys);
+            Row8 x;
+            x.u = make_uint4(0u, 0u, 0u, 0u);
+            if (k0 + r < lk && c < d) {
+                const uint16_t* p = vb + (k0 + r) * vsl + c;
+                if (kvvec) {
+                    x.u = *reinterpret_cast<const uint4*>(p);
+                } else {
+#pragma unroll
+                    for (int e = 0; e < 8; ++e) x.h[e] = c + e < d ? p[e] : 0;
+                }
+            }
+#pragma unroll
+            for (int e = 0; e < 8; ++e) vt[(c + e) * C::VR + r] = x.h[e];
+        }
+        __syncthreads();
+
+        // skip the tile where no row of this warp sees any of its keys
+        const bool live = qw0 < lq && (!causal || k0 <= qoff + qw0 + 15) &&
+                          (window <= 0 || k0 + kB16Keys - 1 > qoff + qw0 - window);
+        if (!live) continue;
+
+        // S = Q K^T: one bf16 pass
+        float s[C::NT][4];
+#pragma unroll
+        for (int j = 0; j < C::NT; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < C::KS; ++kk)
+#pragma unroll
+            for (int j = 0; j < C::NT; ++j) {
+                const uint16_t* kr = ks + (8 * j + g) * C::KR + 16 * kk + 2 * t;
+                mma_bf16(s[j], qf[kk], ld32(kr), ld32(kr + 8));
+            }
+
+        // mask and online softmax in log2 units; row g + 8 r sits in the 4
+        // lanes of group g. A masked score is the finite -1e30, as in the
+        // reference: a row with no live key yet gets 2^0 junk, which the
+        // next live tile's correction 2^(-1e30 - m) = 0 wipes.
+        float corr[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+            const int pos = qoff + qw0 + g + 8 * r;
+            float mx = kNegBig;
+#pragma unroll
+            for (int j = 0; j < C::NT; ++j)
+#pragma unroll
+                for (int c = 0; c < 2; ++c) {
+                    const int key = k0 + 8 * j + 2 * t + c;
+                    bool in = key < lk;
+                    if (causal) in = in && key <= pos;
+                    if (window > 0) in = in && key > pos - window;
+                    float& x = s[j][2 * r + c];
+                    x = in ? x * sl2 : kNegBig;
+                    mx = fmaxf(mx, x);
+                }
+            mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+            mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+            const float m_new = fmaxf(m_r[r], mx);
+            corr[r] = ex2(m_r[r] - m_new);
+            float sum = 0.f;
+#pragma unroll
+            for (int j = 0; j < C::NT; ++j)
+#pragma unroll
+                for (int c = 0; c < 2; ++c) {
+                    float& x = s[j][2 * r + c];
+                    x = ex2(x - m_new);
+                    sum += x;
+                }
+            l_r[r] = l_r[r] * corr[r] + sum;  // this lane's share; summed at the end
+            m_r[r] = m_new;
+        }
+#pragma unroll
+        for (int n = 0; n < C::ND; ++n) {
+            acc[n][0] *= corr[0];
+            acc[n][1] *= corr[0];
+            acc[n][2] *= corr[1];
+            acc[n][3] *= corr[1];
+        }
+
+        // O += P V with P = hi + lo: keys 16 c .. 16 c + 15 of P are S's n8
+        // blocks 2 c and 2 c + 1, already in the A fragment's order
+#pragma unroll
+        for (int c = 0; c < C::PS; ++c) {
+            uint32_t ph[4], pl[4];
+            split_bf16(s[2 * c][0], s[2 * c][1], ph[0], pl[0]);
+            split_bf16(s[2 * c][2], s[2 * c][3], ph[1], pl[1]);
+            split_bf16(s[2 * c + 1][0], s[2 * c + 1][1], ph[2], pl[2]);
+            split_bf16(s[2 * c + 1][2], s[2 * c + 1][3], ph[3], pl[3]);
+#pragma unroll
+            for (int n = 0; n < C::ND; ++n) {
+                const uint16_t* vr = vt + (8 * n + g) * C::VR + 16 * c + 2 * t;
+                const uint32_t b0 = ld32(vr), b1 = ld32(vr + 8);
+                mma_bf16(acc[n], pl, b0, b1);  // the small part first
+                mma_bf16(acc[n], ph, b0, b1);
+            }
+        }
+    }
+
+    uint16_t* ob = out + b * osb + h * osh;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        float l = l_r[r];
+        l += __shfl_xor_sync(0xffffffffu, l, 1);
+        l += __shfl_xor_sync(0xffffffffu, l, 2);
+        const float inv = 1.f / fmaxf(l, 1e-30f);
+        const int row = qw0 + g + 8 * r;
+        if (row >= lq) continue;
+#pragma unroll
+        for (int n = 0; n < C::ND; ++n) {
+            const int col = 8 * n + 2 * t;
+            if (col >= d) continue;
+            uint16_t* o = ob + row * osl + col;
+            const uint16_t x0 = bf16_bits(acc[n][2 * r] * inv), x1 = bf16_bits(acc[n][2 * r + 1] * inv);
+            if (ovec) {
+                *reinterpret_cast<uint32_t*>(o) = x0 | (static_cast<uint32_t>(x1) << 16);
+            } else {
+                o[0] = x0;
+                if (col + 1 < d) o[1] = x1;
+            }
+        }
+    }
+}
+
+template <int NJ>
+cudaError_t launch_bf16(const uint16_t* q, const uint16_t* k, const uint16_t* v, uint16_t* out,
+                        int b, int hq, int hk, int lq, int lk, int d,
+                        long long qsb, long long qsh, long long qsl,
+                        long long ksb, long long ksh, long long ksl,
+                        long long vsb, long long vsh, long long vsl,
+                        long long osb, long long osh, long long osl,
+                        float scale, int causal, int window, int qoff, cudaStream_t stream)
+{
+    // 16-byte K/V loads where rows are whole uint4s (8 bf16): D, the strides
+    // and the bases all multiples of them; 4-byte stores of out likewise
+    const int kvvec = d % 8 == 0 && aligned(k, 16) && aligned(v, 16) && (ksb | ksh | ksl | vsb | vsh | vsl) % 8 == 0;
+    const int ovec = d % 2 == 0 && aligned(out, 4) && (osb | osh | osl) % 2 == 0;
+    flash_bf16_kernel<NJ><<<dim3((lq + kB16Rows - 1) / kB16Rows, hq, b), kB16Threads, 0, stream>>>(
+        q, k, v, out, hq, hk, lq, lk, d, qsb, qsh, qsl, ksb, ksh, ksl, vsb, vsh, vsl, osb, osh, osl,
+        scale, causal, window, qoff, kvvec, ovec);
+    return cudaGetLastError();
+}
+
+}  // namespace
+
+// q (B, Hq, Lq, D), k and v (B, Hk, Lk, D), out (B, Hq, Lq, D): bf16 (their
+// bits as uint16), unit stride along D, element strides for b, h, l; window
+// <= 0: no window; qoff: the position of query row 0 (qoff + Lq <= Lk when
+// causal or windowed). No scratch and no work list.
+extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v, void* out,
+                                    int b, int hq, int hk, int lq, int lk, int d,
+                                    long long qsb, long long qsh, long long qsl,
+                                    long long ksb, long long ksh, long long ksl,
+                                    long long vsb, long long vsh, long long vsl,
+                                    long long osb, long long osh, long long osl,
+                                    float scale, int causal, int window, int qoff, cudaStream_t stream)
+{
+    if (bad_shape(b, hq, hk, lq, lk, d) || qoff < 0 || ((causal || window > 0) && static_cast<long long>(qoff) + lq > lk))
+        return static_cast<int>(cudaErrorInvalidValue);
+    const uint16_t *q16 = static_cast<const uint16_t*>(q), *k16 = static_cast<const uint16_t*>(k),
+                   *v16 = static_cast<const uint16_t*>(v);
+    uint16_t* o16 = static_cast<uint16_t*>(out);
+#define REPRO_FLASH_BF16_CASE(NJ)                                                                          \
+    case NJ:                                                                                               \
+        return static_cast<int>(launch_bf16<NJ>(q16, k16, v16, o16, b, hq, hk, lq, lk, d, qsb, qsh, qsl, ksb, \
+                                                ksh, ksl, vsb, vsh, vsl, osb, osh, osl, scale, causal, window, \
+                                                qoff, stream));
+    switch ((d + 15) / 16) {
+        REPRO_FLASH_BF16_CASE(1)
+        REPRO_FLASH_BF16_CASE(2)
+        REPRO_FLASH_BF16_CASE(3)
+        REPRO_FLASH_BF16_CASE(4)
+        REPRO_FLASH_BF16_CASE(5)
+        REPRO_FLASH_BF16_CASE(6)
+        REPRO_FLASH_BF16_CASE(7)
+        REPRO_FLASH_BF16_CASE(8)
+    }
+#undef REPRO_FLASH_BF16_CASE
+    return static_cast<int>(cudaErrorInvalidValue);
 }

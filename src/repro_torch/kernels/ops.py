@@ -3,9 +3,15 @@
 The device decides the path: tensors on the CPU go to the plain PyTorch
 version in ``ref``; tensors on one CUDA device go to the kernel, and
 anything the kernel does not take raises. There is no fallback from the
-kernel to the plain version. Each wrapper counts its kernel launches in a
-plain int attribute, ``<wrapper>.launches``, so a run can show that its
-main path went through the kernels (``reset_launch_counts`` zeroes them).
+kernel to the plain version. The kernels take float32; flash attention
+also takes bfloat16, through a kernel of its own (never a cast to the
+float32 one). The bf16 halves of the MU, pairwise and silhouette kernels,
+and float16 anywhere, are queued (ROADMAP Queue 2): those raise. Each
+wrapper counts its kernel launches in a plain int attribute,
+``<wrapper>.launches`` (flash attention's bf16 kernel in
+``flash_attention.bf16_launches``, reported as ``flash_attention[bf16]``),
+so a run can show that its main path went through the kernels
+(``reset_launch_counts`` zeroes them).
 
 Unlike the TPU wrappers, nothing is padded here: the kernels mask ragged
 edges themselves.
@@ -43,19 +49,29 @@ MAX_GRID_YZ = 65535  # grid limit on heads and batch (flash_attention.cu's split
 _count_lock = threading.Lock()
 
 
-def _on_card(*tensors: torch.Tensor, contiguous: bool = True) -> bool:
+FLASH_BF16 = "flash_attention[bf16]"  # launch_counts' name of the bf16 flash kernel
+QUEUED = "queued in ROADMAP Queue 2"
+
+
+def _on_card(*tensors: torch.Tensor, kernels: str, contiguous: bool = True, bf16: bool = False) -> bool:
     """False for all-CPU tensors (plain path); True for one CUDA device after
-    checking what the kernels take (float32; contiguous, or with
-    ``contiguous=False`` unit stride along the last axis); raises for
-    anything else."""
+    checking what ``kernels`` take (float32, or with ``bf16`` float32 or
+    bfloat16, all of one dtype; contiguous, or with ``contiguous=False``
+    unit stride along the last axis); raises for anything else."""
     devices = {t.device for t in tensors}
     if all(d.type == "cpu" for d in devices):
         return False
     if len(devices) != 1 or next(iter(devices)).type != "cuda":
         raise ValueError(f"tensors must all lie on the CPU or all on one CUDA device, got {devices}")
+    dtypes = {t.dtype for t in tensors}
+    takes = (torch.float32, torch.bfloat16) if bf16 else (torch.float32,)
+    if len(dtypes) != 1 or next(iter(dtypes)) not in takes:
+        got = sorted(str(d) for d in dtypes)
+        if bf16:
+            raise TypeError(f"{kernels} take float32 or bfloat16 tensors of one dtype, got {got}; "
+                            f"float16 is {QUEUED}")
+        raise TypeError(f"{kernels} take float32 tensors, got {got}; their bf16 half is {QUEUED}")
     for t in tensors:
-        if t.dtype != torch.float32:
-            raise TypeError(f"the CUDA kernels take float32 tensors, got {t.dtype}")
         if contiguous and not t.is_contiguous():
             raise ValueError("the CUDA kernels take contiguous tensors")
         if not contiguous and t.shape[-1] > 1 and t.stride(-1) != 1:
@@ -68,9 +84,9 @@ def _check(rc: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")
 
 
-def _count(wrapper) -> None:
+def _count(wrapper, attr: str = "launches") -> None:
     with _count_lock:
-        wrapper.launches += 1
+        setattr(wrapper, attr, getattr(wrapper, attr) + 1)
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -247,7 +263,7 @@ def _mu_launch(name: str, update: str, v3, a, b, gram, out) -> None:
 
 def mu_update_h(v: torch.Tensor, w: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     """H <- H * (W^T V) / (G H + 1e-9), G = W^T W; v (L, n, m) or (n, m)."""
-    if not _on_card(v, w, h):
+    if not _on_card(v, w, h, kernels="the MU kernels"):
         return ref.mu_update_h(v, w, h)
     was_2d, (v3, w3, h3) = _lead3(v, w, h)
     _mu_shapes(v3, w3, h3)
@@ -260,7 +276,7 @@ def mu_update_h(v: torch.Tensor, w: torch.Tensor, h: torch.Tensor) -> torch.Tens
 
 def mu_update_w(v: torch.Tensor, w: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     """W <- W * (V H^T) / (W Q + 1e-9), Q = H H^T; v (L, n, m) or (n, m)."""
-    if not _on_card(v, w, h):
+    if not _on_card(v, w, h, kernels="the MU kernels"):
         return ref.mu_update_w(v, w, h)
     was_2d, (v3, w3, h3) = _lead3(v, w, h)
     _mu_shapes(v3, w3, h3)
@@ -298,7 +314,7 @@ def silhouette_dist_sums(
 ) -> torch.Tensor:
     """(n, k) sums ``sqrt(pairwise(x, y)) @ onehot``; x (n, d), y (m, d) (default x), onehot (m, k)."""
     y = x if y is None else y
-    if not _on_card(x, y, onehot):
+    if not _on_card(x, y, onehot, kernels="the silhouette kernels"):
         return ref.silhouette_dist_sums(x, onehot, y)
     if not x.dim() == y.dim() == onehot.dim() == 2:
         raise ValueError("silhouette_dist_sums takes 2-D operands; use the _batched entry for 3-D")
@@ -312,7 +328,7 @@ def silhouette_dist_sums_batched(
 ) -> torch.Tensor:
     """Leading-lane form: x (b, n, d), y (b, m, d) (default x), onehot (b, m, k) -> (b, n, k)."""
     y = x if y is None else y
-    if not _on_card(x, y, onehot):
+    if not _on_card(x, y, onehot, kernels="the silhouette kernels"):
         return ref.silhouette_dist_sums(x, onehot, y)
     if not x.dim() == y.dim() == onehot.dim() == 3:
         raise ValueError("silhouette_dist_sums_batched takes 3-D operands")
@@ -345,7 +361,7 @@ def _pairwise_launch(x: torch.Tensor, y: torch.Tensor, lanes: int) -> torch.Tens
 def pairwise_sq_dists(x: torch.Tensor, y: torch.Tensor | None = None) -> torch.Tensor:
     """(n, m) ``max(|x_i|^2 + |y_j|^2 - 2 x_i.y_j, 0)``; x (n, d), y (m, d) (default x)."""
     y = x if y is None else y
-    if not _on_card(x, y):
+    if not _on_card(x, y, kernels="the pairwise kernels"):
         return ref.pairwise_sq_dists(x, y)
     if not x.dim() == y.dim() == 2:
         raise ValueError("pairwise_sq_dists takes 2-D operands; use the _batched entry for 3-D")
@@ -361,7 +377,7 @@ def pairwise_sq_dists_batched(x: torch.Tensor, y: torch.Tensor | None = None) ->
     read once, never copied per lane.
     """
     y = x if y is None else y
-    if not _on_card(x, y):
+    if not _on_card(x, y, kernels="the pairwise kernels"):
         return ref.pairwise_sq_dists(x, y)
     dims = (x.dim(), y.dim())
     if dims not in ((3, 3), (2, 3), (3, 2)) or (dims == (3, 3) and x.shape[0] != y.shape[0]):
@@ -457,6 +473,18 @@ def _flash_launch(q, k, v, out, scale: float, causal: bool, window: int | None, 
     _check(rc, "flash_attention")
 
 
+def _flash_bf16_launch(q, k, v, out, scale: float, causal: bool, window: int | None, q_offset: int = 0) -> None:
+    """Launch the bf16 kernel (``flash_attention_bf16``): no scratch, no work list."""
+    b, hq, lq, d = q.shape
+    _, hk, lk, _ = k.shape
+    strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
+    rc = build.load("flash_attention").flash_attention_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq, hk, lq, lk, d, *strides, scale,
+        int(causal), window or 0, q_offset, _stream(q),
+    )
+    _check(rc, "flash_attention_bf16")
+
+
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -476,8 +504,11 @@ def flash_attention(
     (``ref.query_offset``; 0 by default otherwise): at 0 and Lq == Lk the TPU
     kernel's case, at r·L/m one rank's query block of a sequence-parallel
     prefill against the whole sequence's keys. On the card the operands may be strided views (unit stride along
-    D); the output has q's layout. The kernel has no backward, so on the card
-    it raises when grad mode is on and an operand requires grad.
+    D); the output has q's layout and dtype. q, k and v are float32 (the
+    split-TF32 kernel) or bfloat16 (the bf16 kernel: fp32 scores, softmax
+    and sums, bf16 out, as the TPU kernel's bf16 half), all of one dtype;
+    float16 raises. The kernels have no backward, so on the card the
+    wrapper raises when grad mode is on and an operand requires grad.
     """
     if not q.dim() == k.dim() == v.dim() == 4:
         raise ValueError("flash_attention takes 4-D (B, H, L, D) operands")
@@ -495,7 +526,7 @@ def flash_attention(
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
     scale = float(scale if scale is not None else d**-0.5)
-    if not _on_card(q, k, v, contiguous=False):
+    if not _on_card(q, k, v, contiguous=False, kernels="the flash-attention kernels", bf16=True):
         return ref.attention(q, k, v, causal=causal, window=window, scale=scale, q_offset=q_offset)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise RuntimeError(
@@ -508,8 +539,12 @@ def flash_attention(
     if min(b, lq, lk) < 1 or max(b, hq) > MAX_GRID_YZ:
         raise ValueError(f"the flash-attention kernel takes 1 <= B, Hq <= {MAX_GRID_YZ} and non-empty L")
     out = torch.empty_like(q)  # q's layout when q is dense (a transposed view included)
-    _flash_launch(q, k, v, out, scale, causal, window, q_offset)
-    _count(flash_attention)
+    if q.dtype == torch.bfloat16:
+        _flash_bf16_launch(q, k, v, out, scale, causal, window, q_offset)
+        _count(flash_attention, "bf16_launches")
+    else:
+        _flash_launch(q, k, v, out, scale, causal, window, q_offset)
+        _count(flash_attention)
     return out
 
 
@@ -517,16 +552,20 @@ KERNEL_WRAPPERS = (
     mu_update_h, mu_update_w, silhouette_dist_sums, silhouette_dist_sums_batched,
     pairwise_sq_dists, pairwise_sq_dists_batched, flash_attention,
 )
-for _wrapper in KERNEL_WRAPPERS:
-    _wrapper.launches = 0
 
 
 def reset_launch_counts() -> None:
     with _count_lock:
         for wrapper in KERNEL_WRAPPERS:
             wrapper.launches = 0
+        flash_attention.bf16_launches = 0
+
+
+reset_launch_counts()
 
 
 def launch_counts() -> dict[str, int]:
+    """{wrapper name: launches}, and the bf16 flash kernel's under ``FLASH_BF16``."""
     with _count_lock:
-        return {wrapper.__name__: wrapper.launches for wrapper in KERNEL_WRAPPERS}
+        return {**{wrapper.__name__: wrapper.launches for wrapper in KERNEL_WRAPPERS},
+                FLASH_BF16: flash_attention.bf16_launches}

@@ -149,7 +149,8 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int | Non
             q_offset: int = 0) -> torch.Tensor:
     """Causal (windowed) attention of (B, Lq, H, hd) q, its row i at position
     ``q_offset + i``, over (B, Lk, Hk, hd) k, v: the flash kernel on the
-    card, the plain ``_sdpa_auto`` on the CPU."""
+    card, at the model's dtype (float32, or bfloat16 with fp32 softmax and
+    sums), the plain ``_sdpa_auto`` on the CPU."""
     if not q.is_cuda:
         return _sdpa_auto(q, k, v, causal=True, window=window, q_offset=q_offset)
     # the kernel takes (B, H, L, D) with any b/h/l strides: these are views,

@@ -21,21 +21,22 @@ an FSDP leaf's (summed over the data ranks by its gather's
 reduce-scatter) over the pod ranks, and every gradient is divided by
 ``dp``. ZeRO-1 moments (``TrainConfig.zero1``) keep a rank's slices of
 each moment (``optimizer.zero1_layout``; build the state with
-``init_state``). ``int8`` compression runs on the whole leaf, as the
-reference's blocks of 256 run over the whole leaf's order
-(``compress_grads``). ``state_placement`` tells the checkpointer how the
+``init_state``). ``int8`` compression runs on the reference's whole
+leaf, a segment's repeats stacked, as its blocks of 256 run over that
+leaf's whole order (``compress_grads``). ``state_placement`` tells the checkpointer how the
 ``(params, opt_state)`` tree lies on the mesh.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable
 
 import torch
 import torch.distributed as dist
 from torch import nn
 
-from repro_torch.models.layers import P
+from repro_torch.models.layers import P, block_count
 from repro_torch.models.transformer import Model
 from .compression import BLOCK, compress_tree, int8_roundtrip
 from .optimizer import AdamWConfig, OptState, Zero1Slice, adamw_update, init_opt_state, zero1_layout
@@ -160,26 +161,55 @@ def accumulate_grads(
     return loss, dict(zip(names, grads))
 
 
+def _leaf_runs(names) -> list[list[str]]:
+    """The names grouped by the reference's leaves: the repeats of a
+    segment's leaf (``seg{i}.{r}.rest``) in repeat order, the reference's
+    one stacked ``(R, ...)`` leaf; any other name alone."""
+    runs: dict[str, list[tuple[int, str]]] = {}
+    for name in names:
+        parts = name.split(".")
+        stacked = parts[0].startswith("seg")
+        key = ".".join([parts[0], *parts[2:]]) if stacked else name
+        runs.setdefault(key, []).append((int(parts[1]) if stacked else 0, name))
+    return [[name for _, name in sorted(run)] for run in runs.values()]
+
+
 def compress_grads(model: Model, grads: dict[str, torch.Tensor], mode: str) -> dict[str, torch.Tensor]:
-    """``compress_tree`` of a rank's gradients. On a mesh ``int8`` quantizes
-    each leaf in the 256-element blocks of its whole flattened order, as the
-    reference's ``compress_tree`` does the global leaf: a cut leaf is joined
-    over its cut axes, compressed whole and cut back to the rank's block,
-    unless the block is one run of the whole leaf's order (cut on its first
-    dimension alone) of a multiple of 256 elements, whose blocks are then
-    the whole leaf's, and which is compressed where it lies. A leaf whole on
-    the rank compresses as on one card."""
-    sh = model.sh
-    if sh is None or mode != "int8":
+    """``compress_tree`` of a rank's gradients, in the reference's tree.
+    ``int8`` quantizes each of the reference's leaves in the 256-element
+    blocks of its whole flattened order, as ``compress_tree`` does. A
+    segment's leaf is its R repeats stacked: where a repeat's whole tensor
+    holds a multiple of 256 elements every block lies in one repeat, and
+    each repeat is compressed as an unstacked leaf is; else blocks straddle
+    repeats, and the run of the R tensors (on a mesh each cut one first
+    joined over its cut axes) is concatenated in repeat order, compressed
+    and cut back to the rank's tensors. A leaf's tensor (one repeat, or an
+    unstacked leaf) is compressed where it lies when it is whole on the
+    rank, or cut on its first dimension alone into blocks of a multiple of
+    256 elements (a run of the whole order whose blocks are the whole
+    leaf's); else it is joined, compressed whole and cut back."""
+    if mode != "int8":
         return compress_tree(grads, mode)
-    specs, out = model.leaf_specs(), {}
-    for name, g in grads.items():
-        cut = sh.cut_axes(specs[name])
-        aligned = all(e is None for e in specs[name][1:]) and g.numel() % BLOCK == 0
-        if not cut or aligned:
-            out[name] = int8_roundtrip(g)
-        else:
-            out[name] = model.cut_leaf(name, int8_roundtrip(model.join_leaf(name, g))).clone()
+    sh = model.sh
+    specs = model.leaf_specs() if sh is not None else {}
+    out = {}
+    for run in _leaf_runs(grads):
+        cut = [sh is not None and bool(sh.cut_axes(specs[name])) for name in run]
+        blocks = math.prod(block_count(e, sh.sizes) for e in specs[run[0]]) if sh is not None else 1
+        whole = grads[run[0]].numel() * blocks  # the elements of one repeat's whole tensor
+        if len(run) > 1 and whole % BLOCK:
+            wholes = [model.join_leaf(name, grads[name]) if c else grads[name] for name, c in zip(run, cut)]
+            flat = int8_roundtrip(torch.cat([w.reshape(-1) for w in wholes]))
+            for name, c, part in zip(run, cut, flat.split(whole)):
+                part = part.view(wholes[0].shape)
+                out[name] = model.cut_leaf(name, part).clone() if c else part
+            continue
+        for name, c in zip(run, cut):
+            g = grads[name]
+            if not c or (g.numel() % BLOCK == 0 and all(e is None for e in specs[name][1:])):
+                out[name] = int8_roundtrip(g)
+            else:
+                out[name] = model.cut_leaf(name, int8_roundtrip(model.join_leaf(name, g))).clone()
     return out
 
 

@@ -531,12 +531,55 @@ def test_flash_kernel_takes_the_models_strided_views():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,hq,hk,lq,lk,d,causal,window,q_offset", [
+    (2, 14, 2, 77, 77, 64, True, None, 0),    # qwen2's heads, ragged
+    (1, 8, 2, 130, 130, 128, True, None, 0),  # D 128
+    (1, 4, 1, 100, 300, 80, True, 50, 200),   # D 80, window, query offset
+    (2, 6, 3, 70, 45, 17, False, None, 0),    # ragged D, non-causal
+])
+def test_flash_bf16_kernel_matches_plain(b, hq, hk, lq, lk, d, causal, window, q_offset):
+    """The bf16 kernel against the plain version (fp32 scores, softmax and
+    sums, bf16 out) at the reference's bf16 tolerance; its error from the
+    float64 plain version at most twice the plain version's; a repeat gives
+    the same bits; the fp32 kernel is not launched."""
+    dev = card()
+    gen = torch.Generator(device=dev).manual_seed(d)
+    q = torch.randn((b, hq, lq, d), device=dev, generator=gen).bfloat16()
+    k = torch.randn((b, hk, lk, d), device=dev, generator=gen).bfloat16()
+    v = torch.randn((b, hk, lk, d), device=dev, generator=gen).bfloat16()
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    ops.reset_launch_counts()
+    got = ops.flash_attention(q, k, v, **kw)
+    assert ops.launch_counts()[ops.FLASH_BF16] == 1 and ops.flash_attention.launches == 0
+    assert got.dtype == torch.bfloat16
+    plain = ref.attention(q, k, v, **kw)
+    torch.testing.assert_close(got.float(), plain.float(), rtol=3e-2, atol=3e-2)
+    want = ref.attention(q.double(), k.double(), v.double(), **kw)
+    assert (got.double() - want).abs().max() <= 2 * (plain.double() - want).abs().max()
+    assert torch.equal(got, ops.flash_attention(q, k, v, **kw))
+
+
+@pytest.mark.cuda
+def test_bf16_halves_of_mu_pairwise_and_silhouette_are_queued():
+    dev = card()
+    x = torch.ones((8, 4), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="bf16 half is queued"):
+        ops.mu_update_h(x, x, x.T.contiguous()[:4, :4].contiguous())
+    with pytest.raises(TypeError, match="bf16 half is queued"):
+        ops.pairwise_sq_dists(x)
+    with pytest.raises(TypeError, match="bf16 half is queued"):
+        ops.silhouette_dist_sums(x, torch.ones((8, 2), device=dev, dtype=torch.bfloat16))
+
+
+@pytest.mark.cuda
 def test_flash_wrapper_refuses_what_the_kernel_does_not_take():
     dev = card()
     q = torch.ones((1, 4, 16, 32), device=dev)
     k = torch.ones((1, 2, 16, 32), device=dev)
-    with pytest.raises(TypeError, match="float32"):
-        ops.flash_attention(q.bfloat16(), k.bfloat16(), k.bfloat16())
+    with pytest.raises(TypeError, match="float16 is queued"):
+        ops.flash_attention(q.half(), k.half(), k.half())
+    with pytest.raises(TypeError, match="of one dtype"):
+        ops.flash_attention(q.bfloat16(), k, k)
     with pytest.raises(ValueError, match="unit stride"):
         ops.flash_attention(q.transpose(2, 3), k.transpose(2, 3), k.transpose(2, 3), causal=False)
     with pytest.raises(ValueError, match=r"Lq \+ q_offset <= Lk"):

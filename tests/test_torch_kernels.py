@@ -156,9 +156,10 @@ def test_plain_path_launches_no_kernel():
     ops.pairwise_sq_dists(w)
     ops.pairwise_sq_dists_batched(w, h[None].transpose(1, 2).contiguous())
     ops.flash_attention(v[None, None], v[None, None], v[None, None], causal=False)
+    ops.flash_attention(*(v[None, None].bfloat16(),) * 3, causal=False)
     assert ops.launch_counts() == dict.fromkeys(
         ["mu_update_h", "mu_update_w", "silhouette_dist_sums", "silhouette_dist_sums_batched",
-         "pairwise_sq_dists", "pairwise_sq_dists_batched", "flash_attention"], 0
+         "pairwise_sq_dists", "pairwise_sq_dists_batched", "flash_attention", "flash_attention[bf16]"], 0
     )
 
 

@@ -38,7 +38,8 @@ parameters, a rank holding the elements of the reference's
 repeat axis and an uneven table), and with FSDP they raise where JAX's
 ``NamedSharding`` refuses the reference's spec; ``int8`` compression's
 joined gradients are the reference's ``compress_tree`` of the joined
-gradients, on the joined and on the aligned local path; a ``(2, 2)``
+gradients in its stacked tree, on the joined and on the aligned local
+path; a ``(2, 2)``
 checkpoint's files are the one-card ``save`` of the joined state, a
 resumed run's losses the uninterrupted run's, and it restores at ``(1,
 4)`` and on one card to the same parameters.
@@ -407,18 +408,37 @@ def test_zero1_with_fsdp_raises_as_jax_refuses_the_reference_spec(runs):
         assert "embed.table" in info["zero1/fsdp"] and str(P(*spec)) in info["zero1/fsdp"]
 
 
+def _stacked(arrays: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
+    """Whole tensors by the port's parameter names as the reference's leaves:
+    a segment's ``seg{i}.{r}.rest`` stacked over r as ``seg{i}.rest``."""
+    runs: dict[str, list] = {}
+    for name, a in arrays.items():
+        parts = name.split(".")
+        if parts[0].startswith("seg"):
+            runs.setdefault(".".join([parts[0], *parts[2:]]), []).append((int(parts[1]), a))
+        else:
+            runs[name] = a
+    return {k: np.stack([a for _, a in sorted(v, key=lambda ra: ra[0])]) if isinstance(v, list) else v
+            for k, v in runs.items()}
+
+
 @pytest.mark.parametrize("case", ["jamba", "zero1"])
 def test_int8_on_the_mesh_is_the_reference_compress_tree_of_the_joined_gradients(runs, case):
-    """At (2, 2) ``compress_grads(int8)``'s gradients, joined, are the
-    reference's ``compress_tree`` of the joined uncompressed gradients, bit
-    for bit: jamba's (FSDP, the Mamba ``in_proj``'s re-laid block) through
-    the joined path; qwen2's, FSDP off, also through the aligned local path
-    (``w_down`` and ``wo`` cut on their first dimension alone)."""
+    """At (2, 2) ``compress_grads(int8)``'s gradients, joined and stacked
+    over each segment's repeats, are the reference's ``compress_tree`` of
+    the joined uncompressed gradients in the reference's stacked tree, bit
+    for bit: jamba's (FSDP, the Mamba ``in_proj``'s re-laid block, 64-wide
+    norms whose blocks straddle repeats) through the joined path; qwen2's,
+    FSDP off, also through the aligned local path (``w_down`` and ``wo``
+    cut on their first dimension alone)."""
     for arrays, info in runs[0]["2x2"]:
-        raw = {k[len(f"int8/{case}/raw/"):]: v for k, v in arrays.items() if k.startswith(f"int8/{case}/raw/")}
+        raw = _stacked({k[len(f"int8/{case}/raw/"):]: v for k, v in arrays.items()
+                        if k.startswith(f"int8/{case}/raw/")})
+        got = _stacked({k[len(f"int8/{case}/q/"):]: v for k, v in arrays.items() if k.startswith(f"int8/{case}/q/")})
         want = jax.tree.map(np.asarray, jcomp.compress_tree({k: jnp.asarray(v) for k, v in raw.items()}, "int8"))
+        assert set(got) == set(want)
         for name, ref in want.items():
-            np.testing.assert_array_equal(arrays[f"int8/{case}/q/{name}"], ref, err_msg=name)
+            np.testing.assert_array_equal(got[name], ref, err_msg=name)
         joined, cut = set(info[f"int8/{case}/joined"]), set(info[f"int8/{case}/cut"])
         assert joined and joined <= cut
         if case == "zero1":

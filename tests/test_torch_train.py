@@ -44,7 +44,9 @@ from repro.train import compression as jcomp  # noqa: E402
 from repro.train import optimizer as jopt  # noqa: E402
 from repro.train import train_step as jstep  # noqa: E402
 from repro_torch import configs  # noqa: E402
-from repro_torch.convert import model_params_from_reference, opt_state_from_reference, reference_leaf  # noqa: E402
+from repro_torch.convert import (  # noqa: E402
+    grads_to_reference, model_params_from_reference, opt_state_from_reference, reference_leaf,
+)
 from repro_torch.data import pipeline  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.launch import train  # noqa: E402
@@ -364,7 +366,7 @@ def test_accumulated_gradients_match_one_batch(n):
     assert any(torch.linalg.norm(first[k] / n - g1[k]) > GRAD_NORM_RTOL * torch.linalg.norm(g1[k]) for k in g1)
 
 
-@pytest.mark.parametrize("microbatches,compression", [(2, "none"), (1, "bf16")])
+@pytest.mark.parametrize("microbatches,compression", [(2, "none"), (1, "bf16"), (1, "int8")])
 def test_three_steps_follow_the_reference_loss_trajectory(microbatches, compression):
     jcfg, cfg = _cfgs("qwen2-0.5b")
     kw = dict(lr=3e-3, warmup_steps=1, total_steps=10)
@@ -470,6 +472,27 @@ def test_compression_modes(mode):
     np.testing.assert_array_equal(out["a"].float().numpy(), np.asarray(want, np.float32))
     with pytest.raises(ValueError):
         comp.compress_tree(g, "fp4")
+
+
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "jamba-v0.1-52b"])
+def test_int8_compress_grads_is_the_reference_compress_tree_bit_for_bit(arch):
+    """``compress_grads(int8)`` of one card's gradients, in the reference's
+    tree, is the reference's ``compress_tree`` of that tree
+    (``grads_to_reference``) bit for bit. A segment's leaf is its repeats
+    stacked, quantized in blocks of 256 of the stacked order: the reduced
+    configs' 64-wide norms (and qwen2's q/k/v biases) share a block with
+    the next repeats', so compressing each repeat's tensor alone misses."""
+    m = _port(arch, remat="none")
+    _, grads = _loss_and_grads(m, _reference(arch)[2])
+    straddling = [n for n in grads if n.startswith("seg") and grads[n].numel() % comp.BLOCK]
+    assert straddling
+    want = _np(jcomp.compress_tree(jax.tree.map(jnp.asarray, grads_to_reference(grads, m)), "int8"))
+    got = grads_to_reference(tstep.compress_grads(m, grads, "int8"), m)
+    want_leaves, tree = jax.tree_util.tree_flatten_with_path(want)
+    got_leaves = jax.tree.leaves(got)
+    assert len(got_leaves) == len(want_leaves) and jax.tree.structure(got) == jax.tree.structure(want)
+    for (path, w), g in zip(want_leaves, got_leaves):
+        np.testing.assert_array_equal(g, w, err_msg=jax.tree_util.keystr(path))
 
 
 # -----------------------------------------------------------------------------
