@@ -37,7 +37,12 @@ Phases, each fatal on failure:
      tolerance stated, and time
      kernel, plain version, the card's bound and, where one PyTorch call
      computes the same function, that call (CUDA events, warmed up); the
-     flash kernel's cases also assert a bitwise repeat;
+     flash kernel's cases also assert a bitwise repeat; the bf16 halves
+     of the MU kernels (L 32, 8, 4 and 1 at 1000 x 1100, k 16) and of the
+     silhouette kernel (52 points in 2-D; 8 lanes and one lane of 64
+     points; d 1000) at the reference's bf16 tolerances, each kernel's
+     float64 error at most twice its plain version's, a bitwise repeat,
+     the bound from bf16 bytes;
   4. hold the batched NMFk score, the elastic NMFk plane (ks 2..8 drained
      at tol 0, with and without warm starts: scores, sweep counts and
      warm-start hits), the K-Means + Davies-Bouldin search of
@@ -84,7 +89,15 @@ Phases, each fatal on failure:
      ``nmfk_elastic_mesh``: the elastic defaults on a one-rank NCCL mesh
      (``--lanes 1``; the ``nmfk_elastic`` run's scores, sweeps and warm-start
      hits); ``nmfk_sharded``: the same search on ``--executor sharded --comm
-     sync`` (a one-rank NCCL mesh; k_optimal 8); with 4 or more cards also
+     sync`` (a one-rank NCCL mesh; k_optimal 8); ``nmfk_paper_bf16``: the
+     same search through the API on ``nmf_data(dtype=torch.bfloat16)`` on
+     the threads, batched and elastic executors: k_optimal 8 on the card
+     and on the CPU (the card's draws copied), each visited k's min and
+     mean silhouette within twice the CPU's own bf16-vs-fp32 gap (floor
+     2e-2) of the CPU's bf16 run, elastic's sweep identity, only the bf16
+     MU and silhouette kernels launched (and no bf16 kernel on the fp32
+     NMFk paths), wall, device busy share and peak memory beside the fp32
+     search's through the same API; with 4 or more cards also
      ``torchrun`` runs at 4 ranks (sharded ``--lanes 4``, then ``--lanes 2
      --data-shards 2`` sync and pipelined, and elastic ``--lanes 2
      --data-shards 2``; every rank the same result, k_optimal 8), else one
@@ -320,19 +333,30 @@ def sync_wall(torch) -> float:
     return time.perf_counter()
 
 
-def bound_ms(n_bytes: float, flops: float, flops_per_s: float = FP32_FLOPS_PER_S) -> tuple[float, str]:
+def bound_ms(n_bytes: float, flops: float, flops_per_s: float = FP32_FLOPS_PER_S,
+             fp32_flops: float = 0.0) -> tuple[float, str]:
+    """The larger of the bytes over HBM's rate and the operations over their
+    peak: ``flops`` at ``flops_per_s`` and, where a function mixes types,
+    ``fp32_flops`` beside them on the CUDA cores (the two units run at once,
+    so the slower of the two bounds)."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / flops_per_s * 1e3
+    t_ops = max(flops / flops_per_s, fp32_flops / FP32_FLOPS_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def mu_bound(update: str, lanes: int, n: int, m: int, k: int) -> tuple[float, str]:
+def mu_bound(update: str, lanes: int, n: int, m: int, k: int, elem: int = 4) -> tuple[float, str]:
     """The least time of one MU half-sweep (``update`` "h" or "w") over
-    ``lanes`` fits: V, W, H, the k x k product and the output moved once,
-    against its operations."""
-    n_bytes = 4 * lanes * (n * m + n * k + k * m + k * k + (k * m if update == "h" else n * k))
-    flops = lanes * (2 * n * m * k + (2 * k * k * m + 3 * k * m if update == "h" else 2 * n * k * k + 3 * n * k))
-    return bound_ms(n_bytes, flops)
+    ``lanes`` fits: V, W, H, the k x k product and the output moved once
+    (``elem`` bytes an element: 2 at bf16), against its operations: at fp32
+    all on the CUDA cores; at bf16 the two products (bf16 operands, fp32
+    sums: a bf16 tensor-core product) at the bf16 rate and the elementwise
+    epilogue at fp32's."""
+    n_bytes = elem * lanes * (n * m + n * k + k * m + k * k + (k * m if update == "h" else n * k))
+    products = lanes * (2 * n * m * k + (2 * k * k * m if update == "h" else 2 * n * k * k))
+    epilogue = lanes * 3 * (k * m if update == "h" else n * k)
+    if elem == 2:
+        return bound_ms(n_bytes, products, BF16_FLOPS_PER_S, fp32_flops=epilogue)
+    return bound_ms(n_bytes, products + epilogue)
 
 
 def time_ms(torch, fn, reps: int = 20) -> float:
@@ -434,6 +458,68 @@ def check_mu(torch, dev, ops, ref, records: dict, log) -> None:
             records.setdefault(name, []).append(entry)
 
 
+# the reference's bf16 tolerances (tests/test_kernels.py): MU, and pairwise's for the distance sums; each
+# bf16 kernel's error from float64 at most BF16_FP64_RATIO times its plain version's
+MU_BF16_TOL = dict(rtol=2e-2, atol=2e-2)
+SUMS_BF16_TOL = dict(rtol=5e-2, atol=5e-1)
+
+
+def fp64_gate(torch, got, plain, want64, what: str) -> dict:
+    """The kernel's float64 error against the plain version's: at most BF16_FP64_RATIO times."""
+    err, plain_err = (float((t.double() - want64).abs().max()) for t in (got, plain))
+    if not err <= BF16_FP64_RATIO * plain_err:
+        raise AssertionError(f"{what}: float64 error {err:.3e} > {BF16_FP64_RATIO} x the plain version's "
+                             f"{plain_err:.3e}")
+    return {"fp64_err": err, "plain_fp64_err": plain_err}
+
+
+def check_mu_bf16(torch, dev, ops, ref, records: dict, log) -> None:
+    """The bf16 halves of both MU wrappers against their plain versions (bf16
+    Gram, fp32 products and epilogue, one rounding) at the main path's
+    shapes: the batched wave (L 32, k_pad 16), the elastic lane batch (L 8),
+    the threads executor's fits (L 4, k 16) and one fit (L 1); at the
+    reference's bf16 tolerance, the float64 error at most twice the plain
+    version's, masked components exactly zero, two calls bitwise equal,
+    only the bf16 kernel launched; each timed with its bf16 bound."""
+    cases = [
+        ("bf16: k_pad=16, ks 9..16", 32, 16, [9 + i // 4 for i in range(32)]),
+        ("bf16 elastic: L=8, k=16, ks 9..16", 8, 16, [9 + i for i in range(8)]),
+        ("bf16 threads: L=4, k=16", 4, 16, [16] * 4),
+        ("bf16 one fit: L=1, k=16", 1, 16, [16]),
+    ]
+    n, m = 1000, 1100
+    for label, lanes, k, k_effs in cases:
+        v, w, h, k_eff = (t.bfloat16().contiguous() if t.is_floating_point() else t
+                          for t in mu_problem(torch, dev, lanes, k, k_effs, n, m))
+        dead = torch.arange(k, device=dev)[None, :] >= k_eff[:, None]
+        for wrapper, plain, out_of in ((ops.mu_update_h, ref.mu_update_h, "h"),
+                                       (ops.mu_update_w, ref.mu_update_w, "w")):
+            name = ops.bf16_name(wrapper)
+            ops.reset_launch_counts()
+            got = wrapper(v, w, h)
+            counts = ops.launch_counts()
+            if counts[name] != 1 or counts[wrapper.__name__] != 0:
+                raise AssertionError(f"{name} [{label}]: launches {counts}")
+            again, want = wrapper(v, w, h), plain(v, w, h)
+            torch.cuda.synchronize()
+            if got.dtype != torch.bfloat16:
+                raise AssertionError(f"{name} [{label}]: output dtype {got.dtype}")
+            err = compare(torch, got, want, MU_BF16_TOL["rtol"], MU_BF16_TOL["atol"], f"{name} [{label}]")
+            if not torch.equal(got, again):
+                raise AssertionError(f"{name} [{label}]: two calls differ bitwise")
+            masked = got[dead] if out_of == "h" else got.transpose(1, 2)[dead]
+            if masked.numel() and float(masked.abs().max()) != 0.0:
+                raise AssertionError(f"{name} [{label}]: masked components are not exactly zero")
+            entry = {"case": label, "shape": {"L": lanes, "n": n, "m": m, "k": k}, "max_abs_err": err,
+                     "bitwise_equal_rerun": True,
+                     **fp64_gate(torch, got, want, plain(v.double(), w.double(), h.double()), f"{name} [{label}]")}
+            b_ms, b_by = mu_bound(out_of, lanes, n, m, k, elem=2)
+            entry.update(ms=time_ms(torch, lambda: wrapper(v, w, h)), plain_ms=time_ms(torch, lambda: plain(v, w, h)),
+                         bound_ms=b_ms, bound_by=b_by)
+            log(json.dumps({"check": name, **entry}))
+            records.setdefault(name, []).append(entry)
+
+
 def pooled_columns(torch, dev, b: int, p: int, k: int, k_effs, d: int = 1000):
     """Pooled L2-normalized W columns of b lanes: p near-duplicate copies of
     k components (NMFk's normal case), labels and one-hot with masked rows."""
@@ -524,6 +610,56 @@ def check_sums(torch, dev, ops, ref, records: dict, log) -> None:
                 fill_ms=time_ms(torch, lambda: out.fill_(1.0)),  # the launch floor
             )
             entry.update(bound_share=b_ms / entry["ms"], fill_multiple=entry["ms"] / entry["fill_ms"])
+        log(json.dumps({"check": name, **entry}))
+        records.setdefault(name, []).append(entry)
+
+
+def check_sums_bf16(torch, dev, ops, ref, records: dict, log) -> None:
+    """The bf16 half of both silhouette wrappers (bf16 x, y and one-hot; fp32
+    sums) on pooled near-duplicate columns at d 1000: the threads path's 52
+    points (p 4, k 13), the batched wave (b 8, k_pad 16) and the elastic
+    plane's one lane of 64 points; a ragged d (999) and k past 128 (b 2, k
+    130). Against the plain version at the reference's bf16 distance
+    tolerance, the float64 error at most twice the plain version's, two
+    calls bitwise equal, only the bf16 kernel launched; the first three
+    timed with their bf16 bound."""
+    cases = [  # (label, b, p, k, k_effs, d, 2-D, timed)
+        ("bf16: points=52, d=1000, k=13", 1, 4, 13, [13], 1000, True, True),
+        ("bf16: b=8, points=64, d=1000, k=16", 8, 4, 16, [9, 10, 11, 12, 13, 14, 15, 16], 1000, False, True),
+        ("bf16 elastic: b=1, points=64, d=1000, k=16", 1, 4, 16, [16], 1000, False, True),
+        ("bf16 ragged d: b=8, points=64, d=999, k=16", 8, 4, 16, [16] * 8, 999, False, False),
+        ("bf16 k past 128: b=2, points=260, d=1000, k=130", 2, 2, 130, [130, 100], 1000, False, False),
+    ]
+    for label, b, p, k, k_effs, d, two_d, timed in cases:
+        x, onehot = (t.bfloat16().contiguous() for t in pooled_columns(torch, dev, b, p, k, k_effs, d))
+        wrapper, args = ops.silhouette_dist_sums_batched, (x, onehot)
+        if two_d:
+            wrapper, args = ops.silhouette_dist_sums, (x[0], onehot[0])
+        name = ops.bf16_name(wrapper)
+        ops.reset_launch_counts()
+        got = wrapper(*args)
+        counts = ops.launch_counts()
+        if counts[name] != 1 or counts[wrapper.__name__] != 0:
+            raise AssertionError(f"{name} [{label}]: launches {counts}")
+        again, want = wrapper(*args), ref.silhouette_dist_sums(*args)
+        torch.cuda.synchronize()
+        if got.dtype != torch.float32:
+            raise AssertionError(f"{name} [{label}]: output dtype {got.dtype}")
+        err = compare(torch, got, want, SUMS_BF16_TOL["rtol"], SUMS_BF16_TOL["atol"], f"{name} [{label}]")
+        if not torch.equal(got, again):
+            raise AssertionError(f"{name} [{label}]: two calls differ bitwise")
+        entry = {"case": label, "max_abs_err": err, "bitwise_equal_rerun": True,
+                 **fp64_gate(torch, got, want, ref.silhouette_dist_sums(*(a.double() for a in args)),
+                             f"{name} [{label}]")}
+        if timed:
+            n = x.shape[1]
+            n_bytes = b * (2 * n * d + 2 * n * k + 4 * n * k)  # bf16 x (= y) and one-hot read once, fp32 out
+            # x . y of bf16 operands with fp32 sums is a bf16 tensor-core product; the norms,
+            # the square root and the fp32 contraction with the one-hot run beside it in fp32
+            b_ms, b_by = bound_ms(n_bytes, b * 2 * n * n * d, BF16_FLOPS_PER_S,
+                                  fp32_flops=b * (2 * n * d + 5 * n * n + 2 * n * n * k))
+            entry.update(ms=time_ms(torch, lambda: wrapper(*args)),
+                         plain_ms=time_ms(torch, lambda: ref.silhouette_dist_sums(*args)), bound_ms=b_ms, bound_by=b_by)
         log(json.dumps({"check": name, **entry}))
         records.setdefault(name, []).append(entry)
 
@@ -821,7 +957,15 @@ def run_search(torch, ops, ksearch, executor: str, log, extra: tuple[str, ...] =
     for name in ("mu_update_h", "mu_update_w", sums):
         if counts[name] < 1:
             raise AssertionError(f"{label}: kernel {name} was never launched on the main path")
+    no_bf16_launch(counts, label)
     return counts
+
+
+def no_bf16_launch(counts: dict[str, int], label: str) -> None:
+    """A float32 path launches no bf16 kernel."""
+    stray = {name: c for name, c in counts.items() if name.endswith("[bf16]") and c}
+    if stray:
+        raise AssertionError(f"{label}: a float32 path launched bf16 kernels {stray}")
 
 
 MULTI_RANK_MESHES = {
@@ -946,6 +1090,7 @@ def run_elastic_search(torch, dev, ops, ksearch, label: str, extra: list[str], l
     for name in ("mu_update_h", "mu_update_w", "silhouette_dist_sums_batched"):
         if counts[name] < 1:
             raise AssertionError(f"{label}: kernel {name} was never launched on the main path")
+    no_bf16_launch(counts, label)
     if same_as is not None:
         agree = ("visited", "scores", "sweeps_run", "sweeps_saved", "warm_start_hits")
         if any(out[key] != same_as[key] for key in agree):
@@ -1177,7 +1322,375 @@ def run_distributed_fit_search(torch, ops, ksearch, log) -> dict[str, int]:
     # each scored k: the distributed fit's W-update beside each NMFk sweep's H and W
     if counts["mu_update_h"] < 1 or counts["mu_update_w"] != 2 * counts["mu_update_h"]:
         raise AssertionError(f"nmfk_distributed_fit: MU launches {counts}, want W twice H")
+    no_bf16_launch(counts, "nmfk_distributed_fit")
     return counts
+
+
+# nmfk_paper_bf16: nmfk_paper's search (V 1000 x 1100, k_true 8, k 2..16, 4
+# perturbations, 120 sweeps, threshold 0.9, the launcher's executor
+# settings) through the API on nmf_data(dtype=torch.bfloat16), no flag (the
+# reference's launcher has no dtype either). Each visited k's min and mean
+# silhouette on the card within BF16_GAP_RATIO times the CPU port's own
+# bf16-vs-fp32 gap at that k, at least BF16_SIL_FLOOR, of the CPU's bf16
+# run of the same draws: 120 sweeps compound a one-ulp bf16 flip, so the
+# fp32 tolerances do not apply.
+NMFK_PAPER = dict(n=1000, m=1100, k_true=8, k_range=(2, 16), n_perturbs=4, nmf_iters=120, epsilon=0.015,
+                  threshold=0.9, workers=4)
+BF16_SIL_FLOOR = 2e-2
+NMFK_BF16_EXECUTORS = ("threads", "batched", "elastic")
+
+
+def nmfk_api_search(v, executor: str, draws=None, gate=None):
+    """nmfk_paper's search on V through the API, with the launcher's settings
+    (4 workers; k_pad 16; elastic: tol 1e-3, chunks of 25, warm starts), at
+    V's dtype; returns (result, plane or None). ``gate`` (elastic) wraps the
+    plane's tol gate (``RetireLog``)."""
+    from repro_torch.core import binary_bleed_search
+    from repro_torch.factorization.nmfk import make_nmfk_evaluator
+    from repro_torch.factorization.planes import NMFkBatchPlane, NMFkElasticPlane
+
+    c = NMFK_PAPER
+    kw = dict(n_perturbs=c["n_perturbs"], nmf_iters=c["nmf_iters"], epsilon=c["epsilon"], draws=draws)
+    search = dict(k_range=c["k_range"], select_threshold=c["threshold"])
+    if executor == "threads":
+        return binary_bleed_search(make_nmfk_evaluator(v, 0, **kw), num_resources=c["workers"], **search), None
+    k_pad = c["k_range"][1]
+    plane = (NMFkBatchPlane if executor == "batched" else NMFkElasticPlane)(v, 0, k_pad=k_pad, **kw)
+    if gate is not None:
+        plane._converged = gate(plane._converged)
+    return binary_bleed_search(plane, executor=executor, **search), plane
+
+
+def keep_scores(nmfk, scores: dict):
+    """Wrap ``nmfk.nmfk_score`` (the threads executor's scorer) and
+    ``nmfk._pooled_w_score`` (the batched and elastic planes') so that each
+    scored k's whole NMFkScore lands in ``scores``; returns the undo. A
+    padded wave repeats its first k: a k's first lane is kept."""
+    saved = nmfk.nmfk_score, nmfk._pooled_w_score
+
+    def one(v, k, draws, nmf_iters=150):
+        scores[int(k)] = sc = saved[0](v, k, draws, nmf_iters)
+        return sc
+
+    def pooled(w_all, errs, k_eff, k_pad):
+        sc, lanes = saved[1](w_all, errs, k_eff, k_pad), {}
+        for i, k in enumerate(k_eff.tolist()):
+            lanes.setdefault(k, type(sc)(*(field[i] for field in sc)))
+        scores.update(lanes)
+        return sc
+
+    nmfk.nmfk_score, nmfk._pooled_w_score = one, pooled
+
+    def undo():
+        nmfk.nmfk_score, nmfk._pooled_w_score = saved
+    return undo
+
+
+def scored_search(v, executor: str, draws=None, gate=None) -> tuple:
+    """``nmfk_api_search`` with every scored k's NMFkScore kept; returns
+    (result, {k: NMFkScore}, plane or None)."""
+    from repro_torch.factorization import nmfk
+
+    scores = {}
+    undo = keep_scores(nmfk, scores)
+    try:
+        res, plane = nmfk_api_search(v, executor, draws, gate)
+    finally:
+        undo()
+    return res, scores, plane
+
+
+class AlignLog:
+    """NMFk's greedy column alignment (``nmfk._align_columns`` and
+    ``_align_columns_masked``), recorded on the card and replayed on the
+    CPU, per k. The greedy takes the largest cosine similarity of bf16
+    columns, rounded to bf16 (the reference's arithmetic): where two
+    pairings are within an ulp of each other, the card's and the CPU's
+    products pick differently, later picks follow the first, and the
+    silhouette of an overfit k moves by up to 0.2. So the CPU runs take the
+    card's labels, as the bf16 LM checks take the card's MoE routes, and
+    where the CPU's own labels differ, the CPU's greedy must have left the
+    card's assignment at a near-tie: at its first pick outside it (the
+    split), the CPU's similarity of that pick exceeds the best pairing of
+    the card's still open by at most ``ALIGN_TIE_ULPS`` bf16 ulps. The
+    picks after the split choose among other open rows and columns on the
+    two devices, so their margins (the cascade, logged, not gated) measure
+    the split's consequences, not a tie."""
+
+    ALIGN_TIE_ULPS = 4
+
+    def __init__(self):
+        self.labels: dict[int, object] = {}
+        self.flips: list[dict] = []
+
+    def patch(self, torch, nmfk, mode: str):
+        """Wrap both alignments in ``nmfk`` (``mode`` record or replay); returns the undo."""
+        saved = nmfk._align_columns, nmfk._align_columns_masked
+        nmfk._align_columns = self._wrap(torch, saved[0], mode, masked=False)
+        nmfk._align_columns_masked = self._wrap(torch, saved[1], mode, masked=True)
+
+        def undo():
+            nmfk._align_columns, nmfk._align_columns_masked = saved
+        return undo
+
+    @staticmethod
+    def split_margin(sim, card: list[int]) -> tuple[float, float] | None:
+        """Run the greedy on one (k, k) similarity matrix (a list of rows).
+        A pick (i, j) with card[j] != i has the margin sim[i][j] minus the
+        best card pairing still open, in bf16 ulps at sim[i][j]. Returns
+        (the first such margin, the largest |margin| of the picks after it,
+        0 if none); None where the greedy gives the card's assignment."""
+        k = len(card)
+        rows, cols = set(range(k)), set(range(k))
+        split, cascade = None, 0.0
+        for _ in range(k):
+            open_pairs = [(r, c) for r in sorted(rows) for c in sorted(cols)]
+            i, j = max(open_pairs, key=lambda rc: (sim[rc[0]][rc[1]], -rc[0] * k - rc[1]))  # ties: first flat index
+            best = [sim[card[c]][c] for c in cols if card[c] in rows]
+            if card[j] != i and best:  # at the split every card pairing is still open
+                ulps = (sim[i][j] - max(best)) / bf16_ulp(sim[i][j])
+                split, cascade = (ulps, cascade) if split is None else (split, max(cascade, abs(ulps)))
+            rows.discard(i)
+            cols.discard(j)
+        return None if split is None else (split, cascade)
+
+    def _wrap(self, torch, align, mode: str, masked: bool):
+        def wrapped(w_all, k_eff=None):
+            own = align(w_all, k_eff) if masked else align(w_all)
+            lanes = w_all if masked else w_all[None]  # (B, p, n, k_pad)
+            ks = k_eff.tolist() if masked else [w_all.shape[-1]]
+            rows = own if masked else own[None]  # (B, p * k_pad)
+            if mode == "record":
+                self.labels.update((k, row.cpu()) for k, row in zip(ks, rows))
+                return own
+            # a k the card never aligned (the threads executor's visits race) keeps the CPU's labels
+            card = torch.stack([self.labels.get(k, row.cpu()) for k, row in zip(ks, rows)]).to(rows.device)
+            if not torch.equal(card, rows):
+                p, k_pad = lanes.shape[1], lanes.shape[-1]
+                sim = (lanes[:, :1].transpose(-1, -2) @ lanes).float()  # (B, p, k_ref, k_cols): the greedy's input
+                for i, k in enumerate(ks):
+                    if torch.equal(card[i], rows[i]):
+                        continue
+                    splits = [self.split_margin(sim[i, q, :k, :k].tolist(), card[i].view(p, k_pad)[q, :k].tolist())
+                              for q in range(p)]
+                    splits = [sp for sp in splits if sp is not None] or [(0.0, 0.0)]
+                    ulps = max(sp[0] for sp in splits)
+                    self.flips.append({"k": k, "labels_differ": int((card[i] != rows[i]).sum()), "margin_ulps": ulps,
+                                       "cascade_ulps": max(sp[1] for sp in splits),
+                                       "near_tie": ulps <= self.ALIGN_TIE_ULPS})
+            return card if masked else card[0]
+        return wrapped
+
+
+def bf16_ulp(x: float) -> float:
+    """The spacing of bf16 values at x (8 significant bits)."""
+    return 2.0 ** (math.floor(math.log2(abs(x))) - 7) if x else 2.0**-133
+
+
+class RetireLog:
+    """The elastic plane's tol gate, recorded on the card and replayed on the
+    CPU. A lane retires when its bf16 rel_error improved by less than tol
+    over a chunk; a one-ulp difference of that error between the card and
+    the CPU can flip the decision, and a flipped retirement changes the
+    sweeps, the warm-start sources and the scores of the ks after it. So the
+    CPU runs take the card's decisions (``replay``), as the bf16 LM checks
+    take the card's MoE routes, and a decision the CPU would have taken
+    otherwise is allowed only at a near-tie: the CPU's margin |prev - err -
+    tol| within ``RETIRE_TIE_ULPS`` bf16 ulps of err."""
+
+    RETIRE_TIE_ULPS = 4
+
+    def __init__(self, tol: float):
+        self.tol = tol
+        self.decisions: dict[tuple[int, int, int], bool] = {}
+        self.flips: list[dict] = []
+
+    def record(self, converged):
+        def gate(lane, err):
+            self.decisions[(lane.k, lane.p, lane.done)] = decided = converged(lane, err)
+            return decided
+        return gate
+
+    def replay(self, converged):
+        def gate(lane, err):
+            own, key = converged(lane, err), (lane.k, lane.p, lane.done)
+            if key not in self.decisions:  # a lane the card's run never reached keeps the CPU's decision
+                return own
+            if own != self.decisions[key]:
+                margin = lane.prev_err - err - self.tol
+                self.flips.append({"lane": key, "cpu_margin": margin, "ulp": bf16_ulp(err),
+                                   "near_tie": abs(margin) <= self.RETIRE_TIE_ULPS * bf16_ulp(err)})
+            return self.decisions[key]
+        return gate
+
+
+def busy_share(torch, fn) -> tuple[float, float]:
+    """(device busy share, wall s) of fn() under torch.profiler: the device
+    events' own time (kernels, copies, fills) over the host-clock wall."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy_us = 0.0
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CPU:
+            busy_us += getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
+    return busy_us / 1e6 / wall, wall
+
+
+def cpu_nmfk_bf16(torch, executor: str, visited: list[int], v_cpu: dict, cpu_draws, retire, align) -> tuple:
+    """The CPU side of ``nmfk_paper_bf16`` on ``executor``: the bf16 search
+    on the card's draws with the card's column alignments (``align``), and
+    {k: NMFkScore} at bf16 and at float32 (V and the draws widened; its own
+    alignments, so the gap is the dtype's) for every k the card
+    ``visited``; elastic takes the card's retirements (``retire``) at both
+    dtypes. Returns (the bf16 result, the bf16 scores, the float32 scores,
+    the retirement flips at bf16)."""
+    from repro_torch.factorization import nmfk
+
+    c = NMFK_PAPER
+    bf16, fp32 = torch.bfloat16, torch.float32
+    kw = dict(k_pad=c["k_range"][1], n_perturbs=c["n_perturbs"], nmf_iters=c["nmf_iters"])
+
+    def lanes(dt, ks):
+        sc = nmfk.nmfk_score_batched(v_cpu[dt], ks, draws=cpu_draws(dt), **kw)
+        return {k: type(sc)(*(f[i] for f in sc)) for i, k in enumerate(ks)}
+
+    undo = align.patch(torch, nmfk, "replay")
+    try:
+        res, cpu16, _ = scored_search(v_cpu[bf16], executor, cpu_draws(bf16), retire and retire.replay)
+        missing = [k for k in visited if k not in cpu16]
+        if executor == "elastic" and missing:
+            raise AssertionError(f"the card's elastic run visited ks {missing} the CPU's did not")
+        if executor == "threads":
+            cpu16.update({k: nmfk.nmfk_score(v_cpu[bf16], k, cpu_draws(bf16)(k, k), c["nmf_iters"]) for k in missing})
+        elif missing:
+            cpu16.update(lanes(bf16, missing))
+    finally:
+        undo()
+    flips = list(retire.flips) if retire else []
+    if executor == "elastic":
+        cpu32 = scored_search(v_cpu[fp32], executor, cpu_draws(fp32), retire.replay)[1]
+    elif executor == "threads":
+        cpu32 = {k: nmfk.nmfk_score(v_cpu[fp32], k, cpu_draws(fp32)(k, k), c["nmf_iters"]) for k in visited}
+    else:
+        cpu32 = lanes(fp32, visited)
+    return res, cpu16, cpu32, flips
+
+
+def run_nmfk_bf16(torch, dev, ops, log) -> dict[str, dict[str, int]]:
+    """``nmfk_paper_bf16`` on threads, batched and elastic: the main path's
+    launches (counts reset just before, read just after: the bf16 MU and
+    silhouette kernels, no float32 one), k_optimal 8 on the card and on the
+    CPU (plain versions, the card's draws copied), each visited k's min and
+    mean silhouette against the CPU's bf16 run, elastic's sweep identity;
+    wall, device busy share and peak memory beside nmfk_paper's through the
+    same API, with the card's name and power limit. The timed runs of both
+    dtypes are not instrumented; the card's scores, alignments and
+    retirements come from a third, untimed bf16 run."""
+    from repro_torch.factorization import nmfk
+    from repro_torch.factorization.synthetic import nmf_data
+    from repro_torch.random import Draws, seeded_draws
+
+    c = NMFK_PAPER
+    n, m = c["n"], c["m"]
+    bf16, fp32 = torch.bfloat16, torch.float32
+    v = {dt: nmf_data(n, m, c["k_true"], seed=0, device=dev, dtype=dt)[0] for dt in (bf16, fp32)}
+    card_draws = seeded_draws(0, n, m, c["n_perturbs"], c["epsilon"], dev, bf16)  # the bf16 search's own draws
+    v_cpu = {bf16: v[bf16].cpu(), fp32: v[bf16].cpu().float()}  # the same values, at either dtype
+
+    def cpu_draws(dtype):
+        return lambda k, k_draw: Draws(*(t.cpu().to(dtype) for t in card_draws(k, k_draw)))
+
+    def sweeps_identity(plane, run: str) -> None:
+        if plane.sweeps_run + plane.sweeps_saved != plane.sweeps_fixed_total:
+            raise AssertionError(f"{label} ({run}): sweeps run {plane.sweeps_run} + saved {plane.sweeps_saved} != "
+                                 f"fixed total {plane.sweeps_fixed_total}")
+
+    out, smi = {}, smi_line()
+    for executor in NMFK_BF16_EXECUTORS:
+        label = f"nmfk_paper_bf16_{executor}"
+        walls, peaks, results = {}, {}, {}
+        for dt in (bf16, fp32):  # bf16 first: its run is the main path
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            t0 = sync_wall(torch)
+            results[dt] = nmfk_api_search(v[dt], executor)
+            walls[dt] = sync_wall(torch) - t0
+            peaks[dt] = torch.cuda.max_memory_allocated()
+            if dt == bf16:
+                counts = ops.launch_counts()
+        for dt in (bf16, fp32):
+            if results[dt][0].k_optimal != c["k_true"]:
+                raise AssertionError(f"{label}: {dt} k_optimal {results[dt][0].k_optimal} != {c['k_true']}")
+        sums = "silhouette_dist_sums" if executor == "threads" else "silhouette_dist_sums_batched"
+        on = {name: counts[ops.bf16_name(getattr(ops, name))] for name in ("mu_update_h", "mu_update_w", sums)}
+        fp32_kernels = ("mu_update_h", "mu_update_w", "silhouette_dist_sums", "silhouette_dist_sums_batched")
+        if min(on.values()) < 1 or any(counts[name] for name in fp32_kernels):
+            raise AssertionError(f"{label}: the main path's launches {counts}")
+        main_plane = results[bf16][1]
+        if executor == "elastic":
+            sweeps_identity(main_plane, "main path")
+        busy = {dt: busy_share(torch, lambda dt=dt: nmfk_api_search(v[dt], executor))[0] for dt in (bf16, fp32)}
+
+        # the card's scores and decisions, for the CPU to replay
+        retire = RetireLog(1e-3) if executor == "elastic" else None  # the launcher's tol
+        align = AlignLog()
+        undo = align.patch(torch, nmfk, "record")
+        try:
+            res, scores, plane = scored_search(v[bf16], executor, gate=retire and retire.record)
+        finally:
+            undo()
+        if res.k_optimal != c["k_true"]:
+            raise AssertionError(f"{label} (recorded run): k_optimal {res.k_optimal} != {c['k_true']}")
+        if executor == "elastic":
+            sweeps_identity(plane, "recorded run")
+
+        visited = sorted(res.visited_ks)
+        t0 = time.perf_counter()
+        cpu_res, cpu16, cpu32, bf16_flips = cpu_nmfk_bf16(torch, executor, visited, v_cpu, cpu_draws, retire, align)
+        cpu_s = time.perf_counter() - t0
+        if cpu_res.k_optimal != c["k_true"]:
+            raise AssertionError(f"{label}: the CPU's bf16 k_optimal {cpu_res.k_optimal} != {c['k_true']}")
+        per_k, failed = {}, []
+        for k in visited:
+            row = {}
+            for field in ("min_silhouette", "mean_silhouette"):
+                card, cpu, cpu_fp32 = (float(getattr(sc[k], field)) for sc in (scores, cpu16, cpu32))
+                bound = max(BF16_GAP_RATIO * abs(cpu - cpu_fp32), BF16_SIL_FLOOR)
+                if not abs(card - cpu) <= bound:
+                    failed.append(f"k {k} {field}: card {card:.5f} vs CPU bf16 {cpu:.5f}, gap {abs(card - cpu):.3e} "
+                                  f"> {bound:.3e} (CPU fp32 {cpu_fp32:.5f})")
+                row[field] = [card, cpu, cpu_fp32, bound]
+            row["rel_error"] = [float(sc[k].rel_error) for sc in (scores, cpu16, cpu32)]
+            per_k[k] = row
+        entry = {"search": label, "k_optimal": results[bf16][0].k_optimal, "recorded_k_optimal": res.k_optimal,
+                 "cpu_k_optimal": cpu_res.k_optimal, "main_visited": sorted(results[bf16][0].visited_ks),
+                 "visited": visited, "cpu_visited": sorted(cpu_res.visited_ks),
+                 "per_k_card_cpu16_cpu32_bound": per_k, "wall_s": walls[bf16], "fp32_wall_s": walls[fp32],
+                 "busy_share": busy[bf16], "fp32_busy_share": busy[fp32], "max_memory_allocated": peaks[bf16],
+                 "fp32_max_memory_allocated": peaks[fp32], "cpu_s": cpu_s, "launches": counts,
+                 "align_flips_cpu_bf16": align.flips, "card": smi}
+        failed += [f"k {f['k']}: the CPU's own alignment left the card's at a margin of {f['margin_ulps']:.2f} bf16 "
+                   f"ulps, beyond {AlignLog.ALIGN_TIE_ULPS}" for f in align.flips if not f["near_tie"]]
+        if executor == "elastic":
+            entry.update(sweeps_run=main_plane.sweeps_run, sweeps_saved=main_plane.sweeps_saved,
+                         sweeps_fixed_total=main_plane.sweeps_fixed_total, warm_start_hits=main_plane.warm_cache.hits,
+                         recorded_sweeps_run=plane.sweeps_run,
+                         retire_decisions=len(retire.decisions), retire_flips_cpu_bf16=bf16_flips,
+                         retire_flips_cpu_fp32=retire.flips[len(bf16_flips):])
+            failed += [f"retirement {f['lane']} flipped on the CPU at a margin {f['cpu_margin']:.3e} beyond "
+                       f"{RetireLog.RETIRE_TIE_ULPS} bf16 ulps" for f in bf16_flips if not f["near_tie"]]
+        log(json.dumps(entry))
+        if failed:
+            raise AssertionError(f"{label}: " + "; ".join(failed))
+        out[label] = counts
+    return out
 
 
 def _live_pairs(lq: int, lk: int, causal: bool, window: int | None, q_offset: int = 0) -> int:
@@ -3190,6 +3703,12 @@ SOURCES = {
         "src/repro_torch/kernels/csrc/flash_attention.cu", "src/repro/kernels/flash_attention.py:102"),
     "flash_attention[bf16]": (
         "src/repro_torch/kernels/csrc/flash_attention.cu", "src/repro/kernels/flash_attention.py:102"),
+    "mu_update_h[bf16]": ("src/repro_torch/kernels/csrc/nmf_update.cu", "src/repro/kernels/nmf_update.py:98"),
+    "mu_update_w[bf16]": ("src/repro_torch/kernels/csrc/nmf_update.cu", "src/repro/kernels/nmf_update.py:129"),
+    "silhouette_dist_sums[bf16]": (
+        "src/repro_torch/kernels/csrc/silhouette_sums.cu", "src/repro/kernels/silhouette_sums.py:80"),
+    "silhouette_dist_sums_batched[bf16]": (
+        "src/repro_torch/kernels/csrc/silhouette_sums.cu", "src/repro/kernels/silhouette_sums.py:156"),
 }
 
 
@@ -3294,7 +3813,9 @@ def main() -> int:
 
     records: dict[str, list] = {}
     check_mu(torch, dev, ops, ref, records, log)
+    check_mu_bf16(torch, dev, ops, ref, records, log)
     check_sums(torch, dev, ops, ref, records, log)
+    check_sums_bf16(torch, dev, ops, ref, records, log)
     check_pairwise(torch, dev, ops, ref, records, log)
     check_flash(torch, dev, ops, ref, records, log)
     check_flash_bf16(torch, dev, ops, ref, records, log)
@@ -3315,6 +3836,7 @@ def main() -> int:
         torch, dev, ops, ksearch, "nmfk_elastic_mesh", ["--lanes", "1"], log, same_as=elastic)
     by_path["nmfk_distributed_fit"] = run_distributed_fit_search(torch, ops, ksearch, log)
     by_path["nmfk_sharded"] = run_search(torch, ops, ksearch, "sharded", log, ("--comm", "sync"), "nmfk_sharded")
+    by_path.update(run_nmfk_bf16(torch, dev, ops, log))
     by_path.update(run_multi_rank_searches(torch, log))
     by_path.update(run_rescalk_searches(torch, dev, ops, log))
     by_path.update({f"kmeans_{ex}": run_kmeans_search(torch, dev, ops, ex, log) for ex in ("threads", "batched")})

@@ -60,9 +60,12 @@ def draws_from_reference(noise, w, h, device: str | torch.device | None = None) 
 
     noise (..., p, n, m) is the reference's ``uniform(pkey, v.shape, 1-eps,
     1+eps)`` per perturbation; w (..., p, n, k_draw) and h (..., p, k_draw, m)
-    are its ``uniform(kw/kh, ..., 0.1, 1.0)`` init draws before scaling.
+    are its ``uniform(kw/kh, ..., 0.1, 1.0)`` init draws before scaling. The
+    reference draws at V's dtype: bfloat16 arrays stay bfloat16
+    (``leaf_tensor``), others become float32.
     """
-    return Draws(to_tensor(noise, device), to_tensor(w, device), to_tensor(h, device))
+    dev = resolve(device)
+    return Draws(leaf_tensor(noise, dev), leaf_tensor(w, dev), leaf_tensor(h, dev))
 
 
 def rescal_draws_from_reference(noise, a, r, device: str | torch.device | None = None) -> RESCALDraws:

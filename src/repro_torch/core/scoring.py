@@ -85,8 +85,14 @@ def cluster_dist_sums(
     broadcast first, and ``block_rows`` is not read. On the CPU the dense
     tier serves n * n <= ``_DENSE_MAX_ELEMENTS`` and the blocked tier the
     rest; passing ``block_rows`` forces the blocked tier at that strip height.
+
+    bf16 inputs give fp32 sums on every route, as the TPU kernel writes
+    them: on the card through the kernels' bf16 half, on the CPU from the
+    upcast operands.
     """
     if _on_cpu(x, onehot):
+        ct = torch.promote_types(x.dtype, torch.float32)
+        x, onehot = x.to(ct), onehot.to(ct)
         n = x.shape[-2]
         if block_rows is None and n * n <= _DENSE_MAX_ELEMENTS:
             return torch.matmul(torch.sqrt(pairwise_sq_dists(x)), onehot)

@@ -17,6 +17,10 @@ boundary: on a CUDA tensor each half-sweep is the hand-written Hopper
 kernel (``repro_torch.kernels.ops.mu_update_h`` / ``mu_update_w``), on a
 CPU tensor its plain version. Randomness enters only through the unscaled
 U[0.1, 1) init draws the caller passes (see ``repro_torch.random``).
+
+A fit runs at V's dtype, with draws of that dtype: float32, or bfloat16 as
+the reference's fits run on bf16 data (each MU half-sweep is then the bf16
+half of its kernel, and the relative error is taken from norms at bf16).
 """
 from __future__ import annotations
 
@@ -187,7 +191,7 @@ def nmf_batched(
     ks_t, seeds, k_pad = batched_lanes(ks, seed, k_pad, v.device)
     n, m = v.shape
     if draws is None:
-        parts = [init_draws(seeded_generator(s, v.device), n, m, k_pad) for s in seeds]
+        parts = [init_draws(seeded_generator(s, v.device), n, m, k_pad, dtype=v.dtype) for s in seeds]
         draws = (torch.stack([p[0] for p in parts]), torch.stack([p[1] for p in parts]))
     vb = v.expand(len(seeds), n, m).contiguous()
     return _nmf_masked(vb, ks_t, draws[0], draws[1], k_pad, iters)

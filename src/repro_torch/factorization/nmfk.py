@@ -14,7 +14,13 @@ The scorer Binary Bleed wraps for NMF. For a candidate k:
 Returned score is the ``min`` cluster silhouette, with the mean silhouette
 and the mean relative error. Randomness comes only from the ``Draws`` the
 caller passes; the evaluator and the batched entry point make them from a
-draw source (default: ``repro_torch.random.seeded_draws``).
+draw source (default: ``repro_torch.random.seeded_draws`` at V's dtype).
+
+A bf16 V is scored at bf16, as the reference scores it on its kernel
+route: the fits at bf16 (draws at V's dtype; draws of another dtype raise
+``TypeError``), the pooled columns at bf16, and the silhouette's distance
+sums in float32 from them, so the silhouettes are float32 and the mean
+relative error bf16.
 """
 from __future__ import annotations
 
@@ -25,7 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.scoring import silhouette_samples_masked
-from repro_torch.random import Draws, DrawSource, seeded_draws, stack_draws
+from repro_torch.random import Draws, DrawSource, check_draws, seeded_draws, stack_draws
 
 from .batching import batched_lanes
 from .nmf import _masked_init, _masked_sweeps, _nmf_masked, nmf
@@ -85,15 +91,18 @@ def nmfk_score(v: torch.Tensor, k: int, draws: Draws, nmf_iters: int = 150) -> N
     """Silhouette-stability score of rank k (higher = stable = good).
 
     ``draws`` holds the perturbation noise (p, n, m) and the init draws at
-    k_draw >= k (sliced to k).
+    k_draw >= k (sliced to k), all at V's dtype.
     """
+    check_draws(v, draws)
     n = v.shape[0]
     res = nmf(_perturb(v, draws.noise), k, draws.w, draws.h, iters=nmf_iters)  # (p, n, k)
     w_all = res.w / torch.clamp(torch.linalg.vector_norm(res.w, dim=1, keepdim=True), min=1e-12)
     labels = _align_columns(w_all)  # (p*k,)
     cols = w_all.transpose(1, 2).reshape(-1, n)  # (p*k, n)
     s = silhouette_samples_masked(cols, labels, num_clusters=k)
-    onehot = F.one_hot(labels, k).to(cols.dtype)
+    # s is float32 at bf16 (float32 distance sums): the reference's bf16
+    # one-hot promotes to it in this product, so it is made at s's dtype
+    onehot = F.one_hot(labels, k).to(s.dtype)
     sizes = onehot.sum(dim=0)
     per_cluster = (onehot.T @ s) / torch.clamp(sizes, min=1.0)
     if k > 1:
@@ -139,6 +148,7 @@ def _pooled_w_score(
     s = silhouette_samples_masked(cols, labels, num_clusters=k_pad, point_mask=point_mask)
     n_active = point_mask.sum(dim=-1).to(s.dtype)
     sil_mean = s.sum(dim=-1) / torch.clamp(n_active, min=1.0)
+    # at s's dtype: float32 at bf16, where the reference's bf16 one-hot promotes to it
     onehot = F.one_hot(labels, k_pad).to(s.dtype) * point_mask[..., None]  # (B, P, k_pad)
     sizes = onehot.sum(dim=-2)
     per_cluster = (onehot.transpose(-1, -2) @ s[..., None])[..., 0] / torch.clamp(sizes, min=1.0)
@@ -159,6 +169,7 @@ def _nmfk_score_masked(
     (B, p, k_pad, m). All B*p fits run as one batched fit; at k_eff == k_pad
     a lane's draws are the scalar path's.
     """
+    check_draws(v, draws)
     b, p, n, m = draws.noise.shape
     vp = _perturb(v, draws.noise).reshape(b * p, n, m)
     res = _nmf_masked(
@@ -191,7 +202,7 @@ def nmfk_score_batched(
     """
     ks_t, _, k_pad = batched_lanes(ks, seed, k_pad, v.device)
     n, m = v.shape
-    source = draws if draws is not None else seeded_draws(seed, n, m, n_perturbs, epsilon, v.device)
+    source = draws if draws is not None else seeded_draws(seed, n, m, n_perturbs, epsilon, v.device, v.dtype)
     lanes = stack_draws([source(int(k), k_pad) for k in ks])
     return _nmfk_score_masked(v, ks_t, lanes, k_pad, nmf_iters)
 
@@ -295,7 +306,7 @@ def nmfk_score_sharded(
     else:
         ks_t = torch.tensor(block, device=v.device)
         n, m = v.shape
-        source = draws if draws is not None else seeded_draws(seed, n, m, n_perturbs, epsilon, v.device)
+        source = draws if draws is not None else seeded_draws(seed, n, m, n_perturbs, epsilon, v.device, v.dtype)
         w_all, errs = _dist_fits(shard_rows(v, mesh.data_group), ks_t, stack_draws([source(k, k_pad) for k in block]),
                                  k_pad, mesh.data_group, comm, nmf_iters)
         sc = _pooled_w_score(w_all, errs, ks_t, k_pad)
@@ -378,8 +389,10 @@ def elastic_chunk(
     0 and come back unchanged); the gate stays on the device, so the chunk
     reads nothing back. Returns (w, h, rel_error (L,)), the error against
     each lane's own perturbed V: the convergence signal the tol gate tests
-    on the host.
+    on the host. vp, w and h share one dtype (the plane's V's).
     """
+    if not vp.dtype == w.dtype == h.dtype:
+        raise TypeError(f"an elastic chunk takes vp, w and h of one dtype, got {vp.dtype}, {w.dtype}, {h.dtype}")
     return _masked_sweeps(vp, w, h, k_eff, k_pad, chunk, steps=steps)
 
 
@@ -432,11 +445,12 @@ def make_nmfk_evaluator(
     statistic: str = "min",
     draws: DrawSource | None = None,
 ) -> Callable[[int], float]:
-    """Binary Bleed ``evaluate(k)`` closure over a dataset."""
+    """Binary Bleed ``evaluate(k)`` closure over a dataset; draws at V's
+    dtype by default."""
     if statistic not in ("min", "mean"):
         raise ValueError(f"statistic must be 'min' or 'mean', got {statistic!r}")
     n, m = v.shape
-    source = draws if draws is not None else seeded_draws(seed, n, m, n_perturbs, epsilon, v.device)
+    source = draws if draws is not None else seeded_draws(seed, n, m, n_perturbs, epsilon, v.device, v.dtype)
 
     def evaluate(k: int, should_abort=None) -> float:
         del should_abort  # one fit per call: no chunk boundary to poll

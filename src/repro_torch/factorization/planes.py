@@ -44,7 +44,14 @@ import torch
 
 from repro_torch.core.scoring import davies_bouldin_score_masked, silhouette_score_masked
 from repro_torch.obs import get_metrics, get_tracer
-from repro_torch.random import Draws, DrawSource, KMeansDrawSource, seeded_draws, seeded_kmeans_draws
+from repro_torch.random import (
+    Draws,
+    DrawSource,
+    KMeansDrawSource,
+    check_draws,
+    seeded_draws,
+    seeded_kmeans_draws,
+)
 
 from .batching import WarmStartCache, bucket_batch, next_pow2, round_up_multiple
 from .distributed import check_comm, check_rows, overlap_model, ring_all_gather
@@ -153,9 +160,9 @@ class NMFkBatchPlane(_BatchPlaneBase):
     """NMFk stability scoring of a whole wave as one padded batched ensemble.
 
     Lane k draws from ``draws(k, k_pad)`` — by default ``seeded_draws(seed,
-    ...)``, the schedule of ``make_nmfk_evaluator`` — so the batched and
-    threaded executors agree on the score landscape (exactly at k == k_pad,
-    to init-draw noise below it).
+    ...)`` at V's dtype, the schedule of ``make_nmfk_evaluator`` — so the
+    batched and threaded executors agree on the score landscape (exactly at
+    k == k_pad, to init-draw noise below it).
 
     With ``mesh=`` each rank scores its lane block (``nmfk_score_sharded``):
     lane-only, the batched plane's bits; with a data axis each fit is also
@@ -186,7 +193,7 @@ class NMFkBatchPlane(_BatchPlaneBase):
         self.v = v
         self.nmf_iters = nmf_iters
         self.statistic = statistic
-        self.draws = draws if draws is not None else seeded_draws(seed, n, m, n_perturbs, epsilon, v.device)
+        self.draws = draws if draws is not None else seeded_draws(seed, n, m, n_perturbs, epsilon, v.device, v.dtype)
 
     def _evaluate_one_chunked(self, k: int, should_abort) -> float:
         """Scalar NMFk with §III-D abort polling at chunk boundaries.
@@ -410,8 +417,9 @@ class NMFkElasticPlane:
         mid-fit, crediting their remaining sweeps to ``sweeps_saved``.
 
     Lane (k, p) draws from ``draws(k, k_pad)`` (default: ``seeded_draws(
-    seed, ...)``, the batched plane's schedule). ``tol <= 0`` disables the
-    gate: every lane runs exactly ``nmf_iters`` sweeps and (with
+    seed, ...)`` at V's dtype, the batched plane's schedule; draws of
+    another dtype raise ``TypeError`` at ``submit``). ``tol <= 0`` disables
+    the gate: every lane runs exactly ``nmf_iters`` sweeps and (with
     ``warm_start=False``) reproduces the batched plane draw-for-draw.
     Accounting invariant: ``sweeps_run + sweeps_saved ==
     sweeps_fixed_total`` over any completed search, where
@@ -486,7 +494,7 @@ class NMFkElasticPlane:
         self.slots = int(slots)
         self.warm_start = bool(warm_start)
         self.warm_cache = WarmStartCache()
-        self.draws = draws if draws is not None else seeded_draws(seed, n, m, n_perturbs, epsilon, v.device)
+        self.draws = draws if draws is not None else seeded_draws(seed, n, m, n_perturbs, epsilon, v.device, v.dtype)
         # the tracer track of chunk, evict and warm_start records
         self.track = "device:all" if mesh is not None else "device:0"
 
@@ -536,7 +544,9 @@ class NMFkElasticPlane:
             raise ValueError(f"k={k} exceeds plane k_pad={self.k_pad}")
         if k in self._tasks:
             raise ValueError(f"k={k} already submitted")
-        self._tasks[k] = _KTask(draws=self.draws(k, self.k_pad))
+        draws = self.draws(k, self.k_pad)
+        check_draws(self.v, draws)
+        self._tasks[k] = _KTask(draws=draws)
         for p in range(self.n_perturbs):
             self._queue.append((k, p))
         self.sweeps_fixed_total += self.n_perturbs * self.nmf_iters
@@ -621,7 +631,7 @@ class NMFkElasticPlane:
                 self.sweeps_run += st
                 metrics.inc("sweeps_run", st)
                 err = report_host[b * per + j][0]
-                converged = self.tol > 0 and (lane.prev_err - err) < self.tol
+                converged = self._converged(lane, err)
                 lane.prev_err = err
                 if converged or lane.done >= self.nmf_iters:
                     if lane.done < self.nmf_iters:
@@ -636,6 +646,11 @@ class NMFkElasticPlane:
         return out
 
     # -- internals ---------------------------------------------------------------
+    def _converged(self, lane: _Lane, err: float) -> bool:
+        """The tol gate, after lane.done counts the chunk: the lane's rel_error
+        (at V's dtype) improved by less than ``tol`` over it."""
+        return self.tol > 0 and (lane.prev_err - err) < self.tol
+
     def _lane_group(self):
         return self.mesh.lane_group if self.mesh is not None else None
 

@@ -10,7 +10,8 @@
     RESCALk.
 
 Each draws on the device with a ``torch.Generator`` seeded from ``seed``
-(the port's draws, not the reference's bits).
+(the port's draws, not the reference's bits) and builds every term at
+``dtype`` (default float32), as the reference does.
 """
 from __future__ import annotations
 
@@ -27,6 +28,7 @@ def nmf_data(
     noise: float = 0.01,
     seed: int = 0,
     device: str | torch.device | None = None,
+    dtype: torch.dtype = torch.float32,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Nonnegative V (n, m) with a planted rank-k_true block structure.
 
@@ -38,16 +40,16 @@ def nmf_data(
     gen.manual_seed(int(seed))
 
     def uniform(shape, lo, hi):
-        return torch.empty(shape, device=dev).uniform_(lo, hi, generator=gen)
+        return torch.empty(shape, device=dev, dtype=dtype).uniform_(lo, hi, generator=gen)
 
     w_bg = uniform((n, k_true), 0.0, 0.02)
     h_bg = uniform((k_true, m), 0.0, 0.02)
     row_block = torch.clamp(torch.arange(n, device=dev) // max(n // k_true, 1), 0, k_true - 1)
     col_block = torch.clamp(torch.arange(m, device=dev) // max(m // k_true, 1), 0, k_true - 1)
-    w_sig = F.one_hot(row_block, k_true).float()
-    h_sig = F.one_hot(col_block, k_true).float().T
-    w_load = torch.randn((n, k_true), device=dev, generator=gen)
-    h_load = torch.randn((k_true, m), device=dev, generator=gen)
+    w_sig = F.one_hot(row_block, k_true).to(dtype)
+    h_sig = F.one_hot(col_block, k_true).to(dtype).T
+    w_load = torch.randn((n, k_true), device=dev, dtype=dtype, generator=gen)
+    h_load = torch.randn((k_true, m), device=dev, dtype=dtype, generator=gen)
     w = w_bg + w_sig * torch.abs(1.0 + 0.1 * w_load)
     h = h_bg + h_sig * torch.abs(1.0 + 0.1 * h_load)
     v = w @ h + noise * uniform((n, m), 0.0, 1.0)
@@ -63,20 +65,21 @@ def blob_data(
     spread: float = 4.0,
     seed: int = 0,
     device: str | torch.device | None = None,
+    dtype: torch.dtype = torch.float32,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Gaussian blobs (paper §IV-A K-Means: std 0.5 plus overlaid noise).
 
     Centers ~ spread * N(0, I) in d dimensions, labels uniform in
     [0, k_true), x = centers[labels] + std * N(0, I) + noise * N(0, I).
-    Returns x (n, d) float32 and labels (n,) int64.
+    Returns x (n, d) at ``dtype`` and labels (n,) int64.
     """
     dev = resolve(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
-    centers = spread * torch.randn((k_true, d), device=dev, generator=gen)
+    centers = spread * torch.randn((k_true, d), device=dev, dtype=dtype, generator=gen)
     labels = torch.randint(0, k_true, (n,), device=dev, generator=gen)
-    x = centers[labels] + std * torch.randn((n, d), device=dev, generator=gen)
-    x = x + noise * torch.randn((n, d), device=dev, generator=gen)
+    x = centers[labels] + std * torch.randn((n, d), device=dev, dtype=dtype, generator=gen)
+    x = x + noise * torch.randn((n, d), device=dev, dtype=dtype, generator=gen)
     return x, labels
 
 
@@ -87,6 +90,7 @@ def rescal_data(
     noise: float = 0.01,
     seed: int = 0,
     device: str | torch.device | None = None,
+    dtype: torch.dtype = torch.float32,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Nonnegative relational tensor X (nr, n, n) = A R_r A^T + noise.
 
@@ -100,15 +104,15 @@ def rescal_data(
     gen.manual_seed(int(seed))
 
     def uniform(shape, lo, hi):
-        return torch.empty(shape, device=dev).uniform_(lo, hi, generator=gen)
+        return torch.empty(shape, device=dev, dtype=dtype).uniform_(lo, hi, generator=gen)
 
     blocks = torch.clamp(
         torch.arange(n_entities, device=dev) // max(n_entities // k_true, 1), 0, k_true - 1
     )
-    a = F.one_hot(blocks, k_true).float()
+    a = F.one_hot(blocks, k_true).to(dtype)
     a = a + uniform(a.shape, 0.0, 0.05)
     r = uniform((n_relations, k_true, k_true), 0.0, 1.0)
-    r = r * (0.2 + 0.8 * torch.eye(k_true, device=dev))[None]
+    r = r * (0.2 + 0.8 * torch.eye(k_true, device=dev, dtype=dtype))[None]
     x = a @ r @ a.T  # (nr, n, n)
     x = x + noise * uniform(x.shape, 0.0, 1.0)
     return x, a, r

@@ -40,10 +40,13 @@ SIGNATURES: dict[str, dict[str, list]] = {
         "mu_update_w": [_P, _P, _P, _P, _P, _P, _P, *[_I] * 8, _P],
         "mu_update_h_any": [_P, _P, _P, _P, _P, *[_I] * 4, _P],
         "mu_update_w_any": [_P, _P, _P, _P, _P, *[_I] * 4, _P],
+        "mu_update_h_bf16": [_P, _P, _P, _P, _P, *[_I] * 4, _P],
+        "mu_update_w_bf16": [_P, _P, _P, _P, _P, *[_I] * 4, _P],
         "mu_dynamic_smem": [_I, _I],
     },
     "silhouette_sums": {
         "silhouette_dist_sums": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        "silhouette_dist_sums_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     },
     "pairwise_dist": {
         "pairwise_sq_dists": [_P, _P, _P, _I, _I, _I, _I, _L, _L, _P],

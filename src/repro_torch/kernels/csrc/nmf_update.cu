@@ -48,8 +48,16 @@
 // arrive as zeros), so no padded copy of V is made. Components masked to
 // zero (W columns / H rows) stay exactly zero: 0 * acc / (x + 1e-9) = 0.
 // fp32 FMA only: no TF32, no wgmma.
+//
+// The bf16 half (mu_update_h_bf16 / mu_update_w_bf16) is the any-rank
+// kernel below instantiated for bf16 operands, at every k: V, W, H and the
+// bf16 G / Q product are read as bf16 and widened to fp32, both products
+// accumulate with fmaf, and out = X * num / (den + 1e-9) is formed in fp32
+// and rounded once (__float2bfloat16_rn), as the TPU kernel's bf16 half
+// does. A simple kernel that is right: no plan, no scratch, no TMA.
 
 #include <cuda.h>  // CUtensorMap (the encoder is fetched from the driver at run time)
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
@@ -862,18 +870,30 @@ int launch_w(const float* v, const float* h, const float* w, const float* q, flo
 // 32-deep shared-memory tiles. Right rather than fast: strided operands are
 // read as they lie. Each output is one thread's sum in a fixed order, so
 // the result is bitwise equal from call to call; a masked rank (X zero)
-// stays exactly zero.
+// stays exactly zero. T is float, or __nv_bfloat16 for the bf16 half
+// (operands widened on load, the output rounded once on store).
 // ---------------------------------------------------------------------------
+template <typename T>
 struct Strided {
-  const float* p;
+  const T* p;
   long long lane, row, col;  // element strides
 };
+
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(__nv_bfloat16 x) { return __bfloat162float(x); }
+template <typename T>
+__device__ __forceinline__ T narrow(float x);
+template <>
+__device__ __forceinline__ float narrow<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float x) { return __float2bfloat16_rn(x); }
 
 constexpr int kAnyTile = 32;  // output rows and columns a block
 constexpr int kAnyStep = 32;  // reduction depth a shared tile
 
 // acc[i][j] += sum over p < len of A[r0 + ty + 16 i, p] B[p, c0 + tx + 16 j]
-__device__ __forceinline__ void any_product(float (&acc)[2][2], const Strided& a, const Strided& b, int rows,
+template <typename T>
+__device__ __forceinline__ void any_product(float (&acc)[2][2], const Strided<T>& a, const Strided<T>& b, int rows,
                                             int cols, int len, int r0, int c0, float (*as)[kAnyStep + 1],
                                             float (*bs)[kAnyTile + 1]) {
   const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * 16 + tx;
@@ -881,8 +901,8 @@ __device__ __forceinline__ void any_product(float (&acc)[2][2], const Strided& a
     for (int e = tid; e < kAnyTile * kAnyStep; e += 256) {
       const int hi = e >> 5, lo = e & 31;  // as[row hi][depth lo]; bs[depth hi][column lo]
       const int r = r0 + hi, pa = p0 + lo, pb = p0 + hi, c = c0 + lo;
-      as[hi][lo] = (r < rows && pa < len) ? a.p[r * a.row + pa * a.col] : 0.f;
-      bs[hi][lo] = (pb < len && c < cols) ? b.p[pb * b.row + c * b.col] : 0.f;
+      as[hi][lo] = (r < rows && pa < len) ? widen(a.p[r * a.row + pa * a.col]) : 0.f;
+      bs[hi][lo] = (pb < len && c < cols) ? widen(b.p[pb * b.row + c * b.col]) : 0.f;
     }
     __syncthreads();
 #pragma unroll 8
@@ -899,9 +919,10 @@ __device__ __forceinline__ void any_product(float (&acc)[2][2], const Strided& a
 }
 
 // grid (ceil(S / 32), ceil(R / 32), L), block (16, 16); out (L, R, S) row-major.
+template <typename T>
 __global__ void __launch_bounds__(256)
-any_rank_kernel(Strided x, Strided a, Strided b, Strided c, Strided d, float* __restrict__ out, int rows,
-                int cols, int len_ab, int len_cd) {
+any_rank_kernel(Strided<T> x, Strided<T> a, Strided<T> b, Strided<T> c, Strided<T> d, T* __restrict__ out,
+                int rows, int cols, int len_ab, int len_cd) {
   __shared__ float as[kAnyTile][kAnyStep + 1];
   __shared__ float bs[kAnyStep][kAnyTile + 1];
   const long long lane = blockIdx.z;
@@ -920,19 +941,38 @@ any_rank_kernel(Strided x, Strided a, Strided b, Strided c, Strided d, float* __
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
       const int r = r0 + threadIdx.y + 16 * i, col = c0 + threadIdx.x + 16 * j;
-      if (r < rows && col < cols)
-        out[(long long)r * cols + col] = x.p[r * x.row + col * x.col] * num[i][j] / (den[i][j] + kEps);
+      if (r < rows && col < cols) {
+        const float xv = widen(x.p[r * x.row + col * x.col]);
+        out[(long long)r * cols + col] = narrow<T>(xv * num[i][j] / (den[i][j] + kEps));
+      }
     }
 }
 
-int launch_any(const Strided& x, const Strided& a, const Strided& b, const Strided& c, const Strided& d,
-               float* out, int lanes, int rows, int cols, int len_ab, int len_cd, void* stream) {
+template <typename T>
+int launch_any(const Strided<T>& x, const Strided<T>& a, const Strided<T>& b, const Strided<T>& c,
+               const Strided<T>& d, T* out, int lanes, int rows, int cols, int len_ab, int len_cd, void* stream) {
   if (lanes < 1 || lanes > 65535 || rows < 1 || cols < 1 || len_ab < 1 || len_cd < 1) return (int)cudaErrorInvalidValue;
   const long long row_tiles = ((long long)rows + kAnyTile - 1) / kAnyTile;
   if (row_tiles > 65535) return (int)cudaErrorInvalidValue;
   const dim3 grid((cols + kAnyTile - 1) / kAnyTile, (unsigned)row_tiles, lanes), block(16, 16);
-  any_rank_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(x, a, b, c, d, out, rows, cols, len_ab, len_cd);
+  any_rank_kernel<T><<<grid, block, 0, (cudaStream_t)stream>>>(x, a, b, c, d, out, rows, cols, len_ab, len_cd);
   return (int)cudaGetLastError();
+}
+
+// The H-update (X = H, A = W^T, B = V, C = G, D = H) and the W-update (X =
+// W, A = V, B = H^T, C = W, D = Q) of one dtype through launch_any.
+template <typename T>
+int any_h(const T* v, const T* w, const T* h, const T* g, T* out, int lanes, int n, int m, int k, void* stream) {
+  const long long nm = (long long)n * m, nk = (long long)n * k, km = (long long)k * m, kk = (long long)k * k;
+  return launch_any<T>({h, km, m, 1}, {w, nk, 1, k}, {v, nm, m, 1}, {g, kk, k, 1}, {h, km, m, 1}, out, lanes, k, m,
+                       n, k, stream);
+}
+
+template <typename T>
+int any_w(const T* v, const T* h, const T* w, const T* q, T* out, int lanes, int n, int m, int k, void* stream) {
+  const long long nm = (long long)n * m, nk = (long long)n * k, km = (long long)k * m, kk = (long long)k * k;
+  return launch_any<T>({w, nk, k, 1}, {v, nm, m, 1}, {h, km, 1, m}, {w, nk, k, 1}, {q, kk, k, 1}, out, lanes, n, k,
+                       m, k, stream);
 }
 
 }  // namespace
@@ -980,16 +1020,26 @@ extern "C" int mu_update_w(const float* v, const float* h, const float* w, const
 // or scratch. Same operands as mu_update_h / mu_update_w.
 extern "C" int mu_update_h_any(const float* v, const float* w, const float* h, const float* g,
                                float* out, int lanes, int n, int m, int k, void* stream) {
-  const long long nm = (long long)n * m, nk = (long long)n * k, km = (long long)k * m, kk = (long long)k * k;
-  return launch_any({h, km, m, 1}, {w, nk, 1, k}, {v, nm, m, 1}, {g, kk, k, 1}, {h, km, m, 1}, out, lanes, k, m, n,
-                    k, stream);
+  return any_h<float>(v, w, h, g, out, lanes, n, m, k, stream);
 }
 
 extern "C" int mu_update_w_any(const float* v, const float* h, const float* w, const float* q,
                                float* out, int lanes, int n, int m, int k, void* stream) {
-  const long long nm = (long long)n * m, nk = (long long)n * k, km = (long long)k * m, kk = (long long)k * k;
-  return launch_any({w, nk, k, 1}, {v, nm, m, 1}, {h, km, 1, m}, {w, nk, k, 1}, {q, kk, k, 1}, out, lanes, n, k, m,
-                    k, stream);
+  return any_w<float>(v, h, w, q, out, lanes, n, m, k, stream);
+}
+
+// The bf16 half, any rank: contiguous bf16 v (L, n, m), w (L, n, k), h (L,
+// k, m), g / q (L, k, k) (the bf16 products W^T W / H H^T), out like h or w.
+extern "C" int mu_update_h_bf16(const __nv_bfloat16* v, const __nv_bfloat16* w, const __nv_bfloat16* h,
+                                const __nv_bfloat16* g, __nv_bfloat16* out, int lanes, int n, int m, int k,
+                                void* stream) {
+  return any_h<__nv_bfloat16>(v, w, h, g, out, lanes, n, m, k, stream);
+}
+
+extern "C" int mu_update_w_bf16(const __nv_bfloat16* v, const __nv_bfloat16* h, const __nv_bfloat16* w,
+                                const __nv_bfloat16* q, __nv_bfloat16* out, int lanes, int n, int m, int k,
+                                void* stream) {
+  return any_w<__nv_bfloat16>(v, h, w, q, out, lanes, n, m, k, stream);
 }
 
 // Dynamic shared memory (bytes) a launch of the H (update 0) or W (update 1)

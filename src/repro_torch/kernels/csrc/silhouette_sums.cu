@@ -47,8 +47,15 @@
 // waves, large n): a block owns 32 x rows, walks y in tiles of 32 rows and
 // d in steps of 32 through shared memory, and contracts each distance tile
 // into its registers; one 128-cluster chunk per grid.z index.
+//
+// The bf16 half (silhouette_dist_sums_bf16: bf16 x, y and one-hot, fp32
+// out, as the TPU kernel's) is the general path instantiated for bf16
+// operands, at every shape: each element is widened to fp32 as it is
+// staged, and from there the arithmetic is the fp32 general path's. A
+// simple kernel that is right; the thin path's cluster split is fp32 only.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 
@@ -347,12 +354,16 @@ constexpr int kRowsPerThread = kTileX / kRows;           // 4 x rows per thread
 constexpr int kClusterChunk = 128;                       // clusters per block (grid.z walks the chunks)
 constexpr int kColsPerThread = kClusterChunk / kTileY;   // 4 clusters per thread
 
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
+
 // grid (ceil(n / kTileX), b, ceil(k / kClusterChunk)), block (32, kRows). In
 // the distance phase thread (tx, ty) owns y row j0 + tx and x rows
 // ty + kRows * r; in the contraction phase it owns clusters c0 + tx + 32 * q
-// of the same x rows.
+// of the same x rows. T: float, or __nv_bfloat16 (widened as it is staged).
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-dist_sums_general(const float* __restrict__ x, const float* __restrict__ y, const float* __restrict__ onehot,
+dist_sums_general(const T* __restrict__ x, const T* __restrict__ y, const T* __restrict__ onehot,
                   float* __restrict__ out, int n, int m, int d, int k) {
   __shared__ float xs[kTileX][kStepD + 1];
   __shared__ float ys[kTileY][kStepD + 1];
@@ -383,8 +394,8 @@ dist_sums_general(const float* __restrict__ x, const float* __restrict__ y, cons
 #pragma unroll
       for (int rr = ty; rr < kTileX; rr += kRows) {
         const int gi = i0 + rr, gj = j0 + rr;
-        xs[rr][tx] = (gi < n && gd < d) ? x[(size_t)gi * d + gd] : 0.f;
-        ys[rr][tx] = (gj < m && gd < d) ? y[(size_t)gj * d + gd] : 0.f;
+        xs[rr][tx] = (gi < n && gd < d) ? widen(x[(size_t)gi * d + gd]) : 0.f;
+        ys[rr][tx] = (gj < m && gd < d) ? widen(y[(size_t)gj * d + gd]) : 0.f;
       }
       __syncthreads();
 #pragma unroll 4
@@ -407,7 +418,7 @@ dist_sums_general(const float* __restrict__ x, const float* __restrict__ y, cons
     for (int rr = ty; rr < kTileY; rr += kRows) {
       const int gj = j0 + rr;
       for (int cc = tx; cc < kClusterChunk; cc += kTileY)
-        gs[rr][cc] = (gj < m && cc < kc) ? onehot[(size_t)gj * k + c0 + cc] : 0.f;
+        gs[rr][cc] = (gj < m && cc < kc) ? widen(onehot[(size_t)gj * k + c0 + cc]) : 0.f;
     }
     __syncthreads();
     for (int jj = 0; jj < kTileY; ++jj) {
@@ -492,6 +503,16 @@ int launch_thin_any(const float* x, const float* y, const float* onehot, float* 
   return launch_thin<32, 8>(x, y, onehot, out, b, n, m, d, k, blocks, s);
 }
 
+template <typename T>
+int launch_general(const T* x, const T* y, const T* onehot, float* out, int b, int n, int m, int d, int k,
+                   cudaStream_t s) {
+  const long long chunks = ((long long)k + kClusterChunk - 1) / kClusterChunk;
+  if (chunks > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid((n + kTileX - 1) / kTileX, b, (unsigned)chunks), block(kTileY, kRows);
+  dist_sums_general<T><<<grid, block, 0, s>>>(x, y, onehot, out, n, m, d, k);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 #ifdef SIL_TIMELINE
@@ -514,9 +535,14 @@ extern "C" int silhouette_dist_sums(const float* x, const float* y, const float*
   if (b < 1 || b > 65535 || n < 1 || m < 1 || d < 1 || k < 1) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   if (m <= kThinMaxM && (n + 15) / 16 <= 65535) return launch_thin_any(x, y, onehot, out, b, n, m, d, k, s);
-  const long long chunks = ((long long)k + kClusterChunk - 1) / kClusterChunk;
-  if (chunks > 65535) return (int)cudaErrorInvalidValue;
-  const dim3 grid((n + kTileX - 1) / kTileX, b, (unsigned)chunks), block(kTileY, kRows);
-  dist_sums_general<<<grid, block, 0, s>>>(x, y, onehot, out, n, m, d, k);
-  return (int)cudaGetLastError();
+  return launch_general<float>(x, y, onehot, out, b, n, m, d, k, s);
+}
+
+// The bf16 half: bf16 x (b, n, d), y (b, m, d) (may alias x) and onehot (b,
+// m, k), fp32 out (b, n, k); any m and k, through the general path.
+extern "C" int silhouette_dist_sums_bf16(const __nv_bfloat16* x, const __nv_bfloat16* y,
+                                         const __nv_bfloat16* onehot, float* out, int b, int n, int m, int d, int k,
+                                         void* stream) {
+  if (b < 1 || b > 65535 || n < 1 || m < 1 || d < 1 || k < 1) return (int)cudaErrorInvalidValue;
+  return launch_general<__nv_bfloat16>(x, y, onehot, out, b, n, m, d, k, (cudaStream_t)stream);
 }

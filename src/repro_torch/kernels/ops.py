@@ -3,15 +3,15 @@
 The device decides the path: tensors on the CPU go to the plain PyTorch
 version in ``ref``; tensors on one CUDA device go to the kernel, and
 anything the kernel does not take raises. There is no fallback from the
-kernel to the plain version. The kernels take float32; flash attention
-also takes bfloat16, through a kernel of its own (never a cast to the
-float32 one). The bf16 halves of the MU, pairwise and silhouette kernels,
-and float16 anywhere, are queued (ROADMAP Queue 2): those raise. Each
-wrapper counts its kernel launches in a plain int attribute,
-``<wrapper>.launches`` (flash attention's bf16 kernel in
-``flash_attention.bf16_launches``, reported as ``flash_attention[bf16]``),
-so a run can show that its main path went through the kernels
-(``reset_launch_counts`` zeroes them).
+kernel to the plain version. The kernels take float32; the MU, silhouette
+and flash-attention wrappers also take bfloat16, each through a kernel of
+its own (never a cast to the float32 one). The pairwise kernels' bf16
+half, and float16 anywhere, are queued (ROADMAP Queue 2): those raise.
+Each wrapper counts its kernel launches in a plain int attribute,
+``<wrapper>.launches``, and a wrapper with a bf16 half its bf16 kernel's
+in ``<wrapper>.bf16_launches``, reported as ``<wrapper>[bf16]``
+(``bf16_name``), so a run can show that its main path went through the
+kernels (``reset_launch_counts`` zeroes them).
 
 Unlike the TPU wrappers, nothing is padded here: the kernels mask ragged
 edges themselves.
@@ -243,6 +243,14 @@ def _mu_args(update: str, device: torch.device, stream: int, lanes: int, n: int,
     return hit[1]
 
 
+def _mu_bf16_launch(name: str, v3, a, b, gram, out) -> None:
+    """Launch the bf16 kernel (``<name>_bf16``): any rank, no plan, no scratch."""
+    lanes, n, m = v3.shape
+    k = gram.shape[-1]
+    ptrs = (v3.data_ptr(), a.data_ptr(), b.data_ptr(), gram.data_ptr(), out.data_ptr())
+    _check(getattr(build.load("nmf_update"), f"{name}_bf16")(*ptrs, lanes, n, m, k, _stream(v3)), f"{name}_bf16")
+
+
 def _mu_launch(name: str, update: str, v3, a, b, gram, out) -> None:
     """Plan one MU launch, find its scratch and launch it. After a failed
     launch the thread's scratch is dropped: its counters may be nonzero.
@@ -262,28 +270,40 @@ def _mu_launch(name: str, update: str, v3, a, b, gram, out) -> None:
 
 
 def mu_update_h(v: torch.Tensor, w: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
-    """H <- H * (W^T V) / (G H + 1e-9), G = W^T W; v (L, n, m) or (n, m)."""
-    if not _on_card(v, w, h, kernels="the MU kernels"):
+    """H <- H * (W^T V) / (G H + 1e-9), G = W^T W; v (L, n, m) or (n, m).
+
+    float32, or bfloat16 (G a bf16 product, the rest fp32, H's dtype out)."""
+    if not _on_card(v, w, h, kernels="the MU kernels", bf16=True):
         return ref.mu_update_h(v, w, h)
     was_2d, (v3, w3, h3) = _lead3(v, w, h)
     _mu_shapes(v3, w3, h3)
     g = torch.bmm(w3.transpose(1, 2), w3)
     out = torch.empty_like(h3)
-    _mu_launch("mu_update_h", "h", v3, w3, h3, g, out)
-    _count(mu_update_h)
+    if h.dtype == torch.bfloat16:
+        _mu_bf16_launch("mu_update_h", v3, w3, h3, g, out)
+        _count(mu_update_h, "bf16_launches")
+    else:
+        _mu_launch("mu_update_h", "h", v3, w3, h3, g, out)
+        _count(mu_update_h)
     return out[0] if was_2d else out
 
 
 def mu_update_w(v: torch.Tensor, w: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
-    """W <- W * (V H^T) / (W Q + 1e-9), Q = H H^T; v (L, n, m) or (n, m)."""
-    if not _on_card(v, w, h, kernels="the MU kernels"):
+    """W <- W * (V H^T) / (W Q + 1e-9), Q = H H^T; v (L, n, m) or (n, m).
+
+    float32, or bfloat16 (Q a bf16 product, the rest fp32, W's dtype out)."""
+    if not _on_card(v, w, h, kernels="the MU kernels", bf16=True):
         return ref.mu_update_w(v, w, h)
     was_2d, (v3, w3, h3) = _lead3(v, w, h)
     _mu_shapes(v3, w3, h3)
     q = torch.bmm(h3, h3.transpose(1, 2))
     out = torch.empty_like(w3)
-    _mu_launch("mu_update_w", "w", v3, h3, w3, q, out)
-    _count(mu_update_w)
+    if w.dtype == torch.bfloat16:
+        _mu_bf16_launch("mu_update_w", v3, h3, w3, q, out)
+        _count(mu_update_w, "bf16_launches")
+    else:
+        _mu_launch("mu_update_w", "w", v3, h3, w3, q, out)
+        _count(mu_update_w)
     return out[0] if was_2d else out
 
 
@@ -299,27 +319,29 @@ def _dist_sums_launch(x: torch.Tensor, y: torch.Tensor, onehot: torch.Tensor) ->
         )
     if min(n, m, d, k) < 1 or not 1 <= b <= MAX_LANES:
         raise ValueError(f"the distance-sum kernel takes non-empty operands and 1..{MAX_LANES} lanes")
-    out = torch.empty((b, n, k), device=x.device, dtype=torch.float32)
-    lib = build.load("silhouette_sums")
-    rc = lib.silhouette_dist_sums(
+    out = torch.empty((b, n, k), device=x.device, dtype=torch.float32)  # fp32 at either dtype, as on the TPU
+    name = "silhouette_dist_sums_bf16" if x.dtype == torch.bfloat16 else "silhouette_dist_sums"
+    rc = getattr(build.load("silhouette_sums"), name)(
         x.data_ptr(), y.data_ptr(), onehot.data_ptr(), out.data_ptr(),
         b, n, m, d, k, _stream(x),
     )
-    _check(rc, "silhouette_dist_sums")
+    _check(rc, name)
     return out
 
 
 def silhouette_dist_sums(
     x: torch.Tensor, onehot: torch.Tensor, y: torch.Tensor | None = None
 ) -> torch.Tensor:
-    """(n, k) sums ``sqrt(pairwise(x, y)) @ onehot``; x (n, d), y (m, d) (default x), onehot (m, k)."""
+    """(n, k) sums ``sqrt(pairwise(x, y)) @ onehot``; x (n, d), y (m, d) (default x), onehot (m, k).
+
+    float32 or bfloat16 operands of one dtype; the sums are float32."""
     y = x if y is None else y
-    if not _on_card(x, y, onehot, kernels="the silhouette kernels"):
+    if not _on_card(x, y, onehot, kernels="the silhouette kernels", bf16=True):
         return ref.silhouette_dist_sums(x, onehot, y)
     if not x.dim() == y.dim() == onehot.dim() == 2:
         raise ValueError("silhouette_dist_sums takes 2-D operands; use the _batched entry for 3-D")
     out = _dist_sums_launch(x.unsqueeze(0), y.unsqueeze(0), onehot.unsqueeze(0))
-    _count(silhouette_dist_sums)
+    _count(silhouette_dist_sums, "bf16_launches" if x.dtype == torch.bfloat16 else "launches")
     return out[0]
 
 
@@ -328,12 +350,12 @@ def silhouette_dist_sums_batched(
 ) -> torch.Tensor:
     """Leading-lane form: x (b, n, d), y (b, m, d) (default x), onehot (b, m, k) -> (b, n, k)."""
     y = x if y is None else y
-    if not _on_card(x, y, onehot, kernels="the silhouette kernels"):
+    if not _on_card(x, y, onehot, kernels="the silhouette kernels", bf16=True):
         return ref.silhouette_dist_sums(x, onehot, y)
     if not x.dim() == y.dim() == onehot.dim() == 3:
         raise ValueError("silhouette_dist_sums_batched takes 3-D operands")
     out = _dist_sums_launch(x, y, onehot)
-    _count(silhouette_dist_sums_batched)
+    _count(silhouette_dist_sums_batched, "bf16_launches" if x.dtype == torch.bfloat16 else "launches")
     return out
 
 
@@ -552,20 +574,29 @@ KERNEL_WRAPPERS = (
     mu_update_h, mu_update_w, silhouette_dist_sums, silhouette_dist_sums_batched,
     pairwise_sq_dists, pairwise_sq_dists_batched, flash_attention,
 )
+# the wrappers with a bf16 kernel of their own (counted in ``bf16_launches``)
+BF16_WRAPPERS = (mu_update_h, mu_update_w, silhouette_dist_sums, silhouette_dist_sums_batched, flash_attention)
+
+
+def bf16_name(wrapper) -> str:
+    """``launch_counts``' name of a wrapper's bf16 kernel, e.g. ``mu_update_h[bf16]``."""
+    return f"{wrapper.__name__}[bf16]"
 
 
 def reset_launch_counts() -> None:
     with _count_lock:
         for wrapper in KERNEL_WRAPPERS:
             wrapper.launches = 0
-        flash_attention.bf16_launches = 0
+        for wrapper in BF16_WRAPPERS:
+            wrapper.bf16_launches = 0
 
 
 reset_launch_counts()
 
 
 def launch_counts() -> dict[str, int]:
-    """{wrapper name: launches}, and the bf16 flash kernel's under ``FLASH_BF16``."""
+    """{wrapper name: launches}, and each bf16 kernel's under ``bf16_name``
+    (flash attention's is ``FLASH_BF16``)."""
     with _count_lock:
         return {**{wrapper.__name__: wrapper.launches for wrapper in KERNEL_WRAPPERS},
-                FLASH_BF16: flash_attention.bf16_launches}
+                **{bf16_name(wrapper): wrapper.bf16_launches for wrapper in BF16_WRAPPERS}}

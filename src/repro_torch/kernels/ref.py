@@ -5,6 +5,12 @@ reference's algebra. ``ops`` runs them for tensors on the CPU; the CPU
 tests hold them against the JAX reference, and ``chip_smoke.py`` holds
 each kernel against them on the card. All are axis-agnostic over leading
 batch dims.
+
+At bfloat16 each computes the TPU kernel's bf16 arithmetic, not a bf16
+rounding of every op: the MU updates take the k x k Gram product in bf16
+(the reference's wrapper forms it outside its kernel), everything else in
+fp32 from the upcast inputs, and round once to bf16; the silhouette sums
+upcast and return fp32.
 """
 from __future__ import annotations
 
@@ -13,16 +19,26 @@ import torch
 _EPS = 1e-9
 
 
+def _mu_update(x: torch.Tensor, num_a, num_b, gram: torch.Tensor, gram_left: bool) -> torch.Tensor:
+    """x * (num_a @ num_b) / (den + eps), den = gram @ x or x @ gram, in
+    x's dtype promoted to at least fp32 (the float32 and float64 bits of
+    the plain expression), rounded once to x's dtype (bf16 half)."""
+    f = torch.promote_types(x.dtype, torch.float32)
+    num = num_a.to(f) @ num_b.to(f)
+    den = (gram.to(f) @ x.to(f) if gram_left else x.to(f) @ gram.to(f)) + _EPS
+    return (x.to(f) * num / den).to(x.dtype)
+
+
 def mu_update_h(v: torch.Tensor, w: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
-    """H <- H * (W^T V) / (W^T W H + eps)."""
+    """H <- H * (W^T V) / (W^T W H + eps), G = W^T W in H's dtype."""
     wt = w.transpose(-1, -2)
-    return h * (wt @ v) / (wt @ w @ h + _EPS)
+    return _mu_update(h, wt, v, wt @ w, gram_left=True)
 
 
 def mu_update_w(v: torch.Tensor, w: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
-    """W <- W * (V H^T) / (W H H^T + eps)."""
+    """W <- W * (V H^T) / (W H H^T + eps), Q = H H^T in W's dtype."""
     ht = h.transpose(-1, -2)
-    return w * (v @ ht) / (w @ (h @ ht) + _EPS)
+    return _mu_update(w, v, ht, h @ ht, gram_left=False)
 
 
 def pairwise_sq_dists(x: torch.Tensor, y: torch.Tensor | None = None) -> torch.Tensor:
@@ -37,8 +53,11 @@ def pairwise_sq_dists(x: torch.Tensor, y: torch.Tensor | None = None) -> torch.T
 def silhouette_dist_sums(
     x: torch.Tensor, onehot: torch.Tensor, y: torch.Tensor | None = None
 ) -> torch.Tensor:
-    """Dense: materialize sqrt distances, contract with the one-hot."""
-    return torch.matmul(torch.sqrt(pairwise_sq_dists(x, y)), onehot)
+    """Dense: materialize sqrt distances, contract with the one-hot; bf16
+    operands are upcast and the sums are fp32, as the kernel writes them."""
+    y = x if y is None else y
+    ct = torch.promote_types(x.dtype, torch.float32)
+    return torch.matmul(torch.sqrt(pairwise_sq_dists(x.to(ct), y.to(ct))), onehot.to(ct))
 
 
 def query_offset(lq: int, lk: int, causal: bool, window: int | None, q_offset: int | None) -> int:

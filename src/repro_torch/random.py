@@ -2,7 +2,8 @@
 
 Randomness enters an NMFk score only through a ``Draws`` value: the
 multiplicative perturbation noise of each resampled copy of V and the
-unscaled uniform W/H inits of each perturbation fit. A K-Means fit takes
+unscaled uniform W/H inits of each perturbation fit, drawn at V's dtype
+as the reference draws them (a bf16 V takes bf16 draws). A K-Means fit takes
 it only through a ``KMeansDraws`` value: the first center's index and
 one uniform per further k-means++ slot. A RESCALk score takes a
 ``RESCALDraws`` value: the noise of each resampled copy of X and the
@@ -53,37 +54,66 @@ def lane_generator(seed: int, k: int, device: str | torch.device) -> torch.Gener
 
 
 def init_draws(
-    generator: torch.Generator, n: int, m: int, k_draw: int, lead: tuple[int, ...] = ()
+    generator: torch.Generator,
+    n: int,
+    m: int,
+    k_draw: int,
+    lead: tuple[int, ...] = (),
+    dtype: torch.dtype = torch.float32,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Unscaled U[0.1, 1) W (lead..., n, k_draw) and H (lead..., k_draw, m) draws."""
+    """Unscaled U[0.1, 1) W (lead..., n, k_draw) and H (lead..., k_draw, m)
+    draws, drawn at ``dtype`` (the data's, as the reference draws)."""
     dev = generator.device
-    w = torch.empty(lead + (n, k_draw), device=dev).uniform_(0.1, 1.0, generator=generator)
-    h = torch.empty(lead + (k_draw, m), device=dev).uniform_(0.1, 1.0, generator=generator)
+    w = torch.empty(lead + (n, k_draw), device=dev, dtype=dtype).uniform_(0.1, 1.0, generator=generator)
+    h = torch.empty(lead + (k_draw, m), device=dev, dtype=dtype).uniform_(0.1, 1.0, generator=generator)
     return w, h
 
 
 def make_draws(
-    generator: torch.Generator, n: int, m: int, k_draw: int, n_perturbs: int, epsilon: float
+    generator: torch.Generator,
+    n: int,
+    m: int,
+    k_draw: int,
+    n_perturbs: int,
+    epsilon: float,
+    dtype: torch.dtype = torch.float32,
 ) -> Draws:
-    """Perturbation noise then W/H inits for ``n_perturbs`` fits at ``k_draw``."""
+    """Perturbation noise then W/H inits for ``n_perturbs`` fits at ``k_draw``,
+    all at ``dtype``."""
     dev = generator.device
-    noise = torch.empty((n_perturbs, n, m), device=dev).uniform_(
+    noise = torch.empty((n_perturbs, n, m), device=dev, dtype=dtype).uniform_(
         1.0 - epsilon, 1.0 + epsilon, generator=generator
     )
-    w, h = init_draws(generator, n, m, k_draw, (n_perturbs,))
+    w, h = init_draws(generator, n, m, k_draw, (n_perturbs,), dtype)
     return Draws(noise, w, h)
+
+
+def check_draws(v: torch.Tensor, draws: Draws) -> None:
+    """Raise unless every draw has V's dtype: a perturbation or init at
+    another dtype would promote the fit (a bf16 V fitted at float32)."""
+    got = {t.dtype for t in draws}
+    if got != {v.dtype}:
+        raise TypeError(f"the draws must have V's dtype {v.dtype}, got {sorted(str(d) for d in got)}; "
+                        f"draw them with dtype=v.dtype")
 
 
 DrawSource = Callable[[int, int], Draws]  # (k, k_draw) -> the draws of rank k
 
 
 def seeded_draws(
-    seed: int, n: int, m: int, n_perturbs: int, epsilon: float, device: str | torch.device
+    seed: int,
+    n: int,
+    m: int,
+    n_perturbs: int,
+    epsilon: float,
+    device: str | torch.device,
+    dtype: torch.dtype = torch.float32,
 ) -> DrawSource:
-    """The default draw source: rank k draws from ``lane_generator(seed, k)``."""
+    """The default draw source: rank k draws from ``lane_generator(seed, k)``
+    at ``dtype``."""
 
     def draw(k: int, k_draw: int) -> Draws:
-        return make_draws(lane_generator(seed, k, device), n, m, k_draw, n_perturbs, epsilon)
+        return make_draws(lane_generator(seed, k, device), n, m, k_draw, n_perturbs, epsilon, dtype)
 
     return draw
 

@@ -15,24 +15,26 @@ import numpy as np
 from repro_torch.convert import draws_from_reference, kmeans_draws_from_reference, rescal_draws_from_reference
 
 
-def uniform(key, shape, lo, hi) -> np.ndarray:
-    return np.array(jax.random.uniform(key, shape, jnp.float32, lo, hi))
+def uniform(key, shape, lo, hi, dtype=jnp.float32) -> np.ndarray:
+    """The reference's uniform draw at ``dtype`` (bf16: an ``ml_dtypes`` array)."""
+    return np.array(jax.random.uniform(key, shape, dtype, lo, hi))
 
 
-def init_draws(key, n: int, m: int, k_draw: int) -> tuple[np.ndarray, np.ndarray]:
-    """Unscaled W/H draws of ``nmf_init`` / ``_masked_init`` for ``key``."""
+def init_draws(key, n: int, m: int, k_draw: int, dtype=jnp.float32) -> tuple[np.ndarray, np.ndarray]:
+    """Unscaled W/H draws of ``nmf_init`` / ``_masked_init`` for ``key``, at V's dtype."""
     kw, kh = jax.random.split(key)
-    return uniform(kw, (n, k_draw), 0.1, 1.0), uniform(kh, (k_draw, m), 0.1, 1.0)
+    return uniform(kw, (n, k_draw), 0.1, 1.0, dtype), uniform(kh, (k_draw, m), 0.1, 1.0, dtype)
 
 
-def ensemble_draws(key, n: int, m: int, k_draw: int, n_perturbs: int, epsilon: float):
+def ensemble_draws(key, n: int, m: int, k_draw: int, n_perturbs: int, epsilon: float, dtype=jnp.float32):
     """(noise, w, h) numpy draws of one NMFk ensemble at ``key`` (already
-    folded with k), as ``nmfk_score`` / ``_nmfk_score_masked`` make them."""
+    folded with k), as ``nmfk_score`` / ``_nmfk_score_masked`` make them
+    for a V of ``dtype``."""
     kp, kf = jax.random.split(key)
     pkeys = jax.random.split(kp, n_perturbs)
     fkeys = jax.random.split(kf, n_perturbs)
-    noise = np.stack([uniform(pk, (n, m), 1.0 - epsilon, 1.0 + epsilon) for pk in pkeys])
-    inits = [init_draws(fk, n, m, k_draw) for fk in fkeys]
+    noise = np.stack([uniform(pk, (n, m), 1.0 - epsilon, 1.0 + epsilon, dtype) for pk in pkeys])
+    inits = [init_draws(fk, n, m, k_draw, dtype) for fk in fkeys]
     return noise, np.stack([w for w, _ in inits]), np.stack([h for _, h in inits])
 
 
@@ -61,12 +63,13 @@ def reference_kmeans_draw_source(key, n: int):
     return draw
 
 
-def reference_draw_source(key, n: int, m: int, n_perturbs: int, epsilon: float = 0.015):
+def reference_draw_source(key, n: int, m: int, n_perturbs: int, epsilon: float = 0.015, dtype=jnp.float32):
     """A port draw source ``(k, k_draw) -> Draws`` yielding the reference's
-    draws of rank k under ``fold_in(key, k)`` (the evaluators' schedule)."""
+    draws of rank k under ``fold_in(key, k)`` (the evaluators' schedule)
+    for a V of ``dtype``."""
 
     def draw(k: int, k_draw: int):
-        arrays = ensemble_draws(jax.random.fold_in(key, k), n, m, k_draw, n_perturbs, epsilon)
+        arrays = ensemble_draws(jax.random.fold_in(key, k), n, m, k_draw, n_perturbs, epsilon, dtype)
         return draws_from_reference(*arrays, device="cpu")
 
     return draw

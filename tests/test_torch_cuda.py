@@ -561,14 +561,111 @@ def test_flash_bf16_kernel_matches_plain(b, hq, hk, lq, lk, d, causal, window, q
 
 @pytest.mark.cuda
 def test_bf16_halves_of_mu_pairwise_and_silhouette_are_queued():
+    """Of the three, pairwise's bf16 half alone is still queued: the MU and
+    silhouette wrappers take bf16 through their bf16 kernels (matching the
+    plain versions), the pairwise wrappers raise, and float16 is refused."""
     dev = card()
     x = torch.ones((8, 4), device=dev, dtype=torch.bfloat16)
-    with pytest.raises(TypeError, match="bf16 half is queued"):
-        ops.mu_update_h(x, x, x.T.contiguous()[:4, :4].contiguous())
+    w, h = x, torch.ones((4, 4), device=dev, dtype=torch.bfloat16)  # V (8, 4) = W (8, 4) H (4, 4)
+    onehot = torch.ones((8, 2), device=dev, dtype=torch.bfloat16)
+    ops.reset_launch_counts()
+    torch.testing.assert_close(ops.mu_update_h(x, w, h), ref.mu_update_h(x, w, h), **MU_BF16_TOL)
+    torch.testing.assert_close(ops.silhouette_dist_sums(x, onehot), ref.silhouette_dist_sums(x, onehot),
+                               **SUMS_BF16_TOL)
+    counts = ops.launch_counts()
+    assert counts["mu_update_h[bf16]"] == counts["silhouette_dist_sums[bf16]"] == 1
+    assert counts["mu_update_h"] == counts["silhouette_dist_sums"] == 0
     with pytest.raises(TypeError, match="bf16 half is queued"):
         ops.pairwise_sq_dists(x)
     with pytest.raises(TypeError, match="bf16 half is queued"):
-        ops.silhouette_dist_sums(x, torch.ones((8, 2), device=dev, dtype=torch.bfloat16))
+        ops.pairwise_sq_dists_batched(x[None])
+    with pytest.raises(TypeError, match="float16 is queued"):
+        ops.mu_update_w(x.half(), w.half(), h.half())
+    with pytest.raises(TypeError, match="of one dtype"):
+        ops.silhouette_dist_sums(x, onehot.float())
+
+
+MU_BF16_TOL = dict(rtol=2e-2, atol=2e-2)  # tests/test_kernels.py bf16 MU tolerance
+SUMS_BF16_TOL = dict(rtol=5e-2, atol=5e-1)  # tests/test_kernels.py bf16 distance tolerance
+
+
+def _fp64_err(got, want64) -> float:
+    return float((got.double() - want64).abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "lanes,n,m,k", [(32, 1000, 1100, 16), (8, 1000, 1100, 16), (1, 40, 24, 5), (3, 70, 50, 33), (2, 40, 30, 130)]
+)
+def test_mu_bf16_kernels_match_plain(lanes, n, m, k):
+    """bf16 V, W and H: the bf16 kernel against the plain version at the
+    reference's bf16 tolerance, its float64 error at most twice the plain
+    version's, masked components exactly zero, a repeat bitwise, and only
+    the bf16 kernel launched."""
+    dev = card()
+    v, w, h = (t.bfloat16() for t in _mu_problem(dev, k, lanes, n, m, k, dead=2))
+    for fn, plain in ((ops.mu_update_h, ref.mu_update_h), (ops.mu_update_w, ref.mu_update_w)):
+        ops.reset_launch_counts()
+        got = fn(v, w, h)
+        counts = ops.launch_counts()
+        assert counts[ops.bf16_name(fn)] == 1 and counts[fn.__name__] == 0
+        want = plain(v, w, h)
+        assert got.dtype == want.dtype == torch.bfloat16
+        torch.testing.assert_close(got.float(), want.float(), **MU_BF16_TOL)
+        want64 = plain(v.double(), w.double(), h.double())
+        assert _fp64_err(got, want64) <= 2 * _fp64_err(want, want64)
+        assert torch.equal(got, fn(v, w, h))
+    assert float(ops.mu_update_h(v, w, h)[:, -2:, :].abs().max()) == 0.0
+    assert float(ops.mu_update_w(v, w, h)[:, :, -2:].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,p,k,d", [(1, 4, 13, 1000), (8, 4, 16, 1000), (2, 3, 11, 999), (2, 2, 130, 17)])
+def test_dist_sums_bf16_kernel_matches_plain(b, p, k, d):
+    """Pooled near-duplicate columns at bf16: float32 sums within the
+    reference's bf16 distance tolerance of the plain version, the float64
+    error at most twice the plain version's, a repeat bitwise, and only the
+    bf16 kernel launched (2-D at b = 1, the batched entry otherwise)."""
+    dev = card()
+    gen = torch.Generator(device=dev).manual_seed(b * k + d)
+    base = torch.rand((b, 1, d, k), device=dev, generator=gen)
+    cols = base + 0.01 * torch.rand((b, p, d, k), device=dev, generator=gen)
+    x = (cols / cols.norm(dim=2, keepdim=True)).transpose(2, 3).reshape(b, p * k, d).bfloat16().contiguous()
+    onehot = torch.nn.functional.one_hot(torch.arange(k, device=dev).repeat(p), k).bfloat16().expand(
+        b, p * k, k).contiguous()
+    fn, args = (ops.silhouette_dist_sums, (x[0], onehot[0])) if b == 1 else (ops.silhouette_dist_sums_batched,
+                                                                          (x, onehot))
+    ops.reset_launch_counts()
+    got = fn(*args)
+    counts = ops.launch_counts()
+    assert counts[ops.bf16_name(fn)] == 1 and counts[fn.__name__] == 0
+    want = ref.silhouette_dist_sums(*args)
+    assert got.dtype == want.dtype == torch.float32
+    torch.testing.assert_close(got, want, **SUMS_BF16_TOL)
+    want64 = ref.silhouette_dist_sums(*(a.double() for a in args))
+    assert _fp64_err(got, want64) <= 2 * _fp64_err(want, want64)
+    assert torch.equal(got, fn(*args))
+
+
+@pytest.mark.cuda
+def test_bf16_nmfk_launches_the_bf16_kernels_only():
+    """A bf16 batched NMFk score on the card runs the bf16 MU and silhouette
+    kernels and none of the float32 ones; a float32 one the reverse."""
+    from repro_torch.factorization.nmfk import nmfk_score_batched
+    from repro_torch.factorization.synthetic import nmf_data
+
+    dev = card()
+    for dtype in (torch.bfloat16, torch.float32):
+        v, _, _ = nmf_data(96, 104, 5, seed=0, device=dev, dtype=dtype)
+        ops.reset_launch_counts()
+        sc = nmfk_score_batched(v, [4, 5, 6], k_pad=6, n_perturbs=2, nmf_iters=20)
+        counts = ops.launch_counts()
+        assert sc.rel_error.dtype == dtype and sc.min_silhouette.dtype == torch.float32
+        bf16 = {name: counts[ops.bf16_name(getattr(ops, name))] for name in
+                ("mu_update_h", "mu_update_w", "silhouette_dist_sums_batched")}
+        fp32 = {name: counts[name] for name in bf16}
+        on, off = (bf16, fp32) if dtype == torch.bfloat16 else (fp32, bf16)
+        assert min(on.values()) >= 1 and max(off.values()) == 0, counts
 
 
 @pytest.mark.cuda
