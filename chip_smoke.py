@@ -42,7 +42,11 @@ Phases, each fatal on failure:
      silhouette kernel (52 points in 2-D; 8 lanes and one lane of 64
      points; d 1000) at the reference's bf16 tolerances, each kernel's
      float64 error at most twice its plain version's, a bitwise repeat,
-     the bound from bf16 bytes;
+     the bound from bf16 bytes; the bf16 half of the pairwise kernels at
+     the pairwise shapes (``check_pairwise_bf16``): the reference's bf16
+     tolerance against the plain version, the fp32 kernel's bits on the
+     widened operands, a bitwise repeat, the float64 error at most twice
+     the plain version's, ``torch.cdist`` at bf16 beside;
   4. hold the batched NMFk score, the elastic NMFk plane (ks 2..8 drained
      at tol 0, with and without warm starts: scores, sweep counts and
      warm-start hits), the K-Means + Davies-Bouldin search of
@@ -66,7 +70,12 @@ Phases, each fatal on failure:
      gradients, a bitwise checkpoint round trip of (params, opt state), no
      flash launch, and the flash wrapper refusing an operand that requires
      grad;
-     then RESCAL and RESCALk (96 entities, 3 relations, k 2..6) and the
+     the K-Means search and silhouette wave again on the blobs at bf16
+     (the bf16 kernels alone launched, labels and visits equal, DB at the
+     same gate);
+     then RESCAL and RESCALk (96 entities, 3 relations, k 2..6; RESCALk
+     again at bf16: each k within twice the CPU's own bf16-vs-fp32 gap of
+     the CPU's bf16 run, which replays the card's column alignments) and the
      distributed fits on a one-rank NCCL group (``distributed_nmf`` sync and
      pipelined, bitwise equal at one rank; ``distributed_rescal``; the
      masked body against the single-device masked fit) against the CPU;
@@ -107,7 +116,13 @@ Phases, each fatal on failure:
      k_true 4, k 2..11) on the serial and the threads executor (k_optimal 4);
      ``kmeans_db_1m`` — Binary Bleed over K-Means with Davies-Bouldin on
      10^6 blob points (d 6, k_true 7, k 2..24) — on the scalar executor (two
-     threads) and the batched one (k_optimal 7); then the port's ``serve``
+     threads) and the batched one (k_optimal 7); ``rescalk_1000_bf16`` and
+     ``kmeans_db_1m_bf16``: the same searches on their data at bf16 through
+     the API (k_optimal 4, or the CPU's bf16 search's where bf16 chooses
+     otherwise, and 7; only the bf16 silhouette or pairwise kernels
+     launched; walls, busy share and peak beside fp32's), then the centroid
+     sums at 10^6 points against a bf16 GEMM with PyTorch's reduced-precision
+     reduction on and off (logged); then the port's ``serve``
      with qwen2-0.5b and with granite-moe-1b-a400m at their published widths
      (24 layers, random weights from seed 0), 4 prompts of 1000 tokens, 32
      new tokens: one flash launch per layer, finite logits, and decode-step
@@ -185,7 +200,9 @@ Phases, each fatal on failure:
      median step time, tokens/s and peak memory logged (``qwen2_train``,
      ``granite_train``, ``rwkv6_train``).
 
-The second-to-last line is ``{"kernels": [...]}`` and the last line is
+After phase 5, every path without bf16 in its name is checked to have
+launched no bf16 kernel. The second-to-last line is ``{"kernels": [...]}``
+and the last line is
 ``{"ok": true, "device": {...}}``. Without a card, or outside a checkout of
 the repository, the script exits non-zero and prints no result.
 """
@@ -736,6 +753,82 @@ def check_pairwise(torch, dev, ops, ref, records: dict, log) -> None:
         records.setdefault(name, []).append(entry)
 
 
+def check_pairwise_bf16(torch, dev, ops, ref, records: dict, log) -> None:
+    """The bf16 half of both pairwise wrappers (bf16 x and y; fp32 D^2) at
+    ``check_pairwise``'s shapes, on ``KM_DATA`` at bf16: 1 and 16 lanes with
+    x shared at m 24, 2-D at m 24, 2, 7 and 13, the general path, a ragged
+    case. Against the plain version at the reference's bf16 tolerance;
+    bitwise the fp32 kernel's output on the widened operands (widening is
+    exact and the adds are the fp32 kernel's); two calls bitwise equal; the
+    float64 error at most twice the plain version's; only the bf16 kernel
+    launched. The timed cases report their bf16 bound and ``torch.cdist``
+    at bf16 where it runs."""
+    from repro_torch.factorization.synthetic import blob_data
+
+    bf16 = torch.bfloat16
+    x, _ = blob_data(**KM_DATA, device=dev, dtype=bf16)
+    n, d = x.shape
+    b, m = KM_WAVE, KM_K_PAD
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    pick = torch.randint(0, n, (b, m), device=dev, generator=gen)
+    y = (x[pick] + 0.1 * torch.randn((b, m, d), device=dev, generator=gen, dtype=bf16)).contiguous()
+    rng_x = torch.randn((3, 70, 17), device=dev, generator=gen).to(bf16)
+    rng_y = torch.randn((3, 30, 17), device=dev, generator=gen).to(bf16)
+    m_gen = 4 * ops.PAIRWISE_THIN_COLS // 3
+    pick_gen = torch.randint(0, n, (2, m_gen), device=dev, generator=gen)
+    y_gen = (x[pick_gen] + 0.1 * torch.randn((2, m_gen, d), device=dev, generator=gen, dtype=bf16)).contiguous()
+    x_gen = x[: n // 10]
+    batched, two_d = ops.pairwise_sq_dists_batched, ops.pairwise_sq_dists
+    cases = [  # the order of check_pairwise: the kernels line reports each wrapper's first timed case
+        (batched, (x, y[:1]), f"bf16: b=1 lane, x shared (n={n}, d={d}), m={m}", True),
+        (batched, (x, y), f"bf16: b={b} lanes, x shared (n={n}, d={d}), m={m}", True),
+        (two_d, (x, y[0]), f"bf16: n={n}, m={m}, d={d}", True),
+        *[(two_d, (x, y[0, :k].contiguous()), f"bf16: n={n}, m={k}, d={d}", True) for k in (2, 7, 13)],
+        (batched, (x_gen, y_gen), f"bf16 general path: b=2 lanes, x shared (n={x_gen.shape[0]}, d={d}), "
+                                  f"m={m_gen}", False),
+        (batched, (rng_x, rng_y), "bf16 ragged b=3, n=70, m=30, d=17", False),
+    ]
+    for wrapper, (xx, yy), label, timed in cases:
+        name = ops.bf16_name(wrapper)
+        ops.reset_launch_counts()
+        got = wrapper(xx, yy)
+        counts = ops.launch_counts()
+        if counts[name] != 1 or counts[wrapper.__name__] != 0:
+            raise AssertionError(f"{name} [{label}]: launches {counts}")
+        again, widened = wrapper(xx, yy), wrapper(xx.float(), yy.float())
+        want = ref.pairwise_sq_dists(xx, yy)
+        torch.cuda.synchronize()
+        if got.dtype != torch.float32:
+            raise AssertionError(f"{name} [{label}]: output dtype {got.dtype}")
+        err = compare(torch, got, want, SUMS_BF16_TOL["rtol"], SUMS_BF16_TOL["atol"], f"{name} [{label}]")
+        if not torch.equal(got, again):
+            raise AssertionError(f"{name} [{label}]: two calls differ bitwise")
+        if not torch.equal(got, widened):
+            raise AssertionError(f"{name} [{label}]: not the fp32 kernel's bits on the widened operands")
+        entry = {"case": label, "max_abs_err": err, "bitwise_equal_rerun": True, "bitwise_fp32_widened": True,
+                 **fp64_gate(torch, got, want, ref.pairwise_sq_dists(xx.double(), yy.double()), f"{name} [{label}]")}
+        del got, again, widened, want
+        if timed:
+            lanes = yy.shape[0] if yy.dim() == 3 else 1
+            n_x, n_y = xx.shape[-2], yy.shape[-2]
+            n_bytes = 2 * (xx.numel() + yy.numel()) + 4 * lanes * n_x * n_y  # bf16 in, fp32 D^2 out
+            # x . y of bf16 operands with fp32 sums at the bf16 rate; norms and epilogue in fp32
+            b_ms, b_by = bound_ms(n_bytes, lanes * 2 * n_x * n_y * d, BF16_FLOPS_PER_S,
+                                  fp32_flops=lanes * 3 * n_x * n_y + 2 * xx.numel() + 2 * yy.numel())
+            entry.update(ms=time_ms(torch, lambda: wrapper(xx, yy)),
+                         plain_ms=time_ms(torch, lambda: ref.pairwise_sq_dists(xx, yy)), bound_ms=b_ms, bound_by=b_by)
+            x_lib = xx.expand(lanes, n_x, d) if yy.dim() == 3 else xx
+            try:
+                entry["library_ms"] = time_ms(
+                    torch, lambda: torch.cdist(x_lib, yy, compute_mode="use_mm_for_euclid_dist"))
+                entry["library"] = "torch.cdist(use_mm_for_euclid_dist) at bf16: the square root of D^2, one call"
+            except RuntimeError as exc:  # a refusal of the dtype: no PyTorch call computes it
+                entry.update(library_ms=None, library=f"none: torch.cdist at bf16 raised {str(exc).splitlines()[0]!r}")
+        log(json.dumps({"check": name, **entry}))
+        records.setdefault(name, []).append(entry)
+
+
 def check_nmfk_small(torch, dev, log) -> None:
     """Batched NMFk on the card (kernels) vs on the CPU (plain), same draws:
     ks 2..8 at k_pad 8 (96 x 104, 120 sweeps), and a wave padded past 128
@@ -829,17 +922,29 @@ def check_nmfk_elastic_small(torch, dev, ops, log) -> None:
                         "dispatched_shapes": sorted(card.shapes_dispatched), "launches": launches}))
 
 
-def check_kmeans_small(torch, dev, ops, log) -> None:
+def check_kmeans_small(torch, dev, ops, log, dtype=None) -> None:
     """tests/test_integration.py's K-Means + Davies-Bouldin search (serial,
     so the visit order is fixed) on the card (kernels) and on the CPU (plain
-    versions) with the same draws; then a small K-Means silhouette wave."""
+    versions) with the same draws; then a small K-Means silhouette wave.
+    ``dtype`` bf16 runs both on the blobs at bf16: the bf16 kernels alone
+    launched (fp32 distances of bf16 centroids, as on the reference's
+    kernel route), the same labels, visits and DB gate."""
     from repro_torch.core import binary_bleed_search, davies_bouldin_score
     from repro_torch.factorization.kmeans import kmeans
     from repro_torch.factorization.planes import KMeansBatchPlane
     from repro_torch.factorization.synthetic import blob_data
     from repro_torch.random import KMeansDraws, seeded_kmeans_draws
 
-    x, _ = blob_data(n=240, d=5, k_true=5, std=0.3, spread=10.0, seed=3, device=dev)
+    dtype = dtype or torch.float32
+    tag = " bf16" if dtype == torch.bfloat16 else ""
+
+    def kernel(wrapper) -> str:  # launch_counts' name of the kernel this dtype takes
+        return ops.bf16_name(wrapper) if tag else wrapper.__name__
+
+    def other(wrapper) -> str:
+        return wrapper.__name__ if tag else ops.bf16_name(wrapper)
+
+    x, _ = blob_data(n=240, d=5, k_true=5, std=0.3, spread=10.0, seed=3, device=dev, dtype=dtype)
     card_draws = seeded_kmeans_draws(3, 240, dev)
 
     def cpu_draws(k, k_draw):
@@ -858,80 +963,155 @@ def check_kmeans_small(torch, dev, ops, log) -> None:
         runs[where] = (res, labels, ops.launch_counts())
     (card, card_labels, launches), (cpu, cpu_labels, _) = runs["card"], runs["cpu"]
     if card.k_optimal != cpu.k_optimal or card.k_optimal != 5:
-        raise AssertionError(f"K-Means search: k_optimal card {card.k_optimal}, cpu {cpu.k_optimal}, want 5")
+        raise AssertionError(f"K-Means{tag} search: k_optimal card {card.k_optimal}, cpu {cpu.k_optimal}, want 5")
     if card.visited_ks != cpu.visited_ks:
-        raise AssertionError(f"K-Means search visited {sorted(card.visited_ks)} on the card, "
+        raise AssertionError(f"K-Means{tag} search visited {sorted(card.visited_ks)} on the card, "
                              f"{sorted(cpu.visited_ks)} on the CPU")
     card_db = {v.k: v.score for v in card.visits}
     cpu_db = {v.k: v.score for v in cpu.visits}
     for k in card_db:
         if not torch.equal(card_labels[k], cpu_labels[k]):
-            raise AssertionError(f"K-Means k={k}: card and CPU labels differ")
+            raise AssertionError(f"K-Means{tag} k={k}: card and CPU labels differ at "
+                                 f"{int((card_labels[k] != cpu_labels[k]).sum())} points")
         if abs(card_db[k] - cpu_db[k]) > KM_DB_RTOL * abs(cpu_db[k]):
-            raise AssertionError(f"K-Means k={k}: DB card {card_db[k]} vs CPU {cpu_db[k]}")
-    if launches["pairwise_sq_dists"] < 1:
-        raise AssertionError("the card's K-Means search never launched pairwise_sq_dists")
+            raise AssertionError(f"K-Means{tag} k={k}: DB card {card_db[k]} vs CPU {cpu_db[k]}")
+    if launches[kernel(ops.pairwise_sq_dists)] < 1 or launches[other(ops.pairwise_sq_dists)]:
+        raise AssertionError(f"the card's K-Means{tag} search launched {launches}")
     # k past one block of k-means++ draws (128): same draws, same labels
     fits = {where: kmeans(xx, 129, draws(129, 129), max_iters=25)
             for where, xx, draws in (("card", x, card_draws), ("cpu", x.cpu(), cpu_draws))}
     if not torch.equal(fits["card"].labels.cpu(), fits["cpu"].labels):
-        raise AssertionError("K-Means k=129: card and CPU labels differ")
-    if tuple(fits["card"].centroids.shape) != (129, x.shape[1]):
-        raise AssertionError(f"K-Means k=129: centroids of shape {tuple(fits['card'].centroids.shape)}")
+        raise AssertionError(f"K-Means{tag} k=129: card and CPU labels differ")
+    if tuple(fits["card"].centroids.shape) != (129, x.shape[1]) or fits["card"].centroids.dtype != dtype:
+        raise AssertionError(f"K-Means{tag} k=129: centroids {tuple(fits['card'].centroids.shape)} "
+                             f"{fits['card'].centroids.dtype}")
     gap = max(abs(card_db[k] - cpu_db[k]) for k in card_db)
-    log(json.dumps({"check": "kmeans + davies_bouldin search card vs plain", "k_optimal": card.k_optimal,
+    log(json.dumps({"check": f"kmeans + davies_bouldin search{tag} card vs plain", "k_optimal": card.k_optimal,
                     "visited": sorted(card.visited_ks), "db_card": card_db, "db_max_abs_gap": gap,
                     "launches": launches, "k129_labels_equal": True, "k129_iters": int(fits["card"].iters)}))
 
     ks = [2, 3, 4, 5]
     ops.reset_launch_counts()
     on_card = KMeansBatchPlane(x, score="silhouette", max_iters=25, k_pad=8, draws=card_draws).evaluate_batch(ks)
-    sil_launches = ops.launch_counts()["silhouette_dist_sums_batched"]
+    counts = ops.launch_counts()
+    sil_launches = counts[kernel(ops.silhouette_dist_sums_batched)]
     on_cpu = KMeansBatchPlane(x.cpu(), score="silhouette", max_iters=25, k_pad=8,
                               draws=cpu_draws).evaluate_batch(ks)
     gap = max(abs(a - c) for a, c in zip(on_card, on_cpu))
-    if not gap <= KM_SIL_ATOL or sil_launches < 1:
-        raise AssertionError(f"K-Means silhouette wave: card vs plain gap {gap:.3e}, "
-                             f"{sil_launches} silhouette_dist_sums_batched launches")
-    log(json.dumps({"check": "kmeans silhouette wave card vs plain", "ks": ks, "card": on_card,
+    if not gap <= KM_SIL_ATOL or sil_launches < 1 or counts[other(ops.silhouette_dist_sums_batched)]:
+        raise AssertionError(f"K-Means{tag} silhouette wave: card vs plain gap {gap:.3e}, launches {counts}")
+    log(json.dumps({"check": f"kmeans silhouette wave{tag} card vs plain", "ks": ks, "card": on_card,
                     "max_abs_gap": gap, "silhouette_dist_sums_batched_launches": sil_launches}))
+
+
+def kmeans_api_search(x, executor: str):
+    """kmeans_db_1m's search on x (at its dtype) on one executor: the
+    batched plane (k_pad 24), or per-k fits on two threads."""
+    from repro_torch.core import binary_bleed_search, davies_bouldin_score
+    from repro_torch.factorization.kmeans import kmeans
+    from repro_torch.factorization.planes import KMeansBatchPlane
+
+    if executor == "batched":
+        evaluate = KMeansBatchPlane(x, seed=0, score="davies_bouldin", max_iters=KM_MAX_ITERS, k_pad=KM_K_PAD)
+        return binary_bleed_search(evaluate, **KM_SEARCH, executor="batched"), evaluate
+
+    def evaluate(k, should_abort=None):
+        res = kmeans(x, int(k), seed=0, max_iters=KM_MAX_ITERS)
+        return float(davies_bouldin_score(x, res.labels, int(k)))
+    return binary_bleed_search(evaluate, **KM_SEARCH, num_resources=2), None
 
 
 def run_kmeans_search(torch, dev, ops, executor: str, log) -> dict[str, int]:
     """kmeans_db_1m on one executor; counts reset just before, read just after."""
-    from repro_torch.core import binary_bleed_search, davies_bouldin_score
-    from repro_torch.factorization.kmeans import kmeans
-    from repro_torch.factorization.planes import KMeansBatchPlane
     from repro_torch.factorization.synthetic import blob_data
 
     x, planted = blob_data(**KM_DATA, device=dev)
     centers = torch.stack([x[planted == c].mean(dim=0) for c in range(KM_DATA["k_true"])])
     gaps = (centers[:, None] - centers[None]).norm(dim=-1).fill_diagonal_(math.inf)
-    if executor == "batched":
-        evaluate = KMeansBatchPlane(x, seed=0, score="davies_bouldin", max_iters=KM_MAX_ITERS, k_pad=KM_K_PAD)
-        kw = dict(executor="batched")
-    else:
-        def evaluate(k, should_abort=None):
-            res = kmeans(x, int(k), seed=0, max_iters=KM_MAX_ITERS)
-            return float(davies_bouldin_score(x, res.labels, int(k)))
-        kw = dict(num_resources=2)
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     t0 = sync_wall(torch)
-    res = binary_bleed_search(evaluate, **KM_SEARCH, **kw)
+    res, plane = kmeans_api_search(x, executor)
     wall = sync_wall(torch) - t0
     counts = ops.launch_counts()
+    KM_RECORDS[executor] = {"wall_s": wall, "max_memory_allocated": torch.cuda.max_memory_allocated()}
     log(json.dumps({"search": f"kmeans_db_1m {executor}", "k_optimal": res.k_optimal,
                     "planted_min_center_gap": float(gaps.min()),
                     "visited": {v.k: v.score for v in sorted(res.visits, key=lambda v: v.k)},
-                    "waves": getattr(evaluate, "n_dispatches", None), "wall_s": wall,
-                    "max_memory_allocated": torch.cuda.max_memory_allocated(), "launches": counts}))
+                    "waves": getattr(plane, "n_dispatches", None), **KM_RECORDS[executor], "launches": counts}))
     if res.k_optimal != KM_DATA["k_true"]:
         raise AssertionError(f"kmeans_db_1m {executor}: k_optimal {res.k_optimal} != {KM_DATA['k_true']}")
     name = "pairwise_sq_dists_batched" if executor == "batched" else "pairwise_sq_dists"
     if counts[name] < 1:
         raise AssertionError(f"kmeans_db_1m {executor}: kernel {name} was never launched on the main path")
     return counts
+
+
+# kmeans_db_1m's wall and peak by executor, beside which kmeans_db_1m_bf16 logs its own
+KM_RECORDS: dict[str, dict] = {}
+
+
+def run_kmeans_bf16(torch, dev, ops, log) -> dict[str, dict[str, int]]:
+    """``kmeans_db_1m_bf16``: kmeans_db_1m's search on ``KM_DATA`` at bf16
+    through the API, on threads and batched: k_optimal 7; the main path's
+    launches (counts reset just before, read just after) the bf16 pairwise
+    kernel's alone; wall, device busy share and peak beside kmeans_db_1m's,
+    with the card's name and power limit. Then the centroid sums at 10^6
+    points (k 7): the port's (float32 operands, one rounding to bf16)
+    against a bf16 GEMM of the same one-hot and x with PyTorch's
+    ``allow_bf16_reduced_precision_reduction`` on and off, and against the
+    CPU's; logged, not gated."""
+    from repro_torch.core.scoring import _cluster_sums, _one_hot
+    from repro_torch.factorization.kmeans import kmeans
+    from repro_torch.factorization.synthetic import blob_data
+
+    x, _ = blob_data(**KM_DATA, device=dev, dtype=torch.bfloat16)
+    out, smi = {}, smi_line()
+    for executor in ("threads", "batched"):
+        label = f"kmeans_db_1m_bf16_{executor}"
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = sync_wall(torch)
+        res, plane = kmeans_api_search(x, executor)
+        wall = sync_wall(torch) - t0
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        busy = busy_share(torch, lambda: kmeans_api_search(x, executor))[0]
+        wrapper = ops.pairwise_sq_dists_batched if executor == "batched" else ops.pairwise_sq_dists
+        stray = {name: c for name, c in counts.items() if not name.endswith("[bf16]") and c}
+        log(json.dumps({"search": label, "k_optimal": res.k_optimal,
+                        "visited": {v.k: v.score for v in sorted(res.visits, key=lambda v: v.k)},
+                        "waves": getattr(plane, "n_dispatches", None), "wall_s": wall, "busy_share": busy,
+                        "max_memory_allocated": peak, "fp32": KM_RECORDS.get(executor), "launches": counts,
+                        "card": smi}))
+        if res.k_optimal != KM_DATA["k_true"]:
+            raise AssertionError(f"{label}: k_optimal {res.k_optimal} != {KM_DATA['k_true']}")
+        if counts[ops.bf16_name(wrapper)] < 1 or stray:
+            raise AssertionError(f"{label}: the main path's launches {counts}")
+        out[label] = counts
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    shapes = (  # one fit's labels at k 7, and a full batched wave's shape (16 lanes of 24 slots)
+        ("k7", kmeans(x, KM_DATA["k_true"], seed=0, max_iters=KM_MAX_ITERS).labels, KM_DATA["k_true"]),
+        ("wave16_k24", torch.randint(0, KM_K_PAD, (KM_WAVE, x.shape[0]), device=dev, generator=gen), KM_K_PAD))
+    saved = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    for shape, labels, k in shapes:
+        onehot = _one_hot(labels, k, torch.float32)
+        port, gemm = _cluster_sums(onehot, x), {}
+        try:
+            for reduced in (True, False):
+                torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = reduced
+                got = torch.matmul(onehot.bfloat16().transpose(-1, -2), x)
+                gemm[f"bf16_gemm_reduced_{str(reduced).lower()}"] = {
+                    "elements_differing": int((got != port).sum()),
+                    "max_abs_diff": float((got.float() - port.float()).abs().max())}
+        finally:
+            torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = saved
+        gemm["cpu_elements_differing"] = int((_cluster_sums(onehot.cpu(), x.cpu()) != port.cpu()).sum())
+        log(json.dumps({"check": "kmeans bf16 centroid sums at 10^6 points, the port's against a bf16 GEMM",
+                        "shape": shape, "elements": port.numel(), **gemm}))
+    return out
 
 
 def run_search(torch, ops, ksearch, executor: str, log, extra: tuple[str, ...] = (), label: str | None = None) -> dict[str, int]:
@@ -1153,6 +1333,65 @@ def check_rescal_small(torch, dev, ops, log) -> None:
                     "rel_error_max_rel_gap": err_gap, "scores_card_cpu": scores, "launches": launches}))
 
 
+def check_rescal_small_bf16(torch, dev, ops, log) -> None:
+    """``check_rescal_small``'s X and draws at bf16 (the fit at bf16, the
+    silhouette through the bf16 silhouette kernel): ``rescalk_score`` at k
+    2..6 on the card against the CPU's bf16 run and, for the gap, the CPU's
+    float32 run of the same values. The greedy column alignment takes the
+    largest bf16 similarity, so the CPU's bf16 run takes the card's
+    alignments and every flip's first split must be a near-tie
+    (``AlignLog``). Each k's silhouette within twice the CPU's own
+    bf16-vs-fp32 gap (floor ``BF16_SIL_FLOOR``), its error likewise or
+    within two bf16 ulps; only the bf16 silhouette kernel launched."""
+    import importlib
+
+    from repro_torch.factorization.synthetic import rescal_data
+    from repro_torch.random import RESCALDraws, seeded_rescal_draws
+
+    rescal_mod = importlib.import_module("repro_torch.factorization.rescal")
+    n, nr, p, bf16 = 96, 3, 3, torch.bfloat16
+    x, _, _ = rescal_data(n_entities=n, n_relations=nr, k_true=4, noise=0.01, seed=0, device="cpu", dtype=bf16)
+    source = seeded_rescal_draws(0, n, nr, p, RESCAL_EPS, "cpu", bf16)
+    ks = range(2, 7)
+    align = AlignLog()
+    undo = align.patch(torch, rescal_mod, "record")
+    ops.reset_launch_counts()
+    try:
+        card = {k: rescal_mod.rescalk_score(x.to(dev), k, RESCALDraws(*(t.to(dev) for t in source(k))), iters=150)
+                for k in ks}
+    finally:
+        undo()
+    launches = ops.launch_counts()
+    undo = align.patch(torch, rescal_mod, "replay")
+    try:
+        cpu16 = {k: rescal_mod.rescalk_score(x, k, source(k), iters=150) for k in ks}
+    finally:
+        undo()
+    cpu32 = {k: rescal_mod.rescalk_score(x.float(), k, RESCALDraws(*(t.float() for t in source(k))), iters=150)
+             for k in ks}
+    per_k, failed = {}, []
+    for k in ks:
+        (sil, err), (sil16, err16), (sil32, err32) = ((float(a), float(b)) for a, b in (card[k], cpu16[k], cpu32[k]))
+        sil_bound = max(BF16_GAP_RATIO * abs(sil16 - sil32), BF16_SIL_FLOOR)
+        err_bound = max(BF16_GAP_RATIO * abs(err16 - err32), 2 * bf16_ulp(err16))
+        if not abs(sil - sil16) <= sil_bound:
+            failed.append(f"k {k} silhouette: card {sil:.5f} vs CPU bf16 {sil16:.5f} > {sil_bound:.3e}")
+        if not abs(err - err16) <= err_bound:
+            failed.append(f"k {k} rel_error: card {err:.5f} vs CPU bf16 {err16:.5f} > {err_bound:.3e}")
+        per_k[k] = {"silhouette": [sil, sil16, sil32, sil_bound], "rel_error": [err, err16, err32, err_bound]}
+    failed += [f"k {f['k']}: the CPU's own alignment left the card's at a margin of {f['margin_ulps']:.2f} bf16 "
+               f"ulps, beyond {AlignLog.ALIGN_TIE_ULPS}" for f in align.flips if not f["near_tie"]]
+    if launches["silhouette_dist_sums[bf16]"] < len(ks) or launches["silhouette_dist_sums"]:
+        failed.append(f"launches {launches}")
+    if any(card[k][0].dtype != torch.float32 or card[k][1].dtype != bf16 for k in ks):
+        failed.append("the card's silhouettes are not float32 or its errors not bf16")
+    log(json.dumps({"check": "rescalk_score bf16 card vs CPU", "entities": n, "relations": nr,
+                    "per_k_card_cpu16_cpu32_bound": per_k, "align_flips_cpu_bf16": align.flips,
+                    "launches": launches}))
+    if failed:
+        raise AssertionError("rescalk_score bf16: " + "; ".join(failed))
+
+
 def check_distributed_small(torch, dev, ops, log) -> None:
     """The distributed fits on a one-rank NCCL group (a ``file://`` store in
     a temporary directory, destroyed at the end of the phase) against the
@@ -1273,33 +1512,54 @@ def check_sharded_small(torch, dev, ops, log) -> None:
 
 
 def run_rescalk_searches(torch, dev, ops, log) -> dict[str, dict[str, int]]:
-    """rescalk_1000 on the serial and the threads executor: launch counts by path."""
+    """rescalk_1000 and rescalk_1000_bf16 (the same X at bf16) on the serial
+    and the threads executor: launch counts by path."""
     from repro_torch.factorization.synthetic import rescal_data
 
-    x = rescal_data(**RESCAL_DATA, device="cpu")[0].to(dev)
-    return {f"rescalk_1000_{ex}": run_rescalk_search(torch, ops, x, ex, log) for ex in ("serial", "threads")}
+    out = {}
+    for dtype, tag in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
+        x = rescal_data(**RESCAL_DATA, device="cpu", dtype=dtype)[0].to(dev)
+        out.update({f"rescalk_1000{tag}_{ex}": run_rescalk_search(torch, ops, x, ex, log) for ex in ("serial", "threads")})
+    return out
 
 
 def run_rescalk_search(torch, ops, x, executor: str, log) -> dict[str, int]:
-    """rescalk_1000 on one executor; counts reset just before, read just after."""
+    """rescalk_1000 on one executor at x's dtype; counts reset just before,
+    read just after. At bf16 the main path launches the bf16 silhouette
+    kernel alone; k_optimal 4 is its gate, and where bf16 chooses otherwise,
+    the CPU's bf16 search of the same X and draws is (logged as such)."""
     from repro_torch.core import binary_bleed_search
     from repro_torch.factorization.rescal import make_rescalk_evaluator
+    from repro_torch.random import RESCALDraws, seeded_rescal_draws
 
-    evaluate = make_rescalk_evaluator(x, seed=0, n_perturbs=RESCAL_P, iters=RESCAL_ITERS, epsilon=RESCAL_EPS)
+    bf16 = x.dtype == torch.bfloat16
+    label = f"rescalk_1000{'_bf16' if bf16 else ''} {executor}"
+    nr, n, _ = x.shape
+    source = seeded_rescal_draws(0, n, nr, RESCAL_P, RESCAL_EPS, x.device, x.dtype)  # the evaluator's default
+    kw = dict(n_perturbs=RESCAL_P, iters=RESCAL_ITERS, epsilon=RESCAL_EPS)
     resources = 1 if executor == "serial" else RESCAL_THREADS
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     t0 = sync_wall(torch)
-    res = binary_bleed_search(evaluate, **RESCAL_SEARCH, num_resources=resources)
+    res = binary_bleed_search(make_rescalk_evaluator(x, seed=0, **kw), **RESCAL_SEARCH, num_resources=resources)
     wall = sync_wall(torch) - t0
     counts = ops.launch_counts()
-    log(json.dumps({"search": f"rescalk_1000 {executor}", "k_optimal": res.k_optimal, "resources": resources,
-                    "visited": {v.k: v.score for v in sorted(res.visits, key=lambda v: v.k)}, "wall_s": wall,
-                    "max_memory_allocated": torch.cuda.max_memory_allocated(), "launches": counts}))
-    if res.k_optimal != RESCAL_DATA["k_true"]:
-        raise AssertionError(f"rescalk_1000 {executor}: k_optimal {res.k_optimal} != {RESCAL_DATA['k_true']}")
-    if counts["silhouette_dist_sums"] < 1:
-        raise AssertionError(f"rescalk_1000 {executor}: silhouette_dist_sums was never launched on the main path")
+    entry = {"search": label, "k_optimal": res.k_optimal, "resources": resources,
+             "visited": {v.k: v.score for v in sorted(res.visits, key=lambda v: v.k)}, "wall_s": wall,
+             "max_memory_allocated": torch.cuda.max_memory_allocated(), "launches": counts}
+    want, gate = RESCAL_DATA["k_true"], "k_true"
+    if bf16 and res.k_optimal != want:
+        cpu = binary_bleed_search(make_rescalk_evaluator(
+            x.cpu(), **kw, draws=lambda k: RESCALDraws(*(t.cpu() for t in source(k)))), **RESCAL_SEARCH)
+        want, gate = cpu.k_optimal, "the CPU's bf16 search"
+        entry["cpu_visited"] = {v.k: v.score for v in sorted(cpu.visits, key=lambda v: v.k)}
+    log(json.dumps({**entry, "gate": gate}))
+    if res.k_optimal != want:
+        raise AssertionError(f"{label}: k_optimal {res.k_optimal} != {want} ({gate})")
+    sil = ops.bf16_name(ops.silhouette_dist_sums) if bf16 else "silhouette_dist_sums"
+    stray = {name: c for name, c in counts.items() if name.endswith("[bf16]") != bf16 and c}
+    if counts[sil] < 1 or stray:
+        raise AssertionError(f"{label}: the main path's launches {counts}")
     return counts
 
 
@@ -1423,14 +1683,17 @@ class AlignLog:
         self.labels: dict[int, object] = {}
         self.flips: list[dict] = []
 
-    def patch(self, torch, nmfk, mode: str):
-        """Wrap both alignments in ``nmfk`` (``mode`` record or replay); returns the undo."""
-        saved = nmfk._align_columns, nmfk._align_columns_masked
-        nmfk._align_columns = self._wrap(torch, saved[0], mode, masked=False)
-        nmfk._align_columns_masked = self._wrap(torch, saved[1], mode, masked=True)
+    def patch(self, torch, module, mode: str):
+        """Wrap the alignments ``module`` holds (``nmfk``: both; ``rescal``:
+        ``_align_columns``) for ``mode`` record or replay; returns the undo."""
+        names = [name for name in ("_align_columns", "_align_columns_masked") if hasattr(module, name)]
+        saved = {name: getattr(module, name) for name in names}
+        for name in names:
+            setattr(module, name, self._wrap(torch, saved[name], mode, masked=name.endswith("_masked")))
 
         def undo():
-            nmfk._align_columns, nmfk._align_columns_masked = saved
+            for name, fn in saved.items():
+                setattr(module, name, fn)
         return undo
 
     @staticmethod
@@ -3709,6 +3972,9 @@ SOURCES = {
         "src/repro_torch/kernels/csrc/silhouette_sums.cu", "src/repro/kernels/silhouette_sums.py:80"),
     "silhouette_dist_sums_batched[bf16]": (
         "src/repro_torch/kernels/csrc/silhouette_sums.cu", "src/repro/kernels/silhouette_sums.py:156"),
+    "pairwise_sq_dists[bf16]": ("src/repro_torch/kernels/csrc/pairwise_dist.cu", "src/repro/kernels/pairwise_dist.py:48"),
+    "pairwise_sq_dists_batched[bf16]": (
+        "src/repro_torch/kernels/csrc/pairwise_dist.cu", "src/repro/kernels/pairwise_dist.py:103"),
 }
 
 
@@ -3817,14 +4083,17 @@ def main() -> int:
     check_sums(torch, dev, ops, ref, records, log)
     check_sums_bf16(torch, dev, ops, ref, records, log)
     check_pairwise(torch, dev, ops, ref, records, log)
+    check_pairwise_bf16(torch, dev, ops, ref, records, log)
     check_flash(torch, dev, ops, ref, records, log)
     check_flash_bf16(torch, dev, ops, ref, records, log)
     check_nmfk_small(torch, dev, log)
     check_nmfk_elastic_small(torch, dev, ops, log)
     check_kmeans_small(torch, dev, ops, log)
+    check_kmeans_small(torch, dev, ops, log, torch.bfloat16)
     check_lm_small(torch, dev, ops, log)
     check_train_small(torch, dev, ops, log)
     check_rescal_small(torch, dev, ops, log)
+    check_rescal_small_bf16(torch, dev, ops, log)
     check_distributed_small(torch, dev, ops, log)
     check_sharded_small(torch, dev, ops, log)
 
@@ -3840,6 +4109,7 @@ def main() -> int:
     by_path.update(run_multi_rank_searches(torch, log))
     by_path.update(run_rescalk_searches(torch, dev, ops, log))
     by_path.update({f"kmeans_{ex}": run_kmeans_search(torch, dev, ops, ex, log) for ex in ("threads", "batched")})
+    by_path.update(run_kmeans_bf16(torch, dev, ops, log))
     by_path["serve"] = run_serve(torch, dev, ops, serve, log, "qwen2-0.5b")
     by_path["qwen2_serve_bf16"] = run_serve_bf16(torch, dev, ops, log, "qwen2-0.5b")
     by_path["granite_serve"] = run_serve(torch, dev, ops, serve, log, "granite-moe-1b-a400m")
@@ -3856,6 +4126,9 @@ def main() -> int:
     by_path["rwkv6_train"] = run_train(torch, dev, ops, train, log, "rwkv6-1.6b")
 
     check_dry_run([dry_run_records(proc, path, dry_deadline) for proc, path in dry_runs], log)
+    for label, counts in by_path.items():
+        if "bf16" not in label:
+            no_bf16_launch(counts, label)
 
     kernels = []
     for name, (source, replaces) in SOURCES.items():

@@ -73,9 +73,12 @@ def rescal_draws_from_reference(noise, a, r, device: str | torch.device | None =
 
     noise (p, nr, n, n) is ``uniform(pk, x.shape, 1-eps, 1+eps)`` per
     perturbation; a (p, n, k) and r (p, nr, k, k) are ``rescal._init``'s
-    ``uniform(ka/kr, ..., 0.1, 1.0)`` draws before scaling.
+    ``uniform(ka/kr, ..., 0.1, 1.0)`` draws before scaling. The reference
+    draws at X's dtype: bfloat16 arrays stay bfloat16 (``leaf_tensor``),
+    others become float32.
     """
-    return RESCALDraws(to_tensor(noise, device), to_tensor(a, device), to_tensor(r, device))
+    dev = resolve(device)
+    return RESCALDraws(leaf_tensor(noise, dev), leaf_tensor(a, dev), leaf_tensor(r, dev))
 
 
 def kmeans_draws_from_reference(first, u, device: str | torch.device | None = None) -> KMeansDraws:

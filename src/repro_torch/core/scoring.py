@@ -114,6 +114,22 @@ def _one_hot(labels: torch.Tensor, num_clusters: int, dtype) -> torch.Tensor:
     return out.scatter_(-1, labels.long().unsqueeze(-1), 1.0)
 
 
+def _sum_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The dtype the per-cluster sums are taken in: float32, or wider."""
+    return torch.promote_types(dtype, torch.float32)
+
+
+def _cluster_sums(onehot: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """(..., k, d) sums ``onehot^T x`` over the n points, rounded once to x's
+    dtype. onehot (..., n, k) is at ``_sum_dtype(x.dtype)``, and x is widened
+    to it: at bf16 the products are exact and the sums float32, as the
+    reference's dot accumulates a bf16 product. No bf16 GEMM reduces these
+    10^6-long sums, so cuBLAS's split-K partials are never rounded to bf16
+    (``torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction``
+    does not apply): the card sums as the CPU does. float32 keeps its bits."""
+    return torch.matmul(onehot.transpose(-1, -2), x.to(onehot.dtype)).to(x.dtype)
+
+
 def silhouette_score(x: torch.Tensor, labels: torch.Tensor, num_clusters: int) -> torch.Tensor:
     """Mean silhouette coefficient (sklearn semantics: singletons get s(i)=0)."""
     n = x.shape[0]
@@ -183,7 +199,9 @@ def davies_bouldin_score(x: torch.Tensor, labels: torch.Tensor, num_clusters: in
     """Davies-Bouldin index (lower = better separated clusters).
 
     x (n, d), labels (n,); empty clusters contribute nothing. On the card
-    both distance passes are the 2-D pairwise kernel.
+    both distance passes are the 2-D pairwise kernel. At bf16 x the
+    centroids are bf16 and the distances and the index float32, as on the
+    reference's kernel route.
     """
     return davies_bouldin_score_masked(x, labels, num_clusters)
 
@@ -205,14 +223,14 @@ def davies_bouldin_score_masked(
     both the pairwise-worst max and the final mean.
     """
     labels = labels.long()
-    onehot = _one_hot(labels, num_clusters, x.dtype)
+    onehot = _one_hot(labels, num_clusters, _sum_dtype(x.dtype))
     if point_mask is not None:
-        onehot = onehot * torch.broadcast_to(point_mask, x.shape[:-1])[..., None].to(x.dtype)
+        onehot = onehot * torch.broadcast_to(point_mask, x.shape[:-1])[..., None].to(onehot.dtype)
     if cluster_mask is not None:
-        onehot = onehot * cluster_mask[..., None, :].to(x.dtype)
-    counts = onehot.sum(dim=-2)  # (..., k)
+        onehot = onehot * cluster_mask[..., None, :].to(onehot.dtype)
+    counts = onehot.sum(dim=-2).to(x.dtype)  # (..., k), at x's dtype as the reference's
     sizes = torch.clamp(counts, min=1.0)
-    centroids = torch.matmul(onehot.transpose(-1, -2), x) / sizes[..., None]
+    centroids = _cluster_sums(onehot, x) / sizes[..., None]
     # intra-cluster scatter S_i: mean distance to the own centroid. A point
     # whose one-hot row is zero contributes nothing to the contraction, so
     # reading its own-label distance (instead of the reference's row sum of
@@ -220,6 +238,8 @@ def davies_bouldin_score_masked(
     d_to_c = torch.sqrt_(pairwise_sq_dists(x, centroids))  # (..., n, k)
     own_d = torch.gather(d_to_c, -1, torch.broadcast_to(labels, d_to_c.shape[:-1])[..., None])
     del d_to_c
+    # float32 distances at bf16 x: the float32 one-hot meets them, as the
+    # reference's bf16 one-hot promotes to float32 there
     scatter = torch.matmul(onehot.transpose(-1, -2), own_d)[..., 0] / sizes
     m = torch.sqrt(pairwise_sq_dists(centroids))  # (..., k, k) centroid separation
     r = (scatter[..., :, None] + scatter[..., None, :]) / torch.clamp(m, min=1e-12)

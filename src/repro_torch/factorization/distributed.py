@@ -94,6 +94,16 @@ def check_group(group, *tensors: torch.Tensor) -> None:
         raise ValueError(f"tensors on {next(iter(devices))} need a {want} group, got a {got} group")
 
 
+def check_not_half(what: str, *tensors: torch.Tensor) -> None:
+    """Raise on bfloat16 or float16 operands. The distributed fits run at
+    float32 (or float64): at a half type the float32 init draws would
+    promote the fit silently. Their bf16 half is ROADMAP Queue 1 item 4."""
+    half = sorted({str(t.dtype) for t in tensors if t.dtype in (torch.bfloat16, torch.float16)})
+    if half:
+        raise TypeError(f"{what} takes float32 operands, got {half}; the distributed fits at bf16 are "
+                        f"queued in ROADMAP Queue 1 item 4")
+
+
 def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
     """Sum of ``x`` over the group (``x`` is overwritten and returned)."""
     if _world(group) > 1:
@@ -389,6 +399,7 @@ def distributed_nmf(
     reductions with the local W-update (see the module docstring).
     """
     check_group(group, v_l, w_draw, h_draw)
+    check_not_half("distributed_nmf", v_l, w_draw, h_draw)
     return DistNMFResult(*_dnmf_local(v_l, k, w_draw, h_draw, iters, group, comm))
 
 
@@ -445,6 +456,7 @@ def distributed_rescal(
     of X over ``group``, from the full unscaled draws a_draw (n, k) and
     r_draw (nr, k, k)."""
     check_group(group, x_l, a_draw, r_draw)
+    check_not_half("distributed_rescal", x_l, a_draw, r_draw)
     return DistRESCALResult(*_drescal_local(x_l, k, a_draw, r_draw, iters, group))
 
 

@@ -12,6 +12,12 @@ the card; centroids (b, k_pad, d) with k_eff (b,) are b fits against one
 shared x (n, d), whose distances go to the batched kernel with x read
 once. ``kmeans`` is the masked fit at k_pad == k.
 
+A bf16 x is fitted as the reference fits it on its kernel route (the
+pairwise kernel writes float32): centroids, counts and the convergence
+delta at x's dtype, distances, inertia and the k-means++ probabilities
+(so its draws) in float32; the centroid sums are float32 rounded once
+(``scoring._cluster_sums``).
+
 Randomness enters only through ``KMeansDraws`` (``repro_torch.random``):
 the first center's index and one uniform per further slot, consumed with
 the reference's ``choice`` algebra (cumsum, then searchsorted of
@@ -32,7 +38,7 @@ from typing import NamedTuple, Sequence
 
 import torch
 
-from repro_torch.core.scoring import _one_hot, pairwise_sq_dists
+from repro_torch.core.scoring import _cluster_sums, _one_hot, _sum_dtype, pairwise_sq_dists
 from repro_torch.random import (
     KMeansDraws,
     KMeansDrawSource,
@@ -116,9 +122,9 @@ def _lloyd_step(
     """One masked Lloyd update of every fit: (new centers, delta)."""
     active = _active(k_eff, k_pad)  # (..., k_pad)
     labels, _ = _masked_assign(x, centers, k_eff, k_pad)
-    onehot = _one_hot(labels, k_pad, x.dtype)  # (..., n, k_pad)
-    counts = onehot.sum(dim=-2)
-    new = torch.matmul(onehot.transpose(-1, -2), x) / torch.clamp(counts[..., None], min=1.0)
+    onehot = _one_hot(labels, k_pad, _sum_dtype(x.dtype))  # (..., n, k_pad)
+    counts = onehot.sum(dim=-2).to(x.dtype)  # exact, then rounded once, as the reference's at x's dtype
+    new = _cluster_sums(onehot, x) / torch.clamp(counts[..., None], min=1.0)
     del onehot
     # re-seed empty *active* clusters at the point farthest from its centroid
     d2 = pairwise_sq_dists(x, new)

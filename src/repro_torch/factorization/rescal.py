@@ -21,6 +21,12 @@ products; on the card the silhouette of the pooled columns is the
 streaming distance-sum kernel (``core.scoring.silhouette_score``).
 Randomness enters only through the unscaled U[0.1, 1) draws the caller
 passes (see ``repro_torch.random``).
+
+A fit runs at X's dtype, with draws of that dtype (others raise
+``TypeError``): float32, or bfloat16 as the reference's fits run on bf16
+data. At bf16 the factors and the relative error stay bf16 and the
+silhouette is float32 (the silhouette kernels' fp32 distance sums), as on
+the reference's kernel route.
 """
 from __future__ import annotations
 
@@ -29,7 +35,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from repro_torch.core.scoring import silhouette_score
-from repro_torch.random import RESCALDraws, RESCALDrawSource, seeded_rescal_draws
+from repro_torch.random import RESCALDraws, RESCALDrawSource, check_draws, seeded_rescal_draws
 
 from .nmfk import _align_columns
 
@@ -83,21 +89,25 @@ def rescal_step(x: torch.Tensor, a: torch.Tensor, r: torch.Tensor) -> tuple[torc
 
 def reconstruction_error(x: torch.Tensor, a: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     """||X - A R A^T||_F / ||X||_F, one relation at a time (an (..., n, n)
-    residual, never an (nr, n, n) one)."""
-    sq = torch.zeros(x.shape[:-3], device=x.device, dtype=x.dtype)
+    residual, never an (nr, n, n) one). The squares are summed over every
+    relation at float32 or wider and rounded once to X's dtype, as the
+    reference's one norm over the whole residual."""
+    f = torch.promote_types(x.dtype, torch.float32)
+    sq = torch.zeros(x.shape[:-3], device=x.device, dtype=f)
     at = a.transpose(-1, -2)
     for i in range(x.shape[-3]):
         diff = x[..., i, :, :] - a @ r[..., i, :, :] @ at
-        sq = sq + diff.square().sum(dim=(-2, -1))
+        sq = sq + diff.square().sum(dim=(-2, -1), dtype=f)
     xsq = x.square().sum(dim=(-3, -2, -1))
-    return torch.sqrt(sq) / torch.clamp(torch.sqrt(xsq), min=_EPS)
+    return torch.sqrt(sq.to(x.dtype)) / torch.clamp(torch.sqrt(xsq), min=_EPS)
 
 
 def rescal(
     x: torch.Tensor, k: int, a_draw: torch.Tensor, r_draw: torch.Tensor, iters: int = 150
 ) -> RESCALResult:
     """RESCAL at rank k for a fixed iteration count from the given init draws
-    (a_draw (..., n, k), r_draw (..., nr, k, k))."""
+    (a_draw (..., n, k), r_draw (..., nr, k, k), at X's dtype)."""
+    check_draws(x, (a_draw, r_draw), "X")
     a, r = _init(x.mean(dim=(-3, -2, -1)), k, a_draw, r_draw)
     for _ in range(iters):
         a, r = rescal_step(x, a, r)
@@ -110,8 +120,9 @@ def rescalk_score(
     """(mean silhouette of the aligned A-column ensemble, mean rel_error).
 
     ``draws`` holds the perturbation noise (p, nr, n, n) and the init draws
-    at k; the p fits run as one batched fit.
+    at k, all at X's dtype; the p fits run as one batched fit.
     """
+    check_draws(x, draws, "X")
     n = x.shape[-1]
     res = rescal(x * draws.noise, k, draws.a, draws.r, iters=iters)  # a (p, n, k)
     a_all = res.a / torch.clamp(torch.linalg.vector_norm(res.a, dim=1, keepdim=True), min=1e-12)
@@ -134,10 +145,12 @@ def make_rescalk_evaluator(
     """Binary Bleed ``evaluate(k)`` closure over a relational tensor x (nr, n, n).
 
     Rank k draws from ``draws(k)``, by default ``seeded_rescal_draws(seed,
-    ...)`` (the counterpart of the reference's ``fold_in(key, k)``).
+    ...)`` at X's dtype (the counterpart of the reference's ``fold_in(key,
+    k)``).
     """
     nr, n, _ = x.shape
-    source = draws if draws is not None else seeded_rescal_draws(seed, n, nr, n_perturbs, epsilon, x.device)
+    source = draws if draws is not None else seeded_rescal_draws(seed, n, nr, n_perturbs, epsilon, x.device,
+                                                                 x.dtype)
 
     def evaluate(k: int, should_abort=None) -> float:
         del should_abort  # one fit per call: no chunk boundary to poll

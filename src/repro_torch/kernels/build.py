@@ -50,6 +50,7 @@ SIGNATURES: dict[str, dict[str, list]] = {
     },
     "pairwise_dist": {
         "pairwise_sq_dists": [_P, _P, _P, _I, _I, _I, _I, _L, _L, _P],
+        "pairwise_sq_dists_bf16": [_P, _P, _P, _I, _I, _I, _I, _L, _L, _P],
     },
     "flash_attention": {
         "flash_attention": [*[_P] * 7, _I, _I, _I, _I, _I, _I, _I, *[_L] * 12, _F, _I, _I, _I, _P],

@@ -1,4 +1,4 @@
-// Pairwise squared euclidean distances for Hopper (sm_90a), fp32.
+// Pairwise squared euclidean distances for Hopper (sm_90a), fp32 and bf16.
 //
 // Replaces the TPU kernels of repro/kernels/pairwise_dist.py
 // (pairwise_sq_dists and pairwise_sq_dists_batched):
@@ -58,11 +58,25 @@
 // the same epilogue, so a shape gives the same bits on either path and from
 // call to call. No atomics, no scratch: every output is written by one
 // thread of one block.
+//
+// The bf16 half (pairwise_sq_dists_bf16: bf16 x and y, fp32 out, as the TPU
+// kernel casts its blocks to f32 and writes f32) is both paths instantiated
+// for bf16 operands: each element is widened to fp32 as it is loaded (two
+// bytes a load: a K-Means row of 6 bf16 is 12 bytes, not 8- or 16-byte
+// aligned), y is staged in shared memory as fp32, and from there the
+// arithmetic and the store are the fp32 code's. Widening is exact, so the
+// bf16 half's output is the fp32 kernel's on the widened inputs, bit for
+// bit. Its byte bound falls only by x's and y's halves: D^2 stays 4 bytes.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 
 namespace {
+
+// One element as fp32: a float as it is, a bf16 widened (exactly).
+__device__ __forceinline__ float widen(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float widen(const __nv_bfloat16* p) { return __bfloat162float(*p); }
 
 // ---------------------------------------------------------------------------
 // Thin path
@@ -73,14 +87,14 @@ constexpr int kThinThreads = 256;
 constexpr int kThinWarps = kThinThreads / 32;
 constexpr int kThinYBytes = 16 * 1024;        // shared memory for y and its norms, per block
 
-// x row `row` into registers, zero padded to DB; all zeros past the end.
-template <int DB>
-__device__ __forceinline__ void load_row(float (&xr)[DB], const float* __restrict__ x, long long row,
+// x row `row` into registers as fp32, zero padded to DB; all zeros past the end.
+template <int DB, typename T>
+__device__ __forceinline__ void load_row(float (&xr)[DB], const T* __restrict__ x, long long row,
                                          int n, int d) {
   const bool ok = row < n;
-  const float* p = x + row * d;
+  const T* p = x + row * d;
 #pragma unroll
-  for (int c = 0; c < DB; ++c) xr[c] = (ok && c < d) ? __ldg(p + c) : 0.f;
+  for (int c = 0; c < DB; ++c) xr[c] = (ok && c < d) ? widen(p + c) : 0.f;
 }
 
 template <int DB>
@@ -133,10 +147,11 @@ __device__ __forceinline__ void row_out(const float (&xr)[DB], float xn, const f
 
 // grid (blocks, ceil(b / chunk)), block kThinThreads. Block (bx, by) serves
 // lanes [by * chunk, by * chunk + chunk) and walks 32-row tiles t = bx *
-// kThinWarps + warp, stepping by gridDim.x * kThinWarps.
-template <int DB>
+// kThinWarps + warp, stepping by gridDim.x * kThinWarps. T: float, or
+// __nv_bfloat16 (widened as it is loaded).
+template <int DB, typename T>
 __global__ void __launch_bounds__(kThinThreads)
-pairwise_thin(const float* __restrict__ x, const float* __restrict__ y, float* __restrict__ out, int b,
+pairwise_thin(const T* __restrict__ x, const T* __restrict__ y, float* __restrict__ out, int b,
               int n, int m, int d, long long x_lane, long long y_lane, int chunk) {
   extern __shared__ float4 thin_smem[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -155,11 +170,11 @@ pairwise_thin(const float* __restrict__ x, const float* __restrict__ y, float* _
   if (shared_x && t < tiles) load_row(xnext, x, t * 32 + lane, n, d);  // in flight while y loads
   for (int r = tid; r < ny; r += kThinThreads) {
     const int l = r / m, j = r - l * m;
-    const float* src = y + (l0 + l) * y_lane + (long long)j * d;
+    const T* src = y + (l0 + l) * y_lane + (long long)j * d;
     float s = 0.f;
 #pragma unroll
     for (int c = 0; c < DB; ++c) {
-      const float v = c < d ? src[c] : 0.f;
+      const float v = c < d ? widen(src + c) : 0.f;
       ys[r * DB + c] = v;
       s = fmaf(v, v, s);
     }
@@ -212,8 +227,8 @@ pairwise_thin(const float* __restrict__ x, const float* __restrict__ y, float* _
   }
 }
 
-template <int DB>
-int launch_thin(const float* x, const float* y, float* out, int b, int n, int m, int d, long long x_lane,
+template <int DB, typename T>
+int launch_thin(const T* x, const T* y, float* out, int b, int n, int m, int d, long long x_lane,
                 long long y_lane, cudaStream_t stream) {
   // With x shared, a block serves as many lanes as its y budget holds, so x
   // is read once per chunk of lanes; with x per lane, one lane a block. One
@@ -222,7 +237,7 @@ int launch_thin(const float* x, const float* y, float* out, int b, int n, int m,
   const int per_lane = m * (DB + 1) * (int)sizeof(float);
   const int chunk = x_lane == 0 ? max(1, min(b, kThinYBytes / per_lane)) : 1;
   const size_t smem = thin_smem_floats(DB, chunk, m) * sizeof(float);
-  auto kernel = pairwise_thin<DB>;
+  auto kernel = pairwise_thin<DB, T>;
   cudaError_t err;
   if (smem > 48 * 1024) {
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -259,8 +274,10 @@ static_assert(kTileN * (kStepD + 1) >= kTileN * (kTileM + 1), "the x tile holds 
 // grid (ceil(n / kTileN), ceil(m / kTileM), b), block kThreads. Thread
 // (tx, ty) = (tid % 8, tid / 8) owns cells (ty + 32 i, tx + 8 j), i, j < 4,
 // and the squared norm of x row tid (tid < kTileN) or y row tid - kTileN.
+// T: float, or __nv_bfloat16 (widened as it is staged).
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-pairwise_kernel(const float* __restrict__ x, const float* __restrict__ y,
+pairwise_kernel(const T* __restrict__ x, const T* __restrict__ y,
                 float* __restrict__ out, int n, int m, int d,
                 long long x_lane, long long y_lane) {
   __shared__ float xs[kTileN][kStepD + 1];  // x tile; then the output stage, row pitch kTileM + 1
@@ -287,11 +304,11 @@ pairwise_kernel(const float* __restrict__ x, const float* __restrict__ y,
     const int step = min(kStepD, d - d0);
     for (int e = tid; e < kTileN * kStepD; e += kThreads) {
       const int r = e / kStepD, c = e % kStepD;
-      xs[r][c] = r < rows && c < step ? x[(long long)r * d + d0 + c] : 0.f;
+      xs[r][c] = r < rows && c < step ? widen(x + (long long)r * d + d0 + c) : 0.f;
     }
     for (int e = tid; e < kTileM * kStepD; e += kThreads) {
       const int r = e / kStepD, c = e % kStepD;
-      ys[r][c] = r < cols && c < step ? y[(long long)r * d + d0 + c] : 0.f;
+      ys[r][c] = r < cols && c < step ? widen(y + (long long)r * d + d0 + c) : 0.f;
     }
     __syncthreads();
     if (tid < rows) {
@@ -338,6 +355,24 @@ pairwise_kernel(const float* __restrict__ x, const float* __restrict__ y,
   }
 }
 
+// Either path by shape, for operands of type T.
+template <typename T>
+int launch(const T* x, const T* y, float* out, int b, int n, int m, int d, long long x_lane_stride,
+           long long y_lane_stride, cudaStream_t s) {
+  if (b < 1 || b > 65535 || n < 1 || m < 1 || d < 1 || x_lane_stride < 0 || y_lane_stride < 0)
+    return (int)cudaErrorInvalidValue;
+  if (m <= kThinMaxM && d <= kThinMaxD) {
+    if (d <= 8) return launch_thin<8>(x, y, out, b, n, m, d, x_lane_stride, y_lane_stride, s);
+    if (d <= 16) return launch_thin<16>(x, y, out, b, n, m, d, x_lane_stride, y_lane_stride, s);
+    return launch_thin<32>(x, y, out, b, n, m, d, x_lane_stride, y_lane_stride, s);
+  }
+  const long long m_tiles = ((long long)m + kTileM - 1) / kTileM;
+  if (m_tiles > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid((n + kTileN - 1) / kTileN, (unsigned)m_tiles, b);
+  pairwise_kernel<T><<<grid, kThreads, 0, s>>>(x, y, out, n, m, d, x_lane_stride, y_lane_stride);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // C interface, loaded with ctypes. Device pointers of contiguous fp32
@@ -347,17 +382,13 @@ pairwise_kernel(const float* __restrict__ x, const float* __restrict__ y,
 extern "C" int pairwise_sq_dists(const float* x, const float* y, float* out, int b, int n,
                                  int m, int d, long long x_lane_stride, long long y_lane_stride,
                                  void* stream) {
-  if (b < 1 || b > 65535 || n < 1 || m < 1 || d < 1 || x_lane_stride < 0 || y_lane_stride < 0)
-    return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = (cudaStream_t)stream;
-  if (m <= kThinMaxM && d <= kThinMaxD) {
-    if (d <= 8) return launch_thin<8>(x, y, out, b, n, m, d, x_lane_stride, y_lane_stride, s);
-    if (d <= 16) return launch_thin<16>(x, y, out, b, n, m, d, x_lane_stride, y_lane_stride, s);
-    return launch_thin<32>(x, y, out, b, n, m, d, x_lane_stride, y_lane_stride, s);
-  }
-  const long long m_tiles = ((long long)m + kTileM - 1) / kTileM;
-  if (m_tiles > 65535) return (int)cudaErrorInvalidValue;
-  const dim3 grid((n + kTileN - 1) / kTileN, (unsigned)m_tiles, b);
-  pairwise_kernel<<<grid, kThreads, 0, s>>>(x, y, out, n, m, d, x_lane_stride, y_lane_stride);
-  return (int)cudaGetLastError();
+  return launch<float>(x, y, out, b, n, m, d, x_lane_stride, y_lane_stride, (cudaStream_t)stream);
+}
+
+// The bf16 half: bf16 x and y (lane strides in elements, as above), fp32 out
+// (b, n, m); the fp32 kernel's bits on the widened operands.
+extern "C" int pairwise_sq_dists_bf16(const __nv_bfloat16* x, const __nv_bfloat16* y, float* out, int b,
+                                      int n, int m, int d, long long x_lane_stride, long long y_lane_stride,
+                                      void* stream) {
+  return launch<__nv_bfloat16>(x, y, out, b, n, m, d, x_lane_stride, y_lane_stride, (cudaStream_t)stream);
 }

@@ -3,13 +3,12 @@
 The device decides the path: tensors on the CPU go to the plain PyTorch
 version in ``ref``; tensors on one CUDA device go to the kernel, and
 anything the kernel does not take raises. There is no fallback from the
-kernel to the plain version. The kernels take float32; the MU, silhouette
-and flash-attention wrappers also take bfloat16, each through a kernel of
-its own (never a cast to the float32 one). The pairwise kernels' bf16
-half, and float16 anywhere, are queued (ROADMAP Queue 2): those raise.
+kernel to the plain version. Every wrapper takes float32 and bfloat16,
+each dtype through a kernel of its own (a bf16 tensor is never cast to
+feed the float32 one). float16 is queued (ROADMAP Queue 2): it raises.
 Each wrapper counts its kernel launches in a plain int attribute,
-``<wrapper>.launches``, and a wrapper with a bf16 half its bf16 kernel's
-in ``<wrapper>.bf16_launches``, reported as ``<wrapper>[bf16]``
+``<wrapper>.launches``, and its bf16 kernel's in
+``<wrapper>.bf16_launches``, reported as ``<wrapper>[bf16]``
 (``bf16_name``), so a run can show that its main path went through the
 kernels (``reset_launch_counts`` zeroes them).
 
@@ -53,24 +52,20 @@ FLASH_BF16 = "flash_attention[bf16]"  # launch_counts' name of the bf16 flash ke
 QUEUED = "queued in ROADMAP Queue 2"
 
 
-def _on_card(*tensors: torch.Tensor, kernels: str, contiguous: bool = True, bf16: bool = False) -> bool:
+def _on_card(*tensors: torch.Tensor, kernels: str, contiguous: bool = True) -> bool:
     """False for all-CPU tensors (plain path); True for one CUDA device after
-    checking what ``kernels`` take (float32, or with ``bf16`` float32 or
-    bfloat16, all of one dtype; contiguous, or with ``contiguous=False``
-    unit stride along the last axis); raises for anything else."""
+    checking what ``kernels`` take (float32 or bfloat16, all of one dtype;
+    contiguous, or with ``contiguous=False`` unit stride along the last
+    axis); raises for anything else."""
     devices = {t.device for t in tensors}
     if all(d.type == "cpu" for d in devices):
         return False
     if len(devices) != 1 or next(iter(devices)).type != "cuda":
         raise ValueError(f"tensors must all lie on the CPU or all on one CUDA device, got {devices}")
     dtypes = {t.dtype for t in tensors}
-    takes = (torch.float32, torch.bfloat16) if bf16 else (torch.float32,)
-    if len(dtypes) != 1 or next(iter(dtypes)) not in takes:
-        got = sorted(str(d) for d in dtypes)
-        if bf16:
-            raise TypeError(f"{kernels} take float32 or bfloat16 tensors of one dtype, got {got}; "
-                            f"float16 is {QUEUED}")
-        raise TypeError(f"{kernels} take float32 tensors, got {got}; their bf16 half is {QUEUED}")
+    if len(dtypes) != 1 or next(iter(dtypes)) not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{kernels} take float32 or bfloat16 tensors of one dtype, got "
+                        f"{sorted(str(d) for d in dtypes)}; float16 is {QUEUED}")
     for t in tensors:
         if contiguous and not t.is_contiguous():
             raise ValueError("the CUDA kernels take contiguous tensors")
@@ -273,7 +268,7 @@ def mu_update_h(v: torch.Tensor, w: torch.Tensor, h: torch.Tensor) -> torch.Tens
     """H <- H * (W^T V) / (G H + 1e-9), G = W^T W; v (L, n, m) or (n, m).
 
     float32, or bfloat16 (G a bf16 product, the rest fp32, H's dtype out)."""
-    if not _on_card(v, w, h, kernels="the MU kernels", bf16=True):
+    if not _on_card(v, w, h, kernels="the MU kernels"):
         return ref.mu_update_h(v, w, h)
     was_2d, (v3, w3, h3) = _lead3(v, w, h)
     _mu_shapes(v3, w3, h3)
@@ -292,7 +287,7 @@ def mu_update_w(v: torch.Tensor, w: torch.Tensor, h: torch.Tensor) -> torch.Tens
     """W <- W * (V H^T) / (W Q + 1e-9), Q = H H^T; v (L, n, m) or (n, m).
 
     float32, or bfloat16 (Q a bf16 product, the rest fp32, W's dtype out)."""
-    if not _on_card(v, w, h, kernels="the MU kernels", bf16=True):
+    if not _on_card(v, w, h, kernels="the MU kernels"):
         return ref.mu_update_w(v, w, h)
     was_2d, (v3, w3, h3) = _lead3(v, w, h)
     _mu_shapes(v3, w3, h3)
@@ -336,7 +331,7 @@ def silhouette_dist_sums(
 
     float32 or bfloat16 operands of one dtype; the sums are float32."""
     y = x if y is None else y
-    if not _on_card(x, y, onehot, kernels="the silhouette kernels", bf16=True):
+    if not _on_card(x, y, onehot, kernels="the silhouette kernels"):
         return ref.silhouette_dist_sums(x, onehot, y)
     if not x.dim() == y.dim() == onehot.dim() == 2:
         raise ValueError("silhouette_dist_sums takes 2-D operands; use the _batched entry for 3-D")
@@ -350,7 +345,7 @@ def silhouette_dist_sums_batched(
 ) -> torch.Tensor:
     """Leading-lane form: x (b, n, d), y (b, m, d) (default x), onehot (b, m, k) -> (b, n, k)."""
     y = x if y is None else y
-    if not _on_card(x, y, onehot, kernels="the silhouette kernels", bf16=True):
+    if not _on_card(x, y, onehot, kernels="the silhouette kernels"):
         return ref.silhouette_dist_sums(x, onehot, y)
     if not x.dim() == y.dim() == onehot.dim() == 3:
         raise ValueError("silhouette_dist_sums_batched takes 3-D operands")
@@ -363,7 +358,9 @@ def silhouette_dist_sums_batched(
 # Pairwise squared distances (csrc/pairwise_dist.cu)
 # -----------------------------------------------------------------------------
 def _pairwise_launch(x: torch.Tensor, y: torch.Tensor, lanes: int) -> torch.Tensor:
-    """out (lanes, n, m); a 2-D operand is shared by every lane (lane stride 0)."""
+    """out (lanes, n, m), float32 at either dtype (as on the TPU); a 2-D
+    operand is shared by every lane (lane stride 0). bf16 operands go to
+    ``pairwise_sq_dists_bf16``, which widens each element as it loads it."""
     n, d = x.shape[-2:]
     m = y.shape[-2]
     if y.shape[-1] != d or min(n, m, d) < 1:
@@ -371,24 +368,26 @@ def _pairwise_launch(x: torch.Tensor, y: torch.Tensor, lanes: int) -> torch.Tens
     if not 1 <= lanes <= MAX_LANES or m > MAX_PAIRWISE_COLS:
         raise ValueError(f"the pairwise kernel takes <= {MAX_LANES} lanes and m <= {MAX_PAIRWISE_COLS}")
     out = torch.empty((lanes, n, m), device=x.device, dtype=torch.float32)
-    lib = build.load("pairwise_dist")
-    rc = lib.pairwise_sq_dists(
+    name = "pairwise_sq_dists_bf16" if x.dtype == torch.bfloat16 else "pairwise_sq_dists"
+    rc = getattr(build.load("pairwise_dist"), name)(
         x.data_ptr(), y.data_ptr(), out.data_ptr(), lanes, n, m, d,
         n * d if x.dim() == 3 else 0, m * d if y.dim() == 3 else 0, _stream(x),
     )
-    _check(rc, "pairwise_sq_dists")
+    _check(rc, name)
     return out
 
 
 def pairwise_sq_dists(x: torch.Tensor, y: torch.Tensor | None = None) -> torch.Tensor:
-    """(n, m) ``max(|x_i|^2 + |y_j|^2 - 2 x_i.y_j, 0)``; x (n, d), y (m, d) (default x)."""
+    """(n, m) ``max(|x_i|^2 + |y_j|^2 - 2 x_i.y_j, 0)``; x (n, d), y (m, d) (default x).
+
+    float32 or bfloat16 operands of one dtype; the distances are float32."""
     y = x if y is None else y
     if not _on_card(x, y, kernels="the pairwise kernels"):
         return ref.pairwise_sq_dists(x, y)
     if not x.dim() == y.dim() == 2:
         raise ValueError("pairwise_sq_dists takes 2-D operands; use the _batched entry for 3-D")
     out = _pairwise_launch(x, y, 1)
-    _count(pairwise_sq_dists)
+    _count(pairwise_sq_dists, "bf16_launches" if x.dtype == torch.bfloat16 else "launches")
     return out[0]
 
 
@@ -408,7 +407,7 @@ def pairwise_sq_dists_batched(x: torch.Tensor, y: torch.Tensor | None = None) ->
             f"got x {tuple(x.shape)}, y {tuple(y.shape)}"
         )
     out = _pairwise_launch(x, y, (x if x.dim() == 3 else y).shape[0])
-    _count(pairwise_sq_dists_batched)
+    _count(pairwise_sq_dists_batched, "bf16_launches" if x.dtype == torch.bfloat16 else "launches")
     return out
 
 
@@ -548,7 +547,7 @@ def flash_attention(
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
     scale = float(scale if scale is not None else d**-0.5)
-    if not _on_card(q, k, v, contiguous=False, kernels="the flash-attention kernels", bf16=True):
+    if not _on_card(q, k, v, contiguous=False, kernels="the flash-attention kernels"):
         return ref.attention(q, k, v, causal=causal, window=window, scale=scale, q_offset=q_offset)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise RuntimeError(
@@ -574,8 +573,6 @@ KERNEL_WRAPPERS = (
     mu_update_h, mu_update_w, silhouette_dist_sums, silhouette_dist_sums_batched,
     pairwise_sq_dists, pairwise_sq_dists_batched, flash_attention,
 )
-# the wrappers with a bf16 kernel of their own (counted in ``bf16_launches``)
-BF16_WRAPPERS = (mu_update_h, mu_update_w, silhouette_dist_sums, silhouette_dist_sums_batched, flash_attention)
 
 
 def bf16_name(wrapper) -> str:
@@ -586,9 +583,7 @@ def bf16_name(wrapper) -> str:
 def reset_launch_counts() -> None:
     with _count_lock:
         for wrapper in KERNEL_WRAPPERS:
-            wrapper.launches = 0
-        for wrapper in BF16_WRAPPERS:
-            wrapper.bf16_launches = 0
+            wrapper.launches = wrapper.bf16_launches = 0
 
 
 reset_launch_counts()
@@ -599,4 +594,4 @@ def launch_counts() -> dict[str, int]:
     (flash attention's is ``FLASH_BF16``)."""
     with _count_lock:
         return {**{wrapper.__name__: wrapper.launches for wrapper in KERNEL_WRAPPERS},
-                **{bf16_name(wrapper): wrapper.bf16_launches for wrapper in BF16_WRAPPERS}}
+                **{bf16_name(wrapper): wrapper.bf16_launches for wrapper in KERNEL_WRAPPERS}}

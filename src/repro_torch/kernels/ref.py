@@ -9,8 +9,8 @@ batch dims.
 At bfloat16 each computes the TPU kernel's bf16 arithmetic, not a bf16
 rounding of every op: the MU updates take the k x k Gram product in bf16
 (the reference's wrapper forms it outside its kernel), everything else in
-fp32 from the upcast inputs, and round once to bf16; the silhouette sums
-upcast and return fp32.
+fp32 from the upcast inputs, and round once to bf16; the pairwise
+distances and the silhouette sums upcast and return fp32.
 """
 from __future__ import annotations
 
@@ -42,8 +42,12 @@ def mu_update_w(v: torch.Tensor, w: torch.Tensor, h: torch.Tensor) -> torch.Tens
 
 
 def pairwise_sq_dists(x: torch.Tensor, y: torch.Tensor | None = None) -> torch.Tensor:
-    """max(|x_i|^2 + |y_j|^2 - 2 x_i.y_j, 0) over rows of x (..., n, d), y (..., m, d)."""
+    """max(|x_i|^2 + |y_j|^2 - 2 x_i.y_j, 0) over rows of x (..., n, d), y (..., m, d),
+    in their dtype promoted to at least fp32: bf16 operands give fp32
+    distances, as the TPU kernel writes them; fp32 and float64 keep their bits."""
     y = x if y is None else y
+    f = torch.promote_types(torch.promote_types(x.dtype, y.dtype), torch.float32)
+    x, y = x.to(f), y.to(f)
     xx = torch.sum(x * x, dim=-1)[..., :, None]
     yy = torch.sum(y * y, dim=-1)[..., None, :]
     d2 = xx + yy - 2.0 * torch.matmul(x, y.transpose(-1, -2))

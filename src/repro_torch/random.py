@@ -3,13 +3,14 @@
 Randomness enters an NMFk score only through a ``Draws`` value: the
 multiplicative perturbation noise of each resampled copy of V and the
 unscaled uniform W/H inits of each perturbation fit, drawn at V's dtype
-as the reference draws them (a bf16 V takes bf16 draws). A K-Means fit takes
-it only through a ``KMeansDraws`` value: the first center's index and
-one uniform per further k-means++ slot. A RESCALk score takes a
-``RESCALDraws`` value: the noise of each resampled copy of X and the
-unscaled A/R inits. The distributed fits take full-shape init draws and
-keep their own rank's rows. Fit and score functions take their
-draws explicitly, so a test can hand them the JAX reference's draws; by
+as the reference draws them (a bf16 V takes bf16 draws). A K-Means fit
+takes it only through a ``KMeansDraws`` value: the first center's index
+and one float32 uniform per further k-means++ slot, at any data dtype (the
+reference's kernel route draws its choice against float32 distances). A
+RESCALk score takes a ``RESCALDraws`` value: the noise of each resampled
+copy of X and the unscaled A/R inits, at X's dtype likewise. The
+distributed fits take full-shape init draws and keep their own rank's
+rows. Fit and score functions take their draws explicitly, so a test can hand them the JAX reference's draws; by
 default they come from a ``torch.Generator`` seeded from ``(seed, k)`` (the
 counterpart of the reference's ``fold_in(key, k)``). The port's own draws
 are not the reference's bits.
@@ -88,13 +89,14 @@ def make_draws(
     return Draws(noise, w, h)
 
 
-def check_draws(v: torch.Tensor, draws: Draws) -> None:
-    """Raise unless every draw has V's dtype: a perturbation or init at
-    another dtype would promote the fit (a bf16 V fitted at float32)."""
+def check_draws(v: torch.Tensor, draws, name: str = "V") -> None:
+    """Raise unless every draw (a ``Draws`` or ``RESCALDraws``, or a tuple of
+    tensors) has the data's dtype: a perturbation or init at another dtype
+    would promote the fit (a bf16 V or X fitted at float32)."""
     got = {t.dtype for t in draws}
     if got != {v.dtype}:
-        raise TypeError(f"the draws must have V's dtype {v.dtype}, got {sorted(str(d) for d in got)}; "
-                        f"draw them with dtype=v.dtype")
+        raise TypeError(f"the draws must have {name}'s dtype {v.dtype}, got {sorted(str(d) for d in got)}; "
+                        f"draw them with dtype={name.lower()}.dtype")
 
 
 DrawSource = Callable[[int, int], Draws]  # (k, k_draw) -> the draws of rank k
@@ -181,7 +183,7 @@ def seeded_kmeans_draws(seed: int, n: int, device: str | torch.device) -> KMeans
 # RESCAL
 # -----------------------------------------------------------------------------
 class RESCALDraws(NamedTuple):
-    """The random inputs of one k's RESCALk perturbation ensemble.
+    """The random inputs of one k's RESCALk perturbation ensemble, at X's dtype.
 
     noise (p, nr, n, n): multiplicative factors in [1 - eps, 1 + eps);
     a (p, n, k) and r (p, nr, k, k): unscaled init draws in [0.1, 1).
@@ -193,27 +195,40 @@ class RESCALDraws(NamedTuple):
 
 
 def rescal_init_draws(
-    generator: torch.Generator, n: int, nr: int, k: int, lead: tuple[int, ...] = ()
+    generator: torch.Generator,
+    n: int,
+    nr: int,
+    k: int,
+    lead: tuple[int, ...] = (),
+    dtype: torch.dtype = torch.float32,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Unscaled U[0.1, 1) A (lead..., n, k) and R (lead..., nr, k, k) draws.
+    """Unscaled U[0.1, 1) A (lead..., n, k) and R (lead..., nr, k, k) draws at
+    ``dtype`` (X's, as the reference draws them).
 
     A distributed RESCAL fit takes the full (n, k) A draw and keeps its own
     rank's rows, so every world size starts from the same factors.
     """
     dev = generator.device
-    a = torch.empty(lead + (n, k), device=dev).uniform_(0.1, 1.0, generator=generator)
-    r = torch.empty(lead + (nr, k, k), device=dev).uniform_(0.1, 1.0, generator=generator)
+    a = torch.empty(lead + (n, k), device=dev, dtype=dtype).uniform_(0.1, 1.0, generator=generator)
+    r = torch.empty(lead + (nr, k, k), device=dev, dtype=dtype).uniform_(0.1, 1.0, generator=generator)
     return a, r
 
 
 def make_rescal_draws(
-    generator: torch.Generator, n: int, nr: int, k: int, n_perturbs: int, epsilon: float
+    generator: torch.Generator,
+    n: int,
+    nr: int,
+    k: int,
+    n_perturbs: int,
+    epsilon: float,
+    dtype: torch.dtype = torch.float32,
 ) -> RESCALDraws:
-    """Perturbation noise then A/R inits for ``n_perturbs`` RESCAL fits at k."""
-    noise = torch.empty((n_perturbs, nr, n, n), device=generator.device).uniform_(
+    """Perturbation noise then A/R inits for ``n_perturbs`` RESCAL fits at k,
+    all at ``dtype``."""
+    noise = torch.empty((n_perturbs, nr, n, n), device=generator.device, dtype=dtype).uniform_(
         1.0 - epsilon, 1.0 + epsilon, generator=generator
     )
-    a, r = rescal_init_draws(generator, n, nr, k, (n_perturbs,))
+    a, r = rescal_init_draws(generator, n, nr, k, (n_perturbs,), dtype)
     return RESCALDraws(noise, a, r)
 
 
@@ -221,11 +236,18 @@ RESCALDrawSource = Callable[[int], RESCALDraws]  # k -> the draws of rank k
 
 
 def seeded_rescal_draws(
-    seed: int, n: int, nr: int, n_perturbs: int, epsilon: float, device: str | torch.device
+    seed: int,
+    n: int,
+    nr: int,
+    n_perturbs: int,
+    epsilon: float,
+    device: str | torch.device,
+    dtype: torch.dtype = torch.float32,
 ) -> RESCALDrawSource:
-    """The default RESCAL draw source: rank k draws from ``lane_generator(seed, k)``."""
+    """The default RESCAL draw source: rank k draws from ``lane_generator(seed, k)``
+    at ``dtype``."""
 
     def draw(k: int) -> RESCALDraws:
-        return make_rescal_draws(lane_generator(seed, k, device), n, nr, k, n_perturbs, epsilon)
+        return make_rescal_draws(lane_generator(seed, k, device), n, nr, k, n_perturbs, epsilon, dtype)
 
     return draw

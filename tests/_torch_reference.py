@@ -75,30 +75,30 @@ def reference_draw_source(key, n: int, m: int, n_perturbs: int, epsilon: float =
     return draw
 
 
-def rescal_init_draws(key, n: int, nr: int, k: int) -> tuple[np.ndarray, np.ndarray]:
-    """Unscaled A/R draws of ``rescal._init`` for ``key``."""
+def rescal_init_draws(key, n: int, nr: int, k: int, dtype=jnp.float32) -> tuple[np.ndarray, np.ndarray]:
+    """Unscaled A/R draws of ``rescal._init`` for ``key``, at X's dtype."""
     ka, kr = jax.random.split(key)
-    return uniform(ka, (n, k), 0.1, 1.0), uniform(kr, (nr, k, k), 0.1, 1.0)
+    return uniform(ka, (n, k), 0.1, 1.0, dtype), uniform(kr, (nr, k, k), 0.1, 1.0, dtype)
 
 
-def rescal_ensemble_draws(key, n: int, nr: int, k: int, n_perturbs: int, epsilon: float):
+def rescal_ensemble_draws(key, n: int, nr: int, k: int, n_perturbs: int, epsilon: float, dtype=jnp.float32):
     """(noise, a, r) numpy draws of one RESCALk ensemble at ``key`` (already
-    folded with k), as ``rescalk_score`` makes them."""
+    folded with k), as ``rescalk_score`` makes them for an X of ``dtype``."""
     kp, kf = jax.random.split(key)
     pkeys = jax.random.split(kp, n_perturbs)
     fkeys = jax.random.split(kf, n_perturbs)
-    noise = np.stack([uniform(pk, (nr, n, n), 1.0 - epsilon, 1.0 + epsilon) for pk in pkeys])
-    inits = [rescal_init_draws(fk, n, nr, k) for fk in fkeys]
+    noise = np.stack([uniform(pk, (nr, n, n), 1.0 - epsilon, 1.0 + epsilon, dtype) for pk in pkeys])
+    inits = [rescal_init_draws(fk, n, nr, k, dtype) for fk in fkeys]
     return noise, np.stack([a for a, _ in inits]), np.stack([r for _, r in inits])
 
 
-def reference_rescal_draw_source(key, n: int, nr: int, n_perturbs: int, epsilon: float = 0.015):
+def reference_rescal_draw_source(key, n: int, nr: int, n_perturbs: int, epsilon: float = 0.015, dtype=jnp.float32):
     """A port RESCAL draw source ``k -> RESCALDraws`` yielding the reference's
     draws of rank k under ``fold_in(key, k)`` (``make_rescalk_evaluator``'s
-    schedule)."""
+    schedule) for an X of ``dtype``."""
 
     def draw(k: int):
-        arrays = rescal_ensemble_draws(jax.random.fold_in(key, k), n, nr, k, n_perturbs, epsilon)
+        arrays = rescal_ensemble_draws(jax.random.fold_in(key, k), n, nr, k, n_perturbs, epsilon, dtype)
         return rescal_draws_from_reference(*arrays, device="cpu")
 
     return draw

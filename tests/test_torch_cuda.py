@@ -334,10 +334,12 @@ def test_pairwise_wrappers_refuse_what_the_kernel_does_not_take():
     dev = card()
     x = torch.ones((2, 16, 6), device=dev)
     y = torch.ones((2, 8, 6), device=dev)
-    with pytest.raises(TypeError, match="float32"):
-        ops.pairwise_sq_dists_batched(x.bfloat16(), y.bfloat16())
-    with pytest.raises(TypeError, match="float32"):
-        ops.pairwise_sq_dists(x[0].bfloat16())
+    with pytest.raises(TypeError, match="float16 is queued"):
+        ops.pairwise_sq_dists_batched(x.half(), y.half())
+    with pytest.raises(TypeError, match="float16 is queued"):
+        ops.pairwise_sq_dists(x[0].half())
+    with pytest.raises(TypeError, match="of one dtype"):
+        ops.pairwise_sq_dists(x[0].bfloat16(), y[0])
     with pytest.raises(ValueError, match="contiguous"):
         ops.pairwise_sq_dists_batched(x.transpose(1, 2), y.transpose(1, 2))
     with pytest.raises(ValueError, match="contiguous"):
@@ -348,6 +350,71 @@ def test_pairwise_wrappers_refuse_what_the_kernel_does_not_take():
         ops.pairwise_sq_dists(x[0].cpu(), y[0])
     with pytest.raises(ValueError, match="one lane count"):
         ops.pairwise_sq_dists_batched(x, torch.ones((3, 8, 6), device=dev))
+
+
+PAIRWISE_BF16_TOL = dict(rtol=5e-2, atol=5e-1)  # tests/test_kernels.py::test_pairwise bf16 tolerance
+
+
+def _bf16_pair(dev, b: int, n: int, m: int, d: int):
+    rng = np.random.default_rng(b * n + m * d + 1)
+    x = torch.from_numpy(rng.normal(size=(b, n, d)).astype(np.float32)).to(dev).bfloat16()
+    y = torch.from_numpy(rng.normal(size=(b, m, d)).astype(np.float32)).to(dev).bfloat16()
+    return x, y
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,m,d", PAIRWISE_SHAPES)
+def test_pairwise_bf16_kernels_match_plain(b, n, m, d):
+    """bf16 x and y: float32 distances within the reference's bf16 tolerance
+    of the plain version, and bit for bit the fp32 kernel's on the widened
+    operands (widening is exact and the adds are the fp32 kernel's), 2-D and
+    batched, x or y shared; only the bf16 kernels launched."""
+    dev = card()
+    x, y = _bf16_pair(dev, b, n, m, d)
+    cases = [(ops.pairwise_sq_dists_batched, (x, y)), (ops.pairwise_sq_dists_batched, (x[0], y)),
+             (ops.pairwise_sq_dists_batched, (x, y[0])), (ops.pairwise_sq_dists, (x[0], y[0])),
+             (ops.pairwise_sq_dists, (x[0],))]
+    for fn, args in cases:
+        ops.reset_launch_counts()
+        got = fn(*args)
+        counts = ops.launch_counts()
+        assert counts[ops.bf16_name(fn)] == 1 and counts[fn.__name__] == 0
+        assert got.dtype == torch.float32
+        torch.testing.assert_close(got, ref.pairwise_sq_dists(*args), **PAIRWISE_BF16_TOL)
+        assert torch.equal(got, fn(*(a.float() for a in args)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [1, 16])
+def test_pairwise_bf16_kernels_are_bitwise_deterministic(lanes):
+    """The K-Means main path's shape at bf16 (10^6 points, d 6, 24 centroid
+    slots, x shared): two calls give the same bits, the fp32 kernel's on the
+    widened operands, and the float64 error is at most twice the plain
+    version's."""
+    dev = card()
+    x, y = _bf16_pair(dev, lanes, 10**6, 24, 6)
+    x = x[0]
+    first = ops.pairwise_sq_dists_batched(x, y)
+    assert torch.equal(first, ops.pairwise_sq_dists_batched(x, y))
+    assert torch.equal(first, ops.pairwise_sq_dists_batched(x.float(), y.float()))
+    want = ref.pairwise_sq_dists(x.double(), y.double())
+    plain = ref.pairwise_sq_dists(x, y)
+    assert (first.double() - want).abs().max() <= 2 * (plain.double() - want).abs().max()
+    del first, want, plain
+    first = ops.pairwise_sq_dists(x, y[0])
+    assert torch.equal(first, ops.pairwise_sq_dists(x, y[0]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,d", [(1, 5000, 6), (3, 777, 17), (2, 300, 32)])
+def test_pairwise_bf16_thin_and_general_paths_agree_bitwise(b, n, d):
+    """The bf16 half's thin path (m at its limit) and general path (one more
+    row) give the same bits on the shared columns, as the fp32 kernel's do."""
+    dev = card()
+    x, y = _bf16_pair(dev, b, n, THIN_M + 1, d)
+    general = ops.pairwise_sq_dists_batched(x[0], y)
+    thin = ops.pairwise_sq_dists_batched(x[0], y[:, :THIN_M].contiguous())
+    assert torch.equal(general[..., :THIN_M], thin)
 
 
 @pytest.mark.cuda
@@ -561,9 +628,9 @@ def test_flash_bf16_kernel_matches_plain(b, hq, hk, lq, lk, d, causal, window, q
 
 @pytest.mark.cuda
 def test_bf16_halves_of_mu_pairwise_and_silhouette_are_queued():
-    """Of the three, pairwise's bf16 half alone is still queued: the MU and
-    silhouette wrappers take bf16 through their bf16 kernels (matching the
-    plain versions), the pairwise wrappers raise, and float16 is refused."""
+    """None of the three is queued any more: the MU, silhouette and pairwise
+    wrappers take bf16 through their bf16 kernels (matching the plain
+    versions); float16 alone is refused."""
     dev = card()
     x = torch.ones((8, 4), device=dev, dtype=torch.bfloat16)
     w, h = x, torch.ones((4, 4), device=dev, dtype=torch.bfloat16)  # V (8, 4) = W (8, 4) H (4, 4)
@@ -572,13 +639,16 @@ def test_bf16_halves_of_mu_pairwise_and_silhouette_are_queued():
     torch.testing.assert_close(ops.mu_update_h(x, w, h), ref.mu_update_h(x, w, h), **MU_BF16_TOL)
     torch.testing.assert_close(ops.silhouette_dist_sums(x, onehot), ref.silhouette_dist_sums(x, onehot),
                                **SUMS_BF16_TOL)
+    torch.testing.assert_close(ops.pairwise_sq_dists(x), ref.pairwise_sq_dists(x), **SUMS_BF16_TOL)
+    torch.testing.assert_close(ops.pairwise_sq_dists_batched(x[None]), ref.pairwise_sq_dists(x[None]),
+                               **SUMS_BF16_TOL)
     counts = ops.launch_counts()
     assert counts["mu_update_h[bf16]"] == counts["silhouette_dist_sums[bf16]"] == 1
+    assert counts["pairwise_sq_dists[bf16]"] == counts["pairwise_sq_dists_batched[bf16]"] == 1
     assert counts["mu_update_h"] == counts["silhouette_dist_sums"] == 0
-    with pytest.raises(TypeError, match="bf16 half is queued"):
-        ops.pairwise_sq_dists(x)
-    with pytest.raises(TypeError, match="bf16 half is queued"):
-        ops.pairwise_sq_dists_batched(x[None])
+    assert counts["pairwise_sq_dists"] == counts["pairwise_sq_dists_batched"] == 0
+    with pytest.raises(TypeError, match="float16 is queued"):
+        ops.pairwise_sq_dists(x.half())
     with pytest.raises(TypeError, match="float16 is queued"):
         ops.mu_update_w(x.half(), w.half(), h.half())
     with pytest.raises(TypeError, match="of one dtype"):

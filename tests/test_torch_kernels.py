@@ -159,11 +159,13 @@ def test_plain_path_launches_no_kernel():
     ops.flash_attention(*(v[None, None].bfloat16(),) * 3, causal=False)
     ops.mu_update_w(v.bfloat16(), w.bfloat16(), h.bfloat16())
     ops.silhouette_dist_sums_batched(w[None].bfloat16(), torch.eye(3)[torch.arange(16) % 3][None].bfloat16())
+    ops.pairwise_sq_dists(w.bfloat16())
+    ops.pairwise_sq_dists_batched(w.bfloat16(), h[None].transpose(1, 2).contiguous().bfloat16())
     assert ops.launch_counts() == dict.fromkeys(
         ["mu_update_h", "mu_update_w", "silhouette_dist_sums", "silhouette_dist_sums_batched",
          "pairwise_sq_dists", "pairwise_sq_dists_batched", "flash_attention", "mu_update_h[bf16]",
          "mu_update_w[bf16]", "silhouette_dist_sums[bf16]", "silhouette_dist_sums_batched[bf16]",
-         "flash_attention[bf16]"], 0
+         "pairwise_sq_dists[bf16]", "pairwise_sq_dists_batched[bf16]", "flash_attention[bf16]"], 0
     )
 
 
