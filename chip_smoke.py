@@ -490,51 +490,100 @@ def fp64_gate(torch, got, plain, want64, what: str) -> dict:
     return {"fp64_err": err, "plain_fp64_err": plain_err}
 
 
+class EntryPoints:
+    """A library whose calls are recorded by name (``names``): which C entry
+    point, so which kernel, a wrapper took."""
+
+    def __init__(self, lib):
+        self.lib, self.names = lib, []
+
+    def __getattr__(self, name):
+        fn = getattr(self.lib, name)
+
+        def call(*args):
+            self.names.append(name)
+            return fn(*args)
+        return call
+
+
 def check_mu_bf16(torch, dev, ops, ref, records: dict, log) -> None:
     """The bf16 halves of both MU wrappers against their plain versions (bf16
     Gram, fp32 products and epilogue, one rounding) at the main path's
     shapes: the batched wave (L 32, k_pad 16), the elastic lane batch (L 8),
-    the threads executor's fits (L 4, k 16) and one fit (L 1); at the
-    reference's bf16 tolerance, the float64 error at most twice the plain
-    version's, masked components exactly zero, two calls bitwise equal,
-    only the bf16 kernel launched; each timed with its bf16 bound."""
+    the threads executor's fits (L 4, k 16) and one fit (L 1), each timed
+    with its bf16 bound; then the H-update (untimed) at each rank bucket of
+    the tiled kernel (k 1, 17, 32, 64, 128), a split unit with ragged n and
+    m, and past it (k 129, 200: the any-rank kernel, the W-update too). At
+    the reference's bf16 tolerance, the float64 error at most twice the
+    plain version's, masked components exactly zero, two calls bitwise
+    equal, only the bf16 kernel counted, and the H-update's C entry point
+    the tiled ``mu_update_h_bf16`` up to rank 128 (``..._any`` above; the
+    W-update's ``mu_update_w_bf16_any`` at every rank)."""
+    from repro_torch.kernels import build
+
     cases = [
-        ("bf16: k_pad=16, ks 9..16", 32, 16, [9 + i // 4 for i in range(32)]),
-        ("bf16 elastic: L=8, k=16, ks 9..16", 8, 16, [9 + i for i in range(8)]),
-        ("bf16 threads: L=4, k=16", 4, 16, [16] * 4),
-        ("bf16 one fit: L=1, k=16", 1, 16, [16]),
+        ("bf16: k_pad=16, ks 9..16", 32, 16, [9 + i // 4 for i in range(32)], 1000, 1100, True),
+        ("bf16 elastic: L=8, k=16, ks 9..16", 8, 16, [9 + i for i in range(8)], 1000, 1100, True),
+        ("bf16 threads: L=4, k=16", 4, 16, [16] * 4, 1000, 1100, True),
+        ("bf16 one fit: L=1, k=16", 1, 16, [16], 1000, 1100, True),
+        ("bf16 H, KB 16: k=1", 2, 1, [1, 1], 300, 520, False),
+        ("bf16 H, KB 32: k_pad=17, ks 17, 15", 2, 17, [17, 15], 300, 520, False),
+        ("bf16 H, KB 32: k_pad=32, ks 32, 30", 2, 32, [32, 30], 300, 520, False),
+        ("bf16 H, KB 64: k_pad=64, ks 64, 50", 2, 64, [64, 50], 300, 520, False),
+        ("bf16 H, KB 128: k_pad=128, ks 128, 100", 2, 128, [128, 100], 300, 520, False),
+        ("bf16 H, split units, ragged: L=4, n=129, m=257, k_pad=13", 4, 13, [13, 12, 11, 10], 129, 257, False),
+        ("bf16 any rank: k_pad=129, ks 129, 120", 2, 129, [129, 120], 300, 320, False),
+        ("bf16 any rank: k_pad=200, ks 200, 150", 2, 200, [200, 150], 300, 320, False),
     ]
-    n, m = 1000, 1100
-    for label, lanes, k, k_effs in cases:
-        v, w, h, k_eff = (t.bfloat16().contiguous() if t.is_floating_point() else t
-                          for t in mu_problem(torch, dev, lanes, k, k_effs, n, m))
-        dead = torch.arange(k, device=dev)[None, :] >= k_eff[:, None]
-        for wrapper, plain, out_of in ((ops.mu_update_h, ref.mu_update_h, "h"),
-                                       (ops.mu_update_w, ref.mu_update_w, "w")):
-            name = ops.bf16_name(wrapper)
-            ops.reset_launch_counts()
-            got = wrapper(v, w, h)
-            counts = ops.launch_counts()
-            if counts[name] != 1 or counts[wrapper.__name__] != 0:
-                raise AssertionError(f"{name} [{label}]: launches {counts}")
-            again, want = wrapper(v, w, h), plain(v, w, h)
-            torch.cuda.synchronize()
-            if got.dtype != torch.bfloat16:
-                raise AssertionError(f"{name} [{label}]: output dtype {got.dtype}")
-            err = compare(torch, got, want, MU_BF16_TOL["rtol"], MU_BF16_TOL["atol"], f"{name} [{label}]")
-            if not torch.equal(got, again):
-                raise AssertionError(f"{name} [{label}]: two calls differ bitwise")
-            masked = got[dead] if out_of == "h" else got.transpose(1, 2)[dead]
-            if masked.numel() and float(masked.abs().max()) != 0.0:
-                raise AssertionError(f"{name} [{label}]: masked components are not exactly zero")
-            entry = {"case": label, "shape": {"L": lanes, "n": n, "m": m, "k": k}, "max_abs_err": err,
-                     "bitwise_equal_rerun": True,
-                     **fp64_gate(torch, got, want, plain(v.double(), w.double(), h.double()), f"{name} [{label}]")}
+    lib = EntryPoints(build.load("nmf_update"))
+    real_load = build.load
+    build.load = lambda name: lib if name == "nmf_update" else real_load(name)
+    try:
+        for label, lanes, k, k_effs, n, m, main in cases:
+            _mu_bf16_case(torch, dev, ops, ref, records, log, lib, label, lanes, k, k_effs, n, m, main)
+    finally:
+        build.load = real_load
+
+
+def _mu_bf16_case(torch, dev, ops, ref, records, log, lib, label, lanes, k, k_effs, n, m, main) -> None:
+    v, w, h, k_eff = (t.bfloat16().contiguous() if t.is_floating_point() else t
+                      for t in mu_problem(torch, dev, lanes, k, k_effs, n, m))
+    dead = torch.arange(k, device=dev)[None, :] >= k_eff[:, None]
+    both = main or k > ops.MU_TILED_MAX_RANK
+    for wrapper, plain, out_of in ((ops.mu_update_h, ref.mu_update_h, "h"),
+                                   (ops.mu_update_w, ref.mu_update_w, "w"))[:2 if both else 1]:
+        name = ops.bf16_name(wrapper)
+        entry = f"{wrapper.__name__}_bf16" + ("" if out_of == "h" and k <= ops.MU_TILED_MAX_RANK else "_any")
+        ops.reset_launch_counts()
+        lib.names.clear()
+        got = wrapper(v, w, h)
+        counts = ops.launch_counts()
+        if counts[name] != 1 or counts[wrapper.__name__] != 0 or lib.names != [entry]:
+            raise AssertionError(f"{name} [{label}]: launches {counts}, entry points {lib.names}, not [{entry}]")
+        again, want = wrapper(v, w, h), plain(v, w, h)
+        torch.cuda.synchronize()
+        if got.dtype != torch.bfloat16:
+            raise AssertionError(f"{name} [{label}]: output dtype {got.dtype}")
+        err = compare(torch, got, want, MU_BF16_TOL["rtol"], MU_BF16_TOL["atol"], f"{name} [{label}]")
+        if not torch.equal(got, again):
+            raise AssertionError(f"{name} [{label}]: two calls differ bitwise")
+        masked = got[dead] if out_of == "h" else got.transpose(1, 2)[dead]
+        if masked.numel() and float(masked.abs().max()) != 0.0:
+            raise AssertionError(f"{name} [{label}]: masked components are not exactly zero")
+        record = {"case": label, "shape": {"L": lanes, "n": n, "m": m, "k": k}, "max_abs_err": err,
+                  "bitwise_equal_rerun": True, "entry_point": entry,
+                  **fp64_gate(torch, got, want, plain(v.double(), w.double(), h.double()), f"{name} [{label}]")}
+        if entry == "mu_update_h_bf16":
+            plan = ops._mu_plan("h", lanes, n, m, k, torch.cuda.get_device_properties(dev).multi_processor_count,
+                                elem=2)
+            record["plan"] = {"whole": plan.whole, "split": plan.split, "chunk": plan.chunk,
+                              "items": plan.items, "blocks": plan.blocks}
+        if main:  # the main paths' shapes: time them
             b_ms, b_by = mu_bound(out_of, lanes, n, m, k, elem=2)
-            entry.update(ms=time_ms(torch, lambda: wrapper(v, w, h)), plain_ms=time_ms(torch, lambda: plain(v, w, h)),
-                         bound_ms=b_ms, bound_by=b_by)
-            log(json.dumps({"check": name, **entry}))
-            records.setdefault(name, []).append(entry)
+            record.update(ms=time_ms(torch, lambda: wrapper(v, w, h)),
+                          plain_ms=time_ms(torch, lambda: plain(v, w, h)), bound_ms=b_ms, bound_by=b_by)
+        log(json.dumps({"check": name, **record}))
+        records.setdefault(name, []).append(record)
 
 
 def pooled_columns(torch, dev, b: int, p: int, k: int, k_effs, d: int = 1000):
@@ -2082,7 +2131,10 @@ def check_flash_bf16(torch, dev, ops, ref, records: dict, log) -> None:
     ``BF16_FP64_RATIO`` times the plain version's, the same bits on a
     second call, and no launch of the fp32 kernel. Timed against the bf16
     bound (bf16 bytes at the HBM rate against the live pairs' FLOPs at the
-    dense bf16 rate) and SDPA at bf16."""
+    dense bf16 rate) and SDPA at bf16. Then, untimed, the same gates at
+    ``FLASH_BF16_MORE``: every head-dim slab layout (D 1..128), the masks,
+    Lq != Lk at an offset, and strided views on both of the producer's
+    routes (tensor boxes, plain loads)."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device=dev)
@@ -2095,23 +2147,7 @@ def check_flash_bf16(torch, dev, ops, ref, records: dict, log) -> None:
             q, k, v = (torch.empty(t.numel() + 1, device=dev, dtype=t.dtype)[1:].view(t.shape).copy_(t)
                        for t in (q, k, v))
         kw = dict(causal=causal, window=window, q_offset=q_offset)
-        ops.reset_launch_counts()
-        got = ops.flash_attention(q, k, v, **kw)
-        counts = ops.launch_counts()
-        if counts[name] != 1 or counts["flash_attention"] != 0 or got.dtype != torch.bfloat16:
-            raise AssertionError(f"{name} [{label}]: launches {counts}, output {got.dtype}")
-        plain = ref.attention(q, k, v, **kw)
-        torch.cuda.synchronize()
-        err = compare(torch, got, plain, BF16_FLASH_TOL["rtol"], BF16_FLASH_TOL["atol"], f"{name} [{label}]")
-        if not torch.equal(got, ops.flash_attention(q, k, v, **kw)):
-            raise AssertionError(f"{name} [{label}]: two calls differ")
-        err64, plain_err64 = _plain_fp64_err(ref, q, k, v, got, plain, causal, window, q_offset)
-        if err64 > BF16_FP64_RATIO * plain_err64:
-            raise AssertionError(f"{name} [{label}]: {err64:.3e} from float64, over {BF16_FP64_RATIO} x the plain "
-                                 f"version's {plain_err64:.3e}")
-        entry = {"case": label, "max_abs_err": err, "max_abs_err_vs_fp64": err64,
-                 "plain_max_abs_err_vs_fp64": plain_err64, "repeat_bitwise": True}
-        del got, plain
+        entry = _flash_bf16_gate(torch, ops, ref, q, k, v, kw, label)
         if timed:
             pairs = _live_pairs(lq, lk, causal, window, q_offset)
             flops = 4 * b * hq * d * pairs  # q.k and p.v multiply-adds on the live pairs
@@ -2129,6 +2165,62 @@ def check_flash_bf16(torch, dev, ops, ref, records: dict, log) -> None:
         del q, k, v
         log(json.dumps({"check": name, **entry}))
         records.setdefault(name, []).append(entry)
+    # the rest of the kernel's layouts and routes, untimed
+    for label, (b, hq, hk, lq, lk, d), causal, window, q_offset, view in FLASH_BF16_MORE:
+        q, k, v = (torch.randn((b, h, n, d), device=dev, generator=gen).bfloat16()
+                   for h, n in ((hq, lq), (hk, lk), (hk, lk)))
+        if view == "rows":  # rows of D + 9 elements, one past a 16-byte boundary: the producer's plain loads
+            q, k, v = (torch.zeros((*t.shape[:-1], d + 9), device=dev, dtype=t.dtype)[..., 1:1 + d].copy_(t)
+                       for t in (q, k, v))
+        elif view == "model":  # (B, L, H, D) projections seen as (B, H, L, D): tensor boxes on a permuted view
+            q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k, v))
+        entry = _flash_bf16_gate(torch, ops, ref, q, k, v, dict(causal=causal, window=window, q_offset=q_offset),
+                                 label)
+        log(json.dumps({"check": name, **entry}))
+        records.setdefault(name, []).append(entry)
+        del q, k, v
+
+
+# (label, (B, Hq, Hk, Lq, Lk, D), causal, window, q_offset, view) of check_flash_bf16 beyond flash_cases():
+# every slab layout D 1..128, the masks, Lq != Lk at an offset, and strided views on both routes
+FLASH_BF16_MORE = (
+    ("D 1", (1, 2, 1, 100, 100, 1), True, None, 0, None),
+    ("D 16, GQA 2, ragged", (2, 4, 2, 129, 129, 16), True, None, 0, None),
+    ("D 32, MQA, window 24", (1, 4, 1, 64, 64, 32), True, 24, 0, None),
+    ("D 96, two slabs", (1, 4, 2, 300, 300, 96), True, None, 0, None),
+    ("D 112, window 77", (1, 3, 3, 517, 517, 112), True, 77, 0, None),
+    ("D 64, non-causal window 100", (1, 4, 2, 256, 256, 64), False, 100, 0, None),
+    ("D 128, Lq 33 of Lk 97 at q_offset 64, window 16", (2, 4, 2, 33, 97, 128), True, 16, 64, None),
+    ("D 80, Lq 100 of Lk 300 at q_offset 200, window 50", (1, 4, 1, 100, 300, 80), True, 50, 200, None),
+    ("D 64, rows of 73, offset base", (2, 6, 3, 150, 150, 64), True, 40, 0, "rows"),
+    ("D 128, rows of 137, offset base", (2, 6, 3, 150, 150, 128), True, None, 0, "rows"),
+    ("D 64, the model's (B, L, H, D) views", (2, 14, 2, 300, 300, 64), True, None, 0, "model"),
+    ("D 128, the model's (B, L, H, D) views", (2, 8, 2, 200, 200, 128), True, None, 0, "model"),
+)
+
+
+def _flash_bf16_gate(torch, ops, ref, q, k, v, kw: dict, label: str) -> dict:
+    """One bf16 flash call held to its gates: the bf16 kernel launched once
+    and the fp32 one not, bf16 out within BF16_FLASH_TOL of the plain
+    version, the same bits on a second call, the float64 error at most
+    BF16_FP64_RATIO times the plain version's. Returns its record."""
+    name = ops.FLASH_BF16
+    ops.reset_launch_counts()
+    got = ops.flash_attention(q, k, v, **kw)
+    counts = ops.launch_counts()
+    if counts[name] != 1 or counts["flash_attention"] != 0 or got.dtype != torch.bfloat16:
+        raise AssertionError(f"{name} [{label}]: launches {counts}, output {got.dtype}")
+    plain = ref.attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    err = compare(torch, got, plain, BF16_FLASH_TOL["rtol"], BF16_FLASH_TOL["atol"], f"{name} [{label}]")
+    if not torch.equal(got, ops.flash_attention(q, k, v, **kw)):
+        raise AssertionError(f"{name} [{label}]: two calls differ")
+    err64, plain_err64 = _plain_fp64_err(ref, q, k, v, got, plain, kw["causal"], kw["window"], kw["q_offset"])
+    if err64 > BF16_FP64_RATIO * plain_err64:
+        raise AssertionError(f"{name} [{label}]: {err64:.3e} from float64, over {BF16_FP64_RATIO} x the plain "
+                             f"version's {plain_err64:.3e}")
+    return {"case": label, "max_abs_err": err, "max_abs_err_vs_fp64": err64,
+            "plain_max_abs_err_vs_fp64": plain_err64, "repeat_bitwise": True}
 
 
 def _decided(torch, logits, tokens) -> None:
@@ -4075,7 +4167,8 @@ def main() -> int:
                 log(f"  {line.strip()}")
     mu_lib = build.load("nmf_update")
     log("nmf_update dynamic shared memory (bytes) by rank bucket: " + json.dumps(
-        {f"{upd}_kb{kb}": mu_lib.mu_dynamic_smem(i, kb) for i, upd in enumerate("hw") for kb in (16, 32, 64, 128)}))
+        {f"{upd}_kb{kb}{'_bf16' if elem == 2 else ''}": mu_lib.mu_dynamic_smem(i, kb, elem)
+         for elem in (4, 2) for i, upd in enumerate("hw") for kb in (16, 32, 64, 128)}))
 
     records: dict[str, list] = {}
     check_mu(torch, dev, ops, ref, records, log)

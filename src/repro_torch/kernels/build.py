@@ -40,9 +40,10 @@ SIGNATURES: dict[str, dict[str, list]] = {
         "mu_update_w": [_P, _P, _P, _P, _P, _P, _P, *[_I] * 8, _P],
         "mu_update_h_any": [_P, _P, _P, _P, _P, *[_I] * 4, _P],
         "mu_update_w_any": [_P, _P, _P, _P, _P, *[_I] * 4, _P],
-        "mu_update_h_bf16": [_P, _P, _P, _P, _P, *[_I] * 4, _P],
-        "mu_update_w_bf16": [_P, _P, _P, _P, _P, *[_I] * 4, _P],
-        "mu_dynamic_smem": [_I, _I],
+        "mu_update_h_bf16": [_P, _P, _P, _P, _P, _P, _P, *[_I] * 8, _P],
+        "mu_update_h_bf16_any": [_P, _P, _P, _P, _P, *[_I] * 4, _P],
+        "mu_update_w_bf16_any": [_P, _P, _P, _P, _P, *[_I] * 4, _P],
+        "mu_dynamic_smem": [_I, _I, _I],
     },
     "silhouette_sums": {
         "silhouette_dist_sums": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
@@ -54,8 +55,8 @@ SIGNATURES: dict[str, dict[str, list]] = {
     },
     "flash_attention": {
         "flash_attention": [*[_P] * 7, _I, _I, _I, _I, _I, _I, _I, *[_L] * 12, _F, _I, _I, _I, _P],
-        "flash_attention_bf16": [*[_P] * 4, *[_I] * 6, *[_L] * 12, _F, _I, _I, _I, _P],
-        "flash_tiles": [_I, _I],
+        "flash_attention_bf16": [*[_P] * 5, _I, *[_I] * 6, *[_L] * 12, _F, _I, _I, _I, _P],
+        "flash_tiles": [_I, _I, _I],
     },
 }
 

@@ -1,7 +1,9 @@
 // Causal / sliding-window GQA flash attention for Hopper (sm_90a): fp32 in
 // and out, the products on the tensor cores in split TF32 (flash_attention);
 // and bf16 in and out, fp32 scores, softmax and sums, the products on the
-// bf16 tensor cores (flash_attention_bf16, at the end of this file).
+// bf16 tensor cores (flash_attention_bf16, at the end of this file: the
+// same persistent, work-list, wgmma design, its K and V fed by the tensor
+// memory accelerator).
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py:102
 // (`flash_attention`, whose `_flash_kernel` carries the running fp32
@@ -72,9 +74,12 @@
 //   output rows stored, as float4 / float2 where D, the strides and the
 //   base allow, else element by element (D 17, offset views); the split
 //   pass does the same for K and V. The images are always aligned.
+#include <cuda.h>  // CUtensorMap (its encoder is looked up at run time)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <mutex>
 
 namespace {
 
@@ -778,27 +783,6 @@ extern "C" int flash_attention(const float* q, const float* k, const float* v, f
     return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The tiles for head dim d: field 0 the padded D, 1 the kv tile (bk), 2 the
-// query rows a block owns (bq); -1 for d out of range.
-extern "C" int flash_tiles(int d, int field)
-{
-    if (d < 1 || d > 128 || field < 0 || field > 2) return -1;
-#define REPRO_FLASH_TILES(NJ) \
-    case NJ:                  \
-        return field == 0 ? Cfg<NJ>::DP : field == 1 ? Cfg<NJ>::BK : kBQ;
-    switch ((d + 15) / 16) {
-        REPRO_FLASH_TILES(1)
-        REPRO_FLASH_TILES(2)
-        REPRO_FLASH_TILES(3)
-        REPRO_FLASH_TILES(4)
-        REPRO_FLASH_TILES(5)
-        REPRO_FLASH_TILES(6)
-        REPRO_FLASH_TILES(7)
-        REPRO_FLASH_TILES(8)
-    }
-#undef REPRO_FLASH_TILES
-    return -1;
-}
 
 // -----------------------------------------------------------------------------
 // bf16: the TPU kernel's bf16 half. q, k and v bf16 (one dtype), the scores,
@@ -808,275 +792,549 @@ extern "C" int flash_tiles(int d, int field)
 // What bounds it: at qwen2's prefill (B 4, Hq 14, L 1000, D 64, causal)
 // 7.2 GFLOP against 16 MB of bf16, 7.3 us at 989 TFLOP/s of dense bf16,
 // bound by operations. A bf16 x bf16 product is exact in fp32, so S = Q K^T
-// is one pass of mma.sync.m16n8k16 (bf16 in, fp32 accumulators), where the
-// fp32 kernel needs three. P is fp32, as in the reference; rounding it to
-// bf16 for P V would add an error of up to 2^-9 |v| a row, as large as the
-// output's own bf16 rounding on a row of few keys. So P is split, P = hi + lo
-// with hi = bf16(P) and lo = bf16(P - hi) (16 bits of P kept), and P V is two
-// passes. Simple first: one block of 4 warps owns 64 query rows of one
-// (batch, query head), each warp 16 rows, and walks the live kv tiles of 64
-// keys in ascending order (deterministic). The block stages each tile in
-// shared memory (K rows as they lie, V transposed, so every B fragment is one
-// 32-bit load), Q's fragments and O's accumulators stay in registers. No
-// work list, TMA or wgmma yet; the q tiles run longest causal walk first.
+// is one bf16 pass where the fp32 kernel needs three. P is fp32, as in the
+// reference; rounding it to bf16 for P V would add an error of up to 2^-9
+// |v| a row, as large as the output's own bf16 rounding on a row of few
+// keys. So P is split, P = hi + lo with hi = bf16(P) and lo = bf16(P - hi)
+// (16 bits of P kept), and P V is two passes, the small part first: 1.5x
+// the products of one pass.
+//
+// The fp32 kernel's structure, with bf16 operands and no split pass:
+// - One persistent block per SM walks the host-built work list
+//   (ops.flash_work_list, for this kernel's own bq and bk: flash_tiles with
+//   bf16 set), longest walk first.
+// - A producer warpgroup, which gives its registers to the consumers
+//   (setmaxnreg), keeps a ring of K and V tiles filled. Where K's and V's
+//   bases and b/h/l strides are 16-byte multiples, one thread loads each
+//   tile as it lies with the tensor memory accelerator (cp.async.bulk.tensor
+//   on a 4-D tensor map over the (B, H, L, D) view, 64-column boxes,
+//   128-byte swizzle, completing on an mbarrier per slot); elsewhere (D 17,
+//   views one element off a 16-byte boundary) the producer's 128 threads
+//   stage the same tiles, in the same layout, with plain loads. One flag a
+//   launch picks the route. Keys past Lk and columns past D arrive as zeros.
+// - Two consumer warpgroups of 64 query rows each. S = Q K^T is
+//   wgmma.m64nBKk16 with Q (staged once an item by the warpgroup) and K
+//   from shared memory, both K-major. O += P V takes P's hi and lo parts
+//   as register A operands straight from the S accumulator (for 16-bit
+//   types its layout packs pairwise into the A fragment, so nothing is
+//   shuffled) and V as it lies, MN-major, through wgmma's transpose bit
+//   for 16-bit B operands: no transposed copy of V is made. The online
+//   softmax runs in log2 units (one FFMA and one ex2 a score); one
+//   warpgroup's softmax runs beside the other's products. A warpgroup
+//   skips the tiles its rows mask out entirely.
+// - The kernel is bound by the instructions the consumers issue beside
+//   their products, not by the tensor cores: P's split rounds two scores
+//   a cvt.rn.bf16x2.f32, and Q's rows are loaded with all of a thread's
+//   loads in flight (they stand between one item's products and the next).
+// - P V adds into the running O accumulator: the output's bf16 rounding
+//   (2^-9) is far above what the tensor core's truncating adds lose over
+//   thousands of keys (the h2o-danube case holds the float64 gate).
+// - Every row walks its kv tiles in ascending order inside one block, with
+//   no atomics: repeated calls give the same bits.
+// Shapes per D: the head dim is staged as 64-column slabs of 128-byte rows
+// (one slab up to D 64, two above), 128 keys a kv tile at one slab and 64 at
+// two (the O accumulator of D 128 and the split P share the registers), up
+// to four ring stages, and one m64n64k16 P V product a slab.
 // -----------------------------------------------------------------------------
 namespace {
 
-constexpr int kB16Warps = 4;
-constexpr int kB16Threads = 32 * kB16Warps;
-constexpr int kB16Rows = 16 * kB16Warps;  // query rows of a block: one m16 a warp
-constexpr int kB16Keys = 64;              // keys of a kv tile
+constexpr int kB16MaxStages = 4;
 
 template <int NJ>
 struct CfgB16 {
-    static constexpr int DP = 16 * NJ;       // head dim padded to k16 steps
-    static constexpr int KS = NJ;            // k16 steps of Q K^T
-    static constexpr int ND = DP / 8;        // n8 blocks of P V
-    static constexpr int NT = kB16Keys / 8;  // n8 blocks of Q K^T
-    static constexpr int PS = kB16Keys / 16; // k16 steps of P V
-    // row strides of the staged tiles (bf16): 8 past the row, so the 8 rows
-    // of a fragment load fall on distinct banks
-    static constexpr int KR = DP + 8, VR = kB16Keys + 8;
+    static constexpr int DP = 16 * NJ;                     // head dim padded to k16 steps (S = Q K^T)
+    static constexpr int SLABS = (DP + 63) / 64;           // 64-column slabs of 128-byte rows
+    static constexpr int BK = SLABS == 1 ? 128 : 64;       // keys of a kv tile
+    static constexpr int NT = BK / 8;                      // n8 blocks of S
+    static constexpr int PS = BK / 16;                     // k16 steps of P V
+    static constexpr int PVN = 64;                         // columns of O one P V product covers
+    static constexpr int NPV = SLABS * 64 / PVN;           // P V products a k16 step (each hi and lo)
+    static constexpr int kSlabBytes = BK * 128;            // one slab of a K or V tile
+    static constexpr int kTileBytes = SLABS * kSlabBytes;  // K (or V) of a tile
+    static constexpr int kStageBytes = 2 * kTileBytes;     // K, then V
+    static constexpr int kQSlabBytes = kWGRows * 128;
+    static constexpr int kQBytes = kWGs * SLABS * kQSlabBytes;
+    static constexpr int kFit = (kSmem - 1024 - kQBytes - 2 * kB16MaxStages * 8) / kStageBytes;
+    static constexpr int STAGES = kFit < kB16MaxStages ? kFit : kB16MaxStages;
+    static constexpr int kQOffset = STAGES * kStageBytes;
+    static constexpr int kBarOffset = kQOffset + kQBytes;
+    static constexpr int kBytes = kBarOffset + 2 * STAGES * 8 + 1024;  // + 1 KB: the ring starts 1 KB aligned
+    static_assert(STAGES >= 2 && kBytes <= kSmem, "Q and two stages fit in shared memory");
 };
 
-// d (+)= a b on a warp's m16 x n8 x k16 tile: bf16 operands, fp32
-// accumulators. a: rows (g, g + 8) x k (2t, 2t + 1), then k + 8; b: k (2t,
-// 2t + 1) and k (2t + 8, 2t + 9) of column g; d: rows (g, g + 8) x columns
-// (2t, 2t + 1) (lane 4 g + t). The lower half of a 32-bit register holds
-// the lower index.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+// Byte offset of element (r, c) of a tile staged as 64-column slabs of
+// SLAB bytes, 128-byte rows, 16-byte chunk j of row r at j ^ (r % 8): the
+// layout a 128-byte-swizzled tensor box lands in, and the one wgmma reads
+// with a 128-byte-swizzle descriptor (slabs 1 KB aligned).
+template <int SLAB>
+__device__ __forceinline__ int sw128(int r, int c) {
+    return (c >> 6) * SLAB + r * 128 + ((((c >> 3) & 7) ^ (r & 7)) << 4) + (c & 7) * 2;
+}
+
+// A 128-byte-swizzle descriptor: 1 KB between 8-row groups (stride byte
+// offset); `lbo` bytes between 64-column atoms of an MN-major operand
+// (leading byte offset; a K-major one ignores it).
+__device__ __forceinline__ uint64_t sw128_desc(const void* p, int lbo) {
+    return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
+           (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// d (+)= a b on a warpgroup's m64 x N x k16 tile, bf16 operands, fp32
+// accumulators laid out as wgmma_ss above (d[4 j + e]: row 16 w + g + 8 (e /
+// 2), column 8 j + 2 t + e % 2). wgmma_ss_bf16: A and B K-major in shared
+// memory. wgmma_rs_bf16_tb: A from registers (rows g, g + 8 of the warp's
+// 16; k 2t, 2t + 1, then + 8, the lower index in the lower half), B
+// MN-major (transposed), adding into d.
+template <int N>
+__device__ void wgmma_ss_bf16(float (&d)[N / 2], uint64_t da, uint64_t db, int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_ss_bf16<64>(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
     asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-        "{%0, %1, %2, %3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss_bf16<128>(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_bf16_tb(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void hold_u(uint32_t (&x)[4]) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(x[i])::"memory");
 }
 
 __device__ __forceinline__ uint16_t bf16_bits(float x) { return __bfloat16_as_ushort(__float2bfloat16_rn(x)); }
 
-__device__ __forceinline__ float bf16_value(uint16_t bits) { return __uint_as_float(static_cast<uint32_t>(bits) << 16); }
-
-// x0, x1 as bf16 pairs: hi = bf16(x), lo = bf16(x - hi)
+// x0, x1 as bf16 pairs (x0 in the lower half): hi = bf16(x), lo = bf16(x -
+// hi), each pair rounded by one cvt.rn.bf16x2.f32
 __device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi, uint32_t& lo) {
-    const uint16_t h0 = bf16_bits(x0), h1 = bf16_bits(x1);
-    hi = h0 | (static_cast<uint32_t>(h1) << 16);
-    lo = bf16_bits(x0 - bf16_value(h0)) | (static_cast<uint32_t>(bf16_bits(x1 - bf16_value(h1))) << 16);
+    const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+    const float2 hf = __bfloat1622float2(h);
+    const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
+    hi = *reinterpret_cast<const uint32_t*>(&h);
+    lo = *reinterpret_cast<const uint32_t*>(&l);
 }
-
-__device__ __forceinline__ uint32_t ld32(const uint16_t* p) { return *reinterpret_cast<const uint32_t*>(p); }
 
 union Row8 {  // 8 bf16 of a row: one 16-byte load or store
     uint4 u;
     uint16_t h[8];
 };
 
-template <int NJ>
-__global__ void __launch_bounds__(kB16Threads)
-flash_bf16_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k, const uint16_t* __restrict__ v,
-                  uint16_t* __restrict__ out, int hq, int hk, int lq, int lk, int d,
-                  long long qsb, long long qsh, long long qsl,
-                  long long ksb, long long ksh, long long ksl,
-                  long long vsb, long long vsh, long long vsl,
-                  long long osb, long long osh, long long osl,
-                  float scale, int causal, int window, int qoff, int kvvec, int ovec)
-{
-    using C = CfgB16<NJ>;
-    constexpr int DP = C::DP;
-    __shared__ __align__(16) uint16_t ks[kB16Keys * C::KR];  // K tile: row j = key k0 + j
-    __shared__ __align__(16) uint16_t vt[DP * C::VR];        // V^T tile: row c = column c of V
+// One box of a 4-D tensor map (coordinates innermost first) into shared
+// memory; out-of-range elements arrive as zeros.
+__device__ __forceinline__ void tma_box4(void* dst, const CUtensorMap* map, int c0, int c1, int c2, int c3,
+                                         uint64_t* bar) {
+    asm volatile(
+        "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], "
+        "[%6];\n" ::"r"(smem_u32(dst)),
+        "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(smem_u32(bar))
+        : "memory");
+}
 
-    const int qt = gridDim.x - 1 - blockIdx.x;  // the last q tiles walk the most keys: they go first
-    const int h = blockIdx.y, b = blockIdx.z, kh = h / (hq / hk);
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-    const int q0 = qt * kB16Rows, qw0 = q0 + warp * 16;
-    const uint16_t* qb = q + b * qsb + h * qsh;
-    const uint16_t* kb = k + b * ksb + kh * ksh;
-    const uint16_t* vb = v + b * vsb + kh * vsh;
-
-    // this warp's rows of Q as A fragments: rows (g, g + 8), columns 2t, 2t + 1 (+ 8) of each k16 step
-    uint32_t qf[C::KS][4];
+// Rows [0, ROWS) x columns [0, 64 * SLABS) of a (rows, D) operand whose row
+// r is src + r * ld, staged by `nthreads` threads (this one `tid`) in the
+// sw128 layout: rows >= `rows` and columns >= d as zeros; 16-byte loads
+// where `vec` (D, ld and src multiples of 8 elements), else element by
+// element.
+template <int ROWS, int SLABS>
+__device__ __forceinline__ void stage_rows(unsigned char* dst, const uint16_t* src, long long ld, int rows, int d,
+                                           bool vec, int tid, int nthreads) {
+    constexpr int kChunks = 8 * SLABS;  // 16-byte chunks of a row
+#pragma unroll 4
+    for (int i = tid; i < ROWS * kChunks; i += nthreads) {
+        const int r = i / kChunks, c = 8 * (i % kChunks);
+        Row8 x;
+        x.u = make_uint4(0u, 0u, 0u, 0u);
+        if (r < rows && c < d) {
+            const uint16_t* p = src + r * ld + c;
+            if (vec) {
+                x.u = *reinterpret_cast<const uint4*>(p);
+            } else {
 #pragma unroll
-    for (int kk = 0; kk < C::KS; ++kk)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-            const int row = qw0 + g + 8 * (e & 1), col = 16 * kk + 2 * t + 8 * (e >> 1);
-            const uint16_t* p = qb + row * qsl + col;
-            const uint32_t x0 = row < lq && col < d ? p[0] : 0u, x1 = row < lq && col + 1 < d ? p[1] : 0u;
-            qf[kk][e] = x0 | (x1 << 16);
-        }
-
-    int lo, hi;
-    kv_tiles(q0, kB16Rows, kB16Keys, lq, lk, causal, window, qoff, lo, hi);
-    const float sl2 = scale * 1.4426950408889634f;  // scores in log2 units
-    float m_r[2] = {kNegBig, kNegBig}, l_r[2] = {0.f, 0.f}, acc[C::ND][4];
-#pragma unroll
-    for (int n = 0; n < C::ND; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-
-    for (int tile = lo; tile <= hi; ++tile) {
-        const int k0 = tile * kB16Keys;
-        __syncthreads();  // every warp is done with the previous tile
-        // K: 8 columns a thread, neighbouring threads along a row
-        for (int i = threadIdx.x; i < kB16Keys * (DP / 8); i += kB16Threads) {
-            const int r = i / (DP / 8), c = 8 * (i % (DP / 8));
-            Row8 x;
-            x.u = make_uint4(0u, 0u, 0u, 0u);
-            if (k0 + r < lk && c < d) {
-                const uint16_t* p = kb + (k0 + r) * ksl + c;
-                if (kvvec) {
-                    x.u = *reinterpret_cast<const uint4*>(p);
-                } else {
-#pragma unroll
-                    for (int e = 0; e < 8; ++e) x.h[e] = c + e < d ? p[e] : 0;
-                }
+                for (int e = 0; e < 8; ++e) x.h[e] = c + e < d ? p[e] : 0;
             }
-            *reinterpret_cast<uint4*>(ks + r * C::KR + c) = x.u;
         }
-        // V transposed: neighbouring threads on neighbouring keys, so the
-        // 2-byte stores of a column fall on distinct banks
-        for (int i = threadIdx.x; i < kB16Keys * (DP / 8); i += kB16Threads) {
-            const int r = i % kB16Keys, c = 8 * (i / kB16Keys);
-            Row8 x;
-            x.u = make_uint4(0u, 0u, 0u, 0u);
-            if (k0 + r < lk && c < d) {
-                const uint16_t* p = vb + (k0 + r) * vsl + c;
-                if (kvvec) {
-                    x.u = *reinterpret_cast<const uint4*>(p);
-                } else {
-#pragma unroll
-                    for (int e = 0; e < 8; ++e) x.h[e] = c + e < d ? p[e] : 0;
-                }
-            }
-#pragma unroll
-            for (int e = 0; e < 8; ++e) vt[(c + e) * C::VR + r] = x.h[e];
-        }
-        __syncthreads();
+        *reinterpret_cast<uint4*>(dst + sw128<ROWS * 128>(r, c)) = x.u;
+    }
+}
 
-        // skip the tile where no row of this warp sees any of its keys
-        const bool live = qw0 < lq && (!causal || k0 <= qoff + qw0 + 15) &&
-                          (window <= 0 || k0 + kB16Keys - 1 > qoff + qw0 - window);
-        if (!live) continue;
-
-        // S = Q K^T: one bf16 pass
-        float s[C::NT][4];
+// This warpgroup's 64 Q rows (row r at src + r * ld), staged as
+// stage_rows<kWGRows, SLABS> stages them, with all of a thread's loads in
+// flight before its stores: it is on the consumers' path at every item.
+template <int SLABS>
+__device__ __forceinline__ void stage_q(unsigned char* dst, const uint16_t* src, long long ld, int rows, int d,
+                                        bool vec, int tid) {
+    constexpr int kChunks = 8 * SLABS, kPer = kWGRows * kChunks / 128;
+    Row8 x[kPer];
 #pragma unroll
-        for (int j = 0; j < C::NT; ++j)
+    for (int u = 0; u < kPer; ++u) {
+        const int i = tid + 128 * u, r = i / kChunks, c = 8 * (i % kChunks);
+        x[u].u = make_uint4(0u, 0u, 0u, 0u);
+        if (r < rows && c < d) {
+            const uint16_t* p = src + r * ld + c;
+            if (vec) {
+                x[u].u = *reinterpret_cast<const uint4*>(p);
+            } else {
 #pragma unroll
-            for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-        for (int kk = 0; kk < C::KS; ++kk)
-#pragma unroll
-            for (int j = 0; j < C::NT; ++j) {
-                const uint16_t* kr = ks + (8 * j + g) * C::KR + 16 * kk + 2 * t;
-                mma_bf16(s[j], qf[kk], ld32(kr), ld32(kr + 8));
-            }
-
-        // mask and online softmax in log2 units; row g + 8 r sits in the 4
-        // lanes of group g. A masked score is the finite -1e30, as in the
-        // reference: a row with no live key yet gets 2^0 junk, which the
-        // next live tile's correction 2^(-1e30 - m) = 0 wipes.
-        float corr[2];
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-            const int pos = qoff + qw0 + g + 8 * r;
-            float mx = kNegBig;
-#pragma unroll
-            for (int j = 0; j < C::NT; ++j)
-#pragma unroll
-                for (int c = 0; c < 2; ++c) {
-                    const int key = k0 + 8 * j + 2 * t + c;
-                    bool in = key < lk;
-                    if (causal) in = in && key <= pos;
-                    if (window > 0) in = in && key > pos - window;
-                    float& x = s[j][2 * r + c];
-                    x = in ? x * sl2 : kNegBig;
-                    mx = fmaxf(mx, x);
-                }
-            mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-            mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-            const float m_new = fmaxf(m_r[r], mx);
-            corr[r] = ex2(m_r[r] - m_new);
-            float sum = 0.f;
-#pragma unroll
-            for (int j = 0; j < C::NT; ++j)
-#pragma unroll
-                for (int c = 0; c < 2; ++c) {
-                    float& x = s[j][2 * r + c];
-                    x = ex2(x - m_new);
-                    sum += x;
-                }
-            l_r[r] = l_r[r] * corr[r] + sum;  // this lane's share; summed at the end
-            m_r[r] = m_new;
-        }
-#pragma unroll
-        for (int n = 0; n < C::ND; ++n) {
-            acc[n][0] *= corr[0];
-            acc[n][1] *= corr[0];
-            acc[n][2] *= corr[1];
-            acc[n][3] *= corr[1];
-        }
-
-        // O += P V with P = hi + lo: keys 16 c .. 16 c + 15 of P are S's n8
-        // blocks 2 c and 2 c + 1, already in the A fragment's order
-#pragma unroll
-        for (int c = 0; c < C::PS; ++c) {
-            uint32_t ph[4], pl[4];
-            split_bf16(s[2 * c][0], s[2 * c][1], ph[0], pl[0]);
-            split_bf16(s[2 * c][2], s[2 * c][3], ph[1], pl[1]);
-            split_bf16(s[2 * c + 1][0], s[2 * c + 1][1], ph[2], pl[2]);
-            split_bf16(s[2 * c + 1][2], s[2 * c + 1][3], ph[3], pl[3]);
-#pragma unroll
-            for (int n = 0; n < C::ND; ++n) {
-                const uint16_t* vr = vt + (8 * n + g) * C::VR + 16 * c + 2 * t;
-                const uint32_t b0 = ld32(vr), b1 = ld32(vr + 8);
-                mma_bf16(acc[n], pl, b0, b1);  // the small part first
-                mma_bf16(acc[n], ph, b0, b1);
+                for (int e = 0; e < 8; ++e) x[u].h[e] = c + e < d ? p[e] : 0;
             }
         }
     }
-
-    uint16_t* ob = out + b * osb + h * osh;
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-        float l = l_r[r];
-        l += __shfl_xor_sync(0xffffffffu, l, 1);
-        l += __shfl_xor_sync(0xffffffffu, l, 2);
-        const float inv = 1.f / fmaxf(l, 1e-30f);
-        const int row = qw0 + g + 8 * r;
-        if (row >= lq) continue;
-#pragma unroll
-        for (int n = 0; n < C::ND; ++n) {
-            const int col = 8 * n + 2 * t;
-            if (col >= d) continue;
-            uint16_t* o = ob + row * osl + col;
-            const uint16_t x0 = bf16_bits(acc[n][2 * r] * inv), x1 = bf16_bits(acc[n][2 * r + 1] * inv);
-            if (ovec) {
-                *reinterpret_cast<uint32_t*>(o) = x0 | (static_cast<uint32_t>(x1) << 16);
-            } else {
-                o[0] = x0;
-                if (col + 1 < d) o[1] = x1;
-            }
-        }
+    for (int u = 0; u < kPer; ++u) {
+        const int i = tid + 128 * u;
+        *reinterpret_cast<uint4*>(dst + sw128<kWGRows * 128>(i / kChunks, 8 * (i % kChunks))) = x[u].u;
     }
 }
 
 template <int NJ>
-cudaError_t launch_bf16(const uint16_t* q, const uint16_t* k, const uint16_t* v, uint16_t* out,
-                        int b, int hq, int hk, int lq, int lk, int d,
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bf16_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k, const uint16_t* __restrict__ v,
+                  uint16_t* __restrict__ out, const int* __restrict__ work,
+                  int hq, int hk, int lq, int lk, int d, int qtiles,
+                  long long qsb, long long qsh, long long qsl,
+                  long long ksb, long long ksh, long long ksl,
+                  long long vsb, long long vsh, long long vsl,
+                  long long osb, long long osh, long long osl,
+                  float scale, int causal, int window, int qoff, int tma, int kvvec, int qvec, int ovec,
+                  const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMap vmap)
+{
+    using C = CfgB16<NJ>;
+    constexpr int BK = C::BK, NT = C::NT, SLABS = C::SLABS;
+    extern __shared__ __align__(128) unsigned char smem_raw[];
+    unsigned char* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+    unsigned char* ring = smem;  // stage s: K's slabs, then V's
+    unsigned char* qsm = smem + C::kQOffset;
+    uint64_t* full = reinterpret_cast<uint64_t*>(smem + C::kBarOffset);
+    uint64_t* empty = full + C::STAGES;
+
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    if (threadIdx.x == 0) {
+        for (int s = 0; s < C::STAGES; ++s) {
+            mbar_init(&full[s], tma ? 1 : 128);  // the tensor-map thread, or every producer thread
+            mbar_init(&empty[s], kConsumers);
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+
+    const int begin = work[blockIdx.x], end = work[blockIdx.x + 1];
+    const int* items = work + gridDim.x + 1;
+    const int group = hq / hk;
+
+    if (warp >= kConsumers) {  // producer warpgroup
+        asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+        const int ptid = threadIdx.x - 32 * kConsumers;
+        if (tma && ptid != 0) return;
+        int s = 0, phase = 0;
+        for (int it = begin; it < end; ++it) {
+            const int item = items[it];
+            const int qt = item % qtiles, bh = item / qtiles;
+            const int h = bh % hq, b = bh / hq, kh = h / group;
+            int lo, hi;
+            kv_tiles(qt * kBQ, kBQ, BK, lq, lk, causal, window, qoff, lo, hi);
+            for (int t = lo; t <= hi; ++t) {
+                mbar_wait(&empty[s], phase ^ 1);
+                unsigned char* kst = ring + s * C::kStageBytes;
+                unsigned char* vst = kst + C::kTileBytes;
+                if (tma) {
+                    mbar_expect(&full[s], C::kStageBytes);
+#pragma unroll
+                    for (int sl = 0; sl < SLABS; ++sl) {
+                        tma_box4(kst + sl * C::kSlabBytes, &kmap, 64 * sl, t * BK, kh, b, &full[s]);
+                        tma_box4(vst + sl * C::kSlabBytes, &vmap, 64 * sl, t * BK, kh, b, &full[s]);
+                    }
+                } else {
+                    const int k0 = t * BK;
+                    stage_rows<BK, SLABS>(kst, k + b * ksb + kh * ksh + k0 * ksl, ksl, lk - k0, d, kvvec, ptid, 128);
+                    stage_rows<BK, SLABS>(vst, v + b * vsb + kh * vsh + k0 * vsl, vsl, lk - k0, d, kvvec, ptid, 128);
+                    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // visible to the tensor cores
+                    mbar_arrive(&full[s]);
+                }
+                if (++s == C::STAGES) s = 0, phase ^= 1;
+            }
+        }
+        return;
+    }
+
+    // consumers: warpgroup wg owns query rows [qg0, qg0 + 64) of each item,
+    // its warp w rows [qw0, qw0 + 16)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int wg = warp >> 2, tid = threadIdx.x & 127;
+    const int g = lane >> 2, tq = lane & 3;
+    const float sl2 = scale * 1.4426950408889634f;  // scores in log2 units: exp(s scale) = 2^(s sl2)
+    unsigned char* qwg = qsm + wg * SLABS * C::kQSlabBytes;
+    int s = 0, phase = 0;
+    for (int it = begin; it < end; ++it) {
+        const int item = items[it];
+        const int qt = item % qtiles, bh = item / qtiles;
+        const int h = bh % hq, b = bh / hq;
+        const int q0 = qt * kBQ, qg0 = q0 + wg * kWGRows, qg_last = qg0 + kWGRows - 1;
+        const int qw0 = qg0 + (warp & 3) * 16, qw_last = qw0 + 15;
+        int lo, hi;
+        kv_tiles(q0, kBQ, BK, lq, lk, causal, window, qoff, lo, hi);
+
+        // this warpgroup's Q rows, the A operand of S = Q K^T
+        asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");  // the previous item's products are done
+        stage_q<SLABS>(qwg, q + b * qsb + h * qsh + qg0 * qsl, qsl, lq - qg0, d, qvec, tid);
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // visible to the tensor cores
+        asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+
+        constexpr int NPV = C::NPV, PVN = C::PVN;
+        float m_r[2] = {kNegBig, kNegBig}, l_r[2] = {0.f, 0.f}, acc[NPV][PVN / 2];
+#pragma unroll
+        for (int n = 0; n < NPV; ++n)
+#pragma unroll
+            for (int i = 0; i < PVN / 2; ++i) acc[n][i] = 0.f;
+
+        for (int t = lo; t <= hi; ++t) {
+            const int k0 = t * BK;
+            mbar_wait(&full[s], phase);
+            // skip the tile if no row of this warpgroup sees any of its keys
+            const bool live = qg0 < lq && (!causal || k0 <= qoff + qg_last) &&
+                              (window <= 0 || k0 + BK - 1 > qoff + qg0 - window);
+            if (live) {
+                const unsigned char* kst = ring + s * C::kStageBytes;
+                const unsigned char* vst = kst + C::kTileBytes;
+
+                // S = Q K^T: one bf16 pass, k16 steps of 32 bytes inside a slab
+                float sacc[BK / 2];
+                wgmma_fence();
+#pragma unroll
+                for (int kk = 0; kk < NJ; ++kk) {
+                    const int off = (kk & 3) * 32;
+                    wgmma_ss_bf16<BK>(sacc, sw128_desc(qwg + (kk >> 2) * C::kQSlabBytes + off, 16),
+                                      sw128_desc(kst + (kk >> 2) * C::kSlabBytes + off, 16), kk > 0);
+                }
+                wgmma_wait();
+                hold(sacc);
+
+                // mask (tiles on an edge of this warp's rows only), online
+                // softmax in log2 units; row g + 8 r sits in the 4 lanes of
+                // group g. A masked score is the finite -1e30, as in the
+                // reference: a row with no live key yet gets 2^0 junk, which
+                // the next live tile's correction 2^(-1e30 - m) = 0 wipes.
+                const bool masked = k0 + BK > lk || (causal && k0 + BK - 1 > qoff + qw0) ||
+                                    (window > 0 && k0 <= qoff + qw_last - window);
+                const float mul = masked ? 1.f : sl2;  // what turns sacc into log2 units
+                float corr_r[2];
+#pragma unroll
+                for (int r = 0; r < 2; ++r) {
+                    float mx[2 * NT];
+                    if (masked) {
+                        const int qi = qoff + qw0 + g + 8 * r;  // the row's position
+#pragma unroll
+                        for (int j = 0; j < NT; ++j)
+#pragma unroll
+                            for (int c = 0; c < 2; ++c) {
+                                const int kj = k0 + j * 8 + 2 * tq + c;
+                                bool in = kj < lk;
+                                if (causal) in = in && kj <= qi;
+                                if (window > 0) in = in && kj > qi - window;
+                                float& x = sacc[4 * j + 2 * r + c];
+                                x = in ? x * sl2 : kNegBig;
+                                mx[2 * j + c] = x;
+                            }
+                    } else {
+#pragma unroll
+                        for (int j = 0; j < NT; ++j)
+#pragma unroll
+                            for (int c = 0; c < 2; ++c) mx[2 * j + c] = sacc[4 * j + 2 * r + c];
+                    }
+                    float m = tree<NT, true>(mx) * mul;
+                    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+                    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+                    const float m_new = fmaxf(m_r[r], m);
+                    corr_r[r] = ex2(m_r[r] - m_new);
+                    float ps[2 * NT];
+#pragma unroll
+                    for (int j = 0; j < NT; ++j)
+#pragma unroll
+                        for (int c = 0; c < 2; ++c) {
+                            float& x = sacc[4 * j + 2 * r + c];
+                            x = ex2(fmaf(x, mul, -m_new));
+                            ps[2 * j + c] = x;
+                        }
+                    l_r[r] = l_r[r] * corr_r[r] + tree<NT, false>(ps);  // this lane's share; summed at the end
+                    m_r[r] = m_new;
+                }
+
+                // O = O corr + P V, P = hi + lo: keys 16 c .. 16 c + 15 of P
+                // are S's n8 blocks 2 c and 2 c + 1, already in the A
+                // fragment's order; product n gives O's columns PVN n ..
+                uint32_t ph[C::PS][4], pl[C::PS][4];
+#pragma unroll
+                for (int c = 0; c < C::PS; ++c)
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) split_bf16(sacc[8 * c + 2 * e], sacc[8 * c + 2 * e + 1], ph[c][e], pl[c][e]);
+#pragma unroll
+                for (int n = 0; n < NPV; ++n)
+#pragma unroll
+                    for (int i = 0; i < PVN / 2; ++i) acc[n][i] *= corr_r[(i >> 1) & 1];
+                wgmma_fence();  // after the last write of the A and accumulator registers
+#pragma unroll
+                for (int c = 0; c < C::PS; ++c)
+#pragma unroll
+                    for (int n = 0; n < NPV; ++n) {
+                        const uint64_t vd = sw128_desc(vst + n * (PVN / 64) * C::kSlabBytes + c * 16 * 128, C::kSlabBytes);
+                        wgmma_rs_bf16_tb(acc[n], pl[c], vd);  // the small part first
+                        wgmma_rs_bf16_tb(acc[n], ph[c], vd);
+                    }
+                wgmma_wait();
+#pragma unroll
+                for (int n = 0; n < NPV; ++n) hold(acc[n]);
+#pragma unroll
+                for (int c = 0; c < C::PS; ++c) {
+                    hold_u(ph[c]);
+                    hold_u(pl[c]);
+                }
+            }
+            __syncwarp();
+            if (lane == 0) mbar_arrive(&empty[s]);
+            if (++s == C::STAGES) s = 0, phase ^= 1;
+        }
+
+        uint16_t* ob = out + b * osb + h * osh;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+            float l = l_r[r];
+            l += __shfl_xor_sync(0xffffffffu, l, 1);
+            l += __shfl_xor_sync(0xffffffffu, l, 2);
+            const float inv = 1.f / fmaxf(l, 1e-30f);
+            const int qi = qw0 + g + 8 * r;
+            if (qi >= lq) continue;
+#pragma unroll
+            for (int n = 0; n < NPV; ++n)
+#pragma unroll
+                for (int j = 0; j < PVN / 8; ++j) {
+                    const int col = PVN * n + 8 * j + 2 * tq;
+                    if (col >= d) continue;
+                    uint16_t* o = ob + qi * osl + col;
+                    const uint16_t x0 = bf16_bits(acc[n][4 * j + 2 * r] * inv), x1 = bf16_bits(acc[n][4 * j + 2 * r + 1] * inv);
+                    if (ovec) {
+                        *reinterpret_cast<uint32_t*>(o) = x0 | (static_cast<uint32_t>(x1) << 16);
+                    } else {
+                        o[0] = x0;
+                        if (col + 1 < d) o[1] = x1;
+                    }
+                }
+        }
+    }
+}
+
+// cuTensorMapEncodeTiled, looked up through the runtime, so the library
+// links against no libcuda stub.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+    static const EncodeTiled fn = [] {
+        void* p = nullptr;
+        cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+        const cudaError_t rc =
+            cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+        const cudaError_t rc = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+        return rc == cudaSuccess && found == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p) : nullptr;
+    }();
+    return fn;
+}
+
+// A bf16 (B, H, L, D) view with element strides sb, sh, sl, read in boxes
+// of 64 columns x bk rows, 128-byte swizzle; false if the encoder refuses
+// it. A dimension of size 1 takes the stride that makes it dense (its
+// stride is never stepped). Remembered: a map depends only on its
+// arguments, and encoding one costs the host more than the launch.
+bool kv_map(CUtensorMap* map, const void* base, int d, int l, int h, int b, long long sl, long long sh,
+            long long sb, int bk) {
+    struct Key {
+        const void* base;
+        int d, l, h, b, bk;
+        long long sl, sh, sb;
+    };
+    constexpr int kSlots = 64;
+    static std::mutex mu;
+    static Key keys[kSlots];
+    static CUtensorMap maps[kSlots];
+    static int used = 0, next = 0;
+    const Key key{base, d, l, h, b, bk, sl, sh, sb};
+    std::lock_guard<std::mutex> lock(mu);
+    for (int i = 0; i < used; ++i) {
+        const Key& x = keys[i];
+        if (x.base == base && x.d == d && x.l == l && x.h == h && x.b == b && x.bk == bk && x.sl == sl &&
+            x.sh == sh && x.sb == sb) {
+            *map = maps[i];
+            return true;
+        }
+    }
+    const EncodeTiled encode = encoder();
+    if (encode == nullptr) return false;
+    const long long s1 = l > 1 ? sl : d, s2 = h > 1 ? sh : s1 * l, s3 = b > 1 ? sb : s2 * h;
+    const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)l, (cuuint64_t)h, (cuuint64_t)b};
+    const cuuint64_t strides[3] = {(cuuint64_t)s1 * 2, (cuuint64_t)s2 * 2, (cuuint64_t)s3 * 2};
+    const cuuint32_t box[4] = {64, (cuuint32_t)bk, 1, 1};
+    const cuuint32_t unit[4] = {1, 1, 1, 1};
+    if (encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box, unit,
+               CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+        return false;
+    keys[next] = key;
+    maps[next] = *map;
+    next = (next + 1) % kSlots;
+    if (used < kSlots) ++used;
+    return true;
+}
+
+// A stride of a dimension that is stepped (size > 1) must be a multiple of
+// `elems`; one of size 1 never is.
+bool strided(long long stride, int size, int elems) { return size == 1 || stride % elems == 0; }
+
+template <int NJ>
+cudaError_t launch_bf16(const uint16_t* q, const uint16_t* k, const uint16_t* v, uint16_t* out, const int* work,
+                        int blocks, int b, int hq, int hk, int lq, int lk, int d,
                         long long qsb, long long qsh, long long qsl,
                         long long ksb, long long ksh, long long ksl,
                         long long vsb, long long vsh, long long vsl,
                         long long osb, long long osh, long long osl,
                         float scale, int causal, int window, int qoff, cudaStream_t stream)
 {
-    // 16-byte K/V loads where rows are whole uint4s (8 bf16): D, the strides
-    // and the bases all multiples of them; 4-byte stores of out likewise
-    const int kvvec = d % 8 == 0 && aligned(k, 16) && aligned(v, 16) && (ksb | ksh | ksl | vsb | vsh | vsl) % 8 == 0;
-    const int ovec = d % 2 == 0 && aligned(out, 4) && (osb | osh | osl) % 2 == 0;
-    flash_bf16_kernel<NJ><<<dim3((lq + kB16Rows - 1) / kB16Rows, hq, b), kB16Threads, 0, stream>>>(
-        q, k, v, out, hq, hk, lq, lk, d, qsb, qsh, qsl, ksb, ksh, ksl, vsb, vsh, vsl, osb, osh, osl,
-        scale, causal, window, qoff, kvvec, ovec);
+    using C = CfgB16<NJ>;
+    // once per instantiation (the port drives one card)
+    static const cudaError_t attr = cudaFuncSetAttribute(
+        flash_bf16_kernel<NJ>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(C::kBytes));
+    if (attr != cudaSuccess) return attr;
+    // tensor boxes where K's and V's bases and stepped strides are 16-byte
+    // multiples (8 bf16); 16-byte loads of Q, K and V rows where D is too
+    const bool kv16 = aligned(k, 16) && aligned(v, 16) && strided(ksl, lk, 8) && strided(ksh, hk, 8) &&
+                      strided(ksb, b, 8) && strided(vsl, lk, 8) && strided(vsh, hk, 8) && strided(vsb, b, 8);
+    const int kvvec = kv16 && d % 8 == 0;
+    const int qvec = d % 8 == 0 && aligned(q, 16) && strided(qsl, lq, 8) && strided(qsh, hq, 8) && strided(qsb, b, 8);
+    const int ovec = d % 2 == 0 && aligned(out, 4) && strided(osl, lq, 2) && strided(osh, hq, 2) && strided(osb, b, 2);
+    CUtensorMap kmap{}, vmap{};
+    const int tma = kv16 && kv_map(&kmap, k, d, lk, hk, b, ksl, ksh, ksb, C::BK) &&
+                    kv_map(&vmap, v, d, lk, hk, b, vsl, vsh, vsb, C::BK);
+    flash_bf16_kernel<NJ><<<blocks, kThreads, C::kBytes, stream>>>(
+        q, k, v, out, work, hq, hk, lq, lk, d, (lq + kBQ - 1) / kBQ, qsb, qsh, qsl, ksb, ksh, ksl, vsb, vsh, vsl,
+        osb, osh, osl, scale, causal, window, qoff, tma, kvvec, qvec, ovec, kmap, vmap);
     return cudaGetLastError();
 }
 
@@ -1085,25 +1343,27 @@ cudaError_t launch_bf16(const uint16_t* q, const uint16_t* k, const uint16_t* v,
 // q (B, Hq, Lq, D), k and v (B, Hk, Lk, D), out (B, Hq, Lq, D): bf16 (their
 // bits as uint16), unit stride along D, element strides for b, h, l; window
 // <= 0: no window; qoff: the position of query row 0 (qoff + Lq <= Lk when
-// causal or windowed). No scratch and no work list.
-extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v, void* out,
-                                    int b, int hq, int hk, int lq, int lk, int d,
+// causal or windowed). work: the work list, as flash_attention's, built for
+// flash_tiles(d, field, 1)'s bq and bk. No scratch.
+extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v, void* out, const int* work,
+                                    int blocks, int b, int hq, int hk, int lq, int lk, int d,
                                     long long qsb, long long qsh, long long qsl,
                                     long long ksb, long long ksh, long long ksl,
                                     long long vsb, long long vsh, long long vsl,
                                     long long osb, long long osh, long long osl,
                                     float scale, int causal, int window, int qoff, cudaStream_t stream)
 {
-    if (bad_shape(b, hq, hk, lq, lk, d) || qoff < 0 || ((causal || window > 0) && static_cast<long long>(qoff) + lq > lk))
+    if (bad_shape(b, hq, hk, lq, lk, d) || blocks < 1 || qoff < 0 ||
+        ((causal || window > 0) && static_cast<long long>(qoff) + lq > lk))
         return static_cast<int>(cudaErrorInvalidValue);
     const uint16_t *q16 = static_cast<const uint16_t*>(q), *k16 = static_cast<const uint16_t*>(k),
                    *v16 = static_cast<const uint16_t*>(v);
     uint16_t* o16 = static_cast<uint16_t*>(out);
-#define REPRO_FLASH_BF16_CASE(NJ)                                                                          \
-    case NJ:                                                                                               \
-        return static_cast<int>(launch_bf16<NJ>(q16, k16, v16, o16, b, hq, hk, lq, lk, d, qsb, qsh, qsl, ksb, \
-                                                ksh, ksl, vsb, vsh, vsl, osb, osh, osl, scale, causal, window, \
-                                                qoff, stream));
+#define REPRO_FLASH_BF16_CASE(NJ)                                                                              \
+    case NJ:                                                                                                   \
+        return static_cast<int>(launch_bf16<NJ>(q16, k16, v16, o16, work, blocks, b, hq, hk, lq, lk, d, qsb, qsh, \
+                                                qsl, ksb, ksh, ksl, vsb, vsh, vsl, osb, osh, osl, scale, causal,  \
+                                                window, qoff, stream));
     switch ((d + 15) / 16) {
         REPRO_FLASH_BF16_CASE(1)
         REPRO_FLASH_BF16_CASE(2)
@@ -1116,4 +1376,27 @@ extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v,
     }
 #undef REPRO_FLASH_BF16_CASE
     return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The tiles for head dim d of the fp32 kernel (bf16 0) or the bf16 one
+// (bf16 1): field 0 the padded D, 1 the kv tile (bk), 2 the query rows a
+// block owns (bq); -1 for d or field out of range.
+extern "C" int flash_tiles(int d, int field, int bf16)
+{
+    if (d < 1 || d > 128 || field < 0 || field > 2) return -1;
+#define REPRO_FLASH_TILES(NJ)                                                                               \
+    case NJ:                                                                                                \
+        return field == 0 ? Cfg<NJ>::DP : field == 2 ? kBQ : bf16 ? CfgB16<NJ>::BK : Cfg<NJ>::BK;
+    switch ((d + 15) / 16) {
+        REPRO_FLASH_TILES(1)
+        REPRO_FLASH_TILES(2)
+        REPRO_FLASH_TILES(3)
+        REPRO_FLASH_TILES(4)
+        REPRO_FLASH_TILES(5)
+        REPRO_FLASH_TILES(6)
+        REPRO_FLASH_TILES(7)
+        REPRO_FLASH_TILES(8)
+    }
+#undef REPRO_FLASH_TILES
+    return -1;
 }

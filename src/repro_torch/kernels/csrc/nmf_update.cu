@@ -49,12 +49,14 @@
 // zero (W columns / H rows) stay exactly zero: 0 * acc / (x + 1e-9) = 0.
 // fp32 FMA only: no TF32, no wgmma.
 //
-// The bf16 half (mu_update_h_bf16 / mu_update_w_bf16) is the any-rank
-// kernel below instantiated for bf16 operands, at every k: V, W, H and the
-// bf16 G / Q product are read as bf16 and widened to fp32, both products
-// accumulate with fmaf, and out = X * num / (den + 1e-9) is formed in fp32
-// and rounded once (__float2bfloat16_rn), as the TPU kernel's bf16 half
-// does. A simple kernel that is right: no plan, no scratch, no TMA.
+// The bf16 half forms out = X * num / (den + 1e-9) in fp32 from bf16 V, W,
+// H and the bf16 G / Q product and rounds it once (__float2bfloat16_rn), as
+// the TPU kernel's bf16 half does. The H-update up to rank 128
+// (mu_update_h_bf16) is the tiled, planned design with bf16 stages and
+// W^T V on the bf16 tensor cores (HUpdateBf16, at the end); above rank 128
+// (mu_update_h_bf16_any), and the W-update at every rank
+// (mu_update_w_bf16_any), it is the any-rank kernel below instantiated for
+// bf16 operands, widened as loaded, both products by fmaf.
 
 #include <cuda.h>  // CUtensorMap (the encoder is fetched from the driver at run time)
 #include <cuda_bf16.h>
@@ -92,6 +94,12 @@ __device__ __forceinline__ unsigned smem_u32(const void* p) {
 __device__ __forceinline__ void cp_async16(float* dst, const float* src, bool full) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
                "r"(full ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async8(void* dst, const void* src, bool full) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(full ? 8 : 0)
                : "memory");
 }
 
@@ -301,7 +309,10 @@ struct Cursor {
 
 // The block's walk: the copy warps fill ring slots, the math warps consume
 // them in the same order and finish each item after its last stage. `Op`
-// supplies the shapes and issue / compute / finish.
+// supplies the shapes and issue / compute / finish. Without tensor maps a
+// copy thread arrives once its cp.async copies have landed and, where the
+// Op also stages with plain stores (kPlainStores), once more right after
+// them (an arrive releases them; one that cp.async triggers need not).
 template <class Op>
 __device__ __forceinline__ void walk(Op& op, float* ring, uint64_t* full, uint64_t* empty) {
   Cursor c;
@@ -318,6 +329,7 @@ __device__ __forceinline__ void walk(Op& op, float* ring, uint64_t* full, uint64
         op.issue_tma(c, ring + slot * Op::kStage, &full[slot]);
       } else {
         op.issue(c, ring + slot * Op::kStage, lane);
+        if constexpr (Op::kPlainStores) mbar_arrive(&full[slot]);  // releases this thread's plain stores
         mbar_arrive_on_copies(&full[slot]);
       }
       c.next(op.wk);
@@ -340,7 +352,8 @@ template <class Op>
 __device__ __forceinline__ void init_barriers(uint64_t* full, uint64_t* empty, bool tma) {
   if (threadIdx.x == 0) {
     for (int i = 0; i < Op::kStages; ++i) {
-      mbar_init(&full[i], tma ? 1 : kCopy);  // the tensor-map thread, or every copy thread
+      // the tensor-map thread, or every copy thread (once more where it also stores)
+      mbar_init(&full[i], tma ? 1 : kCopy * (Op::kPlainStores ? 2 : 1));
       mbar_init(&empty[i], kMath / 32);  // every math warp, when it is done with the slot
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -377,6 +390,7 @@ struct HUpdate {
   static constexpr int kSmemBytes = 4 * (kStages * kStage + kPark) + 1024;
   static constexpr int kPer = KB * kHCols / kMath;  // elements a math thread finishes: tid + kMath * i
   static constexpr int kTmaBytes = 4 * kStage;       // a stage's two boxes
+  static constexpr bool kPlainStores = false;
 
   const float *v, *w, *h, *g;
   float *out, *part;
@@ -544,6 +558,7 @@ struct WUpdate {
   static constexpr int kSmemBytes = 4 * (kStages * kStage + kPark) + 1024;
   static constexpr int kPer = kBN * KB / kMath;  // 4 elements a math thread: tid + kMath * i
   static constexpr int kTmaBytes = 4 * kStage;    // a stage's four boxes
+  static constexpr bool kPlainStores = false;
 
   const float *v, *h, *w, *q;
   float *out, *part;
@@ -766,16 +781,19 @@ EncodeTiled encoder() {
   return fn;
 }
 
-// A float32 (d0, d1, d2) tensor, d0 innermost and a multiple of 4, read in
-// (b0, b1, 1) boxes; false if the driver refuses it.
-bool tensor_map(CUtensorMap* map, const float* base, int d0, int d1, int d2, int b0, int b1, bool swizzle) {
+// A float32 (or, with bf16, bfloat16) (d0, d1, d2) tensor, d0 innermost
+// and rows of 16-byte multiples, read in (b0, b1, 1) boxes; false if the
+// encoder refuses it.
+bool tensor_map(CUtensorMap* map, const void* base, int d0, int d1, int d2, int b0, int b1, bool swizzle, bool bf16) {
   const EncodeTiled encode = encoder();
   if (encode == nullptr) return false;
+  const cuuint64_t elem = bf16 ? 2 : 4;
   const cuuint64_t dims[3] = {(cuuint64_t)d0, (cuuint64_t)d1, (cuuint64_t)d2};
-  const cuuint64_t strides[2] = {(cuuint64_t)d0 * 4, (cuuint64_t)d0 * d1 * 4};
+  const cuuint64_t strides[2] = {(cuuint64_t)d0 * elem, (cuuint64_t)d0 * d1 * elem};
   const cuuint32_t box[3] = {(cuuint32_t)b0, (cuuint32_t)b1, 1};
   const cuuint32_t unit[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<float*>(base), dims, strides, box, unit,
+  return encode(map, bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3,
+                const_cast<void*>(base), dims, strides, box, unit,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
@@ -783,11 +801,12 @@ bool tensor_map(CUtensorMap* map, const float* base, int d0, int d1, int d2, int
 // tensor_map, remembered: a map depends only on its arguments, and encoding
 // one costs the host more than the launch. The threads executor reuses a
 // few dozen (V per fit, and the allocator's few W and H addresses).
-bool cached_map(CUtensorMap* map, const float* base, int d0, int d1, int d2, int b0, int b1, bool swizzle) {
+bool cached_map(CUtensorMap* map, const void* base, int d0, int d1, int d2, int b0, int b1, bool swizzle,
+                bool bf16 = false) {
   struct Key {
-    const float* base;
+    const void* base;
     int d0, d1, d2, b0, b1;
-    bool swizzle;
+    bool swizzle, bf16;
   };
   constexpr int kSlots = 64;
   static std::mutex mu;
@@ -798,13 +817,13 @@ bool cached_map(CUtensorMap* map, const float* base, int d0, int d1, int d2, int
   for (int i = 0; i < used; ++i) {
     const Key& q = keys[i];
     if (q.base == base && q.d0 == d0 && q.d1 == d1 && q.d2 == d2 && q.b0 == b0 && q.b1 == b1 &&
-        q.swizzle == swizzle) {
+        q.swizzle == swizzle && q.bf16 == bf16) {
       *map = maps[i];
       return true;
     }
   }
-  if (!tensor_map(map, base, d0, d1, d2, b0, b1, swizzle)) return false;
-  keys[next] = {base, d0, d1, d2, b0, b1, swizzle};
+  if (!tensor_map(map, base, d0, d1, d2, b0, b1, swizzle, bf16)) return false;
+  keys[next] = {base, d0, d1, d2, b0, b1, swizzle, bf16};
   maps[next] = *map;
   next = (next + 1) % kSlots;
   if (used < kSlots) ++used;
@@ -975,6 +994,288 @@ int any_w(const T* v, const T* h, const T* w, const T* q, T* out, int lanes, int
                        m, k, stream);
 }
 
+// ---------------------------------------------------------------------------
+// H-update at bf16 (V, W, H and G bf16; fp32 sums and epilogue; out rounded
+// once to bf16): the tiled, planned design above with bf16 stages. Units,
+// items, splits and the persistent walk are the fp32 H-update's. A stage is
+// kHRowsBf16 rows: of V, two 64-column halves of 128-byte rows, 16-byte
+// chunk j of row r at j ^ (r % 8) (the 128-byte swizzle a tensor box lands
+// in, so the ldmatrix reads below hit 8 distinct bank groups), and of W,
+// KB bf16 a row as it lies. Tensor boxes where V's and W's rows are 16-byte
+// multiples; otherwise the copy threads stage V with cp.async (16, 8 or 4
+// bytes as m and the base allow; 2-byte plain stores for odd m) and W with
+// plain loads (k is often odd on the threads executor), arriving once for
+// each kind.
+//
+// The products: at k 16 the H-update does 16 fp32 FLOPs a byte of bf16 V,
+// just under the CUDA cores' 20 a byte, and widening every element adds
+// instructions on top; these kernels are bound by the instructions they
+// issue (the fp32 notes above). So W^T V runs on the bf16 tensor cores,
+// mma.sync.m16n8k16 with A = W^T and B = V, both loaded from the stage by
+// ldmatrix.trans (k16 steps run down the rows, which are V's and W's
+// strided axis). mma.sync over wgmma: each of the 8 math warps owns 16 of
+// the tile's 128 columns and every rank, so one warp's fragments cover its
+// sums with no cross-warp reduction, and the ring and copy warps stay the
+// fp32 design's. Per 16 rows a warp issues one ldmatrix of V, KB / 16 of W
+// and KB / 8 products. Each stage sums into a fresh accumulator that the
+// running fp32 sums take by IEEE adds (the tensor core truncates as it
+// adds). The epilogue reads the H tile and G from global memory (L2): den
+// = G H in ascending rank order by FMA, then H * num / (den + 1e-9).
+// ---------------------------------------------------------------------------
+constexpr int kHRowsBf16 = 64;  // rows of V per stage at bf16 (ops.MU_H_STAGE_BF16): 16 KB, as fp32's 32 rows
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], unsigned addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+// d += a b on a warp's m16 x n8 x k16 tile: bf16 operands, fp32
+// accumulators. a: rows (g, g + 8) x k (2t, 2t + 1), then k + 8; b: k (2t,
+// 2t + 1) and k + 8 of column g; d: rows (g, g + 8) x columns (2t, 2t + 1)
+// (lane 4 g + t).
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+template <int KB>
+struct HUpdateBf16 {
+  static constexpr int kMT = KB / 16;                  // m16 tiles of ranks
+  static constexpr int kHalfBytes = kHRowsBf16 * 128;  // 64 columns of V
+  static constexpr int kVBytes = 2 * kHalfBytes;
+  static constexpr int kWBytes = kHRowsBf16 * KB * 2;
+  static constexpr int kStage = (kVBytes + kWBytes) / 4;  // in floats (the ring's unit); a multiple of 1 KB
+  static constexpr int kStages = ring_stages(kStage, 0);
+  static constexpr int kSmemBytes = 4 * kStages * kStage + 1024;
+  static constexpr int kTmaBytes = kVBytes + kWBytes;  // a stage's three boxes
+  static constexpr bool kPlainStores = true;           // W, and V at odd m, without cp.async
+  static constexpr int kPer = 8 * kMT;                 // sums a math thread holds
+
+  const __nv_bfloat16 *v, *w, *h, *g;
+  __nv_bfloat16* out;
+  float* part;
+  int* count;
+  int lanes, n, m, k;
+  Walk wk;
+  int vg;     // without tensor maps, V's copy granule: 8, 4 or 2 elements by cp.async, 1 by plain stores
+  bool wvec;  // W's rows by 16-byte loads
+  bool tma;
+  const CUtensorMap *map_v, *map_w;  // V as (m, n, L), box (64, kHRowsBf16), swizzled; W as (k, n, L), box (KB, kHRowsBf16)
+  float sum[kMT][2][4];              // rank tile, n8 block of columns, fragment
+
+  __device__ __forceinline__ void issue_tma(const Cursor& c, float* st, uint64_t* bar) const {
+    const int r0 = c.s_begin + c.t * kHRowsBf16, j0 = c.tile * kHCols, l = (int)c.lane;
+    unsigned char* b = reinterpret_cast<unsigned char*>(st);
+    tma_box(st, map_v, j0, r0, l, bar);
+    tma_box(reinterpret_cast<float*>(b + kHalfBytes), map_v, j0 + 64, r0, l, bar);
+    tma_box(reinterpret_cast<float*>(b + kVBytes), map_w, 0, r0, l, bar);
+  }
+
+  // V's rows [0, vr) x columns [0, vc) from src (row stride m), G elements a
+  // copy (cp.async; G 1: plain 2-byte stores), zeros elsewhere
+  template <int G>
+  __device__ __forceinline__ void stage_v(unsigned char* dst, const __nv_bfloat16* src, int vr, int vc,
+                                          int lane) const {
+    constexpr int kPerRow = kHCols / G;
+#pragma unroll 4
+    for (int e = lane; e < kHRowsBf16 * kPerRow; e += kCopy) {
+      const int r = e / kPerRow, c = (e % kPerRow) * G;
+      const bool ok = r < vr && c < vc;
+      unsigned char* at = dst + (c >> 6) * kHalfBytes + r * 128 + ((((c >> 3) & 7) ^ (r & 7)) << 4) + (c & 7) * 2;
+      const __nv_bfloat16* from = ok ? src + (size_t)r * m + c : src;
+      if constexpr (G == 8) {
+        cp_async16(reinterpret_cast<float*>(at), reinterpret_cast<const float*>(from), ok);
+      } else if constexpr (G == 4) {
+        cp_async8(at, from, ok);
+      } else if constexpr (G == 2) {
+        cp_async4(reinterpret_cast<float*>(at), reinterpret_cast<const float*>(from), ok);
+      } else {
+        *reinterpret_cast<__nv_bfloat16*>(at) = ok ? *from : __float2bfloat16_rn(0.f);
+      }
+    }
+  }
+
+  __device__ __forceinline__ void issue(const Cursor& c, float* st, int lane) const {
+    const int r0 = c.s_begin + c.t * kHRowsBf16, vr = min(kHRowsBf16, n - r0);  // splits are whole stages
+    const int j0 = c.tile * kHCols, vc = min(kHCols, m - j0);
+    const __nv_bfloat16* vl = v + c.lane * n * m + (size_t)r0 * m + j0;
+    const __nv_bfloat16* wl = w + (c.lane * n + r0) * k;
+    unsigned char* b = reinterpret_cast<unsigned char*>(st);
+    __nv_bfloat16* ws = reinterpret_cast<__nv_bfloat16*>(b + kVBytes);  // (kHRowsBf16, KB): ranks past k zero
+    if (wvec) {
+#pragma unroll 2
+      for (int e = lane; e < kHRowsBf16 * KB / 8; e += kCopy) {
+        const int r = e / (KB / 8), q = (e % (KB / 8)) * 8;
+        uint4 x = make_uint4(0u, 0u, 0u, 0u);
+        if (r < vr && q < k) x = *reinterpret_cast<const uint4*>(wl + (size_t)r * k + q);
+        *reinterpret_cast<uint4*>(ws + r * KB + q) = x;
+      }
+    } else {
+#pragma unroll 4
+      for (int e = lane; e < kHRowsBf16 * KB; e += kCopy) {
+        const int r = e / KB, q = e % KB;
+        ws[e] = r < vr && q < k ? wl[(size_t)r * k + q] : __float2bfloat16_rn(0.f);
+      }
+    }
+    if (vg == 8) stage_v<8>(b, vl, vr, vc, lane);
+    else if (vg == 4) stage_v<4>(b, vl, vr, vc, lane);
+    else if (vg == 2) stage_v<2>(b, vl, vr, vc, lane);
+    else stage_v<1>(b, vl, vr, vc, lane);
+  }
+
+  // Math warp w: columns 16 w .. 16 w + 15 of the tile (V's half w / 4),
+  // every rank. ldmatrix.trans x4 of V: 8 x 8 blocks (rows 0-7, columns
+  // 0-7), (8-15, 0-7), (0-7, 8-15), (8-15, 8-15) of the warp's 16 x 16, the
+  // B fragments of its two n8 blocks; of W: (rows 0-7, ranks 0-7), (0-7,
+  // 8-15), (8-15, 0-7), (8-15, 8-15) of a rank tile, the A fragment of W^T.
+  __device__ __forceinline__ void compute(const float* st) {
+    const int warp = threadIdx.x >> 5, l = threadIdx.x & 31;
+    const unsigned vs = smem_u32(st) + (warp >> 2) * kHalfBytes, ws = smem_u32(st) + kVBytes;
+    float acc[kMT][2][4];
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < kHRowsBf16 / 16; ++ks) {
+      const int vrow = 16 * ks + (l & 7) + 8 * ((l >> 3) & 1), chunk = 2 * (warp & 3) + (l >> 4);
+      uint32_t bv[4];
+      ldsm_x4_t(bv, vs + vrow * 128 + ((chunk ^ (vrow & 7)) << 4));
+      const int wrow = 16 * ks + (l & 7) + 8 * (l >> 4);
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt) {
+        uint32_t aw[4];
+        ldsm_x4_t(aw, ws + (wrow * KB + 16 * mt + 8 * ((l >> 3) & 1)) * 2);
+        mma_bf16(acc[mt][0], aw, bv[0], bv[1]);
+        mma_bf16(acc[mt][1], aw, bv[2], bv[3]);
+      }
+    }
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sum[mt][nt][e] += acc[mt][nt][e];
+  }
+
+  // The item's last stage is done: the thread's sums are whole over the
+  // item (no slices), element i at rank 16 mt + g + 8 (e / 2), tile column
+  // 16 w + 8 nt + 2 t + e % 2.
+  __device__ __forceinline__ void finish(const Cursor& it) {
+    const int warp = threadIdx.x >> 5, l = threadIdx.x & 31, gq = l >> 2, tq = l & 3;
+    const int j0 = it.tile * kHCols;
+    float num[kPer];
+    int off[kPer];  // element (rank r, tile column cl) -> r * kHCols + cl: its place in a split's partials
+    bool live[kPer];
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = (2 * mt + nt) * 4 + e;
+          const int r = 16 * mt + gq + 8 * (e >> 1), cl = 16 * warp + 8 * nt + 2 * tq + (e & 1);
+          off[i] = r * kHCols + cl;
+          live[i] = r < k && j0 + cl < m;
+          num[i] = sum[mt][nt][e];
+          sum[mt][nt][e] = 0.f;
+        }
+    if (it.piece) {
+      // partials (S, tail units, k, kHCols): store this split's; the last
+      // block to arrive at the unit adds all S in index order
+      const int tail = wk.units - wk.whole, tile_floats = k * kHCols;
+      float* mine = part + ((size_t)it.s * tail + it.tail) * tile_floats;
+#pragma unroll
+      for (int i = 0; i < kPer; ++i)
+        if (live[i]) mine[off[i]] = num[i];
+      if (!arrive_last(count + it.tail, wk.split)) return;
+      sum_partials(num, part + (size_t)it.tail * tile_floats, off, live, wk.split, (size_t)tail * tile_floats);
+    }
+    const __nv_bfloat16* hl = h + it.lane * k * m + j0;
+    const __nv_bfloat16* gl = g + it.lane * k * k;
+    float den[kPer];
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) den[i] = 0.f;
+    for (int q = 0; q < k; ++q) {
+      float hq[2][2];  // H[q] at the thread's columns (nt, e % 2)
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int cl = 16 * warp + 8 * nt + 2 * tq + c;
+          hq[nt][c] = j0 + cl < m ? widen(hl[(size_t)q * m + cl]) : 0.f;
+        }
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int r = 16 * mt + gq + 8 * half;
+          const float gr = r < k ? widen(gl[r * k + q]) : 0.f;
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+              float& x = den[(2 * mt + nt) * 4 + 2 * half + c];
+              x = fmaf(gr, hq[nt][c], x);
+            }
+        }
+    }
+    __nv_bfloat16* ol = out + it.lane * k * m + j0;
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      if (!live[i]) continue;
+      const int r = off[i] / kHCols, cl = off[i] % kHCols;
+      const float hv = widen(hl[(size_t)r * m + cl]);
+      ol[(size_t)r * m + cl] = __float2bfloat16_rn(hv * num[i] / (den[i] + kEps));
+    }
+  }
+};
+
+template <int KB>
+__global__ void __launch_bounds__(kThreads, 1)
+h_update_bf16_kernel(const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ w,
+                     const __nv_bfloat16* __restrict__ h, const __nv_bfloat16* __restrict__ g,
+                     __nv_bfloat16* __restrict__ out, float* __restrict__ part, int* __restrict__ count,
+                     int lanes, int n, int m, int k, int split, int chunk, int whole, int vg, bool wvec, bool tma,
+                     const __grid_constant__ CUtensorMap map_v, const __grid_constant__ CUtensorMap map_w) {
+  using Op = HUpdateBf16<KB>;
+  extern __shared__ __align__(16) float smem_raw[];
+  __shared__ __align__(8) uint64_t bars[2 * kMaxStages];
+  float* ring = align_1k(smem_raw);
+  init_barriers<Op>(bars, bars + kMaxStages, tma);
+  const int tiles = (m + kHCols - 1) / kHCols;
+  const Walk wk{tiles, tiles * lanes, whole, split, chunk, n, kHRowsBf16};
+  Op op{v, w, h, g, out, part, count, lanes, n, m, k, wk, vg, wvec, tma, &map_v, &map_w, {}};
+  walk(op, ring, bars, bars + kMaxStages);
+}
+
+template <int KB>
+int launch_h_bf16(const __nv_bfloat16* v, const __nv_bfloat16* w, const __nv_bfloat16* h, const __nv_bfloat16* g,
+                  __nv_bfloat16* out, float* part, int* count, int lanes, int n, int m, int k, int split, int chunk,
+                  int whole, int blocks, cudaStream_t stream) {
+  using Op = HUpdateBf16<KB>;
+  static const cudaError_t attr =  // once per process (thread-safe static init)
+      cudaFuncSetAttribute(h_update_bf16_kernel<KB>, cudaFuncAttributeMaxDynamicSharedMemorySize, Op::kSmemBytes);
+  if (attr != cudaSuccess) return (int)attr;
+  const uintptr_t va = reinterpret_cast<uintptr_t>(v);
+  // m and the base decide V's copies: rows of 16-byte multiples, else 8, 4, 2
+  const int vg = m % 8 == 0 && va % 16 == 0 ? 8 : m % 4 == 0 && va % 8 == 0 ? 4 : m % 2 == 0 && va % 4 == 0 ? 2 : 1;
+  const bool wvec = k % 8 == 0 && aligned16(w);
+  CUtensorMap map_v{}, map_w{};
+  const bool tma = kTma && vg == 8 && wvec && cached_map(&map_v, v, m, n, lanes, 64, kHRowsBf16, true, true) &&
+                   cached_map(&map_w, w, k, n, lanes, KB, kHRowsBf16, false, true);
+  h_update_bf16_kernel<KB><<<blocks, kThreads, Op::kSmemBytes, stream>>>(
+      v, w, h, g, out, part, count, lanes, n, m, k, split, chunk, whole, vg, wvec, tma, map_v, map_w);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // C interface, loaded with ctypes. Pointers are device pointers of contiguous
@@ -1028,24 +1329,47 @@ extern "C" int mu_update_w_any(const float* v, const float* h, const float* w, c
   return any_w<float>(v, h, w, q, out, lanes, n, m, k, stream);
 }
 
-// The bf16 half, any rank: contiguous bf16 v (L, n, m), w (L, n, k), h (L,
-// k, m), g / q (L, k, k) (the bf16 products W^T W / H H^T), out like h or w.
+// The bf16 H-update, tiled and planned: contiguous bf16 v (L, n, m), w (L,
+// n, k), h (L, k, m), g (L, k, k) (the bf16 product W^T W), out like h;
+// scratch, plan and stream as mu_update_h's, with splits of whole
+// kHRowsBf16-row stages (ops.MU_H_STAGE_BF16). k <= 128.
 extern "C" int mu_update_h_bf16(const __nv_bfloat16* v, const __nv_bfloat16* w, const __nv_bfloat16* h,
-                                const __nv_bfloat16* g, __nv_bfloat16* out, int lanes, int n, int m, int k,
-                                void* stream) {
+                                const __nv_bfloat16* g, __nv_bfloat16* out, float* part, int* count, int lanes,
+                                int n, int m, int k, int split, int chunk, int whole, int blocks, void* stream) {
+  const int tiles = (m + kHCols - 1) / kHCols;
+  if (bad_call(lanes, n, m, k, split, chunk, whole, blocks, n, tiles, kHRowsBf16, part, count))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (k <= 16) return launch_h_bf16<16>(v, w, h, g, out, part, count, lanes, n, m, k, split, chunk, whole, blocks, s);
+  if (k <= 32) return launch_h_bf16<32>(v, w, h, g, out, part, count, lanes, n, m, k, split, chunk, whole, blocks, s);
+  if (k <= 64) return launch_h_bf16<64>(v, w, h, g, out, part, count, lanes, n, m, k, split, chunk, whole, blocks, s);
+  return launch_h_bf16<128>(v, w, h, g, out, part, count, lanes, n, m, k, split, chunk, whole, blocks, s);
+}
+
+// The bf16 half, any rank: contiguous bf16 v (L, n, m), w (L, n, k), h (L,
+// k, m), g / q (L, k, k) (the bf16 products W^T W / H H^T), out like h or
+// w. The H-update takes it above rank 128; the W-update at every rank.
+extern "C" int mu_update_h_bf16_any(const __nv_bfloat16* v, const __nv_bfloat16* w, const __nv_bfloat16* h,
+                                    const __nv_bfloat16* g, __nv_bfloat16* out, int lanes, int n, int m, int k,
+                                    void* stream) {
   return any_h<__nv_bfloat16>(v, w, h, g, out, lanes, n, m, k, stream);
 }
 
-extern "C" int mu_update_w_bf16(const __nv_bfloat16* v, const __nv_bfloat16* h, const __nv_bfloat16* w,
-                                const __nv_bfloat16* q, __nv_bfloat16* out, int lanes, int n, int m, int k,
-                                void* stream) {
+extern "C" int mu_update_w_bf16_any(const __nv_bfloat16* v, const __nv_bfloat16* h, const __nv_bfloat16* w,
+                                    const __nv_bfloat16* q, __nv_bfloat16* out, int lanes, int n, int m, int k,
+                                    void* stream) {
   return any_w<__nv_bfloat16>(v, h, w, q, out, lanes, n, m, k, stream);
 }
 
 // Dynamic shared memory (bytes) a launch of the H (update 0) or W (update 1)
-// kernel requests at rank k, for reports beside ptxas' static counts.
-extern "C" int mu_dynamic_smem(int update, int k) {
+// kernel requests at rank k and element size elem (4 fp32, 2 bf16), for
+// reports beside ptxas' static counts; the bf16 W-update (any rank) asks
+// for none.
+extern "C" int mu_dynamic_smem(int update, int k, int elem) {
   const int kb = k_bucket(k);
+  if (elem == 2)
+    return update != 0 ? 0 : kb == 16 ? HUpdateBf16<16>::kSmemBytes : kb == 32 ? HUpdateBf16<32>::kSmemBytes
+           : kb == 64 ? HUpdateBf16<64>::kSmemBytes : HUpdateBf16<128>::kSmemBytes;
   if (update == 0)
     return kb == 16 ? HUpdate<16>::kSmemBytes : kb == 32 ? HUpdate<32>::kSmemBytes
            : kb == 64 ? HUpdate<64>::kSmemBytes : HUpdate<128>::kSmemBytes;

@@ -117,6 +117,7 @@ H100_SMS = 132  # streaming multiprocessors of an H100 SXM: the planner's defaul
 MU_BLOCKS_PER_SM = 1
 MU_H_COLS = 128  # columns of H per tile (nmf_update.cu kHCols)
 MU_H_STAGE = 32  # rows of V per pipeline stage of the H kernel (kHRows)
+MU_H_STAGE_BF16 = 64  # the same at bf16: 16 KB of V, as fp32's 32 rows (kHRowsBf16)
 MU_W_STAGE = 64  # columns of V per pipeline stage of the W kernel (kWCols)
 # What finishing an item costs a block (park, sum, partials, epilogue), in
 # stages: the planner's price for one more split.
@@ -158,16 +159,22 @@ class MuPlan:
 
 
 @functools.lru_cache(maxsize=4096)
-def _mu_plan(update: str, lanes: int, n: int, m: int, k: int, sms: int = H100_SMS) -> MuPlan:
+def _mu_plan(update: str, lanes: int, n: int, m: int, k: int, sms: int = H100_SMS, elem: int = 4) -> MuPlan:
     """Pick the cut that finishes soonest on ``sms`` SMs. Whole units fill
     ``rounds`` rounds of the persistent blocks; the remaining units are
     split so that their items fill the blocks once more. A round costs the
     stages of its items plus ``MU_ITEM_COST`` each. Every SM gets an item
-    where the shape has enough of them; ties go to fewer items."""
+    where the shape has enough of them; ties go to fewer items. ``elem``
+    is V's element size: 4 (fp32), or 2 (bf16: the H-update's stages hold
+    ``MU_H_STAGE_BF16`` rows; the bf16 W-update has no tiled kernel)."""
+    if elem not in (4, 2):
+        raise ValueError(f"elem must be 4 (float32) or 2 (bfloat16), got {elem}")
     if update == "h":
-        tiles, length, stage = math.ceil(m / MU_H_COLS), n, MU_H_STAGE
-    elif update == "w":
+        tiles, length, stage = math.ceil(m / MU_H_COLS), n, MU_H_STAGE if elem == 4 else MU_H_STAGE_BF16
+    elif update == "w" and elem == 4:
         tiles, length, stage = math.ceil(n / mu_w_rows(k)), m, MU_W_STAGE
+    elif update == "w":
+        raise ValueError("the bf16 W-update has no tiled kernel: it takes the any-rank one, without a plan")
     else:
         raise ValueError(f"update must be 'h' or 'w', got {update!r}")
     units, slots, stages = tiles * lanes, MU_BLOCKS_PER_SM * sms, math.ceil(length / stage)
@@ -220,16 +227,17 @@ def _mu_scratch(device: torch.device, stream: int, n_part: int, n_count: int):
     return part, count
 
 
-def _mu_args(update: str, device: torch.device, stream: int, lanes: int, n: int, m: int, k: int) -> tuple:
+def _mu_args(update: str, device: torch.device, stream: int, lanes: int, n: int, m: int, k: int,
+             elem: int = 4) -> tuple:
     """The C arguments of a launch after its five operands: scratch
     pointers, shape, plan and stream. Remembered per thread, so a repeated
     shape costs one dict lookup; each entry holds its scratch tensors, so
     a pointer stays valid after the scratch grows."""
     cache = _scratch.__dict__.setdefault("args", {})
-    key = (update, device, stream, lanes, n, m, k)
+    key = (update, device, stream, lanes, n, m, k, elem)
     hit = cache.get(key)
     if hit is None:
-        plan = _mu_plan(update, lanes, n, m, k, _sm_count(device))
+        plan = _mu_plan(update, lanes, n, m, k, _sm_count(device), elem)
         held = _mu_scratch(device, stream, math.prod(plan.scratch), plan.counters) if plan.counters else ()
         ptrs = tuple(t.data_ptr() for t in held) or (None, None)
         if len(cache) >= 1024:
@@ -238,27 +246,22 @@ def _mu_args(update: str, device: torch.device, stream: int, lanes: int, n: int,
     return hit[1]
 
 
-def _mu_bf16_launch(name: str, v3, a, b, gram, out) -> None:
-    """Launch the bf16 kernel (``<name>_bf16``): any rank, no plan, no scratch."""
-    lanes, n, m = v3.shape
-    k = gram.shape[-1]
-    ptrs = (v3.data_ptr(), a.data_ptr(), b.data_ptr(), gram.data_ptr(), out.data_ptr())
-    _check(getattr(build.load("nmf_update"), f"{name}_bf16")(*ptrs, lanes, n, m, k, _stream(v3)), f"{name}_bf16")
-
-
 def _mu_launch(name: str, update: str, v3, a, b, gram, out) -> None:
-    """Plan one MU launch, find its scratch and launch it. After a failed
-    launch the thread's scratch is dropped: its counters may be nonzero.
-    Ranks above ``MU_TILED_MAX_RANK`` go to the any-rank kernel, which
-    takes no plan and no scratch."""
+    """Plan one MU launch, find its scratch and launch it: ``<name>`` at
+    fp32, ``<name>_bf16`` at bf16. After a failed launch the thread's
+    scratch is dropped: its counters may be nonzero. Ranks above
+    ``MU_TILED_MAX_RANK``, and the bf16 W-update at every rank, go to the
+    any-rank kernel (``..._any``), which takes no plan and no scratch."""
     lanes, n, m = v3.shape
     k = gram.shape[-1]
+    elem = v3.element_size()
+    name = name if elem == 4 else f"{name}_bf16"
     ptrs = (v3.data_ptr(), a.data_ptr(), b.data_ptr(), gram.data_ptr(), out.data_ptr())
     lib = build.load("nmf_update")
-    if k > MU_TILED_MAX_RANK:
+    if k > MU_TILED_MAX_RANK or (elem == 2 and update == "w"):
         _check(getattr(lib, f"{name}_any")(*ptrs, lanes, n, m, k, _stream(v3)), f"{name}_any")
         return
-    rc = getattr(lib, name)(*ptrs, *_mu_args(update, v3.device, _stream(v3), lanes, n, m, k))
+    rc = getattr(lib, name)(*ptrs, *_mu_args(update, v3.device, _stream(v3), lanes, n, m, k, elem))
     if rc != 0:
         _scratch.__dict__.clear()
     _check(rc, name)
@@ -274,12 +277,8 @@ def mu_update_h(v: torch.Tensor, w: torch.Tensor, h: torch.Tensor) -> torch.Tens
     _mu_shapes(v3, w3, h3)
     g = torch.bmm(w3.transpose(1, 2), w3)
     out = torch.empty_like(h3)
-    if h.dtype == torch.bfloat16:
-        _mu_bf16_launch("mu_update_h", v3, w3, h3, g, out)
-        _count(mu_update_h, "bf16_launches")
-    else:
-        _mu_launch("mu_update_h", "h", v3, w3, h3, g, out)
-        _count(mu_update_h)
+    _mu_launch("mu_update_h", "h", v3, w3, h3, g, out)
+    _count(mu_update_h, "bf16_launches" if h.dtype == torch.bfloat16 else "launches")
     return out[0] if was_2d else out
 
 
@@ -293,12 +292,8 @@ def mu_update_w(v: torch.Tensor, w: torch.Tensor, h: torch.Tensor) -> torch.Tens
     _mu_shapes(v3, w3, h3)
     q = torch.bmm(h3, h3.transpose(1, 2))
     out = torch.empty_like(w3)
-    if w.dtype == torch.bfloat16:
-        _mu_bf16_launch("mu_update_w", v3, h3, w3, q, out)
-        _count(mu_update_w, "bf16_launches")
-    else:
-        _mu_launch("mu_update_w", "w", v3, h3, w3, q, out)
-        _count(mu_update_w)
+    _mu_launch("mu_update_w", "w", v3, h3, w3, q, out)
+    _count(mu_update_w, "bf16_launches" if w.dtype == torch.bfloat16 else "launches")
     return out[0] if was_2d else out
 
 
@@ -467,13 +462,16 @@ _flash_work_cache: dict = {}
 
 
 def _flash_launch(q, k, v, out, scale: float, causal: bool, window: int | None, q_offset: int = 0) -> None:
-    """Launch the kernel: its tiles come from the library (``flash_tiles``),
-    its K/V images are scratch from ``torch.empty``, and its work list is
-    copied to the device once per shape."""
+    """Launch the kernel of q's dtype: ``flash_attention`` at fp32 (its K/V
+    split images are scratch from ``torch.empty``), ``flash_attention_bf16``
+    at bf16 (no scratch). Each takes its own tiles from the library
+    (``flash_tiles``), and its work list is copied to the device once per
+    shape and tiles."""
     b, hq, lq, d = q.shape
     _, hk, lk, _ = k.shape
+    bf16 = q.dtype == torch.bfloat16
     lib = build.load("flash_attention")
-    dp, bk, bq = (lib.flash_tiles(d, field) for field in range(3))
+    dp, bk, bq = (lib.flash_tiles(d, field, int(bf16)) for field in range(3))
     key = (q.device, b, hq, hk, lq, lk, causal, window, bq, bk, q_offset)
     hit = _flash_work_cache.get(key)
     if hit is None:
@@ -483,27 +481,20 @@ def _flash_launch(q, k, v, out, scale: float, causal: bool, window: int | None, 
         tensor = torch.tensor(offsets + items, dtype=torch.int32, device=q.device)
         hit = _flash_work_cache[key] = (tensor, len(offsets) - 1)
     work, blocks = hit
+    strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
+    tail = (b, hq, hk, lq, lk, d, *strides, scale, int(causal), window or 0, q_offset, _stream(q))
+    if bf16:
+        rc = lib.flash_attention_bf16(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), work.data_ptr(),
+                                      blocks, *tail)
+        _check(rc, "flash_attention_bf16")
+        return
     image = b * hk * math.ceil(lk / bk) * bk * dp * 2  # floats of the K (and of the V) image
     images = torch.empty(2 * image, device=q.device, dtype=torch.float32)
-    strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
     rc = lib.flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), images.data_ptr(), images.data_ptr() + 4 * image,
-        work.data_ptr(), blocks, b, hq, hk, lq, lk, d, *strides, scale, int(causal), window or 0, q_offset,
-        _stream(q),
+        work.data_ptr(), blocks, *tail,
     )
     _check(rc, "flash_attention")
-
-
-def _flash_bf16_launch(q, k, v, out, scale: float, causal: bool, window: int | None, q_offset: int = 0) -> None:
-    """Launch the bf16 kernel (``flash_attention_bf16``): no scratch, no work list."""
-    b, hq, lq, d = q.shape
-    _, hk, lk, _ = k.shape
-    strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
-    rc = build.load("flash_attention").flash_attention_bf16(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq, hk, lq, lk, d, *strides, scale,
-        int(causal), window or 0, q_offset, _stream(q),
-    )
-    _check(rc, "flash_attention_bf16")
 
 
 def flash_attention(
@@ -560,12 +551,8 @@ def flash_attention(
     if min(b, lq, lk) < 1 or max(b, hq) > MAX_GRID_YZ:
         raise ValueError(f"the flash-attention kernel takes 1 <= B, Hq <= {MAX_GRID_YZ} and non-empty L")
     out = torch.empty_like(q)  # q's layout when q is dense (a transposed view included)
-    if q.dtype == torch.bfloat16:
-        _flash_bf16_launch(q, k, v, out, scale, causal, window, q_offset)
-        _count(flash_attention, "bf16_launches")
-    else:
-        _flash_launch(q, k, v, out, scale, causal, window, q_offset)
-        _count(flash_attention)
+    _flash_launch(q, k, v, out, scale, causal, window, q_offset)
+    _count(flash_attention, "bf16_launches" if q.dtype == torch.bfloat16 else "launches")
     return out
 
 

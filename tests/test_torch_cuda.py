@@ -112,7 +112,7 @@ def test_mu_kernels_leave_their_arrival_counters_at_zero():
         ops.mu_update_w(v, w, h)
     torch.cuda.synchronize()
     stream = torch.cuda.current_stream(v.device).cuda_stream
-    held, _ = ops._scratch.args[("h", v.device, stream, 4, 1000, 1100, 16)]
+    held, _ = ops._scratch.args[("h", v.device, stream, 4, 1000, 1100, 16, 4)]
     assert held[1].numel() >= ops._mu_plan("h", 4, 1000, 1100, 16).counters > 0
     counters = [held[1] for held, _ in ops._scratch.args.values() if held]
     assert counters and all(int(c.abs().sum()) == 0 for c in counters)
@@ -568,8 +568,8 @@ def test_flash_launch_failure_raises(monkeypatch):
     lib = build.load("flash_attention")
 
     class Misaligned:
-        def flash_tiles(self, d, field):
-            return lib.flash_tiles(d, field)
+        def flash_tiles(self, d, field, bf16):
+            return lib.flash_tiles(d, field, bf16)
 
         def flash_attention(self, *args):
             return lib.flash_attention(*args[:4], args[4] + 4, *args[5:])
@@ -597,23 +597,11 @@ def test_flash_kernel_takes_the_models_strided_views():
     torch.testing.assert_close(got, want, **FLASH_TOL)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("b,hq,hk,lq,lk,d,causal,window,q_offset", [
-    (2, 14, 2, 77, 77, 64, True, None, 0),    # qwen2's heads, ragged
-    (1, 8, 2, 130, 130, 128, True, None, 0),  # D 128
-    (1, 4, 1, 100, 300, 80, True, 50, 200),   # D 80, window, query offset
-    (2, 6, 3, 70, 45, 17, False, None, 0),    # ragged D, non-causal
-])
-def test_flash_bf16_kernel_matches_plain(b, hq, hk, lq, lk, d, causal, window, q_offset):
+def _flash_bf16_holds(q, k, v, causal, window, q_offset):
     """The bf16 kernel against the plain version (fp32 scores, softmax and
     sums, bf16 out) at the reference's bf16 tolerance; its error from the
     float64 plain version at most twice the plain version's; a repeat gives
-    the same bits; the fp32 kernel is not launched."""
-    dev = card()
-    gen = torch.Generator(device=dev).manual_seed(d)
-    q = torch.randn((b, hq, lq, d), device=dev, generator=gen).bfloat16()
-    k = torch.randn((b, hk, lk, d), device=dev, generator=gen).bfloat16()
-    v = torch.randn((b, hk, lk, d), device=dev, generator=gen).bfloat16()
+    the same bits; only the bf16 kernel is launched. Returns the output."""
     kw = dict(causal=causal, window=window, q_offset=q_offset)
     ops.reset_launch_counts()
     got = ops.flash_attention(q, k, v, **kw)
@@ -624,6 +612,60 @@ def test_flash_bf16_kernel_matches_plain(b, hq, hk, lq, lk, d, causal, window, q
     want = ref.attention(q.double(), k.double(), v.double(), **kw)
     assert (got.double() - want).abs().max() <= 2 * (plain.double() - want).abs().max()
     assert torch.equal(got, ops.flash_attention(q, k, v, **kw))
+    return got
+
+
+def _bf16_qkv(dev, b, hq, hk, lq, lk, d, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.randn((b, h, n, d), device=dev, generator=gen).bfloat16() for h, n in ((hq, lq), (hk, lk), (hk, lk)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,hq,hk,lq,lk,d,causal,window,q_offset", [
+    (2, 14, 2, 77, 77, 64, True, None, 0),    # qwen2's heads, ragged
+    (1, 8, 2, 130, 130, 128, True, None, 0),  # D 128
+    (1, 4, 1, 100, 300, 80, True, 50, 200),   # D 80, window, query offset
+    (2, 6, 3, 70, 45, 17, False, None, 0),    # ragged D, non-causal
+    (1, 2, 1, 100, 100, 1, True, None, 0),    # D 1
+    (1, 4, 2, 300, 300, 96, True, None, 0),   # D 96: two slabs, the second part zeros
+    (1, 3, 3, 517, 517, 112, True, 77, 0),    # D 112, window
+    (2, 4, 2, 129, 129, 16, True, None, 0),   # D 16: one k16 step
+    (1, 4, 1, 64, 64, 32, True, 24, 0),       # MQA, window inside one tile
+    (1, 4, 2, 256, 256, 64, False, 100, 0),   # a window without the causal mask
+    (1, 14, 2, 250, 1000, 64, True, None, 750),  # a rank's block of a sequence-parallel prefill
+    (2, 4, 2, 33, 97, 128, True, 16, 64),     # Lq != Lk at an offset, D 128, window
+    (3, 4, 4, 1, 1, 16, True, None, 0),       # one row
+])
+def test_flash_bf16_kernel_matches_plain(b, hq, hk, lq, lk, d, causal, window, q_offset):
+    """The bf16 kernel against the plain version at every head-dim slab
+    layout (D 1..128), causal, windowed and query-offset masks."""
+    q, k, v = _bf16_qkv(card(), b, hq, hk, lq, lk, d, d)
+    _flash_bf16_holds(q, k, v, causal, window, q_offset)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 17, 128])
+def test_flash_bf16_kernel_reads_operands_of_any_stride_and_alignment(d):
+    """q, k and v with rows of D + 9 elements, one element off a 16-byte
+    boundary (the producer's plain loads, not tensor boxes), and as the
+    model's (B, L, H, D) projections seen as (B, H, L, D) (tensor boxes on
+    a permuted view): the same bits as dense copies of the same values."""
+    dev = card()
+    q, k, v = _bf16_qkv(dev, 2, 6, 3, 150, 150, d, 5)
+    dense = _flash_bf16_holds(q, k, v, True, 40, 0)
+
+    def odd_rows(t):
+        buf = torch.zeros((*t.shape[:-1], d + 9), device=dev, dtype=t.dtype)
+        view = buf[..., 1:1 + d]
+        view.copy_(t)
+        return view
+
+    q_odd, k_odd, v_odd = (odd_rows(t) for t in (q, k, v))
+    assert q_odd.data_ptr() % 16 != 0
+    assert torch.equal(_flash_bf16_holds(q_odd, k_odd, v_odd, True, 40, 0), dense)
+    q_bl, k_bl, v_bl = (t.transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k, v))
+    got = _flash_bf16_holds(q_bl, k_bl, v_bl, True, 40, 0)
+    assert got.stride() == q_bl.stride() and torch.equal(got, dense)
 
 
 @pytest.mark.cuda
@@ -687,6 +729,65 @@ def test_mu_bf16_kernels_match_plain(lanes, n, m, k):
         assert torch.equal(got, fn(v, w, h))
     assert float(ops.mu_update_h(v, w, h)[:, -2:, :].abs().max()) == 0.0
     assert float(ops.mu_update_w(v, w, h)[:, :, -2:].abs().max()) == 0.0
+
+
+class _Spy:
+    """The nmf_update library, recording the entry point of each launch."""
+
+    def __init__(self, lib):
+        self.lib, self.names = lib, []
+
+    def __getattr__(self, name):
+        fn = getattr(self.lib, name)
+
+        def launch(*args):
+            self.names.append(name)
+            return fn(*args)
+        return launch
+
+
+# (L, n, m, k) of the bf16 H-update: each rank bucket (1, 16, 17, 32, 64,
+# 128), the lane counts of the executors (32 batched, 8 elastic, 4 threads,
+# 1 one fit), split units with ragged n and m (at L 4, n 129 and m 257: the
+# 2-byte copies of an odd row), n = 1, an odd m with k 1, and k 129 (the
+# any-rank route)
+MU_BF16_H_SHAPES = [
+    (2, 300, 520, 1), (4, 1000, 1100, 16), (2, 300, 520, 17), (2, 300, 520, 32), (2, 300, 520, 64),
+    (2, 300, 520, 128), (32, 1000, 1100, 16), (8, 1000, 1100, 16), (1, 1000, 1100, 16), (4, 129, 257, 13),
+    (3, 1, 1100, 16), (4, 1000, 255, 1), (2, 300, 320, 129),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes,n,m,k", MU_BF16_H_SHAPES)
+def test_mu_bf16_h_update_takes_the_tiled_kernel_up_to_128(monkeypatch, lanes, n, m, k):
+    """bf16 V, W and H: the H-update through the tiled, planned kernel up to
+    rank 128 (the any-rank one above), at the reference's bf16 tolerance,
+    its float64 error at most twice the plain version's, masked ranks
+    exactly zero, five calls bitwise equal (split units too), only the
+    bf16 kernel counted, and the split units' counters left at zero."""
+    dev = card()
+    dead = min(2, k - 1)
+    v, w, h = (t.bfloat16() for t in _mu_problem(dev, lanes + n + m + k, lanes, n, m, k, dead=dead))
+    spy = _Spy(build.load("nmf_update"))
+    monkeypatch.setattr(build, "load", lambda name: spy)
+    ops.reset_launch_counts()
+    got = ops.mu_update_h(v, w, h)
+    counts = ops.launch_counts()
+    assert counts["mu_update_h[bf16]"] == 1 and counts["mu_update_h"] == 0
+    assert spy.names == ["mu_update_h_bf16" if k <= ops.MU_TILED_MAX_RANK else "mu_update_h_bf16_any"]
+    want = ref.mu_update_h(v, w, h)
+    assert got.dtype == want.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(), **MU_BF16_TOL)
+    want64 = ref.mu_update_h(v.double(), w.double(), h.double())
+    assert _fp64_err(got, want64) <= 2 * _fp64_err(want, want64)
+    if dead:
+        assert float(got[:, k - dead:, :].abs().max()) == 0.0
+    for _ in range(4):
+        assert torch.equal(ops.mu_update_h(v, w, h), got)
+    torch.cuda.synchronize()
+    counters = [held[1] for held, _ in ops._scratch.args.values() if held]
+    assert all(int(c.abs().sum()) == 0 for c in counters)
 
 
 @pytest.mark.cuda

@@ -206,17 +206,28 @@ def _splits(plan):
     return [(s * plan.chunk, min(plan.length, (s + 1) * plan.chunk)) for s in range(plan.split)]
 
 
-@pytest.mark.parametrize("update", ["h", "w"])
+# (update, element size): the fp32 H- and W-updates, and the bf16 H-update
+# (the bf16 W-update has no tiled kernel, so no plan)
+MU_PLANNED = [("h", 4), ("w", 4), ("h", 2)]
+
+
+def _stage(update, elem):
+    """Rows (H) or columns (W) of V a pipeline stage holds (nmf_update.cu)."""
+    if update == "w":
+        return ops.MU_W_STAGE
+    return ops.MU_H_STAGE if elem == 4 else ops.MU_H_STAGE_BF16
+
+
+@pytest.mark.parametrize("update,elem", MU_PLANNED)
 @pytest.mark.parametrize("lanes,n,m,k", MU_PLAN_SHAPES)
-def test_mu_plan_splits_cover_the_reduction(update, lanes, n, m, k):
-    plan = ops._mu_plan(update, lanes, n, m, k)
+def test_mu_plan_splits_cover_the_reduction(update, elem, lanes, n, m, k):
+    plan = ops._mu_plan(update, lanes, n, m, k, elem=elem)
     assert plan.length == (n if update == "h" else m)
     spans = _splits(plan)
     assert spans[0][0] == 0 and spans[-1][1] == plan.length
     assert all(a < b for a, b in spans), "an empty split"
     assert all(spans[s][1] == spans[s + 1][0] for s in range(plan.split - 1))
-    stage = ops.MU_H_STAGE if update == "h" else ops.MU_W_STAGE
-    assert plan.chunk % stage == 0
+    assert plan.chunk % _stage(update, elem) == 0
     # every unit is walked: whole ones by one item, the others by `split`
     assert plan.units == plan.tiles * lanes and 0 <= plan.whole <= plan.units
     assert plan.items == plan.whole + (plan.units - plan.whole) * plan.split
@@ -226,14 +237,15 @@ def test_mu_plan_splits_cover_the_reduction(update, lanes, n, m, k):
     assert (plan.tiles - 1) * width < extent <= plan.tiles * width
 
 
-@pytest.mark.parametrize("update", ["h", "w"])
+@pytest.mark.parametrize("update,elem", MU_PLANNED)
 @pytest.mark.parametrize("lanes,n,m,k", MU_PLAN_SHAPES)
-def test_mu_plan_scratch_is_what_the_kernel_indexes(update, lanes, n, m, k):
+def test_mu_plan_scratch_is_what_the_kernel_indexes(update, elem, lanes, n, m, k):
     """nmf_update.cu writes split s of tail unit u at (s * tail + u) * tile
-    floats, element (rank r, column cl) at r * 128 + cl of an H tile and
-    (row r, rank c) at r * k + c of a W tile, and counts arrivals at u: the
-    last index of each must be the buffer's last."""
-    plan = ops._mu_plan(update, lanes, n, m, k)
+    floats, element (rank r, column cl) at r * 128 + cl of an H tile (fp32
+    and bf16 alike: the partials are fp32) and (row r, rank c) at r * k + c
+    of a W tile, and counts arrivals at u: the last index of each must be
+    the buffer's last."""
+    plan = ops._mu_plan(update, lanes, n, m, k, elem=elem)
     tail = plan.units - plan.whole
     if tail == 0 or plan.split == 1:
         assert plan.scratch == () and plan.counters == 0
@@ -244,58 +256,72 @@ def test_mu_plan_scratch_is_what_the_kernel_indexes(update, lanes, n, m, k):
     assert plan.counters == tail
 
 
-@pytest.mark.parametrize("update", ["h", "w"])
-@pytest.mark.parametrize("lanes", [32, 4])
-def test_mu_plan_fills_the_card_at_the_main_path_shapes(update, lanes):
-    """The batched wave (L=32) and the threads executor (L=4) at the paper's
-    1000 x 1100, k=16: a persistent block on every SM of an H100, every
-    block with an item, at most one item more on one block than on another,
-    and the partials small beside V."""
-    plan = ops._mu_plan(update, lanes, 1000, 1100, 16)
+@pytest.mark.parametrize("update,elem", MU_PLANNED)
+@pytest.mark.parametrize("lanes", [32, 8, 4, 1])
+def test_mu_plan_fills_the_card_at_the_main_path_shapes(update, elem, lanes):
+    """The batched wave (L=32), the elastic lane batch (L=8), the threads
+    executor (L=4) and one fit (L=1) at the paper's 1000 x 1100, k=16: a
+    persistent block on every SM of an H100, every block with an item, at
+    most one item more on one block than on another, and the partials
+    small beside V."""
+    plan = ops._mu_plan(update, lanes, 1000, 1100, 16, elem=elem)
     assert plan.blocks == ops.MU_BLOCKS_PER_SM * ops.H100_SMS
     assert plan.items >= plan.blocks
-    assert math.prod(plan.scratch) <= lanes * 1000 * 1100 // 4
-    if lanes == 4:
+    # one fit has 9 H tiles for 132 SMs: each is split up to 16 ways
+    assert math.prod(plan.scratch) <= lanes * 1000 * 1100 // (4 if lanes > 1 else 3)
+    if lanes <= 4:
         assert plan.split > 1, "36 tiles (H) or 64 (W) alone leave SMs idle"
     # no block walks a second round of whole units while another idles
     assert plan.whole % plan.blocks == 0
 
 
-def test_mu_plan_follows_the_card_size():
+@pytest.mark.parametrize("update,elem", MU_PLANNED)
+def test_mu_plan_follows_the_card_size(update, elem):
     """Fewer SMs, fewer blocks; an item for every block."""
-    plan = ops._mu_plan("h", 4, 1000, 1100, 16, sms=66)
+    plan = ops._mu_plan(update, 4, 1000, 1100, 16, sms=66, elem=elem)
     assert plan.blocks == 66 and plan.items >= 66
 
 
 def test_mu_plan_rejects_an_unknown_update():
     with pytest.raises(ValueError, match="'h' or 'w'"):
         ops._mu_plan("x", 1, 8, 8, 2)
+    with pytest.raises(ValueError, match="no tiled kernel"):
+        ops._mu_plan("w", 1, 8, 8, 2, elem=2)
+    with pytest.raises(ValueError, match="element size|float32"):
+        ops._mu_plan("h", 1, 8, 8, 2, elem=8)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("update,lanes,n,m,k", [("h", 32, 1000, 1100, 16), ("w", 4, 1000, 1100, 16), ("h", 1, 40, 24, 5)])
-def test_mu_launch_hands_the_kernel_its_plan(monkeypatch, update, lanes, n, m, k):
+def test_mu_launch_hands_the_kernel_its_plan(monkeypatch, dtype, update, lanes, n, m, k):
     """The wrapper's call into nmf_update.cu, with the library stubbed: the
-    C argument order, the plan's split and chunk, scratch only when split."""
+    C argument order, the plan's split and chunk (at bf16 the plan of bf16
+    stages), scratch only when split; the bf16 W-update takes the any-rank
+    kernel, with no plan."""
     calls = []
 
     class Lib:
-        def mu_update_h(self, *args):
-            calls.append(args)
-            return 0
-
-        mu_update_w = mu_update_h
+        def __getattr__(self, name):
+            def launch(*args):
+                calls.append((name, args))
+                return 0
+            return launch
 
     monkeypatch.setattr(build, "load", lambda name: Lib())
     monkeypatch.setattr(ops, "_sm_count", lambda device: ops.H100_SMS)
     monkeypatch.setattr(ops, "_stream", lambda t: 12345)
-    v = torch.zeros((lanes, n, m))
-    w, h = torch.zeros((lanes, n, k)), torch.zeros((lanes, k, m))
-    gram, out = torch.zeros((lanes, k, k)), torch.empty_like(h if update == "h" else w)
+    v = torch.zeros((lanes, n, m), dtype=dtype)
+    w, h = torch.zeros((lanes, n, k), dtype=dtype), torch.zeros((lanes, k, m), dtype=dtype)
+    gram, out = torch.zeros((lanes, k, k), dtype=dtype), torch.empty_like(h if update == "h" else w)
     a, b = (w, h) if update == "h" else (h, w)
     ops._mu_launch(f"mu_update_{update}", update, v, a, b, gram, out)
-    (args,) = calls
-    plan = ops._mu_plan(update, lanes, n, m, k)
+    ((name, args),) = calls
     assert args[:5] == (v.data_ptr(), a.data_ptr(), b.data_ptr(), gram.data_ptr(), out.data_ptr())
+    if dtype == torch.bfloat16 and update == "w":
+        assert name == "mu_update_w_bf16_any" and args[5:] == (lanes, n, m, k, 12345)
+        return
+    assert name == f"mu_update_{update}" + ("_bf16" if dtype == torch.bfloat16 else "")
+    plan = ops._mu_plan(update, lanes, n, m, k, elem=v.element_size())
     assert (args[5] is None, args[6] is None) == ((plan.counters == 0),) * 2
     assert args[7:] == (lanes, n, m, k, plan.split, plan.chunk, plan.whole, plan.blocks, 12345)
 
@@ -338,7 +364,7 @@ def test_mu_launch_drops_its_scratch_after_a_failed_launch(monkeypatch):
     lanes, n, m, k = 4, 1000, 1100, 16
     v, w, h = torch.zeros((lanes, n, m)), torch.zeros((lanes, n, k)), torch.zeros((lanes, k, m))
     gram, out = torch.zeros((lanes, k, k)), torch.empty_like(h)
-    key = ("h", v.device, 54321, lanes, n, m, k)
+    key = ("h", v.device, 54321, lanes, n, m, k, 4)
     ops._mu_launch("mu_update_h", "h", v, w, h, gram, out)
     held, _ = ops._scratch.args[key]
     assert calls[0][6] == held[1].data_ptr()
@@ -417,6 +443,13 @@ def test_silhouette_and_mu_limits_follow_the_kernel_sources():
     assert ops.SILHOUETTE_THIN_POINTS == const("silhouette_sums.cu", "kThinMaxM")
     assert ops.MU_TILED_MAX_RANK == const("nmf_update.cu", "kTiledMaxRank")
     assert ops.rank_bucket(ops.MU_TILED_MAX_RANK) == ops.MU_TILED_MAX_RANK
+    # the planner's stages and tiles: fp32 and bf16 H, fp32 W
+    assert ops.MU_H_COLS == const("nmf_update.cu", "kHCols")
+    assert ops.MU_H_STAGE == const("nmf_update.cu", "kHRows")
+    assert ops.MU_H_STAGE_BF16 == const("nmf_update.cu", "kHRowsBf16")
+    assert ops.MU_W_STAGE == const("nmf_update.cu", "kWCols")
+    # a bf16 stage holds as many bytes of V as an fp32 one
+    assert 2 * ops.MU_H_STAGE_BF16 == 4 * ops.MU_H_STAGE
 
 
 @pytest.mark.parametrize(
@@ -461,11 +494,12 @@ def test_dist_sums_launch_refuses_what_the_kernel_does_not_take(monkeypatch):
         ops._dist_sums_launch(big, big, big)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("update,k", [("h", 129), ("w", 129), ("h", 200), ("w", 256)])
-def test_mu_launch_takes_the_any_rank_kernel_above_128(monkeypatch, update, k):
+def test_mu_launch_takes_the_any_rank_kernel_above_128(monkeypatch, dtype, update, k):
     """Past the tiled kernels' largest rank the wrapper calls the any-rank
-    entry point: the five operands, the shape and the stream, no plan and
-    no scratch."""
+    entry point of the operands' dtype: the five operands, the shape and
+    the stream, no plan and no scratch."""
     calls = []
 
     class Lib:
@@ -478,13 +512,13 @@ def test_mu_launch_takes_the_any_rank_kernel_above_128(monkeypatch, update, k):
     monkeypatch.setattr(build, "load", lambda name: Lib())
     monkeypatch.setattr(ops, "_stream", lambda t: 99)
     lanes, n, m = 2, 30, 20
-    v = torch.zeros((lanes, n, m))
-    w, h = torch.zeros((lanes, n, k)), torch.zeros((lanes, k, m))
-    gram, out = torch.zeros((lanes, k, k)), torch.empty_like(h if update == "h" else w)
+    v = torch.zeros((lanes, n, m), dtype=dtype)
+    w, h = torch.zeros((lanes, n, k), dtype=dtype), torch.zeros((lanes, k, m), dtype=dtype)
+    gram, out = torch.zeros((lanes, k, k), dtype=dtype), torch.empty_like(h if update == "h" else w)
     a, b = (w, h) if update == "h" else (h, w)
     ops._mu_launch(f"mu_update_{update}", update, v, a, b, gram, out)
     ((name, args),) = calls
-    assert name == f"mu_update_{update}_any"
+    assert name == f"mu_update_{update}" + ("_bf16" if dtype == torch.bfloat16 else "") + "_any"
     assert args == (v.data_ptr(), a.data_ptr(), b.data_ptr(), gram.data_ptr(), out.data_ptr(), lanes, n, m, k, 99)
 
 
@@ -649,70 +683,90 @@ def test_flash_work_list_covers_every_item_once_longest_first(b, hq, hk, lq, lk,
 
 
 class _FlashLib:
-    """A stand-in for the flash library: records each launch and returns
-    ``rc``; its tiles (DP, bk 16, bq 64) are not the compiled ones, so a test
-    sees the wrapper take them from the library."""
+    """A stand-in for the flash library: records each launch of either
+    kernel and returns ``rc``; its tiles (DP, bk 16 fp32 or 32 bf16, bq 64)
+    are not the compiled ones, so a test sees the wrapper take each
+    kernel's own from the library."""
 
     def __init__(self, rc=0):
-        self.rc, self.calls = rc, []
+        self.rc, self.calls, self.names = rc, [], []
 
-    def flash_tiles(self, d, field):
-        return (16 * math.ceil(d / 16), 16, 64)[field]
+    def flash_tiles(self, d, field, bf16):
+        return (16 * math.ceil(d / 16), 32 if bf16 else 16, 64)[field]
 
     def flash_attention(self, *args):
         self.calls.append(args)
+        self.names.append("flash_attention")
+        return self.rc
+
+    def flash_attention_bf16(self, *args):
+        self.calls.append(args)
+        self.names.append("flash_attention_bf16")
         return self.rc
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize(
     "make",
     [
-        lambda: _flash_views((2, 77, 14, 64)),  # the model's strided views
-        lambda: torch.zeros((2, 14, 45, 17)),  # D 17: 68-byte rows
-        lambda: torch.zeros(1 + 2 * 14 * 8 * 64)[1:].view(2, 14, 8, 64),  # base 4 bytes off
-        lambda: _flash_views((1, 130, 14, 80)),  # h2o-danube's head dim
+        lambda dtype: _flash_views((2, 77, 14, 64), dtype),  # the model's strided views
+        lambda dtype: torch.zeros((2, 14, 45, 17), dtype=dtype),  # D 17: 68-byte (34 at bf16) rows
+        lambda dtype: torch.zeros(1 + 2 * 14 * 8 * 64, dtype=dtype)[1:].view(2, 14, 8, 64),  # base one element off
+        lambda dtype: _flash_views((1, 130, 14, 80), dtype),  # h2o-danube's head dim
     ],
 )
-def test_flash_launch_hands_the_kernel_its_arguments(monkeypatch, make):
+def test_flash_launch_hands_the_kernel_its_arguments(monkeypatch, make, dtype):
     """The wrapper's call into flash_attention.cu, with the library stubbed:
-    the operands and their strides as they are (any layout), K/V scratch of
-    bk * DP * 2 floats a tile, and the work list on q's device (offsets,
-    then items) built for the library's own tiles."""
+    the kernel of q's dtype, the operands and their strides as they are
+    (any layout), K/V scratch of bk * DP * 2 floats a tile (fp32 only), and
+    the work list on q's device (offsets, then items) built for the
+    library's own tiles of that kernel."""
     lib = _FlashLib()
     monkeypatch.setattr(build, "load", lambda name: lib)
     monkeypatch.setattr(ops, "_stream", lambda t: 77)
     monkeypatch.setattr(ops, "_sm_count", lambda device: 132)
     monkeypatch.setattr(ops, "_flash_work_cache", {})
-    q = make()
+    q = make(dtype)
     bsz, hq, length, d = q.shape
     k = v = q[:, :2]
     out = torch.empty_like(q)
     ops._flash_launch(q, k, v, out, 0.125, True, None)
     (args,) = lib.calls
-    dp, bk, bq = 16 * math.ceil(d / 16), 16, 64
+    bf16 = dtype == torch.bfloat16
+    assert lib.names == ["flash_attention_bf16" if bf16 else "flash_attention"]
+    dp, bk, bq = 16 * math.ceil(d / 16), 32 if bf16 else 16, 64
     offsets, items = ops.flash_work_list(bsz, hq, 2, length, length, True, None, bq, bk, 132)
     ((work, blocks),) = ops._flash_work_cache.values()
     assert work.tolist() == list(offsets + items) and blocks == len(offsets) - 1
-    image = bsz * 2 * math.ceil(length / bk) * bk * dp * 2
     assert args[:4] == (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
-    assert args[5] - args[4] == 4 * image
+    if not bf16:  # the split images' scratch
+        image = bsz * 2 * math.ceil(length / bk) * bk * dp * 2
+        assert args[5] - args[4] == 4 * image
+        args = args[:4] + args[6:]
     strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
-    assert args[6:] == (work.data_ptr(), blocks, bsz, hq, 2, length, length, d, *strides, 0.125, 1, 0, 0, 77)
+    assert args[4:] == (work.data_ptr(), blocks, bsz, hq, 2, length, length, d, *strides, 0.125, 1, 0, 0, 77)
 
 
-def test_flash_launch_copies_each_work_list_once(monkeypatch):
-    """The work list goes to the device once per shape: a second call of the
-    same shape reuses it; another length gets its own."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_launch_copies_each_work_list_once(monkeypatch, dtype):
+    """The work list goes to the device once per shape and tiles: a second
+    call of the same shape reuses it; another length gets its own, and so
+    does the other dtype's kernel where its tiles differ."""
     lib = _FlashLib()
     monkeypatch.setattr(build, "load", lambda name: lib)
     monkeypatch.setattr(ops, "_stream", lambda t: 0)
     monkeypatch.setattr(ops, "_sm_count", lambda device: 8)
     monkeypatch.setattr(ops, "_flash_work_cache", {})
+    at = 4 if dtype == torch.bfloat16 else 6  # where the work list's pointer sits among the arguments
     for length in (40, 40, 90):
-        q = torch.zeros((1, 4, length, 32))
+        q = torch.zeros((1, 4, length, 32), dtype=dtype)
         ops._flash_launch(q, q, q, torch.empty_like(q), 0.2, True, None)
     assert len(ops._flash_work_cache) == 2
-    assert lib.calls[0][6] == lib.calls[1][6] != lib.calls[2][6]
+    assert lib.calls[0][at] == lib.calls[1][at] != lib.calls[2][at]
+    other = torch.float32 if dtype == torch.bfloat16 else torch.bfloat16
+    q = torch.zeros((1, 4, 40, 32), dtype=other)
+    ops._flash_launch(q, q, q, torch.empty_like(q), 0.2, True, None)
+    assert len(ops._flash_work_cache) == 3
 
 
 def test_flash_launch_raises_when_the_kernel_refuses(monkeypatch):

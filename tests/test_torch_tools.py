@@ -40,18 +40,32 @@ def test_device_times_count_each_kernel_once():
     assert times == {"cutlass_sgemm": (146.0, 407), "pairwise_thin<8>": (38.0, 861)}
 
 
+@pytest.mark.parametrize("elem,ms", [(4, 0.044), (2, 0.022)])
 @pytest.mark.parametrize("update", ["h", "w"])
-def test_mu_bound_is_chip_smokes_and_scales_with_lanes(update):
+def test_mu_bound_is_chip_smokes_and_scales_with_lanes(update, elem, ms):
     """time_mu reports chip_smoke.py's bound: at the paper's 1000 x 1100,
-    k 16 the bytes bind (0.044 ms at the batched wave's L=32), and it is
-    linear in the lane count (the elastic executor's L=8 a quarter of it)."""
+    k 16 the bytes bind (0.044 ms at the batched wave's L=32 in fp32, half
+    of it in bf16), and it is linear in the lane count (the elastic
+    executor's L=8 a quarter of it)."""
     import chip_smoke
 
     assert time_mu.mu_bound is chip_smoke.mu_bound
-    ms32, by32 = chip_smoke.mu_bound(update, 32, 1000, 1100, 16)
-    assert abs(ms32 - 0.044) < 0.001 and by32 == "bytes"
-    ms8, by8 = chip_smoke.mu_bound(update, 8, 1000, 1100, 16)
+    ms32, by32 = chip_smoke.mu_bound(update, 32, 1000, 1100, 16, elem)
+    assert abs(ms32 - ms) < 0.001 and by32 == "bytes"
+    ms8, by8 = chip_smoke.mu_bound(update, 8, 1000, 1100, 16, elem)
     assert ms8 == pytest.approx(ms32 / 4) and by8 == "bytes"
+
+
+def test_mu_parse_args_takes_a_dtype():
+    """time_mu times float32 by default and bf16 with --dtype bfloat16, each
+    held at its own MU tolerance; another dtype is refused."""
+    args = time_mu.parse_args([])
+    assert args.dtype == "float32" and args.searches == 3 and not args.no_tma
+    args = time_mu.parse_args(["--dtype", "bfloat16", "--src", "build/parent/src", "--tag", "parent"])
+    assert (args.dtype, args.src, args.tag) == ("bfloat16", "build/parent/src", "parent")
+    assert time_mu.MU_TOL["bfloat16"] == dict(rtol=2e-2, atol=2e-2)
+    with pytest.raises(SystemExit):
+        time_mu.parse_args(["--dtype", "float16"])
 
 
 def test_record_shapes_counts_launches_by_shape_and_restores_the_wrapper():
@@ -149,9 +163,12 @@ def test_flash_parse_args_defaults_and_flags():
 
     args = time_flash.parse_args([])
     assert Path(args.src) == Path(time_flash.__file__).resolve().parents[1] / "src"
-    assert args.tag is None and args.seed == 11
-    args = time_flash.parse_args(["--src", "build/parent/src", "--tag", "parent", "--seed", "3"])
-    assert (args.src, args.tag, args.seed) == ("build/parent/src", "parent", 3)
+    assert args.tag is None and args.seed == 11 and args.dtype == "float32"
+    args = time_flash.parse_args(["--src", "build/parent/src", "--tag", "parent", "--seed", "3", "--dtype",
+                                  "bfloat16"])
+    assert (args.src, args.tag, args.seed, args.dtype) == ("build/parent/src", "parent", 3, "bfloat16")
+    with pytest.raises(SystemExit):
+        time_flash.parse_args(["--dtype", "float16"])
 
 
 @pytest.mark.parametrize(
@@ -189,6 +206,22 @@ def test_flash_bounds_at_the_serve_and_window_shapes():
     # a tiny call is bound by its bytes on both
     got = time_flash.bounds(10, 3_350_000)
     assert got == {"bound_fp32_ms": pytest.approx(1e-3), "bound_3xtf32_ms": pytest.approx(1e-3)}
+
+
+def test_flash_bf16_bound_at_the_prefill_shapes():
+    """At bf16 the bytes halve and the products run at 989 TFLOP/s: the
+    qwen2 prefill's 7.2 GFLOP bind at 0.00725 ms, jamba's 34.4 GFLOP at
+    0.0348 ms (chip_smoke.py's bf16 bounds); a tiny call is bound by its
+    bytes."""
+    import time_flash
+
+    flops, n_bytes = time_flash.work(4, 14, 2, 1000, 1000, 64, True, None, elem=2)
+    assert n_bytes == 2 * (2 * 4 * 14 * 1000 * 64 + 2 * 4 * 2 * 1000 * 64)
+    assert time_flash.bounds(flops, n_bytes, "bfloat16") == {"bound_bf16_ms": pytest.approx(0.007255, abs=1e-5)}
+    flops, n_bytes = time_flash.work(4, 32, 8, 1024, 1024, 128, True, None, elem=2)
+    assert time_flash.bounds(flops, n_bytes, "bfloat16")["bound_bf16_ms"] == pytest.approx(0.03478, abs=1e-4)
+    assert time_flash.bounds(10, 3_350_000, "bfloat16") == {"bound_bf16_ms": pytest.approx(1e-3)}
+    assert [shape[0] for shape in time_flash.SHAPES][2:] == ["granite-moe-1b-a400m prefill", "jamba-v0.1-52b prefill"]
 
 
 def test_serve_parse_args_defaults_and_flags():

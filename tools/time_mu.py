@@ -3,8 +3,9 @@
 
 For ``mu_update_h`` and ``mu_update_w`` at the three main-path shapes (the
 batched wave, L=32, the elastic executor's full lane batch, L=8, and the
-threads executor, L=4, all at V 1000 x 1100, k=16) prints one JSON line
-each with:
+threads executor, L=4, all at V 1000 x 1100, k=16), with V, W and H at
+``--dtype`` (float32, or bfloat16: the wrappers' bf16 kernels), prints one
+JSON line each with:
 
 - ``ms``: the wrapper's device time per call, its G or Q ``bmm`` included
   (CUDA events behind a spin kernel, as ``chip_smoke.py`` times it);
@@ -14,17 +15,19 @@ each with:
 - ``plain_ms``: the plain PyTorch version's device time;
 - ``bound_ms``, ``bound_by``: the least time the card could take,
   ``chip_smoke.mu_bound`` (each input read and the output written once
-  over 3.35 TB/s, or the operations over 67 TFLOP/s fp32, the larger).
+  over 3.35 TB/s, or the operations over 67 TFLOP/s fp32 (at bf16 the
+  products over 989 TFLOP/s of bf16), the larger).
 
 Each wrapper is first held against its plain version at the reference's
-fp32 MU tolerance (3e-5).
+MU tolerance of the dtype (3e-5 fp32, 2e-2 bf16).
 
 Then the wall times of ``--searches`` paper-scale NMFk searches (the
-search of ``chip_smoke.py``) on each executor (``elastic`` at its defaults:
-tol 1e-3, chunks of 25, warm starts), after one warm-up. Run from
-the root of a checkout on a machine with a card:
+search of ``chip_smoke.py``, at bf16 its ``nmfk_paper_bf16`` through the
+API) on each executor (``elastic`` at its defaults: tol 1e-3, chunks of
+25, warm starts), after one warm-up. Run from the root of a checkout on
+a machine with a card:
 
-    python3 tools/time_mu.py [--src src] [--searches 3] [--tag name] [--no-tma]
+    python3 tools/time_mu.py [--dtype float32|bfloat16] [--src src] [--searches 3] [--tag name] [--no-tma]
 
 ``--src`` points at the ``src`` directory of another checkout, to time that
 version of the port with the same script. ``--no-tma`` builds the MU kernels
@@ -47,21 +50,25 @@ import time
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
-from chip_smoke import mu_bound  # noqa: E402  (the bound chip_smoke.py reports)
+from chip_smoke import NMFK_PAPER, mu_bound, nmfk_api_search  # noqa: E402  (as chip_smoke.py reports and searches)
 
 SEARCH = ["--n", "1000", "--m", "1100", "--k-true", "8", "--k-max", "16", "--n-perturbs", "4",
           "--nmf-iters", "120", "--device", "cuda", "--quiet"]
 SHAPES = [(32, 1000, 1100, 16), (8, 1000, 1100, 16), (4, 1000, 1100, 16)]  # (L, n, m, k)
 DIGEST_SHAPES = [(32, 1000, 1100, 16), (4, 1000, 1100, 16), (4, 129, 257, 13), (2, 300, 520, 100),
                  (6, 100, 90, 13), (2, 70, 50, 33), (2, 300, 320, 128)]
+MU_TOL = {"float32": dict(rtol=3e-5, atol=3e-5), "bfloat16": dict(rtol=2e-2, atol=2e-2)}  # chip_smoke's
 
 
-def digests(torch, ops) -> dict[tuple, list[int]]:
+def digests(torch, ops, dtype=None) -> dict[tuple, list[int]]:
     """Output-bit digests of both MU wrappers at ``DIGEST_SHAPES``: V in
     U[0, 1), W and H in U[0.1, 1) from numpy's generator seeded with the
-    sum of the shape, the last two ranks masked to zero."""
+    sum of the shape, the last two ranks masked to zero, then cast to
+    ``dtype`` (default float32); the sum of the output's int32 (int16 at
+    bf16) views."""
     import numpy as np
 
+    dtype = dtype or torch.float32
     out = {}
     for shape in DIGEST_SHAPES:
         lanes, n, m, k = shape
@@ -71,9 +78,9 @@ def digests(torch, ops) -> dict[tuple, list[int]]:
         h = rng.uniform(0.1, 1.0, (lanes, k, m)).astype(np.float32)
         w[..., :, k - 2:] = 0.0
         h[..., k - 2:, :] = 0.0
-        v, w, h = (torch.from_numpy(a).cuda() for a in (v, w, h))
-        out[shape] = [int(fn(v, w, h).view(torch.int32).sum(dtype=torch.int64))
-                      for fn in (ops.mu_update_h, ops.mu_update_w)]
+        v, w, h = (torch.from_numpy(a).cuda().to(dtype) for a in (v, w, h))
+        bits = torch.int32 if dtype == torch.float32 else torch.int16
+        out[shape] = [int(fn(v, w, h).view(bits).sum(dtype=torch.int64)) for fn in (ops.mu_update_h, ops.mu_update_w)]
     return out
 
 
@@ -122,14 +129,19 @@ def load_without_tma(build) -> None:
     build._loaded["nmf_update"] = lib
 
 
-def main(argv=None) -> int:
+def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", default=str(Path(__file__).resolve().parents[1] / "src"))
     ap.add_argument("--searches", type=int, default=3)
     ap.add_argument("--tag", default=None, help="label of this version in the output (default: --src)")
     ap.add_argument("--no-tma", action="store_true", help="time the MU kernels' cp.async copy path alone")
     ap.add_argument("--digests", action="store_true", help="first print output-bit digests at DIGEST_SHAPES")
-    args = ap.parse_args(argv)
+    ap.add_argument("--dtype", choices=sorted(MU_TOL), default="float32", help="V, W and H's dtype")
+    return ap.parse_args(argv)
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
     sys.path.insert(0, args.src)
     import torch
 
@@ -142,35 +154,49 @@ def main(argv=None) -> int:
     if args.no_tma:
         load_without_tma(build)
     tag = args.tag or args.src
+    dtype = getattr(torch, args.dtype)
     if args.digests:
-        for shape, bits in digests(torch, ops).items():
-            print(json.dumps({"tag": tag, "digest": dict(zip(("L", "n", "m", "k"), shape)), "bits": bits}), flush=True)
+        for shape, bits in digests(torch, ops, dtype).items():
+            print(json.dumps({"tag": tag, "dtype": args.dtype, "digest": dict(zip(("L", "n", "m", "k"), shape)),
+                              "bits": bits}), flush=True)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     for lanes, n, m, k in SHAPES:
-        v = torch.rand((lanes, n, m), device="cuda", generator=gen)
-        w = torch.rand((lanes, n, k), device="cuda", generator=gen) + 0.1
-        h = torch.rand((lanes, k, m), device="cuda", generator=gen) + 0.1
+        v = torch.rand((lanes, n, m), device="cuda", generator=gen).to(dtype)
+        w = (torch.rand((lanes, n, k), device="cuda", generator=gen) + 0.1).to(dtype)
+        h = (torch.rand((lanes, k, m), device="cuda", generator=gen) + 0.1).to(dtype)
         for name, fn, plain in (("mu_update_h", ops.mu_update_h, ref.mu_update_h),
                                 ("mu_update_w", ops.mu_update_w, ref.mu_update_w)):
-            # the reference's fp32 MU kernel tolerance (chip_smoke.MU_TOL)
-            torch.testing.assert_close(fn(v, w, h), plain(v, w, h), rtol=3e-5, atol=3e-5)
-            b_ms, b_by = mu_bound(name[-1], lanes, n, m, k)
+            torch.testing.assert_close(fn(v, w, h).float(), plain(v, w, h).float(), **MU_TOL[args.dtype])
+            b_ms, b_by = mu_bound(name[-1], lanes, n, m, k, v.element_size())
             print(json.dumps({
-                "tag": tag, "wrapper": name, "shape": {"L": lanes, "n": n, "m": m, "k": k},
+                "tag": tag, "dtype": args.dtype, "wrapper": name, "shape": {"L": lanes, "n": n, "m": m, "k": k},
                 "ms": device_ms(torch, lambda: fn(v, w, h)),
                 "host_us": host_us(torch, lambda: fn(v, w, h)),
                 "plain_ms": device_ms(torch, lambda: plain(v, w, h)),
                 "bound_ms": b_ms, "bound_by": b_by,
             }), flush=True)
     for executor in ("threads", "batched", "elastic") if args.searches else ():
-        run = SEARCH + ["--executor", executor]
-        ksearch.main(run)  # warm up
-        results = [ksearch.main(run) for _ in range(args.searches)]
-        print(json.dumps({
-            "tag": tag, "search": executor, "k_optimal": [r["k_optimal"] for r in results],
-            "wall_s": [r["seconds"] for r in results],
-        }), flush=True)
+        if dtype == torch.float32:
+            run = SEARCH + ["--executor", executor]
+            ksearch.main(run)  # warm up
+            results = [ksearch.main(run) for _ in range(args.searches)]
+            k_opt, walls = [r["k_optimal"] for r in results], [r["seconds"] for r in results]
+        else:  # the launcher has no dtype: chip_smoke's bf16 search through the API
+            from repro_torch.factorization.synthetic import nmf_data
+
+            v = nmf_data(NMFK_PAPER["n"], NMFK_PAPER["m"], NMFK_PAPER["k_true"], seed=0, device="cuda",
+                         dtype=dtype)[0]
+            nmfk_api_search(v, executor)  # warm up
+            k_opt, walls = [], []
+            for _ in range(args.searches):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                k_opt.append(nmfk_api_search(v, executor)[0].k_optimal)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+        print(json.dumps({"tag": tag, "dtype": args.dtype, "search": executor, "k_optimal": k_opt,
+                          "wall_s": walls}), flush=True)
     return 0
 
 
