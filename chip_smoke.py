@@ -38,11 +38,14 @@ Phases, each fatal on failure:
      kernel, plain version, the card's bound and, where one PyTorch call
      computes the same function, that call (CUDA events, warmed up); the
      flash kernel's cases also assert a bitwise repeat; the bf16 halves
-     of the MU kernels (L 32, 8, 4 and 1 at 1000 x 1100, k 16) and of the
-     silhouette kernel (52 points in 2-D; 8 lanes and one lane of 64
-     points; d 1000) at the reference's bf16 tolerances, each kernel's
-     float64 error at most twice its plain version's, a bitwise repeat,
-     the bound from bf16 bytes; the bf16 half of the pairwise kernels at
+     of the MU kernels (L 32, 8, 4 and 1 at 1000 x 1100, k 16; then both
+     updates at every rank bucket, split units and past rank 128, with the
+     C entry point each took) and of the silhouette kernel (52, 12 and 33
+     points in 2-D; 8 lanes and one lane of 64 points; d 1000; the fp32
+     kernel's bits on the widened operands on the thin and the general
+     path, a ``fill_`` floor beside each time) at the reference's bf16
+     tolerances, each kernel's float64 error at most twice its plain
+     version's, a bitwise repeat, the bound from bf16 bytes; the bf16 half of the pairwise kernels at
      the pairwise shapes (``check_pairwise_bf16``): the reference's bf16
      tolerance against the plain version, the fp32 kernel's bits on the
      widened operands, a bitwise repeat, the float64 error at most twice
@@ -376,6 +379,23 @@ def mu_bound(update: str, lanes: int, n: int, m: int, k: int, elem: int = 4) -> 
     return bound_ms(n_bytes, products + epilogue)
 
 
+def sums_bound(b: int, n: int, m: int, d: int, k: int, same: bool, elem: int = 4) -> tuple[float, str]:
+    """The least time of one silhouette distance-sum call over ``b`` lanes of
+    n x points against m y points (``same``: y is x, read once) in d
+    dimensions and k clusters: x, y and the one-hot read once at ``elem``
+    bytes an element and the fp32 sums written once, against the
+    operations: at fp32 all on the CUDA cores; at bf16 x . y (bf16
+    operands, fp32 sums: a bf16 tensor-core product) at the bf16 rate, and
+    the norms, the square root and the contraction with the one-hot beside
+    it in fp32."""
+    n_bytes = b * (elem * (n * d + (0 if same else m * d) + m * k) + 4 * n * k)
+    dots = b * 2 * n * m * d
+    rest = b * (2 * (n + (0 if same else m)) * d + 5 * n * m + 2 * n * m * k)
+    if elem == 2:
+        return bound_ms(n_bytes, dots, BF16_FLOPS_PER_S, fp32_flops=rest)
+    return bound_ms(n_bytes, dots + rest)
+
+
 def time_ms(torch, fn, reps: int = 20) -> float:
     """Device milliseconds per call. A spin kernel is queued first, so the
     host enqueues every timed launch before the first one runs and the
@@ -511,14 +531,14 @@ def check_mu_bf16(torch, dev, ops, ref, records: dict, log) -> None:
     Gram, fp32 products and epilogue, one rounding) at the main path's
     shapes: the batched wave (L 32, k_pad 16), the elastic lane batch (L 8),
     the threads executor's fits (L 4, k 16) and one fit (L 1), each timed
-    with its bf16 bound; then the H-update (untimed) at each rank bucket of
-    the tiled kernel (k 1, 17, 32, 64, 128), a split unit with ragged n and
-    m, and past it (k 129, 200: the any-rank kernel, the W-update too). At
-    the reference's bf16 tolerance, the float64 error at most twice the
-    plain version's, masked components exactly zero, two calls bitwise
-    equal, only the bf16 kernel counted, and the H-update's C entry point
-    the tiled ``mu_update_h_bf16`` up to rank 128 (``..._any`` above; the
-    W-update's ``mu_update_w_bf16_any`` at every rank)."""
+    with its bf16 bound; then both updates (untimed) at each rank bucket of
+    the tiled kernels (k 1, 17, 32, 64, 128), split units with ragged n and
+    m, and past them (k 129, 200: the any-rank kernel). At the reference's
+    bf16 tolerance, the float64 error at most twice the plain version's,
+    masked components exactly zero, two calls bitwise equal, only the bf16
+    kernel counted, and the C entry point the tiled ``mu_update_h_bf16`` /
+    ``mu_update_w_bf16`` up to rank 128 (``..._any`` above), with its plan
+    recorded."""
     from repro_torch.kernels import build
 
     cases = [
@@ -526,12 +546,13 @@ def check_mu_bf16(torch, dev, ops, ref, records: dict, log) -> None:
         ("bf16 elastic: L=8, k=16, ks 9..16", 8, 16, [9 + i for i in range(8)], 1000, 1100, True),
         ("bf16 threads: L=4, k=16", 4, 16, [16] * 4, 1000, 1100, True),
         ("bf16 one fit: L=1, k=16", 1, 16, [16], 1000, 1100, True),
-        ("bf16 H, KB 16: k=1", 2, 1, [1, 1], 300, 520, False),
-        ("bf16 H, KB 32: k_pad=17, ks 17, 15", 2, 17, [17, 15], 300, 520, False),
-        ("bf16 H, KB 32: k_pad=32, ks 32, 30", 2, 32, [32, 30], 300, 520, False),
-        ("bf16 H, KB 64: k_pad=64, ks 64, 50", 2, 64, [64, 50], 300, 520, False),
-        ("bf16 H, KB 128: k_pad=128, ks 128, 100", 2, 128, [128, 100], 300, 520, False),
-        ("bf16 H, split units, ragged: L=4, n=129, m=257, k_pad=13", 4, 13, [13, 12, 11, 10], 129, 257, False),
+        ("bf16 KB 16: k=1", 2, 1, [1, 1], 300, 520, False),
+        ("bf16 KB 32: k_pad=17, ks 17, 15", 2, 17, [17, 15], 300, 520, False),
+        ("bf16 KB 32: k_pad=32, ks 32, 30", 2, 32, [32, 30], 300, 520, False),
+        ("bf16 KB 64: k_pad=64, ks 64, 50", 2, 64, [64, 50], 300, 520, False),
+        ("bf16 KB 128: k_pad=128, ks 128, 100", 2, 128, [128, 100], 300, 520, False),
+        ("bf16 split units, ragged: L=4, n=129, m=257, k_pad=13", 4, 13, [13, 12, 11, 10], 129, 257, False),
+        ("bf16 split units, boxes: L=4, n=1000, m=256, k_pad=16", 4, 16, [16, 15, 14, 13], 1000, 256, False),
         ("bf16 any rank: k_pad=129, ks 129, 120", 2, 129, [129, 120], 300, 320, False),
         ("bf16 any rank: k_pad=200, ks 200, 150", 2, 200, [200, 150], 300, 320, False),
     ]
@@ -549,11 +570,10 @@ def _mu_bf16_case(torch, dev, ops, ref, records, log, lib, label, lanes, k, k_ef
     v, w, h, k_eff = (t.bfloat16().contiguous() if t.is_floating_point() else t
                       for t in mu_problem(torch, dev, lanes, k, k_effs, n, m))
     dead = torch.arange(k, device=dev)[None, :] >= k_eff[:, None]
-    both = main or k > ops.MU_TILED_MAX_RANK
     for wrapper, plain, out_of in ((ops.mu_update_h, ref.mu_update_h, "h"),
-                                   (ops.mu_update_w, ref.mu_update_w, "w"))[:2 if both else 1]:
+                                   (ops.mu_update_w, ref.mu_update_w, "w")):
         name = ops.bf16_name(wrapper)
-        entry = f"{wrapper.__name__}_bf16" + ("" if out_of == "h" and k <= ops.MU_TILED_MAX_RANK else "_any")
+        entry = f"{wrapper.__name__}_bf16" + ("" if k <= ops.MU_TILED_MAX_RANK else "_any")
         ops.reset_launch_counts()
         lib.names.clear()
         got = wrapper(v, w, h)
@@ -573,8 +593,8 @@ def _mu_bf16_case(torch, dev, ops, ref, records, log, lib, label, lanes, k, k_ef
         record = {"case": label, "shape": {"L": lanes, "n": n, "m": m, "k": k}, "max_abs_err": err,
                   "bitwise_equal_rerun": True, "entry_point": entry,
                   **fp64_gate(torch, got, want, plain(v.double(), w.double(), h.double()), f"{name} [{label}]")}
-        if entry == "mu_update_h_bf16":
-            plan = ops._mu_plan("h", lanes, n, m, k, torch.cuda.get_device_properties(dev).multi_processor_count,
+        if k <= ops.MU_TILED_MAX_RANK:
+            plan = ops._mu_plan(out_of, lanes, n, m, k, torch.cuda.get_device_properties(dev).multi_processor_count,
                                 elem=2)
             record["plan"] = {"whole": plan.whole, "split": plan.split, "chunk": plan.chunk,
                               "items": plan.items, "blocks": plan.blocks}
@@ -665,9 +685,7 @@ def check_sums(torch, dev, ops, ref, records: dict, log) -> None:
                 torch, general, got, SUMS_TOL["rtol"], SUMS_TOL["atol"], f"{name} [{label}]: general vs thin")
         if timed:
             n = x.shape[1]
-            n_bytes = 4 * b * (n * d + n * k + n * k)  # x (= y) read once, one-hot, out
-            flops = b * (2 * n * n * d + 2 * n * d + 5 * n * n + 2 * n * n * k)
-            b_ms, b_by = bound_ms(n_bytes, flops)
+            b_ms, b_by = sums_bound(b, n, n, d, k, True)  # x (= y) read once, one-hot, out
             out = torch.empty_like(got)
             entry.update(
                 ms=time_ms(torch, lambda: fn(*args)),
@@ -683,17 +701,24 @@ def check_sums(torch, dev, ops, ref, records: dict, log) -> None:
 def check_sums_bf16(torch, dev, ops, ref, records: dict, log) -> None:
     """The bf16 half of both silhouette wrappers (bf16 x, y and one-hot; fp32
     sums) on pooled near-duplicate columns at d 1000: the threads path's 52
-    points (p 4, k 13), the batched wave (b 8, k_pad 16) and the elastic
-    plane's one lane of 64 points; a ragged d (999) and k past 128 (b 2, k
-    130). Against the plain version at the reference's bf16 distance
-    tolerance, the float64 error at most twice the plain version's, two
-    calls bitwise equal, only the bf16 kernel launched; the first three
-    timed with their bf16 bound."""
+    points (p 4, k 13), the batched wave (b 8, k_pad 16), the elastic
+    plane's one lane of 64 points and RESCALk's 12 and 33 points (p 3, k 4
+    and 11), all timed with their bf16 bound and a same-size ``fill_`` (the
+    launch floor); a ragged d (999), the thin path's limit (128 points) and
+    one point more (129: the general path), and k past 128 (b 2, k 130).
+    Against the plain version at the reference's bf16 distance tolerance,
+    the float64 error at most twice the plain version's, two calls bitwise
+    equal, only the bf16 kernel launched, and the sums the fp32 kernel's
+    on the widened operands, bit for bit, on both paths."""
     cases = [  # (label, b, p, k, k_effs, d, 2-D, timed)
         ("bf16: points=52, d=1000, k=13", 1, 4, 13, [13], 1000, True, True),
         ("bf16: b=8, points=64, d=1000, k=16", 8, 4, 16, [9, 10, 11, 12, 13, 14, 15, 16], 1000, False, True),
         ("bf16 elastic: b=1, points=64, d=1000, k=16", 1, 4, 16, [16], 1000, False, True),
+        ("bf16 rescalk: points=12, d=1000, k=4", 1, 3, 4, [4], 1000, True, True),
+        ("bf16 rescalk: points=33, d=1000, k=11", 1, 3, 11, [11], 1000, True, True),
         ("bf16 ragged d: b=8, points=64, d=999, k=16", 8, 4, 16, [16] * 8, 999, False, False),
+        ("bf16 thin limit: b=2, points=128, d=1000, k=32", 2, 4, 32, [32, 32], 1000, False, False),
+        ("bf16 general path: b=2, points=129, d=1000, k=43", 2, 3, 43, [43, 43], 1000, False, False),
         ("bf16 k past 128: b=2, points=260, d=1000, k=130", 2, 2, 130, [130, 100], 1000, False, False),
     ]
     for label, b, p, k, k_effs, d, two_d, timed in cases:
@@ -714,18 +739,19 @@ def check_sums_bf16(torch, dev, ops, ref, records: dict, log) -> None:
         err = compare(torch, got, want, SUMS_BF16_TOL["rtol"], SUMS_BF16_TOL["atol"], f"{name} [{label}]")
         if not torch.equal(got, again):
             raise AssertionError(f"{name} [{label}]: two calls differ bitwise")
-        entry = {"case": label, "max_abs_err": err, "bitwise_equal_rerun": True,
+        if not torch.equal(got, wrapper(*(a.float() for a in args))):
+            raise AssertionError(f"{name} [{label}]: not the fp32 kernel's bits on the widened operands")
+        entry = {"case": label, "path": "thin" if x.shape[1] <= ops.SILHOUETTE_THIN_POINTS else "general",
+                 "max_abs_err": err, "bitwise_equal_rerun": True, "fp32_kernel_bits_on_widened": True,
                  **fp64_gate(torch, got, want, ref.silhouette_dist_sums(*(a.double() for a in args)),
                              f"{name} [{label}]")}
         if timed:
-            n = x.shape[1]
-            n_bytes = b * (2 * n * d + 2 * n * k + 4 * n * k)  # bf16 x (= y) and one-hot read once, fp32 out
-            # x . y of bf16 operands with fp32 sums is a bf16 tensor-core product; the norms,
-            # the square root and the fp32 contraction with the one-hot run beside it in fp32
-            b_ms, b_by = bound_ms(n_bytes, b * 2 * n * n * d, BF16_FLOPS_PER_S,
-                                  fp32_flops=b * (2 * n * d + 5 * n * n + 2 * n * n * k))
+            b_ms, b_by = sums_bound(b, x.shape[1], x.shape[1], d, k, True, elem=2)  # bf16 in, fp32 out
+            out = torch.empty_like(got)
             entry.update(ms=time_ms(torch, lambda: wrapper(*args)),
-                         plain_ms=time_ms(torch, lambda: ref.silhouette_dist_sums(*args)), bound_ms=b_ms, bound_by=b_by)
+                         plain_ms=time_ms(torch, lambda: ref.silhouette_dist_sums(*args)), bound_ms=b_ms, bound_by=b_by,
+                         fill_ms=time_ms(torch, lambda: out.fill_(1.0)))  # the launch floor
+            entry.update(fill_multiple=entry["ms"] / entry["fill_ms"])
         log(json.dumps({"check": name, **entry}))
         records.setdefault(name, []).append(entry)
 

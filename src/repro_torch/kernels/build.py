@@ -41,6 +41,7 @@ SIGNATURES: dict[str, dict[str, list]] = {
         "mu_update_h_any": [_P, _P, _P, _P, _P, *[_I] * 4, _P],
         "mu_update_w_any": [_P, _P, _P, _P, _P, *[_I] * 4, _P],
         "mu_update_h_bf16": [_P, _P, _P, _P, _P, _P, _P, *[_I] * 8, _P],
+        "mu_update_w_bf16": [_P, _P, _P, _P, _P, _P, _P, *[_I] * 8, _P],
         "mu_update_h_bf16_any": [_P, _P, _P, _P, _P, *[_I] * 4, _P],
         "mu_update_w_bf16_any": [_P, _P, _P, _P, _P, *[_I] * 4, _P],
         "mu_dynamic_smem": [_I, _I, _I],

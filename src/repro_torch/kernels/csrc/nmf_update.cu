@@ -51,11 +51,11 @@
 //
 // The bf16 half forms out = X * num / (den + 1e-9) in fp32 from bf16 V, W,
 // H and the bf16 G / Q product and rounds it once (__float2bfloat16_rn), as
-// the TPU kernel's bf16 half does. The H-update up to rank 128
-// (mu_update_h_bf16) is the tiled, planned design with bf16 stages and
-// W^T V on the bf16 tensor cores (HUpdateBf16, at the end); above rank 128
-// (mu_update_h_bf16_any), and the W-update at every rank
-// (mu_update_w_bf16_any), it is the any-rank kernel below instantiated for
+// the TPU kernel's bf16 half does. Up to rank 128 both updates
+// (mu_update_h_bf16, mu_update_w_bf16) are the tiled, planned design with
+// bf16 stages and the V product on the bf16 tensor cores (HUpdateBf16 and
+// WUpdateBf16, at the end); above rank 128 (mu_update_h_bf16_any,
+// mu_update_w_bf16_any) it is the any-rank kernel below instantiated for
 // bf16 operands, widened as loaded, both products by fmaf.
 
 #include <cuda.h>  // CUtensorMap (the encoder is fetched from the driver at run time)
@@ -1276,6 +1276,247 @@ int launch_h_bf16(const __nv_bfloat16* v, const __nv_bfloat16* w, const __nv_bfl
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// W-update at bf16 (V, W, H and Q bf16; fp32 sums and epilogue; out rounded
+// once to bf16): the H-update's bf16 design turned over. Units are tiles of
+// kWRowsBf16 rows of W per lane at every KB; the reduction runs over m in
+// stages of kWColsBf16 columns: of V, the tile's rows, and of H, KB rows
+// (ranks past k arrive as zeros), each row one 128-byte swizzled row (16-byte
+// chunk j of row r at j ^ (r % 8)). Tensor boxes where V's and H's rows are
+// 16-byte multiples; otherwise the copy threads stage both with cp.async
+// (16, 8 or 4 bytes as m and the bases allow; 2-byte plain stores for odd
+// m). At the main path's m = 1100 a row is 2200 bytes, so V and H take the
+// 8-byte copies.
+//
+// The products: V H^T by mma.sync.m16n8k16 with A = V and B = H^T. Both lie
+// K-major (V's rows and H's rows both run along m), so plain ldmatrix (no
+// .trans) gives both fragments straight from the stage. Each of the 8 math
+// warps owns 16 rows of the tile and every rank: per k16 step one ldmatrix
+// of V, KB / 16 of H and KB / 8 products, and no cross-warp sum. Each
+// product starts from zero, so the tensor core sums 16 exact products and
+// every sum across k16 steps is an IEEE add into the running fp32 sums, in
+// ascending m (the tensor core truncates as it accumulates: carried over a
+// stage, as the H-update's accumulators are, that moved the elastic bf16
+// search's silhouette at one k past its card-vs-CPU gate). The epilogue
+// reads the tile's W rows and Q from global memory (L2): den = W Q in
+// ascending rank order by FMA, then W * num / (den + 1e-9).
+// ---------------------------------------------------------------------------
+constexpr int kWColsBf16 = 64;   // columns of V per stage at bf16 (ops.MU_W_STAGE_BF16): one 128-byte row
+constexpr int kWRowsBf16 = 128;  // rows of W a tile at bf16, every KB (ops.MU_W_ROWS_BF16): 16 a math warp
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], unsigned addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+template <int KB>
+struct WUpdateBf16 {
+  static constexpr int kNT = KB / 8;                  // n8 tiles of ranks
+  static constexpr int kVBytes = kWRowsBf16 * 128;    // 64 columns of the tile's rows of V
+  static constexpr int kHBytes = KB * 128;            // 64 columns of H's KB rows
+  static constexpr int kStage = (kVBytes + kHBytes) / 4;  // in floats (the ring's unit); a multiple of 1 KB
+  static constexpr int kStages = ring_stages(kStage, 0);
+  static constexpr int kSmemBytes = 4 * kStages * kStage + 1024;
+  static constexpr int kTmaBytes = kVBytes + kHBytes;  // a stage's two boxes
+  static constexpr bool kPlainStores = true;           // V and H at odd m, without cp.async
+  static constexpr int kPer = 4 * kNT;                 // sums a math thread holds
+
+  const __nv_bfloat16 *v, *h, *w, *q;
+  __nv_bfloat16* out;
+  float* part;
+  int* count;
+  int lanes, n, m, k;
+  Walk wk;
+  int vg;  // without tensor maps, the copy granule: 8, 4 or 2 elements by cp.async, 1 by plain stores
+  bool tma;
+  const CUtensorMap *map_v, *map_h;  // V as (m, n, L), box (64, kWRowsBf16); H as (m, k, L), box (64, KB); swizzled
+  float sum[kNT][4];                 // n8 tile of ranks, fragment
+
+  __device__ __forceinline__ void issue_tma(const Cursor& c, float* st, uint64_t* bar) const {
+    const int j = c.s_begin + c.t * kWColsBf16, l = (int)c.lane;  // splits are whole stages
+    tma_box(st, map_v, j, c.tile * kWRowsBf16, l, bar);
+    tma_box(st + kVBytes / 4, map_h, j, 0, l, bar);
+  }
+
+  // Rows [0, vr) x columns [0, vc) of an R x kWColsBf16 tile from src (row
+  // stride m), G elements a copy (cp.async; G 1: plain 2-byte stores), zeros
+  // elsewhere
+  template <int G, int R>
+  __device__ __forceinline__ void stage(unsigned char* dst, const __nv_bfloat16* src, int vr, int vc,
+                                        int lane) const {
+    constexpr int kPerRow = kWColsBf16 / G;
+#pragma unroll 4
+    for (int e = lane; e < R * kPerRow; e += kCopy) {
+      const int r = e / kPerRow, c = (e % kPerRow) * G;
+      const bool ok = r < vr && c < vc;
+      unsigned char* at = dst + r * 128 + ((((c >> 3) ^ (r & 7)) << 4) + (c & 7) * 2);
+      const __nv_bfloat16* from = ok ? src + (size_t)r * m + c : src;
+      if constexpr (G == 8) {
+        cp_async16(reinterpret_cast<float*>(at), reinterpret_cast<const float*>(from), ok);
+      } else if constexpr (G == 4) {
+        cp_async8(at, from, ok);
+      } else if constexpr (G == 2) {
+        cp_async4(reinterpret_cast<float*>(at), reinterpret_cast<const float*>(from), ok);
+      } else {
+        *reinterpret_cast<__nv_bfloat16*>(at) = ok ? *from : __float2bfloat16_rn(0.f);
+      }
+    }
+  }
+
+  template <int G>
+  __device__ __forceinline__ void stage_both(unsigned char* b, const __nv_bfloat16* vl, const __nv_bfloat16* hl,
+                                             int vr, int vc, int lane) const {
+    stage<G, kWRowsBf16>(b, vl, vr, vc, lane);
+    stage<G, KB>(b + kVBytes, hl, k, vc, lane);
+  }
+
+  __device__ __forceinline__ void issue(const Cursor& c, float* st, int lane) const {
+    const int j = c.s_begin + c.t * kWColsBf16, vc = min(kWColsBf16, m - j);  // splits are whole stages
+    const int i0 = c.tile * kWRowsBf16, vr = min(kWRowsBf16, n - i0);
+    const __nv_bfloat16* vl = v + c.lane * n * m + (size_t)i0 * m + j;
+    const __nv_bfloat16* hl = h + c.lane * k * m + j;
+    unsigned char* b = reinterpret_cast<unsigned char*>(st);
+    if (vg == 8) stage_both<8>(b, vl, hl, vr, vc, lane);
+    else if (vg == 4) stage_both<4>(b, vl, hl, vr, vc, lane);
+    else if (vg == 2) stage_both<2>(b, vl, hl, vr, vc, lane);
+    else stage_both<1>(b, vl, hl, vr, vc, lane);
+  }
+
+  // Math warp w: rows 16 w .. 16 w + 15 of the tile, every rank. ldmatrix
+  // x4 of V: 8 x 8 blocks (rows 0-7, columns 0-7), (8-15, 0-7), (0-7,
+  // 8-15), (8-15, 8-15) of the warp's 16 x 16, the A fragment; of H: (ranks
+  // 0-7, columns 0-7), (0-7, 8-15), (8-15, 0-7), (8-15, 8-15) of 16 ranks,
+  // the B fragments of their two n8 tiles.
+  __device__ __forceinline__ void compute(const float* st) {
+    const int warp = threadIdx.x >> 5, l = threadIdx.x & 31;
+    const unsigned vs = smem_u32(st), hs = vs + kVBytes;
+    const int arow = 16 * warp + (l & 7) + 8 * ((l >> 3) & 1), brow = (l & 7) + 8 * (l >> 4);
+#pragma unroll
+    for (int ks = 0; ks < kWColsBf16 / 16; ++ks) {
+      uint32_t av[4];
+      ldsm_x4(av, vs + arow * 128 + (((2 * ks + (l >> 4)) ^ (arow & 7)) << 4));
+      const int bchunk = 2 * ks + ((l >> 3) & 1);
+#pragma unroll
+      for (int p = 0; p < KB / 16; ++p) {
+        const int r = 16 * p + brow;
+        uint32_t bh[4];
+        ldsm_x4(bh, hs + r * 128 + ((bchunk ^ (r & 7)) << 4));
+        float d[2][4] = {};  // 16 products from zero: the sums across k16 steps are IEEE adds
+        mma_bf16(d[0], av, bh[0], bh[1]);
+        mma_bf16(d[1], av, bh[2], bh[3]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          sum[2 * p][e] += d[0][e];
+          sum[2 * p + 1][e] += d[1][e];
+        }
+      }
+    }
+  }
+
+  // The item's last stage is done: the thread's sums are whole over the
+  // item, element i = 4 nt + e at tile row 16 w + g + 8 (e / 2), rank 8 nt +
+  // 2 t + e % 2.
+  __device__ __forceinline__ void finish(const Cursor& it) {
+    const int warp = threadIdx.x >> 5, l = threadIdx.x & 31, gq = l >> 2, tq = l & 3;
+    const int i0 = it.tile * kWRowsBf16;
+    float num[kPer];
+    int off[kPer];  // element (tile row r, rank c) -> r * k + c: its place in the tile and a split's partials
+    bool live[kPer];
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 4 * nt + e, r = 16 * warp + gq + 8 * (e >> 1), c = 8 * nt + 2 * tq + (e & 1);
+        off[i] = r * k + c;
+        live[i] = i0 + r < n && c < k;
+        num[i] = sum[nt][e];
+        sum[nt][e] = 0.f;
+      }
+    if (it.piece) {
+      // partials (S, tail units, kWRowsBf16, k): store this split's; the last
+      // block to arrive at the unit adds all S in index order
+      const int tail = wk.units - wk.whole, tile_floats = kWRowsBf16 * k;
+      float* mine = part + ((size_t)it.s * tail + it.tail) * tile_floats;
+#pragma unroll
+      for (int i = 0; i < kPer; ++i)
+        if (live[i]) mine[off[i]] = num[i];
+      if (!arrive_last(count + it.tail, wk.split)) return;
+      sum_partials(num, part + (size_t)it.tail * tile_floats, off, live, wk.split, (size_t)tail * tile_floats);
+    }
+    const __nv_bfloat16* wl = w + (it.lane * n + i0) * k;
+    const __nv_bfloat16* ql = q + it.lane * k * k;
+    float den[kPer];
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) den[i] = 0.f;
+    for (int p = 0; p < k; ++p) {
+      float wp[2];  // W[row, p] at the thread's two rows
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = 16 * warp + gq + 8 * half;
+        wp[half] = i0 + r < n ? widen(wl[(size_t)r * k + p]) : 0.f;
+      }
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+        for (int cc = 0; cc < 2; ++cc) {
+          const int c = 8 * nt + 2 * tq + cc;
+          const float qv = c < k ? widen(ql[p * k + c]) : 0.f;
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            float& x = den[4 * nt + 2 * half + cc];
+            x = fmaf(wp[half], qv, x);
+          }
+        }
+    }
+    __nv_bfloat16* ol = out + (it.lane * n + i0) * k;
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      if (!live[i]) continue;
+      ol[off[i]] = __float2bfloat16_rn(widen(wl[off[i]]) * num[i] / (den[i] + kEps));
+    }
+  }
+};
+
+template <int KB>
+__global__ void __launch_bounds__(kThreads, 1)
+w_update_bf16_kernel(const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ h,
+                     const __nv_bfloat16* __restrict__ w, const __nv_bfloat16* __restrict__ q,
+                     __nv_bfloat16* __restrict__ out, float* __restrict__ part, int* __restrict__ count,
+                     int lanes, int n, int m, int k, int split, int chunk, int whole, int vg, bool tma,
+                     const __grid_constant__ CUtensorMap map_v, const __grid_constant__ CUtensorMap map_h) {
+  using Op = WUpdateBf16<KB>;
+  extern __shared__ __align__(16) float smem_raw[];
+  __shared__ __align__(8) uint64_t bars[2 * kMaxStages];
+  float* ring = align_1k(smem_raw);
+  init_barriers<Op>(bars, bars + kMaxStages, tma);
+  const int tiles = (n + kWRowsBf16 - 1) / kWRowsBf16;
+  const Walk wk{tiles, tiles * lanes, whole, split, chunk, m, kWColsBf16};
+  Op op{v, h, w, q, out, part, count, lanes, n, m, k, wk, vg, tma, &map_v, &map_h, {}};
+  walk(op, ring, bars, bars + kMaxStages);
+}
+
+template <int KB>
+int launch_w_bf16(const __nv_bfloat16* v, const __nv_bfloat16* h, const __nv_bfloat16* w, const __nv_bfloat16* q,
+                  __nv_bfloat16* out, float* part, int* count, int lanes, int n, int m, int k, int split, int chunk,
+                  int whole, int blocks, cudaStream_t stream) {
+  using Op = WUpdateBf16<KB>;
+  static const cudaError_t attr =  // once per process (thread-safe static init)
+      cudaFuncSetAttribute(w_update_bf16_kernel<KB>, cudaFuncAttributeMaxDynamicSharedMemorySize, Op::kSmemBytes);
+  if (attr != cudaSuccess) return (int)attr;
+  const uintptr_t bases = reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(h);
+  // m and the bases decide the copies: rows of 16-byte multiples, else 8, 4, 2
+  const int vg = m % 8 == 0 && bases % 16 == 0 ? 8 : m % 4 == 0 && bases % 8 == 0 ? 4
+                 : m % 2 == 0 && bases % 4 == 0 ? 2 : 1;
+  CUtensorMap map_v{}, map_h{};
+  const bool tma = kTma && vg == 8 && cached_map(&map_v, v, m, n, lanes, 64, kWRowsBf16, true, true) &&
+                   cached_map(&map_h, h, m, k, lanes, 64, KB, true, true);
+  w_update_bf16_kernel<KB><<<blocks, kThreads, Op::kSmemBytes, stream>>>(
+      v, h, w, q, out, part, count, lanes, n, m, k, split, chunk, whole, vg, tma, map_v, map_h);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // C interface, loaded with ctypes. Pointers are device pointers of contiguous
@@ -1346,9 +1587,27 @@ extern "C" int mu_update_h_bf16(const __nv_bfloat16* v, const __nv_bfloat16* w, 
   return launch_h_bf16<128>(v, w, h, g, out, part, count, lanes, n, m, k, split, chunk, whole, blocks, s);
 }
 
+// The bf16 W-update, tiled and planned: contiguous bf16 v (L, n, m), h (L,
+// k, m), w (L, n, k), q (L, k, k) (the bf16 product H H^T), out like w;
+// units of kWRowsBf16 rows of W at every rank bucket, splits of whole
+// kWColsBf16-column stages (ops.MU_W_STAGE_BF16), partials (split, tail
+// units, kWRowsBf16, k); scratch, plan and stream as mu_update_w's. k <= 128.
+extern "C" int mu_update_w_bf16(const __nv_bfloat16* v, const __nv_bfloat16* h, const __nv_bfloat16* w,
+                                const __nv_bfloat16* q, __nv_bfloat16* out, float* part, int* count, int lanes,
+                                int n, int m, int k, int split, int chunk, int whole, int blocks, void* stream) {
+  const int tiles = (n + kWRowsBf16 - 1) / kWRowsBf16;
+  if (bad_call(lanes, n, m, k, split, chunk, whole, blocks, m, tiles, kWColsBf16, part, count))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (k <= 16) return launch_w_bf16<16>(v, h, w, q, out, part, count, lanes, n, m, k, split, chunk, whole, blocks, s);
+  if (k <= 32) return launch_w_bf16<32>(v, h, w, q, out, part, count, lanes, n, m, k, split, chunk, whole, blocks, s);
+  if (k <= 64) return launch_w_bf16<64>(v, h, w, q, out, part, count, lanes, n, m, k, split, chunk, whole, blocks, s);
+  return launch_w_bf16<128>(v, h, w, q, out, part, count, lanes, n, m, k, split, chunk, whole, blocks, s);
+}
+
 // The bf16 half, any rank: contiguous bf16 v (L, n, m), w (L, n, k), h (L,
 // k, m), g / q (L, k, k) (the bf16 products W^T W / H H^T), out like h or
-// w. The H-update takes it above rank 128; the W-update at every rank.
+// w. Both updates take it above rank 128.
 extern "C" int mu_update_h_bf16_any(const __nv_bfloat16* v, const __nv_bfloat16* w, const __nv_bfloat16* h,
                                     const __nv_bfloat16* g, __nv_bfloat16* out, int lanes, int n, int m, int k,
                                     void* stream) {
@@ -1361,15 +1620,17 @@ extern "C" int mu_update_w_bf16_any(const __nv_bfloat16* v, const __nv_bfloat16*
   return any_w<__nv_bfloat16>(v, h, w, q, out, lanes, n, m, k, stream);
 }
 
-// Dynamic shared memory (bytes) a launch of the H (update 0) or W (update 1)
-// kernel requests at rank k and element size elem (4 fp32, 2 bf16), for
-// reports beside ptxas' static counts; the bf16 W-update (any rank) asks
-// for none.
+// Dynamic shared memory (bytes) a launch of the tiled H (update 0) or W
+// (update 1) kernel requests at rank k and element size elem (4 fp32, 2
+// bf16), for reports beside ptxas' static counts.
 extern "C" int mu_dynamic_smem(int update, int k, int elem) {
   const int kb = k_bucket(k);
-  if (elem == 2)
-    return update != 0 ? 0 : kb == 16 ? HUpdateBf16<16>::kSmemBytes : kb == 32 ? HUpdateBf16<32>::kSmemBytes
+  if (elem == 2 && update == 0)
+    return kb == 16 ? HUpdateBf16<16>::kSmemBytes : kb == 32 ? HUpdateBf16<32>::kSmemBytes
            : kb == 64 ? HUpdateBf16<64>::kSmemBytes : HUpdateBf16<128>::kSmemBytes;
+  if (elem == 2)
+    return kb == 16 ? WUpdateBf16<16>::kSmemBytes : kb == 32 ? WUpdateBf16<32>::kSmemBytes
+           : kb == 64 ? WUpdateBf16<64>::kSmemBytes : WUpdateBf16<128>::kSmemBytes;
   if (update == 0)
     return kb == 16 ? HUpdate<16>::kSmemBytes : kb == 32 ? HUpdate<32>::kSmemBytes
            : kb == 64 ? HUpdate<64>::kSmemBytes : HUpdate<128>::kSmemBytes;

@@ -27,12 +27,13 @@
 // 128 at 8 lanes of 64 points):
 //   1. each block stages its d-slice of all m y rows (and of the unit's x
 //      rows unless x is y) in shared memory with cp.async (16 bytes a copy
-//      where d is a multiple of 4 and the operands are aligned, else 4;
-//      everything past n, m or d arrives as zeros), and the first chunk of
-//      the one-hot with it, so every load of the block is in flight at once;
+//      where d and the slice are multiples of 16 bytes and the operands
+//      aligned, else 8 or 4 as they allow; everything past n, m or d
+//      arrives as zeros), and the first chunk of the one-hot with it, so
+//      every load of the block is in flight at once;
 //   2. it computes the partial dots x_i.y_j and the norms |y_j|^2 (and
 //      |x_i|^2 unless x is y) of its slice, each norm once per slice, with
-//      float4 reads from shared memory and fmaf in ascending d;
+//      reads of 4 elements from shared memory and fmaf in ascending d;
 //   3. block r of C owns the x rows r, r + C, ...: every block writes its
 //      partials for those rows into block r's shared memory (distributed
 //      shared memory, map_shared_rank), then the cluster barrier; block r
@@ -49,10 +50,16 @@
 // into its registers; one 128-cluster chunk per grid.z index.
 //
 // The bf16 half (silhouette_dist_sums_bf16: bf16 x, y and one-hot, fp32
-// out, as the TPU kernel's) is the general path instantiated for bf16
-// operands, at every shape: each element is widened to fp32 as it is
-// staged, and from there the arithmetic is the fp32 general path's. A
-// simple kernel that is right; the thin path's cluster split is fp32 only.
+// out, as the TPU kernel's) is both paths instantiated for bf16 operands,
+// routed as the fp32 entry routes them. The thin path stages bf16 rows (a
+// pitch of 136 elements: the 8-byte reads of 8 rows at one column hit 16
+// distinct banks) and widens each element to fp32 as it reads it from shared
+// memory, the one-hot as it stages it (plain loads, issued behind the rows'
+// copies); the general path widens as it stages. From there the arithmetic
+// is the fp32 path's, operation for operation, so on the card the bf16
+// kernel gives the fp32 kernel's bits on the widened operands. CUDA cores,
+// not tensor cores: the bound is far below a launch (above), and tensor-core
+// products would change the bits and buy nothing.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -74,22 +81,29 @@ constexpr int kThinThreads = 256;     // 8 warps
 constexpr int kMaxClusterBlocks = 8;  // blocks a cluster (the portable cluster size)
 constexpr int kSliceTarget = 128;     // d a block of the cluster aims at: C = ceil(d / 128), at most 8
 constexpr int kStep = 128;            // d staged at once
-constexpr int kPitch = kStep + 4;     // staged row pitch: 16-byte rows, conflict-free float4 reads
 constexpr int kChunk = 32;            // clusters contracted at once
+// staged row pitch in elements of `elem` bytes: rows of 16-byte multiples,
+// and the 4-element reads of 8 rows at one column free of bank conflicts
+// (fp32: float4 at 528-byte rows; bf16: 8 bytes at 272-byte rows)
+__host__ __device__ constexpr int thin_pitch(int elem) { return elem == 4 ? kStep + 4 : kStep + 8; }
 // y rows a thin launch stages (zeros past m): 32, 64 or 128, so that a
 // lane's column count is a compile-time constant
 constexpr int thin_rows_staged(int m) { return m <= 32 ? 32 : m <= 64 ? 64 : kThinMaxM; }
 
-// dynamic shared memory of a thin launch (R x rows a unit, clusters of C),
-// in floats: staged y and x, receive buffers, one-hot chunk
-constexpr int thin_smem_floats(int rows, int m, int c) {
-  const int owned = (rows + c - 1) / c;
-  return thin_rows_staged(m) * kPitch + rows * kPitch + c * owned * m + c * owned + c * m + m * kChunk;
+// dynamic shared memory of a thin launch (R x rows a unit, clusters of C,
+// operands of `elem` bytes), in floats: staged y and x, receive buffers,
+// one-hot chunk
+constexpr int thin_staged_floats(int rows, int m, int elem) {
+  return (thin_rows_staged(m) + rows) * thin_pitch(elem) * elem / 4;
 }
-constexpr int thin_smem_max(int rows) {
+constexpr int thin_smem_floats(int rows, int m, int c, int elem) {
+  const int owned = (rows + c - 1) / c;
+  return thin_staged_floats(rows, m, elem) + c * owned * m + c * owned + c * m + m * kChunk;
+}
+constexpr int thin_smem_max(int rows, int elem) {
   int most = 0;
   for (int c = 1; c <= kMaxClusterBlocks; ++c)
-    most = thin_smem_floats(rows, kThinMaxM, c) > most ? thin_smem_floats(rows, kThinMaxM, c) : most;
+    most = thin_smem_floats(rows, kThinMaxM, c, elem) > most ? thin_smem_floats(rows, kThinMaxM, c, elem) : most;
   return most;
 }
 
@@ -97,15 +111,21 @@ __device__ __forceinline__ unsigned smem_u32(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
-// cp.async of 16 or 4 bytes; with full == false nothing is read and the
+// cp.async of 16, 8 or 4 bytes; with full == false nothing is read and the
 // destination is zero-filled (src must still be a valid address).
-__device__ __forceinline__ void cp16(float* dst, const float* src, bool full) {
+__device__ __forceinline__ void cp16(void* dst, const void* src, bool full) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
                "r"(full ? 16 : 0)
                : "memory");
 }
 
-__device__ __forceinline__ void cp4(float* dst, const float* src, bool full) {
+__device__ __forceinline__ void cp8(void* dst, const void* src, bool full) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(full ? 8 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp4(void* dst, const void* src, bool full) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
                "r"(full ? 4 : 0)
                : "memory");
@@ -147,35 +167,86 @@ __device__ __forceinline__ float dot4(const float4& a, const float4& b, float ac
   return fmaf(a.w, b.w, acc);
 }
 
-// Stage columns [0, len4) of `rows` rows (row stride ld floats) into dst
-// with row pitch kPitch: element (r, c) is src[r * ld + c] for r < valid
-// and c < len, else 0. Warp w takes rows w, w + 8, ...; a row is one
-// contiguous read. `vec`: 16-byte copies (len, ld and src multiples of 4
-// floats, src aligned).
-__device__ __forceinline__ void stage_rows(float* dst, const float* src, const float* safe, int rows,
-                                           int valid, int ld, int len, int len4, bool vec) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (vec) {
-    const int c = lane * 4;
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+// Four staged elements from shared memory, as fp32: one float4, or 8 bytes
+// of bf16 each widened (a bf16 is the high half of its fp32).
+__device__ __forceinline__ float4 load4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u), __uint_as_float(u.y << 16),
+                     __uint_as_float(u.y & 0xffff0000u));
+}
+
+// One copy of G elements (cp.async of G * sizeof(T) bytes; a bf16 G 1: a
+// plain store) from src, or zeros where !ok (src then only has to be a
+// valid, aligned address).
+template <int G, typename T>
+__device__ __forceinline__ void copy_g(T* at, const T* src, bool ok) {
+  constexpr int kBytes = G * (int)sizeof(T);
+  if constexpr (kBytes == 16) cp16(at, src, ok);
+  else if constexpr (kBytes == 8) cp8(at, src, ok);
+  else if constexpr (kBytes == 4) cp4(at, src, ok);
+  else *at = ok ? *src : T(0.f);
+}
+
+// Stage columns [0, len4) of `rows` rows (row stride ld elements) into dst
+// with row pitch thin_pitch: element (r, c) is src[r * ld + c] for r <
+// valid and c < len, else 0, G elements a copy, which needs ld, len and src
+// multiples of G and src and `safe` aligned to the copy. kLanes threads a
+// row (a row of one or two warps' copies is one contiguous read), rows r0,
+// r0 + R, ...; where kLanes copies cover a whole kStep (G 4 and 8), each
+// thread has one column and leaves when it lies past len4.
+template <int G, typename T>
+__device__ __forceinline__ void stage_rows_g(T* dst, const T* src, const T* safe, int rows, int valid, int ld,
+                                             int len, int len4) {
+  constexpr int kPitchT = thin_pitch(sizeof(T));
+  constexpr int kLanes = kStep / G < 32 ? kStep / G : 32, kRowsAtOnce = kThinThreads / kLanes;
+  const int sub = threadIdx.x % kLanes, r0 = threadIdx.x / kLanes;
+  if constexpr (kLanes * G == kStep) {
+    const int c = sub * G;
     if (c >= len4) return;
-    for (int r = warp; r < rows; r += kThinThreads / 32) {
-      const bool ok = r < valid;
-      cp16(dst + r * kPitch + c, ok ? src + (size_t)r * ld + c : safe, ok);
+    for (int r = r0; r < rows; r += kRowsAtOnce) {
+      const bool ok = r < valid;  // len is a multiple of G here
+      copy_g<G>(dst + r * kPitchT + c, ok ? src + (size_t)r * ld + c : safe, ok);
     }
   } else {
-    for (int r = warp; r < rows; r += kThinThreads / 32)
-      for (int c = lane; c < len4; c += 32) {
+    for (int r = r0; r < rows; r += kRowsAtOnce)
+      for (int c = sub * G; c < len4; c += kLanes * G) {
         const bool ok = r < valid && c < len;
-        cp4(dst + r * kPitch + c, ok ? src + (size_t)r * ld + c : safe, ok);
+        copy_g<G>(dst + r * kPitchT + c, ok ? src + (size_t)r * ld + c : safe, ok);
       }
   }
 }
 
-// Stage one-hot columns [c0, c0 + kc) of the m points as (m, kChunk).
-__device__ __forceinline__ void stage_onehot(float* oh, const float* onehot, int m, int k, int c0, int kc) {
+// stage_rows_g at the launch's granule g: fp32 4 or 1; bf16 8, 4, 2 or 1
+template <typename T>
+__device__ __forceinline__ void stage_rows(T* dst, const T* src, const T* safe, int rows, int valid, int ld,
+                                           int len, int len4, int g) {
+  if constexpr (sizeof(T) == 4) {
+    if (g == 4) stage_rows_g<4>(dst, src, safe, rows, valid, ld, len, len4);
+    else stage_rows_g<1>(dst, src, safe, rows, valid, ld, len, len4);
+  } else {
+    if (g == 8) stage_rows_g<8>(dst, src, safe, rows, valid, ld, len, len4);
+    else if (g == 4) stage_rows_g<4>(dst, src, safe, rows, valid, ld, len, len4);
+    else if (g == 2) stage_rows_g<2>(dst, src, safe, rows, valid, ld, len, len4);
+    else stage_rows_g<1>(dst, src, safe, rows, valid, ld, len, len4);
+  }
+}
+
+// Stage one-hot columns [c0, c0 + kc) of the m points as fp32 (m, kChunk):
+// fp32 by cp.async, bf16 by plain loads widened as they are stored.
+template <typename T>
+__device__ __forceinline__ void stage_onehot(float* oh, const T* onehot, int m, int k, int c0, int kc) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   if (lane >= kc) return;
-  for (int j = warp; j < m; j += kThinThreads / 32) cp4(oh + j * kChunk + lane, onehot + (size_t)j * k + c0 + lane, true);
+  if constexpr (sizeof(T) == 4) {
+    for (int j = warp; j < m; j += kThinThreads / 32) cp4(oh + j * kChunk + lane, onehot + (size_t)j * k + c0 + lane, true);
+  } else {  // plain loads, four in flight at once
+#pragma unroll 4
+    for (int j = warp; j < m; j += kThinThreads / 32) oh[j * kChunk + lane] = widen(onehot[(size_t)j * k + c0 + lane]);
+  }
 }
 
 // grid (C, ceil(n / kThinRows), b), cluster (C, 1, 1); block rank r takes
@@ -193,12 +264,16 @@ __device__ __forceinline__ void stage_onehot(float* oh, const float* onehot, int
 // the lanes. kCols is a template constant (y is staged at 32, 64 or 128
 // rows): with a runtime bound on the column loop the compiler branches
 // around each column's loads and FMAs, which then run one after another.
-template <int kThinRows, int kCols>
+// T: float, or __nv_bfloat16 (staged as it lies, widened as it is read);
+// g: the staging granule (stage_rows).
+template <typename T, int kThinRows, int kCols>
 __global__ void __launch_bounds__(kThinThreads)
-dist_sums_thin(const float* __restrict__ x, const float* __restrict__ y, const float* __restrict__ onehot,
-               float* __restrict__ out, int n, int m, int d, int k, int slice, bool vec, bool same) {
+dist_sums_thin(const T* __restrict__ x, const T* __restrict__ y, const T* __restrict__ onehot,
+               float* __restrict__ out, int n, int m, int d, int k, int slice, int g, bool same) {
   constexpr int kRowBlocks = kThinRows / 8, kColBlocks = 8 / kRowBlocks;
   constexpr int mr = kCols * 8 * kColBlocks;  // y rows staged (zeros past m)
+  constexpr int kPitch = thin_pitch(sizeof(T));
+  constexpr bool kWide = sizeof(T) == 4;  // fp32: the one-hot by cp.async with the rows
   extern __shared__ __align__(16) float smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int blocks = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
@@ -211,20 +286,20 @@ dist_sums_thin(const float* __restrict__ x, const float* __restrict__ y, const f
   out += lane * n * k;
 
   const int owned_max = (kThinRows + blocks - 1) / blocks;  // rows a rank owns, at most
-  float* ys = smem;                                // (mr, kPitch)
-  float* xs = ys + mr * kPitch;                    // (kThinRows, kPitch)
-  float* rdot = xs + kThinRows * kPitch;           // (C, owned_max, m) partial dots, pushed by rank
+  T* ys = reinterpret_cast<T*>(smem);             // (mr, kPitch)
+  T* xs = ys + mr * kPitch;                        // (kThinRows, kPitch)
+  float* rdot = smem + (mr + kThinRows) * kPitch * (int)sizeof(T) / 4;  // (C, owned_max, m) partial dots, pushed by rank
   float* rxn = rdot + blocks * owned_max * m;      // (C, owned_max) partial |x_i|^2, pushed by rank
   float* ryn = rxn + blocks * owned_max;           // (C, m) partial |y_j|^2, pushed by rank
   float* oh = ryn + blocks * m;                    // (m, kChunk) one-hot chunk
-  float* dist = ys;                                // (rows owned, m) distances, once ys is dead
+  float* dist = smem;                              // (rows owned, m) distances, once ys is dead
 
 #ifdef SIL_TIMELINE
   unsigned long long stamps[kStamps - 2] = {}, start_ns = threadIdx.x == 0 ? global_ns() : 0;
 #endif
   STAMP(0);
   cluster_arrive();
-  stage_onehot(oh, onehot, m, k, 0, min(kChunk, k));
+  if constexpr (kWide) stage_onehot(oh, onehot, m, k, 0, min(kChunk, k));
 
   const int rows = min(kThinRows, n - i0);
   const int d_begin = min(d, rank * slice), d_end = min(d, d_begin + slice);
@@ -234,12 +309,14 @@ dist_sums_thin(const float* __restrict__ x, const float* __restrict__ y, const f
   // x = y (NMFk's case): the unit's x rows are rows i0 .. of the staged y
   // (i0 < m, and i0 and mr are multiples of kThinRows, so i0 + kThinRows <=
   // mr), so x is not staged again and its norms are the y norms.
-  const float* xt = same ? ys + i0 * kPitch : xs;
+  const T* xt = same ? ys + i0 * kPitch : xs;
   float acc[2][kCols] = {}, xn[2] = {}, yn[kCols] = {};
   for (int d0 = d_begin; d0 < d_end; d0 += kStep) {
     const int len = min(kStep, d_end - d0), len4 = (len + 3) & ~3;
-    stage_rows(ys, y + d0, y, mr, m, d, len, len4, vec);
-    if (!same) stage_rows(xs, x + (size_t)i0 * d + d0, x, kThinRows, rows, d, len, len4, vec);
+    stage_rows(ys, y + d0, y, mr, m, d, len, len4, g);
+    if (!same) stage_rows(xs, x + (size_t)i0 * d + d0, x, kThinRows, rows, d, len, len4, g);
+    if constexpr (!kWide)  // bf16: the one-hot's plain loads behind the first rows' copies (no slice is empty)
+      if (d0 == d_begin) stage_onehot(oh, onehot, m, k, 0, min(kChunk, k));
     cp_wait_all();
     __syncthreads();
     if (d0 == d_begin) STAMP(1);
@@ -248,12 +325,12 @@ dist_sums_thin(const float* __restrict__ x, const float* __restrict__ y, const f
       float4 a[2];
 #pragma unroll
       for (int u = 0; u < 2; ++u) {
-        a[u] = *reinterpret_cast<const float4*>(xt + (row0 + 4 * u) * kPitch + e);
+        a[u] = load4(xt + (row0 + 4 * u) * kPitch + e);
         if (!same) xn[u] = dot4(a[u], a[u], xn[u]);  // with x = y, |x_i|^2 is |y_i|^2
       }
 #pragma unroll
       for (int v = 0; v < kCols; ++v) {
-        const float4 b = *reinterpret_cast<const float4*>(ys + (col0 + 8 * v) * kPitch + e);
+        const float4 b = load4(ys + (col0 + 8 * v) * kPitch + e);
         if (rb == 0) yn[v] = dot4(b, b, yn[v]);  // the first row block's warps sum the y norms
 #pragma unroll
         for (int u = 0; u < 2; ++u) acc[u][v] = dot4(a[u], b, acc[u][v]);
@@ -289,7 +366,7 @@ dist_sums_thin(const float* __restrict__ x, const float* __restrict__ y, const f
     }
   }
   cp_wait_all();   // the one-hot chunk, also where this block's slice is empty
-  cluster.sync();  // every rank's partials are in their owners' shared memory
+  cluster.sync();  // every rank's partials (and a bf16 one-hot's plain stores) are in shared memory
   STAMP(3);
 
   // This rank's rows rank + C t: add the C partials in rank order.
@@ -353,9 +430,6 @@ constexpr int kThreads = kTileX * kRows;                 // 256
 constexpr int kRowsPerThread = kTileX / kRows;           // 4 x rows per thread
 constexpr int kClusterChunk = 128;                       // clusters per block (grid.z walks the chunks)
 constexpr int kColsPerThread = kClusterChunk / kTileY;   // 4 clusters per thread
-
-__device__ __forceinline__ float widen(float v) { return v; }
-__device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 // grid (ceil(n / kTileX), b, ceil(k / kClusterChunk)), block (32, kRows). In
 // the distance phase thread (tx, ty) owns y row j0 + tx and x rows
@@ -444,8 +518,6 @@ dist_sums_general(const T* __restrict__ x, const T* __restrict__ y, const T* __r
   }
 }
 
-bool aligned16(const void* p) { return (reinterpret_cast<size_t>(p) & 15) == 0; }
-
 // SMs of the current device, asked once per device.
 int sm_count() {
   static std::atomic<int> cached[64];
@@ -459,20 +531,32 @@ int sm_count() {
   return sms;
 }
 
-template <int kThinRows, int kCols>
-int launch_thin(const float* x, const float* y, const float* onehot, float* out, int b, int n, int m, int d,
+// The staging granule of a thin launch (stage_rows): the widest copy that
+// d, the slice and both bases allow, 16 bytes down to 4 (bf16: then plain
+// 2-byte stores).
+template <typename T>
+int thin_granule(const T* x, const T* y, int d, int slice) {
+  const size_t bases = reinterpret_cast<size_t>(x) | reinterpret_cast<size_t>(y);
+  if constexpr (sizeof(T) == 4) return d % 4 == 0 && bases % 16 == 0 ? 4 : 1;
+  if (d % 8 == 0 && slice % 8 == 0 && bases % 16 == 0) return 8;
+  if (d % 4 == 0 && bases % 8 == 0) return 4;  // the slice is a multiple of 4
+  return d % 2 == 0 && bases % 4 == 0 ? 2 : 1;
+}
+
+template <typename T, int kThinRows, int kCols>
+int launch_thin(const T* x, const T* y, const T* onehot, float* out, int b, int n, int m, int d,
                 int k, int blocks, cudaStream_t stream) {
   static const cudaError_t attr =  // once per process (thread-safe static init)
-      cudaFuncSetAttribute(dist_sums_thin<kThinRows, kCols>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           4 * thin_smem_max(kThinRows));
+      cudaFuncSetAttribute(dist_sums_thin<T, kThinRows, kCols>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           4 * thin_smem_max(kThinRows, sizeof(T)));
   if (attr != cudaSuccess) return (int)attr;
   const int slice = (((d + blocks - 1) / blocks) + 3) & ~3;
-  const bool vec = d % 4 == 0 && aligned16(x) && aligned16(y);
+  const int g = thin_granule(x, y, d, slice);
   const bool same = x == y && n == m;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(blocks, (n + kThinRows - 1) / kThinRows, b);
   cfg.blockDim = dim3(kThinThreads);
-  cfg.dynamicSmemBytes = 4 * (size_t)thin_smem_floats(kThinRows, m, blocks);
+  cfg.dynamicSmemBytes = 4 * (size_t)thin_smem_floats(kThinRows, m, blocks, sizeof(T));
   cfg.stream = stream;
   cudaLaunchAttribute attrs[1];
   attrs[0].id = cudaLaunchAttributeClusterDimension;
@@ -482,25 +566,27 @@ int launch_thin(const float* x, const float* y, const float* onehot, float* out,
   cfg.attrs = attrs;
   cfg.numAttrs = 1;
   const cudaError_t rc =
-      cudaLaunchKernelEx(&cfg, dist_sums_thin<kThinRows, kCols>, x, y, onehot, out, n, m, d, k, slice, vec, same);
+      cudaLaunchKernelEx(&cfg, dist_sums_thin<T, kThinRows, kCols>, x, y, onehot, out, n, m, d, k, slice, g, same);
   return rc != cudaSuccess ? (int)rc : (int)cudaGetLastError();
 }
 
 // The thin launch for m <= kThinMaxM: 16 x rows a unit, or 32 where 16
 // would need more blocks than the card has SMs; the lanes' column count
-// from the y rows staged.
-int launch_thin_any(const float* x, const float* y, const float* onehot, float* out, int b, int n, int m, int d,
+// from the y rows staged. Both dtypes alike, so a bf16 launch adds in the
+// fp32 launch's order.
+template <typename T>
+int launch_thin_any(const T* x, const T* y, const T* onehot, float* out, int b, int n, int m, int d,
                     int k, cudaStream_t s) {
   const int blocks = std::min((d + kSliceTarget - 1) / kSliceTarget, kMaxClusterBlocks);  // the cluster
   const int staged = thin_rows_staged(m);
   if ((long long)blocks * ((n + 15) / 16) * b <= sm_count()) {  // 4 column blocks of staged / 4 columns
-    if (staged == 32) return launch_thin<16, 1>(x, y, onehot, out, b, n, m, d, k, blocks, s);
-    if (staged == 64) return launch_thin<16, 2>(x, y, onehot, out, b, n, m, d, k, blocks, s);
-    return launch_thin<16, 4>(x, y, onehot, out, b, n, m, d, k, blocks, s);
+    if (staged == 32) return launch_thin<T, 16, 1>(x, y, onehot, out, b, n, m, d, k, blocks, s);
+    if (staged == 64) return launch_thin<T, 16, 2>(x, y, onehot, out, b, n, m, d, k, blocks, s);
+    return launch_thin<T, 16, 4>(x, y, onehot, out, b, n, m, d, k, blocks, s);
   }
-  if (staged == 32) return launch_thin<32, 2>(x, y, onehot, out, b, n, m, d, k, blocks, s);  // 2 column blocks
-  if (staged == 64) return launch_thin<32, 4>(x, y, onehot, out, b, n, m, d, k, blocks, s);
-  return launch_thin<32, 8>(x, y, onehot, out, b, n, m, d, k, blocks, s);
+  if (staged == 32) return launch_thin<T, 32, 2>(x, y, onehot, out, b, n, m, d, k, blocks, s);  // 2 column blocks
+  if (staged == 64) return launch_thin<T, 32, 4>(x, y, onehot, out, b, n, m, d, k, blocks, s);
+  return launch_thin<T, 32, 8>(x, y, onehot, out, b, n, m, d, k, blocks, s);
 }
 
 template <typename T>
@@ -534,15 +620,20 @@ extern "C" int silhouette_dist_sums(const float* x, const float* y, const float*
                                     void* stream) {
   if (b < 1 || b > 65535 || n < 1 || m < 1 || d < 1 || k < 1) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  if (m <= kThinMaxM && (n + 15) / 16 <= 65535) return launch_thin_any(x, y, onehot, out, b, n, m, d, k, s);
+  if (m <= kThinMaxM && (n + 15) / 16 <= 65535) return launch_thin_any<float>(x, y, onehot, out, b, n, m, d, k, s);
   return launch_general<float>(x, y, onehot, out, b, n, m, d, k, s);
 }
 
 // The bf16 half: bf16 x (b, n, d), y (b, m, d) (may alias x) and onehot (b,
-// m, k), fp32 out (b, n, k); any m and k, through the general path.
+// m, k), fp32 out (b, n, k); any m and k, routed as silhouette_dist_sums
+// routes them (thin path at m <= kThinMaxM). On the card its sums are the
+// fp32 entry's bits on the widened operands.
 extern "C" int silhouette_dist_sums_bf16(const __nv_bfloat16* x, const __nv_bfloat16* y,
                                          const __nv_bfloat16* onehot, float* out, int b, int n, int m, int d, int k,
                                          void* stream) {
   if (b < 1 || b > 65535 || n < 1 || m < 1 || d < 1 || k < 1) return (int)cudaErrorInvalidValue;
-  return launch_general<__nv_bfloat16>(x, y, onehot, out, b, n, m, d, k, (cudaStream_t)stream);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (m <= kThinMaxM && (n + 15) / 16 <= 65535)
+    return launch_thin_any<__nv_bfloat16>(x, y, onehot, out, b, n, m, d, k, s);
+  return launch_general<__nv_bfloat16>(x, y, onehot, out, b, n, m, d, k, s);
 }

@@ -119,6 +119,8 @@ MU_H_COLS = 128  # columns of H per tile (nmf_update.cu kHCols)
 MU_H_STAGE = 32  # rows of V per pipeline stage of the H kernel (kHRows)
 MU_H_STAGE_BF16 = 64  # the same at bf16: 16 KB of V, as fp32's 32 rows (kHRowsBf16)
 MU_W_STAGE = 64  # columns of V per pipeline stage of the W kernel (kWCols)
+MU_W_STAGE_BF16 = 64  # the same at bf16: one 128-byte swizzled row of V (kWColsBf16)
+MU_W_ROWS_BF16 = 128  # rows of W per tile of the bf16 W kernel, at every rank (kWRowsBf16)
 # What finishing an item costs a block (park, sum, partials, epilogue), in
 # stages: the planner's price for one more split.
 MU_ITEM_COST = 1
@@ -131,9 +133,12 @@ def rank_bucket(k: int) -> int:
     return next(kb for kb in (16, 32, 64, MU_TILED_MAX_RANK) if k <= kb)
 
 
-def mu_w_rows(k: int) -> int:
-    """Rows of V and W per tile of the W kernel (nmf_update.cu WUpdate::kBN)."""
-    return 1024 // rank_bucket(k)
+def mu_w_rows(k: int, elem: int = 4) -> int:
+    """Rows of V and W per tile of the W kernel: 1024 / KB at fp32
+    (nmf_update.cu WUpdate::kBN), ``MU_W_ROWS_BF16`` at every KB at bf16
+    (``elem`` 2: 16 rows a math warp)."""
+    kb = rank_bucket(k)
+    return 1024 // kb if elem == 4 else MU_W_ROWS_BF16
 
 
 @dataclasses.dataclass(frozen=True)
@@ -166,15 +171,14 @@ def _mu_plan(update: str, lanes: int, n: int, m: int, k: int, sms: int = H100_SM
     stages of its items plus ``MU_ITEM_COST`` each. Every SM gets an item
     where the shape has enough of them; ties go to fewer items. ``elem``
     is V's element size: 4 (fp32), or 2 (bf16: the H-update's stages hold
-    ``MU_H_STAGE_BF16`` rows; the bf16 W-update has no tiled kernel)."""
+    ``MU_H_STAGE_BF16`` rows, the W-update's tiles ``MU_W_ROWS_BF16`` rows
+    and its stages ``MU_W_STAGE_BF16`` columns)."""
     if elem not in (4, 2):
         raise ValueError(f"elem must be 4 (float32) or 2 (bfloat16), got {elem}")
     if update == "h":
         tiles, length, stage = math.ceil(m / MU_H_COLS), n, MU_H_STAGE if elem == 4 else MU_H_STAGE_BF16
-    elif update == "w" and elem == 4:
-        tiles, length, stage = math.ceil(n / mu_w_rows(k)), m, MU_W_STAGE
     elif update == "w":
-        raise ValueError("the bf16 W-update has no tiled kernel: it takes the any-rank one, without a plan")
+        tiles, length, stage = math.ceil(n / mu_w_rows(k, elem)), m, MU_W_STAGE if elem == 4 else MU_W_STAGE_BF16
     else:
         raise ValueError(f"update must be 'h' or 'w', got {update!r}")
     units, slots, stages = tiles * lanes, MU_BLOCKS_PER_SM * sms, math.ceil(length / stage)
@@ -192,7 +196,7 @@ def _mu_plan(update: str, lanes: int, n: int, m: int, k: int, sms: int = H100_SM
                 best = (key, whole, split, chunk, items)
     _, whole, split, chunk, items = best
     if whole < units and split > 1:
-        tile_floats = k * MU_H_COLS if update == "h" else mu_w_rows(k) * k
+        tile_floats = k * MU_H_COLS if update == "h" else mu_w_rows(k, elem) * k
         scratch, counters = (split, units - whole, tile_floats), units - whole
     else:
         scratch, counters = (), 0
@@ -250,15 +254,15 @@ def _mu_launch(name: str, update: str, v3, a, b, gram, out) -> None:
     """Plan one MU launch, find its scratch and launch it: ``<name>`` at
     fp32, ``<name>_bf16`` at bf16. After a failed launch the thread's
     scratch is dropped: its counters may be nonzero. Ranks above
-    ``MU_TILED_MAX_RANK``, and the bf16 W-update at every rank, go to the
-    any-rank kernel (``..._any``), which takes no plan and no scratch."""
+    ``MU_TILED_MAX_RANK`` go to the any-rank kernel (``..._any``), which
+    takes no plan and no scratch."""
     lanes, n, m = v3.shape
     k = gram.shape[-1]
     elem = v3.element_size()
     name = name if elem == 4 else f"{name}_bf16"
     ptrs = (v3.data_ptr(), a.data_ptr(), b.data_ptr(), gram.data_ptr(), out.data_ptr())
     lib = build.load("nmf_update")
-    if k > MU_TILED_MAX_RANK or (elem == 2 and update == "w"):
+    if k > MU_TILED_MAX_RANK:
         _check(getattr(lib, f"{name}_any")(*ptrs, lanes, n, m, k, _stream(v3)), f"{name}_any")
         return
     rc = getattr(lib, name)(*ptrs, *_mu_args(update, v3.device, _stream(v3), lanes, n, m, k, elem))

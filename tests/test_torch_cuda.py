@@ -790,6 +790,83 @@ def test_mu_bf16_h_update_takes_the_tiled_kernel_up_to_128(monkeypatch, lanes, n
     assert all(int(c.abs().sum()) == 0 for c in counters)
 
 
+# (L, n, m, k) of the bf16 W-update: each rank bucket (1, 16, 17, 32, 64,
+# 128), the lane counts of the executors (32 batched, 8 elastic, 4 threads,
+# 1 one fit) at 1000 x 1100, split units with ragged n and odd m (at L 4, n
+# 129 and m 257: a row's plain 2-byte stores), m a multiple of 8 (16-byte
+# copies or tensor boxes), n = 1, m below one stage, and k 129 (the any-rank
+# route)
+MU_BF16_W_SHAPES = [
+    (2, 300, 520, 1), (4, 1000, 1100, 16), (2, 300, 520, 17), (2, 300, 520, 32), (2, 300, 520, 64),
+    (2, 300, 520, 128), (32, 1000, 1100, 16), (8, 1000, 1100, 16), (1, 1000, 1100, 16), (4, 129, 257, 13),
+    (4, 1000, 256, 16), (3, 1, 1100, 16), (4, 200, 40, 5), (2, 300, 320, 129),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes,n,m,k", MU_BF16_W_SHAPES)
+def test_mu_bf16_w_update_takes_the_tiled_kernel_up_to_128(monkeypatch, lanes, n, m, k):
+    """bf16 V, W and H: the W-update through the tiled, planned kernel up to
+    rank 128 (the any-rank one above), at the reference's bf16 tolerance,
+    its float64 error at most twice the plain version's, masked ranks
+    exactly zero, five calls bitwise equal (split units too), only the
+    bf16 kernel counted, and the split units' counters left at zero."""
+    dev = card()
+    dead = min(2, k - 1)
+    v, w, h = (t.bfloat16() for t in _mu_problem(dev, lanes + n + m + k, lanes, n, m, k, dead=dead))
+    spy = _Spy(build.load("nmf_update"))
+    monkeypatch.setattr(build, "load", lambda name: spy)
+    ops.reset_launch_counts()
+    got = ops.mu_update_w(v, w, h)
+    counts = ops.launch_counts()
+    assert counts["mu_update_w[bf16]"] == 1 and counts["mu_update_w"] == 0
+    assert spy.names == ["mu_update_w_bf16" if k <= ops.MU_TILED_MAX_RANK else "mu_update_w_bf16_any"]
+    want = ref.mu_update_w(v, w, h)
+    assert got.dtype == want.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(), **MU_BF16_TOL)
+    want64 = ref.mu_update_w(v.double(), w.double(), h.double())
+    assert _fp64_err(got, want64) <= 2 * _fp64_err(want, want64)
+    if dead:
+        assert float(got[:, :, k - dead:].abs().max()) == 0.0
+    for _ in range(4):
+        assert torch.equal(ops.mu_update_w(v, w, h), got)
+    torch.cuda.synchronize()
+    counters = [held[1] for held, _ in ops._scratch.args.values() if held]
+    assert all(int(c.abs().sum()) == 0 for c in counters)
+
+
+# (b, points, k, d) of the bf16 silhouette held to the fp32 kernel's bits:
+# the threads path's 52 points, RESCALk's 12 and 33, the batched wave (b 8
+# of 64) and the elastic lane (b 1 of 64), a ragged d, an odd d (2-byte
+# staging), d below one cluster block, the thin limit of 128 points and 129
+# (the general path)
+SUMS_BF16_BITS = [
+    (1, 52, 13, 1000), (1, 12, 4, 1000), (1, 33, 11, 1000), (8, 64, 16, 1000), (1, 64, 16, 1000),
+    (8, 64, 16, 999), (2, 40, 7, 997), (2, 30, 5, 20), (2, 128, 32, 1000), (2, 129, 32, 1000),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,points,k,d", SUMS_BF16_BITS)
+def test_dist_sums_bf16_gives_the_fp32_kernels_bits_on_widened_operands(b, points, k, d):
+    """On both paths the bf16 kernel's sums are the fp32 kernel's on the
+    same operands widened to fp32, bit for bit (2-D at b = 1, the batched
+    entry otherwise; x = y, and once y apart), and only the bf16 kernel
+    counts the bf16 call."""
+    dev = card()
+    x, onehot = (t[:, :points].bfloat16().contiguous() for t in _pooled(dev, b, -(-points // k), k, [k] * b, d))
+    fn = ops.silhouette_dist_sums if b == 1 else ops.silhouette_dist_sums_batched
+    args = (x[0], onehot[0]) if b == 1 else (x, onehot)
+    ops.reset_launch_counts()
+    got = fn(*args)
+    counts = ops.launch_counts()
+    assert counts[ops.bf16_name(fn)] == 1 and counts[fn.__name__] == 0
+    assert torch.equal(got, fn(*(a.float() for a in args)))
+    torch.testing.assert_close(got, ref.silhouette_dist_sums(*args), **SUMS_BF16_TOL)
+    y = torch.flip(args[0], dims=[-2]).contiguous()  # y apart from x: the x rows staged on their own
+    assert torch.equal(fn(args[0], args[1], y), fn(args[0].float(), args[1].float(), y.float()))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,p,k,d", [(1, 4, 13, 1000), (8, 4, 16, 1000), (2, 3, 11, 999), (2, 2, 130, 17)])
 def test_dist_sums_bf16_kernel_matches_plain(b, p, k, d):

@@ -206,15 +206,14 @@ def _splits(plan):
     return [(s * plan.chunk, min(plan.length, (s + 1) * plan.chunk)) for s in range(plan.split)]
 
 
-# (update, element size): the fp32 H- and W-updates, and the bf16 H-update
-# (the bf16 W-update has no tiled kernel, so no plan)
-MU_PLANNED = [("h", 4), ("w", 4), ("h", 2)]
+# (update, element size): the H- and W-updates at fp32 and at bf16
+MU_PLANNED = [("h", 4), ("w", 4), ("h", 2), ("w", 2)]
 
 
 def _stage(update, elem):
     """Rows (H) or columns (W) of V a pipeline stage holds (nmf_update.cu)."""
     if update == "w":
-        return ops.MU_W_STAGE
+        return ops.MU_W_STAGE if elem == 4 else ops.MU_W_STAGE_BF16
     return ops.MU_H_STAGE if elem == 4 else ops.MU_H_STAGE_BF16
 
 
@@ -233,7 +232,7 @@ def test_mu_plan_splits_cover_the_reduction(update, elem, lanes, n, m, k):
     assert plan.items == plan.whole + (plan.units - plan.whole) * plan.split
     assert plan.blocks == min(plan.items, ops.MU_BLOCKS_PER_SM * ops.H100_SMS)
     # the output tiles cover the output exactly: 128 columns of H, BN rows of W
-    width, extent = (ops.MU_H_COLS, m) if update == "h" else (ops.mu_w_rows(k), n)
+    width, extent = (ops.MU_H_COLS, m) if update == "h" else (ops.mu_w_rows(k, elem), n)
     assert (plan.tiles - 1) * width < extent <= plan.tiles * width
 
 
@@ -243,14 +242,14 @@ def test_mu_plan_scratch_is_what_the_kernel_indexes(update, elem, lanes, n, m, k
     """nmf_update.cu writes split s of tail unit u at (s * tail + u) * tile
     floats, element (rank r, column cl) at r * 128 + cl of an H tile (fp32
     and bf16 alike: the partials are fp32) and (row r, rank c) at r * k + c
-    of a W tile, and counts arrivals at u: the last index of each must be
-    the buffer's last."""
+    of a W tile (1024 / KB rows at fp32, 128 at bf16), and counts arrivals
+    at u: the last index of each must be the buffer's last."""
     plan = ops._mu_plan(update, lanes, n, m, k, elem=elem)
     tail = plan.units - plan.whole
     if tail == 0 or plan.split == 1:
         assert plan.scratch == () and plan.counters == 0
         return
-    rows, width = (k, ops.MU_H_COLS) if update == "h" else (ops.mu_w_rows(k), k)
+    rows, width = (k, ops.MU_H_COLS) if update == "h" else (ops.mu_w_rows(k, elem), k)
     last = ((plan.split - 1) * tail + (tail - 1)) * rows * width + (rows - 1) * width + (width - 1)
     assert math.prod(plan.scratch) == last + 1
     assert plan.counters == tail
@@ -283,21 +282,27 @@ def test_mu_plan_follows_the_card_size(update, elem):
 
 
 def test_mu_plan_rejects_an_unknown_update():
+    """An unknown update or element size is refused; the bf16 W-update has a
+    plan of its own: 128-row tiles at every rank, bf16 stages."""
     with pytest.raises(ValueError, match="'h' or 'w'"):
         ops._mu_plan("x", 1, 8, 8, 2)
-    with pytest.raises(ValueError, match="no tiled kernel"):
-        ops._mu_plan("w", 1, 8, 8, 2, elem=2)
+    plan = ops._mu_plan("w", 1, 8, 8, 2, elem=2)
+    assert (plan.tiles, plan.length, plan.chunk % ops.MU_W_STAGE_BF16) == (1, 8, 0)
+    assert ops._mu_plan("w", 1, 300, 8, 2, elem=2).tiles == math.ceil(300 / ops.MU_W_ROWS_BF16)
     with pytest.raises(ValueError, match="element size|float32"):
         ops._mu_plan("h", 1, 8, 8, 2, elem=8)
+    with pytest.raises(ValueError, match="element size|float32"):
+        ops._mu_plan("w", 1, 8, 8, 2, elem=8)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("update,lanes,n,m,k", [("h", 32, 1000, 1100, 16), ("w", 4, 1000, 1100, 16), ("h", 1, 40, 24, 5)])
+@pytest.mark.parametrize("update,lanes,n,m,k", [("h", 32, 1000, 1100, 16), ("w", 4, 1000, 1100, 16), ("h", 1, 40, 24, 5),
+                                               ("w", 32, 1000, 1100, 16), ("w", 2, 300, 320, 129)])
 def test_mu_launch_hands_the_kernel_its_plan(monkeypatch, dtype, update, lanes, n, m, k):
     """The wrapper's call into nmf_update.cu, with the library stubbed: the
     C argument order, the plan's split and chunk (at bf16 the plan of bf16
-    stages), scratch only when split; the bf16 W-update takes the any-rank
-    kernel, with no plan."""
+    stages), scratch only when split, for both updates at both dtypes up
+    to rank 128; above it the any-rank kernel, with no plan."""
     calls = []
 
     class Lib:
@@ -317,10 +322,11 @@ def test_mu_launch_hands_the_kernel_its_plan(monkeypatch, dtype, update, lanes, 
     ops._mu_launch(f"mu_update_{update}", update, v, a, b, gram, out)
     ((name, args),) = calls
     assert args[:5] == (v.data_ptr(), a.data_ptr(), b.data_ptr(), gram.data_ptr(), out.data_ptr())
-    if dtype == torch.bfloat16 and update == "w":
-        assert name == "mu_update_w_bf16_any" and args[5:] == (lanes, n, m, k, 12345)
+    suffix = "_bf16" if dtype == torch.bfloat16 else ""
+    if k > ops.MU_TILED_MAX_RANK:
+        assert name == f"mu_update_{update}{suffix}_any" and args[5:] == (lanes, n, m, k, 12345)
         return
-    assert name == f"mu_update_{update}" + ("_bf16" if dtype == torch.bfloat16 else "")
+    assert name == f"mu_update_{update}{suffix}"
     plan = ops._mu_plan(update, lanes, n, m, k, elem=v.element_size())
     assert (args[5] is None, args[6] is None) == ((plan.counters == 0),) * 2
     assert args[7:] == (lanes, n, m, k, plan.split, plan.chunk, plan.whole, plan.blocks, 12345)
@@ -448,8 +454,14 @@ def test_silhouette_and_mu_limits_follow_the_kernel_sources():
     assert ops.MU_H_STAGE == const("nmf_update.cu", "kHRows")
     assert ops.MU_H_STAGE_BF16 == const("nmf_update.cu", "kHRowsBf16")
     assert ops.MU_W_STAGE == const("nmf_update.cu", "kWCols")
+    # the bf16 W-update's stage and tile: one 128-byte row of V, 128 rows at every rank
+    assert ops.MU_W_STAGE_BF16 == const("nmf_update.cu", "kWColsBf16")
+    assert ops.MU_W_ROWS_BF16 == const("nmf_update.cu", "kWRowsBf16")
+    assert 2 * ops.MU_W_STAGE_BF16 == 128
+    assert {ops.mu_w_rows(k, 2) for k in (1, 16, 17, 64, 128)} == {ops.MU_W_ROWS_BF16}
     # a bf16 stage holds as many bytes of V as an fp32 one
     assert 2 * ops.MU_H_STAGE_BF16 == 4 * ops.MU_H_STAGE
+    assert 2 * ops.MU_W_STAGE_BF16 * ops.MU_W_ROWS_BF16 == 4 * ops.MU_W_STAGE * ops.mu_w_rows(16)
 
 
 @pytest.mark.parametrize(

@@ -150,6 +150,43 @@ def test_sums_phase_summary_scales_each_block_by_its_own_timer():
         assert out["phases"][name] == {"median_ns": want, "max_ns": want}
 
 
+@pytest.mark.parametrize("b,n,k,elem,ms,by", [
+    (1, 52, 13, 4, 8.352e-5, "operations"), (8, 64, 16, 4, 1.0115e-3, "operations"),
+    (1, 52, 13, 2, 3.2255e-5, "bytes"), (8, 64, 16, 2, 3.2034e-4, "bytes"),
+])
+def test_sums_bound_is_chip_smokes_at_both_dtypes(b, n, k, elem, ms, by):
+    """time_sums reports chip_smoke.py's silhouette bound: at fp32 the
+    operations bind (the fp32 rate), at bf16 the bytes (bf16 x and one-hot
+    in, fp32 sums out; x . y at the bf16 rate), at the threads path's 52
+    points and the batched wave's 8 lanes of 64 (d 1000, x = y); y apart
+    from x adds its bytes and its norms."""
+    import chip_smoke
+    import time_sums
+
+    assert time_sums.sums_bound is chip_smoke.sums_bound
+    got, got_by = chip_smoke.sums_bound(b, n, n, 1000, k, True, elem)
+    assert got == pytest.approx(ms, rel=2e-3) and got_by == by
+    if elem == 2:  # check_sums_bf16's bytes: bf16 x (= y) and one-hot read once, fp32 out
+        assert got == pytest.approx(b * (2 * n * 1000 + 2 * n * k + 4 * n * k) / 3.35e12 * 1e3)
+    apart, _ = chip_smoke.sums_bound(b, n, n, 1000, k, False, elem)
+    assert apart > got
+
+
+def test_sums_parse_args_takes_a_dtype():
+    """time_sums times float32 by default and bf16 with --dtype bfloat16, each
+    held at the reference's distance tolerance of its dtype; another dtype
+    is refused."""
+    import time_sums
+
+    args = time_sums.parse_args([])
+    assert args.dtype == "float32" and args.searches == 3 and not args.timeline
+    args = time_sums.parse_args(["--dtype", "bfloat16", "--src", "build/parent/src", "--tag", "parent"])
+    assert (args.dtype, args.src, args.tag) == ("bfloat16", "build/parent/src", "parent")
+    assert time_sums.TOL == {"float32": dict(rtol=1e-4, atol=1e-3), "bfloat16": dict(rtol=5e-2, atol=5e-1)}
+    with pytest.raises(SystemExit):
+        time_sums.parse_args(["--dtype", "float16"])
+
+
 def test_sums_thin_blocks_follow_the_kernel_rule():
     import time_sums
 

@@ -2,6 +2,14 @@
 """Time the port's silhouette distance-sum wrappers on the card at the
 shapes NMFk launches, and the NMFk searches that run them.
 
+With ``--dtype bfloat16`` everything below runs at bf16: the searches are
+``chip_smoke.py``'s ``nmfk_paper_bf16`` through the API (the launcher has
+no dtype), the operands are cast to bf16 (the bf16 kernel,
+``silhouette_dist_sums_bf16``; fp32 sums), the kernel is held at the
+reference's bf16 distance tolerance (rtol 5e-2, atol 5e-1) against the
+float64 plain version, and the bound is ``check_sums_bf16``'s
+(``chip_smoke.sums_bound`` at 2 bytes an element).
+
 1. Runs one paper-scale NMFk search per executor (``chip_smoke.py``'s:
    V 1000 x 1100, k_true 8, k 2..16, 4 perturbations, 120 sweeps) with every
    launch of the distance-sum kernel recorded by its shape (lanes b, points
@@ -15,8 +23,9 @@ shapes NMFk launches, and the NMFk searches that run them.
    its W columns), holds the kernel against the plain version run in
    float64 (rtol 1e-4, atol 1e-3, with the fp32 plain version's own gap
    beside), and prints one JSON line with ``ms`` (device time per call:
-   CUDA events behind a spin kernel), ``plain_ms``, ``bound_ms`` (bytes
-   over 3.35 TB/s against operations over 67 TFLOP/s fp32, the larger),
+   CUDA events behind a spin kernel), ``plain_ms``, ``bound_ms``
+   (``chip_smoke.sums_bound``: bytes over 3.35 TB/s against operations
+   over 67 TFLOP/s fp32, at bf16 x . y over 989 TFLOP/s, the larger),
    ``fill_ms`` (PyTorch's ``fill_`` of an output of the same size: the
    launch floor), the launches per search of each executor, and ``bits``, a
    digest of the output's bits (the sum of its int32 views). At the fixed
@@ -35,7 +44,7 @@ span and the spread of its blocks' starts on the global timer. The searches and 
 
 Run from the root of a checkout on a machine with a card:
 
-    python3 tools/time_sums.py [--src src] [--searches 3] [--tag name] [--timeline]
+    python3 tools/time_sums.py [--dtype float32|bfloat16] [--src src] [--searches 3] [--tag name] [--timeline]
 
 ``--src`` points at the ``src`` directory of another checkout, to time that
 version of the port with the same script.
@@ -49,12 +58,16 @@ import json
 import statistics
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 from time_mu import SEARCH, device_ms, host_us
 
-HBM_BYTES_PER_S, FP32_FLOPS_PER_S = 3.35e12, 67e12  # H100 SXM data sheet
-TOL = dict(rtol=1e-4, atol=1e-3)  # the reference's distance fp32 tolerance, against float64
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+from chip_smoke import NMFK_PAPER, nmfk_api_search, sums_bound  # noqa: E402  (as chip_smoke.py bounds and searches)
+
+# the reference's distance tolerances by dtype, against the float64 plain version
+TOL = {"float32": dict(rtol=1e-4, atol=1e-3), "bfloat16": dict(rtol=5e-2, atol=5e-1)}
 # (b, n, m, d, k, y is x, wrapper): the threads path's 52 points and the
 # batched wave of 8 lanes
 FIXED = [(1, 52, 52, 1000, 13, True, "2d"), (8, 64, 64, 1000, 16, True, "batched")]
@@ -150,13 +163,18 @@ def operands(torch, shape, device):
     return x, y, onehot
 
 
-def main(argv=None) -> int:
+def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", default=str(Path(__file__).resolve().parents[1] / "src"))
     ap.add_argument("--searches", type=int, default=3)
     ap.add_argument("--tag", default=None, help="label of this version in the output (default: --src)")
     ap.add_argument("--timeline", action="store_true", help="time the thin kernel's phases (a -DSIL_TIMELINE build)")
-    args = ap.parse_args(argv)
+    ap.add_argument("--dtype", choices=sorted(TOL), default="float32", help="the operands' dtype")
+    return ap.parse_args(argv)
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
     sys.path.insert(0, args.src)
     import torch
 
@@ -167,16 +185,17 @@ def main(argv=None) -> int:
     from repro_torch.launch import ksearch
 
     tag = args.tag or args.src
+    dtype = getattr(torch, args.dtype)
     dev = torch.device("cuda")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
-    print(json.dumps({"tag": tag, "card": smi, "torch": torch.__version__}), flush=True)
+    print(json.dumps({"tag": tag, "dtype": args.dtype, "card": smi, "torch": torch.__version__}), flush=True)
     if args.timeline:
         lib = load_timeline_build(build)
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
         for shape in FIXED:
             b, n, m, d, k, same, wrapper = shape
-            x, _, onehot = operands(torch, shape, dev)
+            x, _, onehot = (t.to(dtype) for t in operands(torch, shape, dev))
             for _ in range(3):  # warm: the last launch's stamps are read
                 ops.silhouette_dist_sums_batched(x, onehot)
             torch.cuda.synchronize()
@@ -189,9 +208,23 @@ def main(argv=None) -> int:
                               **phase_summary(stamps)}), flush=True)
     executors = ("threads", "batched")
     wrapper_of = {"threads": "2d", "batched": "batched"}
+    if dtype == torch.float32:
+        def search(ex):
+            return ksearch.main(SEARCH + ["--executor", ex])
+    else:  # the launcher has no dtype: chip_smoke's bf16 search through the API
+        from repro_torch.factorization.synthetic import nmf_data
+
+        v16 = nmf_data(NMFK_PAPER["n"], NMFK_PAPER["m"], NMFK_PAPER["k_true"], seed=0, device=dev, dtype=dtype)[0]
+
+        def search(ex):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = nmfk_api_search(v16, ex)[0]
+            torch.cuda.synchronize()
+            return {"k_optimal": res.k_optimal, "seconds": time.perf_counter() - t0}
     for executor in executors:
-        ksearch.main(SEARCH + ["--executor", executor])  # warm up: kernels built and loaded
-    hists = {ex: record_shapes(ops, lambda ex=ex: ksearch.main(SEARCH + ["--executor", ex])) for ex in executors}
+        search(executor)  # warm up: kernels built and loaded
+    hists = {ex: record_shapes(ops, lambda ex=ex: search(ex)) for ex in executors}
     for ex, hist in hists.items():
         print(json.dumps({"tag": tag, "histogram": ex, "launches": sum(hist.values()),
                           "shapes": [[*shape, count] for shape, count in sorted(hist.items())]}), flush=True)
@@ -200,7 +233,8 @@ def main(argv=None) -> int:
     recorded = sorted({(*s, wrapper_of[ex]) for ex in executors for s in hists[ex]})
     for shape in list(dict.fromkeys(FIXED + recorded)):
         b, n, m, d, k, same, wrapper = shape
-        x, y, onehot = operands(torch, shape, dev)
+        x, y, onehot = (t.to(dtype) for t in operands(torch, shape, dev))
+        y = x if same else y
         if wrapper == "2d":
             x, y, onehot = x[0], (x[0] if same else y[0]), onehot[0]
             fn = ops.silhouette_dist_sums
@@ -209,19 +243,18 @@ def main(argv=None) -> int:
         call = (lambda: fn(x, onehot)) if same else (lambda: fn(x, onehot, y))
         got = call()
         want = ref.silhouette_dist_sums(x.double(), onehot.double(), y.double())
-        torch.testing.assert_close(got.double(), want, **TOL)
-        plain32_err = float((ref.silhouette_dist_sums(x, onehot, y).double() - want).abs().max())
-        n_bytes = 4 * b * (n * d + (0 if same else m * d) + m * k + n * k)
-        flops = b * (2 * n * m * d + 2 * (n + (0 if same else m)) * d + 5 * n * m + 2 * n * m * k)
+        torch.testing.assert_close(got.double(), want, **TOL[args.dtype])
+        plain_err = float((ref.silhouette_dist_sums(x, onehot, y).double() - want).abs().max())
+        b_ms, b_by = sums_bound(b, n, m, d, k, same, x.element_size())
         out = torch.empty_like(got)
         launches = {ex: hists[ex][shape[:6]] if wrapper == wrapper_of[ex] else 0 for ex in executors}
         entry = {
-            "tag": tag, "shape": dict(zip(("b", "n", "m", "d", "k", "y_is_x", "wrapper"), shape)),
+            "tag": tag, "dtype": args.dtype, "shape": dict(zip(("b", "n", "m", "d", "k", "y_is_x", "wrapper"), shape)),
             "ms": device_ms(torch, call),
             "plain_ms": device_ms(torch, lambda: ref.silhouette_dist_sums(x, onehot, y)),
-            "bound_ms": max(n_bytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S) * 1e3,
+            "bound_ms": b_ms, "bound_by": b_by,
             "fill_ms": device_ms(torch, lambda: out.fill_(1.0)),
-            "max_abs_err_vs_fp64": float((got.double() - want).abs().max()), "plain_fp32_err_vs_fp64": plain32_err,
+            "max_abs_err_vs_fp64": float((got.double() - want).abs().max()), "plain_err_vs_fp64": plain_err,
             "launches": launches, "bits": int(got.view(torch.int32).sum(dtype=torch.int64)),
         }
         if shape in FIXED:
@@ -229,11 +262,12 @@ def main(argv=None) -> int:
         for ex in executors:
             per_search[ex] += launches[ex] * entry["ms"]
         print(json.dumps(entry), flush=True)
-    print(json.dumps({"tag": tag, "sums_device_ms_per_search": per_search}), flush=True)
+    print(json.dumps({"tag": tag, "dtype": args.dtype, "sums_device_ms_per_search": per_search}), flush=True)
 
     for ex in executors if args.searches else ():
-        results = [ksearch.main(SEARCH + ["--executor", ex]) for _ in range(args.searches)]
-        print(json.dumps({"tag": tag, "search": f"nmfk_paper {ex}", "k_optimal": [r["k_optimal"] for r in results],
+        results = [search(ex) for _ in range(args.searches)]
+        print(json.dumps({"tag": tag, "dtype": args.dtype, "search": f"nmfk_paper {ex}",
+                          "k_optimal": [r["k_optimal"] for r in results],
                           "wall_s": [r["seconds"] for r in results]}), flush=True)
     return 0
 
