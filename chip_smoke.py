@@ -6,10 +6,11 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
     python3 chip_smoke.py
 
 On a machine with four, ``python3 chip_smoke.py --multi-rank-only`` builds
-the kernels and runs only the 4-rank searches of phase 5 and the one-rank
-searches they are compared with, then phase 5's 4-rank serves and trains
-(each with the one-card runs it is held to) and the training options on a
-mesh (``granite_train_opts_mesh22``).
+the kernels and runs only the 4-rank searches of phase 5 (fp32 and bf16)
+and the one-rank searches they are compared with, then phase 5's 4-rank
+serves and trains (each with the one-card runs it is held to) and the
+training options on a mesh (``granite_train_opts_mesh22``);
+``--multi-rank-only --searches`` stops after the searches.
 
 Phases, each fatal on failure:
 
@@ -81,11 +82,14 @@ Phases, each fatal on failure:
      the CPU's bf16 run, which replays the card's column alignments) and the
      distributed fits on a one-rank NCCL group (``distributed_nmf`` sync and
      pipelined, bitwise equal at one rank; ``distributed_rescal``; the
-     masked body against the single-device masked fit) against the CPU;
-     then the sharded planes on a one-rank ``(lane, data)`` NCCL mesh
-     against the unsharded ones on the card (``nmfk_score_sharded`` sync and
-     pipelined bitwise; ``KMeansBatchPlane(mesh=)`` labels and scores; the
-     elastic plane drained at tol 0: scores, sweep counts, warm-start hits);
+     masked body against the single-device masked fit) against the CPU,
+     and again at bf16 (each comparison within twice the CPU's own
+     bf16-vs-fp32 gap; only ``mu_update_w[bf16]`` launched); then the
+     sharded planes on a one-rank ``(lane, data)`` NCCL mesh against the
+     unsharded ones on the card (``nmfk_score_sharded`` sync and pipelined
+     bitwise; ``KMeansBatchPlane(mesh=)`` labels and scores; the elastic
+     plane drained at tol 0: scores, sweep counts, warm-start hits), and
+     the NMFk half again at bf16 (bits and dtypes);
   5. run each main path with every launch count set to 0 just before it and
      read just after, asserting the answer and that the run went through
      its kernels: the paper-scale NMFk search (V 1000x1100, k_true 8,
@@ -109,11 +113,19 @@ Phases, each fatal on failure:
      2e-2) of the CPU's bf16 run, elastic's sweep identity, only the bf16
      MU and silhouette kernels launched (and no bf16 kernel on the fp32
      NMFk paths), wall, device busy share and peak memory beside the fp32
-     search's through the same API; with 4 or more cards also
+     search's through the same API; ``nmfk_distributed_fit_bf16`` (the
+     threads search through the API with ``ksearch``'s distributed fit
+     over two one-rank NCCL groups; MU W launches twice the H ones, the bf16
+     halves only), ``nmfk_sharded_bf16`` and ``nmfk_elastic_mesh_bf16`` (the
+     batched and elastic planes on a one-rank NCCL mesh: the unsharded bf16
+     searches' bits), each beside its fp32 twin; with 4 or more cards also
      ``torchrun`` runs at 4 ranks (sharded ``--lanes 4``, then ``--lanes 2
      --data-shards 2`` sync and pipelined, and elastic ``--lanes 2
-     --data-shards 2``; every rank the same result, k_optimal 8), else one
-     line saying they were not made;
+     --data-shards 2``; every rank the same result, k_optimal 8; then the
+     same three 2 x 2 meshes at bf16 through the API, ``rank_search_bf16``:
+     each visited k's silhouettes within twice the one-card bf16-vs-fp32
+     gap, floor 2e-2, of the one-card bf16 search, the bf16 kernels only),
+     else one line saying they were not made;
      ``rescalk_1000``: Binary Bleed over RESCALk (§IV-C's RESCAL setup of
      ``benchmarks/bench_distributed.py`` at 1000 entities, 4 relations,
      k_true 4, k 2..11) on the serial and the threads executor (k_optimal 4);
@@ -531,7 +543,8 @@ def check_mu_bf16(torch, dev, ops, ref, records: dict, log) -> None:
     Gram, fp32 products and epilogue, one rounding) at the main path's
     shapes: the batched wave (L 32, k_pad 16), the elastic lane batch (L 8),
     the threads executor's fits (L 4, k 16) and one fit (L 1), each timed
-    with its bf16 bound; then both updates (untimed) at each rank bucket of
+    with its bf16 bound, and the W-update at a rank's block of the
+    data-sharded planes (n_l 500 at data 2, 250 at data 4); then both updates (untimed) at each rank bucket of
     the tiled kernels (k 1, 17, 32, 64, 128), split units with ragged n and
     m, and past them (k 129, 200: the any-rank kernel). At the reference's
     bf16 tolerance, the float64 error at most twice the plain version's,
@@ -546,6 +559,10 @@ def check_mu_bf16(torch, dev, ops, ref, records: dict, log) -> None:
         ("bf16 elastic: L=8, k=16, ks 9..16", 8, 16, [9 + i for i in range(8)], 1000, 1100, True),
         ("bf16 threads: L=4, k=16", 4, 16, [16] * 4, 1000, 1100, True),
         ("bf16 one fit: L=1, k=16", 1, 16, [16], 1000, 1100, True),
+        # a rank's block of the data-sharded planes (W only: H is plain there)
+        ("bf16 data 2: L=8, n_l=500, k_pad=16", 8, 16, [9 + i for i in range(8)], 500, 1100, "w"),
+        ("bf16 data 2, elastic block: L=4, n_l=500, k_pad=16", 4, 16, [13, 14, 15, 16], 500, 1100, "w"),
+        ("bf16 data 4: L=8, n_l=250, k_pad=16", 8, 16, [9 + i for i in range(8)], 250, 1100, "w"),
         ("bf16 KB 16: k=1", 2, 1, [1, 1], 300, 520, False),
         ("bf16 KB 32: k_pad=17, ks 17, 15", 2, 17, [17, 15], 300, 520, False),
         ("bf16 KB 32: k_pad=32, ks 32, 30", 2, 32, [32, 30], 300, 520, False),
@@ -598,7 +615,7 @@ def _mu_bf16_case(torch, dev, ops, ref, records, log, lib, label, lanes, k, k_ef
                                 elem=2)
             record["plan"] = {"whole": plan.whole, "split": plan.split, "chunk": plan.chunk,
                               "items": plan.items, "blocks": plan.blocks}
-        if main:  # the main paths' shapes: time them
+        if main is True or main == out_of:  # the main paths' shapes: time them
             b_ms, b_by = mu_bound(out_of, lanes, n, m, k, elem=2)
             record.update(ms=time_ms(torch, lambda: wrapper(v, w, h)),
                           plain_ms=time_ms(torch, lambda: plain(v, w, h)), bound_ms=b_ms, bound_by=b_by)
@@ -1236,6 +1253,43 @@ MULTI_RANK_TIMEOUT_S = 300
 RANK_AGREES = ("visited", "scores", "mesh", "sweeps_run", "sweeps_saved", "sweeps_fixed_total", "warm_start_hits")
 
 
+# the bf16 searches at 4 ranks, through the API (the launcher takes no dtype):
+# nmfk_paper on bf16 data on a (lane, data) mesh, one rank a card (rank_search_bf16)
+PIPELINED_ATOL = 5e-2  # the reference's conformance tolerance for the pipelined schedule
+MULTI_RANK_BF16 = {
+    "nmfk_sharded_bf16_4rank_lanes2_data2_sync": dict(executor="batched", lanes=2, data=2, comm="sync"),
+    "nmfk_sharded_bf16_4rank_lanes2_data2_pipelined": dict(executor="batched", lanes=2, data=2, comm="pipelined"),
+    "nmfk_elastic_bf16_4rank_lanes2_data2": dict(executor="elastic", lanes=2, data=2, comm="sync"),
+}
+
+
+def torchrun_ranks(label: str, entry: str, argv, world: int = 4) -> list[dict]:
+    """``chip_smoke.py ENTRY OUTDIR`` on ``world`` ranks under ``torchrun``
+    (rendezvous on localhost), ``argv`` in ``OUTDIR/argv.json``; each rank's
+    ``rank<r>.json``."""
+    import os
+    import signal
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ranks_") as outdir:
+        # the search's flags go in a file: torchrun's own parser takes an
+        # abbreviation such as --n or --m after the script for one of its options
+        (Path(outdir) / "argv.json").write_text(json.dumps(argv))
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", str(world),
+               str(ROOT / "chip_smoke.py"), entry, outdir]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                                start_new_session=True)
+        try:
+            text, _ = proc.communicate(timeout=MULTI_RANK_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.communicate()
+            raise AssertionError(f"{label}: no result within {MULTI_RANK_TIMEOUT_S} s")
+        if proc.returncode != 0:
+            raise AssertionError(f"{label}: torchrun exited {proc.returncode}:\n{text[-4000:]}")
+        return [json.loads((Path(outdir) / f"rank{r}.json").read_text()) for r in range(world)]
+
+
 def run_multi_rank_searches(torch, log) -> dict[str, dict[str, int]]:
     """The paper-scale search at 4 ranks, one process per card
     (``torchrun``, rendezvous on localhost), on each executor and mesh of
@@ -1243,42 +1297,16 @@ def run_multi_rank_searches(torch, log) -> dict[str, dict[str, int]]:
     writes its result and its launch counts; each rank must find k_optimal
     8 and all the same ``RANK_AGREES`` entries (the elastic run: also its
     sweep counts and warm-start hits). Launch counts (of each process's
-    second search) are summed over the ranks. Needs 4 cards."""
-    import os
-    import signal
-    import tempfile
-
+    second search) are summed over the ranks. Then the bf16 searches of
+    ``MULTI_RANK_BF16`` (``run_multi_rank_bf16``). Needs 4 cards."""
     cards = torch.cuda.device_count()
     if cards < 4:
         log(f"multi-rank searches: not made ({cards} card(s) visible; the 4-rank runs need 4)")
         return {}
     by_path = {}
     for label, flags in MULTI_RANK_MESHES.items():
-        with tempfile.TemporaryDirectory(prefix="chip_smoke_ranks_") as outdir:
-            # the search's flags go in a file: torchrun's own parser takes an
-            # abbreviation such as --n or --m after the script for one of its options
-            (Path(outdir) / "argv.json").write_text(json.dumps([*PAPER_ARGS, *flags]))
-            cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "4",
-                   str(ROOT / "chip_smoke.py"), "--rank-search", outdir]
-            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-                                    start_new_session=True)
-            try:
-                text, _ = proc.communicate(timeout=MULTI_RANK_TIMEOUT_S)
-            except subprocess.TimeoutExpired:
-                os.killpg(proc.pid, signal.SIGKILL)
-                proc.communicate()
-                raise AssertionError(f"{label}: no result within {MULTI_RANK_TIMEOUT_S} s")
-            if proc.returncode != 0:
-                raise AssertionError(f"{label}: torchrun exited {proc.returncode}:\n{text[-4000:]}")
-            ranks = [json.loads((Path(outdir) / f"rank{r}.json").read_text()) for r in range(4)]
-        first = ranks[0]["out"]
-        for r, rank in enumerate(ranks):
-            got = rank["out"]
-            if got["k_optimal"] != 8 or rank["cold_k_optimal"] != 8 or any(
-                    got.get(key) != first.get(key) for key in RANK_AGREES):
-                raise AssertionError(f"{label}: rank {r} returned {got}, rank 0 {first}")
-        if "sweeps_run" in first and first["sweeps_run"] + first["sweeps_saved"] != first["sweeps_fixed_total"]:
-            raise AssertionError(f"{label}: sweeps run + saved != the fixed-iteration total: {first}")
+        ranks = torchrun_ranks(label, "--rank-search", [*PAPER_ARGS, *flags])
+        first = check_rank_agreement(label, ranks)
         counts = {name: sum(rank["launches"][name] for rank in ranks) for name in ranks[0]["launches"]}
         log(json.dumps({"search": label, "k_optimal": first["k_optimal"],
                         "visited": first["visited"], "scores": first["scores"], "mesh": first["mesh"], "comm": first["comm"],
@@ -1289,6 +1317,128 @@ def run_multi_rank_searches(torch, log) -> dict[str, dict[str, int]]:
             if min(rank["launches"][name] for rank in ranks) < 1 and not (
                     name == "mu_update_h" and first["mesh"]["data"] > 1):
                 raise AssertionError(f"{label}: a rank never launched {name}")
+        by_path[label] = counts
+    by_path.update(run_multi_rank_bf16(torch, log))
+    return by_path
+
+
+def check_rank_agreement(label: str, ranks: list[dict]) -> dict:
+    """Every rank found k_optimal 8 (also in its cold run) and returned the
+    same ``RANK_AGREES`` entries; an elastic run's sweeps add up. Returns
+    rank 0's result."""
+    first = ranks[0]["out"]
+    for r, rank in enumerate(ranks):
+        got = rank["out"]
+        if got["k_optimal"] != 8 or rank["cold_k_optimal"] != 8 or any(
+                got.get(key) != first.get(key) for key in RANK_AGREES):
+            raise AssertionError(f"{label}: rank {r} returned {got}, rank 0 {first}")
+    if "sweeps_run" in first and first["sweeps_run"] + first["sweeps_saved"] != first["sweeps_fixed_total"]:
+        raise AssertionError(f"{label}: sweeps run + saved != the fixed-iteration total: {first}")
+    return first
+
+
+def one_card_bf16(torch, dev) -> dict:
+    """On ``dev`` (card 0), the one-card twins of the 4-rank bf16 searches:
+    every k's (min, mean) silhouette of nmfk_paper_bf16's batched lanes
+    (``nmfk_score_batched`` of ks 2..16, the searches' draws) at bf16, with
+    their column alignments recorded (``AlignLog``), and at float32 on the
+    same values and draws widened (its own alignments: the gap is the
+    dtype's); then the one-card bf16 elastic search's own scores, its
+    alignments and its tol gate's decisions recorded (``RetireLog``). The
+    logs go to the ranks as JSON (``replay``), as nmfk_paper_bf16's CPU
+    replays the card's."""
+    from repro_torch.factorization import nmfk
+    from repro_torch.factorization.synthetic import nmf_data
+    from repro_torch.random import Draws, seeded_draws
+
+    c = NMFK_PAPER
+    bf16 = torch.bfloat16
+    v = nmf_data(c["n"], c["m"], c["k_true"], seed=0, device=dev, dtype=bf16)[0]
+    draws = seeded_draws(0, c["n"], c["m"], c["n_perturbs"], c["epsilon"], dev, bf16)
+    ks = list(range(c["k_range"][0], c["k_range"][1] + 1))
+    lanes, aligns = {}, {"batched": AlignLog(), "elastic": AlignLog()}
+    for dt in (bf16, torch.float32):
+        undo = aligns["batched"].patch(torch, nmfk, "record") if dt == bf16 else (lambda: None)
+        try:
+            sc = nmfk.nmfk_score_batched(v.to(dt), ks, k_pad=c["k_range"][1], n_perturbs=c["n_perturbs"],
+                                         nmf_iters=c["nmf_iters"],
+                                         draws=lambda k, kd, dt=dt: Draws(*(t.to(dt) for t in draws(k, kd))))
+        finally:
+            undo()
+        lanes[dt] = {k: (float(sc[0][i]), float(sc[1][i])) for i, k in enumerate(ks)}
+    retire = RetireLog(1e-3)  # the launcher's tol
+    undo = aligns["elastic"].patch(torch, nmfk, "record")
+    try:
+        res, elastic, _ = scored_search(v, "elastic", gate=retire.record)
+    finally:
+        undo()
+    replay = {ex: {"labels": {k: row.tolist() for k, row in log.labels.items()}} for ex, log in aligns.items()}
+    replay["elastic"]["decisions"] = [[*key, decided] for key, decided in retire.decisions.items()]
+    return {"batched": lanes[bf16], "batched_fp32": lanes[torch.float32], "elastic_k_optimal": res.k_optimal,
+            "elastic": {k: (float(sc.min_silhouette), float(sc.mean_silhouette)) for k, sc in elastic.items()},
+            "replay": replay}
+
+
+def run_multi_rank_bf16(torch, log) -> dict[str, dict[str, int]]:
+    """``MULTI_RANK_BF16``: nmfk_paper on bf16 data at 4 ranks through the
+    API (``rank_search_bf16``). Every rank returns the same result with
+    k_optimal 8; elastic's sweeps add up; each visited k's min and mean
+    silhouette (each rank's scored lanes, merged) within BF16_GAP_RATIO
+    times the one-card bf16-vs-fp32 gap at that k (at least
+    BF16_SIL_FLOOR) of the one-card bf16 search of the same executor
+    (``one_card_bf16``; elastic: its own search's score, the batched lane's
+    for a k it did not visit); each rank launches the bf16 W-update and
+    batched silhouette and no float32 kernel. The pipelined schedule's
+    one-sweep-stale H moves an overfit k's score by more than a dtype gap
+    (as at float32), so there the selected k's min silhouette is held at
+    PIPELINED_ATOL, the reference's conformance tolerance; every k's
+    comparison is logged. Sync and elastic score their visited ks a third
+    time with the one card's column alignments (and elastic its tol-gate
+    decisions) replayed; a rank's own choice may differ from the one card's
+    only at a near-tie (``AlignLog``, ``RetireLog``), as in nmfk_paper_bf16."""
+    ref = one_card_bf16(torch, torch.device("cuda", 0))
+    if ref["elastic_k_optimal"] != 8:
+        raise AssertionError(f"one-card bf16 elastic: k_optimal {ref['elastic_k_optimal']} != 8")
+    by_path, smi = {}, smi_line()
+    for label, cfg in MULTI_RANK_BF16.items():
+        replay = ref["replay"][cfg["executor"]] if cfg["comm"] == "sync" else None
+        ranks = torchrun_ranks(label, "--rank-search-bf16", {**cfg, "replay": replay})
+        first = check_rank_agreement(label, ranks)
+        kept = {}
+        for rank in ranks:
+            kept.update((int(k), sc) for k, sc in rank["kept"].items())
+        per_k, failed = {}, []
+        for k in first["visited"]:
+            one = ref["elastic"].get(k, ref["batched"][k]) if cfg["executor"] == "elastic" else ref["batched"][k]
+            row = []
+            for i, field in enumerate(("min_silhouette", "mean_silhouette")):
+                gap = abs(ref["batched"][k][i] - ref["batched_fp32"][k][i])
+                bound = max(BF16_GAP_RATIO * gap, BF16_SIL_FLOOR)
+                if cfg["comm"] == "pipelined":  # the schedule's staleness: the selected k's score alone
+                    bound = PIPELINED_ATOL if k == first["k_optimal"] and i == 0 else math.inf
+                if not abs(kept[k][i] - one[i]) <= bound:
+                    failed.append(f"k {k} {field}: 4 ranks {kept[k][i]:.5f} vs one card {one[i]:.5f} > {bound:.3e}")
+                row.append([kept[k][i], one[i], bound])
+            per_k[k] = row
+        for r, rank in enumerate(ranks):
+            bf16_only(rank["launches"], f"{label} rank {r}", ("mu_update_w", "silhouette_dist_sums_batched"))
+            failed += [f"rank {r} k {f['k']}: its own alignment left the one card's at a margin of "
+                       f"{f['margin_ulps']:.2f} bf16 ulps, beyond {AlignLog.ALIGN_TIE_ULPS}"
+                       for f in rank["align_flips"] if not f["near_tie"]]
+            failed += [f"rank {r}: retirement {f['lane']} flipped at a margin {f['cpu_margin']:.3e} beyond "
+                       f"{RetireLog.RETIRE_TIE_ULPS} bf16 ulps" for f in rank["retire_flips"] if not f["near_tie"]]
+        counts = {name: sum(rank["launches"][name] for rank in ranks) for name in ranks[0]["launches"]}
+        log(json.dumps({"search": label, "k_optimal": first["k_optimal"], "visited": first["visited"],
+                        "scores": first["scores"], "mesh": first["mesh"], "comm": first["comm"],
+                        "wall_s": max(rank["out"]["seconds"] for rank in ranks),
+                        "cold_wall_s": max(rank["cold_seconds"] for rank in ranks),
+                        **{key: first[key] for key in RANK_AGREES[3:] if key in first},
+                        "per_k_4rank_onecard_bound": per_k, "card": smi,
+                        "align_flips_by_rank": [rank["align_flips"] for rank in ranks],
+                        "retire_flips_by_rank": [rank["retire_flips"] for rank in ranks],
+                        "launches_by_rank": [rank["launches"] for rank in ranks]}))
+        if failed:
+            raise AssertionError(f"{label}: " + "; ".join(failed))
         by_path[label] = counts
     return by_path
 
@@ -1311,6 +1461,61 @@ def rank_search(outdir: Path) -> int:
     (outdir / f"rank{os.environ['RANK']}.json").write_text(json.dumps(
         {"out": out, "launches": ops.launch_counts(), "cold_k_optimal": cold["k_optimal"],
          "cold_seconds": cold["seconds"]}))
+    return 0
+
+
+def rank_search_bf16(outdir: Path) -> int:
+    """One rank of ``run_multi_rank_bf16`` (under ``torchrun``): nmfk_paper's
+    search on bf16 data through the API on the ``(lane, data)`` mesh and
+    executor in ``outdir/argv.json``, three times: cold, timed (launches
+    counted), and with every scored k's NMFkScore kept (``keep_scores``),
+    there with the one card's alignments and tol-gate decisions replayed
+    where argv.json gives them; written to ``outdir/rank<RANK>.json``."""
+    import os
+
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+
+    from repro_torch.factorization import nmfk
+    from repro_torch.factorization.synthetic import nmf_data
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_wave_mesh
+
+    cfg = json.loads((outdir / "argv.json").read_text())
+    c = NMFK_PAPER
+    with make_wave_mesh(cfg["lanes"], cfg["data"], "cuda") as mesh:
+        v = nmf_data(c["n"], c["m"], c["k_true"], seed=0, device=mesh.device, dtype=torch.bfloat16)[0]
+
+        def search(gate=None):
+            t0 = sync_wall(torch)
+            res, plane = nmfk_api_search(v, cfg["executor"], mesh=mesh, comm=cfg["comm"], gate=gate)
+            return res, plane, sync_wall(torch) - t0
+
+        cold = search()
+        ops.reset_launch_counts()
+        res, plane, wall = search()
+        launches = ops.launch_counts()
+        kept, align, retire = {}, AlignLog(), RetireLog(1e-3)
+        replay = cfg.get("replay") or {}
+        align.labels = {int(k): torch.tensor(row) for k, row in replay.get("labels", {}).items()}
+        retire.decisions = {tuple(d[:3]): d[3] for d in replay.get("decisions", [])}
+        undo_align = align.patch(torch, nmfk, "replay") if replay else (lambda: None)
+        undo = keep_scores(nmfk, kept)
+        try:
+            search(retire.replay if retire.decisions else None)
+        finally:
+            undo()
+            undo_align()
+    out = {"k_optimal": res.k_optimal, "visited": sorted(res.visited_ks), "seconds": wall,
+           "scores": {r.k: r.score for r in sorted(res.visits, key=lambda r: r.k)},
+           "mesh": {"lanes": plane.lane_count, "data": plane.data_count}, "comm": cfg["comm"]}
+    if cfg["executor"] == "elastic":
+        out.update(sweeps_run=plane.sweeps_run, sweeps_saved=plane.sweeps_saved,
+                   sweeps_fixed_total=plane.sweeps_fixed_total, warm_start_hits=plane.warm_cache.hits)
+    (outdir / f"rank{os.environ['RANK']}.json").write_text(json.dumps(
+        {"out": out, "launches": launches, "cold_k_optimal": cold[0].k_optimal, "cold_seconds": cold[2],
+         "kept": {k: [float(f) for f in sc] for k, sc in kept.items()},
+         "align_flips": align.flips, "retire_flips": retire.flips}))
     return 0
 
 
@@ -1528,6 +1733,132 @@ def check_distributed_small(torch, dev, ops, log) -> None:
     log(json.dumps(entry))
 
 
+def gap_gate(torch, got, want, cpu16, cpu32, what: str) -> dict:
+    """``got`` (the card's bf16) within BF16_GAP_RATIO times the CPU's own
+    bf16-vs-fp32 gap (``cpu16`` against ``cpu32``, the same values and
+    draws widened; max abs over elements) of ``want``, at least two bf16
+    ulps of want's largest element."""
+    got, want, cpu16, cpu32 = (t.detach().cpu().double() for t in (got, want, cpu16, cpu32))
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{what}: non-finite output")
+    gap = float((cpu16 - cpu32).abs().max())
+    bound = max(BF16_GAP_RATIO * gap, BF16_ULPS2 * float(want.abs().max()))
+    diff = float((got - want).abs().max())
+    if not diff <= bound:
+        raise AssertionError(f"{what}: max abs diff {diff:.3e} > {bound:.3e} (CPU bf16-vs-fp32 gap {gap:.3e})")
+    return {"diff": diff, "bound": bound, "cpu_gap": gap}
+
+
+def check_distributed_small_bf16(torch, dev, ops, log) -> None:
+    """``check_distributed_small`` at bf16 (V, X and the draws bf16) on a
+    one-rank NCCL group: ``distributed_nmf`` sync and pipelined bitwise
+    equal, ``distributed_rescal``, and ``_dnmf_masked_local`` against the
+    single-device bf16 ``_nmf_masked`` on the card; the card's fits against
+    the same calls on the CPU. Each comparison within twice the CPU's own
+    bf16-vs-fp32 gap (``gap_gate``: the CPU's fits at float32 on the same
+    values and draws widened). Only ``mu_update_w[bf16]`` is launched, 100
+    times a fit."""
+    import torch.distributed as dist
+
+    from repro_torch.factorization import distributed as D
+    from repro_torch.factorization.nmf import _nmf_masked
+    from repro_torch.factorization.synthetic import nmf_data, rescal_data
+    from repro_torch.random import init_draws, rescal_init_draws, seeded_generator
+
+    bf16, fp32 = torch.bfloat16, torch.float32
+    v, _, _ = nmf_data(96, 104, 5, seed=0, device="cpu", dtype=bf16)
+    x, _, _ = rescal_data(n_entities=96, n_relations=3, k_true=4, noise=0.01, seed=0, device="cpu", dtype=bf16)
+    w, h = init_draws(seeded_generator(1, "cpu"), 96, 104, 6, dtype=bf16)
+    a, r = rescal_init_draws(seeded_generator(2, "cpu"), 96, 3, 4, dtype=bf16)
+
+    def cpu(dtype):  # the three fits on the CPU at dtype, on the bf16 values
+        vv, xx, ww, hh, aa, rr = (t.to(dtype) for t in (v, x, w, h, a, r))
+        return (D.distributed_nmf(vv, 5, ww[:, :5], hh[:5], None, iters=100),
+                D.distributed_rescal(xx, 4, aa, rr, None, iters=100),
+                D._dnmf_masked_local(vv, 4, ww, hh, 6, 100, None))
+
+    want, want32 = cpu(bf16), cpu(fp32)
+    entry = {"check": "distributed fits at bf16 on a one-rank NCCL group vs CPU"}
+    with D.local_groups(dev, 1) as (group,):
+        entry["backend"] = str(dist.get_backend(group))
+        ops.reset_launch_counts()
+        fits = {comm: D.distributed_nmf(v.to(dev), 5, w[:, :5].to(dev), h[:5].to(dev), group, iters=100, comm=comm)
+                for comm in D.COMM_MODES}
+        entry["nmf_launches"] = ops.launch_counts()
+        sync, pipe = fits["sync"], fits["pipelined"]
+        if not all(torch.equal(s_, p_) for s_, p_ in zip(sync, pipe)):
+            raise AssertionError("distributed_nmf bf16 at one rank: pipelined differs from sync")
+        res = D.distributed_rescal(x.to(dev), 4, a.to(dev), r.to(dev), group, iters=100)
+        w_l, err = D._dnmf_masked_local(v.to(dev), 4, w.to(dev), h.to(dev), 6, 100, group)
+        single = _nmf_masked(v.to(dev), 4, w.to(dev), h.to(dev), 6, 100)
+    if dist.is_initialized():
+        raise AssertionError("the phase's process groups outlived it")
+    if {t.dtype for t in (*sync, *res, w_l, err)} != {bf16}:
+        raise AssertionError("a distributed fit at bf16 returned another dtype")
+    entry["nmf"] = {name: gap_gate(torch, got, cpu16, cpu16, cpu32, f"distributed_nmf bf16 {name} card vs CPU")
+                    for name, got, cpu16, cpu32 in zip(("w", "h", "err"), sync, want[0], want32[0])}
+    entry["rescal"] = {name: gap_gate(torch, got, cpu16, cpu16, cpu32, f"distributed_rescal bf16 {name} card vs CPU")
+                       for name, got, cpu16, cpu32 in zip(("a", "r", "err"), res, want[1], want32[1])}
+    entry["masked_vs_cpu"] = {name: gap_gate(torch, got, cpu16, cpu16, cpu32, f"masked bf16 {name} card vs CPU")
+                              for name, got, cpu16, cpu32 in zip(("w", "err"), (w_l, err), want[2], want32[2])}
+    entry["masked_vs_single"] = {
+        name: gap_gate(torch, got, ref_, cpu16, cpu32, f"masked bf16 {name} vs single-device bf16 _nmf_masked")
+        for name, got, ref_, cpu16, cpu32 in zip(("w", "err"), (w_l, err), (single.w, single.rel_error), want[2],
+                                                 want32[2])}
+    if float(w_l[:, 4:].abs().max()) != 0.0:
+        raise AssertionError("masked distributed fit at bf16: masked components are not exactly zero")
+    stray = {name: c for name, c in entry["nmf_launches"].items() if c and name != "mu_update_w[bf16]"}
+    if entry["nmf_launches"]["mu_update_w[bf16]"] != 2 * 100 or stray:
+        raise AssertionError(f"distributed_nmf bf16: launches {entry['nmf_launches']}, want mu_update_w[bf16] "
+                             f"alone, 100 for each of 2 fits")
+    log(json.dumps(entry))
+
+
+def check_sharded_small_bf16(torch, dev, ops, log) -> None:
+    """``check_sharded_small``'s NMFk half at bf16 (``nmf_data(dtype=bf16)``)
+    on a one-rank NCCL mesh: ``nmfk_score_sharded`` sync and pipelined the
+    bits and dtypes of ``nmfk_score_batched`` (float32 silhouettes, bf16
+    ``rel_error``), launching the bf16 kernels only; the bf16 elastic plane
+    (tol 0, warm starts) the unsharded one's scores, sweep counts and
+    warm-start hits."""
+    import torch.distributed as dist
+
+    from repro_torch.factorization.nmfk import nmfk_score_batched, nmfk_score_sharded
+    from repro_torch.factorization.planes import NMFkElasticPlane
+    from repro_torch.factorization.synthetic import nmf_data
+    from repro_torch.launch.mesh import make_wave_mesh
+
+    n, m, p, ks = 96, 104, 4, list(range(2, 9))
+    v, _, _ = nmf_data(n, m, 5, seed=0, device=dev, dtype=torch.bfloat16)
+    entry = {"check": "sharded planes at bf16 on a one-rank NCCL mesh vs unsharded on the card"}
+    with make_wave_mesh(device=dev) as mesh:
+        want = nmfk_score_batched(v, ks, k_pad=8, n_perturbs=p, nmf_iters=120)
+        ops.reset_launch_counts()
+        for comm in ("sync", "pipelined"):
+            got = nmfk_score_sharded(v, ks, mesh=mesh, k_pad=8, n_perturbs=p, nmf_iters=120, comm=comm)
+            if not all(torch.equal(a, b) and a.dtype == b.dtype for a, b in zip(got, want)):
+                raise AssertionError(f"nmfk_score_sharded bf16 {comm} at one rank differs from nmfk_score_batched "
+                                     f"(dtypes {[f.dtype for f in got]} vs {[f.dtype for f in want]})")
+        entry["nmfk_launches"] = counts = ops.launch_counts()
+        runs = []
+        for mm in (None, mesh):
+            plane = NMFkElasticPlane(v, n_perturbs=p, nmf_iters=120, k_pad=8, tol=0.0, chunk=25, mesh=mm)
+            for k in ks:
+                plane.submit(k)
+            scores = drain(plane)
+            runs.append((scores, plane.sweeps_run, plane.sweeps_saved, plane.sweeps_fixed_total, plane.warm_cache.hits))
+        if runs[0] != runs[1] or runs[0][-1] < 1:
+            raise AssertionError(f"bf16 elastic plane at one rank: sharded {runs[1]} vs unsharded {runs[0]}")
+    if dist.is_initialized():
+        raise AssertionError("the sharded phase's process groups outlived it")
+    on = [counts[f"{name}[bf16]"] for name in ("mu_update_h", "mu_update_w", "silhouette_dist_sums_batched")]
+    if min(on) < 1 or any(c for name, c in counts.items() if not name.endswith("[bf16]")):
+        raise AssertionError(f"nmfk_score_sharded bf16 on the card: launches {counts}")
+    entry.update(dtypes=[str(f.dtype) for f in want], nmfk_bitwise=True, elastic_scores=runs[1][0],
+                 elastic_counts=list(runs[1][1:]))
+    log(json.dumps(entry))
+
+
 def check_sharded_small(torch, dev, ops, log) -> None:
     """The sharded planes on a one-rank ``(lane, data)`` mesh (NCCL; the
     default group made by ``make_wave_mesh`` and destroyed on exit) against
@@ -1672,14 +2003,16 @@ def run_distributed_fit_search(torch, ops, ksearch, log) -> dict[str, int]:
 NMFK_PAPER = dict(n=1000, m=1100, k_true=8, k_range=(2, 16), n_perturbs=4, nmf_iters=120, epsilon=0.015,
                   threshold=0.9, workers=4)
 BF16_SIL_FLOOR = 2e-2
+BF16_ULPS2 = 2.0**-6  # two bf16 ulps anywhere in a binade
 NMFK_BF16_EXECUTORS = ("threads", "batched", "elastic")
 
 
-def nmfk_api_search(v, executor: str, draws=None, gate=None):
+def nmfk_api_search(v, executor: str, draws=None, gate=None, mesh=None, comm: str = "sync"):
     """nmfk_paper's search on V through the API, with the launcher's settings
     (4 workers; k_pad 16; elastic: tol 1e-3, chunks of 25, warm starts), at
     V's dtype; returns (result, plane or None). ``gate`` (elastic) wraps the
-    plane's tol gate (``RetireLog``)."""
+    plane's tol gate (``RetireLog``); ``mesh`` and ``comm`` put the batched
+    or elastic plane on a ``(lane, data)`` mesh."""
     from repro_torch.core import binary_bleed_search
     from repro_torch.factorization.nmfk import make_nmfk_evaluator
     from repro_torch.factorization.planes import NMFkBatchPlane, NMFkElasticPlane
@@ -1690,7 +2023,8 @@ def nmfk_api_search(v, executor: str, draws=None, gate=None):
     if executor == "threads":
         return binary_bleed_search(make_nmfk_evaluator(v, 0, **kw), num_resources=c["workers"], **search), None
     k_pad = c["k_range"][1]
-    plane = (NMFkBatchPlane if executor == "batched" else NMFkElasticPlane)(v, 0, k_pad=k_pad, **kw)
+    plane = (NMFkBatchPlane if executor == "batched" else NMFkElasticPlane)(v, 0, k_pad=k_pad, mesh=mesh, comm=comm,
+                                                                           **kw)
     if gate is not None:
         plane._converged = gate(plane._converged)
     return binary_bleed_search(plane, executor=executor, **search), plane
@@ -2028,6 +2362,115 @@ def run_nmfk_bf16(torch, dev, ops, log) -> dict[str, dict[str, int]]:
         if failed:
             raise AssertionError(f"{label}: " + "; ".join(failed))
         out[label] = counts
+    return out
+
+
+def bf16_only(counts: dict[str, int], label: str, want: tuple[str, ...]) -> None:
+    """A bf16 path launches each kernel of ``want`` (their bf16 halves) and no
+    float32 kernel."""
+    missing = [name for name in want if counts[f"{name}[bf16]"] < 1]
+    stray = {name: c for name, c in counts.items() if c and not name.endswith("[bf16]")}
+    if missing or stray:
+        raise AssertionError(f"{label}: bf16 kernels never launched {missing}, float32 kernels launched {stray}")
+
+
+def distributed_fit_search(torch, dev, v, workers: int = 2):
+    """``nmfk_distributed_fit``'s search through the API at V's dtype: the
+    threads executor over ``workers`` one-rank groups, each k's fit also run
+    by ``distributed_nmf`` over the worker's group (``ksearch``'s
+    ``_with_distributed_fit``, its draws at V's dtype)."""
+    from repro_torch.core import binary_bleed_search
+    from repro_torch.factorization.distributed import local_groups
+    from repro_torch.factorization.nmfk import make_nmfk_evaluator
+    from repro_torch.launch import ksearch
+    from repro_torch.launch.mesh import SubmeshPool
+
+    c = NMFK_PAPER
+    evaluate = make_nmfk_evaluator(v, 0, n_perturbs=c["n_perturbs"], nmf_iters=c["nmf_iters"], epsilon=c["epsilon"])
+    with local_groups(dev, workers) as groups:
+        evaluate = ksearch._with_distributed_fit(evaluate, v, 0, c["nmf_iters"], SubmeshPool(groups))
+        return binary_bleed_search(evaluate, c["k_range"], c["threshold"], num_resources=workers)
+
+
+def run_nmfk_dist_bf16(torch, dev, ops, log) -> dict[str, dict[str, int]]:
+    """The bf16 distributed-fit and one-rank-mesh searches at nmfk_paper's
+    widths on bf16 data through the API, each beside its float32 twin
+    through the same API: ``nmfk_distributed_fit_bf16`` (k_optimal 8; MU W
+    launches twice the H ones, the bf16 halves only), and
+    ``nmfk_sharded_bf16`` / ``nmfk_elastic_mesh_bf16`` on a one-rank NCCL
+    mesh (the unsharded bf16 batched and elastic searches' visits and
+    scores bit for bit; elastic also its sweeps and warm-start hits). Wall,
+    device busy share and peak memory of each dtype; counts reset just
+    before the bf16 run, read just after."""
+    import torch.distributed as dist
+
+    from repro_torch.factorization.synthetic import nmf_data
+    from repro_torch.launch.mesh import make_wave_mesh
+
+    c = NMFK_PAPER
+    bf16, fp32 = torch.bfloat16, torch.float32
+    v = {dt: nmf_data(c["n"], c["m"], c["k_true"], seed=0, device=dev, dtype=dt)[0] for dt in (bf16, fp32)}
+    smi, out = smi_line(), {}
+
+    def timed(run, dt):
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = sync_wall(torch)
+        got = run(dt)
+        wall = sync_wall(torch) - t0
+        return got, wall, torch.cuda.max_memory_allocated(), ops.launch_counts()
+
+    def summary(label, runs, busy, extra):
+        entry = {"search": label, "card": smi}
+        for dt, tag in ((bf16, ""), (fp32, "fp32_")):
+            res, wall, peak, counts = runs[dt]
+            res = res[0] if isinstance(res, tuple) else res
+            if res.k_optimal != c["k_true"]:
+                raise AssertionError(f"{label}: {dt} k_optimal {res.k_optimal} != {c['k_true']}")
+            entry.update({f"{tag}k_optimal": res.k_optimal, f"{tag}visited": sorted(res.visited_ks),
+                          f"{tag}wall_s": wall, f"{tag}busy_share": busy[dt], f"{tag}max_memory_allocated": peak,
+                          f"{tag}launches": counts})
+        log(json.dumps({**entry, **extra}))
+
+    label = "nmfk_distributed_fit_bf16"
+    run = lambda dt: distributed_fit_search(torch, dev, v[dt])  # noqa: E731
+    runs = {dt: timed(run, dt) for dt in (bf16, fp32)}
+    counts = runs[bf16][3]
+    bf16_only(counts, label, ("mu_update_h", "mu_update_w", "silhouette_dist_sums"))
+    if counts["mu_update_w[bf16]"] != 2 * counts["mu_update_h[bf16]"]:
+        raise AssertionError(f"{label}: MU launches {counts}, want W twice H")
+    no_bf16_launch(runs[fp32][3], f"{label} (fp32 twin)")
+    busy = {dt: busy_share(torch, lambda dt=dt: run(dt))[0] for dt in (bf16, fp32)}
+    summary(label, runs, busy, {})
+    if dist.is_initialized():
+        raise AssertionError(f"{label}: the search's process groups outlived it")
+    out[label] = counts
+
+    unsharded = {ex: nmfk_api_search(v[bf16], ex) for ex in ("batched", "elastic")}
+    with make_wave_mesh(device=dev) as mesh:
+        for executor, label in (("batched", "nmfk_sharded_bf16"), ("elastic", "nmfk_elastic_mesh_bf16")):
+            run = lambda dt, executor=executor: nmfk_api_search(v[dt], executor, mesh=mesh)  # noqa: E731
+            runs = {dt: timed(run, dt) for dt in (bf16, fp32)}
+            counts = runs[bf16][3]
+            bf16_only(counts, label, ("mu_update_h", "mu_update_w", "silhouette_dist_sums_batched"))
+            no_bf16_launch(runs[fp32][3], f"{label} (fp32 twin)")
+            (res, plane), (want, want_plane) = runs[bf16][0], unsharded[executor]
+            same = [sorted(res.visited_ks), {r.k: r.score for r in res.visits}]
+            if same != [sorted(want.visited_ks), {r.k: r.score for r in want.visits}]:
+                raise AssertionError(f"{label}: visits and scores {same} differ from the unsharded bf16 search's")
+            extra = {"mesh": mesh.shape, "scores": same[1], "same_as_unsharded": True}
+            if executor == "elastic":
+                counted = [(p.sweeps_run, p.sweeps_saved, p.sweeps_fixed_total, p.warm_cache.hits)
+                           for p in (plane, want_plane)]
+                if counted[0] != counted[1] or plane.sweeps_run + plane.sweeps_saved != plane.sweeps_fixed_total:
+                    raise AssertionError(f"{label}: sweeps and warm-start hits {counted[0]} vs unsharded {counted[1]}")
+                extra.update(sweeps_run=plane.sweeps_run, sweeps_saved=plane.sweeps_saved,
+                             sweeps_fixed_total=plane.sweeps_fixed_total, warm_start_hits=plane.warm_cache.hits)
+            busy = {dt: busy_share(torch, lambda dt=dt, run=run: run(dt))[0] for dt in (bf16, fp32)}
+            summary(label, runs, busy, extra)
+            out[label] = counts
+    if dist.is_initialized():
+        raise AssertionError("the bf16 mesh searches' process groups outlived them")
     return out
 
 
@@ -4096,12 +4539,14 @@ SOURCES = {
 }
 
 
-def multi_rank_only() -> int:
+def multi_rank_only(searches_only: bool = False) -> int:
     """``--multi-rank-only``, on a machine with 4 cards: build the kernels,
     run the world-1 searches the 4-rank ones are compared with (batched,
     sharded sync and elastic; twice, in turns), then only the multi-rank
-    phase (``run_multi_rank_searches``, ``run_multi_rank_serves``,
-    ``run_multi_rank_trains``, ``run_train_opts``)."""
+    phase (``run_multi_rank_searches``, with its bf16 searches, then
+    ``run_multi_rank_serves``, ``run_multi_rank_trains``,
+    ``run_train_opts``). ``--multi-rank-only --searches`` stops after the
+    searches."""
     import torch
 
     if torch.cuda.device_count() < 4:
@@ -4128,6 +4573,10 @@ def multi_rank_only() -> int:
     t0 = time.perf_counter()
     by_path = run_multi_rank_searches(torch, log)
     log(f"multi-rank searches: {time.perf_counter() - t0:.1f} s")
+    if searches_only:
+        log(smi_line())
+        log(json.dumps(by_path))
+        return 0
     t0 = time.perf_counter()
     by_path.update(run_multi_rank_serves(torch, dev, log))
     log(f"multi-rank serves: {time.perf_counter() - t0:.1f} s")
@@ -4145,6 +4594,8 @@ def multi_rank_only() -> int:
 def main() -> int:
     if sys.argv[1:2] == ["--rank-search"]:  # one rank of run_multi_rank_searches
         return rank_search(Path(sys.argv[2]))
+    if sys.argv[1:2] == ["--rank-search-bf16"]:  # one rank of run_multi_rank_bf16
+        return rank_search_bf16(Path(sys.argv[2]))
     if sys.argv[1:2] == ["--rank-serve"]:  # one rank of run_multi_rank_serves
         return rank_serve(Path(sys.argv[2]))
     if sys.argv[1:2] == ["--rank-train"]:  # one rank of run_multi_rank_trains
@@ -4153,8 +4604,8 @@ def main() -> int:
         return rank_train_opts(Path(sys.argv[2]))
     if sys.argv[1:2] == ["--dry-run"]:  # the dry run's cells, on the host (run_dry_run)
         return dry_run(Path(sys.argv[2]))
-    if sys.argv[1:] == ["--multi-rank-only"]:
-        return multi_rank_only()
+    if sys.argv[1:] in (["--multi-rank-only"], ["--multi-rank-only", "--searches"]):
+        return multi_rank_only(searches_only=sys.argv[2:] == ["--searches"])
     import torch
 
     if not torch.cuda.is_available():
@@ -4214,7 +4665,9 @@ def main() -> int:
     check_rescal_small(torch, dev, ops, log)
     check_rescal_small_bf16(torch, dev, ops, log)
     check_distributed_small(torch, dev, ops, log)
+    check_distributed_small_bf16(torch, dev, ops, log)
     check_sharded_small(torch, dev, ops, log)
+    check_sharded_small_bf16(torch, dev, ops, log)
 
     by_path = {f"nmfk_{ex}": run_search(torch, ops, ksearch, ex, log) for ex in ("batched", "threads")}
     by_path["nmfk_elastic_oracle"], _ = run_elastic_search(
@@ -4225,6 +4678,7 @@ def main() -> int:
     by_path["nmfk_distributed_fit"] = run_distributed_fit_search(torch, ops, ksearch, log)
     by_path["nmfk_sharded"] = run_search(torch, ops, ksearch, "sharded", log, ("--comm", "sync"), "nmfk_sharded")
     by_path.update(run_nmfk_bf16(torch, dev, ops, log))
+    by_path.update(run_nmfk_dist_bf16(torch, dev, ops, log))
     by_path.update(run_multi_rank_searches(torch, log))
     by_path.update(run_rescalk_searches(torch, dev, ops, log))
     by_path.update({f"kmeans_{ex}": run_kmeans_search(torch, dev, ops, ex, log) for ex in ("threads", "batched")})

@@ -37,6 +37,19 @@ a plain matmul plus ``all_reduce``.
 Init draws are injected: a fit takes the full-shape unscaled draws (W or A
 (n, k), H (k, m) or R (nr, k, k)) and keeps its own rank's rows, so the
 concatenation over ranks is the single-device draw.
+
+The fits run at V's (or X's) dtype, float32 or bfloat16, with the draws at
+that dtype (``check_fit_dtype``: another dtype raises ``TypeError``;
+float16 is queued). At bf16 the W-update is the MU kernel's bf16 half, and
+each rank forms its Grams, V's sum and the residual sums at float32 from
+its bf16 operands (the sums the one-card fit forms, split over the ranks'
+rows); the H-update takes the H kernel's arithmetic from them (G rounded
+once to bf16, the rest float32, one rounding), so at one rank it is the
+one-card fit's. Every sum over ranks (those, the pipelined schedule's
+reduce-scatter and gather, RESCAL's all-reduces of its bf16 products)
+travels at float32 (``wire_dtype``) and is rounded once, so no backend's
+bf16 summation order enters the result. The all-gathers (A, the W rows)
+move values, not sums, at the operands' dtype.
 """
 from __future__ import annotations
 
@@ -49,6 +62,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.kernels import ops as kernel_ops
+from repro_torch.random import check_draws
 
 from .nmf import _active
 from .rescal import _gram_sandwich, _xa
@@ -94,20 +108,31 @@ def check_group(group, *tensors: torch.Tensor) -> None:
         raise ValueError(f"tensors on {next(iter(devices))} need a {want} group, got a {got} group")
 
 
-def check_not_half(what: str, *tensors: torch.Tensor) -> None:
-    """Raise on bfloat16 or float16 operands. The distributed fits run at
-    float32 (or float64): at a half type the float32 init draws would
-    promote the fit silently. Their bf16 half is ROADMAP Queue 1 item 4."""
-    half = sorted({str(t.dtype) for t in tensors if t.dtype in (torch.bfloat16, torch.float16)})
-    if half:
-        raise TypeError(f"{what} takes float32 operands, got {half}; the distributed fits at bf16 are "
-                        f"queued in ROADMAP Queue 1 item 4")
+def check_fit_dtype(what: str, x: torch.Tensor, draws, name: str = "V") -> None:
+    """Raise ``TypeError`` unless the draws have the data's dtype
+    (``random.check_draws``: a float32 draw would promote a bf16 fit) and
+    that dtype is not float16, which is queued in ROADMAP Queue 2 item 4."""
+    if x.dtype == torch.float16:
+        raise TypeError(f"{what} takes float32 or bfloat16 operands, got torch.float16; float16 is queued in "
+                        f"ROADMAP Queue 2 item 4")
+    check_draws(x, draws, name)
+
+
+def wire_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The dtype a sum over ranks travels at: float32 for bf16 operands (one
+    rounding back to bf16 at the end, in any rank count and backend), the
+    operands' own dtype at float32 and above."""
+    return torch.promote_types(dtype, torch.float32)
 
 
 def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
-    """Sum of ``x`` over the group (``x`` is overwritten and returned)."""
+    """Sum of ``x`` over the group (``x`` is overwritten and returned),
+    carried at ``wire_dtype`` and rounded once to x's dtype."""
     if _world(group) > 1:
-        dist.all_reduce(x, group=group)
+        wide = x.to(wire_dtype(x.dtype))
+        dist.all_reduce(wide, group=group)
+        if wide is not x:
+            x.copy_(wide)
     return x
 
 
@@ -300,6 +325,7 @@ def _mu_sweeps(
     """
     check_comm(comm)
     m = v_l.shape[-1]
+    wide = wire_dtype(v_l.dtype)
 
     def mask_h(h):
         return h if active is None else h * active[..., :, None]
@@ -307,24 +333,32 @@ def _mu_sweeps(
     def mask_w(w):
         return w if active is None else w * active[..., None, :]
 
+    def h_update(h, wtv, wtw):
+        # the H kernel's arithmetic from the summed Grams: G = W^T W rounded
+        # once to H's dtype, the rest at the wire dtype, rounded once (at
+        # float32: the plain expression)
+        g, hw = wtw.to(h.dtype).to(wide), h.to(wide)
+        return mask_h((hw * wtv / (g @ hw + _EPS)).to(h.dtype))
+
     def sync_sweep(w_l, h):
-        wt = w_l.transpose(-1, -2)
-        wtv = _all_reduce(wt @ v_l, group)  # (k, m): the pyDNMFk all-reduce
-        wtw = _all_reduce(wt @ w_l, group)  # (k, k)
-        h = mask_h(h * wtv / (wtw @ h + _EPS))
+        # this rank's Grams at the wire dtype (from bf16 operands: the sums the
+        # one-card fit forms, split over the ranks' rows)
+        wt = w_l.transpose(-1, -2).to(wide)
+        wtv = _all_reduce(wt @ v_l.to(wide), group)  # (k, m): the pyDNMFk all-reduce
+        wtw = _all_reduce(wt @ w_l.to(wide), group)  # (k, k)
+        h = h_update(h, wtv, wtw)
         w_l = mask_w(kernel_ops.mu_update_w(v_l, w_l, h))  # local: H replicated
         return w_l, h
 
     def pipe_sweep(w_l, h):
         # fused Gram: one scatter+gather pair in flight instead of two all-reduces
-        gram = w_l.transpose(-1, -2) @ torch.cat([v_l, w_l], dim=-1)  # (k, m + k)
+        gram = w_l.transpose(-1, -2).to(wide) @ torch.cat([v_l, w_l], dim=-1).to(wide)  # (k, m + k)
         # scattered over every fit's k rows at once
         shard, lead, work = ring_psum_start(gram.reshape(-1, gram.shape[-1]), group, async_op=True)
         # overlapped: the purely-local W-update with the stale (this sweep's input) H
         w_new = mask_w(kernel_ops.mu_update_w(v_l, w_l, h))
         full = ring_psum_finish(shard, lead, group, work=work).reshape(gram.shape)
-        wtv, wtw = full[..., :m], full[..., m:]
-        h_new = mask_h(h * wtv / (wtw @ h + _EPS))
+        h_new = h_update(h, full[..., :m], full[..., m:])
         return w_new, h_new
 
     def gated(s, w_l, h, sweep):
@@ -343,11 +377,12 @@ def _mu_sweeps(
     return gated(iters - 1, w_l, h, sync_sweep)
 
 
-def _global_rel_error(sq: torch.Tensor, ref_sq: torch.Tensor, group) -> torch.Tensor:
+def _global_rel_error(sq: torch.Tensor, ref_sq: torch.Tensor, group, dtype: torch.dtype) -> torch.Tensor:
     """sqrt(Σ sq) / max(sqrt(Σ ref_sq), eps) over the group, one all-reduce
-    (sq and ref_sq 0-d, or (B,) for B fits)."""
+    (sq and ref_sq 0-d, or (B,) for B fits, at the wire dtype), rounded
+    once to ``dtype``."""
     both = _all_reduce(torch.stack([sq, ref_sq]), group)
-    return torch.sqrt(both[0]) / torch.clamp(torch.sqrt(both[1]), min=_EPS)
+    return (torch.sqrt(both[0]) / torch.clamp(torch.sqrt(both[1]), min=_EPS)).to(dtype)
 
 
 def _rows(draw: torch.Tensor, n_l: int, group) -> torch.Tensor:
@@ -358,8 +393,8 @@ def _rows(draw: torch.Tensor, n_l: int, group) -> torch.Tensor:
 
 
 def _sq_sum(x: torch.Tensor) -> torch.Tensor:
-    """Σ x² of each fit: 0-d for (n, m), (B,) for (B, n, m)."""
-    return x.square().sum(dim=(-2, -1))
+    """Σ x² of each fit at the wire dtype: 0-d for (n, m), (B,) for (B, n, m)."""
+    return x.to(wire_dtype(x.dtype)).square().sum(dim=(-2, -1))
 
 
 def _dnmf_local(
@@ -373,12 +408,13 @@ def _dnmf_local(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Per-rank NMF body. v_l (n_local, m); w_draw (n, k) full, h_draw (k, m)."""
     n_l, _ = v_l.shape
-    v_mean = _all_reduce(v_l.mean(), group) / _world(group)
+    v_mean = (_all_reduce(v_l.to(wire_dtype(v_l.dtype)).mean(), group) / _world(group)).to(v_l.dtype)
     scale = torch.sqrt(torch.clamp(v_mean, min=_EPS) / k)
     w_l = scale * _rows(w_draw, n_l, group)
     h = scale * h_draw
     w_l, h = _mu_sweeps(v_l, w_l, h, None, iters, group, comm)
-    err = _global_rel_error((v_l - w_l @ h).square().sum(), v_l.square().sum(), group)
+    wide = wire_dtype(v_l.dtype)
+    err = _global_rel_error((v_l - w_l @ h).to(wide).square().sum(), v_l.to(wide).square().sum(), group, v_l.dtype)
     return w_l, h, err
 
 
@@ -399,7 +435,7 @@ def distributed_nmf(
     reductions with the local W-update (see the module docstring).
     """
     check_group(group, v_l, w_draw, h_draw)
-    check_not_half("distributed_nmf", v_l, w_draw, h_draw)
+    check_fit_dtype("distributed_nmf", v_l, (w_draw, h_draw))
     return DistNMFResult(*_dnmf_local(v_l, k, w_draw, h_draw, iters, group, comm))
 
 
@@ -416,7 +452,8 @@ def _drescal_local(
     a_draw (n, k) full, r_draw (nr, k, k)."""
     nr, n_l, _ = x_l.shape
     lo = _rank(group) * n_l
-    x_mean = _all_reduce(x_l.mean(), group) / _world(group)
+    wide = wire_dtype(x_l.dtype)
+    x_mean = (_all_reduce(x_l.to(wide).mean(), group) / _world(group)).to(x_l.dtype)
     scale = torch.sqrt(torch.clamp(x_mean, min=_EPS)) / k
     a_l = scale * _rows(a_draw, n_l, group)
     r = scale * r_draw
@@ -437,10 +474,10 @@ def _drescal_local(
         atxa = _all_reduce(a_l.T @ _xa(x_l, a_full), group)  # (nr, k, k)
         r = r * atxa / (ata @ r @ ata + _EPS)
     a_full_t = ring_all_gather(a_l, group).T
-    sq = x_l.new_zeros(())
+    sq = x_l.new_zeros((), dtype=wide)
     for i in range(nr):  # one (n_local, n) residual at a time
-        sq = sq + (x_l[i] - a_l @ r[i] @ a_full_t).square().sum()
-    err = _global_rel_error(sq, x_l.square().sum(), group)
+        sq = sq + (x_l[i] - a_l @ r[i] @ a_full_t).to(wide).square().sum()
+    err = _global_rel_error(sq, x_l.to(wide).square().sum(), group, x_l.dtype)
     return a_l, r, err
 
 
@@ -456,7 +493,7 @@ def distributed_rescal(
     of X over ``group``, from the full unscaled draws a_draw (n, k) and
     r_draw (nr, k, k)."""
     check_group(group, x_l, a_draw, r_draw)
-    check_not_half("distributed_rescal", x_l, a_draw, r_draw)
+    check_fit_dtype("distributed_rescal", x_l, (a_draw, r_draw), "X")
     return DistRESCALResult(*_drescal_local(x_l, k, a_draw, r_draw, iters, group))
 
 
@@ -486,15 +523,16 @@ def _dnmf_masked_local(
     Returns (w_l, rel_error), rel_error the global ||V - WH||_F / ||V||_F.
     """
     check_group(group, v_l, w_draw, h_draw)
+    check_fit_dtype("_dnmf_masked_local", v_l, (w_draw, h_draw))
     n_l, m = v_l.shape[-2:]
     n_total = _world(group) * n_l
     active = _active(k_eff, k_pad, v_l)
-    v_mean = _all_reduce(v_l.sum(dim=(-2, -1)), group) / (n_total * m)
+    v_mean = (_all_reduce(v_l.to(wire_dtype(v_l.dtype)).sum(dim=(-2, -1)), group) / (n_total * m)).to(v_l.dtype)
     scale = torch.sqrt(torch.clamp(v_mean, min=_EPS) / torch.as_tensor(k_eff, device=v_l.device))[..., None, None]
     w_l = (scale * _rows(w_draw, n_l, group)) * active[..., None, :]
     h = (scale * h_draw) * active[..., :, None]
     w_l, h = _mu_sweeps(v_l, w_l, h, active, iters, group, comm)
-    err = _global_rel_error(_sq_sum(v_l - w_l @ h), _sq_sum(v_l), group)
+    err = _global_rel_error(_sq_sum(v_l - w_l @ h), _sq_sum(v_l), group, v_l.dtype)
     return w_l, err
 
 
@@ -523,9 +561,10 @@ def _dnmf_masked_chunk_local(
     share each sweep's collectives. Returns (w_l, h, rel_error).
     """
     check_group(group, v_l, w_l, h)
+    check_fit_dtype("_dnmf_masked_chunk_local", v_l, (w_l, h))
     active = _active(k_eff, k_pad, v_l)
     w_l, h = _mu_sweeps(v_l, w_l, h, active, chunk, group, comm, steps=steps)
-    err = _global_rel_error(_sq_sum(v_l - w_l @ h), _sq_sum(v_l), group)
+    err = _global_rel_error(_sq_sum(v_l - w_l @ h), _sq_sum(v_l), group, v_l.dtype)
     return w_l, h, err
 
 

@@ -24,6 +24,7 @@ relative error bf16.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Callable, NamedTuple, Sequence
 
@@ -220,6 +221,7 @@ def _dist_fits(
     (the reference's vmap over lanes and perturbations)."""
     from .distributed import _dnmf_masked_local, _rows, ring_all_gather
 
+    check_draws(v_l, draws)
     b, p, n, m = draws.noise.shape
     n_l = v_l.shape[0]
     vp_l = _perturb(v_l, _rows(draws.noise, n_l, data_group)).reshape(b * p, n_l, m)
@@ -282,8 +284,10 @@ def nmfk_score_sharded(
     sums under ``comm="sync"``, and to the staleness of the overlapped
     schedule under ``"pipelined"``). The three score fields are then
     all-gathered over ``mesh.lane_group``, so every rank returns the whole
-    wave's scores. Lane k draws from ``draws(k, k_pad)`` (default
-    ``seeded_draws(seed, ...)``), as in ``nmfk_score_batched``.
+    wave's scores, each field at the dtype ``nmfk_score_batched`` gives it
+    (the silhouettes float32 at bf16, ``rel_error`` at V's dtype). Lane k
+    draws from ``draws(k, k_pad)`` (default ``seeded_draws(seed, ...)`` at
+    V's dtype), as in ``nmfk_score_batched``.
 
     Requires ``len(ks)`` divisible by the lane count (the planes pad the
     wave to a lane multiple) and, with ``data > 1``, V's rows divisible by
@@ -312,8 +316,11 @@ def nmfk_score_sharded(
         sc = _pooled_w_score(w_all, errs, ks_t, k_pad)
     if mesh is None:
         return sc
-    gathered = ring_all_gather(torch.stack(list(sc), dim=1), mesh.lane_group)  # (len(ks), 3)
-    return NMFkScore(*gathered.unbind(dim=1))
+    # one gather of the three fields, at the widest field's dtype (exact: a
+    # bf16 rel_error widens to float32 without rounding), each cast back
+    wide = functools.reduce(torch.promote_types, (field.dtype for field in sc))
+    gathered = ring_all_gather(torch.stack([field.to(wide) for field in sc], dim=1), mesh.lane_group)
+    return NMFkScore(*(g.to(field.dtype) for g, field in zip(gathered.unbind(dim=1), sc)))
 
 
 # ---------------------------------------------------------------------------
@@ -391,9 +398,13 @@ def elastic_chunk(
     each lane's own perturbed V: the convergence signal the tol gate tests
     on the host. vp, w and h share one dtype (the plane's V's).
     """
+    _check_one_dtype(vp, w, h)
+    return _masked_sweeps(vp, w, h, k_eff, k_pad, chunk, steps=steps)
+
+
+def _check_one_dtype(vp: torch.Tensor, w: torch.Tensor, h: torch.Tensor) -> None:
     if not vp.dtype == w.dtype == h.dtype:
         raise TypeError(f"an elastic chunk takes vp, w and h of one dtype, got {vp.dtype}, {w.dtype}, {h.dtype}")
-    return _masked_sweeps(vp, w, h, k_eff, k_pad, chunk, steps=steps)
 
 
 def elastic_chunk_sharded(
@@ -417,10 +428,11 @@ def elastic_chunk_sharded(
     ``_dnmf_masked_chunk_local`` over ``data_group``: each sweep's Gram sums
     (of every lane at once) and the residuals are all-reduced, so the
     returned rel_error is each whole lane's, equal on every rank of the
-    group.
+    group. vp, w and h share one dtype, as in ``elastic_chunk``.
     """
     from .distributed import _dnmf_masked_chunk_local, _world
 
+    _check_one_dtype(vp, w, h)
     if _world(data_group) == 1:
         return elastic_chunk(vp, w, h, k_eff, steps, k_pad, chunk)
     return _dnmf_masked_chunk_local(vp, w, h, k_eff, k_pad, chunk, data_group, comm, steps)

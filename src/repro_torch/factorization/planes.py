@@ -616,11 +616,15 @@ class NMFkElasticPlane:
             self._w[:per] = w_new
             self._h[:per] = h_new
             # the tick's one collective and one device read: every lane's
-            # (rel_error, sweeps applied), in slot order
-            report = ring_all_gather(torch.stack([errs, steps.to(errs.dtype)], dim=1), self._lane_group())
+            # (rel_error, sweeps applied), in slot order, at float32 or wider
+            # (a bf16 error widens exactly; a bf16 sweep count above 256
+            # would round)
+            wide = torch.promote_types(errs.dtype, torch.float32)
+            report = ring_all_gather(torch.stack([errs.to(wide), steps.to(wide)], dim=1), self._lane_group())
             report_host = report.tolist()
         if [int(r[1]) for r in report_host] != steps_host:
             raise RuntimeError("the lane blocks' sweeps differ from the plan every rank shares")
+        lane_errs = report[:, 0].to(errs.dtype)  # each lane's error at V's dtype, for the pooled score
 
         retire: list[tuple[int, int]] = []
         for b in range(lanes):
@@ -640,7 +644,7 @@ class NMFkElasticPlane:
         if retire:
             w_retired = self._gather_retired(retire)
             for b, j in sorted(retire, reverse=True):
-                self._finish_lane(self._slot[b][j], w_retired[(b, j)], report[b * per + j, 0])
+                self._finish_lane(self._slot[b][j], w_retired[(b, j)], lane_errs[b * per + j])
                 self._free_slot(b, j)
         out, self._ready = self._ready, []
         return out

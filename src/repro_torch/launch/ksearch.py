@@ -295,13 +295,14 @@ def _with_distributed_fit(score, v, seed: int, iters: int, pool: SubmeshPool):
 
     The fit runs over the calling *worker's* leased group (a worker-identity
     resource: keying on k would put concurrent workers on one group), from
-    the first draws of ``lane_generator(seed, k)``; its result is not used.
+    the first draws of ``lane_generator(seed, k)`` at V's dtype; its result
+    is not used.
     """
     n, m = v.shape
 
     def evaluate(k: int, should_abort=None) -> float:
         group = pool.acquire()
-        w_draw, h_draw = init_draws(lane_generator(seed, int(k), v.device), n, m, int(k))
+        w_draw, h_draw = init_draws(lane_generator(seed, int(k), v.device), n, m, int(k), dtype=v.dtype)
         distributed_nmf(shard_rows(v, group), int(k), w_draw, h_draw, group, iters=iters)
         return score(k, should_abort)
 

@@ -104,23 +104,25 @@ def reference_rescal_draw_source(key, n: int, nr: int, n_perturbs: int, epsilon:
     return draw
 
 
-def dnmf_draws(key, n: int, m: int, k: int, shards: int) -> tuple[np.ndarray, np.ndarray]:
+def dnmf_draws(key, n: int, m: int, k: int, shards: int, dtype=jnp.float32) -> tuple[np.ndarray, np.ndarray]:
     """Full-shape unscaled W (n, k) / H (k, m) of ``_dnmf_local`` over
-    ``shards`` row blocks: shard i draws its rows from ``fold_in(kw, i)``,
-    so the full W is their concatenation; H is ``kh``'s, on every shard."""
+    ``shards`` row blocks, at V's dtype: shard i draws its rows from
+    ``fold_in(kw, i)``, so the full W is their concatenation; H is ``kh``'s,
+    on every shard."""
     kw, kh = jax.random.split(key)
     rows = n // shards
-    w = np.concatenate([uniform(jax.random.fold_in(kw, i), (rows, k), 0.1, 1.0) for i in range(shards)])
-    return w, uniform(kh, (k, m), 0.1, 1.0)
+    w = np.concatenate([uniform(jax.random.fold_in(kw, i), (rows, k), 0.1, 1.0, dtype) for i in range(shards)])
+    return w, uniform(kh, (k, m), 0.1, 1.0, dtype)
 
 
-def drescal_draws(key, n: int, nr: int, k: int, shards: int) -> tuple[np.ndarray, np.ndarray]:
+def drescal_draws(key, n: int, nr: int, k: int, shards: int, dtype=jnp.float32) -> tuple[np.ndarray, np.ndarray]:
     """Full-shape unscaled A (n, k) / R (nr, k, k) of ``_drescal_local`` over
-    ``shards`` entity-row blocks (A's rows from ``fold_in(ka, i)``)."""
+    ``shards`` entity-row blocks (A's rows from ``fold_in(ka, i)``), at X's
+    dtype."""
     ka, kr = jax.random.split(key)
     rows = n // shards
-    a = np.concatenate([uniform(jax.random.fold_in(ka, i), (rows, k), 0.1, 1.0) for i in range(shards)])
-    return a, uniform(kr, (nr, k, k), 0.1, 1.0)
+    a = np.concatenate([uniform(jax.random.fold_in(ka, i), (rows, k), 0.1, 1.0, dtype) for i in range(shards)])
+    return a, uniform(kr, (nr, k, k), 0.1, 1.0, dtype)
 
 
 def reference_shapes(jp) -> dict[str, tuple[int, ...]]:

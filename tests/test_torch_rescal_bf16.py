@@ -9,7 +9,8 @@ score takes the silhouette without the kernel; here it is patched to
 columns), the route the port computes on every device. So:
 
 - a bf16 X is fitted at bf16 with draws at its dtype, and draws of another
-  dtype raise; the distributed fits refuse bf16 (ROADMAP Queue 1 item 4);
+  dtype raise, also in the distributed fits (float16 is queued: ROADMAP
+  Queue 2 item 4);
 - each k's silhouette is held to the reference's within twice the
   reference's own bf16-vs-fp32 gap (floor ``GAP_FLOOR``), its relative
   error likewise or within two bf16 ulps;
@@ -120,19 +121,30 @@ def test_draws_of_another_dtype_raise(data, entry):
 
 
 @pytest.mark.parametrize("fit", ["distributed_rescal", "distributed_nmf"])
-def test_distributed_fits_refuse_bf16(fit):
-    """The distributed fits stay float32: a bf16 X or V raises, naming the
-    queue item, instead of meeting float32 draws and promoting."""
+def test_distributed_fits_take_bf16_with_draws_at_its_dtype(fit):
+    """The distributed fits run at bf16 on bf16 draws (ROADMAP Queue 1 item
+    4); draws of another dtype raise instead of promoting the fit, and
+    float16 raises, naming its queue item."""
     gen = seeded_generator(0, CPU)
     if fit == "distributed_rescal":
-        a, r = rescal_init_draws(gen, 8, 2, 3)
-        call = functools.partial(tdist.distributed_rescal, torch.rand((2, 8, 8), generator=gen).bfloat16(), 3, a, r,
-                                 iters=2)
+        x = torch.rand((2, 8, 8), generator=gen).bfloat16()
+        a, r = rescal_init_draws(gen, 8, 2, 3, dtype=torch.bfloat16)
+
+        def call(x, a, r):
+            return tdist.distributed_rescal(x, 3, a, r, iters=2)
+        operands = (x, a, r)
     else:
         v = torch.rand((8, 6), generator=gen).bfloat16()
-        call = functools.partial(tdist.distributed_nmf, v, 3, torch.rand((8, 3)), torch.rand((3, 6)), iters=2)
-    with pytest.raises(TypeError, match="Queue 1 item 4"):
-        call()
+        w, h = torch.rand((8, 3), generator=gen).bfloat16(), torch.rand((3, 6), generator=gen).bfloat16()
+
+        def call(v, w, h):
+            return tdist.distributed_nmf(v, 3, w, h, iters=2)
+        operands = (v, w, h)
+    assert {t.dtype for t in call(*operands)} == {torch.bfloat16}
+    with pytest.raises(TypeError, match="dtype"):
+        call(operands[0], *(t.float() for t in operands[1:]))
+    with pytest.raises(TypeError, match="Queue 2 item 4"):
+        call(*(t.half() for t in operands))
 
 
 def test_float32_keeps_its_bits():
